@@ -1,0 +1,326 @@
+"""Smoke run of the PyTorch port on one NVIDIA H100: build, check, solve.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout and needs one CUDA card of compute
+capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
+
+1. the card (``nvidia-smi``) and the torch / CUDA versions;
+2. the build of ``gqmap_tpu_torch/csrc/*.cu`` with its time; a second build
+   must be a cache hit;
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   the main path gives it: K1 (cosine mode sums) on the coefficient field of
+   a 77x300 crop and of the full 376x452 frame, K2 (reduced edge gradients)
+   on the full edge lattice; float64 within 1e-10 of each output's largest
+   magnitude, float32 within 2e-4 of it plus 2e-5 relative; K2 also at the
+   |rho| clamp, where cancellation costs ~eps/(1-rho^2) in any precision:
+   there each f32 version is held to the f64 golden (kernel error at most
+   twice the plain version's); CUDA-event times of kernel and plain version;
+4. one full 376x452 sweep from the same state three ways (kernels f32, plain
+   f32, plain f64 = the golden), from the random init and from a converged-
+   width state (sigma = 0.05): the kernel arm's error against the golden
+   must be at most twice the plain f32 arm's;
+5. the slice: ``solve(GQMAPConfig.tpu_fast(its=900, eval_every=300), ...)``
+   on the synthetic 376x452 pair (smoothed noise, I2 = I1 shifted one pixel
+   right: u=1, v=0) with both kernels' launch counters reset just before it;
+   the energy must stay finite, the AEPE at it=900 be at most half that at
+   it=1, and each counter equal the sweep count. Then ms/sweep of 300-sweep
+   segments from init and converged, and the peak device memory.
+
+It prints the kernels' record as one JSON line before the last, and last
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+that line; so does a machine without a CUDA card.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H, W = 376, 452          # frame size of the synthetic pair (bench.py)
+FR = (-10.0, 2.0, -2.0, 2.0)  # flow range: the constant GT gives a degenerate box
+F64_TOL = 1e-10
+F32_TOL = (2e-4, 2e-5)   # (of the output's largest magnitude, relative)
+FAILURES = []
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def require(ok, what):
+    log(f"  [{'ok' if ok else 'FAIL'}] {what}")
+    if not ok:
+        FAILURES.append(what)
+
+
+def synthetic_pair():
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (H, W))
+    k = np.ones(5) / 5
+    I1 = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 0, I1)
+    I1 = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 1, I1)
+    I2 = np.roll(I1, 1, axis=1)
+    gt = np.zeros((H, W, 2))
+    gt[..., 0] = 1.0
+    return I1, I2, gt
+
+
+def time_ms(fn, n):
+    """Mean device time of ``fn`` over ``n`` calls after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def compare(got, want, dtype):
+    """(max abs error, max error / largest |want|, within tolerance) over outputs."""
+    abs_err, rel_err, ok = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        abs_err = max(abs_err, float(err.max()))
+        rel_err = max(rel_err, float(err.max()) / max(scale, 1e-300))
+        if dtype == torch.float64:
+            ok &= float(err.max()) <= F64_TOL * scale
+        else:
+            ok &= bool((err <= F32_TOL[0] * scale + F32_TOL[1] * b.abs()).all())
+    return abs_err, rel_err, ok
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
+    from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
+    from gqmap_tpu_torch.kernels import build, cosine_gq, edge_reduced_gq
+    from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.ops.gq import EDGE
+
+    dev = torch.device("cuda", 0)
+    k1_fn, k2_fn = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
+
+    # ---- 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+        f"{torch.cuda.get_device_name(0)}, capability {cap}, count {torch.cuda.device_count()}")
+
+    # ---- 2. the build
+    log("phase build")
+    t = time.time()
+    path, built = build.build_library()
+    log(f"  {'built' if built else 'cache hit'} {os.path.relpath(path)} in "
+        f"{time.time() - t:.3f} s")
+    with open(path[:-3] + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
+    t = time.time()
+    _, built2 = build.build_library()
+    require(not built2, f"second build is a cache hit ({time.time() - t:.4f} s)")
+    build.load_library()
+
+    I1, I2, gt = synthetic_pair()
+    fr = FlowRange(*FR)
+    cfg32 = GQMAPConfig.tpu_fast(its=900, eval_every=300)
+    cfg64 = GQMAPConfig.tpu_fast(its=900, eval_every=300, dtype="float64")
+    k1 = 2 * cfg32.K + 3
+    t = time.time()
+    prob = {torch.float32: pg.make_problem(cfg32, I1, I2, fr, dev),
+            torch.float64: pg.make_problem(cfg64, I1, I2, fr, dev)}
+    torch.cuda.synchronize()
+    log(f"make_problem f32 + f64 (coefficient fields {tuple(prob[torch.float32].cheb.coeffs.shape)})"
+        f": {time.time() - t:.3f} s")
+    st64 = pg.init_state(cfg64, fr, (H, W), seed=0, device=dev)
+    conv64 = st64._replace(sigmau=torch.full_like(st64.sigmau, 0.05),
+                           sigmav=torch.full_like(st64.sigmav, 0.05))
+
+    def cast(st, dtype):
+        return pg.GQState(*(x.to(dtype) if x.is_floating_point() else x for x in st))
+
+    # ---- 3. kernels against their plain versions
+    log("phase kernels")
+    record = {}
+    crop = {dt: pg.make_problem(c, I1[:77, :300], I2[:77, :300], fr, dev)
+            for dt, c in ((torch.float32, cfg32), (torch.float64, cfg64))}
+    for label, probs in (("77x300", crop), ("376x452", prob)):
+        for dtype in (torch.float64, torch.float32):
+            p = probs[dtype]
+            M, N = p.I1.shape
+            for sname, st in (("init", st64), ("converged", conv64)):
+                s = cast(st, dtype)
+                sites = (s.muu[:, :M, :N].contiguous(), s.muv[:, :M, :N].contiguous(),
+                         s.sigmau[:, :M, :N].contiguous(), s.sigmav[:, :M, :N].contiguous(),
+                         s.pn[:, :M, :N].contiguous())
+                got = k1_fn(p.cheb, *sites)
+                want = cosine_gq.cos_mode_sums_torch(p.cheb, *sites)
+                a, r, ok = compare(got, want, dtype)
+                require(ok, f"K1 {label} {str(dtype)[6:]} {sname}: max abs err {a:.3e}, "
+                            f"rel {r:.3e}")
+                if label == "376x452" and dtype == torch.float32 and sname == "converged":
+                    ms = time_ms(lambda: k1_fn(p.cheb, *sites), 20)
+                    pms = time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 3)
+                    record["K1"] = dict(max_abs_err=a, ms=ms, plain_ms=pms)
+                    log(f"  K1 376x452 f32: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                if label == "376x452" and dtype == torch.float64 and sname == "converged":
+                    log(f"  K1 376x452 f64: kernel {time_ms(lambda: k1_fn(p.cheb, *sites), 3):.4f}"
+                        f" ms, plain "
+                        f"{time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 1):.4f} ms")
+
+    g = torch.Generator().manual_seed(1)
+
+    def rand(lo, hi, like):
+        return (lo + (hi - lo) * torch.rand(like.shape, generator=g, dtype=torch.float64)
+                ).to(dev)
+
+    sign = torch.where(rand(0, 1, st64.rou) < 0.5, -1.0, 1.0)
+    k2_probes = {
+        "init": st64,  # rho = 0, sigma at its init width
+        "warm": conv64._replace(rou=rand(-0.9, 0.9, st64.rou)),
+        # the corr_tor corner (1 - 1e-5) that converged runs reach: 1/(1-rho^2) ~ 5e4
+        "clamp": st64._replace(rou=0.99999 * sign, sigmau=rand(0.01, 3, st64.sigmau),
+                               sigmav=rand(0.01, 3, st64.sigmav)),
+    }
+
+    def edge_args(st, dtype):
+        s = cast(st, dtype)
+        mu = torch.stack([s.muu, s.muv])
+        sg = torch.stack([s.sigmau, s.sigmav])
+        u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
+        o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+        T = torch.tensor(0.0, dtype=dtype, device=dev)
+        return (mu, sg, u2e, o2e, s.rou, torch.softmax(s.w, 0), T, k1, cfg32.lambdas,
+                cfg32.epsn, EDGE)
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    for dtype in (torch.float64, torch.float32):
+        for sname, st in k2_probes.items():
+            args = edge_args(st, dtype)
+            got = k2_fn(*args)[:6]
+            want = edge_reduced_gq.edge_reduced_grads_torch(*args)[:6]
+            a, r, ok = compare(got, want, dtype)
+            shape = tuple(args[2].shape)
+            if sname == "clamp" and dtype == torch.float64:
+                # at the clamp every evaluation loses ~eps/(1-rho^2) to
+                # cancellation (Z1 - p Z2, the c of nearly equal sigmas), so
+                # two f64 summation orders differ by far more than 1e-10 and
+                # f64 has no golden here: reported, checked in f32 below
+                log(f"  K2 {shape} float64 clamp (not checked): max abs err {a:.3e}, "
+                    f"rel {r:.3e}")
+            elif sname == "clamp":
+                # each f32 version is held to the f64 golden on the same
+                # inputs: kernel error <= 2 x plain error
+                gold = edge_reduced_gq.edge_reduced_grads_torch(
+                    *(x.double() if isinstance(x, torch.Tensor) else x for x in args))[:6]
+                ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                require(ek <= 2.0 * ep, f"K2 {shape} float32 clamp: error vs f64 golden "
+                                        f"kernel {ek:.3e} <= 2 x plain {ep:.3e} "
+                                        f"(kernel vs plain max abs {a:.3e})")
+            else:
+                require(ok, f"K2 {shape} {str(dtype)[6:]} {sname}: max abs err {a:.3e}, "
+                            f"rel {r:.3e}")
+            if sname == "warm":
+                ms = time_ms(lambda: k2_fn(*args), 50)
+                pms = time_ms(lambda: edge_reduced_gq.edge_reduced_grads_torch(*args), 5)
+                log(f"  K2 {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                if dtype == torch.float32:
+                    record["K2"] = dict(max_abs_err=a, ms=ms, plain_ms=pms)
+
+    # ---- 4. one full sweep, three ways
+    log("phase sweep")
+    gold = pg.make_sweep(dataclasses.replace(cfg64, node_kernel="torch", edge_kernel="torch"),
+                         (H, W))
+    plain32 = pg.make_sweep(dataclasses.replace(cfg32, node_kernel="torch",
+                                              edge_kernel="torch"), (H, W))
+    kern32 = pg.make_sweep(dataclasses.replace(cfg32, node_kernel="cuda", edge_kernel="cuda"),
+                           (H, W))
+    fields = ("muu", "muv", "sigmau", "sigmav", "pn", "rou")
+    for sname, st in (("init", st64), ("converged", conv64)):
+        g, gaux = gold(prob[torch.float64], st)
+        errs = {}
+        for arm, sw in (("plain f32", plain32), ("kernel f32", kern32)):
+            o, aux = sw(prob[torch.float32], cast(st, torch.float32))
+            errs[arm] = max(float((getattr(o, f).double() - getattr(g, f)).abs().mean())
+                            for f in fields)
+            e_rel = abs(float(aux.energy) - float(gaux.energy)) / abs(float(gaux.energy))
+            log(f"  {sname} {arm}: mean |state - golden| (worst field) {errs[arm]:.3e}, "
+                f"energy rel err {e_rel:.3e}")
+        require(errs["kernel f32"] <= 2.0 * errs["plain f32"],
+                f"sweep {sname}: kernel f32 error {errs['kernel f32']:.3e} <= 2 x plain f32 "
+                f"error {errs['plain f32']:.3e}")
+
+    # ---- 5. the slice, through the user entry point
+    log("phase solve")
+    del crop, prob, gold, plain32, kern32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    k1_fn.launches = 0
+    k2_fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    res = solve(cfg32, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {"K1": k1_fn.launches, "K2": k2_fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    require(res.iters == 900, f"solve ran {res.iters} sweeps (900 asked)")
+    require(bool(np.isfinite(res.Energy[:res.iters]).all()), "energy finite over every sweep")
+    a1, a900 = res.AEPE[0], res.AEPE[res.iters - 1]
+    require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
+                                    "(at most half)")
+    require(launches == {"K1": res.iters, "K2": res.iters},
+            f"launch counters {launches} equal the sweep count {res.iters}")
+    log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
+        f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
+        f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
+
+    p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
+    seg = pg.make_segment_runner(dataclasses.replace(cfg32, tor=0.0), (H, W))
+    st32 = cast(st64, torch.float32)
+    for sname, st in (("from init", st32),
+                      ("converged", st32._replace(sigmau=torch.full_like(st32.sigmau, 0.05),
+                                                  sigmav=torch.full_like(st32.sigmav, 0.05)))):
+        st, *_ = seg(p32, st, 10)
+        ms = time_ms(lambda: seg(p32, st, 300), 1) / 300
+        log(f"  segment {sname}: {ms:.4f} ms/sweep (300-sweep segment, CUDA events)")
+        record.setdefault("segment_ms_per_sweep", {})[sname] = ms
+
+    kernels = [
+        dict(name="cos_mode_sums (K1)", route="cuda", source="gqmap_tpu_torch/csrc/cosine_gq.cu",
+             replaces="gqmap_tpu/kernels/cosine_gq.py:305", launches=launches["K1"],
+             **record["K1"]),
+        dict(name="edge_reduced_grads (K2)", route="cuda",
+             source="gqmap_tpu_torch/csrc/edge_reduced_gq.cu",
+             replaces="gqmap_tpu/kernels/edge_reduced_gq.py:113", launches=launches["K2"],
+             **record["K2"]),
+    ]
+    if FAILURES:
+        log(f"chip_smoke FAILED: {FAILURES}")
+        raise SystemExit(1)
+    log(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

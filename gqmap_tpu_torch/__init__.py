@@ -1,0 +1,15 @@
+"""gqmap_tpu_torch: the GQMAP engine in PyTorch, with hand-written CUDA kernels.
+
+The port of ``gqmap_tpu`` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
+It mirrors the JAX package's layout (``ops/``, ``kernels/``, ``models/``) and
+never imports JAX; the JAX package is the reference its tests compare with.
+So far it runs the ``GQMAPConfig.tpu_fast()`` main path; the CUDA kernels
+(``csrc/*.cu``) are built with ``nvcc`` at first use on the GPU.
+"""
+
+from .config import FlowRange, GQMAPConfig
+from .models.gqmap import GQState, SolveResult, solve
+
+__version__ = "0.1.0"
+
+__all__ = ["GQMAPConfig", "FlowRange", "GQState", "SolveResult", "solve"]

@@ -1,0 +1,44 @@
+"""Build the port's ``Problem`` and ``GQState`` from numpy arrays.
+
+The parity tests run the JAX package and the port on identical inputs and an
+identical initial state (``jax.random`` and ``torch.Generator`` give different
+bits from one seed). The JAX objects cross over as numpy arrays, e.g.
+``{k: np.asarray(v) for k, v in jax_state._asdict().items()}``, so this
+module needs nothing from JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .config import FlowRange
+from .models.gqmap import GQState, Problem
+from .ops.cosine import CosData
+
+__all__ = ["problem_from_numpy", "state_from_numpy"]
+
+
+def _t(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def problem_from_numpy(fields: Mapping, device="cpu") -> Problem:
+    """``fields``: ``I1``, ``I2_tab``, ``interior`` (arrays), ``rng`` (four
+    floats: minu, maxu, minv, maxv) and ``cheb`` (a mapping of the
+    ``CosData`` fields ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``)."""
+    c = fields["cheb"]
+    cheb = CosData(coeffs=_t(c["coeffs"], device),
+                   **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
+    return Problem(I1=_t(fields["I1"], device), I2_tab=_t(fields["I2_tab"], device),
+                   interior=_t(fields["interior"], device).to(torch.bool),
+                   rng=FlowRange(*(float(x) for x in fields["rng"])), cheb=cheb)
+
+
+def state_from_numpy(fields: Mapping, device="cpu") -> GQState:
+    """``fields``: one array per ``GQState`` field; ``it`` becomes int32."""
+    st = {k: _t(fields[k], device) for k in GQState._fields}
+    st["it"] = st["it"].to(torch.int32)
+    return GQState(**st)

@@ -1,0 +1,118 @@
+"""Build and load the hand-written Hopper kernels (``gqmap_tpu_torch/csrc/*.cu``).
+
+All CUDA sources compile with ``nvcc`` into ONE shared library with a plain
+C interface, loaded with :mod:`ctypes` at first use:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o gqmap_tpu_torch/_build/libgqmap_kernels_<hash>.so csrc/*.cu
+
+The file name carries a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is a cache hit. The library is written under a
+temporary name and renamed into place, so concurrent first uses do not
+collide. A missing ``nvcc`` or a failed build raises; there is no fallback.
+The compiler's report (``-Xptxas -v``: registers and spills per kernel) is
+kept beside the library as ``<name>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["build_library", "library_path", "load_library", "check", "NVCC_FLAGS"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_SIGNATURES = {
+    # sp, coeffs, out, L, S, A, B, device, stream
+    "gqmap_cos_mode_sums_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gqmap_cos_mode_sums_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # mu, sg, u2e, o2e, rou, alpha, T, tab, out, DC, C, L, S, K1, lam, eps, es, device, stream
+    "gqmap_edge_reduced_f32": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
+    "gqmap_edge_reduced_f64": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
+}
+
+
+def _find_nvcc() -> str:
+    cands = [os.path.join(os.environ[v], "bin", "nvcc")
+             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list[str]:
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _sources():
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libgqmap_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build_library(timeout: float = 900.0) -> tuple[str, bool]:
+    """Compile the kernels if needed. Returns ``(path, built)``; ``built`` is
+    False when the library for these sources already existed (cache hit)."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, False
+    nvcc = _find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=".tmp_", suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
+                              capture_output=True, text=True, timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        with open(path[:-3] + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path, True
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's ``argtypes``/``restype`` declared."""
+    path, _ = build_library()
+    lib = ctypes.CDLL(path)
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.gqmap_error_string.argtypes = [ctypes.c_int]
+    lib.gqmap_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = load_library().gqmap_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,79 @@
+"""Kernel K1: the six cosine mode sums of the node term, on the card.
+
+Counterpart of ``gqmap_tpu/kernels/cosine_gq.py`` (``cos_mode_sums_pallas``).
+The CUDA kernel is ``gqmap_tpu_torch/csrc/cosine_gq.cu``; its plain PyTorch
+version is :func:`gqmap_tpu_torch.ops.cosine._mode_sums`, re-exported here
+as :func:`cos_mode_sums_torch`.
+
+* :func:`cos_mode_sums_cuda` launches the kernel (and raises for tensors that
+  are not on a CUDA device); ``cos_mode_sums_cuda.launches`` counts its
+  launches.
+* :func:`cos_mode_sums` launches the kernel for CUDA tensors and runs the
+  plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.cosine import CosData
+from ..ops.cosine import _mode_sums as cos_mode_sums_torch
+from . import build
+
+__all__ = ["cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch", "MAX_L"]
+
+MAX_L = 4  # mixture components the kernel is instantiated for (csrc/cosine_gq.cu)
+
+
+def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p):
+    """Kernel K1 on ``(L, M, N)`` site tensors and ``(A, B, M, N)`` coefficients.
+
+    Computes the phases and scales (``ph = k (mu - lo)``, ``s = k sigma``) in
+    torch, stacks them as one ``(5, L, M, N)`` input and returns the six
+    ``(L, M, N)`` sums ``(E0, A1, A2, Aa, Ab, Ax)``.
+    """
+    coeffs = cos.coeffs
+    if coeffs.device.type != "cuda":
+        raise RuntimeError("cos_mode_sums_cuda needs CUDA tensors; "
+                           f"the coefficient field is on {coeffs.device}")
+    if coeffs.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cos_mode_sums_cuda takes float32 or float64, not {coeffs.dtype}")
+    if coeffs.ndim != 4 or not coeffs.is_contiguous():
+        raise ValueError(f"coefficients must be a contiguous (A, B, M, N) tensor, "
+                         f"got shape {tuple(coeffs.shape)}")
+    A, B, M, N = coeffs.shape
+    for x in (u1, u2, o1, o2, p):
+        if x.device != coeffs.device or x.dtype != coeffs.dtype:
+            raise ValueError("site tensors must share the coefficients' device and dtype")
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    if len(site) != 3 or tuple(site[1:]) != (M, N):
+        raise ValueError(f"site shape {tuple(site)} is not (L, {M}, {N})")
+    L = site[0]
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"cos_mode_sums_cuda supports 1 <= L <= {MAX_L}, got L={L}")
+
+    ku = math.pi / (cos.hi_u - cos.lo_u)
+    kv = math.pi / (cos.hi_v - cos.lo_v)
+    sp = torch.stack([x.expand(site) for x in
+                      (ku * (u1 - cos.lo_u), kv * (u2 - cos.lo_v), ku * o1, kv * o2, p)])
+    out = torch.empty((6, L, M, N), dtype=coeffs.dtype, device=coeffs.device)
+    lib = build.load_library()
+    fn = (lib.gqmap_cos_mode_sums_f32 if coeffs.dtype == torch.float32
+          else lib.gqmap_cos_mode_sums_f64)
+    stream = torch.cuda.current_stream(coeffs.device).cuda_stream
+    build.check(fn(sp.data_ptr(), coeffs.data_ptr(), out.data_ptr(), L, M * N, A, B,
+                   coeffs.device.index, stream), "cos_mode_sums_cuda")
+    cos_mode_sums_cuda.launches += 1
+    return tuple(out.unbind(0))
+
+
+cos_mode_sums_cuda.launches = 0
+
+
+def cos_mode_sums(cos: CosData, u1, u2, o1, o2, p):
+    """Kernel K1 for CUDA tensors, its plain version for CPU tensors."""
+    if cos.coeffs.device.type == "cpu":
+        return cos_mode_sums_torch(cos, u1, u2, o1, o2, p)
+    return cos_mode_sums_cuda(cos, u1, u2, o1, o2, p)

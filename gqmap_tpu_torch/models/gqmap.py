@@ -1,0 +1,492 @@
+"""The GQMAP variational inference engine, main-path slice, in PyTorch.
+
+Port of ``gqmap_tpu/models/gqmap.py`` for the ``GQMAPConfig.tpu_fast()``
+path: the closed-form cosine data term (kernel K1), reduced 1-D Charbonnier
+edge quadrature (kernel K2), the Stein estimator, a synchronous Jacobi sweep
+(``gqmap_gpu_mixture.m:29-46``) and the softmax-natural alpha update, with a
+MAP / logP / AEPE readout at it=1 and then every ``eval_every`` sweeps.
+
+Differences from the JAX engine, none of which changes a result:
+
+* PyTorch runs eagerly, so there is no jit and no on-device while loop: the
+  segment runner is a host loop that reads one device flag per sweep to
+  apply the reference's early stop (``it > its || mean|dmu| < tor``, ``:75``).
+* T, alpha and the iteration counter stay on the device; the kernels read
+  them through pointers.
+* Configurations outside the slice raise ``NotImplementedError`` naming the
+  ROADMAP item that ports them (:func:`check_supported`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import FlowRange, GQMAPConfig
+from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
+from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
+                                       edge_reduced_grads_torch)
+from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data
+from ..ops.flowviz import flow_to_color
+from ..ops.gq import EDGE, NODE
+from ..ops.interp import pad_cubic
+from ..ops.mixture import extract_map
+from ..ops.potentials import make_edge_pot, make_node_pot_bicubic
+from ..ops.simplex import project_simplex, softmax, softmax_natural_step
+
+__all__ = [
+    "GQState",
+    "Problem",
+    "SweepAux",
+    "SolveResult",
+    "check_supported",
+    "flow_lattice_shape",
+    "init_state",
+    "make_problem",
+    "make_sweep",
+    "make_segment_runner",
+    "make_map_fn",
+    "make_logp_fn",
+    "aepe_of",
+    "solve",
+]
+
+_NODE_SUMS = {"auto": cos_mode_sums, "cuda": cos_mode_sums_cuda, "torch": cos_mode_sums_torch}
+_EDGE_GRADS = {"auto": edge_reduced_grads, "cuda": edge_reduced_grads_cuda,
+               "torch": edge_reduced_grads_torch}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class GQState(NamedTuple):
+    """Variational state: one bivariate Gaussian per (pixel, component), the
+    per-edge correlations and the mixture logits (``gqmap_gpu_mixture.m:18-24``)."""
+
+    w: torch.Tensor        # (L,) mixture logits (weights in projsplx mode)
+    muu: torch.Tensor      # (L, M, N)
+    muv: torch.Tensor      # (L, M, N)
+    sigmau: torch.Tensor   # (L, M, N)
+    sigmav: torch.Tensor   # (L, M, N)
+    pn: torch.Tensor       # (L, M, N) node (u, v) correlation
+    rou: torch.Tensor      # (2, 2, L, M, N) edge correlation [direction, channel]
+    temperature: torch.Tensor  # () annealed T
+    it: torch.Tensor       # () int32, 1-based iteration about to run
+
+
+class Problem(NamedTuple):
+    """Per-run constants on the device."""
+
+    I1: torch.Tensor       # (Mo, No) frame 1
+    I2_tab: torch.Tensor   # pad_cubic(I2)
+    interior: torch.Tensor # (M, N) bool: updatable lattice sites
+    rng: FlowRange
+    cheb: CosData
+
+
+class SweepAux(NamedTuple):
+    energy: torch.Tensor
+    ptdmu: torch.Tensor
+    ptdsigma: torch.Tensor
+
+
+def _dt(cfg: GQMAPConfig) -> torch.dtype:
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r}")
+    return _DTYPES[cfg.dtype]
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def check_supported(cfg: GQMAPConfig) -> None:
+    """Raise for a configuration the port does not run yet.
+
+    Values the JAX package knows but the port has not ported raise
+    ``NotImplementedError`` naming the ROADMAP item; unknown values raise
+    ``ValueError``.
+    """
+    todo = {
+        ("data_term", "bicubic"): "Queue 1, Slice B item 12",
+        ("data_term", "nearest"): "Queue 1, Slice B item 13",
+        ("data_term", "quadratic"): "Queue 1, Slice B item 13",
+        ("data_term", "chebyshev"): "'Do not port' (validation-only in the JAX package)",
+        ("edge_quad", "tensor"): "Queue 1, Slice B item 12, and Queue 2 K3",
+        ("edge_kind", "truncquad"): "Queue 1, Slice B item 13",
+        ("gradient_estimator", "autodiff"): "Queue 1, Slice B item 13",
+        ("gradient_estimator", "prewitt"): "Queue 1, Slice B item 13",
+        ("sweep_order", "redblack"): "Queue 1, Slice B item 11",
+    }
+    supported = {"data_term": "cosine", "edge_quad": "reduced", "edge_kind": "charbonnier",
+                 "gradient_estimator": "stein", "sweep_order": "jacobi"}
+    for field, ok in supported.items():
+        value = getattr(cfg, field)
+        if value == ok:
+            continue
+        if (field, value) in todo:
+            raise NotImplementedError(
+                f"{field}={value!r} is not ported yet (ROADMAP {todo[field, value]})")
+        raise ValueError(f"unknown {field} {value!r}")
+    if cfg.patch != 1:
+        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
+    if cfg.window_rg != 0:
+        raise NotImplementedError("window_rg > 0 is not ported yet (ROADMAP Queue 1, Slice B item 13)")
+    if cfg.alpha_update not in ("softmax_natural", "projsplx"):
+        raise ValueError(f"unknown alpha_update {cfg.alpha_update!r}")
+    for field in ("node_kernel", "edge_kernel"):
+        if getattr(cfg, field) not in _NODE_SUMS:
+            raise ValueError(f"unknown {field} {getattr(cfg, field)!r} "
+                             "(expected 'auto', 'cuda' or 'torch')")
+    _dt(cfg)
+
+
+def flow_lattice_shape(cfg: GQMAPConfig, image_shape) -> tuple[int, int]:
+    Mo, No = image_shape
+    if Mo % cfg.patch or No % cfg.patch:
+        raise ValueError(f"image shape {image_shape} not divisible by patch={cfg.patch}")
+    return Mo // cfg.patch, No // cfg.patch
+
+
+def _interior_mask(M: int, N: int, border: int) -> np.ndarray:
+    m = np.zeros((M, N), bool)
+    m[border:M - border, border:N - border] = True
+    return m
+
+
+def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
+                 device=None) -> Problem:
+    """Frames on the device plus the cosine coefficient field over the
+    flow range widened by ``cheb_margin``."""
+    check_supported(cfg)
+    if flow_range is None:
+        raise ValueError("data_term='cosine' needs flow_range at make_problem")
+    dt, device = _dt(cfg), _device(device)
+    I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device)
+    I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device)
+    tab = pad_cubic(I2)
+    m = cfg.cheb_margin
+    box = (flow_range.minu - m, flow_range.maxu + m, flow_range.minv - m, flow_range.maxv + m)
+    cheb = build_cos_data(I1, tab, cfg.lambdad, cfg.epsn, box, A=cfg.cheb_p, B=cfg.cheb_q,
+                          patch=cfg.patch, window_rg=cfg.window_rg)
+    M, N = flow_lattice_shape(cfg, I1.shape)
+    interior = torch.as_tensor(_interior_mask(M, N, cfg.border), device=device)
+    return Problem(I1=I1, I2_tab=tab, interior=interior, rng=flow_range, cheb=cheb)
+
+
+def init_state(cfg: GQMAPConfig, rng: FlowRange, image_shape, seed=None,
+               device=None) -> GQState:
+    """Random init mirroring ``gqmap_gpu_mixture.m:18-24``: uniforms over the
+    flow range, wide sigmas, zero correlations. Drawn on the CPU from a
+    ``torch.Generator`` seeded with ``seed`` (default ``cfg.seed``), so a seed
+    gives the same state on every device; the bits differ from
+    ``jax.random``'s."""
+    dt, device = _dt(cfg), _device(device)
+    M, N = flow_lattice_shape(cfg, image_shape)
+    L = cfg.L
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, dtype=dt)
+
+    du = rng.maxu - rng.minu
+    dv = rng.maxv - rng.minv
+    w0 = uniform(L)
+    if cfg.alpha_update != "softmax_natural":
+        w0 = softmax(w0)  # projsplx mode stores the weights themselves
+    state = GQState(
+        w=w0,
+        muu=rng.minu + uniform(L, M, N) * du,
+        muv=rng.minv + uniform(L, M, N) * dv,
+        sigmau=uniform(L, M, N) + du,
+        sigmav=uniform(L, M, N) + dv,
+        pn=torch.zeros((L, M, N), dtype=dt),
+        rou=torch.zeros((2, 2, L, M, N), dtype=dt),
+        temperature=torch.tensor(cfg.temperature, dtype=dt),
+        it=torch.tensor(1, dtype=torch.int32),
+    )
+    return GQState(*(x.to(device) for x in state))
+
+
+def make_sweep(cfg: GQMAPConfig, image_shape):
+    """Build the single-sweep update (one synchronous Jacobi step):
+    ``sweep(problem, state) -> (state, SweepAux)``."""
+    check_supported(cfg)
+    dt = _dt(cfg)
+    M, N = flow_lattice_shape(cfg, image_shape)
+    L = cfg.L
+    b = cfg.border
+    k1 = cfg.edge_quad_k if cfg.edge_quad_k > 0 else 2 * cfg.K + 3
+    n_interior = (M - 2 * b) * (N - 2 * b) * L
+    softmax_mode = cfg.alpha_update == "softmax_natural"
+    node_sums = _NODE_SUMS[cfg.node_kernel]
+    edge_grads = _EDGE_GRADS[cfg.edge_kernel]
+
+    def sweep(problem: Problem, state: GQState) -> tuple[GQState, SweepAux]:
+        rngv = problem.rng
+        interior = problem.interior  # (M, N), broadcasts left
+        zero = torch.zeros((), dtype=dt, device=interior.device)
+        it_f = state.it.to(dt)
+        if cfg.step_const:
+            step = torch.full((), cfg.step0, dtype=dt, device=interior.device)
+        else:
+            step = cfg.step0 / (1.0 + it_f / cfg.step_tau)
+        alpha = softmax(state.w) if softmax_mode else state.w
+        a3 = alpha.reshape(L, 1, 1)
+        T = state.temperature
+
+        # --- node term, kernel K1 (gqmap_gpu_mixture.m:29, :87-116) ---
+        sums = node_sums(problem.cheb, state.muu, state.muv, state.sigmau, state.sigmav,
+                         state.pn)
+        gn = _finalize_mode_sums(problem.cheb, sums, state.muu, state.sigmau, state.sigmav,
+                                 state.pn, a3, T, NODE)
+
+        # --- edge term, kernel K2 (:31-34, :118-146); dims (dir, chan, L, M, N) ---
+        mu = torch.stack([state.muu, state.muv])
+        sg = torch.stack([state.sigmau, state.sigmav])
+        u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
+        o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+        ge = edge_grads(mu, sg, u2e, o2e, state.rou, alpha, T, k1, cfg.lambdas, cfg.epsn,
+                        EDGE)
+
+        # --- assembly: endpoint-1 terms stay, endpoint-2 terms go back to the
+        # neighbour that owns them (:37-40) ---
+        def assemble(dn, d1, d2, chan):
+            return (dn + d1[0, chan] + d1[1, chan]
+                    + torch.roll(d2[0, chan], 1, -2) + torch.roll(d2[1, chan], 1, -1))
+
+        dmuu = assemble(gn.du1, ge.du1, ge.du2, 0)
+        dmuv = assemble(gn.du2, ge.du1, ge.du2, 1)
+        dsigmau = assemble(gn.do1, ge.do1, ge.do2, 0)
+        dsigmav = assemble(gn.do2, ge.do1, ge.do2, 1)
+
+        # --- energy + global mixture gradient (:36, :48) ---
+        energy = (torch.where(interior, gn.E, zero).sum()
+                  + torch.where(interior, ge.E, zero).sum())
+        dalpha = (torch.where(interior, gn.da, zero).sum((-2, -1))
+                  + torch.where(interior, ge.da, zero).sum((0, 1, -2, -1)))
+
+        # --- clamped ascent on the interior (:41-46) ---
+        sstep = step * cfg.sigma_step_scale
+
+        def upd(x, dx, lo, hi, s=step):
+            return torch.where(interior, torch.clamp(x + dx * s, lo, hi), x)
+
+        muu = upd(state.muu, dmuu, rngv.minu, rngv.maxu)
+        muv = upd(state.muv, dmuv, rngv.minv, rngv.maxv)
+        sigmau = upd(state.sigmau, dsigmau, cfg.sigma_min, cfg.sigma_max, sstep)
+        sigmav = upd(state.sigmav, dsigmav, cfg.sigma_min, cfg.sigma_max, sstep)
+        rou = upd(state.rou, ge.dp, -cfg.corr_tor, cfg.corr_tor)
+        pn = upd(state.pn, gn.dp, -cfg.corr_tor, cfg.corr_tor)
+        dmu_sum = torch.where(interior, dmuu.abs(), zero).sum()
+        dsig_sum = torch.where(interior, dsigmau.abs(), zero).sum()
+
+        # --- mixture-weight update, active after alpha_start iters (:50) ---
+        w = state.w
+        if L > 1:
+            lr = step * cfg.alpha_lr_scale
+            if softmax_mode:
+                w_new = softmax_natural_step(state.w, dalpha, lr)
+            else:
+                w_new = project_simplex(state.w + dalpha * lr)
+            w = torch.where(state.it > cfg.alpha_start, w_new, state.w)
+
+        # --- diagnostics & annealing (:69-73) ---
+        if cfg.anneal_every > 0:
+            T = torch.where(state.it % cfg.anneal_every == 0,
+                            torch.clamp(T * cfg.drate, min=cfg.t_floor), T)
+
+        new = GQState(w=w, muu=muu, muv=muv, sigmau=sigmau, sigmav=sigmav, pn=pn, rou=rou,
+                      temperature=T, it=state.it + 1)
+        return new, SweepAux(energy=energy, ptdmu=dmu_sum / n_interior,
+                             ptdsigma=dsig_sum / n_interior)
+
+    return sweep
+
+
+def make_segment_runner(cfg: GQMAPConfig, image_shape):
+    """Multi-sweep runner with the reference's early stop.
+
+    ``seg(problem, state, limit)`` runs up to ``limit`` sweeps, recording the
+    per-sweep Energy and mean-|dmu| / mean-|dsigma| traces on the device, and
+    stops after the first sweep with ``it > its`` or ``ptdmu < tor``
+    (``gqmap_gpu_mixture.m:75``). Returns ``(state, n_done, energy_buf,
+    ptdmu_buf, ptdsigma_buf, stopped)``.
+    """
+    sweep = make_sweep(cfg, image_shape)
+    dt = _dt(cfg)
+
+    def seg(problem: Problem, state: GQState, limit: int):
+        cap = max(cfg.eval_every, int(limit))
+        dev = state.muu.device
+        bufs = torch.zeros((3, cap), dtype=dt, device=dev)
+        n, stop = 0, False
+        while n < limit and not stop:
+            state, aux = sweep(problem, state)
+            bufs[:, n] = torch.stack([aux.energy, aux.ptdmu, aux.ptdsigma])
+            n += 1
+            stop = bool(((aux.ptdmu < cfg.tor) | (state.it > cfg.its)).item())
+        return state, n, bufs[0], bufs[1], bufs[2], stop
+
+    return seg
+
+
+def make_map_fn(cfg: GQMAPConfig):
+    """MAP readout: mixture mode per pixel and channel (``:53-58``)."""
+
+    def map_fn(state: GQState) -> torch.Tensor:
+        alpha = softmax(state.w) if cfg.alpha_update == "softmax_natural" else state.w
+        return extract_map(alpha, state.muu, state.sigmau, state.muv, state.sigmav)
+
+    return map_fn
+
+
+def make_logp_fn(cfg: GQMAPConfig, image_shape):
+    """True unnormalized log-posterior at a flow field (``:148-154``): the
+    bicubic data term (whatever ``data_term`` the sweep uses) plus the
+    Charbonnier edges, summed over the interior."""
+    edge_f = make_edge_pot(cfg.lambdas, cfg.epsn)
+
+    def logp(problem: Problem, flow: torch.Tensor) -> torch.Tensor:
+        node_f = make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
+                                       patch=cfg.patch)
+        interior = problem.interior
+        zero = torch.zeros((), dtype=flow.dtype, device=flow.device)
+        npv = node_f(flow[..., 0], flow[..., 1])
+        uv = torch.movedim(flow, -1, 0)  # (chan, M, N)
+        ep_v = edge_f(uv, torch.roll(uv, -1, -2))
+        ep_h = edge_f(uv, torch.roll(uv, -1, -1))
+        return (torch.where(interior, npv, zero).sum()
+                + torch.where(interior, ep_v + ep_h, zero).sum())
+
+    return logp
+
+
+def aepe_of(cfg: GQMAPConfig, map_flow, tflow, unknown) -> float:
+    """Average endpoint error with the reference's masking and cropping:
+    unknown-GT pixels zeroed, the border ring excluded
+    (``gqmap_gpu_mixture.m:63-64``)."""
+    if cfg.patch != 1:
+        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
+    flow = np.array(map_flow, np.float64)
+    flow[np.asarray(unknown)] = 0.0
+    t = np.asarray(tflow, np.float64)
+    c = cfg.border
+    sl = np.s_[c:-c, c:-c]
+    d = t[sl] - flow[sl]
+    return float(np.mean(np.sqrt((d * d).sum(-1))))
+
+
+@dataclasses.dataclass
+class SolveResult:
+    mu: np.ndarray        # (M, N, L, 2) means, cat of (muu, muv)
+    sigma: np.ndarray     # (M, N, L, 2)
+    alpha: np.ndarray     # (L,)
+    AEPE: np.ndarray      # (its,) NaN off the eval cadence
+    Energy: np.ndarray    # (its,)
+    logP: np.ndarray      # (its,) NaN off the eval cadence
+    map: np.ndarray       # (M, N, 2) final extracted MAP flow
+    best_aepe: float
+    iters: int
+    state: GQState
+
+
+def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None = None,
+          seed=None, out_dir=None, verbose: bool = False, callback=None,
+          init: GQState | None = None, checkpoint_path=None, mesh=None,
+          device=None) -> SolveResult:
+    """Run the full GQMAP inference loop.
+
+    ``gt_flow`` (raw .flo contents) gives the clamp ranges, the unknown mask
+    and the AEPE as the reference's ``optical_flow.m:12-13`` does; pass
+    ``flow_range`` to run without ground truth (or to override a degenerate
+    GT box). ``device`` defaults to the GPU when there is one.
+    """
+    if mesh is not None:
+        raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1, Slice B item 15)")
+    if checkpoint_path is not None:
+        raise NotImplementedError("checkpointing is not ported yet (ROADMAP Queue 1 item 8, checkpoint/metrics)")
+    if out_dir is not None:
+        raise NotImplementedError("flow visualisation output is not ported yet (ROADMAP Queue 1 item 8)")
+
+    tflow = unknown = None
+    if gt_flow is not None:
+        fc = flow_to_color(np.asarray(gt_flow))
+        tflow, unknown = fc.flo, fc.unknown
+        if flow_range is None:
+            flow_range = FlowRange(fc.minu, fc.maxu, fc.minv, fc.maxv)
+    if flow_range is None:
+        raise ValueError("need gt_flow or flow_range")
+
+    problem = make_problem(cfg, I1, I2, flow_range, device)
+    dev = problem.I1.device
+    state = init if init is not None else init_state(cfg, flow_range, np.shape(I1), seed, dev)
+    seg = make_segment_runner(cfg, np.shape(I1))
+    map_fn = make_map_fn(cfg)
+    logp_fn = make_logp_fn(cfg, np.shape(I1))
+
+    its = cfg.its
+    Energy = np.full(its, np.nan)
+    AEPE = np.full(its, np.nan)
+    logP = np.full(its, np.nan)
+    dmu_trace = np.full(its, np.nan)
+    best_aepe = math.inf
+    it_done = int(state.it) - 1
+    last_map = None
+
+    while it_done < its:
+        next_eval = 1 if it_done == 0 else (it_done // cfg.eval_every + 1) * cfg.eval_every
+        limit = min(next_eval, its) - it_done
+        state, n, eb, pb, _, stopped = seg(problem, state, limit)
+        Energy[it_done:it_done + n] = eb[:n].cpu().numpy()
+        dmu_trace[it_done:it_done + n] = pb[:n].cpu().numpy()
+        it_done += n
+        if cfg.debug_finite:
+            for f in state._fields:
+                bad = int((~torch.isfinite(getattr(state, f))).sum())
+                if bad:
+                    raise FloatingPointError(
+                        f"non-finite state leaf {f!r} after sweep {it_done} ({bad} bad "
+                        "values; likely the 1/(1-p^2) blow-up near the correlation clamp)")
+
+        if n == limit:  # reached the eval iteration
+            map_t = map_fn(state)
+            last_map = map_t.cpu().numpy()
+            lp = float(logp_fn(problem, map_t))
+            logP[it_done - 1] = lp
+            if tflow is not None:
+                aepe = aepe_of(cfg, last_map, tflow, unknown)
+                AEPE[it_done - 1] = aepe
+                best_aepe = min(best_aepe, aepe)
+            if verbose:
+                print(f"[{it_done}] dmu={dmu_trace[it_done - 1]:.3e} "
+                      f"E={Energy[it_done - 1]:.6e} AEPE={best_aepe:.4f} logP={lp:.6e}")
+            if callback is not None:
+                callback(it_done, state, last_map, AEPE[it_done - 1], lp)
+        if stopped or it_done >= its:
+            break
+
+    if last_map is None:
+        last_map = map_fn(state).cpu().numpy()
+    alpha = softmax(state.w) if cfg.alpha_update == "softmax_natural" else state.w
+
+    def api(u, v):
+        return np.stack([np.moveaxis(u.cpu().numpy(), 0, -1),
+                         np.moveaxis(v.cpu().numpy(), 0, -1)], axis=-1)
+
+    return SolveResult(
+        mu=api(state.muu, state.muv),
+        sigma=api(state.sigmau, state.sigmav),
+        alpha=alpha.cpu().numpy(),
+        AEPE=AEPE,
+        Energy=Energy,
+        logP=logP,
+        map=last_map,
+        best_aepe=best_aepe,
+        iters=it_done,
+        state=state,
+    )

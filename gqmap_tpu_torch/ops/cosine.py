@@ -1,0 +1,190 @@
+"""Closed-form cosine-spectral data term: zero quadrature, exact gradients.
+
+Port of ``gqmap_tpu/ops/cosine.py``. The per-pixel displacement-cost surface
+is expanded in a tensor-product cosine basis (type-II DCT of midpoint
+samples), and the expectation of each mode under a correlated bivariate
+Gaussian is its characteristic function:
+
+    E[cos(a*th1(x1)) cos(b*th2(x2))]
+      = 1/2 [ cos(a*ph1 - b*ph2) W-  +  cos(a*ph1 + b*ph2) W+ ],
+    W∓ = exp(-(a*s1 - b*s2)^2/2 - a*b*s1*s2*(1 ∓ p))          (both args <= 0)
+
+with ``th_u(x) = pi (x - lo_u)/L_u``, ``ph1 = th_u(u1)``, ``s1 = pi o1/L_u``
+(likewise for v). The W∓ exponent is kept in this split form (a sum of two
+nonpositive terms): the expanded ``-(a^2 s1^2 + b^2 s2^2)/2 ± ab s1 s2 p``
+cancels catastrophically at the sigma clamp. The five parameter gradients
+are exact derivatives of the truncated expectation, built from six mode sums
+(:func:`_mode_sums`); hand-written CUDA kernel K1
+(``gqmap_tpu_torch/csrc/cosine_gq.cu``) computes the same six sums.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .gq import GQGrads, finalize_closed
+from .interp import sample_bicubic
+
+__all__ = ["CosData", "build_cos_data", "cos_node_grads"]
+
+# Elements per chunk of constant-shift samples in build_cos_data: bounds the
+# 16-tap gather's temporaries (~250 B per element) to about 1 GB.
+_SAMPLE_CHUNK_ELEMS = 1 << 22
+
+
+class CosData(NamedTuple):
+    coeffs: torch.Tensor  # (A, B, M, N) cosine coefficients of the node potential
+    lo_u: float           # displacement box bounds
+    hi_u: float
+    lo_v: float
+    hi_v: float
+
+
+def _dct2_matrix(P: int) -> np.ndarray:
+    """(P, P) type-II DCT matrix D with coeffs = D @ values-at-midpoints,
+    normalized so that ``f(x_j) = sum_a c_a cos(a*pi*(j+1/2)/P)``."""
+    k = np.arange(P)
+    a = np.arange(P)[:, None]
+    D = np.cos(np.pi * a * (k + 0.5) / P) * (2.0 / P)
+    D[0] *= 0.5
+    return D
+
+
+def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: float,
+                   box, A: int = 96, B: int = 16, patch: int = 1,
+                   window_rg: int = 0) -> CosData:
+    """Precompute the per-pixel cosine coefficient field (once per run).
+
+    Samples the node potential at the (A, B) midpoint grid over the
+    displacement box (each sample a constant-offset bicubic read of frame 2,
+    ``VV = pad_cubic(I2)``), then takes a type-II DCT along both
+    displacement axes. Only ``patch=1`` and ``window_rg=0`` are ported.
+    """
+    if patch != 1:
+        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
+    if window_rg != 0:
+        raise NotImplementedError("window_rg > 0 is not ported yet (ROADMAP Queue 1, Slice B item 13)")
+    Mo, No = I1.shape
+    dtype, device = I1.dtype, I1.device
+    lo_u, hi_u, lo_v, hi_v = (float(x) for x in box)
+    # midpoint sample positions: x_j = lo + (j + 1/2) L / P
+    us = lo_u + (np.arange(A) + 0.5) * (hi_u - lo_u) / A
+    vs = lo_v + (np.arange(B) + 0.5) * (hi_v - lo_v) / B
+    uv = np.stack(np.broadcast_arrays(us[:, None], vs[None, :]), -1).reshape(-1, 2)
+    uv = torch.as_tensor(uv, dtype=dtype, device=device)
+
+    jj = 1.0 + torch.arange(No, dtype=dtype, device=device).reshape(1, No)
+    ii = 1.0 + torch.arange(Mo, dtype=dtype, device=device).reshape(Mo, 1)
+    vals = torch.empty((A * B, Mo, No), dtype=dtype, device=device)
+    chunk = max(1, _SAMPLE_CHUNK_ELEMS // (Mo * No))
+    for i in range(0, A * B, chunk):
+        u = uv[i:i + chunk, 0].reshape(-1, 1, 1)
+        v = uv[i:i + chunk, 1].reshape(-1, 1, 1)
+        Vq = sample_bicubic(VV, jj + u, ii + v)
+        vals[i:i + chunk] = -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+
+    # The DCT is a plain matrix product (XLA's einsum in the JAX package).
+    # TF32 would keep ~3 decimal digits of these f32 coefficients, so both
+    # TF32 switches are turned off here, process-wide.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Du = torch.as_tensor(_dct2_matrix(A), dtype=dtype, device=device)
+    Dv = torch.as_tensor(_dct2_matrix(B), dtype=dtype, device=device)
+    coeffs = torch.matmul(Du, vals.reshape(A, B * Mo * No)).reshape(A, B, Mo * No)
+    del vals
+    coeffs = torch.matmul(Dv, coeffs).reshape(A, B, Mo, No)
+    return CosData(coeffs=coeffs, lo_u=lo_u, hi_u=hi_u, lo_v=lo_v, hi_v=hi_v)
+
+
+def _mode_sums(cos: CosData, u1, u2, o1, o2, p):
+    """The six mode sums over the (A, B) mode lattice (plain version of K1).
+
+    All include the coefficient field:
+      E0 = sum c (W-C- + W+C+)          A1 = sum c a (W-S- + W+S+)
+      A2 = sum c b (W-S- - W+S+)        Aa = sum c a^2 (W-C- + W+C+)
+      Ab = sum c b^2 (W-C- + W+C+)      Ax = sum c ab (W-C- - W+C+)
+    with C∓/S∓ = cos/sin(a ph1 ∓ b ph2) from rotation recurrences. The
+    v-degree axis is evaluated as one batch per u-degree.
+    """
+    coeffs = cos.coeffs
+    A, B = coeffs.shape[:2]
+    ku = math.pi / (cos.hi_u - cos.lo_u)
+    kv = math.pi / (cos.hi_v - cos.lo_v)
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    ph1 = (ku * (u1 - cos.lo_u)).expand(site)
+    ph2 = (kv * (u2 - cos.lo_v)).expand(site)
+    s1 = (ku * o1).expand(site)
+    s2 = (kv * o2).expand(site)
+    p = p.expand(site)
+    gm = s1 * s2 * (1.0 - p)   # >= 0
+    gp = s1 * s2 * (1.0 + p)   # >= 0
+    c1, sn1 = torch.cos(ph1), torch.sin(ph1)
+    c2, sn2 = torch.cos(ph2), torch.sin(ph2)
+
+    # cos/sin(b*ph2) for every b, stacked on a leading v-degree axis
+    cb, sb = [torch.ones_like(ph2)], [torch.zeros_like(ph2)]
+    for _ in range(1, B):
+        cb, sb = cb + [cb[-1] * c2 - sb[-1] * sn2], sb + [sb[-1] * c2 + cb[-1] * sn2]
+    cb, sb = torch.stack(cb), torch.stack(sb)
+    bshape = (B,) + (1,) * len(site)
+    bf = torch.arange(B, dtype=ph1.dtype, device=ph1.device).reshape(bshape)
+    bs2 = bf * s2
+    cshape = (B,) + (1,) * (len(site) - 2) + tuple(coeffs.shape[2:])
+
+    ca, sa = torch.ones_like(ph1), torch.zeros_like(ph1)
+    E0, A1, A2, Aa, Ab, Ax = (torch.zeros_like(ph1) for _ in range(6))
+    for a in range(A):
+        cab = coeffs[a].reshape(cshape)
+        m = a * s1 - bs2
+        h = -0.5 * (m * m)
+        Wm = torch.exp(h - bf * (a * gm))
+        Wp = torch.exp(h - bf * (a * gp))
+        cacb = ca * cb
+        sasb = sa * sb
+        sacb = sa * cb
+        casb = ca * sb
+        U = Wm * (cacb + sasb)    # W- C-
+        V = Wp * (cacb - sasb)    # W+ C+
+        Pt = Wm * (sacb - casb)   # W- S-
+        Qt = Wp * (sacb + casb)   # W+ S+
+        UV = cab * (U + V)
+        sE = UV.sum(0)
+        E0 = E0 + sE
+        A1 = A1 + a * (cab * (Pt + Qt)).sum(0)
+        A2 = A2 + (bf * cab * (Pt - Qt)).sum(0)
+        Aa = Aa + (a * a) * sE
+        Ab = Ab + (bf * bf * UV).sum(0)
+        Ax = Ax + a * (bf * cab * (U - V)).sum(0)
+        ca, sa = ca * c1 - sa * sn1, sa * c1 + ca * sn1
+    return E0, A1, A2, Aa, Ab, Ax
+
+
+def _finalize_mode_sums(cos: CosData, sums, u1, o1, o2, p, a, T,
+                        entropy_scale: float) -> GQGrads:
+    """Turn the six mode sums into finalized gradients (shared by the plain
+    path and kernel K1)."""
+    E0, A1, A2, Aa, Ab, Ax = sums
+    ku = math.pi / (cos.hi_u - cos.lo_u)
+    kv = math.pi / (cos.hi_v - cos.lo_v)
+    s1 = ku * o1
+    s2 = kv * o2
+    Ef = 0.5 * E0
+    dEdu1 = -0.5 * ku * A1
+    dEdu2 = 0.5 * kv * A2
+    dEdo1 = 0.5 * ku * (s2 * p * Ax - s1 * Aa)
+    dEdo2 = 0.5 * kv * (s1 * p * Ax - s2 * Ab)
+    dEdp = 0.5 * s1 * s2 * Ax
+    return finalize_closed(Ef, dEdu1, dEdu2, dEdo1, dEdo2, dEdp, a, o1, o2, p, T,
+                           entropy_scale)
+
+
+def cos_node_grads(cos: CosData, u1, u2, o1, o2, p, a, T,
+                   entropy_scale: float) -> GQGrads:
+    """Expected node potential and its five exact parameter gradients,
+    finalized with the alpha weighting and Bethe-entropy terms (plain path)."""
+    sums = _mode_sums(cos, u1, u2, o1, o2, p)
+    return _finalize_mode_sums(cos, sums, u1, o1, o2, p, a, T, entropy_scale)

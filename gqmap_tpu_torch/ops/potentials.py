@@ -1,0 +1,55 @@
+"""MRF potentials of the main path (port of ``gqmap_tpu/ops/potentials.py``).
+
+Node (data) potential: Charbonnier brightness constancy against a bicubically
+sampled second frame (``gqmap_gpu_mixture.m:156-179``), here only for the
+logP readout. Edge (smoothness) potential: Charbonnier on the neighbour flow
+difference (``:180-182``), in its two-endpoint and difference forms.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .interp import sample_bicubic
+
+__all__ = ["make_node_pot_bicubic", "make_edge_pot", "make_edge_pot_diff"]
+
+
+def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
+                          epsn: float, patch: int = 1) -> Callable:
+    """Return ``f(x1, x2) -> node potential`` over the ``(Mo, No)`` lattice.
+
+    ``VV = pad_cubic(I2)``; ``x1``/``x2`` are displacements of shape
+    ``lead + (Mo, No)``. Only ``patch=1`` is ported (ROADMAP Slice B item 10).
+    """
+    if patch != 1:
+        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
+    Mo, No = I1.shape
+    jj = 1.0 + torch.arange(No, dtype=I1.dtype, device=I1.device).reshape(1, No)
+    ii = 1.0 + torch.arange(Mo, dtype=I1.dtype, device=I1.device).reshape(Mo, 1)
+
+    def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        Vq = sample_bicubic(VV, jj + x1, ii + x2)
+        return -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+
+    return f
+
+
+def make_edge_pot(lambdas: float, epsn: float) -> Callable:
+    """Charbonnier smoothness: ``-lambdas * sqrt(epsn + (x1-x2)^2)``."""
+
+    def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        return -lambdas * torch.sqrt(epsn + (x1 - x2) ** 2)
+
+    return f
+
+
+def make_edge_pot_diff(lambdas: float, epsn: float) -> Callable:
+    """Difference form of the Charbonnier edge potential: ``gd(d) = f(d, 0)``."""
+
+    def gd(d: torch.Tensor) -> torch.Tensor:
+        return -lambdas * torch.sqrt(epsn + d * d)
+
+    return gd

@@ -1,0 +1,120 @@
+"""Kernel K1's module: the port's cosine data term against the JAX package's.
+
+The plain mode sums (``gqmap_tpu_torch.ops.cosine._mode_sums``, the plain
+version of the CUDA kernel) are held to the JAX scan path and to the Pallas
+kernel run in interpret mode, in float64 at 1e-10.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_common import assert_close, assert_fields_close, t
+from gqmap_tpu.kernels.cosine_gq import cos_mode_sums_pallas
+from gqmap_tpu.ops import cosine as jcos
+from gqmap_tpu.ops import interp as jinterp
+from gqmap_tpu.ops.gq import NODE
+from gqmap_tpu_torch.kernels import cosine_gq
+from gqmap_tpu_torch.ops import cosine
+
+SUMS = ("E0", "A1", "A2", "Aa", "Ab", "Ax")
+# (A, B, M, N, L, a_block) — the ragged case has A % a_block != 0 and
+# M % rows != 0 (tests/test_cosine_kernel.py:24-32)
+CASES = {"main": (20, 6, 16, 24, 3, 8), "ragged": (13, 5, 12, 16, 2, 4)}
+
+
+def _cos_pair(A, B, M, N, seed, box=(-2.0, 3.0, -1.5, 1.0)):
+    r = np.random.default_rng(seed)
+    coeffs = r.normal(size=(A, B, M, N)) / (1.0 + np.arange(A)[:, None, None, None])
+    lo_u, hi_u, lo_v, hi_v = box
+    jc = jcos.CosData(coeffs=jnp.asarray(coeffs), lo_u=jnp.asarray(lo_u),
+                      hi_u=jnp.asarray(hi_u), lo_v=jnp.asarray(lo_v), hi_v=jnp.asarray(hi_v))
+    return jc, cosine.CosData(t(coeffs), lo_u, hi_u, lo_v, hi_v)
+
+
+def _sites(M, N, L, seed, sig_hi=2.0):
+    r = np.random.default_rng(seed)
+    return (r.uniform(-1.5, 2.5, (L, M, N)), r.uniform(-1.2, 0.7, (L, M, N)),
+            r.uniform(0.05, sig_hi, (L, M, N)), r.uniform(0.05, sig_hi, (L, M, N)),
+            r.uniform(-0.9, 0.9, (L, M, N)))
+
+
+def _scaled_close(got, want, rtol, name):
+    # tolerance relative to the sum's scale: the mode sums cancel
+    want = np.asarray(want)
+    assert_close(got, want, 0, rtol * max(np.abs(want).max(), 1e-300), name)
+
+
+def test_build_cos_data_matches():
+    r = np.random.default_rng(0)
+    I1, I2 = r.uniform(0, 255, (10, 13)), r.uniform(0, 255, (10, 13))
+    box = (-3.0, 2.0, -1.5, 1.5)
+    want = jcos.build_cos_data(jnp.asarray(I1), jinterp.pad_cubic(jnp.asarray(I2)), 1.0,
+                               1e-6, box, A=12, B=6)
+    got = cosine.build_cos_data(t(I1), t(np.asarray(jinterp.pad_cubic(jnp.asarray(I2)))),
+                                1.0, 1e-6, box, A=12, B=6)
+    _scaled_close(got.coeffs, want.coeffs, 1e-12, "coeffs")
+    assert (got.lo_u, got.hi_u, got.lo_v, got.hi_v) == box
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_mode_sums_match_jax_scan(case):
+    A, B, M, N, L, a_block = CASES[case]
+    jc, pc = _cos_pair(A, B, M, N, seed=7)
+    s = _sites(M, N, L, seed=8)
+    want, _ = jcos._mode_sums(jc, *map(jnp.asarray, s), a_block, want_grads=True)
+    got = cosine._mode_sums(pc, *map(t, s))
+    for g, w, name in zip(got, want, SUMS):
+        _scaled_close(g, w, 1e-10, name)
+
+
+@pytest.mark.parametrize("case, variant", [("main", "v1"), ("ragged", "v1"),
+                                           ("ragged", None)])
+def test_mode_sums_match_pallas_interpret(case, variant):
+    A, B, M, N, L, a_block = CASES[case]
+    jc, pc = _cos_pair(A, B, M, N, seed=9)
+    s = _sites(M, N, L, seed=10, sig_hi=1.5)
+    want = cos_mode_sums_pallas(jc, *map(jnp.asarray, s), a_block=a_block, rows=8,
+                                interpret=True, variant=variant)
+    got = cosine._mode_sums(pc, *map(t, s))
+    for g, w, name in zip(got, want, SUMS):
+        _scaled_close(g, w, 1e-10, name)
+
+
+def test_cos_node_grads_match():
+    jc, pc = _cos_pair(16, 4, 16, 16, seed=11)
+    s = _sites(16, 16, 3, seed=12)
+    a = np.ones((3, 1, 1)) / 3.0
+    want = jcos.cos_node_grads(jc, *map(jnp.asarray, s), jnp.asarray(a), 0.25, NODE)
+    got = cosine.cos_node_grads(pc, *map(t, s), t(a), 0.25, NODE)
+    for f in want._fields:
+        _scaled_close(getattr(got, f), getattr(want, f), 1e-10, f)
+
+
+def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
+    jc, pc = _cos_pair(8, 4, 5, 6, seed=13)
+    s = tuple(map(t, _sites(5, 6, 3, seed=14)))
+    before = cosine_gq.cos_mode_sums_cuda.launches
+    got = cosine_gq.cos_mode_sums(pc, *s)
+    want = cosine_gq.cos_mode_sums_torch(pc, *s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert cosine_gq.cos_mode_sums_cuda.launches == before == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cosine_gq.cos_mode_sums_cuda(pc, *s)
+    assert cosine_gq.cos_mode_sums_cuda.launches == 0
+
+
+def test_finalize_mode_sums_matches():
+    jc, pc = _cos_pair(6, 5, 3, 4, seed=15)
+    s = _sites(3, 4, 2, seed=16)
+    r = np.random.default_rng(17)
+    sums = [r.normal(size=(2, 3, 4)) for _ in range(6)]
+    a = np.array([0.6, 0.4]).reshape(2, 1, 1)
+    u1, _, o1, o2, p = s
+    want = jcos._finalize_mode_sums(jc, tuple(map(jnp.asarray, sums)), *map(jnp.asarray, (
+        u1, o1, o2, p, a)), 0.1, NODE)
+    got = cosine._finalize_mode_sums(pc, tuple(map(t, sums)), *map(t, (u1, o1, o2, p, a)),
+                                     0.1, NODE)
+    assert_fields_close(got, want, 1e-10, 1e-12)

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip where there is no CUDA device. On
+a machine with an H100 (no JAX needed) run them with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: float64 at 1e-10 of each output's largest magnitude (the
+kernel and its plain version differ only in summation order); float32 at
+2e-4 of that magnitude plus 2e-5 relative (``tests/test_kernels.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gqmap_tpu_torch import GQMAPConfig
+from gqmap_tpu_torch.config import FlowRange
+from gqmap_tpu_torch.kernels import build, cosine_gq, edge_reduced_gq
+from gqmap_tpu_torch.models import gqmap as pg
+from gqmap_tpu_torch.ops.cosine import CosData
+from gqmap_tpu_torch.ops.gq import EDGE
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float64: (1e-10, 0.0), torch.float32: (2e-4, 2e-5)}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build.load_library()  # on a CUDA machine a missing nvcc or a failed build fails
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype, name):
+    scaled, rel = TOL[dtype]
+    err = (got - want).abs()
+    bound = scaled * want.abs().max() + rel * want.abs()
+    assert bool((err <= bound).all()), (name, float(err.max()), float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L, A, B, M, N", [(3, 64, 16, 7, 45), (1, 13, 5, 12, 37),
+                                           (2, 20, 6, 16, 24), (4, 9, 3, 5, 130)])
+def test_cos_mode_sums_kernel_matches_plain(dev, dtype, L, A, B, M, N):
+    g = torch.Generator().manual_seed(A * B + L)
+    coeffs = torch.randn((A, B, M, N), generator=g, dtype=torch.float64)
+    coeffs /= 1.0 + torch.arange(A, dtype=torch.float64).reshape(A, 1, 1, 1)
+    cos = CosData(coeffs.to(dev, dtype), -12.0, 4.0, -4.0, 4.0)
+
+    def u(lo, hi):
+        return (lo + (hi - lo) * torch.rand((L, M, N), generator=g, dtype=torch.float64)
+                ).to(dev, dtype)
+
+    sites = (u(-10, 2), u(-2, 2), u(0.01, 3), u(0.01, 3), u(-0.99, 0.99))
+    got = cosine_gq.cos_mode_sums_cuda(cos, *sites)
+    want = cosine_gq.cos_mode_sums_torch(cos, *sites)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, dtype, f"sum {k}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_edge_reduced_kernel_matches_plain(dev, dtype):
+    g = torch.Generator().manual_seed(1)
+    L, M, N = 3, 17, 23
+    mu = torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
+    sg = 0.01 + 3 * torch.rand((2, L, M, N), generator=g, dtype=torch.float64)
+    rou = 0.9 * (2 * torch.rand((2, 2, L, M, N), generator=g, dtype=torch.float64) - 1)
+    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
+    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+    alpha = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64)
+    T = torch.tensor(0.17, dtype=torch.float64)
+    args = [x.to(dev, dtype) for x in (mu, sg, u2e, o2e, rou, alpha, T)]
+    got = edge_reduced_gq.edge_reduced_grads_cuda(*args, 21, 5.0, 1e-6, EDGE)
+    want = edge_reduced_gq.edge_reduced_grads_torch(*args, 21, 5.0, 1e-6, EDGE)
+    torch.cuda.synchronize()
+    for name in want._fields:
+        _close(getattr(got, name), getattr(want, name), dtype, name)
+
+
+def test_sweep_launches_both_kernels(dev):
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    I2 = np.roll(I1, 1, axis=1)
+    cfg = GQMAPConfig.tpu_fast(K=5, cheb_p=16, cheb_q=8, its=3, eval_every=3)
+    k1, k2 = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
+    n1, n2 = k1.launches, k2.launches
+    res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all()
+    assert (k1.launches - n1, k2.launches - n2) == (3, 3)
+
+
+def test_build_is_cached(dev):
+    path, built = build.build_library()
+    assert not built and path == build.library_path()
+
+
+def test_edge_reduced_kernel_f32_at_rho_clamp(dev):
+    # At |rho| = 1 - 1e-5 every f32 evaluation loses ~eps32/(1-rho^2) to
+    # cancellation, so the kernel is held to the f64 golden on the same
+    # inputs: its error is at most twice the plain f32 version's.
+    g = torch.Generator().manual_seed(2)
+    L, M, N = 3, 17, 23
+    mu = torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
+    sg = 0.01 + 3 * torch.rand((2, L, M, N), generator=g, dtype=torch.float64)
+    sign = torch.where(torch.rand((2, 2, L, M, N), generator=g) < 0.5, -1.0, 1.0)
+    rou = 0.99999 * sign.double()
+    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
+    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+    alpha = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64)
+    T = torch.tensor(0.0, dtype=torch.float64)
+    args = [x.to(dev, torch.float32) for x in (mu, sg, u2e, o2e, rou, alpha, T)]
+    rest = (21, 5.0, 1e-6, EDGE)
+    got = edge_reduced_gq.edge_reduced_grads_cuda(*args, *rest)
+    plain = edge_reduced_gq.edge_reduced_grads_torch(*args, *rest)
+    gold = edge_reduced_gq.edge_reduced_grads_torch(*(x.double() for x in args), *rest)
+    for name in gold._fields:
+        ref = getattr(gold, name)
+        ek = float((getattr(got, name).double() - ref).abs().max())
+        ep = float((getattr(plain, name).double() - ref).abs().max())
+        assert ek <= 2.0 * ep + 1e-6 * float(ref.abs().max()), (name, ek, ep)
