@@ -25,7 +25,23 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    right: u=1, v=0) with both kernels' launch counters reset just before it;
    the energy must stay finite, the AEPE at it=900 be at most half that at
    it=1, and each counter equal the sweep count. Then ms/sweep of 300-sweep
-   segments from init and converged, and the peak device memory.
+   segments from init and converged, and the peak device memory;
+6. K3 (tensor-rule edge sums) against its plain version on the full edge
+   lattice at K=9, from the random init, a warm state (sigma drawn per site
+   in [0.01, 3], |rho| <= 0.9) and the clamp state of phase 3, in float64
+   and float32 with the tolerances of phase 3; CUDA-event times of both;
+7. one full 376x452 ``full_mixture`` sweep three ways (K3 f32, plain f32,
+   plain f64 = the golden) from the init and the sigma = 0.05 states: the
+   kernel arm's error against the golden at most twice the plain f32 arm's;
+8. the exact slice through the user entry point:
+   ``solve(GQMAPConfig.full_mixture(quad_chunk=27, its=900, eval_every=300),
+   ...)`` on the same pair with every launch counter reset just before it:
+   finite energy, the AEPE at it=900 below that at it=1, K3's counter equal
+   to the sweep count and K1's and K2's at 0; then ms/sweep of a 300-sweep
+   segment and the split of one sweep into the plain bicubic node term, K3
+   and the rest, by CUDA events;
+9. resume on the card: a 300-sweep solve that writes a checkpoint, resumed
+   to 600 sweeps, ends in the state of an unbroken 600-sweep solve.
 
 It prints the kernels' record as one JSON line before the last, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -37,6 +53,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,6 +116,26 @@ def compare(got, want, dtype):
     return abs_err, rel_err, ok
 
 
+def three_way_sweep(label, gold, plain32, kern32, probs, states, cast):
+    """One sweep from each state through the f64 golden, the plain f32 and the
+    kernel f32 arms: the kernel arm's error against the golden must be at most
+    twice the plain arm's (mean |state - golden| of the worst field)."""
+    fields = ("muu", "muv", "sigmau", "sigmav", "pn", "rou")
+    for sname, st in states:
+        g, gaux = gold(probs[torch.float64], st)
+        errs = {}
+        for arm, sw in (("plain f32", plain32), ("kernel f32", kern32)):
+            o, aux = sw(probs[torch.float32], cast(st, torch.float32))
+            errs[arm] = max(float((getattr(o, f).double() - getattr(g, f)).abs().mean())
+                            for f in fields)
+            e_rel = abs(float(aux.energy) - float(gaux.energy)) / abs(float(gaux.energy))
+            log(f"  {label}{sname} {arm}: mean |state - golden| (worst field) "
+                f"{errs[arm]:.3e}, energy rel err {e_rel:.3e}")
+        require(errs["kernel f32"] <= 2.0 * errs["plain f32"],
+                f"{label}sweep {sname}: kernel f32 error {errs['kernel f32']:.3e} <= 2 x plain "
+                f"f32 error {errs['plain f32']:.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -106,9 +143,11 @@ def main():
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
-    from gqmap_tpu_torch.kernels import build, cosine_gq, edge_reduced_gq
+    from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq
     from gqmap_tpu_torch.models import gqmap as pg
-    from gqmap_tpu_torch.ops.gq import EDGE
+    from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize, gq_accumulate
+    from gqmap_tpu_torch.ops.potentials import make_node_pot_bicubic
+    from gqmap_tpu_torch.ops.quadrature import build_table
 
     dev = torch.device("cuda", 0)
     k1_fn, k2_fn = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
@@ -252,20 +291,8 @@ def main():
                                               edge_kernel="torch"), (H, W))
     kern32 = pg.make_sweep(dataclasses.replace(cfg32, node_kernel="cuda", edge_kernel="cuda"),
                            (H, W))
-    fields = ("muu", "muv", "sigmau", "sigmav", "pn", "rou")
-    for sname, st in (("init", st64), ("converged", conv64)):
-        g, gaux = gold(prob[torch.float64], st)
-        errs = {}
-        for arm, sw in (("plain f32", plain32), ("kernel f32", kern32)):
-            o, aux = sw(prob[torch.float32], cast(st, torch.float32))
-            errs[arm] = max(float((getattr(o, f).double() - getattr(g, f)).abs().mean())
-                            for f in fields)
-            e_rel = abs(float(aux.energy) - float(gaux.energy)) / abs(float(gaux.energy))
-            log(f"  {sname} {arm}: mean |state - golden| (worst field) {errs[arm]:.3e}, "
-                f"energy rel err {e_rel:.3e}")
-        require(errs["kernel f32"] <= 2.0 * errs["plain f32"],
-                f"sweep {sname}: kernel f32 error {errs['kernel f32']:.3e} <= 2 x plain f32 "
-                f"error {errs['plain f32']:.3e}")
+    three_way_sweep("", gold, plain32, kern32, prob, (("init", st64), ("converged", conv64)),
+                    cast)
 
     # ---- 5. the slice, through the user entry point
     log("phase solve")
@@ -303,6 +330,127 @@ def main():
         log(f"  segment {sname}: {ms:.4f} ms/sweep (300-sweep segment, CUDA events)")
         record.setdefault("segment_ms_per_sweep", {})[sname] = ms
 
+    # ---- 6. K3 against its plain version
+    log("phase kernels K3")
+    k3_fn = edge_gq.edge_gq_cuda
+    fm32 = GQMAPConfig.full_mixture(quad_chunk=27, its=900, eval_every=300)
+    fm64 = dataclasses.replace(fm32, dtype="float64")
+    g3 = torch.Generator().manual_seed(3)
+
+    def rand3(lo, hi, like):
+        return (lo + (hi - lo) * torch.rand(like.shape, generator=g3, dtype=torch.float64)
+                ).to(dev)
+
+    k3_probes = {
+        "init": st64,
+        # sigma drawn per site: with equal sigmas at both endpoints Sm is zero
+        # by a reflection symmetry of the rule, and a check relative to its
+        # largest magnitude would compare rounding noise
+        "warm": st64._replace(rou=rand3(-0.9, 0.9, st64.rou),
+                              sigmau=rand3(0.01, 3, st64.sigmau),
+                              sigmav=rand3(0.01, 3, st64.sigmav)),
+        "clamp": k2_probes["clamp"],
+    }
+
+    def k3_args(st, dtype):  # K2's edge stacks (mu, sg, u2e, o2e, rou)
+        return edge_args(st, dtype)[:5] + (fm32.K, fm32.lambdas, fm32.epsn)
+
+    for dtype in (torch.float64, torch.float32):
+        for sname, st in k3_probes.items():
+            args = k3_args(st, dtype)
+            a, r, ok = compare(k3_fn(*args), edge_gq.edge_gq_torch(*args), dtype)
+            require(ok, f"K3 {tuple(args[2].shape)} K={fm32.K} {str(dtype)[6:]} {sname}: "
+                        f"max abs err {a:.3e}, rel {r:.3e}")
+            if sname == "warm":
+                ms = time_ms(lambda: k3_fn(*args), 50)
+                pms = time_ms(lambda: edge_gq.edge_gq_torch(*args), 3)
+                log(f"  K3 {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                if dtype == torch.float32:
+                    record["K3"] = dict(max_abs_err=a, ms=ms, plain_ms=pms)
+
+    # ---- 7. one full_mixture sweep, three ways
+    log("phase exact sweep")
+    fprob = {torch.float32: pg.make_problem(fm32, I1, I2, fr, dev),
+             torch.float64: pg.make_problem(fm64, I1, I2, fr, dev)}
+    three_way_sweep("full_mixture ",
+                    pg.make_sweep(dataclasses.replace(fm64, edge_kernel="torch"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fm32, edge_kernel="torch"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fm32, edge_kernel="cuda"), (H, W)),
+                    fprob, (("init", st64), ("converged", conv64)), cast)
+
+    # ---- 8. the exact slice, through the user entry point
+    log("phase exact solve")
+    p32 = fprob[torch.float32]
+    del fprob
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    k1_fn.launches = k2_fn.launches = k3_fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    fres = solve(fm32, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
+    torch.cuda.synchronize()
+    fwall = time.time() - t
+    flaunch = {"K1": k1_fn.launches, "K2": k2_fn.launches, "K3": k3_fn.launches}
+    fpeak = torch.cuda.max_memory_allocated()
+    require(fres.iters == fm32.its, f"solve ran {fres.iters} sweeps ({fm32.its} asked)")
+    require(bool(np.isfinite(fres.Energy[:fres.iters]).all()), "energy finite over every sweep")
+    a1, an = fres.AEPE[0], fres.AEPE[fres.iters - 1]
+    require(bool(an < a1), f"AEPE {a1:.4f} at it=1 -> {an:.4f} at it={fres.iters} (falls)")
+    require(flaunch == {"K1": 0, "K2": 0, "K3": fres.iters},
+            f"launch counters {flaunch}: K3 equals the sweep count {fres.iters}, K1 and K2 0")
+    log(f"  solve wall {fwall:.3f} s incl. 4 readouts; peak device memory "
+        f"{fpeak / 2**30:.3f} GiB; AEPE trace "
+        f"{[round(float(x), 4) for x in fres.AEPE[[0, 299, 599, 899]]]}")
+
+    seg = pg.make_segment_runner(dataclasses.replace(fm32, tor=0.0), (H, W))
+    st, *_ = seg(p32, cast(st64, torch.float32), 10)
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    seg(p32, st, 300)
+    t1.record()
+    torch.cuda.synchronize()
+    record["exact_segment_ms_per_sweep"] = t0.elapsed_time(t1) / 300
+    log(f"  exact segment: {record['exact_segment_ms_per_sweep']:.4f} ms/sweep "
+        "(300-sweep segment, CUDA events)")
+
+    sweep = pg.make_sweep(fm32, (H, W))
+    node_tab = build_table(fm32.K, fm32.quad_chunk, np.float64)
+    a3 = torch.softmax(st.w, 0).reshape(fm32.L, 1, 1)
+
+    def node_term():
+        f = make_node_pot_bicubic(p32.I1, p32.I2_tab, fm32.lambdad, fm32.epsn)
+        raw = gq_accumulate(f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn, node_tab)
+        return finalize(raw, a3, st.sigmau, st.sigmav, st.pn, st.temperature, NODE)
+
+    k3_state = k3_args(st, torch.float32)
+    split = dict(sweep=time_ms(lambda: sweep(p32, st), 10), node=time_ms(node_term, 10),
+                 K3=time_ms(lambda: k3_fn(*k3_state), 50))
+    split["rest"] = split["sweep"] - split["node"] - split["K3"]
+    record["exact_sweep_split_ms"] = split
+    log("  one exact sweep (CUDA events): " + ", ".join(f"{k} {v:.4f} ms"
+                                                       for k, v in split.items()))
+
+    # ---- 9. resume on the card
+    log("phase resume")
+    c300, c600 = (dataclasses.replace(fm32, its=n) for n in (300, 600))
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        solve(c300, I1, I2, gt_flow=gt, flow_range=fr, device=dev, checkpoint_path=ck)
+        resumed = solve(c600, I1, I2, gt_flow=gt, flow_range=fr, device=dev,
+                        checkpoint_path=ck, resume=True)
+    full = solve(c600, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
+    diff = max(float((getattr(resumed.state, f).double()
+                      - getattr(full.state, f).double()).abs().max())
+               for f in resumed.state._fields)
+    same_traces = all(np.array_equal(getattr(resumed, n), getattr(full, n), equal_nan=True)
+                      for n in ("AEPE", "Energy", "logP"))
+    require(resumed.iters == full.iters == 600 and diff == 0.0 and same_traces
+            and resumed.best_aepe == full.best_aepe,
+            f"resumed 300 -> 600 equals an unbroken 600-sweep solve (max state diff {diff:.3e},"
+            f" traces equal {same_traces}, best AEPE {resumed.best_aepe:.6f} vs "
+            f"{full.best_aepe:.6f})")
+
     kernels = [
         dict(name="cos_mode_sums (K1)", route="cuda", source="gqmap_tpu_torch/csrc/cosine_gq.cu",
              replaces="gqmap_tpu/kernels/cosine_gq.py:305", launches=launches["K1"],
@@ -311,6 +459,9 @@ def main():
              source="gqmap_tpu_torch/csrc/edge_reduced_gq.cu",
              replaces="gqmap_tpu/kernels/edge_reduced_gq.py:113", launches=launches["K2"],
              **record["K2"]),
+        dict(name="edge_gq (K3)", route="cuda", source="gqmap_tpu_torch/csrc/edge_gq.cu",
+             replaces="gqmap_tpu/kernels/edge_gq.py:97", launches=flaunch["K3"],
+             **record["K3"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

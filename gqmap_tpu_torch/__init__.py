@@ -3,7 +3,8 @@
 The port of ``gqmap_tpu`` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
 It mirrors the JAX package's layout (``ops/``, ``kernels/``, ``models/``) and
 never imports JAX; the JAX package is the reference its tests compare with.
-So far it runs the ``GQMAPConfig.tpu_fast()`` main path; the CUDA kernels
+So far it runs the ``GQMAPConfig.tpu_fast()`` main path and the
+reference-parity ``GQMAPConfig.full_mixture()`` exact path; the CUDA kernels
 (``csrc/*.cu``) are built with ``nvcc`` at first use on the GPU.
 """
 

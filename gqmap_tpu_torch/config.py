@@ -9,6 +9,11 @@ tests compare every preset field by field). Two fields differ in meaning:
   runs its plain PyTorch version for tensors on the CPU; ``"cuda"`` always
   launches the kernel (and raises for CPU tensors); ``"torch"`` is the
   explicit plain path, the counterpart of the JAX package's ``"xla"``.
+  ``edge_kernel`` picks the kernel of the configured ``edge_quad``: K2 for
+  ``"reduced"``, K3 for ``"tensor"``. The JAX package keeps its tensor-rule
+  kernel opt-in (``edge_kernel="pallas"``) for TPU cost reasons; here
+  ``"auto"`` launches K3 on the GPU, whose sums differ from the plain
+  version's only in summation order.
 * ``bicubic_pack`` is accepted and has no effect: it selects a TPU gather
   layout whose values differ from the 16-tap path only by summation order.
 
@@ -56,7 +61,7 @@ class GQMAPConfig:
     edge_kind: str = "charbonnier"  # or "truncquad"
     edge_quad: str = "tensor"     # "tensor" (K^2 rule) | "reduced" (1-D rule)
     edge_quad_k: int = 0          # 1-D order for edge_quad="reduced"; 0 = 2K+3
-    edge_kernel: str = "auto"     # reduced edge term: "auto" | "cuda" | "torch"
+    edge_kernel: str = "auto"     # edge term (K2 or K3): "auto" | "cuda" | "torch"
     gama: float = 1.0             # truncated-quadratic edge scale
     dta: float = 10.0             # truncation cutoff
 

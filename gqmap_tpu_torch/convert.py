@@ -27,11 +27,13 @@ def _t(x, device) -> torch.Tensor:
 
 def problem_from_numpy(fields: Mapping, device="cpu") -> Problem:
     """``fields``: ``I1``, ``I2_tab``, ``interior`` (arrays), ``rng`` (four
-    floats: minu, maxu, minv, maxv) and ``cheb`` (a mapping of the
-    ``CosData`` fields ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``)."""
+    floats: minu, maxu, minv, maxv) and ``cheb``, a mapping of the
+    ``CosData`` fields ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``, or
+    None for the exact path's Problem."""
     c = fields["cheb"]
-    cheb = CosData(coeffs=_t(c["coeffs"], device),
-                   **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
+    cheb = None if c is None else CosData(
+        coeffs=_t(c["coeffs"], device),
+        **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
     return Problem(I1=_t(fields["I1"], device), I2_tab=_t(fields["I2_tab"], device),
                    interior=_t(fields["interior"], device).to(torch.bool),
                    rng=FlowRange(*(float(x) for x in fields["rng"])), cheb=cheb)

@@ -43,6 +43,9 @@ _SIGNATURES = {
     # mu, sg, u2e, o2e, rou, alpha, T, tab, out, DC, C, L, S, K1, lam, eps, es, device, stream
     "gqmap_edge_reduced_f32": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
     "gqmap_edge_reduced_f64": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
+    # mu, sg, u2e, o2e, rou, tab, out, DC, C, L, S, K2, lam, eps, device, stream
+    "gqmap_edge_gq_f32": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_edge_gq_f64": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
 }
 
 

@@ -1,10 +1,18 @@
-"""The GQMAP variational inference engine, main-path slice, in PyTorch.
+"""The GQMAP variational inference engine in PyTorch.
 
-Port of ``gqmap_tpu/models/gqmap.py`` for the ``GQMAPConfig.tpu_fast()``
-path: the closed-form cosine data term (kernel K1), reduced 1-D Charbonnier
-edge quadrature (kernel K2), the Stein estimator, a synchronous Jacobi sweep
-(``gqmap_gpu_mixture.m:29-46``) and the softmax-natural alpha update, with a
-MAP / logP / AEPE readout at it=1 and then every ``eval_every`` sweeps.
+Port of ``gqmap_tpu/models/gqmap.py`` for two paths, both with the Stein
+estimator, a synchronous Jacobi sweep (``gqmap_gpu_mixture.m:29-46``), the
+softmax-natural alpha update and a MAP / logP / AEPE readout at it=1 and
+then every ``eval_every`` sweeps:
+
+* ``GQMAPConfig.tpu_fast()``: the closed-form cosine data term (kernel K1)
+  and reduced 1-D Charbonnier edge quadrature (kernel K2);
+* ``GQMAPConfig.full_mixture()``, the reference-parity exact path: the
+  K^2-point bicubic node quadrature (plain torch, :func:`gq_accumulate`)
+  and K^2-point tensor-rule Charbonnier edges (kernel K3).
+
+``solve`` also takes ``init_flow``, ``reset_at`` and checkpoint / resume, as
+the JAX ``solve`` does.
 
 Differences from the JAX engine, none of which changes a result:
 
@@ -21,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -28,14 +37,16 @@ import torch
 
 from ..config import FlowRange, GQMAPConfig
 from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
+from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch)
 from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data
 from ..ops.flowviz import flow_to_color
-from ..ops.gq import EDGE, NODE
+from ..ops.gq import EDGE, NODE, finalize, gq_accumulate
 from ..ops.interp import pad_cubic
 from ..ops.mixture import extract_map
 from ..ops.potentials import make_edge_pot, make_node_pot_bicubic
+from ..ops.quadrature import build_table
 from ..ops.simplex import project_simplex, softmax, softmax_natural_step
 
 __all__ = [
@@ -56,8 +67,13 @@ __all__ = [
 ]
 
 _NODE_SUMS = {"auto": cos_mode_sums, "cuda": cos_mode_sums_cuda, "torch": cos_mode_sums_torch}
-_EDGE_GRADS = {"auto": edge_reduced_grads, "cuda": edge_reduced_grads_cuda,
-               "torch": edge_reduced_grads_torch}
+# edge_quad -> edge_kernel -> the K2 route (finalized gradients) or the K3
+# route (raw sums, finalized here)
+_EDGE_ROUTES = {
+    "reduced": {"auto": edge_reduced_grads, "cuda": edge_reduced_grads_cuda,
+                "torch": edge_reduced_grads_torch},
+    "tensor": {"auto": edge_gq, "cuda": edge_gq_cuda, "torch": edge_gq_torch},
+}
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
@@ -82,8 +98,8 @@ class Problem(NamedTuple):
     I1: torch.Tensor       # (Mo, No) frame 1
     I2_tab: torch.Tensor   # pad_cubic(I2)
     interior: torch.Tensor # (M, N) bool: updatable lattice sites
-    rng: FlowRange
-    cheb: CosData
+    rng: FlowRange | None
+    cheb: CosData | None = None  # cosine coefficient field (data_term="cosine")
 
 
 class SweepAux(NamedTuple):
@@ -99,9 +115,14 @@ def _dt(cfg: GQMAPConfig) -> torch.dtype:
 
 
 def _device(device) -> torch.device:
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """``device``, or the GPU when it is None. With no CUDA device, None
+    raises: a CPU run asks for ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is false); "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def check_supported(cfg: GQMAPConfig) -> None:
@@ -112,21 +133,20 @@ def check_supported(cfg: GQMAPConfig) -> None:
     ``ValueError``.
     """
     todo = {
-        ("data_term", "bicubic"): "Queue 1, Slice B item 12",
         ("data_term", "nearest"): "Queue 1, Slice B item 13",
         ("data_term", "quadratic"): "Queue 1, Slice B item 13",
         ("data_term", "chebyshev"): "'Do not port' (validation-only in the JAX package)",
-        ("edge_quad", "tensor"): "Queue 1, Slice B item 12, and Queue 2 K3",
         ("edge_kind", "truncquad"): "Queue 1, Slice B item 13",
         ("gradient_estimator", "autodiff"): "Queue 1, Slice B item 13",
         ("gradient_estimator", "prewitt"): "Queue 1, Slice B item 13",
         ("sweep_order", "redblack"): "Queue 1, Slice B item 11",
     }
-    supported = {"data_term": "cosine", "edge_quad": "reduced", "edge_kind": "charbonnier",
-                 "gradient_estimator": "stein", "sweep_order": "jacobi"}
+    supported = {"data_term": ("cosine", "bicubic"), "edge_quad": ("reduced", "tensor"),
+                 "edge_kind": ("charbonnier",), "gradient_estimator": ("stein",),
+                 "sweep_order": ("jacobi",)}
     for field, ok in supported.items():
         value = getattr(cfg, field)
-        if value == ok:
+        if value in ok:
             continue
         if (field, value) in todo:
             raise NotImplementedError(
@@ -160,19 +180,23 @@ def _interior_mask(M: int, N: int, border: int) -> np.ndarray:
 
 def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
                  device=None) -> Problem:
-    """Frames on the device plus the cosine coefficient field over the
-    flow range widened by ``cheb_margin``."""
+    """Frames on the device; for ``data_term="cosine"`` also the cosine
+    coefficient field over the flow range widened by ``cheb_margin`` (the
+    exact path needs no flow range here)."""
     check_supported(cfg)
-    if flow_range is None:
+    if cfg.data_term == "cosine" and flow_range is None:
         raise ValueError("data_term='cosine' needs flow_range at make_problem")
     dt, device = _dt(cfg), _device(device)
     I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device)
     I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device)
     tab = pad_cubic(I2)
-    m = cfg.cheb_margin
-    box = (flow_range.minu - m, flow_range.maxu + m, flow_range.minv - m, flow_range.maxv + m)
-    cheb = build_cos_data(I1, tab, cfg.lambdad, cfg.epsn, box, A=cfg.cheb_p, B=cfg.cheb_q,
-                          patch=cfg.patch, window_rg=cfg.window_rg)
+    cheb = None
+    if cfg.data_term == "cosine":
+        m = cfg.cheb_margin
+        box = (flow_range.minu - m, flow_range.maxu + m,
+               flow_range.minv - m, flow_range.maxv + m)
+        cheb = build_cos_data(I1, tab, cfg.lambdad, cfg.epsn, box, A=cfg.cheb_p,
+                              B=cfg.cheb_q, patch=cfg.patch, window_rg=cfg.window_rg)
     M, N = flow_lattice_shape(cfg, I1.shape)
     interior = torch.as_tensor(_interior_mask(M, N, cfg.border), device=device)
     return Problem(I1=I1, I2_tab=tab, interior=interior, rng=flow_range, cheb=cheb)
@@ -224,7 +248,8 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
     n_interior = (M - 2 * b) * (N - 2 * b) * L
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums = _NODE_SUMS[cfg.node_kernel]
-    edge_grads = _EDGE_GRADS[cfg.edge_kernel]
+    node_tab = build_table(cfg.K, cfg.quad_chunk, np.float64)
+    edge_route = _EDGE_ROUTES[cfg.edge_quad][cfg.edge_kernel]
 
     def sweep(problem: Problem, state: GQState) -> tuple[GQState, SweepAux]:
         rngv = problem.rng
@@ -239,19 +264,30 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
-        # --- node term, kernel K1 (gqmap_gpu_mixture.m:29, :87-116) ---
-        sums = node_sums(problem.cheb, state.muu, state.muv, state.sigmau, state.sigmav,
-                         state.pn)
-        gn = _finalize_mode_sums(problem.cheb, sums, state.muu, state.sigmau, state.sigmav,
-                                 state.pn, a3, T, NODE)
+        # --- node term (gqmap_gpu_mixture.m:29, :87-116) ---
+        if cfg.data_term == "cosine":  # kernel K1
+            sums = node_sums(problem.cheb, state.muu, state.muv, state.sigmau, state.sigmav,
+                             state.pn)
+            gn = _finalize_mode_sums(problem.cheb, sums, state.muu, state.sigmau,
+                                     state.sigmav, state.pn, a3, T, NODE)
+        else:  # the K^2-point bicubic quadrature, plain torch
+            node_f = make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
+                                           patch=cfg.patch)
+            raw_n = gq_accumulate(node_f, state.muu, state.muv, state.sigmau, state.sigmav,
+                                  state.pn, node_tab)
+            gn = finalize(raw_n, a3, state.sigmau, state.sigmav, state.pn, T, NODE)
 
-        # --- edge term, kernel K2 (:31-34, :118-146); dims (dir, chan, L, M, N) ---
+        # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---
         mu = torch.stack([state.muu, state.muv])
         sg = torch.stack([state.sigmau, state.sigmav])
         u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
         o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
-        ge = edge_grads(mu, sg, u2e, o2e, state.rou, alpha, T, k1, cfg.lambdas, cfg.epsn,
-                        EDGE)
+        if cfg.edge_quad == "reduced":  # kernel K2
+            ge = edge_route(mu, sg, u2e, o2e, state.rou, alpha, T, k1, cfg.lambdas, cfg.epsn,
+                            EDGE)
+        else:  # kernel K3
+            raw_e = edge_route(mu, sg, u2e, o2e, state.rou, cfg.K, cfg.lambdas, cfg.epsn)
+            ge = finalize(raw_e, a3, sg[None], o2e, state.rou, T, EDGE)
 
         # --- assembly: endpoint-1 terms stay, endpoint-2 terms go back to the
         # neighbour that owns them (:37-40) ---
@@ -397,21 +433,31 @@ class SolveResult:
 
 def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None = None,
           seed=None, out_dir=None, verbose: bool = False, callback=None,
-          init: GQState | None = None, checkpoint_path=None, mesh=None,
-          device=None) -> SolveResult:
+          init: GQState | None = None, init_flow=None, checkpoint_path=None,
+          checkpoint_every: int = 0, resume: bool = False, mesh=None,
+          reset_at: int | None = None, device=None) -> SolveResult:
     """Run the full GQMAP inference loop.
 
     ``gt_flow`` (raw .flo contents) gives the clamp ranges, the unknown mask
     and the AEPE as the reference's ``optical_flow.m:12-13`` does; pass
     ``flow_range`` to run without ground truth (or to override a degenerate
-    GT box). ``device`` defaults to the GPU when there is one.
+    GT box). ``device`` defaults to the GPU; with no GPU it must be given.
+
+    Checkpointing: with ``checkpoint_path`` set, the state and the run's
+    traces are written every ``checkpoint_every`` sweeps (0 = only at the
+    end); with ``resume=True`` an existing checkpoint restarts the run where
+    it stopped and returns what an unbroken run would. ``init_flow`` (an
+    (M, N, 2) array) seeds the means of every component, clamped to the
+    flow range, over the random sigma init (``legacy/gqmap_gpuV2.m:13-14``).
+    ``reset_at`` applies the reference's ``reset_para`` hook after that many
+    sweeps: sigma re-widened to half the flow range, correlations zeroed,
+    the iteration counter restarted, means kept (``legacy/gqmap_gpuV2.m:51-62``).
     """
     if mesh is not None:
         raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1, Slice B item 15)")
-    if checkpoint_path is not None:
-        raise NotImplementedError("checkpointing is not ported yet (ROADMAP Queue 1 item 8, checkpoint/metrics)")
     if out_dir is not None:
-        raise NotImplementedError("flow visualisation output is not ported yet (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError("flow visualisation output is not ported yet (ROADMAP "
+                                  "Queue 1 item 7: out_dir PNGs need an image writer)")
 
     tflow = unknown = None
     if gt_flow is not None:
@@ -424,7 +470,25 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
 
     problem = make_problem(cfg, I1, I2, flow_range, device)
     dev = problem.I1.device
-    state = init if init is not None else init_state(cfg, flow_range, np.shape(I1), seed, dev)
+    resumed_extras = {}
+    if resume and checkpoint_path is not None and os.path.exists(checkpoint_path):
+        from ..utils.checkpoint import load_checkpoint
+
+        state, _, resumed_extras = load_checkpoint(checkpoint_path, expect_cfg=cfg, device=dev)
+    elif init is not None:
+        state = init
+    else:
+        state = init_state(cfg, flow_range, np.shape(I1), seed, dev)
+        if init_flow is not None:
+            fl = torch.as_tensor(np.asarray(init_flow), dtype=_dt(cfg), device=dev)
+            if tuple(fl.shape[:2]) != tuple(state.muu.shape[1:]):
+                raise ValueError(f"init_flow shape {tuple(fl.shape)} does not match the flow "
+                                 f"lattice {tuple(state.muu.shape[1:])}")
+            state = state._replace(
+                muu=fl[..., 0].clamp(flow_range.minu, flow_range.maxu).expand_as(state.muu)
+                .contiguous(),
+                muv=fl[..., 1].clamp(flow_range.minv, flow_range.maxv).expand_as(state.muv)
+                .contiguous())
     seg = make_segment_runner(cfg, np.shape(I1))
     map_fn = make_map_fn(cfg)
     logp_fn = make_logp_fn(cfg, np.shape(I1))
@@ -435,12 +499,39 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
     logP = np.full(its, np.nan)
     dmu_trace = np.full(its, np.nan)
     best_aepe = math.inf
-    it_done = int(state.it) - 1
+    it_done = int(state.it) - 1  # > 0 when resuming from a checkpoint
     last_map = None
+
+    # resume restores best_aepe and the traces, so a resumed run returns the
+    # SolveResult of an unbroken one
+    if "best_aepe" in resumed_extras:
+        best_aepe = float(resumed_extras["best_aepe"])
+    for name, arr in (("AEPE", AEPE), ("Energy", Energy), ("logP", logP), ("dmu", dmu_trace)):
+        if name in resumed_extras:
+            saved = np.asarray(resumed_extras[name])
+            n = min(saved.size, its)
+            arr[:n] = saved[:n]
+    last_saved = it_done
+
+    def save(force=False):
+        nonlocal last_saved
+        if checkpoint_path is None:
+            return
+        if force or (checkpoint_every and it_done - last_saved >= checkpoint_every):
+            from ..utils.checkpoint import save_checkpoint
+
+            save_checkpoint(checkpoint_path, state, cfg, best_aepe=best_aepe, AEPE=AEPE,
+                            Energy=Energy, logP=logP, dmu=dmu_trace)
+            last_saved = it_done
+
+    pending_reset = reset_at if reset_at else None
 
     while it_done < its:
         next_eval = 1 if it_done == 0 else (it_done // cfg.eval_every + 1) * cfg.eval_every
-        limit = min(next_eval, its) - it_done
+        next_eval = min(next_eval, its)
+        if pending_reset is not None:
+            next_eval = min(next_eval, pending_reset)
+        limit = next_eval - it_done
         state, n, eb, pb, _, stopped = seg(problem, state, limit)
         Energy[it_done:it_done + n] = eb[:n].cpu().numpy()
         dmu_trace[it_done:it_done + n] = pb[:n].cpu().numpy()
@@ -467,9 +558,27 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
                       f"E={Energy[it_done - 1]:.6e} AEPE={best_aepe:.4f} logP={lp:.6e}")
             if callback is not None:
                 callback(it_done, state, last_map, AEPE[it_done - 1], lp)
+        if pending_reset is not None and it_done >= pending_reset:
+            # reset_para: re-widen sigma, zero the correlations, restart the
+            # schedule; keep mu and best_aepe
+            state = state._replace(
+                sigmau=torch.full_like(state.sigmau, (flow_range.maxu - flow_range.minu) / 2.0),
+                sigmav=torch.full_like(state.sigmav, (flow_range.maxv - flow_range.minv) / 2.0),
+                pn=torch.zeros_like(state.pn),
+                rou=torch.zeros_like(state.rou),
+                it=torch.ones_like(state.it),
+            )
+            it_done = 0
+            last_saved = 0
+            pending_reset = None
+            if verbose:
+                print("[reset_para] sigma, pn and rou have been reset")
+            continue
+        save()
         if stopped or it_done >= its:
             break
 
+    save(force=True)
     if last_map is None:
         last_map = map_fn(state).cpu().numpy()
     alpha = softmax(state.w) if cfg.alpha_update == "softmax_natural" else state.w

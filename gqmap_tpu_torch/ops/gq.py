@@ -1,9 +1,11 @@
 """Gauss-quadrature expectation gradients over bivariate Gaussians.
 
-Port of the main-path part of ``gqmap_tpu/ops/gq.py``: the raw-sum and
-finalized-gradient records, the difference-reduced 1-D rule for edge
-potentials (:func:`gq_accumulate_diff`), and the two finalizers that apply
-the alpha weighting and Bethe-entropy terms (``gqmap_gpu_mixture.m:87-146``).
+Port of the Stein-estimator part of ``gqmap_tpu/ops/gq.py``: the raw-sum
+and finalized-gradient records, the K^2-point tensor rule
+(:func:`gq_accumulate`, the exact path's node term and the plain version of
+kernel K3), the difference-reduced 1-D rule for edge potentials
+(:func:`gq_accumulate_diff`), and the two finalizers that apply the alpha
+weighting and Bethe-entropy terms (``gqmap_gpu_mixture.m:87-146``).
 The raw sums are those of the tensor rule under the spectral whitening
 ``z_i = s XI + t XJ``, ``z_j = t XI + s XJ`` (see the JAX module docstring):
 
@@ -16,12 +18,13 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
-from .quadrature import QuadTable1D
+from .quadrature import QuadTable, QuadTable1D
 
-__all__ = ["GQRaw", "GQGrads", "gq_accumulate_diff", "finalize", "finalize_closed",
-           "NODE", "EDGE"]
+__all__ = ["GQRaw", "GQGrads", "gq_accumulate", "gq_accumulate_diff", "finalize",
+           "finalize_closed", "NODE", "EDGE"]
 
 _SQRT2 = math.sqrt(2.0)
 _CONST1 = 1.0 + math.log(2.0 * math.pi)  # 1 + log(2*pi), entropy constant
@@ -53,6 +56,37 @@ class GQGrads(NamedTuple):
     do2: torch.Tensor
     dp: torch.Tensor
     E: torch.Tensor    # alpha-weighted energy contribution (== a*da)
+
+
+def gq_accumulate(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2,
+                  p, tab: QuadTable) -> GQRaw:
+    """The six raw sums of ``f`` under the tensor rule, over every site.
+
+    ``f(x1, x2)`` receives sample arrays of shape ``(chunk,) + site_shape``
+    (the chunk axis leads) and returns the same shape; the site arrays
+    broadcast together to ``site_shape``. One step per table chunk, so peak
+    memory is a chunk's worth of samples; pad points have zero weight.
+    """
+    s = (torch.sqrt(1.0 + p) + torch.sqrt(1.0 - p)) * 0.5
+    t = (torch.sqrt(1.0 + p) - torch.sqrt(1.0 - p)) * 0.5
+    o1e = o1 * _SQRT2
+    o2e = o2 * _SQRT2
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    pts = (tab.chunk,) + (1,) * len(site)
+    table = torch.as_tensor(np.stack(tab), dtype=u1.dtype, device=u1.device)
+    raw = GQRaw(*(torch.zeros(site, dtype=u1.dtype, device=u1.device) for _ in GQRaw._fields))
+    for step in range(tab.steps):
+        xi, xj, wiwj, xixj, x2a, x2m = (r.reshape(pts) for r in table[:, step])
+        zi = s * xi + t * xj
+        zj = t * xi + s * xj
+        fv = wiwj * f(o1e * zi + u1, o2e * zj + u2)
+        raw.Ei.add_(fv.sum(0))
+        raw.Z1.add_((fv * zi).sum(0))
+        raw.Z2.add_((fv * zj).sum(0))
+        raw.Sa.add_((fv * (x2a - 1.0)).sum(0))
+        raw.Sm.add_((fv * x2m).sum(0))
+        raw.Sxy.add_((fv * xixj).sum(0))
+    return raw
 
 
 def gq_accumulate_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,

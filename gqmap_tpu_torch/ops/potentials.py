@@ -1,8 +1,9 @@
 """MRF potentials of the main path (port of ``gqmap_tpu/ops/potentials.py``).
 
 Node (data) potential: Charbonnier brightness constancy against a bicubically
-sampled second frame (``gqmap_gpu_mixture.m:156-179``), here only for the
-logP readout. Edge (smoothness) potential: Charbonnier on the neighbour flow
+sampled second frame (``gqmap_gpu_mixture.m:156-179``): the exact path's node
+term (through :func:`gqmap_tpu_torch.ops.gq.gq_accumulate`) and the logP
+readout. Edge (smoothness) potential: Charbonnier on the neighbour flow
 difference (``:180-182``), in its two-endpoint and difference forms.
 """
 
@@ -22,7 +23,9 @@ def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
     """Return ``f(x1, x2) -> node potential`` over the ``(Mo, No)`` lattice.
 
     ``VV = pad_cubic(I2)``; ``x1``/``x2`` are displacements of shape
-    ``lead + (Mo, No)``. Only ``patch=1`` is ported (ROADMAP Slice B item 10).
+    ``lead + (Mo, No)``, ``lead`` any leading broadcast axes (quadrature
+    chunk, mixture component). Only ``patch=1`` is ported (ROADMAP Slice B
+    item 10).
     """
     if patch != 1:
         raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")

@@ -2,8 +2,12 @@
 
 Nodes and weights of the order-K rule by the Golub-Welsch algorithm: the
 eigendecomposition of the symmetric tridiagonal Jacobi matrix with
-off-diagonal ``sqrt(i/2)`` (``GaussHermite_2.m:21-32``). Only the 1-D table
-of the reduced edge quadrature is on the port's main path.
+off-diagonal ``sqrt(i/2)`` (``GaussHermite_2.m:21-32``): the 1-D table of
+the reduced edge quadrature and the K^2-point tensor-product table of the
+exact path, mirroring the ``meshgrid`` constants of
+``gqmap_gpu_mixture.m:9-10`` (XI, XJ, WIWJ, XIXJ, XI^2+XJ^2, XI^2-XJ^2),
+padded to a chunk multiple with zero-weight points, which add nothing to
+any sum.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import scipy.linalg
 
-__all__ = ["gauss_hermite", "QuadTable1D", "build_table_1d"]
+__all__ = ["gauss_hermite", "QuadTable", "QuadTable1D", "build_table", "build_table_1d"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,6 +40,27 @@ def gauss_hermite(n: int):
     Weight function ``exp(-x^2)`` on (-inf, inf); ``sum(w) == sqrt(pi)``.
     """
     return _gauss_hermite_cached(int(n))
+
+
+class QuadTable(NamedTuple):
+    """Flattened 2-D tensor-product table, chunked. Every field has shape
+    ``(steps, chunk)``; the trailing pad (if ``K^2 % chunk != 0``) has
+    ``wiwj == 0``."""
+
+    xi: np.ndarray    # XI values (node coordinate along axis 1)
+    xj: np.ndarray    # XJ values (node coordinate along axis 2)
+    wiwj: np.ndarray  # product weight WI*WJ
+    xixj: np.ndarray  # XI*XJ
+    x2a: np.ndarray   # XI^2 + XJ^2
+    x2m: np.ndarray   # XI^2 - XJ^2
+
+    @property
+    def steps(self) -> int:
+        return self.xi.shape[0]
+
+    @property
+    def chunk(self) -> int:
+        return self.xi.shape[1]
 
 
 class QuadTable1D(NamedTuple):
@@ -62,3 +87,26 @@ def build_table_1d(K: int, chunk: int = 0, dtype=np.float32) -> QuadTable1D:
         return np.pad(a, (0, pad)).reshape(steps, chunk).astype(dtype)
 
     return QuadTable1D(x=prep(x), w=prep(w))
+
+
+def build_table(K: int, chunk: int = 0, dtype=np.float32) -> QuadTable:
+    """Chunked K^2-point tensor-product table; ``chunk`` points per step,
+    0 for all K^2 in one step."""
+    x, w = gauss_hermite(K)
+    K2 = K * K
+    # MATLAB meshgrid(X): XI(r,c) = X(c), XJ(r,c) = X(r); the flat order is
+    # irrelevant because every use is a full sum over the K^2 points.
+    xi = np.tile(x[None, :], (K, 1)).reshape(-1)
+    xj = np.tile(x[:, None], (1, K)).reshape(-1)
+    wi = np.tile(w[None, :], (K, 1)).reshape(-1)
+    wj = np.tile(w[:, None], (1, K)).reshape(-1)
+    if chunk <= 0 or chunk > K2:
+        chunk = K2
+    steps = -(-K2 // chunk)
+    pad = steps * chunk - K2
+
+    def prep(a):
+        return np.pad(a, (0, pad)).reshape(steps, chunk).astype(dtype)
+
+    return QuadTable(xi=prep(xi), xj=prep(xj), wiwj=prep(wi * wj), xixj=prep(xi * xj),
+                     x2a=prep(xi**2 + xj**2), x2m=prep(xi**2 - xj**2))

@@ -52,11 +52,11 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("override, item", [
-    (dict(data_term="bicubic"), "item 12"),
+    (dict(data_term="bicubic", patch=4), "item 10"),
     (dict(data_term="nearest"), "item 13"),
     (dict(data_term="quadratic"), "item 13"),
     (dict(data_term="chebyshev"), "Do not port"),
-    (dict(edge_quad="tensor"), "K3"),
+    (dict(edge_quad="tensor", edge_kind="truncquad"), "item 13"),
     (dict(edge_kind="truncquad"), "item 13"),
     (dict(gradient_estimator="autodiff"), "item 13"),
     (dict(gradient_estimator="prewitt"), "item 13"),
@@ -81,5 +81,6 @@ def test_flagship_and_kernel_routes_are_supported():
     for route in ("auto", "cuda", "torch"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(node_kernel=route,
                                                              edge_kernel=route))
+        check_supported(gqmap_tpu_torch.GQMAPConfig.full_mixture(edge_kernel=route))
     check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(alpha_update="projsplx",
                                                          dtype="float64"))

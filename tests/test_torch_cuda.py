@@ -16,7 +16,7 @@ import torch
 
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
-from gqmap_tpu_torch.kernels import build, cosine_gq, edge_reduced_gq
+from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE
@@ -121,3 +121,33 @@ def test_edge_reduced_kernel_f32_at_rho_clamp(dev):
         ek = float((getattr(got, name).double() - ref).abs().max())
         ep = float((getattr(plain, name).double() - ref).abs().max())
         assert ek <= 2.0 * ep + 1e-6 * float(ref.abs().max()), (name, ek, ep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L, M, N, K", [(3, 17, 23, 9), (1, 5, 130, 5), (2, 9, 31, 11)])
+def test_edge_gq_kernel_matches_plain(dev, dtype, L, M, N, K):
+    g = torch.Generator().manual_seed(L * M + N)
+    mu = 3 * torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
+    sg = 0.01 + 3 * torch.rand((2, L, M, N), generator=g, dtype=torch.float64)
+    rou = 0.9 * (2 * torch.rand((2, 2, L, M, N), generator=g, dtype=torch.float64) - 1)
+    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
+    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+    args = [x.to(dev, dtype) for x in (mu, sg, u2e, o2e, rou)]
+    got = edge_gq.edge_gq_cuda(*args, K, 5.0, 1e-6)
+    want = edge_gq.edge_gq_torch(*args, K, 5.0, 1e-6)
+    torch.cuda.synchronize()
+    for name in want._fields:
+        _close(getattr(got, name), getattr(want, name), dtype, name)
+
+
+def test_full_mixture_sweep_launches_edge_gq(dev):
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    I2 = np.roll(I1, 1, axis=1)
+    cfg = GQMAPConfig.full_mixture(K=5, its=3, eval_every=3, quad_chunk=7)
+    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                  edge_gq.edge_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches)
+    res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all()
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (0, 0, 3)
