@@ -6,16 +6,29 @@ Runs from the root of a checkout and needs one CUDA card of compute
 capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 
 1. the card (``nvidia-smi``) and the torch / CUDA versions;
-2. the build of ``gqmap_tpu_torch/csrc/*.cu`` with its time; a second build
-   must be a cache hit;
+2. the build of ``gqmap_tpu_torch/csrc/*.cu`` with its time, each source's
+   ``nvcc`` time and the ptxas report; a second build must be a cache hit;
+   the SASS of the library (``cuobjdump -sass``): the instructions of each
+   float32 kernel's inner loop per mode (K1's recur and exp loops) or per
+   quadrature point (K2, K3), which give each kernel's issue bound at 132
+   SMs x 128 lanes x the card's maximum SM clock;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it: K1 (cosine mode sums) on the coefficient field of
-   a 77x300 crop and of the full 376x452 frame, K2 (reduced edge gradients)
-   on the full edge lattice; float64 within 1e-10 of each output's largest
-   magnitude, float32 within 2e-4 of it plus 2e-5 relative; K2 also at the
-   |rho| clamp, where cancellation costs ~eps/(1-rho^2) in any precision:
-   there each f32 version is held to the f64 golden (kernel error at most
-   twice the plain version's); CUDA-event times of kernel and plain version;
+   the main path gives it: K1 (cosine mode sums) in each of its variants
+   ("v1", "adaptive", "recur") on the coefficient field of a 77x300 crop and
+   of the full 376x452 frame, from the init and the converged state, with
+   its path counters (warps on the recur and on the exp body, modes
+   evaluated) printed, and every warp of a converged state on the recur
+   body; K2 (reduced edge gradients) on the full edge lattice; float64
+   within 1e-10 of each output's largest magnitude, float32 within 2e-4 of
+   it plus 2e-5 relative (the plain K1 version is always the full sum: the
+   cutoff and the recurrence differ from it at rounding level); K2 also at
+   the |rho| clamp, where cancellation costs ~eps/(1-rho^2) in any
+   precision: there each f32 version is held to the f64 golden (kernel error
+   at most twice the plain version's); CUDA-event times of kernel and plain
+   version, for K1 of "v1" and of the default "recur", converged and from
+   init, beside the card's name, power limit and SM clock; each kernel's
+   bound (bytes at 3.35 TB/s, each input read once and each output written
+   once, or float32 operations at 67 TFLOP/s);
 4. one full 376x452 sweep from the same state three ways (kernels f32, plain
    f32, plain f64 = the golden), from the random init and from a converged-
    width state (sigma = 0.05): the kernel arm's error against the golden
@@ -24,7 +37,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    on the synthetic 376x452 pair (smoothed noise, I2 = I1 shifted one pixel
    right: u=1, v=0) with both kernels' launch counters reset just before it;
    the energy must stay finite, the AEPE at it=900 be at most half that at
-   it=1, and each counter equal the sweep count. Then ms/sweep of 300-sweep
+   it=1, and each counter equal the sweep count; a second such solve must
+   give the same AEPE trace, bit for bit. Then ms/sweep of 300-sweep
    segments from init and converged, and the peak device memory;
 6. K3 (tensor-rule edge sums) against its plain version on the full edge
    lattice at K=9, from the random init, a warm state (sigma drawn per site
@@ -51,6 +65,7 @@ that line; so does a machine without a CUDA card.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,6 +78,15 @@ H, W = 376, 452          # frame size of the synthetic pair (bench.py)
 FR = (-10.0, 2.0, -2.0, 2.0)  # flow range: the constant GT gives a degenerate box
 F64_TOL = 1e-10
 F32_TOL = (2e-4, 2e-5)   # (of the output's largest magnitude, relative)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+SMS, LANES_PER_CLOCK = 132, 128  # H100 SXM: SMs, thread-instructions an SM issues a clock
+FP32_FLOPS_PER_S = 67e12   # H100 SXM float32 peak outside the tensor cores (data sheet)
+# Floating-point operations (an FMA counts two, a sqrt one) counted from each
+# kernel's source: a mode of K1's recur body (weights 4, the six b sums 14,
+# weight recurrences 4, rotation 6), a quadrature point and the per-element
+# rest of K2 and K3.
+FLOPS = {"K1 recur mode": 28, "K2 point": 14, "K2 element": 40, "K3 point": 28,
+         "K3 element": 10}
 FAILURES = []
 
 
@@ -86,6 +110,76 @@ def synthetic_pair():
     gt = np.zeros((H, W, 2))
     gt[..., 0] = 1.0
     return I1, I2, gt
+
+
+def smi(query):
+    """One line of ``nvidia-smi --query-gpu=<query> --format=csv,noheader``."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def sass_loops(text):
+    """Every backward branch of every function in ``cuobjdump -sass`` output:
+    the instructions from its target label to the branch, and how many of
+    them are MUFU.EX2 and MUFU.RSQ."""
+    funcs = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = block.split("\n", 1)
+        label_addr, pending, instrs = {}, [], []
+        for line in body.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+            if m:
+                addr = int(m.group(1), 16)
+                label_addr.update((lab, addr) for lab in pending)
+                pending = []
+                instrs.append((addr, m.group(2)))
+        loops = []
+        for addr, ins in instrs:
+            m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
+            start = None if m is None else (int(m.group(1), 16) if m.group(1)[0] == "0"
+                                            else label_addr.get(m.group(1)))
+            if start is not None and start <= addr:
+                body_ins = [i for a, i in instrs if start <= a <= addr]
+                loops.append(dict(instructions=len(body_ins),
+                                  ex2=sum("MUFU.EX2" in i for i in body_ins),
+                                  rsq=sum("MUFU.RSQ" in i for i in body_ins)))
+        funcs[name.strip()] = loops
+    return funcs
+
+
+def sass_per_unit(cuobjdump, path, L=3, B=16):
+    """Instructions of each f32 kernel's inner loop per unit of work: K1's
+    u-degree loop per mode (B x L modes an iteration; the recur loop has 3 L
+    exp, the exp loop L + 2 (B - 1) L), K2's and K3's per quadrature point
+    (one reciprocal square root a point). None where the loop is not found."""
+    loops = sass_loops(subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                                      text=True, timeout=600, check=True).stdout)
+    per = {}
+    for k, key in (("K1", f"cos_mode_sums_kernelIfLi{L}ELi{B}E"),
+                   ("K2", "edge_reduced_kernelIfE"), ("K3", "edge_gq_kernelIfE")):
+        lps = next((v for n, v in loops.items() if key in n), [])
+        if k == "K1":
+            for body, ex2 in (("recur", 3 * L), ("exp", L + 2 * (B - 1) * L)):
+                lp = [x for x in lps if x["ex2"] == ex2]
+                per[f"K1 {body} mode"] = lp[0]["instructions"] / (B * L) if lp else None
+        else:
+            lp = max(lps, key=lambda x: x["rsq"], default=None)
+            per[f"{k} point"] = lp["instructions"] / lp["rsq"] if lp and lp["rsq"] else None
+    return per
+
+
+def bound(nbytes, flops):
+    """The least time of a call on the card: its bytes (each input read once,
+    each output written once) at the memory rate or its float32 operations at
+    the peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(fn, n):
@@ -153,10 +247,8 @@ def main():
     k1_fn, k2_fn = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
 
     # ---- 1. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    card = smi("name,power.limit")
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}, capability {cap}, count {torch.cuda.device_count()}")
 
@@ -168,12 +260,22 @@ def main():
         f"{time.time() - t:.3f} s")
     with open(path[:-3] + ".log") as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if line.startswith("nvcc "):
+                log("  " + line.strip())
+            elif "entry function" in line or "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
     t = time.time()
     _, built2 = build.build_library()
     require(not built2, f"second build is a cache hit ({time.time() - t:.4f} s)")
     build.load_library()
+    sass = sass_per_unit(os.path.join(os.path.dirname(build._find_nvcc()), "cuobjdump"), path)
+    max_clock = smi("clocks.max.sm")
+    issue_rate = SMS * LANES_PER_CLOCK * float(max_clock.split()[0]) * 1e6
+    log(f"  SASS instructions of the inner loop (f32): {sass}; max SM clock {max_clock}")
+
+    def issue_ms(unit, work):
+        """The SASS issue bound: ``work`` units of the loop at full issue."""
+        return None if sass[unit] is None else work * sass[unit] / issue_rate * 1e3
 
     I1, I2, gt = synthetic_pair()
     fr = FlowRange(*FR)
@@ -196,27 +298,54 @@ def main():
     # ---- 3. kernels against their plain versions
     log("phase kernels")
     record = {}
+    k1_ms = {}
     crop = {dt: pg.make_problem(c, I1[:77, :300], I2[:77, :300], fr, dev)
             for dt, c in ((torch.float32, cfg32), (torch.float64, cfg64))}
     for label, probs in (("77x300", crop), ("376x452", prob)):
         for dtype in (torch.float64, torch.float32):
             p = probs[dtype]
             M, N = p.I1.shape
+            A, B = p.cheb.coeffs.shape[:2]
             for sname, st in (("init", st64), ("converged", conv64)):
                 s = cast(st, dtype)
                 sites = (s.muu[:, :M, :N].contiguous(), s.muv[:, :M, :N].contiguous(),
                          s.sigmau[:, :M, :N].contiguous(), s.sigmav[:, :M, :N].contiguous(),
                          s.pn[:, :M, :N].contiguous())
-                got = k1_fn(p.cheb, *sites)
                 want = cosine_gq.cos_mode_sums_torch(p.cheb, *sites)
-                a, r, ok = compare(got, want, dtype)
-                require(ok, f"K1 {label} {str(dtype)[6:]} {sname}: max abs err {a:.3e}, "
-                            f"rel {r:.3e}")
+                for variant in cosine_gq.VARIANTS:
+                    cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+                    got = k1_fn(p.cheb, *sites, variant=variant, counters=cnt)
+                    a, r, ok = compare(got, want, dtype)
+                    n_recur, n_exp, modes = cnt.tolist()
+                    require(ok, f"K1 {label} {str(dtype)[6:]} {sname} {variant}: max abs err "
+                                f"{a:.3e}, rel {r:.3e}; counters: {n_recur} warps recur, "
+                                f"{n_exp} exp, {modes} modes of {A * B * sites[0].numel()}")
+                    if sname == "converged" and variant == "recur":
+                        require(n_exp == 0 and n_recur > 0,
+                                f"K1 {label} {str(dtype)[6:]} converged: every warp ran "
+                                f"the recur body ({n_recur} recur, {n_exp} exp)")
+                    if label == "376x452" and dtype == torch.float32:
+                        if variant in ("v1", cosine_gq._DEFAULT_VARIANT):
+                            k1_ms[sname, variant] = time_ms(
+                                lambda: k1_fn(p.cheb, *sites, variant=variant), 20)
+                        if sname == "converged" and variant == cosine_gq._DEFAULT_VARIANT:
+                            k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
+                            record["K1"] = dict(max_abs_err=a, variant=variant, **bound(
+                                k1_bytes, modes * FLOPS["K1 recur mode"]),
+                                sass_issue_ms=issue_ms("K1 recur mode", modes))
                 if label == "376x452" and dtype == torch.float32 and sname == "converged":
-                    ms = time_ms(lambda: k1_fn(p.cheb, *sites), 20)
                     pms = time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 3)
-                    record["K1"] = dict(max_abs_err=a, ms=ms, plain_ms=pms)
-                    log(f"  K1 376x452 f32: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                    clocks = smi("name,power.limit,clocks.sm,clocks.max.sm")
+                    record["K1"].update(ms=k1_ms["converged", "recur"], plain_ms=pms,
+                                        ms_v1=k1_ms["converged", "v1"],
+                                        ms_init=k1_ms["init", "recur"],
+                                        ms_v1_init=k1_ms["init", "v1"], library_ms=None)
+                    log(f"  K1 376x452 f32 on {clocks} (name, power limit, SM clock, max SM "
+                        f"clock): recur {k1_ms['converged', 'recur']:.4f} ms converged, "
+                        f"{k1_ms['init', 'recur']:.4f} ms from init; v1 "
+                        f"{k1_ms['converged', 'v1']:.4f} ms converged, "
+                        f"{k1_ms['init', 'v1']:.4f} ms from init; plain {pms:.4f} ms; bound "
+                        f"{record['K1']['bound_ms']:.4f} ms by {record['K1']['bound_by']}")
                 if label == "376x452" and dtype == torch.float64 and sname == "converged":
                     log(f"  K1 376x452 f64: kernel {time_ms(lambda: k1_fn(p.cheb, *sites), 3):.4f}"
                         f" ms, plain "
@@ -281,7 +410,13 @@ def main():
                 pms = time_ms(lambda: edge_reduced_gq.edge_reduced_grads_torch(*args), 5)
                 log(f"  K2 {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
                 if dtype == torch.float32:
-                    record["K2"] = dict(max_abs_err=a, ms=ms, plain_ms=pms)
+                    # each state value once: u2e and o2e are rolled copies of mu, sg
+                    n_el = args[2].numel()
+                    k2_bytes = sum(args[i].nbytes for i in (0, 1, 4, 5)) + 6 * n_el * 4
+                    record["K2"] = dict(max_abs_err=a, ms=ms, plain_ms=pms, library_ms=None,
+                                        **bound(k2_bytes, n_el * (k1 * FLOPS["K2 point"]
+                                                                  + FLOPS["K2 element"])),
+                                        sass_issue_ms=issue_ms("K2 point", n_el * k1))
 
     # ---- 4. one full sweep, three ways
     log("phase sweep")
@@ -318,6 +453,11 @@ def main():
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
+    res2 = solve(cfg32, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
+    require(np.array_equal(res.AEPE, res2.AEPE, equal_nan=True),
+            f"a second 900-sweep solve gives the same AEPE trace, bit for bit "
+            f"({[float(x) for x in res2.AEPE[[0, 299, 599, 899]]]}); energy trace equal "
+            f"{np.array_equal(res.Energy, res2.Energy, equal_nan=True)}")
 
     p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
     seg = pg.make_segment_runner(dataclasses.replace(cfg32, tor=0.0), (H, W))
@@ -329,6 +469,20 @@ def main():
         ms = time_ms(lambda: seg(p32, st, 300), 1) / 300
         log(f"  segment {sname}: {ms:.4f} ms/sweep (300-sweep segment, CUDA events)")
         record.setdefault("segment_ms_per_sweep", {})[sname] = ms
+    # where a sweep's time goes between host and card: 50 sweeps back to back
+    # without the segment's per-sweep flag read, the host's time to enqueue
+    # them against the time until the card has run them
+    sweep32 = pg.make_sweep(cfg32, (H, W))
+    st = seg(p32, st32, 10)[0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(50):
+        st, _ = sweep32(p32, st)
+    t_host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t
+    log(f"  50 sweeps from init without the flag read: host enqueue {t_host / 50 * 1e3:.4f} "
+        f"ms/sweep, until the card is done {t_all / 50 * 1e3:.4f} ms/sweep")
 
     # ---- 6. K3 against its plain version
     log("phase kernels K3")
@@ -366,7 +520,13 @@ def main():
                 pms = time_ms(lambda: edge_gq.edge_gq_torch(*args), 3)
                 log(f"  K3 {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
                 if dtype == torch.float32:
-                    record["K3"] = dict(max_abs_err=a, ms=ms, plain_ms=pms)
+                    n_el = args[2].numel()
+                    k3_bytes = sum(args[i].nbytes for i in (0, 1, 4)) + 6 * n_el * 4
+                    record["K3"] = dict(max_abs_err=a, ms=ms, plain_ms=pms, library_ms=None,
+                                        **bound(k3_bytes, n_el * (fm32.K ** 2 * FLOPS["K3 point"]
+                                                                  + FLOPS["K3 element"])),
+                                        sass_issue_ms=issue_ms("K3 point",
+                                                               n_el * fm32.K ** 2))
 
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
@@ -466,7 +626,7 @@ def main():
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")
         raise SystemExit(1)
-    log(smi)
+    log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,26 @@
 """Build and load the hand-written Hopper kernels (``gqmap_tpu_torch/csrc/*.cu``).
 
-All CUDA sources compile with ``nvcc`` into ONE shared library with a plain
-C interface, loaded with :mod:`ctypes` at first use:
+Each CUDA source compiles with its own ``nvcc``, all started together (the
+build takes as long as the slowest source, not the sum), and the objects
+link into ONE shared library with a plain C interface, loaded with
+:mod:`ctypes` at first use:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o gqmap_tpu_torch/_build/libgqmap_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o <obj> csrc/<source>.cu        (one per source)
+    nvcc -shared -o gqmap_tpu_torch/_build/libgqmap_kernels_<hash>.so <objs>
 
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is a cache hit. The library is written under a
 temporary name and renamed into place, so concurrent first uses do not
 collide. A missing ``nvcc`` or a failed build raises; there is no fallback.
-The compiler's report (``-Xptxas -v``: registers and spills per kernel) is
-kept beside the library as ``<name>.log``.
+The compiler's report (each source's ``nvcc`` seconds, and ``-Xptxas -v``:
+registers and spills per kernel) is kept beside the library as
+``<name>.log``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import glob
@@ -24,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 __all__ = ["build_library", "library_path", "load_library", "check", "NVCC_FLAGS"]
 
@@ -31,15 +37,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    # sp, coeffs, out, L, S, A, B, device, stream
-    "gqmap_cos_mode_sums_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gqmap_cos_mode_sums_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # sp, coeffs, out, counters, L, S, A, B, variant, device, stream
+    "gqmap_cos_mode_sums_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "gqmap_cos_mode_sums_f64": [_P] * 4 + [_I] * 6 + [_P],
     # mu, sg, u2e, o2e, rou, alpha, T, tab, out, DC, C, L, S, K1, lam, eps, es, device, stream
     "gqmap_edge_reduced_f32": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
     "gqmap_edge_reduced_f64": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
@@ -75,6 +81,18 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libgqmap_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _compile(nvcc: str, src: str, obj: str, timeout: float) -> str:
+    """``nvcc -c`` of one source; returns its report headed by its seconds."""
+    t = time.monotonic()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    return (f"nvcc {os.path.basename(src)}: {time.monotonic() - t:.3f} s\n"
+            + proc.stdout + proc.stderr)
+
+
 def build_library(timeout: float = 900.0) -> tuple[str, bool]:
     """Compile the kernels if needed. Returns ``(path, built)``; ``built`` is
     False when the library for these sources already existed (cache hit)."""
@@ -85,15 +103,22 @@ def build_library(timeout: float = 900.0) -> tuple[str, bool]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=".tmp_", suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    objdir = tempfile.mkdtemp(prefix=".obj_", dir=BUILD_DIR)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()],
-                              capture_output=True, text=True, timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        srcs = _sources()
+        objs = [os.path.join(objdir, os.path.basename(s)[:-3] + ".o") for s in srcs]
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+            report = list(pool.map(lambda so: _compile(nvcc, *so, timeout), zip(srcs, objs)))
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                              text=True, timeout=timeout)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n"
+                               f"{link.stderr}")
         with open(path[:-3] + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(report))
         os.replace(tmp, path)
     finally:
+        shutil.rmtree(objdir, ignore_errors=True)
         if os.path.exists(tmp):
             os.remove(tmp)
     return path, True

@@ -1,15 +1,19 @@
 """Kernel K1: the six cosine mode sums of the node term, on the card.
 
-Counterpart of ``gqmap_tpu/kernels/cosine_gq.py`` (``cos_mode_sums_pallas``).
-The CUDA kernel is ``gqmap_tpu_torch/csrc/cosine_gq.cu``; its plain PyTorch
-version is :func:`gqmap_tpu_torch.ops.cosine._mode_sums`, re-exported here
-as :func:`cos_mode_sums_torch`.
+Counterpart of ``gqmap_tpu/kernels/cosine_gq.py`` (``cos_mode_sums_pallas``)
+and its three variants: ``"v1"`` (full A x B sum), ``"adaptive"`` (u-degree
+cutoff below e^-50) and ``"recur"`` (cutoff plus the exp-free recurrence
+body where it is safe), ``"recur"`` by default. The CUDA kernel is
+``gqmap_tpu_torch/csrc/cosine_gq.cu``; its plain PyTorch version is
+:func:`gqmap_tpu_torch.ops.cosine._mode_sums`, re-exported here as
+:func:`cos_mode_sums_torch`. The plain version is always the full sum: the
+variants differ from it only at rounding level.
 
 * :func:`cos_mode_sums_cuda` launches the kernel (and raises for tensors that
   are not on a CUDA device); ``cos_mode_sums_cuda.launches`` counts its
   launches.
 * :func:`cos_mode_sums` launches the kernel for CUDA tensors and runs the
-  plain version for CPU tensors.
+  plain version for CPU tensors, whatever the variant.
 """
 
 from __future__ import annotations
@@ -22,18 +26,34 @@ from ..ops.cosine import CosData
 from ..ops.cosine import _mode_sums as cos_mode_sums_torch
 from . import build
 
-__all__ = ["cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch", "MAX_L"]
+__all__ = ["cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch", "MAX_L",
+           "VARIANTS"]
 
 MAX_L = 4  # mixture components the kernel is instantiated for (csrc/cosine_gq.cu)
+VARIANTS = ("v1", "adaptive", "recur")  # kernel codes 0, 1, 2
+_DEFAULT_VARIANT = "recur"
 
 
-def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p):
+def _variant_code(variant: str | None) -> int:
+    variant = _DEFAULT_VARIANT if variant is None else variant
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown cosine kernel variant {variant!r}")
+    return VARIANTS.index(variant)
+
+
+def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = None,
+                       counters: torch.Tensor | None = None):
     """Kernel K1 on ``(L, M, N)`` site tensors and ``(A, B, M, N)`` coefficients.
 
     Computes the phases and scales (``ph = k (mu - lo)``, ``s = k sigma``) in
     torch, stacks them as one ``(5, L, M, N)`` input and returns the six
-    ``(L, M, N)`` sums ``(E0, A1, A2, Aa, Ab, Ax)``.
+    ``(L, M, N)`` sums ``(E0, A1, A2, Aa, Ab, Ax)``. ``variant`` is one of
+    :data:`VARIANTS` (None: ``"recur"``). ``counters``, if given, is an int64
+    tensor of 3 on the same device that the kernel adds to: warps (32-site
+    tiles) that ran the recur body, warps that ran the exp body, modes
+    evaluated.
     """
+    code = _variant_code(variant)
     coeffs = cos.coeffs
     if coeffs.device.type != "cuda":
         raise RuntimeError("cos_mode_sums_cuda needs CUDA tensors; "
@@ -53,6 +73,11 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p):
     L = site[0]
     if not 1 <= L <= MAX_L:
         raise ValueError(f"cos_mode_sums_cuda supports 1 <= L <= {MAX_L}, got L={L}")
+    if counters is not None and (counters.device != coeffs.device
+                                 or counters.dtype != torch.int64
+                                 or counters.shape != (3,) or not counters.is_contiguous()):
+        raise ValueError("counters must be a contiguous int64 tensor of 3 on the "
+                         "coefficients' device")
 
     ku = math.pi / (cos.hi_u - cos.lo_u)
     kv = math.pi / (cos.hi_v - cos.lo_v)
@@ -63,7 +88,8 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p):
     fn = (lib.gqmap_cos_mode_sums_f32 if coeffs.dtype == torch.float32
           else lib.gqmap_cos_mode_sums_f64)
     stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-    build.check(fn(sp.data_ptr(), coeffs.data_ptr(), out.data_ptr(), L, M * N, A, B,
+    build.check(fn(sp.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+                   None if counters is None else counters.data_ptr(), L, M * N, A, B, code,
                    coeffs.device.index, stream), "cos_mode_sums_cuda")
     cos_mode_sums_cuda.launches += 1
     return tuple(out.unbind(0))
@@ -72,8 +98,10 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p):
 cos_mode_sums_cuda.launches = 0
 
 
-def cos_mode_sums(cos: CosData, u1, u2, o1, o2, p):
-    """Kernel K1 for CUDA tensors, its plain version for CPU tensors."""
+def cos_mode_sums(cos: CosData, u1, u2, o1, o2, p, variant: str | None = None):
+    """Kernel K1 for CUDA tensors, its plain version (the full sum, whatever
+    the variant) for CPU tensors."""
+    _variant_code(variant)
     if cos.coeffs.device.type == "cpu":
         return cos_mode_sums_torch(cos, u1, u2, o1, o2, p)
-    return cos_mode_sums_cuda(cos, u1, u2, o1, o2, p)
+    return cos_mode_sums_cuda(cos, u1, u2, o1, o2, p, variant)

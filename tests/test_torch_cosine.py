@@ -2,7 +2,8 @@
 
 The plain mode sums (``gqmap_tpu_torch.ops.cosine._mode_sums``, the plain
 version of the CUDA kernel) are held to the JAX scan path and to the Pallas
-kernel run in interpret mode, in float64 at 1e-10.
+kernel run in interpret mode, in all three of its variants on the JAX
+package's own variant inputs, in float64 at 1e-10.
 """
 
 import jax.numpy as jnp
@@ -22,6 +23,13 @@ SUMS = ("E0", "A1", "A2", "Aa", "Ab", "Ax")
 # (A, B, M, N, L, a_block) — the ragged case has A % a_block != 0 and
 # M % rows != 0 (tests/test_cosine_kernel.py:24-32)
 CASES = {"main": (20, 6, 16, 24, 3, 8), "ragged": (13, 5, 12, 16, 2, 4)}
+# The JAX package's own inputs for the kernel variants (tests/test_cosine_kernel.py):
+# (A, B, M, N, L, a_block, coefficient seed, site seed, sig_hi, o1 shift, p scale)
+VARIANT_CASES = {
+    "tight": (24, 6, 16, 24, 3, 8, 15, 16, 0.08, 0.0, None),  # tight sigma: recur is taken
+    "sigma2": (64, 4, 16, 16, 2, 8, 13, 14, 3.0, 2.0, None),  # sigma + 2: the cutoff truncates
+    "wide": (48, 6, 16, 16, 2, 8, 17, 18, 3.0, 2.0, 1.1),     # wide, correlated: recur falls back
+}
 
 
 def _cos_pair(A, B, M, N, seed, box=(-2.0, 3.0, -1.5, 1.0)):
@@ -69,12 +77,28 @@ def test_mode_sums_match_jax_scan(case):
         _scaled_close(g, w, 1e-10, name)
 
 
-@pytest.mark.parametrize("case, variant", [("main", "v1"), ("ragged", "v1"),
-                                           ("ragged", None)])
+def _variant_inputs(case):
+    """(A, B, a_block, JAX coefficients, port coefficients, numpy sites) of a case."""
+    if case in CASES:
+        A, B, M, N, L, a_block = CASES[case]
+        jc, pc = _cos_pair(A, B, M, N, seed=9)
+        return A, B, a_block, jc, pc, _sites(M, N, L, seed=10, sig_hi=1.5)
+    A, B, M, N, L, a_block, cseed, sseed, sig_hi, shift, pscale = VARIANT_CASES[case]
+    jc, pc = _cos_pair(A, B, M, N, seed=cseed)
+    u1, u2, o1, o2, p = _sites(M, N, L, seed=sseed, sig_hi=sig_hi)
+    if pscale is not None:
+        p = np.clip(p * pscale, -0.99999, 0.99999)
+    return A, B, a_block, jc, pc, (u1, u2, o1 + shift, o2, p)
+
+
+@pytest.mark.parametrize("case, variant", [
+    ("main", "v1"), ("ragged", "v1"), ("ragged", None), ("ragged", "adaptive"),
+    ("ragged", "recur"), ("tight", "adaptive"), ("tight", "recur"), ("sigma2", "adaptive"),
+    ("sigma2", "recur"), ("wide", "adaptive"), ("wide", "recur")])
 def test_mode_sums_match_pallas_interpret(case, variant):
-    A, B, M, N, L, a_block = CASES[case]
-    jc, pc = _cos_pair(A, B, M, N, seed=9)
-    s = _sites(M, N, L, seed=10, sig_hi=1.5)
+    # the plain version is the full sum; the cutoff (< e^-50) and the
+    # recurrence change the kernel's sums only at rounding level
+    A, B, a_block, jc, pc, s = _variant_inputs(case)
     want = cos_mode_sums_pallas(jc, *map(jnp.asarray, s), a_block=a_block, rows=8,
                                 interpret=True, variant=variant)
     got = cosine._mode_sums(pc, *map(t, s))
@@ -118,3 +142,24 @@ def test_finalize_mode_sums_matches():
     got = cosine._finalize_mode_sums(pc, tuple(map(t, sums)), *map(t, (u1, o1, o2, p, a)),
                                      0.1, NODE)
     assert_fields_close(got, want, 1e-10, 1e-12)
+
+
+@pytest.mark.parametrize("variant", [None, "v1", "adaptive", "recur"])
+def test_wrapper_runs_plain_sums_on_cpu_for_every_variant(variant):
+    _, _, _, _, pc, s = _variant_inputs("sigma2")
+    s = tuple(map(t, s))
+    before = cosine_gq.cos_mode_sums_cuda.launches
+    got = cosine_gq.cos_mode_sums(pc, *s, variant=variant)
+    want = cosine._mode_sums(pc, *s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert cosine_gq.cos_mode_sums_cuda.launches == before == 0
+
+
+def test_unknown_variant_raises():
+    jc, pc = _cos_pair(8, 4, 5, 6, seed=13)
+    s = tuple(map(t, _sites(5, 6, 3, seed=14)))
+    for fn in (cosine_gq.cos_mode_sums, cosine_gq.cos_mode_sums_cuda):
+        with pytest.raises(ValueError, match="variant"):
+            fn(pc, *s, variant="v2")
+    assert cosine_gq.cos_mode_sums_cuda.launches == 0

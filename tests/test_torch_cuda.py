@@ -40,10 +40,14 @@ def _close(got, want, dtype, name):
     assert bool((err <= bound).all()), (name, float(err.max()), float(want.abs().max()))
 
 
+@pytest.mark.parametrize("variant", cosine_gq.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("L, A, B, M, N", [(3, 64, 16, 7, 45), (1, 13, 5, 12, 37),
-                                           (2, 20, 6, 16, 24), (4, 9, 3, 5, 130)])
-def test_cos_mode_sums_kernel_matches_plain(dev, dtype, L, A, B, M, N):
+                                           (2, 20, 6, 16, 24), (4, 9, 3, 5, 130),
+                                           (3, 61, 16, 9, 37)])
+def test_cos_mode_sums_kernel_matches_plain(dev, dtype, L, A, B, M, N, variant):
+    # (3, 61, 16, 9, 37): S = 333 sites is not a multiple of the 32-site tile,
+    # and A = 61 is odd
     g = torch.Generator().manual_seed(A * B + L)
     coeffs = torch.randn((A, B, M, N), generator=g, dtype=torch.float64)
     coeffs /= 1.0 + torch.arange(A, dtype=torch.float64).reshape(A, 1, 1, 1)
@@ -54,11 +58,52 @@ def test_cos_mode_sums_kernel_matches_plain(dev, dtype, L, A, B, M, N):
                 ).to(dev, dtype)
 
     sites = (u(-10, 2), u(-2, 2), u(0.01, 3), u(0.01, 3), u(-0.99, 0.99))
-    got = cosine_gq.cos_mode_sums_cuda(cos, *sites)
+    got = cosine_gq.cos_mode_sums_cuda(cos, *sites, variant=variant)
     want = cosine_gq.cos_mode_sums_torch(cos, *sites)
     torch.cuda.synchronize()
     for k, (a, b) in enumerate(zip(got, want)):
         _close(a, b, dtype, f"sum {k}")
+
+
+# The JAX package's own variant inputs (tests/test_cosine_kernel.py:128-157, :62-75):
+# (A, B, M, N, L, coefficient seed, site seed, sig_hi, o1 shift, p scale)
+_VARIANT_CASES = {
+    "tight": (24, 6, 16, 24, 3, 15, 16, 0.08, 0.0, None),
+    "wide": (48, 6, 16, 16, 2, 17, 18, 3.0, 2.0, 1.1),
+    "sigma2": (64, 4, 16, 16, 2, 13, 14, 3.0, 2.0, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(_VARIANT_CASES))
+def test_cos_mode_sums_variant_branches(dev, dtype, case):
+    # each case is held to the plain full sum, and the kernel's counters show
+    # that it took the branch the case exists for
+    A, B, M, N, L, cseed, sseed, sig_hi, shift, pscale = _VARIANT_CASES[case]
+    r = np.random.default_rng(cseed)
+    coeffs = r.normal(size=(A, B, M, N)) / (1.0 + np.arange(A)[:, None, None, None])
+    r = np.random.default_rng(sseed)
+    u1, u2 = r.uniform(-1.5, 2.5, (L, M, N)), r.uniform(-1.2, 0.7, (L, M, N))
+    o1, o2 = r.uniform(0.05, sig_hi, (L, M, N)) + shift, r.uniform(0.05, sig_hi, (L, M, N))
+    p = r.uniform(-0.9, 0.9, (L, M, N))
+    if pscale is not None:
+        p = np.clip(p * pscale, -0.99999, 0.99999)
+    cos = CosData(torch.tensor(coeffs, device=dev, dtype=dtype), -2.0, 3.0, -1.5, 1.0)
+    sites = [torch.tensor(x, device=dev, dtype=dtype) for x in (u1, u2, o1, o2, p)]
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    got = cosine_gq.cos_mode_sums_cuda(cos, *sites, variant="recur", counters=counters)
+    want = cosine_gq.cos_mode_sums_torch(cos, *sites)
+    for k, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, dtype, f"sum {k}")
+    recur, exp, modes = counters.tolist()
+    tiles = -(-M * N // 32)  # one warp a 32-site tile
+    assert recur + exp == tiles
+    if case == "tight":
+        assert (recur, exp, modes) == (tiles, 0, A * B * L * M * N)
+    elif case == "wide":
+        assert exp >= 1
+    else:
+        assert modes < A * B * L * M * N
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
