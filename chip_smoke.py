@@ -8,9 +8,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 1. the card (``nvidia-smi``) and the torch / CUDA versions;
 2. the build of ``gqmap_tpu_torch/csrc/*.cu`` with its time, each source's
    ``nvcc`` time and the ptxas report; a second build must be a cache hit;
-   the SASS of the library (``cuobjdump -sass``): the instructions of each
-   float32 kernel's inner loop per mode (K1's recur and exp loops) or per
-   quadrature point (K2, K3), which give each kernel's issue bound at 132
+   the SASS of the library (``cuobjdump -sass``): the instructions of K1's
+   float32 inner loops per mode (recur and exp) and of the whole float32
+   function of K2's and K3's main-path instance per quadrature point (set-up
+   and epilogue included), which give each kernel's issue bound at 132
    SMs x 128 lanes x the card's maximum SM clock;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: K1 (cosine mode sums) in each of its variants
@@ -18,17 +19,24 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    of the full 376x452 frame, from the init and the converged state, with
    its path counters (warps on the recur and on the exp body, modes
    evaluated) printed, and every warp of a converged state on the recur
-   body; K2 (reduced edge gradients) on the full edge lattice; float64
+   body; K2 (reduced edge gradients) on the full edge lattice, through its
+   instance for K1 = 21 and, on the warm probe, its generic instance at 21
+   and 13 and its instance for 25; float64
    within 1e-10 of each output's largest magnitude, float32 within 2e-4 of
    it plus 2e-5 relative (the plain K1 version is always the full sum: the
    cutoff and the recurrence differ from it at rounding level); K2 also at
    the |rho| clamp, where cancellation costs ~eps/(1-rho^2) in any
    precision: there each f32 version is held to the f64 golden (kernel error
-   at most twice the plain version's); CUDA-event times of kernel and plain
-   version, for K1 of "v1" and of the default "recur", converged and from
-   init, beside the card's name, power limit and SM clock; each kernel's
-   bound (bytes at 3.35 TB/s, each input read once and each output written
-   once, or float32 operations at 67 TFLOP/s);
+   at most twice the plain version's); each kernel's device time, the median
+   and minimum of 5 windows of 50 calls by CUDA events, each window queued
+   behind a spin of the card so the host's pace is not timed (K1 "v1" and
+   the default "recur", converged and from init; K2 and K3 also through the
+   generic instance at the main rule), and the plain version's, beside the
+   card's name, power limit and SM clock; each kernel's bound, the largest
+   of its bytes at 3.35 TB/s (each input read once and each output written
+   once), its float32 operations at 67 TFLOP/s (the fewest the function
+   needs: for K2 and K3 the paired form) and, for K2 and K3, its square
+   roots at 16 an SM a clock;
 4. one full 376x452 sweep from the same state three ways (kernels f32, plain
    f32, plain f64 = the golden), from the random init and from a converged-
    width state (sigma = 0.05): the kernel arm's error against the golden
@@ -41,9 +49,12 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    give the same AEPE trace, bit for bit. Then ms/sweep of 300-sweep
    segments from init and converged, and the peak device memory;
 6. K3 (tensor-rule edge sums) against its plain version on the full edge
-   lattice at K=9, from the random init, a warm state (sigma drawn per site
-   in [0.01, 3], |rho| <= 0.9) and the clamp state of phase 3, in float64
-   and float32 with the tolerances of phase 3; CUDA-event times of both;
+   lattice through its instance for K=9, from the random init, a warm state
+   (sigma drawn per site in [0.01, 3], |rho| <= 0.9) and the clamp state of
+   phase 3, in float64 and float32 with the tolerances of phase 3, and at
+   the clamp in float32 also against the f64 golden (ratio rule); on the
+   warm probe also its generic instance at K=9 and K=5 and its instance for
+   K=11; times as in phase 3;
 7. one full 376x452 ``full_mixture`` sweep three ways (K3 f32, plain f32,
    plain f64 = the golden) from the init and the sigma = 0.05 states: the
    kernel arm's error against the golden at most twice the plain f32 arm's;
@@ -80,13 +91,19 @@ F64_TOL = 1e-10
 F32_TOL = (2e-4, 2e-5)   # (of the output's largest magnitude, relative)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SMS, LANES_PER_CLOCK = 132, 128  # H100 SXM: SMs, thread-instructions an SM issues a clock
+SFU_PER_CLOCK = 16         # H100: special-function (MUFU) results an SM gives a clock
 FP32_FLOPS_PER_S = 67e12   # H100 SXM float32 peak outside the tensor cores (data sheet)
-# Floating-point operations (an FMA counts two, a sqrt one) counted from each
-# kernel's source: a mode of K1's recur body (weights 4, the six b sums 14,
-# weight recurrences 4, rotation 6), a quadrature point and the per-element
-# rest of K2 and K3.
-FLOPS = {"K1 recur mode": 28, "K2 point": 14, "K2 element": 40, "K3 point": 28,
-         "K3 element": 10}
+# The fewest floating-point operations of each function (an FMA counts two, a
+# sqrt one): a mode of K1's recur body (weights 4, the six b sums 14, weight
+# recurrences 4, rotation 6); for K2 and K3 the paired form, where a point and
+# its mirror share their work: a K3 pair (q = A XI + B XJ 3, d+- 2,
+# eps + d^2 4, two roots 2, their sum and difference 2, six sums 12), a K2
+# pair (sqrt(c) x 1, d+- 2, eps + d^2 4, two roots 2, sum and difference 2,
+# three sums 6), the centre node of each (eps + d^2 2, its root 1, two sums
+# 4), and the per-element rest.
+FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
+         "K3 pair": 25, "K3 centre": 7, "K3 element": 10}
+TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 FAILURES = []
 
 
@@ -119,10 +136,9 @@ def smi(query):
                           check=True).stdout.strip().splitlines()[0]
 
 
-def sass_loops(text):
-    """Every backward branch of every function in ``cuobjdump -sass`` output:
-    the instructions from its target label to the branch, and how many of
-    them are MUFU.EX2 and MUFU.RSQ."""
+def sass_functions(text):
+    """The instructions of every function in ``cuobjdump -sass`` output, as
+    ``{name: [(address, instruction), ...]}``, and the address of each label."""
     funcs = {}
     for block in re.split(r"\n\s*Function : ", text)[1:]:
         name, body = block.split("\n", 1)
@@ -138,52 +154,69 @@ def sass_loops(text):
                 label_addr.update((lab, addr) for lab in pending)
                 pending = []
                 instrs.append((addr, m.group(2)))
-        loops = []
-        for addr, ins in instrs:
-            m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
-            start = None if m is None else (int(m.group(1), 16) if m.group(1)[0] == "0"
-                                            else label_addr.get(m.group(1)))
-            if start is not None and start <= addr:
-                body_ins = [i for a, i in instrs if start <= a <= addr]
-                loops.append(dict(instructions=len(body_ins),
-                                  ex2=sum("MUFU.EX2" in i for i in body_ins),
-                                  rsq=sum("MUFU.RSQ" in i for i in body_ins)))
-        funcs[name.strip()] = loops
+        funcs[name.strip()] = (instrs, label_addr)
     return funcs
 
 
-def sass_per_unit(cuobjdump, path, L=3, B=16):
-    """Instructions of each f32 kernel's inner loop per unit of work: K1's
-    u-degree loop per mode (B x L modes an iteration; the recur loop has 3 L
-    exp, the exp loop L + 2 (B - 1) L), K2's and K3's per quadrature point
-    (one reciprocal square root a point). None where the loop is not found."""
-    loops = sass_loops(subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                                      text=True, timeout=600, check=True).stdout)
+def sass_loops(instrs, label_addr):
+    """Every backward branch of one function: the instructions from its
+    target label to the branch, and how many of them are MUFU.EX2."""
+    loops = []
+    for addr, ins in instrs:
+        m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
+        start = None if m is None else (int(m.group(1), 16) if m.group(1)[0] == "0"
+                                        else label_addr.get(m.group(1)))
+        if start is not None and start <= addr:
+            body_ins = [i for a, i in instrs if start <= a <= addr]
+            loops.append(dict(instructions=len(body_ins),
+                              ex2=sum("MUFU.EX2" in i for i in body_ins)))
+    return loops
+
+
+def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
+    """SASS instructions of each f32 kernel per unit of work. K1: its u-degree
+    loop per mode (B x L modes an iteration; the recur loop has 3 L exp, the
+    exp loop L + 2 (B - 1) L). K2 and K3: the whole function of the instance
+    compiled for the main path's rule (K1 = k1, K = K; fully unrolled, so it
+    has no loop) per quadrature point of the elements a thread computes (K2:
+    both edges of a site; K3: one element), so the figure includes the
+    per-element set-up and epilogue; NOPs are not counted; beside it the
+    function's MUFU.RSQ count. None where the function or loop is not found."""
+    funcs = sass_functions(subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                                          text=True, timeout=600, check=True).stdout)
+
+    def find(key):
+        return next((v for n, v in funcs.items() if key in n), ([], {}))
+
     per = {}
-    for k, key in (("K1", f"cos_mode_sums_kernelIfLi{L}ELi{B}E"),
-                   ("K2", "edge_reduced_kernelIfE"), ("K3", "edge_gq_kernelIfE")):
-        lps = next((v for n, v in loops.items() if key in n), [])
-        if k == "K1":
-            for body, ex2 in (("recur", 3 * L), ("exp", L + 2 * (B - 1) * L)):
-                lp = [x for x in lps if x["ex2"] == ex2]
-                per[f"K1 {body} mode"] = lp[0]["instructions"] / (B * L) if lp else None
-        else:
-            lp = max(lps, key=lambda x: x["rsq"], default=None)
-            per[f"{k} point"] = lp["instructions"] / lp["rsq"] if lp and lp["rsq"] else None
+    lps = sass_loops(*find(f"cos_mode_sums_kernelIfLi{L}ELi{B}E"))
+    for body, ex2 in (("recur", 3 * L), ("exp", L + 2 * (B - 1) * L)):
+        lp = [x for x in lps if x["ex2"] == ex2]
+        per[f"K1 {body} mode"] = lp[0]["instructions"] / (B * L) if lp else None
+    for k, key, points in (("K2", f"edge_reduced_kernelIfLi{k1}EE", 2 * k1),
+                           ("K3", f"edge_gq_kernelIfLi{K}EE", K * K)):
+        ins = [i for _, i in find(key)[0] if not i.startswith("NOP")]
+        per[f"{k} point"] = len(ins) / points if ins else None
+        per[f"{k} rsq"] = sum("MUFU.RSQ" in i for i in ins) if ins else None
     return per
 
 
-def bound(nbytes, flops):
-    """The least time of a call on the card: its bytes (each input read once,
-    each output written once) at the memory rate or its float32 operations at
-    the peak rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+def bound(nbytes, flops, roots=0, root_rate=None):
+    """The least time of a call on the card, the largest of: its bytes (each
+    input read once, each output written once) at the memory rate, its
+    float32 operations at the peak rate, and its square roots at
+    ``root_rate`` (a MUFU.RSQ each, 16 an SM a clock)."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(t_flops, roots / root_rate * 1e3 if roots else 0.0)
     return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_terms_ms=dict(bytes=t_bytes, flops=t_flops,
+                                    roots=roots / root_rate * 1e3 if roots else None))
 
 
 def time_ms(fn, n):
-    """Mean device time of ``fn`` over ``n`` calls after one warm-up, by CUDA events."""
+    """Mean time of ``fn`` over ``n`` calls after one warm-up, by CUDA events
+    (the host's pace included where it is slower than the card)."""
     fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -193,6 +226,36 @@ def time_ms(fn, n):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def kernel_ms(fn, windows=TIMING[0], n=TIMING[1]):
+    """Device time of one call of ``fn``: CUDA events around ``windows``
+    windows of ``n`` calls after one warm-up; returns (median, minimum). Each
+    window waits behind a spin of the card (``torch.cuda._sleep``) that lasts
+    longer than the host takes to enqueue its ``n`` calls, so the calls run
+    back to back and the window times the card, not the host's pace; the spin
+    doubles until it does."""
+    fn()
+    torch.cuda.synchronize()
+    times, spin = [], 2 ** 24
+    while len(times) < windows:
+        s0, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(spin)
+        t0.record()
+        h = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - h) * 1e3
+        t1.record()
+        torch.cuda.synchronize()
+        if host_ms < s0.elapsed_time(t0):
+            times.append(t0.elapsed_time(t1) / n)
+        elif spin < 2 ** 32:
+            spin *= 2
+        else:
+            raise RuntimeError(f"the host takes {host_ms:.3f} ms to enqueue {n} calls")
+    return float(np.median(times)), min(times)
 
 
 def compare(got, want, dtype):
@@ -271,7 +334,12 @@ def main():
     sass = sass_per_unit(os.path.join(os.path.dirname(build._find_nvcc()), "cuobjdump"), path)
     max_clock = smi("clocks.max.sm")
     issue_rate = SMS * LANES_PER_CLOCK * float(max_clock.split()[0]) * 1e6
-    log(f"  SASS instructions of the inner loop (f32): {sass}; max SM clock {max_clock}")
+    root_rate = SMS * SFU_PER_CLOCK * float(max_clock.split()[0]) * 1e6
+    log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
+        "mode; K2 and K3: the main path's rule instance, whole function (set-up and "
+        "epilogue included) per point, and its MUFU.RSQ count")
+    for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq"):
+        require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     def issue_ms(unit, work):
         """The SASS issue bound: ``work`` units of the loop at full issue."""
@@ -326,8 +394,8 @@ def main():
                                 f"the recur body ({n_recur} recur, {n_exp} exp)")
                     if label == "376x452" and dtype == torch.float32:
                         if variant in ("v1", cosine_gq._DEFAULT_VARIANT):
-                            k1_ms[sname, variant] = time_ms(
-                                lambda: k1_fn(p.cheb, *sites, variant=variant), 20)
+                            k1_ms[sname, variant] = kernel_ms(
+                                lambda: k1_fn(p.cheb, *sites, variant=variant))
                         if sname == "converged" and variant == cosine_gq._DEFAULT_VARIANT:
                             k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
                             record["K1"] = dict(max_abs_err=a, variant=variant, **bound(
@@ -336,15 +404,18 @@ def main():
                 if label == "376x452" and dtype == torch.float32 and sname == "converged":
                     pms = time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 3)
                     clocks = smi("name,power.limit,clocks.sm,clocks.max.sm")
-                    record["K1"].update(ms=k1_ms["converged", "recur"], plain_ms=pms,
-                                        ms_v1=k1_ms["converged", "v1"],
-                                        ms_init=k1_ms["init", "recur"],
-                                        ms_v1_init=k1_ms["init", "v1"], library_ms=None)
+                    ms = {k: v[0] for k, v in k1_ms.items()}
+                    record["K1"].update(ms=ms["converged", "recur"],
+                                        ms_min=k1_ms["converged", "recur"][1], plain_ms=pms,
+                                        ms_v1=ms["converged", "v1"],
+                                        ms_init=ms["init", "recur"],
+                                        ms_v1_init=ms["init", "v1"], library_ms=None)
                     log(f"  K1 376x452 f32 on {clocks} (name, power limit, SM clock, max SM "
-                        f"clock): recur {k1_ms['converged', 'recur']:.4f} ms converged, "
-                        f"{k1_ms['init', 'recur']:.4f} ms from init; v1 "
-                        f"{k1_ms['converged', 'v1']:.4f} ms converged, "
-                        f"{k1_ms['init', 'v1']:.4f} ms from init; plain {pms:.4f} ms; bound "
+                        f"clock), (median, min) of {TIMING[0]} windows of {TIMING[1]} calls: "
+                        f"recur {k1_ms['converged', 'recur']} ms converged, "
+                        f"{k1_ms['init', 'recur']} ms from init; v1 "
+                        f"{k1_ms['converged', 'v1']} ms converged, "
+                        f"{k1_ms['init', 'v1']} ms from init; plain {pms:.4f} ms; bound "
                         f"{record['K1']['bound_ms']:.4f} ms by {record['K1']['bound_by']}")
                 if label == "376x452" and dtype == torch.float64 and sname == "converged":
                     log(f"  K1 376x452 f64: kernel {time_ms(lambda: k1_fn(p.cheb, *sites), 3):.4f}"
@@ -366,24 +437,31 @@ def main():
                                sigmav=rand(0.01, 3, st64.sigmav)),
     }
 
-    def edge_args(st, dtype):
+    def state_stacks(st, dtype):
         s = cast(st, dtype)
-        mu = torch.stack([s.muu, s.muv])
-        sg = torch.stack([s.sigmau, s.sigmav])
-        u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
-        o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+        return torch.stack([s.muu, s.muv]), torch.stack([s.sigmau, s.sigmav]), s.rou
+
+    def k2_args(st, dtype, rule=k1):
+        mu, sg, rou = state_stacks(st, dtype)
         T = torch.tensor(0.0, dtype=dtype, device=dev)
-        return (mu, sg, u2e, o2e, s.rou, torch.softmax(s.w, 0), T, k1, cfg32.lambdas,
-                cfg32.epsn, EDGE)
+        alpha = torch.softmax(cast(st, dtype).w, 0)
+        return (mu, sg, rou, alpha, T, rule, cfg32.lambdas, cfg32.epsn, EDGE)
 
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
 
+    def instance(rule, generic, specialised):
+        """A rule size and the instance that runs it."""
+        return f"{rule} {'generic' if generic or rule not in specialised else 'specialised'}"
+
+    # beside the main path's instance: the generic one at the same rule, the
+    # super presets' rule and a rule of the generic instance
+    k2_plain = edge_reduced_gq.edge_reduced_grads_torch
     for dtype in (torch.float64, torch.float32):
         for sname, st in k2_probes.items():
-            args = edge_args(st, dtype)
+            args = k2_args(st, dtype)
             got = k2_fn(*args)[:6]
-            want = edge_reduced_gq.edge_reduced_grads_torch(*args)[:6]
+            want = k2_plain(*args)[:6]
             a, r, ok = compare(got, want, dtype)
             shape = tuple(args[2].shape)
             if sname == "clamp" and dtype == torch.float64:
@@ -396,27 +474,46 @@ def main():
             elif sname == "clamp":
                 # each f32 version is held to the f64 golden on the same
                 # inputs: kernel error <= 2 x plain error
-                gold = edge_reduced_gq.edge_reduced_grads_torch(
-                    *(x.double() if isinstance(x, torch.Tensor) else x for x in args))[:6]
+                gold = k2_plain(*(x.double() if isinstance(x, torch.Tensor) else x
+                                  for x in args))[:6]
                 ek, ep = worst_rel(got, gold), worst_rel(want, gold)
                 require(ek <= 2.0 * ep, f"K2 {shape} float32 clamp: error vs f64 golden "
                                         f"kernel {ek:.3e} <= 2 x plain {ep:.3e} "
                                         f"(kernel vs plain max abs {a:.3e})")
             else:
-                require(ok, f"K2 {shape} {str(dtype)[6:]} {sname}: max abs err {a:.3e}, "
-                            f"rel {r:.3e}")
-            if sname == "warm":
-                ms = time_ms(lambda: k2_fn(*args), 50)
-                pms = time_ms(lambda: edge_reduced_gq.edge_reduced_grads_torch(*args), 5)
-                log(f"  K2 {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-                if dtype == torch.float32:
-                    # each state value once: u2e and o2e are rolled copies of mu, sg
-                    n_el = args[2].numel()
-                    k2_bytes = sum(args[i].nbytes for i in (0, 1, 4, 5)) + 6 * n_el * 4
-                    record["K2"] = dict(max_abs_err=a, ms=ms, plain_ms=pms, library_ms=None,
-                                        **bound(k2_bytes, n_el * (k1 * FLOPS["K2 point"]
-                                                                  + FLOPS["K2 element"])),
-                                        sass_issue_ms=issue_ms("K2 point", n_el * k1))
+                require(ok, f"K2 {shape} {str(dtype)[6:]} {sname} "
+                            f"K1={instance(k1, False, edge_reduced_gq.SPECIALISED)}: "
+                            f"max abs err {a:.3e}, rel {r:.3e}")
+            if sname != "warm":
+                continue
+            for rule, generic in ((k1, True), (25, False), (13, False)):
+                oargs = args[:5] + (rule,) + args[6:]
+                a2, r2, ok2 = compare(k2_fn(*oargs, generic=generic)[:6], k2_plain(*oargs)[:6],
+                                      dtype)
+                require(ok2, f"K2 {shape} {str(dtype)[6:]} warm K1="
+                             f"{instance(rule, generic, edge_reduced_gq.SPECIALISED)}: max abs "
+                             f"err {a2:.3e}, rel {r2:.3e}")
+            ms = kernel_ms(lambda: k2_fn(*args))
+            gms = kernel_ms(lambda: k2_fn(*args, generic=True))
+            b2b = time_ms(lambda: k2_fn(*args), TIMING[1])
+            pms = time_ms(lambda: k2_plain(*args), 5)
+            log(f"  K2 {str(dtype)[6:]} (median, min) ms: kernel {ms}, generic instance {gms}; "
+                f"{TIMING[1]} calls back to back from the host {b2b:.4f} ms a call; plain "
+                f"{pms:.4f} ms")
+            if dtype == torch.float32:
+                # each state value once: endpoint 2 is a neighbour's endpoint 1
+                n_el = args[2].numel()
+                k2_bytes = sum(args[i].nbytes for i in range(4)) + 6 * n_el * 4
+                k2_flops = n_el * (k1 // 2 * FLOPS["K2 pair"] + FLOPS["K2 centre"]
+                                   + FLOPS["K2 element"])
+                record["K2"] = dict(max_abs_err=a, ms=ms[0], ms_min=ms[1], ms_generic=gms[0],
+                                    ms_generic_min=gms[1], ms_back_to_back=b2b, plain_ms=pms,
+                                    library_ms=None,
+                                    **bound(k2_bytes, k2_flops, n_el * k1, root_rate),
+                                    sass_issue_ms=issue_ms("K2 point", n_el * k1))
+                log(f"  K2 bound {record['K2']['bound_ms']:.4f} ms by "
+                    f"{record['K2']['bound_by']} ({record['K2']['bound_terms_ms']}); SASS issue "
+                    f"bound {record['K2']['sass_issue_ms']:.4f} ms")
 
     # ---- 4. one full sweep, three ways
     log("phase sweep")
@@ -506,27 +603,59 @@ def main():
         "clamp": k2_probes["clamp"],
     }
 
-    def k3_args(st, dtype):  # K2's edge stacks (mu, sg, u2e, o2e, rou)
-        return edge_args(st, dtype)[:5] + (fm32.K, fm32.lambdas, fm32.epsn)
+    def k3_args(st, dtype, K=fm32.K):
+        mu, sg, rou = state_stacks(st, dtype)
+        return (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou, K, fm32.lambdas,
+                fm32.epsn)
 
+    k3_plain = edge_gq.edge_gq_torch
     for dtype in (torch.float64, torch.float32):
         for sname, st in k3_probes.items():
             args = k3_args(st, dtype)
-            a, r, ok = compare(k3_fn(*args), edge_gq.edge_gq_torch(*args), dtype)
-            require(ok, f"K3 {tuple(args[2].shape)} K={fm32.K} {str(dtype)[6:]} {sname}: "
-                        f"max abs err {a:.3e}, rel {r:.3e}")
-            if sname == "warm":
-                ms = time_ms(lambda: k3_fn(*args), 50)
-                pms = time_ms(lambda: edge_gq.edge_gq_torch(*args), 3)
-                log(f"  K3 {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-                if dtype == torch.float32:
-                    n_el = args[2].numel()
-                    k3_bytes = sum(args[i].nbytes for i in (0, 1, 4)) + 6 * n_el * 4
-                    record["K3"] = dict(max_abs_err=a, ms=ms, plain_ms=pms, library_ms=None,
-                                        **bound(k3_bytes, n_el * (fm32.K ** 2 * FLOPS["K3 point"]
-                                                                  + FLOPS["K3 element"])),
-                                        sass_issue_ms=issue_ms("K3 point",
-                                                               n_el * fm32.K ** 2))
+            got = k3_fn(*args)
+            want = k3_plain(*args)
+            a, r, ok = compare(got, want, dtype)
+            shape = tuple(args[2].shape)
+            require(ok, f"K3 {shape} K={instance(fm32.K, False, edge_gq.SPECIALISED)} {str(dtype)[6:]} "
+                        f"{sname}: max abs err {a:.3e}, rel {r:.3e}")
+            if sname == "clamp" and dtype == torch.float32:
+                # the raw sums are not ill-conditioned at the clamp (finalize
+                # is), so both errors sit at rounding level: the floor is
+                # 1e-6 of the largest magnitude, as in tests/test_torch_cuda.py
+                gold = k3_plain(*(x.double() if isinstance(x, torch.Tensor) else x
+                                  for x in args))
+                ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                require(ek <= 2.0 * ep + 1e-6, f"K3 {shape} float32 clamp: error vs f64 golden "
+                                               f"kernel {ek:.3e} <= 2 x plain {ep:.3e} + 1e-6")
+            if sname != "warm":
+                continue
+            for K, generic in ((fm32.K, True), (11, False), (5, False)):
+                oargs = args[:5] + (K,) + args[6:]
+                a2, r2, ok2 = compare(k3_fn(*oargs, generic=generic), k3_plain(*oargs), dtype)
+                require(ok2, f"K3 {shape} {str(dtype)[6:]} warm K="
+                             f"{instance(K, generic, edge_gq.SPECIALISED)}: max abs err "
+                             f"{a2:.3e}, rel {r2:.3e}")
+            ms = kernel_ms(lambda: k3_fn(*args))
+            gms = kernel_ms(lambda: k3_fn(*args, generic=True))
+            b2b = time_ms(lambda: k3_fn(*args), TIMING[1])
+            pms = time_ms(lambda: k3_plain(*args), 3)
+            log(f"  K3 {str(dtype)[6:]} (median, min) ms: kernel {ms}, generic instance {gms}; "
+                f"{TIMING[1]} calls back to back from the host {b2b:.4f} ms a call; plain "
+                f"{pms:.4f} ms")
+            if dtype == torch.float32:
+                n_el = args[2].numel()
+                points = fm32.K ** 2
+                k3_bytes = sum(args[i].nbytes for i in (0, 1, 4)) + 6 * n_el * 4
+                k3_flops = n_el * (points // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
+                                   + FLOPS["K3 element"])
+                record["K3"] = dict(max_abs_err=a, ms=ms[0], ms_min=ms[1], ms_generic=gms[0],
+                                    ms_generic_min=gms[1], ms_back_to_back=b2b, plain_ms=pms,
+                                    library_ms=None,
+                                    **bound(k3_bytes, k3_flops, n_el * points, root_rate),
+                                    sass_issue_ms=issue_ms("K3 point", n_el * points))
+                log(f"  K3 bound {record['K3']['bound_ms']:.4f} ms by "
+                    f"{record['K3']['bound_by']} ({record['K3']['bound_terms_ms']}); SASS issue "
+                    f"bound {record['K3']['sass_issue_ms']:.4f} ms")
 
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
@@ -585,7 +714,7 @@ def main():
 
     k3_state = k3_args(st, torch.float32)
     split = dict(sweep=time_ms(lambda: sweep(p32, st), 10), node=time_ms(node_term, 10),
-                 K3=time_ms(lambda: k3_fn(*k3_state), 50))
+                 K3=kernel_ms(lambda: k3_fn(*k3_state))[0])
     split["rest"] = split["sweep"] - split["node"] - split["K3"]
     record["exact_sweep_split_ms"] = split
     log("  one exact sweep (CUDA events): " + ", ".join(f"{k} {v:.4f} ms"

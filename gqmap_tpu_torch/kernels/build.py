@@ -46,12 +46,14 @@ _SIGNATURES = {
     # sp, coeffs, out, counters, L, S, A, B, variant, device, stream
     "gqmap_cos_mode_sums_f32": [_P] * 4 + [_I] * 6 + [_P],
     "gqmap_cos_mode_sums_f64": [_P] * 4 + [_I] * 6 + [_P],
-    # mu, sg, u2e, o2e, rou, alpha, T, tab, out, DC, C, L, S, K1, lam, eps, es, device, stream
-    "gqmap_edge_reduced_f32": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
-    "gqmap_edge_reduced_f64": [_P] * 9 + [_I] * 5 + [_D] * 3 + [_I, _P],
-    # mu, sg, u2e, o2e, rou, tab, out, DC, C, L, S, K2, lam, eps, device, stream
-    "gqmap_edge_gq_f32": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
-    "gqmap_edge_gq_f64": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # mu, sg, rou, alpha, T, rule_host, rule_dev, out, C, L, M, N, K1, lam, eps, es,
+    # device, stream
+    "gqmap_edge_reduced_f32": [_P] * 8 + [_I] * 5 + [_D] * 3 + [_I, _P],
+    "gqmap_edge_reduced_f64": [_P] * 8 + [_I] * 5 + [_D] * 3 + [_I, _P],
+    # mu, sg, u2e, o2e, rou, rule_host, rule_dev, out, DC, C, L, S, K, lam, eps, device,
+    # stream
+    "gqmap_edge_gq_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_edge_gq_f64": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
 }
 
 

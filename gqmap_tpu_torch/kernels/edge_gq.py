@@ -15,6 +15,12 @@ of edge plane ``dc`` is plane ``dc % C``), and ``u2e``/``o2e``/``rou``, the
 ``(D, C, L, M, N)`` neighbour stacks, and return the raw sums as
 :class:`GQRaw` with ``(D, C, L, M, N)`` fields; ``finalize`` is the caller's,
 as in the JAX package.
+
+The kernel pairs each point of the rule with its mirror image
+(:func:`paired_rule`). For K in :data:`SPECIALISED` it runs an instance
+compiled for that rule, with the coefficients passed by value; for any
+other K (or with ``generic=True``) the generic instance, which reads them
+from a table on the card.
 """
 
 from __future__ import annotations
@@ -26,16 +32,33 @@ import torch
 
 from ..ops.gq import GQRaw, gq_accumulate
 from ..ops.potentials import make_edge_pot
-from ..ops.quadrature import build_table
+from ..ops.quadrature import build_table, gauss_hermite
 from . import build
 
-__all__ = ["edge_gq", "edge_gq_cuda", "edge_gq_torch", "pack_table"]
+__all__ = ["SPECIALISED", "edge_gq", "edge_gq_cuda", "edge_gq_torch", "paired_rule"]
+
+SPECIALISED = (9, 11)  # rules compiled into their own instance (csrc/edge_gq.cu)
 
 
-def pack_table(K: int, dtype=np.float32) -> np.ndarray:
-    """(6, K^2) table: xi, xj, wiwj, xixj, x2a, x2m rows (:func:`build_table`
-    in one chunk)."""
-    return np.stack(build_table(K, 0, dtype))[:, 0]
+def paired_rule(K: int, dtype=np.float64) -> np.ndarray:
+    """The K^2-point rule as the kernel reads it: ``8 P + 1`` values for the
+    ``P = K^2 // 2`` pairs of a point and its mirror, row by row: XI, XJ of
+    the pair's first point, then WIWJ times 1, XI, XJ, XI XJ,
+    XI^2 + XJ^2 - 1 and XI^2 - XJ^2; last the centre point's weight (odd K;
+    0 for even K). Nodes and weights are symmetrised, ``x_k = -x_{K-1-k}``
+    and ``w_k = w_{K-1-k}``, which the Golub-Welsch values satisfy to
+    rounding."""
+    x, w = gauss_hermite(K)
+    x = 0.5 * (x - x[::-1])
+    w = 0.5 * (w + w[::-1])
+    P = K * K // 2
+    k = np.arange(P)
+    xi, xj = x[k % K], x[k // K]
+    wiwj = w[k % K] * w[k // K]
+    wc = w[K // 2] ** 2 if K % 2 else 0.0
+    rows = [xi, xj, wiwj, wiwj * xi, wiwj * xj, wiwj * xi * xj,
+            wiwj * (xi * xi + xj * xj - 1.0), wiwj * (xi * xi - xj * xj)]
+    return np.concatenate(rows + [[wc]]).astype(dtype)
 
 
 def edge_gq_torch(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float) -> GQRaw:
@@ -44,14 +67,26 @@ def edge_gq_torch(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float) ->
                          build_table(K, dtype=np.float64))
 
 
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 @functools.lru_cache(maxsize=None)
-def _packed(K: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """:func:`pack_table` on the device, made once per (K, dtype, device)."""
-    return torch.as_tensor(pack_table(K, np.float64), dtype=dtype, device=device)
+def _rule_host(K: int, dtype: torch.dtype) -> np.ndarray:
+    """:func:`paired_rule` on the host, for a specialised instance (copied
+    into the launch's parameters); kept alive by the cache."""
+    return np.ascontiguousarray(paired_rule(K, _NP_DTYPES[dtype]))
 
 
-def edge_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float) -> GQRaw:
-    """Kernel K3."""
+@functools.lru_cache(maxsize=None)
+def _rule_dev(K: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`paired_rule` on the device, for the generic instance."""
+    return torch.as_tensor(paired_rule(K), dtype=dtype, device=device)
+
+
+def edge_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float,
+                 generic: bool = False) -> GQRaw:
+    """Kernel K3: the instance compiled for K if K is in :data:`SPECIALISED`
+    and ``generic`` is false, else the generic instance."""
     if mu.device.type != "cuda":
         raise RuntimeError(f"edge_gq_cuda needs CUDA tensors, got {mu.device}")
     if mu.dtype not in (torch.float32, torch.float64):
@@ -70,14 +105,18 @@ def edge_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float) -> 
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
-    tab = _packed(int(K), mu.dtype, mu.device)
+    K = int(K)
+    if generic or K not in SPECIALISED:
+        rule_host, rule_dev = None, _rule_dev(K, mu.dtype, mu.device).data_ptr()
+    else:
+        rule_host, rule_dev = _rule_host(K, mu.dtype).ctypes.data, None
     out = torch.empty((6, D * C, L, M, N), dtype=mu.dtype, device=mu.device)
     lib = build.load_library()
     fn = lib.gqmap_edge_gq_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_gq_f64
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     build.check(fn(mu.data_ptr(), sg.data_ptr(), u2e.data_ptr(), o2e.data_ptr(),
-                   rou.data_ptr(), tab.data_ptr(), out.data_ptr(), D * C, C, L, M * N,
-                   int(K) * int(K), float(lambdas), float(epsn), mu.device.index, stream),
+                   rou.data_ptr(), rule_host, rule_dev, out.data_ptr(), D * C, C, L, M * N,
+                   K, float(lambdas), float(epsn), mu.device.index, stream),
                 "edge_gq_cuda")
     edge_gq_cuda.launches += 1
     return GQRaw(*out.reshape((6,) + edge).unbind(0))

@@ -11,11 +11,20 @@ Counterpart of ``gqmap_tpu/kernels/edge_reduced_gq.py``
 * :func:`edge_reduced_grads` launches the kernel for CUDA tensors and runs
   the plain version for CPU tensors.
 
-All three take the JAX function's interface: ``mu``/``sg`` are the
-``(C, L, M, N)`` state stacks (endpoint 1 of edge plane ``dc`` is plane
-``dc % C``), ``u2e``/``o2e``/``rou`` the ``(D, C, L, M, N)`` neighbour stacks,
-``alpha`` the ``(L,)`` mixture weights and ``T`` the temperature; they return
-:class:`GQGrads` with ``(D, C, L, M, N)`` fields.
+All three take ``mu``/``sg``, the ``(C, L, M, N)`` state stacks, ``rou``, the
+``(2, C, L, M, N)`` edge correlations, ``alpha`` the ``(L,)`` mixture weights
+and ``T`` the temperature, and return :class:`GQGrads` with
+``(2, C, L, M, N)`` fields. Endpoint 1 of an edge is the site, endpoint 2
+its neighbour one row down (direction 0) or one column right (direction 1),
+with wrap: the JAX function's ``u2e``/``o2e`` stacks, which
+:func:`neighbour_stacks` builds and the plain version uses, and which the
+kernel reads in place.
+
+The kernel pairs each node of the rule with its mirror image
+(:func:`paired_rule_1d`). For K1 in :data:`SPECIALISED` it runs an instance
+compiled for that rule, with the coefficients passed by value; for any
+other K1 (or with ``generic=True``) the generic instance, which reads them
+from a table on the card.
 """
 
 from __future__ import annotations
@@ -30,29 +39,67 @@ from ..ops.potentials import make_edge_pot_diff
 from ..ops.quadrature import build_table_1d, gauss_hermite
 from . import build
 
-__all__ = ["edge_reduced_grads", "edge_reduced_grads_cuda", "edge_reduced_grads_torch"]
+__all__ = ["SPECIALISED", "edge_reduced_grads", "edge_reduced_grads_cuda",
+           "edge_reduced_grads_torch", "neighbour_stacks", "paired_rule_1d"]
+
+SPECIALISED = (21, 25)  # rules compiled into their own instance (csrc/edge_reduced_gq.cu)
 
 
-def edge_reduced_grads_torch(mu, sg, u2e, o2e, rou, alpha, T, k1: int, lambdas: float,
-                             epsn: float, entropy_scale: float) -> GQGrads:
+def neighbour_stacks(mu, sg):
+    """Endpoint 2 of every edge, ``(2, C, L, M, N)`` each: the state one row
+    down (direction 0) and one column right (direction 1), with wrap."""
+    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
+    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
+    return u2e, o2e
+
+
+def paired_rule_1d(k1: int, dtype=np.float64) -> np.ndarray:
+    """The K1-point rule as the kernel reads it: ``4 P + 1`` values for the
+    ``P = K1 // 2`` pairs of nodes ``+-x``, row by row: ``x > 0``, ``w``,
+    ``w x`` and ``w (x^2 - 1/2)``; last the centre node's weight (odd K1; 0
+    for even K1). Nodes and weights are symmetrised, ``x_k = -x_{K1-1-k}``
+    and ``w_k = w_{K1-1-k}``, which the Golub-Welsch values satisfy to
+    rounding."""
+    x, w = gauss_hermite(k1)
+    x = 0.5 * (x - x[::-1])[::-1][: k1 // 2]  # the positive nodes
+    w = 0.5 * (w + w[::-1])
+    wc = w[k1 // 2] if k1 % 2 else 0.0
+    w = w[: k1 // 2]
+    return np.concatenate([x, w, w * x, w * (x * x - 0.5), [wc]]).astype(dtype)
+
+
+def edge_reduced_grads_torch(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
+                             entropy_scale: float) -> GQGrads:
     """Plain version of K2: ``gq_accumulate_diff`` + ``finalize``."""
     L = mu.shape[1]
+    u2e, o2e = neighbour_stacks(mu, sg)
     raw = gq_accumulate_diff(make_edge_pot_diff(lambdas, epsn), mu[None], u2e, sg[None],
                              o2e, rou, build_table_1d(k1, dtype=np.float64))
     return finalize(raw, alpha.reshape(L, 1, 1), sg[None], o2e, rou, T, entropy_scale)
 
 
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 @functools.lru_cache(maxsize=None)
-def _gh_table(k1: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """(2, K1) nodes and weights on the device, made once per (K1, dtype, device)."""
-    x, w = gauss_hermite(k1)
-    return torch.as_tensor(np.stack([x, w]), dtype=dtype, device=device)
+def _rule_host(k1: int, dtype: torch.dtype) -> np.ndarray:
+    """:func:`paired_rule_1d` on the host, for a specialised instance (copied
+    into the launch's parameters); kept alive by the cache."""
+    return np.ascontiguousarray(paired_rule_1d(k1, _NP_DTYPES[dtype]))
 
 
-def edge_reduced_grads_cuda(mu, sg, u2e, o2e, rou, alpha, T, k1: int, lambdas: float,
-                            epsn: float, entropy_scale: float) -> GQGrads:
-    """Kernel K2. ``alpha`` and ``T`` must be tensors on the card: the kernel
-    reads them through device pointers."""
+@functools.lru_cache(maxsize=None)
+def _rule_dev(k1: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`paired_rule_1d` on the device, for the generic instance."""
+    return torch.as_tensor(paired_rule_1d(k1), dtype=dtype, device=device)
+
+
+def edge_reduced_grads_cuda(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
+                            entropy_scale: float, generic: bool = False) -> GQGrads:
+    """Kernel K2: the instance compiled for K1 if K1 is in
+    :data:`SPECIALISED` and ``generic`` is false, else the generic instance.
+    ``alpha`` and ``T`` must be tensors on the card: the kernel reads them
+    through device pointers."""
     if mu.device.type != "cuda":
         raise RuntimeError(f"edge_reduced_grads_cuda needs CUDA tensors, got {mu.device}")
     if mu.dtype not in (torch.float32, torch.float64):
@@ -62,11 +109,9 @@ def edge_reduced_grads_cuda(mu, sg, u2e, o2e, rou, alpha, T, k1: int, lambdas: f
     if mu.ndim != 4:
         raise ValueError(f"mu must be (C, L, M, N), got {tuple(mu.shape)}")
     C, L, M, N = mu.shape
-    D = u2e.shape[0]
-    edge = (D, C, L, M, N)
-    for name, x, shape in (("mu", mu, mu.shape), ("sg", sg, mu.shape), ("u2e", u2e, edge),
-                           ("o2e", o2e, edge), ("rou", rou, edge), ("alpha", alpha, (L,)),
-                           ("T", T, ())):
+    edge = (2, C, L, M, N)
+    for name, x, shape in (("mu", mu, mu.shape), ("sg", sg, mu.shape), ("rou", rou, edge),
+                           ("alpha", alpha, (L,)), ("T", T, ())):
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
         if x.device != mu.device or x.dtype != mu.dtype:
@@ -74,18 +119,22 @@ def edge_reduced_grads_cuda(mu, sg, u2e, o2e, rou, alpha, T, k1: int, lambdas: f
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
-    tab = _gh_table(int(k1), mu.dtype, mu.device)
-    out = torch.empty((6, D * C, L, M, N), dtype=mu.dtype, device=mu.device)
+    k1 = int(k1)
+    if generic or k1 not in SPECIALISED:
+        rule_host, rule_dev = None, _rule_dev(k1, mu.dtype, mu.device).data_ptr()
+    else:
+        rule_host, rule_dev = _rule_host(k1, mu.dtype).ctypes.data, None
+    out = torch.empty((6,) + edge, dtype=mu.dtype, device=mu.device)
     lib = build.load_library()
     fn = lib.gqmap_edge_reduced_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_reduced_f64
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    build.check(fn(mu.data_ptr(), sg.data_ptr(), u2e.data_ptr(), o2e.data_ptr(),
-                   rou.data_ptr(), alpha.data_ptr(), T.data_ptr(), tab.data_ptr(),
-                   out.data_ptr(), D * C, C, L, M * N, int(k1), float(lambdas),
-                   float(epsn), float(entropy_scale), mu.device.index, stream),
+    build.check(fn(mu.data_ptr(), sg.data_ptr(), rou.data_ptr(), alpha.data_ptr(),
+                   T.data_ptr(), rule_host, rule_dev, out.data_ptr(), C, L, M, N, k1,
+                   float(lambdas), float(epsn), float(entropy_scale), mu.device.index,
+                   stream),
                 "edge_reduced_grads_cuda")
     edge_reduced_grads_cuda.launches += 1
-    da, du1, du2, do1, do2, dp = out.reshape((6,) + edge).unbind(0)
+    da, du1, du2, do1, do2, dp = out.unbind(0)
     return GQGrads(da=da, du1=du1, du2=du2, do1=do1, do2=do2, dp=dp,
                    E=alpha.reshape(1, 1, L, 1, 1) * da)
 
@@ -93,8 +142,8 @@ def edge_reduced_grads_cuda(mu, sg, u2e, o2e, rou, alpha, T, k1: int, lambdas: f
 edge_reduced_grads_cuda.launches = 0
 
 
-def edge_reduced_grads(mu, sg, u2e, o2e, rou, alpha, T, k1: int, lambdas: float,
-                       epsn: float, entropy_scale: float) -> GQGrads:
+def edge_reduced_grads(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
+                       entropy_scale: float) -> GQGrads:
     """Kernel K2 for CUDA tensors, its plain version for CPU tensors."""
     fn = edge_reduced_grads_torch if mu.device.type == "cpu" else edge_reduced_grads_cuda
-    return fn(mu, sg, u2e, o2e, rou, alpha, T, k1, lambdas, epsn, entropy_scale)
+    return fn(mu, sg, rou, alpha, T, k1, lambdas, epsn, entropy_scale)

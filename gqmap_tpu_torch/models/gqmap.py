@@ -39,7 +39,7 @@ from ..config import FlowRange, GQMAPConfig
 from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
-                                       edge_reduced_grads_torch)
+                                       edge_reduced_grads_torch, neighbour_stacks)
 from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data
 from ..ops.flowviz import flow_to_color
 from ..ops.gq import EDGE, NODE, finalize, gq_accumulate
@@ -280,12 +280,10 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
         # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---
         mu = torch.stack([state.muu, state.muv])
         sg = torch.stack([state.sigmau, state.sigmav])
-        u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
-        o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
-        if cfg.edge_quad == "reduced":  # kernel K2
-            ge = edge_route(mu, sg, u2e, o2e, state.rou, alpha, T, k1, cfg.lambdas, cfg.epsn,
-                            EDGE)
+        if cfg.edge_quad == "reduced":  # kernel K2, which reads the neighbour itself
+            ge = edge_route(mu, sg, state.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE)
         else:  # kernel K3
+            u2e, o2e = neighbour_stacks(mu, sg)
             raw_e = edge_route(mu, sg, u2e, o2e, state.rou, cfg.K, cfg.lambdas, cfg.epsn)
             ge = finalize(raw_e, a3, sg[None], o2e, state.rou, T, EDGE)
 

@@ -106,35 +106,60 @@ def test_cos_mode_sums_variant_branches(dev, dtype, case):
         assert modes < A * B * L * M * N
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_edge_reduced_kernel_matches_plain(dev, dtype):
-    g = torch.Generator().manual_seed(1)
-    L, M, N = 3, 17, 23
-    mu = torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
+def _edge_state(g, L, M, N):
+    mu = 3 * torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
     sg = 0.01 + 3 * torch.rand((2, L, M, N), generator=g, dtype=torch.float64)
+    return mu, sg
+
+
+def _clamp_rho(g, L, M, N):
+    sign = torch.where(torch.rand((2, 2, L, M, N), generator=g) < 0.5, -1.0, 1.0)
+    return 0.99999 * sign.double()
+
+
+# (rule size, generic): the specialised instances, the generic one at a
+# size of its own and at the main path's size
+K2_RULES = [(21, False), (25, False), (13, False), (21, True)]
+K3_RULES = [(9, False), (11, False), (5, False), (9, True)]
+# M N not a multiple of the kernels' 256-site blocks, and one that is; K2
+# finds a site's row without a division and reads its neighbours with the
+# wrap at the last row and column
+EDGE_SHAPES = [(3, 17, 23), (2, 9, 45), (1, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L, M, N", EDGE_SHAPES)
+@pytest.mark.parametrize("k1, generic", K2_RULES)
+def test_edge_reduced_kernel_matches_plain(dev, dtype, L, M, N, k1, generic):
+    g = torch.Generator().manual_seed(L * M + N)
+    mu, sg = _edge_state(g, L, M, N)
     rou = 0.9 * (2 * torch.rand((2, 2, L, M, N), generator=g, dtype=torch.float64) - 1)
-    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
-    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
-    alpha = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64)
+    alpha = torch.tensor([0.5, 0.3, 0.2][:L], dtype=torch.float64)
     T = torch.tensor(0.17, dtype=torch.float64)
-    args = [x.to(dev, dtype) for x in (mu, sg, u2e, o2e, rou, alpha, T)]
-    got = edge_reduced_gq.edge_reduced_grads_cuda(*args, 21, 5.0, 1e-6, EDGE)
-    want = edge_reduced_gq.edge_reduced_grads_torch(*args, 21, 5.0, 1e-6, EDGE)
+    args = [x.to(dev, dtype) for x in (mu, sg, rou, alpha, T)]
+    n = edge_reduced_gq.edge_reduced_grads_cuda.launches
+    got = edge_reduced_gq.edge_reduced_grads_cuda(*args, k1, 5.0, 1e-6, EDGE, generic=generic)
+    want = edge_reduced_gq.edge_reduced_grads_torch(*args, k1, 5.0, 1e-6, EDGE)
     torch.cuda.synchronize()
+    assert edge_reduced_gq.edge_reduced_grads_cuda.launches == n + 1
     for name in want._fields:
         _close(getattr(got, name), getattr(want, name), dtype, name)
 
 
-def test_sweep_launches_both_kernels(dev):
+@pytest.mark.parametrize("K", [5, 9])
+def test_sweep_launches_both_kernels(dev, K):
+    # K = 9 runs K2's instance for K1 = 21, K = 5 its generic one (K1 = 13);
+    # the sweep hands K2 the state stacks only, and K3 is never launched
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
-    cfg = GQMAPConfig.tpu_fast(K=5, cheb_p=16, cheb_q=8, its=3, eval_every=3)
-    k1, k2 = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
-    n1, n2 = k1.launches, k2.launches
+    cfg = GQMAPConfig.tpu_fast(K=K, cheb_p=16, cheb_q=8, its=3, eval_every=3)
+    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                  edge_gq.edge_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches)
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    assert (k1.launches - n1, k2.launches - n2) == (3, 3)
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (3, 3, 0)
 
 
 def test_build_is_cached(dev):
@@ -142,25 +167,9 @@ def test_build_is_cached(dev):
     assert not built and path == build.library_path()
 
 
-def test_edge_reduced_kernel_f32_at_rho_clamp(dev):
-    # At |rho| = 1 - 1e-5 every f32 evaluation loses ~eps32/(1-rho^2) to
-    # cancellation, so the kernel is held to the f64 golden on the same
-    # inputs: its error is at most twice the plain f32 version's.
-    g = torch.Generator().manual_seed(2)
-    L, M, N = 3, 17, 23
-    mu = torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
-    sg = 0.01 + 3 * torch.rand((2, L, M, N), generator=g, dtype=torch.float64)
-    sign = torch.where(torch.rand((2, 2, L, M, N), generator=g) < 0.5, -1.0, 1.0)
-    rou = 0.99999 * sign.double()
-    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
-    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
-    alpha = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64)
-    T = torch.tensor(0.0, dtype=torch.float64)
-    args = [x.to(dev, torch.float32) for x in (mu, sg, u2e, o2e, rou, alpha, T)]
-    rest = (21, 5.0, 1e-6, EDGE)
-    got = edge_reduced_gq.edge_reduced_grads_cuda(*args, *rest)
-    plain = edge_reduced_gq.edge_reduced_grads_torch(*args, *rest)
-    gold = edge_reduced_gq.edge_reduced_grads_torch(*(x.double() for x in args), *rest)
+def _ratio_to_golden(got, plain, gold):
+    # each f32 version against the f64 golden: kernel error at most twice the
+    # plain version's, with 1e-6 of the field's magnitude as the floor
     for name in gold._fields:
         ref = getattr(gold, name)
         ek = float((getattr(got, name).double() - ref).abs().max())
@@ -168,28 +177,63 @@ def test_edge_reduced_kernel_f32_at_rho_clamp(dev):
         assert ek <= 2.0 * ep + 1e-6 * float(ref.abs().max()), (name, ek, ep)
 
 
+@pytest.mark.parametrize("k1, generic", K2_RULES)
+def test_edge_reduced_kernel_f32_at_rho_clamp(dev, k1, generic):
+    # At |rho| = 1 - 1e-5 every f32 evaluation loses ~eps32/(1-rho^2) to
+    # cancellation, so the kernel is held to the f64 golden on the same
+    # inputs: its error is at most twice the plain f32 version's.
+    g = torch.Generator().manual_seed(2)
+    L, M, N = 3, 17, 23
+    mu, sg = _edge_state(g, L, M, N)
+    alpha = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64)
+    T = torch.tensor(0.0, dtype=torch.float64)
+    args = [x.to(dev, torch.float32) for x in (mu, sg, _clamp_rho(g, L, M, N), alpha, T)]
+    rest = (k1, 5.0, 1e-6, EDGE)
+    got = edge_reduced_gq.edge_reduced_grads_cuda(*args, *rest, generic=generic)
+    plain = edge_reduced_gq.edge_reduced_grads_torch(*args, *rest)
+    gold = edge_reduced_gq.edge_reduced_grads_torch(*(x.double() for x in args), *rest)
+    _ratio_to_golden(got, plain, gold)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("L, M, N, K", [(3, 17, 23, 9), (1, 5, 130, 5), (2, 9, 31, 11)])
-def test_edge_gq_kernel_matches_plain(dev, dtype, L, M, N, K):
+@pytest.mark.parametrize("L, M, N", EDGE_SHAPES)
+@pytest.mark.parametrize("K, generic", K3_RULES)
+def test_edge_gq_kernel_matches_plain(dev, dtype, L, M, N, K, generic):
     g = torch.Generator().manual_seed(L * M + N)
-    mu = 3 * torch.randn((2, L, M, N), generator=g, dtype=torch.float64)
-    sg = 0.01 + 3 * torch.rand((2, L, M, N), generator=g, dtype=torch.float64)
+    mu, sg = _edge_state(g, L, M, N)
     rou = 0.9 * (2 * torch.rand((2, 2, L, M, N), generator=g, dtype=torch.float64) - 1)
-    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
-    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
-    args = [x.to(dev, dtype) for x in (mu, sg, u2e, o2e, rou)]
-    got = edge_gq.edge_gq_cuda(*args, K, 5.0, 1e-6)
+    args = [x.to(dev, dtype) for x in (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou)]
+    n = edge_gq.edge_gq_cuda.launches
+    got = edge_gq.edge_gq_cuda(*args, K, 5.0, 1e-6, generic=generic)
     want = edge_gq.edge_gq_torch(*args, K, 5.0, 1e-6)
     torch.cuda.synchronize()
+    assert edge_gq.edge_gq_cuda.launches == n + 1
     for name in want._fields:
         _close(getattr(got, name), getattr(want, name), dtype, name)
 
 
-def test_full_mixture_sweep_launches_edge_gq(dev):
+@pytest.mark.parametrize("K, generic", K3_RULES)
+def test_edge_gq_kernel_f32_at_rho_clamp(dev, K, generic):
+    # K3's raw sums at the |rho| clamp, held to the f64 golden as K2's are
+    g = torch.Generator().manual_seed(3)
+    L, M, N = 3, 17, 23
+    mu, sg = _edge_state(g, L, M, N)
+    args = [x.to(dev, torch.float32)
+            for x in (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), _clamp_rho(g, L, M, N))]
+    rest = (K, 5.0, 1e-6)
+    got = edge_gq.edge_gq_cuda(*args, *rest, generic=generic)
+    plain = edge_gq.edge_gq_torch(*args, *rest)
+    gold = edge_gq.edge_gq_torch(*(x.double() for x in args), *rest)
+    _ratio_to_golden(got, plain, gold)
+
+
+@pytest.mark.parametrize("K", [5, 9])
+def test_full_mixture_sweep_launches_edge_gq(dev, K):
+    # K = 9 runs K3's instance for that rule, K = 5 its generic one
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
-    cfg = GQMAPConfig.full_mixture(K=5, its=3, eval_every=3, quad_chunk=7)
+    cfg = GQMAPConfig.full_mixture(K=K, its=3, eval_every=3, quad_chunk=7)
     k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
                   edge_gq.edge_gq_cuda)
     n = (k1.launches, k2.launches, k3.launches)

@@ -1,5 +1,7 @@
 """Kernel K2's module: the port's plain reduced-edge gradients against the
-JAX Pallas kernel (interpret mode) and the JAX ops path, in float64 at 1e-10."""
+JAX Pallas kernel (interpret mode) and the JAX ops path, in float64 at 1e-10.
+The port reads endpoint 2 from ``mu``/``sg`` itself; the JAX side is given
+the rolled neighbour stacks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,15 +46,26 @@ def test_plain_edge_grads_match_jax(ref, T):
                                          j["alpha"], jnp.asarray(T), k1, 5.0, 1e-6, EDGE,
                                          rows=8, interpret=True)
     got = edge_reduced_gq.edge_reduced_grads_torch(
-        *map(t, (mu, sg, u2e, o2e, rou, alpha)), torch.tensor(T, dtype=torch.float64),
+        *map(t, (mu, sg, rou, alpha)), torch.tensor(T, dtype=torch.float64),
         k1, 5.0, 1e-6, EDGE)
     assert_fields_close(got, want, 1e-10, 1e-12)
 
 
+@pytest.mark.parametrize("M, N", [(17, 23), (1, 5), (6, 1)])
+def test_neighbour_stacks_match_jax(M, N):
+    # the stacks of gqmap_tpu/models/gqmap.py:497-498 (single device: jnp.roll)
+    mu, sg = _edge_inputs(L=2, M=M, N=N, seed=3)[:2]
+    want = [jnp.stack([jnp.roll(a, -1, -2), jnp.roll(a, -1, -1)]) for a in map(jnp.asarray,
+                                                                               (mu, sg))]
+    got = edge_reduced_gq.neighbour_stacks(t(mu), t(sg))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
-    mu, sg, u2e, o2e, rou, alpha = map(t, _edge_inputs(L=2, M=4, N=5, seed=2))
+    mu, sg, _, _, rou, alpha = map(t, _edge_inputs(L=2, M=4, N=5, seed=2))
     T = torch.tensor(0.1, dtype=torch.float64)
-    args = (mu, sg, u2e, o2e, rou, alpha, T, 21, 5.0, 1e-6, EDGE)
+    args = (mu, sg, rou, alpha, T, 21, 5.0, 1e-6, EDGE)
     got = edge_reduced_gq.edge_reduced_grads(*args)
     want = edge_reduced_gq.edge_reduced_grads_torch(*args)
     for g, w in zip(got, want):

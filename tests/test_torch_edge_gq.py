@@ -53,9 +53,21 @@ def test_plain_edge_sums_match_jax(ref, rho, K):
 @pytest.mark.parametrize("K", [3, 9])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_pack_table_matches_jax(K, dtype):
-    got = edge_gq.pack_table(K, dtype)
-    assert got.dtype == dtype and got.shape == (6, K * K)
-    np.testing.assert_array_equal(got, jax_pack_table(K, dtype))
+    # the kernel's paired rule is the JAX kernel's (6, K^2) table folded into
+    # pairs of a point and its mirror image, then the centre point
+    got = edge_gq.paired_rule(K, dtype)
+    P = K * K // 2
+    assert got.dtype == dtype and got.shape == (8 * P + 1,)
+    xi, xj, w, wxi, wxj, wxixj, wx2a, wx2m = got[:8 * P].reshape(8, P)
+    tab = jax_pack_table(K, np.float64)
+    k, mirror = np.arange(P), K * K - 1 - np.arange(P)
+    tol = 1e-6 if dtype == np.float32 else 1e-14
+    for a, b in ((xi, tab[0, k]), (xj, tab[1, k]), (xi, -tab[0, mirror]), (xj, -tab[1, mirror]),
+                 (w, tab[2, k]), (w, tab[2, mirror]), (wxi, tab[2, k] * tab[0, k]),
+                 (wxj, tab[2, k] * tab[1, k]), (wxixj, tab[2, k] * tab[3, k]),
+                 (wx2a, tab[2, k] * (tab[4, k] - 1)), (wx2m, tab[2, k] * tab[5, k]),
+                 (got[8 * P:], tab[2, P:P + 1])):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
