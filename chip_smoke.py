@@ -40,7 +40,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 4. one full 376x452 sweep from the same state three ways (kernels f32, plain
    f32, plain f64 = the golden), from the random init and from a converged-
    width state (sigma = 0.05): the kernel arm's error against the golden
-   must be at most twice the plain f32 arm's;
+   must be at most twice the plain f32 arm's; the same for the red-black
+   order (``sweep_order="redblack"``: two half-steps, each kernel twice);
 5. the slice: ``solve(GQMAPConfig.tpu_fast(its=900, eval_every=300), ...)``
    on the synthetic 376x452 pair (smoothed noise, I2 = I1 shifted one pixel
    right: u=1, v=0) with both kernels' launch counters reset just before it;
@@ -66,9 +67,31 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    segment and the split of one sweep into the plain bicubic node term, K3
    and the rest, by CUDA events;
 9. resume on the card: a 300-sweep solve that writes a checkpoint, resumed
-   to 600 sweeps, ends in the state of an unbroken 600-sweep solve.
+   to 600 sweeps, ends in the state of an unbroken 600-sweep solve;
+10. the kernels on the super lattice (``patch = 4``: 94x113 sites at
+   376x452): K1 at A = 96 on ``tpu_fast_super``'s patch-summed coefficient
+   field in each variant, from the init and the sigma = 0.05 state, with its
+   path counters (every warp on the recur body at sigma = 0.05); K2 on its
+   K1 = 25 instance and K3 on its K = 11 instance from an init, a warm and a
+   clamp state; float64 and float32 with the tolerances and clamp rules of
+   phases 3 and 6; each kernel's device time, plain time and bound there;
+11. one full sweep of ``tpu_fast_super`` and of ``super_entropy`` three ways
+   (as phase 4; the f64 golden of ``super_entropy`` takes its 121 node points
+   in three steps), from the init and the sigma = 0.05 states;
+12. 900-sweep ``tpu_fast_super`` and ``super_entropy`` solves through
+   ``solve``, each with every launch counter set to 0 just before it: finite
+   energy, the AEPE at it=900 below that at it=1, each path's kernels
+   launched once a sweep and the others not at all, the peak device memory;
+   a second ``tpu_fast_super`` solve identical bit for bit; then the split of
+   one ``super_entropy`` sweep (node term, K3, rest) and ms/sweep of a
+   300-sweep ``tpu_fast_super`` segment;
+13. a 300-sweep red-black ``tpu_fast`` solve whose K1 and K2 counters equal
+   twice the sweeps, and ms/sweep of a 100-sweep red-black segment.
 
-It prints the kernels' record as one JSON line before the last, and last
+It prints the kernels' record as one JSON line before the last (``launches``
+counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
+K3; ``launches_by_path`` every path's; ``super`` the checks, times and bounds
+on the super lattice), and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line; so does a machine without a CUDA card.
 """
@@ -525,6 +548,15 @@ def main():
                            (H, W))
     three_way_sweep("", gold, plain32, kern32, prob, (("init", st64), ("converged", conv64)),
                     cast)
+    rb = dict(sweep_order="redblack")
+    three_way_sweep("tpu_fast redblack ",
+                    pg.make_sweep(dataclasses.replace(cfg64, node_kernel="torch",
+                                                      edge_kernel="torch", **rb), (H, W)),
+                    pg.make_sweep(dataclasses.replace(cfg32, node_kernel="torch",
+                                                      edge_kernel="torch", **rb), (H, W)),
+                    pg.make_sweep(dataclasses.replace(cfg32, node_kernel="cuda",
+                                                      edge_kernel="cuda", **rb), (H, W)),
+                    prob, (("init", st64), ("converged", conv64)), cast)
 
     # ---- 5. the slice, through the user entry point
     log("phase solve")
@@ -739,6 +771,250 @@ def main():
             f"resumed 300 -> 600 equals an unbroken 600-sweep solve (max state diff {diff:.3e},"
             f" traces equal {same_traces}, best AEPE {resumed.best_aepe:.6f} vs "
             f"{full.best_aepe:.6f})")
+
+    # ---- 10. the kernels on the super lattice (patch = 4: 94x113 sites)
+    log("phase kernels super")
+    fs32 = GQMAPConfig.tpu_fast_super(its=900, eval_every=300)
+    fs64 = dataclasses.replace(fs32, dtype="float64")
+    se32 = GQMAPConfig.super_entropy(its=900, eval_every=300)
+    se64 = dataclasses.replace(se32, dtype="float64")
+    k1s = 2 * fs32.K + 3
+    t = time.time()
+    sprob = {torch.float32: pg.make_problem(fs32, I1, I2, fr, dev),
+             torch.float64: pg.make_problem(fs64, I1, I2, fr, dev)}
+    torch.cuda.synchronize()
+    log(f"make_problem tpu_fast_super f32 + f64 (coefficient fields "
+        f"{tuple(sprob[torch.float32].cheb.coeffs.shape)}): {time.time() - t:.3f} s")
+    sst64 = pg.init_state(fs64, fr, (H, W), seed=0, device=dev)
+    sconv64 = sst64._replace(sigmau=torch.full_like(sst64.sigmau, 0.05),
+                             sigmav=torch.full_like(sst64.sigmav, 0.05))
+    for dtype in (torch.float64, torch.float32):
+        p = sprob[dtype]
+        A, B = p.cheb.coeffs.shape[:2]
+        for sname, st in (("init", sst64), ("converged", sconv64)):
+            s = cast(st, dtype)
+            sites = (s.muu, s.muv, s.sigmau, s.sigmav, s.pn)
+            want = cosine_gq.cos_mode_sums_torch(p.cheb, *sites)
+            for variant in cosine_gq.VARIANTS:
+                cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+                got = k1_fn(p.cheb, *sites, variant=variant, counters=cnt)
+                a, r, ok = compare(got, want, dtype)
+                n_recur, n_exp, modes = cnt.tolist()
+                require(ok, f"K1 super {tuple(sites[0].shape)} A={A} {str(dtype)[6:]} {sname} "
+                            f"{variant}: max abs err {a:.3e}, rel {r:.3e}; counters: {n_recur} "
+                            f"warps recur, {n_exp} exp, {modes} modes of "
+                            f"{A * B * sites[0].numel()}")
+                if sname == "converged" and variant == "recur":
+                    require(n_exp == 0 and n_recur > 0,
+                            f"K1 super {str(dtype)[6:]} converged: every warp ran the recur "
+                            f"body ({n_recur} recur, {n_exp} exp)")
+                if dtype == torch.float32 and sname == "converged" and variant == "recur":
+                    k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
+                    record["K1"]["super"] = dict(
+                        shape=[A, B] + list(sites[0].shape), max_abs_err=a,
+                        **bound(k1_bytes, modes * FLOPS["K1 recur mode"]),
+                        sass_issue_ms=issue_ms("K1 recur mode", modes))
+            if dtype == torch.float32 and sname == "converged":
+                sup = record["K1"]["super"]
+                ms = kernel_ms(lambda: k1_fn(p.cheb, *sites))
+                s0 = cast(sst64, dtype)
+                init_sites = (s0.muu, s0.muv, s0.sigmau, s0.sigmav, s0.pn)
+                sup.update(ms=ms[0], ms_min=ms[1],
+                           ms_v1=kernel_ms(lambda: k1_fn(p.cheb, *sites, variant="v1"))[0],
+                           ms_init=kernel_ms(lambda: k1_fn(p.cheb, *init_sites))[0],
+                           plain_ms=time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb,
+                                                                                  *sites), 3),
+                           library_ms=None)
+                log(f"  K1 super f32 on {smi('name,power.limit,clocks.sm')}: recur {ms} ms "
+                    f"converged (median, min), {sup['ms_init']:.4f} ms from init; v1 "
+                    f"{sup['ms_v1']:.4f} ms; plain {sup['plain_ms']:.4f} ms; bound "
+                    f"{sup['bound_ms']:.4f} ms by {sup['bound_by']}")
+
+    g4 = torch.Generator().manual_seed(4)
+
+    def rand4(lo, hi, like):
+        return (lo + (hi - lo) * torch.rand(like.shape, generator=g4, dtype=torch.float64)
+                ).to(dev)
+
+    sign4 = torch.where(rand4(0, 1, sst64.rou) < 0.5, -1.0, 1.0)
+    super_probes = {
+        "init": sst64,
+        "warm": sst64._replace(rou=rand4(-0.9, 0.9, sst64.rou),
+                               sigmau=rand4(0.01, 3, sst64.sigmau),
+                               sigmav=rand4(0.01, 3, sst64.sigmav)),
+        "clamp": sst64._replace(rou=0.99999 * sign4, sigmau=rand4(0.01, 3, sst64.sigmau),
+                                sigmav=rand4(0.01, 3, sst64.sigmav)),
+    }
+
+    def super_k2_args(st, dtype):
+        mu, sg, rou = state_stacks(st, dtype)
+        T = torch.tensor(fs32.temperature, dtype=dtype, device=dev)
+        return (mu, sg, rou, torch.softmax(cast(st, dtype).w, 0), T, k1s, fs32.lambdas,
+                fs32.epsn, EDGE)
+
+    def super_k3_args(st, dtype):
+        mu, sg, rou = state_stacks(st, dtype)
+        return (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou, se32.K, se32.lambdas,
+                se32.epsn)
+
+    # K2 at K1 = 25 (tpu_fast_super) and K3 at K = 11 (super_entropy); the
+    # clamp rules of phases 3 and 6
+    for name, fn, plain, args_of, floor in (
+            ("K2", k2_fn, edge_reduced_gq.edge_reduced_grads_torch, super_k2_args, 0.0),
+            ("K3", edge_gq.edge_gq_cuda, edge_gq.edge_gq_torch, super_k3_args, 1e-6)):
+        rule = f"K1={k1s}" if name == "K2" else f"K={se32.K}"
+        for dtype in (torch.float64, torch.float32):
+            for sname, st in super_probes.items():
+                args = args_of(st, dtype)
+                got, want = fn(*args)[:6], plain(*args)[:6]
+                a, r, ok = compare(got, want, dtype)
+                shape = tuple(args[2].shape) if name == "K2" else tuple(args[4].shape)
+                if sname == "clamp" and dtype == torch.float64 and name == "K2":
+                    log(f"  K2 super {shape} float64 clamp (not checked): max abs err {a:.3e}, "
+                        f"rel {r:.3e}")
+                    continue
+                if sname == "clamp" and dtype == torch.float32:
+                    gold = plain(*(x.double() if isinstance(x, torch.Tensor) else x
+                                   for x in args))[:6]
+                    ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                    require(ek <= 2.0 * ep + floor,
+                            f"{name} super {shape} {rule} float32 clamp: error vs f64 golden "
+                            f"kernel {ek:.3e} <= 2 x plain {ep:.3e} + {floor:g}")
+                    if name == "K2":
+                        continue
+                require(ok, f"{name} super {shape} {rule} {str(dtype)[6:]} {sname}: max abs err "
+                            f"{a:.3e}, rel {r:.3e}")
+                if sname != "warm" or dtype != torch.float32:
+                    continue
+                ms = kernel_ms(lambda: fn(*args))
+                n_el = args[2].numel() if name == "K2" else args[4].numel()
+                if name == "K2":
+                    nbytes = sum(args[i].nbytes for i in range(4)) + 6 * n_el * 4
+                    points, flops = k1s, n_el * (k1s // 2 * FLOPS["K2 pair"]
+                                                 + FLOPS["K2 centre"] + FLOPS["K2 element"])
+                else:
+                    points = se32.K ** 2
+                    nbytes = sum(args[i].nbytes for i in (0, 1, 4)) + 6 * n_el * 4
+                    flops = n_el * (points // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
+                                    + FLOPS["K3 element"])
+                record[name]["super"] = dict(
+                    shape=list(shape), rule=rule, max_abs_err=a, ms=ms[0], ms_min=ms[1],
+                    plain_ms=time_ms(lambda: plain(*args), 5), library_ms=None,
+                    **bound(nbytes, flops, n_el * points, root_rate))
+                sup = record[name]["super"]
+                log(f"  {name} super {shape} {rule} f32 (median, min) {ms} ms; plain "
+                    f"{sup['plain_ms']:.4f} ms; bound {sup['bound_ms']:.4f} ms by "
+                    f"{sup['bound_by']} ({sup['bound_terms_ms']})")
+
+    # ---- 11. one full sweep of each new path, three ways
+    log("phase super sweeps")
+    eprob = {torch.float32: pg.make_problem(se32, I1, I2, fr, dev),
+             torch.float64: pg.make_problem(se64, I1, I2, fr, dev)}
+    sstates = (("init", sst64), ("converged", sconv64))
+    three_way_sweep("tpu_fast_super ",
+                    pg.make_sweep(dataclasses.replace(fs64, node_kernel="torch",
+                                                      edge_kernel="torch"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fs32, node_kernel="torch",
+                                                      edge_kernel="torch"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fs32, node_kernel="cuda",
+                                                      edge_kernel="cuda"), (H, W)),
+                    sprob, sstates, cast)
+    # the f64 golden takes the 121 node points in three steps (its f64
+    # samples at once would need ~2x the f32 arms' memory)
+    three_way_sweep("super_entropy ",
+                    pg.make_sweep(dataclasses.replace(se64, edge_kernel="torch",
+                                                      quad_chunk=41), (H, W)),
+                    pg.make_sweep(dataclasses.replace(se32, edge_kernel="torch"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(se32, edge_kernel="cuda"), (H, W)),
+                    eprob, sstates, cast)
+    del sprob, eprob
+
+    # ---- 12. the super presets through the user entry point
+    log("phase super solves")
+    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda}
+    by_path = {"tpu_fast": launches, "full_mixture": flaunch}
+
+    def counted_solve(path, cfg, want, **kw):
+        """A solve with every launch counter set to 0 just before it and read
+        just after; the counts must equal ``want`` x the sweeps."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for f in kfns.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.time()
+        res = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        counts = {k: f.launches for k, f in kfns.items()}
+        peak = torch.cuda.max_memory_allocated()
+        by_path[path] = counts
+        n = res.iters
+        require(n == cfg.its, f"{path} solve ran {n} sweeps ({cfg.its} asked)")
+        require(bool(np.isfinite(res.Energy[:n]).all()), f"{path}: energy finite over every sweep")
+        a1, an = res.AEPE[0], res.AEPE[n - 1]
+        require(bool(an < a1), f"{path}: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={n} (falls)")
+        require(counts == {k: w * n for k, w in want.items()},
+                f"{path}: launch counters {counts} equal {want} x the sweep count {n}")
+        evals = [i for i in range(n) if np.isfinite(res.AEPE[i])]
+        log(f"  {path} solve wall {wall:.3f} s; peak device memory {peak / 2**30:.3f} GiB, "
+            f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it; "
+            f"AEPE trace {[float(res.AEPE[i]) for i in evals]}")
+        record.setdefault("peak_GiB", {})[path] = peak / 2**30
+        record.setdefault("solve_GiB_above_held", {})[path] = (peak - base) / 2**30
+        return res
+
+    sres = counted_solve("tpu_fast_super", fs32, {"K1": 1, "K2": 1, "K3": 0}, verbose=True)
+    sres2 = solve(fs32, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
+    require(np.array_equal(sres.AEPE, sres2.AEPE, equal_nan=True)
+            and np.array_equal(sres.Energy, sres2.Energy, equal_nan=True),
+            "a second tpu_fast_super solve gives the same AEPE and energy traces, bit for bit")
+    counted_solve("super_entropy", se32, {"K1": 0, "K2": 0, "K3": 1}, verbose=True)
+
+    p32 = pg.make_problem(se32, I1, I2, fr, dev)
+    ust = cast(sst64, torch.float32)
+    usweep = pg.make_sweep(se32, (H, W))
+    node_tab = build_table(se32.K, se32.quad_chunk, np.float64)
+    a3 = torch.softmax(ust.w, 0).reshape(se32.L, 1, 1)
+
+    def super_node_term():
+        f = make_node_pot_bicubic(p32.I1, p32.I2_tab, se32.lambdad, se32.epsn, patch=se32.patch)
+        raw = gq_accumulate(f, ust.muu, ust.muv, ust.sigmau, ust.sigmav, ust.pn, node_tab)
+        return finalize(raw, a3, ust.sigmau, ust.sigmav, ust.pn, ust.temperature, NODE)
+
+    k3_state = super_k3_args(sst64, torch.float32)
+    split = dict(sweep=time_ms(lambda: usweep(p32, ust), 10), node=time_ms(super_node_term, 10),
+                 K3=kernel_ms(lambda: edge_gq.edge_gq_cuda(*k3_state))[0])
+    split["rest"] = split["sweep"] - split["node"] - split["K3"]
+    record["super_entropy_sweep_split_ms"] = split
+    log("  one super_entropy sweep (CUDA events): " + ", ".join(f"{k} {v:.4f} ms"
+                                                               for k, v in split.items()))
+    del p32
+    sp32 = pg.make_problem(fs32, I1, I2, fr, dev)
+    sseg = pg.make_segment_runner(dataclasses.replace(fs32, tor=0.0), (H, W))
+    st, *_ = sseg(sp32, ust, 10)
+    record["tpu_fast_super_segment_ms_per_sweep"] = time_ms(lambda: sseg(sp32, st, 300), 1) / 300
+    log(f"  tpu_fast_super segment: {record['tpu_fast_super_segment_ms_per_sweep']:.4f} "
+        "ms/sweep (300-sweep segment, CUDA events)")
+    del sp32
+
+    # ---- 13. the red-black order through the user entry point
+    log("phase redblack solve")
+    rb32 = dataclasses.replace(cfg32, its=300, **rb)
+    counted_solve("tpu_fast redblack", rb32, {"K1": 2, "K2": 2, "K3": 0})
+    p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
+    rseg = pg.make_segment_runner(dataclasses.replace(rb32, tor=0.0), (H, W))
+    st, *_ = rseg(p32, st32, 10)
+    record["redblack_segment_ms_per_sweep"] = time_ms(lambda: rseg(p32, st, 100), 1) / 100
+    log(f"  tpu_fast redblack segment: {record['redblack_segment_ms_per_sweep']:.4f} ms/sweep "
+        "(100-sweep segment, CUDA events)")
+    del p32
+
+    for k in kfns:
+        record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}
+    log("  launches per path: " + json.dumps(by_path))
+    log("  records: " + json.dumps({k: v for k, v in record.items() if k not in kfns}))
 
     kernels = [
         dict(name="cos_mode_sums (K1)", route="cuda", source="gqmap_tpu_torch/csrc/cosine_gq.cu",

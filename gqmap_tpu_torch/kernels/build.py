@@ -13,6 +13,9 @@ The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is a cache hit. The library is written under a
 temporary name and renamed into place, so concurrent first uses do not
 collide. A missing ``nvcc`` or a failed build raises; there is no fallback.
+The library is built for ``sm_90a`` only, so :func:`library_for` refuses a
+device of any other compute capability before a launch (checked once a
+device).
 The compiler's report (each source's ``nvcc`` seconds, and ``-Xptxas -v``:
 registers and spills per kernel) is kept beside the library as
 ``<name>.log``.
@@ -31,11 +34,15 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["build_library", "library_path", "load_library", "check", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["build_library", "library_path", "load_library", "library_for",
+           "require_capability", "check", "NVCC_FLAGS", "CAPABILITY"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+CAPABILITY = (9, 0)  # the one target of NVCC_FLAGS: sm_90a, Hopper
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -139,6 +146,30 @@ def load_library() -> ctypes.CDLL:
     lib.gqmap_error_string.argtypes = [ctypes.c_int]
     lib.gqmap_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def require_capability(capability, device_name: str = "the device") -> None:
+    """Raise unless ``capability`` (major, minor) is :data:`CAPABILITY`: the
+    library holds ``sm_90a`` code only, which no other device can run."""
+    if tuple(capability) != CAPABILITY:
+        raise RuntimeError(
+            f"the gqmap CUDA kernels are built for sm_90a (compute capability "
+            f"{CAPABILITY[0]}.{CAPABILITY[1]}, Hopper) only; {device_name} has compute "
+            f"capability {capability[0]}.{capability[1]}. Run on a Hopper card, or on the "
+            "CPU (device='cpu'), where the plain PyTorch versions run")
+
+
+@functools.lru_cache(maxsize=None)
+def _check_device(index: int) -> None:
+    require_capability(torch.cuda.get_device_capability(index),
+                       f"cuda:{index} ({torch.cuda.get_device_name(index)})")
+
+
+def library_for(device: torch.device) -> ctypes.CDLL:
+    """The kernel library for a launch on the CUDA ``device``, after checking
+    (once a device) that its compute capability can run it."""
+    _check_device(torch.cuda.current_device() if device.index is None else device.index)
+    return load_library()
 
 
 def check(code: int, what: str) -> None:

@@ -84,7 +84,7 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = No
     sp = torch.stack([x.expand(site) for x in
                       (ku * (u1 - cos.lo_u), kv * (u2 - cos.lo_v), ku * o1, kv * o2, p)])
     out = torch.empty((6, L, M, N), dtype=coeffs.dtype, device=coeffs.device)
-    lib = build.load_library()
+    lib = build.library_for(coeffs.device)
     fn = (lib.gqmap_cos_mode_sums_f32 if coeffs.dtype == torch.float32
           else lib.gqmap_cos_mode_sums_f64)
     stream = torch.cuda.current_stream(coeffs.device).cuda_stream

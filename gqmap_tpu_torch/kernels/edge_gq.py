@@ -35,24 +35,47 @@ from ..ops.potentials import make_edge_pot
 from ..ops.quadrature import build_table, gauss_hermite
 from . import build
 
-__all__ = ["SPECIALISED", "edge_gq", "edge_gq_cuda", "edge_gq_torch", "paired_rule"]
+__all__ = ["SPECIALISED", "edge_gq", "edge_gq_cuda", "edge_gq_torch", "pair_order",
+           "paired_rule"]
 
 SPECIALISED = (9, 11)  # rules compiled into their own instance (csrc/edge_gq.cu)
 
 
+def pair_order(K: int) -> np.ndarray:
+    """The order of the kernel's ``K^2 // 2`` pairs, each named by the flat
+    index ``j K + i`` of its first point (XI = x_i, XJ = x_j; the mirror is
+    ``K^2 - 1`` minus it): in flat order, each pair followed by its transpose
+    partner, the pair of the point (x_j, x_i), unless the pair is its own.
+    The two have opposite XI^2 - XJ^2 weights, so the Sm accumulator gains
+    their difference, which is small near the |rho| clamp, where XI and XJ
+    enter d almost alike; in flat order its partial sums grow to many times
+    the result and float32 accumulation doubles Sm's error there."""
+    P = K * K // 2
+    order, placed = [], set()
+    for k in range(P):
+        if k in placed:
+            continue
+        kt = (k % K) * K + k // K
+        kt = min(kt, K * K - 1 - kt)  # the pair holding the transposed point
+        for x in (k, kt):
+            if x not in placed:
+                order.append(x)
+                placed.add(x)
+    return np.array(order)
+
+
 def paired_rule(K: int, dtype=np.float64) -> np.ndarray:
     """The K^2-point rule as the kernel reads it: ``8 P + 1`` values for the
-    ``P = K^2 // 2`` pairs of a point and its mirror, row by row: XI, XJ of
-    the pair's first point, then WIWJ times 1, XI, XJ, XI XJ,
-    XI^2 + XJ^2 - 1 and XI^2 - XJ^2; last the centre point's weight (odd K;
-    0 for even K). Nodes and weights are symmetrised, ``x_k = -x_{K-1-k}``
-    and ``w_k = w_{K-1-k}``, which the Golub-Welsch values satisfy to
-    rounding."""
+    ``P = K^2 // 2`` pairs of a point and its mirror, in :func:`pair_order`,
+    row by row: XI, XJ of the pair's first point, then WIWJ times 1, XI, XJ,
+    XI XJ, XI^2 + XJ^2 - 1 and XI^2 - XJ^2; last the centre point's weight
+    (odd K; 0 for even K). Nodes and weights are symmetrised,
+    ``x_k = -x_{K-1-k}`` and ``w_k = w_{K-1-k}``, which the Golub-Welsch
+    values satisfy to rounding."""
     x, w = gauss_hermite(K)
     x = 0.5 * (x - x[::-1])
     w = 0.5 * (w + w[::-1])
-    P = K * K // 2
-    k = np.arange(P)
+    k = pair_order(K)
     xi, xj = x[k % K], x[k // K]
     wiwj = w[k % K] * w[k // K]
     wc = w[K // 2] ** 2 if K % 2 else 0.0
@@ -111,7 +134,7 @@ def edge_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float,
     else:
         rule_host, rule_dev = _rule_host(K, mu.dtype).ctypes.data, None
     out = torch.empty((6, D * C, L, M, N), dtype=mu.dtype, device=mu.device)
-    lib = build.load_library()
+    lib = build.library_for(mu.device)
     fn = lib.gqmap_edge_gq_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_gq_f64
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     build.check(fn(mu.data_ptr(), sg.data_ptr(), u2e.data_ptr(), o2e.data_ptr(),

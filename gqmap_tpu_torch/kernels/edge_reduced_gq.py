@@ -125,7 +125,7 @@ def edge_reduced_grads_cuda(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn
     else:
         rule_host, rule_dev = _rule_host(k1, mu.dtype).ctypes.data, None
     out = torch.empty((6,) + edge, dtype=mu.dtype, device=mu.device)
-    lib = build.load_library()
+    lib = build.library_for(mu.device)
     fn = lib.gqmap_edge_reduced_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_reduced_f64
     stream = torch.cuda.current_stream(mu.device).cuda_stream
     build.check(fn(mu.data_ptr(), sg.data_ptr(), rou.data_ptr(), alpha.data_ptr(),

@@ -1,15 +1,21 @@
 """The GQMAP variational inference engine in PyTorch.
 
 Port of ``gqmap_tpu/models/gqmap.py`` for two paths, both with the Stein
-estimator, a synchronous Jacobi sweep (``gqmap_gpu_mixture.m:29-46``), the
-softmax-natural alpha update and a MAP / logP / AEPE readout at it=1 and
-then every ``eval_every`` sweeps:
+estimator, the softmax-natural alpha update and a MAP / logP / AEPE readout
+at it=1 and then every ``eval_every`` sweeps:
 
 * ``GQMAPConfig.tpu_fast()``: the closed-form cosine data term (kernel K1)
   and reduced 1-D Charbonnier edge quadrature (kernel K2);
 * ``GQMAPConfig.full_mixture()``, the reference-parity exact path: the
   K^2-point bicubic node quadrature (plain torch, :func:`gq_accumulate`)
   and K^2-point tensor-rule Charbonnier edges (kernel K3).
+
+Both run at full resolution or on the super lattice (``patch > 1``: each
+flow node owns a ``patch x patch`` pixel block and its data term is the
+block's sum; the presets ``tpu_fast_super`` and ``super_entropy``), with a
+synchronous Jacobi sweep (``gqmap_gpu_mixture.m:29-46``) or the red-black
+(checkerboard Gauss-Seidel) order, whose two half-steps each evaluate every
+term against the other colour's fresh values.
 
 ``solve`` also takes ``init_flow``, ``reset_at`` and checkpoint / resume, as
 the JAX ``solve`` does.
@@ -132,18 +138,18 @@ def check_supported(cfg: GQMAPConfig) -> None:
     ``NotImplementedError`` naming the ROADMAP item; unknown values raise
     ``ValueError``.
     """
+    legacy = "Queue 1 item 3, Slice B item 13"
     todo = {
-        ("data_term", "nearest"): "Queue 1, Slice B item 13",
-        ("data_term", "quadratic"): "Queue 1, Slice B item 13",
+        ("data_term", "nearest"): legacy,
+        ("data_term", "quadratic"): legacy,
         ("data_term", "chebyshev"): "'Do not port' (validation-only in the JAX package)",
-        ("edge_kind", "truncquad"): "Queue 1, Slice B item 13",
-        ("gradient_estimator", "autodiff"): "Queue 1, Slice B item 13",
-        ("gradient_estimator", "prewitt"): "Queue 1, Slice B item 13",
-        ("sweep_order", "redblack"): "Queue 1, Slice B item 11",
+        ("edge_kind", "truncquad"): legacy,
+        ("gradient_estimator", "autodiff"): legacy,
+        ("gradient_estimator", "prewitt"): legacy,
     }
     supported = {"data_term": ("cosine", "bicubic"), "edge_quad": ("reduced", "tensor"),
                  "edge_kind": ("charbonnier",), "gradient_estimator": ("stein",),
-                 "sweep_order": ("jacobi",)}
+                 "sweep_order": ("jacobi", "redblack")}
     for field, ok in supported.items():
         value = getattr(cfg, field)
         if value in ok:
@@ -152,10 +158,8 @@ def check_supported(cfg: GQMAPConfig) -> None:
             raise NotImplementedError(
                 f"{field}={value!r} is not ported yet (ROADMAP {todo[field, value]})")
         raise ValueError(f"unknown {field} {value!r}")
-    if cfg.patch != 1:
-        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
     if cfg.window_rg != 0:
-        raise NotImplementedError("window_rg > 0 is not ported yet (ROADMAP Queue 1, Slice B item 13)")
+        raise NotImplementedError(f"window_rg > 0 is not ported yet (ROADMAP {legacy})")
     if cfg.alpha_update not in ("softmax_natural", "projsplx"):
         raise ValueError(f"unknown alpha_update {cfg.alpha_update!r}")
     for field in ("node_kernel", "edge_kernel"):
@@ -183,6 +187,8 @@ def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
     """Frames on the device; for ``data_term="cosine"`` also the cosine
     coefficient field over the flow range widened by ``cheb_margin`` (the
     exact path needs no flow range here)."""
+    if cfg.window_rg > 0 and cfg.patch > 1:
+        raise ValueError("window_rg and patch > 1 are mutually exclusive")
     check_supported(cfg)
     if cfg.data_term == "cosine" and flow_range is None:
         raise ValueError("data_term='cosine' needs flow_range at make_problem")
@@ -237,8 +243,12 @@ def init_state(cfg: GQMAPConfig, rng: FlowRange, image_shape, seed=None,
 
 
 def make_sweep(cfg: GQMAPConfig, image_shape):
-    """Build the single-sweep update (one synchronous Jacobi step):
-    ``sweep(problem, state) -> (state, SweepAux)``."""
+    """Build the single-sweep update: ``sweep(problem, state) -> (state,
+    SweepAux)``. ``sweep_order="jacobi"`` is one synchronous step over the
+    interior; ``"redblack"`` is a step over the interior's red sites
+    (``(row + col)`` even, in global lattice coordinates) and then one over
+    its black sites from the red step's state, so every kernel launches twice
+    a sweep. Energy and the alpha gradient come from the second half."""
     check_supported(cfg)
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -250,6 +260,8 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
     node_sums = _NODE_SUMS[cfg.node_kernel]
     node_tab = build_table(cfg.K, cfg.quad_chunk, np.float64)
     edge_route = _EDGE_ROUTES[cfg.edge_quad][cfg.edge_kernel]
+    red_np = (np.add.outer(np.arange(M), np.arange(N)) & 1) == 0
+    red_on = {}  # device -> the red mask there
 
     def sweep(problem: Problem, state: GQState) -> tuple[GQState, SweepAux]:
         rngv = problem.rng
@@ -264,60 +276,77 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
-        # --- node term (gqmap_gpu_mixture.m:29, :87-116) ---
-        if cfg.data_term == "cosine":  # kernel K1
-            sums = node_sums(problem.cheb, state.muu, state.muv, state.sigmau, state.sigmav,
-                             state.pn)
-            gn = _finalize_mode_sums(problem.cheb, sums, state.muu, state.sigmau,
-                                     state.sigmav, state.pn, a3, T, NODE)
-        else:  # the K^2-point bicubic quadrature, plain torch
-            node_f = make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
-                                           patch=cfg.patch)
-            raw_n = gq_accumulate(node_f, state.muu, state.muv, state.sigmau, state.sigmav,
-                                  state.pn, node_tab)
-            gn = finalize(raw_n, a3, state.sigmau, state.sigmav, state.pn, T, NODE)
+        def compute_grads(st: GQState):
+            """Every parameter gradient and the interior energy and dalpha at ``st``."""
+            # --- node term (gqmap_gpu_mixture.m:29, :87-116) ---
+            if cfg.data_term == "cosine":  # kernel K1
+                sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
+                gn = _finalize_mode_sums(problem.cheb, sums, st.muu, st.sigmau, st.sigmav,
+                                         st.pn, a3, T, NODE)
+            else:  # the K^2-point bicubic quadrature, plain torch
+                node_f = make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad,
+                                               cfg.epsn, patch=cfg.patch)
+                raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
+                                      node_tab)
+                gn = finalize(raw_n, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
 
-        # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---
-        mu = torch.stack([state.muu, state.muv])
-        sg = torch.stack([state.sigmau, state.sigmav])
-        if cfg.edge_quad == "reduced":  # kernel K2, which reads the neighbour itself
-            ge = edge_route(mu, sg, state.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE)
-        else:  # kernel K3
-            u2e, o2e = neighbour_stacks(mu, sg)
-            raw_e = edge_route(mu, sg, u2e, o2e, state.rou, cfg.K, cfg.lambdas, cfg.epsn)
-            ge = finalize(raw_e, a3, sg[None], o2e, state.rou, T, EDGE)
+            # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---
+            mu = torch.stack([st.muu, st.muv])
+            sg = torch.stack([st.sigmau, st.sigmav])
+            if cfg.edge_quad == "reduced":  # kernel K2, which reads the neighbour itself
+                ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE)
+            else:  # kernel K3
+                u2e, o2e = neighbour_stacks(mu, sg)
+                raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)
+                ge = finalize(raw_e, a3, sg[None], o2e, st.rou, T, EDGE)
 
-        # --- assembly: endpoint-1 terms stay, endpoint-2 terms go back to the
-        # neighbour that owns them (:37-40) ---
-        def assemble(dn, d1, d2, chan):
-            return (dn + d1[0, chan] + d1[1, chan]
-                    + torch.roll(d2[0, chan], 1, -2) + torch.roll(d2[1, chan], 1, -1))
+            # --- assembly: endpoint-1 terms stay, endpoint-2 terms go back to the
+            # neighbour that owns them (:37-40) ---
+            def assemble(dn, d1, d2, chan):
+                return (dn + d1[0, chan] + d1[1, chan]
+                        + torch.roll(d2[0, chan], 1, -2) + torch.roll(d2[1, chan], 1, -1))
 
-        dmuu = assemble(gn.du1, ge.du1, ge.du2, 0)
-        dmuv = assemble(gn.du2, ge.du1, ge.du2, 1)
-        dsigmau = assemble(gn.do1, ge.do1, ge.do2, 0)
-        dsigmav = assemble(gn.do2, ge.do1, ge.do2, 1)
+            dmuu = assemble(gn.du1, ge.du1, ge.du2, 0)
+            dmuv = assemble(gn.du2, ge.du1, ge.du2, 1)
+            dsigmau = assemble(gn.do1, ge.do1, ge.do2, 0)
+            dsigmav = assemble(gn.do2, ge.do1, ge.do2, 1)
 
-        # --- energy + global mixture gradient (:36, :48) ---
-        energy = (torch.where(interior, gn.E, zero).sum()
-                  + torch.where(interior, ge.E, zero).sum())
-        dalpha = (torch.where(interior, gn.da, zero).sum((-2, -1))
-                  + torch.where(interior, ge.da, zero).sum((0, 1, -2, -1)))
+            # --- energy + global mixture gradient (:36, :48) ---
+            energy = (torch.where(interior, gn.E, zero).sum()
+                      + torch.where(interior, ge.E, zero).sum())
+            dalpha = (torch.where(interior, gn.da, zero).sum((-2, -1))
+                      + torch.where(interior, ge.da, zero).sum((0, 1, -2, -1)))
+            return dmuu, dmuv, dsigmau, dsigmav, gn.dp, ge.dp, energy, dalpha
 
-        # --- clamped ascent on the interior (:41-46) ---
+        # --- clamped ascent over a site mask (:41-46) ---
         sstep = step * cfg.sigma_step_scale
 
-        def upd(x, dx, lo, hi, s=step):
-            return torch.where(interior, torch.clamp(x + dx * s, lo, hi), x)
+        def one_pass(st: GQState, mask):
+            dmuu, dmuv, dsigmau, dsigmav, dpn, drou, energy, dalpha = compute_grads(st)
 
-        muu = upd(state.muu, dmuu, rngv.minu, rngv.maxu)
-        muv = upd(state.muv, dmuv, rngv.minv, rngv.maxv)
-        sigmau = upd(state.sigmau, dsigmau, cfg.sigma_min, cfg.sigma_max, sstep)
-        sigmav = upd(state.sigmav, dsigmav, cfg.sigma_min, cfg.sigma_max, sstep)
-        rou = upd(state.rou, ge.dp, -cfg.corr_tor, cfg.corr_tor)
-        pn = upd(state.pn, gn.dp, -cfg.corr_tor, cfg.corr_tor)
-        dmu_sum = torch.where(interior, dmuu.abs(), zero).sum()
-        dsig_sum = torch.where(interior, dsigmau.abs(), zero).sum()
+            def upd(x, dx, lo, hi, s=step):
+                return torch.where(mask, torch.clamp(x + dx * s, lo, hi), x)
+
+            st2 = st._replace(
+                muu=upd(st.muu, dmuu, rngv.minu, rngv.maxu),
+                muv=upd(st.muv, dmuv, rngv.minv, rngv.maxv),
+                sigmau=upd(st.sigmau, dsigmau, cfg.sigma_min, cfg.sigma_max, sstep),
+                sigmav=upd(st.sigmav, dsigmav, cfg.sigma_min, cfg.sigma_max, sstep),
+                rou=upd(st.rou, drou, -cfg.corr_tor, cfg.corr_tor),
+                pn=upd(st.pn, dpn, -cfg.corr_tor, cfg.corr_tor))
+            dmu_sum = torch.where(mask, dmuu.abs(), zero).sum()
+            dsig_sum = torch.where(mask, dsigmau.abs(), zero).sum()
+            return st2, energy, dalpha, dmu_sum, dsig_sum
+
+        if cfg.sweep_order == "redblack":
+            red = red_on.get(interior.device)
+            if red is None:
+                red = red_on[interior.device] = torch.as_tensor(red_np, device=interior.device)
+            st1, _, _, p1, s1 = one_pass(state, interior & red)
+            stc, energy, dalpha, p2, s2 = one_pass(st1, interior & ~red)
+            dmu_sum, dsig_sum = p1 + p2, s1 + s2
+        else:
+            stc, energy, dalpha, dmu_sum, dsig_sum = one_pass(state, interior)
 
         # --- mixture-weight update, active after alpha_start iters (:50) ---
         w = state.w
@@ -334,8 +363,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
             T = torch.where(state.it % cfg.anneal_every == 0,
                             torch.clamp(T * cfg.drate, min=cfg.t_floor), T)
 
-        new = GQState(w=w, muu=muu, muv=muv, sigmau=sigmau, sigmav=sigmav, pn=pn, rou=rou,
-                      temperature=T, it=state.it + 1)
+        new = stc._replace(w=w, temperature=T, it=state.it + 1)
         return new, SweepAux(energy=energy, ptdmu=dmu_sum / n_interior,
                              ptdsigma=dsig_sum / n_interior)
 
@@ -401,15 +429,19 @@ def make_logp_fn(cfg: GQMAPConfig, image_shape):
 
 
 def aepe_of(cfg: GQMAPConfig, map_flow, tflow, unknown) -> float:
-    """Average endpoint error with the reference's masking and cropping:
-    unknown-GT pixels zeroed, the border ring excluded
-    (``gqmap_gpu_mixture.m:63-64``)."""
-    if cfg.patch != 1:
-        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
+    """Average endpoint error with the reference's masking and cropping.
+
+    Full resolution: unknown-GT pixels zeroed, the border ring excluded
+    (``gqmap_gpu_mixture.m:63-64``). Super lattice: the MAP is repeated to
+    full resolution (``repelem``) and a ``patch``-pixel border cropped
+    (``gqmap_gpuSuper_mix_entropy.m:58-63``).
+    """
     flow = np.array(map_flow, np.float64)
+    if cfg.patch > 1:
+        flow = np.repeat(np.repeat(flow, cfg.patch, 0), cfg.patch, 1)
     flow[np.asarray(unknown)] = 0.0
     t = np.asarray(tflow, np.float64)
-    c = cfg.border
+    c = cfg.border if cfg.patch == 1 else cfg.patch
     sl = np.s_[c:-c, c:-c]
     d = t[sl] - flow[sl]
     return float(np.mean(np.sqrt((d * d).sum(-1))))
@@ -452,10 +484,11 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
     the iteration counter restarted, means kept (``legacy/gqmap_gpuV2.m:51-62``).
     """
     if mesh is not None:
-        raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1, Slice B item 15)")
+        raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1 item 5, "
+                                  "Slice B item 15)")
     if out_dir is not None:
         raise NotImplementedError("flow visualisation output is not ported yet (ROADMAP "
-                                  "Queue 1 item 7: out_dir PNGs need an image writer)")
+                                  "Queue 1 item 4: out_dir PNGs need an image writer)")
 
     tflow = unknown = None
     if gt_flow is not None:

@@ -62,13 +62,16 @@ def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: flo
     Samples the node potential at the (A, B) midpoint grid over the
     displacement box (each sample a constant-offset bicubic read of frame 2,
     ``VV = pad_cubic(I2)``), then takes a type-II DCT along both
-    displacement axes. Only ``patch=1`` and ``window_rg=0`` are ported.
+    displacement axes. For ``patch > 1`` the expansion is of the
+    patch-summed potential on the ``(Mo, No) / patch`` flow lattice
+    (``gqmap_gpuSuper_mix_entropy.m:94-105``). ``window_rg > 0`` is not
+    ported.
     """
-    if patch != 1:
-        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
     if window_rg != 0:
-        raise NotImplementedError("window_rg > 0 is not ported yet (ROADMAP Queue 1, Slice B item 13)")
+        raise NotImplementedError("window_rg > 0 is not ported yet (ROADMAP Queue 1 item 3, "
+                                  "Slice B item 13)")
     Mo, No = I1.shape
+    M, N = Mo // patch, No // patch
     dtype, device = I1.dtype, I1.device
     lo_u, hi_u, lo_v, hi_v = (float(x) for x in box)
     # midpoint sample positions: x_j = lo + (j + 1/2) L / P
@@ -79,24 +82,31 @@ def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: flo
 
     jj = 1.0 + torch.arange(No, dtype=dtype, device=device).reshape(1, No)
     ii = 1.0 + torch.arange(Mo, dtype=dtype, device=device).reshape(Mo, 1)
-    vals = torch.empty((A * B, Mo, No), dtype=dtype, device=device)
-    chunk = max(1, _SAMPLE_CHUNK_ELEMS // (Mo * No))
+    vals = torch.empty((A * B, M, N), dtype=dtype, device=device)
+    chunk = max(1, _SAMPLE_CHUNK_ELEMS // (Mo * No))  # full-resolution samples a chunk
     for i in range(0, A * B, chunk):
         u = uv[i:i + chunk, 0].reshape(-1, 1, 1)
         v = uv[i:i + chunk, 1].reshape(-1, 1, 1)
         Vq = sample_bicubic(VV, jj + u, ii + v)
-        vals[i:i + chunk] = -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+        npt = -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+        if patch > 1:
+            npt = npt.reshape(-1, M, patch, N, patch).sum((-3, -1))
+        vals[i:i + chunk] = npt
 
     # The DCT is a plain matrix product (XLA's einsum in the JAX package).
     # TF32 would keep ~3 decimal digits of these f32 coefficients, so both
-    # TF32 switches are turned off here, process-wide.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # TF32 switches are off for the two products and restored after them.
     Du = torch.as_tensor(_dct2_matrix(A), dtype=dtype, device=device)
     Dv = torch.as_tensor(_dct2_matrix(B), dtype=dtype, device=device)
-    coeffs = torch.matmul(Du, vals.reshape(A, B * Mo * No)).reshape(A, B, Mo * No)
-    del vals
-    coeffs = torch.matmul(Dv, coeffs).reshape(A, B, Mo, No)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        coeffs = torch.matmul(Du, vals.reshape(A, B * M * N)).reshape(A, B, M * N)
+        del vals
+        coeffs = torch.matmul(Dv, coeffs).reshape(A, B, M, N)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return CosData(coeffs=coeffs, lo_u=lo_u, hi_u=hi_u, lo_v=lo_v, hi_v=hi_v)
 
 

@@ -23,19 +23,26 @@ def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
     """Return ``f(x1, x2) -> node potential`` over the ``(Mo, No)`` lattice.
 
     ``VV = pad_cubic(I2)``; ``x1``/``x2`` are displacements of shape
-    ``lead + (Mo, No)``, ``lead`` any leading broadcast axes (quadrature
-    chunk, mixture component). Only ``patch=1`` is ported (ROADMAP Slice B
-    item 10).
+    ``lead + (M, N)``, ``lead`` any leading broadcast axes (quadrature
+    chunk, mixture component), on the flow lattice ``(M, N) = (Mo, No) /
+    patch``. For ``patch > 1`` each flow node sums the potential over its
+    ``patch x patch`` pixel block (super lattice): the displacements are
+    repeated to full resolution, sampled, and summed back per block.
     """
-    if patch != 1:
-        raise NotImplementedError("patch > 1 is not ported yet (ROADMAP Queue 1, Slice B item 10)")
     Mo, No = I1.shape
     jj = 1.0 + torch.arange(No, dtype=I1.dtype, device=I1.device).reshape(1, No)
     ii = 1.0 + torch.arange(Mo, dtype=I1.dtype, device=I1.device).reshape(Mo, 1)
 
     def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if patch > 1:
+            x1 = x1.repeat_interleave(patch, -2).repeat_interleave(patch, -1)
+            x2 = x2.repeat_interleave(patch, -2).repeat_interleave(patch, -1)
         Vq = sample_bicubic(VV, jj + x1, ii + x2)
-        return -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+        npt = -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+        if patch > 1:
+            lead = npt.shape[:-2]
+            npt = npt.reshape(lead + (Mo // patch, patch, No // patch, patch)).sum((-3, -1))
+        return npt
 
     return f
 

@@ -51,23 +51,30 @@ def test_port_imports_without_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
 
 
+LEGACY = "Queue 1 item 3, Slice B item 13"
+
+
 @pytest.mark.parametrize("override, item", [
-    (dict(data_term="bicubic", patch=4), "item 10"),
-    (dict(data_term="nearest"), "item 13"),
-    (dict(data_term="quadratic"), "item 13"),
+    (dict(data_term="nearest"), LEGACY),
+    (dict(data_term="quadratic"), LEGACY),
     (dict(data_term="chebyshev"), "Do not port"),
-    (dict(edge_quad="tensor", edge_kind="truncquad"), "item 13"),
-    (dict(edge_kind="truncquad"), "item 13"),
-    (dict(gradient_estimator="autodiff"), "item 13"),
-    (dict(gradient_estimator="prewitt"), "item 13"),
-    (dict(sweep_order="redblack"), "item 11"),
-    (dict(patch=4), "item 10"),
-    (dict(window_rg=2), "item 13"),
+    (dict(edge_quad="tensor", edge_kind="truncquad"), LEGACY),
+    (dict(edge_kind="truncquad"), LEGACY),
+    (dict(gradient_estimator="autodiff"), LEGACY),
+    (dict(gradient_estimator="prewitt"), LEGACY),
+    (dict(window_rg=2), LEGACY),
 ])
 def test_unported_config_names_its_roadmap_item(override, item):
     cfg = gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override)
     with pytest.raises(NotImplementedError, match=item):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("override", [dict(data_term="bicubic", patch=4),
+                                      dict(sweep_order="redblack"), dict(patch=4)])
+def test_super_lattice_and_redblack_are_supported(override):
+    # the super lattice (both data terms) and the red-black order are ported
+    check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
 
 
 @pytest.mark.parametrize("override", [dict(node_kernel="pallas"), dict(edge_kernel="xla"),
@@ -84,3 +91,21 @@ def test_flagship_and_kernel_routes_are_supported():
         check_supported(gqmap_tpu_torch.GQMAPConfig.full_mixture(edge_kernel=route))
     check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(alpha_update="projsplx",
                                                          dtype="float64"))
+    for preset in ("super_entropy", "tpu_fast_super"):
+        for order in ("jacobi", "redblack"):
+            check_supported(getattr(gqmap_tpu_torch.GQMAPConfig, preset)(sweep_order=order))
+
+
+@pytest.mark.parametrize("capability, ok", [((9, 0), True), ((8, 0), False), ((8, 9), False),
+                                            ((10, 0), False), ((12, 0), False)])
+def test_kernels_refuse_a_device_that_is_not_hopper(capability, ok):
+    # the library holds sm_90a code only: any other capability is refused,
+    # with the found capability named, before a launch
+    from gqmap_tpu_torch.kernels import build
+
+    if ok:
+        build.require_capability(capability, "card")
+    else:
+        with pytest.raises(RuntimeError, match=rf"card has compute capability "
+                                               rf"{capability[0]}\.{capability[1]}"):
+            build.require_capability(capability, "card")

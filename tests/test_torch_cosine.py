@@ -163,3 +163,23 @@ def test_unknown_variant_raises():
         with pytest.raises(ValueError, match="variant"):
             fn(pc, *s, variant="v2")
     assert cosine_gq.cos_mode_sums_cuda.launches == 0
+
+
+@pytest.mark.parametrize("flags", [(True, True), (True, False), (False, True)])
+def test_make_problem_keeps_callers_tf32_flags(flags):
+    # build_cos_data turns both TF32 switches off for its DCT products and
+    # gives the caller's back afterwards
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        r = np.random.default_rng(0)
+        I1 = r.uniform(0, 255, (8, 12))
+        cfg = GQMAPConfig.tpu_fast(K=3, cheb_p=8, cheb_q=4, dtype="float64")
+        p = pg.make_problem(cfg, I1, np.roll(I1, 1, 1), FlowRange(-2, 2, -2, 2), device="cpu")
+        assert p.cheb.coeffs.shape == (8, 4, 8, 12)
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

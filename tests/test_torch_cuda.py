@@ -44,10 +44,11 @@ def _close(got, want, dtype, name):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("L, A, B, M, N", [(3, 64, 16, 7, 45), (1, 13, 5, 12, 37),
                                            (2, 20, 6, 16, 24), (4, 9, 3, 5, 130),
-                                           (3, 61, 16, 9, 37)])
+                                           (3, 61, 16, 9, 37), (3, 96, 16, 94, 113)])
 def test_cos_mode_sums_kernel_matches_plain(dev, dtype, L, A, B, M, N, variant):
     # (3, 61, 16, 9, 37): S = 333 sites is not a multiple of the 32-site tile,
-    # and A = 61 is odd
+    # and A = 61 is odd; (3, 96, 16, 94, 113): tpu_fast_super's degrees and
+    # super lattice at 376x452 (10,622 sites, not a multiple of 32)
     g = torch.Generator().manual_seed(A * B + L)
     coeffs = torch.randn((A, B, M, N), generator=g, dtype=torch.float64)
     coeffs /= 1.0 + torch.arange(A, dtype=torch.float64).reshape(A, 1, 1, 1)
@@ -123,8 +124,9 @@ K2_RULES = [(21, False), (25, False), (13, False), (21, True)]
 K3_RULES = [(9, False), (11, False), (5, False), (9, True)]
 # M N not a multiple of the kernels' 256-site blocks, and one that is; K2
 # finds a site's row without a division and reads its neighbours with the
-# wrap at the last row and column
-EDGE_SHAPES = [(3, 17, 23), (2, 9, 45), (1, 8, 64)]
+# wrap at the last row and column; (3, 94, 113) is the super lattice at
+# 376x452 (10,622 sites a plane, N odd)
+EDGE_SHAPES = [(3, 17, 23), (2, 9, 45), (1, 8, 64), (3, 94, 113)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -240,3 +242,43 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (0, 0, 3)
+
+
+@pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
+def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
+    # the red-black order runs two half-steps, each with the path's kernels
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    I2 = np.roll(I1, 1, axis=1)
+    kw = dict(cheb_p=16, cheb_q=8) if preset == "tpu_fast" else dict(quad_chunk=7)
+    cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3, sweep_order="redblack", **kw)
+    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                  edge_gq.edge_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches)
+    res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all()
+    want = (6, 6, 0) if preset == "tpu_fast" else (0, 0, 6)
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == want
+
+
+@pytest.mark.parametrize("preset", ["tpu_fast_super", "super_entropy"])
+def test_super_preset_sweep_launches_its_kernels(dev, preset):
+    # tpu_fast_super runs K1 (A = 96) and K2's K1 = 25 instance, super_entropy
+    # K3's K = 11 instance, once a sweep, on the quarter-resolution lattice
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (32, 48))
+    I2 = np.roll(I1, 1, axis=1)
+    cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3)
+    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                  edge_gq.edge_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches)
+    res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
+    want = (3, 3, 0) if preset == "tpu_fast_super" else (0, 0, 3)
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == want
+
+
+def test_library_for_accepts_this_card(dev):
+    # the card the tests run on is a Hopper card: the capability check passes
+    assert torch.cuda.get_device_capability(dev) == build.CAPABILITY
+    assert build.library_for(dev) is build.load_library()

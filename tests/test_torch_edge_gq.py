@@ -60,7 +60,10 @@ def test_pack_table_matches_jax(K, dtype):
     assert got.dtype == dtype and got.shape == (8 * P + 1,)
     xi, xj, w, wxi, wxj, wxixj, wx2a, wx2m = got[:8 * P].reshape(8, P)
     tab = jax_pack_table(K, np.float64)
-    k, mirror = np.arange(P), K * K - 1 - np.arange(P)
+    k = edge_gq.pair_order(K)
+    mirror = K * K - 1 - k
+    # every point but the centre, once, in a pair with its mirror
+    assert sorted(np.concatenate([k, mirror]).tolist()) == sorted(set(range(K * K)) - {P})
     tol = 1e-6 if dtype == np.float32 else 1e-14
     for a, b in ((xi, tab[0, k]), (xj, tab[1, k]), (xi, -tab[0, mirror]), (xj, -tab[1, mirror]),
                  (w, tab[2, k]), (w, tab[2, mirror]), (wxi, tab[2, k] * tab[0, k]),
@@ -80,3 +83,13 @@ def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
     with pytest.raises(RuntimeError, match="CUDA"):
         edge_gq.edge_gq_cuda(*args)
     assert edge_gq.edge_gq_cuda.launches == 0
+
+
+@pytest.mark.parametrize("K", [5, 9, 11])
+def test_pair_order_keeps_sm_partial_sums_small(K):
+    # each pair is followed by its transpose partner, whose XI^2 - XJ^2
+    # weight is the opposite: the Sm accumulator's partial sums of the
+    # weights never exceed one pair's weight
+    wx2m = edge_gq.paired_rule(K)[7 * (K * K // 2):8 * (K * K // 2)]
+    assert np.abs(np.cumsum(wx2m)).max() <= np.abs(wx2m).max() * (1 + 1e-12)
+    assert abs(wx2m.sum()) < 1e-15
