@@ -86,12 +86,39 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    one ``super_entropy`` sweep (node term, K3, rest) and ms/sweep of a
    300-sweep ``tpu_fast_super`` segment;
 13. a 300-sweep red-black ``tpu_fast`` solve whose K1 and K2 counters equal
-   twice the sweeps, and ms/sweep of a 100-sweep red-black segment.
+   twice the sweeps, and ms/sweep of a 100-sweep red-black segment;
+14. K3 on the legacy presets' L = 1 edge lattice (2, 2, 1, 376, 452) at K = 9
+   (its instance, ``legacy_v2``/``legacy_v3``) and K = 17 (the generic
+   instance, ``blockmatch_v2``), from an init, a warm and a clamp state, in
+   float64 and float32 against the plain version and at the clamp in float32
+   against the f64 golden (ratio rule), with its time, plain time and bound;
+15. K1 on the window-meaned coefficient field of ``tpu_fast(window_rg=2)``
+   against its plain version, from the init and the sigma = 0.05 state;
+16. the legacy presets through the user entry points, each with every
+   launch counter set to 0 just before it: 300-sweep ``legacy_v2``,
+   ``legacy_v3`` and ``blockmatch_v2`` solves, K3 launched once a sweep, and
+   ``tpu_fast(window_rg=2)``, K1 and K2 once a sweep; finite energy, the AEPE
+   at it = 300 below that at it = 1; ``blockmatch_v2`` also from
+   ``block_matching_init`` (which must find the pair's shift), whose AEPE
+   rises as the reference's does (ROADMAP Queue 3, P4) but stays below the
+   random init's run at it = 1 and at the end; ms a sweep of a 30-sweep
+   segment from the final state of ``legacy_v3``, ``blockmatch_v2`` (from
+   the block-matching init) and windowed ``tpu_fast``; then ``legacy_v1`` through
+   ``make_problem(...)._replace(init_flow=...)`` and the segment runner (its
+   quadratic prior is the block-matching flow; ``solve`` does not set it):
+   no kernel launched, the median interior mean within 0.15 of the prior's;
+17. ``legacy_v2``'s ms a sweep (a 30-sweep segment from its solve's final
+   state), the node term's share of a sweep, the
+   seconds and memory to build its ``upsample_cubic`` table, and its solve's
+   peak device memory;
+18. one full-width ``legacy_v2(gradient_estimator="autodiff")`` sweep: a
+   finite state and energy, no kernel launched, its peak memory.
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
 K3; ``launches_by_path`` every path's; ``super`` the checks, times and bounds
-on the super lattice), and last
+on the super lattice, ``legacy`` K3's on the L = 1 lattice and ``windowed``
+K1's on the window-meaned field), and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line; so does a machine without a CUDA card.
 """
@@ -325,7 +352,9 @@ def main():
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
     from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq
     from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize, gq_accumulate
+    from gqmap_tpu_torch.ops.interp import upsample_cubic
     from gqmap_tpu_torch.ops.potentials import make_node_pot_bicubic
     from gqmap_tpu_torch.ops.quadrature import build_table
 
@@ -936,7 +965,7 @@ def main():
 
     def counted_solve(path, cfg, want, **kw):
         """A solve with every launch counter set to 0 just before it and read
-        just after; the counts must equal ``want`` x the sweeps."""
+        just after: finite energy and the counts ``want`` x the sweeps."""
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         for f in kfns.values():
@@ -953,8 +982,6 @@ def main():
         n = res.iters
         require(n == cfg.its, f"{path} solve ran {n} sweeps ({cfg.its} asked)")
         require(bool(np.isfinite(res.Energy[:n]).all()), f"{path}: energy finite over every sweep")
-        a1, an = res.AEPE[0], res.AEPE[n - 1]
-        require(bool(an < a1), f"{path}: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={n} (falls)")
         require(counts == {k: w * n for k, w in want.items()},
                 f"{path}: launch counters {counts} equal {want} x the sweep count {n}")
         evals = [i for i in range(n) if np.isfinite(res.AEPE[i])]
@@ -965,12 +992,35 @@ def main():
         record.setdefault("solve_GiB_above_held", {})[path] = (peak - base) / 2**30
         return res
 
-    sres = counted_solve("tpu_fast_super", fs32, {"K1": 1, "K2": 1, "K3": 0}, verbose=True)
+    def aepe_falls(path, res):
+        a1, an = res.AEPE[0], res.AEPE[res.iters - 1]
+        require(bool(an < a1), f"{path}: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={res.iters} "
+                               "(falls)")
+        return res
+
+    def segment_ms(path, cfg, problem, state):
+        """ms a sweep of a 30-sweep segment from ``state`` (CUDA events)."""
+        # (its raised: a solve's final state is past its own its)
+        seg = pg.make_segment_runner(dataclasses.replace(cfg, tor=0.0, its=cfg.its + 40), (H, W))
+        st, *_ = seg(problem, state, 5)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        done = seg(problem, st, 30)[1]
+        t1.record()
+        torch.cuda.synchronize()
+        require(done == 30, f"{path}: the timed segment ran {done} sweeps (30 asked)")
+        ms = record.setdefault("segment_ms_per_sweep_by_path", {})[path] = t0.elapsed_time(t1) / 30
+        log(f"  {path}: {ms:.4f} ms a sweep (30-sweep segment, CUDA events)")
+        return ms
+
+    sres = aepe_falls("tpu_fast_super", counted_solve("tpu_fast_super", fs32,
+                                                      {"K1": 1, "K2": 1, "K3": 0}, verbose=True))
     sres2 = solve(fs32, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
     require(np.array_equal(sres.AEPE, sres2.AEPE, equal_nan=True)
             and np.array_equal(sres.Energy, sres2.Energy, equal_nan=True),
             "a second tpu_fast_super solve gives the same AEPE and energy traces, bit for bit")
-    counted_solve("super_entropy", se32, {"K1": 0, "K2": 0, "K3": 1}, verbose=True)
+    aepe_falls("super_entropy", counted_solve("super_entropy", se32, {"K1": 0, "K2": 0, "K3": 1},
+                                              verbose=True))
 
     p32 = pg.make_problem(se32, I1, I2, fr, dev)
     ust = cast(sst64, torch.float32)
@@ -1002,7 +1052,8 @@ def main():
     # ---- 13. the red-black order through the user entry point
     log("phase redblack solve")
     rb32 = dataclasses.replace(cfg32, its=300, **rb)
-    counted_solve("tpu_fast redblack", rb32, {"K1": 2, "K2": 2, "K3": 0})
+    aepe_falls("tpu_fast redblack", counted_solve("tpu_fast redblack", rb32,
+                                                  {"K1": 2, "K2": 2, "K3": 0}))
     p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
     rseg = pg.make_segment_runner(dataclasses.replace(rb32, tor=0.0), (H, W))
     st, *_ = rseg(p32, st32, 10)
@@ -1010,6 +1061,218 @@ def main():
     log(f"  tpu_fast redblack segment: {record['redblack_segment_ms_per_sweep']:.4f} ms/sweep "
         "(100-sweep segment, CUDA events)")
     del p32
+
+    # ---- 14. K3 on the legacy presets' L = 1 edge lattice, K = 9 and K = 17
+    log("phase legacy kernels")
+    v2_32 = GQMAPConfig.legacy_v2(its=300, eval_every=300)
+    bm32 = GQMAPConfig.blockmatch_v2(its=300, eval_every=300)
+    lst64 = pg.init_state(dataclasses.replace(v2_32, dtype="float64"), fr, (H, W), seed=0,
+                          device=dev)
+    g5 = torch.Generator().manual_seed(5)
+
+    def rand5(lo, hi, like):
+        return (lo + (hi - lo) * torch.rand(like.shape, generator=g5, dtype=torch.float64)
+                ).to(dev)
+
+    legacy_probes = {
+        "init": lst64,
+        "warm": lst64._replace(rou=rand5(-0.9, 0.9, lst64.rou),
+                               sigmau=rand5(0.01, 3, lst64.sigmau),
+                               sigmav=rand5(0.01, 3, lst64.sigmav)),
+        "clamp": lst64._replace(rou=0.99999 * torch.where(rand5(0, 1, lst64.rou) < 0.5, -1.0, 1.0),
+                                sigmau=rand5(0.01, 3, lst64.sigmau),
+                                sigmav=rand5(0.01, 3, lst64.sigmav)),
+    }
+    record["K3"]["legacy"] = {}
+    for lcfg in (v2_32, bm32):  # K = 9 (legacy_v2, legacy_v3), K = 17 (blockmatch_v2)
+        K = lcfg.K
+        rule = f"K={instance(K, False, edge_gq.SPECIALISED)}"
+        for dtype in (torch.float64, torch.float32):
+            for sname, st in legacy_probes.items():
+                mu, sg, rou = state_stacks(st, dtype)
+                args = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou, K,
+                        lcfg.lambdas, lcfg.epsn)
+                got, want = k3_fn(*args), edge_gq.edge_gq_torch(*args)
+                a, r, ok = compare(got, want, dtype)
+                shape = tuple(rou.shape)
+                require(ok, f"K3 legacy {shape} {rule} {str(dtype)[6:]} {sname}: max abs err "
+                            f"{a:.3e}, rel {r:.3e}")
+                if sname == "clamp" and dtype == torch.float32:
+                    gold = edge_gq.edge_gq_torch(*(x.double() if isinstance(x, torch.Tensor)
+                                                   else x for x in args))
+                    ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                    require(ek <= 2.0 * ep + 1e-6, f"K3 legacy {shape} {rule} float32 clamp: "
+                                                   f"error vs f64 golden kernel {ek:.3e} <= 2 x "
+                                                   f"plain {ep:.3e} + 1e-6")
+                if sname != "warm" or dtype != torch.float32:
+                    continue
+                ms = kernel_ms(lambda: k3_fn(*args))
+                n_el = rou.numel()
+                nbytes = sum(x.nbytes for x in (mu, sg, rou)) + 6 * n_el * 4
+                flops = n_el * (K * K // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
+                                + FLOPS["K3 element"])
+                rec = record["K3"]["legacy"][f"K={K}"] = dict(
+                    shape=list(shape), rule=rule, max_abs_err=a, ms=ms[0], ms_min=ms[1],
+                    plain_ms=time_ms(lambda: edge_gq.edge_gq_torch(*args), 3), library_ms=None,
+                    **bound(nbytes, flops, n_el * K * K, root_rate))
+                log(f"  K3 legacy {shape} {rule} f32 on {smi('name,power.limit,clocks.sm')} "
+                    f"(median, min) {ms} ms; plain {rec['plain_ms']:.4f} ms; bound "
+                    f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_terms_ms']})")
+
+    # ---- 15. K1 on the window-meaned coefficient field (window_rg = 2)
+    log("phase windowed K1")
+    wf32 = GQMAPConfig.tpu_fast(window_rg=2, its=300, eval_every=300)
+    t = time.time()
+    wprob = {dt: pg.make_problem(dataclasses.replace(wf32, dtype=str(dt)[6:]), I1, I2, fr, dev)
+             for dt in (torch.float32, torch.float64)}
+    torch.cuda.synchronize()
+    log(f"make_problem tpu_fast(window_rg=2) f32 + f64: {time.time() - t:.3f} s")
+    for dtype in (torch.float64, torch.float32):
+        p = wprob[dtype]
+        for sname, st in (("init", st64), ("converged", conv64)):
+            s = cast(st, dtype)
+            sites = (s.muu, s.muv, s.sigmau, s.sigmav, s.pn)
+            want = cosine_gq.cos_mode_sums_torch(p.cheb, *sites)
+            cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+            got = k1_fn(p.cheb, *sites, counters=cnt)
+            a, r, ok = compare(got, want, dtype)
+            n_recur, n_exp, modes = cnt.tolist()
+            require(ok, f"K1 window_rg=2 {str(dtype)[6:]} {sname}: max abs err {a:.3e}, rel "
+                        f"{r:.3e}; counters: {n_recur} warps recur, {n_exp} exp, {modes} modes")
+            if dtype == torch.float32 and sname == "converged":
+                ms = kernel_ms(lambda: k1_fn(p.cheb, *sites))
+                k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
+                rec = record["K1"]["windowed"] = dict(
+                    shape=list(p.cheb.coeffs.shape[:2]) + list(sites[0].shape), max_abs_err=a,
+                    ms=ms[0], ms_min=ms[1], library_ms=None,
+                    plain_ms=time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 3),
+                    **bound(k1_bytes, modes * FLOPS["K1 recur mode"]))
+                log(f"  K1 window_rg=2 f32 converged (median, min) {ms} ms; plain "
+                    f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms by "
+                    f"{rec['bound_by']}")
+    wp32 = wprob[torch.float32]  # timed with phase 16's solve
+    del wprob
+
+    # ---- 16. the legacy presets through the user entry points
+    log("phase legacy solves")
+    v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, {"K1": 0, "K2": 0, "K3": 1},
+                                                  verbose=True))
+    v3_32 = GQMAPConfig.legacy_v3(its=300, eval_every=300)
+    v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, {"K1": 0, "K2": 0, "K3": 1},
+                                                  verbose=True))
+    segment_ms("legacy_v3", v3_32, pg.make_problem(v3_32, I1, I2, fr, dev), v3res.state)
+    t = time.time()
+    bm_flow = block_matching_init(I1, I2, device=dev)
+    log(f"  block_matching_init 376x452: {time.time() - t:.3f} s; interior flow (median u, v) "
+        f"{np.median(bm_flow[8:-8, 8:-8], axis=(0, 1)).tolist()}")
+    require(bool((bm_flow[8:-8, 8:-8] == [1.0, 0.0]).mean() > 0.99),
+            "block_matching_init finds the pair's shift (u = 1, v = 0) at > 99% of the interior")
+    # from the block-matching flow, which is right at it = 1 on this pair, the
+    # preset's wide sigma init (the flow range's width, kept as the reference
+    # keeps it) moves the means off it, in the JAX engine as in the port
+    # (ROADMAP Queue 3, P4; tests/test_torch_legacy.py): the AEPE falls from
+    # a random init, and from the block-matching init stays below that
+    rand = aepe_falls("blockmatch_v2", counted_solve("blockmatch_v2", bm32,
+                                                     {"K1": 0, "K2": 0, "K3": 1}))
+    bm = counted_solve("blockmatch_v2 from block_matching_init", bm32,
+                       {"K1": 0, "K2": 0, "K3": 1}, init_flow=bm_flow, verbose=True)
+    require(bm.AEPE[0] < rand.AEPE[0] and bm.AEPE[-1] < rand.AEPE[-1],
+            f"blockmatch_v2: AEPE from the block-matching init {bm.AEPE[0]:.4f} at it=1, "
+            f"{bm.AEPE[-1]:.4f} at the end, each below the random init's {rand.AEPE[0]:.4f}, "
+            f"{rand.AEPE[-1]:.4f}")
+    segment_ms("blockmatch_v2", bm32, pg.make_problem(bm32, I1, I2, fr, dev), bm.state)
+    wres = aepe_falls("tpu_fast window_rg=2", counted_solve(
+        "tpu_fast window_rg=2", wf32, {"K1": 1, "K2": 1, "K3": 0}, verbose=True))
+    segment_ms("tpu_fast window_rg=2", wf32, wp32, wres.state)
+    del wp32
+
+    # legacy_v1: its quadratic prior is Problem.init_flow, which solve() does
+    # not set (as in the JAX package), so it runs through the segment runner;
+    # with a dominant prior (quad_var = 0.05) the means track the
+    # block-matching flow (tests/test_solver.py:178-199)
+    v1_32 = GQMAPConfig.legacy_v1(its=300, quad_var=0.05)
+    v1p = pg.make_problem(v1_32, I1, I2, fr, dev)._replace(
+        init_flow=torch.as_tensor(bm_flow, device=dev))
+    for f in kfns.values():
+        f.launches = 0
+    v1st, v1n, v1e, *_ = pg.make_segment_runner(v1_32, (H, W))(
+        v1p, pg.init_state(v1_32, fr, (H, W), device=dev), 300)
+    by_path["legacy_v1"] = counts = {k: f.launches for k, f in kfns.items()}
+    med = float(v1st.muu[0, 1:-1, 1:-1].median())
+    want_u = float(np.median(bm_flow[1:-1, 1:-1, 0]))
+    require(counts == {"K1": 0, "K2": 0, "K3": 0}, f"legacy_v1: launch counters {counts} all 0 "
+                                                   "(truncated-quadratic edges)")
+    require(bool(torch.isfinite(v1e[:v1n]).all()), "legacy_v1: energy finite over every sweep")
+    require(abs(med - want_u) < 0.15, f"legacy_v1: median interior mean u {med:.4f} within 0.15 "
+                                      f"of the prior's {want_u:.4f} after {v1n} sweeps")
+    del v1p
+
+    # ---- 17. legacy_v2's sweep: time, node term, table build, memory
+    log("phase legacy_v2 sweep")
+    torch.cuda.synchronize()
+    t = time.time()
+    v2p = pg.make_problem(v2_32, I1, I2, fr, dev)
+    torch.cuda.synchronize()
+    t_problem = time.time() - t
+    I2d = torch.as_tensor(I2, dtype=torch.float32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.time()
+    tab = upsample_cubic(I2d, v2_32.rfc)
+    torch.cuda.synchronize()
+    t_up = time.time() - t
+    up_peak = torch.cuda.max_memory_allocated() - base
+    del tab
+    seg_ms = segment_ms("legacy_v2", v2_32, v2p, v2res.state)
+    v2st = v2res.state
+    v2_node_tab = build_table(v2_32.K, v2_32.quad_chunk, np.float64)
+    a3 = torch.softmax(v2st.w, 0).reshape(1, 1, 1)
+
+    def v2_node_term():
+        raw = gq_accumulate(pg._node_f(v2_32, v2p), v2st.muu, v2st.muv, v2st.sigmau,
+                            v2st.sigmav, v2st.pn, v2_node_tab)
+        return finalize(raw, a3, v2st.sigmau, v2st.sigmav, v2st.pn, v2st.temperature, NODE)
+
+    v2sweep = pg.make_sweep(v2_32, (H, W))
+    split = dict(sweep=time_ms(lambda: v2sweep(v2p, v2st), 10), node=time_ms(v2_node_term, 10))
+    split["node_share"] = split["node"] / split["sweep"]
+    split["segment_ms_per_sweep"] = seg_ms
+    record["legacy_v2"] = dict(split, make_problem_s=t_problem, upsample_cubic_s=t_up,
+                               upsample_cubic_GiB_above_held=up_peak / 2**30,
+                               card=smi("name,power.limit"))
+    log(f"  legacy_v2 on {record['legacy_v2']['card']}: {split['segment_ms_per_sweep']:.4f} ms a "
+        f"sweep (30-sweep segment from its solve's final state), one sweep {split['sweep']:.4f} "
+        f"ms of which the node term {split['node']:.4f} ms ({100 * split['node_share']:.1f}%); "
+        f"make_problem "
+        f"{t_problem:.3f} s, upsample_cubic (376x452 -> {tuple(v2p.I2_tab.shape)}) {t_up:.3f} s "
+        f"and {up_peak / 2**30:.3f} GiB at peak; solve peak {record['peak_GiB']['legacy_v2']:.3f}"
+        " GiB")
+
+    # ---- 18. one autodiff sweep at full width (no kernel runs)
+    log("phase autodiff sweep")
+    ad32 = dataclasses.replace(v2_32, gradient_estimator="autodiff")
+    adsweep = pg.make_sweep(ad32, (H, W))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for f in kfns.values():
+        f.launches = 0
+    ad_ms = time_ms(lambda: adsweep(v2p, v2st), 1)
+    ad1, adaux = adsweep(v2p, v2st)
+    torch.cuda.synchronize()
+    ad_peak = torch.cuda.max_memory_allocated() - base
+    by_path["legacy_v2 autodiff (one sweep)"] = counts = {k: f.launches for k, f in kfns.items()}
+    moved = max(float((getattr(ad1, f) - getattr(v2st, f)).abs().max())
+                for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"))
+    finite = all(bool(torch.isfinite(getattr(ad1, f)).all()) for f in ad1._fields)
+    require(finite and bool(torch.isfinite(adaux.energy)) and moved > 0,
+            f"legacy_v2 autodiff sweep: finite gradients and state (largest step {moved:.3e}), "
+            f"energy {float(adaux.energy):.6e}")
+    require(counts == {"K1": 0, "K2": 0, "K3": 0}, f"autodiff: launch counters {counts} all 0")
+    record["legacy_v2_autodiff"] = dict(sweep_ms=ad_ms, GiB_above_held=ad_peak / 2**30)
+    log(f"  legacy_v2 autodiff: one sweep {ad_ms:.3f} ms, peak {ad_peak / 2**30:.3f} GiB above "
+        "what the script held")
+    del v2p
 
     for k in kfns:
         record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}

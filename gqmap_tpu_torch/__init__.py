@@ -3,9 +3,11 @@
 The port of ``gqmap_tpu`` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
 It mirrors the JAX package's layout (``ops/``, ``kernels/``, ``models/``) and
 never imports JAX; the JAX package is the reference its tests compare with.
-So far it runs the ``GQMAPConfig.tpu_fast()`` main path and the
-reference-parity ``GQMAPConfig.full_mixture()`` exact path; the CUDA kernels
-(``csrc/*.cu``) are built with ``nvcc`` at first use on the GPU.
+It runs the ``GQMAPConfig.tpu_fast()`` main path, the reference-parity
+``GQMAPConfig.full_mixture()`` exact path, the super lattice and the legacy
+families (``legacy_v1`` .. ``v3``, ``blockmatch_v2`` with
+``models.blockmatch.block_matching_init``); the CUDA kernels (``csrc/*.cu``)
+are built with ``nvcc`` at first use on the GPU.
 """
 
 from .config import FlowRange, GQMAPConfig

@@ -29,14 +29,21 @@ def problem_from_numpy(fields: Mapping, device="cpu") -> Problem:
     """``fields``: ``I1``, ``I2_tab``, ``interior`` (arrays), ``rng`` (four
     floats: minu, maxu, minv, maxv) and ``cheb``, a mapping of the
     ``CosData`` fields ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``, or
-    None for the exact path's Problem."""
+    None for a Problem without a coefficient field; optionally ``init_flow``
+    (an (M, N, 2) array) and ``grad_tabs`` (two arrays), each None or absent
+    where the configuration has none."""
     c = fields["cheb"]
     cheb = None if c is None else CosData(
         coeffs=_t(c["coeffs"], device),
         **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
+    init_flow = fields.get("init_flow")
+    grad_tabs = fields.get("grad_tabs")
     return Problem(I1=_t(fields["I1"], device), I2_tab=_t(fields["I2_tab"], device),
                    interior=_t(fields["interior"], device).to(torch.bool),
-                   rng=FlowRange(*(float(x) for x in fields["rng"])), cheb=cheb)
+                   rng=FlowRange(*(float(x) for x in fields["rng"])), cheb=cheb,
+                   init_flow=None if init_flow is None else _t(init_flow, device),
+                   grad_tabs=None if grad_tabs is None else tuple(_t(g, device)
+                                                                  for g in grad_tabs))
 
 
 def state_from_numpy(fields: Mapping, device="cpu") -> GQState:

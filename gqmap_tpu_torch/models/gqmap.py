@@ -1,14 +1,25 @@
 """The GQMAP variational inference engine in PyTorch.
 
-Port of ``gqmap_tpu/models/gqmap.py`` for two paths, both with the Stein
-estimator, the softmax-natural alpha update and a MAP / logP / AEPE readout
-at it=1 and then every ``eval_every`` sweeps:
+Port of ``gqmap_tpu/models/gqmap.py``, with a MAP / logP / AEPE readout at
+it=1 and then every ``eval_every`` sweeps. Its two main paths, both with the
+Stein estimator and the softmax-natural alpha update:
 
 * ``GQMAPConfig.tpu_fast()``: the closed-form cosine data term (kernel K1)
   and reduced 1-D Charbonnier edge quadrature (kernel K2);
 * ``GQMAPConfig.full_mixture()``, the reference-parity exact path: the
   K^2-point bicubic node quadrature (plain torch, :func:`gq_accumulate`)
   and K^2-point tensor-rule Charbonnier edges (kernel K3).
+
+The legacy families run too (``legacy_v1`` .. ``v3``, ``blockmatch_v2``):
+the nearest lookup into a 2^rfc-x upsampled frame, the windowed data cost
+(``window_rg > 0``, also under the cosine term, whose coefficient field is
+then window-meaned), a quadratic node prior toward ``Problem.init_flow``,
+truncated-quadratic edges, and the Prewitt (chain-rule) and autodiff
+(``torch.autograd`` of the expected energy) gradient estimators. Kernels
+launch where the JAX package would run its Pallas kernels: K1 for the
+cosine term, K2 / K3 for Charbonnier edges, never under autodiff; the
+truncated-quadratic edges and the autodiff sums are the plain ones, as they
+are the JAX package's XLA ones.
 
 Both run at full resolution or on the super lattice (``patch > 1``: each
 flow node owns a ``patch x patch`` pixel block and its data term is the
@@ -27,8 +38,8 @@ Differences from the JAX engine, none of which changes a result:
   apply the reference's early stop (``it > its || mean|dmu| < tor``, ``:75``).
 * T, alpha and the iteration counter stay on the device; the kernels read
   them through pointers.
-* Configurations outside the slice raise ``NotImplementedError`` naming the
-  ROADMAP item that ports them (:func:`check_supported`).
+* ``data_term="chebyshev"`` (validation-only in the JAX package) raises
+  ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -46,13 +57,17 @@ from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch, neighbour_stacks)
-from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data
+from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data, cos_ei
 from ..ops.flowviz import flow_to_color
-from ..ops.gq import EDGE, NODE, finalize, gq_accumulate
-from ..ops.interp import pad_cubic
+from ..ops.gq import (EDGE, NODE, finalize, finalize_chain, gq_accumulate, gq_accumulate_chain,
+                      gq_accumulate_diff, gq_ei, gq_ei_diff)
+from ..ops.interp import pad_cubic, prewitt_gradients, upsample_cubic
 from ..ops.mixture import extract_map
-from ..ops.potentials import make_edge_pot, make_node_pot_bicubic
-from ..ops.quadrature import build_table
+from ..ops.potentials import (make_edge_pot, make_edge_pot_diff, make_edge_pot_truncquad,
+                              make_edge_pot_truncquad_diff, make_node_pot_bicubic,
+                              make_node_pot_nearest, make_node_pot_nearest_chain,
+                              make_node_pot_quadratic, make_node_pot_windowed)
+from ..ops.quadrature import build_table, build_table_1d
 from ..ops.simplex import project_simplex, softmax, softmax_natural_step
 
 __all__ = [
@@ -81,6 +96,8 @@ _EDGE_ROUTES = {
     "tensor": {"auto": edge_gq, "cuda": edge_gq_cuda, "torch": edge_gq_torch},
 }
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_E_CONST1 = 1.0 + math.log(2.0 * math.pi)  # entropy constant of a bivariate Gaussian
+_INV_PI = 1.0 / math.pi
 
 
 class GQState(NamedTuple):
@@ -102,10 +119,12 @@ class Problem(NamedTuple):
     """Per-run constants on the device."""
 
     I1: torch.Tensor       # (Mo, No) frame 1
-    I2_tab: torch.Tensor   # pad_cubic(I2)
+    I2_tab: torch.Tensor   # pad_cubic(I2), or upsample_cubic(I2, rfc) for data_term="nearest"
     interior: torch.Tensor # (M, N) bool: updatable lattice sites
     rng: FlowRange | None
     cheb: CosData | None = None  # cosine coefficient field (data_term="cosine")
+    init_flow: torch.Tensor | None = None  # (M, N, 2) prior flow (data_term="quadratic")
+    grad_tabs: tuple | None = None  # upsampled Prewitt fields (gradient_estimator="prewitt")
 
 
 class SweepAux(NamedTuple):
@@ -132,40 +151,41 @@ def _device(device) -> torch.device:
 
 
 def check_supported(cfg: GQMAPConfig) -> None:
-    """Raise for a configuration the port does not run yet.
+    """Raise for a configuration the port does not run.
 
-    Values the JAX package knows but the port has not ported raise
-    ``NotImplementedError`` naming the ROADMAP item; unknown values raise
-    ``ValueError``.
+    ``data_term="chebyshev"``, validation-only in the JAX package, raises
+    ``NotImplementedError`` (ROADMAP "Do not port"). Unknown values raise
+    ``ValueError``, and so does a kernel asked for (``"cuda"``) on a path
+    that no kernel computes: K1 computes only the cosine term's Stein sums,
+    K2 and K3 only Charbonnier edges, and the autodiff estimator
+    differentiates plain sums.
     """
-    legacy = "Queue 1 item 3, Slice B item 13"
-    todo = {
-        ("data_term", "nearest"): legacy,
-        ("data_term", "quadratic"): legacy,
-        ("data_term", "chebyshev"): "'Do not port' (validation-only in the JAX package)",
-        ("edge_kind", "truncquad"): legacy,
-        ("gradient_estimator", "autodiff"): legacy,
-        ("gradient_estimator", "prewitt"): legacy,
-    }
-    supported = {"data_term": ("cosine", "bicubic"), "edge_quad": ("reduced", "tensor"),
-                 "edge_kind": ("charbonnier",), "gradient_estimator": ("stein",),
-                 "sweep_order": ("jacobi", "redblack")}
+    supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic"),
+                 "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
+                 "gradient_estimator": ("stein", "autodiff", "prewitt"),
+                 "sweep_order": ("jacobi", "redblack"),
+                 "alpha_update": ("softmax_natural", "projsplx"),
+                 "node_kernel": tuple(_NODE_SUMS), "edge_kernel": tuple(_NODE_SUMS)}
     for field, ok in supported.items():
         value = getattr(cfg, field)
         if value in ok:
             continue
-        if (field, value) in todo:
-            raise NotImplementedError(
-                f"{field}={value!r} is not ported yet (ROADMAP {todo[field, value]})")
-        raise ValueError(f"unknown {field} {value!r}")
-    if cfg.window_rg != 0:
-        raise NotImplementedError(f"window_rg > 0 is not ported yet (ROADMAP {legacy})")
-    if cfg.alpha_update not in ("softmax_natural", "projsplx"):
-        raise ValueError(f"unknown alpha_update {cfg.alpha_update!r}")
-    for field in ("node_kernel", "edge_kernel"):
-        if getattr(cfg, field) not in _NODE_SUMS:
-            raise ValueError(f"unknown {field} {getattr(cfg, field)!r} "
-                             "(expected 'auto', 'cuda' or 'torch')")
+        if (field, value) == ("data_term", "chebyshev"):
+            raise NotImplementedError("data_term='chebyshev' is not ported (ROADMAP 'Do not "
+                                      "port': validation-only in the JAX package)")
+        raise ValueError(f"unknown {field} {value!r} (expected one of {ok})")
+    autodiff = cfg.gradient_estimator == "autodiff"
+    if cfg.node_kernel == "cuda" and (cfg.data_term != "cosine" or autodiff):
+        raise ValueError(
+            f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
+            f"Stein sums; with data_term={cfg.data_term!r} and gradient_estimator="
+            f"{cfg.gradient_estimator!r} the node term is plain torch (use 'auto' or 'torch')")
+    if cfg.edge_kernel == "cuda" and (cfg.edge_kind != "charbonnier" or autodiff):
+        raise ValueError(
+            f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges "
+            f"for the Stein and Prewitt estimators; with edge_kind={cfg.edge_kind!r} and "
+            f"gradient_estimator={cfg.gradient_estimator!r} the edge sums are plain torch "
+            "(use 'auto' or 'torch')")
     _dt(cfg)
 
 
@@ -184,28 +204,37 @@ def _interior_mask(M: int, N: int, border: int) -> np.ndarray:
 
 def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
                  device=None) -> Problem:
-    """Frames on the device; for ``data_term="cosine"`` also the cosine
-    coefficient field over the flow range widened by ``cheb_margin`` (the
-    exact path needs no flow range here)."""
+    """Frames on the device and the frame-2 table of the data term:
+    ``pad_cubic(I2)``, or ``upsample_cubic(I2, rfc)`` for ``"nearest"`` (and
+    its two upsampled Prewitt fields for the Prewitt estimator); for
+    ``data_term="cosine"`` also the cosine coefficient field over the flow
+    range widened by ``cheb_margin``. ``Problem.init_flow``, the prior of
+    ``data_term="quadratic"``, is the caller's to set
+    (``problem._replace(init_flow=...)``), as in the JAX package."""
     if cfg.window_rg > 0 and cfg.patch > 1:
         raise ValueError("window_rg and patch > 1 are mutually exclusive")
+    if cfg.gradient_estimator == "prewitt" and cfg.data_term != "nearest":
+        raise ValueError("gradient_estimator='prewitt' requires data_term='nearest'")
     check_supported(cfg)
     if cfg.data_term == "cosine" and flow_range is None:
         raise ValueError("data_term='cosine' needs flow_range at make_problem")
     dt, device = _dt(cfg), _device(device)
     I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device)
     I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device)
-    tab = pad_cubic(I2)
-    cheb = None
+    tab = upsample_cubic(I2, cfg.rfc) if cfg.data_term == "nearest" else pad_cubic(I2)
+    cheb = grad_tabs = None
     if cfg.data_term == "cosine":
         m = cfg.cheb_margin
         box = (flow_range.minu - m, flow_range.maxu + m,
                flow_range.minv - m, flow_range.maxv + m)
         cheb = build_cos_data(I1, tab, cfg.lambdad, cfg.epsn, box, A=cfg.cheb_p,
                               B=cfg.cheb_q, patch=cfg.patch, window_rg=cfg.window_rg)
+    if cfg.gradient_estimator == "prewitt":
+        grad_tabs = tuple(upsample_cubic(G, cfg.rfc) for G in prewitt_gradients(I2))
     M, N = flow_lattice_shape(cfg, I1.shape)
     interior = torch.as_tensor(_interior_mask(M, N, cfg.border), device=device)
-    return Problem(I1=I1, I2_tab=tab, interior=interior, rng=flow_range, cheb=cheb)
+    return Problem(I1=I1, I2_tab=tab, interior=interior, rng=flow_range, cheb=cheb,
+                   grad_tabs=grad_tabs)
 
 
 def init_state(cfg: GQMAPConfig, rng: FlowRange, image_shape, seed=None,
@@ -242,13 +271,42 @@ def init_state(cfg: GQMAPConfig, rng: FlowRange, image_shape, seed=None,
     return GQState(*(x.to(device) for x in state))
 
 
+def _node_f(cfg: GQMAPConfig, problem: Problem):
+    """The data term's potential ``f(x1, x2)`` (None for the closed-form
+    cosine term, which has no per-sample potential)."""
+    if cfg.data_term == "cosine":
+        return None
+    if cfg.data_term == "quadratic":
+        if problem.init_flow is None:
+            # the JAX package fails here too, with a TypeError: its solve(init_flow=...)
+            # also seeds only the means (ROADMAP Queue 3, F4)
+            raise ValueError("data_term='quadratic' needs Problem.init_flow, the (M, N, 2) "
+                             "prior flow: set it with problem._replace(init_flow=...); "
+                             "solve(init_flow=...) seeds only the means")
+        flow = torch.as_tensor(problem.init_flow, dtype=problem.I1.dtype,
+                               device=problem.I1.device)
+        return make_node_pot_quadratic(flow, cfg.quad_var)
+    if cfg.window_rg > 0:
+        return make_node_pot_windowed(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
+                                      cfg.window_rg, cfg.data_term, cfg.rfc)
+    if cfg.data_term == "bicubic":
+        return make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
+                                     patch=cfg.patch)
+    return make_node_pot_nearest(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn, cfg.rfc)
+
+
 def make_sweep(cfg: GQMAPConfig, image_shape):
     """Build the single-sweep update: ``sweep(problem, state) -> (state,
     SweepAux)``. ``sweep_order="jacobi"`` is one synchronous step over the
     interior; ``"redblack"`` is a step over the interior's red sites
     (``(row + col)`` even, in global lattice coordinates) and then one over
     its black sites from the red step's state, so every kernel launches twice
-    a sweep. Energy and the alpha gradient come from the second half."""
+    a sweep. Energy and the alpha gradient come from the second half.
+
+    The kernels' routes follow the JAX package's rule: K1 for the cosine
+    term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
+    estimators; truncated-quadratic edges and the autodiff estimator run
+    plain sums (:func:`check_supported` refuses ``"cuda"`` there)."""
     check_supported(cfg)
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -259,7 +317,18 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums = _NODE_SUMS[cfg.node_kernel]
     node_tab = build_table(cfg.K, cfg.quad_chunk, np.float64)
-    edge_route = _EDGE_ROUTES[cfg.edge_quad][cfg.edge_kernel]
+    tab1 = build_table_1d(k1, dtype=np.float64)
+    autodiff = cfg.gradient_estimator == "autodiff"
+    reduced = cfg.edge_quad == "reduced"
+    if cfg.edge_kind == "truncquad":
+        edge_f = make_edge_pot_truncquad(cfg.gama, cfg.dta)
+        edge_fd = make_edge_pot_truncquad_diff(cfg.gama, cfg.dta)
+    else:
+        edge_f = make_edge_pot(cfg.lambdas, cfg.epsn)
+        edge_fd = make_edge_pot_diff(cfg.lambdas, cfg.epsn)
+    # K2 or K3 where the JAX package runs its Pallas edge kernels, else the plain sums
+    edge_route = (_EDGE_ROUTES[cfg.edge_quad][cfg.edge_kernel]
+                  if cfg.edge_kind == "charbonnier" and not autodiff else None)
     red_np = (np.add.outer(np.arange(M), np.arange(N)) & 1) == 0
     red_on = {}  # device -> the red mask there
 
@@ -276,16 +345,60 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
+        node_f = _node_f(cfg, problem)
+
+        def autodiff_grads(st: GQState):
+            """The autodiff estimator (heir of ``legacy/gqmap_gpuV3.m``): every
+            parameter gradient, the neighbour scatter-back included, by
+            ``torch.autograd`` of the quadrature-estimated expected energy of
+            the full lattice (border-owned and wrap-around edges too: what the
+            reference's assembled gradients differentiate); the energy and
+            dalpha it reports are the interior's (``gqmap_gpu_mixture.m:36,48``)."""
+            leaves = [x.detach().requires_grad_() for x in
+                      (st.muu, st.muv, st.sigmau, st.sigmav, st.pn, st.rou)]
+            muu, muv, su, sv, pn, rou = leaves
+            with torch.enable_grad():
+                if cfg.data_term == "cosine":
+                    en = cos_ei(problem.cheb, muu, muv, su, sv, pn)
+                else:
+                    en = gq_ei(node_f, muu, muv, su, sv, pn, node_tab) * _INV_PI
+                da_n = en - 3.0 * T * (_E_CONST1 + torch.log(torch.sqrt(1.0 - pn * pn) * su * sv))
+                mu = torch.stack([muu, muv])
+                sg = torch.stack([su, sv])
+                u2e, o2e = neighbour_stacks(mu, sg)
+                if reduced:
+                    ei_e = gq_ei_diff(edge_fd, mu[None], u2e, sg[None], o2e, rou, tab1)
+                else:
+                    ei_e = gq_ei(edge_f, mu[None], u2e, sg[None], o2e, rou, node_tab)
+                He = _E_CONST1 + torch.log(torch.sqrt(1.0 - rou * rou) * sg[None] * o2e)
+                da_e = ei_e * _INV_PI + T * He
+                full = (a3 * da_n).sum() + (a3 * da_e).sum()
+                grads = torch.autograd.grad(full, leaves)
+            da_n, da_e = da_n.detach(), da_e.detach()
+            energy = (torch.where(interior, a3 * da_n, zero).sum()
+                      + torch.where(interior, a3 * da_e, zero).sum())
+            dalpha = (torch.where(interior, da_n, zero).sum((-2, -1))
+                      + torch.where(interior, da_e, zero).sum((0, 1, -2, -1)))
+            return (*grads, energy, dalpha)
+
         def compute_grads(st: GQState):
             """Every parameter gradient and the interior energy and dalpha at ``st``."""
+            if autodiff:
+                return autodiff_grads(st)
             # --- node term (gqmap_gpu_mixture.m:29, :87-116) ---
-            if cfg.data_term == "cosine":  # kernel K1
+            if cfg.gradient_estimator == "prewitt":
+                # quadrature of the chain-rule df/dx against the upsampled
+                # Prewitt fields (legacy/gqmap_gpuV3.m:91-125)
+                fg = make_node_pot_nearest_chain(problem.I1, problem.I2_tab, *problem.grad_tabs,
+                                                 cfg.lambdad, cfg.epsn, cfg.rfc)
+                raw_c = gq_accumulate_chain(fg, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
+                                            node_tab)
+                gn = finalize_chain(raw_c, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
+            elif cfg.data_term == "cosine":  # kernel K1
                 sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
                 gn = _finalize_mode_sums(problem.cheb, sums, st.muu, st.sigmau, st.sigmav,
                                          st.pn, a3, T, NODE)
-            else:  # the K^2-point bicubic quadrature, plain torch
-                node_f = make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad,
-                                               cfg.epsn, patch=cfg.patch)
+            else:  # the K^2-point node quadrature, plain torch
                 raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
                                       node_tab)
                 gn = finalize(raw_n, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
@@ -293,7 +406,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
             # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---
             mu = torch.stack([st.muu, st.muv])
             sg = torch.stack([st.sigmau, st.sigmav])
-            if cfg.edge_quad == "reduced":  # kernel K2, which reads the neighbour itself
+            if edge_route is None:  # truncated-quadratic edges, plain torch
+                u2e, o2e = neighbour_stacks(mu, sg)
+                if reduced:
+                    raw_e = gq_accumulate_diff(edge_fd, mu[None], u2e, sg[None], o2e, st.rou,
+                                               tab1)
+                else:
+                    raw_e = gq_accumulate(edge_f, mu[None], u2e, sg[None], o2e, st.rou, node_tab)
+                ge = finalize(raw_e, a3, sg[None], o2e, st.rou, T, EDGE)
+            elif reduced:  # kernel K2, which reads the neighbour itself
                 ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE)
             else:  # kernel K3
                 u2e, o2e = neighbour_stacks(mu, sg)
@@ -409,13 +530,17 @@ def make_map_fn(cfg: GQMAPConfig):
 
 def make_logp_fn(cfg: GQMAPConfig, image_shape):
     """True unnormalized log-posterior at a flow field (``:148-154``): the
-    bicubic data term (whatever ``data_term`` the sweep uses) plus the
-    Charbonnier edges, summed over the interior."""
+    sweep's data term as a point potential (the bicubic term in place of the
+    cosine series and the quadratic prior; nearest lookup, window mean and
+    patch sum as configured) plus the Charbonnier edges, whatever
+    ``edge_kind``, summed over the interior."""
     edge_f = make_edge_pot(cfg.lambdas, cfg.epsn)
+    lp_cfg = cfg
+    if cfg.data_term in ("cosine", "quadratic"):
+        lp_cfg = dataclasses.replace(cfg, data_term="bicubic")
 
     def logp(problem: Problem, flow: torch.Tensor) -> torch.Tensor:
-        node_f = make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
-                                       patch=cfg.patch)
+        node_f = _node_f(lp_cfg, problem)
         interior = problem.interior
         zero = torch.zeros((), dtype=flow.dtype, device=flow.device)
         npv = node_f(flow[..., 0], flow[..., 1])
@@ -478,7 +603,10 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
     end); with ``resume=True`` an existing checkpoint restarts the run where
     it stopped and returns what an unbroken run would. ``init_flow`` (an
     (M, N, 2) array) seeds the means of every component, clamped to the
-    flow range, over the random sigma init (``legacy/gqmap_gpuV2.m:13-14``).
+    flow range, over the random sigma init (``legacy/gqmap_gpuV2.m:13-14``);
+    as in the JAX package it does not set ``Problem.init_flow``, so
+    ``data_term="quadratic"`` (``legacy_v1``) runs through
+    ``make_problem(...)._replace(init_flow=...)`` and the segment runner.
     ``reset_at`` applies the reference's ``reset_para`` hook after that many
     sweeps: sigma re-widened to half the flow range, correlations zeroed,
     the iteration counter restarted, means kept (``legacy/gqmap_gpuV2.m:51-62``).

@@ -15,7 +15,11 @@ nonpositive terms): the expanded ``-(a^2 s1^2 + b^2 s2^2)/2 ± ab s1 s2 p``
 cancels catastrophically at the sigma clamp. The five parameter gradients
 are exact derivatives of the truncated expectation, built from six mode sums
 (:func:`_mode_sums`); hand-written CUDA kernel K1
-(``gqmap_tpu_torch/csrc/cosine_gq.cu``) computes the same six sums.
+(``gqmap_tpu_torch/csrc/cosine_gq.cu``) computes the same six sums. The
+expectation alone (:func:`cos_ei`) is differentiable by ``torch.autograd``
+for the autodiff estimator. For ``window_rg > 0`` the expansion is of the
+window-meaned potential of ``legacy/gqmap_cpuV2.m:29-33``, a box filter of
+each constant-shift sample (:func:`_box_mean`).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from .gq import GQGrads, finalize_closed
 from .interp import sample_bicubic
 
-__all__ = ["CosData", "build_cos_data", "cos_node_grads"]
+__all__ = ["CosData", "build_cos_data", "cos_ei", "cos_node_grads"]
 
 # Elements per chunk of constant-shift samples in build_cos_data: bounds the
 # 16-tap gather's temporaries (~250 B per element) to about 1 GB.
@@ -54,6 +58,22 @@ def _dct2_matrix(P: int) -> np.ndarray:
     return D
 
 
+def _box_mean(npt: torch.Tensor, rg: int) -> torch.Tensor:
+    """Overlapping-window mean of per-pixel cost fields ``(..., M, N)``,
+    edge-padded. The spectral build samples at global constant
+    displacements, so the windowed cost (mean over the (2rg+1)^2 window,
+    displacement shared across it) is exactly a box filter of each sampled
+    surface: the window costs nothing at sweep time."""
+    k = 2 * rg + 1
+    M, N = npt.shape[-2:]
+    p = torch.nn.functional.pad(npt.reshape(-1, M, N), (rg, rg, rg, rg), mode="replicate")
+    acc = torch.zeros_like(p[:, :M, :N])
+    for di in range(k):
+        for dj in range(k):
+            acc = acc + p[:, di:di + M, dj:dj + N]
+    return (acc / (k * k)).reshape(npt.shape)
+
+
 def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: float,
                    box, A: int = 96, B: int = 16, patch: int = 1,
                    window_rg: int = 0) -> CosData:
@@ -64,12 +84,9 @@ def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: flo
     ``VV = pad_cubic(I2)``), then takes a type-II DCT along both
     displacement axes. For ``patch > 1`` the expansion is of the
     patch-summed potential on the ``(Mo, No) / patch`` flow lattice
-    (``gqmap_gpuSuper_mix_entropy.m:94-105``). ``window_rg > 0`` is not
-    ported.
+    (``gqmap_gpuSuper_mix_entropy.m:94-105``); for ``window_rg > 0`` of the
+    window-meaned potential (:func:`_box_mean`).
     """
-    if window_rg != 0:
-        raise NotImplementedError("window_rg > 0 is not ported yet (ROADMAP Queue 1 item 3, "
-                                  "Slice B item 13)")
     Mo, No = I1.shape
     M, N = Mo // patch, No // patch
     dtype, device = I1.dtype, I1.device
@@ -89,6 +106,8 @@ def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: flo
         v = uv[i:i + chunk, 1].reshape(-1, 1, 1)
         Vq = sample_bicubic(VV, jj + u, ii + v)
         npt = -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+        if window_rg > 0:
+            npt = _box_mean(npt, window_rg)
         if patch > 1:
             npt = npt.reshape(-1, M, patch, N, patch).sum((-3, -1))
         vals[i:i + chunk] = npt
@@ -110,8 +129,9 @@ def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: flo
     return CosData(coeffs=coeffs, lo_u=lo_u, hi_u=hi_u, lo_v=lo_v, hi_v=hi_v)
 
 
-def _mode_sums(cos: CosData, u1, u2, o1, o2, p):
-    """The six mode sums over the (A, B) mode lattice (plain version of K1).
+def _mode_sums(cos: CosData, u1, u2, o1, o2, p, want_grads: bool = True):
+    """The six mode sums over the (A, B) mode lattice (plain version of K1),
+    or with ``want_grads=False`` the first alone, ``(E0,)``.
 
     All include the coefficient field:
       E0 = sum c (W-C- + W+C+)          A1 = sum c a (W-S- + W+S+)
@@ -155,22 +175,33 @@ def _mode_sums(cos: CosData, u1, u2, o1, o2, p):
         Wp = torch.exp(h - bf * (a * gp))
         cacb = ca * cb
         sasb = sa * sb
-        sacb = sa * cb
-        casb = ca * sb
         U = Wm * (cacb + sasb)    # W- C-
         V = Wp * (cacb - sasb)    # W+ C+
-        Pt = Wm * (sacb - casb)   # W- S-
-        Qt = Wp * (sacb + casb)   # W+ S+
         UV = cab * (U + V)
         sE = UV.sum(0)
         E0 = E0 + sE
-        A1 = A1 + a * (cab * (Pt + Qt)).sum(0)
-        A2 = A2 + (bf * cab * (Pt - Qt)).sum(0)
-        Aa = Aa + (a * a) * sE
-        Ab = Ab + (bf * bf * UV).sum(0)
-        Ax = Ax + a * (bf * cab * (U - V)).sum(0)
+        if want_grads:
+            sacb = sa * cb
+            casb = ca * sb
+            Pt = Wm * (sacb - casb)   # W- S-
+            Qt = Wp * (sacb + casb)   # W+ S+
+            A1 = A1 + a * (cab * (Pt + Qt)).sum(0)
+            A2 = A2 + (bf * cab * (Pt - Qt)).sum(0)
+            Aa = Aa + (a * a) * sE
+            Ab = Ab + (bf * bf * UV).sum(0)
+            Ax = Ax + a * (bf * cab * (U - V)).sum(0)
         ca, sa = ca * c1 - sa * sn1, sa * c1 + ca * sn1
+    if not want_grads:
+        return (E0,)
     return E0, A1, A2, Aa, Ab, Ax
+
+
+def cos_ei(cos: CosData, u1, u2, o1, o2, p) -> torch.Tensor:
+    """Closed-form E[npot] under the correlated bivariate Gaussian (the exact
+    expectation of the truncated cosine surface); differentiable, for the
+    autodiff estimator."""
+    (E0,) = _mode_sums(cos, u1, u2, o1, o2, p, want_grads=False)
+    return 0.5 * E0
 
 
 def _finalize_mode_sums(cos: CosData, sums, u1, o1, o2, p, a, T,

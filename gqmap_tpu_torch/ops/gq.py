@@ -1,11 +1,14 @@
 """Gauss-quadrature expectation gradients over bivariate Gaussians.
 
-Port of the Stein-estimator part of ``gqmap_tpu/ops/gq.py``: the raw-sum
-and finalized-gradient records, the K^2-point tensor rule
-(:func:`gq_accumulate`, the exact path's node term and the plain version of
-kernel K3), the difference-reduced 1-D rule for edge potentials
-(:func:`gq_accumulate_diff`), and the two finalizers that apply the alpha
-weighting and Bethe-entropy terms (``gqmap_gpu_mixture.m:87-146``).
+Port of ``gqmap_tpu/ops/gq.py``: the raw-sum and finalized-gradient records,
+the K^2-point tensor rule (:func:`gq_accumulate`, the exact path's node term
+and the plain version of kernel K3), the difference-reduced 1-D rule for edge
+potentials (:func:`gq_accumulate_diff`), and the finalizers that apply the
+alpha weighting and Bethe-entropy terms (``gqmap_gpu_mixture.m:87-146``);
+for the legacy estimators the chain-rule sums of the Prewitt family
+(:func:`gq_accumulate_chain`, :func:`finalize_chain`) and the bare
+expectations that ``torch.autograd`` differentiates in the autodiff family
+(:func:`gq_ei`, :func:`gq_ei_diff`).
 The raw sums are those of the tensor rule under the spectral whitening
 ``z_i = s XI + t XJ``, ``z_j = t XI + s XJ`` (see the JAX module docstring):
 
@@ -23,8 +26,9 @@ import torch
 
 from .quadrature import QuadTable, QuadTable1D
 
-__all__ = ["GQRaw", "GQGrads", "gq_accumulate", "gq_accumulate_diff", "finalize",
-           "finalize_closed", "NODE", "EDGE"]
+__all__ = ["GQRaw", "GQGrads", "GQChainRaw", "gq_accumulate", "gq_accumulate_diff",
+           "gq_accumulate_chain", "gq_ei", "gq_ei_diff", "gq_expectation", "finalize",
+           "finalize_chain", "finalize_closed", "NODE", "EDGE"]
 
 _SQRT2 = math.sqrt(2.0)
 _CONST1 = 1.0 + math.log(2.0 * math.pi)  # 1 + log(2*pi), entropy constant
@@ -58,6 +62,38 @@ class GQGrads(NamedTuple):
     E: torch.Tensor    # alpha-weighted energy contribution (== a*da)
 
 
+class GQChainRaw(NamedTuple):
+    """Raw sums of the chain-rule (image-gradient) estimator."""
+
+    Ei: torch.Tensor   # sum w f
+    A1: torch.Tensor   # sum w df/dx1
+    A2: torch.Tensor   # sum w df/dx2
+    Ci: torch.Tensor   # sum w df/dx1 XI
+    Cj: torch.Tensor   # sum w df/dx1 XJ
+    Di: torch.Tensor   # sum w df/dx2 XI
+    Dj: torch.Tensor   # sum w df/dx2 XJ
+
+
+def _whitened_steps(u1, u2, o1, o2, p, tab: QuadTable):
+    """Per table step: ``(row, zi, zj, x1, x2)``, the step's table row
+    ``(xi, xj, wiwj, xixj, x2a, x2m)`` (chunk axis leading), the points under
+    the spectral whitening and the sample positions ``x1 = sqrt2 o1 zi + u1``,
+    ``x2 = sqrt2 o2 zj + u2``."""
+    s = (torch.sqrt(1.0 + p) + torch.sqrt(1.0 - p)) * 0.5
+    t = (torch.sqrt(1.0 + p) - torch.sqrt(1.0 - p)) * 0.5
+    o1e = o1 * _SQRT2
+    o2e = o2 * _SQRT2
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    pts = (tab.chunk,) + (1,) * len(site)
+    table = torch.as_tensor(np.stack(tab), dtype=u1.dtype, device=u1.device)
+    for step in range(tab.steps):
+        row = tuple(r.reshape(pts) for r in table[:, step])
+        xi, xj = row[:2]
+        zi = s * xi + t * xj
+        zj = t * xi + s * xj
+        yield row, zi, zj, o1e * zi + u1, o2e * zj + u2
+
+
 def gq_accumulate(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2,
                   p, tab: QuadTable) -> GQRaw:
     """The six raw sums of ``f`` under the tensor rule, over every site.
@@ -67,19 +103,10 @@ def gq_accumulate(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u
     broadcast together to ``site_shape``. One step per table chunk, so peak
     memory is a chunk's worth of samples; pad points have zero weight.
     """
-    s = (torch.sqrt(1.0 + p) + torch.sqrt(1.0 - p)) * 0.5
-    t = (torch.sqrt(1.0 + p) - torch.sqrt(1.0 - p)) * 0.5
-    o1e = o1 * _SQRT2
-    o2e = o2 * _SQRT2
     site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
-    pts = (tab.chunk,) + (1,) * len(site)
-    table = torch.as_tensor(np.stack(tab), dtype=u1.dtype, device=u1.device)
     raw = GQRaw(*(torch.zeros(site, dtype=u1.dtype, device=u1.device) for _ in GQRaw._fields))
-    for step in range(tab.steps):
-        xi, xj, wiwj, xixj, x2a, x2m = (r.reshape(pts) for r in table[:, step])
-        zi = s * xi + t * xj
-        zj = t * xi + s * xj
-        fv = wiwj * f(o1e * zi + u1, o2e * zj + u2)
+    for (_, _, wiwj, xixj, x2a, x2m), zi, zj, x1, x2 in _whitened_steps(u1, u2, o1, o2, p, tab):
+        fv = wiwj * f(x1, x2)
         raw.Ei.add_(fv.sum(0))
         raw.Z1.add_((fv * zi).sum(0))
         raw.Z2.add_((fv * zj).sum(0))
@@ -128,6 +155,94 @@ def gq_accumulate_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o
         Sm=sq * torch.sqrt(1.0 - p * p) * h2s,
         Sxy=(0.5 * p * (o1e * o1e + o2e * o2e) - o1e * o2e) * h2s,
     )
+
+
+def gq_ei(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
+          tab: QuadTable) -> torch.Tensor:
+    """Ei only (the weighted sum of potential values): the autodiff
+    estimator's expectation, whose parameter gradients come from
+    ``torch.autograd`` rather than the Stein identities. Accumulated out of
+    place, one table step at a time, so autograd can differentiate it."""
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    out = torch.zeros(site, dtype=u1.dtype, device=u1.device)
+    for (_, _, wiwj, *_), _, _, x1, x2 in _whitened_steps(u1, u2, o1, o2, p, tab):
+        out = out + (wiwj * f(x1, x2)).sum(0)
+    return out
+
+
+def gq_accumulate_chain(fg: Callable, u1, u2, o1, o2, p, tab: QuadTable) -> GQChainRaw:
+    """The chain-rule estimator's sums over every site (``legacy/gqmap_gpuV3.m:91-125``).
+
+    ``fg(x1, x2) -> (f, df/dx1, df/dx2)`` gives the potential and its
+    spatial derivatives (from precomputed image-gradient fields); the
+    parameter gradients come from quadrature of ``df/dx``, not of the
+    integrand times a polynomial as in the Stein identities.
+    """
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    raw = [torch.zeros(site, dtype=u1.dtype, device=u1.device) for _ in GQChainRaw._fields]
+    for (xi, xj, wiwj, *_), _, _, x1, x2 in _whitened_steps(u1, u2, o1, o2, p, tab):
+        f, g1, g2 = fg(x1, x2)
+        w1 = wiwj * g1
+        w2 = wiwj * g2
+        for acc, term in zip(raw, (wiwj * f, w1, w2, w1 * xi, w1 * xj, w2 * xi, w2 * xj)):
+            acc.add_(term.sum(0))
+    return GQChainRaw(*raw)
+
+
+def finalize_chain(raw: GQChainRaw, a, o1, o2, p, T, entropy_scale: float) -> GQGrads:
+    """Chain-rule sums -> finalized gradients.
+
+    With ``x1 = sqrt2 o1 (s XI + t XJ) + u1`` (and symmetrically x2),
+
+        dE/du1 = E[df/dx1]
+        dE/do1 = sqrt2 E[df/dx1 (s XI + t XJ)]
+        dE/dp  = sqrt2 ( o1 E[df/dx1 (ds XI + dt XJ)] + o2 E[df/dx2 (dt XI + ds XJ)] ),
+        ds = (1/sqrt(1+p) - 1/sqrt(1-p))/4,   dt = (1/sqrt(1+p) + 1/sqrt(1-p))/4
+
+    (``legacy/gqmap_gpuV3.m:95-114``), then the alpha and Bethe-entropy
+    finalization of :func:`finalize_closed`.
+    """
+    inv_pi = 1.0 / math.pi
+    q = torch.sqrt(1.0 + p)
+    r = torch.sqrt(1.0 - p)
+    s = (q + r) * 0.5
+    t = (q - r) * 0.5
+    ds = (1.0 / q - 1.0 / r) * 0.25
+    dt = (1.0 / q + 1.0 / r) * 0.25
+    dEdo1 = _SQRT2 * (s * raw.Ci + t * raw.Cj) * inv_pi
+    dEdo2 = _SQRT2 * (t * raw.Di + s * raw.Dj) * inv_pi
+    dEdp = _SQRT2 * (o1 * (ds * raw.Ci + dt * raw.Cj) + o2 * (dt * raw.Di + ds * raw.Dj)) * inv_pi
+    return finalize_closed(raw.Ei * inv_pi, raw.A1 * inv_pi, raw.A2 * inv_pi, dEdo1, dEdo2,
+                           dEdp, a, o1, o2, p, T, entropy_scale)
+
+
+def gq_ei_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
+               tab: QuadTable1D) -> torch.Tensor:
+    """Ei by the 1-D difference-reduced rule, ``sqrt(pi) sum_k w_k gd(d_k)``:
+    the expectation of a difference potential ``f(x1, x2) = gd(x1 - x2)``
+    needs only the marginal ``d ~ N(u1 - u2, o1e^2 + o2e^2 - 2 p o1e o2e)``.
+    Differentiable in all five parameters (the autodiff estimator with
+    ``edge_quad="reduced"``)."""
+    o1e = o1 * _SQRT2
+    o2e = o2 * _SQRT2
+    delta = u1 - u2
+    c = o1e * o1e + o2e * o2e - 2.0 * p * o1e * o2e
+    c = torch.clamp(c, min=torch.finfo(c.dtype).tiny)
+    rc = torch.sqrt(c)
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    pts = (-1,) + (1,) * len(site)
+    h0 = torch.zeros(site, dtype=u1.dtype, device=u1.device)
+    for step in range(tab.steps):
+        x = torch.as_tensor(tab.x[step], dtype=c.dtype, device=c.device).reshape(pts)
+        w = torch.as_tensor(tab.w[step], dtype=c.dtype, device=c.device).reshape(pts)
+        h0 = h0 + (w * gd(delta + rc * x)).sum(0)
+    return math.sqrt(math.pi) * h0
+
+
+def gq_expectation(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2,
+                   p, tab: QuadTable) -> torch.Tensor:
+    """Plain quadrature estimate of ``E_q[f]``, ``Ei / pi`` (no gradients)."""
+    return gq_accumulate(f, u1, u2, o1, o2, p, tab).Ei / math.pi
 
 
 def finalize(raw: GQRaw, a, o1, o2, p, T, entropy_scale: float) -> GQGrads:

@@ -1,17 +1,19 @@
 """Bicubic (cubic-convolution) image sampling, MATLAB ``interp2('cubic')`` parity.
 
-Port of ``gqmap_tpu/ops/interp.py`` (``pad_cubic``, ``sample_bicubic``): the
-cubic-extrapolated padding of ``getVV`` (``gqmap_gpu_mixture.m:191-208``)
-and the 16-tap Keys-kernel sum of ``node_pot`` (``:156-179``), as one flat
-gather over a stacked tap-offset axis. Coordinates are MATLAB 1-based: a
-query at ``(Xq, Yq) == (j, i)`` returns ``V[i-1, j-1]`` exactly.
+Port of ``gqmap_tpu/ops/interp.py``: the cubic-extrapolated padding of
+``getVV`` (``gqmap_gpu_mixture.m:191-208``) and the 16-tap Keys-kernel sum of
+``node_pot`` (``:156-179``), as one flat gather over a stacked tap-offset
+axis; the 2^rfc-x grid refinement of the legacy nearest-lookup data term
+(:func:`upsample_cubic`) and the Prewitt gradients of its chain-rule
+estimator. Coordinates are MATLAB 1-based: a query at ``(Xq, Yq) == (j, i)``
+returns ``V[i-1, j-1]`` exactly.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["pad_cubic", "sample_bicubic"]
+__all__ = ["pad_cubic", "sample_bicubic", "interp2_cubic", "upsample_cubic", "prewitt_gradients"]
 
 
 def pad_cubic(V: torch.Tensor) -> torch.Tensor:
@@ -80,3 +82,63 @@ def sample_bicubic(VV: torch.Tensor, Xq, Yq) -> torch.Tensor:
             Vq = Vq + taps[k] * (wx[dc] * wy[dr])
             k += 1
     return Vq * 0.25
+
+
+def prewitt_gradients(V: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prewitt spatial gradients ``(Gx, Gy)`` of a 2-D image, ``Gx = dV/dx``
+    (x = columns), ``Gy = dV/dy`` (y = rows): a central difference along the
+    derivative axis smoothed by a 3-tap box along the other, normalised by
+    1/6 to a true derivative estimate; replicate-padded edges
+    (``legacy/gqmap_gpuV3.m:18``)."""
+    def pad(x, rows, cols):  # edge padding of a 2-D array
+        return torch.nn.functional.pad(x[None], (cols, cols, rows, rows), mode="replicate")[0]
+
+    Vp = pad(V, 1, 1)
+    box_rows = (Vp[:-2, 1:-1] + Vp[1:-1, 1:-1] + Vp[2:, 1:-1]) / 3.0
+    box_cols = (Vp[1:-1, :-2] + Vp[1:-1, 1:-1] + Vp[1:-1, 2:]) / 3.0
+    bp = pad(box_rows, 0, 1)
+    Gx = (bp[:, 2:] - bp[:, :-2]) / 2.0
+    bq = pad(box_cols, 1, 0)
+    Gy = (bq[2:, :] - bq[:-2, :]) / 2.0
+    return Gx, Gy
+
+
+def interp2_cubic(V: torch.Tensor, Xq, Yq) -> torch.Tensor:
+    """MATLAB ``interp2(V, Xq, Yq, 'cubic')`` for in-range 1-based queries."""
+    return sample_bicubic(pad_cubic(V), Xq, Yq)
+
+
+def upsample_cubic(V: torch.Tensor, rfc: int) -> torch.Tensor:
+    """MATLAB ``interp2(V, rfc, 'cubic')``: 2^rfc-x grid refinement.
+
+    Returns shape ``((M-1) 2^rfc + 1, (N-1) 2^rfc + 1)``, ``V`` interpolated
+    at spacing ``2^-rfc`` (``legacy/gqmap_gpuV2.m:10``). The refined grid is
+    regular, so the fractional offset cycles with period ``r = 2^rfc`` and
+    each pass is a separable phase stencil: per phase, a 4-tap weighted sum
+    of shifted rows (then columns). At 376x452 and rfc = 6 the result holds
+    6.9e8 values, so the horizontal pass accumulates its four taps in place
+    into the output (a strided ``(rows, N-1, r)`` view of it, ``addcmul_``
+    of broadcast operands) and the peak stays one table plus the small
+    vertically refined field; each tap is added in the JAX function's order.
+    """
+    M, N = V.shape
+    r = 1 << rfc
+    VV = pad_cubic(V)
+    fr = torch.arange(r, dtype=V.dtype, device=V.device) / r
+    w = [x * 0.5 for x in _cubic_weights(fr)]  # 4 x (r,)
+
+    # vertical pass: base row iy = 1 + i (i in 0..M-2) uses VV rows i .. i+3
+    rows = (M - 1) * r + 1
+    vert = V.new_zeros((rows, N + 2))
+    vv = vert[:-1].unflatten(0, (M - 1, r))  # (M-1, r, N+2)
+    for t in range(4):
+        vv.addcmul_(w[t][None, :, None], VV[t:t + M - 1, :][:, None, :])
+    vert[-1] = VV[M]  # the exact last row
+
+    # horizontal pass on the vertically refined field, into the output
+    out = V.new_zeros((rows, (N - 1) * r + 1))
+    hv = out[:, :-1].unflatten(1, (N - 1, r))  # (rows, N-1, r), strided
+    for t in range(4):
+        hv.addcmul_(w[t][None, None, :], vert[:, t:t + N - 1][:, :, None])
+    out[:, -1] = vert[:, N]  # the exact last column
+    return out

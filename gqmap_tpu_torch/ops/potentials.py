@@ -1,10 +1,24 @@
-"""MRF potentials of the main path (port of ``gqmap_tpu/ops/potentials.py``).
+"""MRF potentials (port of ``gqmap_tpu/ops/potentials.py``).
 
 Node (data) potential: Charbonnier brightness constancy against a bicubically
 sampled second frame (``gqmap_gpu_mixture.m:156-179``): the exact path's node
 term (through :func:`gqmap_tpu_torch.ops.gq.gq_accumulate`) and the logP
 readout. Edge (smoothness) potential: Charbonnier on the neighbour flow
 difference (``:180-182``), in its two-endpoint and difference forms.
+
+The legacy families:
+
+* ``make_node_pot_nearest`` -- nearest lookup into a 2^rfc-x cubic-upsampled
+  frame (``legacy/gqmap_gpuV2.m:10,107``), and its chain-rule form for the
+  Prewitt estimator (``legacy/gqmap_gpuV3.m:91-125``);
+* ``make_node_pot_windowed`` -- the mean cost over a (2rg+1)^2 window
+  (``legacy/gqmap_cpuV2.m:29-33``);
+* a quadratic node prior toward an init flow and truncated-quadratic edges
+  (``legacy/gqmap_cpu.m:22-23,43``).
+
+The lookup index ``floor((pos - 1) 2^rfc + 1.5)`` is clamped and flattened in
+int64 (the 376x452 table at rfc = 6 holds 6.9e8 values); positions stay far
+below 2^24, so float32 resolves every fine-grid cell.
 """
 
 from __future__ import annotations
@@ -15,7 +29,34 @@ import torch
 
 from .interp import sample_bicubic
 
-__all__ = ["make_node_pot_bicubic", "make_edge_pot", "make_edge_pot_diff"]
+__all__ = ["make_node_pot_bicubic", "make_node_pot_nearest", "make_node_pot_quadratic",
+           "make_node_pot_windowed", "make_node_pot_nearest_chain", "make_edge_pot",
+           "make_edge_pot_diff", "make_edge_pot_truncquad", "make_edge_pot_truncquad_diff"]
+
+
+def _grid(I1: torch.Tensor):
+    """1-based column (1, No) and row (Mo, 1) coordinates of the frame."""
+    Mo, No = I1.shape
+    jj = 1.0 + torch.arange(No, dtype=I1.dtype, device=I1.device).reshape(1, No)
+    ii = 1.0 + torch.arange(Mo, dtype=I1.dtype, device=I1.device).reshape(Mo, 1)
+    return jj, ii
+
+
+def _nearest_index(tab_shape, rfc: int):
+    """``index(Xq, Yq)``: the flat int64 index of the fine-grid cell nearest
+    to 1-based frame position ``(Xq, Yq)`` in a ``2^rfc``-x upsampled table,
+    ``round((pos - 1) 2^rfc + 1)`` clamped to the table (``legacy/gqmap_ctf.m:96``;
+    MATLAB's round is half away from zero and positions are >= ~1, so
+    ``floor(x + 0.5)``)."""
+    MM, NN = tab_shape
+    r = float(1 << rfc)
+
+    def index(Xq, Yq):
+        ci = torch.floor((Yq - 1.0) * r + 1.5).clamp(1, MM).long() - 1
+        cj = torch.floor((Xq - 1.0) * r + 1.5).clamp(1, NN).long() - 1
+        return ci * NN + cj
+
+    return index
 
 
 def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
@@ -30,8 +71,7 @@ def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
     repeated to full resolution, sampled, and summed back per block.
     """
     Mo, No = I1.shape
-    jj = 1.0 + torch.arange(No, dtype=I1.dtype, device=I1.device).reshape(1, No)
-    ii = 1.0 + torch.arange(Mo, dtype=I1.dtype, device=I1.device).reshape(Mo, 1)
+    jj, ii = _grid(I1)
 
     def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         if patch > 1:
@@ -43,6 +83,96 @@ def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
             lead = npt.shape[:-2]
             npt = npt.reshape(lead + (Mo // patch, patch, No // patch, patch)).sum((-3, -1))
         return npt
+
+    return f
+
+
+def make_node_pot_nearest(I1: torch.Tensor, I2_cont: torch.Tensor, lambdad: float,
+                          epsn: float, rfc: int) -> Callable:
+    """Legacy data term: nearest lookup into ``I2_cont = upsample_cubic(I2,
+    rfc)`` at the displaced position."""
+    jj, ii = _grid(I1)
+    index = _nearest_index(I2_cont.shape, rfc)
+    flat = I2_cont.reshape(-1)
+
+    def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        Vq = flat[index(jj + x1, ii + x2)]
+        return -lambdad * torch.sqrt(epsn + (I1 - Vq) ** 2)
+
+    return f
+
+
+def make_node_pot_windowed(I1: torch.Tensor, tab: torch.Tensor, lambdad: float, epsn: float,
+                           rg: int, base: str, rfc: int = 6) -> Callable:
+    """Overlapping-window data cost (``legacy/gqmap_cpuV2.m:29-33``,
+    ``gqmap_cpuV3.m:30-32``): the node potential at pixel (i, j) is the mean
+    Charbonnier cost over its (2rg+1)^2 window, the candidate displacement
+    shared across the window; frame 1 is edge-padded. ``base`` picks the
+    frame-2 sampler: ``"bicubic"`` (``tab = pad_cubic(I2)``) or ``"nearest"``
+    (``tab = upsample_cubic(I2, rfc)``)."""
+    Mo, No = I1.shape
+    W = (2 * rg + 1) ** 2
+    jj, ii = _grid(I1)
+    if base == "nearest":
+        index = _nearest_index(tab.shape, rfc)
+        flat = tab.reshape(-1)
+
+        def sample(Xq, Yq):
+            return flat[index(Xq, Yq)]
+    elif base == "bicubic":
+        def sample(Xq, Yq):
+            return sample_bicubic(tab, Xq, Yq)
+    else:
+        raise ValueError(f"windowed data term needs base bicubic|nearest, got {base!r}")
+    I1p = torch.nn.functional.pad(I1[None], (rg, rg, rg, rg), mode="replicate")[0]
+
+    def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        acc = None
+        for di in range(-rg, rg + 1):
+            for dj in range(-rg, rg + 1):
+                I1s = I1p[rg + di:rg + di + Mo, rg + dj:rg + dj + No]
+                term = torch.sqrt(epsn + (I1s - sample(jj + dj + x1, ii + di + x2)) ** 2)
+                acc = term if acc is None else acc + term
+        return -lambdad * acc / W
+
+    return f
+
+
+def make_node_pot_nearest_chain(I1: torch.Tensor, I2_cont: torch.Tensor,
+                                I2u_cont: torch.Tensor, I2v_cont: torch.Tensor,
+                                lambdad: float, epsn: float, rfc: int) -> Callable:
+    """Chain-rule node term of the Prewitt estimator family
+    (``legacy/gqmap_gpuV3.m:91-125``): ``fg(x1, x2) -> (f, df/dx1, df/dx2)``,
+    the spatial derivatives of frame 2 read from the upsampled Prewitt fields
+    at the same fine-grid cell as the value,
+
+        f = -lambda_d sqrt(eps + diff^2),   diff = I1 - I2(pos),
+        df/dx1 = lambda_d diff I2u(pos) / sqrt(eps + diff^2).
+    """
+    jj, ii = _grid(I1)
+    index = _nearest_index(I2_cont.shape, rfc)
+    flat, flatu, flatv = (x.reshape(-1) for x in (I2_cont, I2u_cont, I2v_cont))
+
+    def fg(x1: torch.Tensor, x2: torch.Tensor):
+        idx = index(jj + x1, ii + x2)
+        diff = I1 - flat[idx]
+        deno = torch.sqrt(epsn + diff * diff)
+        s = lambdad * diff / deno
+        return -lambdad * deno, s * flatu[idx], s * flatv[idx]
+
+    return fg
+
+
+def make_node_pot_quadratic(init_flow: torch.Tensor, var: float) -> Callable:
+    """Quadratic node potential toward a given ``(M, N, 2)`` init flow
+    (``legacy/gqmap_cpu.m:22-23``): ``-((fu-x1)^2 + (fv-x2)^2) / (2 var)``."""
+    fu = init_flow[..., 0]
+    fv = init_flow[..., 1]
+
+    def f(x1, x2):
+        du = fu - x1
+        dv = fv - x2
+        return -(du * du + dv * dv) * (1.0 / (2.0 * var))
 
     return f
 
@@ -61,5 +191,27 @@ def make_edge_pot_diff(lambdas: float, epsn: float) -> Callable:
 
     def gd(d: torch.Tensor) -> torch.Tensor:
         return -lambdas * torch.sqrt(epsn + d * d)
+
+    return gd
+
+
+def make_edge_pot_truncquad(gama: float, dta: float) -> Callable:
+    """Truncated-quadratic edge potential (``legacy/gqmap_cpu.m:42-44``):
+    ``-(x1-x2)^2 / (2 gama)``, zero where ``|x1-x2| > dta``."""
+
+    def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        d = x2 - x1
+        d = torch.where(d.abs() > dta, torch.zeros_like(d), d)
+        return -(d * d) / (2.0 * gama)
+
+    return f
+
+
+def make_edge_pot_truncquad_diff(gama: float, dta: float) -> Callable:
+    """Difference form of the truncated-quadratic edge potential."""
+
+    def gd(d: torch.Tensor) -> torch.Tensor:
+        d = torch.where(d.abs() > dta, torch.zeros_like(d), d)
+        return -(d * d) / (2.0 * gama)
 
     return gd

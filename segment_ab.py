@@ -1,0 +1,168 @@
+"""Time the port's host-bound sweep paths in two checkouts, in turns, on one card.
+
+    python segment_ab.py OLD_ROOT NEW_ROOT [--rounds 2]
+
+Each root is a checkout of the repository (for example the parent commit
+unpacked with ``git archive`` into a directory that ``.gitignore`` lists,
+and ``.``). The roots run in the order old, new, new, old, once a round, each
+in a process of its own that imports ``gqmap_tpu_torch`` from its root, so
+that the card's and the host's drift over the call falls on both alike. Each
+process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
+
+* ``tpu_fast``: a 300-sweep segment from the random init and one from a
+  converged state (sigma 0.05), after 10 sweeps of warm-up (CUDA events);
+* ``tpu_fast`` red-black: a 100-sweep segment;
+* 50 ``tpu_fast`` sweeps without the segment's per-sweep flag read: the
+  host's time to enqueue them and the time until the card has run them;
+* the torch operators one ``tpu_fast`` and one red-black sweep dispatch
+  (the kernels themselves, launched through ``ctypes``, are not among them):
+  equal counts mean the same glue work on the card and the host.
+
+Each time is the median of 3 repeats within the process. Prints one line a
+process, then, as its last line, a JSON summary (each metric's values by
+root, in run order). Needs a Hopper card; the kernels build into each
+root's own ``gqmap_tpu_torch/_build``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+H, W = 376, 452
+FR = (-10.0, 2.0, -2.0, 2.0)
+
+
+def synthetic_pair():
+    """The pair of ``chip_smoke.py``: smoothed noise, frame 2 shifted one pixel."""
+    import numpy as np
+
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (H, W))
+    k = np.ones(5) / 5
+    I1 = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 0, I1)
+    I1 = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 1, I1)
+    return I1, np.roll(I1, 1, axis=1)
+
+
+def one(root: str) -> dict:
+    """Every timing of one checkout, in this process."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import gqmap_tpu_torch
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    where = os.path.dirname(os.path.dirname(os.path.abspath(gqmap_tpu_torch.__file__)))
+    if where != os.path.abspath(root):
+        raise SystemExit(f"imported gqmap_tpu_torch from {where}, not {root}")
+    dev = torch.device("cuda", 0)
+    I1, I2 = synthetic_pair()
+    fr = FlowRange(*FR)
+    cfg = GQMAPConfig.tpu_fast(its=900, eval_every=300, tor=0.0)
+    problem = pg.make_problem(cfg, I1, I2, fr, dev)
+    st0 = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+    conv = st0._replace(sigmau=torch.full_like(st0.sigmau, 0.05),
+                        sigmav=torch.full_like(st0.sigmav, 0.05))
+
+    def segment_ms(c, st, n):
+        seg = pg.make_segment_runner(c, (H, W))
+        st, *_ = seg(problem, st, 10)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            done = seg(problem, st, n)[1]
+            t1.record()
+            torch.cuda.synchronize()
+            if done != n:
+                raise SystemExit(f"segment ran {done} sweeps ({n} asked)")
+            times.append(t0.elapsed_time(t1) / n)
+        return float(np.median(times))
+
+    out = dict(root=root, tpu_fast_from_init_ms=segment_ms(cfg, st0, 300),
+               tpu_fast_converged_ms=segment_ms(cfg, conv, 300),
+               redblack_ms=segment_ms(dataclasses.replace(cfg, sweep_order="redblack"), st0, 100))
+    sweep = pg.make_sweep(cfg, (H, W))
+    host, card = [], []
+    for _ in range(3):
+        st = st0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            st, _ = sweep(problem, st)
+        host.append((time.perf_counter() - t) / 50 * 1e3)
+        torch.cuda.synchronize()
+        card.append((time.perf_counter() - t) / 50 * 1e3)
+    out.update(host_enqueue_ms=float(np.median(host)), card_done_ms=float(np.median(card)))
+    for name, order in (("tpu_fast", "jacobi"), ("redblack", "redblack")):
+        sw = pg.make_sweep(dataclasses.replace(cfg, sweep_order=order), (H, W))
+        with _op_count_mode() as count:
+            sw(problem, st0)
+        out[f"{name}_ops_per_sweep"] = count.n
+    return out
+
+
+def _op_count_mode():
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        """Counts the torch operators dispatched inside it."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return OpCount()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(one(args.one)), flush=True)
+        return
+    if len(args.roots) != 2:
+        ap.error("give two roots: OLD_ROOT NEW_ROOT")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("segment_ab: no CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    old, new = args.roots
+    runs = []
+    for _ in range(args.rounds):
+        for root in (old, new, new, old):
+            p = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+                               capture_output=True, text=True, timeout=1200)
+            if p.returncode != 0:
+                print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+                raise SystemExit(f"segment_ab: the run of {root} failed ({p.returncode})")
+            runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+            print(json.dumps(runs[-1]), flush=True)
+    metrics = [k for k in runs[0] if k != "root"]
+    summary = dict(card=card, order=[r["root"] for r in runs],
+                   by_root={root: {m: [r[m] for r in runs if r["root"] == root] for m in metrics}
+                            for root in (old, new)})
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()

@@ -51,23 +51,44 @@ def test_port_imports_without_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
 
 
-LEGACY = "Queue 1 item 3, Slice B item 13"
-
-
-@pytest.mark.parametrize("override, item", [
-    (dict(data_term="nearest"), LEGACY),
-    (dict(data_term="quadratic"), LEGACY),
-    (dict(data_term="chebyshev"), "Do not port"),
-    (dict(edge_quad="tensor", edge_kind="truncquad"), LEGACY),
-    (dict(edge_kind="truncquad"), LEGACY),
-    (dict(gradient_estimator="autodiff"), LEGACY),
-    (dict(gradient_estimator="prewitt"), LEGACY),
-    (dict(window_rg=2), LEGACY),
-])
-def test_unported_config_names_its_roadmap_item(override, item):
-    cfg = gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override)
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_config_names_its_roadmap_item():
+    # chebyshev is validation-only in the JAX package: "Do not port"
+    cfg = gqmap_tpu_torch.GQMAPConfig.tpu_fast(data_term="chebyshev")
+    with pytest.raises(NotImplementedError, match="Do not port"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("override", [
+    dict(data_term="nearest"),
+    dict(data_term="quadratic"),
+    dict(edge_quad="tensor", edge_kind="truncquad"),
+    dict(edge_kind="truncquad"),
+    dict(gradient_estimator="autodiff"),
+    dict(gradient_estimator="prewitt"),
+    dict(window_rg=2),
+])
+def test_legacy_settings_are_supported(override):
+    # the legacy families' settings are ported (ROADMAP Queue 1 item 3)
+    check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
+
+
+@pytest.mark.parametrize("override", [
+    dict(edge_kernel="cuda", edge_kind="truncquad"),
+    dict(edge_kernel="cuda", edge_kind="truncquad", edge_quad="tensor"),
+    dict(edge_kernel="cuda", gradient_estimator="autodiff"),
+    dict(node_kernel="cuda", gradient_estimator="autodiff"),
+    dict(node_kernel="cuda", data_term="nearest"),
+])
+def test_cuda_route_on_a_path_no_kernel_computes_raises(override):
+    # K1 computes only the cosine term's Stein sums, K2 and K3 only
+    # Charbonnier edges, and autodiff differentiates plain sums: "cuda" there
+    # raises instead of running the plain path
+    with pytest.raises(ValueError, match="kernel K"):
+        check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
+    # "auto" and "torch" run the plain sums there
+    for route in ("auto", "torch"):
+        kw = {k: (route if k.endswith("_kernel") else v) for k, v in override.items()}
+        check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**kw))
 
 
 @pytest.mark.parametrize("override", [dict(data_term="bicubic", patch=4),
@@ -91,7 +112,8 @@ def test_flagship_and_kernel_routes_are_supported():
         check_supported(gqmap_tpu_torch.GQMAPConfig.full_mixture(edge_kernel=route))
     check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(alpha_update="projsplx",
                                                          dtype="float64"))
-    for preset in ("super_entropy", "tpu_fast_super"):
+    for preset in ("super_entropy", "tpu_fast_super", "legacy_v1", "legacy_v2", "legacy_v3",
+                   "blockmatch_v2", "ctf_level"):
         for order in ("jacobi", "redblack"):
             check_supported(getattr(gqmap_tpu_torch.GQMAPConfig, preset)(sweep_order=order))
 

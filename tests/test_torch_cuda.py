@@ -119,9 +119,10 @@ def _clamp_rho(g, L, M, N):
 
 
 # (rule size, generic): the specialised instances, the generic one at a
-# size of its own and at the main path's size
+# size of its own and at the main path's size; K3 also at blockmatch_v2's
+# K = 17 (289 points, generic)
 K2_RULES = [(21, False), (25, False), (13, False), (21, True)]
-K3_RULES = [(9, False), (11, False), (5, False), (9, True)]
+K3_RULES = [(9, False), (11, False), (5, False), (9, True), (17, False)]
 # M N not a multiple of the kernels' 256-site blocks, and one that is; K2
 # finds a site's row without a division and reads its neighbours with the
 # wrap at the last row and column; (3, 94, 113) is the super lattice at
@@ -282,3 +283,82 @@ def test_library_for_accepts_this_card(dev):
     # the card the tests run on is a Hopper card: the capability check passes
     assert torch.cuda.get_device_capability(dev) == build.CAPABILITY
     assert build.library_for(dev) is build.load_library()
+
+
+@pytest.mark.parametrize("probe", ["warm", "clamp"])
+@pytest.mark.parametrize("K", [9, 17])
+def test_edge_gq_kernel_on_l1_lattice(dev, K, probe):
+    # the legacy presets' L = 1 edge lattice: legacy_v2 and legacy_v3 at K = 9
+    # (specialised), blockmatch_v2 at K = 17 (generic); f64 and f32 against
+    # the plain version, and at the |rho| clamp f32 against the f64 golden
+    g = torch.Generator().manual_seed(K)
+    L, M, N = 1, 47, 57
+    mu, sg = _edge_state(g, L, M, N)
+    rou = (0.9 * (2 * torch.rand((2, 2, L, M, N), generator=g, dtype=torch.float64) - 1)
+           if probe == "warm" else _clamp_rho(g, L, M, N))
+    host = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou)
+    rest = (K, 1.7, 1e-4)
+    for dtype in (torch.float64, torch.float32):
+        args = [x.to(dev, dtype) for x in host]
+        got = edge_gq.edge_gq_cuda(*args, *rest)
+        plain = edge_gq.edge_gq_torch(*args, *rest)
+        if dtype == torch.float32 and probe == "clamp":
+            _ratio_to_golden(got, plain, edge_gq.edge_gq_torch(*(x.double() for x in args), *rest))
+        else:
+            for name in plain._fields:
+                _close(getattr(got, name), getattr(plain, name), dtype, name)
+
+
+@pytest.mark.parametrize("override", [dict(edge_kind="truncquad"),
+                                      dict(gradient_estimator="autodiff")])
+def test_cuda_edge_route_without_a_kernel_raises(dev, override):
+    # no kernel computes truncated-quadratic edges or the autodiff sums:
+    # edge_kernel="cuda" raises rather than run the plain path
+    cfg = GQMAPConfig.legacy_v2(edge_kernel="cuda", **override)
+    with pytest.raises(ValueError, match="kernel K2 or K3"):
+        pg.make_sweep(cfg, (24, 40))
+    with pytest.raises(ValueError, match="kernel K1"):
+        pg.make_sweep(GQMAPConfig.tpu_fast(node_kernel="cuda", gradient_estimator="autodiff"),
+                      (24, 40))
+
+
+@pytest.mark.parametrize("preset, kw, want", [
+    ("legacy_v2", {}, (0, 0, 3)), ("legacy_v3", {}, (0, 0, 3)),
+    ("blockmatch_v2", {}, (0, 0, 3)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0)),
+    ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8), (0, 0, 0)),
+])
+def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
+    # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
+    # blockmatch_v2 at K = 17), K1 and K2 on the windowed cosine term, none
+    # under autodiff
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    I2 = np.roll(I1, 1, axis=1)
+    cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3, **kw)
+    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                  edge_gq.edge_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches)
+    res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all()
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == want
+
+
+def test_legacy_v1_segment_launches_no_kernel(dev):
+    # truncated-quadratic edges and the quadratic prior: plain sums only
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    cfg = GQMAPConfig.legacy_v1(its=3)
+    fr = FlowRange(-2, 2, -2, 2)
+    flow = np.zeros((24, 40, 2))
+    problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)._replace(
+        init_flow=torch.as_tensor(flow, device=dev))
+    n = [k.launches for k in (cosine_gq.cos_mode_sums_cuda,
+                              edge_reduced_gq.edge_reduced_grads_cuda, edge_gq.edge_gq_cuda)]
+    st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
+        problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
+    assert done == 3 and bool(torch.isfinite(eb[:3]).all())
+    assert [k.launches for k in (cosine_gq.cos_mode_sums_cuda,
+                                 edge_reduced_gq.edge_reduced_grads_cuda,
+                                 edge_gq.edge_gq_cuda)] == n

@@ -50,7 +50,7 @@ def test_plain_edge_sums_match_jax(ref, rho, K):
         assert_close(getattr(got, name), w, 0, 1e-10 * np.abs(w).max(), name)
 
 
-@pytest.mark.parametrize("K", [3, 9])
+@pytest.mark.parametrize("K", [3, 9, 17])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_pack_table_matches_jax(K, dtype):
     # the kernel's paired rule is the JAX kernel's (6, K^2) table folded into
@@ -73,6 +73,21 @@ def test_pack_table_matches_jax(K, dtype):
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("rho", list(RHO))
+def test_plain_edge_sums_at_k17_match_pallas_interpret(rho):
+    # blockmatch_v2's K = 17 (289 points, the kernel's generic instance) on
+    # its L = 1 lattice
+    mu, sg, u2e, o2e, rou = _edge_inputs(rho, L=1, M=4, N=6, seed=17)
+    j = [jnp.asarray(a) for a in (mu, sg, u2e, o2e, rou)]
+    want = edge_gq_pallas(j[0][None], j[2], j[1][None], j[3], j[4], 17, 1.7, 1e-4, rows=8,
+                          interpret=True)
+    got = edge_gq.edge_gq_torch(*map(t, (mu, sg, u2e, o2e, rou)), 17, 1.7, 1e-4)
+    for name in want._fields:
+        w = np.asarray(getattr(want, name))
+        assert getattr(got, name).shape == w.shape == (2, 2, 1, 4, 6)
+        assert_close(getattr(got, name), w, 0, 1e-10 * np.abs(w).max(), name)
+
+
 def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
     args = (*map(t, _edge_inputs("warm", L=2, M=4, N=5, seed=2)), 5, 5.0, 1e-6)
     got = edge_gq.edge_gq(*args)
@@ -85,7 +100,7 @@ def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
     assert edge_gq.edge_gq_cuda.launches == 0
 
 
-@pytest.mark.parametrize("K", [5, 9, 11])
+@pytest.mark.parametrize("K", [5, 9, 11, 17])
 def test_pair_order_keeps_sm_partial_sums_small(K):
     # each pair is followed by its transpose partner, whose XI^2 - XJ^2
     # weight is the opposite: the Sm accumulator's partial sums of the
