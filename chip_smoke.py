@@ -112,13 +112,47 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    seconds and memory to build its ``upsample_cubic`` table, and its solve's
    peak device memory;
 18. one full-width ``legacy_v2(gradient_estimator="autodiff")`` sweep: a
-   finite state and energy, no kernel launched, its peak memory.
+   finite state and energy, no kernel launched, its peak memory;
+19. the command line (``gqmap_tpu_torch.cli.main.main``, in this process,
+   every launch counter set to 0 before each call) on a synthetic dataset
+   written under ``GQMAP_DATA``: two 376x452 sequences (smoothed noise,
+   frame 2 warped by u = 1.5 + 1.5 cos(2 pi y / H), v = 0; GT in
+   ``flow10.flo`` with five unknown pixels; the frames as
+   ``preprocessed/<Name>.mat`` and, where ``imageio`` imports, as PNGs; the
+   import test's result is printed): ``run --preprocessed --preset
+   tpu_fast`` (600 sweeps: K1 and K2 once a sweep, K3 not at all, its best
+   AEPE bit for bit a direct ``solve``'s and below the AEPE at it = 1),
+   ``run --preprocessed`` (``full_mixture``, 300 sweeps: K3 once a sweep),
+   ``run --devices 2`` (``NotImplementedError``), ``run --out`` (with
+   ``imageio``: ``metrics.jsonl``, ``.npz``, a ``.flo`` equal to the MAP in
+   f32 and one PNG a readout; without it: ``ImportError``);
+20. the coarse-to-fine pyramid, ``solve_coarse_to_fine`` with
+   ``ctf_level(its=300, eval_every=300)`` (scales 1/8 .. 1): K3 launched
+   once a sweep of every level, K1 and K2 not at all, every level's energy
+   finite and rising over its solve; the final AEPE is printed beside the
+   zero flow's, not checked against it: the reference's pyramid compounds
+   each level's error and ends above it (ROADMAP Queue 3, P5); each level's
+   and the whole's time, the peak memory, the finest level's ms a sweep (a 30-sweep
+   segment) and its split into the plain bicubic node term, K3 and the
+   rest; with ``imageio`` also the ``ctf`` subcommand on the PNG frames;
+21. ``sweep_lambdas`` over three values of lambda_s with ``tpu_fast(its=300)``
+   (each best AEPE bit for bit a direct ``solve``'s) and the suite loop over
+   both sequences; with ``imageio`` also the ``suite`` and ``sweep``
+   subcommands against direct solves on the PNG frames;
+22. ``structure_texture`` at 376x452 in float64 on the card within 1e-10 of
+   its CPU result (of the image's range), with both times;
+23. K3's K = 11 instance (``ctf_level``) on the L = 1 edge lattice at
+   376x452 and at the pyramid's coarsest 47x57, from an init, a warm and a
+   clamp state, float64 and float32 against the plain version and at the
+   clamp in float32 against the f64 golden (ratio rule), with its time,
+   plain time and bound.
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
-K3; ``launches_by_path`` every path's; ``super`` the checks, times and bounds
-on the super lattice, ``legacy`` K3's on the L = 1 lattice and ``windowed``
-K1's on the window-meaned field), and last
+K3; ``launches_by_path`` every path's, the drivers' and ``ctf`` included;
+``super`` the checks, times and bounds on the super lattice, ``legacy``
+K3's on the L = 1 lattice (K = 9, 17, and ``ctf_level``'s K = 11 at both
+sizes) and ``windowed`` K1's on the window-meaned field), and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line; so does a machine without a CUDA card.
 """
@@ -167,12 +201,16 @@ def require(ok, what):
         FAILURES.append(what)
 
 
-def synthetic_pair():
-    r = np.random.default_rng(0)
-    I1 = r.uniform(0, 255, (H, W))
+def smoothed_noise(r, H=H, W=W):
+    """Uniform noise in [0, 255] under a 5x5 box filter."""
+    img = r.uniform(0, 255, (H, W))
     k = np.ones(5) / 5
-    I1 = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 0, I1)
-    I1 = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 1, I1)
+    img = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 0, img)
+    return np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 1, img)
+
+
+def synthetic_pair():
+    I1 = smoothed_noise(np.random.default_rng(0))
     I2 = np.roll(I1, 1, axis=1)
     gt = np.zeros((H, W, 2))
     gt[..., 0] = 1.0
@@ -342,6 +380,370 @@ def three_way_sweep(label, gold, plain32, kern32, probs, states, cast):
                 f"{label}sweep {sname}: kernel f32 error {errs['kernel f32']:.3e} <= 2 x plain "
                 f"f32 error {errs['plain f32']:.3e}")
 
+
+def l1_probes(st, gen):
+    """An init state ``st`` (float64, L = 1) and two probes drawn from it
+    with ``gen``: warm (|rho| <= 0.9, sigma per site in [0.01, 3]) and
+    clamp (|rho| = 0.99999, the corr_tor corner, sigma as warm)."""
+
+    def rand(lo, hi, like):
+        return (lo + (hi - lo) * torch.rand(like.shape, generator=gen, dtype=torch.float64)
+                ).to(like.device)
+
+    return {
+        "init": st,
+        "warm": st._replace(rou=rand(-0.9, 0.9, st.rou), sigmau=rand(0.01, 3, st.sigmau),
+                            sigmav=rand(0.01, 3, st.sigmav)),
+        "clamp": st._replace(rou=0.99999 * torch.where(rand(0, 1, st.rou) < 0.5, -1.0, 1.0),
+                             sigmau=rand(0.01, 3, st.sigmau), sigmav=rand(0.01, 3, st.sigmav)),
+    }
+
+
+def k3_on_l1(label, cfg, probes, root_rate):
+    """K3 through ``cfg``'s rule on the L = 1 edge lattice of each probe, in
+    float64 and float32 against its plain version, and at the clamp in
+    float32 against the f64 golden (ratio rule); returns the warm float32
+    probe's record: error, device time, plain time and bound."""
+    from gqmap_tpu_torch.kernels import edge_gq, edge_reduced_gq
+
+    K = cfg.K
+    rule = f"K={K} {'specialised' if K in edge_gq.SPECIALISED else 'generic'}"
+    for dtype in (torch.float64, torch.float32):
+        for sname, st in probes.items():
+            mu = torch.stack([st.muu, st.muv]).to(dtype)
+            sg = torch.stack([st.sigmau, st.sigmav]).to(dtype)
+            rou = st.rou.to(dtype)
+            args = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou, K, cfg.lambdas,
+                    cfg.epsn)
+            got, want = edge_gq.edge_gq_cuda(*args), edge_gq.edge_gq_torch(*args)
+            a, r, ok = compare(got, want, dtype)
+            shape = tuple(rou.shape)
+            require(ok, f"K3 {label} {shape} {rule} {str(dtype)[6:]} {sname}: max abs err "
+                        f"{a:.3e}, rel {r:.3e}")
+            if sname == "clamp" and dtype == torch.float32:
+                gold = edge_gq.edge_gq_torch(*(x.double() if isinstance(x, torch.Tensor) else x
+                                               for x in args))
+                ek, ep = (max(float((x.double() - y).abs().max() / y.abs().max())
+                              for x, y in zip(xs, gold)) for xs in (got, want))
+                require(ek <= 2.0 * ep + 1e-6, f"K3 {label} {shape} {rule} float32 clamp: error "
+                                               f"vs f64 golden kernel {ek:.3e} <= 2 x plain "
+                                               f"{ep:.3e} + 1e-6")
+            if sname != "warm" or dtype != torch.float32:
+                continue
+            ms = kernel_ms(lambda: edge_gq.edge_gq_cuda(*args))
+            n_el = rou.numel()
+            nbytes = sum(x.nbytes for x in (mu, sg, rou)) + 6 * n_el * 4
+            flops = n_el * (K * K // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
+                            + FLOPS["K3 element"])
+            rec = dict(shape=list(shape), rule=rule, max_abs_err=a, ms=ms[0], ms_min=ms[1],
+                       plain_ms=time_ms(lambda: edge_gq.edge_gq_torch(*args), 3),
+                       library_ms=None, **bound(nbytes, flops, n_el * K * K, root_rate))
+            log(f"  K3 {label} {shape} {rule} f32 on {smi('name,power.limit,clocks.sm')} "
+                f"(median, min) {ms} ms; plain {rec['plain_ms']:.4f} ms; bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_terms_ms']})")
+    return rec
+
+
+def flow_sequence(seed, dev, H=H, W=W):
+    """An H x W pair with a smooth, non-constant flow: smoothed noise as
+    frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
+    v = 0 (``tests/test_pipeline.py:46-67``; a constant GT gives a degenerate
+    clamp box), and the GT with five unknown (1e10) pixels."""
+    from gqmap_tpu_torch.ops.interp import fill_missing_nearest, interp2_linear
+
+    r = np.random.default_rng(seed)
+    I1 = smoothed_noise(r, H, W)
+    yy, xx = np.mgrid[0:H, 0:W].astype(float)
+    u = 1.5 + 1.5 * np.cos(2 * np.pi * yy / H)
+    I2 = fill_missing_nearest(interp2_linear(torch.as_tensor(I1, device=dev), (xx + 1) - u,
+                                             yy + 1)).cpu().numpy()
+    gt = np.stack([u, np.zeros_like(u)], -1).astype(np.float32)
+    gt[r.integers(2, H - 2, 5), r.integers(2, W - 2, 5)] = 1e10
+    return I1, I2, gt
+
+
+def drivers(dev, record, by_path, kfns, root_rate, segment_ms):
+    """Phases 19-23: the command line on a synthetic dataset, the
+    coarse-to-fine pyramid, the lambda sweep and the suite loop, the
+    structure-texture loop, and K3 at K = 11 on the L = 1 lattice. Every
+    launch counter is set to 0 just before each driven run and read just
+    after it."""
+    import contextlib
+    import io
+
+    import scipy.io
+
+    from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
+    from gqmap_tpu_torch.cli import main as cli
+    from gqmap_tpu_torch.io.dataset import load_sequence
+    from gqmap_tpu_torch.io.flo import read_flo, write_flo
+    from gqmap_tpu_torch.io.preprocess import structure_texture
+    from gqmap_tpu_torch.kernels import build, edge_gq, edge_reduced_gq
+    from gqmap_tpu_torch.models import ctf as pctf
+    from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.models.param_sweep import sweep_lambdas
+    from gqmap_tpu_torch.ops.flowviz import flow_to_color
+    from gqmap_tpu_torch.ops.gq import NODE, finalize, gq_accumulate
+    from gqmap_tpu_torch.ops.quadrature import build_table
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for f in kfns.values():
+            f.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in kfns.items()}
+
+    def run_cli(path, argv):
+        """``python -m gqmap_tpu_torch.cli.main <argv>`` in this process, its
+        standard output captured; the counters 0 just before, read after."""
+        zero_counts()
+        buf = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        wall = time.time() - t
+        by_path[path] = c = counts()
+        out = buf.getvalue()
+        log(f"  $ python -m gqmap_tpu_torch.cli.main {' '.join(argv)}: {wall:.3f} s, "
+            f"launches {c}")
+        for line in out.strip().splitlines()[-4:]:
+            log(f"    {line}")
+        return out, c
+
+    def last_json(out):
+        return json.loads(out.strip().splitlines()[-1])
+
+    # ---- 19. a synthetic dataset on disk; the command line's run
+    log("phase drivers: dataset and command line")
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        imageio = None
+    png = imageio is not None
+    log(f"  imageio imports: {png}" + ("" if png else "; the PNG frames and --out must raise "
+                                                     "ImportError"))
+    seqs = {"Venus": flow_sequence(0, dev, H, W), "Dimetrodon": flow_sequence(1, dev, H, W)}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+        os.environ["GQMAP_DATA"] = root
+        os.makedirs(os.path.join(root, "preprocessed"))
+        for name, (I1, I2, gt) in seqs.items():
+            os.makedirs(os.path.join(root, name))
+            write_flo(os.path.join(root, name, "flow10.flo"), gt)
+            scipy.io.savemat(os.path.join(root, "preprocessed", f"{name}.mat"),
+                             dict(img1=I1, img2=I2))
+            if png:
+                for fname, img in (("frame10.png", I1), ("frame11.png", I2)):
+                    imageio.imwrite(os.path.join(root, name, fname),
+                                    np.clip(np.round(img), 0, 255).astype(np.uint8))
+        I1, I2, gt = seqs["Venus"]
+        fc = flow_to_color(gt.astype(np.float64))
+        fr = FlowRange(fc.minu, fc.maxu, fc.minv, fc.maxv)
+        zero_aepe = float(np.mean(np.sqrt((fc.flo[1:-1, 1:-1] ** 2).sum(-1))))
+        log(f"  dataset {root}: Venus and Dimetrodon, {H}x{W}, flow range {tuple(fr)}, the zero "
+            f"flow's AEPE over the interior {zero_aepe:.4f}")
+        seq = load_sequence("Venus", preprocessed=True)
+        require(np.array_equal(seq.img1, I1) and np.array_equal(seq.gt_flow, gt),
+                "load_sequence(preprocessed=True) reads back the frames and the GT as written")
+
+        pre = ["--seq", "Venus", "--preprocessed"]
+        fast = ["--preset", "tpu_fast", "--its", "600", "--eval-every", "300"]
+        out, c = run_cli("cli run tpu_fast", ["run", *pre, *fast])
+        got = last_json(out)
+        n = got["iters"]
+        require(n == 600 and c == {"K1": n, "K2": n, "K3": 0},
+                f"run --preset tpu_fast: {n} sweeps (600 asked), launches {c}: K1 and K2 once a "
+                "sweep, K3 0")
+        direct = solve(GQMAPConfig.tpu_fast(its=600, eval_every=300), seq.img1, seq.img2,
+                       gt_flow=seq.gt_flow, device=dev)
+        require(got["best_aepe"] == direct.best_aepe,
+                f"run's best AEPE {got['best_aepe']!r} equals a direct solve's "
+                f"{direct.best_aepe!r}, bit for bit")
+        require(direct.best_aepe < direct.AEPE[0],
+                f"run: best AEPE {direct.best_aepe:.4f} below the AEPE at it=1 "
+                f"{direct.AEPE[0]:.4f}")
+        out, c = run_cli("cli run full_mixture",
+                         ["run", *pre, "--its", "300", "--eval-every", "300"])
+        n = last_json(out)["iters"]
+        require(n == 300 and c == {"K1": 0, "K2": 0, "K3": n},
+                f"run (full_mixture): {n} sweeps (300 asked), launches {c}: K3 once a sweep, "
+                "K1 and K2 0")
+        try:
+            cli.main(["run", *pre, "--devices", "2"])
+            refusal = "no error"
+        except NotImplementedError as e:
+            refusal = str(e)
+        require("Queue 1 item 4" in refusal,
+                f"run --devices 2 raises NotImplementedError: {refusal}")
+
+        out_dir = os.path.join(root, "out")
+        out_argv = ["run", *pre, "--preset", "tpu_fast", "--its", "300", "--eval-every", "300",
+                    "--quiet", "--out", out_dir]
+        if png:
+            out, c = run_cli("cli run --out", out_argv)
+            npz = np.load(os.path.join(out_dir, "Venus.npz"))
+            flo = read_flo(os.path.join(out_dir, "Venus.flo"))
+            evals = [json.loads(x) for x in open(os.path.join(out_dir, "metrics.jsonl"))]
+            pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+            shapes = {imageio.imread(os.path.join(out_dir, f)).shape for f in pngs}
+            require(np.array_equal(flo, npz["map"].astype(np.float32))
+                    and pngs == ["1.png", "300.png"] and shapes == {(H, W, 3)}
+                    and [e["it"] for e in evals if e.get("event") == "eval"] == [1, 300],
+                    f"run --out: .flo equal to the MAP in f32, PNGs {pngs} of {shapes}, "
+                    f"metrics.jsonl {len(evals)} records, .npz {sorted(npz.files)}")
+        else:
+            try:
+                run_cli("cli run --out", out_argv)
+                outcome = "no error"
+            except ImportError as e:
+                outcome = f"ImportError: {e}"
+            require(outcome.startswith("ImportError"), f"run --out without imageio: {outcome}")
+
+        # ---- 20. the coarse-to-fine pyramid
+        log("phase drivers: coarse-to-fine pyramid")
+        ccfg = GQMAPConfig.ctf_level(its=300, eval_every=300)
+        levels, real_solve = [], pctf.solve
+
+        def timed_solve(*a, **k):  # each level's wall time
+            torch.cuda.synchronize()
+            t = time.time()
+            res = real_solve(*a, **k)
+            torch.cuda.synchronize()
+            levels.append(dict(shape=list(res.map.shape[:2]), iters=res.iters,
+                               wall_s=time.time() - t))
+            return res
+
+        pctf.solve = timed_solve
+        zero_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.time()
+        try:
+            cres = pctf.solve_coarse_to_fine(ccfg, I1, I2, gt, device=dev, verbose=True)
+        finally:
+            pctf.solve = real_solve
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        by_path["ctf"] = c = counts()
+        sweeps = sum(lv.iters for lv in cres.levels)
+        require(c == {"K1": 0, "K2": 0, "K3": sweeps},
+                f"ctf: launches {c}: K3 equal to the levels' {sweeps} sweeps, K1 and K2 0")
+        require(all(np.isfinite(lv.Energy[:lv.iters]).all() for lv in cres.levels)
+                and bool(np.isfinite(cres.flow).all()),
+                "ctf: every level's energy finite over every sweep, the flow finite")
+        rises = [(float(lv.Energy[0]), float(lv.Energy[lv.iters - 1])) for lv in cres.levels]
+        require(all(b > a for a, b in rises), f"ctf: each level's energy rises over its solve "
+                                              f"(first, last sweep): {rises}")
+        # not a check: the reference's pyramid compounds each level's error
+        # (ROADMAP Queue 3, P5), so on this pair it ends above the zero flow
+        log(f"  ctf final AEPE {cres.aepe:.4f}, the zero flow's {zero_aepe:.4f} (P5)")
+        for lv in levels:
+            lv["ms_a_sweep"] = lv["wall_s"] / lv["iters"] * 1e3
+            log(f"  ctf level {lv['shape']}: {lv['iters']} sweeps in {lv['wall_s']:.3f} s "
+                f"({lv['ms_a_sweep']:.4f} ms a sweep with make_problem and the readouts)")
+        # the finest level's sweep alone: a 30-sweep segment and its split
+        p32 = pg.make_problem(ccfg, I1, I2, fr, dev)
+        st = cres.levels[-1].state
+        seg = segment_ms("ctf_level finest level", ccfg, p32, st)
+        tab = build_table(ccfg.K, ccfg.quad_chunk, np.float64)
+        a1 = torch.softmax(st.w, 0).reshape(1, 1, 1)
+
+        def node_term():
+            raw = gq_accumulate(pg._node_f(ccfg, p32), st.muu, st.muv, st.sigmau, st.sigmav,
+                                st.pn, tab)
+            return finalize(raw, a1, st.sigmau, st.sigmav, st.pn, st.temperature, NODE)
+
+        mu, sg = torch.stack([st.muu, st.muv]), torch.stack([st.sigmau, st.sigmav])
+        k3_args = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), st.rou, ccfg.K,
+                   ccfg.lambdas, ccfg.epsn)
+        sweep = pg.make_sweep(ccfg, (H, W))
+        split = dict(sweep=time_ms(lambda: sweep(p32, st), 10), node=time_ms(node_term, 10),
+                     K3=kernel_ms(lambda: edge_gq.edge_gq_cuda(*k3_args))[0])
+        split["rest"] = split["sweep"] - split["node"] - split["K3"]
+        record["ctf"] = dict(levels=levels, wall_s=wall, sweeps=sweeps, aepe=cres.aepe,
+                             zero_flow_aepe=zero_aepe, GiB_above_held=peak / 2**30,
+                             finest_segment_ms_per_sweep=seg, finest_sweep_split_ms=split,
+                             card=smi("name,power.limit"))
+        log(f"  ctf on {record['ctf']['card']}: {sweeps} sweeps over {len(levels)} levels in "
+            f"{wall:.3f} s, AEPE {cres.aepe:.4f}, {peak / 2**30:.3f} GiB at peak above what the "
+            "script held; finest sweep " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        del p32
+        if png:
+            out, c = run_cli("cli ctf", ["ctf", "--seq", "Venus", "--preset", "ctf_level", "--its",
+                                         "300", "--eval-every", "300", "--quiet"])
+            got = last_json(out)
+            require(c["K1"] == c["K2"] == 0 and 0 < c["K3"] <= 4 * 300
+                    and np.isfinite(got["aepe"]),
+                    f"ctf subcommand on the PNG frames: AEPE {got['aepe']:.4f} (the zero flow's "
+                    f"{zero_aepe:.4f}), launches {c}")
+
+        # ---- 21. the lambda sweep and the suite loop
+        log("phase drivers: lambda sweep and suite")
+        scfg = GQMAPConfig.tpu_fast(its=300, eval_every=300)
+        grid = np.linspace(0.300001, 1.0, 3)
+        zero_counts()
+        sw = sweep_lambdas(scfg, I1, I2, gt, lambdas=grid, device=dev)
+        by_path["sweep_lambdas"] = c = counts()
+        log("  " + sw.summary().replace("\n", "; "))
+        require(sw.best_lambda in grid and c["K3"] == 0 and c["K1"] == c["K2"] > 0,
+                f"sweep_lambdas: best lambda {sw.best_lambda} of the grid, launches {c}")
+        for lam, best in zip(grid, sw.best_aepe):
+            want = solve(dataclasses.replace(scfg, lambdas=float(lam)), I1, I2, gt_flow=gt,
+                         device=dev).best_aepe
+            require(best == want, f"sweep_lambdas lambda_s={lam:.6g}: best AEPE {best!r} equals a "
+                                  f"direct solve's {want!r}")
+        for name in seqs:
+            s = load_sequence(name, preprocessed=True)
+            zero_counts()
+            res = solve(scfg, s.img1, s.img2, gt_flow=s.gt_flow, device=dev)
+            c = counts()
+            require(c == {"K1": res.iters, "K2": res.iters, "K3": 0}
+                    and res.best_aepe < res.AEPE[0],
+                    f"suite {name}: best AEPE {res.best_aepe:.4f} below it=1's {res.AEPE[0]:.4f}, "
+                    f"launches {c}")
+        if png:
+            flags = ["--preset", "tpu_fast", "--its", "300", "--eval-every", "300", "--quiet"]
+            out, c = run_cli("cli suite", ["suite", "--seqs", "Venus,Dimetrodon", *flags])
+            per_seq = last_json(out)["per_seq"]
+            for name in seqs:
+                s = load_sequence(name)
+                want = solve(scfg, s.img1, s.img2, gt_flow=s.gt_flow, device=dev).best_aepe
+                require(per_seq[name] == want, f"suite subcommand {name}: {per_seq[name]!r} equals "
+                                               f"a direct solve's {want!r}")
+            out, c = run_cli("cli sweep", ["sweep", "--seq", "Venus", *flags, "--range",
+                                           "0.300001", "1.0", "3"])
+            s = load_sequence("Venus")
+            want = sweep_lambdas(scfg, s.img1, s.img2, s.gt_flow, lambdas=grid, device=dev)
+            require(out == want.summary() + "\n", "sweep subcommand prints sweep_lambdas' summary")
+        os.environ.pop("GQMAP_DATA")
+
+    # ---- 22. structure-texture preprocessing on the card, float64
+    log("phase drivers: structure_texture")
+    structure_texture(I1[:32, :32], device=dev)  # first use
+    torch.cuda.synchronize()
+    t = time.time()
+    on_card = structure_texture(I1, device=dev)
+    t_card = time.time() - t
+    t = time.time()
+    on_cpu = structure_texture(I1, device="cpu")
+    t_cpu = time.time() - t
+    err = float(np.abs(on_card - on_cpu).max()) / float(I1.max() - I1.min())
+    record["structure_texture"] = dict(card_s=t_card, cpu_s=t_cpu, rel_err=err)
+    require(err <= 1e-10, f"structure_texture {H}x{W} f64 on the card: {t_card:.4f} s (the CPU "
+                          f"{t_cpu:.4f} s), max error {err:.3e} of the image's range <= 1e-10")
+
+    # ---- 23. K3 at K = 11 on the pyramid's L = 1 lattice
+    log("phase drivers: K3 at K = 11 on the L = 1 lattice")
+    c64 = dataclasses.replace(ccfg, dtype="float64")
+    K = ccfg.K
+    require(K in edge_gq.SPECIALISED and ccfg.L == 1, f"ctf_level: K = {K} (specialised), L = 1")
+    for M, N in ((H, W), (-(-H // 8), -(-W // 8))):  # the finest and the coarsest level
+        st0 = pg.init_state(c64, fr, (M, N), seed=0, device=dev)
+        rec = k3_on_l1("ctf", ccfg, l1_probes(st0, torch.Generator().manual_seed(11)), root_rate)
+        record["K3"]["legacy"][f"K={K} ctf {M}x{N}"] = dict(rec, launches_ctf=by_path["ctf"]["K3"])
 
 def main():
     if not torch.cuda.is_available():
@@ -1068,56 +1470,10 @@ def main():
     bm32 = GQMAPConfig.blockmatch_v2(its=300, eval_every=300)
     lst64 = pg.init_state(dataclasses.replace(v2_32, dtype="float64"), fr, (H, W), seed=0,
                           device=dev)
-    g5 = torch.Generator().manual_seed(5)
-
-    def rand5(lo, hi, like):
-        return (lo + (hi - lo) * torch.rand(like.shape, generator=g5, dtype=torch.float64)
-                ).to(dev)
-
-    legacy_probes = {
-        "init": lst64,
-        "warm": lst64._replace(rou=rand5(-0.9, 0.9, lst64.rou),
-                               sigmau=rand5(0.01, 3, lst64.sigmau),
-                               sigmav=rand5(0.01, 3, lst64.sigmav)),
-        "clamp": lst64._replace(rou=0.99999 * torch.where(rand5(0, 1, lst64.rou) < 0.5, -1.0, 1.0),
-                                sigmau=rand5(0.01, 3, lst64.sigmau),
-                                sigmav=rand5(0.01, 3, lst64.sigmav)),
-    }
-    record["K3"]["legacy"] = {}
-    for lcfg in (v2_32, bm32):  # K = 9 (legacy_v2, legacy_v3), K = 17 (blockmatch_v2)
-        K = lcfg.K
-        rule = f"K={instance(K, False, edge_gq.SPECIALISED)}"
-        for dtype in (torch.float64, torch.float32):
-            for sname, st in legacy_probes.items():
-                mu, sg, rou = state_stacks(st, dtype)
-                args = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou, K,
-                        lcfg.lambdas, lcfg.epsn)
-                got, want = k3_fn(*args), edge_gq.edge_gq_torch(*args)
-                a, r, ok = compare(got, want, dtype)
-                shape = tuple(rou.shape)
-                require(ok, f"K3 legacy {shape} {rule} {str(dtype)[6:]} {sname}: max abs err "
-                            f"{a:.3e}, rel {r:.3e}")
-                if sname == "clamp" and dtype == torch.float32:
-                    gold = edge_gq.edge_gq_torch(*(x.double() if isinstance(x, torch.Tensor)
-                                                   else x for x in args))
-                    ek, ep = worst_rel(got, gold), worst_rel(want, gold)
-                    require(ek <= 2.0 * ep + 1e-6, f"K3 legacy {shape} {rule} float32 clamp: "
-                                                   f"error vs f64 golden kernel {ek:.3e} <= 2 x "
-                                                   f"plain {ep:.3e} + 1e-6")
-                if sname != "warm" or dtype != torch.float32:
-                    continue
-                ms = kernel_ms(lambda: k3_fn(*args))
-                n_el = rou.numel()
-                nbytes = sum(x.nbytes for x in (mu, sg, rou)) + 6 * n_el * 4
-                flops = n_el * (K * K // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
-                                + FLOPS["K3 element"])
-                rec = record["K3"]["legacy"][f"K={K}"] = dict(
-                    shape=list(shape), rule=rule, max_abs_err=a, ms=ms[0], ms_min=ms[1],
-                    plain_ms=time_ms(lambda: edge_gq.edge_gq_torch(*args), 3), library_ms=None,
-                    **bound(nbytes, flops, n_el * K * K, root_rate))
-                log(f"  K3 legacy {shape} {rule} f32 on {smi('name,power.limit,clocks.sm')} "
-                    f"(median, min) {ms} ms; plain {rec['plain_ms']:.4f} ms; bound "
-                    f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_terms_ms']})")
+    probes = l1_probes(lst64, torch.Generator().manual_seed(5))
+    # K = 9 (legacy_v2, legacy_v3), K = 17 (blockmatch_v2)
+    record["K3"]["legacy"] = {f"K={c.K}": k3_on_l1("legacy", c, probes, root_rate)
+                              for c in (v2_32, bm32)}
 
     # ---- 15. K1 on the window-meaned coefficient field (window_rg = 2)
     log("phase windowed K1")
@@ -1273,6 +1629,9 @@ def main():
     log(f"  legacy_v2 autodiff: one sweep {ad_ms:.3f} ms, peak {ad_peak / 2**30:.3f} GiB above "
         "what the script held")
     del v2p
+
+    # ---- 19-23. the drivers, the command line and K3 on the pyramid's lattice
+    drivers(dev, record, by_path, kfns, root_rate, segment_ms)
 
     for k in kfns:
         record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}

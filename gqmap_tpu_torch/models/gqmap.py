@@ -28,8 +28,8 @@ synchronous Jacobi sweep (``gqmap_gpu_mixture.m:29-46``) or the red-black
 (checkerboard Gauss-Seidel) order, whose two half-steps each evaluate every
 term against the other colour's fresh values.
 
-``solve`` also takes ``init_flow``, ``reset_at`` and checkpoint / resume, as
-the JAX ``solve`` does.
+``solve`` also takes ``init_flow``, ``reset_at``, checkpoint / resume and
+``out_dir`` (a PNG of the MAP at every readout), as the JAX ``solve`` does.
 
 Differences from the JAX engine, none of which changes a result:
 
@@ -610,13 +610,12 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
     ``reset_at`` applies the reference's ``reset_para`` hook after that many
     sweeps: sigma re-widened to half the flow range, correlations zeroed,
     the iteration counter restarted, means kept (``legacy/gqmap_gpuV2.m:51-62``).
+    ``out_dir`` receives the MAP's Middlebury colour coding as ``<it>.png``
+    at every readout (:func:`_write_viz`; needs ``imageio``).
     """
     if mesh is not None:
-        raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1 item 5, "
+        raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1 item 4, "
                                   "Slice B item 15)")
-    if out_dir is not None:
-        raise NotImplementedError("flow visualisation output is not ported yet (ROADMAP "
-                                  "Queue 1 item 4: out_dir PNGs need an image writer)")
 
     tflow = unknown = None
     if gt_flow is not None:
@@ -712,6 +711,8 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
                 aepe = aepe_of(cfg, last_map, tflow, unknown)
                 AEPE[it_done - 1] = aepe
                 best_aepe = min(best_aepe, aepe)
+            if out_dir is not None:
+                _write_viz(cfg, last_map, out_dir, it_done)
             if verbose:
                 print(f"[{it_done}] dmu={dmu_trace[it_done - 1]:.3e} "
                       f"E={Energy[it_done - 1]:.6e} AEPE={best_aepe:.4f} logP={lp:.6e}")
@@ -758,3 +759,18 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
         iters=it_done,
         state=state,
     )
+
+
+def _write_viz(cfg: GQMAPConfig, map_flow, out_dir, it):
+    """Write the MAP's colour coding as ``<out_dir>/<it>.png``; on the super
+    lattice the MAP is repeated to full resolution and a ``patch``-pixel
+    border cropped. ``imageio`` is imported here, so only a run with
+    ``out_dir`` needs it."""
+    import imageio.v2 as imageio
+
+    os.makedirs(out_dir, exist_ok=True)
+    flow = np.asarray(map_flow, np.float64)
+    if cfg.patch > 1:
+        p = cfg.patch
+        flow = np.repeat(np.repeat(flow, p, 0), p, 1)[p:-p, p:-p]
+    imageio.imwrite(os.path.join(out_dir, f"{it}.png"), flow_to_color(flow).img)

@@ -5,15 +5,20 @@ Port of ``gqmap_tpu/ops/interp.py``: the cubic-extrapolated padding of
 ``node_pot`` (``:156-179``), as one flat gather over a stacked tap-offset
 axis; the 2^rfc-x grid refinement of the legacy nearest-lookup data term
 (:func:`upsample_cubic`) and the Prewitt gradients of its chain-rule
-estimator. Coordinates are MATLAB 1-based: a query at ``(Xq, Yq) == (j, i)``
-returns ``V[i-1, j-1]`` exactly.
+estimator; the bilinear warp of the coarse-to-fine driver
+(:func:`interp2_linear`, :func:`fill_missing_nearest`). Coordinates are
+MATLAB 1-based: a query at ``(Xq, Yq) == (j, i)`` returns ``V[i-1, j-1]``
+exactly.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["pad_cubic", "sample_bicubic", "interp2_cubic", "upsample_cubic", "prewitt_gradients"]
+__all__ = ["pad_cubic", "sample_bicubic", "interp2_cubic", "upsample_cubic", "prewitt_gradients",
+           "interp2_linear", "fill_missing_nearest"]
 
 
 def pad_cubic(V: torch.Tensor) -> torch.Tensor:
@@ -142,3 +147,63 @@ def upsample_cubic(V: torch.Tensor, rfc: int) -> torch.Tensor:
         hv.addcmul_(w[t][None, None, :], vert[:, t:t + N - 1][:, :, None])
     out[:, -1] = vert[:, N]  # the exact last column
     return out
+
+
+def interp2_linear(V: torch.Tensor, Xq, Yq, fill=math.nan) -> torch.Tensor:
+    """MATLAB ``interp2(V, Xq, Yq)`` (bilinear, ``fill`` outside the grid).
+
+    Used by the coarse-to-fine warper (``legacy/optical_flow_ctf.m:31``).
+    1-based query coordinates; the cell index is clipped to ``[1, N-1]``, so
+    a query exactly on the last row or column takes the last cell with
+    weight 1 on its far side.
+    """
+    M, N = V.shape
+    Xq, Yq = torch.broadcast_tensors(torch.as_tensor(Xq, dtype=V.dtype, device=V.device),
+                                     torch.as_tensor(Yq, dtype=V.dtype, device=V.device))
+    inb = (Xq >= 1) & (Xq <= N) & (Yq >= 1) & (Yq <= M)
+    x = Xq.clamp(1.0, N)
+    y = Yq.clamp(1.0, M)
+    ix = x.floor().clamp(1, N - 1)
+    iy = y.floor().clamp(1, M - 1)
+    fx = x - ix
+    fy = y - iy
+    idx = (iy.long() - 1) * N + (ix.long() - 1)
+    flat = V.reshape(-1)
+
+    def tap(di, dj):
+        return flat[idx + di * N + dj]
+
+    val = (tap(0, 0) * (1 - fy) * (1 - fx)
+           + tap(0, 1) * (1 - fy) * fx
+           + tap(1, 0) * fy * (1 - fx)
+           + tap(1, 1) * fy * fx)
+    return torch.where(inb, val, torch.full_like(val, fill))
+
+
+def fill_missing_nearest(A: torch.Tensor) -> torch.Tensor:
+    """``fillmissing(fillmissing(A,'nearest',1),'nearest',2)``.
+
+    Replaces NaNs by the nearest non-NaN along axis 0, then along axis 1
+    (``legacy/optical_flow_ctf.m:32``). At equal distance the following
+    element wins (the backward fill), as in MATLAB's 'nearest'. A line with
+    no valid entry stays as it is.
+    """
+
+    def fill_axis(B, axis):
+        n = B.shape[axis]
+        shape = [1, 1]
+        shape[axis] = n
+        idx = torch.arange(n, device=B.device).reshape(shape).expand_as(B)
+        ok = ~torch.isnan(B)
+        # forward fill: last valid index at or before i
+        fwd = torch.where(ok, idx, -1).cummax(axis).values
+        # backward fill: first valid index at or after i (a cummax of the
+        # negated indices over the reversed axis)
+        neg = torch.where(ok, -idx, -(n + 1)).flip(axis)
+        bwd = -neg.cummax(axis).values.flip(axis)
+        dist_f = torch.where(fwd >= 0, idx - fwd, n + 1)
+        dist_b = torch.where(bwd <= n, bwd - idx, n + 1)
+        pick = torch.where(dist_b <= dist_f, bwd.clamp(0, n - 1), fwd.clamp(0, n - 1))
+        return torch.gather(B, axis, pick)
+
+    return fill_axis(fill_axis(A, 0), 1)

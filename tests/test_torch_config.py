@@ -46,8 +46,16 @@ def test_step_schedule_matches_jax(tau):
 
 
 def test_port_imports_without_jax():
-    code = ("import gqmap_tpu_torch, sys; "
-            "assert not [m for m in sys.modules if m.split('.')[0] == 'jax']")
+    # every module of the port, the CLI and the I/O included: none pulls in
+    # JAX or the JAX package
+    code = ("import gqmap_tpu_torch, importlib, pkgutil, sys; "
+            "names = [m.name for m in pkgutil.walk_packages(gqmap_tpu_torch.__path__, "
+            "'gqmap_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert {'gqmap_tpu_torch.cli.main', 'gqmap_tpu_torch.io.preprocess', "
+            "'gqmap_tpu_torch.models.ctf'} <= set(names), names; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gqmap_tpu')]; "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
 
 
@@ -56,6 +64,13 @@ def test_unported_config_names_its_roadmap_item():
     cfg = gqmap_tpu_torch.GQMAPConfig.tpu_fast(data_term="chebyshev")
     with pytest.raises(NotImplementedError, match="Do not port"):
         check_supported(cfg)
+
+
+def test_mesh_names_its_roadmap_item():
+    # multi-GPU is ROADMAP Queue 1 item 4; solve refuses a mesh before any work
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        gqmap_tpu_torch.solve(gqmap_tpu_torch.GQMAPConfig.tpu_fast(), None, None,
+                              mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("override", [
@@ -68,7 +83,7 @@ def test_unported_config_names_its_roadmap_item():
     dict(window_rg=2),
 ])
 def test_legacy_settings_are_supported(override):
-    # the legacy families' settings are ported (ROADMAP Queue 1 item 3)
+    # the legacy families' settings are ported (ROADMAP Slice B item 13)
     check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
 
 

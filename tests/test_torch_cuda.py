@@ -362,3 +362,62 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     assert [k.launches for k in (cosine_gq.cos_mode_sums_cuda,
                                  edge_reduced_gq.edge_reduced_grads_cuda,
                                  edge_gq.edge_gq_cuda)] == n
+
+
+@pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
+@pytest.mark.parametrize("M, N", [(376, 452), (47, 57)])
+def test_edge_gq_kernel_on_ctf_lattice(dev, M, N, probe):
+    # ctf_level's K = 11 rule (specialised) on the L = 1 edge lattice of the
+    # coarse-to-fine pyramid's finest and coarsest levels at 376x452 (47x57:
+    # a block hangs past the lattice); f64 and f32 against the plain
+    # version, at the |rho| clamp f32 against the f64 golden
+    cfg = GQMAPConfig.ctf_level()
+    g = torch.Generator().manual_seed(M + N)
+    mu, sg = _edge_state(g, 1, M, N)
+    if probe == "init":
+        rou = torch.zeros((2, 2, 1, M, N), dtype=torch.float64)  # sigma per site, as init_state
+    elif probe == "warm":
+        rou = 0.9 * (2 * torch.rand((2, 2, 1, M, N), generator=g, dtype=torch.float64) - 1)
+    else:
+        rou = _clamp_rho(g, 1, M, N)
+    host = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), rou)
+    rest = (cfg.K, cfg.lambdas, cfg.epsn)
+    assert cfg.K == 11 and cfg.L == 1 and cfg.K in edge_gq.SPECIALISED
+    for dtype in (torch.float64, torch.float32):
+        args = [x.to(dev, dtype) for x in host]
+        n = edge_gq.edge_gq_cuda.launches
+        got = edge_gq.edge_gq_cuda(*args, *rest)
+        assert edge_gq.edge_gq_cuda.launches == n + 1
+        plain = edge_gq.edge_gq_torch(*args, *rest)
+        if dtype == torch.float32 and probe == "clamp":
+            _ratio_to_golden(got, plain, edge_gq.edge_gq_torch(*(x.double() for x in args), *rest))
+        else:
+            for name in plain._fields:
+                _close(getattr(got, name), getattr(plain, name), dtype, name)
+
+
+def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
+    # the coarse-to-fine driver on the card: every level's sweeps through K3
+    from gqmap_tpu_torch.models.ctf import solve_coarse_to_fine
+
+    r = np.random.default_rng(4)
+    I1 = r.uniform(0, 255, (48, 64))
+    I2 = np.roll(I1, 1, axis=1)
+    gt = np.stack([1.0 + 0.5 * np.cos(np.arange(48) / 8)[:, None] + 0 * I1, 0 * I1], -1)
+    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                  edge_gq.edge_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches)
+    res = solve_coarse_to_fine(GQMAPConfig.ctf_level(its=4, eval_every=2), I1, I2, gt,
+                               scales=(0.25, 0.5, 1.0), device=dev)
+    sweeps = sum(lv.iters for lv in res.levels)
+    assert sweeps == 12 and np.isfinite(res.flow).all()
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (0, 0, sweeps)
+
+
+def test_structure_texture_on_card_matches_cpu(dev):
+    from gqmap_tpu_torch.io.preprocess import structure_texture
+
+    img = np.random.default_rng(2).uniform(0, 255, (61, 83))
+    got = structure_texture(img, device=dev)
+    want = structure_texture(img, device="cpu")
+    assert np.abs(got - want).max() <= 1e-10 * (img.max() - img.min())
