@@ -123,7 +123,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    tpu_fast`` (600 sweeps: K1 and K2 once a sweep, K3 not at all, its best
    AEPE bit for bit a direct ``solve``'s and below the AEPE at it = 1),
    ``run --preprocessed`` (``full_mixture``, 300 sweeps: K3 once a sweep),
-   ``run --devices 2`` (``NotImplementedError``), ``run --out`` (with
+   ``run --devices 2`` in this one process (``RuntimeError`` naming the
+   ``torch.distributed.run`` command), ``run --out`` (with
    ``imageio``: ``metrics.jsonl``, ``.npz``, a ``.flo`` equal to the MAP in
    f32 and one PNG a readout; without it: ``ImportError``);
 20. the coarse-to-fine pyramid, ``solve_coarse_to_fine`` with
@@ -145,11 +146,31 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    376x452 and at the pyramid's coarsest 47x57, from an init, a warm and a
    clamp state, float64 and float32 against the plain version and at the
    clamp in float32 against the f64 golden (ratio rule), with its time,
-   plain time and bound.
+   plain time and bound;
+24. the multi-device solve (``gqmap_tpu_torch.parallel``), in processes
+   started together (this script with ``--rank``): 4 ranks on the one card
+   over gloo (the backend rule: they share it) on a (2, 2) mesh of 188x226
+   blocks, 1 rank over NCCL, and ``run --devices 2 --preprocessed`` under
+   ``python -m torch.distributed.run`` with 2 ranks. The NCCL rank's sharded
+   ``tpu_fast`` sweep equals ``make_sweep``'s bit for bit; on (2, 2) one
+   ``tpu_fast`` and one ``full_mixture`` sweep in float64 (every field within
+   1e-12 relative of this process's single-process sweep on the card) and
+   float32 (error against the f64 golden at most twice the single-process
+   f32 sweep's; the largest difference printed), one red-black ``tpu_fast``
+   sweep in float32 (the same rule), K2 with its halo on each rank's padded
+   block against its padded plain version in both types, each rank's launch
+   counters (K1 = K2 = sweeps on ``tpu_fast``, twice on red-black, K3 =
+   sweeps on ``full_mixture``), a 300-sweep ``solve(mesh=...)`` of
+   ``tpu_fast`` (AEPE falls, the same result on every rank, final AEPE
+   within 10% of phase 5's single-process solve at it = 300; its wall time,
+   4 ranks time-sliced on one card, is printed and is no multi-GPU speed),
+   and the command line's one JSON line, from rank 0. A failed rank fails
+   the run.
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
-K3; ``launches_by_path`` every path's, the drivers' and ``ctf`` included;
+K3; ``launches_by_path`` every path's, the drivers', ``ctf``'s and the
+sharded paths' (each rank's) included;
 ``super`` the checks, times and bounds on the super lattice, ``legacy``
 K3's on the L = 1 lattice (K = 9, 17, and ``ctf_level``'s K = 11 at both
 sizes) and ``windowed`` K1's on the window-meaned field), and last
@@ -570,12 +591,14 @@ def drivers(dev, record, by_path, kfns, root_rate, segment_ms):
                 f"run (full_mixture): {n} sweeps (300 asked), launches {c}: K3 once a sweep, "
                 "K1 and K2 0")
         try:
-            cli.main(["run", *pre, "--devices", "2"])
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli.main(["run", *pre, "--devices", "2"])
             refusal = "no error"
-        except NotImplementedError as e:
+        except RuntimeError as e:
             refusal = str(e)
-        require("Queue 1 item 4" in refusal,
-                f"run --devices 2 raises NotImplementedError: {refusal}")
+        require("torch.distributed.run --nproc-per-node 2" in refusal,
+                f"run --devices 2 in one process raises RuntimeError naming the command that "
+                f"starts the ranks: {refusal}")
 
         out_dir = os.path.join(root, "out")
         out_argv = ["run", *pre, "--preset", "tpu_fast", "--its", "300", "--eval-every", "300",
@@ -744,6 +767,286 @@ def drivers(dev, record, by_path, kfns, root_rate, segment_ms):
         st0 = pg.init_state(c64, fr, (M, N), seed=0, device=dev)
         rec = k3_on_l1("ctf", ccfg, l1_probes(st0, torch.Generator().manual_seed(11)), root_rate)
         record["K3"]["legacy"][f"K={K} ctf {M}x{N}"] = dict(rec, launches_ctf=by_path["ctf"]["K3"])
+
+SHARDED_MESH = (1, 2, 2)  # (dp, x, y): 4 ranks of 188 x 226 sites at 376 x 452
+SHARDED_SOLVE_ITS = 300
+
+
+def rank_main(rank, world, port, out_dir):
+    """One rank of the sharded phase (``--rank``): every rank on ``cuda:0``.
+    With ``world`` 1 the rank runs over NCCL and checks that its sharded
+    ``tpu_fast`` sweep equals ``make_sweep``'s bit for bit; with 4 (gloo: the
+    ranks share the card) it runs one ``tpu_fast``, ``full_mixture`` and
+    red-black ``tpu_fast`` sweep on its 188 x 226 block (rank 0 writes the
+    gathered states), K2's padded call against its padded plain version,
+    and a 300-sweep ``solve(mesh=...)``, each with the launch counters set to
+    0 just before it and read just after. Writes ``rank<r>.json``."""
+    import torch.distributed as tdist
+
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
+    from gqmap_tpu_torch.kernels import cosine_gq, edge_gq, edge_reduced_gq
+    from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.ops.gq import EDGE
+    from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
+                                          shard_problem, shard_state)
+    from gqmap_tpu_torch.parallel.halo import halo_edges
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: no CUDA device")
+    n = initialize(f"localhost:{port}", world, rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kfns = {"K1": cosine_gq.cos_mode_sums_cuda, "K2": edge_reduced_gq.edge_reduced_grads_cuda,
+            "K3": edge_gq.edge_gq_cuda}
+    rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
+
+    def check(ok, what):
+        rec["checks"].append([bool(ok), what])
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        for f in kfns.values():
+            f.launches = 0
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        rec.setdefault("wall_s", {})[path] = time.time() - t
+        rec["launches"][path] = {k: f.launches for k, f in kfns.items()}
+        return out
+
+    I1, I2, gt = synthetic_pair()
+    fr = FlowRange(*FR)
+    if world == 1:
+        mesh = Mesh(1, 1, 1, rank=0)
+        cfg = GQMAPConfig.tpu_fast()
+        prob = pg.make_problem(cfg, I1, I2, fr, dev)
+        st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+        want, waux = pg.make_sweep(cfg, (H, W))(prob, st)
+        got, gaux = counted("tpu_fast sharded (1 rank, NCCL)", lambda: make_sharded_sweep(
+            cfg, (H, W), mesh)(shard_problem(prob, mesh), shard_state(st, mesh)))
+        same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields)
+        same &= all(torch.equal(a, b) for a, b in zip(gaux, waux))
+        check(same, "NCCL rank: the sharded tpu_fast sweep equals make_sweep's, bit for bit")
+    else:
+        mesh = Mesh(*SHARDED_MESH, rank=rank)
+        for path, make_cfg in (("tpu_fast", GQMAPConfig.tpu_fast),
+                               ("full_mixture", lambda **kw: GQMAPConfig.full_mixture(
+                                   quad_chunk=27, **kw)),
+                               ("tpu_fast redblack", lambda **kw: GQMAPConfig.tpu_fast(
+                                   sweep_order="redblack", **kw))):
+            for dtype in ("float64", "float32") if path != "tpu_fast redblack" else ("float32",):
+                cfg = make_cfg(dtype=dtype)
+                whole = pg.make_problem(cfg, I1, I2, fr, dev)
+                prob = shard_problem(whole, mesh)
+                del whole
+                # the f64 init, cast: the state the single-process sweeps start from
+                st0 = pg.init_state(make_cfg(dtype="float64"), fr, (H, W), seed=0, device=dev)
+                st = shard_state(pg.GQState(*(x.to(getattr(torch, dtype))
+                                              if x.is_floating_point() else x for x in st0)),
+                                 mesh)
+                sweep = make_sharded_sweep(cfg, (H, W), mesh)
+                out, aux = counted(f"{path} sharded sweep {dtype}", lambda: sweep(prob, st))
+                out = gather_state(out, mesh)
+                if rank == 0:
+                    torch.save(dict({f: getattr(out, f).cpu() for f in out._fields},
+                                    energy=aux.energy.cpu(), ptdmu=aux.ptdmu.cpu()),
+                               os.path.join(out_dir, f"{path} {dtype}.pt"))
+                if path == "tpu_fast":  # K2 on the block with its halo, padded both ways
+                    mu = torch.stack([st.muu, st.muv])
+                    sg = torch.stack([st.sigmau, st.sigmav])
+                    halo = halo_edges(torch.stack([mu, sg]), mesh.ring("x"), mesh.ring("y"))
+                    args = (mu, sg, st.rou, torch.softmax(st.w, 0), st.temperature,
+                            2 * cfg.K + 3, cfg.lambdas, cfg.epsn, EDGE)
+                    a, r, ok = compare(edge_reduced_gq.edge_reduced_grads_cuda(*args, halo=halo),
+                                       edge_reduced_gq.edge_reduced_grads_torch(*args,
+                                                                                halo=halo),
+                                       getattr(torch, dtype))
+                    check(ok, f"rank {rank}: K2 with its halo on the padded block "
+                              f"{tuple(mu.shape[:2])} + ({mu.shape[2] + 1}, {mu.shape[3] + 1}) "
+                              f"{dtype} against its padded plain version: max abs err {a:.3e},"
+                              f" rel {r:.3e}")
+                del prob, st, sweep, out
+                torch.cuda.empty_cache()
+        cfg = GQMAPConfig.tpu_fast(its=SHARDED_SOLVE_ITS, eval_every=300)
+        res = counted("tpu_fast sharded solve", lambda: solve(
+            cfg, I1, I2, gt_flow=gt, flow_range=fr, seed=0, mesh=mesh, device=dev))
+        rec["solve"] = dict(iters=res.iters, AEPE=[float(x) for x in res.AEPE],
+                            Energy=[float(x) for x in res.Energy],
+                            map_sum=float(np.sum(res.map, dtype=np.float64)),
+                            mu_sum=float(np.sum(res.mu, dtype=np.float64)))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def sharded(dev, record, by_path, st64, single_aepe):
+    """The sharded phase: 4 ranks on ``cuda:0`` over gloo (the backend rule:
+    they share the card) and 1 over NCCL (:func:`rank_main`), and the command
+    line under ``torch.distributed.run`` with 2 ranks, all started together;
+    meanwhile this process runs the single-process sweeps they are held to.
+    A failed rank fails the run."""
+    import socket
+
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.io.flo import write_flo
+    from gqmap_tpu_torch.kernels import build
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    import scipy.io
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    log("phase sharded")
+    t_phase = time.time()
+    I1, I2, gt = synthetic_pair()
+    fr = FlowRange(*FR)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        nccl_dir, data = os.path.join(d, "nccl"), os.path.join(d, "data")
+        os.makedirs(nccl_dir)
+        os.makedirs(os.path.join(data, "preprocessed"))
+        os.makedirs(os.path.join(data, "Venus"))
+        vI1, vI2, vgt = flow_sequence(0, dev, H, W)
+        write_flo(os.path.join(data, "Venus", "flow10.flo"), vgt)
+        scipy.io.savemat(os.path.join(data, "preprocessed", "Venus.mat"), dict(img1=vI1, img2=vI2))
+        me = os.path.abspath(__file__)
+        port, nport = free_port(), free_port()
+        env = dict(os.environ, GQMAP_DATA=data, OMP_NUM_THREADS="1")
+        cli_argv = ["run", "--seq", "Venus", "--preprocessed", "--preset", "tpu_fast", "--its",
+                    "30", "--eval-every", "30", "--quiet", "--devices", "2"]
+        cmds = {f"rank {r}": [sys.executable, me, "--rank", str(r), "--world", "4", "--port",
+                              str(port), "--dir", d] for r in range(4)}
+        cmds["nccl rank"] = [sys.executable, me, "--rank", "0", "--world", "1", "--port",
+                             str(nport), "--dir", nccl_dir]
+        cmds["cli"] = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc-per-node", "2", "-m", "gqmap_tpu_torch.cli.main", *cli_argv]
+        procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env=env,
+                                     cwd=os.path.dirname(me)) for k, c in cmds.items()}
+        try:
+            # the single-process sweeps on the card, while the ranks start
+            gold = {}
+            for path, make_cfg in (("tpu_fast", GQMAPConfig.tpu_fast),
+                                   ("full_mixture", lambda **kw: GQMAPConfig.full_mixture(
+                                       quad_chunk=27, **kw)),
+                                   ("tpu_fast redblack", lambda **kw: GQMAPConfig.tpu_fast(
+                                       sweep_order="redblack", **kw))):
+                for dtype in ("float64", "float32"):
+                    cfg = make_cfg(dtype=dtype)
+                    prob = pg.make_problem(cfg, I1, I2, fr, dev)
+                    st = pg.GQState(*(x.to(getattr(torch, dtype)) if x.is_floating_point()
+                                      else x for x in st64))
+                    out, aux = pg.make_sweep(cfg, (H, W))(prob, st)
+                    gold[path, dtype] = (out, aux)
+                    del prob
+                    torch.cuda.empty_cache()
+            outs = {}
+            for k, p in procs.items():
+                outs[k] = p.communicate(timeout=max(60.0, 900 - (time.time() - t_phase)))[0]
+        except BaseException:
+            for p in procs.values():
+                p.kill()  # the exact processes started here
+            for p in procs.values():
+                p.wait()
+            raise
+        for k, p in procs.items():
+            ok = p.returncode == 0
+            require(ok, f"sharded: {k} exits 0 (exit code {p.returncode})")
+            if not ok:
+                log(outs[k][-4000:])
+        log("  ranks' lines: " + " | ".join(
+            line for k in ("rank 0", "nccl rank") for line in outs[k].splitlines()
+            if line.startswith("gqmap_tpu_torch.parallel")))
+        recs = {}
+        for name, path in [(f"rank {r}", os.path.join(d, f"rank{r}.json")) for r in range(4)] + [
+                ("nccl rank", os.path.join(nccl_dir, "rank0.json"))]:
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs[name] = json.load(f)
+        require(len(recs) == 5, f"sharded: every rank wrote its record ({sorted(recs)})")
+        for name, rec in recs.items():
+            for ok, what in rec["checks"]:
+                require(ok, what)
+        if "nccl rank" in recs:
+            require(recs["nccl rank"]["backend"] == "nccl"
+                    and all(recs[f"rank {r}"]["backend"] == "gloo" for r in range(4)
+                            if f"rank {r}" in recs),
+                    "backends: NCCL for the rank with a card of its own, gloo for 4 ranks on "
+                    "one card")
+        # the (2, 2) sweeps against the single-process sweeps on the card
+        fields = ("muu", "muv", "sigmau", "sigmav", "pn", "rou", "w")
+        for path in ("tpu_fast", "full_mixture", "tpu_fast redblack"):
+            g64 = gold[path, "float64"][0]
+            for dtype in ("float64", "float32"):
+                f = os.path.join(d, f"{path} {dtype}.pt")
+                if not os.path.exists(f):
+                    continue
+                sh = torch.load(f)
+                if dtype == "float64":
+                    rel = max(float((sh[k].to(dev) - getattr(g64, k)).abs().max()
+                                    / getattr(g64, k).abs().max().clamp_min(1e-300))
+                              for k in fields)
+                    require(rel <= 1e-12, f"sharded {path} (2, 2) f64 sweep: every field "
+                                          f"within 1e-12 relative of the single-process "
+                                          f"sweep's ({rel:.3e})")
+                    continue
+                s32 = gold[path, "float32"][0]
+                e_sh = max(float((sh[k].to(dev).double() - getattr(g64, k)).abs().mean())
+                           for k in fields[:6])
+                e_1 = max(float((getattr(s32, k).double() - getattr(g64, k)).abs().mean())
+                          for k in fields[:6])
+                big = max(float((sh[k].to(dev) - getattr(s32, k)).abs().max()) for k in fields)
+                require(e_sh <= 2.0 * e_1 + 1e-12,
+                        f"sharded {path} (2, 2) f32 sweep: error vs the f64 golden {e_sh:.3e} "
+                        f"<= 2 x the single-process f32 sweep's {e_1:.3e}; largest difference "
+                        f"from the single-process f32 sweep {big:.3e}")
+        per_rank = [recs.get(f"rank {r}", {}).get("launches", {}) for r in range(4)]
+        want = {"tpu_fast sharded sweep float64": {"K1": 1, "K2": 1, "K3": 0},
+                "tpu_fast sharded sweep float32": {"K1": 1, "K2": 1, "K3": 0},
+                "full_mixture sharded sweep float64": {"K1": 0, "K2": 0, "K3": 1},
+                "full_mixture sharded sweep float32": {"K1": 0, "K2": 0, "K3": 1},
+                "tpu_fast redblack sharded sweep float32": {"K1": 2, "K2": 2, "K3": 0},
+                "tpu_fast sharded solve": {"K1": SHARDED_SOLVE_ITS, "K2": SHARDED_SOLVE_ITS,
+                                           "K3": 0}}
+        for path, w in want.items():
+            got = [c.get(path) for c in per_rank]
+            require(all(g == w for g in got), f"sharded {path}: each rank's launch counters "
+                                              f"{got} equal {w}")
+            by_path[f"{path} (2, 2), each of 4 ranks"] = got[0]
+        if "nccl rank" in recs:
+            by_path["tpu_fast sharded sweep (1 rank, NCCL)"] = recs["nccl rank"]["launches"].get(
+                "tpu_fast sharded (1 rank, NCCL)")
+        sol = [recs[f"rank {r}"]["solve"] for r in range(4) if f"rank {r}" in recs]
+        if sol:
+            a = np.array(sol[0]["AEPE"])
+            a1, an = a[0], a[sol[0]["iters"] - 1]
+            require(all(s == sol[0] for s in sol), "sharded solve: the same result (AEPE and "
+                                                   "energy traces, MAP, means) on every rank")
+            require(bool(an < a1), f"sharded solve: AEPE {a1:.4f} at it=1 -> {an:.4f} at "
+                                   f"it={sol[0]['iters']} (falls)")
+            require(abs(an - single_aepe) <= 0.1 * single_aepe,
+                    f"sharded solve: final AEPE {an:.4f} within 10% of the single-process "
+                    f"solve's {single_aepe:.4f} at it={SHARDED_SOLVE_ITS}")
+            walls = [recs[f"rank {r}"]["wall_s"]["tpu_fast sharded solve"] for r in range(4)
+                     if f"rank {r}" in recs]
+            record["sharded"] = dict(
+                mesh=list(SHARDED_MESH), solve_wall_s=walls, solve_aepe=[a1, an],
+                single_aepe=single_aepe,
+                solve_ms_per_sweep_4_ranks_sharing_one_card=max(walls) / SHARDED_SOLVE_ITS * 1e3,
+                sweep_wall_s=recs["rank 0"]["wall_s"])
+            log(f"  sharded solve, 4 ranks time-sliced on one card (not a multi-GPU speed): "
+                f"wall {max(walls):.3f} s for {SHARDED_SOLVE_ITS} sweeps incl. set-up and 2 "
+                f"readouts; AEPE {a1:.4f} -> {an:.4f} (single process {single_aepe:.4f}); "
+                f"each rank's sweep walls {recs['rank 0']['wall_s']}")
+        lines = [x for x in outs["cli"].splitlines() if x.startswith("{")]
+        require(len(lines) == 1 and json.loads(lines[0]).get("iters") == 30,
+                f"run --devices 2 under torch.distributed.run prints one JSON line, from rank 0: "
+                f"{lines}")
+    record.setdefault("phase_s", {})["sharded"] = time.time() - t_phase
+    log(f"  phase sharded {time.time() - t_phase:.1f} s")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1633,6 +1936,9 @@ def main():
     # ---- 19-23. the drivers, the command line and K3 on the pyramid's lattice
     drivers(dev, record, by_path, kfns, root_rate, segment_ms)
 
+    # ---- 24. the multi-device solve: 4 ranks on the card (gloo) and 1 over NCCL
+    sharded(dev, record, by_path, st64, float(res.AEPE[SHARDED_SOLVE_ITS - 1]))
+
     for k in kfns:
         record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}
     log("  launches per path: " + json.dumps(by_path))
@@ -1661,4 +1967,13 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--rank", "--world", "--port"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--dir", required=True)
+        a = ap.parse_args()
+        sys.exit(rank_main(a.rank, a.world, a.port, a.dir))
     sys.exit(main())

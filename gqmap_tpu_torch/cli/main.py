@@ -12,10 +12,18 @@ Subcommands:
 * ``sweep`` — lambda_s grid search (== ``legacy/LearnRatio.m``)
 
 Every command runs on ``--device`` (the GPU by default; ``--device cpu`` for
-the CPU); with no GPU and no ``--device`` it raises. ``--devices``/``--dp``
-are parsed, and a value of ``--devices`` raises ``NotImplementedError``: the
-port has no multi-GPU solve yet. The PNG frames and ``--out``'s PNGs need
-``imageio``; ``--preprocessed`` reads ``.mat`` frames through scipy.
+the CPU); with no GPU and no ``--device`` it raises. ``run`` and ``suite``
+shard the lattice over ``--devices N`` ranks (a ``(dp, x, y)`` mesh with
+``--dp``), one process a device, started as
+
+    python -m torch.distributed.run --nproc-per-node N -m gqmap_tpu_torch.cli.main \
+        run --devices N ...
+
+``--devices`` must equal the world size, else it raises and prints that
+command; the frames are cropped so that the lattice divides the mesh, and
+rank 0 alone prints the result and writes ``--out``. ``ctf`` and ``sweep``
+run on one device. The PNG frames and ``--out``'s PNGs need ``imageio``;
+``--preprocessed`` reads ``.mat`` frames through scipy.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 
 import numpy as np
 
@@ -90,15 +99,53 @@ def _add_common(p):
     p.add_argument("--device", default=None,
                    help="torch device of the run (default: the GPU; 'cpu' for the CPU)")
     p.add_argument("--devices", type=int, default=None,
-                   help="shard the lattice over up to N devices (not ported: raises)")
+                   help="shard the lattice over N ranks, one a device (a (dp, x, y) mesh; "
+                        "run under python -m torch.distributed.run --nproc-per-node N). "
+                        "Default: single device")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel axis size of the mesh (with --devices)")
+                   help="data-parallel axis size of the mesh (devices must be divisible "
+                        "by it)")
 
 
-def _refuse_mesh(args):
-    if args.devices is not None:
-        raise NotImplementedError("--devices: the multi-GPU solve is not ported yet (ROADMAP "
-                                  "Queue 1 item 4, Slice B item 15)")
+def _launch(args, argv):
+    """Form the process group of ``--devices`` ranks; raise, naming the
+    command that starts them, where the world size differs."""
+    if args.devices is None:
+        return
+    from ..parallel import initialize
+
+    world = initialize(device=args.device)
+    if world != args.devices:
+        cmd = ("python -m torch.distributed.run --nproc-per-node "
+               f"{args.devices} -m gqmap_tpu_torch.cli.main {' '.join(argv)}")
+        print(cmd, file=sys.stderr)
+        raise RuntimeError(f"--devices {args.devices} needs {args.devices} ranks, one a "
+                           f"device; this process group has {world}. Start them with: {cmd}")
+    if args.cmd in ("ctf", "sweep"):
+        raise ValueError(f"--devices: {args.cmd} runs on one device (as in the JAX package); "
+                         "run and suite shard the lattice")
+
+
+def _mesh_and_crop(args, cfg):
+    """The (dp, x, y) mesh requested by --devices/--dp plus the (km, kn)
+    crop unit that makes the solver lattice divide it (a near-square
+    factorization is chosen and the ragged edge cropped, instead of dropping
+    ranks on awkward shapes)."""
+    if getattr(args, "devices", None) is None:
+        return None, cfg.patch
+    from ..parallel import factor_2d, make_mesh
+
+    x, y = factor_2d(args.devices // args.dp)
+    mesh = make_mesh(args.devices, dp=args.dp)
+    if not args.quiet and mesh.rank == 0:
+        print(f"mesh: {mesh.shape} over {mesh.devices.size} rank(s)")
+    return mesh, (cfg.patch * x, cfg.patch * y)
+
+
+def _lead(mesh) -> bool:
+    """Whether this process prints the result and writes the output: rank 0,
+    or the only process."""
+    return mesh is None or mesh.rank == 0
 
 
 def _fix_kl(args):
@@ -113,11 +160,12 @@ def cmd_run(args):
 
     _fix_kl(args)
     cfg = _cfg_from_args(args)
+    mesh, crop = _mesh_and_crop(args, cfg)
     seq = load_sequence(args.seq, scale=args.scale, preprocessed=args.preprocessed,
                         st_preprocess=args.st_preprocess, device=args.device)
-    seq = crop_to_multiple(seq, cfg.patch)
+    seq = crop_to_multiple(seq, crop)
     cb = None
-    if args.out:
+    if args.out and _lead(mesh):
         from ..evals.metrics import MetricsLogger
 
         ml = MetricsLogger(f"{args.out}/metrics.jsonl",
@@ -138,8 +186,10 @@ def cmd_run(args):
         out_dir=args.out, verbose=not args.quiet, callback=cb,
         checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
         resume=args.resume, init_flow=init_flow, reset_at=args.reset_at,
-        device=args.device,
+        mesh=mesh, device=args.device,
     )
+    if not _lead(mesh):
+        return
     print(json.dumps({"seq": args.seq, "best_aepe": res.best_aepe, "iters": res.iters}))
     if args.out:
         from ..io.flo import write_flo
@@ -155,15 +205,18 @@ def cmd_suite(args):
 
     _fix_kl(args)
     cfg = _cfg_from_args(args)
+    mesh, crop = _mesh_and_crop(args, cfg)
     results = {}
     for name in args.seqs.split(","):
-        seq = crop_to_multiple(load_sequence(name.strip(), scale=args.scale), cfg.patch)
+        seq = crop_to_multiple(load_sequence(name.strip(), scale=args.scale), crop)
         res = solve(cfg, seq.img1, seq.img2, gt_flow=seq.gt_flow,
-                    verbose=not args.quiet, device=args.device)
+                    verbose=not args.quiet, mesh=mesh, device=args.device)
         results[name] = res.best_aepe
-        print(f"{name}: best AEPE = {res.best_aepe:.4f}")
+        if _lead(mesh):
+            print(f"{name}: best AEPE = {res.best_aepe:.4f}")
     avg = float(np.mean(list(results.values())))
-    print(json.dumps({"per_seq": results, "avg_aepe": avg}))
+    if _lead(mesh):
+        print(json.dumps({"per_seq": results, "avg_aepe": avg}))
 
 
 def cmd_ctf(args):
@@ -218,10 +271,11 @@ def main(argv=None):
     p.add_argument("--range", nargs=3, type=float, default=(0.300001, 1.0, 12))
     p.add_argument("--log", default=None); p.set_defaults(fn=cmd_sweep)
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     from ..models.gqmap import _device
 
-    _refuse_mesh(args)
+    _launch(args, argv)
     args.device = _device(args.device)  # no GPU and no --device: raise here, before any work
     args.fn(args)
 

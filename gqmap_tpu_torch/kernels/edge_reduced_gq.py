@@ -20,6 +20,16 @@ with wrap: the JAX function's ``u2e``/``o2e`` stacks, which
 :func:`neighbour_stacks` builds and the plain version uses, and which the
 kernel reads in place.
 
+On a shard of the lattice the wrap would land on the block's own first row
+and column, so each takes an optional ``halo``, ``(down, right)``: the
+stacked ``(mu, sg)`` one row below the block, ``(2, C, L, 1, N)``, and one
+column to its right, ``(2, C, L, M, 1)`` (``parallel.halo.halo_edges``).
+The wrapper then pads ``mu`` and ``sg`` with it to ``(C, L, M + 1, N + 1)``
+and ``rou`` with zeros (:func:`pad_halo`), runs the unchanged kernel (or
+the plain version) on the padded block and crops ``[..., :M, :N]``: every
+cropped site's neighbours are the true ones, and only the padded row and
+column, cropped away, read a wrapped value.
+
 The kernel pairs each node of the rule with its mirror image
 (:func:`paired_rule_1d`). For K1 in :data:`SPECIALISED` it runs an instance
 compiled for that rule, with the coefficients passed by value; for any
@@ -40,17 +50,35 @@ from ..ops.quadrature import build_table_1d, gauss_hermite
 from . import build
 
 __all__ = ["SPECIALISED", "edge_reduced_grads", "edge_reduced_grads_cuda",
-           "edge_reduced_grads_torch", "neighbour_stacks", "paired_rule_1d"]
+           "edge_reduced_grads_torch", "neighbour_stacks", "pad_halo", "paired_rule_1d"]
 
 SPECIALISED = (21, 25)  # rules compiled into their own instance (csrc/edge_reduced_gq.cu)
 
 
-def neighbour_stacks(mu, sg):
+def neighbour_stacks(mu, sg, roll=torch.roll):
     """Endpoint 2 of every edge, ``(2, C, L, M, N)`` each: the state one row
-    down (direction 0) and one column right (direction 1), with wrap."""
-    u2e = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
-    o2e = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
-    return u2e, o2e
+    down (direction 0) and one column right (direction 1), with wrap.
+    ``roll(x, shift, axis)`` is the lattice's roll: ``torch.roll``, or on a
+    shard the global roll across shards (one exchange an axis for both
+    stacks)."""
+    ms = torch.stack([mu, sg])
+    down, right = roll(ms, -1, -2), roll(ms, -1, -1)
+    return torch.stack([down[0], right[0]]), torch.stack([down[1], right[1]])
+
+
+def pad_halo(mu, sg, rou, halo):
+    """``mu`` and ``sg`` padded to ``(C, L, M + 1, N + 1)`` with the halo's row
+    below and column to the right, and ``rou`` padded with zeros. The corner
+    is read only by padded sites; it repeats the row's last value, so those
+    stay finite."""
+    down, right = halo
+    ms = torch.stack([mu, sg])
+    ms = torch.cat([torch.cat([ms, right], -1), torch.cat([down, down[..., -1:]], -1)], -2)
+    return ms[0], ms[1], torch.nn.functional.pad(rou, (0, 1, 0, 1))
+
+
+def _crop(g: GQGrads, M: int, N: int) -> GQGrads:
+    return GQGrads(*(x[..., :M, :N] for x in g))
 
 
 def paired_rule_1d(k1: int, dtype=np.float64) -> np.ndarray:
@@ -69,8 +97,13 @@ def paired_rule_1d(k1: int, dtype=np.float64) -> np.ndarray:
 
 
 def edge_reduced_grads_torch(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
-                             entropy_scale: float) -> GQGrads:
-    """Plain version of K2: ``gq_accumulate_diff`` + ``finalize``."""
+                             entropy_scale: float, halo=None) -> GQGrads:
+    """Plain version of K2: ``gq_accumulate_diff`` + ``finalize``; with a
+    ``halo``, on the padded block, cropped."""
+    if halo is not None:
+        M, N = mu.shape[-2:]
+        return _crop(edge_reduced_grads_torch(*pad_halo(mu, sg, rou, halo), alpha, T, k1,
+                                              lambdas, epsn, entropy_scale), M, N)
     L = mu.shape[1]
     u2e, o2e = neighbour_stacks(mu, sg)
     raw = gq_accumulate_diff(make_edge_pot_diff(lambdas, epsn), mu[None], u2e, sg[None],
@@ -95,11 +128,17 @@ def _rule_dev(k1: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor
 
 
 def edge_reduced_grads_cuda(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
-                            entropy_scale: float, generic: bool = False) -> GQGrads:
+                            entropy_scale: float, generic: bool = False,
+                            halo=None) -> GQGrads:
     """Kernel K2: the instance compiled for K1 if K1 is in
     :data:`SPECIALISED` and ``generic`` is false, else the generic instance.
     ``alpha`` and ``T`` must be tensors on the card: the kernel reads them
-    through device pointers."""
+    through device pointers. With a ``halo``, one launch on the padded
+    block, cropped."""
+    if halo is not None:
+        M, N = mu.shape[-2:]
+        return _crop(edge_reduced_grads_cuda(*pad_halo(mu, sg, rou, halo), alpha, T, k1,
+                                             lambdas, epsn, entropy_scale, generic), M, N)
     if mu.device.type != "cuda":
         raise RuntimeError(f"edge_reduced_grads_cuda needs CUDA tensors, got {mu.device}")
     if mu.dtype not in (torch.float32, torch.float64):
@@ -143,7 +182,10 @@ edge_reduced_grads_cuda.launches = 0
 
 
 def edge_reduced_grads(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
-                       entropy_scale: float) -> GQGrads:
+                       entropy_scale: float, halo=None) -> GQGrads:
     """Kernel K2 for CUDA tensors, its plain version for CPU tensors."""
-    fn = edge_reduced_grads_torch if mu.device.type == "cpu" else edge_reduced_grads_cuda
-    return fn(mu, sg, rou, alpha, T, k1, lambdas, epsn, entropy_scale)
+    if mu.device.type == "cpu":
+        return edge_reduced_grads_torch(mu, sg, rou, alpha, T, k1, lambdas, epsn,
+                                        entropy_scale, halo)
+    return edge_reduced_grads_cuda(mu, sg, rou, alpha, T, k1, lambdas, epsn, entropy_scale,
+                                   halo=halo)

@@ -29,7 +29,10 @@ synchronous Jacobi sweep (``gqmap_gpu_mixture.m:29-46``) or the red-black
 term against the other colour's fresh values.
 
 ``solve`` also takes ``init_flow``, ``reset_at``, checkpoint / resume and
-``out_dir`` (a PNG of the MAP at every readout), as the JAX ``solve`` does.
+``out_dir`` (a PNG of the MAP at every readout), as the JAX ``solve`` does,
+and ``mesh``: the lattice block-sharded over ``torch.distributed`` ranks,
+each running the sweep and its kernels on its own block
+(:mod:`gqmap_tpu_torch.parallel`; :class:`DistHooks`).
 
 Differences from the JAX engine, none of which changes a result:
 
@@ -47,10 +50,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..config import FlowRange, GQMAPConfig
 from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
@@ -71,6 +75,7 @@ from ..ops.quadrature import build_table, build_table_1d
 from ..ops.simplex import project_simplex, softmax, softmax_natural_step
 
 __all__ = [
+    "DistHooks",
     "GQState",
     "Problem",
     "SweepAux",
@@ -271,9 +276,12 @@ def init_state(cfg: GQMAPConfig, rng: FlowRange, image_shape, seed=None,
     return GQState(*(x.to(device) for x in state))
 
 
-def _node_f(cfg: GQMAPConfig, problem: Problem):
+def _node_f(cfg: GQMAPConfig, problem: Problem, origin=None, local_image_shape=None):
     """The data term's potential ``f(x1, x2)`` (None for the closed-form
-    cosine term, which has no per-sample potential)."""
+    cosine term, which has no per-sample potential). On a shard, ``origin``
+    and ``local_image_shape`` are its block's pixel offset and extent; the
+    cosine field and the quadratic prior's init flow are per site and arrive
+    as the block's own."""
     if cfg.data_term == "cosine":
         return None
     if cfg.data_term == "quadratic":
@@ -286,16 +294,37 @@ def _node_f(cfg: GQMAPConfig, problem: Problem):
         flow = torch.as_tensor(problem.init_flow, dtype=problem.I1.dtype,
                                device=problem.I1.device)
         return make_node_pot_quadratic(flow, cfg.quad_var)
+    at = dict(origin=origin, local_image_shape=local_image_shape)
     if cfg.window_rg > 0:
         return make_node_pot_windowed(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
-                                      cfg.window_rg, cfg.data_term, cfg.rfc)
+                                      cfg.window_rg, cfg.data_term, cfg.rfc, **at)
     if cfg.data_term == "bicubic":
         return make_node_pot_bicubic(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
-                                     patch=cfg.patch)
-    return make_node_pot_nearest(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn, cfg.rfc)
+                                     patch=cfg.patch, **at)
+    return make_node_pot_nearest(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn, cfg.rfc,
+                                 **at)
 
 
-def make_sweep(cfg: GQMAPConfig, image_shape):
+class DistHooks(NamedTuple):
+    """Hooks that turn the single-device sweep into the sweep of one shard
+    (``parallel.halo.make_halo_sweep``).
+
+    ``roll(x, shift, axis)`` is the global circshift over the sharded
+    lattice (a halo exchange); ``psum`` the sum of a small vector over the
+    shards; ``origin()`` the lattice offset (row, column) of this shard and
+    ``local_lattice`` its extent; ``halo(x)`` the ``(down, right)`` slices
+    of ``x`` one row below and one column to the right of the block, which
+    kernel K2 reads in place of its wrap.
+    """
+
+    roll: Callable
+    psum: Callable
+    origin: Callable
+    local_lattice: tuple
+    halo: Callable
+
+
+def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     """Build the single-sweep update: ``sweep(problem, state) -> (state,
     SweepAux)``. ``sweep_order="jacobi"`` is one synchronous step over the
     interior; ``"redblack"`` is a step over the interior's red sites
@@ -306,7 +335,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
     estimators; truncated-quadratic edges and the autodiff estimator run
-    plain sums (:func:`check_supported` refuses ``"cuda"`` there)."""
+    plain sums (:func:`check_supported` refuses ``"cuda"`` there).
+
+    With ``dist`` the sweep is one shard's: ``problem`` and ``state`` hold
+    its block, every neighbour roll goes through ``dist.roll``, K2 reads the
+    ``dist.halo`` of its block, the red mask takes the block's origin, and
+    each pass's energy, alpha gradient and |dmu| / |dsigma| sums are summed
+    over the shards in one ``dist.psum``; ``n_interior`` stays the whole
+    lattice's."""
     check_supported(cfg)
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -329,7 +365,17 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
     # K2 or K3 where the JAX package runs its Pallas edge kernels, else the plain sums
     edge_route = (_EDGE_ROUTES[cfg.edge_quad][cfg.edge_kernel]
                   if cfg.edge_kind == "charbonnier" and not autodiff else None)
-    red_np = (np.add.outer(np.arange(M), np.arange(N)) & 1) == 0
+    roll = torch.roll if dist is None else dist.roll
+    node_at = {}
+    r0 = c0 = 0
+    ml, nl = M, N
+    if dist is not None:
+        r0, c0 = dist.origin()
+        ml, nl = dist.local_lattice
+        node_at = dict(origin=(r0 * cfg.patch, c0 * cfg.patch),
+                       local_image_shape=(ml * cfg.patch, nl * cfg.patch))
+    # parity in global lattice coordinates, so the order is shard-invariant
+    red_np = (np.add.outer(np.arange(ml) + r0, np.arange(nl) + c0) & 1) == 0
     red_on = {}  # device -> the red mask there
 
     def sweep(problem: Problem, state: GQState) -> tuple[GQState, SweepAux]:
@@ -345,7 +391,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
-        node_f = _node_f(cfg, problem)
+        node_f = _node_f(cfg, problem, **node_at)
 
         def autodiff_grads(st: GQState):
             """The autodiff estimator (heir of ``legacy/gqmap_gpuV3.m``): every
@@ -365,7 +411,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
                 da_n = en - 3.0 * T * (_E_CONST1 + torch.log(torch.sqrt(1.0 - pn * pn) * su * sv))
                 mu = torch.stack([muu, muv])
                 sg = torch.stack([su, sv])
-                u2e, o2e = neighbour_stacks(mu, sg)
+                u2e, o2e = neighbour_stacks(mu, sg, roll)
                 if reduced:
                     ei_e = gq_ei_diff(edge_fd, mu[None], u2e, sg[None], o2e, rou, tab1)
                 else:
@@ -389,8 +435,10 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
             if cfg.gradient_estimator == "prewitt":
                 # quadrature of the chain-rule df/dx against the upsampled
                 # Prewitt fields (legacy/gqmap_gpuV3.m:91-125)
+                chain_at = {} if dist is None else dict(origin=(r0, c0),
+                                                        local_image_shape=(ml, nl))
                 fg = make_node_pot_nearest_chain(problem.I1, problem.I2_tab, *problem.grad_tabs,
-                                                 cfg.lambdad, cfg.epsn, cfg.rfc)
+                                                 cfg.lambdad, cfg.epsn, cfg.rfc, **chain_at)
                 raw_c = gq_accumulate_chain(fg, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
                                             node_tab)
                 gn = finalize_chain(raw_c, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
@@ -407,7 +455,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
             mu = torch.stack([st.muu, st.muv])
             sg = torch.stack([st.sigmau, st.sigmav])
             if edge_route is None:  # truncated-quadratic edges, plain torch
-                u2e, o2e = neighbour_stacks(mu, sg)
+                u2e, o2e = neighbour_stacks(mu, sg, roll)
                 if reduced:
                     raw_e = gq_accumulate_diff(edge_fd, mu[None], u2e, sg[None], o2e, st.rou,
                                                tab1)
@@ -415,22 +463,26 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
                     raw_e = gq_accumulate(edge_f, mu[None], u2e, sg[None], o2e, st.rou, node_tab)
                 ge = finalize(raw_e, a3, sg[None], o2e, st.rou, T, EDGE)
             elif reduced:  # kernel K2, which reads the neighbour itself
-                ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE)
+                halo = None if dist is None else dist.halo(torch.stack([mu, sg]))
+                ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE,
+                                halo=halo)
             else:  # kernel K3
-                u2e, o2e = neighbour_stacks(mu, sg)
+                u2e, o2e = neighbour_stacks(mu, sg, roll)
                 raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)
                 ge = finalize(raw_e, a3, sg[None], o2e, st.rou, T, EDGE)
 
             # --- assembly: endpoint-1 terms stay, endpoint-2 terms go back to the
-            # neighbour that owns them (:37-40) ---
-            def assemble(dn, d1, d2, chan):
-                return (dn + d1[0, chan] + d1[1, chan]
-                        + torch.roll(d2[0, chan], 1, -2) + torch.roll(d2[1, chan], 1, -1))
+            # neighbour that owns them (:37-40); one roll an axis for the four ---
+            d2 = torch.stack([ge.du2, ge.do2])  # (mu | sigma, dir, C, L, M, N)
+            up, left = roll(d2[:, 0], 1, -2), roll(d2[:, 1], 1, -1)
 
-            dmuu = assemble(gn.du1, ge.du1, ge.du2, 0)
-            dmuv = assemble(gn.du2, ge.du1, ge.du2, 1)
-            dsigmau = assemble(gn.do1, ge.do1, ge.do2, 0)
-            dsigmav = assemble(gn.do2, ge.do1, ge.do2, 1)
+            def assemble(dn, d1, k, chan):
+                return dn + d1[0, chan] + d1[1, chan] + up[k, chan] + left[k, chan]
+
+            dmuu = assemble(gn.du1, ge.du1, 0, 0)
+            dmuv = assemble(gn.du2, ge.du1, 0, 1)
+            dsigmau = assemble(gn.do1, ge.do1, 1, 0)
+            dsigmav = assemble(gn.do2, ge.do1, 1, 1)
 
             # --- energy + global mixture gradient (:36, :48) ---
             energy = (torch.where(interior, gn.E, zero).sum()
@@ -457,6 +509,10 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
                 pn=upd(st.pn, dpn, -cfg.corr_tor, cfg.corr_tor))
             dmu_sum = torch.where(mask, dmuu.abs(), zero).sum()
             dsig_sum = torch.where(mask, dsigmau.abs(), zero).sum()
+            if dist is not None:  # one reduction a pass over the shards
+                v = dist.psum(torch.cat([energy.reshape(1), dalpha.reshape(L),
+                                         dmu_sum.reshape(1), dsig_sum.reshape(1)]))
+                energy, dalpha, dmu_sum, dsig_sum = v[0], v[1:L + 1], v[L + 1], v[L + 2]
             return st2, energy, dalpha, dmu_sum, dsig_sum
 
         if cfg.sweep_order == "redblack":
@@ -491,7 +547,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape):
     return sweep
 
 
-def make_segment_runner(cfg: GQMAPConfig, image_shape):
+def make_segment_runner(cfg: GQMAPConfig, image_shape, mesh=None):
     """Multi-sweep runner with the reference's early stop.
 
     ``seg(problem, state, limit)`` runs up to ``limit`` sweeps, recording the
@@ -499,8 +555,18 @@ def make_segment_runner(cfg: GQMAPConfig, image_shape):
     stops after the first sweep with ``it > its`` or ``ptdmu < tor``
     (``gqmap_gpu_mixture.m:75``). Returns ``(state, n_done, energy_buf,
     ptdmu_buf, ptdsigma_buf, stopped)``.
+
+    With ``mesh`` (a :class:`gqmap_tpu_torch.parallel.Mesh`) it runs this
+    rank's shard (``parallel.halo.make_halo_sweep``) on its blocks of the
+    problem and state; the stop flag comes from the summed ``ptdmu``, so
+    every rank stops after the same sweep.
     """
-    sweep = make_sweep(cfg, image_shape)
+    if mesh is None:
+        sweep = make_sweep(cfg, image_shape)
+    else:
+        from ..parallel.halo import make_halo_sweep
+
+        sweep = make_halo_sweep(cfg, image_shape, mesh)
     dt = _dt(cfg)
 
     def seg(problem: Problem, state: GQState, limit: int):
@@ -612,10 +678,21 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
     the iteration counter restarted, means kept (``legacy/gqmap_gpuV2.m:51-62``).
     ``out_dir`` receives the MAP's Middlebury colour coding as ``<it>.png``
     at every readout (:func:`_write_viz`; needs ``imageio``).
+
+    With ``mesh`` (a :class:`gqmap_tpu_torch.parallel.Mesh`; every rank of
+    the job calls ``solve`` with the same arguments) each rank builds the
+    whole problem and state, keeps its block of the lattice and runs the
+    sweeps on it (``parallel.halo``). Each readout gathers the state, so
+    the traces, the MAP and the ``SolveResult`` (whose state is the whole
+    one) are the same on every rank; checkpoints are gathered and written by
+    rank 0, and a resume slices each rank's block from the file. ``verbose``
+    prints and ``out_dir`` is written on rank 0 only; ``callback`` runs on
+    every rank, with the whole state. With no process group it raises.
     """
+    lead = True  # the rank that prints and writes
     if mesh is not None:
-        raise NotImplementedError("multi-GPU solve is not ported yet (ROADMAP Queue 1 item 4, "
-                                  "Slice B item 15)")
+        mesh.xy_group()  # raises with no process group; formed by every rank together
+        lead = mesh.rank == 0
 
     tflow = unknown = None
     if gt_flow is not None:
@@ -647,7 +724,18 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
                 .contiguous(),
                 muv=fl[..., 1].clamp(flow_range.minv, flow_range.maxv).expand_as(state.muv)
                 .contiguous())
-    seg = make_segment_runner(cfg, np.shape(I1))
+    readout = problem  # the whole frames and interior, for logP
+    whole = _identity
+    if mesh is not None:
+        from ..parallel.halo import psum
+        from ..parallel.sharded import gather_state, shard_problem, shard_state
+
+        readout = problem._replace(cheb=None)
+        problem, state = shard_problem(problem, mesh), shard_state(state, mesh)
+
+        def whole(st):
+            return gather_state(st, mesh)
+    seg = make_segment_runner(cfg, np.shape(I1), mesh)
     map_fn = make_map_fn(cfg)
     logp_fn = make_logp_fn(cfg, np.shape(I1))
 
@@ -678,8 +766,12 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
         if force or (checkpoint_every and it_done - last_saved >= checkpoint_every):
             from ..utils.checkpoint import save_checkpoint
 
-            save_checkpoint(checkpoint_path, state, cfg, best_aepe=best_aepe, AEPE=AEPE,
-                            Energy=Energy, logP=logP, dmu=dmu_trace)
+            st = whole(state)
+            if lead:
+                save_checkpoint(checkpoint_path, st, cfg, best_aepe=best_aepe, AEPE=AEPE,
+                                Energy=Energy, logP=logP, dmu=dmu_trace)
+            if mesh is not None:  # the file is whole on every rank's return
+                torch.distributed.barrier()
             last_saved = it_done
 
     pending_reset = reset_at if reset_at else None
@@ -696,28 +788,32 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
         it_done += n
         if cfg.debug_finite:
             for f in state._fields:
-                bad = int((~torch.isfinite(getattr(state, f))).sum())
+                bad = (~torch.isfinite(getattr(state, f))).sum()
+                if mesh is not None:  # every rank raises, or none
+                    bad = psum(bad.reshape(1), mesh.xy_group())[0]
+                bad = int(bad)
                 if bad:
                     raise FloatingPointError(
                         f"non-finite state leaf {f!r} after sweep {it_done} ({bad} bad "
                         "values; likely the 1/(1-p^2) blow-up near the correlation clamp)")
 
         if n == limit:  # reached the eval iteration
-            map_t = map_fn(state)
+            st = whole(state)
+            map_t = map_fn(st)
             last_map = map_t.cpu().numpy()
-            lp = float(logp_fn(problem, map_t))
+            lp = float(logp_fn(readout, map_t))
             logP[it_done - 1] = lp
             if tflow is not None:
                 aepe = aepe_of(cfg, last_map, tflow, unknown)
                 AEPE[it_done - 1] = aepe
                 best_aepe = min(best_aepe, aepe)
-            if out_dir is not None:
+            if out_dir is not None and lead:
                 _write_viz(cfg, last_map, out_dir, it_done)
-            if verbose:
+            if verbose and lead:
                 print(f"[{it_done}] dmu={dmu_trace[it_done - 1]:.3e} "
                       f"E={Energy[it_done - 1]:.6e} AEPE={best_aepe:.4f} logP={lp:.6e}")
             if callback is not None:
-                callback(it_done, state, last_map, AEPE[it_done - 1], lp)
+                callback(it_done, st, last_map, AEPE[it_done - 1], lp)
         if pending_reset is not None and it_done >= pending_reset:
             # reset_para: re-widen sigma, zero the correlations, restart the
             # schedule; keep mu and best_aepe
@@ -731,7 +827,7 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
             it_done = 0
             last_saved = 0
             pending_reset = None
-            if verbose:
+            if verbose and lead:
                 print("[reset_para] sigma, pn and rou have been reset")
             continue
         save()
@@ -739,6 +835,7 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
             break
 
     save(force=True)
+    state = whole(state)
     if last_map is None:
         last_map = map_fn(state).cpu().numpy()
     alpha = softmax(state.w) if cfg.alpha_update == "softmax_natural" else state.w
@@ -759,6 +856,10 @@ def solve(cfg: GQMAPConfig, I1, I2, gt_flow=None, flow_range: FlowRange | None =
         iters=it_done,
         state=state,
     )
+
+
+def _identity(x):
+    return x
 
 
 def _write_viz(cfg: GQMAPConfig, map_flow, out_dir, it):

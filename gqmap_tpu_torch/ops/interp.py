@@ -42,6 +42,12 @@ def pad_cubic(V: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _index(x: torch.Tensor) -> torch.Tensor:
+    """``x.long()`` with NaN taken to 0, XLA's conversion of a NaN: the gathers
+    of a NaN query then read an element in range (negative indices wrap)."""
+    return torch.nan_to_num(x, nan=0.0).long()
+
+
 def _cubic_weights(f):
     """The four cubic-convolution weights of MATLAB interp2: 2x the Keys
     (a=-1/2) kernel at ``1+f, f, 1-f, 2-f``, so the product of an x- and a
@@ -71,8 +77,10 @@ def sample_bicubic(VV: torch.Tensor, Xq, Yq) -> torch.Tensor:
     iy = torch.clamp(torch.floor(Yq), max=M - 1.0)
     so = Xq - ix
     to = Yq - iy
-    # 0-based top-left corner of the 4x4 patch in VV: row iy-1, col ix-1
-    base = (iy.long() - 1) * N2 + (ix.long() - 1)
+    # 0-based top-left corner of the 4x4 patch in VV: row iy-1, col ix-1. A NaN
+    # query's index becomes 0, as XLA converts it, so the gather stays in range
+    # and the NaN weights carry the NaN into its result, as in the JAX package.
+    base = (_index(iy) - 1) * N2 + (_index(ix) - 1)
 
     wy = _cubic_weights(to)
     wx = _cubic_weights(so)
@@ -167,7 +175,7 @@ def interp2_linear(V: torch.Tensor, Xq, Yq, fill=math.nan) -> torch.Tensor:
     iy = y.floor().clamp(1, M - 1)
     fx = x - ix
     fy = y - iy
-    idx = (iy.long() - 1) * N + (ix.long() - 1)
+    idx = (_index(iy) - 1) * N + (_index(ix) - 1)
     flat = V.reshape(-1)
 
     def tap(di, dj):

@@ -27,19 +27,25 @@ from typing import Callable
 
 import torch
 
-from .interp import sample_bicubic
+from .interp import _index, sample_bicubic
 
 __all__ = ["make_node_pot_bicubic", "make_node_pot_nearest", "make_node_pot_quadratic",
            "make_node_pot_windowed", "make_node_pot_nearest_chain", "make_edge_pot",
            "make_edge_pot_diff", "make_edge_pot_truncquad", "make_edge_pot_truncquad_diff"]
 
 
-def _grid(I1: torch.Tensor):
-    """1-based column (1, No) and row (Mo, 1) coordinates of the frame."""
-    Mo, No = I1.shape
-    jj = 1.0 + torch.arange(No, dtype=I1.dtype, device=I1.device).reshape(1, No)
-    ii = 1.0 + torch.arange(Mo, dtype=I1.dtype, device=I1.device).reshape(Mo, 1)
-    return jj, ii
+def _grid(I1: torch.Tensor, origin=None, local_image_shape=None):
+    """1-based column (1, Nl) and row (Ml, 1) coordinates of the pixels a
+    potential covers, and frame 1 there: the whole frame, or on a shard the
+    ``local_image_shape`` block at pixel ``origin`` (row, column). Frame 2's
+    table always stays whole: a bounded-range lookup may touch any window."""
+    Ml, Nl = I1.shape if local_image_shape is None else local_image_shape
+    r0, c0 = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
+    jj = (1.0 + c0) + torch.arange(Nl, dtype=I1.dtype, device=I1.device).reshape(1, Nl)
+    ii = (1.0 + r0) + torch.arange(Ml, dtype=I1.dtype, device=I1.device).reshape(Ml, 1)
+    if origin is None and local_image_shape is None:
+        return jj, ii, I1
+    return jj, ii, I1[r0:r0 + Ml, c0:c0 + Nl]
 
 
 def _nearest_index(tab_shape, rfc: int):
@@ -47,20 +53,23 @@ def _nearest_index(tab_shape, rfc: int):
     to 1-based frame position ``(Xq, Yq)`` in a ``2^rfc``-x upsampled table,
     ``round((pos - 1) 2^rfc + 1)`` clamped to the table (``legacy/gqmap_ctf.m:96``;
     MATLAB's round is half away from zero and positions are >= ~1, so
-    ``floor(x + 0.5)``)."""
+    ``floor(x + 0.5)``). A NaN position takes index 0 before the clamp's
+    ``- 1``, as XLA converts it, so the lookup reads the element that the JAX
+    package's ``take`` reads there (a negative index wraps)."""
     MM, NN = tab_shape
     r = float(1 << rfc)
 
     def index(Xq, Yq):
-        ci = torch.floor((Yq - 1.0) * r + 1.5).clamp(1, MM).long() - 1
-        cj = torch.floor((Xq - 1.0) * r + 1.5).clamp(1, NN).long() - 1
+        ci = _index(torch.floor((Yq - 1.0) * r + 1.5).clamp(1, MM)) - 1
+        cj = _index(torch.floor((Xq - 1.0) * r + 1.5).clamp(1, NN)) - 1
         return ci * NN + cj
 
     return index
 
 
 def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
-                          epsn: float, patch: int = 1) -> Callable:
+                          epsn: float, patch: int = 1, origin=None,
+                          local_image_shape=None) -> Callable:
     """Return ``f(x1, x2) -> node potential`` over the ``(Mo, No)`` lattice.
 
     ``VV = pad_cubic(I2)``; ``x1``/``x2`` are displacements of shape
@@ -69,9 +78,14 @@ def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
     patch``. For ``patch > 1`` each flow node sums the potential over its
     ``patch x patch`` pixel block (super lattice): the displacements are
     repeated to full resolution, sampled, and summed back per block.
+
+    On a shard, ``origin`` is the image-pixel offset (row, column) of its
+    block and ``local_image_shape`` the block's pixel extent: ``f`` then
+    covers that block of frame 1 (the JAX package's ``origin`` and
+    ``local_image_shape``).
     """
+    jj, ii, I1 = _grid(I1, origin, local_image_shape)
     Mo, No = I1.shape
-    jj, ii = _grid(I1)
 
     def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         if patch > 1:
@@ -88,10 +102,12 @@ def make_node_pot_bicubic(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
 
 
 def make_node_pot_nearest(I1: torch.Tensor, I2_cont: torch.Tensor, lambdad: float,
-                          epsn: float, rfc: int) -> Callable:
+                          epsn: float, rfc: int, origin=None,
+                          local_image_shape=None) -> Callable:
     """Legacy data term: nearest lookup into ``I2_cont = upsample_cubic(I2,
-    rfc)`` at the displaced position."""
-    jj, ii = _grid(I1)
+    rfc)`` at the displaced position; ``origin`` and ``local_image_shape`` as
+    in :func:`make_node_pot_bicubic`."""
+    jj, ii, I1 = _grid(I1, origin, local_image_shape)
     index = _nearest_index(I2_cont.shape, rfc)
     flat = I2_cont.reshape(-1)
 
@@ -103,16 +119,21 @@ def make_node_pot_nearest(I1: torch.Tensor, I2_cont: torch.Tensor, lambdad: floa
 
 
 def make_node_pot_windowed(I1: torch.Tensor, tab: torch.Tensor, lambdad: float, epsn: float,
-                           rg: int, base: str, rfc: int = 6) -> Callable:
+                           rg: int, base: str, rfc: int = 6, origin=None,
+                           local_image_shape=None) -> Callable:
     """Overlapping-window data cost (``legacy/gqmap_cpuV2.m:29-33``,
     ``gqmap_cpuV3.m:30-32``): the node potential at pixel (i, j) is the mean
     Charbonnier cost over its (2rg+1)^2 window, the candidate displacement
     shared across the window; frame 1 is edge-padded. ``base`` picks the
     frame-2 sampler: ``"bicubic"`` (``tab = pad_cubic(I2)``) or ``"nearest"``
-    (``tab = upsample_cubic(I2, rfc)``)."""
-    Mo, No = I1.shape
+    (``tab = upsample_cubic(I2, rfc)``). ``origin`` and ``local_image_shape``
+    as in :func:`make_node_pot_bicubic`; the window's frame-1 taps come from
+    the whole padded frame, so taps across a shard's edge read the true
+    neighbours."""
     W = (2 * rg + 1) ** 2
-    jj, ii = _grid(I1)
+    jj, ii, _ = _grid(I1, origin, local_image_shape)
+    Mo, No = ii.shape[0], jj.shape[1]
+    r0, c0 = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
     if base == "nearest":
         index = _nearest_index(tab.shape, rfc)
         flat = tab.reshape(-1)
@@ -130,7 +151,7 @@ def make_node_pot_windowed(I1: torch.Tensor, tab: torch.Tensor, lambdad: float, 
         acc = None
         for di in range(-rg, rg + 1):
             for dj in range(-rg, rg + 1):
-                I1s = I1p[rg + di:rg + di + Mo, rg + dj:rg + dj + No]
+                I1s = I1p[r0 + rg + di:r0 + rg + di + Mo, c0 + rg + dj:c0 + rg + dj + No]
                 term = torch.sqrt(epsn + (I1s - sample(jj + dj + x1, ii + di + x2)) ** 2)
                 acc = term if acc is None else acc + term
         return -lambdad * acc / W
@@ -140,16 +161,19 @@ def make_node_pot_windowed(I1: torch.Tensor, tab: torch.Tensor, lambdad: float, 
 
 def make_node_pot_nearest_chain(I1: torch.Tensor, I2_cont: torch.Tensor,
                                 I2u_cont: torch.Tensor, I2v_cont: torch.Tensor,
-                                lambdad: float, epsn: float, rfc: int) -> Callable:
+                                lambdad: float, epsn: float, rfc: int, origin=None,
+                                local_image_shape=None) -> Callable:
     """Chain-rule node term of the Prewitt estimator family
     (``legacy/gqmap_gpuV3.m:91-125``): ``fg(x1, x2) -> (f, df/dx1, df/dx2)``,
     the spatial derivatives of frame 2 read from the upsampled Prewitt fields
     at the same fine-grid cell as the value,
 
         f = -lambda_d sqrt(eps + diff^2),   diff = I1 - I2(pos),
-        df/dx1 = lambda_d diff I2u(pos) / sqrt(eps + diff^2).
+        df/dx1 = lambda_d diff I2u(pos) / sqrt(eps + diff^2);
+
+    ``origin`` and ``local_image_shape`` as in :func:`make_node_pot_bicubic`.
     """
-    jj, ii = _grid(I1)
+    jj, ii, I1 = _grid(I1, origin, local_image_shape)
     index = _nearest_index(I2_cont.shape, rfc)
     flat, flatu, flatv = (x.reshape(-1) for x in (I2_cont, I2u_cont, I2v_cont))
 

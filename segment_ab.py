@@ -14,9 +14,13 @@ process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
 * ``tpu_fast`` red-black: a 100-sweep segment;
 * 50 ``tpu_fast`` sweeps without the segment's per-sweep flag read: the
   host's time to enqueue them and the time until the card has run them;
-* the torch operators one ``tpu_fast`` and one red-black sweep dispatch
-  (the kernels themselves, launched through ``ctypes``, are not among them):
-  equal counts mean the same glue work on the card and the host.
+* ``full_mixture`` (``quad_chunk=27``, the exact path: the plain bicubic
+  node term and K3): 10 sweeps from the random init, after 2 of warm-up
+  (CUDA events), device-bound where the others are host-bound;
+* the torch operators one ``tpu_fast``, one red-black and one
+  ``full_mixture`` sweep dispatch (the kernels themselves, launched through
+  ``ctypes``, are not among them): equal counts mean the same glue work on
+  the card and the host.
 
 Each time is the median of 3 repeats within the process. Prints one line a
 process, then, as its last line, a JSON summary (each metric's values by
@@ -103,10 +107,29 @@ def one(root: str) -> dict:
         torch.cuda.synchronize()
         card.append((time.perf_counter() - t) / 50 * 1e3)
     out.update(host_enqueue_ms=float(np.median(host)), card_done_ms=float(np.median(card)))
-    for name, order in (("tpu_fast", "jacobi"), ("redblack", "redblack")):
-        sw = pg.make_sweep(dataclasses.replace(cfg, sweep_order=order), (H, W))
+    fm = GQMAPConfig.full_mixture(quad_chunk=27)
+    fprob = pg.make_problem(fm, I1, I2, fr, dev)
+    fsweep = pg.make_sweep(fm, (H, W))
+    st = fsweep(fprob, fsweep(fprob, st0)[0])[0]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        s = st0
+        for _ in range(10):
+            s, _ = fsweep(fprob, s)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / 10)
+    out["full_mixture_ms"] = float(np.median(times))
+    for name, sw, prob in (
+            ("tpu_fast", pg.make_sweep(cfg, (H, W)), problem),
+            ("redblack", pg.make_sweep(dataclasses.replace(cfg, sweep_order="redblack"), (H, W)),
+             problem),
+            ("full_mixture", fsweep, fprob)):
         with _op_count_mode() as count:
-            sw(problem, st0)
+            sw(prob, st0)
         out[f"{name}_ops_per_sweep"] = count.n
     return out
 

@@ -53,7 +53,8 @@ def test_port_imports_without_jax():
             "'gqmap_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert {'gqmap_tpu_torch.cli.main', 'gqmap_tpu_torch.io.preprocess', "
-            "'gqmap_tpu_torch.models.ctf'} <= set(names), names; "
+            "'gqmap_tpu_torch.models.ctf', 'gqmap_tpu_torch.parallel.halo'} <= set(names), "
+            "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gqmap_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
@@ -67,10 +68,14 @@ def test_unported_config_names_its_roadmap_item():
 
 
 def test_mesh_names_its_roadmap_item():
-    # multi-GPU is ROADMAP Queue 1 item 4; solve refuses a mesh before any work
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # the multi-device solve (ROADMAP Queue 1 item 4) needs its ranks: with no
+    # process group solve refuses a mesh before any work, naming the command
+    # that starts them
+    from gqmap_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         gqmap_tpu_torch.solve(gqmap_tpu_torch.GQMAPConfig.tpu_fast(), None, None,
-                              mesh=object(), device="cpu")
+                              mesh=make_mesh(4, rank=0), device="cpu")
 
 
 @pytest.mark.parametrize("override", [

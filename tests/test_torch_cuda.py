@@ -149,6 +149,40 @@ def test_edge_reduced_kernel_matches_plain(dev, dtype, L, M, N, k1, generic):
         _close(getattr(got, name), getattr(want, name), dtype, name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("split", [(2, 2), (1, 4), (4, 1)])
+def test_edge_reduced_kernel_with_halo(dev, dtype, split):
+    # a shard's K2: one launch on the block padded with its halo, cropped,
+    # against the padded plain version, and equal bit for bit to the whole
+    # lattice's launch on that block (the unchanged kernel, per element)
+    L, M, N, k1 = 3, 36, 52, 21
+    g = torch.Generator().manual_seed(M * N)
+    mu, sg = _edge_state(g, L, M, N)
+    rou = 0.9 * (2 * torch.rand((2, 2, L, M, N), generator=g, dtype=torch.float64) - 1)
+    alpha = torch.tensor([0.5, 0.3, 0.2], dtype=dtype, device=dev)
+    T = torch.tensor(0.17, dtype=dtype, device=dev)
+    mu, sg, rou = (x.to(dev, dtype) for x in (mu, sg, rou))
+    rest = (alpha, T, k1, 5.0, 1e-6, EDGE)
+    whole = edge_reduced_gq.edge_reduced_grads_cuda(mu, sg, rou, *rest)
+    px, py = split
+    ml, nl = M // px, N // py
+    ms = torch.stack([mu, sg])
+    for i in range(px):
+        for j in range(py):
+            blk = np.s_[..., i * ml:(i + 1) * ml, j * nl:(j + 1) * nl]
+            r, c = ((i + 1) * ml) % M, ((j + 1) * nl) % N
+            halo = (ms[..., r:r + 1, j * nl:(j + 1) * nl], ms[..., i * ml:(i + 1) * ml, c:c + 1])
+            args = (mu[blk].contiguous(), sg[blk].contiguous(), rou[blk].contiguous(), *rest)
+            n = edge_reduced_gq.edge_reduced_grads_cuda.launches
+            got = edge_reduced_gq.edge_reduced_grads_cuda(*args, halo=halo)
+            want = edge_reduced_gq.edge_reduced_grads_torch(*args, halo=halo)
+            torch.cuda.synchronize()
+            assert edge_reduced_gq.edge_reduced_grads_cuda.launches == n + 1
+            for name in want._fields:
+                _close(getattr(got, name), getattr(want, name), dtype, name)
+                assert torch.equal(getattr(got, name), getattr(whole, name)[blk]), name
+
+
 @pytest.mark.parametrize("K", [5, 9])
 def test_sweep_launches_both_kernels(dev, K):
     # K = 9 runs K2's instance for K1 = 21, K = 5 its generic one (K1 = 13);

@@ -348,8 +348,13 @@ def test_both_command_lines_agree(data, shared_init, capsys, cmd):
 
 @pytest.mark.parametrize("cmd", list(BOTH))
 def test_cli_devices_raises(data, capsys, cmd):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        pcli.main(BOTH[cmd] + ["--device", "cpu", "--devices", "2"])
+    # --devices must equal the world size: without a process group it raises
+    # and prints the command that starts the ranks
+    argv = BOTH[cmd] + ["--device", "cpu", "--devices", "2"]
+    with pytest.raises(RuntimeError, match="torch.distributed.run --nproc-per-node 2"):
+        pcli.main(argv)
+    assert ("python -m torch.distributed.run --nproc-per-node 2 -m gqmap_tpu_torch.cli.main "
+            + " ".join(argv)) in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("cmd", list(BOTH))

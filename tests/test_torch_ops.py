@@ -139,3 +139,106 @@ def test_flow_to_color_is_the_jax_copy():
     got, want = flowviz.flow_to_color(flow), jflowviz.flow_to_color(flow)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- D3: a NaN query gives what the JAX package gives (ROADMAP Queue 3)
+
+def _nan_queries(M=8, N=9, seed=7):
+    r = np.random.default_rng(seed)
+    x1 = r.uniform(-2, 2, (2, M, N))
+    x2 = r.uniform(-2, 2, (2, M, N))
+    x1[0, 2, 3] = np.nan          # column coordinate only
+    x2[0, 4, 5] = np.nan          # row coordinate only
+    x1[1, 0, 0] = x2[1, 0, 0] = np.nan  # both, at the corner
+    x1[1, 7, 8] = np.nan          # the last pixel
+    return x1, x2
+
+
+def _same_with_nans(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL, equal_nan=True)
+
+
+def test_sample_bicubic_nan_query_gives_nan():
+    V = np.random.default_rng(0).uniform(0, 1, (8, 9))
+    VV = jinterp.pad_cubic(jnp.asarray(V))
+    Xq, Yq = np.array([2.5, np.nan, 4.0, np.nan]), np.array([3.0, 2.0, np.nan, np.nan])
+    got = interp.sample_bicubic(t(VV), t(Xq), t(Yq))
+    want = jinterp.sample_bicubic(VV, jnp.asarray(Xq), jnp.asarray(Yq))
+    _same_with_nans(got, want)
+    assert np.isnan(got.numpy()[1:]).all() and np.isfinite(got.numpy()[0])
+
+
+def test_interp2_linear_nan_query_matches():
+    V = np.random.default_rng(1).uniform(0, 1, (8, 9))
+    Xq, Yq = np.array([2.5, np.nan, 4.0]), np.array([3.0, 2.0, np.nan])
+    _same_with_nans(interp.interp2_linear(t(V), t(Xq), t(Yq)),
+                    jinterp.interp2_linear(jnp.asarray(V), jnp.asarray(Xq), jnp.asarray(Yq)))
+
+
+@pytest.mark.parametrize("kind", ["bicubic", "nearest", "windowed_nearest", "windowed_bicubic",
+                                  "chain"])
+def test_node_potentials_nan_query_match(kind):
+    # the nearest lookups read, at a NaN query, the element JAX's take reads
+    # there (XLA converts a NaN index to 0); the bicubic sampler gives NaN
+    r = np.random.default_rng(3)
+    I1, I2 = r.uniform(0, 1, (8, 9)), r.uniform(0, 1, (8, 9))
+    x1, x2 = _nan_queries()
+    jI1, jI2 = jnp.asarray(I1), jnp.asarray(I2)
+    up, pad = jinterp.upsample_cubic(jI2, 2), jinterp.pad_cubic(jI2)
+    if kind == "bicubic":
+        pair = (potentials.make_node_pot_bicubic(t(I1), t(pad), 1.0, 0.01),
+                jpot.make_node_pot_bicubic(jI1, pad, 1.0, 0.01))
+    elif kind == "nearest":
+        pair = (potentials.make_node_pot_nearest(t(I1), t(up), 1.0, 0.01, 2),
+                jpot.make_node_pot_nearest(jI1, up, 1.0, 0.01, 2))
+    elif kind.startswith("windowed"):
+        base = kind.split("_")[1]
+        tab = up if base == "nearest" else pad
+        pair = (potentials.make_node_pot_windowed(t(I1), t(tab), 1.0, 0.01, 1, base, 2),
+                jpot.make_node_pot_windowed(jI1, tab, 1.0, 0.01, 1, base, 2))
+    else:
+        pair = (potentials.make_node_pot_nearest_chain(t(I1), t(up), t(2 * up), t(3 * up),
+                                                       1.0, 0.01, 2),
+                jpot.make_node_pot_nearest_chain(jI1, up, 2 * up, 3 * up, 1.0, 0.01, 2))
+    got = pair[0](t(x1), t(x2))
+    want = pair[1](jnp.asarray(x1), jnp.asarray(x2))
+    for g, w in zip(got if kind == "chain" else [got], want if kind == "chain" else [want]):
+        _same_with_nans(g, w)
+
+
+def test_full_mixture_sweep_from_a_nan_mean_matches():
+    # one f64 sweep on the 16x16 toy from a state with a NaN mean at one
+    # interior site: the NaNs land where JAX's land, the finite values agree
+    import jax
+
+    import gqmap_tpu
+    import gqmap_tpu_torch
+    from _torch_common import port_state
+    from gqmap_tpu.models import gqmap as jg
+    from gqmap_tpu_torch.convert import problem_from_numpy
+    from gqmap_tpu_torch.models import gqmap as pg
+    from scipy.ndimage import gaussian_filter
+
+    kw = dict(K=5, L=2, dtype="float64")
+    jcfg = gqmap_tpu.GQMAPConfig.full_mixture(**kw)
+    r = np.random.default_rng(0)
+    I1 = gaussian_filter(r.uniform(0, 255, (16, 16)), 1.5)
+    I2 = np.roll(I1, 1, axis=1)
+    fr = gqmap_tpu.FlowRange(-2.0, 2.0, -2.0, 2.0)
+    jp = jg.make_problem(jcfg, I1, I2)._replace(rng=fr)
+    js = jg.init_state(jcfg, fr, I1.shape)
+    js = js._replace(muu=js.muu.at[1, 6, 9].set(jnp.nan))
+    want, waux = jax.jit(jg.make_sweep(jcfg, (16, 16)))(jp, js)
+    pp = problem_from_numpy(dict(I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
+                                 interior=np.asarray(jp.interior), rng=tuple(fr), cheb=None))
+    got, gaux = pg.make_sweep(gqmap_tpu_torch.GQMAPConfig.full_mixture(**kw), (16, 16))(
+        pp, port_state(js))
+    assert np.isnan(np.asarray(want.muu)).any()
+    for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou", "w"):
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=f)
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, equal_nan=True, err_msg=f)
+    for f in ("energy", "ptdmu"):
+        _same_with_nans(getattr(gaux, f), getattr(waux, f))
