@@ -12,7 +12,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    float32 inner loops per mode (recur and exp) and of the whole float32
    function of K2's and K3's main-path instance per quadrature point (set-up
    and epilogue included), which give each kernel's issue bound at 132
-   SMs x 128 lanes x the card's maximum SM clock;
+   SMs x 128 lanes x the card's maximum SM clock; then the card's ceilings
+   (``roofline.measure_ceilings``: memory stream, float32 FMA chain, gather,
+   ``expf`` and ``rsqrtf`` rates), whose rates give every kernel's bound a
+   second time beside the data sheet's (``bound_ms_measured``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: K1 (cosine mode sums) in each of its variants
    ("v1", "adaptive", "recur") on the coefficient field of a 77x300 crop and
@@ -36,7 +39,9 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    of its bytes at 3.35 TB/s (each input read once and each output written
    once), its float32 operations at 67 TFLOP/s (the fewest the function
    needs: for K2 and K3 the paired form) and, for K2 and K3, its square
-   roots at 16 an SM a clock;
+   roots at 16 an SM a clock, from the work counts of
+   ``gqmap_tpu_torch/kernels/roofline.py`` (``k1_work``, ``k2_work``,
+   ``k3_work``), and the same at the measured ceilings;
 4. one full 376x452 sweep from the same state three ways (kernels f32, plain
    f32, plain f64 = the golden), from the random init and from a converged-
    width state (sigma = 0.05): the kernel arm's error against the golden
@@ -165,12 +170,40 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    within 10% of phase 5's single-process solve at it = 300; its wall time,
    4 ranks time-sliced on one card, is printed and is no multi-GPU speed),
    and the command line's one JSON line, from rank 0. A failed rank fails
-   the run.
+   the run;
+25. the Chebyshev data term (``data_term="chebyshev"``, plain torch, as the
+   JAX package has it in XLA): one 376x452 sweep three ways of
+   ``full_mixture(quad_chunk=27, cheb_p=96, cheb_q=16)`` through K3 and of
+   ``tpu_fast(data_term="chebyshev")`` through K2, from the init and the
+   sigma = 0.05 states (the phase 4 rule), each kernel arm's launches, ms a
+   sweep, node term and peak memory;
+26. a ``full_mixture`` Chebyshev solve through ``solve`` (300 sweeps, a
+   readout every 100; 100 and 50 where a sweep takes more than 0.1 s) with
+   every launch counter set to 0 just before it: finite energy, the AEPE at
+   the end below that at it = 1, K3 once a sweep, K1 and K2 not at all; its
+   peak memory;
+27. the roofline harness at 376x452 on the measured ceilings:
+   ``flagship_roofline`` (K1 alone in "v1" against its operation, exp and
+   memory bounds; the ``tpu_fast`` sweep in a 300-sweep segment) and
+   ``sweep_roofline`` over ``cosine``, ``chebyshev``, ``nearest`` and
+   ``bicubic``; every bound below the time it bounds;
+28. ``python -m gqmap_tpu_torch.cli.main bench`` in three processes, one
+   after the other: one JSON line each with ``bench.py``'s keys, finite
+   positive rates and the card's name and power limit; the three converged
+   rates and their spread;
+29. D4: ``run --devices 2`` under ``python -m torch.distributed.run`` with 2
+   ranks on the card, 5 runs started together, every one exiting 0 with one
+   JSON line (the command ends the process group it formed);
+30. last, since the profiler's hooks may stay in the process: one
+   ``tpu_fast``, ``full_mixture`` and Chebyshev ``full_mixture`` sweep from
+   sigma = 0.05 under ``torch.profiler``: wall and device time, the device's
+   idle share, the kernel count and the top operators.
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
 K3; ``launches_by_path`` every path's, the drivers', ``ctf``'s and the
-sharded paths' (each rank's) included;
+sharded paths' (each rank's), the Chebyshev paths' and the roofline
+phase's included;
 ``super`` the checks, times and bounds on the super lattice, ``legacy``
 K3's on the L = 1 lattice (K = 9, 17, and ``ctf_level``'s K = 11 at both
 sizes) and ``windowed`` K1's on the window-meaned field), and last
@@ -190,25 +223,17 @@ import time
 import numpy as np
 import torch
 
+from gqmap_tpu_torch.kernels import roofline
+from gqmap_tpu_torch.kernels.roofline import TIMING, kernel_ms
+
 H, W = 376, 452          # frame size of the synthetic pair (bench.py)
 FR = (-10.0, 2.0, -2.0, 2.0)  # flow range: the constant GT gives a degenerate box
 F64_TOL = 1e-10
 F32_TOL = (2e-4, 2e-5)   # (of the output's largest magnitude, relative)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-SMS, LANES_PER_CLOCK = 132, 128  # H100 SXM: SMs, thread-instructions an SM issues a clock
-SFU_PER_CLOCK = 16         # H100: special-function (MUFU) results an SM gives a clock
-FP32_FLOPS_PER_S = 67e12   # H100 SXM float32 peak outside the tensor cores (data sheet)
-# The fewest floating-point operations of each function (an FMA counts two, a
-# sqrt one): a mode of K1's recur body (weights 4, the six b sums 14, weight
-# recurrences 4, rotation 6); for K2 and K3 the paired form, where a point and
-# its mirror share their work: a K3 pair (q = A XI + B XJ 3, d+- 2,
-# eps + d^2 4, two roots 2, their sum and difference 2, six sums 12), a K2
-# pair (sqrt(c) x 1, d+- 2, eps + d^2 4, two roots 2, sum and difference 2,
-# three sums 6), the centre node of each (eps + d^2 2, its root 1, two sums
-# 4), and the per-element rest.
-FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
-         "K3 pair": 25, "K3 centre": 7, "K3 element": 10}
-TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
+LANES_PER_CLOCK = 128  # H100 SXM: thread-instructions an SM issues a clock
+# the rates of bound(), per second: "datasheet" (at the card's maximum SM
+# clock) and "measured" (roofline.measure_ceilings), set in main()
+RATES = {}
 FAILURES = []
 
 
@@ -310,17 +335,23 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
     return per
 
 
-def bound(nbytes, flops, roots=0, root_rate=None):
-    """The least time of a call on the card, the largest of: its bytes (each
-    input read once, each output written once) at the memory rate, its
-    float32 operations at the peak rate, and its square roots at
-    ``root_rate`` (a MUFU.RSQ each, 16 an SM a clock)."""
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    t_ops = max(t_flops, roots / root_rate * 1e3 if roots else 0.0)
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_terms_ms=dict(bytes=t_bytes, flops=t_flops,
-                                    roots=roots / root_rate * 1e3 if roots else None))
+def bound(work):
+    """The least time of a call on the card for ``work`` (a
+    ``roofline.k*_work`` count), the largest of: its bytes (each input read
+    once, each output written once) at 3.35 TB/s, its float32 operations at
+    67 TFLOP/s, and its square roots (a MUFU.RSQ each) at 16 an SM a clock;
+    beside it the same at the measured ceilings (``bound_ms_measured``)."""
+    rec = roofline.bound(work, RATES["datasheet"])
+    measured = roofline.bound(work, RATES["measured"])
+    return dict(rec, bound_ms_measured=measured["bound_ms"],
+                bound_by_measured=measured["bound_by"])
+
+
+def fmt_bound(rec):
+    """A ``bound()`` record as text: the data sheet's bound, then the measured one."""
+    return (f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (data sheet), "
+            f"{rec['bound_ms_measured']:.4f} ms by {rec['bound_by_measured']} (measured "
+            "ceilings)")
 
 
 def time_ms(fn, n):
@@ -337,34 +368,28 @@ def time_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def kernel_ms(fn, windows=TIMING[0], n=TIMING[1]):
-    """Device time of one call of ``fn``: CUDA events around ``windows``
-    windows of ``n`` calls after one warm-up; returns (median, minimum). Each
-    window waits behind a spin of the card (``torch.cuda._sleep``) that lasts
-    longer than the host takes to enqueue its ``n`` calls, so the calls run
-    back to back and the window times the card, not the host's pace; the spin
-    doubles until it does."""
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler`` (after one unprofiled):
+    its wall time to a synchronise, the summed device time of the kernels it
+    launched, the device's idle share of the wall time (the profiler's own
+    host cost included), the kernel count and the six aten operators with
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    times, spin = [], 2 ** 24
-    while len(times) < windows:
-        s0, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        s0.record()
-        torch.cuda._sleep(spin)
-        t0.record()
-        h = time.perf_counter()
-        for _ in range(n):
-            fn()
-        host_ms = (time.perf_counter() - h) * 1e3
-        t1.record()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        if host_ms < s0.elapsed_time(t0):
-            times.append(t0.elapsed_time(t1) / n)
-        elif spin < 2 ** 32:
-            spin *= 2
-        else:
-            raise RuntimeError(f"the host takes {host_ms:.3f} ms to enqueue {n} calls")
-    return float(np.median(times)), min(times)
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return dict(wall_ms=wall, device_ms=device, idle_share=1.0 - device / wall,
+                kernels=len(kernels), top_ops_device_ms={e.key: e.self_device_time_total / 1e3
+                                                         for e in ops})
 
 
 def compare(got, want, dtype):
@@ -420,7 +445,7 @@ def l1_probes(st, gen):
     }
 
 
-def k3_on_l1(label, cfg, probes, root_rate):
+def k3_on_l1(label, cfg, probes):
     """K3 through ``cfg``'s rule on the L = 1 edge lattice of each probe, in
     float64 and float32 against its plain version, and at the clamp in
     float32 against the f64 golden (ratio rule); returns the warm float32
@@ -452,16 +477,12 @@ def k3_on_l1(label, cfg, probes, root_rate):
             if sname != "warm" or dtype != torch.float32:
                 continue
             ms = kernel_ms(lambda: edge_gq.edge_gq_cuda(*args))
-            n_el = rou.numel()
-            nbytes = sum(x.nbytes for x in (mu, sg, rou)) + 6 * n_el * 4
-            flops = n_el * (K * K // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
-                            + FLOPS["K3 element"])
             rec = dict(shape=list(shape), rule=rule, max_abs_err=a, ms=ms[0], ms_min=ms[1],
                        plain_ms=time_ms(lambda: edge_gq.edge_gq_torch(*args), 3),
-                       library_ms=None, **bound(nbytes, flops, n_el * K * K, root_rate))
+                       library_ms=None, **bound(roofline.k3_work(shape, K)))
             log(f"  K3 {label} {shape} {rule} f32 on {smi('name,power.limit,clocks.sm')} "
-                f"(median, min) {ms} ms; plain {rec['plain_ms']:.4f} ms; bound "
-                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_terms_ms']})")
+                f"(median, min) {ms} ms; plain {rec['plain_ms']:.4f} ms; "
+                f"{fmt_bound(rec)} ({rec['bound_terms_ms']})")
     return rec
 
 
@@ -483,7 +504,7 @@ def flow_sequence(seed, dev, H=H, W=W):
     return I1, I2, gt
 
 
-def drivers(dev, record, by_path, kfns, root_rate, segment_ms):
+def drivers(dev, record, by_path, kfns, segment_ms):
     """Phases 19-23: the command line on a synthetic dataset, the
     coarse-to-fine pyramid, the lambda sweep and the suite loop, the
     structure-texture loop, and K3 at K = 11 on the L = 1 lattice. Every
@@ -765,7 +786,7 @@ def drivers(dev, record, by_path, kfns, root_rate, segment_ms):
     require(K in edge_gq.SPECIALISED and ccfg.L == 1, f"ctf_level: K = {K} (specialised), L = 1")
     for M, N in ((H, W), (-(-H // 8), -(-W // 8))):  # the finest and the coarsest level
         st0 = pg.init_state(c64, fr, (M, N), seed=0, device=dev)
-        rec = k3_on_l1("ctf", ccfg, l1_probes(st0, torch.Generator().manual_seed(11)), root_rate)
+        rec = k3_on_l1("ctf", ccfg, l1_probes(st0, torch.Generator().manual_seed(11)))
         record["K3"]["legacy"][f"K={K} ctf {M}x{N}"] = dict(rec, launches_ctf=by_path["ctf"]["K3"])
 
 SHARDED_MESH = (1, 2, 2)  # (dp, x, y): 4 ranks of 188 x 226 sites at 376 x 452
@@ -1048,6 +1069,252 @@ def sharded(dev, record, by_path, st64, single_aepe):
     log(f"  phase sharded {time.time() - t_phase:.1f} s")
 
 
+CHEB = dict(data_term="chebyshev", cheb_p=96, cheb_q=16)  # sweep_roofline's degrees
+D4_RUNS = 5
+
+
+def chebyshev(dev, record, by_path, kfns, st64, cast):
+    """Phases 25-26: the Chebyshev data term. One 376x452 sweep of
+    ``full_mixture(quad_chunk=27, data_term="chebyshev", cheb_p=96,
+    cheb_q=16)`` (through K3) and of ``tpu_fast(data_term="chebyshev")``
+    (through K2) three ways, from the init and the sigma = 0.05 states, with
+    each kernel arm's launches, ms a sweep and node term; then a ``full_mixture``
+    Chebyshev solve (300 sweeps, a readout every 100; 100 and 50 where a
+    sweep takes more than 0.1 s) with its launch counters set to 0 just
+    before it: finite energy, the AEPE at the end below that at it = 1, K3
+    once a sweep and K1 and K2 not at all, and its peak memory."""
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
+    from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.ops.gq import gq_accumulate
+    from gqmap_tpu_torch.ops.quadrature import build_table
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in kfns.items()}
+
+    I1, I2, gt = synthetic_pair()
+    fr = FlowRange(*FR)
+    conv64 = st64._replace(sigmau=torch.full_like(st64.sigmau, 0.05),
+                           sigmav=torch.full_like(st64.sigmav, 0.05))
+    states = (("init", st64), ("converged", conv64))
+    rec = record["chebyshev"] = dict(card=smi("name,power.limit"))
+    log("phase chebyshev sweeps")
+    for label, c32, kernel in (
+            ("full_mixture chebyshev", GQMAPConfig.full_mixture(quad_chunk=27, **CHEB), "K3"),
+            ("tpu_fast chebyshev", GQMAPConfig.tpu_fast(data_term="chebyshev"), "K2")):
+        c64 = dataclasses.replace(c32, dtype="float64")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.time()
+        p32 = pg.make_problem(c32, I1, I2, fr, dev)
+        torch.cuda.synchronize()
+        t_build = time.time() - t
+        build_peak = torch.cuda.max_memory_allocated() - base
+        probs = {torch.float32: p32, torch.float64: pg.make_problem(c64, I1, I2, fr, dev)}
+        kern = pg.make_sweep(dataclasses.replace(c32, edge_kernel="cuda"), (H, W))
+        for f in kfns.values():
+            f.launches = 0
+        three_way_sweep(label + " ", pg.make_sweep(dataclasses.replace(c64, edge_kernel="torch"),
+                                                   (H, W)),
+                        pg.make_sweep(dataclasses.replace(c32, edge_kernel="torch"), (H, W)),
+                        kern, probs, states, cast)
+        by_path[f"{label} sweep (kernel arm, 2 states)"] = c = counts()
+        want = {k: (len(states) if k == kernel else 0) for k in kfns}
+        require(c == want, f"{label}: the kernel arm's launches {c} equal {want}")
+        del probs[torch.float64]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st = cast(conv64, torch.float32)
+        ms = time_ms(lambda: kern(p32, st), 3)
+        sweep_peak = torch.cuda.max_memory_allocated() - base
+        tab = build_table(c32.K, c32.quad_chunk, np.float64)
+        f = pg._node_f(c32, p32)
+        node = time_ms(lambda: gq_accumulate(f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
+                                             tab), 3)
+        rec[label] = dict(ms_a_sweep=ms, node_term_ms=node, make_problem_s=t_build,
+                          make_problem_GiB_above_held=build_peak / 2**30,
+                          sweep_GiB_above_held=sweep_peak / 2**30,
+                          coefficients=list(p32.cheb.coeffs.shape))
+        log(f"  {label} on {rec['card']}: {ms:.4f} ms a sweep from sigma = 0.05 (CUDA events, "
+            f"mean of 3), the node term {node:.4f} ms, {sweep_peak / 2**30:.3f} GiB above held "
+            f"at peak; make_problem {t_build:.3f} s, {build_peak / 2**30:.3f} GiB above held, "
+            f"coefficients {tuple(p32.cheb.coeffs.shape)}")
+        del probs, p32, kern
+
+    log("phase chebyshev solve")
+    ms = rec["full_mixture chebyshev"]["ms_a_sweep"]
+    its, every = (300, 100) if ms <= 100.0 else (100, 50)
+    if its == 100:
+        log(f"  a sweep takes {ms:.1f} ms > 0.1 s: the solve runs its=100, eval_every=50")
+    cfg = GQMAPConfig.full_mixture(quad_chunk=27, its=its, eval_every=every, **CHEB)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for f in kfns.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.time()
+    res = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    by_path["full_mixture chebyshev solve"] = c = counts()
+    n = res.iters
+    a1, an = res.AEPE[0], res.AEPE[n - 1]
+    require(n == its and bool(np.isfinite(res.Energy[:n]).all()),
+            f"chebyshev solve: {n} sweeps ({its} asked), energy finite over every sweep")
+    require(bool(an < a1), f"chebyshev solve: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={n} "
+                           "(falls)")
+    require(c == {"K1": 0, "K2": 0, "K3": n},
+            f"chebyshev solve: launches {c}: K3 equal to the sweep count {n}, K1 and K2 0")
+    rec["solve"] = dict(its=its, eval_every=every, wall_s=wall, GiB_above_held=peak / 2**30,
+                        aepe=[float(x) for x in res.AEPE if np.isfinite(x)])
+    log(f"  chebyshev solve: {n} sweeps in {wall:.3f} s with make_problem and readouts, "
+        f"{peak / 2**30:.3f} GiB at peak above what the script held; AEPE "
+        f"{rec['solve']['aepe']}")
+
+
+def roofline_phase(dev, record, by_path, kfns, ceil):
+    """Phase 27: ``flagship_roofline`` and ``sweep_roofline`` over all four
+    modes at 376x452 on the measured ceilings; each bound must be below the
+    time it bounds."""
+    log("phase roofline")
+    torch.cuda.synchronize()
+    for f in kfns.values():
+        f.launches = 0
+    t = time.time()
+    fl = roofline.flagship_roofline((H, W), ceilings=ceil, device=dev)
+    sw = roofline.sweep_roofline((H, W), ceilings=ceil, device=dev)
+    torch.cuda.synchronize()
+    by_path["roofline (flagship and mode sweeps)"] = {k: f.launches for k, f in kfns.items()}
+    record["roofline"] = dict(flagship={k: fl[k] for k in ("cosine_kernel_v1", "tpu_fast_sweep")},
+                              modes=sw["modes"], card=ceil["card"], seconds=time.time() - t)
+    k, sp = fl["cosine_kernel_v1"], fl["tpu_fast_sweep"]
+    log(f"  K1 v1 alone {k['ms']:.4f} ms, bounds {k['bound_ms']} ms, governing {k['governing']}"
+        f", share {k['share_of_bound']:.3f}; tpu_fast segment {sp['ms']:.4f} ms a sweep "
+        f"({sp['mpix_sweeps_per_s']:.3f} Mpixel-sweeps/s), bound {sp['bound_ms']:.4f} ms, share "
+        f"{sp['share_of_bound']:.3f}")
+    shares = {"K1 v1": k["share_of_bound"], "tpu_fast segment": sp["share_of_bound"]}
+    for mode, m in sw["modes"].items():
+        log(f"  mode {mode}: {m['ms_per_sweep']:.4f} ms a sweep, {m['mpix_sweeps_per_s']:.3f} "
+            f"Mpixel-sweeps/s; bound {m['bound_ms']:.4f} ms by {m['governing_bound']}, share "
+            f"{m['share_of_bound']:.3f}")
+        shares[mode] = m["share_of_bound"]
+    require(all(0.0 < v <= 1.0 for v in shares.values()),
+            f"roofline: every bound below its time (shares {shares})")
+
+
+def bench_phase(record):
+    """Phase 28: ``python -m gqmap_tpu_torch.cli.main bench`` in three
+    processes, one after the other: one JSON line each with bench.py's keys,
+    finite positive rates and the card's line from ``nvidia-smi``."""
+    log("phase bench")
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for i in range(3):
+        t = time.time()
+        p = subprocess.run([sys.executable, "-m", "gqmap_tpu_torch.cli.main", "bench"],
+                           capture_output=True, text=True, timeout=600, cwd=root)
+        lines = p.stdout.strip().splitlines()
+        ok = p.returncode == 0 and len(lines) == 1
+        require(ok, f"bench run {i}: exit code {p.returncode}, {len(lines)} line(s) on stdout")
+        if not ok:
+            log(p.stdout[-2000:] + p.stderr[-4000:])
+            continue
+        got = json.loads(lines[0])
+        keys = {"metric", "value", "unit", "vs_baseline", "mode", "steady_state", "from_init",
+                "device"}
+        rates = (got.get("value"), got.get("from_init"))
+        require(set(got) == keys and all(isinstance(v, float) and np.isfinite(v) and v > 0
+                                         for v in rates)
+                and got["device"] == smi("name,power.limit"),
+                f"bench run {i} ({time.time() - t:.1f} s): {lines[0]}")
+        runs.append(got)
+    if runs:
+        conv = [r["value"] for r in runs]
+        init = [r["from_init"] for r in runs]
+        spread = (max(conv) - min(conv)) / float(np.median(conv))
+        record["bench"] = dict(converged=conv, from_init=init, converged_spread=spread,
+                               device=runs[0]["device"])
+        log(f"  bench converged {conv} Mpixel-sweeps/s (spread {100 * spread:.1f}% of the "
+            f"median), from init {init}, on {runs[0]['device']}")
+
+
+def d4_phase(dev, record):
+    """Phase 29: D4, the command line's process group ended with the
+    command: ``run --devices 2`` under ``torch.distributed.run`` with 2 ranks
+    on the card, 5 runs started together, each exiting 0 with one JSON line."""
+    import scipy.io
+
+    from gqmap_tpu_torch.io.flo import write_flo
+    from gqmap_tpu_torch.kernels import build
+
+    log("phase D4")
+    t = time.time()
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        os.makedirs(os.path.join(d, "preprocessed"))
+        os.makedirs(os.path.join(d, "Venus"))
+        I1, I2, gt = flow_sequence(0, dev, H, W)
+        write_flo(os.path.join(d, "Venus", "flow10.flo"), gt)
+        scipy.io.savemat(os.path.join(d, "preprocessed", "Venus.mat"), dict(img1=I1, img2=I2))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               "2", "-m", "gqmap_tpu_torch.cli.main", "run", "--seq", "Venus", "--preprocessed",
+               "--preset", "tpu_fast", "--its", "30", "--eval-every", "30", "--quiet",
+               "--devices", "2"]
+        env = dict(os.environ, GQMAP_DATA=d, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True, env=env,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+                 for _ in range(D4_RUNS)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        except BaseException:
+            for p in procs:
+                p.kill()  # the exact processes started here
+            for p in procs:
+                p.wait()
+            raise
+    codes = [p.returncode for p in procs]
+    lines = [sum(x.startswith("{") for x in out.splitlines()) for out in outs]
+    for code, out in zip(codes, outs):
+        if code:
+            log(out[-3000:])
+    require(codes == [0] * D4_RUNS and lines == [1] * D4_RUNS,
+            f"D4: {D4_RUNS} two-rank CLI runs under torch.distributed.run: exit codes {codes}, "
+            f"JSON lines {lines}")
+    record["d4"] = dict(exit_codes=codes, wall_s=time.time() - t)
+    log(f"  D4: {D4_RUNS} runs together in {time.time() - t:.1f} s")
+
+
+def profiles_phase(dev, record):
+    """Phase 30, the last: the profiler's hooks may stay in the process and
+    slow later launches, so nothing is timed after it. One sweep of
+    ``tpu_fast``, ``full_mixture`` and the Chebyshev ``full_mixture`` from
+    the sigma = 0.05 state under ``torch.profiler`` (:func:`profile_call`)."""
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    log("phase profiles")
+    I1, I2, _ = synthetic_pair()
+    fr = FlowRange(*FR)
+    for label, cfg in (("tpu_fast", GQMAPConfig.tpu_fast()),
+                       ("full_mixture", GQMAPConfig.full_mixture(quad_chunk=27)),
+                       ("full_mixture chebyshev", GQMAPConfig.full_mixture(quad_chunk=27,
+                                                                           **CHEB))):
+        problem = pg.make_problem(cfg, I1, I2, fr, dev)
+        st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+        st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                         sigmav=torch.full_like(st.sigmav, 0.05))
+        sweep = pg.make_sweep(cfg, (H, W))
+        prof = record.setdefault("profile", {})[label] = profile_call(lambda: sweep(problem, st))
+        log(f"  one {label} sweep under torch.profiler: {json.dumps(prof)}")
+        del problem
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -1090,13 +1357,22 @@ def main():
     build.load_library()
     sass = sass_per_unit(os.path.join(os.path.dirname(build._find_nvcc()), "cuobjdump"), path)
     max_clock = smi("clocks.max.sm")
-    issue_rate = SMS * LANES_PER_CLOCK * float(max_clock.split()[0]) * 1e6
-    root_rate = SMS * SFU_PER_CLOCK * float(max_clock.split()[0]) * 1e6
+    issue_rate = roofline.SMS * LANES_PER_CLOCK * float(max_clock.split()[0]) * 1e6
+    RATES["datasheet"] = roofline.datasheet_rates(float(max_clock.split()[0]))
     log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
         "mode; K2 and K3: the main path's rule instance, whole function (set-up and "
         "epilogue included) per point, and its MUFU.RSQ count")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
+
+    # ---- 2b. the card's ceilings: the measured rates of bound()
+    log("phase ceilings")
+    t = time.time()
+    ceil = roofline.measure_ceilings(device=dev)
+    RATES["measured"] = roofline.measured_rates(ceil)
+    log(f"  measured ({time.time() - t:.1f} s): {json.dumps(ceil)}; data sheet: "
+        f"{roofline.HBM_BYTES_PER_S / 1e9:g} GB/s, {roofline.FP32_FLOPS_PER_S / 1e9:g} GFLOP/s, "
+        f"roots {RATES['datasheet']['roots'] / 1e9:g} G/s at the max SM clock")
 
     def issue_ms(unit, work):
         """The SASS issue bound: ``work`` units of the loop at full issue."""
@@ -1122,7 +1398,7 @@ def main():
 
     # ---- 3. kernels against their plain versions
     log("phase kernels")
-    record = {}
+    record = {"ceilings": ceil}
     k1_ms = {}
     crop = {dt: pg.make_problem(c, I1[:77, :300], I2[:77, :300], fr, dev)
             for dt, c in ((torch.float32, cfg32), (torch.float64, cfg64))}
@@ -1154,9 +1430,8 @@ def main():
                             k1_ms[sname, variant] = kernel_ms(
                                 lambda: k1_fn(p.cheb, *sites, variant=variant))
                         if sname == "converged" and variant == cosine_gq._DEFAULT_VARIANT:
-                            k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
                             record["K1"] = dict(max_abs_err=a, variant=variant, **bound(
-                                k1_bytes, modes * FLOPS["K1 recur mode"]),
+                                roofline.k1_work(p.cheb.coeffs.shape, len(sites[0]), modes)),
                                 sass_issue_ms=issue_ms("K1 recur mode", modes))
                 if label == "376x452" and dtype == torch.float32 and sname == "converged":
                     pms = time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 3)
@@ -1172,8 +1447,8 @@ def main():
                         f"recur {k1_ms['converged', 'recur']} ms converged, "
                         f"{k1_ms['init', 'recur']} ms from init; v1 "
                         f"{k1_ms['converged', 'v1']} ms converged, "
-                        f"{k1_ms['init', 'v1']} ms from init; plain {pms:.4f} ms; bound "
-                        f"{record['K1']['bound_ms']:.4f} ms by {record['K1']['bound_by']}")
+                        f"{k1_ms['init', 'v1']} ms from init; plain {pms:.4f} ms; "
+                        f"{fmt_bound(record['K1'])}")
                 if label == "376x452" and dtype == torch.float64 and sname == "converged":
                     log(f"  K1 376x452 f64: kernel {time_ms(lambda: k1_fn(p.cheb, *sites), 3):.4f}"
                         f" ms, plain "
@@ -1258,18 +1533,14 @@ def main():
                 f"{TIMING[1]} calls back to back from the host {b2b:.4f} ms a call; plain "
                 f"{pms:.4f} ms")
             if dtype == torch.float32:
-                # each state value once: endpoint 2 is a neighbour's endpoint 1
                 n_el = args[2].numel()
-                k2_bytes = sum(args[i].nbytes for i in range(4)) + 6 * n_el * 4
-                k2_flops = n_el * (k1 // 2 * FLOPS["K2 pair"] + FLOPS["K2 centre"]
-                                   + FLOPS["K2 element"])
                 record["K2"] = dict(max_abs_err=a, ms=ms[0], ms_min=ms[1], ms_generic=gms[0],
                                     ms_generic_min=gms[1], ms_back_to_back=b2b, plain_ms=pms,
                                     library_ms=None,
-                                    **bound(k2_bytes, k2_flops, n_el * k1, root_rate),
+                                    **bound(roofline.k2_work(shape, k1)),
                                     sass_issue_ms=issue_ms("K2 point", n_el * k1))
-                log(f"  K2 bound {record['K2']['bound_ms']:.4f} ms by "
-                    f"{record['K2']['bound_by']} ({record['K2']['bound_terms_ms']}); SASS issue "
+                log(f"  K2 {fmt_bound(record['K2'])} ({record['K2']['bound_terms_ms']}); "
+                    "SASS issue "
                     f"bound {record['K2']['sass_issue_ms']:.4f} ms")
 
     # ---- 4. one full sweep, three ways
@@ -1411,16 +1682,13 @@ def main():
             if dtype == torch.float32:
                 n_el = args[2].numel()
                 points = fm32.K ** 2
-                k3_bytes = sum(args[i].nbytes for i in (0, 1, 4)) + 6 * n_el * 4
-                k3_flops = n_el * (points // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
-                                   + FLOPS["K3 element"])
                 record["K3"] = dict(max_abs_err=a, ms=ms[0], ms_min=ms[1], ms_generic=gms[0],
                                     ms_generic_min=gms[1], ms_back_to_back=b2b, plain_ms=pms,
                                     library_ms=None,
-                                    **bound(k3_bytes, k3_flops, n_el * points, root_rate),
+                                    **bound(roofline.k3_work(shape, fm32.K)),
                                     sass_issue_ms=issue_ms("K3 point", n_el * points))
-                log(f"  K3 bound {record['K3']['bound_ms']:.4f} ms by "
-                    f"{record['K3']['bound_by']} ({record['K3']['bound_terms_ms']}); SASS issue "
+                log(f"  K3 {fmt_bound(record['K3'])} ({record['K3']['bound_terms_ms']}); "
+                    "SASS issue "
                     f"bound {record['K3']['sass_issue_ms']:.4f} ms")
 
     # ---- 7. one full_mixture sweep, three ways
@@ -1543,10 +1811,9 @@ def main():
                             f"K1 super {str(dtype)[6:]} converged: every warp ran the recur "
                             f"body ({n_recur} recur, {n_exp} exp)")
                 if dtype == torch.float32 and sname == "converged" and variant == "recur":
-                    k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
                     record["K1"]["super"] = dict(
                         shape=[A, B] + list(sites[0].shape), max_abs_err=a,
-                        **bound(k1_bytes, modes * FLOPS["K1 recur mode"]),
+                        **bound(roofline.k1_work(p.cheb.coeffs.shape, len(sites[0]), modes)),
                         sass_issue_ms=issue_ms("K1 recur mode", modes))
             if dtype == torch.float32 and sname == "converged":
                 sup = record["K1"]["super"]
@@ -1561,8 +1828,8 @@ def main():
                            library_ms=None)
                 log(f"  K1 super f32 on {smi('name,power.limit,clocks.sm')}: recur {ms} ms "
                     f"converged (median, min), {sup['ms_init']:.4f} ms from init; v1 "
-                    f"{sup['ms_v1']:.4f} ms; plain {sup['plain_ms']:.4f} ms; bound "
-                    f"{sup['bound_ms']:.4f} ms by {sup['bound_by']}")
+                    f"{sup['ms_v1']:.4f} ms; plain {sup['plain_ms']:.4f} ms; "
+                    f"{fmt_bound(sup)}")
 
     g4 = torch.Generator().manual_seed(4)
 
@@ -1621,24 +1888,15 @@ def main():
                 if sname != "warm" or dtype != torch.float32:
                     continue
                 ms = kernel_ms(lambda: fn(*args))
-                n_el = args[2].numel() if name == "K2" else args[4].numel()
-                if name == "K2":
-                    nbytes = sum(args[i].nbytes for i in range(4)) + 6 * n_el * 4
-                    points, flops = k1s, n_el * (k1s // 2 * FLOPS["K2 pair"]
-                                                 + FLOPS["K2 centre"] + FLOPS["K2 element"])
-                else:
-                    points = se32.K ** 2
-                    nbytes = sum(args[i].nbytes for i in (0, 1, 4)) + 6 * n_el * 4
-                    flops = n_el * (points // 2 * FLOPS["K3 pair"] + FLOPS["K3 centre"]
-                                    + FLOPS["K3 element"])
+                work = (roofline.k2_work(shape, k1s) if name == "K2"
+                        else roofline.k3_work(shape, se32.K))
                 record[name]["super"] = dict(
                     shape=list(shape), rule=rule, max_abs_err=a, ms=ms[0], ms_min=ms[1],
                     plain_ms=time_ms(lambda: plain(*args), 5), library_ms=None,
-                    **bound(nbytes, flops, n_el * points, root_rate))
+                    **bound(work))
                 sup = record[name]["super"]
                 log(f"  {name} super {shape} {rule} f32 (median, min) {ms} ms; plain "
-                    f"{sup['plain_ms']:.4f} ms; bound {sup['bound_ms']:.4f} ms by "
-                    f"{sup['bound_by']} ({sup['bound_terms_ms']})")
+                    f"{sup['plain_ms']:.4f} ms; {fmt_bound(sup)} ({sup['bound_terms_ms']})")
 
     # ---- 11. one full sweep of each new path, three ways
     log("phase super sweeps")
@@ -1775,7 +2033,7 @@ def main():
                           device=dev)
     probes = l1_probes(lst64, torch.Generator().manual_seed(5))
     # K = 9 (legacy_v2, legacy_v3), K = 17 (blockmatch_v2)
-    record["K3"]["legacy"] = {f"K={c.K}": k3_on_l1("legacy", c, probes, root_rate)
+    record["K3"]["legacy"] = {f"K={c.K}": k3_on_l1("legacy", c, probes)
                               for c in (v2_32, bm32)}
 
     # ---- 15. K1 on the window-meaned coefficient field (window_rg = 2)
@@ -1800,15 +2058,13 @@ def main():
                         f"{r:.3e}; counters: {n_recur} warps recur, {n_exp} exp, {modes} modes")
             if dtype == torch.float32 and sname == "converged":
                 ms = kernel_ms(lambda: k1_fn(p.cheb, *sites))
-                k1_bytes = (modes // len(sites[0]) + 11 * sites[0].numel()) * 4
                 rec = record["K1"]["windowed"] = dict(
                     shape=list(p.cheb.coeffs.shape[:2]) + list(sites[0].shape), max_abs_err=a,
                     ms=ms[0], ms_min=ms[1], library_ms=None,
                     plain_ms=time_ms(lambda: cosine_gq.cos_mode_sums_torch(p.cheb, *sites), 3),
-                    **bound(k1_bytes, modes * FLOPS["K1 recur mode"]))
+                    **bound(roofline.k1_work(p.cheb.coeffs.shape, len(sites[0]), modes)))
                 log(f"  K1 window_rg=2 f32 converged (median, min) {ms} ms; plain "
-                    f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms by "
-                    f"{rec['bound_by']}")
+                    f"{rec['plain_ms']:.4f} ms; {fmt_bound(rec)}")
     wp32 = wprob[torch.float32]  # timed with phase 16's solve
     del wprob
 
@@ -1934,10 +2190,17 @@ def main():
     del v2p
 
     # ---- 19-23. the drivers, the command line and K3 on the pyramid's lattice
-    drivers(dev, record, by_path, kfns, root_rate, segment_ms)
+    drivers(dev, record, by_path, kfns, segment_ms)
 
     # ---- 24. the multi-device solve: 4 ranks on the card (gloo) and 1 over NCCL
     sharded(dev, record, by_path, st64, float(res.AEPE[SHARDED_SOLVE_ITS - 1]))
+
+    # ---- 25-29. the Chebyshev term, the roofline harness, bench, D4
+    chebyshev(dev, record, by_path, kfns, st64, cast)
+    roofline_phase(dev, record, by_path, kfns, ceil)
+    bench_phase(record)
+    d4_phase(dev, record)
+    profiles_phase(dev, record)
 
     for k in kfns:
         record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}

@@ -10,6 +10,8 @@ Subcommands:
 * ``suite`` — run a preset over a list of sequences, print the AEPE table
 * ``ctf``   — coarse-to-fine pyramid (== ``legacy/optical_flow_ctf.m``)
 * ``sweep`` — lambda_s grid search (== ``legacy/LearnRatio.m``)
+* ``bench`` — the flagship sweep's throughput, one JSON line
+  (:mod:`gqmap_tpu_torch.bench`)
 
 Every command runs on ``--device`` (the GPU by default; ``--device cpu`` for
 the CPU); with no GPU and no ``--device`` it raises. ``run`` and ``suite``
@@ -34,6 +36,7 @@ import json
 import sys
 
 import numpy as np
+import torch.distributed
 
 from ..config import GQMAPConfig
 from ..io.dataset import crop_to_multiple, load_sequence
@@ -108,10 +111,11 @@ def _add_common(p):
 
 
 def _launch(args, argv):
-    """Form the process group of ``--devices`` ranks; raise, naming the
-    command that starts them, where the world size differs."""
-    if args.devices is None:
-        return
+    """Form the process group of ``--devices`` ranks and return whether one
+    was formed; raise, naming the command that starts them, where the world
+    size differs."""
+    if getattr(args, "devices", None) is None:
+        return False
     from ..parallel import initialize
 
     world = initialize(device=args.device)
@@ -124,6 +128,7 @@ def _launch(args, argv):
     if args.cmd in ("ctf", "sweep"):
         raise ValueError(f"--devices: {args.cmd} runs on one device (as in the JAX package); "
                          "run and suite shard the lattice")
+    return world > 1
 
 
 def _mesh_and_crop(args, cfg):
@@ -245,6 +250,12 @@ def cmd_sweep(args):
     print(res.summary())
 
 
+def cmd_bench(args):
+    from ..bench import main as bench_main
+
+    bench_main(device=args.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="gqmap_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -270,14 +281,26 @@ def main(argv=None):
     p = sub.add_parser("sweep"); _add_common(p); p.add_argument("--seq", required=True)
     p.add_argument("--range", nargs=3, type=float, default=(0.300001, 1.0, 12))
     p.add_argument("--log", default=None); p.set_defaults(fn=cmd_sweep)
+    p = sub.add_parser("bench")
+    p.add_argument("--device", default=None,
+                   help="torch device of the run (default: the GPU; 'cpu' for the CPU)")
+    p.set_defaults(fn=cmd_bench)
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
     from ..models.gqmap import _device
 
-    _launch(args, argv)
-    args.device = _device(args.device)  # no GPU and no --device: raise here, before any work
-    args.fn(args)
+    formed = _launch(args, argv)
+    try:
+        args.device = _device(args.device)  # no GPU and no --device: raise here, before any work
+        args.fn(args)
+        if formed:
+            torch.distributed.barrier()
+    finally:
+        # the group _launch formed ends with the command: a rank that exits
+        # with it alive can abort in its destructor
+        if formed:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ import torch
 
 from .config import FlowRange
 from .models.gqmap import GQState, Problem
+from .ops.chebyshev import ChebData, site_major
 from .ops.cosine import CosData
 
 __all__ = ["problem_from_numpy", "state_from_numpy"]
@@ -25,17 +26,24 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device)
 
 
-def problem_from_numpy(fields: Mapping, device="cpu") -> Problem:
+def problem_from_numpy(fields: Mapping, device="cpu", data_term: str = "cosine") -> Problem:
     """``fields``: ``I1``, ``I2_tab``, ``interior`` (arrays), ``rng`` (four
     floats: minu, maxu, minv, maxv) and ``cheb``, a mapping of the
-    ``CosData`` fields ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``, or
+    coefficient field's ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``, or
     None for a Problem without a coefficient field; optionally ``init_flow``
     (an (M, N, 2) array) and ``grad_tabs`` (two arrays), each None or absent
-    where the configuration has none."""
+    where the configuration has none. ``data_term`` says whose field ``cheb``
+    is: ``CosData`` for ``"cosine"``, ``ChebData`` (stored site major, as
+    ``build_cheb_data`` stores it) for ``"chebyshev"``."""
     c = fields["cheb"]
-    cheb = None if c is None else CosData(
-        coeffs=_t(c["coeffs"], device),
-        **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
+    cheb = None
+    if c is not None:
+        coeffs = _t(c["coeffs"], device)
+        if data_term == "chebyshev":
+            cls, coeffs = ChebData, site_major(coeffs)
+        else:
+            cls = CosData
+        cheb = cls(coeffs=coeffs, **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
     init_flow = fields.get("init_flow")
     grad_tabs = fields.get("grad_tabs")
     return Problem(I1=_t(fields["I1"], device), I2_tab=_t(fields["I2_tab"], device),

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.cosine import no_tf32
+
 __all__ = ["gaussian_window", "block_matching_init"]
 
 
@@ -49,12 +51,8 @@ def block_matching_init(I1, I2, U: int = 7, V: int = 7, ft: int = 3, sigma: floa
     vol = torch.stack([(I2 - ext[du:du + M, dv:dv + N]).abs()
                        for du in range(2 * U + 1) for dv in range(2 * V + 1)])  # (C, M, N)
     g = torch.as_tensor(gaussian_window(2 * ft + 1, sigma), dtype=torch.float32, device=device)
-    tf32 = torch.backends.cudnn.allow_tf32
-    try:
-        torch.backends.cudnn.allow_tf32 = False
+    with no_tf32():
         smoothed = torch.nn.functional.conv2d(vol[:, None], g[None, None], padding=ft)[:, 0]
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     idx = torch.argmin(smoothed, dim=0)
     # MATLAB ind2sub over (du, dv), built du-major and dv-minor
     fu = idx // (2 * V + 1)

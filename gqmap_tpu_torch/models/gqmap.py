@@ -21,6 +21,11 @@ cosine term, K2 / K3 for Charbonnier edges, never under autodiff; the
 truncated-quadratic edges and the autodiff sums are the plain ones, as they
 are the JAX package's XLA ones.
 
+The Chebyshev data term (``data_term="chebyshev"``,
+:mod:`gqmap_tpu_torch.ops.chebyshev`) runs through the K^2-point node
+quadrature like the bicubic term, its samples evaluated as a polynomial
+series with no gather.
+
 Both run at full resolution or on the super lattice (``patch > 1``: each
 flow node owns a ``patch x patch`` pixel block and its data term is the
 block's sum; the presets ``tpu_fast_super`` and ``super_entropy``), with a
@@ -41,8 +46,6 @@ Differences from the JAX engine, none of which changes a result:
   apply the reference's early stop (``it > its || mean|dmu| < tor``, ``:75``).
 * T, alpha and the iteration counter stay on the device; the kernels read
   them through pointers.
-* ``data_term="chebyshev"`` (validation-only in the JAX package) raises
-  ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch, neighbour_stacks)
+from ..ops.chebyshev import ChebData, build_cheb_data, make_node_pot_chebyshev
 from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data, cos_ei
 from ..ops.flowviz import flow_to_color
 from ..ops.gq import (EDGE, NODE, finalize, finalize_chain, gq_accumulate, gq_accumulate_chain,
@@ -127,7 +131,7 @@ class Problem(NamedTuple):
     I2_tab: torch.Tensor   # pad_cubic(I2), or upsample_cubic(I2, rfc) for data_term="nearest"
     interior: torch.Tensor # (M, N) bool: updatable lattice sites
     rng: FlowRange | None
-    cheb: CosData | None = None  # cosine coefficient field (data_term="cosine")
+    cheb: CosData | ChebData | None = None  # spectral coefficient field (cosine, chebyshev)
     init_flow: torch.Tensor | None = None  # (M, N, 2) prior flow (data_term="quadratic")
     grad_tabs: tuple | None = None  # upsampled Prewitt fields (gradient_estimator="prewitt")
 
@@ -158,14 +162,13 @@ def _device(device) -> torch.device:
 def check_supported(cfg: GQMAPConfig) -> None:
     """Raise for a configuration the port does not run.
 
-    ``data_term="chebyshev"``, validation-only in the JAX package, raises
-    ``NotImplementedError`` (ROADMAP "Do not port"). Unknown values raise
-    ``ValueError``, and so does a kernel asked for (``"cuda"``) on a path
+    Unknown values raise ``ValueError``, as the JAX package's
+    ``make_problem`` does, and so does a kernel asked for (``"cuda"``) on a path
     that no kernel computes: K1 computes only the cosine term's Stein sums,
     K2 and K3 only Charbonnier edges, and the autodiff estimator
     differentiates plain sums.
     """
-    supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic"),
+    supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
                  "gradient_estimator": ("stein", "autodiff", "prewitt"),
                  "sweep_order": ("jacobi", "redblack"),
@@ -173,12 +176,8 @@ def check_supported(cfg: GQMAPConfig) -> None:
                  "node_kernel": tuple(_NODE_SUMS), "edge_kernel": tuple(_NODE_SUMS)}
     for field, ok in supported.items():
         value = getattr(cfg, field)
-        if value in ok:
-            continue
-        if (field, value) == ("data_term", "chebyshev"):
-            raise NotImplementedError("data_term='chebyshev' is not ported (ROADMAP 'Do not "
-                                      "port': validation-only in the JAX package)")
-        raise ValueError(f"unknown {field} {value!r} (expected one of {ok})")
+        if value not in ok:
+            raise ValueError(f"unknown {field} {value!r} (expected one of {ok})")
     autodiff = cfg.gradient_estimator == "autodiff"
     if cfg.node_kernel == "cuda" and (cfg.data_term != "cosine" or autodiff):
         raise ValueError(
@@ -212,28 +211,29 @@ def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
     """Frames on the device and the frame-2 table of the data term:
     ``pad_cubic(I2)``, or ``upsample_cubic(I2, rfc)`` for ``"nearest"`` (and
     its two upsampled Prewitt fields for the Prewitt estimator); for
-    ``data_term="cosine"`` also the cosine coefficient field over the flow
-    range widened by ``cheb_margin``. ``Problem.init_flow``, the prior of
-    ``data_term="quadratic"``, is the caller's to set
+    ``data_term="cosine"`` or ``"chebyshev"`` also the spectral coefficient
+    field over the flow range widened by ``cheb_margin``. ``Problem.init_flow``,
+    the prior of ``data_term="quadratic"``, is the caller's to set
     (``problem._replace(init_flow=...)``), as in the JAX package."""
     if cfg.window_rg > 0 and cfg.patch > 1:
         raise ValueError("window_rg and patch > 1 are mutually exclusive")
     if cfg.gradient_estimator == "prewitt" and cfg.data_term != "nearest":
         raise ValueError("gradient_estimator='prewitt' requires data_term='nearest'")
     check_supported(cfg)
-    if cfg.data_term == "cosine" and flow_range is None:
-        raise ValueError("data_term='cosine' needs flow_range at make_problem")
+    spectral = {"cosine": build_cos_data, "chebyshev": build_cheb_data}.get(cfg.data_term)
+    if spectral is not None and flow_range is None:
+        raise ValueError(f"data_term={cfg.data_term!r} needs flow_range at make_problem")
     dt, device = _dt(cfg), _device(device)
     I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device)
     I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device)
     tab = upsample_cubic(I2, cfg.rfc) if cfg.data_term == "nearest" else pad_cubic(I2)
     cheb = grad_tabs = None
-    if cfg.data_term == "cosine":
+    if spectral is not None:
         m = cfg.cheb_margin
         box = (flow_range.minu - m, flow_range.maxu + m,
                flow_range.minv - m, flow_range.maxv + m)
-        cheb = build_cos_data(I1, tab, cfg.lambdad, cfg.epsn, box, A=cfg.cheb_p,
-                              B=cfg.cheb_q, patch=cfg.patch, window_rg=cfg.window_rg)
+        cheb = spectral(I1, tab, cfg.lambdad, cfg.epsn, box, cfg.cheb_p, cfg.cheb_q,
+                        patch=cfg.patch, window_rg=cfg.window_rg)
     if cfg.gradient_estimator == "prewitt":
         grad_tabs = tuple(upsample_cubic(G, cfg.rfc) for G in prewitt_gradients(I2))
     M, N = flow_lattice_shape(cfg, I1.shape)
@@ -280,8 +280,8 @@ def _node_f(cfg: GQMAPConfig, problem: Problem, origin=None, local_image_shape=N
     """The data term's potential ``f(x1, x2)`` (None for the closed-form
     cosine term, which has no per-sample potential). On a shard, ``origin``
     and ``local_image_shape`` are its block's pixel offset and extent; the
-    cosine field and the quadratic prior's init flow are per site and arrive
-    as the block's own."""
+    spectral fields and the quadratic prior's init flow are per site and
+    arrive as the block's own."""
     if cfg.data_term == "cosine":
         return None
     if cfg.data_term == "quadratic":
@@ -294,6 +294,8 @@ def _node_f(cfg: GQMAPConfig, problem: Problem, origin=None, local_image_shape=N
         flow = torch.as_tensor(problem.init_flow, dtype=problem.I1.dtype,
                                device=problem.I1.device)
         return make_node_pot_quadratic(flow, cfg.quad_var)
+    if cfg.data_term == "chebyshev":
+        return make_node_pot_chebyshev(problem.cheb, cfg.cheb_ablock)
     at = dict(origin=origin, local_image_shape=local_image_shape)
     if cfg.window_rg > 0:
         return make_node_pot_windowed(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn,
@@ -597,12 +599,12 @@ def make_map_fn(cfg: GQMAPConfig):
 def make_logp_fn(cfg: GQMAPConfig, image_shape):
     """True unnormalized log-posterior at a flow field (``:148-154``): the
     sweep's data term as a point potential (the bicubic term in place of the
-    cosine series and the quadratic prior; nearest lookup, window mean and
+    spectral series and the quadratic prior; nearest lookup, window mean and
     patch sum as configured) plus the Charbonnier edges, whatever
     ``edge_kind``, summed over the interior."""
     edge_f = make_edge_pot(cfg.lambdas, cfg.epsn)
     lp_cfg = cfg
-    if cfg.data_term in ("cosine", "quadratic"):
+    if cfg.data_term in ("chebyshev", "cosine", "quadratic"):
         lp_cfg = dataclasses.replace(cfg, data_term="bicubic")
 
     def logp(problem: Problem, flow: torch.Tensor) -> torch.Tensor:

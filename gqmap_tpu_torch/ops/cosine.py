@@ -24,6 +24,7 @@ each constant-shift sample (:func:`_box_mean`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -74,34 +75,39 @@ def _box_mean(npt: torch.Tensor, rg: int) -> torch.Tensor:
     return (acc / (k * k)).reshape(npt.shape)
 
 
-def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: float,
-                   box, A: int = 96, B: int = 16, patch: int = 1,
-                   window_rg: int = 0) -> CosData:
-    """Precompute the per-pixel cosine coefficient field (once per run).
+@contextlib.contextmanager
+def no_tf32():
+    """Both TF32 switches off, restored on exit. The spectral terms' matrix
+    products (XLA's einsum in the JAX package) run in full float32: TF32
+    would keep ~3 decimal digits of their f32 coefficients."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
-    Samples the node potential at the (A, B) midpoint grid over the
-    displacement box (each sample a constant-offset bicubic read of frame 2,
-    ``VV = pad_cubic(I2)``), then takes a type-II DCT along both
-    displacement axes. For ``patch > 1`` the expansion is of the
-    patch-summed potential on the ``(Mo, No) / patch`` flow lattice
-    (``gqmap_gpuSuper_mix_entropy.m:94-105``); for ``window_rg > 0`` of the
-    window-meaned potential (:func:`_box_mean`).
-    """
+
+def _sample_surface(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: float, us, vs,
+                    patch: int = 1, window_rg: int = 0) -> torch.Tensor:
+    """The node potential at every global displacement ``(us[p], vs[q])``,
+    ``(P * Q, M, N)`` in (p, q) order: each sample a constant-offset bicubic
+    read of frame 2 (``VV = pad_cubic(I2)``), window-meaned for
+    ``window_rg > 0`` (:func:`_box_mean`) and patch-summed to the
+    ``(Mo, No) / patch`` flow lattice for ``patch > 1``; evaluated in chunks
+    of full-resolution samples."""
     Mo, No = I1.shape
     M, N = Mo // patch, No // patch
     dtype, device = I1.dtype, I1.device
-    lo_u, hi_u, lo_v, hi_v = (float(x) for x in box)
-    # midpoint sample positions: x_j = lo + (j + 1/2) L / P
-    us = lo_u + (np.arange(A) + 0.5) * (hi_u - lo_u) / A
-    vs = lo_v + (np.arange(B) + 0.5) * (hi_v - lo_v) / B
-    uv = np.stack(np.broadcast_arrays(us[:, None], vs[None, :]), -1).reshape(-1, 2)
+    uv = np.stack(np.broadcast_arrays(np.asarray(us)[:, None], np.asarray(vs)[None, :]),
+                  -1).reshape(-1, 2)
     uv = torch.as_tensor(uv, dtype=dtype, device=device)
-
     jj = 1.0 + torch.arange(No, dtype=dtype, device=device).reshape(1, No)
     ii = 1.0 + torch.arange(Mo, dtype=dtype, device=device).reshape(Mo, 1)
-    vals = torch.empty((A * B, M, N), dtype=dtype, device=device)
+    vals = torch.empty((len(uv), M, N), dtype=dtype, device=device)
     chunk = max(1, _SAMPLE_CHUNK_ELEMS // (Mo * No))  # full-resolution samples a chunk
-    for i in range(0, A * B, chunk):
+    for i in range(0, len(uv), chunk):
         u = uv[i:i + chunk, 0].reshape(-1, 1, 1)
         v = uv[i:i + chunk, 1].reshape(-1, 1, 1)
         Vq = sample_bicubic(VV, jj + u, ii + v)
@@ -111,21 +117,34 @@ def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: flo
         if patch > 1:
             npt = npt.reshape(-1, M, patch, N, patch).sum((-3, -1))
         vals[i:i + chunk] = npt
+    return vals
 
-    # The DCT is a plain matrix product (XLA's einsum in the JAX package).
-    # TF32 would keep ~3 decimal digits of these f32 coefficients, so both
-    # TF32 switches are off for the two products and restored after them.
+
+def build_cos_data(I1: torch.Tensor, VV: torch.Tensor, lambdad: float, epsn: float,
+                   box, A: int = 96, B: int = 16, patch: int = 1,
+                   window_rg: int = 0) -> CosData:
+    """Precompute the per-pixel cosine coefficient field (once per run).
+
+    Samples the node potential at the (A, B) midpoint grid over the
+    displacement box (:func:`_sample_surface`), then takes a type-II DCT
+    along both displacement axes. For ``patch > 1`` the expansion is of the
+    patch-summed potential on the ``(Mo, No) / patch`` flow lattice
+    (``gqmap_gpuSuper_mix_entropy.m:94-105``); for ``window_rg > 0`` of the
+    window-meaned potential (:func:`_box_mean`).
+    """
+    dtype, device = I1.dtype, I1.device
+    lo_u, hi_u, lo_v, hi_v = (float(x) for x in box)
+    # midpoint sample positions: x_j = lo + (j + 1/2) L / P
+    us = lo_u + (np.arange(A) + 0.5) * (hi_u - lo_u) / A
+    vs = lo_v + (np.arange(B) + 0.5) * (hi_v - lo_v) / B
+    vals = _sample_surface(I1, VV, lambdad, epsn, us, vs, patch, window_rg)
+    M, N = vals.shape[-2:]
     Du = torch.as_tensor(_dct2_matrix(A), dtype=dtype, device=device)
     Dv = torch.as_tensor(_dct2_matrix(B), dtype=dtype, device=device)
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    with no_tf32():
         coeffs = torch.matmul(Du, vals.reshape(A, B * M * N)).reshape(A, B, M * N)
         del vals
         coeffs = torch.matmul(Dv, coeffs).reshape(A, B, M, N)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return CosData(coeffs=coeffs, lo_u=lo_u, hi_u=hi_u, lo_v=lo_v, hi_v=hi_v)
 
 

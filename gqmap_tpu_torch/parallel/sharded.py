@@ -11,9 +11,9 @@ arguments are this rank's blocks (:func:`shard_problem`,
 :func:`shard_state`), where the JAX function takes the global arrays.
 
 The frames stay whole on every rank (~1 MB at Middlebury scale; a node's
-bounded-range lookup may touch any window of frame 2). The cosine
-coefficient field, (A, B, M, N), the dominant per-run constant, is strictly
-per site and block-shards with the lattice, as do the interior mask and the
+bounded-range lookup may touch any window of frame 2). The spectral
+coefficient field (cosine or Chebyshev), (A, B, M, N), the dominant per-run
+constant, is strictly per site and block-shards with the lattice, as do the interior mask and the
 quadratic prior's init flow: each rank builds the whole field and keeps its
 contiguous block.
 """
@@ -24,6 +24,7 @@ import torch
 
 from ..config import GQMAPConfig
 from ..models.gqmap import GQState, Problem, SweepAux
+from ..ops.chebyshev import ChebData, site_major
 from ..ops.cosine import CosData
 from .halo import all_gather_blocks, make_halo_sweep
 from .launch import host_to_global
@@ -40,18 +41,30 @@ __all__ = [
 ]
 
 
+def _cheb_cls(data_term: str):
+    """The coefficient field's record for ``data_term`` (None: it has none)."""
+    return {"chebyshev": ChebData, "cosine": CosData}.get(data_term)
+
+
 def problem_sharding(mesh: Mesh | None = None, cfg: GQMAPConfig | None = None) -> Problem:
     """The spec of every Problem field: the frames and Prewitt fields whole,
-    the interior mask, the coefficient field's lattice axes and the init
-    flow's split over ``(x, y)``."""
+    the interior mask, the coefficient field's lattice axes (the record of
+    ``cfg.data_term``; without ``cfg`` the cosine one, whose fields are the
+    Chebyshev one's) and the init flow's split over ``(x, y)``."""
+    cls = CosData if cfg is None else _cheb_cls(cfg.data_term)
     return Problem(I1=(), I2_tab=(), interior=("x", "y"), rng=(),
-                   cheb=CosData((None, None, "x", "y"), (), (), (), ()),
+                   cheb=None if cls is None else cls((None, None, "x", "y"), (), (), (), ()),
                    init_flow=("x", "y", None), grad_tabs=())
 
 
 def shard_problem(problem: Problem, mesh: Mesh) -> Problem:
-    """This rank's block of every per-run constant (:func:`problem_sharding`)."""
-    return host_to_global(problem, problem_sharding(mesh), mesh)
+    """This rank's block of every per-run constant (:func:`problem_sharding`);
+    a Chebyshev field's block is stored site major, as ``build_cheb_data``
+    stores the whole one."""
+    local = host_to_global(problem, problem_sharding(mesh), mesh)
+    if isinstance(local.cheb, ChebData):
+        local = local._replace(cheb=local.cheb._replace(coeffs=site_major(local.cheb.coeffs)))
+    return local
 
 
 def shard_state(state: GQState, mesh: Mesh, batched: bool = False) -> GQState:

@@ -41,14 +41,15 @@ def load(path):
     return meta, arr
 
 
-def problem_of(arr):
+def problem_of(arr, data_term):
     cheb = None
     if "p_coeffs" in arr:
         cheb = {k: arr["p_" + k] for k in ("coeffs", "lo_u", "hi_u", "lo_v", "hi_v")}
     grad_tabs = (arr["p_grad0"], arr["p_grad1"]) if "p_grad0" in arr else None
     return problem_from_numpy(dict(I1=arr["p_I1"], I2_tab=arr["p_I2_tab"],
                                    interior=arr["p_interior"], rng=arr["p_rng"], cheb=cheb,
-                                   init_flow=arr.get("p_init_flow"), grad_tabs=grad_tabs))
+                                   init_flow=arr.get("p_init_flow"), grad_tabs=grad_tabs),
+                             data_term=data_term)
 
 
 def state_of(arr, prefix="s_"):
@@ -65,7 +66,7 @@ def run_case(name, meta, arr, mesh, out_dir):
     d, i, j = mesh.coords
     if meta["kind"] == "sweep":
         sweep = make_sharded_sweep(cfg, shape, mesh)
-        problem = shard_problem(problem_of(arr), mesh)
+        problem = shard_problem(problem_of(arr, cfg.data_term), mesh)
         st = shard_state(state_of(arr), mesh)
         energy, ptdmu = [], []
         for _ in range(meta["n"]):
@@ -78,7 +79,7 @@ def run_case(name, meta, arr, mesh, out_dir):
                      **fields(st))
     elif meta["kind"] == "batched":
         vsweep = make_batched_sharded_sweep(cfg, shape, mesh)
-        problem = shard_problem(problem_of(arr), mesh)
+        problem = shard_problem(problem_of(arr, cfg.data_term), mesh)
         out, aux = vsweep(problem, shard_state(state_of(arr), mesh, batched=True))
         whole = [gather_state(GQState(*(x[b] for x in out)), mesh)
                  for b in range(out.muu.shape[0])]

@@ -53,18 +53,37 @@ def test_port_imports_without_jax():
             "'gqmap_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert {'gqmap_tpu_torch.cli.main', 'gqmap_tpu_torch.io.preprocess', "
-            "'gqmap_tpu_torch.models.ctf', 'gqmap_tpu_torch.parallel.halo'} <= set(names), "
+            "'gqmap_tpu_torch.models.ctf', 'gqmap_tpu_torch.parallel.halo', "
+            "'gqmap_tpu_torch.ops.chebyshev', 'gqmap_tpu_torch.kernels.roofline', "
+            "'gqmap_tpu_torch.bench', 'gqmap_tpu_torch.native'} <= set(names), "
             "names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'gqmap_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
 
 
-def test_unported_config_names_its_roadmap_item():
-    # chebyshev is validation-only in the JAX package: "Do not port"
-    cfg = gqmap_tpu_torch.GQMAPConfig.tpu_fast(data_term="chebyshev")
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        check_supported(cfg)
+DATA_TERMS = ["bicubic", "nearest", "quadratic", "chebyshev", "cosine"]
+
+
+@pytest.mark.parametrize("data_term", DATA_TERMS + ["sinc"])
+def test_every_data_term_jax_runs_is_supported(data_term):
+    # the port refuses no data term the JAX package's make_problem takes, and
+    # an unknown one raises ValueError in both
+    import numpy as np
+
+    from gqmap_tpu.models.gqmap import make_problem
+
+    I1 = np.random.default_rng(0).uniform(0, 255, (8, 8))
+    jcfg = gqmap_tpu.GQMAPConfig.tpu_fast(data_term=data_term, cheb_p=4, cheb_q=4)
+    cfg = gqmap_tpu_torch.GQMAPConfig.tpu_fast(data_term=data_term)
+    if data_term not in DATA_TERMS:
+        with pytest.raises(ValueError, match="data_term"):
+            make_problem(jcfg, I1, I1, gqmap_tpu.FlowRange(-1.0, 1.0, -1.0, 1.0))
+        with pytest.raises(ValueError, match="data_term"):
+            check_supported(cfg)
+        return
+    make_problem(jcfg, I1, I1, gqmap_tpu.FlowRange(-1.0, 1.0, -1.0, 1.0))
+    check_supported(cfg)
 
 
 def test_mesh_names_its_roadmap_item():

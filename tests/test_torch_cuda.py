@@ -10,6 +10,8 @@ kernel and its plain version differ only in summation order); float32 at
 2e-4 of that magnitude plus 2e-5 relative (``tests/test_kernels.py``).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -455,3 +457,44 @@ def test_structure_texture_on_card_matches_cpu(dev):
     got = structure_texture(img, device=dev)
     want = structure_texture(img, device="cpu")
     assert np.abs(got - want).max() <= 1e-10 * (img.max() - img.min())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chebyshev_sweep_through_k3_matches_plain(dev, dtype):
+    # one full_mixture sweep with the Chebyshev term: K3 launched once, the
+    # state within the kernel's tolerance of the plain route's; the series on
+    # the card equals its value on the CPU (float64: summation order only)
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    I2 = np.roll(I1, 1, axis=1)
+    kw = dict(dtype=str(dtype)[6:], data_term="chebyshev", cheb_p=24, cheb_q=8, quad_chunk=7)
+    fr = FlowRange(-2, 2, -2, 2)
+    cfg = GQMAPConfig.full_mixture(**kw)
+    prob = pg.make_problem(cfg, I1, I2, fr, device=dev)
+    st = pg.init_state(cfg, fr, I1.shape, device=dev)
+    n = edge_gq.edge_gq_cuda.launches
+    got, gaux = pg.make_sweep(dataclasses.replace(cfg, edge_kernel="cuda"), I1.shape)(prob, st)
+    want, waux = pg.make_sweep(dataclasses.replace(cfg, edge_kernel="torch"), I1.shape)(prob, st)
+    torch.cuda.synchronize()
+    assert edge_gq.edge_gq_cuda.launches - n == 1
+    for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"):
+        _close(getattr(got, f), getattr(want, f), dtype, f)
+    if dtype == torch.float64:
+        cpu = pg.make_problem(cfg, I1, I2, fr, device="cpu")
+        x = torch.as_tensor(r.uniform(-3, 3, (2, 3, 24, 40)))
+        on_card = pg._node_f(cfg, prob)(x.to(dev), x.flip(0).to(dev)).cpu()
+        _close(on_card, pg._node_f(cfg, cpu)(x, x.flip(0)), dtype, "series")
+
+
+def test_measure_ceilings_on_the_card(dev):
+    from gqmap_tpu_torch.kernels import roofline
+
+    ceil = roofline.measure_ceilings(device=dev)
+    rates = ("hbm_stream_GBps", "vpu_GFLOPs", "gather_Mtaps_s", "exp_Gops", "rsqrt_Gops")
+    assert all(np.isfinite(ceil[k]) and ceil[k] > 0 for k in rates + ("roundtrip_ms",)), ceil
+    # no measured rate above the data sheet's
+    sheet = roofline.datasheet_rates()
+    assert ceil["hbm_stream_GBps"] * 1e9 <= sheet["bytes"], ceil
+    assert ceil["vpu_GFLOPs"] * 1e9 <= sheet["flops"], ceil
+    assert ceil["rsqrt_Gops"] * 1e9 <= sheet["roots"], ceil
+    assert ceil["card"] and "W" in ceil["card"]

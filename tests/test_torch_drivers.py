@@ -217,13 +217,16 @@ def test_cli_help(capsys):
         pcli.main(["--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    for cmd in ("run", "suite", "ctf", "sweep"):
+    for cmd in ("run", "suite", "ctf", "sweep", "bench"):
         assert cmd in out
-    assert "bench" not in out
     with pytest.raises(SystemExit):
         pcli.main(["run", "--help"])
     out = capsys.readouterr().out
     assert "--device" in out and "--devices" in out and "--reset-at" in out
+    with pytest.raises(SystemExit):
+        pcli.main(["bench", "--help"])
+    out = capsys.readouterr().out
+    assert "--device" in out and "--devices" not in out
 
 
 def test_cli_run(data, capsys):

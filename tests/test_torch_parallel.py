@@ -8,8 +8,7 @@ computes JAX's results while they run and reads the ranks' outputs. Every
 case runs in float64. Tolerance: ``rtol=1e-9, atol=1e-12`` on every GQState
 field and 1e-9 relative on the energy and ptdmu (the shards sum in another
 order than one device), as ``tests/test_halo.py`` holds JAX's halo sweep to
-its single-device sweep. Chebyshev cases are left out: the port does not
-run that data term (ROADMAP "Do not port").
+its single-device sweep.
 """
 
 import dataclasses
@@ -61,7 +60,7 @@ def toy(cfg, M=16, N=16, seed=0, **problem_kw):
     I1 = gaussian_filter(r.uniform(0, 255, (M, N)), 1.5)
     I2 = np.roll(I1, 1, axis=1)
     fr = JFlowRange(*FR)
-    if cfg.data_term == "cosine":
+    if cfg.data_term in ("cosine", "chebyshev"):
         problem = jg.make_problem(cfg, I1, I2, fr)
     else:
         problem = jg.make_problem(cfg, I1, I2)._replace(rng=fr)
@@ -104,6 +103,11 @@ def _cfgs():
         fm_1x4=(fm, (1, 1, 4), 3, {}),
         fm_4x1=(fm, (1, 4, 1), 3, {}),
         fast_2x2=(fast, (1, 2, 2), 3, {}),
+        # tests/test_halo.py::test_halo_spectral_terms_match_single[chebyshev] at P1's
+        # corr_tor: at the preset's, rho reaches the clamp in the second sweep and the
+        # port's single-process sweep leaves JAX's by 1.3e-9 in the third (ROADMAP P1)
+        cheb_2x2=(dataclasses.replace(fast, data_term="chebyshev", corr_tor=0.99), (1, 2, 2),
+                  3, {}),
         # P2's setting, as tests/test_torch_redblack.py: at the preset's step the
         # red-black order separates the port's single-process sweep from JAX's by
         # 1.6e-9 in 3 sweeps on this toy, with no shard involved (ROADMAP P2)

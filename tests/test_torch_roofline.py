@@ -1,0 +1,93 @@
+"""The port's roofline harness (``gqmap_tpu_torch/kernels/roofline.py``) on
+the CPU: the kernels' work counts against the bounds ``PERF.md`` section 6
+records (at the data sheet's rates and a 1980 MHz SM clock, to the 4
+decimals recorded there), the sweep functions at a small size with given
+ceilings, and the refusal to measure ceilings anywhere but on a card.
+The ceilings themselves are measured by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` on the card."""
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_common  # noqa: F401  (one torch thread per worker)
+from gqmap_tpu_torch.kernels import roofline
+
+MAIN, SUPER = (376, 452), (94, 113)
+# (kernel, work, bound_ms, bound_by) of PERF.md section 6
+BOUNDS = {
+    "K1 main": (roofline.k1_work((64, 16) + MAIN, 3), 0.2182, "operations"),
+    "K2 main": (roofline.k2_work((2, 2, 3) + MAIN, 21), 0.0195, "bytes"),
+    "K3 main": (roofline.k3_work((2, 2, 3) + MAIN, 9), 0.0395, "operations"),
+    "K1 super": (roofline.k1_work((96, 16) + SUPER, 3), 0.0205, "operations"),
+    "K2 super": (roofline.k2_work((2, 2, 3) + SUPER, 25), 0.0012, "bytes"),
+    "K3 super": (roofline.k3_work((2, 2, 3) + SUPER, 11), 0.0037, "operations"),
+}
+CEILINGS = dict(roundtrip_ms=0.03, hbm_stream_GBps=3000.0, vpu_GFLOPs=50000.0,
+                gather_Mtaps_s=2e5, exp_Gops=2000.0, rsqrt_Gops=4000.0, card="given")
+
+
+@pytest.mark.parametrize("name", list(BOUNDS))
+def test_work_counts_give_the_recorded_bounds(name):
+    work, want, by = BOUNDS[name]
+    got = roofline.bound(work, roofline.datasheet_rates(1980.0))
+    assert round(got["bound_ms"], 4) == want and got["bound_by"] == by, got
+
+
+def test_work_counts_scale_with_the_shapes():
+    # K1's coefficient reads follow the modes a run evaluates (its counters)
+    full = roofline.k1_work((64, 16) + MAIN, 3)
+    half = roofline.k1_work((64, 16) + MAIN, 3, modes=full["flops"] // 28 // 2)
+    assert half["flops"] * 2 == full["flops"] and half["bytes"] < full["bytes"]
+    # bytes double with the itemsize; operations and roots do not move
+    for f in (lambda s: roofline.k2_work((2, 2, 3, 8, 9), 21, s),
+              lambda s: roofline.k3_work((2, 2, 3, 8, 9), 9, s)):
+        a, b = f(4), f(8)
+        assert b["bytes"] == 2 * a["bytes"] and (a["flops"], a["roots"]) == (b["flops"], b["roots"])
+
+
+def test_measured_rates_set_the_bound():
+    work = roofline.k3_work((2, 2, 3) + MAIN, 9)
+    got = roofline.bound(work, roofline.measured_rates(CEILINGS))
+    terms = dict(bytes=work["bytes"] / 3e12, flops=work["flops"] / 5e13,
+                 roots=work["roots"] / 4e12)
+    assert got["bound_terms_ms"] == pytest.approx({k: v * 1e3 for k, v in terms.items()})
+    assert got["bound_ms"] == pytest.approx(max(terms.values()) * 1e3)
+    assert got["bound_by"] == "operations"
+
+
+def test_measure_ceilings_needs_a_card(monkeypatch):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline.measure_ceilings(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roofline.measure_ceilings()
+    # the sweep functions without ceilings measure them: on the CPU they raise too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline.sweep_roofline((24, 28), modes=("cosine",), device="cpu")
+
+
+def test_sweep_roofline_on_the_cpu():
+    out = roofline.sweep_roofline((24, 28), ceilings=CEILINGS, device="cpu", n=1)
+    assert out["ceilings"] is CEILINGS
+    assert list(out["modes"]) == ["cosine", "chebyshev", "nearest", "bicubic"]
+    for mode, m in out["modes"].items():
+        assert set(m) == {"ms_per_sweep", "mpix_sweeps_per_s", "governing_bound", "bound_ms",
+                          "share_of_bound", "device"}, mode
+        assert m["ms_per_sweep"] > 0 and m["bound_ms"] > 0 and m["device"] == "cpu"
+        assert m["share_of_bound"] == pytest.approx(m["bound_ms"] / m["ms_per_sweep"])
+    assert {m: out["modes"][m]["governing_bound"] for m in out["modes"]} == {
+        "cosine": "flops", "chebyshev": "flops", "nearest": "gather", "bicubic": "gather"}
+    # 16 table reads a bicubic sample, 1 a nearest one
+    assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
+        16 * out["modes"]["nearest"]["bound_ms"])
+
+
+def test_flagship_roofline_on_the_cpu():
+    out = roofline.flagship_roofline((24, 28), ceilings=CEILINGS, device="cpu", seg_len=3)
+    k, s = out["cosine_kernel_v1"], out["tpu_fast_sweep"]
+    assert set(k) == {"ms", "bound_ms", "governing", "share_of_bound"}
+    assert set(k["bound_ms"]) == {"vpu", "exp", "hbm"} and k["governing"] in k["bound_ms"]
+    assert set(s) == {"ms", "mpix_sweeps_per_s", "bound_ms", "bound_terms_ms", "share_of_bound"}
+    assert s["bound_ms"] == pytest.approx(sum(s["bound_terms_ms"].values()))
+    assert np.isfinite([k["ms"], s["ms"]]).all() and out["device"] == "cpu"
