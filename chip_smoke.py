@@ -53,7 +53,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the energy must stay finite, the AEPE at it=900 be at most half that at
    it=1, and each counter equal the sweep count; a second such solve must
    give the same AEPE trace, bit for bit. Then ms/sweep of 300-sweep
-   segments from init and converged, and the peak device memory;
+   segments from init and converged (the runner's route must be
+   ``"graph"``), and the peak device memory;
 6. K3 (tensor-rule edge sums) against its plain version on the full edge
    lattice through its instance for K=9, from the random init, a warm state
    (sigma drawn per site in [0.01, 3], |rho| <= 0.9) and the clamp state of
@@ -194,16 +195,36 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 29. D4: ``run --devices 2`` under ``python -m torch.distributed.run`` with 2
    ranks on the card, 5 runs started together, every one exiting 0 with one
    JSON line (the command ends the process group it formed);
-30. last, since the profiler's hooks may stay in the process: one
+30. graph segments: the segment runner's graph route (one predicated sweep
+   captured as a CUDA graph and replayed, ``(n, stop)`` read every ``POLL``
+   sweeps) against its host loop (``_route="host"``) at 376x452 f32 on
+   ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
+   ``tpu_fast_super`` and ``super_entropy``: the route is ``"graph"``; from
+   the init (300 sweeps) and the sigma = 0.05 state (300; 100 on the two
+   slow paths) the final state, the sweep count, the three traces and the
+   flag are the host loop's bit for bit, with the same launch counts and
+   one read a window; each runner's ms a sweep by CUDA events, the capture's
+   seconds and the capturing call's peak and reserved memory above what
+   the script held; a ``tor`` that trips inside a poll window (from the host
+   loop's |dmu| trace) gives the host loop's ``n``, flag, traces and state;
+   the converged ``tpu_fast`` and ``tpu_fast_super`` segments' ms a sweep
+   at each POLL of ``GRAPH_POLLS``; then 3 sweeps of every other
+   single-process configuration (``legacy_v1``-``v3``, autodiff,
+   ``blockmatch_v2``, windowed ``tpu_fast``, ``ctf_level``, both Chebyshev
+   presets, ``tpu_fast`` in float64), graph against host loop bit for bit.
+   Every other segment and solve of the script (single process) runs the
+   graph route too;
+31. last, since the profiler's hooks may stay in the process: one
    ``tpu_fast``, ``full_mixture`` and Chebyshev ``full_mixture`` sweep from
-   sigma = 0.05 under ``torch.profiler``: wall and device time, the device's
-   idle share, the kernel count and the top operators.
+   sigma = 0.05 under ``torch.profiler``, and a 20-sweep graph segment of
+   the first two: wall and device time, the device's idle share, the
+   kernel count and the top operators.
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
 K3; ``launches_by_path`` every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
-phase's included;
+phase's and the graph phase's included;
 ``super`` the checks, times and bounds on the super lattice, ``legacy``
 K3's on the L = 1 lattice (K = 9, 17, and ``ctf_level``'s K = 11 at both
 sizes) and ``windowed`` K1's on the window-meaned field), and last
@@ -1289,11 +1310,204 @@ def d4_phase(dev, record):
     log(f"  D4: {D4_RUNS} runs together in {time.time() - t:.1f} s")
 
 
+def stop_point(trace, limit, poll):
+    """``(skip, k)``: a segment from the state after ``skip`` sweeps whose
+    |dmu| trace ``trace[skip:]`` first falls below all before it at sweep
+    ``k + 1 <= limit``, not at the end of a window of ``poll`` sweeps; k = 6
+    where the trace allows, else the least k >= 3. None if there is none."""
+    for want in [6] + list(range(3, limit)):
+        for skip in range(len(trace) - want):
+            if (want + 1) % poll and trace[skip + want] < trace[skip:skip + want].min():
+                return skip, want
+    return None
+
+
+GRAPH_SWEEPS = 300  # the graph phase's segments (100 converged on the two slow paths)
+GRAPH_POLLS = (1, 5, 10, 25, 100)  # POLL values timed on the converged tpu_fast(_super)
+
+
+def graph_phase(dev, record, by_path, kfns):
+    """Phase 30: the segment runner's graph route against its host loop at
+    376x452 f32 on ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
+    ``tpu_fast_super`` and ``super_entropy``: the route is ``"graph"``; from
+    the init and from the sigma = 0.05 state both runners end in the same
+    state and traces, bit for bit, after 300 sweeps (100 converged for
+    ``full_mixture`` and ``super_entropy``), with the same launch counts; each
+    runner's ms a sweep by CUDA events, the capture's seconds and the peak
+    device memory of the capturing call; an early stop that trips inside a
+    poll window (``tor`` from the host loop's |dmu| trace) gives the host
+    loop's ``n``, flag, traces and state; ms a sweep at each POLL of
+    :data:`GRAPH_POLLS`; and 3 sweeps of every other single-process
+    configuration, graph against host loop bit for bit. (Graph sweeps are
+    profiled in the last phase.)"""
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    log("phase graph segments")
+    t_phase = time.time()
+    I1, I2, _ = synthetic_pair()
+    fr = FlowRange(*FR)
+    paths = {
+        "tpu_fast": (GQMAPConfig.tpu_fast(), GRAPH_SWEEPS),
+        "full_mixture": (GQMAPConfig.full_mixture(quad_chunk=27), 100),
+        "tpu_fast redblack": (GQMAPConfig.tpu_fast(sweep_order="redblack"), GRAPH_SWEEPS),
+        "tpu_fast_super": (GQMAPConfig.tpu_fast_super(), GRAPH_SWEEPS),
+        "super_entropy": (GQMAPConfig.super_entropy(), 100),
+    }
+    out = record["graph"] = {"card": smi("name,power.limit"), "POLL": pg.POLL}
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in kfns.values():
+            f.launches = 0
+
+    def timed(seg, problem, state, n):
+        """``seg(problem, state, n)``, its ms a sweep by CUDA events, and the
+        launch counts of the call (0 just before it)."""
+        zero()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = seg(problem, state, n)
+        t1.record()
+        torch.cuda.synchronize()
+        return res, t0.elapsed_time(t1) / n, {k: f.launches for k, f in kfns.items()}
+
+    def same(a, b):
+        """Bit-for-bit equality of two segment results: state, n, traces, flag."""
+        return (all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and a[1] == b[1]
+                and all(torch.equal(a[i], b[i]) for i in (2, 3, 4)) and a[5] == b[5])
+
+    for path, (base, conv_n) in paths.items():
+        cfg = dataclasses.replace(base, its=100000, eval_every=GRAPH_SWEEPS, tor=0.0)
+        problem = pg.make_problem(cfg, I1, I2, fr, dev)
+        init = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+        conv = init._replace(sigmau=torch.full_like(init.sigmau, 0.05),
+                             sigmav=torch.full_like(init.sigmav, 0.05))
+        host = pg.SegmentRunner(cfg, (H, W), _route="host")
+        graph = pg.make_segment_runner(cfg, (H, W))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        graph(problem, init, 10)  # the capture
+        torch.cuda.synchronize()
+        rec = out[path] = dict(
+            capture_s=graph.capture_s,
+            capture_call_GiB_above_held=(torch.cuda.max_memory_allocated() - held) / 2**30,
+            reserved_GiB_above=(torch.cuda.memory_reserved() - reserved) / 2**30,
+            capture_call_launches={k: f.launches for k, f in kfns.items()})
+        require(graph.route == "graph", f"graph {path}: route {graph.route!r} is 'graph'")
+        for sname, st, n in (("init", init, GRAPH_SWEEPS), ("converged", conv, conv_n)):
+            h, h_ms, h_counts = timed(host, problem, st, n)
+            g, g_ms, g_counts = timed(graph, problem, st, n)
+            rec[sname] = dict(sweeps=n, host_ms=h_ms, graph_ms=g_ms, host_launches=h_counts,
+                              graph_launches=g_counts, graph_polls=graph.polls)
+            by_path[f"graph {path} {sname} ({n} sweeps)"] = g_counts
+            require(host.route == "host" and graph.route == "graph" and h[1] == g[1] == n,
+                    f"graph {path} {sname}: both runners ran {n} sweeps ({h[1]}, {g[1]})")
+            require(same(h, g), f"graph {path} {sname}: the graph's state and traces after {n} "
+                                "sweeps equal the host loop's, bit for bit")
+            require(g_counts == h_counts and sum(h_counts.values()) > 0,
+                    f"graph {path} {sname}: launch counts {g_counts} equal the host loop's "
+                    f"{h_counts}")
+            require(graph.polls == -(-n // pg.POLL),
+                    f"graph {path} {sname}: {graph.polls} reads of (n, stop) for {n} sweeps at "
+                    f"POLL {pg.POLL}")
+        log(f"  {path} on {out['card']}: ms a sweep host / graph, from init "
+            f"{rec['init']['host_ms']:.4f} / {rec['init']['graph_ms']:.4f}, converged "
+            f"{rec['converged']['host_ms']:.4f} / {rec['converged']['graph_ms']:.4f}; capture "
+            f"{rec['capture_s']:.3f} s, the capturing call {rec['capture_call_GiB_above_held']:.3f}"
+            f" GiB at peak above held, reserved +{rec['reserved_GiB_above']:.3f} GiB; launches "
+            f"{rec['init']['graph_launches']}")
+        if path in ("tpu_fast", "tpu_fast_super"):
+            # POLL: ms a sweep of the converged 300-sweep segment at each cadence
+            polls = rec["ms_by_POLL"] = {}
+            chosen = pg.POLL
+            try:
+                for poll in GRAPH_POLLS:
+                    pg.POLL = poll
+                    polls[poll] = min(timed(graph, problem, conv, GRAPH_SWEEPS)[1]
+                                      for _ in range(3))
+            finally:
+                pg.POLL = chosen
+            log(f"  {path} graph, converged, ms a sweep by POLL (best of 3): {polls}")
+        if path == "tpu_fast":
+            # an early stop inside a poll window: from the state after `skip`
+            # sweeps, tor between the |dmu| of sweep k + 1 and the least of the k
+            # before it (k = 6 where the trace allows)
+            trace = host(problem, init, 40)[3].cpu().numpy()
+            found = stop_point(trace, 30, pg.POLL)
+            if found is None:
+                require(False, f"graph early stop: no sweep whose |dmu| is a new minimum "
+                               f"inside a window, trace {trace.tolist()}")
+            else:
+                skip, k = found
+                tor = float((trace[skip + k] + trace[skip:skip + k].min()) / 2)
+                start = host(problem, init, skip)[0] if skip else init
+                scfg = dataclasses.replace(cfg, tor=tor)
+                h, _, h_counts = timed(pg.SegmentRunner(scfg, (H, W), _route="host"),
+                                       problem, start, 30)
+                sg = pg.make_segment_runner(scfg, (H, W))
+                g, _, g_counts = timed(sg, problem, start, 30)
+                rec["early_stop"] = dict(skip=skip, tor=tor, n=g[1], stopped=g[5],
+                                         host_launches=h_counts, graph_launches=g_counts,
+                                         polls=sg.polls)
+                by_path["graph tpu_fast early stop (30 asked)"] = g_counts
+                require(h[1] == k + 1 and h[5] and same(h, g),
+                        f"graph early stop at tor {tor:.6e} after {skip} sweeps: host n {h[1]} "
+                        f"(want {k + 1}), graph n {g[1]}, stopped {h[5]} {g[5]}, state and "
+                        "traces bit for bit")
+                log(f"  tpu_fast early stop: from the state after {skip} sweeps, tor {tor:.6e} "
+                    f"stops both runners after sweep {g[1]} of 30; launches host {h_counts}, "
+                    f"graph {g_counts} (the window's {min(pg.POLL, 30)} replays), "
+                    f"{sg.polls} read(s)")
+                del sg
+        del host, graph, problem
+        torch.cuda.empty_cache()
+    # every other single-process configuration: 3 sweeps from the init, the
+    # graph bit for bit the host loop's, with its launch counts
+    others = {
+        "legacy_v1": GQMAPConfig.legacy_v1(quad_var=0.05),
+        "legacy_v2": GQMAPConfig.legacy_v2(),
+        "legacy_v2 autodiff": GQMAPConfig.legacy_v2(gradient_estimator="autodiff"),
+        "legacy_v3": GQMAPConfig.legacy_v3(),
+        "blockmatch_v2": GQMAPConfig.blockmatch_v2(),
+        "tpu_fast window_rg=2": GQMAPConfig.tpu_fast(window_rg=2),
+        "ctf_level": GQMAPConfig.ctf_level(),
+        "full_mixture chebyshev": GQMAPConfig.full_mixture(quad_chunk=27, **CHEB),
+        "tpu_fast chebyshev": GQMAPConfig.tpu_fast(data_term="chebyshev"),
+        "tpu_fast float64": GQMAPConfig.tpu_fast(dtype="float64"),
+    }
+    for path, base in others.items():
+        cfg = dataclasses.replace(base, its=100000, eval_every=10, tor=0.0)
+        problem = pg.make_problem(cfg, I1, I2, fr, dev)
+        if cfg.data_term == "quadratic":  # the prior: the pair's shift
+            problem = problem._replace(init_flow=torch.stack(
+                [torch.ones_like(problem.I1), torch.zeros_like(problem.I1)], -1))
+        init = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+        h, _, h_counts = timed(pg.SegmentRunner(cfg, (H, W), _route="host"), problem,
+                               init, 3)
+        graph = pg.make_segment_runner(cfg, (H, W))
+        g, _, g_counts = timed(graph, problem, init, 3)
+        out.setdefault("others", {})[path] = dict(capture_s=graph.capture_s,
+                                                  launches=g_counts)
+        by_path[f"graph {path} (3 sweeps)"] = g_counts
+        require(graph.route == "graph" and same(h, g) and g_counts == h_counts,
+                f"graph {path}: route {graph.route!r}, 3 sweeps bit for bit the host loop's, "
+                f"launches {g_counts} (host {h_counts}); capture {graph.capture_s:.3f} s")
+        del graph, problem
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase graph segments {out['phase_s']:.1f} s")
+
+
 def profiles_phase(dev, record):
-    """Phase 30, the last: the profiler's hooks may stay in the process and
+    """Phase 31, the last: the profiler's hooks may stay in the process and
     slow later launches, so nothing is timed after it. One sweep of
     ``tpu_fast``, ``full_mixture`` and the Chebyshev ``full_mixture`` from
-    the sigma = 0.05 state under ``torch.profiler`` (:func:`profile_call`)."""
+    the sigma = 0.05 state under ``torch.profiler`` (:func:`profile_call`),
+    and a 20-sweep segment of the first two on the graph route."""
     from gqmap_tpu_torch import FlowRange, GQMAPConfig
     from gqmap_tpu_torch.models import gqmap as pg
 
@@ -1311,6 +1525,14 @@ def profiles_phase(dev, record):
         sweep = pg.make_sweep(cfg, (H, W))
         prof = record.setdefault("profile", {})[label] = profile_call(lambda: sweep(problem, st))
         log(f"  one {label} sweep under torch.profiler: {json.dumps(prof)}")
+        if label != "full_mixture chebyshev":
+            seg = pg.make_segment_runner(dataclasses.replace(cfg, tor=0.0), (H, W))
+            prof = record["profile"][f"{label} graph, 20 sweeps"] = profile_call(
+                lambda: seg(problem, st, 20))
+            require(seg.route == "graph", f"profiled {label} segment: route {seg.route!r}")
+            log(f"  a 20-sweep {label} segment on the graph route under torch.profiler: "
+                f"{json.dumps(prof)}")
+            del seg
         del problem
         torch.cuda.empty_cache()
 
@@ -1601,6 +1823,8 @@ def main():
                                                   sigmav=torch.full_like(st32.sigmav, 0.05)))):
         st, *_ = seg(p32, st, 10)
         ms = time_ms(lambda: seg(p32, st, 300), 1) / 300
+        require(seg.route == "graph", f"segment {sname}: the runner's route {seg.route!r} is "
+                                      "'graph'")
         log(f"  segment {sname}: {ms:.4f} ms/sweep (300-sweep segment, CUDA events)")
         record.setdefault("segment_ms_per_sweep", {})[sname] = ms
     # where a sweep's time goes between host and card: 50 sweeps back to back
@@ -1736,6 +1960,7 @@ def main():
     record["exact_segment_ms_per_sweep"] = t0.elapsed_time(t1) / 300
     log(f"  exact segment: {record['exact_segment_ms_per_sweep']:.4f} ms/sweep "
         "(300-sweep segment, CUDA events)")
+    del seg  # its graph and pool
 
     sweep = pg.make_sweep(fm32, (H, W))
     node_tab = build_table(fm32.K, fm32.quad_chunk, np.float64)
@@ -2010,7 +2235,7 @@ def main():
     record["tpu_fast_super_segment_ms_per_sweep"] = time_ms(lambda: sseg(sp32, st, 300), 1) / 300
     log(f"  tpu_fast_super segment: {record['tpu_fast_super_segment_ms_per_sweep']:.4f} "
         "ms/sweep (300-sweep segment, CUDA events)")
-    del sp32
+    del sp32, sseg
 
     # ---- 13. the red-black order through the user entry point
     log("phase redblack solve")
@@ -2023,7 +2248,7 @@ def main():
     record["redblack_segment_ms_per_sweep"] = time_ms(lambda: rseg(p32, st, 100), 1) / 100
     log(f"  tpu_fast redblack segment: {record['redblack_segment_ms_per_sweep']:.4f} ms/sweep "
         "(100-sweep segment, CUDA events)")
-    del p32
+    del p32, rseg
 
     # ---- 14. K3 on the legacy presets' L = 1 edge lattice, K = 9 and K = 17
     log("phase legacy kernels")
@@ -2200,6 +2425,7 @@ def main():
     roofline_phase(dev, record, by_path, kfns, ceil)
     bench_phase(record)
     d4_phase(dev, record)
+    graph_phase(dev, record, by_path, kfns)
     profiles_phase(dev, record)
 
     for k in kfns:

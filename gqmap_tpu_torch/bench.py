@@ -12,9 +12,10 @@ power limit as ``nvidia-smi --query-gpu=name,power.limit
 ``value`` is the converged rate (sigma pinned at 0.05, where ~95% of a
 30000-sweep solve runs), ``from_init`` the same from the random init, both
 in Mpixel-sweeps/s: one 300-sweep segment of ``make_segment_runner`` (the
-way ``solve`` runs) after a 10-sweep warm segment, timed by the host clock
-from a ``torch.cuda.synchronize()`` to the next, so it is the wall time a
-user sees, host included. ``vs_baseline`` is 1.0: the repository's only
+way ``solve`` runs: on the card its graph route, whose capture the 10-sweep
+warm segment before it takes) timed by the host clock from a
+``torch.cuda.synchronize()`` to the next, so it is the wall time a user
+sees, host included. ``vs_baseline`` is 1.0: the repository's only
 earlier records are TPU ones, and they are no baseline for a card.
 """
 
@@ -34,17 +35,20 @@ WARM, SEG_LEN = 10, 300  # sweeps of the warm and of the timed segment
 
 
 def load_problem_images():
-    """Teddy (``io.dataset.load_sequence``) where ``GQMAP_DATA`` holds it,
-    else the synthetic 376x452 pair of the root ``bench.py``: smoothed noise
-    and its one-pixel roll. Says on stderr which frames it took."""
+    """Teddy (``io.dataset.load_sequence``) where ``GQMAP_DATA`` holds it and
+    it loads, else, on any exception (no data, or no ``imageio`` for its PNG
+    frames), the synthetic 376x452 pair of the root ``bench.py``: smoothed
+    noise and its one-pixel roll. Says on stderr which frames it took and,
+    for the synthetic pair, why."""
     from .config import FlowRange
     from .io.dataset import load_sequence
     from .ops.flowviz import flow_to_color
 
     try:
         seq = load_sequence("Teddy")
-    except FileNotFoundError as e:
-        print(f"bench: {e}; using the synthetic 376x452 pair", file=sys.stderr)
+    except Exception as e:  # the root bench.py's rule, without its retries
+        print(f"bench: {type(e).__name__}: {e}; using the synthetic 376x452 pair",
+              file=sys.stderr)
         r = np.random.default_rng(0)
         I1 = r.uniform(0, 255, (376, 452))
         k = np.ones(5) / 5

@@ -1,1 +1,12 @@
-"""Hand-written CUDA kernels of the port, with their wrappers and plain versions."""
+"""Hand-written CUDA kernels of the port, with their wrappers and plain versions.
+
+:data:`COUNTED` lists the wrappers that count their launches (each adds one
+to its ``launches`` where it launches its kernel), so a caller that replays
+captured launches can keep the counts without knowing the kernels.
+"""
+
+from .cosine_gq import cos_mode_sums_cuda
+from .edge_gq import edge_gq_cuda
+from .edge_reduced_gq import edge_reduced_grads_cuda
+
+COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda)

@@ -32,7 +32,7 @@ import torch
 
 from ..ops.gq import GQRaw, gq_accumulate
 from ..ops.potentials import make_edge_pot
-from ..ops.quadrature import build_table, gauss_hermite
+from ..ops.quadrature import gauss_hermite, table_on
 from . import build
 
 __all__ = ["SPECIALISED", "edge_gq", "edge_gq_cuda", "edge_gq_torch", "pair_order",
@@ -87,7 +87,7 @@ def paired_rule(K: int, dtype=np.float64) -> np.ndarray:
 def edge_gq_torch(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float) -> GQRaw:
     """Plain version of K3: ``gq_accumulate`` over the whole K^2 rule."""
     return gq_accumulate(make_edge_pot(lambdas, epsn), mu[None], u2e, sg[None], o2e, rou,
-                         build_table(K, dtype=np.float64))
+                         table_on(K, 0, False, mu.dtype, mu.device))
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}

@@ -46,7 +46,7 @@ import torch
 
 from ..ops.gq import GQGrads, finalize, gq_accumulate_diff
 from ..ops.potentials import make_edge_pot_diff
-from ..ops.quadrature import build_table_1d, gauss_hermite
+from ..ops.quadrature import gauss_hermite, table_on
 from . import build
 
 __all__ = ["SPECIALISED", "edge_reduced_grads", "edge_reduced_grads_cuda",
@@ -107,7 +107,7 @@ def edge_reduced_grads_torch(mu, sg, rou, alpha, T, k1: int, lambdas: float, eps
     L = mu.shape[1]
     u2e, o2e = neighbour_stacks(mu, sg)
     raw = gq_accumulate_diff(make_edge_pot_diff(lambdas, epsn), mu[None], u2e, sg[None],
-                             o2e, rou, build_table_1d(k1, dtype=np.float64))
+                             o2e, rou, table_on(k1, 0, True, mu.dtype, mu.device))
     return finalize(raw, alpha.reshape(L, 1, 1), sg[None], o2e, rou, T, entropy_scale)
 
 

@@ -41,9 +41,12 @@ each running the sweep and its kernels on its own block
 
 Differences from the JAX engine, none of which changes a result:
 
-* PyTorch runs eagerly, so there is no jit and no on-device while loop: the
-  segment runner is a host loop that reads one device flag per sweep to
-  apply the reference's early stop (``it > its || mean|dmu| < tor``, ``:75``).
+* PyTorch runs eagerly, so there is no jit: on the card the segment runner
+  replays a CUDA graph of one predicated sweep and reads the device's sweep
+  count and stop flag every :data:`POLL` sweeps (the reference's early stop,
+  ``it > its || mean|dmu| < tor``, ``:75``, takes effect on the device
+  after the sweep that meets it); on the CPU and with ``mesh`` it is a host
+  loop that reads the flag after every sweep.
 * T, alpha and the iteration counter stay on the device; the kernels read
   them through pointers.
 """
@@ -53,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -60,6 +64,7 @@ import torch
 import torch.distributed
 
 from ..config import FlowRange, GQMAPConfig
+from ..kernels import COUNTED
 from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
@@ -75,7 +80,7 @@ from ..ops.potentials import (make_edge_pot, make_edge_pot_diff, make_edge_pot_t
                               make_edge_pot_truncquad_diff, make_node_pot_bicubic,
                               make_node_pot_nearest, make_node_pot_nearest_chain,
                               make_node_pot_quadratic, make_node_pot_windowed)
-from ..ops.quadrature import build_table, build_table_1d
+from ..ops.quadrature import table_on
 from ..ops.simplex import project_simplex, softmax, softmax_natural_step
 
 __all__ = [
@@ -83,6 +88,7 @@ __all__ = [
     "GQState",
     "Problem",
     "SweepAux",
+    "SegmentRunner",
     "SolveResult",
     "check_supported",
     "flow_lattice_shape",
@@ -327,8 +333,8 @@ class DistHooks(NamedTuple):
 
 
 def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
-    """Build the single-sweep update: ``sweep(problem, state) -> (state,
-    SweepAux)``. ``sweep_order="jacobi"`` is one synchronous step over the
+    """Build the single-sweep update: ``sweep(problem, state, active=None) ->
+    (state, SweepAux)``. ``sweep_order="jacobi"`` is one synchronous step over the
     interior; ``"redblack"`` is a step over the interior's red sites
     (``(row + col)`` even, in global lattice coordinates) and then one over
     its black sites from the red step's state, so every kernel launches twice
@@ -344,7 +350,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     ``dist.halo`` of its block, the red mask takes the block's origin, and
     each pass's energy, alpha gradient and |dmu| / |dsigma| sums are summed
     over the shards in one ``dist.psum``; ``n_interior`` stays the whole
-    lattice's."""
+    lattice's.
+
+    ``active``, a boolean tensor of no dimensions on the state's device,
+    predicates the sweep on the device (the segment runner's graph route):
+    it joins the site mask of the clamped step and gates the mixture
+    weights, the temperature and the iteration counter. Where it is true the
+    sweep computes what it computes without it, bit for bit; where it is
+    false the state comes back unchanged, with no host read either way."""
     check_supported(cfg)
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -354,8 +367,6 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     n_interior = (M - 2 * b) * (N - 2 * b) * L
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums = _NODE_SUMS[cfg.node_kernel]
-    node_tab = build_table(cfg.K, cfg.quad_chunk, np.float64)
-    tab1 = build_table_1d(k1, dtype=np.float64)
     autodiff = cfg.gradient_estimator == "autodiff"
     reduced = cfg.edge_quad == "reduced"
     if cfg.edge_kind == "truncquad":
@@ -380,10 +391,13 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     red_np = (np.add.outer(np.arange(ml) + r0, np.arange(nl) + c0) & 1) == 0
     red_on = {}  # device -> the red mask there
 
-    def sweep(problem: Problem, state: GQState) -> tuple[GQState, SweepAux]:
+    def sweep(problem: Problem, state: GQState, active=None) -> tuple[GQState, SweepAux]:
         rngv = problem.rng
         interior = problem.interior  # (M, N), broadcasts left
+        live = interior if active is None else interior & active  # the sites a step moves
         zero = torch.zeros((), dtype=dt, device=interior.device)
+        node_tab = table_on(cfg.K, cfg.quad_chunk, False, dt, interior.device)
+        tab1 = table_on(k1, 0, True, dt, interior.device)
         it_f = state.it.to(dt)
         if cfg.step_const:
             step = torch.full((), cfg.step0, dtype=dt, device=interior.device)
@@ -521,11 +535,11 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             red = red_on.get(interior.device)
             if red is None:
                 red = red_on[interior.device] = torch.as_tensor(red_np, device=interior.device)
-            st1, _, _, p1, s1 = one_pass(state, interior & red)
-            stc, energy, dalpha, p2, s2 = one_pass(st1, interior & ~red)
+            st1, _, _, p1, s1 = one_pass(state, live & red)
+            stc, energy, dalpha, p2, s2 = one_pass(st1, live & ~red)
             dmu_sum, dsig_sum = p1 + p2, s1 + s2
         else:
-            stc, energy, dalpha, dmu_sum, dsig_sum = one_pass(state, interior)
+            stc, energy, dalpha, dmu_sum, dsig_sum = one_pass(state, live)
 
         # --- mixture-weight update, active after alpha_start iters (:50) ---
         w = state.w
@@ -542,48 +556,238 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             T = torch.where(state.it % cfg.anneal_every == 0,
                             torch.clamp(T * cfg.drate, min=cfg.t_floor), T)
 
-        new = stc._replace(w=w, temperature=T, it=state.it + 1)
+        it = state.it + 1
+        if active is not None:
+            w, T, it = (torch.where(active, x, x0) for x, x0 in
+                        ((w, state.w), (T, state.temperature), (it, state.it)))
+        new = stc._replace(w=w, temperature=T, it=it)
         return new, SweepAux(energy=energy, ptdmu=dmu_sum / n_interior,
                              ptdsigma=dsig_sum / n_interior)
 
     return sweep
 
 
-def make_segment_runner(cfg: GQMAPConfig, image_shape, mesh=None):
+POLL = 10  # graph replays between reads of the device's (n, stop); timed by chip_smoke.py
+_WARMUP = 2  # eager sweeps on a scratch copy of the state before a capture
+
+
+def _predicated_step(sweep, cfg: GQMAPConfig, problem: Problem, st: GQState, n, stop, bufs):
+    """One sweep of the device loop, in place on the state buffers ``st``, the
+    sweep count ``n``, the stop flag ``stop`` and the ``(3, cap)`` traces
+    ``bufs``, all on the device: while ``stop`` is false the sweep runs as the
+    host loop's does, bit for bit, its traces go to slot ``n``, ``n``
+    advances and the reference's stop rule (``it > its || ptdmu < tor``,
+    ``gqmap_gpu_mixture.m:75``) may set ``stop``; once it is set, the step
+    leaves everything as it is. No host read: a CUDA graph captures it."""
+    active = ~stop
+    new, aux = sweep(problem, st, active)
+    for dst, src in zip(st, new):
+        dst.copy_(src)
+    slot = n.clamp(max=bufs.shape[1] - 1).reshape(1)
+    vals = torch.stack([aux.energy, aux.ptdmu, aux.ptdsigma]).reshape(3, 1).to(bufs.dtype)
+    bufs.index_copy_(1, slot, torch.where(active, vals, bufs.index_select(1, slot)))
+    stop |= active & ((aux.ptdmu < cfg.tor) | (new.it > cfg.its))
+    n += active
+
+
+def _same(a, b) -> bool:
+    """Whether two problems hold the same tensors (by identity) and the same
+    other values: a captured graph reads the tensors it was captured on."""
+    if isinstance(a, (torch.Tensor, np.ndarray)) or isinstance(b, (torch.Tensor, np.ndarray)):
+        return a is b
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_same, a, b))
+    return a == b
+
+
+class _Captured(NamedTuple):
+    """A captured sweep and the buffers it reads and writes."""
+
+    graph: "torch.cuda.CUDAGraph"
+    problem: Problem  # the caller's, to tell whether a later call's is the same
+    run: Problem  # the one the graph reads (init_flow on the device), kept as long as it
+    st: GQState
+    n: torch.Tensor
+    stop: torch.Tensor
+    bufs: torch.Tensor
+    deltas: tuple  # each launch counter's increase in one sweep
+
+
+class SegmentRunner:
+    """``seg(problem, state, limit) -> (state, n_done, energy_buf, ptdmu_buf,
+    ptdsigma_buf, stopped)``: see :func:`make_segment_runner`.
+
+    After a call, ``route`` names the route it took, ``polls`` counts the
+    host's reads of the sweep count and stop flag, and ``capture_s`` is the
+    host seconds of the last capture (warm-up included; None before one).
+
+    ``_route`` forces a route, for tests and for holding the graph to its
+    plain version: ``"host"``, ``"graph"``, or ``"predicated"`` (the graph
+    route's loop with the eager predicated sweep in place of each replay, on
+    any device). None, as :func:`make_segment_runner` leaves it, chooses by
+    the device and the mesh.
+    """
+
+    def __init__(self, cfg: GQMAPConfig, image_shape, mesh=None, _route: str | None = None):
+        if _route not in (None, "graph", "host", "predicated"):
+            raise ValueError(f"unknown segment route {_route!r}")
+        if mesh is not None and _route not in (None, "host"):
+            raise ValueError(f"route {_route!r} with a mesh: the sharded sweep's collectives "
+                             "are host calls, so a mesh runs the host loop")
+        if mesh is None:
+            self.sweep = make_sweep(cfg, image_shape)
+        else:
+            from ..parallel.halo import make_halo_sweep
+
+            self.sweep = make_halo_sweep(cfg, image_shape, mesh)
+        self.cfg, self.mesh, self._route = cfg, mesh, _route
+        self.route = None
+        self.polls = 0
+        self.capture_s = None
+        self._captured = None
+
+    def __call__(self, problem: Problem, state: GQState, limit: int):
+        limit = int(limit)
+        cap = max(self.cfg.eval_every, limit)
+        route = self._route
+        if route is None:
+            route = "graph" if self.mesh is None and state.muu.device.type == "cuda" else "host"
+        if route == "graph" and state.muu.device.type != "cuda":
+            raise RuntimeError(f"the graph route needs CUDA tensors, got {state.muu.device}")
+        self.route = route
+        if route == "host":
+            return self._host(problem, state, limit, cap)
+        return self._device(problem, state, limit, cap, route == "graph")
+
+    def _host(self, problem, state, limit, cap):
+        """The host loop: one read of the stop flag a sweep."""
+        bufs = torch.zeros((3, cap), dtype=_dt(self.cfg), device=state.muu.device)
+        n, stop = 0, False
+        while n < limit and not stop:
+            state, aux = self.sweep(problem, state)
+            bufs[:, n] = torch.stack([aux.energy, aux.ptdmu, aux.ptdsigma])
+            n += 1
+            stop = bool(((aux.ptdmu < self.cfg.tor) | (state.it > self.cfg.its)).item())
+        self.polls = n
+        return state, n, bufs[0], bufs[1], bufs[2], stop
+
+    def _device(self, problem, state, limit, cap, graph: bool):
+        """The device loop: ``POLL`` predicated sweeps (graph replays, or the
+        eager step on the ``"predicated"`` route) between reads of ``(n,
+        stop)``, and a read at the end. A stop inside a window leaves the
+        window's later sweeps without effect, but a graph's replays all run
+        (and launch) the whole sweep: up to ``POLL - 1`` sweeps' time is
+        spent after a stop. Each counter grows by its sweep's launches a
+        replay."""
+        if graph:
+            c = self._graph_for(problem, state, cap)
+            st, n, stop, bufs = c.st, c.n, c.stop, c.bufs
+            for dst, src in zip(st, state):
+                dst.copy_(src)
+            n.zero_()
+            stop.zero_()
+            bufs.zero_()
+        else:
+            st, n, stop, bufs = self._buffers(state, cap)
+        done, polls, n_done, stopped = 0, 0, 0, 0
+        while done < limit and not stopped:
+            for _ in range(min(POLL, limit - done)):
+                if graph:
+                    c.graph.replay()
+                else:
+                    _predicated_step(self.sweep, self.cfg, problem, st, n, stop, bufs)
+                done += 1
+            n_done, stopped = torch.stack([n, stop.long()]).tolist()  # the window's one read
+            polls += 1
+        self.polls = polls
+        if graph:
+            for f, d in zip(COUNTED, c.deltas):
+                f.launches += d * done
+            st = GQState(*(x.clone() for x in st))
+            bufs = bufs[:, :cap].clone()
+        return st, n_done, bufs[0], bufs[1], bufs[2], bool(stopped)
+
+    def _buffers(self, state, cap):
+        """The device loop's state (a copy of ``state``), sweep count, stop
+        flag and ``(3, cap)`` traces."""
+        dev = state.muu.device
+        return (GQState(*(x.clone() for x in state)),
+                torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev),
+                torch.zeros((3, cap), dtype=_dt(self.cfg), device=dev))
+
+    def _graph_for(self, problem, state, cap) -> _Captured:
+        """The graph for this problem, state layout and trace length, captured
+        if the last one does not fit (which is released first)."""
+        c = self._captured
+        if (c is not None and c.bufs.shape[1] >= cap and _same(problem, c.problem)
+                and all(a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+                        for a, b in zip(state, c.st))):
+            return c
+        self._captured = None
+        self._captured = self._capture(problem, state, cap)
+        return self._captured
+
+    def _capture(self, problem, state, cap) -> _Captured:
+        """Warm up (eager predicated sweeps on a side stream, on a scratch copy
+        of the state: the lazy masks, rule tables and library load happen
+        here, outside the capture) and capture one predicated sweep that
+        reads and writes static buffers. Launch counters are left as they
+        were; the capture's increase is kept as the sweep's launches."""
+        t = time.perf_counter()
+        dev = state.muu.device
+        run = problem
+        if problem.init_flow is not None:  # a host array would be copied every sweep
+            run = problem._replace(init_flow=torch.as_tensor(
+                problem.init_flow, dtype=problem.I1.dtype, device=dev))
+        st, n, stop, bufs = self._buffers(state, cap)
+        held = [f.launches for f in COUNTED]
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP):
+                    _predicated_step(self.sweep, self.cfg, run, st, n, stop, bufs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                before = [f.launches for f in COUNTED]
+                _predicated_step(self.sweep, self.cfg, run, st, n, stop, bufs)
+                deltas = tuple(f.launches - b for f, b in zip(COUNTED, before))
+        for f, h in zip(COUNTED, held):
+            f.launches = h
+        self.capture_s = time.perf_counter() - t
+        return _Captured(graph, problem, run, st, n, stop, bufs, deltas)
+
+
+def make_segment_runner(cfg: GQMAPConfig, image_shape, mesh=None) -> SegmentRunner:
     """Multi-sweep runner with the reference's early stop.
 
     ``seg(problem, state, limit)`` runs up to ``limit`` sweeps, recording the
     per-sweep Energy and mean-|dmu| / mean-|dsigma| traces on the device, and
     stops after the first sweep with ``it > its`` or ``ptdmu < tor``
     (``gqmap_gpu_mixture.m:75``). Returns ``(state, n_done, energy_buf,
-    ptdmu_buf, ptdsigma_buf, stopped)``.
+    ptdmu_buf, ptdsigma_buf, stopped)``; the caller's state is not modified.
+
+    Routes (``seg.route`` names the one a call took):
+
+    * ``"graph"``, on a CUDA device without ``mesh``: one predicated sweep
+      (:func:`_predicated_step`) captured as a ``torch.cuda.CUDAGraph`` once
+      per problem, state layout and trace length, and replayed; the sweep
+      count and the stop flag stay on the device, and the host reads them
+      once every :data:`POLL` sweeps and at the end, as the JAX package's
+      ``lax.while_loop`` evaluates its condition on the device. A capture or
+      replay error raises. The graph and its memory pool go with the runner.
+    * ``"host"``, on the CPU or with ``mesh``: the host loop, which reads the
+      stop flag after every sweep; the plain version of the graph route.
 
     With ``mesh`` (a :class:`gqmap_tpu_torch.parallel.Mesh`) it runs this
     rank's shard (``parallel.halo.make_halo_sweep``) on its blocks of the
     problem and state; the stop flag comes from the summed ``ptdmu``, so
-    every rank stops after the same sweep.
+    every rank stops after the same sweep. Its collectives are host calls,
+    so a mesh keeps the host loop.
     """
-    if mesh is None:
-        sweep = make_sweep(cfg, image_shape)
-    else:
-        from ..parallel.halo import make_halo_sweep
-
-        sweep = make_halo_sweep(cfg, image_shape, mesh)
-    dt = _dt(cfg)
-
-    def seg(problem: Problem, state: GQState, limit: int):
-        cap = max(cfg.eval_every, int(limit))
-        dev = state.muu.device
-        bufs = torch.zeros((3, cap), dtype=dt, device=dev)
-        n, stop = 0, False
-        while n < limit and not stop:
-            state, aux = sweep(problem, state)
-            bufs[:, n] = torch.stack([aux.energy, aux.ptdmu, aux.ptdsigma])
-            n += 1
-            stop = bool(((aux.ptdmu < cfg.tor) | (state.it > cfg.its)).item())
-        return state, n, bufs[0], bufs[1], bufs[2], stop
-
-    return seg
+    return SegmentRunner(cfg, image_shape, mesh)
 
 
 def make_map_fn(cfg: GQMAPConfig):

@@ -74,7 +74,16 @@ class GQChainRaw(NamedTuple):
     Dj: torch.Tensor   # sum w df/dx2 XJ
 
 
-def _whitened_steps(u1, u2, o1, o2, p, tab: QuadTable):
+def _stacked(tab, like: torch.Tensor) -> torch.Tensor:
+    """``tab`` as a ``(fields, steps, chunk)`` tensor of ``like``'s type and
+    device: a table from :func:`.quadrature.table_on` as it is, a host table
+    copied (on every call, which a CUDA graph capture refuses)."""
+    if isinstance(tab, torch.Tensor):
+        return tab
+    return torch.as_tensor(np.stack(tab), dtype=like.dtype, device=like.device)
+
+
+def _whitened_steps(u1, u2, o1, o2, p, tab: QuadTable | torch.Tensor):
     """Per table step: ``(row, zi, zj, x1, x2)``, the step's table row
     ``(xi, xj, wiwj, xixj, x2a, x2m)`` (chunk axis leading), the points under
     the spectral whitening and the sample positions ``x1 = sqrt2 o1 zi + u1``,
@@ -84,9 +93,9 @@ def _whitened_steps(u1, u2, o1, o2, p, tab: QuadTable):
     o1e = o1 * _SQRT2
     o2e = o2 * _SQRT2
     site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
-    pts = (tab.chunk,) + (1,) * len(site)
-    table = torch.as_tensor(np.stack(tab), dtype=u1.dtype, device=u1.device)
-    for step in range(tab.steps):
+    table = _stacked(tab, u1)
+    pts = (table.shape[2],) + (1,) * len(site)
+    for step in range(table.shape[1]):
         row = tuple(r.reshape(pts) for r in table[:, step])
         xi, xj = row[:2]
         zi = s * xi + t * xj
@@ -95,7 +104,7 @@ def _whitened_steps(u1, u2, o1, o2, p, tab: QuadTable):
 
 
 def gq_accumulate(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2,
-                  p, tab: QuadTable) -> GQRaw:
+                  p, tab: QuadTable | torch.Tensor) -> GQRaw:
     """The six raw sums of ``f`` under the tensor rule, over every site.
 
     ``f(x1, x2)`` receives sample arrays of shape ``(chunk,) + site_shape``
@@ -117,7 +126,7 @@ def gq_accumulate(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u
 
 
 def gq_accumulate_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
-                       tab: QuadTable1D) -> GQRaw:
+                       tab: QuadTable1D | torch.Tensor) -> GQRaw:
     """The six raw sums for a difference potential ``f(x1, x2) = gd(x1 - x2)``.
 
     Under the whitened Gaussian ``d = x1 - x2`` is 1-D Gaussian with mean
@@ -136,8 +145,7 @@ def gq_accumulate_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o
 
     site = torch.broadcast_shapes(delta.shape, c.shape)
     pts = (-1,) + (1,) * len(site)
-    x = torch.as_tensor(tab.x.reshape(-1), dtype=c.dtype, device=c.device).reshape(pts)
-    w = torch.as_tensor(tab.w.reshape(-1), dtype=c.dtype, device=c.device).reshape(pts)
+    x, w = (r.reshape(pts) for r in _stacked(tab, c))
     gv = w * gd(delta + rc * x)
     H0 = gv.sum(0)
     H1 = (gv * x).sum(0)
@@ -158,7 +166,7 @@ def gq_accumulate_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o
 
 
 def gq_ei(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
-          tab: QuadTable) -> torch.Tensor:
+          tab: QuadTable | torch.Tensor) -> torch.Tensor:
     """Ei only (the weighted sum of potential values): the autodiff
     estimator's expectation, whose parameter gradients come from
     ``torch.autograd`` rather than the Stein identities. Accumulated out of
@@ -170,7 +178,8 @@ def gq_ei(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o
     return out
 
 
-def gq_accumulate_chain(fg: Callable, u1, u2, o1, o2, p, tab: QuadTable) -> GQChainRaw:
+def gq_accumulate_chain(fg: Callable, u1, u2, o1, o2, p,
+                        tab: QuadTable | torch.Tensor) -> GQChainRaw:
     """The chain-rule estimator's sums over every site (``legacy/gqmap_gpuV3.m:91-125``).
 
     ``fg(x1, x2) -> (f, df/dx1, df/dx2)`` gives the potential and its
@@ -217,7 +226,7 @@ def finalize_chain(raw: GQChainRaw, a, o1, o2, p, T, entropy_scale: float) -> GQ
 
 
 def gq_ei_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
-               tab: QuadTable1D) -> torch.Tensor:
+               tab: QuadTable1D | torch.Tensor) -> torch.Tensor:
     """Ei by the 1-D difference-reduced rule, ``sqrt(pi) sum_k w_k gd(d_k)``:
     the expectation of a difference potential ``f(x1, x2) = gd(x1 - x2)``
     needs only the marginal ``d ~ N(u1 - u2, o1e^2 + o2e^2 - 2 p o1e o2e)``.
@@ -232,15 +241,15 @@ def gq_ei_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
     site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
     pts = (-1,) + (1,) * len(site)
     h0 = torch.zeros(site, dtype=u1.dtype, device=u1.device)
-    for step in range(tab.steps):
-        x = torch.as_tensor(tab.x[step], dtype=c.dtype, device=c.device).reshape(pts)
-        w = torch.as_tensor(tab.w[step], dtype=c.dtype, device=c.device).reshape(pts)
+    table = _stacked(tab, c)
+    for step in range(table.shape[1]):
+        x, w = (r.reshape(pts) for r in table[:, step])
         h0 = h0 + (w * gd(delta + rc * x)).sum(0)
     return math.sqrt(math.pi) * h0
 
 
 def gq_expectation(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2,
-                   p, tab: QuadTable) -> torch.Tensor:
+                   p, tab: QuadTable | torch.Tensor) -> torch.Tensor:
     """Plain quadrature estimate of ``E_q[f]``, ``Ei / pi`` (no gradients)."""
     return gq_accumulate(f, u1, u2, o1, o2, p, tab).Ei / math.pi
 

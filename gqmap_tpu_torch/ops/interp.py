@@ -13,6 +13,7 @@ exactly.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -46,6 +47,15 @@ def _index(x: torch.Tensor) -> torch.Tensor:
     """``x.long()`` with NaN taken to 0, XLA's conversion of a NaN: the gathers
     of a NaN query then read an element in range (negative indices wrap)."""
     return torch.nan_to_num(x, nan=0.0).long()
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_offsets(N2: int, device: torch.device) -> torch.Tensor:
+    """The 16 flat offsets ``dr N2 + dc`` of a 4x4 patch in a table of row
+    length ``N2``, column-major as the taps are summed; made once a (row
+    length, device), so a sample copies nothing from the host."""
+    return torch.tensor([dr * N2 + dc for dc in range(4) for dr in range(4)],
+                        dtype=torch.long, device=device)
 
 
 def _cubic_weights(f):
@@ -84,9 +94,7 @@ def sample_bicubic(VV: torch.Tensor, Xq, Yq) -> torch.Tensor:
 
     wy = _cubic_weights(to)
     wx = _cubic_weights(so)
-    offs = torch.tensor([dr * N2 + dc for dc in range(4) for dr in range(4)],
-                        dtype=torch.long, device=VV.device)
-    offs = offs.reshape((16,) + (1,) * base.ndim)
+    offs = _tap_offsets(N2, VV.device).reshape((16,) + (1,) * base.ndim)
     taps = VV.reshape(-1)[offs + base[None]]  # (16,) + shape
     Vq = torch.zeros_like(Xq)
     k = 0

@@ -7,7 +7,8 @@ the reduced edge quadrature and the K^2-point tensor-product table of the
 exact path, mirroring the ``meshgrid`` constants of
 ``gqmap_gpu_mixture.m:9-10`` (XI, XJ, WIWJ, XIXJ, XI^2+XJ^2, XI^2-XJ^2),
 padded to a chunk multiple with zero-weight points, which add nothing to
-any sum.
+any sum. :func:`table_on` holds a table's device copy, made once, so a sweep
+copies nothing from the host (a CUDA graph capture refuses such copies).
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from typing import NamedTuple
 
 import numpy as np
 import scipy.linalg
+import torch
 
-__all__ = ["gauss_hermite", "QuadTable", "QuadTable1D", "build_table", "build_table_1d"]
+__all__ = ["gauss_hermite", "QuadTable", "QuadTable1D", "build_table", "build_table_1d",
+           "table_on"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,3 +113,16 @@ def build_table(K: int, chunk: int = 0, dtype=np.float32) -> QuadTable:
 
     return QuadTable(xi=prep(xi), xj=prep(xj), wiwj=prep(wi * wj), xixj=prep(xi * xj),
                      x2a=prep(xi**2 + xj**2), x2m=prep(xi**2 - xj**2))
+
+
+@functools.lru_cache(maxsize=None)
+def table_on(K: int, chunk: int, one_d: bool, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """``np.stack`` of the float64 ``build_table(K, chunk)`` (``build_table_1d``
+    if ``one_d``) as a ``dtype`` tensor on ``device``: ``(fields, steps,
+    chunk)``, fields in the table's order. Made once for its arguments, as the
+    kernel wrappers' rule tables are, so a sum of :mod:`.gq` given it copies
+    nothing from the host. The tensor is shared: callers read it and never
+    write it."""
+    tab = (build_table_1d if one_d else build_table)(K, chunk, np.float64)
+    return torch.as_tensor(np.stack(tab), dtype=dtype, device=device)

@@ -55,6 +55,32 @@ def test_bench_frames_are_bench_py_s(tmp_path, monkeypatch, capsys):
     assert "Teddy" in capsys.readouterr().err
 
 
+def test_bench_falls_back_on_any_load_error(tmp_path, monkeypatch, capsys):
+    # ROADMAP Queue 3, D5: a Teddy that does not load for another reason than
+    # a missing file (here the PNG reader's missing imageio) gives the root
+    # bench.py's synthetic pair, as that script's catch-all does, and the
+    # cause on stderr
+    from gqmap_tpu_torch.io import dataset
+
+    def no_imageio(*a, **k):
+        raise ImportError("No module named 'imageio'")
+
+    write_sequence(tmp_path, "Teddy", 24, 28)
+    monkeypatch.setenv("GQMAP_DATA", str(tmp_path))
+    monkeypatch.setattr(dataset, "load_sequence", no_imageio)
+    I1, I2, fr = bench.load_problem_images()
+    r = np.random.default_rng(0)
+    want = r.uniform(0, 255, (376, 452))
+    k = np.ones(5) / 5
+    want = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 0, want)
+    want = np.apply_along_axis(lambda a: np.convolve(a, k, "same"), 1, want)
+    np.testing.assert_array_equal(I1, want)
+    np.testing.assert_array_equal(I2, np.roll(want, 1, axis=1))
+    assert tuple(fr) == (-10.0, 2.0, -2.0, 2.0)
+    err = capsys.readouterr().err
+    assert "ImportError" in err and "imageio" in err and "synthetic" in err
+
+
 @pytest.mark.parametrize("steady", [False, True])
 def test_measure_on_a_small_pair(monkeypatch, steady):
     monkeypatch.setattr(bench, "load_problem_images", _small_pair)

@@ -18,7 +18,7 @@ import torch
 
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
-from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq
+from gqmap_tpu_torch.kernels import COUNTED, build, cosine_gq, edge_gq, edge_reduced_gq
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE
@@ -498,3 +498,103 @@ def test_measure_ceilings_on_the_card(dev):
     assert ceil["vpu_GFLOPs"] * 1e9 <= sheet["flops"], ceil
     assert ceil["rsqrt_Gops"] * 1e9 <= sheet["roots"], ceil
     assert ceil["card"] and "W" in ceil["card"]
+
+
+# the segment runner's graph route against its host loop on the toy
+GRAPH_CASES = {
+    "tpu_fast f64": ("tpu_fast", dict(dtype="float64"), 30),
+    "tpu_fast f32": ("tpu_fast", {}, 30),
+    "full_mixture": ("full_mixture", dict(quad_chunk=7, step0=0.03, corr_tor=0.95), 30),
+    "redblack": ("tpu_fast", dict(sweep_order="redblack", step0=0.03, corr_tor=0.95), 30),
+    "its4": ("tpu_fast", dict(its=4), 30),
+    "limit1": ("tpu_fast", {}, 1),
+}
+
+
+def _graph_toy(dev, preset, **kw):
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    toy = dict(cheb_p=16, cheb_q=8) if preset == "tpu_fast" else {}
+    cfg = getattr(GQMAPConfig, preset)(**{"its": 60, "eval_every": 30, **toy, **kw})
+    fr = FlowRange(-2, 2, -2, 2)
+    problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)
+    return cfg, problem, pg.init_state(cfg, fr, (24, 40), device=dev)
+
+
+def _counted(seg, *args):
+    n = [k.launches for k in COUNTED]
+    res = seg(*args)
+    torch.cuda.synchronize()
+    return res, [k.launches - m for k, m in zip(COUNTED, n)]
+
+
+def _identical(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and a[1] == b[1]
+            and a[5] == b[5] and all(torch.equal(a[i], b[i]) for i in (2, 3, 4)))
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_segment_equals_host_loop(dev, case):
+    # one predicated sweep captured and replayed: state, sweep count, traces
+    # and flag bit for bit the host loop's, one read of (n, stop) a POLL
+    # window, each replay counted as a sweep's launches (a stop inside a
+    # window leaves the window's later replays without effect, but they
+    # launch); a second call replays the same graph
+    preset, kw, limit = GRAPH_CASES[case]
+    cfg, problem, state = _graph_toy(dev, preset, **kw)
+    h, hn = _counted(pg.SegmentRunner(cfg, (24, 40), _route="host"), problem, state, limit)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    g, gn = _counted(seg, problem, state, limit)
+    captured = seg._captured
+    assert seg.route == "graph" and seg.capture_s > 0
+    n = h[1]
+    replays = min(pg.POLL * seg.polls, limit)
+    assert _identical(g, h) and sum(hn) > 0 and gn == [c // n * replays for c in hn]
+    assert n == min(limit, cfg.its) and seg.polls == -(-n // pg.POLL)
+    assert not g[2][n:].any() and int(g[0].it) == n + 1
+    g2, _ = _counted(seg, problem, state, limit)
+    assert seg._captured is captured and _identical(g2, h)
+
+
+def test_graph_segment_stops_where_the_host_loop_does(dev):
+    # tor between sweep 7's |dmu| and the least of the six before it, from
+    # the first state whose trace allows it: the stop inside a poll window
+    # gives the host loop's n, flag, traces and state
+    cfg, problem, state = _graph_toy(dev, "tpu_fast", tor=0.0)
+    host = pg.SegmentRunner(cfg, (24, 40), _route="host")
+    trace = host(problem, state, 40)[3].cpu().numpy()
+    k = 6
+    skip = next(s for s in range(len(trace) - k) if trace[s + k] < trace[s:s + k].min())
+    start = host(problem, state, skip)[0] if skip else state
+    tor = float((trace[skip + k] + trace[skip:skip + k].min()) / 2)
+    scfg = dataclasses.replace(cfg, tor=tor)
+    h = pg.SegmentRunner(scfg, (24, 40), _route="host")(problem, start, 30)
+    seg = pg.make_segment_runner(scfg, (24, 40))
+    g, gn = _counted(seg, problem, start, 30)
+    assert h[1] == k + 1 and h[5] and _identical(g, h)
+    assert seg.polls == -(-(k + 1) // pg.POLL)
+    # every replay of the window launched the sweep's kernels
+    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0]
+
+
+def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
+    # legacy_v1's prior as a float64 numpy array: the graph reads the device
+    # copy made at capture, which must live as long as the graph; calls with
+    # NaN-filled tensors of the copy's size allocated between them (which
+    # would take its block were it freed) stay bit for bit the host loop's
+    cfg, problem, state = _graph_toy(dev, "legacy_v1", quad_var=0.05)
+    M, N = pg.flow_lattice_shape(cfg, (24, 40))
+    prior = np.random.default_rng(3).uniform(-1.0, 1.0, (M, N, 2))
+    problem = problem._replace(init_flow=prior)
+    h = pg.SegmentRunner(cfg, (24, 40), _route="host")(problem, state, 12)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    g = seg(problem, state, 12)
+    captured = seg._captured
+    junk = []
+    for _ in range(3):
+        assert seg.route == "graph" and _identical(g, h)
+        junk += [torch.full((M, N, 2), float("nan"), dtype=problem.I1.dtype, device=dev)
+                 for _ in range(4)]
+        g = seg(problem, state, 12)
+    assert _identical(g, h) and seg._captured is captured
+    assert captured.run.init_flow.device.type == "cuda"
