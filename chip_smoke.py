@@ -14,7 +14,7 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    and epilogue included), which give each kernel's issue bound at 132
    SMs x 128 lanes x the card's maximum SM clock; then the card's ceilings
    (``roofline.measure_ceilings``: memory stream, float32 FMA chain, gather,
-   ``expf`` and ``rsqrtf`` rates), whose rates give every kernel's bound a
+   ``expf``, ``rsqrtf`` and L1 load rates), whose rates give every kernel's bound a
    second time beside the data sheet's (``bound_ms_measured``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: K1 (cosine mode sums) in each of its variants
@@ -62,16 +62,34 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the clamp in float32 also against the f64 golden (ratio rule); on the
    warm probe also its generic instance at K=9 and K=5 and its instance for
    K=11; times as in phase 3;
-7. one full 376x452 ``full_mixture`` sweep three ways (K3 f32, plain f32,
-   plain f64 = the golden) from the init and the sigma = 0.05 states: the
-   kernel arm's error against the golden at most twice the plain f32 arm's;
+6b. K4 (the bicubic node quadrature's raw sums) against its plain version
+   at the main path's shapes: ``full_mixture``'s (3, 376, 452) sites at
+   K = 9, ``super_entropy``'s (3, 94, 113) sites of 4x4 pixel blocks at
+   K = 11, ``ctf_level``'s (1, 376, 452) at K = 11, and two ragged lattices
+   (patch 1 and 4, a partial last block of threads), each from the init, the
+   sigma = 0.05 state and the |rho| clamp; float64 within 1e-10 of each
+   sum's largest magnitude, float32 against the f64 golden (ratio rule, the
+   floor of phase 6); a shard's block (``origin``, ``local_image_shape``)
+   equal to the whole lattice's sums there bit for bit and within 1e-10 of
+   its plain version in float64; NaN means, sigmas and correlations at a few
+   sites: NaN exactly there in both versions, every other site bit for bit
+   the NaN-free call's; its time, plain time and bound (data sheet and
+   measured ceilings, with the L1 tap term; the bound counts the function's
+   work, in which a block's pixels share their weights and a (patch + 3)^2
+   tap window) at the three main shapes, and the time ``torch.take``'s
+   measured gather rate would give the kernel's 16 taps a sample;
+7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
+   f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
+   the kernel arm's error against the golden at most twice the plain f32
+   arm's;
 8. the exact slice through the user entry point:
    ``solve(GQMAPConfig.full_mixture(quad_chunk=27, its=900, eval_every=300),
    ...)`` on the same pair with every launch counter reset just before it:
-   finite energy, the AEPE at it=900 below that at it=1, K3's counter equal
-   to the sweep count and K1's and K2's at 0; then ms/sweep of a 300-sweep
-   segment and the split of one sweep into the plain bicubic node term, K3
-   and the rest, by CUDA events;
+   finite energy, the AEPE at it=900 below that at it=1, K3's and K4's
+   counters equal to the sweep count and K1's and K2's at 0; then ms/sweep
+   of a 300-sweep segment and the split of one sweep into the node term (K4
+   and its finalize; the plain version's time beside it), K3 and the rest,
+   by CUDA events;
 9. resume on the card: a 300-sweep solve that writes a checkpoint, resumed
    to 600 sweeps, ends in the state of an unbroken 600-sweep solve;
 10. the kernels on the super lattice (``patch = 4``: 94x113 sites at
@@ -87,10 +105,11 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 12. 900-sweep ``tpu_fast_super`` and ``super_entropy`` solves through
    ``solve``, each with every launch counter set to 0 just before it: finite
    energy, the AEPE at it=900 below that at it=1, each path's kernels
-   launched once a sweep and the others not at all, the peak device memory;
-   a second ``tpu_fast_super`` solve identical bit for bit; then the split of
-   one ``super_entropy`` sweep (node term, K3, rest) and ms/sweep of a
-   300-sweep ``tpu_fast_super`` segment;
+   launched once a sweep (K4 and K3 on ``super_entropy``) and the others not
+   at all, the peak device memory; a second ``tpu_fast_super`` solve
+   identical bit for bit; then the split of one ``super_entropy`` sweep
+   (node term through K4 with the plain version's time beside it, K3, rest)
+   and ms/sweep of a 300-sweep ``tpu_fast_super`` segment;
 13. a 300-sweep red-black ``tpu_fast`` solve whose K1 and K2 counters equal
    twice the sweeps, and ms/sweep of a 100-sweep red-black segment;
 14. K3 on the legacy presets' L = 1 edge lattice (2, 2, 1, 376, 452) at K = 9
@@ -128,20 +147,22 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    import test's result is printed): ``run --preprocessed --preset
    tpu_fast`` (600 sweeps: K1 and K2 once a sweep, K3 not at all, its best
    AEPE bit for bit a direct ``solve``'s and below the AEPE at it = 1),
-   ``run --preprocessed`` (``full_mixture``, 300 sweeps: K3 once a sweep),
+   ``run --preprocessed`` (``full_mixture``, 300 sweeps: K3 and K4 once a
+   sweep),
    ``run --devices 2`` in this one process (``RuntimeError`` naming the
    ``torch.distributed.run`` command), ``run --out`` (with
    ``imageio``: ``metrics.jsonl``, ``.npz``, a ``.flo`` equal to the MAP in
    f32 and one PNG a readout; without it: ``ImportError``);
 20. the coarse-to-fine pyramid, ``solve_coarse_to_fine`` with
-   ``ctf_level(its=300, eval_every=300)`` (scales 1/8 .. 1): K3 launched
-   once a sweep of every level, K1 and K2 not at all, every level's energy
+   ``ctf_level(its=300, eval_every=300)`` (scales 1/8 .. 1): K3 and K4
+   launched once a sweep of every level, K1 and K2 not at all, every level's energy
    finite and rising over its solve; the final AEPE is printed beside the
    zero flow's, not checked against it: the reference's pyramid compounds
    each level's error and ends above it (ROADMAP Queue 3, P5); each level's
    and the whole's time, the peak memory, the finest level's ms a sweep (a 30-sweep
-   segment) and its split into the plain bicubic node term, K3 and the
-   rest; with ``imageio`` also the ``ctf`` subcommand on the PNG frames;
+   segment) and its split into the node term (K4 and its finalize, the
+   plain version beside it), K3 and the rest; with ``imageio`` also the
+   ``ctf`` subcommand on the PNG frames;
 21. ``sweep_lambdas`` over three values of lambda_s with ``tpu_fast(its=300)``
    (each best AEPE bit for bit a direct ``solve``'s) and the suite loop over
    both sequences; with ``imageio`` also the ``suite`` and ``sweep``
@@ -165,8 +186,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    f32 sweep's; the largest difference printed), one red-black ``tpu_fast``
    sweep in float32 (the same rule), K2 with its halo on each rank's padded
    block against its padded plain version in both types, each rank's launch
-   counters (K1 = K2 = sweeps on ``tpu_fast``, twice on red-black, K3 =
-   sweeps on ``full_mixture``), a 300-sweep ``solve(mesh=...)`` of
+   counters (K1 = K2 = sweeps on ``tpu_fast``, twice on red-black, K3 = K4 =
+   sweeps on ``full_mixture``); the ``full_mixture`` sweep's state fields
+   equal the single-process sweep's bit for bit in both types (K4 and K3 on
+   both sides); a 300-sweep ``solve(mesh=...)`` of
    ``tpu_fast`` (AEPE falls, the same result on every rank, final AEPE
    within 10% of phase 5's single-process solve at it = 300; its wall time,
    4 ranks time-sliced on one card, is printed and is no multi-GPU speed),
@@ -222,7 +245,7 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
-K3; ``launches_by_path`` every path's, the drivers', ``ctf``'s and the
+K3 and K4; ``launches_by_path`` every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
 ``super`` the checks, times and bounds on the super lattice, ``legacy``
@@ -233,7 +256,9 @@ that line; so does a machine without a CUDA card.
 """
 
 import dataclasses
+import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -507,6 +532,156 @@ def k3_on_l1(label, cfg, probes):
     return rec
 
 
+def k4_probes(cfg, shape, dev):
+    """States on ``cfg``'s lattice of the ``shape`` frame, float64: the init
+    (``init_state``: wide sigma, zero correlation), sigma = 0.05 and the
+    |rho| clamp (|pn| = 0.99999, sigma per site in [0.01, 3])."""
+    from gqmap_tpu_torch import FlowRange
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    st = pg.init_state(c64, FlowRange(*FR), shape, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(sum(shape) + cfg.K)
+
+    def rand(lo, hi, like):
+        return (lo + (hi - lo) * torch.rand(like.shape, generator=gen, dtype=torch.float64)
+                ).to(dev)
+
+    sign = torch.where(rand(0, 1, st.pn) < 0.5, -1.0, 1.0)
+    return {"init": st,
+            "converged": st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                                     sigmav=torch.full_like(st.sigmav, 0.05)),
+            "clamp": st._replace(pn=0.99999 * sign, sigmau=rand(0.01, 3, st.sigmau),
+                                 sigmav=rand(0.01, 3, st.sigmav))}
+
+
+def kernels_k4(dev, record, I1, I2, gather_Mtaps_s):
+    """Phase 6b: K4 against its plain version (see the module docstring);
+    fills ``record["K4"]`` (the ``full_mixture`` shape's error, times and
+    bound, the other shapes' under their names)."""
+    from gqmap_tpu_torch import GQMAPConfig
+    from gqmap_tpu_torch.kernels import node_gq
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    log("phase kernels K4")
+    k4, plain = node_gq.node_gq_cuda, node_gq.node_gq_torch
+    fm = GQMAPConfig.full_mixture()
+    cases = {  # name: (configuration, frame crop)
+        "full_mixture": (fm, (H, W)),
+        "super_entropy": (GQMAPConfig.super_entropy(), (H, W)),
+        "ctf_level": (GQMAPConfig.ctf_level(), (H, W)),
+        "ragged patch 1": (dataclasses.replace(fm, L=2), (37, 53)),
+        "ragged patch 4": (GQMAPConfig.super_entropy(L=2), (36, 52)),
+    }
+
+    def frames(shape, dtype):
+        crop = (slice(0, shape[0]), slice(0, shape[1]))
+        return (torch.as_tensor(I1[crop], dtype=dtype, device=dev),
+                pad_cubic(torch.as_tensor(I2[crop], dtype=dtype, device=dev)))
+
+    def sites(st, dtype):
+        return [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    rec = record["K4"] = dict(library_ms=None, library_reason=(
+        "no single PyTorch call computes it: grid_sample's bicubic uses a = -0.75, not MATLAB's "
+        "Keys a = -0.5, and has no quadrature"))
+    for name, (cfg, shape) in cases.items():
+        kw, pkw = dict(patch=cfg.patch), dict(patch=cfg.patch, quad_chunk=27)
+        probes = k4_probes(cfg, shape, dev)
+        site_shape = tuple(probes["init"].muu.shape)
+        for dtype in (torch.float64, torch.float32):
+            I1d, VVd = frames(shape, dtype)
+            for sname, st in probes.items():
+                args = (I1d, VVd, *sites(st, dtype), cfg.K, cfg.lambdad, cfg.epsn)
+                got, want = k4(*args, **kw), plain(*args, **pkw)
+                a, r, ok = compare(got, want, dtype)
+                what = (f"K4 {name} {site_shape} K={cfg.K} patch={cfg.patch} {str(dtype)[6:]} "
+                        f"{sname}")
+                if dtype == torch.float64:
+                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                    continue
+                gold = plain(*(x.double() if isinstance(x, torch.Tensor) else x for x in args),
+                             **pkw)
+                ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                require(ek <= 2.0 * ep + 1e-6, f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 "
+                                               f"x plain {ep:.3e} + 1e-6 (kernel vs plain max "
+                                               f"abs {a:.3e}, rel {r:.3e})")
+                if sname != "converged" or name.startswith("ragged"):
+                    continue
+                ms = kernel_ms(lambda: k4(*args, **kw))
+                work = roofline.k4_work(site_shape, cfg.K, cfg.patch)
+                taps = math.prod(site_shape) * cfg.K ** 2 * cfg.patch ** 2 * 16  # the kernel's
+                r4 = dict(shape=list(site_shape), K=cfg.K, patch=cfg.patch, max_abs_err=a,
+                          ms=ms[0], ms_min=ms[1], plain_ms=time_ms(lambda: plain(*args, **pkw), 3),
+                          taps=taps, take_ceiling_ms=taps / (gather_Mtaps_s * 1e6) * 1e3,
+                          **bound(work))
+                if name == "full_mixture":
+                    rec.update(r4)
+                else:
+                    rec[name] = r4
+                log(f"  K4 {name} {site_shape} f32 on {smi('name,power.limit,clocks.sm')} "
+                    f"(median, min) {ms} ms; plain {r4['plain_ms']:.4f} ms; {fmt_bound(r4)} "
+                    f"({r4['bound_terms_ms']}); its {taps:.3e} taps at torch.take's measured "
+                    f"gather rate (device-memory indices, not K4's bound) "
+                    f"{r4['take_ceiling_ms']:.4f} ms")
+
+    # a shard's block: the whole lattice's sums there, bit for bit (the (2, 2)
+    # mesh's four blocks; two blocks of the super lattice, one at odd offsets)
+    hm, hn, sm, sn = H // 2, W // 2, H // 8, W // 8
+    for name, blocks in (("full_mixture", [(r, c, hm, hn) for r in (0, hm) for c in (0, hn)]),
+                         ("super_entropy", [(sm, sn, H // 4 - sm, W // 4 - sn), (0, 0, sm, sn)])):
+        cfg, shape = cases[name]
+        st = k4_probes(cfg, shape, dev)["converged"]
+        for dtype in (torch.float64, torch.float32):
+            I1d, VVd = frames(shape, dtype)
+            s5 = sites(st, dtype)
+            whole = k4(I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn, patch=cfg.patch)
+            for r0, c0, m, n in blocks:
+                blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+                at = dict(patch=cfg.patch, origin=(r0 * cfg.patch, c0 * cfg.patch),
+                          local_image_shape=(m * cfg.patch, n * cfg.patch))
+                bs = [x[blk].contiguous() for x in s5]
+                got = k4(I1d, VVd, *bs, cfg.K, cfg.lambdad, cfg.epsn, **at)
+                same = all(torch.equal(g, w[blk]) for g, w in zip(got, whole))
+                what = (f"K4 {name} {str(dtype)[6:]} block of ({m}, {n}) sites at lattice "
+                        f"({r0}, {c0})")
+                if dtype == torch.float64:
+                    a, r, ok = compare(got, plain(I1d, VVd, *bs, cfg.K, cfg.lambdad, cfg.epsn,
+                                                  quad_chunk=27, **at), dtype)
+                    require(ok, f"{what} against its plain version: max abs err {a:.3e}, "
+                                f"rel {r:.3e}")
+                require(same, f"{what}: the whole lattice's sums there, bit for bit")
+
+    # NaN queries: NaN exactly at the sites with a NaN input, in both versions;
+    # every other site as the NaN-free call gives it, bit for bit
+    for name in ("full_mixture", "super_entropy"):
+        cfg, shape = cases[name]
+        st = k4_probes(cfg, shape, dev)["converged"]
+        L, M, N = st.muu.shape
+        at = [(0, M // 4, N // 5), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
+        for dtype in (torch.float64, torch.float32):
+            I1d, VVd = frames(shape, dtype)
+            s5 = sites(st, dtype)
+            clean = k4(I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn, patch=cfg.patch)
+            for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
+                s5[field][site] = float("nan")
+            args = (I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn)
+            got = k4(*args, patch=cfg.patch)
+            want = plain(*args, patch=cfg.patch, quad_chunk=27)
+            torch.cuda.synchronize()
+            mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+            for site in at:
+                mask[site] = True
+            ok = all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
+                     and torch.equal(g[~mask], c[~mask]) for g, w, c in zip(got, want, clean))
+            require(ok, f"K4 {name} {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in "
+                        "the kernel and the plain version, every other site bit for bit the "
+                        "NaN-free call's")
+
+
 def flow_sequence(seed, dev, H=H, W=W):
     """An H x W pair with a smooth, non-constant flow: smoothed noise as
     frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
@@ -541,13 +716,12 @@ def drivers(dev, record, by_path, kfns, segment_ms):
     from gqmap_tpu_torch.io.dataset import load_sequence
     from gqmap_tpu_torch.io.flo import read_flo, write_flo
     from gqmap_tpu_torch.io.preprocess import structure_texture
-    from gqmap_tpu_torch.kernels import build, edge_gq, edge_reduced_gq
+    from gqmap_tpu_torch.kernels import build, edge_gq, edge_reduced_gq, node_gq
     from gqmap_tpu_torch.models import ctf as pctf
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.param_sweep import sweep_lambdas
     from gqmap_tpu_torch.ops.flowviz import flow_to_color
-    from gqmap_tpu_torch.ops.gq import NODE, finalize, gq_accumulate
-    from gqmap_tpu_torch.ops.quadrature import build_table
+    from gqmap_tpu_torch.ops.gq import NODE, finalize
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -615,9 +789,9 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         out, c = run_cli("cli run tpu_fast", ["run", *pre, *fast])
         got = last_json(out)
         n = got["iters"]
-        require(n == 600 and c == {"K1": n, "K2": n, "K3": 0},
+        require(n == 600 and c == {"K1": n, "K2": n, "K3": 0, "K4": 0},
                 f"run --preset tpu_fast: {n} sweeps (600 asked), launches {c}: K1 and K2 once a "
-                "sweep, K3 0")
+                "sweep, K3 and K4 0")
         direct = solve(GQMAPConfig.tpu_fast(its=600, eval_every=300), seq.img1, seq.img2,
                        gt_flow=seq.gt_flow, device=dev)
         require(got["best_aepe"] == direct.best_aepe,
@@ -629,9 +803,9 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         out, c = run_cli("cli run full_mixture",
                          ["run", *pre, "--its", "300", "--eval-every", "300"])
         n = last_json(out)["iters"]
-        require(n == 300 and c == {"K1": 0, "K2": 0, "K3": n},
-                f"run (full_mixture): {n} sweeps (300 asked), launches {c}: K3 once a sweep, "
-                "K1 and K2 0")
+        require(n == 300 and c == {"K1": 0, "K2": 0, "K3": n, "K4": n},
+                f"run (full_mixture): {n} sweeps (300 asked), launches {c}: K3 and K4 once a "
+                "sweep, K1 and K2 0")
         try:
             with contextlib.redirect_stderr(io.StringIO()):
                 cli.main(["run", *pre, "--devices", "2"])
@@ -694,8 +868,9 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         peak = torch.cuda.max_memory_allocated() - base
         by_path["ctf"] = c = counts()
         sweeps = sum(lv.iters for lv in cres.levels)
-        require(c == {"K1": 0, "K2": 0, "K3": sweeps},
-                f"ctf: launches {c}: K3 equal to the levels' {sweeps} sweeps, K1 and K2 0")
+        require(c == {"K1": 0, "K2": 0, "K3": sweeps, "K4": sweeps},
+                f"ctf: launches {c}: K3 and K4 equal to the levels' {sweeps} sweeps, K1 and K2 "
+                "0")
         require(all(np.isfinite(lv.Energy[:lv.iters]).all() for lv in cres.levels)
                 and bool(np.isfinite(cres.flow).all()),
                 "ctf: every level's energy finite over every sweep, the flow finite")
@@ -713,12 +888,12 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         p32 = pg.make_problem(ccfg, I1, I2, fr, dev)
         st = cres.levels[-1].state
         seg = segment_ms("ctf_level finest level", ccfg, p32, st)
-        tab = build_table(ccfg.K, ccfg.quad_chunk, np.float64)
         a1 = torch.softmax(st.w, 0).reshape(1, 1, 1)
 
-        def node_term():
-            raw = gq_accumulate(pg._node_f(ccfg, p32), st.muu, st.muv, st.sigmau, st.sigmav,
-                                st.pn, tab)
+        def node_term(fn=node_gq.node_gq_cuda):
+            """The node term as the sweep runs it: K4 (or ``fn``) and finalize."""
+            raw = fn(p32.I1, p32.I2_tab, st.muu, st.muv, st.sigmau, st.sigmav, st.pn, ccfg.K,
+                     ccfg.lambdad, ccfg.epsn)
             return finalize(raw, a1, st.sigmau, st.sigmav, st.pn, st.temperature, NODE)
 
         mu, sg = torch.stack([st.muu, st.muv]), torch.stack([st.sigmau, st.sigmav])
@@ -728,6 +903,8 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         split = dict(sweep=time_ms(lambda: sweep(p32, st), 10), node=time_ms(node_term, 10),
                      K3=kernel_ms(lambda: edge_gq.edge_gq_cuda(*k3_args))[0])
         split["rest"] = split["sweep"] - split["node"] - split["K3"]
+        split["node_plain"] = time_ms(lambda: node_term(functools.partial(
+            node_gq.node_gq_torch, quad_chunk=ccfg.quad_chunk)), 5)
         record["ctf"] = dict(levels=levels, wall_s=wall, sweeps=sweeps, aepe=cres.aepe,
                              zero_flow_aepe=zero_aepe, GiB_above_held=peak / 2**30,
                              finest_segment_ms_per_sweep=seg, finest_sweep_split_ms=split,
@@ -740,7 +917,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
             out, c = run_cli("cli ctf", ["ctf", "--seq", "Venus", "--preset", "ctf_level", "--its",
                                          "300", "--eval-every", "300", "--quiet"])
             got = last_json(out)
-            require(c["K1"] == c["K2"] == 0 and 0 < c["K3"] <= 4 * 300
+            require(c["K1"] == c["K2"] == 0 and 0 < c["K3"] == c["K4"] <= 4 * 300
                     and np.isfinite(got["aepe"]),
                     f"ctf subcommand on the PNG frames: AEPE {got['aepe']:.4f} (the zero flow's "
                     f"{zero_aepe:.4f}), launches {c}")
@@ -753,7 +930,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         sw = sweep_lambdas(scfg, I1, I2, gt, lambdas=grid, device=dev)
         by_path["sweep_lambdas"] = c = counts()
         log("  " + sw.summary().replace("\n", "; "))
-        require(sw.best_lambda in grid and c["K3"] == 0 and c["K1"] == c["K2"] > 0,
+        require(sw.best_lambda in grid and c["K3"] == c["K4"] == 0 and c["K1"] == c["K2"] > 0,
                 f"sweep_lambdas: best lambda {sw.best_lambda} of the grid, launches {c}")
         for lam, best in zip(grid, sw.best_aepe):
             want = solve(dataclasses.replace(scfg, lambdas=float(lam)), I1, I2, gt_flow=gt,
@@ -765,7 +942,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
             zero_counts()
             res = solve(scfg, s.img1, s.img2, gt_flow=s.gt_flow, device=dev)
             c = counts()
-            require(c == {"K1": res.iters, "K2": res.iters, "K3": 0}
+            require(c == {"K1": res.iters, "K2": res.iters, "K3": 0, "K4": 0}
                     and res.best_aepe < res.AEPE[0],
                     f"suite {name}: best AEPE {res.best_aepe:.4f} below it=1's {res.AEPE[0]:.4f}, "
                     f"launches {c}")
@@ -826,7 +1003,7 @@ def rank_main(rank, world, port, out_dir):
     import torch.distributed as tdist
 
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
-    from gqmap_tpu_torch.kernels import cosine_gq, edge_gq, edge_reduced_gq
+    from gqmap_tpu_torch.kernels import cosine_gq, edge_gq, edge_reduced_gq, node_gq
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import EDGE
     from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
@@ -838,7 +1015,7 @@ def rank_main(rank, world, port, out_dir):
     n = initialize(f"localhost:{port}", world, rank)
     dev = torch.device("cuda", torch.cuda.current_device())
     kfns = {"K1": cosine_gq.cos_mode_sums_cuda, "K2": edge_reduced_gq.edge_reduced_grads_cuda,
-            "K3": edge_gq.edge_gq_cuda}
+            "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -1026,6 +1203,11 @@ def sharded(dev, record, by_path, st64, single_aepe):
                 if not os.path.exists(f):
                     continue
                 sh = torch.load(f)
+                if path == "full_mixture":  # K4 and K3 per site: the block is the whole's
+                    g = gold[path, dtype][0]
+                    same = all(torch.equal(sh[k].to(dev), getattr(g, k)) for k in fields[:6])
+                    require(same, f"sharded {path} (2, 2) {dtype} sweep: the state fields equal "
+                                  "the single-process sweep's, bit for bit")
                 if dtype == "float64":
                     rel = max(float((sh[k].to(dev) - getattr(g64, k)).abs().max()
                                     / getattr(g64, k).abs().max().clamp_min(1e-300))
@@ -1045,13 +1227,13 @@ def sharded(dev, record, by_path, st64, single_aepe):
                         f"<= 2 x the single-process f32 sweep's {e_1:.3e}; largest difference "
                         f"from the single-process f32 sweep {big:.3e}")
         per_rank = [recs.get(f"rank {r}", {}).get("launches", {}) for r in range(4)]
-        want = {"tpu_fast sharded sweep float64": {"K1": 1, "K2": 1, "K3": 0},
-                "tpu_fast sharded sweep float32": {"K1": 1, "K2": 1, "K3": 0},
-                "full_mixture sharded sweep float64": {"K1": 0, "K2": 0, "K3": 1},
-                "full_mixture sharded sweep float32": {"K1": 0, "K2": 0, "K3": 1},
-                "tpu_fast redblack sharded sweep float32": {"K1": 2, "K2": 2, "K3": 0},
+        want = {"tpu_fast sharded sweep float64": {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
+                "tpu_fast sharded sweep float32": {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
+                "full_mixture sharded sweep float64": {"K1": 0, "K2": 0, "K3": 1, "K4": 1},
+                "full_mixture sharded sweep float32": {"K1": 0, "K2": 0, "K3": 1, "K4": 1},
+                "tpu_fast redblack sharded sweep float32": {"K1": 2, "K2": 2, "K3": 0, "K4": 0},
                 "tpu_fast sharded solve": {"K1": SHARDED_SOLVE_ITS, "K2": SHARDED_SOLVE_ITS,
-                                           "K3": 0}}
+                                           "K3": 0, "K4": 0}}
         for path, w in want.items():
             got = [c.get(path) for c in per_rank]
             require(all(g == w for g in got), f"sharded {path}: each rank's launch counters "
@@ -1189,8 +1371,8 @@ def chebyshev(dev, record, by_path, kfns, st64, cast):
             f"chebyshev solve: {n} sweeps ({its} asked), energy finite over every sweep")
     require(bool(an < a1), f"chebyshev solve: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={n} "
                            "(falls)")
-    require(c == {"K1": 0, "K2": 0, "K3": n},
-            f"chebyshev solve: launches {c}: K3 equal to the sweep count {n}, K1 and K2 0")
+    require(c == {"K1": 0, "K2": 0, "K3": n, "K4": 0},
+            f"chebyshev solve: launches {c}: K3 equal to the sweep count {n}, K1, K2 and K4 0")
     rec["solve"] = dict(its=its, eval_every=every, wall_s=wall, GiB_above_held=peak / 2**30,
                         aepe=[float(x) for x in res.AEPE if np.isfinite(x)])
     log(f"  chebyshev solve: {n} sweeps in {wall:.3f} s with make_problem and readouts, "
@@ -1544,12 +1726,11 @@ def main():
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
-    from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq
+    from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq, node_gq
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize, gq_accumulate
     from gqmap_tpu_torch.ops.interp import upsample_cubic
-    from gqmap_tpu_torch.ops.potentials import make_node_pot_bicubic
     from gqmap_tpu_torch.ops.quadrature import build_table
 
     dev = torch.device("cuda", 0)
@@ -1592,9 +1773,13 @@ def main():
     t = time.time()
     ceil = roofline.measure_ceilings(device=dev)
     RATES["measured"] = roofline.measured_rates(ceil)
-    log(f"  measured ({time.time() - t:.1f} s): {json.dumps(ceil)}; data sheet: "
+    sheet = RATES["datasheet"]
+    l1_per_clock = ceil["l1_GBps"] * 1e9 / roofline.SMS / (float(max_clock.split()[0]) * 1e6)
+    log(f"  measured ({time.time() - t:.1f} s): {json.dumps(ceil)} (L1: {l1_per_clock:.2f} "
+        f"bytes an SM a clock at the max SM clock); data sheet: "
         f"{roofline.HBM_BYTES_PER_S / 1e9:g} GB/s, {roofline.FP32_FLOPS_PER_S / 1e9:g} GFLOP/s, "
-        f"roots {RATES['datasheet']['roots'] / 1e9:g} G/s at the max SM clock")
+        f"roots {sheet['roots'] / 1e9:g} G/s and L1 {sheet['l1_bytes'] / 1e9:g} GB/s at the max "
+        "SM clock")
 
     def issue_ms(unit, work):
         """The SASS issue bound: ``work`` units of the loop at full issue."""
@@ -1915,14 +2100,20 @@ def main():
                     "SASS issue "
                     f"bound {record['K3']['sass_issue_ms']:.4f} ms")
 
+    # ---- 6b. K4 against its plain version
+    kernels_k4(dev, record, I1, I2, ceil["gather_Mtaps_s"])
+    k4_fn = node_gq.node_gq_cuda
+
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
     fprob = {torch.float32: pg.make_problem(fm32, I1, I2, fr, dev),
              torch.float64: pg.make_problem(fm64, I1, I2, fr, dev)}
+    plain_routes = dict(node_kernel="torch", edge_kernel="torch")
+    kernel_routes = dict(node_kernel="cuda", edge_kernel="cuda")
     three_way_sweep("full_mixture ",
-                    pg.make_sweep(dataclasses.replace(fm64, edge_kernel="torch"), (H, W)),
-                    pg.make_sweep(dataclasses.replace(fm32, edge_kernel="torch"), (H, W)),
-                    pg.make_sweep(dataclasses.replace(fm32, edge_kernel="cuda"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fm64, **plain_routes), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fm32, **plain_routes), (H, W)),
+                    pg.make_sweep(dataclasses.replace(fm32, **kernel_routes), (H, W)),
                     fprob, (("init", st64), ("converged", conv64)), cast)
 
     # ---- 8. the exact slice, through the user entry point
@@ -1931,20 +2122,23 @@ def main():
     del fprob
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    k1_fn.launches = k2_fn.launches = k3_fn.launches = 0
+    k1_fn.launches = k2_fn.launches = k3_fn.launches = k4_fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     fres = solve(fm32, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
     torch.cuda.synchronize()
     fwall = time.time() - t
-    flaunch = {"K1": k1_fn.launches, "K2": k2_fn.launches, "K3": k3_fn.launches}
+    flaunch = {"K1": k1_fn.launches, "K2": k2_fn.launches, "K3": k3_fn.launches,
+               "K4": k4_fn.launches}
     fpeak = torch.cuda.max_memory_allocated()
+    record["peak_GiB"] = {"full_mixture": fpeak / 2**30}
     require(fres.iters == fm32.its, f"solve ran {fres.iters} sweeps ({fm32.its} asked)")
     require(bool(np.isfinite(fres.Energy[:fres.iters]).all()), "energy finite over every sweep")
     a1, an = fres.AEPE[0], fres.AEPE[fres.iters - 1]
     require(bool(an < a1), f"AEPE {a1:.4f} at it=1 -> {an:.4f} at it={fres.iters} (falls)")
-    require(flaunch == {"K1": 0, "K2": 0, "K3": fres.iters},
-            f"launch counters {flaunch}: K3 equals the sweep count {fres.iters}, K1 and K2 0")
+    require(flaunch == {"K1": 0, "K2": 0, "K3": fres.iters, "K4": fres.iters},
+            f"launch counters {flaunch}: K3 and K4 equal the sweep count {fres.iters}, K1 and "
+            "K2 0")
     log(f"  solve wall {fwall:.3f} s incl. 4 readouts; peak device memory "
         f"{fpeak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in fres.AEPE[[0, 299, 599, 899]]]}")
@@ -1963,18 +2157,20 @@ def main():
     del seg  # its graph and pool
 
     sweep = pg.make_sweep(fm32, (H, W))
-    node_tab = build_table(fm32.K, fm32.quad_chunk, np.float64)
     a3 = torch.softmax(st.w, 0).reshape(fm32.L, 1, 1)
 
-    def node_term():
-        f = make_node_pot_bicubic(p32.I1, p32.I2_tab, fm32.lambdad, fm32.epsn)
-        raw = gq_accumulate(f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn, node_tab)
-        return finalize(raw, a3, st.sigmau, st.sigmav, st.pn, st.temperature, NODE)
+    def node_term(fn=k4_fn, cfg=fm32, problem=p32, s=st, a=a3):
+        """The node term as the sweep runs it: K4 (or ``fn``) and finalize."""
+        raw = fn(problem.I1, problem.I2_tab, s.muu, s.muv, s.sigmau, s.sigmav, s.pn, cfg.K,
+                 cfg.lambdad, cfg.epsn, patch=cfg.patch)
+        return finalize(raw, a, s.sigmau, s.sigmav, s.pn, s.temperature, NODE)
 
     k3_state = k3_args(st, torch.float32)
     split = dict(sweep=time_ms(lambda: sweep(p32, st), 10), node=time_ms(node_term, 10),
                  K3=kernel_ms(lambda: k3_fn(*k3_state))[0])
     split["rest"] = split["sweep"] - split["node"] - split["K3"]
+    split["node_plain"] = time_ms(lambda: node_term(functools.partial(
+        node_gq.node_gq_torch, quad_chunk=fm32.quad_chunk)), 5)
     record["exact_sweep_split_ms"] = split
     log("  one exact sweep (CUDA events): " + ", ".join(f"{k} {v:.4f} ms"
                                                        for k, v in split.items()))
@@ -2139,16 +2335,16 @@ def main():
     # the f64 golden takes the 121 node points in three steps (its f64
     # samples at once would need ~2x the f32 arms' memory)
     three_way_sweep("super_entropy ",
-                    pg.make_sweep(dataclasses.replace(se64, edge_kernel="torch",
-                                                      quad_chunk=41), (H, W)),
-                    pg.make_sweep(dataclasses.replace(se32, edge_kernel="torch"), (H, W)),
-                    pg.make_sweep(dataclasses.replace(se32, edge_kernel="cuda"), (H, W)),
+                    pg.make_sweep(dataclasses.replace(se64, quad_chunk=41, **plain_routes),
+                                  (H, W)),
+                    pg.make_sweep(dataclasses.replace(se32, **plain_routes), (H, W)),
+                    pg.make_sweep(dataclasses.replace(se32, **kernel_routes), (H, W)),
                     eprob, sstates, cast)
     del sprob, eprob
 
     # ---- 12. the super presets through the user entry point
     log("phase super solves")
-    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda}
+    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda, "K4": k4_fn}
     by_path = {"tpu_fast": launches, "full_mixture": flaunch}
 
     def counted_solve(path, cfg, want, **kw):
@@ -2176,7 +2372,7 @@ def main():
         log(f"  {path} solve wall {wall:.3f} s; peak device memory {peak / 2**30:.3f} GiB, "
             f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it; "
             f"AEPE trace {[float(res.AEPE[i]) for i in evals]}")
-        record.setdefault("peak_GiB", {})[path] = peak / 2**30
+        record["peak_GiB"][path] = peak / 2**30
         record.setdefault("solve_GiB_above_held", {})[path] = (peak - base) / 2**30
         return res
 
@@ -2202,29 +2398,26 @@ def main():
         return ms
 
     sres = aepe_falls("tpu_fast_super", counted_solve("tpu_fast_super", fs32,
-                                                      {"K1": 1, "K2": 1, "K3": 0}, verbose=True))
+                                                      {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
+                                                      verbose=True))
     sres2 = solve(fs32, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
     require(np.array_equal(sres.AEPE, sres2.AEPE, equal_nan=True)
             and np.array_equal(sres.Energy, sres2.Energy, equal_nan=True),
             "a second tpu_fast_super solve gives the same AEPE and energy traces, bit for bit")
-    aepe_falls("super_entropy", counted_solve("super_entropy", se32, {"K1": 0, "K2": 0, "K3": 1},
-                                              verbose=True))
+    aepe_falls("super_entropy", counted_solve("super_entropy", se32,
+                                              {"K1": 0, "K2": 0, "K3": 1, "K4": 1}, verbose=True))
 
     p32 = pg.make_problem(se32, I1, I2, fr, dev)
     ust = cast(sst64, torch.float32)
     usweep = pg.make_sweep(se32, (H, W))
-    node_tab = build_table(se32.K, se32.quad_chunk, np.float64)
-    a3 = torch.softmax(ust.w, 0).reshape(se32.L, 1, 1)
-
-    def super_node_term():
-        f = make_node_pot_bicubic(p32.I1, p32.I2_tab, se32.lambdad, se32.epsn, patch=se32.patch)
-        raw = gq_accumulate(f, ust.muu, ust.muv, ust.sigmau, ust.sigmav, ust.pn, node_tab)
-        return finalize(raw, a3, ust.sigmau, ust.sigmav, ust.pn, ust.temperature, NODE)
-
+    ua3 = torch.softmax(ust.w, 0).reshape(se32.L, 1, 1)
     k3_state = super_k3_args(sst64, torch.float32)
-    split = dict(sweep=time_ms(lambda: usweep(p32, ust), 10), node=time_ms(super_node_term, 10),
+    split = dict(sweep=time_ms(lambda: usweep(p32, ust), 10),
+                 node=time_ms(lambda: node_term(cfg=se32, problem=p32, s=ust, a=ua3), 10),
                  K3=kernel_ms(lambda: edge_gq.edge_gq_cuda(*k3_state))[0])
     split["rest"] = split["sweep"] - split["node"] - split["K3"]
+    split["node_plain"] = time_ms(lambda: node_term(functools.partial(
+        node_gq.node_gq_torch, quad_chunk=se32.quad_chunk), se32, p32, ust, ua3), 5)
     record["super_entropy_sweep_split_ms"] = split
     log("  one super_entropy sweep (CUDA events): " + ", ".join(f"{k} {v:.4f} ms"
                                                                for k, v in split.items()))
@@ -2241,7 +2434,7 @@ def main():
     log("phase redblack solve")
     rb32 = dataclasses.replace(cfg32, its=300, **rb)
     aepe_falls("tpu_fast redblack", counted_solve("tpu_fast redblack", rb32,
-                                                  {"K1": 2, "K2": 2, "K3": 0}))
+                                                  {"K1": 2, "K2": 2, "K3": 0, "K4": 0}))
     p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
     rseg = pg.make_segment_runner(dataclasses.replace(rb32, tor=0.0), (H, W))
     st, *_ = rseg(p32, st32, 10)
@@ -2295,11 +2488,10 @@ def main():
 
     # ---- 16. the legacy presets through the user entry points
     log("phase legacy solves")
-    v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, {"K1": 0, "K2": 0, "K3": 1},
-                                                  verbose=True))
+    k3_only = {"K1": 0, "K2": 0, "K3": 1, "K4": 0}  # nearest lookups: plain node sums
+    v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, k3_only, verbose=True))
     v3_32 = GQMAPConfig.legacy_v3(its=300, eval_every=300)
-    v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, {"K1": 0, "K2": 0, "K3": 1},
-                                                  verbose=True))
+    v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, k3_only, verbose=True))
     segment_ms("legacy_v3", v3_32, pg.make_problem(v3_32, I1, I2, fr, dev), v3res.state)
     t = time.time()
     bm_flow = block_matching_init(I1, I2, device=dev)
@@ -2312,17 +2504,16 @@ def main():
     # keeps it) moves the means off it, in the JAX engine as in the port
     # (ROADMAP Queue 3, P4; tests/test_torch_legacy.py): the AEPE falls from
     # a random init, and from the block-matching init stays below that
-    rand = aepe_falls("blockmatch_v2", counted_solve("blockmatch_v2", bm32,
-                                                     {"K1": 0, "K2": 0, "K3": 1}))
-    bm = counted_solve("blockmatch_v2 from block_matching_init", bm32,
-                       {"K1": 0, "K2": 0, "K3": 1}, init_flow=bm_flow, verbose=True)
+    rand = aepe_falls("blockmatch_v2", counted_solve("blockmatch_v2", bm32, k3_only))
+    bm = counted_solve("blockmatch_v2 from block_matching_init", bm32, k3_only,
+                       init_flow=bm_flow, verbose=True)
     require(bm.AEPE[0] < rand.AEPE[0] and bm.AEPE[-1] < rand.AEPE[-1],
             f"blockmatch_v2: AEPE from the block-matching init {bm.AEPE[0]:.4f} at it=1, "
             f"{bm.AEPE[-1]:.4f} at the end, each below the random init's {rand.AEPE[0]:.4f}, "
             f"{rand.AEPE[-1]:.4f}")
     segment_ms("blockmatch_v2", bm32, pg.make_problem(bm32, I1, I2, fr, dev), bm.state)
     wres = aepe_falls("tpu_fast window_rg=2", counted_solve(
-        "tpu_fast window_rg=2", wf32, {"K1": 1, "K2": 1, "K3": 0}, verbose=True))
+        "tpu_fast window_rg=2", wf32, {"K1": 1, "K2": 1, "K3": 0, "K4": 0}, verbose=True))
     segment_ms("tpu_fast window_rg=2", wf32, wp32, wres.state)
     del wp32
 
@@ -2340,8 +2531,8 @@ def main():
     by_path["legacy_v1"] = counts = {k: f.launches for k, f in kfns.items()}
     med = float(v1st.muu[0, 1:-1, 1:-1].median())
     want_u = float(np.median(bm_flow[1:-1, 1:-1, 0]))
-    require(counts == {"K1": 0, "K2": 0, "K3": 0}, f"legacy_v1: launch counters {counts} all 0 "
-                                                   "(truncated-quadratic edges)")
+    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+            f"legacy_v1: launch counters {counts} all 0 (truncated-quadratic edges)")
     require(bool(torch.isfinite(v1e[:v1n]).all()), "legacy_v1: energy finite over every sweep")
     require(abs(med - want_u) < 0.15, f"legacy_v1: median interior mean u {med:.4f} within 0.15 "
                                       f"of the prior's {want_u:.4f} after {v1n} sweeps")
@@ -2408,7 +2599,8 @@ def main():
     require(finite and bool(torch.isfinite(adaux.energy)) and moved > 0,
             f"legacy_v2 autodiff sweep: finite gradients and state (largest step {moved:.3e}), "
             f"energy {float(adaux.energy):.6e}")
-    require(counts == {"K1": 0, "K2": 0, "K3": 0}, f"autodiff: launch counters {counts} all 0")
+    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+            f"autodiff: launch counters {counts} all 0")
     record["legacy_v2_autodiff"] = dict(sweep_ms=ad_ms, GiB_above_held=ad_peak / 2**30)
     log(f"  legacy_v2 autodiff: one sweep {ad_ms:.3f} ms, peak {ad_peak / 2**30:.3f} GiB above "
         "what the script held")
@@ -2444,6 +2636,9 @@ def main():
         dict(name="edge_gq (K3)", route="cuda", source="gqmap_tpu_torch/csrc/edge_gq.cu",
              replaces="gqmap_tpu/kernels/edge_gq.py:97", launches=flaunch["K3"],
              **record["K3"]),
+        dict(name="node_gq (K4)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:44 (XLA scan, "
+                      "no Pallas)", launches=flaunch["K4"], **record["K4"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

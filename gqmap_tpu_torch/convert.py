@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .config import FlowRange
-from .models.gqmap import GQState, Problem
+from .models.gqmap import GQState, Problem, _device
 from .ops.chebyshev import ChebData, site_major
 from .ops.cosine import CosData
 
@@ -26,7 +26,7 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device)
 
 
-def problem_from_numpy(fields: Mapping, device="cpu", data_term: str = "cosine") -> Problem:
+def problem_from_numpy(fields: Mapping, device=None, data_term: str = "cosine") -> Problem:
     """``fields``: ``I1``, ``I2_tab``, ``interior`` (arrays), ``rng`` (four
     floats: minu, maxu, minv, maxv) and ``cheb``, a mapping of the
     coefficient field's ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``, or
@@ -34,7 +34,9 @@ def problem_from_numpy(fields: Mapping, device="cpu", data_term: str = "cosine")
     (an (M, N, 2) array) and ``grad_tabs`` (two arrays), each None or absent
     where the configuration has none. ``data_term`` says whose field ``cheb``
     is: ``CosData`` for ``"cosine"``, ``ChebData`` (stored site major, as
-    ``build_cheb_data`` stores it) for ``"chebyshev"``."""
+    ``build_cheb_data`` stores it) for ``"chebyshev"``. ``device``: the GPU
+    by default (raises where there is none); a CPU run asks for ``"cpu"``."""
+    device = _device(device)
     c = fields["cheb"]
     cheb = None
     if c is not None:
@@ -54,8 +56,10 @@ def problem_from_numpy(fields: Mapping, device="cpu", data_term: str = "cosine")
                                                                   for g in grad_tabs))
 
 
-def state_from_numpy(fields: Mapping, device="cpu") -> GQState:
-    """``fields``: one array per ``GQState`` field; ``it`` becomes int32."""
+def state_from_numpy(fields: Mapping, device=None) -> GQState:
+    """``fields``: one array per ``GQState`` field; ``it`` becomes int32.
+    ``device`` as in :func:`problem_from_numpy`."""
+    device = _device(device)
     st = {k: _t(fields[k], device) for k in GQState._fields}
     st["it"] = st["it"].to(torch.int32)
     return GQState(**st)

@@ -8,5 +8,6 @@ captured launches can keep the counts without knowing the kernels.
 from .cosine_gq import cos_mode_sums_cuda
 from .edge_gq import edge_gq_cuda
 from .edge_reduced_gq import edge_reduced_grads_cuda
+from .node_gq import node_gq_cuda
 
-COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda)
+COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda, node_gq_cuda)

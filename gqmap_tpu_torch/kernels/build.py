@@ -61,6 +61,12 @@ _SIGNATURES = {
     # stream
     "gqmap_edge_gq_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "gqmap_edge_gq_f64": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # I1, VV, muu, muv, su, sv, pn, rule_host, out, No, M2, N2, L, M, N, P, r0, c0, K, lam,
+    # eps, device, stream
+    "gqmap_node_gq_f32": [_P] * 9 + [_I] * 10 + [_D] * 2 + [_I, _P],
+    "gqmap_node_gq_f64": [_P] * 9 + [_I] * 10 + [_D] * 2 + [_I, _P],
+    # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
+    "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
 }
 
 

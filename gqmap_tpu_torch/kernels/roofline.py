@@ -5,20 +5,23 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 * :func:`measure_ceilings` measures the card's ceilings: the host round
   trip, the memory stream rate (a 64 MB vector multiply: two reads and one
   write), the float32 rate (a dependent FMA chain with vector operands), the
-  rate of arbitrary-index gathers into a 380x456 table, and the rates of
+  rate of arbitrary-index gathers into a 380x456 table, the rates of
   ``expf`` and of ``rsqrtf`` (the special-function unit that K2's and K3's
-  roots use). The compute chains run as one fused elementwise kernel each,
-  compiled at run time by PyTorch's jiterator, so the chain and not the
-  memory stream is timed; every ceiling is timed by :func:`kernel_ms`.
+  roots use), and the L1 load rate (``csrc/ceilings.cu``: warp-wide
+  four-byte loads of a table that stays in L1, the loads K4's taps are).
+  The compute chains run as one fused elementwise kernel each, compiled at
+  run time by PyTorch's jiterator, so the chain and not the memory stream
+  is timed; every ceiling is timed by :func:`kernel_ms`.
 * :func:`sweep_roofline` times one sweep of each data-term mode (``cosine``,
   ``chebyshev``, ``nearest``, ``bicubic``) from a converged-width state and
   sets it against its governing bound;
 * :func:`flagship_roofline` times kernel K1 alone in ``"v1"`` against its
   operation, ``exp`` and memory bounds, and the ``tpu_fast`` sweep inside a
   300-sweep segment against its kernels' bounds.
-* :func:`k1_work`, :func:`k2_work` and :func:`k3_work` count what each
-  kernel must do at given shapes: bytes (each input read once, each output
-  written once), float32 operations (an FMA counts two) and square roots;
+* :func:`k1_work`, :func:`k2_work`, :func:`k3_work` and :func:`k4_work`
+  count what each kernel's function must do at given shapes: bytes (each input read
+  once, each output written once), float32 operations (an FMA counts two),
+  square roots and, for K4, the bytes of its table reads through L1;
   :func:`bound` sets such a count against rates, the data sheet's
   (:func:`datasheet_rates`) or the measured ones (:func:`measured_rates`).
 
@@ -44,26 +47,41 @@ import numpy as np
 import torch
 
 __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "kernel_ms",
-           "k1_work", "k2_work", "k3_work", "bound", "datasheet_rates", "measured_rates",
-           "card_line", "FLOPS", "TIMING"]
+           "k1_work", "k2_work", "k3_work", "k4_work", "bound", "datasheet_rates",
+           "measured_rates", "card_line", "FLOPS", "TIMING"]
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, float32 rate outside the
 # tensor cores, SMs, special-function (MUFU) results an SM gives a clock
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 SMS, SFU_PER_CLOCK = 132, 16
+# bytes an SM's L1 returns to loads a clock, 128: the CUDA C++ Programming
+# Guide's shared-memory rate (compute capabilities 5.x to 9.0: 32 banks of 32
+# bits a clock), the SRAM and load path that the L1 data cache shares; the
+# H100 data sheet gives no L1 rate. measure_ceilings measures it (l1_GBps).
+L1_BYTES_PER_CLOCK = 128
 # The fewest floating-point operations of each function (an FMA counts two, a
-# sqrt one): a mode of K1's recur body (weights 4, the six b sums 14, weight
-# recurrences 4, rotation 6); for K2 and K3 the paired form, where a point and
-# its mirror share their work: a K3 pair (q = A XI + B XJ 3, d+- 2,
-# eps + d^2 4, two roots 2, their sum and difference 2, six sums 12), a K2
-# pair (sqrt(c) x 1, d+- 2, eps + d^2 4, two roots 2, sum and difference 2,
-# three sums 6), the centre node of each (eps + d^2 2, its root 1, two sums
-# 4), and the per-element rest.
+# sqrt one; compares and selects not counted): a mode of K1's recur body
+# (weights 4, the six b sums 14, weight recurrences 4, rotation 6); for K2 and
+# K3 the paired form, where a point and its mirror share their work: a K3 pair
+# (q = A XI + B XJ 3, d+- 2, eps + d^2 4, two roots 2, their sum and
+# difference 2, six sums 12), a K2 pair (sqrt(c) x 1, d+- 2, eps + d^2 4, two
+# roots 2, sum and difference 2, three sums 6), the centre node of each (eps +
+# d^2 2, its root 1, two sums 4), and the per-element rest. K4 counts the
+# function, not the kernel: a site's P x P pixels share one displacement, so
+# per site and point (z_i, z_j 2 from per-node products s x, t x; x1, x2 4;
+# floors 2, fractions 2; eight cubic weights 24, 12 an axis: f^2, f^3 and four
+# cubics that sum to 2; x 0.25 folded into the y weights 4; w_i w_j F 1; the
+# six sums on the block's total F 11, their weights being rule constants)
+# "K4 point"; the taps of the (P + 3)^2 window against the shared weights
+# separably, "K4 tap row" (4 taps against 4 weights) for each of (P + 3) P
+# row passes and P^2 column passes; per pixel (the difference 1, eps + d^2 2,
+# the root 1, the block sum 1) "K4 pixel", one add fewer a point; a site (s,
+# t 6, sqrt2 sigma 2, Z1, Z2 6, -lam 6) "K4 site", and 2K node products.
 FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
-         "K3 pair": 25, "K3 centre": 7, "K3 element": 10}
+         "K3 pair": 25, "K3 centre": 7, "K3 element": 10, "K4 point": 50, "K4 tap row": 7,
+         "K4 pixel": 5, "K4 site": 20}
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
-TAPS = {"bicubic": 16, "nearest": 1, "chebyshev": 0, "cosine": 0}  # table reads a sample
 
 
 def kernel_ms(fn, windows=TIMING[0], n=TIMING[1]):
@@ -131,26 +149,54 @@ def k3_work(edge_shape, K: int, itemsize: int = 4) -> dict:
     return dict(bytes=(2 * n_el + 6 * n_el) * itemsize, flops=flops, roots=n_el * points)
 
 
+def k4_work(site_shape, K: int, patch: int = 1, itemsize: int = 4) -> dict:
+    """K4's function on ``(L, M, N)`` sites of ``patch x patch`` pixel blocks
+    with the K^2-point rule: the 5 state fields, frame 1's pixels and frame
+    2's padded table read once, 6 raw sums written; per site and point one
+    set of cubic weights and a bicubic sample of each block pixel from the
+    block's (P + 3)^2 table window (``l1_bytes``: those taps come from L1 and
+    L2, where the 0.69 MB table stays, not from device memory), one root a
+    pixel. Away from the frame's border, where the clamp gives a pixel a cell
+    of its own, a block's pixels share the displacement's fractional parts:
+    the fewest operations, not those of the kernel, which samples each pixel
+    alone."""
+    L, M, N = site_shape
+    P = patch
+    sites = L * M * N
+    points = sites * K * K
+    pixels = M * N * P * P
+    table = (M * P + 2) * (N * P + 2)
+    flops = (points * (FLOPS["K4 point"] + FLOPS["K4 tap row"] * P * (2 * P + 3)
+                       + FLOPS["K4 pixel"] * P * P - 1)
+             + sites * (FLOPS["K4 site"] + 2 * K))
+    return dict(bytes=(5 * sites + pixels + table + 6 * sites) * itemsize, flops=flops,
+                roots=points * P * P + 2 * sites, l1_bytes=points * (P + 3) ** 2 * itemsize)
+
+
 def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
     """The data sheet's rates, per second: memory bytes, float32 operations,
-    and roots at 16 an SM a clock at the card's maximum SM clock."""
-    return dict(bytes=HBM_BYTES_PER_S, flops=FP32_FLOPS_PER_S,
-                roots=SMS * SFU_PER_CLOCK * max_sm_clock_mhz * 1e6)
+    roots at 16 an SM a clock and L1 bytes at :data:`L1_BYTES_PER_CLOCK` an SM a
+    clock, at the card's maximum SM clock."""
+    clock = max_sm_clock_mhz * 1e6
+    return dict(bytes=HBM_BYTES_PER_S, flops=FP32_FLOPS_PER_S, roots=SMS * SFU_PER_CLOCK * clock,
+                l1_bytes=SMS * L1_BYTES_PER_CLOCK * clock)
 
 
 def measured_rates(ceilings: dict) -> dict:
     """The rates of :func:`measure_ceilings`' result, per second."""
     return dict(bytes=ceilings["hbm_stream_GBps"] * 1e9, flops=ceilings["vpu_GFLOPs"] * 1e9,
-                roots=ceilings["rsqrt_Gops"] * 1e9)
+                roots=ceilings["rsqrt_Gops"] * 1e9, l1_bytes=ceilings["l1_GBps"] * 1e9)
 
 
 def bound(work: dict, rates: dict) -> dict:
-    """The least time of a call, the largest of its bytes, its operations and
-    its roots at ``rates``; with which of bytes and operations (roots
-    included) bounds it, and each term."""
-    terms = {k: work[k] / rates[k] * 1e3 if work[k] else None for k in ("bytes", "flops", "roots")}
+    """The least time of a call, the largest of its bytes, its operations,
+    its roots and (K4) its L1 bytes at ``rates``; with which of bytes (device
+    memory) and operations (roots and L1 reads included) bounds it, and each
+    term."""
+    terms = {k: work[k] / rates[k] * 1e3 if work[k] else None
+             for k in ("bytes", "flops", "roots", "l1_bytes") if k in work}
     t_bytes = terms["bytes"] or 0.0
-    t_ops = max(terms["flops"] or 0.0, terms["roots"] or 0.0)
+    t_ops = max(v or 0.0 for k, v in terms.items() if k != "bytes")
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", bound_terms_ms=terms)
 
@@ -190,8 +236,10 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
     ``vpu_GFLOPs`` (2048 dependent FMAs an element over 4M elements),
     ``gather_Mtaps_s`` (8M ``torch.take`` reads of a 380x456 table),
     ``exp_Gops`` and ``rsqrt_Gops`` (640 dependent ``expf`` / ``rsqrtf`` an
-    element), and ``card``, the card's name and power limit. ``device``:
-    a CUDA device, the GPU by default; anything else raises."""
+    element), ``l1_GBps`` (four-byte loads of a 16 KB table, 16K a thread,
+    by the kernels' library, which is built if it is not), and ``card``, the
+    card's name and power limit. ``device``: a CUDA device, the GPU by
+    default; anything else raises."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("measure_ceilings: no CUDA device (torch.cuda.is_available() "
@@ -239,8 +287,22 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
     ms = kernel_ms(lambda: torch.take(tab, idx))[0]
     gather = idx.numel() / (ms * 1e-3) / 1e6
 
+    # L1: 8 blocks an SM, each thread 1024 x 16 four-byte loads of a 16 KB table
+    from . import build
+
+    lib = build.library_for(device)
+    window, iters = 4096, 1024
+    blocks = 8 * torch.cuda.get_device_properties(device).multi_processor_count
+    l1_tab = torch.rand(window + 16 * 32, generator=g, device=device)
+    l1_out = torch.empty(blocks * 256, device=device)
+    cu_stream = torch.cuda.current_stream(device).cuda_stream
+    ms = kernel_ms(lambda: build.check(lib.gqmap_l1_load_f32(
+        l1_tab.data_ptr(), l1_out.data_ptr(), window - 1, iters, blocks, l1_tab.device.index,
+        cu_stream), "gqmap_l1_load_f32"), n=10)[0]
+    l1 = l1_out.numel() * iters * 16 * 4 / (ms * 1e-3) / 1e9
+
     return dict(roundtrip_ms=roundtrip * 1e3, hbm_stream_GBps=stream, vpu_GFLOPs=vpu,
-                gather_Mtaps_s=gather, exp_Gops=exp_rate, rsqrt_Gops=rsqrt_rate,
+                gather_Mtaps_s=gather, exp_Gops=exp_rate, rsqrt_Gops=rsqrt_rate, l1_GBps=l1,
                 card=card_line(device))
 
 
@@ -283,8 +345,10 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
 
     ``cosine`` is ``tpu_fast`` (K1 by operations); the others are
     ``full_mixture(float32, quad_chunk=27, cheb_p=96, cheb_q=16)`` with the
-    term: ``bicubic`` (16 table reads a sample) and ``nearest`` (1) by the
-    gather rate, ``chebyshev`` by its 2 P Q operations a sample."""
+    term: ``bicubic`` by the sum of its kernels' bounds (K4's node sums and
+    K3's edge sums, :func:`bound` at the measured rates), ``nearest`` (one
+    plain ``torch.take`` read a sample) by the gather rate, ``chebyshev`` by
+    its 2 P Q operations a sample."""
     from ..config import FlowRange, GQMAPConfig
     from ..models.gqmap import _device, make_problem, make_sweep
 
@@ -307,8 +371,12 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
         sweep(problem, state)
         ms = _wall_ms(lambda: sweep(problem, state), n, dev)
         samples = cfg.L * M * N * cfg.K ** 2
-        if TAPS[mode]:
-            bound_ms = TAPS[mode] * samples / (ceil["gather_Mtaps_s"] * 1e6) * 1e3
+        if mode == "bicubic":
+            bound_ms = (bound(k4_work((cfg.L, M, N), cfg.K), rates)["bound_ms"]
+                        + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"])
+            governing = "K4+K3"
+        elif mode == "nearest":
+            bound_ms = samples / (ceil["gather_Mtaps_s"] * 1e6) * 1e3
             governing = "gather"
         elif mode == "cosine":
             bound_ms = k1_work(problem.cheb.coeffs.shape, cfg.L)["flops"] / rates["flops"] * 1e3

@@ -54,6 +54,7 @@ Differences from the JAX engine, none of which changes a result:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -69,6 +70,7 @@ from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch, neighbour_stacks)
+from ..kernels.node_gq import node_gq, node_gq_cuda, node_gq_torch
 from ..ops.chebyshev import ChebData, build_cheb_data, make_node_pot_chebyshev
 from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data, cos_ei
 from ..ops.flowviz import flow_to_color
@@ -103,6 +105,8 @@ __all__ = [
 ]
 
 _NODE_SUMS = {"auto": cos_mode_sums, "cuda": cos_mode_sums_cuda, "torch": cos_mode_sums_torch}
+# the bicubic term's K4 route (raw sums, finalized here)
+_NODE_GQ = {"auto": node_gq, "cuda": node_gq_cuda, "torch": node_gq_torch}
 # edge_quad -> edge_kernel -> the K2 route (finalized gradients) or the K3
 # route (raw sums, finalized here)
 _EDGE_ROUTES = {
@@ -171,8 +175,8 @@ def check_supported(cfg: GQMAPConfig) -> None:
     Unknown values raise ``ValueError``, as the JAX package's
     ``make_problem`` does, and so does a kernel asked for (``"cuda"``) on a path
     that no kernel computes: K1 computes only the cosine term's Stein sums,
-    K2 and K3 only Charbonnier edges, and the autodiff estimator
-    differentiates plain sums.
+    K4 only the bicubic term's (without a window), K2 and K3 only Charbonnier
+    edges, and the autodiff estimator differentiates plain sums.
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -185,11 +189,13 @@ def check_supported(cfg: GQMAPConfig) -> None:
         if value not in ok:
             raise ValueError(f"unknown {field} {value!r} (expected one of {ok})")
     autodiff = cfg.gradient_estimator == "autodiff"
-    if cfg.node_kernel == "cuda" and (cfg.data_term != "cosine" or autodiff):
+    if cfg.node_kernel == "cuda" and (_node_kernel(cfg) is None or autodiff):
         raise ValueError(
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
-            f"Stein sums; with data_term={cfg.data_term!r} and gradient_estimator="
-            f"{cfg.gradient_estimator!r} the node term is plain torch (use 'auto' or 'torch')")
+            f"Stein sums, or kernel K4, which computes the bicubic term's without a window; "
+            f"with data_term={cfg.data_term!r}, window_rg={cfg.window_rg} and "
+            f"gradient_estimator={cfg.gradient_estimator!r} the node term is plain torch (use "
+            "'auto' or 'torch')")
     if cfg.edge_kernel == "cuda" and (cfg.edge_kind != "charbonnier" or autodiff):
         raise ValueError(
             f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges "
@@ -197,6 +203,17 @@ def check_supported(cfg: GQMAPConfig) -> None:
             f"gradient_estimator={cfg.gradient_estimator!r} the edge sums are plain torch "
             "(use 'auto' or 'torch')")
     _dt(cfg)
+
+
+def _node_kernel(cfg: GQMAPConfig) -> str | None:
+    """The kernel that computes ``cfg``'s node term under the Stein
+    estimator: ``"K1"`` (the cosine term), ``"K4"`` (the bicubic term without
+    a window), or None where the sums are plain torch."""
+    if cfg.data_term == "cosine":
+        return "K1"
+    if cfg.data_term == "bicubic" and cfg.window_rg == 0:
+        return "K4"
+    return None
 
 
 def flow_lattice_shape(cfg: GQMAPConfig, image_shape) -> tuple[int, int]:
@@ -230,8 +247,9 @@ def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
     if spectral is not None and flow_range is None:
         raise ValueError(f"data_term={cfg.data_term!r} needs flow_range at make_problem")
     dt, device = _dt(cfg), _device(device)
-    I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device)
-    I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device)
+    # contiguous whatever the caller's strides (a cropped frame): kernel K4 reads them flat
+    I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device).contiguous()
+    I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device).contiguous()
     tab = upsample_cubic(I2, cfg.rfc) if cfg.data_term == "nearest" else pad_cubic(I2)
     cheb = grad_tabs = None
     if spectral is not None:
@@ -342,8 +360,10 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
 
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
-    estimators; truncated-quadratic edges and the autodiff estimator run
-    plain sums (:func:`check_supported` refuses ``"cuda"`` there).
+    estimators; K4 for the bicubic term without a window (which the JAX
+    package runs as one XLA scan) under the Stein estimator; the other node
+    terms, truncated-quadratic edges and the autodiff estimator run plain
+    sums (:func:`check_supported` refuses ``"cuda"`` there).
 
     With ``dist`` the sweep is one shard's: ``problem`` and ``state`` hold
     its block, every neighbour roll goes through ``dist.roll``, K2 reads the
@@ -368,6 +388,12 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums = _NODE_SUMS[cfg.node_kernel]
     autodiff = cfg.gradient_estimator == "autodiff"
+    # K4 (or its plain version) where the JAX package scans the bicubic term
+    node_gq_route = (_NODE_GQ[cfg.node_kernel]
+                     if _node_kernel(cfg) == "K4" and not autodiff else None)
+    if node_gq_route is not None and cfg.node_kernel != "cuda":
+        # the plain version steps quad_chunk points at a time; the kernel takes all
+        node_gq_route = functools.partial(node_gq_route, quad_chunk=cfg.quad_chunk)
     reduced = cfg.edge_quad == "reduced"
     if cfg.edge_kind == "truncquad":
         edge_f = make_edge_pot_truncquad(cfg.gama, cfg.dta)
@@ -407,7 +433,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
-        node_f = _node_f(cfg, problem, **node_at)
+        node_f = None if node_gq_route is not None else _node_f(cfg, problem, **node_at)
 
         def autodiff_grads(st: GQState):
             """The autodiff estimator (heir of ``legacy/gqmap_gpuV3.m``): every
@@ -462,9 +488,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
                 gn = _finalize_mode_sums(problem.cheb, sums, st.muu, st.sigmau, st.sigmav,
                                          st.pn, a3, T, NODE)
-            else:  # the K^2-point node quadrature, plain torch
-                raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
-                                      node_tab)
+            else:  # the K^2-point node quadrature: kernel K4, else plain torch
+                if node_gq_route is not None:
+                    raw_n = node_gq_route(problem.I1, problem.I2_tab, st.muu, st.muv, st.sigmau,
+                                          st.sigmav, st.pn, cfg.K, cfg.lambdad, cfg.epsn,
+                                          patch=cfg.patch, **node_at)
+                else:
+                    raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
+                                          node_tab)
                 gn = finalize(raw_n, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
 
             # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---

@@ -35,11 +35,12 @@ def port_problem(jp):
     """The port's Problem holding exactly the JAX Problem's arrays."""
     return problem_from_numpy(dict(
         I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
-        interior=np.asarray(jp.interior), rng=tuple(jp.rng), cheb=np_fields(jp.cheb)))
+        interior=np.asarray(jp.interior), rng=tuple(jp.rng), cheb=np_fields(jp.cheb)),
+        device="cpu")
 
 
 def port_state(js):
-    return state_from_numpy(np_fields(js))
+    return state_from_numpy(np_fields(js), device="cpu")
 
 
 def t(x):

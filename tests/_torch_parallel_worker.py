@@ -49,11 +49,11 @@ def problem_of(arr, data_term):
     return problem_from_numpy(dict(I1=arr["p_I1"], I2_tab=arr["p_I2_tab"],
                                    interior=arr["p_interior"], rng=arr["p_rng"], cheb=cheb,
                                    init_flow=arr.get("p_init_flow"), grad_tabs=grad_tabs),
-                             data_term=data_term)
+                             device="cpu", data_term=data_term)
 
 
 def state_of(arr, prefix="s_"):
-    return state_from_numpy({f: arr[prefix + f] for f in GQState._fields})
+    return state_from_numpy({f: arr[prefix + f] for f in GQState._fields}, device="cpu")
 
 
 def fields(st):

@@ -61,7 +61,7 @@ def _problems(jc, I1, I2):
     jp = jg.make_problem(jc, I1, I2, gqmap_tpu.FlowRange(*FR))
     pp = problem_from_numpy(dict(I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
                                  interior=np.asarray(jp.interior), rng=tuple(jp.rng),
-                                 cheb=np_fields(jp.cheb)), data_term="chebyshev")
+                                 cheb=np_fields(jp.cheb)), device="cpu", data_term="chebyshev")
     return jp, pp
 
 

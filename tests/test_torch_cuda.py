@@ -18,7 +18,7 @@ import torch
 
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
-from gqmap_tpu_torch.kernels import COUNTED, build, cosine_gq, edge_gq, edge_reduced_gq
+from gqmap_tpu_torch.kernels import COUNTED, build, cosine_gq, edge_gq, edge_reduced_gq, node_gq
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE
@@ -273,12 +273,13 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
     cfg = GQMAPConfig.full_mixture(K=K, its=3, eval_every=3, quad_chunk=7)
-    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-                  edge_gq.edge_gq_cuda)
-    n = (k1.launches, k2.launches, k3.launches)
+    k1, k2, k3, k4 = COUNTED
+    n = (k1.launches, k2.launches, k3.launches, k4.launches)
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (0, 0, 3)
+    # K4 computes the bicubic node term once a sweep
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2],
+            k4.launches - n[3]) == (0, 0, 3, 3)
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -289,13 +290,11 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     I2 = np.roll(I1, 1, axis=1)
     kw = dict(cheb_p=16, cheb_q=8) if preset == "tpu_fast" else dict(quad_chunk=7)
     cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3, sweep_order="redblack", **kw)
-    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-                  edge_gq.edge_gq_cuda)
-    n = (k1.launches, k2.launches, k3.launches)
+    n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    want = (6, 6, 0) if preset == "tpu_fast" else (0, 0, 6)
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == want
+    want = [6, 6, 0, 0] if preset == "tpu_fast" else [0, 0, 6, 6]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast_super", "super_entropy"])
@@ -306,13 +305,12 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     I1 = r.uniform(0, 255, (32, 48))
     I2 = np.roll(I1, 1, axis=1)
     cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3)
-    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-                  edge_gq.edge_gq_cuda)
-    n = (k1.launches, k2.launches, k3.launches)
+    n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
-    want = (3, 3, 0) if preset == "tpu_fast_super" else (0, 0, 3)
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == want
+    # super_entropy's patch-summed bicubic node term through K4
+    want = [3, 3, 0, 0] if preset == "tpu_fast_super" else [0, 0, 3, 3]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
 def test_library_for_accepts_this_card(dev):
@@ -356,6 +354,9 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
     with pytest.raises(ValueError, match="kernel K1"):
         pg.make_sweep(GQMAPConfig.tpu_fast(node_kernel="cuda", gradient_estimator="autodiff"),
                       (24, 40))
+    # K4 computes the bicubic term without a window only
+    with pytest.raises(ValueError, match="kernel K4"):
+        pg.make_sweep(GQMAPConfig.full_mixture(node_kernel="cuda", window_rg=2), (24, 40))
 
 
 @pytest.mark.parametrize("preset, kw, want", [
@@ -373,12 +374,11 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
     cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3, **kw)
-    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-                  edge_gq.edge_gq_cuda)
-    n = (k1.launches, k2.launches, k3.launches)
+    n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == want
+    # the nearest lookups and autodiff's sums are plain: K4 is never launched
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want) + [0]
 
 
 def test_legacy_v1_segment_launches_no_kernel(dev):
@@ -390,14 +390,11 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     flow = np.zeros((24, 40, 2))
     problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)._replace(
         init_flow=torch.as_tensor(flow, device=dev))
-    n = [k.launches for k in (cosine_gq.cos_mode_sums_cuda,
-                              edge_reduced_gq.edge_reduced_grads_cuda, edge_gq.edge_gq_cuda)]
+    n = [k.launches for k in COUNTED]
     st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
-    assert [k.launches for k in (cosine_gq.cos_mode_sums_cuda,
-                                 edge_reduced_gq.edge_reduced_grads_cuda,
-                                 edge_gq.edge_gq_cuda)] == n
+    assert [k.launches for k in COUNTED] == n
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -440,14 +437,13 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     I1 = r.uniform(0, 255, (48, 64))
     I2 = np.roll(I1, 1, axis=1)
     gt = np.stack([1.0 + 0.5 * np.cos(np.arange(48) / 8)[:, None] + 0 * I1, 0 * I1], -1)
-    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-                  edge_gq.edge_gq_cuda)
-    n = (k1.launches, k2.launches, k3.launches)
+    n = [k.launches for k in COUNTED]
     res = solve_coarse_to_fine(GQMAPConfig.ctf_level(its=4, eval_every=2), I1, I2, gt,
                                scales=(0.25, 0.5, 1.0), device=dev)
     sweeps = sum(lv.iters for lv in res.levels)
     assert sweeps == 12 and np.isfinite(res.flow).all()
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (0, 0, sweeps)
+    # K4 (the bicubic node term) and K3 once a sweep of every level
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, sweeps, sweeps]
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -490,7 +486,8 @@ def test_measure_ceilings_on_the_card(dev):
     from gqmap_tpu_torch.kernels import roofline
 
     ceil = roofline.measure_ceilings(device=dev)
-    rates = ("hbm_stream_GBps", "vpu_GFLOPs", "gather_Mtaps_s", "exp_Gops", "rsqrt_Gops")
+    rates = ("hbm_stream_GBps", "vpu_GFLOPs", "gather_Mtaps_s", "exp_Gops", "rsqrt_Gops",
+             "l1_GBps")
     assert all(np.isfinite(ceil[k]) and ceil[k] > 0 for k in rates + ("roundtrip_ms",)), ceil
     # no measured rate above the data sheet's
     sheet = roofline.datasheet_rates()
@@ -505,6 +502,7 @@ GRAPH_CASES = {
     "tpu_fast f64": ("tpu_fast", dict(dtype="float64"), 30),
     "tpu_fast f32": ("tpu_fast", {}, 30),
     "full_mixture": ("full_mixture", dict(quad_chunk=7, step0=0.03, corr_tor=0.95), 30),
+    "super_entropy": ("super_entropy", {}, 30),
     "redblack": ("tpu_fast", dict(sweep_order="redblack", step0=0.03, corr_tor=0.95), 30),
     "its4": ("tpu_fast", dict(its=4), 30),
     "limit1": ("tpu_fast", {}, 1),
@@ -574,7 +572,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert h[1] == k + 1 and h[5] and _identical(g, h)
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels
-    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0]
+    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -598,3 +596,113 @@ def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
         g = seg(problem, state, 12)
     assert _identical(g, h) and seg._captured is captured
     assert captured.run.init_flow.device.type == "cuda"
+
+
+# K4 (the bicubic node quadrature) at the main path's shapes on 376x452:
+# full_mixture's lattice at K = 9, super_entropy's lattice of 4x4 blocks at
+# K = 11, ctf_level's L = 1 lattice at K = 11; and two ragged lattices (a
+# partial last block of threads, patch 1 and 4): (L, K, patch, frame)
+K4_CASES = {
+    "full_mixture": (3, 9, 1, (376, 452)),
+    "super_entropy": (3, 11, 4, (376, 452)),
+    "ctf_level": (1, 11, 1, (376, 452)),
+    "ragged patch 1": (2, 9, 1, (37, 53)),
+    "ragged patch 4": (2, 11, 4, (36, 52)),
+}
+
+
+def _k4_inputs(dev, dtype, L, patch, shape, probe):
+    """Frames, VV = pad_cubic(I2) and the five state fields: the init's wide
+    sigmas, sigma = 0.05, or the |rho| clamp with sigma per site in [0.01, 3];
+    means over the flow range of chip_smoke.py, so queries leave the frame."""
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    g = torch.Generator().manual_seed(sum(shape) + L)
+    I1 = 255 * torch.rand(shape, generator=g, dtype=torch.float64)
+    M, N = shape[0] // patch, shape[1] // patch
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((L, M, N), generator=g, dtype=torch.float64)
+
+    pn = torch.zeros((L, M, N), dtype=torch.float64)
+    if probe == "init":
+        su, sv = u(12, 13), u(4, 5)
+    elif probe == "converged":
+        su = sv = torch.full((L, M, N), 0.05, dtype=torch.float64)
+    else:
+        su, sv = u(0.01, 3), u(0.01, 3)
+        pn = 0.99999 * torch.where(u(0, 1) < 0.5, -1.0, 1.0)
+    st = [x.to(dev, dtype) for x in (u(-10, 2), u(-2, 2), su, sv, pn)]
+    return (I1.to(dev, dtype), pad_cubic(I1.roll(1, 1).to(dev, dtype)), *st)
+
+
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_node_gq_kernel_matches_plain(dev, case, dtype, probe):
+    # float64 within 1e-10 of each sum's largest magnitude; float32 held to
+    # the f64 golden on the same inputs (ratio rule)
+    L, K, patch, shape = K4_CASES[case]
+    args = _k4_inputs(dev, dtype, L, patch, shape, probe)
+    n = node_gq.node_gq_cuda.launches
+    got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch)
+    torch.cuda.synchronize()
+    assert node_gq.node_gq_cuda.launches == n + 1
+    plain = node_gq.node_gq_torch(*args, K, 1.0, 1e-6, patch=patch, quad_chunk=27)
+    if dtype == torch.float64:
+        for name in plain._fields:
+            _close(getattr(got, name), getattr(plain, name), dtype, name)
+    else:
+        gold = node_gq.node_gq_torch(*(x.double() for x in args), K, 1.0, 1e-6, patch=patch,
+                                     quad_chunk=27)
+        _ratio_to_golden(got, plain, gold)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["full_mixture", "super_entropy"])
+def test_node_gq_kernel_nan_probe(dev, case, dtype):
+    # NaN means, sigmas and correlations at a few sites: NaN exactly there in
+    # the kernel and its plain version (D3), every other site as the NaN-free
+    # call gives it, bit for bit; no read leaves the table
+    L, K, patch, _ = K4_CASES[case]
+    args = list(_k4_inputs(dev, dtype, L, patch, (64, 96), "converged"))
+    clean = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch)
+    _, M, N = args[2].shape
+    sites = [(0, 1, 2), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
+    mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+    for field, site in zip((2, 3, 5, 6), sites):  # muu, muv, sv, pn
+        args[field] = args[field].clone()
+        args[field][site] = float("nan")
+        mask[site] = True
+    got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch)
+    plain = node_gq.node_gq_torch(*args, K, 1.0, 1e-6, patch=patch)
+    torch.cuda.synchronize()
+    for g, p, c in zip(got, plain, clean):
+        assert torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(p), mask)
+        assert torch.equal(g[~mask], c[~mask])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["full_mixture", "super_entropy"])
+def test_node_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype):
+    # frame 1 addressed at a shard's pixel origin: the block's sums are the
+    # whole lattice's there, bit for bit (the sharded sweep's K4 call)
+    L, K, patch, _ = K4_CASES[case]
+    I1, VV, *st = _k4_inputs(dev, dtype, L, patch, (64, 96), "converged")
+    whole = node_gq.node_gq_cuda(I1, VV, *st, K, 1.0, 1e-6, patch=patch)
+    _, M, N = st[0].shape
+    for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3)):
+        blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+        got = node_gq.node_gq_cuda(I1, VV, *(x[blk].contiguous() for x in st), K, 1.0, 1e-6,
+                                   patch=patch, origin=(r0 * patch, c0 * patch),
+                                   local_image_shape=(m * patch, n * patch))
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w[blk])
+
+
+def test_full_mixture_graph_segment_launches_k4(dev):
+    # the exact path's segment on the graph route: K4 and K3 once a replayed sweep
+    cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    _, counts = _counted(seg, problem, state, 20)
+    assert seg.route == "graph" and counts == [0, 0, 20, 20]

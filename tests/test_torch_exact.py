@@ -67,7 +67,7 @@ def exact_problem(jp):
     """The port's exact-path Problem holding exactly the JAX Problem's arrays."""
     return problem_from_numpy(dict(I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
                                    interior=np.asarray(jp.interior), rng=tuple(jp.rng),
-                                   cheb=None))
+                                   cheb=None), device="cpu")
 
 
 @pytest.fixture(scope="module")

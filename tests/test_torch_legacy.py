@@ -86,7 +86,8 @@ def _port_problem(jp):
         I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab), interior=np.asarray(jp.interior),
         rng=tuple(jp.rng), cheb=None if jp.cheb is None else np_fields(jp.cheb),
         init_flow=None if jp.init_flow is None else np.asarray(jp.init_flow),
-        grad_tabs=None if jp.grad_tabs is None else [np.asarray(g) for g in jp.grad_tabs]))
+        grad_tabs=None if jp.grad_tabs is None else [np.asarray(g) for g in jp.grad_tabs]),
+        device="cpu")
 
 
 def _problems(jc, I1, I2):

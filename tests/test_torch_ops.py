@@ -232,7 +232,8 @@ def test_full_mixture_sweep_from_a_nan_mean_matches():
     js = js._replace(muu=js.muu.at[1, 6, 9].set(jnp.nan))
     want, waux = jax.jit(jg.make_sweep(jcfg, (16, 16)))(jp, js)
     pp = problem_from_numpy(dict(I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
-                                 interior=np.asarray(jp.interior), rng=tuple(fr), cheb=None))
+                                 interior=np.asarray(jp.interior), rng=tuple(fr), cheb=None),
+                            device="cpu")
     got, gaux = pg.make_sweep(gqmap_tpu_torch.GQMAPConfig.full_mixture(**kw), (16, 16))(
         pp, port_state(js))
     assert np.isnan(np.asarray(want.muu)).any()

@@ -88,7 +88,7 @@ def port_problem(p):
             if p.cheb is not None else None)
     return problem_from_numpy(dict(I1=a["p_I1"], I2_tab=a["p_I2_tab"],
                                    interior=a["p_interior"], rng=a["p_rng"], cheb=cheb,
-                                   init_flow=a.get("p_init_flow")))
+                                   init_flow=a.get("p_init_flow")), device="cpu")
 
 
 def _state_arrays(s, prefix="s_"):

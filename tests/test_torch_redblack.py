@@ -61,7 +61,7 @@ def _cfgs(preset, **kw):
 def _exact_problem(jp):
     return problem_from_numpy(dict(I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
                                    interior=np.asarray(jp.interior), rng=tuple(jp.rng),
-                                   cheb=None))
+                                   cheb=None), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -22,9 +22,13 @@ BOUNDS = {
     "K1 super": (roofline.k1_work((96, 16) + SUPER, 3), 0.0205, "operations"),
     "K2 super": (roofline.k2_work((2, 2, 3) + SUPER, 25), 0.0012, "bytes"),
     "K3 super": (roofline.k3_work((2, 2, 3) + SUPER, 11), 0.0037, "operations"),
+    "K4 main": (roofline.k4_work((3,) + MAIN, 9), 0.0790, "operations"),
+    "K4 super": (roofline.k4_work((3,) + SUPER, 11, patch=4), 0.0252, "operations"),
+    "K4 ctf_level": (roofline.k4_work((1,) + MAIN, 11), 0.0393, "operations"),
 }
 CEILINGS = dict(roundtrip_ms=0.03, hbm_stream_GBps=3000.0, vpu_GFLOPs=50000.0,
-                gather_Mtaps_s=2e5, exp_Gops=2000.0, rsqrt_Gops=4000.0, card="given")
+                gather_Mtaps_s=2e5, exp_Gops=2000.0, rsqrt_Gops=4000.0, l1_GBps=30000.0,
+                card="given")
 
 
 @pytest.mark.parametrize("name", list(BOUNDS))
@@ -46,6 +50,29 @@ def test_work_counts_scale_with_the_shapes():
         assert b["bytes"] == 2 * a["bytes"] and (a["flops"], a["roots"]) == (b["flops"], b["roots"])
 
 
+@pytest.mark.parametrize("patch", [1, 2, 4])
+def test_k4_work_counts_the_function(patch):
+    # a site's pixels share one displacement: one set of weights a point, the
+    # block's (patch + 3)^2 tap window, one root a pixel
+    L, M, N, K = 2, 5, 7, 9
+    points = L * M * N * K * K
+    one, blk = roofline.k4_work((L, M, N), K), roofline.k4_work((L, M, N), K, patch=patch)
+    assert one["l1_bytes"] == points * 16 * 4
+    assert blk["l1_bytes"] == points * (patch + 3) ** 2 * 4
+    assert blk["roots"] == points * patch ** 2 + 2 * L * M * N
+    per_point = (blk["flops"] - L * M * N * (roofline.FLOPS["K4 site"] + 2 * K)) // points
+    assert per_point == (roofline.FLOPS["K4 point"] + 7 * patch * (2 * patch + 3)
+                         + 5 * patch ** 2 - 1)
+    if patch > 1:  # shared weights: fewer operations and taps a pixel than patch 1
+        assert blk["flops"] < patch ** 2 * one["flops"]
+        assert blk["l1_bytes"] < patch ** 2 * one["l1_bytes"]
+    # frame 1's pixels and frame 2's padded table are read once
+    a, b = roofline.k4_work((L, M, N), K, patch, 4), roofline.k4_work((L, M, N), K, patch, 8)
+    assert b["bytes"] == 2 * a["bytes"] and b["l1_bytes"] == 2 * a["l1_bytes"]
+    assert a["bytes"] == (11 * L * M * N + M * N * patch ** 2
+                          + (M * patch + 2) * (N * patch + 2)) * 4
+
+
 def test_measured_rates_set_the_bound():
     work = roofline.k3_work((2, 2, 3) + MAIN, 9)
     got = roofline.bound(work, roofline.measured_rates(CEILINGS))
@@ -54,6 +81,10 @@ def test_measured_rates_set_the_bound():
     assert got["bound_terms_ms"] == pytest.approx({k: v * 1e3 for k, v in terms.items()})
     assert got["bound_ms"] == pytest.approx(max(terms.values()) * 1e3)
     assert got["bound_by"] == "operations"
+    # K4's tap term at the measured L1 load rate
+    work = roofline.k4_work((3,) + MAIN, 9)
+    got = roofline.bound(work, roofline.measured_rates(CEILINGS))
+    assert got["bound_terms_ms"]["l1_bytes"] == pytest.approx(work["l1_bytes"] / 3e13 * 1e3)
 
 
 def test_measure_ceilings_needs_a_card(monkeypatch):
@@ -77,10 +108,15 @@ def test_sweep_roofline_on_the_cpu():
         assert m["ms_per_sweep"] > 0 and m["bound_ms"] > 0 and m["device"] == "cpu"
         assert m["share_of_bound"] == pytest.approx(m["bound_ms"] / m["ms_per_sweep"])
     assert {m: out["modes"][m]["governing_bound"] for m in out["modes"]} == {
-        "cosine": "flops", "chebyshev": "flops", "nearest": "gather", "bicubic": "gather"}
-    # 16 table reads a bicubic sample, 1 a nearest one
+        "cosine": "flops", "chebyshev": "flops", "nearest": "gather", "bicubic": "K4+K3"}
+    # one plain table read a nearest sample; the bicubic path runs kernels K4
+    # (node sums) and K3 (edge sums) and is bound by the sum of their bounds
+    rates = roofline.measured_rates(CEILINGS)
+    assert out["modes"]["nearest"]["bound_ms"] == pytest.approx(
+        3 * 24 * 28 * 81 / (CEILINGS["gather_Mtaps_s"] * 1e6) * 1e3)
     assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
-        16 * out["modes"]["nearest"]["bound_ms"])
+        roofline.bound(roofline.k4_work((3, 24, 28), 9), rates)["bound_ms"]
+        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
 
 
 def test_flagship_roofline_on_the_cpu():

@@ -72,7 +72,7 @@ def toy():
         jp = jg.make_problem(jc, I1, I2, fr)
         pp = (port_problem(jp) if jp.cheb is not None else problem_from_numpy(dict(
             I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab),
-            interior=np.asarray(jp.interior), rng=tuple(jp.rng), cheb=None)))
+            interior=np.asarray(jp.interior), rng=tuple(jp.rng), cheb=None), device="cpu"))
         out[preset] = dict(jp=jp, pp=pp, js=jg.init_state(jc, fr, I1.shape))
     return out
 

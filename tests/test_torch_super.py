@@ -65,7 +65,7 @@ def _cfgs(preset, **kw):
 def _port_problem(jp):
     return problem_from_numpy(dict(
         I1=np.asarray(jp.I1), I2_tab=np.asarray(jp.I2_tab), interior=np.asarray(jp.interior),
-        rng=tuple(jp.rng), cheb=None if jp.cheb is None else np_fields(jp.cheb)))
+        rng=tuple(jp.rng), cheb=None if jp.cheb is None else np_fields(jp.cheb)), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -305,7 +305,7 @@ def test_convert_takes_super_shapes(toy):
     assert pp.I1.shape == SHAPE and pp.interior.dtype == torch.bool
     np.testing.assert_array_equal(pp.cheb.coeffs.numpy(), np.asarray(jp.cheb.coeffs))
     assert (pp.cheb.lo_u, pp.cheb.hi_v) == (float(jp.cheb.lo_u), float(jp.cheb.hi_v))
-    ps = state_from_numpy(np_fields(js))
+    ps = state_from_numpy(np_fields(js), device="cpu")
     assert ps.muu.shape == (3,) + LATTICE and ps.rou.shape == (2, 2, 3) + LATTICE
     assert ps.it.dtype == torch.int32
     for f in FIELDS:
