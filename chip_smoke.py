@@ -11,11 +11,16 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the SASS of the library (``cuobjdump -sass``): the instructions of K1's
    float32 inner loops per mode (recur and exp) and of the whole float32
    function of K2's and K3's main-path instance per quadrature point (set-up
-   and epilogue included), which give each kernel's issue bound at 132
-   SMs x 128 lanes x the card's maximum SM clock; then the card's ceilings
-   (``roofline.measure_ceilings``: memory stream, float32 FMA chain, gather,
-   ``expf``, ``rsqrtf`` and L1 load rates), whose rates give every kernel's bound a
-   second time beside the data sheet's (``bound_ms_measured``);
+   and epilogue included), of K4 v1's innermost loop per sample and of K4
+   v2's shared-memory point loop per point (patch 1 at K = 9, patch 4 at
+   K = 11; the shared form, the per-pixel fallback being a function of its
+   own), with each one's MUFU.RSQ count, which give each kernel's issue
+   bound at 132 SMs x 128 lanes x the card's maximum SM clock; then the
+   card's ceilings (``roofline.measure_ceilings``: memory stream, float32
+   FMA chains (8 independent a thread, and one, with the SM clock read while
+   each runs), gather, ``expf``, ``rsqrtf`` and L1 load rates), whose rates
+   give every kernel's bound a second time beside the data sheet's
+   (``bound_ms_measured``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: K1 (cosine mode sums) in each of its variants
    ("v1", "adaptive", "recur") on the coefficient field of a 77x300 crop and
@@ -62,22 +67,30 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the clamp in float32 also against the f64 golden (ratio rule); on the
    warm probe also its generic instance at K=9 and K=5 and its instance for
    K=11; times as in phase 3;
-6b. K4 (the bicubic node quadrature's raw sums) against its plain version
-   at the main path's shapes: ``full_mixture``'s (3, 376, 452) sites at
+6b. K4 (the bicubic node quadrature's raw sums) against its plain version,
+   in both variants ("v1", and "v2", the default): at the main path's
+   shapes: ``full_mixture``'s (3, 376, 452) sites at
    K = 9, ``super_entropy``'s (3, 94, 113) sites of 4x4 pixel blocks at
    K = 11, ``ctf_level``'s (1, 376, 452) at K = 11, and two ragged lattices
    (patch 1 and 4, a partial last block of threads), each from the init, the
    sigma = 0.05 state and the |rho| clamp; float64 within 1e-10 of each
    sum's largest magnitude, float32 against the f64 golden (ratio rule, the
-   floor of phase 6); a shard's block (``origin``, ``local_image_shape``)
-   equal to the whole lattice's sums there bit for bit and within 1e-10 of
-   its plain version in float64; NaN means, sigmas and correlations at a few
-   sites: NaN exactly there in both versions, every other site bit for bit
-   the NaN-free call's; its time, plain time and bound (data sheet and
-   measured ceilings, with the L1 tap term; the bound counts the function's
-   work, in which a block's pixels share their weights and a (patch + 3)^2
-   tap window) at the three main shapes, and the time ``torch.take``'s
-   measured gather rate would give the kernel's 16 taps a sample;
+   floor of phase 6); v2's share of CTAs with no window and of sites read
+   through L1 (a site's box of the table over the budget) per probe, and its
+   sums with every site sent through L1 (``window_bytes=0``) equal bit for
+   bit; a shard's block (``origin``,
+   ``local_image_shape``) equal to the whole lattice's sums there bit for
+   bit and within 1e-10 of its plain version in float64; NaN means, sigmas
+   and correlations at a few sites: NaN exactly there in both versions,
+   every other site bit for bit the NaN-free call's; both variants' times
+   back to back, converged and from init, the plain time, the bound (data
+   sheet and measured ceilings, with the L1 tap term; the bound counts the
+   function's work, in which a block's pixels share their weights and a
+   (patch + 3)^2 tap window) and each variant's SASS issue bound at the
+   three main shapes, and the time ``torch.take``'s measured gather rate
+   would give v1's 16 taps a sample; at the converged probe v2 must take at
+   most half of v1's time at ``super_entropy`` and no more than v1's at the
+   two others;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -340,7 +353,9 @@ def sass_functions(text):
 
 def sass_loops(instrs, label_addr):
     """Every backward branch of one function: the instructions from its
-    target label to the branch, and how many of them are MUFU.EX2."""
+    target label to the branch, and how many of them are
+    MUFU.EX2, MUFU.RSQ, device-memory loads (LDG) and shared-memory loads
+    (LDS)."""
     loops = []
     for addr, ins in instrs:
         m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
@@ -349,7 +364,10 @@ def sass_loops(instrs, label_addr):
         if start is not None and start <= addr:
             body_ins = [i for a, i in instrs if start <= a <= addr]
             loops.append(dict(instructions=len(body_ins),
-                              ex2=sum("MUFU.EX2" in i for i in body_ins)))
+                              ex2=sum("MUFU.EX2" in i for i in body_ins),
+                              rsq=sum("MUFU.RSQ" in i for i in body_ins),
+                              ldg=sum(bool(re.search(r"\bLDG\b", i)) for i in body_ins),
+                              lds=sum(bool(re.search(r"\bLDS\b", i)) for i in body_ins)))
     return loops
 
 
@@ -378,6 +396,22 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         ins = [i for _, i in find(key)[0] if not i.startswith("NOP")]
         per[f"{k} point"] = len(ins) / points if ins else None
         per[f"{k} rsq"] = sum("MUFU.RSQ" in i for i in ins) if ins else None
+    # K4 v1: the innermost loop holding a sample's 16 table loads (LDG), per
+    # sample (its LDG count / 16 samples an iteration); v2: the point loop of
+    # the shared-memory route (the loop with the most LDS: the (P + 3)^2 taps
+    # and the point's constants; the per-pixel fallback is a function of its
+    # own) at patch 1 (K = 9) and 4 (K = 11), per point, the shared form
+    lp = [x for x in sass_loops(*find("node_gq_kernelIfE")) if x["ldg"] >= 16]
+    lp = min(lp, key=lambda x: x["instructions"]) if lp else None
+    per["K4 v1 sample"] = lp["instructions"] * 16 / lp["ldg"] if lp else None
+    per["K4 v1 rsq"] = lp["rsq"] * 16 / lp["ldg"] if lp else None
+    for P, KK in ((1, K), (4, 11)):
+        lp = [x for x in sass_loops(*find(f"node_gq_v2_kernelIfLi{P}ELi{KK}EE"))
+              if x["lds"] >= (P + 3) ** 2]
+        lp = max(lp, key=lambda x: x["lds"]) if lp else None
+        per[f"K4 v2 point P={P}"] = lp["instructions"] if lp else None
+        per[f"K4 v2 rsq P={P}"] = lp["rsq"] if lp else None
+        per[f"K4 v2 lds P={P}"] = lp["lds"] if lp else None
     return per
 
 
@@ -555,10 +589,12 @@ def k4_probes(cfg, shape, dev):
                                  sigmav=rand(0.01, 3, st.sigmav))}
 
 
-def kernels_k4(dev, record, I1, I2, gather_Mtaps_s):
-    """Phase 6b: K4 against its plain version (see the module docstring);
-    fills ``record["K4"]`` (the ``full_mixture`` shape's error, times and
-    bound, the other shapes' under their names)."""
+def kernels_k4(dev, record, I1, I2, gather_Mtaps_s, issue_ms):
+    """Phase 6b: K4 against its plain version in both variants (see the
+    module docstring); fills ``record["K4"]`` (v2, the default, at the
+    ``full_mixture`` shape: error, times and bounds; v1's beside; the other
+    shapes' under their names). ``issue_ms(unit, work)``: the SASS issue
+    bound of ``work`` units."""
     from gqmap_tpu_torch import GQMAPConfig
     from gqmap_tpu_torch.kernels import node_gq
     from gqmap_tpu_torch.ops.interp import pad_cubic
@@ -585,48 +621,99 @@ def kernels_k4(dev, record, I1, I2, gather_Mtaps_s):
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
 
-    rec = record["K4"] = dict(library_ms=None, library_reason=(
+    def issue(variant, site_shape, cfg):
+        """The SASS issue bound of a launch: every lane of a site's group
+        through every round (v1: its pixels a round, each point a sample;
+        v2: its points, at the shared form's count)."""
+        n_sites, P, K2 = math.prod(site_shape), cfg.patch, cfg.K ** 2
+        if variant == "v1":
+            G = node_gq.group_lanes(P)
+            return issue_ms("K4 v1 sample", n_sites * G * -(-P * P // G) * K2)
+        G = node_gq.v2_tile(P)[0]
+        return issue_ms(f"K4 v2 point P={P}", n_sites * G * -(-K2 // G))
+
+    rec = record["K4"] = dict(variant="v2", library_ms=None, library_reason=(
         "no single PyTorch call computes it: grid_sample's bicubic uses a = -0.75, not MATLAB's "
         "Keys a = -0.5, and has no quadrature"))
     for name, (cfg, shape) in cases.items():
-        kw, pkw = dict(patch=cfg.patch), dict(patch=cfg.patch, quad_chunk=27)
+        pkw = dict(patch=cfg.patch, quad_chunk=27)
         probes = k4_probes(cfg, shape, dev)
         site_shape = tuple(probes["init"].muu.shape)
+        ctas = node_gq.v2_ctas(site_shape, cfg.patch)
+        r4 = dict(shape=list(site_shape), K=cfg.K, patch=cfg.patch, l1_route_share={})
         for dtype in (torch.float64, torch.float32):
             I1d, VVd = frames(shape, dtype)
             for sname, st in probes.items():
                 args = (I1d, VVd, *sites(st, dtype), cfg.K, cfg.lambdad, cfg.epsn)
-                got, want = k4(*args, **kw), plain(*args, **pkw)
-                a, r, ok = compare(got, want, dtype)
-                what = (f"K4 {name} {site_shape} K={cfg.K} patch={cfg.patch} {str(dtype)[6:]} "
-                        f"{sname}")
-                if dtype == torch.float64:
-                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
-                    continue
-                gold = plain(*(x.double() if isinstance(x, torch.Tensor) else x for x in args),
-                             **pkw)
-                ek, ep = worst_rel(got, gold), worst_rel(want, gold)
-                require(ek <= 2.0 * ep + 1e-6, f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 "
-                                               f"x plain {ep:.3e} + 1e-6 (kernel vs plain max "
-                                               f"abs {a:.3e}, rel {r:.3e})")
-                if sname != "converged" or name.startswith("ragged"):
-                    continue
-                ms = kernel_ms(lambda: k4(*args, **kw))
-                work = roofline.k4_work(site_shape, cfg.K, cfg.patch)
-                taps = math.prod(site_shape) * cfg.K ** 2 * cfg.patch ** 2 * 16  # the kernel's
-                r4 = dict(shape=list(site_shape), K=cfg.K, patch=cfg.patch, max_abs_err=a,
-                          ms=ms[0], ms_min=ms[1], plain_ms=time_ms(lambda: plain(*args, **pkw), 3),
-                          taps=taps, take_ceiling_ms=taps / (gather_Mtaps_s * 1e6) * 1e3,
-                          **bound(work))
-                if name == "full_mixture":
-                    rec.update(r4)
-                else:
-                    rec[name] = r4
-                log(f"  K4 {name} {site_shape} f32 on {smi('name,power.limit,clocks.sm')} "
-                    f"(median, min) {ms} ms; plain {r4['plain_ms']:.4f} ms; {fmt_bound(r4)} "
-                    f"({r4['bound_terms_ms']}); its {taps:.3e} taps at torch.take's measured "
-                    f"gather rate (device-memory indices, not K4's bound) "
-                    f"{r4['take_ceiling_ms']:.4f} ms")
+                want = plain(*args, **pkw)
+                gold = None if dtype == torch.float64 else plain(
+                    *(x.double() if isinstance(x, torch.Tensor) else x for x in args), **pkw)
+                for variant in node_gq.VARIANTS:
+                    kw = dict(patch=cfg.patch, variant=variant)
+                    cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+                    got = k4(*args, **kw, l1_counts=cnt if variant == "v2" else None)
+                    a, r, ok = compare(got, want, dtype)
+                    what = (f"K4 {variant} {name} {site_shape} K={cfg.K} patch={cfg.patch} "
+                            f"{str(dtype)[6:]} {sname}")
+                    if dtype == torch.float64:
+                        require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                    else:
+                        ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                        require(ek <= 2.0 * ep + 1e-6,
+                                f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain "
+                                f"{ep:.3e} + 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                    if variant == "v2":
+                        # the L1 route (a budget of 0): the same sums, bit for bit
+                        every = torch.zeros(2, dtype=torch.int64, device=dev)
+                        l1 = k4(*args, **kw, window_bytes=0, l1_counts=every)
+                        n_ctas, n_sites = cnt.tolist()
+                        share = dict(ctas=n_ctas / ctas, sites=n_sites / math.prod(site_shape))
+                        r4["l1_route_share"][f"{sname} {str(dtype)[6:]}"] = share
+                        require(every.tolist() == [ctas, math.prod(site_shape)]
+                                and all(torch.equal(x, y) for x, y in zip(got, l1)),
+                                f"{what}: {n_ctas} of {ctas} CTAs without a window, {n_sites} "
+                                f"of {math.prod(site_shape)} sites through L1 ({share}); every "
+                                f"site through L1 ({every.tolist()}) gives the same sums, bit "
+                                "for bit")
+                    if (dtype == torch.float64 or name.startswith("ragged")
+                            or sname == "clamp"):
+                        continue
+                    ms = kernel_ms(lambda: k4(*args, **kw))
+                    tag = "" if sname == "converged" else "init_"
+                    r4[f"{variant}_{tag}ms"], r4[f"{variant}_{tag}ms_min"] = ms
+                    if sname == "converged":
+                        r4[f"{variant}_max_abs_err"] = a
+                        r4[f"{variant}_sass_issue_ms"] = issue(variant, site_shape, cfg)
+                if (dtype == torch.float32 and sname == "converged"
+                        and not name.startswith("ragged")):
+                    r4["plain_ms"] = time_ms(lambda: plain(*args, **pkw), 3)
+        if name.startswith("ragged"):
+            continue
+        work = roofline.k4_work(site_shape, cfg.K, cfg.patch)
+        taps = math.prod(site_shape) * cfg.K ** 2 * cfg.patch ** 2 * 16  # v1's
+        r4.update(taps_v1=taps, take_ceiling_ms=taps / (gather_Mtaps_s * 1e6) * 1e3,
+                  **bound(work))
+        r4.update(ms=r4["v2_ms"], ms_min=r4["v2_ms_min"], max_abs_err=r4["v2_max_abs_err"],
+                  sass_issue_ms=r4["v2_sass_issue_ms"])
+        if name == "full_mixture":
+            rec.update(r4)
+        else:
+            rec[name] = r4
+        card = smi("name,power.limit,clocks.sm")
+        for variant in node_gq.VARIANTS:
+            log(f"  K4 {variant} {name} {site_shape} f32 on {card}: converged (median, min) "
+                f"({r4[f'{variant}_ms']:.4f}, {r4[f'{variant}_ms_min']:.4f}) ms, init "
+                f"({r4[f'{variant}_init_ms']:.4f}, {r4[f'{variant}_init_ms_min']:.4f}) ms; "
+                f"SASS issue bound {r4[f'{variant}_sass_issue_ms']:.4f} ms")
+        log(f"  K4 {name}: plain {r4['plain_ms']:.4f} ms; {fmt_bound(r4)} "
+            f"({r4['bound_terms_ms']}); v2's L1-route shares {r4['l1_route_share']}; "
+            f"v1's {taps:.3e} taps at torch.take's gather rate (not K4's bound) "
+            f"{r4['take_ceiling_ms']:.4f} ms")
+        if name in ("full_mixture", "super_entropy", "ctf_level"):
+            half = name == "super_entropy"
+            require(r4["v2_ms"] <= (0.5 if half else 1.0) * r4["v1_ms"],
+                    f"K4 {name} converged: v2 {r4['v2_ms']:.4f} ms <= "
+                    f"{'half of ' if half else ''}v1's {r4['v1_ms']:.4f} ms")
 
     # a shard's block: the whole lattice's sums there, bit for bit (the (2, 2)
     # mesh's four blocks; two blocks of the super lattice, one at odd offsets)
@@ -635,19 +722,21 @@ def kernels_k4(dev, record, I1, I2, gather_Mtaps_s):
                          ("super_entropy", [(sm, sn, H // 4 - sm, W // 4 - sn), (0, 0, sm, sn)])):
         cfg, shape = cases[name]
         st = k4_probes(cfg, shape, dev)["converged"]
-        for dtype in (torch.float64, torch.float32):
+        for dtype, variant in ((d, v) for d in (torch.float64, torch.float32)
+                               for v in node_gq.VARIANTS):
             I1d, VVd = frames(shape, dtype)
             s5 = sites(st, dtype)
-            whole = k4(I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn, patch=cfg.patch)
+            whole = k4(I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn, patch=cfg.patch,
+                       variant=variant)
             for r0, c0, m, n in blocks:
                 blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
                 at = dict(patch=cfg.patch, origin=(r0 * cfg.patch, c0 * cfg.patch),
                           local_image_shape=(m * cfg.patch, n * cfg.patch))
                 bs = [x[blk].contiguous() for x in s5]
-                got = k4(I1d, VVd, *bs, cfg.K, cfg.lambdad, cfg.epsn, **at)
+                got = k4(I1d, VVd, *bs, cfg.K, cfg.lambdad, cfg.epsn, variant=variant, **at)
                 same = all(torch.equal(g, w[blk]) for g, w in zip(got, whole))
-                what = (f"K4 {name} {str(dtype)[6:]} block of ({m}, {n}) sites at lattice "
-                        f"({r0}, {c0})")
+                what = (f"K4 {variant} {name} {str(dtype)[6:]} block of ({m}, {n}) sites at "
+                        f"lattice ({r0}, {c0})")
                 if dtype == torch.float64:
                     a, r, ok = compare(got, plain(I1d, VVd, *bs, cfg.K, cfg.lambdad, cfg.epsn,
                                                   quad_chunk=27, **at), dtype)
@@ -662,24 +751,26 @@ def kernels_k4(dev, record, I1, I2, gather_Mtaps_s):
         st = k4_probes(cfg, shape, dev)["converged"]
         L, M, N = st.muu.shape
         at = [(0, M // 4, N // 5), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
-        for dtype in (torch.float64, torch.float32):
+        mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+        for site in at:
+            mask[site] = True
+        for dtype, variant in ((d, v) for d in (torch.float64, torch.float32)
+                               for v in node_gq.VARIANTS):
             I1d, VVd = frames(shape, dtype)
             s5 = sites(st, dtype)
-            clean = k4(I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn, patch=cfg.patch)
+            clean = k4(I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn, patch=cfg.patch,
+                       variant=variant)
             for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
                 s5[field][site] = float("nan")
             args = (I1d, VVd, *s5, cfg.K, cfg.lambdad, cfg.epsn)
-            got = k4(*args, patch=cfg.patch)
+            got = k4(*args, patch=cfg.patch, variant=variant)
             want = plain(*args, patch=cfg.patch, quad_chunk=27)
             torch.cuda.synchronize()
-            mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
-            for site in at:
-                mask[site] = True
             ok = all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
                      and torch.equal(g[~mask], c[~mask]) for g, w, c in zip(got, want, clean))
-            require(ok, f"K4 {name} {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in "
-                        "the kernel and the plain version, every other site bit for bit the "
-                        "NaN-free call's")
+            require(ok, f"K4 {variant} {name} {str(dtype)[6:]} NaN probes at {at}: NaN exactly "
+                        "there in the kernel and the plain version, every other site bit for "
+                        "bit the NaN-free call's")
 
 
 def flow_sequence(seed, dev, H=H, W=W):
@@ -1511,10 +1602,11 @@ GRAPH_POLLS = (1, 5, 10, 25, 100)  # POLL values timed on the converged tpu_fast
 def graph_phase(dev, record, by_path, kfns):
     """Phase 30: the segment runner's graph route against its host loop at
     376x452 f32 on ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
-    ``tpu_fast_super`` and ``super_entropy``: the route is ``"graph"``; from
-    the init and from the sigma = 0.05 state both runners end in the same
-    state and traces, bit for bit, after 300 sweeps (100 converged for
-    ``full_mixture`` and ``super_entropy``), with the same launch counts; each
+    ``tpu_fast_super``, ``super_entropy`` and ``ctf_level``: the route is
+    ``"graph"``; from the init and from the sigma = 0.05 state both runners
+    end in the same state and traces, bit for bit, after 300 sweeps (100
+    converged on the K4 paths), with the same launch counts; on the K4 paths
+    the graph's ms a sweep with K4 v1 beside v2's, in turns; each
     runner's ms a sweep by CUDA events, the capture's seconds and the peak
     device memory of the capturing call; an early stop that trips inside a
     poll window (``tor`` from the host loop's |dmu| trace) gives the host
@@ -1535,6 +1627,7 @@ def graph_phase(dev, record, by_path, kfns):
         "tpu_fast redblack": (GQMAPConfig.tpu_fast(sweep_order="redblack"), GRAPH_SWEEPS),
         "tpu_fast_super": (GQMAPConfig.tpu_fast_super(), GRAPH_SWEEPS),
         "super_entropy": (GQMAPConfig.super_entropy(), 100),
+        "ctf_level": (GQMAPConfig.ctf_level(), 100),
     }
     out = record["graph"] = {"card": smi("name,power.limit"), "POLL": pg.POLL}
 
@@ -1602,6 +1695,28 @@ def graph_phase(dev, record, by_path, kfns):
             f"{rec['capture_s']:.3f} s, the capturing call {rec['capture_call_GiB_above_held']:.3f}"
             f" GiB at peak above held, reserved +{rec['reserved_GiB_above']:.3f} GiB; launches "
             f"{rec['init']['graph_launches']}")
+        if cfg.data_term == "bicubic":
+            # K4's variants on the graph route, in turns: v2 (the default,
+            # above), v1 (a runner captured with v1 as the default), v2 again
+            from gqmap_tpu_torch.kernels import node_gq
+
+            default, node_gq._DEFAULT_VARIANT = node_gq._DEFAULT_VARIANT, "v1"
+            try:
+                old = pg.make_segment_runner(cfg, (H, W))
+                old(problem, init, 10)
+                for sname, st, n in (("init", init, GRAPH_SWEEPS), ("converged", conv, conv_n)):
+                    rec[sname]["graph_ms_k4_v1"] = timed(old, problem, st, n)[1]
+                del old
+            finally:
+                node_gq._DEFAULT_VARIANT = default
+            for sname, st, n in (("init", init, GRAPH_SWEEPS), ("converged", conv, conv_n)):
+                rec[sname]["graph_ms_again"] = timed(graph, problem, st, n)[1]
+            log(f"  {path} graph, ms a sweep with K4 v2 / v1 / v2 again: from init "
+                + " / ".join(f"{rec['init'][k]:.4f}" for k in ("graph_ms", "graph_ms_k4_v1",
+                                                                 "graph_ms_again"))
+                + ", converged "
+                + " / ".join(f"{rec['converged'][k]:.4f}" for k in ("graph_ms", "graph_ms_k4_v1",
+                                                                      "graph_ms_again")))
         if path in ("tpu_fast", "tpu_fast_super"):
             # POLL: ms a sweep of the converged 300-sweep segment at each cadence
             polls = rec["ms_by_POLL"] = {}
@@ -1656,7 +1771,6 @@ def graph_phase(dev, record, by_path, kfns):
         "legacy_v3": GQMAPConfig.legacy_v3(),
         "blockmatch_v2": GQMAPConfig.blockmatch_v2(),
         "tpu_fast window_rg=2": GQMAPConfig.tpu_fast(window_rg=2),
-        "ctf_level": GQMAPConfig.ctf_level(),
         "full_mixture chebyshev": GQMAPConfig.full_mixture(quad_chunk=27, **CHEB),
         "tpu_fast chebyshev": GQMAPConfig.tpu_fast(data_term="chebyshev"),
         "tpu_fast float64": GQMAPConfig.tpu_fast(dtype="float64"),
@@ -1765,7 +1879,8 @@ def main():
     log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
         "mode; K2 and K3: the main path's rule instance, whole function (set-up and "
         "epilogue included) per point, and its MUFU.RSQ count")
-    for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq"):
+    for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
+                 "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -2101,7 +2216,7 @@ def main():
                     f"bound {record['K3']['sass_issue_ms']:.4f} ms")
 
     # ---- 6b. K4 against its plain version
-    kernels_k4(dev, record, I1, I2, ceil["gather_Mtaps_s"])
+    kernels_k4(dev, record, I1, I2, ceil["gather_Mtaps_s"], issue_ms)
     k4_fn = node_gq.node_gq_cuda
 
     # ---- 7. one full_mixture sweep, three ways
@@ -2636,7 +2751,7 @@ def main():
         dict(name="edge_gq (K3)", route="cuda", source="gqmap_tpu_torch/csrc/edge_gq.cu",
              replaces="gqmap_tpu/kernels/edge_gq.py:97", launches=flaunch["K3"],
              **record["K3"]),
-        dict(name="node_gq (K4)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
+        dict(name="node_gq (K4, v2)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:44 (XLA scan, "
                       "no Pallas)", launches=flaunch["K4"], **record["K4"]),
     ]

@@ -61,10 +61,10 @@ _SIGNATURES = {
     # stream
     "gqmap_edge_gq_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "gqmap_edge_gq_f64": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
-    # I1, VV, muu, muv, su, sv, pn, rule_host, out, No, M2, N2, L, M, N, P, r0, c0, K, lam,
-    # eps, device, stream
-    "gqmap_node_gq_f32": [_P] * 9 + [_I] * 10 + [_D] * 2 + [_I, _P],
-    "gqmap_node_gq_f64": [_P] * 9 + [_I] * 10 + [_D] * 2 + [_I, _P],
+    # I1, VV, muu, muv, su, sv, pn, rule_host, out, l1_counts, No, M2, N2, L, M, N, P, r0, c0,
+    # K, variant, window_bytes, lam, eps, device, stream
+    "gqmap_node_gq_f32": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
+    "gqmap_node_gq_f64": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
     # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
 }

@@ -4,7 +4,8 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 
 * :func:`measure_ceilings` measures the card's ceilings: the host round
   trip, the memory stream rate (a 64 MB vector multiply: two reads and one
-  write), the float32 rate (a dependent FMA chain with vector operands), the
+  write), the float32 rate (FMA chains with vector operands: 8 independent
+  chains a thread, and one dependent chain beside), the
   rate of arbitrary-index gathers into a 380x456 table, the rates of
   ``expf`` and of ``rsqrtf`` (the special-function unit that K2's and K3's
   roots use), and the L1 load rate (``csrc/ceilings.cu``: warp-wide
@@ -208,6 +209,14 @@ def bound(work: dict, rates: dict) -> dict:
 _FMA_CHAIN = ("template <typename T> T fma_chain(T a, T b, T c) {\n"
               "    for (int i = 0; i < 64; ++i) {" + " a = a * b + c;" * 32 + " }\n"
               "    return a;\n}")
+# the same 2048 FMAs an element as 8 independent chains of 256 (32 iterations
+# of 8 written-out rounds): each FMA waits on the one 8 back, not the last
+_CHAINS = 8
+_FMA_CHAINS = ("template <typename T> T fma_chains(T a, T b, T c) {\n"
+               + "".join(f"    T a{k} = a + T({k / _CHAINS});\n" for k in range(_CHAINS))
+               + "    for (int i = 0; i < 32; ++i) {"
+               + "".join(f" a{k} = a{k} * b + c;" for k in range(_CHAINS)) * 8 + " }\n"
+               + "    return " + " + ".join(f"a{k}" for k in range(_CHAINS)) + ";\n}")
 _EXP_CHAIN = """template <typename T> T exp_chain(T a) {
     for (int i = 0; i < 640; ++i) a = expf(a * -0.9f);
     return a;
@@ -230,10 +239,20 @@ def card_line(device) -> str:
     return out.strip().splitlines()[device.index or 0]
 
 
+def _sm_clock_mhz(device) -> float:
+    """The card's SM clock now, ``nvidia-smi --query-gpu=clocks.sm``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[torch.device(device).index or 0])
+
+
 def measure_ceilings(dtype=torch.float32, device=None) -> dict:
     """The card's ceilings, each by :func:`kernel_ms`: ``roundtrip_ms`` (a
     scalar op and a synchronise, host clock), ``hbm_stream_GBps``,
-    ``vpu_GFLOPs`` (2048 dependent FMAs an element over 4M elements),
+    ``vpu_GFLOPs`` (2048 FMAs an element over 4M elements as 8 independent
+    chains: the float32 rate of the bounds), ``vpu_1chain_GFLOPs`` (the same
+    FMAs as one dependent chain), ``fma_sm_clock_MHz`` and
+    ``fma_1chain_sm_clock_MHz`` (``nvidia-smi``'s SM clock while each runs),
     ``gather_Mtaps_s`` (8M ``torch.take`` reads of a 380x456 table),
     ``exp_Gops`` and ``rsqrt_Gops`` (640 dependent ``expf`` / ``rsqrtf`` an
     element), ``l1_GBps`` (four-byte loads of a 16 KB table, 16K a thread,
@@ -270,9 +289,16 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
 
     n = 4 << 20
     x, b, c = uniform(n, 0.5, 1.5), uniform(n, 0.9, 0.900001), uniform(n, 0.0, 0.1)
-    fma = _create_jit_fn(_FMA_CHAIN)
-    ms = kernel_ms(lambda: fma(x, b, c), n=10)[0]
-    vpu = n * 2048 * 2.0 / (ms * 1e-3) / 1e9
+    vpu, clock = {}, {}
+    for name, src in (("one chain", _FMA_CHAIN), ("chains", _FMA_CHAINS)):
+        fma = _create_jit_fn(src)
+        ms = kernel_ms(lambda: fma(x, b, c), n=10)[0]
+        vpu[name] = n * 2048 * 2.0 / (ms * 1e-3) / 1e9
+        # the SM clock while the chain runs: ~0.5 s of calls queued, then read
+        for _ in range(max(1, int(500 / ms))):
+            fma(x, b, c)
+        clock[name] = _sm_clock_mhz(device)
+        torch.cuda.synchronize(device)
 
     y = uniform(n, -0.1, 0.0)
     ex = _create_jit_fn(_EXP_CHAIN)
@@ -301,7 +327,9 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
         cu_stream), "gqmap_l1_load_f32"), n=10)[0]
     l1 = l1_out.numel() * iters * 16 * 4 / (ms * 1e-3) / 1e9
 
-    return dict(roundtrip_ms=roundtrip * 1e3, hbm_stream_GBps=stream, vpu_GFLOPs=vpu,
+    return dict(roundtrip_ms=roundtrip * 1e3, hbm_stream_GBps=stream,
+                vpu_GFLOPs=vpu["chains"], vpu_1chain_GFLOPs=vpu["one chain"],
+                fma_sm_clock_MHz=clock["chains"], fma_1chain_sm_clock_MHz=clock["one chain"],
                 gather_Mtaps_s=gather, exp_Gops=exp_rate, rsqrt_Gops=rsqrt_rate, l1_GBps=l1,
                 card=card_line(device))
 

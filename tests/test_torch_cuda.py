@@ -486,12 +486,14 @@ def test_measure_ceilings_on_the_card(dev):
     from gqmap_tpu_torch.kernels import roofline
 
     ceil = roofline.measure_ceilings(device=dev)
-    rates = ("hbm_stream_GBps", "vpu_GFLOPs", "gather_Mtaps_s", "exp_Gops", "rsqrt_Gops",
-             "l1_GBps")
+    rates = ("hbm_stream_GBps", "vpu_GFLOPs", "vpu_1chain_GFLOPs", "gather_Mtaps_s",
+             "exp_Gops", "rsqrt_Gops", "l1_GBps", "fma_sm_clock_MHz", "fma_1chain_sm_clock_MHz")
     assert all(np.isfinite(ceil[k]) and ceil[k] > 0 for k in rates + ("roundtrip_ms",)), ceil
-    # no measured rate above the data sheet's
+    # no measured rate above the data sheet's; independent chains at least as
+    # fast as one dependent chain
     sheet = roofline.datasheet_rates()
     assert ceil["hbm_stream_GBps"] * 1e9 <= sheet["bytes"], ceil
+    assert ceil["vpu_1chain_GFLOPs"] <= ceil["vpu_GFLOPs"] * 1.02, ceil
     assert ceil["vpu_GFLOPs"] * 1e9 <= sheet["flops"], ceil
     assert ceil["rsqrt_Gops"] * 1e9 <= sheet["roots"], ceil
     assert ceil["card"] and "W" in ceil["card"]
@@ -636,16 +638,17 @@ def _k4_inputs(dev, dtype, L, patch, shape, probe):
     return (I1.to(dev, dtype), pad_cubic(I1.roll(1, 1).to(dev, dtype)), *st)
 
 
+@pytest.mark.parametrize("variant", node_gq.VARIANTS)
 @pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", list(K4_CASES))
-def test_node_gq_kernel_matches_plain(dev, case, dtype, probe):
+def test_node_gq_kernel_matches_plain(dev, case, dtype, probe, variant):
     # float64 within 1e-10 of each sum's largest magnitude; float32 held to
     # the f64 golden on the same inputs (ratio rule)
     L, K, patch, shape = K4_CASES[case]
     args = _k4_inputs(dev, dtype, L, patch, shape, probe)
     n = node_gq.node_gq_cuda.launches
-    got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch)
+    got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch, variant=variant)
     torch.cuda.synchronize()
     assert node_gq.node_gq_cuda.launches == n + 1
     plain = node_gq.node_gq_torch(*args, K, 1.0, 1e-6, patch=patch, quad_chunk=27)
@@ -658,15 +661,17 @@ def test_node_gq_kernel_matches_plain(dev, case, dtype, probe):
         _ratio_to_golden(got, plain, gold)
 
 
+@pytest.mark.parametrize("variant", node_gq.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["full_mixture", "super_entropy"])
-def test_node_gq_kernel_nan_probe(dev, case, dtype):
+def test_node_gq_kernel_nan_probe(dev, case, dtype, variant):
     # NaN means, sigmas and correlations at a few sites: NaN exactly there in
     # the kernel and its plain version (D3), every other site as the NaN-free
-    # call gives it, bit for bit; no read leaves the table
+    # call gives it, bit for bit; no read leaves the table (v2: a CTA with a
+    # NaN site reads through L1, the others from its window)
     L, K, patch, _ = K4_CASES[case]
     args = list(_k4_inputs(dev, dtype, L, patch, (64, 96), "converged"))
-    clean = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch)
+    clean = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch, variant=variant)
     _, M, N = args[2].shape
     sites = [(0, 1, 2), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
     mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
@@ -674,7 +679,7 @@ def test_node_gq_kernel_nan_probe(dev, case, dtype):
         args[field] = args[field].clone()
         args[field][site] = float("nan")
         mask[site] = True
-    got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch)
+    got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch, variant=variant)
     plain = node_gq.node_gq_torch(*args, K, 1.0, 1e-6, patch=patch)
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, clean):
@@ -682,22 +687,53 @@ def test_node_gq_kernel_nan_probe(dev, case, dtype):
         assert torch.equal(g[~mask], c[~mask])
 
 
+@pytest.mark.parametrize("variant", node_gq.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["full_mixture", "super_entropy"])
-def test_node_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype):
+def test_node_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype, variant):
     # frame 1 addressed at a shard's pixel origin: the block's sums are the
-    # whole lattice's there, bit for bit (the sharded sweep's K4 call)
+    # whole lattice's there, bit for bit (the sharded sweep's K4 call; v2's
+    # CTAs tile the block otherwise than the whole, at an odd offset too)
     L, K, patch, _ = K4_CASES[case]
     I1, VV, *st = _k4_inputs(dev, dtype, L, patch, (64, 96), "converged")
-    whole = node_gq.node_gq_cuda(I1, VV, *st, K, 1.0, 1e-6, patch=patch)
+    whole = node_gq.node_gq_cuda(I1, VV, *st, K, 1.0, 1e-6, patch=patch, variant=variant)
     _, M, N = st[0].shape
-    for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3)):
+    for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3),
+                         (3, 5, M - 6, N - 7)):
         blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
         got = node_gq.node_gq_cuda(I1, VV, *(x[blk].contiguous() for x in st), K, 1.0, 1e-6,
                                    patch=patch, origin=(r0 * patch, c0 * patch),
-                                   local_image_shape=(m * patch, n * patch))
+                                   local_image_shape=(m * patch, n * patch), variant=variant)
         for g, w in zip(got, whole):
             assert torch.equal(g, w[blk])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["full_mixture", "super_entropy", "ctf_level"])
+def test_node_gq_v2_window_route_and_l1_route_agree(dev, case, dtype):
+    # v2's sites read the table from their CTA's shared-memory window, or
+    # through L1 where a site's own box exceeds the budget: none on the
+    # converged probe at the main shapes, every one (and every CTA without a
+    # window) on a probe with sigma ~ 40 px and with a budget of 0; the sums
+    # are the same bit for bit on every route
+    L, K, patch, shape = K4_CASES[case]
+    sites = (L, shape[0] // patch, shape[1] // patch)
+    ctas, n_sites = node_gq.v2_ctas(sites, patch), L * sites[1] * sites[2]
+    for probe, wide in (("converged", False), ("init", True)):
+        args = list(_k4_inputs(dev, dtype, L, patch, shape, probe))
+        if wide:
+            args[4], args[5] = args[4] * 3.0, args[5] * 8.0
+        cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch, l1_counts=cnt)
+        every = torch.zeros(2, dtype=torch.int64, device=dev)
+        l1 = node_gq.node_gq_cuda(*args, K, 1.0, 1e-6, patch=patch, window_bytes=0,
+                                  l1_counts=every)
+        torch.cuda.synchronize()
+        want = [ctas, n_sites] if wide else [0, 0]
+        assert cnt.tolist() == want, (probe, cnt.tolist(), want)
+        assert every.tolist() == [ctas, n_sites]
+        for g, w in zip(got, l1):
+            assert torch.equal(g, w)
 
 
 def test_full_mixture_graph_segment_launches_k4(dev):

@@ -11,7 +11,16 @@ card, so its per-site loop is transcribed here in torch float64 step for
 step (its point order, the rule's 1-D values multiplied out, the
 NaN-keeping clamp and the cell of a NaN query, the row-by-row tap sum, the
 lanes of a site and their xor-shuffle tree) and held to JAX at the same
-tolerance: an algebra error shows here before any card run.
+tolerance: an algebra error shows here before any card run. The kernel's
+second variant, ``"v2"``, is transcribed the same way (``k4_v2_transcribed``:
+the rule's per-point constant table, lanes over points, the displacement
+and the cubic weights once a point with the 0.25 in the y weights, the
+border test on global coordinates, the separable (patch + 3)^2 window
+and the block total, v1's per-pixel sample where the test fails or the
+query is NaN, the xor tree) and held to JAX at 1e-10 in every case, at the
+rho clamp, on NaN queries and on super-lattice blocks that straddle the
+clamp on each side of the frame; the window in shared memory holds the
+table's own values, so the transcription reads the table.
 """
 
 import math
@@ -41,10 +50,13 @@ CASES = {
     "ctf_level K=11 L=1": (11, 1, 1, (12, 16), None, None),
     "shard block patch=1": (9, 2, 1, (16, 20), (4, 8), (8, 8)),
     "shard block patch=4": (11, 1, 4, (24, 32), (8, 16), (16, 12)),
+    "super blocks straddle the border": (11, 2, 4, (16, 24), None, None),
 }
+STRADDLE = "super blocks straddle the border"
+VERSIONS = ["plain", "kernel transcribed", "v2 transcribed"]
 
 
-def _inputs(K, L, patch, shape, local, rho=0.9, seed=0):
+def _inputs(K, L, patch, shape, local, rho=0.9, seed=0, straddle=False):
     """Frames (smooth noise in [0, 255]), VV = pad_cubic(I2), and a state on
     the lattice of the covered block whose queries also leave the frame."""
     r = np.random.default_rng(seed + 7 * K + L)
@@ -56,6 +68,13 @@ def _inputs(K, L, patch, shape, local, rho=0.9, seed=0):
     st = dict(muu=r.normal(0, 3, site), muv=r.normal(0, 3, site),
               su=r.uniform(0.05, 3, site), sv=r.uniform(0.05, 3, site),
               pn=r.uniform(-rho, rho, site))
+    if straddle:
+        # narrow sigmas, and the edge blocks' means half a block off the
+        # frame: their pixels straddle the clamp on the left, right, top and
+        # bottom (the first pixel clamped, the last not, or the reverse)
+        st["su"], st["sv"] = r.uniform(0.02, 0.3, site), r.uniform(0.02, 0.3, site)
+        st["muu"][:, :, 0], st["muu"][:, :, -1] = -0.55 * patch, 0.55 * patch
+        st["muv"][:, 0, :], st["muv"][:, -1, :] = -0.55 * patch, 0.55 * patch
     return I1, VV, st
 
 
@@ -165,24 +184,139 @@ def k4_transcribed(I1, VV, muu, muv, su, sv, pn, K, lam, eps, patch=1, origin=No
                  nl * sx2m, nl * sxixj)
 
 
+def _quarter_weights(f):
+    return (((0.5 - 0.25 * f) * f - 0.25) * f, (0.75 * f - 1.25) * f * f + 0.5,
+            ((1.0 - 0.75 * f) * f + 0.25) * f, (0.25 * f - 0.25) * f * f)
+
+
+def k4_v2_transcribed(I1, VV, muu, muv, su, sv, pn, K, lam, eps, patch=1, origin=None):
+    """``node_gq_v2_kernel`` of ``csrc/node_gq.cu``: the per-point constant
+    table, lane ``g`` of each site's ``G`` lanes over the points ``g, g + G,
+    ...``; per point one displacement, floor, fraction and weight set; where
+    the border test holds, the block's (P + 3)^2 window row by row (each
+    window row's taps against the x weights for every pixel column, then
+    each pixel row's four window rows against the quarter y weights) and the
+    block total; elsewhere v1's per-pixel sample; the six sums on ``w_i w_j
+    F``, the xor tree, lane 0 writes."""
+    L, M, N = muu.shape
+    P = patch
+    G = node_gq.v2_tile(P)[0]
+    rule = node_gq.node_rule(K)
+    x, w = rule[:K].tolist(), rule[K:].tolist()
+    pts = [(x[i], x[j], w[i] * w[j], x[i] * x[j], x[i] * x[i] + x[j] * x[j] - 1.0,
+            x[i] * x[i] - x[j] * x[j]) for j in range(K) for i in range(K)]
+    M2, N2 = VV.shape
+    Nf, Mf = N2 - 2, M2 - 2
+    r0, c0 = (0, 0) if origin is None else origin
+    flat = VV.reshape(-1)
+    sp, sm = torch.sqrt(1.0 + pn), torch.sqrt(1.0 - pn)
+    s, tt = (sp + sm) * 0.5, (sp - sm) * 0.5
+    A1, B1, A2, B2 = su * SQRT2 * s, su * SQRT2 * tt, sv * SQRT2 * tt, sv * SQRT2 * s
+    rows0 = (r0 + torch.arange(M) * P).reshape(M, 1)
+    cols0 = (c0 + torch.arange(N) * P).reshape(1, N)
+    jj0, ii0 = (cols0 + 1).to(muu.dtype), (rows0 + 1).to(muu.dtype)
+    i1 = [I1[rows0 + q // P, cols0 + q % P] for q in range(P * P)]
+    lanes = []
+    for g in range(G):
+        acc = [torch.zeros_like(muu) for _ in range(6)]
+        for p in range(g, K * K, G):
+            xi, xj, wij, xixj, ca, cm = pts[p]
+            x1 = A1 * xi + (B1 * xj + muu)
+            x2 = A2 * xi + (B2 * xj + muv)
+            X0, Y0 = jj0 + x1, ii0 + x2
+            fx, fy = torch.floor(X0), torch.floor(Y0)
+            shared = (X0 >= 1) & (fx <= Nf - P) & (Y0 >= 1) & (fy <= Mf - P)
+            wx, wy = _cubic_weights(X0 - fx), _quarter_weights(Y0 - fy)
+            ix = torch.where(shared, fx, 1.0).long()  # any cell in the table where unused
+            iy = torch.where(shared, fy, 1.0).long()
+            base = (iy - 1) * N2 + (ix - 1)
+            V = [[None] * P for _ in range(P)]
+            for r in range(P + 3):
+                tp = [flat[base + r * N2 + k] for k in range(P + 3)]
+                for b in range(P):
+                    h = wx[0] * tp[b]
+                    for k in range(1, 4):
+                        h = h + wx[k] * tp[b + k]
+                    for a in range(P):
+                        if r == a:
+                            V[a][b] = wy[0] * h
+                        elif a < r < a + 4:
+                            V[a][b] = V[a][b] + wy[r - a] * h
+            F_shared = torch.zeros_like(muu)
+            for q in range(P * P):
+                d = i1[q] - V[q // P][q % P]
+                F_shared = F_shared + torch.sqrt(eps + d * d)
+            F_pixels = torch.zeros_like(muu)
+            for q in range(P * P):
+                a, b = divmod(q, P)
+                Vq = _sample(flat, N2, (jj0 + b) + x1, (ii0 + a) + x2, Nf, Mf)
+                d = i1[q] - Vq
+                F_pixels = F_pixels + torch.sqrt(eps + d * d)
+            fv = wij * torch.where(shared, F_shared, F_pixels)
+            for k, cst in enumerate((1.0, xi, xj, xixj, ca, cm)):
+                acc[k] = acc[k] + (fv if k == 0 else cst * fv)
+        lanes.append(acc)
+    off = G // 2
+    while off:
+        lanes = [[u + v for u, v in zip(lanes[g], lanes[g ^ off])] for g in range(G)]
+        off //= 2
+    e, sxi, sxj, sxixj, sx2a, sx2m = lanes[0]
+    nl = -lam
+    return GQRaw(nl * e, nl * (s * sxi + tt * sxj), nl * (tt * sxi + s * sxj), nl * sx2a,
+                 nl * sx2m, nl * sxixj)
+
+
+def _version_sums(version, args, K, patch=1, origin=None, local=None, quad_chunk=0):
+    if version == "plain":
+        return node_gq.node_gq_torch(*args, K, LAM, EPS, patch=patch, origin=origin,
+                                     local_image_shape=local, quad_chunk=quad_chunk)
+    fn = k4_transcribed if version == "kernel transcribed" else k4_v2_transcribed
+    return fn(*args, K, LAM, EPS, patch=patch, origin=origin)
+
+
 # ---- the tests ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("version", ["plain", "kernel transcribed"])
+@pytest.mark.parametrize("version", VERSIONS)
 @pytest.mark.parametrize("case", list(CASES))
 def test_node_sums_match_jax(case, version):
     K, L, patch, shape, origin, local = CASES[case]
-    I1, VV, st = _inputs(K, L, patch, shape, local)
+    I1, VV, st = _inputs(K, L, patch, shape, local, straddle=case == STRADDLE)
     want = _jax_sums(I1, VV, st, K, patch, origin, local)
-    args = _port_args(I1, VV, st)
-    if version == "plain":
-        got = node_gq.node_gq_torch(*args, K, LAM, EPS, patch=patch, origin=origin,
-                                    local_image_shape=local, quad_chunk=K)
-    else:
-        got = k4_transcribed(*args, K, LAM, EPS, patch=patch, origin=origin)
+    got = _version_sums(version, _port_args(I1, VV, st), K, patch, origin, local, quad_chunk=K)
     _assert_sums_match(got, want, st["muu"].shape)
 
 
-@pytest.mark.parametrize("version", ["plain", "kernel transcribed"])
+def test_straddle_case_takes_both_forms_on_every_side():
+    # the edge blocks of the straddle case: on each side of the frame a
+    # point's first pixel is clamped and its last is not (or the reverse), so
+    # v2's border test fails there (the per-pixel sample) and holds inside
+    K, L, patch, shape, _, _ = CASES[STRADDLE]
+    _, VV, st = _inputs(K, L, patch, shape, None, straddle=True)
+    Nf, Mf = VV.shape[1] - 2, VV.shape[0] - 2
+    x = node_gq.node_rule(K)[:K]
+    xi, xj = np.tile(x, K), np.repeat(x, K)
+    p = st["pn"][..., None]
+    sp, sm = np.sqrt(1 + p), np.sqrt(1 - p)
+    s, t = (sp + sm) / 2, (sp - sm) / 2
+    _, M, N = st["muu"].shape
+    X0 = (np.arange(N)[:, None] * patch + 1 + st["muu"][..., None]
+          + SQRT2 * st["su"][..., None] * (s * xi + t * xj))
+    Y0 = (np.arange(M)[:, None, None] * patch + 1 + st["muv"][..., None]
+          + SQRT2 * st["sv"][..., None] * (t * xi + s * xj))
+    last = patch - 1
+    for side, first_clamped, last_clamped in (
+            ("left", X0[:, :, 0] < 1, X0[:, :, 0] + last < 1),
+            ("right", X0[:, :, -1] > Nf, X0[:, :, -1] + last > Nf),
+            ("top", Y0[:, 0] < 1, Y0[:, 0] + last < 1),
+            ("bottom", Y0[:, -1] > Mf, Y0[:, -1] + last > Mf)):
+        assert (first_clamped != last_clamped).any(), side
+    shared = ((X0 >= 1) & (np.floor(X0) <= Nf - patch)
+              & (Y0 >= 1) & (np.floor(Y0) <= Mf - patch))
+    assert shared.any() and not shared[:, :, 0].all() and not shared[:, :, -1].all()
+    assert not shared[:, 0].all() and not shared[:, -1].all()
+
+
+@pytest.mark.parametrize("version", VERSIONS)
 def test_node_sums_at_the_rho_clamp_match_jax(version):
     # |rho| = 1 - 1e-5, the corr_tor corner: t ~ s, the whitened points
     # collapse onto the diagonal
@@ -190,27 +324,47 @@ def test_node_sums_at_the_rho_clamp_match_jax(version):
     I1, VV, st = _inputs(K, L, patch, shape, None)
     st["pn"] = 0.99999 * np.sign(st["pn"])
     want = _jax_sums(I1, VV, st, K, patch, None, None)
-    args = _port_args(I1, VV, st)
-    got = (node_gq.node_gq_torch(*args, K, LAM, EPS) if version == "plain"
-           else k4_transcribed(*args, K, LAM, EPS))
+    got = _version_sums(version, _port_args(I1, VV, st), K)
     _assert_sums_match(got, want, st["muu"].shape)
 
 
-@pytest.mark.parametrize("version", ["plain", "kernel transcribed"])
+@pytest.mark.parametrize("version", VERSIONS)
 @pytest.mark.parametrize("field", ["muu", "muv", "su", "pn"])
 def test_nan_query_gives_nan_where_jax_does(field, version):
     # a NaN mean, sigma or correlation at one site: every sum of that site is
     # NaN in both engines (at patch 4 too: only its own block), the others
-    # agree; the kernel's clamp keeps the NaN and reads the table at (1, 1)
+    # agree; the kernel's clamp keeps the NaN and reads the table at (1, 1),
+    # and v2's border test fails a NaN query by comparison
     K, L, patch, shape, _, _ = CASES["super_entropy K=11 patch=4"]
     I1, VV, st = _inputs(K, L, patch, shape, None)
     st[field][1, 2, 3] = np.nan
     want = _jax_sums(I1, VV, st, K, patch, None, None)
     assert np.isnan(np.asarray(want.Ei)).sum() == 1
-    args = _port_args(I1, VV, st)
-    got = (node_gq.node_gq_torch(*args, K, LAM, EPS, patch=patch) if version == "plain"
-           else k4_transcribed(*args, K, LAM, EPS, patch=patch))
+    got = _version_sums(version, _port_args(I1, VV, st), K, patch)
     _assert_sums_match(got, want, st["muu"].shape)
+
+
+@pytest.mark.parametrize("K, patch, want", [(9, 1, "v2"), (11, 4, "v2"), (16, 1, "v2"),
+                                            (17, 1, "v1"), (9, 3, "v1"), (5, 2, "v1")])
+def test_default_variant_is_v2_where_it_is_compiled(K, patch, want):
+    assert node_gq.resolve_variant(None, K, patch) == want
+    assert node_gq.resolve_variant("v1", K, patch) == "v1"
+    if want == "v1":
+        with pytest.raises(ValueError, match="v2"):
+            node_gq.resolve_variant("v2", K, patch)
+    with pytest.raises(ValueError, match="unknown"):
+        node_gq.resolve_variant("v3", K, patch)
+
+
+def test_v2_tiles_and_window_budget():
+    # 256 lanes a CTA: 4 lanes on 8 x 8 sites, 16 on 4 x 4 super sites; the
+    # rule table (K^2 points of 8 values) and the window share 44 KB
+    for patch, (G, TR, TC) in ((1, (4, 8, 8)), (4, (16, 4, 4))):
+        assert node_gq.v2_tile(patch) == (G, TR, TC) and G * TR * TC == 256
+    assert node_gq.v2_ctas((3, 376, 452), 1) == 3 * 47 * 57
+    assert node_gq.v2_ctas((3, 94, 113), 4) == 3 * 24 * 29
+    assert node_gq.window_budget(11, torch.float32) == 44 * 1024 - 121 * 32
+    assert node_gq.window_budget(9, torch.float64) == 44 * 1024 - 81 * 64
 
 
 @pytest.mark.parametrize("patch, G", [(1, 1), (2, 4), (3, 8), (4, 16), (6, 32), (8, 32)])
