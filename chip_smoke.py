@@ -14,7 +14,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    and epilogue included), of K4 v1's innermost loop per sample and of K4
    v2's shared-memory point loop per point (patch 1 at K = 9, patch 4 at
    K = 11; the shared form, the per-pixel fallback being a function of its
-   own), with each one's MUFU.RSQ count, which give each kernel's issue
+   own) and of K5's u-degree loop per lane and a-step (its Q = 16 and 32
+   instances), with each one's MUFU.RSQ count, which give each kernel's issue
    bound at 132 SMs x 128 lanes x the card's maximum SM clock; then the
    card's ceilings (``roofline.measure_ceilings``: memory stream, float32
    FMA chains (8 independent a thread, and one, with the SM clock read while
@@ -91,6 +92,23 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    would give v1's 16 taps a sample; at the converged probe v2 must take at
    most half of v1's time at ``super_entropy`` and no more than v1's at the
    two others;
+6c. K5 (the Chebyshev series' node quadrature's raw sums) against its plain
+   version on the coefficient fields ``make_problem`` builds for the Stein
+   Chebyshev paths: ``full_mixture(data_term="chebyshev", cheb_p=96,
+   cheb_q=16)`` and ``tpu_fast(data_term="chebyshev")`` (64 x 16) on
+   (3, 376, 452) sites at K = 9, ``super_entropy`` at 96 x 16 on the
+   (3, 94, 113) lattice of 4x4 blocks at K = 11; from the init, the
+   sigma = 0.05 state and the |rho| clamp: float64 within 1e-10 of each
+   sum's largest magnitude, float32 against the f64 golden on the same
+   field (ratio rule, the floor of phase 6); a shard's blocks (the (2, 2)
+   mesh's at ``full_mixture``, one at odd offsets on the others) bit for bit
+   the whole lattice's; NaN means, sigmas and correlations at a few sites:
+   NaN exactly there in both versions, every other site bit for bit the
+   NaN-free call's; its time converged and from init, the plain version's,
+   the plain version's ``torch.bmm`` calls alone (the contraction only, on
+   its site-major blocks with a basis made beforehand), the bound
+   (``roofline.k5_work`` at the data sheet's and the measured rates) and
+   the SASS issue bound;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -200,25 +218,27 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    sweep in float32 (the same rule), K2 with its halo on each rank's padded
    block against its padded plain version in both types, each rank's launch
    counters (K1 = K2 = sweeps on ``tpu_fast``, twice on red-black, K3 = K4 =
-   sweeps on ``full_mixture``); the ``full_mixture`` sweep's state fields
-   equal the single-process sweep's bit for bit in both types (K4 and K3 on
-   both sides); a 300-sweep ``solve(mesh=...)`` of
+   sweeps on ``full_mixture``, K5 = K3 = sweeps on the Chebyshev
+   ``full_mixture``, 96 x 16); the two ``full_mixture`` sweeps' state fields
+   equal the single-process sweep's bit for bit in both types (K4 or K5, and
+   K3 on both sides); a 300-sweep ``solve(mesh=...)`` of
    ``tpu_fast`` (AEPE falls, the same result on every rank, final AEPE
    within 10% of phase 5's single-process solve at it = 300; its wall time,
    4 ranks time-sliced on one card, is printed and is no multi-GPU speed),
    and the command line's one JSON line, from rank 0. A failed rank fails
    the run;
-25. the Chebyshev data term (``data_term="chebyshev"``, plain torch, as the
-   JAX package has it in XLA): one 376x452 sweep three ways of
-   ``full_mixture(quad_chunk=27, cheb_p=96, cheb_q=16)`` through K3 and of
-   ``tpu_fast(data_term="chebyshev")`` through K2, from the init and the
-   sigma = 0.05 states (the phase 4 rule), each kernel arm's launches, ms a
-   sweep, node term and peak memory;
+25. the Chebyshev data term (``data_term="chebyshev"``, its node term
+   through K5 where the JAX package runs an XLA scan): one 376x452 sweep
+   three ways of ``full_mixture(quad_chunk=27, cheb_p=96, cheb_q=16)``
+   through K5 and K3 and of ``tpu_fast(data_term="chebyshev")`` through K5
+   and K2, from the init and the sigma = 0.05 states (the phase 4 rule;
+   the plain arms plain on both terms), each kernel arm's launches, ms a
+   sweep, node term (K5 and its plain version) and peak memory;
 26. a ``full_mixture`` Chebyshev solve through ``solve`` (300 sweeps, a
    readout every 100; 100 and 50 where a sweep takes more than 0.1 s) with
    every launch counter set to 0 just before it: finite energy, the AEPE at
-   the end below that at it = 1, K3 once a sweep, K1 and K2 not at all; its
-   peak memory;
+   the end below that at it = 1, K3 and K5 once a sweep, K1, K2 and K4 not
+   at all; its peak memory;
 27. the roofline harness at 376x452 on the measured ceilings:
    ``flagship_roofline`` (K1 alone in "v1" against its operation, exp and
    memory bounds; the ``tpu_fast`` sweep in a 300-sweep segment) and
@@ -235,9 +255,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    captured as a CUDA graph and replayed, ``(n, stop)`` read every ``POLL``
    sweeps) against its host loop (``_route="host"``) at 376x452 f32 on
    ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
-   ``tpu_fast_super`` and ``super_entropy``: the route is ``"graph"``; from
-   the init (300 sweeps) and the sigma = 0.05 state (300; 100 on the two
-   slow paths) the final state, the sweep count, the three traces and the
+   ``tpu_fast_super``, ``super_entropy``, ``ctf_level`` and the Chebyshev
+   ``full_mixture``: the route is ``"graph"``; from the init (300 sweeps)
+   and the sigma = 0.05 state (300; 100 on the K4 and K5 paths) the final
+   state, the sweep count, the three traces and the
    flag are the host loop's bit for bit, with the same launch counts and
    one read a window; each runner's ms a sweep by CUDA events, the capture's
    seconds and the capturing call's peak and reserved memory above what
@@ -246,8 +267,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the converged ``tpu_fast`` and ``tpu_fast_super`` segments' ms a sweep
    at each POLL of ``GRAPH_POLLS``; then 3 sweeps of every other
    single-process configuration (``legacy_v1``-``v3``, autodiff,
-   ``blockmatch_v2``, windowed ``tpu_fast``, ``ctf_level``, both Chebyshev
-   presets, ``tpu_fast`` in float64), graph against host loop bit for bit.
+   ``blockmatch_v2``, windowed ``tpu_fast``, the Chebyshev ``tpu_fast``,
+   ``tpu_fast`` in float64), graph against host loop bit for bit.
    Every other segment and solve of the script (single process) runs the
    graph route too;
 31. last, since the profiler's hooks may stay in the process: one
@@ -258,7 +279,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
-K3 and K4; ``launches_by_path`` every path's, the drivers', ``ctf``'s and the
+K3 and K4, the Chebyshev ``full_mixture`` solve for K5; ``launches_by_path``
+every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
 ``super`` the checks, times and bounds on the super lattice, ``legacy``
@@ -282,6 +304,7 @@ import time
 import numpy as np
 import torch
 
+from gqmap_tpu_torch.config import GQMAPConfig
 from gqmap_tpu_torch.kernels import roofline
 from gqmap_tpu_torch.kernels.roofline import TIMING, kernel_ms
 
@@ -354,8 +377,8 @@ def sass_functions(text):
 def sass_loops(instrs, label_addr):
     """Every backward branch of one function: the instructions from its
     target label to the branch, and how many of them are
-    MUFU.EX2, MUFU.RSQ, device-memory loads (LDG) and shared-memory loads
-    (LDS)."""
+    MUFU.EX2, MUFU.RSQ, device-memory loads (LDG), shared-memory loads
+    (LDS) and float32 FMAs and multiplies (FFMA, FMUL)."""
     loops = []
     for addr, ins in instrs:
         m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
@@ -367,7 +390,8 @@ def sass_loops(instrs, label_addr):
                               ex2=sum("MUFU.EX2" in i for i in body_ins),
                               rsq=sum("MUFU.RSQ" in i for i in body_ins),
                               ldg=sum(bool(re.search(r"\bLDG\b", i)) for i in body_ins),
-                              lds=sum(bool(re.search(r"\bLDS\b", i)) for i in body_ins)))
+                              lds=sum(bool(re.search(r"\bLDS\b", i)) for i in body_ins),
+                              fmul=sum(bool(re.search(r"\bF(FMA|MUL)\b", i)) for i in body_ins)))
     return loops
 
 
@@ -412,6 +436,18 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         per[f"K4 v2 point P={P}"] = lp["instructions"] if lp else None
         per[f"K4 v2 rsq P={P}"] = lp["rsq"] if lp else None
         per[f"K4 v2 lds P={P}"] = lp["lds"] if lp else None
+    # K5: the u-degree loop of the instances for Q = 16 and 32 (the
+    # innermost loop holding an a-step: the fewest instructions among those
+    # with at least R (QB + 2) FFMA and FMUL, a row's QB - 1 products for each
+    # of its R samples, the two outer sums and the recurrence), per lane and
+    # a-step, and its 16-byte loads a step (QB / 4)
+    for QB, R in ((16, 4), (32, 2)):
+        lp = [x for x in sass_loops(*find(f"cheb_gq_kernelIfLi{QB}ELi{R}EE"))
+              if x["fmul"] >= R * (QB + 2)]
+        lp = min(lp, key=lambda x: x["instructions"]) if lp else None
+        steps = lp["fmul"] / (R * (QB + 2)) if lp else None
+        per[f"K5 a-step Q={QB}"] = lp["instructions"] / steps if lp else None
+        per[f"K5 lds a-step Q={QB}"] = lp["lds"] / steps if lp else None
     return per
 
 
@@ -773,6 +809,145 @@ def kernels_k4(dev, record, I1, I2, gather_Mtaps_s, issue_ms):
                         "bit the NaN-free call's")
 
 
+def kernels_k5(dev, record, issue_ms):
+    """Phase 6c: K5 (the Chebyshev series' node quadrature) against its
+    plain version (see the module docstring); fills ``record["K5"]``
+    (``full_mixture``'s 96 x 16 field: error, times and bounds; the other
+    shapes under their names). ``issue_ms(unit, work)``: the SASS issue
+    bound of ``work`` units."""
+    from gqmap_tpu_torch import FlowRange
+    from gqmap_tpu_torch.kernels import cheb_gq
+    from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.ops.chebyshev import _EVAL_CHUNK_ELEMS, _basis, site_major
+    from gqmap_tpu_torch.ops.cosine import no_tf32
+
+    log("phase kernels K5")
+    k5, plain = cheb_gq.cheb_gq_cuda, cheb_gq.cheb_gq_torch
+    I1, I2, _ = synthetic_pair()
+    fr = FlowRange(*FR)
+    cases = {  # the Stein paths' fields: (L, M, N) sites, P x Q degrees, K
+        "full_mixture": GQMAPConfig.full_mixture(quad_chunk=27, **CHEB),
+        "tpu_fast": GQMAPConfig.tpu_fast(data_term="chebyshev"),
+        "super_entropy": GQMAPConfig.super_entropy(**CHEB),
+    }
+
+    def sites(st, dtype):
+        return [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    def bmm_only(cheb, s5, K, quad_chunk):
+        """The plain version's ``torch.bmm`` calls of one evaluation alone,
+        on its site-major blocks with a basis made beforehand: the
+        contraction of the series, not the function."""
+        P, Q, M, N = cheb.coeffs.shape
+        cs = cheb.coeffs.permute(2, 3, 0, 1).reshape(M * N, P, Q)
+        chunk = quad_chunk if 0 < quad_chunk < K * K else K * K
+        S = chunk * s5[0].shape[0]
+        step = max(1, _EVAL_CHUNK_ELEMS // (S * P))
+        up = 2 * torch.rand((S, min(step, M * N)), device=dev, dtype=cs.dtype) - 1
+        Tu = _basis(up.T.contiguous(), P).permute(1, 2, 0)
+        calls = [(j, min(step, M * N - j)) for _ in range(-(-K * K // chunk))
+                 for j in range(0, M * N, step)]
+
+        def run():
+            with no_tf32():
+                for j, n in calls:
+                    torch.bmm(Tu[:n], cs[j:j + n])
+
+        return kernel_ms(run, n=5)[0], len(calls)
+
+    rec = record["K5"] = dict(library_ms=None, library_reason=(
+        "no single PyTorch call computes it: the plain version builds both bases, contracts them "
+        "with each site's block by torch.bmm and sums the six quadrature sums; bmm_only_ms times "
+        "its torch.bmm calls alone, the contraction only"))
+    for name, cfg in cases.items():
+        probs = {dt: pg.make_problem(dataclasses.replace(cfg, dtype=str(dt)[6:]), I1, I2, fr, dev)
+                 for dt in (torch.float64, torch.float32)}
+        probes = k4_probes(cfg, (H, W), dev)  # init, sigma = 0.05, the |rho| clamp
+        L, M, N = site_shape = tuple(probes["init"].muu.shape)
+        P, Q, K = cfg.cheb_p, cfg.cheb_q, cfg.K
+        R, G, rounds = cheb_gq.lanes(L, K, Q, torch.float32)
+        r5 = dict(shape=list(site_shape), K=K, P=P, Q=Q, patch=cfg.patch, lanes_a_site=G,
+                  samples_a_lane=R, rounds=rounds)
+        for dtype in (torch.float64, torch.float32):
+            cheb = probs[dtype].cheb
+            for sname, st in probes.items():
+                s5 = sites(st, dtype)
+                got = k5(cheb, *s5, K)
+                want = plain(cheb, *s5, K, quad_chunk=27)
+                a, r, ok = compare(got, want, dtype)
+                what = f"K5 {name} {site_shape} {P}x{Q} K={K} {str(dtype)[6:]} {sname}"
+                if dtype == torch.float64:
+                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                    continue
+                gold = plain(cheb._replace(coeffs=cheb.coeffs.double()),
+                             *(x.double() for x in s5), K, quad_chunk=27)
+                ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                require(ek <= 2.0 * ep + 1e-6,
+                        f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} + "
+                        f"1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                if sname == "clamp":
+                    continue
+                ms = kernel_ms(lambda: k5(cheb, *s5, K))
+                tag = "" if sname == "converged" else "init_"
+                r5[f"{tag}ms"], r5[f"{tag}ms_min"] = ms
+                if sname == "converged":
+                    r5["max_abs_err"] = a
+                    r5["plain_ms"] = time_ms(lambda: plain(cheb, *s5, K, quad_chunk=27), 3)
+                    r5["bmm_only_ms"], r5["bmm_calls"] = bmm_only(cheb, s5, K, 27)
+        r5.update(**bound(roofline.k5_work((M, N), K, P, Q, L)),
+                  sass_issue_ms=issue_ms(f"K5 a-step Q={cheb_gq.q_width(Q)}",
+                                         M * N * G * rounds * P))
+        if name == "full_mixture":
+            rec.update(r5)
+        else:
+            rec[name] = r5
+        log(f"  K5 {name} {site_shape} {P}x{Q} K={K} f32 on {smi('name,power.limit,clocks.sm')}: "
+            f"converged (median, min) ({r5['ms']:.4f}, {r5['ms_min']:.4f}) ms, init "
+            f"({r5['init_ms']:.4f}, {r5['init_ms_min']:.4f}) ms; plain {r5['plain_ms']:.4f} ms, "
+            f"its {r5['bmm_calls']} torch.bmm calls alone {r5['bmm_only_ms']:.4f} ms; "
+            f"{fmt_bound(r5)} ({r5['bound_terms_ms']}); SASS issue bound "
+            f"{r5['sass_issue_ms']:.4f} ms ({G} lanes a site, {R} samples a lane, {rounds} "
+            "round(s))")
+
+        # a shard's blocks (the (2, 2) mesh's four; on the super lattice one at
+        # odd offsets): the whole lattice's sums there, bit for bit
+        st = probes["converged"]
+        blocks = ([(r, c, M // 2, N // 2) for r in (0, M // 2) for c in (0, N // 2)]
+                  if name == "full_mixture" else [(3, 5, M - 6, N - 7)])
+        for dtype in (torch.float64, torch.float32):
+            cheb, s5 = probs[dtype].cheb, sites(st, dtype)
+            whole = k5(cheb, *s5, K)
+            for r0, c0, m, n in blocks:
+                blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+                block = cheb._replace(coeffs=site_major(cheb.coeffs[:, :, r0:r0 + m, c0:c0 + n]))
+                got = k5(block, *(x[blk].contiguous() for x in s5), K)
+                require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                        f"K5 {name} {str(dtype)[6:]} block of ({m}, {n}) sites at lattice "
+                        f"({r0}, {c0}): the whole lattice's sums there, bit for bit")
+            # NaN queries: NaN exactly at the sites with a NaN input, in both
+            # versions; every other site as the NaN-free call gives it
+            at = [(0, M // 4, N // 5), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
+            mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+            for site in at:
+                mask[site] = True
+            for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
+                s5[field] = s5[field].clone()
+                s5[field][site] = float("nan")
+            got = k5(cheb, *s5, K)
+            want = plain(cheb, *s5, K, quad_chunk=27)
+            torch.cuda.synchronize()
+            require(all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
+                        and torch.equal(g[~mask], c[~mask]) for g, w, c in zip(got, want, whole)),
+                    f"K5 {name} {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in the "
+                    "kernel and the plain version, every other site bit for bit the NaN-free "
+                    "call's")
+        del probs
+        torch.cuda.empty_cache()
+
+
 def flow_sequence(seed, dev, H=H, W=W):
     """An H x W pair with a smooth, non-constant flow: smoothed noise as
     frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
@@ -880,7 +1055,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         out, c = run_cli("cli run tpu_fast", ["run", *pre, *fast])
         got = last_json(out)
         n = got["iters"]
-        require(n == 600 and c == {"K1": n, "K2": n, "K3": 0, "K4": 0},
+        require(n == 600 and c == {"K1": n, "K2": n, "K3": 0, "K4": 0, "K5": 0},
                 f"run --preset tpu_fast: {n} sweeps (600 asked), launches {c}: K1 and K2 once a "
                 "sweep, K3 and K4 0")
         direct = solve(GQMAPConfig.tpu_fast(its=600, eval_every=300), seq.img1, seq.img2,
@@ -894,7 +1069,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         out, c = run_cli("cli run full_mixture",
                          ["run", *pre, "--its", "300", "--eval-every", "300"])
         n = last_json(out)["iters"]
-        require(n == 300 and c == {"K1": 0, "K2": 0, "K3": n, "K4": n},
+        require(n == 300 and c == {"K1": 0, "K2": 0, "K3": n, "K4": n, "K5": 0},
                 f"run (full_mixture): {n} sweeps (300 asked), launches {c}: K3 and K4 once a "
                 "sweep, K1 and K2 0")
         try:
@@ -959,7 +1134,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         peak = torch.cuda.max_memory_allocated() - base
         by_path["ctf"] = c = counts()
         sweeps = sum(lv.iters for lv in cres.levels)
-        require(c == {"K1": 0, "K2": 0, "K3": sweeps, "K4": sweeps},
+        require(c == {"K1": 0, "K2": 0, "K3": sweeps, "K4": sweeps, "K5": 0},
                 f"ctf: launches {c}: K3 and K4 equal to the levels' {sweeps} sweeps, K1 and K2 "
                 "0")
         require(all(np.isfinite(lv.Energy[:lv.iters]).all() for lv in cres.levels)
@@ -1008,7 +1183,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
             out, c = run_cli("cli ctf", ["ctf", "--seq", "Venus", "--preset", "ctf_level", "--its",
                                          "300", "--eval-every", "300", "--quiet"])
             got = last_json(out)
-            require(c["K1"] == c["K2"] == 0 and 0 < c["K3"] == c["K4"] <= 4 * 300
+            require(c["K1"] == c["K2"] == c["K5"] == 0 and 0 < c["K3"] == c["K4"] <= 4 * 300
                     and np.isfinite(got["aepe"]),
                     f"ctf subcommand on the PNG frames: AEPE {got['aepe']:.4f} (the zero flow's "
                     f"{zero_aepe:.4f}), launches {c}")
@@ -1021,7 +1196,8 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         sw = sweep_lambdas(scfg, I1, I2, gt, lambdas=grid, device=dev)
         by_path["sweep_lambdas"] = c = counts()
         log("  " + sw.summary().replace("\n", "; "))
-        require(sw.best_lambda in grid and c["K3"] == c["K4"] == 0 and c["K1"] == c["K2"] > 0,
+        require(sw.best_lambda in grid and c["K3"] == c["K4"] == c["K5"] == 0
+                and c["K1"] == c["K2"] > 0,
                 f"sweep_lambdas: best lambda {sw.best_lambda} of the grid, launches {c}")
         for lam, best in zip(grid, sw.best_aepe):
             want = solve(dataclasses.replace(scfg, lambdas=float(lam)), I1, I2, gt_flow=gt,
@@ -1033,7 +1209,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
             zero_counts()
             res = solve(scfg, s.img1, s.img2, gt_flow=s.gt_flow, device=dev)
             c = counts()
-            require(c == {"K1": res.iters, "K2": res.iters, "K3": 0, "K4": 0}
+            require(c == {"K1": res.iters, "K2": res.iters, "K3": 0, "K4": 0, "K5": 0}
                     and res.best_aepe < res.AEPE[0],
                     f"suite {name}: best AEPE {res.best_aepe:.4f} below it=1's {res.AEPE[0]:.4f}, "
                     f"launches {c}")
@@ -1080,21 +1256,31 @@ def drivers(dev, record, by_path, kfns, segment_ms):
 
 SHARDED_MESH = (1, 2, 2)  # (dp, x, y): 4 ranks of 188 x 226 sites at 376 x 452
 SHARDED_SOLVE_ITS = 300
+CHEB = dict(data_term="chebyshev", cheb_p=96, cheb_q=16)  # sweep_roofline's degrees
+
+
+# the sharded phase's sweeps, each (2, 2)-sharded and single-process:
+# make_cfg(dtype=...)
+SHARDED_PATHS = {
+    "tpu_fast": GQMAPConfig.tpu_fast,
+    "full_mixture": functools.partial(GQMAPConfig.full_mixture, quad_chunk=27),
+    "tpu_fast redblack": functools.partial(GQMAPConfig.tpu_fast, sweep_order="redblack"),
+    "full_mixture chebyshev": functools.partial(GQMAPConfig.full_mixture, quad_chunk=27, **CHEB),
+}
 
 
 def rank_main(rank, world, port, out_dir):
     """One rank of the sharded phase (``--rank``): every rank on ``cuda:0``.
     With ``world`` 1 the rank runs over NCCL and checks that its sharded
     ``tpu_fast`` sweep equals ``make_sweep``'s bit for bit; with 4 (gloo: the
-    ranks share the card) it runs one ``tpu_fast``, ``full_mixture`` and
-    red-black ``tpu_fast`` sweep on its 188 x 226 block (rank 0 writes the
-    gathered states), K2's padded call against its padded plain version,
+    ranks share the card) it runs one sweep of each of :data:`SHARDED_PATHS`
+    on its 188 x 226 block (rank 0 writes the gathered states), K2's padded call against its padded plain version,
     and a 300-sweep ``solve(mesh=...)``, each with the launch counters set to
     0 just before it and read just after. Writes ``rank<r>.json``."""
     import torch.distributed as tdist
 
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
-    from gqmap_tpu_torch.kernels import cosine_gq, edge_gq, edge_reduced_gq, node_gq
+    from gqmap_tpu_torch.kernels import cheb_gq, cosine_gq, edge_gq, edge_reduced_gq, node_gq
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import EDGE
     from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
@@ -1106,7 +1292,8 @@ def rank_main(rank, world, port, out_dir):
     n = initialize(f"localhost:{port}", world, rank)
     dev = torch.device("cuda", torch.cuda.current_device())
     kfns = {"K1": cosine_gq.cos_mode_sums_cuda, "K2": edge_reduced_gq.edge_reduced_grads_cuda,
-            "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda}
+            "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda,
+            "K5": cheb_gq.cheb_gq_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -1138,11 +1325,7 @@ def rank_main(rank, world, port, out_dir):
         check(same, "NCCL rank: the sharded tpu_fast sweep equals make_sweep's, bit for bit")
     else:
         mesh = Mesh(*SHARDED_MESH, rank=rank)
-        for path, make_cfg in (("tpu_fast", GQMAPConfig.tpu_fast),
-                               ("full_mixture", lambda **kw: GQMAPConfig.full_mixture(
-                                   quad_chunk=27, **kw)),
-                               ("tpu_fast redblack", lambda **kw: GQMAPConfig.tpu_fast(
-                                   sweep_order="redblack", **kw))):
+        for path, make_cfg in SHARDED_PATHS.items():
             for dtype in ("float64", "float32") if path != "tpu_fast redblack" else ("float32",):
                 cfg = make_cfg(dtype=dtype)
                 whole = pg.make_problem(cfg, I1, I2, fr, dev)
@@ -1197,7 +1380,7 @@ def sharded(dev, record, by_path, st64, single_aepe):
     A failed rank fails the run."""
     import socket
 
-    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch import FlowRange
     from gqmap_tpu_torch.io.flo import write_flo
     from gqmap_tpu_torch.kernels import build
     from gqmap_tpu_torch.models import gqmap as pg
@@ -1238,11 +1421,7 @@ def sharded(dev, record, by_path, st64, single_aepe):
         try:
             # the single-process sweeps on the card, while the ranks start
             gold = {}
-            for path, make_cfg in (("tpu_fast", GQMAPConfig.tpu_fast),
-                                   ("full_mixture", lambda **kw: GQMAPConfig.full_mixture(
-                                       quad_chunk=27, **kw)),
-                                   ("tpu_fast redblack", lambda **kw: GQMAPConfig.tpu_fast(
-                                       sweep_order="redblack", **kw))):
+            for path, make_cfg in SHARDED_PATHS.items():
                 for dtype in ("float64", "float32"):
                     cfg = make_cfg(dtype=dtype)
                     prob = pg.make_problem(cfg, I1, I2, fr, dev)
@@ -1287,14 +1466,14 @@ def sharded(dev, record, by_path, st64, single_aepe):
                     "one card")
         # the (2, 2) sweeps against the single-process sweeps on the card
         fields = ("muu", "muv", "sigmau", "sigmav", "pn", "rou", "w")
-        for path in ("tpu_fast", "full_mixture", "tpu_fast redblack"):
+        for path in SHARDED_PATHS:
             g64 = gold[path, "float64"][0]
             for dtype in ("float64", "float32"):
                 f = os.path.join(d, f"{path} {dtype}.pt")
                 if not os.path.exists(f):
                     continue
                 sh = torch.load(f)
-                if path == "full_mixture":  # K4 and K3 per site: the block is the whole's
+                if path.startswith("full_mixture"):  # K4 or K5, K3: per site, the whole's
                     g = gold[path, dtype][0]
                     same = all(torch.equal(sh[k].to(dev), getattr(g, k)) for k in fields[:6])
                     require(same, f"sharded {path} (2, 2) {dtype} sweep: the state fields equal "
@@ -1318,13 +1497,16 @@ def sharded(dev, record, by_path, st64, single_aepe):
                         f"<= 2 x the single-process f32 sweep's {e_1:.3e}; largest difference "
                         f"from the single-process f32 sweep {big:.3e}")
         per_rank = [recs.get(f"rank {r}", {}).get("launches", {}) for r in range(4)]
-        want = {"tpu_fast sharded sweep float64": {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
-                "tpu_fast sharded sweep float32": {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
-                "full_mixture sharded sweep float64": {"K1": 0, "K2": 0, "K3": 1, "K4": 1},
-                "full_mixture sharded sweep float32": {"K1": 0, "K2": 0, "K3": 1, "K4": 1},
-                "tpu_fast redblack sharded sweep float32": {"K1": 2, "K2": 2, "K3": 0, "K4": 0},
-                "tpu_fast sharded solve": {"K1": SHARDED_SOLVE_ITS, "K2": SHARDED_SOLVE_ITS,
-                                           "K3": 0, "K4": 0}}
+        fast, exact, cheb = ({"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0},
+                             {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 0},
+                             {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 1})
+        want = {"tpu_fast sharded sweep float64": fast, "tpu_fast sharded sweep float32": fast,
+                "full_mixture sharded sweep float64": exact,
+                "full_mixture sharded sweep float32": exact,
+                "tpu_fast redblack sharded sweep float32": {k: 2 * v for k, v in fast.items()},
+                "full_mixture chebyshev sharded sweep float64": cheb,
+                "full_mixture chebyshev sharded sweep float32": cheb,
+                "tpu_fast sharded solve": {k: SHARDED_SOLVE_ITS * v for k, v in fast.items()}}
         for path, w in want.items():
             got = [c.get(path) for c in per_rank]
             require(all(g == w for g in got), f"sharded {path}: each rank's launch counters "
@@ -1363,24 +1545,23 @@ def sharded(dev, record, by_path, st64, single_aepe):
     log(f"  phase sharded {time.time() - t_phase:.1f} s")
 
 
-CHEB = dict(data_term="chebyshev", cheb_p=96, cheb_q=16)  # sweep_roofline's degrees
 D4_RUNS = 5
 
 
 def chebyshev(dev, record, by_path, kfns, st64, cast):
     """Phases 25-26: the Chebyshev data term. One 376x452 sweep of
     ``full_mixture(quad_chunk=27, data_term="chebyshev", cheb_p=96,
-    cheb_q=16)`` (through K3) and of ``tpu_fast(data_term="chebyshev")``
-    (through K2) three ways, from the init and the sigma = 0.05 states, with
-    each kernel arm's launches, ms a sweep and node term; then a ``full_mixture``
-    Chebyshev solve (300 sweeps, a readout every 100; 100 and 50 where a
-    sweep takes more than 0.1 s) with its launch counters set to 0 just
-    before it: finite energy, the AEPE at the end below that at it = 1, K3
-    once a sweep and K1 and K2 not at all, and its peak memory."""
+    cheb_q=16)`` (through K5 and K3) and of ``tpu_fast(data_term="chebyshev")``
+    (through K5 and K2) three ways, from the init and the sigma = 0.05
+    states, with each kernel arm's launches, ms a sweep, node term (K5 and
+    its plain version) and peak memory; then a ``full_mixture`` Chebyshev
+    solve (300 sweeps, a readout every 100; 100 and 50 where a sweep takes
+    more than 0.1 s) with its launch counters set to 0 just before it: finite
+    energy, the AEPE at the end below that at it = 1, K3 and K5 once a sweep
+    and K1, K2 and K4 not at all, and its peak memory."""
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
+    from gqmap_tpu_torch.kernels import cheb_gq
     from gqmap_tpu_torch.models import gqmap as pg
-    from gqmap_tpu_torch.ops.gq import gq_accumulate
-    from gqmap_tpu_torch.ops.quadrature import build_table
 
     def counts():
         torch.cuda.synchronize()
@@ -1407,15 +1588,16 @@ def chebyshev(dev, record, by_path, kfns, st64, cast):
         t_build = time.time() - t
         build_peak = torch.cuda.max_memory_allocated() - base
         probs = {torch.float32: p32, torch.float64: pg.make_problem(c64, I1, I2, fr, dev)}
-        kern = pg.make_sweep(dataclasses.replace(c32, edge_kernel="cuda"), (H, W))
+        plain = dict(node_kernel="torch", edge_kernel="torch")
+        kern = pg.make_sweep(dataclasses.replace(c32, node_kernel="cuda", edge_kernel="cuda"),
+                             (H, W))
         for f in kfns.values():
             f.launches = 0
-        three_way_sweep(label + " ", pg.make_sweep(dataclasses.replace(c64, edge_kernel="torch"),
-                                                   (H, W)),
-                        pg.make_sweep(dataclasses.replace(c32, edge_kernel="torch"), (H, W)),
+        three_way_sweep(label + " ", pg.make_sweep(dataclasses.replace(c64, **plain), (H, W)),
+                        pg.make_sweep(dataclasses.replace(c32, **plain), (H, W)),
                         kern, probs, states, cast)
         by_path[f"{label} sweep (kernel arm, 2 states)"] = c = counts()
-        want = {k: (len(states) if k == kernel else 0) for k in kfns}
+        want = {k: (len(states) if k in (kernel, "K5") else 0) for k in kfns}
         require(c == want, f"{label}: the kernel arm's launches {c} equal {want}")
         del probs[torch.float64]
         torch.cuda.empty_cache()
@@ -1424,18 +1606,19 @@ def chebyshev(dev, record, by_path, kfns, st64, cast):
         st = cast(conv64, torch.float32)
         ms = time_ms(lambda: kern(p32, st), 3)
         sweep_peak = torch.cuda.max_memory_allocated() - base
-        tab = build_table(c32.K, c32.quad_chunk, np.float64)
-        f = pg._node_f(c32, p32)
-        node = time_ms(lambda: gq_accumulate(f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
-                                             tab), 3)
-        rec[label] = dict(ms_a_sweep=ms, node_term_ms=node, make_problem_s=t_build,
-                          make_problem_GiB_above_held=build_peak / 2**30,
+        s5 = (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
+        node = kernel_ms(lambda: cheb_gq.cheb_gq_cuda(p32.cheb, *s5, c32.K))[0]
+        node_plain = time_ms(lambda: cheb_gq.cheb_gq_torch(p32.cheb, *s5, c32.K,
+                                                           quad_chunk=c32.quad_chunk), 3)
+        rec[label] = dict(ms_a_sweep=ms, node_term_K5_ms=node, node_term_plain_ms=node_plain,
+                          make_problem_s=t_build, make_problem_GiB_above_held=build_peak / 2**30,
                           sweep_GiB_above_held=sweep_peak / 2**30,
                           coefficients=list(p32.cheb.coeffs.shape))
         log(f"  {label} on {rec['card']}: {ms:.4f} ms a sweep from sigma = 0.05 (CUDA events, "
-            f"mean of 3), the node term {node:.4f} ms, {sweep_peak / 2**30:.3f} GiB above held "
-            f"at peak; make_problem {t_build:.3f} s, {build_peak / 2**30:.3f} GiB above held, "
-            f"coefficients {tuple(p32.cheb.coeffs.shape)}")
+            f"mean of 3), the node term: K5 {node:.4f} ms, plain {node_plain:.4f} ms; "
+            f"{sweep_peak / 2**30:.3f} GiB above held at peak; make_problem {t_build:.3f} s, "
+            f"{build_peak / 2**30:.3f} GiB above held, coefficients "
+            f"{tuple(p32.cheb.coeffs.shape)}")
         del probs, p32, kern
 
     log("phase chebyshev solve")
@@ -1462,8 +1645,9 @@ def chebyshev(dev, record, by_path, kfns, st64, cast):
             f"chebyshev solve: {n} sweeps ({its} asked), energy finite over every sweep")
     require(bool(an < a1), f"chebyshev solve: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={n} "
                            "(falls)")
-    require(c == {"K1": 0, "K2": 0, "K3": n, "K4": 0},
-            f"chebyshev solve: launches {c}: K3 equal to the sweep count {n}, K1, K2 and K4 0")
+    require(c == {"K1": 0, "K2": 0, "K3": n, "K4": 0, "K5": n},
+            f"chebyshev solve: launches {c}: K3 and K5 equal to the sweep count {n}, K1, K2 and "
+            "K4 0")
     rec["solve"] = dict(its=its, eval_every=every, wall_s=wall, GiB_above_held=peak / 2**30,
                         aepe=[float(x) for x in res.AEPE if np.isfinite(x)])
     log(f"  chebyshev solve: {n} sweeps in {wall:.3f} s with make_problem and readouts, "
@@ -1602,10 +1786,11 @@ GRAPH_POLLS = (1, 5, 10, 25, 100)  # POLL values timed on the converged tpu_fast
 def graph_phase(dev, record, by_path, kfns):
     """Phase 30: the segment runner's graph route against its host loop at
     376x452 f32 on ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
-    ``tpu_fast_super``, ``super_entropy`` and ``ctf_level``: the route is
-    ``"graph"``; from the init and from the sigma = 0.05 state both runners
-    end in the same state and traces, bit for bit, after 300 sweeps (100
-    converged on the K4 paths), with the same launch counts; on the K4 paths
+    ``tpu_fast_super``, ``super_entropy``, ``ctf_level`` and the Chebyshev
+    ``full_mixture`` (K5 and K3): the route is ``"graph"``; from the init and
+    from the sigma = 0.05 state both runners end in the same state and
+    traces, bit for bit, after 300 sweeps (100 converged on the K4 and K5
+    paths), with the same launch counts; on the K4 paths
     the graph's ms a sweep with K4 v1 beside v2's, in turns; each
     runner's ms a sweep by CUDA events, the capture's seconds and the peak
     device memory of the capturing call; an early stop that trips inside a
@@ -1628,6 +1813,7 @@ def graph_phase(dev, record, by_path, kfns):
         "tpu_fast_super": (GQMAPConfig.tpu_fast_super(), GRAPH_SWEEPS),
         "super_entropy": (GQMAPConfig.super_entropy(), 100),
         "ctf_level": (GQMAPConfig.ctf_level(), 100),
+        "full_mixture chebyshev": (GQMAPConfig.full_mixture(quad_chunk=27, **CHEB), 100),
     }
     out = record["graph"] = {"card": smi("name,power.limit"), "POLL": pg.POLL}
 
@@ -1771,7 +1957,6 @@ def graph_phase(dev, record, by_path, kfns):
         "legacy_v3": GQMAPConfig.legacy_v3(),
         "blockmatch_v2": GQMAPConfig.blockmatch_v2(),
         "tpu_fast window_rg=2": GQMAPConfig.tpu_fast(window_rg=2),
-        "full_mixture chebyshev": GQMAPConfig.full_mixture(quad_chunk=27, **CHEB),
         "tpu_fast chebyshev": GQMAPConfig.tpu_fast(data_term="chebyshev"),
         "tpu_fast float64": GQMAPConfig.tpu_fast(dtype="float64"),
     }
@@ -1840,7 +2025,8 @@ def main():
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
-    from gqmap_tpu_torch.kernels import build, cosine_gq, edge_gq, edge_reduced_gq, node_gq
+    from gqmap_tpu_torch.kernels import (build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
+                                         node_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize, gq_accumulate
@@ -1880,7 +2066,8 @@ def main():
         "mode; K2 and K3: the main path's rule instance, whole function (set-up and "
         "epilogue included) per point, and its MUFU.RSQ count")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
-                 "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4"):
+                 "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
+                 "K5 a-step Q=32"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -2219,6 +2406,10 @@ def main():
     kernels_k4(dev, record, I1, I2, ceil["gather_Mtaps_s"], issue_ms)
     k4_fn = node_gq.node_gq_cuda
 
+    # ---- 6c. K5 against its plain version
+    kernels_k5(dev, record, issue_ms)
+    k5_fn = cheb_gq.cheb_gq_cuda
+
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
     fprob = {torch.float32: pg.make_problem(fm32, I1, I2, fr, dev),
@@ -2237,23 +2428,23 @@ def main():
     del fprob
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    k1_fn.launches = k2_fn.launches = k3_fn.launches = k4_fn.launches = 0
+    k1_fn.launches = k2_fn.launches = k3_fn.launches = k4_fn.launches = k5_fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     fres = solve(fm32, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
     torch.cuda.synchronize()
     fwall = time.time() - t
     flaunch = {"K1": k1_fn.launches, "K2": k2_fn.launches, "K3": k3_fn.launches,
-               "K4": k4_fn.launches}
+               "K4": k4_fn.launches, "K5": k5_fn.launches}
     fpeak = torch.cuda.max_memory_allocated()
     record["peak_GiB"] = {"full_mixture": fpeak / 2**30}
     require(fres.iters == fm32.its, f"solve ran {fres.iters} sweeps ({fm32.its} asked)")
     require(bool(np.isfinite(fres.Energy[:fres.iters]).all()), "energy finite over every sweep")
     a1, an = fres.AEPE[0], fres.AEPE[fres.iters - 1]
     require(bool(an < a1), f"AEPE {a1:.4f} at it=1 -> {an:.4f} at it={fres.iters} (falls)")
-    require(flaunch == {"K1": 0, "K2": 0, "K3": fres.iters, "K4": fres.iters},
-            f"launch counters {flaunch}: K3 and K4 equal the sweep count {fres.iters}, K1 and "
-            "K2 0")
+    require(flaunch == {"K1": 0, "K2": 0, "K3": fres.iters, "K4": fres.iters, "K5": 0},
+            f"launch counters {flaunch}: K3 and K4 equal the sweep count {fres.iters}, K1, K2 "
+            "and K5 0")
     log(f"  solve wall {fwall:.3f} s incl. 4 readouts; peak device memory "
         f"{fpeak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in fres.AEPE[[0, 299, 599, 899]]]}")
@@ -2459,7 +2650,7 @@ def main():
 
     # ---- 12. the super presets through the user entry point
     log("phase super solves")
-    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda, "K4": k4_fn}
+    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda, "K4": k4_fn, "K5": k5_fn}
     by_path = {"tpu_fast": launches, "full_mixture": flaunch}
 
     def counted_solve(path, cfg, want, **kw):
@@ -2513,14 +2704,15 @@ def main():
         return ms
 
     sres = aepe_falls("tpu_fast_super", counted_solve("tpu_fast_super", fs32,
-                                                      {"K1": 1, "K2": 1, "K3": 0, "K4": 0},
+                                                      {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0},
                                                       verbose=True))
     sres2 = solve(fs32, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
     require(np.array_equal(sres.AEPE, sres2.AEPE, equal_nan=True)
             and np.array_equal(sres.Energy, sres2.Energy, equal_nan=True),
             "a second tpu_fast_super solve gives the same AEPE and energy traces, bit for bit")
     aepe_falls("super_entropy", counted_solve("super_entropy", se32,
-                                              {"K1": 0, "K2": 0, "K3": 1, "K4": 1}, verbose=True))
+                                              {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 0},
+                                              verbose=True))
 
     p32 = pg.make_problem(se32, I1, I2, fr, dev)
     ust = cast(sst64, torch.float32)
@@ -2549,7 +2741,7 @@ def main():
     log("phase redblack solve")
     rb32 = dataclasses.replace(cfg32, its=300, **rb)
     aepe_falls("tpu_fast redblack", counted_solve("tpu_fast redblack", rb32,
-                                                  {"K1": 2, "K2": 2, "K3": 0, "K4": 0}))
+                                                  {"K1": 2, "K2": 2, "K3": 0, "K4": 0, "K5": 0}))
     p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
     rseg = pg.make_segment_runner(dataclasses.replace(rb32, tor=0.0), (H, W))
     st, *_ = rseg(p32, st32, 10)
@@ -2603,7 +2795,7 @@ def main():
 
     # ---- 16. the legacy presets through the user entry points
     log("phase legacy solves")
-    k3_only = {"K1": 0, "K2": 0, "K3": 1, "K4": 0}  # nearest lookups: plain node sums
+    k3_only = {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0}  # nearest lookups: plain node sums
     v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, k3_only, verbose=True))
     v3_32 = GQMAPConfig.legacy_v3(its=300, eval_every=300)
     v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, k3_only, verbose=True))
@@ -2628,7 +2820,7 @@ def main():
             f"{rand.AEPE[-1]:.4f}")
     segment_ms("blockmatch_v2", bm32, pg.make_problem(bm32, I1, I2, fr, dev), bm.state)
     wres = aepe_falls("tpu_fast window_rg=2", counted_solve(
-        "tpu_fast window_rg=2", wf32, {"K1": 1, "K2": 1, "K3": 0, "K4": 0}, verbose=True))
+        "tpu_fast window_rg=2", wf32, {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0}, verbose=True))
     segment_ms("tpu_fast window_rg=2", wf32, wp32, wres.state)
     del wp32
 
@@ -2646,7 +2838,7 @@ def main():
     by_path["legacy_v1"] = counts = {k: f.launches for k, f in kfns.items()}
     med = float(v1st.muu[0, 1:-1, 1:-1].median())
     want_u = float(np.median(bm_flow[1:-1, 1:-1, 0]))
-    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
             f"legacy_v1: launch counters {counts} all 0 (truncated-quadratic edges)")
     require(bool(torch.isfinite(v1e[:v1n]).all()), "legacy_v1: energy finite over every sweep")
     require(abs(med - want_u) < 0.15, f"legacy_v1: median interior mean u {med:.4f} within 0.15 "
@@ -2714,7 +2906,7 @@ def main():
     require(finite and bool(torch.isfinite(adaux.energy)) and moved > 0,
             f"legacy_v2 autodiff sweep: finite gradients and state (largest step {moved:.3e}), "
             f"energy {float(adaux.energy):.6e}")
-    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
             f"autodiff: launch counters {counts} all 0")
     record["legacy_v2_autodiff"] = dict(sweep_ms=ad_ms, GiB_above_held=ad_peak / 2**30)
     log(f"  legacy_v2 autodiff: one sweep {ad_ms:.3f} ms, peak {ad_peak / 2**30:.3f} GiB above "
@@ -2754,6 +2946,10 @@ def main():
         dict(name="node_gq (K4, v2)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:44 (XLA scan, "
                       "no Pallas)", launches=flaunch["K4"], **record["K4"]),
+        dict(name="cheb_gq (K5)", route="cuda", source="gqmap_tpu_torch/csrc/cheb_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/chebyshev.py:126 (XLA scan, "
+                      "no Pallas)", launches=by_path["full_mixture chebyshev solve"]["K5"],
+             **record["K5"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

@@ -14,8 +14,10 @@ tests compare every preset field by field). Two fields differ in meaning:
   kernel opt-in (``edge_kernel="pallas"``) for TPU cost reasons; here
   ``"auto"`` launches K3 on the GPU, whose sums differ from the plain
   version's only in summation order. ``node_kernel`` picks K1 for the
-  cosine term and K4 for the bicubic term without a window (the JAX
-  package's XLA scan of it); the other node terms are plain sums.
+  cosine term, K4 for the bicubic term without a window and K5 for the
+  Chebyshev term (at most 64 v-degrees; the JAX package's XLA scans of
+  those two), under the Stein estimator; the other node terms are plain
+  sums.
 * ``bicubic_pack`` is accepted and has no effect: it selects a TPU gather
   layout whose values differ from the 16-tap path only by summation order.
 
@@ -57,7 +59,7 @@ class GQMAPConfig:
     cheb_q: int = 32              # v-degree
     cheb_margin: float = 2.0      # displacement-box margin beyond the flow range
     cheb_ablock: int = 8          # u-degrees per block of the JAX scan path
-    node_kernel: str = "auto"     # K1 (cosine) or K4 (bicubic): "auto" | "cuda" | "torch"
+    node_kernel: str = "auto"     # K1 cosine, K4 bicubic, K5 chebyshev: "auto"|"cuda"|"torch"
     window_rg: int = 0            # overlapping data-cost window half-size
     quad_var: float = 1.0         # variance of the quadratic node prior
     edge_kind: str = "charbonnier"  # or "truncquad"

@@ -5,9 +5,11 @@ to its ``launches`` where it launches its kernel), so a caller that replays
 captured launches can keep the counts without knowing the kernels.
 """
 
+from .cheb_gq import cheb_gq_cuda
 from .cosine_gq import cos_mode_sums_cuda
 from .edge_gq import edge_gq_cuda
 from .edge_reduced_gq import edge_reduced_grads_cuda
 from .node_gq import node_gq_cuda
 
-COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda, node_gq_cuda)
+COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda, node_gq_cuda,
+           cheb_gq_cuda)

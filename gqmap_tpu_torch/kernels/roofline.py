@@ -19,12 +19,13 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 * :func:`flagship_roofline` times kernel K1 alone in ``"v1"`` against its
   operation, ``exp`` and memory bounds, and the ``tpu_fast`` sweep inside a
   300-sweep segment against its kernels' bounds.
-* :func:`k1_work`, :func:`k2_work`, :func:`k3_work` and :func:`k4_work`
-  count what each kernel's function must do at given shapes: bytes (each input read
-  once, each output written once), float32 operations (an FMA counts two),
-  square roots and, for K4, the bytes of its table reads through L1;
-  :func:`bound` sets such a count against rates, the data sheet's
-  (:func:`datasheet_rates`) or the measured ones (:func:`measured_rates`).
+* :func:`k1_work`, :func:`k2_work`, :func:`k3_work`, :func:`k4_work` and
+  :func:`k5_work` count what each kernel's function must do at given
+  shapes: bytes (each input read once, each output written once), float32
+  operations (an FMA counts two), square roots and, for K4, the bytes of its
+  table reads through L1; :func:`bound` sets such a count against rates, the
+  data sheet's (:func:`datasheet_rates`) or the measured ones
+  (:func:`measured_rates`).
 
 There is no CPU ceiling: :func:`measure_ceilings` raises on anything but a
 CUDA device. Given ceilings, the sweep functions also run on the CPU (their
@@ -48,7 +49,7 @@ import numpy as np
 import torch
 
 __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "kernel_ms",
-           "k1_work", "k2_work", "k3_work", "k4_work", "bound", "datasheet_rates",
+           "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "bound", "datasheet_rates",
            "measured_rates", "card_line", "FLOPS", "TIMING"]
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, float32 rate outside the
@@ -172,6 +173,21 @@ def k4_work(site_shape, K: int, patch: int = 1, itemsize: int = 4) -> dict:
              + sites * (FLOPS["K4 site"] + 2 * K))
     return dict(bytes=(5 * sites + pixels + table + 6 * sites) * itemsize, flops=flops,
                 roots=points * P * P + 2 * sites, l1_bytes=points * (P + 3) ** 2 * itemsize)
+
+
+def k5_work(site_shape, K: int, P: int, Q: int, L: int, itemsize: int = 4) -> dict:
+    """K5's function on the ``(M, N)`` sites of a ``(P, Q, M, N)``
+    coefficient field with ``L`` components and the K^2-point rule: the field,
+    the 5 state fields read once and 6 raw sums written; per sample (a site,
+    component and point) the series by the three-term recurrence, 2 P Q
+    operations for the contraction, 2 P for the outer sum and 2 (P + Q) for
+    the two bases. The sample's whitening, box map and six sums (some 30
+    operations, under 1% at the presets' degrees) are not counted."""
+    M, N = site_shape
+    sites = M * N
+    samples = L * sites * K * K
+    flops = samples * (2 * P * Q + 2 * P + 2 * (P + Q))
+    return dict(bytes=(P * Q * sites + 11 * L * sites) * itemsize, flops=flops, roots=0)
 
 
 def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
@@ -373,10 +389,10 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
 
     ``cosine`` is ``tpu_fast`` (K1 by operations); the others are
     ``full_mixture(float32, quad_chunk=27, cheb_p=96, cheb_q=16)`` with the
-    term: ``bicubic`` by the sum of its kernels' bounds (K4's node sums and
-    K3's edge sums, :func:`bound` at the measured rates), ``nearest`` (one
-    plain ``torch.take`` read a sample) by the gather rate, ``chebyshev`` by
-    its 2 P Q operations a sample."""
+    term: ``bicubic`` and ``chebyshev`` by the sum of their kernels' bounds
+    (K4's or K5's node sums and K3's edge sums, :func:`bound` at the
+    measured rates), ``nearest`` (one plain ``torch.take`` read a sample) by
+    the gather rate."""
     from ..config import FlowRange, GQMAPConfig
     from ..models.gqmap import _device, make_problem, make_sweep
 
@@ -399,18 +415,17 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
         sweep(problem, state)
         ms = _wall_ms(lambda: sweep(problem, state), n, dev)
         samples = cfg.L * M * N * cfg.K ** 2
-        if mode == "bicubic":
-            bound_ms = (bound(k4_work((cfg.L, M, N), cfg.K), rates)["bound_ms"]
+        if mode in ("bicubic", "chebyshev"):
+            node = (k4_work((cfg.L, M, N), cfg.K) if mode == "bicubic"
+                    else k5_work((M, N), cfg.K, cfg.cheb_p, cfg.cheb_q, cfg.L))
+            bound_ms = (bound(node, rates)["bound_ms"]
                         + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"])
-            governing = "K4+K3"
+            governing = "K4+K3" if mode == "bicubic" else "K5+K3"
         elif mode == "nearest":
             bound_ms = samples / (ceil["gather_Mtaps_s"] * 1e6) * 1e3
             governing = "gather"
-        elif mode == "cosine":
-            bound_ms = k1_work(problem.cheb.coeffs.shape, cfg.L)["flops"] / rates["flops"] * 1e3
-            governing = "flops"
         else:
-            bound_ms = samples * 2.0 * cfg.cheb_p * cfg.cheb_q / rates["flops"] * 1e3
+            bound_ms = k1_work(problem.cheb.coeffs.shape, cfg.L)["flops"] / rates["flops"] * 1e3
             governing = "flops"
         out["modes"][mode] = dict(ms_per_sweep=ms, mpix_sweeps_per_s=M * N / ms / 1e3,
                                   governing_bound=governing, bound_ms=bound_ms,

@@ -7,8 +7,8 @@ Stein estimator and the softmax-natural alpha update:
 * ``GQMAPConfig.tpu_fast()``: the closed-form cosine data term (kernel K1)
   and reduced 1-D Charbonnier edge quadrature (kernel K2);
 * ``GQMAPConfig.full_mixture()``, the reference-parity exact path: the
-  K^2-point bicubic node quadrature (plain torch, :func:`gq_accumulate`)
-  and K^2-point tensor-rule Charbonnier edges (kernel K3).
+  K^2-point bicubic node quadrature (kernel K4) and K^2-point tensor-rule
+  Charbonnier edges (kernel K3).
 
 The legacy families run too (``legacy_v1`` .. ``v3``, ``blockmatch_v2``):
 the nearest lookup into a 2^rfc-x upsampled frame, the windowed data cost
@@ -24,7 +24,8 @@ are the JAX package's XLA ones.
 The Chebyshev data term (``data_term="chebyshev"``,
 :mod:`gqmap_tpu_torch.ops.chebyshev`) runs through the K^2-point node
 quadrature like the bicubic term, its samples evaluated as a polynomial
-series with no gather.
+series with no gather: kernel K5 under the Stein estimator, where the JAX
+package runs its XLA scan.
 
 Both run at full resolution or on the super lattice (``patch > 1``: each
 flow node owns a ``patch x patch`` pixel block and its data term is the
@@ -66,6 +67,7 @@ import torch.distributed
 
 from ..config import FlowRange, GQMAPConfig
 from ..kernels import COUNTED
+from ..kernels.cheb_gq import MAX_Q, cheb_gq, cheb_gq_cuda, cheb_gq_torch
 from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
@@ -105,8 +107,10 @@ __all__ = [
 ]
 
 _NODE_SUMS = {"auto": cos_mode_sums, "cuda": cos_mode_sums_cuda, "torch": cos_mode_sums_torch}
-# the bicubic term's K4 route (raw sums, finalized here)
+# the bicubic term's K4 route and the Chebyshev term's K5 route (raw sums,
+# finalized here)
 _NODE_GQ = {"auto": node_gq, "cuda": node_gq_cuda, "torch": node_gq_torch}
+_NODE_CHEB = {"auto": cheb_gq, "cuda": cheb_gq_cuda, "torch": cheb_gq_torch}
 # edge_quad -> edge_kernel -> the K2 route (finalized gradients) or the K3
 # route (raw sums, finalized here)
 _EDGE_ROUTES = {
@@ -175,8 +179,9 @@ def check_supported(cfg: GQMAPConfig) -> None:
     Unknown values raise ``ValueError``, as the JAX package's
     ``make_problem`` does, and so does a kernel asked for (``"cuda"``) on a path
     that no kernel computes: K1 computes only the cosine term's Stein sums,
-    K4 only the bicubic term's (without a window), K2 and K3 only Charbonnier
-    edges, and the autodiff estimator differentiates plain sums.
+    K4 only the bicubic term's (without a window), K5 only the Chebyshev
+    term's (at most ``MAX_Q`` v-degrees), K2 and K3 only Charbonnier edges,
+    and the autodiff estimator differentiates plain sums.
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -192,10 +197,11 @@ def check_supported(cfg: GQMAPConfig) -> None:
     if cfg.node_kernel == "cuda" and (_node_kernel(cfg) is None or autodiff):
         raise ValueError(
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
-            f"Stein sums, or kernel K4, which computes the bicubic term's without a window; "
-            f"with data_term={cfg.data_term!r}, window_rg={cfg.window_rg} and "
-            f"gradient_estimator={cfg.gradient_estimator!r} the node term is plain torch (use "
-            "'auto' or 'torch')")
+            f"Stein sums, kernel K4, which computes the bicubic term's without a window, or "
+            f"kernel K5, which computes the Chebyshev term's with at most {MAX_Q} v-degrees; "
+            f"with data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, "
+            f"cheb_q={cfg.cheb_q} and gradient_estimator={cfg.gradient_estimator!r} the node "
+            "term is plain torch (use 'auto' or 'torch')")
     if cfg.edge_kernel == "cuda" and (cfg.edge_kind != "charbonnier" or autodiff):
         raise ValueError(
             f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges "
@@ -208,11 +214,15 @@ def check_supported(cfg: GQMAPConfig) -> None:
 def _node_kernel(cfg: GQMAPConfig) -> str | None:
     """The kernel that computes ``cfg``'s node term under the Stein
     estimator: ``"K1"`` (the cosine term), ``"K4"`` (the bicubic term without
-    a window), or None where the sums are plain torch."""
+    a window), ``"K5"`` (the Chebyshev term, whose window is in its
+    coefficients, with at most ``MAX_Q`` v-degrees), or None where the sums
+    are plain torch."""
     if cfg.data_term == "cosine":
         return "K1"
     if cfg.data_term == "bicubic" and cfg.window_rg == 0:
         return "K4"
+    if cfg.data_term == "chebyshev" and cfg.cheb_q <= MAX_Q:
+        return "K5"
     return None
 
 
@@ -360,10 +370,11 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
 
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
-    estimators; K4 for the bicubic term without a window (which the JAX
-    package runs as one XLA scan) under the Stein estimator; the other node
-    terms, truncated-quadratic edges and the autodiff estimator run plain
-    sums (:func:`check_supported` refuses ``"cuda"`` there).
+    estimators; K4 for the bicubic term without a window and K5 for the
+    Chebyshev term (each of which the JAX package runs as one XLA scan) under
+    the Stein estimator; the other node terms, truncated-quadratic edges and
+    the autodiff estimator run plain sums (:func:`check_supported` refuses
+    ``"cuda"`` there).
 
     With ``dist`` the sweep is one shard's: ``problem`` and ``state`` hold
     its block, every neighbour roll goes through ``dist.roll``, K2 reads the
@@ -388,12 +399,18 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums = _NODE_SUMS[cfg.node_kernel]
     autodiff = cfg.gradient_estimator == "autodiff"
-    # K4 (or its plain version) where the JAX package scans the bicubic term
+    # K4 (or its plain version) where the JAX package scans the bicubic term,
+    # K5 (or its plain version) where it scans the Chebyshev series
     node_gq_route = (_NODE_GQ[cfg.node_kernel]
                      if _node_kernel(cfg) == "K4" and not autodiff else None)
-    if node_gq_route is not None and cfg.node_kernel != "cuda":
-        # the plain version steps quad_chunk points at a time; the kernel takes all
-        node_gq_route = functools.partial(node_gq_route, quad_chunk=cfg.quad_chunk)
+    node_cheb_route = (_NODE_CHEB[cfg.node_kernel]
+                       if _node_kernel(cfg) == "K5" and not autodiff else None)
+    if cfg.node_kernel != "cuda":
+        # the plain versions step quad_chunk points at a time; the kernels take all
+        if node_gq_route is not None:
+            node_gq_route = functools.partial(node_gq_route, quad_chunk=cfg.quad_chunk)
+        if node_cheb_route is not None:
+            node_cheb_route = functools.partial(node_cheb_route, quad_chunk=cfg.quad_chunk)
     reduced = cfg.edge_quad == "reduced"
     if cfg.edge_kind == "truncquad":
         edge_f = make_edge_pot_truncquad(cfg.gama, cfg.dta)
@@ -433,7 +450,8 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
-        node_f = None if node_gq_route is not None else _node_f(cfg, problem, **node_at)
+        node_f = (None if node_gq_route is not None or node_cheb_route is not None
+                  else _node_f(cfg, problem, **node_at))
 
         def autodiff_grads(st: GQState):
             """The autodiff estimator (heir of ``legacy/gqmap_gpuV3.m``): every
@@ -488,11 +506,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
                 gn = _finalize_mode_sums(problem.cheb, sums, st.muu, st.sigmau, st.sigmav,
                                          st.pn, a3, T, NODE)
-            else:  # the K^2-point node quadrature: kernel K4, else plain torch
+            else:  # the K^2-point node quadrature: kernel K4 or K5, else plain torch
                 if node_gq_route is not None:
                     raw_n = node_gq_route(problem.I1, problem.I2_tab, st.muu, st.muv, st.sigmau,
                                           st.sigmav, st.pn, cfg.K, cfg.lambdad, cfg.epsn,
                                           patch=cfg.patch, **node_at)
+                elif node_cheb_route is not None:  # the field is the shard's own block
+                    raw_n = node_cheb_route(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav,
+                                            st.pn, cfg.K)
                 else:
                     raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
                                           node_tab)

@@ -8,12 +8,15 @@ constant-offset bicubic sample of frame 2 (``ops/cosine._sample_surface``),
 and the coefficients come from a type-II DCT (two matrix products). A
 quadrature sample then costs a P x Q polynomial evaluation and no gather.
 
-The JAX package evaluates the series in XLA, with no Pallas kernel, so the
-port does it in plain torch: per site, the samples' u-basis ``T_a(u')``
-(an ``(S, P)`` matrix) times the site's ``(P, Q)`` coefficient block in one
-batched product over the sites, then a row-wise dot with the v-basis. The
-coefficient field keeps the JAX shape ``(P, Q, M, N)`` but is stored site
-major, so each site's block is one contiguous matrix of that product.
+The JAX package evaluates the series in XLA, with no Pallas kernel. Here
+:func:`make_node_pot_chebyshev` is the plain torch version: per site, the
+samples' u-basis ``T_a(u')`` (an ``(S, P)`` matrix) times the site's
+``(P, Q)`` coefficient block in one batched product over the sites, then a
+row-wise dot with the v-basis; under the Stein estimator on the card the
+sweep runs the node quadrature over it as kernel K5
+(:mod:`gqmap_tpu_torch.kernels.cheb_gq`). The coefficient field keeps the
+JAX shape ``(P, Q, M, N)`` but is stored site major, so each site's block
+is one contiguous matrix of that product and one run the kernel reads.
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ import torch
 
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
-from gqmap_tpu_torch.kernels import COUNTED, build, cosine_gq, edge_gq, edge_reduced_gq, node_gq
+from gqmap_tpu_torch.kernels import (COUNTED, build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
+                                     node_gq)
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE
@@ -188,17 +189,18 @@ def test_edge_reduced_kernel_with_halo(dev, dtype, split):
 @pytest.mark.parametrize("K", [5, 9])
 def test_sweep_launches_both_kernels(dev, K):
     # K = 9 runs K2's instance for K1 = 21, K = 5 its generic one (K1 = 13);
-    # the sweep hands K2 the state stacks only, and K3 is never launched
+    # the sweep hands K2 the state stacks only, and K3 (and K5) is never launched
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
     cfg = GQMAPConfig.tpu_fast(K=K, cheb_p=16, cheb_q=8, its=3, eval_every=3)
-    k1, k2, k3 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-                  edge_gq.edge_gq_cuda)
-    n = (k1.launches, k2.launches, k3.launches)
+    k1, k2, k3, k5 = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
+                      edge_gq.edge_gq_cuda, cheb_gq.cheb_gq_cuda)
+    n = (k1.launches, k2.launches, k3.launches, k5.launches)
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2]) == (3, 3, 0)
+    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2],
+            k5.launches - n[3]) == (3, 3, 0, 0)
 
 
 def test_build_is_cached(dev):
@@ -273,13 +275,13 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
     cfg = GQMAPConfig.full_mixture(K=K, its=3, eval_every=3, quad_chunk=7)
-    k1, k2, k3, k4 = COUNTED
-    n = (k1.launches, k2.launches, k3.launches, k4.launches)
+    k1, k2, k3, k4, k5 = COUNTED
+    n = (k1.launches, k2.launches, k3.launches, k4.launches, k5.launches)
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K4 computes the bicubic node term once a sweep
     assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2],
-            k4.launches - n[3]) == (0, 0, 3, 3)
+            k4.launches - n[3], k5.launches - n[4]) == (0, 0, 3, 3, 0)
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -293,7 +295,7 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    want = [6, 6, 0, 0] if preset == "tpu_fast" else [0, 0, 6, 6]
+    want = [6, 6, 0, 0, 0] if preset == "tpu_fast" else [0, 0, 6, 6, 0]
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -309,7 +311,7 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = [3, 3, 0, 0] if preset == "tpu_fast_super" else [0, 0, 3, 3]
+    want = [3, 3, 0, 0, 0] if preset == "tpu_fast_super" else [0, 0, 3, 3, 0]
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -377,8 +379,8 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # the nearest lookups and autodiff's sums are plain: K4 is never launched
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want) + [0]
+    # the nearest lookups and autodiff's sums are plain: K4 and K5 are never launched
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want) + [0, 0]
 
 
 def test_legacy_v1_segment_launches_no_kernel(dev):
@@ -443,7 +445,7 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     sweeps = sum(lv.iters for lv in res.levels)
     assert sweeps == 12 and np.isfinite(res.flow).all()
     # K4 (the bicubic node term) and K3 once a sweep of every level
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, sweeps, sweeps]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, sweeps, sweeps, 0]
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -457,9 +459,9 @@ def test_structure_texture_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_chebyshev_sweep_through_k3_matches_plain(dev, dtype):
-    # one full_mixture sweep with the Chebyshev term: K3 launched once, the
-    # state within the kernel's tolerance of the plain route's; the series on
-    # the card equals its value on the CPU (float64: summation order only)
+    # one full_mixture sweep with the Chebyshev term: K3 and K5 launched once,
+    # the state within the kernels' tolerance of the plain routes'; the series
+    # on the card equals its value on the CPU (float64: summation order only)
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
@@ -468,11 +470,13 @@ def test_chebyshev_sweep_through_k3_matches_plain(dev, dtype):
     cfg = GQMAPConfig.full_mixture(**kw)
     prob = pg.make_problem(cfg, I1, I2, fr, device=dev)
     st = pg.init_state(cfg, fr, I1.shape, device=dev)
-    n = edge_gq.edge_gq_cuda.launches
-    got, gaux = pg.make_sweep(dataclasses.replace(cfg, edge_kernel="cuda"), I1.shape)(prob, st)
-    want, waux = pg.make_sweep(dataclasses.replace(cfg, edge_kernel="torch"), I1.shape)(prob, st)
+    n = edge_gq.edge_gq_cuda.launches, cheb_gq.cheb_gq_cuda.launches
+    got, gaux = pg.make_sweep(dataclasses.replace(cfg, node_kernel="cuda", edge_kernel="cuda"),
+                              I1.shape)(prob, st)
+    want, waux = pg.make_sweep(dataclasses.replace(cfg, node_kernel="torch", edge_kernel="torch"),
+                               I1.shape)(prob, st)
     torch.cuda.synchronize()
-    assert edge_gq.edge_gq_cuda.launches - n == 1
+    assert (edge_gq.edge_gq_cuda.launches - n[0], cheb_gq.cheb_gq_cuda.launches - n[1]) == (1, 1)
     for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"):
         _close(getattr(got, f), getattr(want, f), dtype, f)
     if dtype == torch.float64:
@@ -506,6 +510,8 @@ GRAPH_CASES = {
     "full_mixture": ("full_mixture", dict(quad_chunk=7, step0=0.03, corr_tor=0.95), 30),
     "super_entropy": ("super_entropy", {}, 30),
     "redblack": ("tpu_fast", dict(sweep_order="redblack", step0=0.03, corr_tor=0.95), 30),
+    "full_mixture chebyshev": ("full_mixture", dict(quad_chunk=7, data_term="chebyshev",
+                                                    cheb_p=24, cheb_q=8, corr_tor=0.99), 30),
     "its4": ("tpu_fast", dict(its=4), 30),
     "limit1": ("tpu_fast", {}, 1),
 }
@@ -574,7 +580,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert h[1] == k + 1 and h[5] and _identical(g, h)
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels
-    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0, 0]
+    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0, 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -741,4 +747,163 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0]
+
+
+# K5 (the Chebyshev series' node quadrature): the coefficient field of a
+# smoothed random pair over chip_smoke.py's flow box, at the presets' degrees
+# on 376x452 (full_mixture's 96 x 16, tpu_fast's 64 x 16, the super lattice
+# of 4x4 blocks), the config default 96 x 32, a window-meaned field, ragged
+# lattices and rules (Q = 8, 6: zero-padded columns), Q = 48 (the 64-wide
+# instance) and a field of 200 x 64 whose f64 block is staged a chunk of rows
+# at a time: (L, K, P, Q, frame, patch, window_rg)
+K5_CASES = {
+    "full_mixture 96x16": (3, 9, 96, 16, (376, 452), 1, 0),
+    "tpu_fast 64x16": (3, 9, 64, 16, (376, 452), 1, 0),
+    "super 96x16 patch 4": (3, 9, 96, 16, (376, 452), 4, 0),
+    "default 96x32": (3, 9, 96, 32, (96, 128), 1, 0),
+    "window_rg 2": (3, 9, 24, 8, (48, 64), 1, 2),
+    "ragged K=5 L=2 24x8": (2, 5, 24, 8, (37, 53), 1, 0),
+    "ragged K=11 L=1 13x6": (1, 11, 13, 6, (29, 31), 1, 0),
+    "Q=48": (3, 5, 40, 48, (24, 40), 1, 0),
+    "chunked 200x64": (2, 5, 200, 64, (20, 24), 1, 0),
+}
+
+
+def _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, probe):
+    """A site-major field built on the card from a smoothed random pair, and
+    the five state fields: the init's wide sigmas, sigma = 0.05, or the |rho|
+    clamp with sigma per site in [0.01, 3]; means over the box's flow range,
+    so samples leave the box."""
+    from gqmap_tpu_torch.ops.chebyshev import build_cheb_data
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    g = torch.Generator().manual_seed(sum(shape) + L + P + Q)
+    I1 = torch.nn.functional.avg_pool2d(
+        255 * torch.rand((1, 1) + shape, generator=g, dtype=torch.float64), 5, 1, 2,
+        count_include_pad=False)[0, 0]
+    box = (-12.0, 4.0, -4.0, 4.0)  # chip_smoke.py's flow range and 2 px of margin
+    cheb = build_cheb_data(I1.to(dev, dtype), pad_cubic(I1.roll(1, 1).to(dev, dtype)), 1.0,
+                           1e-6, box, P, Q, patch=patch, window_rg=window_rg)
+    M, N = shape[0] // patch, shape[1] // patch
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((L, M, N), generator=g, dtype=torch.float64)
+
+    pn = torch.zeros((L, M, N), dtype=torch.float64)
+    if probe == "init":
+        su, sv = u(12, 13), u(4, 5)
+    elif probe == "converged":
+        su = sv = torch.full((L, M, N), 0.05, dtype=torch.float64)
+    else:
+        su, sv = u(0.01, 3), u(0.01, 3)
+        pn = 0.99999 * torch.where(u(0, 1) < 0.5, -1.0, 1.0)
+    return cheb, [x.to(dev, dtype) for x in (u(-10, 2), u(-2, 2), su, sv, pn)]
+
+
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_cheb_gq_kernel_matches_plain(dev, case, dtype, probe):
+    # float64 within 1e-10 of each sum's largest magnitude; float32 held to
+    # the f64 golden on the same inputs (ratio rule)
+    L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
+    cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, probe)
+    n = cheb_gq.cheb_gq_cuda.launches
+    got = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    torch.cuda.synchronize()
+    assert cheb_gq.cheb_gq_cuda.launches == n + 1
+    plain = cheb_gq.cheb_gq_torch(cheb, *st, K, quad_chunk=27)
+    if dtype == torch.float64:
+        for name in plain._fields:
+            _close(getattr(got, name), getattr(plain, name), dtype, name)
+    else:
+        cheb64 = cheb._replace(coeffs=cheb.coeffs.double())
+        gold = cheb_gq.cheb_gq_torch(cheb64, *(x.double() for x in st), K, quad_chunk=27)
+        _ratio_to_golden(got, plain, gold)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["full_mixture 96x16", "ragged K=5 L=2 24x8"])
+def test_cheb_gq_kernel_nan_probe(dev, case, dtype):
+    # NaN means, sigmas and correlations at a few sites: NaN exactly there in
+    # the kernel and its plain version, every other site and component as
+    # the NaN-free call gives it, bit for bit
+    L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
+    cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, "converged")
+    clean = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    _, M, N = st[0].shape
+    sites = [(0, 1, 2), (L - 1, M // 2, N // 3), (L - 1, M - 1, N - 1), (0, 0, N // 2)]
+    mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+    for field, site in zip((0, 1, 3, 4), sites):  # muu, muv, sv, pn
+        st[field] = st[field].clone()
+        st[field][site] = float("nan")
+        mask[site] = True
+    got = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    plain = cheb_gq.cheb_gq_torch(cheb, *st, K)
+    torch.cuda.synchronize()
+    for g, p, c in zip(got, plain, clean):
+        assert torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(p), mask)
+        assert torch.equal(g[~mask], c[~mask])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["full_mixture 96x16", "super 96x16 patch 4",
+                                  "ragged K=5 L=2 24x8"])
+def test_cheb_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype):
+    # a shard's block of the field (site major, as parallel/sharded.py stores
+    # it) and of the state: the block's sums are the whole lattice's there,
+    # bit for bit, whatever CTAs hold its sites
+    from gqmap_tpu_torch.ops.chebyshev import site_major
+
+    L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
+    cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, "converged")
+    whole = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    _, M, N = st[0].shape
+    for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3),
+                         (3, 5, M - 6, N - 7)):
+        blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+        block = cheb._replace(coeffs=site_major(cheb.coeffs[:, :, r0:r0 + m, c0:c0 + n]))
+        got = cheb_gq.cheb_gq_cuda(block, *(x[blk].contiguous() for x in st), K)
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w[blk])
+
+
+def test_cheb_gq_kernel_refuses_a_field_that_is_not_site_major(dev):
+    # the kernel reads each site's block as one run and never copies the
+    # field: the plain (P, Q, M, N) layout, or a block of the site-major one,
+    # raises before a launch
+    L, K, P, Q, shape, patch, window_rg = K5_CASES["ragged K=5 L=2 24x8"]
+    cheb, st = _k5_inputs(dev, torch.float32, L, P, Q, shape, patch, window_rg, "converged")
+    n = cheb_gq.cheb_gq_cuda.launches
+    for coeffs in (cheb.coeffs.contiguous(), cheb.coeffs[:, :, :, 1:]):
+        with pytest.raises(ValueError, match="site major"):
+            cheb_gq.cheb_gq_cuda(cheb._replace(coeffs=coeffs), *st, K)
+    with pytest.raises(ValueError, match="v-degrees"):
+        cheb_gq.cheb_gq_cuda(cheb._replace(coeffs=torch.zeros(
+            (4, 65) + tuple(st[0].shape[1:]), device=dev).permute(2, 3, 0, 1).contiguous()
+            .permute(2, 3, 0, 1)), *st, K)
+    assert cheb_gq.cheb_gq_cuda.launches == n
+
+
+@pytest.mark.parametrize("preset, kw, want", [
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3]),
+    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"), [0, 0, 6, 0, 6]),
+    ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"), [0, 0, 0, 0, 0]),
+])
+def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
+    # every Stein path of the Chebyshev term: K5 once a node-term evaluation
+    # (twice a red-black sweep), beside K3 (full_mixture, super_entropy) or
+    # K2 (tpu_fast); none under autodiff
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (32, 48))
+    I2 = np.roll(I1, 1, axis=1)
+    cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3, data_term="chebyshev", cheb_p=24,
+                                       cheb_q=8, **kw)
+    n = [k.launches for k in COUNTED]
+    res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all()
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == want

@@ -108,7 +108,7 @@ def test_sweep_roofline_on_the_cpu():
         assert m["ms_per_sweep"] > 0 and m["bound_ms"] > 0 and m["device"] == "cpu"
         assert m["share_of_bound"] == pytest.approx(m["bound_ms"] / m["ms_per_sweep"])
     assert {m: out["modes"][m]["governing_bound"] for m in out["modes"]} == {
-        "cosine": "flops", "chebyshev": "flops", "nearest": "gather", "bicubic": "K4+K3"}
+        "cosine": "flops", "chebyshev": "K5+K3", "nearest": "gather", "bicubic": "K4+K3"}
     # one plain table read a nearest sample; the bicubic path runs kernels K4
     # (node sums) and K3 (edge sums) and is bound by the sum of their bounds
     rates = roofline.measured_rates(CEILINGS)
@@ -116,6 +116,10 @@ def test_sweep_roofline_on_the_cpu():
         3 * 24 * 28 * 81 / (CEILINGS["gather_Mtaps_s"] * 1e6) * 1e3)
     assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k4_work((3, 24, 28), 9), rates)["bound_ms"]
+        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
+    # and the Chebyshev path, kernels K5 (96 x 16) and K3
+    assert out["modes"]["chebyshev"]["bound_ms"] == pytest.approx(
+        roofline.bound(roofline.k5_work((24, 28), 9, 96, 16, 3), rates)["bound_ms"]
         + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
 
 
