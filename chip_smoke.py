@@ -14,12 +14,15 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    and epilogue included), of K4 v1's innermost loop per sample and of K4
    v2's shared-memory point loop per point (patch 1 at K = 9, patch 4 at
    K = 11; the shared form, the per-pixel fallback being a function of its
-   own) and of K5's u-degree loop per lane and a-step (its Q = 16 and 32
-   instances), with each one's MUFU.RSQ count, which give each kernel's issue
-   bound at 132 SMs x 128 lanes x the card's maximum SM clock; then the
+   own), of K5 v1's u-degree loop per lane and a-step (its Q = 16 and 32
+   instances) and of K5 v2's chunk loop per warp and chunk of N u-degrees
+   (its instructions and HGMMA), with each one's MUFU.RSQ count, which give each
+   kernel's issue bound at 132 SMs x 128 lanes x the card's maximum SM
+   clock; then the
    card's ceilings (``roofline.measure_ceilings``: memory stream, float32
    FMA chains (8 independent a thread, and one, with the SM clock read while
-   each runs), gather, ``expf``, ``rsqrtf`` and L1 load rates), whose rates
+   each runs), gather, ``expf``, ``rsqrtf``, L1 load and ``mma.sync`` TF32
+   rates), whose rates
    give every kernel's bound a second time beside the data sheet's
    (``bound_ms_measured``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
@@ -93,7 +96,9 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    most half of v1's time at ``super_entropy`` and no more than v1's at the
    two others;
 6c. K5 (the Chebyshev series' node quadrature's raw sums) against its plain
-   version on the coefficient fields ``make_problem`` builds for the Stein
+   version, in both variants ("v1", and "v2", the default in float32, on the
+   tensor cores; float64 runs "v1"), on the coefficient fields
+   ``make_problem`` builds for the Stein
    Chebyshev paths: ``full_mixture(data_term="chebyshev", cheb_p=96,
    cheb_q=16)`` and ``tpu_fast(data_term="chebyshev")`` (64 x 16) on
    (3, 376, 452) sites at K = 9, ``super_entropy`` at 96 x 16 on the
@@ -104,11 +109,14 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    mesh's at ``full_mixture``, one at odd offsets on the others) bit for bit
    the whole lattice's; NaN means, sigmas and correlations at a few sites:
    NaN exactly there in both versions, every other site bit for bit the
-   NaN-free call's; its time converged and from init, the plain version's,
-   the plain version's ``torch.bmm`` calls alone (the contraction only, on
-   its site-major blocks with a basis made beforehand), the bound
-   (``roofline.k5_work`` at the data sheet's and the measured rates) and
-   the SASS issue bound;
+   NaN-free call's; two v2 launches bit for bit equal; each variant's time
+   converged and from init, the plain version's, the plain version's
+   ``torch.bmm`` calls alone (the contraction only, on its site-major blocks
+   with a basis made beforehand), the bounds (``roofline.k5_work`` at the
+   data sheet's and the measured rates: v2's with the contraction on the
+   tensor cores, ``tensor_cores=True``, v1's on the FMA pipe), each
+   variant's share of its bound and its SASS issue bound; the default
+   variant must be the faster at ``full_mixture`` and ``tpu_fast``;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -378,7 +386,8 @@ def sass_loops(instrs, label_addr):
     """Every backward branch of one function: the instructions from its
     target label to the branch, and how many of them are
     MUFU.EX2, MUFU.RSQ, device-memory loads (LDG), shared-memory loads
-    (LDS) and float32 FMAs and multiplies (FFMA, FMUL)."""
+    (LDS), float32 FMAs and multiplies (FFMA, FMUL) and tensor-core products
+    (HMMA: mma.sync; HGMMA: wgmma)."""
     loops = []
     for addr, ins in instrs:
         m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
@@ -391,7 +400,9 @@ def sass_loops(instrs, label_addr):
                               rsq=sum("MUFU.RSQ" in i for i in body_ins),
                               ldg=sum(bool(re.search(r"\bLDG\b", i)) for i in body_ins),
                               lds=sum(bool(re.search(r"\bLDS\b", i)) for i in body_ins),
-                              fmul=sum(bool(re.search(r"\bF(FMA|MUL)\b", i)) for i in body_ins)))
+                              fmul=sum(bool(re.search(r"\bF(FMA|MUL)\b", i)) for i in body_ins),
+                              hmma=sum(i.startswith("HMMA") for i in body_ins),
+                              hgmma=sum(i.startswith("HGMMA") for i in body_ins)))
     return loops
 
 
@@ -448,6 +459,17 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         steps = lp["fmul"] / (R * (QB + 2)) if lp else None
         per[f"K5 a-step Q={QB}"] = lp["instructions"] / steps if lp else None
         per[f"K5 lds a-step Q={QB}"] = lp["lds"] / steps if lp else None
+    # K5 v2: its product warps' chunk loop (the innermost loop holding
+    # wgmmas, HGMMA, 3 QB / 8 a chunk of 32 u-degrees; its epilogue included),
+    # per chunk and warp: its instructions and HGMMA (a unit's set-up and
+    # tail, the helpers' work and the six sums are outside it)
+    for QB, N in ((16, 96), (16, 64), (32, 96)):
+        lp = [x for x in sass_loops(*find(f"cheb_gq_v2_kernelILi{QB}ELi{N}EE"))
+              if x["hgmma"] >= 3 * QB // 8]
+        lp = min(lp, key=lambda x: x["instructions"]) if lp else None
+        chunks = lp["hgmma"] / (3 * QB // 8) if lp else None
+        per[f"K5 v2 chunk Q={QB} N={N}"] = lp["instructions"] / chunks if lp else None
+        per[f"K5 v2 hgmma chunk Q={QB} N={N}"] = lp["hgmma"] / chunks if lp else None
     return per
 
 
@@ -809,12 +831,14 @@ def kernels_k4(dev, record, I1, I2, gather_Mtaps_s, issue_ms):
                         "bit the NaN-free call's")
 
 
-def kernels_k5(dev, record, issue_ms):
+def kernels_k5(dev, record, issue_ms, sass):
     """Phase 6c: K5 (the Chebyshev series' node quadrature) against its
-    plain version (see the module docstring); fills ``record["K5"]``
-    (``full_mixture``'s 96 x 16 field: error, times and bounds; the other
-    shapes under their names). ``issue_ms(unit, work)``: the SASS issue
-    bound of ``work`` units."""
+    plain version in both variants, "v1" and "v2" (the default in float32;
+    float64 runs "v1"), see the module docstring; fills ``record["K5"]``
+    (``full_mixture``'s 96 x 16 field: v2's error, times and bounds, v1's
+    beside them; the other shapes under their names). ``issue_ms(unit,
+    work)``: the SASS issue bound of ``work`` units; ``sass``: the SASS
+    counts (:func:`sass_per_unit`)."""
     from gqmap_tpu_torch import FlowRange
     from gqmap_tpu_torch.kernels import cheb_gq
     from gqmap_tpu_torch.models import gqmap as pg
@@ -830,12 +854,26 @@ def kernels_k5(dev, record, issue_ms):
         "tpu_fast": GQMAPConfig.tpu_fast(data_term="chebyshev"),
         "super_entropy": GQMAPConfig.super_entropy(**CHEB),
     }
+    runs = {torch.float64: ("v1",), torch.float32: cheb_gq.VARIANTS}
 
     def sites(st, dtype):
         return [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
 
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    def issue(variant, site_shape, K, P, Q):
+        """The SASS issue bound of a launch: v1, every lane of every CTA
+        through every a-step; v2, the product warps' chunk loop, every
+        warpgroup (128 lanes) through every chunk of every unit."""
+        L, M, N = site_shape
+        QB = cheb_gq.q_width(Q)
+        if variant == "v1":
+            R, G, rounds = cheb_gq.lanes(L, K, Q, torch.float32)
+            return issue_ms(f"K5 a-step Q={QB}", M * N * G * rounds * P)
+        lay = cheb_gq.v2_layout(L, K, P, Q)
+        return issue_ms(f"K5 v2 chunk Q={QB} N={lay['width']}",
+                        128 * M * N * lay["units"] * lay["chunks"])
 
     def bmm_only(cheb, s5, K, quad_chunk):
         """The plain version's ``torch.bmm`` calls of one evaluation alone,
@@ -858,7 +896,7 @@ def kernels_k5(dev, record, issue_ms):
 
         return kernel_ms(run, n=5)[0], len(calls)
 
-    rec = record["K5"] = dict(library_ms=None, library_reason=(
+    rec = record["K5"] = dict(variant=cheb_gq._DEFAULT_VARIANT, library_ms=None, library_reason=(
         "no single PyTorch call computes it: the plain version builds both bases, contracts them "
         "with each site's block by torch.bmm and sums the six quadrature sums; bmm_only_ms times "
         "its torch.bmm calls alone, the contraction only"))
@@ -869,48 +907,86 @@ def kernels_k5(dev, record, issue_ms):
         L, M, N = site_shape = tuple(probes["init"].muu.shape)
         P, Q, K = cfg.cheb_p, cfg.cheb_q, cfg.K
         R, G, rounds = cheb_gq.lanes(L, K, Q, torch.float32)
-        r5 = dict(shape=list(site_shape), K=K, P=P, Q=Q, patch=cfg.patch, lanes_a_site=G,
-                  samples_a_lane=R, rounds=rounds)
+        lay = cheb_gq.v2_layout(L, K, P, Q)
+        unit = f"K5 v2 chunk Q={cheb_gq.q_width(Q)} N={lay['width']}"
+        chunks = lay["units"] * lay["chunks"]  # a site's, each a warpgroup's
+        r5 = dict(shape=list(site_shape), K=K, P=P, Q=Q, patch=cfg.patch,
+                  v1_lanes=dict(lanes_a_site=G, samples_a_lane=R, rounds=rounds),
+                  v2_layout=lay,
+                  v2_sass_a_site=dict(
+                      instructions=sass[unit] and 4 * sass[unit] * chunks,
+                      hgmma=sass[unit.replace("chunk", "hgmma chunk")] and
+                      sass[unit.replace("chunk", "hgmma chunk")] * chunks))
         for dtype in (torch.float64, torch.float32):
             cheb = probs[dtype].cheb
             for sname, st in probes.items():
                 s5 = sites(st, dtype)
-                got = k5(cheb, *s5, K)
                 want = plain(cheb, *s5, K, quad_chunk=27)
-                a, r, ok = compare(got, want, dtype)
-                what = f"K5 {name} {site_shape} {P}x{Q} K={K} {str(dtype)[6:]} {sname}"
-                if dtype == torch.float64:
-                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
-                    continue
-                gold = plain(cheb._replace(coeffs=cheb.coeffs.double()),
-                             *(x.double() for x in s5), K, quad_chunk=27)
-                ek, ep = worst_rel(got, gold), worst_rel(want, gold)
-                require(ek <= 2.0 * ep + 1e-6,
-                        f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} + "
-                        f"1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
-                if sname == "clamp":
-                    continue
-                ms = kernel_ms(lambda: k5(cheb, *s5, K))
-                tag = "" if sname == "converged" else "init_"
-                r5[f"{tag}ms"], r5[f"{tag}ms_min"] = ms
-                if sname == "converged":
-                    r5["max_abs_err"] = a
+                gold = None if dtype == torch.float64 else plain(
+                    cheb._replace(coeffs=cheb.coeffs.double()), *(x.double() for x in s5), K,
+                    quad_chunk=27)
+                for variant in runs[dtype]:
+                    got = k5(cheb, *s5, K, variant=variant)
+                    a, r, ok = compare(got, want, dtype)
+                    what = (f"K5 {variant} {name} {site_shape} {P}x{Q} K={K} {str(dtype)[6:]} "
+                            f"{sname}")
+                    if dtype == torch.float64:
+                        require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                        continue
+                    ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                    require(ek <= 2.0 * ep + 1e-6,
+                            f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} "
+                            f"+ 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                    if sname == "clamp":
+                        continue
+                    ms = kernel_ms(lambda: k5(cheb, *s5, K, variant=variant))
+                    tag = "" if sname == "converged" else "init_"
+                    r5[f"{variant}_{tag}ms"], r5[f"{variant}_{tag}ms_min"] = ms
+                    if sname == "converged":
+                        r5[f"{variant}_max_abs_err"] = a
+                        r5[f"{variant}_sass_issue_ms"] = issue(variant, site_shape, K, P, Q)
+                if dtype == torch.float32 and sname == "converged":
                     r5["plain_ms"] = time_ms(lambda: plain(cheb, *s5, K, quad_chunk=27), 3)
                     r5["bmm_only_ms"], r5["bmm_calls"] = bmm_only(cheb, s5, K, 27)
-        r5.update(**bound(roofline.k5_work((M, N), K, P, Q, L)),
-                  sass_issue_ms=issue_ms(f"K5 a-step Q={cheb_gq.q_width(Q)}",
-                                         M * N * G * rounds * P))
+        # v2's bound counts the contraction on the tensor cores (3xTF32);
+        # v1's, every operation on the FMA pipe
+        v1b = bound(roofline.k5_work((M, N), K, P, Q, L))
+        r5.update(**bound(roofline.k5_work((M, N), K, P, Q, L, tensor_cores=True)),
+                  v1_bound_ms=v1b["bound_ms"], v1_bound_ms_measured=v1b["bound_ms_measured"],
+                  v1_bound_terms_ms=v1b["bound_terms_ms"])
+        default = cheb_gq._DEFAULT_VARIANT
+        r5.update(ms=r5[f"{default}_ms"], ms_min=r5[f"{default}_ms_min"],
+                  max_abs_err=r5[f"{default}_max_abs_err"],
+                  sass_issue_ms=r5[f"{default}_sass_issue_ms"])
+        prefix = {"v1": "v1_", "v2": ""}  # v2's bound is the record's own
+        shares = {v: dict(sheet=r5[f"{prefix[v]}bound_ms"] / r5[f"{v}_ms"],
+                          measured=r5[f"{prefix[v]}bound_ms_measured"] / r5[f"{v}_ms"],
+                          issue=r5[f"{v}_sass_issue_ms"] / r5[f"{v}_ms"]
+                          if r5[f"{v}_sass_issue_ms"] else None)
+                  for v in cheb_gq.VARIANTS}
+        r5["shares"] = shares
         if name == "full_mixture":
             rec.update(r5)
         else:
             rec[name] = r5
-        log(f"  K5 {name} {site_shape} {P}x{Q} K={K} f32 on {smi('name,power.limit,clocks.sm')}: "
-            f"converged (median, min) ({r5['ms']:.4f}, {r5['ms_min']:.4f}) ms, init "
-            f"({r5['init_ms']:.4f}, {r5['init_ms_min']:.4f}) ms; plain {r5['plain_ms']:.4f} ms, "
-            f"its {r5['bmm_calls']} torch.bmm calls alone {r5['bmm_only_ms']:.4f} ms; "
-            f"{fmt_bound(r5)} ({r5['bound_terms_ms']}); SASS issue bound "
-            f"{r5['sass_issue_ms']:.4f} ms ({G} lanes a site, {R} samples a lane, {rounds} "
-            "round(s))")
+        card = smi("name,power.limit,clocks.sm")
+        for v in cheb_gq.VARIANTS:
+            log(f"  K5 {v} {name} {site_shape} {P}x{Q} K={K} f32 on {card}: converged (median, "
+                f"min) ({r5[f'{v}_ms']:.4f}, {r5[f'{v}_ms_min']:.4f}) ms, init "
+                f"({r5[f'{v}_init_ms']:.4f}, {r5[f'{v}_init_ms_min']:.4f}) ms; SASS issue bound "
+                f"{r5[f'{v}_sass_issue_ms']} ms; share of its bound: data sheet "
+                f"{shares[v]['sheet']:.1%}, measured {shares[v]['measured']:.1%}")
+        log(f"  K5 {name}: plain {r5['plain_ms']:.4f} ms, its {r5['bmm_calls']} torch.bmm calls "
+            f"alone {r5['bmm_only_ms']:.4f} ms; v2 (tensor cores) {fmt_bound(r5)} "
+            f"({r5['bound_terms_ms']}); v1 (FMA pipe) bound {r5['v1_bound_ms']:.4f} ms (data "
+            f"sheet), {r5['v1_bound_ms_measured']:.4f} ms (measured); v1 {G} lanes a site, {R} "
+            f"samples a lane, {rounds} round(s); v2 {r5['v2_layout']}, its chunk loop's warp "
+            f"instructions and warpgroup HGMMA a site {r5['v2_sass_a_site']}")
+        if name in ("full_mixture", "tpu_fast"):
+            other = "v1" if default == "v2" else "v2"
+            require(r5[f"{default}_ms"] <= r5[f"{other}_ms"],
+                    f"K5 {name} converged: the default {default} {r5[f'{default}_ms']:.4f} ms <= "
+                    f"{other}'s {r5[f'{other}_ms']:.4f} ms")
 
         # a shard's blocks (the (2, 2) mesh's four; on the super lattice one at
         # odd offsets): the whole lattice's sums there, bit for bit
@@ -918,32 +994,42 @@ def kernels_k5(dev, record, issue_ms):
         blocks = ([(r, c, M // 2, N // 2) for r in (0, M // 2) for c in (0, N // 2)]
                   if name == "full_mixture" else [(3, 5, M - 6, N - 7)])
         for dtype in (torch.float64, torch.float32):
-            cheb, s5 = probs[dtype].cheb, sites(st, dtype)
-            whole = k5(cheb, *s5, K)
-            for r0, c0, m, n in blocks:
-                blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
-                block = cheb._replace(coeffs=site_major(cheb.coeffs[:, :, r0:r0 + m, c0:c0 + n]))
-                got = k5(block, *(x[blk].contiguous() for x in s5), K)
-                require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
-                        f"K5 {name} {str(dtype)[6:]} block of ({m}, {n}) sites at lattice "
-                        f"({r0}, {c0}): the whole lattice's sums there, bit for bit")
-            # NaN queries: NaN exactly at the sites with a NaN input, in both
-            # versions; every other site as the NaN-free call gives it
-            at = [(0, M // 4, N // 5), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
-            mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
-            for site in at:
-                mask[site] = True
-            for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
-                s5[field] = s5[field].clone()
-                s5[field][site] = float("nan")
-            got = k5(cheb, *s5, K)
-            want = plain(cheb, *s5, K, quad_chunk=27)
-            torch.cuda.synchronize()
-            require(all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
-                        and torch.equal(g[~mask], c[~mask]) for g, w, c in zip(got, want, whole)),
-                    f"K5 {name} {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in the "
-                    "kernel and the plain version, every other site bit for bit the NaN-free "
-                    "call's")
+            for variant in runs[dtype]:
+                cheb, s5 = probs[dtype].cheb, sites(st, dtype)
+                whole = k5(cheb, *s5, K, variant=variant)
+                for r0, c0, m, n in blocks:
+                    blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+                    block = cheb._replace(
+                        coeffs=site_major(cheb.coeffs[:, :, r0:r0 + m, c0:c0 + n]))
+                    got = k5(block, *(x[blk].contiguous() for x in s5), K, variant=variant)
+                    require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                            f"K5 {variant} {name} {str(dtype)[6:]} block of ({m}, {n}) sites at "
+                            f"lattice ({r0}, {c0}): the whole lattice's sums there, bit for bit")
+                # NaN queries: NaN exactly at the sites with a NaN input, in both
+                # versions; every other site as the NaN-free call gives it
+                at = [(0, M // 4, N // 5), (1, M // 2, N // 3), (2, M - 1, N - 1),
+                      (1, 0, N // 2)]
+                mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+                for site in at:
+                    mask[site] = True
+                for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
+                    s5[field] = s5[field].clone()
+                    s5[field][site] = float("nan")
+                got = k5(cheb, *s5, K, variant=variant)
+                want = plain(cheb, *s5, K, quad_chunk=27)
+                torch.cuda.synchronize()
+                require(all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
+                            and torch.equal(g[~mask], c[~mask])
+                            for g, w, c in zip(got, want, whole)),
+                        f"K5 {variant} {name} {str(dtype)[6:]} NaN probes at {at}: NaN exactly "
+                        "there in the kernel and the plain version, every other site bit for bit "
+                        "the NaN-free call's")
+        if name == "full_mixture":
+            # two v2 launches: one result, bit for bit
+            s5 = sites(probes["init"], torch.float32)
+            a, b = (k5(probs[torch.float32].cheb, *s5, K, variant="v2") for _ in range(2))
+            require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                    f"K5 v2 {name}: two launches give the same sums, bit for bit")
         del probs
         torch.cuda.empty_cache()
 
@@ -1790,8 +1876,9 @@ def graph_phase(dev, record, by_path, kfns):
     ``full_mixture`` (K5 and K3): the route is ``"graph"``; from the init and
     from the sigma = 0.05 state both runners end in the same state and
     traces, bit for bit, after 300 sweeps (100 converged on the K4 and K5
-    paths), with the same launch counts; on the K4 paths
-    the graph's ms a sweep with K4 v1 beside v2's, in turns; each
+    paths), with the same launch counts; on the K4 paths the graph's ms a
+    sweep with K4 v1 beside v2's, on the Chebyshev path with K5 v1 beside
+    v2's, in turns; each
     runner's ms a sweep by CUDA events, the capture's seconds and the peak
     device memory of the capturing call; an early stop that trips inside a
     poll window (``tor`` from the host loop's |dmu| trace) gives the host
@@ -1881,28 +1968,28 @@ def graph_phase(dev, record, by_path, kfns):
             f"{rec['capture_s']:.3f} s, the capturing call {rec['capture_call_GiB_above_held']:.3f}"
             f" GiB at peak above held, reserved +{rec['reserved_GiB_above']:.3f} GiB; launches "
             f"{rec['init']['graph_launches']}")
-        if cfg.data_term == "bicubic":
-            # K4's variants on the graph route, in turns: v2 (the default,
-            # above), v1 (a runner captured with v1 as the default), v2 again
-            from gqmap_tpu_torch.kernels import node_gq
+        if cfg.data_term in ("bicubic", "chebyshev"):
+            # the node kernel's variants on the graph route, in turns: v2 (the
+            # default, above), v1 (a runner captured with v1 as the default),
+            # v2 again (K4 on the bicubic paths, K5 on the Chebyshev one)
+            from gqmap_tpu_torch.kernels import cheb_gq, node_gq
 
-            default, node_gq._DEFAULT_VARIANT = node_gq._DEFAULT_VARIANT, "v1"
+            mod, kn = (node_gq, "k4") if cfg.data_term == "bicubic" else (cheb_gq, "k5")
+            default, mod._DEFAULT_VARIANT = mod._DEFAULT_VARIANT, "v1"
             try:
                 old = pg.make_segment_runner(cfg, (H, W))
                 old(problem, init, 10)
                 for sname, st, n in (("init", init, GRAPH_SWEEPS), ("converged", conv, conv_n)):
-                    rec[sname]["graph_ms_k4_v1"] = timed(old, problem, st, n)[1]
+                    rec[sname][f"graph_ms_{kn}_v1"] = timed(old, problem, st, n)[1]
                 del old
             finally:
-                node_gq._DEFAULT_VARIANT = default
+                mod._DEFAULT_VARIANT = default
             for sname, st, n in (("init", init, GRAPH_SWEEPS), ("converged", conv, conv_n)):
                 rec[sname]["graph_ms_again"] = timed(graph, problem, st, n)[1]
-            log(f"  {path} graph, ms a sweep with K4 v2 / v1 / v2 again: from init "
-                + " / ".join(f"{rec['init'][k]:.4f}" for k in ("graph_ms", "graph_ms_k4_v1",
-                                                                 "graph_ms_again"))
-                + ", converged "
-                + " / ".join(f"{rec['converged'][k]:.4f}" for k in ("graph_ms", "graph_ms_k4_v1",
-                                                                      "graph_ms_again")))
+            keys = ("graph_ms", f"graph_ms_{kn}_v1", "graph_ms_again")
+            log(f"  {path} graph, ms a sweep with {kn.upper()} v2 / v1 / v2 again: from init "
+                + " / ".join(f"{rec['init'][k]:.4f}" for k in keys) + ", converged "
+                + " / ".join(f"{rec['converged'][k]:.4f}" for k in keys))
         if path in ("tpu_fast", "tpu_fast_super"):
             # POLL: ms a sweep of the converged 300-sweep segment at each cadence
             polls = rec["ms_by_POLL"] = {}
@@ -2067,7 +2154,8 @@ def main():
         "epilogue included) per point, and its MUFU.RSQ count")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
-                 "K5 a-step Q=32"):
+                 "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
+                 "K5 v2 chunk Q=32 N=96"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -2407,7 +2495,7 @@ def main():
     k4_fn = node_gq.node_gq_cuda
 
     # ---- 6c. K5 against its plain version
-    kernels_k5(dev, record, issue_ms)
+    kernels_k5(dev, record, issue_ms, sass)
     k5_fn = cheb_gq.cheb_gq_cuda
 
     # ---- 7. one full_mixture sweep, three ways
@@ -2946,7 +3034,7 @@ def main():
         dict(name="node_gq (K4, v2)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:44 (XLA scan, "
                       "no Pallas)", launches=flaunch["K4"], **record["K4"]),
-        dict(name="cheb_gq (K5)", route="cuda", source="gqmap_tpu_torch/csrc/cheb_gq.cu",
+        dict(name="cheb_gq (K5, v2)", route="cuda", source="gqmap_tpu_torch/csrc/cheb_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/chebyshev.py:126 (XLA scan, "
                       "no Pallas)", launches=by_path["full_mixture chebyshev solve"]["K5"],
              **record["K5"]),

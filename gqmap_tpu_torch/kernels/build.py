@@ -65,12 +65,14 @@ _SIGNATURES = {
     # K, variant, window_bytes, lam, eps, device, stream
     "gqmap_node_gq_f32": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
     "gqmap_node_gq_f64": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
-    # coeffs, muu, muv, su, sv, pn, rule_host, out, L, S, P, Q, K, cu, ru, cv, rv, device,
-    # stream
-    "gqmap_cheb_gq_f32": [_P] * 8 + [_I] * 5 + [_D] * 4 + [_I, _P],
-    "gqmap_cheb_gq_f64": [_P] * 8 + [_I] * 5 + [_D] * 4 + [_I, _P],
+    # coeffs, muu, muv, su, sv, pn, rule_host, out, L, S, P, Q, K, variant, cu, ru, cv, rv,
+    # device, stream
+    "gqmap_cheb_gq_f32": [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P],
+    "gqmap_cheb_gq_f64": [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P],
     # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
+    # out, iters, blocks, device, stream (roofline.measure_ceilings)
+    "gqmap_mma_tf32": [_P] + [_I] * 3 + [_P],
 }
 
 

@@ -6,10 +6,17 @@ The node term of ``data_term="chebyshev"``: ``gq_accumulate`` over
 ``gqmap_tpu/models/gqmap.py:487``) and no Pallas kernel. The CUDA kernel is
 ``gqmap_tpu_torch/csrc/cheb_gq.cu`` (its notes say how it is laid out); its
 plain PyTorch version is :func:`cheb_gq_torch`, exactly what the sweep ran
-before the kernel.
+before the kernel. Two variants (:data:`VARIANTS`): ``"v1"``, a site's lanes
+over its samples with the series on the FMA pipe, and ``"v2"`` (the default
+where it takes the shape, :func:`resolve_variant`), float32 only: a site's
+(samples x Q) . (Q x P) product on the tensor cores as 3xTF32 ``wgmma``,
+the blocks brought into shared memory by bulk asynchronous copies, half a
+CTA's warps on the products and half on the rest, a stage apart. float64 runs
+``"v1"``. The two differ at rounding only.
 
 * :func:`cheb_gq_cuda` launches the kernel (and raises for tensors that are
-  not on a CUDA device); ``cheb_gq_cuda.launches`` counts its launches.
+  not on a CUDA device); ``cheb_gq_cuda.launches`` counts its launches, of
+  either variant.
 * :func:`cheb_gq` launches the kernel for CUDA tensors and runs the plain
   version for CPU tensors.
 
@@ -35,12 +42,19 @@ from ..ops.quadrature import table_on
 from . import build
 from .node_gq import node_rule
 
-__all__ = ["MAX_K", "MAX_Q", "cheb_gq", "cheb_gq_cuda", "cheb_gq_torch", "lanes", "q_width",
-           "site_blocks"]
+__all__ = ["MAX_K", "MAX_Q", "V2_MAX_K", "V2_MAX_L", "V2_MAX_Q", "VARIANTS", "cheb_gq",
+           "cheb_gq_cuda", "cheb_gq_torch", "lanes", "q_width", "resolve_variant", "site_blocks",
+           "v2_layout"]
 
 MAX_K = 64  # the largest rule the kernel takes (csrc/cheb_gq.cu, kMaxK)
 MAX_Q = 64  # the largest v-degree count: a sample's basis stays in registers (kMaxQ)
-_MAX_SMEM_BYTES = 47 * 1024  # csrc/cheb_gq.cu kMaxDynSmem
+VARIANTS = ("v1", "v2")  # kernel codes 0, 1
+_DEFAULT_VARIANT = "v2"
+_MAX_SMEM_BYTES = 47 * 1024  # csrc/cheb_gq.cu kMaxDynSmem ("v1")
+_V2_SMEM_BYTES = 227 * 1024  # csrc/cheb_gq.cu kV2MaxSmem: one CTA an SM
+V2_MAX_Q = 32  # the most v-degrees of "v2" (its instances: widths 8, 16, 32)
+V2_MAX_K = 16  # the largest rule of "v2" (its point table in shared memory; kV2MaxK)
+V2_MAX_L = 32  # the most components of "v2" (a thread a stage's (site, component); kV2MaxL)
 
 
 def q_width(Q: int) -> int:
@@ -62,6 +76,63 @@ def lanes(L: int, K: int, Q: int, dtype: torch.dtype) -> tuple[int, int, int]:
     need = -(-L * K * K // R)
     G = min(256, 32 * -(-need // 32))
     return R, G, -(-L * K * K // (G * R))
+
+
+def v2_layout(L: int, K: int, P: int, Q: int) -> dict:
+    """``"v2"``'s launch for ``L`` components of the K^2 rule on a ``(P, Q)``
+    field (csrc/cheb_gq.cu, launch_v2): a site's ``units`` of 64 samples
+    (one a warpgroup's wgmma rows), its ``samples`` padded to whole units;
+    one site a stage, a ring of ``stages`` raw blocks (3, or 2 where 3 do not
+    fit), ``chunks`` of ``width`` u-degrees (a wgmma's columns: 32, 64 or 96,
+    the fewest that hold P, 96 past it) and ``k_steps`` of 8 v-degrees;
+    ``smem`` the CTA's bytes of shared memory (one CTA an SM, two stage
+    buffers) and ``fits`` whether that fits the budget and the shape the
+    instances (at most :data:`V2_MAX_Q` v-degrees, :data:`V2_MAX_K` points an
+    axis, :data:`V2_MAX_L` components)."""
+    QB = q_width(Q)
+    width = next((w for w in (32, 64) if P <= w), 96)
+    KS, NC = QB // 8, -(-P // width)
+    U = -(-L * K * K // 64)
+    NSP = 64 * U
+
+    def round128(n):
+        return -(-n // 128) * 128
+
+    def smem(stages):
+        buf = round128(64 + 32 * K * K + 256 * L + stages * P * Q * 4)
+        return buf + 2 * round128(NC * KS * width * 64 + NC * width * 4 + 16
+                                  + NSP * (4 * QB + 72))
+
+    stages = 3 if smem(3) <= _V2_SMEM_BYTES else 2
+    return dict(units=U, samples=NSP, stages=stages, width=width, chunks=NC, k_steps=KS,
+                smem=smem(stages),
+                fits=(smem(stages) <= _V2_SMEM_BYTES and Q <= V2_MAX_Q and K <= V2_MAX_K
+                      and L <= V2_MAX_L))
+
+
+def resolve_variant(variant: str | None, dtype: torch.dtype, L: int, K: int, P: int, Q: int,
+                    aligned: bool = True) -> str:
+    """The variant a launch runs: ``variant``, or with None ``"v2"`` where it
+    takes the shape and ``"v1"`` elsewhere. ``"v2"`` takes float32, ``P Q``
+    a multiple of 4 on a field whose first element is 16-byte aligned
+    (``aligned``: every site's block is then a run of whole 16-byte units,
+    as the bulk copy moves them), a stage within its shared memory, at most
+    :data:`V2_MAX_Q` v-degrees, :data:`V2_MAX_K` points an axis and
+    :data:`V2_MAX_L` components (:func:`v2_layout`); float64 is
+    ``"v1"``'s. An explicit ``"v2"``
+    outside that raises."""
+    takes = (dtype == torch.float32 and (P * Q) % 4 == 0 and aligned
+             and v2_layout(L, K, P, Q)["fits"])
+    if variant is None:
+        return _DEFAULT_VARIANT if takes else "v1"
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown cheb_gq kernel variant {variant!r}")
+    if variant == "v2" and not takes:
+        raise ValueError(f"cheb_gq variant 'v2' takes float32, P Q a multiple of 4 on a 16-byte "
+                         f"aligned field, a stage within {_V2_SMEM_BYTES} bytes, Q <= {V2_MAX_Q}, "
+                         f"K <= {V2_MAX_K} and L <= {V2_MAX_L}, not {dtype}, {P} x {Q}, L = {L}, "
+                         f"K = {K}, aligned {aligned}")
+    return variant
 
 
 def site_blocks(coeffs: torch.Tensor) -> torch.Tensor:
@@ -95,8 +166,10 @@ def _rule_host(K: int) -> np.ndarray:
     return np.ascontiguousarray(node_rule(K, np.float64))
 
 
-def cheb_gq_cuda(cheb: ChebData, muu, muv, su, sv, pn, K: int) -> GQRaw:
-    """Kernel K5 over every point of the K^2 rule."""
+def cheb_gq_cuda(cheb: ChebData, muu, muv, su, sv, pn, K: int,
+                 variant: str | None = None) -> GQRaw:
+    """Kernel K5 over every point of the K^2 rule; ``variant`` one of
+    :data:`VARIANTS` (None: :func:`resolve_variant`)."""
     if muu.device.type != "cuda":
         raise RuntimeError(f"cheb_gq_cuda needs CUDA tensors, got {muu.device}")
     if muu.dtype not in (torch.float32, torch.float64):
@@ -125,6 +198,8 @@ def cheb_gq_cuda(cheb: ChebData, muu, muv, su, sv, pn, K: int) -> GQRaw:
     if need > _MAX_SMEM_BYTES:
         raise ValueError(f"cheb_gq_cuda: L = {L} components of a K = {K} rule need {need} bytes "
                          f"of shared memory a site, over {_MAX_SMEM_BYTES}")
+    code = VARIANTS.index(resolve_variant(variant, muu.dtype, L, K, P, Q,
+                                          coeffs.data_ptr() % 16 == 0))
     cu, ru = (cheb.lo_u + cheb.hi_u) * 0.5, (cheb.hi_u - cheb.lo_u) * 0.5
     cv, rv = (cheb.lo_v + cheb.hi_v) * 0.5, (cheb.hi_v - cheb.lo_v) * 0.5
     out = torch.empty((6, L, M, N), dtype=muu.dtype, device=muu.device)
@@ -133,8 +208,8 @@ def cheb_gq_cuda(cheb: ChebData, muu, muv, su, sv, pn, K: int) -> GQRaw:
     stream = torch.cuda.current_stream(muu.device).cuda_stream
     build.check(fn(coeffs.data_ptr(), muu.data_ptr(), muv.data_ptr(), su.data_ptr(),
                    sv.data_ptr(), pn.data_ptr(), _rule_host(K).ctypes.data,
-                   out.data_ptr(), L, M * N, P, Q, K, float(cu), float(ru), float(cv), float(rv),
-                   muu.device.index, stream),
+                   out.data_ptr(), L, M * N, P, Q, K, code, float(cu), float(ru), float(cv),
+                   float(rv), muu.device.index, stream),
                 "cheb_gq_cuda")
     cheb_gq_cuda.launches += 1
     return GQRaw(*out.unbind(0))
@@ -144,8 +219,8 @@ cheb_gq_cuda.launches = 0
 
 
 def cheb_gq(cheb: ChebData, muu, muv, su, sv, pn, K: int, quad_chunk: int = 0) -> GQRaw:
-    """Kernel K5 for CUDA tensors, its plain version (``quad_chunk`` points a
-    step) for CPU tensors."""
+    """Kernel K5 (its default variant) for CUDA tensors, its plain version
+    (``quad_chunk`` points a step) for CPU tensors."""
     if muu.device.type == "cpu":
         return cheb_gq_torch(cheb, muu, muv, su, sv, pn, K, quad_chunk=quad_chunk)
     return cheb_gq_cuda(cheb, muu, muv, su, sv, pn, K)

@@ -8,8 +8,11 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
   chains a thread, and one dependent chain beside), the
   rate of arbitrary-index gathers into a 380x456 table, the rates of
   ``expf`` and of ``rsqrtf`` (the special-function unit that K2's and K3's
-  roots use), and the L1 load rate (``csrc/ceilings.cu``: warp-wide
-  four-byte loads of a table that stays in L1, the loads K4's taps are).
+  roots use), the L1 load rate (``csrc/ceilings.cu``: warp-wide
+  four-byte loads of a table that stays in L1, the loads K4's taps are) and
+  the tensor cores' TF32 rate (``csrc/ceilings.cu``: ``mma.sync`` m16n8k8
+  products with independent accumulators, the instruction K5's ``"v2"``
+  runs).
   The compute chains run as one fused elementwise kernel each, compiled at
   run time by PyTorch's jiterator, so the chain and not the memory stream
   is timed; every ceiling is timed by :func:`kernel_ms`.
@@ -22,8 +25,9 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 * :func:`k1_work`, :func:`k2_work`, :func:`k3_work`, :func:`k4_work` and
   :func:`k5_work` count what each kernel's function must do at given
   shapes: bytes (each input read once, each output written once), float32
-  operations (an FMA counts two), square roots and, for K4, the bytes of its
-  table reads through L1; :func:`bound` sets such a count against rates, the
+  operations (an FMA counts two), square roots, for K4 the bytes of its
+  table reads through L1 and, for K5 on the tensor cores, the operations
+  there; :func:`bound` sets such a count against rates, the
   data sheet's (:func:`datasheet_rates`) or the measured ones
   (:func:`measured_rates`).
 
@@ -56,6 +60,7 @@ __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "k
 # tensor cores, SMs, special-function (MUFU) results an SM gives a clock
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_TC_FLOPS_PER_S = 495e12  # the tensor cores' TF32 rate, dense
 SMS, SFU_PER_CLOCK = 132, 16
 # bytes an SM's L1 returns to loads a clock, 128: the CUDA C++ Programming
 # Guide's shared-memory rate (compute capabilities 5.x to 9.0: 32 banks of 32
@@ -175,43 +180,54 @@ def k4_work(site_shape, K: int, patch: int = 1, itemsize: int = 4) -> dict:
                 roots=points * P * P + 2 * sites, l1_bytes=points * (P + 3) ** 2 * itemsize)
 
 
-def k5_work(site_shape, K: int, P: int, Q: int, L: int, itemsize: int = 4) -> dict:
+def k5_work(site_shape, K: int, P: int, Q: int, L: int, itemsize: int = 4,
+            tensor_cores: bool = False) -> dict:
     """K5's function on the ``(M, N)`` sites of a ``(P, Q, M, N)``
     coefficient field with ``L`` components and the K^2-point rule: the field,
     the 5 state fields read once and 6 raw sums written; per sample (a site,
     component and point) the series by the three-term recurrence, 2 P Q
     operations for the contraction, 2 P for the outer sum and 2 (P + Q) for
     the two bases. The sample's whitening, box map and six sums (some 30
-    operations, under 1% at the presets' degrees) are not counted."""
+    operations, under 1% at the presets' degrees) are not counted.
+
+    ``tensor_cores``: the contraction on the tensor cores in float32's
+    3xTF32 form (``"v2"``), ``tc_flops``, three products a multiply-add
+    (``tc_flops_single``, one, beside it); ``flops`` the rest, on the FMA
+    pipe."""
     M, N = site_shape
     sites = M * N
     samples = L * sites * K * K
-    flops = samples * (2 * P * Q + 2 * P + 2 * (P + Q))
-    return dict(bytes=(P * Q * sites + 11 * L * sites) * itemsize, flops=flops, roots=0)
+    rest = samples * (2 * P + 2 * (P + Q))
+    work = dict(bytes=(P * Q * sites + 11 * L * sites) * itemsize, roots=0)
+    if not tensor_cores:
+        return dict(work, flops=samples * 2 * P * Q + rest)
+    return dict(work, flops=rest, tc_flops=3 * samples * 2 * P * Q,
+                tc_flops_single=samples * 2 * P * Q)
 
 
 def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
     """The data sheet's rates, per second: memory bytes, float32 operations,
-    roots at 16 an SM a clock and L1 bytes at :data:`L1_BYTES_PER_CLOCK` an SM a
-    clock, at the card's maximum SM clock."""
+    roots at 16 an SM a clock, L1 bytes at :data:`L1_BYTES_PER_CLOCK` an SM a
+    clock, at the card's maximum SM clock, and TF32 tensor-core operations."""
     clock = max_sm_clock_mhz * 1e6
     return dict(bytes=HBM_BYTES_PER_S, flops=FP32_FLOPS_PER_S, roots=SMS * SFU_PER_CLOCK * clock,
-                l1_bytes=SMS * L1_BYTES_PER_CLOCK * clock)
+                l1_bytes=SMS * L1_BYTES_PER_CLOCK * clock, tc_flops=TF32_TC_FLOPS_PER_S)
 
 
 def measured_rates(ceilings: dict) -> dict:
     """The rates of :func:`measure_ceilings`' result, per second."""
     return dict(bytes=ceilings["hbm_stream_GBps"] * 1e9, flops=ceilings["vpu_GFLOPs"] * 1e9,
-                roots=ceilings["rsqrt_Gops"] * 1e9, l1_bytes=ceilings["l1_GBps"] * 1e9)
+                roots=ceilings["rsqrt_Gops"] * 1e9, l1_bytes=ceilings["l1_GBps"] * 1e9,
+                tc_flops=ceilings["tc_tf32_GFLOPs"] * 1e9)
 
 
 def bound(work: dict, rates: dict) -> dict:
     """The least time of a call, the largest of its bytes, its operations,
-    its roots and (K4) its L1 bytes at ``rates``; with which of bytes (device
-    memory) and operations (roots and L1 reads included) bounds it, and each
-    term."""
+    its roots, (K4) its L1 bytes and (K5 on the tensor cores) its
+    tensor-core operations at ``rates``; with which of bytes (device memory)
+    and operations (all the others) bounds it, and each term."""
     terms = {k: work[k] / rates[k] * 1e3 if work[k] else None
-             for k in ("bytes", "flops", "roots", "l1_bytes") if k in work}
+             for k in ("bytes", "flops", "roots", "l1_bytes", "tc_flops") if k in work}
     t_bytes = terms["bytes"] or 0.0
     t_ops = max(v or 0.0 for k, v in terms.items() if k != "bytes")
     return dict(bound_ms=max(t_bytes, t_ops),
@@ -272,8 +288,10 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
     ``gather_Mtaps_s`` (8M ``torch.take`` reads of a 380x456 table),
     ``exp_Gops`` and ``rsqrt_Gops`` (640 dependent ``expf`` / ``rsqrtf`` an
     element), ``l1_GBps`` (four-byte loads of a 16 KB table, 16K a thread,
-    by the kernels' library, which is built if it is not), and ``card``, the
-    card's name and power limit. ``device``: a CUDA device, the GPU by
+    by the kernels' library, which is built if it is not),
+    ``tc_tf32_GFLOPs`` (``mma.sync`` m16n8k8 TF32 products, 8 independent
+    accumulators a warp, 32 warps an SM, by the same library) and ``card``,
+    the card's name and power limit. ``device``: a CUDA device, the GPU by
     default; anything else raises."""
     if device is None:
         if not torch.cuda.is_available():
@@ -343,11 +361,19 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
         cu_stream), "gqmap_l1_load_f32"), n=10)[0]
     l1 = l1_out.numel() * iters * 16 * 4 / (ms * 1e-3) / 1e9
 
+    # tensor cores: 4 CTAs of 8 warps an SM, each warp 256 x 8 TF32 products
+    mma_blocks, mma_iters = blocks // 2, 256
+    mma_out = torch.empty(mma_blocks * 256, device=device)
+    ms = kernel_ms(lambda: build.check(lib.gqmap_mma_tf32(
+        mma_out.data_ptr(), mma_iters, mma_blocks, mma_out.device.index, cu_stream),
+        "gqmap_mma_tf32"), n=10)[0]
+    tc = mma_blocks * 8 * mma_iters * 8 * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e9
+
     return dict(roundtrip_ms=roundtrip * 1e3, hbm_stream_GBps=stream,
                 vpu_GFLOPs=vpu["chains"], vpu_1chain_GFLOPs=vpu["one chain"],
                 fma_sm_clock_MHz=clock["chains"], fma_1chain_sm_clock_MHz=clock["one chain"],
                 gather_Mtaps_s=gather, exp_Gops=exp_rate, rsqrt_Gops=rsqrt_rate, l1_GBps=l1,
-                card=card_line(device))
+                tc_tf32_GFLOPs=tc, card=card_line(device))
 
 
 # ---- sweeps against their bounds -------------------------------------------------
@@ -391,10 +417,12 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
     ``full_mixture(float32, quad_chunk=27, cheb_p=96, cheb_q=16)`` with the
     term: ``bicubic`` and ``chebyshev`` by the sum of their kernels' bounds
     (K4's or K5's node sums and K3's edge sums, :func:`bound` at the
-    measured rates), ``nearest`` (one plain ``torch.take`` read a sample) by
-    the gather rate."""
+    measured rates; K5's with its contraction on the tensor cores where its
+    default variant, "v2", takes the shape), ``nearest`` (one plain
+    ``torch.take`` read a sample) by the gather rate."""
     from ..config import FlowRange, GQMAPConfig
     from ..models.gqmap import _device, make_problem, make_sweep
+    from . import cheb_gq
 
     dev = _device(device)
     ceil = measure_ceilings(device=dev) if ceilings is None else ceilings
@@ -417,7 +445,10 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
         samples = cfg.L * M * N * cfg.K ** 2
         if mode in ("bicubic", "chebyshev"):
             node = (k4_work((cfg.L, M, N), cfg.K) if mode == "bicubic"
-                    else k5_work((M, N), cfg.K, cfg.cheb_p, cfg.cheb_q, cfg.L))
+                    else k5_work((M, N), cfg.K, cfg.cheb_p, cfg.cheb_q, cfg.L,
+                                 tensor_cores=cheb_gq.resolve_variant(
+                                     None, torch.float32, cfg.L, cfg.K, cfg.cheb_p,
+                                     cfg.cheb_q) == "v2"))
             bound_ms = (bound(node, rates)["bound_ms"]
                         + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"])
             governing = "K4+K3" if mode == "bicubic" else "K5+K3"

@@ -491,7 +491,8 @@ def test_measure_ceilings_on_the_card(dev):
 
     ceil = roofline.measure_ceilings(device=dev)
     rates = ("hbm_stream_GBps", "vpu_GFLOPs", "vpu_1chain_GFLOPs", "gather_Mtaps_s",
-             "exp_Gops", "rsqrt_Gops", "l1_GBps", "fma_sm_clock_MHz", "fma_1chain_sm_clock_MHz")
+             "exp_Gops", "rsqrt_Gops", "l1_GBps", "fma_sm_clock_MHz", "fma_1chain_sm_clock_MHz",
+             "tc_tf32_GFLOPs")
     assert all(np.isfinite(ceil[k]) and ceil[k] > 0 for k in rates + ("roundtrip_ms",)), ceil
     # no measured rate above the data sheet's; independent chains at least as
     # fast as one dependent chain
@@ -500,6 +501,7 @@ def test_measure_ceilings_on_the_card(dev):
     assert ceil["vpu_1chain_GFLOPs"] <= ceil["vpu_GFLOPs"] * 1.02, ceil
     assert ceil["vpu_GFLOPs"] * 1e9 <= sheet["flops"], ceil
     assert ceil["rsqrt_Gops"] * 1e9 <= sheet["roots"], ceil
+    assert ceil["tc_tf32_GFLOPs"] * 1e9 <= sheet["tc_flops"], ceil
     assert ceil["card"] and "W" in ceil["card"]
 
 
@@ -801,16 +803,41 @@ def _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, probe):
     return cheb, [x.to(dev, dtype) for x in (u(-10, 2), u(-2, 2), su, sv, pn)]
 
 
+# (dtype, variant): float64 runs "v1" alone, float32 both
+K5_RUNS = [(torch.float64, "v1"), (torch.float32, "v1"), (torch.float32, "v2")]
+
+
+def _k5_takes(cheb, st, K, dtype, variant):
+    """Whether ``variant`` takes the launch (``cheb_gq.resolve_variant``)."""
+    L = st[0].shape[0]
+    P, Q = cheb.coeffs.shape[:2]
+    try:
+        cheb_gq.resolve_variant(variant, dtype, L, K, P, Q, cheb.coeffs.data_ptr() % 16 == 0)
+    except ValueError:
+        return False
+    return True
+
+
 @pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype, variant", K5_RUNS)
 @pytest.mark.parametrize("case", list(K5_CASES))
-def test_cheb_gq_kernel_matches_plain(dev, case, dtype, probe):
+def test_cheb_gq_kernel_matches_plain(dev, case, dtype, variant, probe):
     # float64 within 1e-10 of each sum's largest magnitude; float32 held to
-    # the f64 golden on the same inputs (ratio rule)
+    # the f64 golden on the same inputs (ratio rule). A shape "v2" does not
+    # take (P Q not a multiple of 4, a stage over its shared memory) raises
+    # for an explicit "v2" before a launch, and the default runs "v1" there,
+    # bit for bit
     L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
     cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, probe)
     n = cheb_gq.cheb_gq_cuda.launches
-    got = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    if not _k5_takes(cheb, st, K, dtype, variant):
+        with pytest.raises(ValueError, match="'v2' takes float32"):
+            cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=variant)
+        assert cheb_gq.cheb_gq_cuda.launches == n
+        default, v1 = (cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=v) for v in (None, "v1"))
+        assert all(torch.equal(a, b) for a, b in zip(default, v1))
+        return
+    got = cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=variant)
     torch.cuda.synchronize()
     assert cheb_gq.cheb_gq_cuda.launches == n + 1
     plain = cheb_gq.cheb_gq_torch(cheb, *st, K, quad_chunk=27)
@@ -823,15 +850,15 @@ def test_cheb_gq_kernel_matches_plain(dev, case, dtype, probe):
         _ratio_to_golden(got, plain, gold)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype, variant", K5_RUNS)
 @pytest.mark.parametrize("case", ["full_mixture 96x16", "ragged K=5 L=2 24x8"])
-def test_cheb_gq_kernel_nan_probe(dev, case, dtype):
+def test_cheb_gq_kernel_nan_probe(dev, case, dtype, variant):
     # NaN means, sigmas and correlations at a few sites: NaN exactly there in
     # the kernel and its plain version, every other site and component as
     # the NaN-free call gives it, bit for bit
     L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
     cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, "converged")
-    clean = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    clean = cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=variant)
     _, M, N = st[0].shape
     sites = [(0, 1, 2), (L - 1, M // 2, N // 3), (L - 1, M - 1, N - 1), (0, 0, N // 2)]
     mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
@@ -839,7 +866,7 @@ def test_cheb_gq_kernel_nan_probe(dev, case, dtype):
         st[field] = st[field].clone()
         st[field][site] = float("nan")
         mask[site] = True
-    got = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    got = cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=variant)
     plain = cheb_gq.cheb_gq_torch(cheb, *st, K)
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, clean):
@@ -847,10 +874,10 @@ def test_cheb_gq_kernel_nan_probe(dev, case, dtype):
         assert torch.equal(g[~mask], c[~mask])
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype, variant", K5_RUNS)
 @pytest.mark.parametrize("case", ["full_mixture 96x16", "super 96x16 patch 4",
                                   "ragged K=5 L=2 24x8"])
-def test_cheb_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype):
+def test_cheb_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype, variant):
     # a shard's block of the field (site major, as parallel/sharded.py stores
     # it) and of the state: the block's sums are the whole lattice's there,
     # bit for bit, whatever CTAs hold its sites
@@ -858,18 +885,20 @@ def test_cheb_gq_kernel_on_a_block_equals_the_whole(dev, case, dtype):
 
     L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
     cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, "converged")
-    whole = cheb_gq.cheb_gq_cuda(cheb, *st, K)
+    whole = cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=variant)
     _, M, N = st[0].shape
     for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3),
                          (3, 5, M - 6, N - 7)):
         blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
         block = cheb._replace(coeffs=site_major(cheb.coeffs[:, :, r0:r0 + m, c0:c0 + n]))
-        got = cheb_gq.cheb_gq_cuda(block, *(x[blk].contiguous() for x in st), K)
+        got = cheb_gq.cheb_gq_cuda(block, *(x[blk].contiguous() for x in st), K,
+                                   variant=variant)
         for g, w in zip(got, whole):
             assert torch.equal(g, w[blk])
 
 
-def test_cheb_gq_kernel_refuses_a_field_that_is_not_site_major(dev):
+@pytest.mark.parametrize("variant", cheb_gq.VARIANTS)
+def test_cheb_gq_kernel_refuses_a_field_that_is_not_site_major(dev, variant):
     # the kernel reads each site's block as one run and never copies the
     # field: the plain (P, Q, M, N) layout, or a block of the site-major one,
     # raises before a launch
@@ -878,11 +907,55 @@ def test_cheb_gq_kernel_refuses_a_field_that_is_not_site_major(dev):
     n = cheb_gq.cheb_gq_cuda.launches
     for coeffs in (cheb.coeffs.contiguous(), cheb.coeffs[:, :, :, 1:]):
         with pytest.raises(ValueError, match="site major"):
-            cheb_gq.cheb_gq_cuda(cheb._replace(coeffs=coeffs), *st, K)
+            cheb_gq.cheb_gq_cuda(cheb._replace(coeffs=coeffs), *st, K, variant=variant)
     with pytest.raises(ValueError, match="v-degrees"):
         cheb_gq.cheb_gq_cuda(cheb._replace(coeffs=torch.zeros(
             (4, 65) + tuple(st[0].shape[1:]), device=dev).permute(2, 3, 0, 1).contiguous()
-            .permute(2, 3, 0, 1)), *st, K)
+            .permute(2, 3, 0, 1)), *st, K, variant=variant)
+    assert cheb_gq.cheb_gq_cuda.launches == n
+
+
+@pytest.mark.parametrize("case", ["full_mixture 96x16", "super 96x16 patch 4", "default 96x32"])
+def test_cheb_gq_v2_launches_are_bit_for_bit_equal(dev, case):
+    # fixed tiles, chains and trees, no atomics: two launches, one result
+    L, K, P, Q, shape, patch, window_rg = K5_CASES[case]
+    cheb, st = _k5_inputs(dev, torch.float32, L, P, Q, shape, patch, window_rg, "init")
+    n = cheb_gq.cheb_gq_cuda.launches
+    a, b = (cheb_gq.cheb_gq_cuda(cheb, *st, K, variant="v2") for _ in range(2))
+    assert cheb_gq.cheb_gq_cuda.launches == n + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_cheb_gq_resolve_variant_on_the_card(dev):
+    # the default: "v2" for float32 where it takes the shape, "v1" for
+    # float64, for P Q not a multiple of 4 and for a field whose first element
+    # is not 16-byte aligned, each bit for bit the explicit variant; an
+    # explicit "v2" there and an unknown variant raise before a launch
+    def sums(cheb, st, K, variant):
+        return cheb_gq.cheb_gq_cuda(cheb, *st, K, variant=variant)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    L, K, P, Q, shape, patch, window_rg = K5_CASES["ragged K=5 L=2 24x8"]
+    for dtype, want in ((torch.float32, "v2"), (torch.float64, "v1")):
+        cheb, st = _k5_inputs(dev, dtype, L, P, Q, shape, patch, window_rg, "converged")
+        assert same(sums(cheb, st, K, None), sums(cheb, st, K, want))
+    # misaligned: the same site-major values one element into a buffer
+    cheb, st = _k5_inputs(dev, torch.float32, L, P, Q, shape, patch, window_rg, "converged")
+    _, M, N = st[0].shape
+    buf = torch.empty(M * N * P * Q + 1, device=dev)
+    buf[1:] = cheb.coeffs.permute(2, 3, 0, 1).reshape(-1)
+    odd = cheb._replace(coeffs=buf[1:].view(M, N, P, Q).permute(2, 3, 0, 1))
+    assert odd.coeffs.data_ptr() % 16 != 0 and torch.equal(odd.coeffs, cheb.coeffs)
+    assert same(sums(odd, st, K, None), sums(cheb, st, K, "v1"))
+    L, K, P, Q, shape, patch, window_rg = K5_CASES["ragged K=11 L=1 13x6"]
+    cheb13, st13 = _k5_inputs(dev, torch.float32, L, P, Q, shape, patch, window_rg, "converged")
+    assert same(sums(cheb13, st13, K, None), sums(cheb13, st13, K, "v1"))
+    n = cheb_gq.cheb_gq_cuda.launches
+    for c, s, k, v in ((odd, st, 5, "v2"), (cheb13, st13, K, "v2"), (cheb, st, 5, "v3")):
+        with pytest.raises(ValueError, match="variant"):
+            sums(c, s, k, v)
     assert cheb_gq.cheb_gq_cuda.launches == n
 
 

@@ -25,10 +25,19 @@ BOUNDS = {
     "K4 main": (roofline.k4_work((3,) + MAIN, 9), 0.0790, "operations"),
     "K4 super": (roofline.k4_work((3,) + SUPER, 11, patch=4), 0.0252, "operations"),
     "K4 ctf_level": (roofline.k4_work((1,) + MAIN, 11), 0.0393, "operations"),
+    "K5 main": (roofline.k5_work(MAIN, 9, 96, 16, 3), 2.1500, "operations"),
+    "K5 tpu_fast": (roofline.k5_work(MAIN, 9, 64, 16, 3), 1.4399, "operations"),
+    "K5 super": (roofline.k5_work(SUPER, 11, 96, 16, 3), 0.2007, "operations"),
+    "K5 main tensor cores": (roofline.k5_work(MAIN, 9, 96, 16, 3, tensor_cores=True), 0.7689,
+                             "operations"),
+    "K5 tpu_fast tensor cores": (roofline.k5_work(MAIN, 9, 64, 16, 3, tensor_cores=True),
+                                 0.5126, "operations"),
+    "K5 super tensor cores": (roofline.k5_work(SUPER, 11, 96, 16, 3, tensor_cores=True),
+                              0.0718, "operations"),
 }
 CEILINGS = dict(roundtrip_ms=0.03, hbm_stream_GBps=3000.0, vpu_GFLOPs=50000.0,
                 gather_Mtaps_s=2e5, exp_Gops=2000.0, rsqrt_Gops=4000.0, l1_GBps=30000.0,
-                card="given")
+                tc_tf32_GFLOPs=300000.0, card="given")
 
 
 @pytest.mark.parametrize("name", list(BOUNDS))
@@ -85,6 +94,13 @@ def test_measured_rates_set_the_bound():
     work = roofline.k4_work((3,) + MAIN, 9)
     got = roofline.bound(work, roofline.measured_rates(CEILINGS))
     assert got["bound_terms_ms"]["l1_bytes"] == pytest.approx(work["l1_bytes"] / 3e13 * 1e3)
+    # K5's tensor-core term at the measured TF32 rate, beside its FMA-pipe rest
+    work = roofline.k5_work(MAIN, 9, 96, 16, 3, tensor_cores=True)
+    got = roofline.bound(work, roofline.measured_rates(CEILINGS))
+    assert got["bound_terms_ms"]["tc_flops"] == pytest.approx(work["tc_flops"] / 3e14 * 1e3)
+    assert got["bound_terms_ms"]["flops"] == pytest.approx(work["flops"] / 5e13 * 1e3)
+    assert got["bound_ms"] == pytest.approx(max(got["bound_terms_ms"]["tc_flops"],
+                                                got["bound_terms_ms"]["bytes"]))
 
 
 def test_measure_ceilings_needs_a_card(monkeypatch):
@@ -117,9 +133,11 @@ def test_sweep_roofline_on_the_cpu():
     assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k4_work((3, 24, 28), 9), rates)["bound_ms"]
         + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
-    # and the Chebyshev path, kernels K5 (96 x 16) and K3
+    # and the Chebyshev path, kernels K5 (96 x 16; "v2", the contraction on
+    # the tensor cores) and K3
     assert out["modes"]["chebyshev"]["bound_ms"] == pytest.approx(
-        roofline.bound(roofline.k5_work((24, 28), 9, 96, 16, 3), rates)["bound_ms"]
+        roofline.bound(roofline.k5_work((24, 28), 9, 96, 16, 3, tensor_cores=True),
+                       rates)["bound_ms"]
         + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
 
 
