@@ -117,6 +117,26 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    tensor cores, ``tensor_cores=True``, v1's on the FMA pipe), each
    variant's share of its bound and its SASS issue bound; the default
    variant must be the faster at ``full_mixture`` and ``tpu_fast``;
+6d. K6 (the nearest lookup's node quadrature) and K7 (the Prewitt chain's)
+   against their plain versions at the main paths' shapes on 376x452:
+   ``legacy_v2``'s windowed lookup (L = 1, K = 9, rg = 2, rfc = 6),
+   ``blockmatch_v2``'s (K = 17), ``full_mixture(data_term="nearest")``'s
+   (L = 3, K = 9; ``sweep_roofline``'s nearest mode) and ``legacy_v3``'s
+   chain (K = 9, rfc = 4), each from the init, the sigma = 0.05 state and
+   the |rho| clamp: float64 within 1e-10 of each sum's largest magnitude,
+   float32 against the f64 golden (ratio rule), two float32 launches bit for
+   bit; a shard's blocks (the (2, 2) mesh's four and one at odd offsets) bit
+   for bit the whole lattice's and, in float64, within 1e-10 of their plain
+   version; NaN means, sigmas and correlations at a few sites: NaN where the
+   plain version has NaN, within tolerance of it elsewhere, every other site
+   bit for bit the NaN-free call's; on the sigma = 0.05 state, the init and
+   a smooth field (every mean at the pair's shift, sigma = 0.05), each
+   kernel's time, its plain version's, the distinct 32-byte table sectors
+   the state's lookups touch and the bound they give (``roofline.k6_work``/
+   ``k7_work`` at the data sheet's and the measured rates), beside the time
+   of one sector a lookup, its SASS issue bound (the point loop per point,
+   every thread of the 32 x 8 tiles) and ``torch.take``'s rate of random
+   gathers over ``legacy_v2``'s table;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -160,7 +180,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    against its plain version, from the init and the sigma = 0.05 state;
 16. the legacy presets through the user entry points, each with every
    launch counter set to 0 just before it: 300-sweep ``legacy_v2``,
-   ``legacy_v3`` and ``blockmatch_v2`` solves, K3 launched once a sweep, and
+   ``legacy_v3`` and ``blockmatch_v2`` solves, K3 and K6 (K7 on
+   ``legacy_v3``) launched once a sweep, and
    ``tpu_fast(window_rg=2)``, K1 and K2 once a sweep; finite energy, the AEPE
    at it = 300 below that at it = 1; ``blockmatch_v2`` also from
    ``block_matching_init`` (which must find the pair's shift), whose AEPE
@@ -172,7 +193,9 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    quadratic prior is the block-matching flow; ``solve`` does not set it):
    no kernel launched, the median interior mean within 0.15 of the prior's;
 17. ``legacy_v2``'s ms a sweep (a 30-sweep segment from its solve's final
-   state), the node term's share of a sweep, the
+   state), the node term's share of a sweep (K6 and its finalize; the plain
+   version's time beside it), K6 alone on the solve's final state against
+   the bound of that state's table sectors, the
    seconds and memory to build its ``upsample_cubic`` table, and its solve's
    peak device memory;
 18. one full-width ``legacy_v2(gradient_estimator="autodiff")`` sweep: a
@@ -227,8 +250,9 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    block against its padded plain version in both types, each rank's launch
    counters (K1 = K2 = sweeps on ``tpu_fast``, twice on red-black, K3 = K4 =
    sweeps on ``full_mixture``, K5 = K3 = sweeps on the Chebyshev
-   ``full_mixture``, 96 x 16); the two ``full_mixture`` sweeps' state fields
-   equal the single-process sweep's bit for bit in both types (K4 or K5, and
+   ``full_mixture``, 96 x 16, K7 = K3 = sweeps on ``legacy_v3``); the two
+   ``full_mixture`` sweeps' and the ``legacy_v3`` sweep's state fields equal
+   the single-process sweep's bit for bit in both types (K4, K5 or K7, and
    K3 on both sides); a 300-sweep ``solve(mesh=...)`` of
    ``tpu_fast`` (AEPE falls, the same result on every rank, final AEPE
    within 10% of phase 5's single-process solve at it = 300; its wall time,
@@ -287,7 +311,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
-K3 and K4, the Chebyshev ``full_mixture`` solve for K5; ``launches_by_path``
+K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
+solve for K6 and the ``legacy_v3`` solve for K7; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
@@ -325,6 +350,12 @@ LANES_PER_CLOCK = 128  # H100 SXM: thread-instructions an SM issues a clock
 # clock) and "measured" (roofline.measure_ceilings), set in main()
 RATES = {}
 FAILURES = []
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
+def launch_counts(**launches):
+    """A launch count for every kernel: the ones given, 0 for the others."""
+    return {k: launches.get(k, 0) for k in KERNELS}
 
 
 def log(msg):
@@ -470,6 +501,16 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         chunks = lp["hgmma"] / (3 * QB // 8) if lp else None
         per[f"K5 v2 chunk Q={QB} N={N}"] = lp["instructions"] / chunks if lp else None
         per[f"K5 v2 hgmma chunk Q={QB} N={N}"] = lp["hgmma"] / chunks if lp else None
+    # K6 and K7: the point loop (the innermost loop holding a point's table
+    # loads, LDG: the (2 rg + 1)^2 taps of K6, K7's value and two fields) of
+    # the float instances for rg = 2 and rg = 0 and of K7, per point
+    for key, unit, ldg in (("nearest_gq_kernelIfLi2EE", "K6 point rg=2", 25),
+                           ("nearest_gq_kernelIfLi0EE", "K6 point rg=0", 1),
+                           ("nearest_chain_kernelIfE", "K7 point", 3)):
+        lp = [x for x in sass_loops(*find(key)) if x["ldg"] >= ldg]
+        lp = min(lp, key=lambda x: x["instructions"]) if lp else None
+        per[unit] = lp["instructions"] if lp else None
+        per[unit.replace("point", "rsq")] = lp["rsq"] if lp else None
     return per
 
 
@@ -1034,6 +1075,193 @@ def kernels_k5(dev, record, issue_ms, sass):
         torch.cuda.empty_cache()
 
 
+def kernels_k6_k7(dev, record, I1, I2, issue_ms):
+    """Phase 6d: K6 and K7 against their plain versions (see the module
+    docstring); fills ``record["K6"]`` (``legacy_v2``'s windowed lookup:
+    error, times and bounds; the other shapes under their names) and
+    ``record["K7"]`` (``legacy_v3``'s chain). ``issue_ms(unit, work)``: the
+    SASS issue bound of ``work`` units."""
+    from gqmap_tpu_torch import GQMAPConfig
+    from gqmap_tpu_torch.kernels import nearest_gq
+    from gqmap_tpu_torch.ops.interp import prewitt_gradients, upsample_cubic
+
+    log("phase kernels K6/K7")
+    t_phase = time.time()
+    cases = {  # name: (kernel, configuration): the main paths of the two kernels
+        "legacy_v2": ("K6", GQMAPConfig.legacy_v2()),
+        "blockmatch_v2": ("K6", GQMAPConfig.blockmatch_v2()),
+        "full_mixture nearest": ("K6", GQMAPConfig.full_mixture(data_term="nearest")),
+        "legacy_v3": ("K7", GQMAPConfig.legacy_v3()),
+    }
+    f64, f32 = torch.float64, torch.float32
+    tables = {}
+
+    def tabs_for(cfg, chain, dtype):
+        """frame 2's upsampled table (and the Prewitt fields' for K7), made once"""
+        key = (cfg.rfc, chain, dtype)
+        if key not in tables:
+            I2d = torch.as_tensor(I2, dtype=dtype, device=dev)
+            tables[key] = [upsample_cubic(x, cfg.rfc)
+                           for x in ((I2d, *prewitt_gradients(I2d)) if chain else (I2d,))]
+        return tables[key]
+
+    def kernel_of(name):
+        kern, cfg = cases[name]
+        chain = kern == "K7"
+        rest = (cfg.K, cfg.lambdad, cfg.epsn, cfg.rfc) + (() if chain else (cfg.window_rg,))
+        fns = ((nearest_gq.nearest_chain_gq_cuda, nearest_gq.nearest_chain_gq_torch) if chain
+               else (nearest_gq.nearest_gq_cuda, nearest_gq.nearest_gq_torch))
+        return kern, cfg, chain, rest, fns
+
+    def sites(st, dtype):
+        return [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    before = {k: f.launches for k, f in (("K6", nearest_gq.nearest_gq_cuda),
+                                          ("K7", nearest_gq.nearest_chain_gq_cuda))}
+    for kern in ("K6", "K7"):
+        record[kern] = dict(library_ms=None, library_reason=(
+            "no single PyTorch call computes it: a gather (torch.take) and the Charbonnier "
+            "quadrature sums are separate calls; the plain version is those calls"))
+    for name in cases:
+        kern, cfg, chain, rest, (fn, plain) = kernel_of(name)
+        rg = 0 if chain else cfg.window_rg
+        probes = k4_probes(cfg, (H, W), dev)
+        # and a smooth field: every mean at the pair's shift, sigma = 0.05
+        conv = probes["converged"]
+        probes["smooth"] = conv._replace(muu=torch.ones_like(conv.muu),
+                                         muv=torch.zeros_like(conv.muv))
+        site_shape = tuple(probes["init"].muu.shape)
+        L, M, N = site_shape
+        lanes = L * -(-M // 8) * 8 * -(-N // 32) * 32  # the launch's threads (32 x 8 CTAs)
+        unit = "K7 point" if chain else f"K6 point rg={rg}"
+        rec = dict(shape=list(site_shape), K=cfg.K, rg=rg, rfc=cfg.rfc)
+        gold = {}
+        for dtype in (f64, f32):
+            I1d = torch.as_tensor(I1, dtype=dtype, device=dev)
+            tabs = tabs_for(cfg, chain, dtype)
+            for sname, st in probes.items():
+                args = (I1d, *tabs, *sites(st, dtype))
+                got, want = fn(*args, *rest), plain(*args, *rest, quad_chunk=27)
+                a, r, ok = compare(got, want, dtype)
+                what = f"{kern} {name} {site_shape} K={cfg.K} rg={rg} {str(dtype)[6:]} {sname}"
+                if dtype == f64:
+                    gold[sname] = want
+                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                    continue
+                ek, ep = worst_rel(got, gold[sname]), worst_rel(want, gold[sname])
+                require(ek <= 2.0 * ep + 1e-6,
+                        f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} + "
+                        f"1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                again = fn(*args, *rest)
+                require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                        f"{what}: two launches give the same sums, bit for bit")
+                if sname == "clamp":
+                    continue
+                tag = "" if sname == "converged" else f"{sname}_"
+                ms = kernel_ms(lambda: fn(*args, *rest))
+                rec[f"{tag}ms"], rec[f"{tag}ms_min"] = ms
+                rec[f"{tag}plain_ms"] = time_ms(lambda: plain(*args, *rest, quad_chunk=27), 3)
+                lookups, sectors = nearest_gq.lookup_sectors(tabs[0], *args[-5:], cfg.K, cfg.rfc,
+                                                             rg)
+                work = (roofline.k7_work(site_shape, cfg.K, sectors) if chain
+                        else roofline.k6_work(site_shape, cfg.K, rg, sectors))
+                b = bound(work)
+                rec[f"{tag}sectors"], rec["lookups"] = sectors, lookups
+                rec[f"{tag}bound_ms"], rec[f"{tag}bound_ms_measured"] = (
+                    b["bound_ms"], b["bound_ms_measured"])
+                if sname == "converged":
+                    rec.update(b, max_abs_err=a, sass_issue_ms=issue_ms(unit, lanes * cfg.K ** 2),
+                               lookup_sector_ms=work["lookup_bytes"]
+                               / RATES["datasheet"]["bytes"] * 1e3)
+        if name == "legacy_v2":
+            # the card's rate of random 4-byte gathers over this table: torch.take
+            # of uniform random indices, a tenth of the lookups K6 makes
+            tab = tabs_for(cfg, chain, f32)[0]
+            idx = torch.randint(0, tab.numel(), (rec["lookups"] // 10,), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0))
+            ms = kernel_ms(lambda: torch.take(tab, idx), n=10)[0]
+            rec["take_random_Glookups_s"] = idx.numel() / ms / 1e6
+            del idx
+        card = smi("name,power.limit,clocks.sm")
+        log(f"  {kern} {name} {site_shape} K={cfg.K} rg={rg} rfc={cfg.rfc} f32 on {card}: "
+            f"{rec['lookups']:.4e} lookups; one sector a lookup {rec['lookup_sector_ms']:.4f} "
+            f"ms; SASS issue bound {rec['sass_issue_ms']:.4f} ms; converged {fmt_bound(rec)} "
+            f"({rec['bound_terms_ms']})")
+        for sname in ("converged", "init", "smooth"):
+            tag = "" if sname == "converged" else f"{sname}_"
+            log(f"    {sname}: (median, min) ({rec[tag + 'ms']:.4f}, {rec[tag + 'ms_min']:.4f}) "
+                f"ms, plain {rec[tag + 'plain_ms']:.4f} ms, {rec[tag + 'sectors']} distinct "
+                f"sectors, bound {rec[tag + 'bound_ms']:.4f} ms (data sheet), "
+                f"{rec[tag + 'bound_ms_measured']:.4f} ms (measured); "
+                f"{rec['lookups'] / rec[tag + 'ms'] / 1e6:.2f} G lookups/s")
+        if "take_random_Glookups_s" in rec:
+            log(f"    torch.take of uniform random indices over the table: "
+                f"{rec['take_random_Glookups_s']:.2f} G lookups/s")
+        if name in ("legacy_v2", "legacy_v3"):
+            record[kern].update(rec)
+        else:
+            record[kern][name] = rec
+
+    # a shard's block: the whole lattice's sums there, bit for bit (the (2, 2)
+    # mesh's four blocks and one at odd offsets), and within 1e-10 of its
+    # plain version in float64; NaN queries: NaN where the plain version has
+    # NaN (a NaN cell reads the element the plain version reads), every other
+    # site bit for bit the NaN-free call's
+    hm, hn = H // 2, W // 2
+    blocks = [(r, c, hm, hn) for r in (0, hm) for c in (0, hn)]
+    blocks.append(((H // 10) | 1, (W // 9) | 1, H // 3, W // 2))  # at odd offsets
+    for name in ("legacy_v2", "legacy_v3"):
+        kern, cfg, chain, rest, (fn, plain) = kernel_of(name)
+        st = k4_probes(cfg, (H, W), dev)["converged"]
+        for dtype in (f64, f32):
+            I1d = torch.as_tensor(I1, dtype=dtype, device=dev)
+            tabs = tabs_for(cfg, chain, dtype)
+            s5 = sites(st, dtype)
+            whole = fn(I1d, *tabs, *s5, *rest)
+            for r0, c0, m, n in blocks:
+                blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+                bs = [x[blk].contiguous() for x in s5]
+                at = dict(origin=(r0, c0), local_image_shape=(m, n))
+                got = fn(I1d, *tabs, *bs, *rest, **at)
+                what = f"{kern} {name} {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0})"
+                if dtype == f64:
+                    a, r, ok = compare(got, plain(I1d, *tabs, *bs, *rest, quad_chunk=27, **at),
+                                       dtype)
+                    require(ok, f"{what} against its plain version: max abs err {a:.3e}, "
+                                f"rel {r:.3e}")
+                require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                        f"{what}: the whole lattice's sums there, bit for bit")
+            L, M, N = s5[0].shape
+            at = [(0, M // 4, N // 5), (0, M // 2, N // 3), (0, M - 1, N - 1), (0, 0, N // 2)]
+            mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+            for site in at:
+                mask[site] = True
+            s5 = [x.clone() for x in s5]  # (a float64 field is the probe's own tensor)
+            for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
+                s5[field][site] = float("nan")
+            got = fn(I1d, *tabs, *s5, *rest)
+            want = plain(I1d, *tabs, *s5, *rest, quad_chunk=27)
+            torch.cuda.synchronize()
+            ok = True
+            for g, w, c in zip(got, want, whole):
+                ok &= torch.equal(torch.isnan(g), torch.isnan(w)) and torch.equal(g[~mask],
+                                                                                   c[~mask])
+                fine = ~torch.isnan(w)
+                ok &= compare([g[fine]], [w[fine]], dtype)[2]
+            require(ok, f"{kern} {name} {str(dtype)[6:]} NaN probes at {at}: NaN where the plain "
+                        "version has NaN, within tolerance of it elsewhere, every other site bit "
+                        "for bit the NaN-free call's")
+    made = {k: f.launches - before[k] for k, f in (("K6", nearest_gq.nearest_gq_cuda),
+                                                   ("K7", nearest_gq.nearest_chain_gq_cuda))}
+    del tables
+    torch.cuda.empty_cache()
+    log(f"  phase kernels K6/K7 {time.time() - t_phase:.1f} s; launches in this phase (checks "
+        f"and timing, not a main path) {made}")
+
+
 def flow_sequence(seed, dev, H=H, W=W):
     """An H x W pair with a smooth, non-constant flow: smoothed noise as
     frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
@@ -1141,7 +1369,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         out, c = run_cli("cli run tpu_fast", ["run", *pre, *fast])
         got = last_json(out)
         n = got["iters"]
-        require(n == 600 and c == {"K1": n, "K2": n, "K3": 0, "K4": 0, "K5": 0},
+        require(n == 600 and c == launch_counts(K1=n, K2=n),
                 f"run --preset tpu_fast: {n} sweeps (600 asked), launches {c}: K1 and K2 once a "
                 "sweep, K3 and K4 0")
         direct = solve(GQMAPConfig.tpu_fast(its=600, eval_every=300), seq.img1, seq.img2,
@@ -1155,7 +1383,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         out, c = run_cli("cli run full_mixture",
                          ["run", *pre, "--its", "300", "--eval-every", "300"])
         n = last_json(out)["iters"]
-        require(n == 300 and c == {"K1": 0, "K2": 0, "K3": n, "K4": n, "K5": 0},
+        require(n == 300 and c == launch_counts(K3=n, K4=n),
                 f"run (full_mixture): {n} sweeps (300 asked), launches {c}: K3 and K4 once a "
                 "sweep, K1 and K2 0")
         try:
@@ -1220,7 +1448,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
         peak = torch.cuda.max_memory_allocated() - base
         by_path["ctf"] = c = counts()
         sweeps = sum(lv.iters for lv in cres.levels)
-        require(c == {"K1": 0, "K2": 0, "K3": sweeps, "K4": sweeps, "K5": 0},
+        require(c == launch_counts(K3=sweeps, K4=sweeps),
                 f"ctf: launches {c}: K3 and K4 equal to the levels' {sweeps} sweeps, K1 and K2 "
                 "0")
         require(all(np.isfinite(lv.Energy[:lv.iters]).all() for lv in cres.levels)
@@ -1295,7 +1523,7 @@ def drivers(dev, record, by_path, kfns, segment_ms):
             zero_counts()
             res = solve(scfg, s.img1, s.img2, gt_flow=s.gt_flow, device=dev)
             c = counts()
-            require(c == {"K1": res.iters, "K2": res.iters, "K3": 0, "K4": 0, "K5": 0}
+            require(c == launch_counts(K1=res.iters, K2=res.iters)
                     and res.best_aepe < res.AEPE[0],
                     f"suite {name}: best AEPE {res.best_aepe:.4f} below it=1's {res.AEPE[0]:.4f}, "
                     f"launches {c}")
@@ -1352,7 +1580,12 @@ SHARDED_PATHS = {
     "full_mixture": functools.partial(GQMAPConfig.full_mixture, quad_chunk=27),
     "tpu_fast redblack": functools.partial(GQMAPConfig.tpu_fast, sweep_order="redblack"),
     "full_mixture chebyshev": functools.partial(GQMAPConfig.full_mixture, quad_chunk=27, **CHEB),
+    "legacy_v3": GQMAPConfig.legacy_v3,
 }
+# the paths whose sharded sweep is the single-process sweep bit for bit: node
+# and edge sums per site (K4, K5 or K7, and K3), no sum over the shards
+# feeding the state
+SHARDED_SAME_BITS = ("full_mixture", "full_mixture chebyshev", "legacy_v3")
 
 
 def rank_main(rank, world, port, out_dir):
@@ -1366,7 +1599,8 @@ def rank_main(rank, world, port, out_dir):
     import torch.distributed as tdist
 
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
-    from gqmap_tpu_torch.kernels import cheb_gq, cosine_gq, edge_gq, edge_reduced_gq, node_gq
+    from gqmap_tpu_torch.kernels import (cheb_gq, cosine_gq, edge_gq, edge_reduced_gq, nearest_gq,
+                                         node_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import EDGE
     from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
@@ -1379,7 +1613,8 @@ def rank_main(rank, world, port, out_dir):
     dev = torch.device("cuda", torch.cuda.current_device())
     kfns = {"K1": cosine_gq.cos_mode_sums_cuda, "K2": edge_reduced_gq.edge_reduced_grads_cuda,
             "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda,
-            "K5": cheb_gq.cheb_gq_cuda}
+            "K5": cheb_gq.cheb_gq_cuda, "K6": nearest_gq.nearest_gq_cuda,
+            "K7": nearest_gq.nearest_chain_gq_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -1458,7 +1693,7 @@ def rank_main(rank, world, port, out_dir):
     tdist.destroy_process_group()
 
 
-def sharded(dev, record, by_path, st64, single_aepe):
+def sharded(dev, record, by_path, single_aepe):
     """The sharded phase: 4 ranks on ``cuda:0`` over gloo (the backend rule:
     they share the card) and 1 over NCCL (:func:`rank_main`), and the command
     line under ``torch.distributed.run`` with 2 ranks, all started together;
@@ -1511,8 +1746,10 @@ def sharded(dev, record, by_path, st64, single_aepe):
                 for dtype in ("float64", "float32"):
                     cfg = make_cfg(dtype=dtype)
                     prob = pg.make_problem(cfg, I1, I2, fr, dev)
+                    # the f64 init, cast, as each rank makes it
+                    st0 = pg.init_state(make_cfg(dtype="float64"), fr, (H, W), seed=0, device=dev)
                     st = pg.GQState(*(x.to(getattr(torch, dtype)) if x.is_floating_point()
-                                      else x for x in st64))
+                                      else x for x in st0))
                     out, aux = pg.make_sweep(cfg, (H, W))(prob, st)
                     gold[path, dtype] = (out, aux)
                     del prob
@@ -1559,7 +1796,7 @@ def sharded(dev, record, by_path, st64, single_aepe):
                 if not os.path.exists(f):
                     continue
                 sh = torch.load(f)
-                if path.startswith("full_mixture"):  # K4 or K5, K3: per site, the whole's
+                if path in SHARDED_SAME_BITS:  # K4, K5 or K7, K3: per site, the whole's
                     g = gold[path, dtype][0]
                     same = all(torch.equal(sh[k].to(dev), getattr(g, k)) for k in fields[:6])
                     require(same, f"sharded {path} (2, 2) {dtype} sweep: the state fields equal "
@@ -1583,15 +1820,15 @@ def sharded(dev, record, by_path, st64, single_aepe):
                         f"<= 2 x the single-process f32 sweep's {e_1:.3e}; largest difference "
                         f"from the single-process f32 sweep {big:.3e}")
         per_rank = [recs.get(f"rank {r}", {}).get("launches", {}) for r in range(4)]
-        fast, exact, cheb = ({"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0},
-                             {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 0},
-                             {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 1})
+        fast, exact, cheb, chain = (launch_counts(K1=1, K2=1), launch_counts(K3=1, K4=1),
+                                    launch_counts(K3=1, K5=1), launch_counts(K3=1, K7=1))
         want = {"tpu_fast sharded sweep float64": fast, "tpu_fast sharded sweep float32": fast,
                 "full_mixture sharded sweep float64": exact,
                 "full_mixture sharded sweep float32": exact,
                 "tpu_fast redblack sharded sweep float32": {k: 2 * v for k, v in fast.items()},
                 "full_mixture chebyshev sharded sweep float64": cheb,
                 "full_mixture chebyshev sharded sweep float32": cheb,
+                "legacy_v3 sharded sweep float64": chain, "legacy_v3 sharded sweep float32": chain,
                 "tpu_fast sharded solve": {k: SHARDED_SOLVE_ITS * v for k, v in fast.items()}}
         for path, w in want.items():
             got = [c.get(path) for c in per_rank]
@@ -1731,7 +1968,7 @@ def chebyshev(dev, record, by_path, kfns, st64, cast):
             f"chebyshev solve: {n} sweeps ({its} asked), energy finite over every sweep")
     require(bool(an < a1), f"chebyshev solve: AEPE {a1:.4f} at it=1 -> {an:.4f} at it={n} "
                            "(falls)")
-    require(c == {"K1": 0, "K2": 0, "K3": n, "K4": 0, "K5": n},
+    require(c == launch_counts(K3=n, K5=n),
             f"chebyshev solve: launches {c}: K3 and K5 equal to the sweep count {n}, K1, K2 and "
             "K4 0")
     rec["solve"] = dict(its=its, eval_every=every, wall_s=wall, GiB_above_held=peak / 2**30,
@@ -2113,12 +2350,11 @@ def main():
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
     from gqmap_tpu_torch.kernels import (build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                         node_gq)
+                                         nearest_gq, node_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
-    from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize, gq_accumulate
+    from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize
     from gqmap_tpu_torch.ops.interp import upsample_cubic
-    from gqmap_tpu_torch.ops.quadrature import build_table
 
     dev = torch.device("cuda", 0)
     k1_fn, k2_fn = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
@@ -2155,7 +2391,7 @@ def main():
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
-                 "K5 v2 chunk Q=32 N=96"):
+                 "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -2498,6 +2734,10 @@ def main():
     kernels_k5(dev, record, issue_ms, sass)
     k5_fn = cheb_gq.cheb_gq_cuda
 
+    # ---- 6d. K6 and K7 against their plain versions
+    kernels_k6_k7(dev, record, I1, I2, issue_ms)
+    k6_fn, k7_fn = nearest_gq.nearest_gq_cuda, nearest_gq.nearest_chain_gq_cuda
+
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
     fprob = {torch.float32: pg.make_problem(fm32, I1, I2, fr, dev),
@@ -2516,23 +2756,25 @@ def main():
     del fprob
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    k1_fn.launches = k2_fn.launches = k3_fn.launches = k4_fn.launches = k5_fn.launches = 0
+    for f in (k1_fn, k2_fn, k3_fn, k4_fn, k5_fn, k6_fn, k7_fn):
+        f.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     fres = solve(fm32, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
     torch.cuda.synchronize()
     fwall = time.time() - t
     flaunch = {"K1": k1_fn.launches, "K2": k2_fn.launches, "K3": k3_fn.launches,
-               "K4": k4_fn.launches, "K5": k5_fn.launches}
+               "K4": k4_fn.launches, "K5": k5_fn.launches, "K6": k6_fn.launches,
+               "K7": k7_fn.launches}
     fpeak = torch.cuda.max_memory_allocated()
     record["peak_GiB"] = {"full_mixture": fpeak / 2**30}
     require(fres.iters == fm32.its, f"solve ran {fres.iters} sweeps ({fm32.its} asked)")
     require(bool(np.isfinite(fres.Energy[:fres.iters]).all()), "energy finite over every sweep")
     a1, an = fres.AEPE[0], fres.AEPE[fres.iters - 1]
     require(bool(an < a1), f"AEPE {a1:.4f} at it=1 -> {an:.4f} at it={fres.iters} (falls)")
-    require(flaunch == {"K1": 0, "K2": 0, "K3": fres.iters, "K4": fres.iters, "K5": 0},
-            f"launch counters {flaunch}: K3 and K4 equal the sweep count {fres.iters}, K1, K2 "
-            "and K5 0")
+    require(flaunch == launch_counts(K3=fres.iters, K4=fres.iters),
+            f"launch counters {flaunch}: K3 and K4 equal the sweep count {fres.iters}, K1, K2, "
+            "K5, K6 and K7 0")
     log(f"  solve wall {fwall:.3f} s incl. 4 readouts; peak device memory "
         f"{fpeak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in fres.AEPE[[0, 299, 599, 899]]]}")
@@ -2738,7 +2980,8 @@ def main():
 
     # ---- 12. the super presets through the user entry point
     log("phase super solves")
-    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda, "K4": k4_fn, "K5": k5_fn}
+    kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda, "K4": k4_fn, "K5": k5_fn,
+            "K6": k6_fn, "K7": k7_fn}
     by_path = {"tpu_fast": launches, "full_mixture": flaunch}
 
     def counted_solve(path, cfg, want, **kw):
@@ -2792,14 +3035,14 @@ def main():
         return ms
 
     sres = aepe_falls("tpu_fast_super", counted_solve("tpu_fast_super", fs32,
-                                                      {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0},
+                                                      launch_counts(K1=1, K2=1),
                                                       verbose=True))
     sres2 = solve(fs32, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
     require(np.array_equal(sres.AEPE, sres2.AEPE, equal_nan=True)
             and np.array_equal(sres.Energy, sres2.Energy, equal_nan=True),
             "a second tpu_fast_super solve gives the same AEPE and energy traces, bit for bit")
     aepe_falls("super_entropy", counted_solve("super_entropy", se32,
-                                              {"K1": 0, "K2": 0, "K3": 1, "K4": 1, "K5": 0},
+                                              launch_counts(K3=1, K4=1),
                                               verbose=True))
 
     p32 = pg.make_problem(se32, I1, I2, fr, dev)
@@ -2829,7 +3072,7 @@ def main():
     log("phase redblack solve")
     rb32 = dataclasses.replace(cfg32, its=300, **rb)
     aepe_falls("tpu_fast redblack", counted_solve("tpu_fast redblack", rb32,
-                                                  {"K1": 2, "K2": 2, "K3": 0, "K4": 0, "K5": 0}))
+                                                  launch_counts(K1=2, K2=2)))
     p32 = pg.make_problem(cfg32, I1, I2, fr, dev)
     rseg = pg.make_segment_runner(dataclasses.replace(rb32, tor=0.0), (H, W))
     st, *_ = rseg(p32, st32, 10)
@@ -2883,10 +3126,12 @@ def main():
 
     # ---- 16. the legacy presets through the user entry points
     log("phase legacy solves")
-    k3_only = {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0}  # nearest lookups: plain node sums
-    v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, k3_only, verbose=True))
+    # the nearest lookups through K6 (windowed on legacy_v2), legacy_v3's chain through K7
+    k6_k3 = launch_counts(K3=1, K6=1)
+    k7_k3 = launch_counts(K3=1, K7=1)
+    v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, k6_k3, verbose=True))
     v3_32 = GQMAPConfig.legacy_v3(its=300, eval_every=300)
-    v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, k3_only, verbose=True))
+    v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, k7_k3, verbose=True))
     segment_ms("legacy_v3", v3_32, pg.make_problem(v3_32, I1, I2, fr, dev), v3res.state)
     t = time.time()
     bm_flow = block_matching_init(I1, I2, device=dev)
@@ -2899,8 +3144,8 @@ def main():
     # keeps it) moves the means off it, in the JAX engine as in the port
     # (ROADMAP Queue 3, P4; tests/test_torch_legacy.py): the AEPE falls from
     # a random init, and from the block-matching init stays below that
-    rand = aepe_falls("blockmatch_v2", counted_solve("blockmatch_v2", bm32, k3_only))
-    bm = counted_solve("blockmatch_v2 from block_matching_init", bm32, k3_only,
+    rand = aepe_falls("blockmatch_v2", counted_solve("blockmatch_v2", bm32, k6_k3))
+    bm = counted_solve("blockmatch_v2 from block_matching_init", bm32, k6_k3,
                        init_flow=bm_flow, verbose=True)
     require(bm.AEPE[0] < rand.AEPE[0] and bm.AEPE[-1] < rand.AEPE[-1],
             f"blockmatch_v2: AEPE from the block-matching init {bm.AEPE[0]:.4f} at it=1, "
@@ -2908,7 +3153,7 @@ def main():
             f"{rand.AEPE[-1]:.4f}")
     segment_ms("blockmatch_v2", bm32, pg.make_problem(bm32, I1, I2, fr, dev), bm.state)
     wres = aepe_falls("tpu_fast window_rg=2", counted_solve(
-        "tpu_fast window_rg=2", wf32, {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 0}, verbose=True))
+        "tpu_fast window_rg=2", wf32, launch_counts(K1=1, K2=1), verbose=True))
     segment_ms("tpu_fast window_rg=2", wf32, wp32, wres.state)
     del wp32
 
@@ -2926,7 +3171,7 @@ def main():
     by_path["legacy_v1"] = counts = {k: f.launches for k, f in kfns.items()}
     med = float(v1st.muu[0, 1:-1, 1:-1].median())
     want_u = float(np.median(bm_flow[1:-1, 1:-1, 0]))
-    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+    require(counts == launch_counts(),
             f"legacy_v1: launch counters {counts} all 0 (truncated-quadratic edges)")
     require(bool(torch.isfinite(v1e[:v1n]).all()), "legacy_v1: energy finite over every sweep")
     require(abs(med - want_u) < 0.15, f"legacy_v1: median interior mean u {med:.4f} within 0.15 "
@@ -2951,25 +3196,38 @@ def main():
     del tab
     seg_ms = segment_ms("legacy_v2", v2_32, v2p, v2res.state)
     v2st = v2res.state
-    v2_node_tab = build_table(v2_32.K, v2_32.quad_chunk, np.float64)
     a3 = torch.softmax(v2st.w, 0).reshape(1, 1, 1)
+    site5 = (v2st.muu, v2st.muv, v2st.sigmau, v2st.sigmav, v2st.pn)
+    k6_rest = (v2_32.K, v2_32.lambdad, v2_32.epsn, v2_32.rfc, v2_32.window_rg)
 
-    def v2_node_term():
-        raw = gq_accumulate(pg._node_f(v2_32, v2p), v2st.muu, v2st.muv, v2st.sigmau,
-                            v2st.sigmav, v2st.pn, v2_node_tab)
+    def v2_node_term(fn=k6_fn):
+        """the node term, K6 (or its plain version) and finalize"""
+        raw = fn(v2p.I1, v2p.I2_tab, *site5, *k6_rest)
         return finalize(raw, a3, v2st.sigmau, v2st.sigmav, v2st.pn, v2st.temperature, NODE)
 
     v2sweep = pg.make_sweep(v2_32, (H, W))
-    split = dict(sweep=time_ms(lambda: v2sweep(v2p, v2st), 10), node=time_ms(v2_node_term, 10))
+    split = dict(sweep=time_ms(lambda: v2sweep(v2p, v2st), 10), node=time_ms(v2_node_term, 10),
+                 node_plain=time_ms(lambda: v2_node_term(functools.partial(
+                     nearest_gq.nearest_gq_torch, quad_chunk=v2_32.quad_chunk)), 3))
     split["node_share"] = split["node"] / split["sweep"]
     split["segment_ms_per_sweep"] = seg_ms
+    # K6 alone on the solve's final state, against the bound of its lookups' sectors
+    sectors = nearest_gq.lookup_sectors(v2p.I2_tab, *site5, v2_32.K, v2_32.rfc,
+                                        v2_32.window_rg)[1]
+    ms = kernel_ms(lambda: k6_fn(v2p.I1, v2p.I2_tab, *site5, *k6_rest))
+    solved = record["K6"]["legacy_v2 solve state"] = dict(
+        ms=ms[0], ms_min=ms[1], sectors=sectors,
+        **bound(roofline.k6_work(tuple(v2st.muu.shape), v2_32.K, v2_32.window_rg, sectors)))
+    log(f"  K6 on legacy_v2's solved state (after 300 sweeps): (median, min) {ms} ms, "
+        f"{sectors} distinct sectors; {fmt_bound(solved)}")
     record["legacy_v2"] = dict(split, make_problem_s=t_problem, upsample_cubic_s=t_up,
                                upsample_cubic_GiB_above_held=up_peak / 2**30,
                                card=smi("name,power.limit"))
     log(f"  legacy_v2 on {record['legacy_v2']['card']}: {split['segment_ms_per_sweep']:.4f} ms a "
         f"sweep (30-sweep segment from its solve's final state), one sweep {split['sweep']:.4f} "
-        f"ms of which the node term {split['node']:.4f} ms ({100 * split['node_share']:.1f}%); "
-        f"make_problem "
+        f"ms of which the node term (K6 and finalize) {split['node']:.4f} ms "
+        f"({100 * split['node_share']:.1f}%; through the plain version {split['node_plain']:.4f}"
+        " ms); make_problem "
         f"{t_problem:.3f} s, upsample_cubic (376x452 -> {tuple(v2p.I2_tab.shape)}) {t_up:.3f} s "
         f"and {up_peak / 2**30:.3f} GiB at peak; solve peak {record['peak_GiB']['legacy_v2']:.3f}"
         " GiB")
@@ -2994,7 +3252,7 @@ def main():
     require(finite and bool(torch.isfinite(adaux.energy)) and moved > 0,
             f"legacy_v2 autodiff sweep: finite gradients and state (largest step {moved:.3e}), "
             f"energy {float(adaux.energy):.6e}")
-    require(counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0},
+    require(counts == launch_counts(),
             f"autodiff: launch counters {counts} all 0")
     record["legacy_v2_autodiff"] = dict(sweep_ms=ad_ms, GiB_above_held=ad_peak / 2**30)
     log(f"  legacy_v2 autodiff: one sweep {ad_ms:.3f} ms, peak {ad_peak / 2**30:.3f} GiB above "
@@ -3005,7 +3263,7 @@ def main():
     drivers(dev, record, by_path, kfns, segment_ms)
 
     # ---- 24. the multi-device solve: 4 ranks on the card (gloo) and 1 over NCCL
-    sharded(dev, record, by_path, st64, float(res.AEPE[SHARDED_SOLVE_ITS - 1]))
+    sharded(dev, record, by_path, float(res.AEPE[SHARDED_SOLVE_ITS - 1]))
 
     # ---- 25-29. the Chebyshev term, the roofline harness, bench, D4
     chebyshev(dev, record, by_path, kfns, st64, cast)
@@ -3038,6 +3296,13 @@ def main():
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/chebyshev.py:126 (XLA scan, "
                       "no Pallas)", launches=by_path["full_mixture chebyshev solve"]["K5"],
              **record["K5"]),
+        dict(name="nearest_gq (K6)", route="cuda", source="gqmap_tpu_torch/csrc/nearest_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:100/:142 (XLA "
+                      "scan, no Pallas)", launches=by_path["legacy_v2"]["K6"], **record["K6"]),
+        dict(name="nearest_chain_gq (K7)", route="cuda",
+             source="gqmap_tpu_torch/csrc/nearest_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:339 on gqmap_tpu/ops/potentials.py:211 (XLA scan, "
+                      "no Pallas)", launches=by_path["legacy_v3"]["K7"], **record["K7"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

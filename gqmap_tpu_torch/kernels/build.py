@@ -69,6 +69,14 @@ _SIGNATURES = {
     # device, stream
     "gqmap_cheb_gq_f32": [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P],
     "gqmap_cheb_gq_f64": [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P],
+    # I1, tab, muu, muv, su, sv, pn, rule_host, out, Mo, No, MM, NN, L, M, N, r0, c0, K, rg,
+    # rfc, lam, eps, device, stream
+    "gqmap_nearest_gq_f32": [_P] * 9 + [_I] * 12 + [_D] * 2 + [_I, _P],
+    "gqmap_nearest_gq_f64": [_P] * 9 + [_I] * 12 + [_D] * 2 + [_I, _P],
+    # I1, tab, tab_u, tab_v, muu, muv, su, sv, pn, rule_host, out, Mo, No, MM, NN, L, M, N, r0,
+    # c0, K, rfc, lam, eps, device, stream
+    "gqmap_nearest_chain_f32": [_P] * 11 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    "gqmap_nearest_chain_f64": [_P] * 11 + [_I] * 11 + [_D] * 2 + [_I, _P],
     # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
     # out, iters, blocks, device, stream (roofline.measure_ceilings)

@@ -22,9 +22,10 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 * :func:`flagship_roofline` times kernel K1 alone in ``"v1"`` against its
   operation, ``exp`` and memory bounds, and the ``tpu_fast`` sweep inside a
   300-sweep segment against its kernels' bounds.
-* :func:`k1_work`, :func:`k2_work`, :func:`k3_work`, :func:`k4_work` and
-  :func:`k5_work` count what each kernel's function must do at given
-  shapes: bytes (each input read once, each output written once), float32
+* :func:`k1_work` to :func:`k7_work` count what each kernel's function
+  must do at given shapes: bytes (each input read once, each output
+  written once; for K6 and K7 the table bytes are the distinct 32-byte
+  sectors the state's lookups touch, which the caller counts), float32
   operations (an FMA counts two), square roots, for K4 the bytes of its
   table reads through L1 and, for K5 on the tensor cores, the operations
   there; :func:`bound` sets such a count against rates, the
@@ -53,8 +54,8 @@ import numpy as np
 import torch
 
 __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "kernel_ms",
-           "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "bound", "datasheet_rates",
-           "measured_rates", "card_line", "FLOPS", "TIMING"]
+           "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "k6_work", "k7_work", "bound",
+           "datasheet_rates", "measured_rates", "card_line", "FLOPS", "TIMING"]
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, float32 rate outside the
 # tensor cores, SMs, special-function (MUFU) results an SM gives a clock
@@ -85,9 +86,19 @@ L1_BYTES_PER_CLOCK = 128
 # row passes and P^2 column passes; per pixel (the difference 1, eps + d^2 2,
 # the root 1, the block sum 1) "K4 pixel", one add fewer a point; a site (s,
 # t 6, sqrt2 sigma 2, Z1, Z2 6, -lam 6) "K4 site", and 2K node products.
+# K6 per site and point (z_i, z_j 4 from per-node products t x_j, s x_j; x1,
+# x2 4; w_i w_j F 1; the six sums 11, their weights being rule constants)
+# "K6 point"; per row or column cell of a point (the position 1, (pos - 1) r
+# + 1.5 3; the floor not counted) "K6 line", 2 (2 rg + 1) a point; per lookup
+# (the difference 1, eps + d^2 2, the window sum 1) "K6 tap", and its root; a
+# site (s, t 6, sqrt2 sigma 2, the scale 6) "K6 site". K7 per point (z 4, x 4,
+# two lines 8, the difference 1, eps + d^2 2, d / root 1, its weight 1, w1, w2
+# 2, Ei 2, A1, A2 2, Ci .. Dj 8) "K7 point" and one root; a site "K7 site".
 FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K3 pair": 25, "K3 centre": 7, "K3 element": 10, "K4 point": 50, "K4 tap row": 7,
-         "K4 pixel": 5, "K4 site": 20}
+         "K4 pixel": 5, "K4 site": 20, "K6 point": 20, "K6 line": 4, "K6 tap": 4,
+         "K6 site": 14, "K7 point": 35, "K7 site": 15}
+SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
 
@@ -203,6 +214,41 @@ def k5_work(site_shape, K: int, P: int, Q: int, L: int, itemsize: int = 4,
         return dict(work, flops=samples * 2 * P * Q + rest)
     return dict(work, flops=rest, tc_flops=3 * samples * 2 * P * Q,
                 tc_flops_single=samples * 2 * P * Q)
+
+
+def k6_work(site_shape, K: int, rg: int, sectors: int, itemsize: int = 4) -> dict:
+    """K6's function on ``(L, M, N)`` sites of one pixel each with the
+    K^2-point rule and the ``(2 rg + 1)^2`` window: the 5 state fields and
+    frame 1's pixels read once, 6 raw sums written, and of the table the
+    ``sectors`` distinct 32-byte sectors its lookups touch (the data's own
+    count, :func:`..kernels.nearest_gq.lookup_sectors`); one root a lookup.
+    ``lookup_bytes``, one sector a lookup, is the ceiling beside it, not the
+    bound."""
+    L, M, N = site_shape
+    sites = L * M * N
+    points = sites * K * K
+    W = 2 * rg + 1
+    lookups = points * W * W
+    flops = (points * (FLOPS["K6 point"] + 2 * W * FLOPS["K6 line"])
+             + lookups * FLOPS["K6 tap"] + sites * FLOPS["K6 site"])
+    return dict(bytes=(5 * sites + M * N + 6 * sites) * itemsize + sectors * SECTOR_BYTES,
+                flops=flops, roots=lookups + 2 * sites, lookups=lookups,
+                lookup_bytes=lookups * SECTOR_BYTES)
+
+
+def k7_work(site_shape, K: int, sectors: int, itemsize: int = 4) -> dict:
+    """K7's function on ``(L, M, N)`` sites with the K^2-point rule: the 5
+    state fields and frame 1's pixels read once, 7 raw sums written, and of
+    each of the three tables (value and Prewitt fields, read at one index)
+    the ``sectors`` distinct 32-byte sectors the lookups touch; one root a
+    lookup. ``lookup_bytes``, three sectors a lookup, is the ceiling beside
+    it."""
+    L, M, N = site_shape
+    sites = L * M * N
+    points = sites * K * K
+    return dict(bytes=(5 * sites + M * N + 7 * sites) * itemsize + 3 * sectors * SECTOR_BYTES,
+                flops=points * FLOPS["K7 point"] + sites * FLOPS["K7 site"],
+                roots=points + 2 * sites, lookups=points, lookup_bytes=3 * points * SECTOR_BYTES)
 
 
 def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
@@ -415,14 +461,14 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
 
     ``cosine`` is ``tpu_fast`` (K1 by operations); the others are
     ``full_mixture(float32, quad_chunk=27, cheb_p=96, cheb_q=16)`` with the
-    term: ``bicubic`` and ``chebyshev`` by the sum of their kernels' bounds
-    (K4's or K5's node sums and K3's edge sums, :func:`bound` at the
-    measured rates; K5's with its contraction on the tensor cores where its
-    default variant, "v2", takes the shape), ``nearest`` (one plain
-    ``torch.take`` read a sample) by the gather rate."""
+    term, each by the sum of its kernels' bounds (the node sums, K4, K5 or
+    K6, and K3's edge sums, :func:`bound` at the measured rates): K5's with
+    its contraction on the tensor cores where its default variant, "v2",
+    takes the shape, K6's with the table sectors this state's lookups
+    touch."""
     from ..config import FlowRange, GQMAPConfig
     from ..models.gqmap import _device, make_problem, make_sweep
-    from . import cheb_gq
+    from . import cheb_gq, nearest_gq
 
     dev = _device(device)
     ceil = measure_ceilings(device=dev) if ceilings is None else ceilings
@@ -442,19 +488,22 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
         sweep = make_sweep(cfg, image_shape)
         sweep(problem, state)
         ms = _wall_ms(lambda: sweep(problem, state), n, dev)
-        samples = cfg.L * M * N * cfg.K ** 2
-        if mode in ("bicubic", "chebyshev"):
-            node = (k4_work((cfg.L, M, N), cfg.K) if mode == "bicubic"
-                    else k5_work((M, N), cfg.K, cfg.cheb_p, cfg.cheb_q, cfg.L,
-                                 tensor_cores=cheb_gq.resolve_variant(
-                                     None, torch.float32, cfg.L, cfg.K, cfg.cheb_p,
-                                     cfg.cheb_q) == "v2"))
+        if mode != "cosine":
+            site_shape = (cfg.L, M, N)
+            if mode == "bicubic":
+                node, governing = k4_work(site_shape, cfg.K), "K4+K3"
+            elif mode == "chebyshev":
+                node = k5_work((M, N), cfg.K, cfg.cheb_p, cfg.cheb_q, cfg.L,
+                               tensor_cores=cheb_gq.resolve_variant(
+                                   None, torch.float32, cfg.L, cfg.K, cfg.cheb_p,
+                                   cfg.cheb_q) == "v2")
+                governing = "K5+K3"
+            else:
+                sites = (state.muu, state.muv, state.sigmau, state.sigmav, state.pn)
+                sectors = nearest_gq.lookup_sectors(problem.I2_tab, *sites, cfg.K, cfg.rfc)[1]
+                node, governing = k6_work(site_shape, cfg.K, 0, sectors), "K6+K3"
             bound_ms = (bound(node, rates)["bound_ms"]
                         + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"])
-            governing = "K4+K3" if mode == "bicubic" else "K5+K3"
-        elif mode == "nearest":
-            bound_ms = samples / (ceil["gather_Mtaps_s"] * 1e6) * 1e3
-            governing = "gather"
         else:
             bound_ms = k1_work(problem.cheb.coeffs.shape, cfg.L)["flops"] / rates["flops"] * 1e3
             governing = "flops"

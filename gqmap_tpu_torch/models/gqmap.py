@@ -17,9 +17,10 @@ then window-meaned), a quadratic node prior toward ``Problem.init_flow``,
 truncated-quadratic edges, and the Prewitt (chain-rule) and autodiff
 (``torch.autograd`` of the expected energy) gradient estimators. Kernels
 launch where the JAX package would run its Pallas kernels: K1 for the
-cosine term, K2 / K3 for Charbonnier edges, never under autodiff; the
-truncated-quadratic edges and the autodiff sums are the plain ones, as they
-are the JAX package's XLA ones.
+cosine term, K2 / K3 for Charbonnier edges, never under autodiff; and
+where it scans the nearest lookup (kernel K6, with or without the window)
+and the Prewitt chain (kernel K7); the truncated-quadratic edges and the
+autodiff sums are the plain ones, as they are the JAX package's XLA ones.
 
 The Chebyshev data term (``data_term="chebyshev"``,
 :mod:`gqmap_tpu_torch.ops.chebyshev`) runs through the K^2-point node
@@ -72,18 +73,20 @@ from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch, neighbour_stacks)
+from ..kernels.nearest_gq import (nearest_chain_gq, nearest_chain_gq_cuda, nearest_chain_gq_torch,
+                                  nearest_gq, nearest_gq_cuda, nearest_gq_torch)
 from ..kernels.node_gq import node_gq, node_gq_cuda, node_gq_torch
 from ..ops.chebyshev import ChebData, build_cheb_data, make_node_pot_chebyshev
 from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data, cos_ei
 from ..ops.flowviz import flow_to_color
-from ..ops.gq import (EDGE, NODE, finalize, finalize_chain, gq_accumulate, gq_accumulate_chain,
-                      gq_accumulate_diff, gq_ei, gq_ei_diff)
+from ..ops.gq import (EDGE, NODE, finalize, finalize_chain, gq_accumulate, gq_accumulate_diff,
+                      gq_ei, gq_ei_diff)
 from ..ops.interp import pad_cubic, prewitt_gradients, upsample_cubic
 from ..ops.mixture import extract_map
 from ..ops.potentials import (make_edge_pot, make_edge_pot_diff, make_edge_pot_truncquad,
                               make_edge_pot_truncquad_diff, make_node_pot_bicubic,
-                              make_node_pot_nearest, make_node_pot_nearest_chain,
-                              make_node_pot_quadratic, make_node_pot_windowed)
+                              make_node_pot_nearest, make_node_pot_quadratic,
+                              make_node_pot_windowed)
 from ..ops.quadrature import table_on
 from ..ops.simplex import project_simplex, softmax, softmax_natural_step
 
@@ -111,6 +114,10 @@ _NODE_SUMS = {"auto": cos_mode_sums, "cuda": cos_mode_sums_cuda, "torch": cos_mo
 # finalized here)
 _NODE_GQ = {"auto": node_gq, "cuda": node_gq_cuda, "torch": node_gq_torch}
 _NODE_CHEB = {"auto": cheb_gq, "cuda": cheb_gq_cuda, "torch": cheb_gq_torch}
+# the nearest lookup's K6 route and the Prewitt chain's K7 route (raw sums)
+_NODE_NEAREST = {"auto": nearest_gq, "cuda": nearest_gq_cuda, "torch": nearest_gq_torch}
+_NODE_CHAIN = {"auto": nearest_chain_gq, "cuda": nearest_chain_gq_cuda,
+               "torch": nearest_chain_gq_torch}
 # edge_quad -> edge_kernel -> the K2 route (finalized gradients) or the K3
 # route (raw sums, finalized here)
 _EDGE_ROUTES = {
@@ -180,8 +187,9 @@ def check_supported(cfg: GQMAPConfig) -> None:
     ``make_problem`` does, and so does a kernel asked for (``"cuda"``) on a path
     that no kernel computes: K1 computes only the cosine term's Stein sums,
     K4 only the bicubic term's (without a window), K5 only the Chebyshev
-    term's (at most ``MAX_Q`` v-degrees), K2 and K3 only Charbonnier edges,
-    and the autodiff estimator differentiates plain sums.
+    term's (at most ``MAX_Q`` v-degrees), K6 only the nearest lookup's (with
+    or without a window), K7 only the Prewitt chain's, K2 and K3 only
+    Charbonnier edges, and the autodiff estimator differentiates plain sums.
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -197,9 +205,10 @@ def check_supported(cfg: GQMAPConfig) -> None:
     if cfg.node_kernel == "cuda" and (_node_kernel(cfg) is None or autodiff):
         raise ValueError(
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
-            f"Stein sums, kernel K4, which computes the bicubic term's without a window, or "
-            f"kernel K5, which computes the Chebyshev term's with at most {MAX_Q} v-degrees; "
-            f"with data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, "
+            f"Stein sums, kernel K4, which computes the bicubic term's without a window, "
+            f"kernel K5, which computes the Chebyshev term's with at most {MAX_Q} v-degrees, "
+            f"kernel K6, which computes the nearest lookup's, or kernel K7, which computes the "
+            f"Prewitt chain's; with data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, "
             f"cheb_q={cfg.cheb_q} and gradient_estimator={cfg.gradient_estimator!r} the node "
             "term is plain torch (use 'auto' or 'torch')")
     if cfg.edge_kernel == "cuda" and (cfg.edge_kind != "charbonnier" or autodiff):
@@ -212,11 +221,17 @@ def check_supported(cfg: GQMAPConfig) -> None:
 
 
 def _node_kernel(cfg: GQMAPConfig) -> str | None:
-    """The kernel that computes ``cfg``'s node term under the Stein
-    estimator: ``"K1"`` (the cosine term), ``"K4"`` (the bicubic term without
-    a window), ``"K5"`` (the Chebyshev term, whose window is in its
-    coefficients, with at most ``MAX_Q`` v-degrees), or None where the sums
-    are plain torch."""
+    """The kernel that computes ``cfg``'s node term under the Stein and
+    Prewitt estimators: ``"K1"`` (the cosine term), ``"K4"`` (the bicubic
+    term without a window), ``"K5"`` (the Chebyshev term, whose window is in
+    its coefficients, with at most ``MAX_Q`` v-degrees), ``"K6"`` (the
+    nearest lookup, with or without a window), ``"K7"`` (the Prewitt
+    estimator's chain on the nearest lookup), or None where the sums are
+    plain torch."""
+    if cfg.gradient_estimator == "prewitt":
+        return "K7" if cfg.data_term == "nearest" else None
+    if cfg.data_term == "nearest":
+        return "K6"
     if cfg.data_term == "cosine":
         return "K1"
     if cfg.data_term == "bicubic" and cfg.window_rg == 0:
@@ -370,11 +385,12 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
 
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
-    estimators; K4 for the bicubic term without a window and K5 for the
-    Chebyshev term (each of which the JAX package runs as one XLA scan) under
-    the Stein estimator; the other node terms, truncated-quadratic edges and
-    the autodiff estimator run plain sums (:func:`check_supported` refuses
-    ``"cuda"`` there).
+    estimators; K4 for the bicubic term without a window, K5 for the
+    Chebyshev term and K6 for the nearest lookup (with or without a window)
+    under the Stein estimator, and K7 for the Prewitt estimator's chain sums
+    (each of which the JAX package runs as one XLA scan); the other node
+    terms, truncated-quadratic edges and the autodiff estimator run plain
+    sums (:func:`check_supported` refuses ``"cuda"`` there).
 
     With ``dist`` the sweep is one shard's: ``problem`` and ``state`` hold
     its block, every neighbour roll goes through ``dist.roll``, K2 reads the
@@ -399,18 +415,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums = _NODE_SUMS[cfg.node_kernel]
     autodiff = cfg.gradient_estimator == "autodiff"
-    # K4 (or its plain version) where the JAX package scans the bicubic term,
-    # K5 (or its plain version) where it scans the Chebyshev series
-    node_gq_route = (_NODE_GQ[cfg.node_kernel]
-                     if _node_kernel(cfg) == "K4" and not autodiff else None)
-    node_cheb_route = (_NODE_CHEB[cfg.node_kernel]
-                       if _node_kernel(cfg) == "K5" and not autodiff else None)
-    if cfg.node_kernel != "cuda":
+    # K4, K5, K6 or K7 (or its plain version) where the JAX package scans the
+    # bicubic term, the Chebyshev series, the nearest lookup or the Prewitt chain
+    routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN}
+    kernel = None if autodiff else _node_kernel(cfg)
+    node_route = routes[kernel][cfg.node_kernel] if kernel in routes else None
+    if node_route is not None and cfg.node_kernel != "cuda":
         # the plain versions step quad_chunk points at a time; the kernels take all
-        if node_gq_route is not None:
-            node_gq_route = functools.partial(node_gq_route, quad_chunk=cfg.quad_chunk)
-        if node_cheb_route is not None:
-            node_cheb_route = functools.partial(node_cheb_route, quad_chunk=cfg.quad_chunk)
+        node_route = functools.partial(node_route, quad_chunk=cfg.quad_chunk)
     reduced = cfg.edge_quad == "reduced"
     if cfg.edge_kind == "truncquad":
         edge_f = make_edge_pot_truncquad(cfg.gama, cfg.dta)
@@ -450,8 +462,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
-        node_f = (None if node_gq_route is not None or node_cheb_route is not None
-                  else _node_f(cfg, problem, **node_at))
+        node_f = None if node_route is not None else _node_f(cfg, problem, **node_at)
 
         def autodiff_grads(st: GQState):
             """The autodiff estimator (heir of ``legacy/gqmap_gpuV3.m``): every
@@ -492,28 +503,29 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             if autodiff:
                 return autodiff_grads(st)
             # --- node term (gqmap_gpu_mixture.m:29, :87-116) ---
-            if cfg.gradient_estimator == "prewitt":
+            if cfg.gradient_estimator == "prewitt":  # kernel K7
                 # quadrature of the chain-rule df/dx against the upsampled
                 # Prewitt fields (legacy/gqmap_gpuV3.m:91-125)
                 chain_at = {} if dist is None else dict(origin=(r0, c0),
                                                         local_image_shape=(ml, nl))
-                fg = make_node_pot_nearest_chain(problem.I1, problem.I2_tab, *problem.grad_tabs,
-                                                 cfg.lambdad, cfg.epsn, cfg.rfc, **chain_at)
-                raw_c = gq_accumulate_chain(fg, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
-                                            node_tab)
+                raw_c = node_route(problem.I1, problem.I2_tab, *problem.grad_tabs, st.muu, st.muv,
+                                   st.sigmau, st.sigmav, st.pn, cfg.K, cfg.lambdad, cfg.epsn,
+                                   cfg.rfc, **chain_at)
                 gn = finalize_chain(raw_c, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
             elif cfg.data_term == "cosine":  # kernel K1
                 sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
                 gn = _finalize_mode_sums(problem.cheb, sums, st.muu, st.sigmau, st.sigmav,
                                          st.pn, a3, T, NODE)
-            else:  # the K^2-point node quadrature: kernel K4 or K5, else plain torch
-                if node_gq_route is not None:
-                    raw_n = node_gq_route(problem.I1, problem.I2_tab, st.muu, st.muv, st.sigmau,
-                                          st.sigmav, st.pn, cfg.K, cfg.lambdad, cfg.epsn,
-                                          patch=cfg.patch, **node_at)
-                elif node_cheb_route is not None:  # the field is the shard's own block
-                    raw_n = node_cheb_route(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav,
-                                            st.pn, cfg.K)
+            else:  # the K^2-point node quadrature: kernel K4, K5 or K6, else plain torch
+                site = (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
+                if kernel == "K4":
+                    raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
+                                       cfg.epsn, patch=cfg.patch, **node_at)
+                elif kernel == "K5":  # the field is the shard's own block
+                    raw_n = node_route(problem.cheb, *site, cfg.K)
+                elif kernel == "K6":
+                    raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
+                                       cfg.epsn, cfg.rfc, cfg.window_rg, **node_at)
                 else:
                     raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
                                           node_tab)

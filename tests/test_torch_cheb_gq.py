@@ -611,7 +611,7 @@ def test_cpu_sweep_routes_the_chebyshev_term_through_k5():
     b, aux_b = pg.make_sweep(C.full_mixture(node_kernel="torch", **kw), I1.shape)(problem, state)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert all(torch.equal(x, y) for x, y in zip(aux_a, aux_b))
-    assert [k.launches for k in COUNTED] == before == [0] * 5
+    assert [k.launches for k in COUNTED] == before == [0] * len(COUNTED)
     assert cheb_gq.cheb_gq_cuda in COUNTED
 
 

@@ -116,18 +116,27 @@ def test_legacy_settings_are_supported(override):
     dict(edge_kernel="cuda", edge_kind="truncquad", edge_quad="tensor"),
     dict(edge_kernel="cuda", gradient_estimator="autodiff"),
     dict(node_kernel="cuda", gradient_estimator="autodiff"),
-    dict(node_kernel="cuda", data_term="nearest"),
+    dict(node_kernel="cuda", data_term="bicubic", window_rg=2),
 ])
 def test_cuda_route_on_a_path_no_kernel_computes_raises(override):
     # K1 computes only the cosine term's Stein sums, K2 and K3 only
-    # Charbonnier edges, and autodiff differentiates plain sums: "cuda" there
-    # raises instead of running the plain path
+    # Charbonnier edges, no kernel the windowed bicubic term, and autodiff
+    # differentiates plain sums: "cuda" there raises instead of running the
+    # plain path
     with pytest.raises(ValueError, match="kernel K"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
     # "auto" and "torch" run the plain sums there
     for route in ("auto", "torch"):
         kw = {k: (route if k.endswith("_kernel") else v) for k, v in override.items()}
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**kw))
+
+
+@pytest.mark.parametrize("preset", ["legacy_v2", "legacy_v3", "blockmatch_v2"])
+def test_cuda_node_route_on_the_nearest_lookup_presets_is_supported(preset):
+    # K6 computes the nearest lookup's sums (legacy_v2 windowed,
+    # blockmatch_v2 plain), K7 the Prewitt chain's (legacy_v3)
+    check_supported(getattr(gqmap_tpu_torch.GQMAPConfig, preset)(node_kernel="cuda",
+                                                                 edge_kernel="cuda"))
 
 
 @pytest.mark.parametrize("override", [dict(data_term="bicubic", patch=4),

@@ -19,7 +19,7 @@ import torch
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
 from gqmap_tpu_torch.kernels import (COUNTED, build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                     node_gq)
+                                     nearest_gq, node_gq)
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE
@@ -275,13 +275,11 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
     cfg = GQMAPConfig.full_mixture(K=K, its=3, eval_every=3, quad_chunk=7)
-    k1, k2, k3, k4, k5 = COUNTED
-    n = (k1.launches, k2.launches, k3.launches, k4.launches, k5.launches)
+    n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K4 computes the bicubic node term once a sweep
-    assert (k1.launches - n[0], k2.launches - n[1], k3.launches - n[2],
-            k4.launches - n[3], k5.launches - n[4]) == (0, 0, 3, 3, 0)
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0]
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -295,7 +293,7 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    want = [6, 6, 0, 0, 0] if preset == "tpu_fast" else [0, 0, 6, 6, 0]
+    want = [6, 6, 0, 0, 0, 0, 0] if preset == "tpu_fast" else [0, 0, 6, 6, 0, 0, 0]
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -311,7 +309,7 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = [3, 3, 0, 0, 0] if preset == "tpu_fast_super" else [0, 0, 3, 3, 0]
+    want = [3, 3, 0, 0, 0, 0, 0] if preset == "tpu_fast_super" else [0, 0, 3, 3, 0, 0, 0]
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -362,16 +360,17 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3)), ("legacy_v3", {}, (0, 0, 3)),
-    ("blockmatch_v2", {}, (0, 0, 3)),
-    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0)),
-    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0)),
-    ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8), (0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0)), ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0)),
+    ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8), (0, 0, 0, 0, 0, 0, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
-    # blockmatch_v2 at K = 17), K1 and K2 on the windowed cosine term, none
-    # under autodiff
+    # blockmatch_v2 at K = 17) beside K6 (the nearest lookup, windowed on
+    # legacy_v2) or K7 (legacy_v3's Prewitt chain), K1 and K2 on the windowed
+    # cosine term, none under autodiff
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
@@ -379,8 +378,8 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # the nearest lookups and autodiff's sums are plain: K4 and K5 are never launched
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want) + [0, 0]
+    # autodiff's sums are plain; K4 and K5 are never launched here
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want)
 
 
 def test_legacy_v1_segment_launches_no_kernel(dev):
@@ -445,7 +444,7 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     sweeps = sum(lv.iters for lv in res.levels)
     assert sweeps == 12 and np.isfinite(res.flow).all()
     # K4 (the bicubic node term) and K3 once a sweep of every level
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, sweeps, sweeps, 0]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, sweeps, sweeps, 0, 0, 0]
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -514,6 +513,8 @@ GRAPH_CASES = {
     "redblack": ("tpu_fast", dict(sweep_order="redblack", step0=0.03, corr_tor=0.95), 30),
     "full_mixture chebyshev": ("full_mixture", dict(quad_chunk=7, data_term="chebyshev",
                                                     cheb_p=24, cheb_q=8, corr_tor=0.99), 30),
+    "legacy_v2": ("legacy_v2", dict(step0=0.03, corr_tor=0.95), 30),
+    "legacy_v3": ("legacy_v3", dict(step0=0.03, corr_tor=0.95), 30),
     "its4": ("tpu_fast", dict(its=4), 30),
     "limit1": ("tpu_fast", {}, 1),
 }
@@ -582,7 +583,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert h[1] == k + 1 and h[5] and _identical(g, h)
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels
-    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0, 0, 0]
+    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0, 0, 0, 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -749,7 +750,7 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -960,12 +961,12 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3]),
-    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"), [0, 0, 6, 0, 6]),
-    ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"), [0, 0, 0, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"), [0, 0, 6, 0, 6, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"), [0, 0, 0, 0, 0, 0, 0]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
@@ -980,3 +981,165 @@ def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
+
+
+# K6 (the nearest lookup's node quadrature) at the main paths' shapes on
+# 376x452 at rfc = 6: legacy_v2's windowed L = 1 lattice at K = 9, rg = 2,
+# blockmatch_v2's at K = 17, full_mixture(data_term="nearest")'s L = 3 at
+# K = 9; a ragged lattice (a partial last tile, rg = 1) and a window of the
+# run-time instance (rg = 4): (L, K, rg, rfc, frame)
+K6_CASES = {
+    "legacy_v2": (1, 9, 2, 6, (376, 452)),
+    "blockmatch_v2": (1, 17, 0, 6, (376, 452)),
+    "full_mixture nearest": (3, 9, 0, 6, (376, 452)),
+    "ragged rg=1": (2, 5, 1, 3, (37, 53)),
+    "run-time rg=4": (1, 5, 4, 2, (24, 40)),
+}
+# K7 (the Prewitt chain): legacy_v3's L = 1 lattice at K = 9, rfc = 4, and a
+# ragged one: (L, K, rfc, frame)
+K7_CASES = {"legacy_v3": (1, 9, 4, (376, 452)), "ragged": (2, 5, 3, (37, 53))}
+
+
+def _nearest_inputs(dev, dtype, L, rfc, shape, probe, chain=False):
+    """Frame 1, the upsampled frame 2 (and, for ``chain``, its upsampled
+    Prewitt fields) and the five state fields of ``_k4_inputs``' probes, one
+    pixel a site."""
+    from gqmap_tpu_torch.ops.interp import prewitt_gradients, upsample_cubic
+
+    g = torch.Generator().manual_seed(sum(shape) + L + rfc)
+    I1 = 255 * torch.rand(shape, generator=g, dtype=torch.float64)
+    I2 = I1.roll(1, 1).to(dev, dtype)
+    tabs = [upsample_cubic(x, rfc) for x in ((I2, *prewitt_gradients(I2)) if chain else (I2,))]
+    st = _k4_inputs(dev, dtype, L, 1, shape, probe)[2:]
+    return (I1.to(dev, dtype), *tabs, *st)
+
+
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_nearest_gq_kernel_matches_plain(dev, case, dtype, probe):
+    # float64 within 1e-10 of each sum's largest magnitude; float32 held to
+    # the f64 golden on the same inputs (ratio rule)
+    L, K, rg, rfc, shape = K6_CASES[case]
+    args = _nearest_inputs(dev, dtype, L, rfc, shape, probe)
+    rest = (K, 0.3, 1e-4, rfc, rg)
+    n = nearest_gq.nearest_gq_cuda.launches
+    got = nearest_gq.nearest_gq_cuda(*args, *rest)
+    torch.cuda.synchronize()
+    assert nearest_gq.nearest_gq_cuda.launches == n + 1
+    plain = nearest_gq.nearest_gq_torch(*args, *rest, quad_chunk=27)
+    if dtype == torch.float64:
+        for name in plain._fields:
+            _close(getattr(got, name), getattr(plain, name), dtype, name)
+    else:
+        gold = nearest_gq.nearest_gq_torch(*(x.double() for x in args), *rest, quad_chunk=27)
+        _ratio_to_golden(got, plain, gold)
+
+
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_nearest_chain_kernel_matches_plain(dev, case, dtype, probe):
+    L, K, rfc, shape = K7_CASES[case]
+    args = _nearest_inputs(dev, dtype, L, rfc, shape, probe, chain=True)
+    rest = (K, 1.0, 1e-4, rfc)
+    n = nearest_gq.nearest_chain_gq_cuda.launches
+    got = nearest_gq.nearest_chain_gq_cuda(*args, *rest)
+    torch.cuda.synchronize()
+    assert nearest_gq.nearest_chain_gq_cuda.launches == n + 1
+    plain = nearest_gq.nearest_chain_gq_torch(*args, *rest, quad_chunk=27)
+    if dtype == torch.float64:
+        for name in plain._fields:
+            _close(getattr(got, name), getattr(plain, name), dtype, name)
+    else:
+        gold = nearest_gq.nearest_chain_gq_torch(*(x.double() for x in args), *rest,
+                                                 quad_chunk=27)
+        _ratio_to_golden(got, plain, gold)
+
+
+def _nearest_call(kind, args, **at):
+    """K6 at rg = 2 or K7 on ``args`` (frame, tables, state)."""
+    if kind == "K7":
+        return nearest_gq.nearest_chain_gq_cuda(*args, 9, 1.0, 1e-4, 4, **at)
+    return nearest_gq.nearest_gq_cuda(*args, 9, 0.3, 1e-4, 3, 2, **at)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["K6", "K7"])
+def test_nearest_kernels_nan_probe(dev, kind, dtype):
+    # NaN means, sigmas and correlations at a few sites: a NaN query reads
+    # the element the plain version reads (a NaN cell is -1, the flat index
+    # wraps), so the sums are NaN where the plain version's are and within
+    # tolerance of it elsewhere; every other site bit for bit the NaN-free
+    # call's
+    rfc = 4 if kind == "K7" else 3
+    args = list(_nearest_inputs(dev, dtype, 3, rfc, (64, 96), "converged", chain=kind == "K7"))
+    clean = _nearest_call(kind, args)
+    first = 4 if kind == "K7" else 2  # muu's position in args
+    _, M, N = args[first].shape
+    sites = [(0, 1, 2), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
+    mask = torch.zeros((3, M, N), dtype=torch.bool, device=dev)
+    for field, site in zip((0, 1, 3, 4), sites):  # muu, muv, sv, pn
+        args[first + field] = args[first + field].clone()
+        args[first + field][site] = float("nan")
+        mask[site] = True
+    got = _nearest_call(kind, args)
+    rest = ((9, 1.0, 1e-4, 4) if kind == "K7" else (9, 0.3, 1e-4, 3, 2))
+    plain = (nearest_gq.nearest_chain_gq_torch if kind == "K7"
+             else nearest_gq.nearest_gq_torch)(*args, *rest)
+    torch.cuda.synchronize()
+    for name, g, p, c in zip(plain._fields, got, plain, clean):
+        assert torch.equal(torch.isnan(g), torch.isnan(p)), name
+        assert not torch.isnan(g[~mask]).any() and torch.equal(g[~mask], c[~mask]), name
+        ok = ~torch.isnan(p)
+        _close(g[ok], p[ok], dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["K6", "K7"])
+def test_nearest_kernels_on_a_block_equal_the_whole(dev, kind, dtype):
+    # frame 1 addressed at a shard's pixel origin (K6's window taps across
+    # the cut read the true neighbours): the block's sums are the whole
+    # lattice's there, bit for bit; two launches are equal bit for bit
+    rfc = 4 if kind == "K7" else 3
+    args = _nearest_inputs(dev, dtype, 2, rfc, (64, 96), "converged", chain=kind == "K7")
+    first = 4 if kind == "K7" else 2
+    frames, st = args[:first], args[first:]
+    whole = _nearest_call(kind, args)
+    again = _nearest_call(kind, args)
+    assert all(torch.equal(a, b) for a, b in zip(whole, again))
+    _, M, N = st[0].shape
+    for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3),
+                         (3, 5, M - 6, N - 7)):
+        blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+        got = _nearest_call(kind, (*frames, *(x[blk].contiguous() for x in st)),
+                            origin=(r0, c0), local_image_shape=(m, n))
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w[blk])
+
+
+@pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0]),
+                                            ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0]),
+                                            ("legacy_v3", [0, 0, 20, 0, 0, 0, 20])])
+def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
+    # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
+    # K7) once a replayed sweep
+    cfg, problem, state = _graph_toy(dev, preset)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    _, got = _counted(seg, problem, state, 20)
+    assert seg.route == "graph" and got == counts
+
+
+def test_nearest_kernels_refuse_what_they_do_not_take(dev):
+    # a lattice that is not the block of pixels at the origin, a rule over
+    # 64 points an axis, and a strided table: ValueError before any launch
+    args = _nearest_inputs(dev, torch.float32, 1, 3, (24, 40), "converged")
+    n = nearest_gq.nearest_gq_cuda.launches
+    with pytest.raises(ValueError, match="does not cover"):
+        nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3, origin=(1, 0))
+    with pytest.raises(ValueError, match="rules of 1 to 64"):
+        nearest_gq.nearest_gq_cuda(*args, 65, 1.0, 1e-4, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        nearest_gq.nearest_gq_cuda(args[0], args[1].t().contiguous().t(), *args[2:], 9, 1.0,
+                                   1e-4, 3)
+    assert nearest_gq.nearest_gq_cuda.launches == n

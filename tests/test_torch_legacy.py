@@ -42,7 +42,7 @@ from gqmap_tpu.ops import potentials as jpot
 from gqmap_tpu.ops.quadrature import build_table as jax_build_table
 from gqmap_tpu.ops.quadrature import build_table_1d as jax_build_table_1d
 from gqmap_tpu_torch.convert import problem_from_numpy
-from gqmap_tpu_torch.kernels import cosine_gq, edge_gq, edge_reduced_gq
+from gqmap_tpu_torch.kernels import cosine_gq, edge_gq, edge_reduced_gq, nearest_gq
 from gqmap_tpu_torch.models import blockmatch
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops import cosine, gq, interp, potentials
@@ -66,7 +66,7 @@ CASES = {
                                          cheb_ablock=2)),
 }
 KERNELS = (cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda,
-           edge_gq.edge_gq_cuda)
+           edge_gq.edge_gq_cuda, nearest_gq.nearest_gq_cuda, nearest_gq.nearest_chain_gq_cuda)
 
 
 def _cfgs(preset, **kw):
@@ -524,7 +524,7 @@ def test_cpu_runs_launch_no_kernel(toy):
         res = gqmap_tpu_torch.solve(pc, toy["I1"], toy["I2"], gt_flow=toy["gt"],
                                     flow_range=gqmap_tpu_torch.FlowRange(*FR), device="cpu")
         assert res.iters == 2 and np.isfinite(res.Energy).all()
-    assert [k.launches for k in KERNELS] == before == [0, 0, 0]
+    assert [k.launches for k in KERNELS] == before == [0] * 5
 
 
 if __name__ == "__main__":

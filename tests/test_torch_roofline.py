@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import _torch_common  # noqa: F401  (one torch thread per worker)
-from gqmap_tpu_torch.kernels import roofline
+from gqmap_tpu_torch import FlowRange, GQMAPConfig
+from gqmap_tpu_torch.kernels import nearest_gq, roofline
+from gqmap_tpu_torch.models.gqmap import make_problem
 
 MAIN, SUPER = (376, 452), (94, 113)
 # (kernel, work, bound_ms, bound_by) of PERF.md section 6
@@ -82,6 +84,40 @@ def test_k4_work_counts_the_function(patch):
                           + (M * patch + 2) * (N * patch + 2)) * 4
 
 
+@pytest.mark.parametrize("rg", [0, 2])
+def test_k6_work_counts_by_hand(rg):
+    # legacy_v2's lattice at K = 9: per point 20 operations, 2 (2 rg + 1)
+    # cells of 4, (2 rg + 1)^2 lookups of 4 and a root each; per site 14
+    # operations and 2 roots; the table's bytes are the sectors given
+    L, M, N, K, W = 1, 376, 452, 9, 2 * rg + 1
+    sites, points = L * M * N, L * M * N * K * K
+    work = roofline.k6_work((L, M, N), K, rg, sectors=12345)
+    assert work["lookups"] == points * W * W
+    assert work["flops"] == points * (20 + 2 * W * 4 + W * W * 4) + sites * 14
+    assert work["roots"] == points * W * W + 2 * sites
+    assert work["bytes"] == (11 * sites + M * N) * 4 + 12345 * 32
+    assert work["lookup_bytes"] == points * W * W * 32
+    assert roofline.k6_work((L, M, N), K, rg, 12345, itemsize=8)["bytes"] == (
+        (11 * sites + M * N) * 8 + 12345 * 32)
+    # at one sector a lookup the bytes bound it: 3.44e8 lookups are 11 GB
+    if rg == 2:
+        sheet = roofline.datasheet_rates(1980.0)
+        assert work["lookup_bytes"] / sheet["bytes"] > 3e-3
+        assert roofline.bound(work, sheet)["bound_by"] == "operations"
+
+
+def test_k7_work_counts_by_hand():
+    # legacy_v3's lattice at K = 9: per point 35 operations and a root,
+    # three tables read at one index (three sectors a distinct sector)
+    L, M, N, K = 1, 376, 452, 9
+    sites, points = L * M * N, L * M * N * K * K
+    work = roofline.k7_work((L, M, N), K, sectors=1000)
+    assert work["lookups"] == points and work["lookup_bytes"] == 3 * points * 32
+    assert work["flops"] == points * 35 + sites * 15
+    assert work["roots"] == points + 2 * sites
+    assert work["bytes"] == (12 * sites + M * N) * 4 + 3 * 1000 * 32
+
+
 def test_measured_rates_set_the_bound():
     work = roofline.k3_work((2, 2, 3) + MAIN, 9)
     got = roofline.bound(work, roofline.measured_rates(CEILINGS))
@@ -124,12 +160,21 @@ def test_sweep_roofline_on_the_cpu():
         assert m["ms_per_sweep"] > 0 and m["bound_ms"] > 0 and m["device"] == "cpu"
         assert m["share_of_bound"] == pytest.approx(m["bound_ms"] / m["ms_per_sweep"])
     assert {m: out["modes"][m]["governing_bound"] for m in out["modes"]} == {
-        "cosine": "flops", "chebyshev": "K5+K3", "nearest": "gather", "bicubic": "K4+K3"}
-    # one plain table read a nearest sample; the bicubic path runs kernels K4
-    # (node sums) and K3 (edge sums) and is bound by the sum of their bounds
+        "cosine": "flops", "chebyshev": "K5+K3", "nearest": "K6+K3", "bicubic": "K4+K3"}
+    # the nearest path runs kernels K6 (node sums, its table bytes the sectors
+    # the converged state's lookups touch) and K3 (edge sums) and is bound by
+    # the sum of their bounds; so is the bicubic path by K4's and K3's
     rates = roofline.measured_rates(CEILINGS)
+    cfg = GQMAPConfig.full_mixture(dtype="float32", quad_chunk=27, data_term="nearest")
+    fr = FlowRange(-10.0, 2.0, -2.0, 2.0)
+    problem = make_problem(cfg, *roofline._pair((24, 28), 0), fr, "cpu")
+    st = roofline._converged(cfg, fr, (24, 28), "cpu")
+    sectors = nearest_gq.lookup_sectors(problem.I2_tab, st.muu, st.muv, st.sigmau, st.sigmav,
+                                        st.pn, 9, cfg.rfc)[1]
+    assert 0 < sectors < 3 * 24 * 28 * 81
     assert out["modes"]["nearest"]["bound_ms"] == pytest.approx(
-        3 * 24 * 28 * 81 / (CEILINGS["gather_Mtaps_s"] * 1e6) * 1e3)
+        roofline.bound(roofline.k6_work((3, 24, 28), 9, 0, sectors), rates)["bound_ms"]
+        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
     assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k4_work((3, 24, 28), 9), rates)["bound_ms"]
         + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
