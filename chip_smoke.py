@@ -118,25 +118,31 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    variant's share of its bound and its SASS issue bound; the default
    variant must be the faster at ``full_mixture`` and ``tpu_fast``;
 6d. K6 (the nearest lookup's node quadrature) and K7 (the Prewitt chain's)
-   against their plain versions at the main paths' shapes on 376x452:
+   in both variants ("v1" reads the upsampled tables; "v2", the default,
+   evaluates each cell from the padded fields by the tables' own phase
+   stencil) against their plain versions at the main paths' shapes on 376x452:
    ``legacy_v2``'s windowed lookup (L = 1, K = 9, rg = 2, rfc = 6),
    ``blockmatch_v2``'s (K = 17), ``full_mixture(data_term="nearest")``'s
    (L = 3, K = 9; ``sweep_roofline``'s nearest mode) and ``legacy_v3``'s
    chain (K = 9, rfc = 4), each from the init, the sigma = 0.05 state and
    the |rho| clamp: float64 within 1e-10 of each sum's largest magnitude,
    float32 against the f64 golden (ratio rule), two float32 launches bit for
-   bit; a shard's blocks (the (2, 2) mesh's four and one at odd offsets) bit
-   for bit the whole lattice's and, in float64, within 1e-10 of their plain
-   version; NaN means, sigmas and correlations at a few sites: NaN where the
-   plain version has NaN, within tolerance of it elsewhere, every other site
-   bit for bit the NaN-free call's; on the sigma = 0.05 state, the init and
-   a smooth field (every mean at the pair's shift, sigma = 0.05), each
-   kernel's time, its plain version's, the distinct 32-byte table sectors
-   the state's lookups touch and the bound they give (``roofline.k6_work``/
-   ``k7_work`` at the data sheet's and the measured rates), beside the time
-   of one sector a lookup, its SASS issue bound (the point loop per point,
-   every thread of the 32 x 8 tiles) and ``torch.take``'s rate of random
-   gathers over ``legacy_v2``'s table;
+   bit, v2's sums v1's bit for bit on every probe in both types; a shard's
+   blocks (the (2, 2) mesh's four and one at odd offsets) bit for bit the
+   whole lattice's and, in float64, within 1e-10 of their plain version; NaN
+   means, sigmas and correlations at a few sites: NaN where the plain
+   version has NaN, within tolerance of it elsewhere, every other site bit
+   for bit the NaN-free call's (both variants); on the sigma = 0.05 state,
+   the init and a smooth field (every mean at the pair's shift, sigma =
+   0.05), each variant's time in the same call, the plain version's, the
+   distinct 32-byte table sectors the state's lookups touch, each variant's
+   bound (``roofline.k6_work``/``k7_work`` at the data sheet's and the
+   measured rates: v1's table bytes the sectors, v2's the padded fields and
+   its stencil's operations), beside the time of one sector a lookup, the
+   SASS issue bounds (v1: the point loop per point, every thread of the 32 x
+   8 tiles; v2: a warp's round of 8 points of each of its 4 sites on the
+   shared patch's path with its serial sums, every round) and ``torch.take``'s rate of
+   random gathers over ``legacy_v2``'s table;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -181,21 +187,27 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
 16. the legacy presets through the user entry points, each with every
    launch counter set to 0 just before it: 300-sweep ``legacy_v2``,
    ``legacy_v3`` and ``blockmatch_v2`` solves, K3 and K6 (K7 on
-   ``legacy_v3``) launched once a sweep, and
+   ``legacy_v3``) launched once a sweep, each run three times, K6 and K7 in
+   "v2", then "v1", then "v2" again (the same AEPE and energy traces bit for
+   bit; each turn's wall), and
    ``tpu_fast(window_rg=2)``, K1 and K2 once a sweep; finite energy, the AEPE
    at it = 300 below that at it = 1; ``blockmatch_v2`` also from
    ``block_matching_init`` (which must find the pair's shift), whose AEPE
    rises as the reference's does (ROADMAP Queue 3, P4) but stays below the
    random init's run at it = 1 and at the end; ms a sweep of a 30-sweep
    segment from the final state of ``legacy_v3``, ``blockmatch_v2`` (from
-   the block-matching init) and windowed ``tpu_fast``; then ``legacy_v1`` through
+   the block-matching init; both in turns, v2, v1, v2) and windowed
+   ``tpu_fast``; then ``legacy_v1`` through
    ``make_problem(...)._replace(init_flow=...)`` and the segment runner (its
    quadratic prior is the block-matching flow; ``solve`` does not set it):
    no kernel launched, the median interior mean within 0.15 of the prior's;
 17. ``legacy_v2``'s ms a sweep (a 30-sweep segment from its solve's final
-   state), the node term's share of a sweep (K6 and its finalize; the plain
-   version's time beside it), K6 alone on the solve's final state against
-   the bound of that state's table sectors, the
+   state, in turns: v2, v1, v2), the node term's share of a sweep (K6 v2 and
+   its finalize; through v1 and through the plain version beside it), K6
+   alone in both variants (bit for bit the same sums) on the solve's final
+   state and on the states of a legacy_v2 run from its init after 0, 10,
+   30, 100 and 300 sweeps, each beside its bound (v1's from that state's
+   table sectors), the
    seconds and memory to build its ``upsample_cubic`` table, and its solve's
    peak device memory;
 18. one full-width ``legacy_v2(gradient_estimator="autodiff")`` sweep: a
@@ -426,7 +438,7 @@ def sass_loops(instrs, label_addr):
                                         else label_addr.get(m.group(1)))
         if start is not None and start <= addr:
             body_ins = [i for a, i in instrs if start <= a <= addr]
-            loops.append(dict(instructions=len(body_ins),
+            loops.append(dict(start=start, end=addr, instructions=len(body_ins),
                               ex2=sum("MUFU.EX2" in i for i in body_ins),
                               rsq=sum("MUFU.RSQ" in i for i in body_ins),
                               ldg=sum(bool(re.search(r"\bLDG\b", i)) for i in body_ins),
@@ -511,6 +523,27 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         lp = min(lp, key=lambda x: x["instructions"]) if lp else None
         per[unit] = lp["instructions"] if lp else None
         per[unit.replace("point", "rsq")] = lp["rsq"] if lp else None
+    # K6 and K7 v2: a warp's round (8 points of each of its 4 sites; the
+    # innermost loop holding the shared patch's loads, LDG: (2 rg + 4)^2 at
+    # rg = 2 and 0, 3 x 16 for K7) as a warp runs it on the patch path, its
+    # serial sums included: the loop's instructions less those of the loops
+    # nested in it (a short last round's sums; at rg = 2 the window off the
+    # patch, row by row; at rg = 0 and in K7 the cell off the patch is a call)
+    for key, unit, ldg in (("nearest_gq_v2_kernelIfLi2EE", "K6 v2 round rg=2", 64),
+                           ("nearest_gq_v2_kernelIfLi0EE", "K6 v2 round rg=0", 16),
+                           ("nearest_chain_v2_kernelIfE", "K7 v2 round", 48)):
+        lps = sass_loops(*find(key))
+        rounds = [x for x in lps if x["ldg"] >= ldg]
+        rnd = min(rounds, key=lambda x: x["instructions"]) if rounds else None
+        per[unit] = per[unit.replace("round", "rsq")] = None
+        if rnd is None:
+            continue
+        inner = [x for x in lps if rnd["start"] <= x["start"] and x["end"] <= rnd["end"]
+                 and x is not rnd]
+        top = [x for x in inner if not any(y is not x and y["start"] <= x["start"]
+                                           and x["end"] <= y["end"] for y in inner)]
+        per[unit] = rnd["instructions"] - sum(x["instructions"] for x in top)
+        per[unit.replace("round", "rsq")] = rnd["rsq"] - sum(x["rsq"] for x in top)
     return per
 
 
@@ -1076,14 +1109,15 @@ def kernels_k5(dev, record, issue_ms, sass):
 
 
 def kernels_k6_k7(dev, record, I1, I2, issue_ms):
-    """Phase 6d: K6 and K7 against their plain versions (see the module
-    docstring); fills ``record["K6"]`` (``legacy_v2``'s windowed lookup:
-    error, times and bounds; the other shapes under their names) and
+    """Phase 6d: K6 and K7 against their plain versions in both variants
+    (see the module docstring); fills ``record["K6"]`` (``legacy_v2``'s
+    windowed lookup: the default variant's error, times and bounds at the top
+    level, each variant's under its name; the other shapes under theirs) and
     ``record["K7"]`` (``legacy_v3``'s chain). ``issue_ms(unit, work)``: the
     SASS issue bound of ``work`` units."""
     from gqmap_tpu_torch import GQMAPConfig
     from gqmap_tpu_torch.kernels import nearest_gq
-    from gqmap_tpu_torch.ops.interp import prewitt_gradients, upsample_cubic
+    from gqmap_tpu_torch.ops.interp import pad_cubic, prewitt_gradients, upsample_cubic
 
     log("phase kernels K6/K7")
     t_phase = time.time()
@@ -1094,15 +1128,18 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
         "legacy_v3": ("K7", GQMAPConfig.legacy_v3()),
     }
     f64, f32 = torch.float64, torch.float32
+    variants = nearest_gq.VARIANTS
     tables = {}
 
     def tabs_for(cfg, chain, dtype):
-        """frame 2's upsampled table (and the Prewitt fields' for K7), made once"""
+        """frame 2's upsampled table and its pad (and the Prewitt fields'
+        for K7), made once"""
         key = (cfg.rfc, chain, dtype)
         if key not in tables:
             I2d = torch.as_tensor(I2, dtype=dtype, device=dev)
-            tables[key] = [upsample_cubic(x, cfg.rfc)
-                           for x in ((I2d, *prewitt_gradients(I2d)) if chain else (I2d,))]
+            fields = (I2d, *prewitt_gradients(I2d)) if chain else (I2d,)
+            tables[key] = ([upsample_cubic(x, cfg.rfc) for x in fields],
+                           tuple(pad_cubic(x) for x in fields))
         return tables[key]
 
     def kernel_of(name):
@@ -1119,12 +1156,16 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
 
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
     before = {k: f.launches for k, f in (("K6", nearest_gq.nearest_gq_cuda),
                                           ("K7", nearest_gq.nearest_chain_gq_cuda))}
     for kern in ("K6", "K7"):
         record[kern] = dict(library_ms=None, library_reason=(
             "no single PyTorch call computes it: a gather (torch.take) and the Charbonnier "
             "quadrature sums are separate calls; the plain version is those calls"))
+    bits = dict(calls=0, equal=0)  # v2 against v1 on every probe, both types
     for name in cases:
         kern, cfg, chain, rest, (fn, plain) = kernel_of(name)
         rg = 0 if chain else cfg.window_rg
@@ -1135,51 +1176,73 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
                                          muv=torch.zeros_like(conv.muv))
         site_shape = tuple(probes["init"].muu.shape)
         L, M, N = site_shape
-        lanes = L * -(-M // 8) * 8 * -(-N // 32) * 32  # the launch's threads (32 x 8 CTAs)
-        unit = "K7 point" if chain else f"K6 point rg={rg}"
-        rec = dict(shape=list(site_shape), K=cfg.K, rg=rg, rfc=cfg.rfc)
+        lanes = L * -(-M // 8) * 8 * -(-N // 32) * 32  # v1's threads (32 x 8 CTAs)
+        rounds = L * M * N * -(-cfg.K ** 2 // 8) * 8  # v2's warp rounds, in lanes
+        unit = {"v1": "K7 point" if chain else f"K6 point rg={rg}",
+                "v2": "K7 v2 round" if chain else f"K6 v2 round rg={rg}"}
+        default = nearest_gq.resolve_variant(None, cfg.K, cfg.rfc)
+        rec = dict(shape=list(site_shape), K=cfg.K, rg=rg, rfc=cfg.rfc, variant=default)
         gold = {}
         for dtype in (f64, f32):
             I1d = torch.as_tensor(I1, dtype=dtype, device=dev)
-            tabs = tabs_for(cfg, chain, dtype)
+            tabs, pads = tabs_for(cfg, chain, dtype)
             for sname, st in probes.items():
                 args = (I1d, *tabs, *sites(st, dtype))
-                got, want = fn(*args, *rest), plain(*args, *rest, quad_chunk=27)
-                a, r, ok = compare(got, want, dtype)
-                what = f"{kern} {name} {site_shape} K={cfg.K} rg={rg} {str(dtype)[6:]} {sname}"
+                want = plain(*args, *rest, quad_chunk=27)
                 if dtype == f64:
                     gold[sname] = want
-                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
-                    continue
-                ek, ep = worst_rel(got, gold[sname]), worst_rel(want, gold[sname])
-                require(ek <= 2.0 * ep + 1e-6,
-                        f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} + "
-                        f"1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
-                again = fn(*args, *rest)
-                require(all(torch.equal(x, y) for x, y in zip(got, again)),
-                        f"{what}: two launches give the same sums, bit for bit")
-                if sname == "clamp":
+                got = {}
+                for variant in variants:
+                    got[variant] = fn(*args, *rest, variant=variant, pads=pads)
+                    a, r, ok = compare(got[variant], want, dtype)
+                    what = (f"{kern} {variant} {name} {site_shape} K={cfg.K} rg={rg} "
+                            f"{str(dtype)[6:]} {sname}")
+                    if dtype == f64:
+                        require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                        continue
+                    ek, ep = worst_rel(got[variant], gold[sname]), worst_rel(want, gold[sname])
+                    require(ek <= 2.0 * ep + 1e-6,
+                            f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} "
+                            f"+ 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                    require(same(got[variant], fn(*args, *rest, variant=variant, pads=pads)),
+                            f"{what}: two launches give the same sums, bit for bit")
+                    if sname == "converged":
+                        rec[f"{variant}_max_abs_err"] = a
+                bits["calls"] += 1
+                bits["equal"] += same(got["v1"], got["v2"])
+                require(same(got["v1"], got["v2"]),
+                        f"{kern} {name} {str(dtype)[6:]} {sname}: v2's sums are v1's, bit for bit")
+                if dtype == f64 or sname == "clamp":
                     continue
                 tag = "" if sname == "converged" else f"{sname}_"
-                ms = kernel_ms(lambda: fn(*args, *rest))
-                rec[f"{tag}ms"], rec[f"{tag}ms_min"] = ms
+                for variant in variants:
+                    ms = kernel_ms(lambda: fn(*args, *rest, variant=variant, pads=pads))
+                    rec[f"{variant}_{tag}ms"], rec[f"{variant}_{tag}ms_min"] = ms
                 rec[f"{tag}plain_ms"] = time_ms(lambda: plain(*args, *rest, quad_chunk=27), 3)
                 lookups, sectors = nearest_gq.lookup_sectors(tabs[0], *args[-5:], cfg.K, cfg.rfc,
                                                              rg)
-                work = (roofline.k7_work(site_shape, cfg.K, sectors) if chain
-                        else roofline.k6_work(site_shape, cfg.K, rg, sectors))
-                b = bound(work)
                 rec[f"{tag}sectors"], rec["lookups"] = sectors, lookups
-                rec[f"{tag}bound_ms"], rec[f"{tag}bound_ms_measured"] = (
-                    b["bound_ms"], b["bound_ms_measured"])
-                if sname == "converged":
-                    rec.update(b, max_abs_err=a, sass_issue_ms=issue_ms(unit, lanes * cfg.K ** 2),
-                               lookup_sector_ms=work["lookup_bytes"]
-                               / RATES["datasheet"]["bytes"] * 1e3)
+                for variant in variants:
+                    work = (roofline.k7_work(site_shape, cfg.K, sectors, variant=variant)
+                            if chain else roofline.k6_work(site_shape, cfg.K, rg, sectors,
+                                                           variant=variant))
+                    b = bound(work)
+                    rec[f"{variant}_{tag}bound_ms"] = b["bound_ms"]
+                    rec[f"{variant}_{tag}bound_ms_measured"] = b["bound_ms_measured"]
+                    if sname == "converged":
+                        rec[f"{variant}_bound"] = b
+                        rec[f"{variant}_sass_issue_ms"] = issue_ms(
+                            unit[variant], lanes * cfg.K ** 2 if variant == "v1" else rounds)
+                        rec["lookup_sector_ms"] = (work["lookup_bytes"]
+                                                   / RATES["datasheet"]["bytes"] * 1e3)
+        # the default variant's numbers at the top level (the kernels line's)
+        rec.update(rec[f"{default}_bound"], ms=rec[f"{default}_ms"],
+                   ms_min=rec[f"{default}_ms_min"], max_abs_err=rec[f"{default}_max_abs_err"],
+                   sass_issue_ms=rec[f"{default}_sass_issue_ms"])
         if name == "legacy_v2":
             # the card's rate of random 4-byte gathers over this table: torch.take
             # of uniform random indices, a tenth of the lookups K6 makes
-            tab = tabs_for(cfg, chain, f32)[0]
+            tab = tabs_for(cfg, chain, f32)[0][0]
             idx = torch.randint(0, tab.numel(), (rec["lookups"] // 10,), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(0))
             ms = kernel_ms(lambda: torch.take(tab, idx), n=10)[0]
@@ -1188,15 +1251,21 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
         card = smi("name,power.limit,clocks.sm")
         log(f"  {kern} {name} {site_shape} K={cfg.K} rg={rg} rfc={cfg.rfc} f32 on {card}: "
             f"{rec['lookups']:.4e} lookups; one sector a lookup {rec['lookup_sector_ms']:.4f} "
-            f"ms; SASS issue bound {rec['sass_issue_ms']:.4f} ms; converged {fmt_bound(rec)} "
-            f"({rec['bound_terms_ms']})")
+            f"ms; default {default}")
+        for variant in variants:
+            b = rec[f"{variant}_bound"]
+            log(f"    {variant}: SASS issue bound {rec[f'{variant}_sass_issue_ms']:.4f} ms; "
+                f"converged {fmt_bound(b)} ({b['bound_terms_ms']})")
         for sname in ("converged", "init", "smooth"):
             tag = "" if sname == "converged" else f"{sname}_"
-            log(f"    {sname}: (median, min) ({rec[tag + 'ms']:.4f}, {rec[tag + 'ms_min']:.4f}) "
-                f"ms, plain {rec[tag + 'plain_ms']:.4f} ms, {rec[tag + 'sectors']} distinct "
-                f"sectors, bound {rec[tag + 'bound_ms']:.4f} ms (data sheet), "
-                f"{rec[tag + 'bound_ms_measured']:.4f} ms (measured); "
-                f"{rec['lookups'] / rec[tag + 'ms'] / 1e6:.2f} G lookups/s")
+            log(f"    {sname}: (median, min) v1 ({rec['v1_' + tag + 'ms']:.4f}, "
+                f"{rec['v1_' + tag + 'ms_min']:.4f}) ms, v2 ({rec['v2_' + tag + 'ms']:.4f}, "
+                f"{rec['v2_' + tag + 'ms_min']:.4f}) ms, plain {rec[tag + 'plain_ms']:.4f} ms; "
+                f"{rec[tag + 'sectors']} distinct sectors, v1 bound "
+                f"{rec['v1_' + tag + 'bound_ms']:.4f} ms, v2 bound "
+                f"{rec['v2_' + tag + 'bound_ms']:.4f} ms (data sheet); v1 "
+                f"{rec['lookups'] / rec['v1_' + tag + 'ms'] / 1e6:.2f}, v2 "
+                f"{rec['lookups'] / rec['v2_' + tag + 'ms'] / 1e6:.2f} G lookups/s")
         if "take_random_Glookups_s" in rec:
             log(f"    torch.take of uniform random indices over the table: "
                 f"{rec['take_random_Glookups_s']:.2f} G lookups/s")
@@ -1209,24 +1278,26 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
     # mesh's four blocks and one at odd offsets), and within 1e-10 of its
     # plain version in float64; NaN queries: NaN where the plain version has
     # NaN (a NaN cell reads the element the plain version reads), every other
-    # site bit for bit the NaN-free call's
+    # site bit for bit the NaN-free call's; both variants
     hm, hn = H // 2, W // 2
     blocks = [(r, c, hm, hn) for r in (0, hm) for c in (0, hn)]
     blocks.append(((H // 10) | 1, (W // 9) | 1, H // 3, W // 2))  # at odd offsets
-    for name in ("legacy_v2", "legacy_v3"):
+    for name, variant in ((n, v) for n in ("legacy_v2", "legacy_v3") for v in variants):
         kern, cfg, chain, rest, (fn, plain) = kernel_of(name)
         st = k4_probes(cfg, (H, W), dev)["converged"]
         for dtype in (f64, f32):
             I1d = torch.as_tensor(I1, dtype=dtype, device=dev)
-            tabs = tabs_for(cfg, chain, dtype)
+            tabs, pads = tabs_for(cfg, chain, dtype)
+            kw = dict(variant=variant, pads=pads)
             s5 = sites(st, dtype)
-            whole = fn(I1d, *tabs, *s5, *rest)
+            whole = fn(I1d, *tabs, *s5, *rest, **kw)
             for r0, c0, m, n in blocks:
                 blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
                 bs = [x[blk].contiguous() for x in s5]
                 at = dict(origin=(r0, c0), local_image_shape=(m, n))
-                got = fn(I1d, *tabs, *bs, *rest, **at)
-                what = f"{kern} {name} {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0})"
+                got = fn(I1d, *tabs, *bs, *rest, **at, **kw)
+                what = (f"{kern} {variant} {name} {str(dtype)[6:]} block of ({m}, {n}) sites at "
+                        f"({r0}, {c0})")
                 if dtype == f64:
                     a, r, ok = compare(got, plain(I1d, *tabs, *bs, *rest, quad_chunk=27, **at),
                                        dtype)
@@ -1242,7 +1313,7 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
             s5 = [x.clone() for x in s5]  # (a float64 field is the probe's own tensor)
             for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
                 s5[field][site] = float("nan")
-            got = fn(I1d, *tabs, *s5, *rest)
+            got = fn(I1d, *tabs, *s5, *rest, **kw)
             want = plain(I1d, *tabs, *s5, *rest, quad_chunk=27)
             torch.cuda.synchronize()
             ok = True
@@ -1251,15 +1322,17 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
                                                                                    c[~mask])
                 fine = ~torch.isnan(w)
                 ok &= compare([g[fine]], [w[fine]], dtype)[2]
-            require(ok, f"{kern} {name} {str(dtype)[6:]} NaN probes at {at}: NaN where the plain "
-                        "version has NaN, within tolerance of it elsewhere, every other site bit "
-                        "for bit the NaN-free call's")
+            require(ok, f"{kern} {variant} {name} {str(dtype)[6:]} NaN probes at {at}: NaN where "
+                        "the plain version has NaN, within tolerance of it elsewhere, every "
+                        "other site bit for bit the NaN-free call's")
+    record["K6"]["v2_equals_v1_bit_for_bit"] = bits
     made = {k: f.launches - before[k] for k, f in (("K6", nearest_gq.nearest_gq_cuda),
                                                    ("K7", nearest_gq.nearest_chain_gq_cuda))}
     del tables
     torch.cuda.empty_cache()
-    log(f"  phase kernels K6/K7 {time.time() - t_phase:.1f} s; launches in this phase (checks "
-        f"and timing, not a main path) {made}")
+    log(f"  phase kernels K6/K7 {time.time() - t_phase:.1f} s; v2's sums v1's bit for bit in "
+        f"{bits['equal']} of {bits['calls']} probes; launches in this phase (checks and timing, "
+        f"not a main path) {made}")
 
 
 def flow_sequence(seed, dev, H=H, W=W):
@@ -2391,7 +2464,8 @@ def main():
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
-                 "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point"):
+                 "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point",
+                 "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -3011,7 +3085,47 @@ def main():
             f"AEPE trace {[float(res.AEPE[i]) for i in evals]}")
         record["peak_GiB"][path] = peak / 2**30
         record.setdefault("solve_GiB_above_held", {})[path] = (peak - base) / 2**30
+        record.setdefault("solve_wall_s", {})[path] = wall
         return res
+
+    def nearest_turns(fn):
+        """``fn()`` with K6 and K7 in turns: "v2" (the default), "v1" (made
+        the default for the call) and "v2" again; the three results."""
+        out = []
+        for variant in ("v2", "v1", "v2"):
+            default, nearest_gq._DEFAULT_VARIANT = nearest_gq._DEFAULT_VARIANT, variant
+            try:
+                out.append(fn())
+            finally:
+                nearest_gq._DEFAULT_VARIANT = default
+        return out
+
+    def solve_turns(path, cfg, want, **kw):
+        """``counted_solve`` in turns (v2, v1, v2): the same AEPE and energy
+        traces, bit for bit (v2's sums are v1's); each turn's wall. Returns
+        the first turn's result."""
+        turns = nearest_turns(lambda: (counted_solve(path, cfg, want, **kw),
+                                       record["solve_wall_s"][path]))
+        res = turns[0][0]
+        walls = record.setdefault("solve_wall_s_turns", {})[path] = dict(
+            zip(("v2", "v1", "v2_again"), (w for _, w in turns)))
+        require(all(np.array_equal(res.AEPE, r.AEPE, equal_nan=True)
+                    and np.array_equal(res.Energy, r.Energy, equal_nan=True) for r, _ in turns),
+                f"{path}: the solves with K6/K7 v2, v1 and v2 again give the same AEPE and energy "
+                f"traces, bit for bit; walls {walls} s")
+        return res
+
+    def segment_turns(path, cfg, problem, state):
+        """``segment_ms`` in turns (v2, v1, v2); v2, the default, must be no
+        slower than v1 there. Returns v2's ms a sweep."""
+        ms = nearest_turns(lambda: segment_ms(path, cfg, problem, state))
+        turns = record.setdefault("segment_ms_turns", {})[path] = dict(
+            zip(("v2", "v1", "v2_again"), ms))
+        record["segment_ms_per_sweep_by_path"][path] = ms[0]
+        require(min(ms[0], ms[2]) <= ms[1],
+                f"{path}: the graph segment with K6/K7 v2 no slower than with v1 ({turns} ms a "
+                "sweep)")
+        return ms[0]
 
     def aepe_falls(path, res):
         a1, an = res.AEPE[0], res.AEPE[res.iters - 1]
@@ -3127,12 +3241,13 @@ def main():
     # ---- 16. the legacy presets through the user entry points
     log("phase legacy solves")
     # the nearest lookups through K6 (windowed on legacy_v2), legacy_v3's chain through K7
+    # (K6 and K7 in turns: v2, the default, then v1, then v2 again)
     k6_k3 = launch_counts(K3=1, K6=1)
     k7_k3 = launch_counts(K3=1, K7=1)
-    v2res = aepe_falls("legacy_v2", counted_solve("legacy_v2", v2_32, k6_k3, verbose=True))
+    v2res = aepe_falls("legacy_v2", solve_turns("legacy_v2", v2_32, k6_k3, verbose=True))
     v3_32 = GQMAPConfig.legacy_v3(its=300, eval_every=300)
-    v3res = aepe_falls("legacy_v3", counted_solve("legacy_v3", v3_32, k7_k3, verbose=True))
-    segment_ms("legacy_v3", v3_32, pg.make_problem(v3_32, I1, I2, fr, dev), v3res.state)
+    v3res = aepe_falls("legacy_v3", solve_turns("legacy_v3", v3_32, k7_k3, verbose=True))
+    segment_turns("legacy_v3", v3_32, pg.make_problem(v3_32, I1, I2, fr, dev), v3res.state)
     t = time.time()
     bm_flow = block_matching_init(I1, I2, device=dev)
     log(f"  block_matching_init 376x452: {time.time() - t:.3f} s; interior flow (median u, v) "
@@ -3144,14 +3259,14 @@ def main():
     # keeps it) moves the means off it, in the JAX engine as in the port
     # (ROADMAP Queue 3, P4; tests/test_torch_legacy.py): the AEPE falls from
     # a random init, and from the block-matching init stays below that
-    rand = aepe_falls("blockmatch_v2", counted_solve("blockmatch_v2", bm32, k6_k3))
-    bm = counted_solve("blockmatch_v2 from block_matching_init", bm32, k6_k3,
-                       init_flow=bm_flow, verbose=True)
+    rand = aepe_falls("blockmatch_v2", solve_turns("blockmatch_v2", bm32, k6_k3))
+    bm = solve_turns("blockmatch_v2 from block_matching_init", bm32, k6_k3, init_flow=bm_flow,
+                     verbose=True)
     require(bm.AEPE[0] < rand.AEPE[0] and bm.AEPE[-1] < rand.AEPE[-1],
             f"blockmatch_v2: AEPE from the block-matching init {bm.AEPE[0]:.4f} at it=1, "
             f"{bm.AEPE[-1]:.4f} at the end, each below the random init's {rand.AEPE[0]:.4f}, "
             f"{rand.AEPE[-1]:.4f}")
-    segment_ms("blockmatch_v2", bm32, pg.make_problem(bm32, I1, I2, fr, dev), bm.state)
+    segment_turns("blockmatch_v2", bm32, pg.make_problem(bm32, I1, I2, fr, dev), bm.state)
     wres = aepe_falls("tpu_fast window_rg=2", counted_solve(
         "tpu_fast window_rg=2", wf32, launch_counts(K1=1, K2=1), verbose=True))
     segment_ms("tpu_fast window_rg=2", wf32, wp32, wres.state)
@@ -3194,40 +3309,69 @@ def main():
     t_up = time.time() - t
     up_peak = torch.cuda.max_memory_allocated() - base
     del tab
-    seg_ms = segment_ms("legacy_v2", v2_32, v2p, v2res.state)
+    seg_ms = segment_turns("legacy_v2", v2_32, v2p, v2res.state)
     v2st = v2res.state
     a3 = torch.softmax(v2st.w, 0).reshape(1, 1, 1)
     site5 = (v2st.muu, v2st.muv, v2st.sigmau, v2st.sigmav, v2st.pn)
     k6_rest = (v2_32.K, v2_32.lambdad, v2_32.epsn, v2_32.rfc, v2_32.window_rg)
+    k6_v1 = functools.partial(k6_fn, variant="v1")
 
-    def v2_node_term(fn=k6_fn):
+    def v2_node_term(fn=k6_fn, s5=site5):
         """the node term, K6 (or its plain version) and finalize"""
-        raw = fn(v2p.I1, v2p.I2_tab, *site5, *k6_rest)
+        raw = fn(v2p.I1, v2p.I2_tab, *s5, *k6_rest, pads=v2p.nearest_pads)
         return finalize(raw, a3, v2st.sigmau, v2st.sigmav, v2st.pn, v2st.temperature, NODE)
 
     v2sweep = pg.make_sweep(v2_32, (H, W))
     split = dict(sweep=time_ms(lambda: v2sweep(v2p, v2st), 10), node=time_ms(v2_node_term, 10),
+                 node_v1=time_ms(lambda: v2_node_term(k6_v1), 10),
                  node_plain=time_ms(lambda: v2_node_term(functools.partial(
                      nearest_gq.nearest_gq_torch, quad_chunk=v2_32.quad_chunk)), 3))
     split["node_share"] = split["node"] / split["sweep"]
     split["segment_ms_per_sweep"] = seg_ms
-    # K6 alone on the solve's final state, against the bound of its lookups' sectors
-    sectors = nearest_gq.lookup_sectors(v2p.I2_tab, *site5, v2_32.K, v2_32.rfc,
-                                        v2_32.window_rg)[1]
-    ms = kernel_ms(lambda: k6_fn(v2p.I1, v2p.I2_tab, *site5, *k6_rest))
-    solved = record["K6"]["legacy_v2 solve state"] = dict(
-        ms=ms[0], ms_min=ms[1], sectors=sectors,
-        **bound(roofline.k6_work(tuple(v2st.muu.shape), v2_32.K, v2_32.window_rg, sectors)))
-    log(f"  K6 on legacy_v2's solved state (after 300 sweeps): (median, min) {ms} ms, "
-        f"{sectors} distinct sectors; {fmt_bound(solved)}")
+
+    def k6_on(s5, what, n=TIMING[1]):
+        """K6 alone in both variants on a state (bit for bit the same sums),
+        each beside its bound: v1's from the table sectors its lookups touch"""
+        sectors = nearest_gq.lookup_sectors(v2p.I2_tab, *s5, v2_32.K, v2_32.rfc,
+                                            v2_32.window_rg)[1]
+        args = (v2p.I1, v2p.I2_tab, *s5, *k6_rest)
+        require(all(torch.equal(x, y) for x, y in zip(
+            k6_v1(*args), k6_fn(*args, variant="v2", pads=v2p.nearest_pads))),
+            f"K6 on {what}: v2's sums are v1's, bit for bit")
+        out = dict(sectors=sectors)
+        for variant in nearest_gq.VARIANTS:
+            ms = kernel_ms(lambda: k6_fn(*args, variant=variant, pads=v2p.nearest_pads), n=n)
+            work = roofline.k6_work(tuple(s5[0].shape), v2_32.K, v2_32.window_rg, sectors,
+                                    variant=variant)
+            out[variant] = dict(ms=ms[0], ms_min=ms[1], **bound(work))
+        log(f"  K6 on {what}: " + "; ".join(
+            f"{v} (median, min) ({out[v]['ms']:.4f}, {out[v]['ms_min']:.4f}) ms, "
+            f"{fmt_bound(out[v])}" for v in nearest_gq.VARIANTS) + f"; {sectors} distinct sectors")
+        return out
+
+    # K6 alone on the solve's final state, and on states along a legacy_v2
+    # solve from its init (the graph route's state after 0, 10, 30, 100 and
+    # 300 sweeps), v1 against v2
+    record["K6"]["legacy_v2 solve state"] = k6_on(site5, "legacy_v2's solved state (after 300 "
+                                                         "sweeps)")
+    along = record["K6"]["along a legacy_v2 solve"] = {}
+    runner = pg.make_segment_runner(dataclasses.replace(v2_32, tor=0.0, its=v2_32.its + 40),
+                                    (H, W))
+    st, done = pg.init_state(v2_32, fr, (H, W), device=dev), 0
+    for n in (0, 10, 30, 100, 300):
+        if n > done:
+            st, done = runner(v2p, st, n - done)[0], n
+        along[n] = k6_on((st.muu, st.muv, st.sigmau, st.sigmav, st.pn),
+                         f"the state after {n} sweeps from legacy_v2's init", n=20)
+    del runner
     record["legacy_v2"] = dict(split, make_problem_s=t_problem, upsample_cubic_s=t_up,
                                upsample_cubic_GiB_above_held=up_peak / 2**30,
                                card=smi("name,power.limit"))
     log(f"  legacy_v2 on {record['legacy_v2']['card']}: {split['segment_ms_per_sweep']:.4f} ms a "
         f"sweep (30-sweep segment from its solve's final state), one sweep {split['sweep']:.4f} "
-        f"ms of which the node term (K6 and finalize) {split['node']:.4f} ms "
-        f"({100 * split['node_share']:.1f}%; through the plain version {split['node_plain']:.4f}"
-        " ms); make_problem "
+        f"ms of which the node term (K6 v2 and finalize) {split['node']:.4f} ms "
+        f"({100 * split['node_share']:.1f}%; through K6 v1 {split['node_v1']:.4f} ms, through the "
+        f"plain version {split['node_plain']:.4f} ms); make_problem "
         f"{t_problem:.3f} s, upsample_cubic (376x452 -> {tuple(v2p.I2_tab.shape)}) {t_up:.3f} s "
         f"and {up_peak / 2**30:.3f} GiB at peak; solve peak {record['peak_GiB']['legacy_v2']:.3f}"
         " GiB")
@@ -3296,10 +3440,11 @@ def main():
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/chebyshev.py:126 (XLA scan, "
                       "no Pallas)", launches=by_path["full_mixture chebyshev solve"]["K5"],
              **record["K5"]),
-        dict(name="nearest_gq (K6)", route="cuda", source="gqmap_tpu_torch/csrc/nearest_gq.cu",
+        dict(name="nearest_gq (K6, v2)", route="cuda",
+             source="gqmap_tpu_torch/csrc/nearest_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:100/:142 (XLA "
                       "scan, no Pallas)", launches=by_path["legacy_v2"]["K6"], **record["K6"]),
-        dict(name="nearest_chain_gq (K7)", route="cuda",
+        dict(name="nearest_chain_gq (K7, v2)", route="cuda",
              source="gqmap_tpu_torch/csrc/nearest_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:339 on gqmap_tpu/ops/potentials.py:211 (XLA scan, "
                       "no Pallas)", launches=by_path["legacy_v3"]["K7"], **record["K7"]),

@@ -31,7 +31,8 @@ def problem_from_numpy(fields: Mapping, device=None, data_term: str = "cosine") 
     floats: minu, maxu, minv, maxv) and ``cheb``, a mapping of the
     coefficient field's ``coeffs``, ``lo_u``, ``hi_u``, ``lo_v``, ``hi_v``, or
     None for a Problem without a coefficient field; optionally ``init_flow``
-    (an (M, N, 2) array) and ``grad_tabs`` (two arrays), each None or absent
+    (an (M, N, 2) array), ``grad_tabs`` (two arrays) and ``nearest_pads`` (one
+    or three arrays: ``Problem.nearest_pads``), each None or absent
     where the configuration has none. ``data_term`` says whose field ``cheb``
     is: ``CosData`` for ``"cosine"``, ``ChebData`` (stored site major, as
     ``build_cheb_data`` stores it) for ``"chebyshev"``. ``device``: the GPU
@@ -48,12 +49,14 @@ def problem_from_numpy(fields: Mapping, device=None, data_term: str = "cosine") 
         cheb = cls(coeffs=coeffs, **{k: float(c[k]) for k in ("lo_u", "hi_u", "lo_v", "hi_v")})
     init_flow = fields.get("init_flow")
     grad_tabs = fields.get("grad_tabs")
+    pads = fields.get("nearest_pads")
     return Problem(I1=_t(fields["I1"], device), I2_tab=_t(fields["I2_tab"], device),
                    interior=_t(fields["interior"], device).to(torch.bool),
                    rng=FlowRange(*(float(x) for x in fields["rng"])), cheb=cheb,
                    init_flow=None if init_flow is None else _t(init_flow, device),
                    grad_tabs=None if grad_tabs is None else tuple(_t(g, device)
-                                                                  for g in grad_tabs))
+                                                                  for g in grad_tabs),
+                   nearest_pads=None if pads is None else tuple(_t(g, device) for g in pads))
 
 
 def state_from_numpy(fields: Mapping, device=None) -> GQState:

@@ -77,6 +77,14 @@ _SIGNATURES = {
     # c0, K, rfc, lam, eps, device, stream
     "gqmap_nearest_chain_f32": [_P] * 11 + [_I] * 11 + [_D] * 2 + [_I, _P],
     "gqmap_nearest_chain_f64": [_P] * 11 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    # I1, pad, wts, muu, muv, su, sv, pn, rule_host, out, Mo, No, M2, N2, L, M, N, r0, c0, K,
+    # rg, rfc, lam, eps, device, stream
+    "gqmap_nearest_gq_v2_f32": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
+    "gqmap_nearest_gq_v2_f64": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
+    # I1, pad, pad_u, pad_v, wts, muu, muv, su, sv, pn, rule_host, out, Mo, No, M2, N2, L, M, N,
+    # r0, c0, K, rfc, lam, eps, device, stream
+    "gqmap_nearest_chain_v2_f32": [_P] * 12 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    "gqmap_nearest_chain_v2_f64": [_P] * 12 + [_I] * 11 + [_D] * 2 + [_I, _P],
     # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
     # out, iters, blocks, device, stream (roofline.measure_ceilings)

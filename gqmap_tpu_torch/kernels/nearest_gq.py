@@ -17,7 +17,12 @@ The CUDA kernels are ``gqmap_tpu_torch/csrc/nearest_gq.cu`` (its notes say
 how they are laid out); their plain PyTorch versions are
 :func:`nearest_gq_torch` and :func:`nearest_chain_gq_torch`, exactly what
 the sweep ran before the kernels. ``finalize`` and ``finalize_chain`` are
-the caller's.
+the caller's. Each kernel has two variants (:data:`VARIANTS`): ``"v1"``
+reads the table (one thread a site), ``"v2"`` evaluates each looked-up cell
+from the padded field ``pad_cubic(I2)`` (and, K7, the Prewitt fields' pads)
+by the table's own phase stencil (``ops/interp.phase_weights``), bit for bit
+the table's value, with a site's 8 lanes over its points;
+:func:`resolve_variant` picks ``"v2"`` where it takes the shape.
 
 * :func:`nearest_gq_cuda` and :func:`nearest_chain_gq_cuda` launch the
   kernels (and raise for tensors that are not on a CUDA device); their
@@ -30,7 +35,9 @@ table ``tab = upsample_cubic(I2, rfc)`` (K7 also its two upsampled Prewitt
 fields), the ``(L, M, N)`` state ``muu, muv, su, sv, pn`` of one pixel a
 site, the rule's order ``K``, ``lambdad``, ``epsn``, ``rfc`` and, on a shard,
 the block's pixel ``origin`` (row, column) and ``local_image_shape``, as the
-potentials take them. The plain versions and the dispatchers also take
+potentials take them, and ``pads``, the padded fields ``Problem.nearest_pads``
+that ``"v2"`` reads (the plain versions read the table and take ``pads`` only
+to share the signature). The plain versions and the dispatchers also take
 ``quad_chunk``, the plain version's points a step (0: all); the kernels take
 every point of the rule in one pass. :func:`lookup_sectors` counts the
 distinct 32-byte sectors of the table that a state's lookups touch, the
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from ..ops.gq import GQChainRaw, GQRaw, _whitened_steps, gq_accumulate, gq_accumulate_chain
+from ..ops.interp import phase_weights
 from ..ops.potentials import (_nearest_index, make_node_pot_nearest, make_node_pot_nearest_chain,
                               make_node_pot_windowed)
 from ..ops.quadrature import table_on
@@ -52,16 +60,36 @@ from . import build
 from .node_gq import node_rule
 from .roofline import SECTOR_BYTES
 
-__all__ = ["MAX_K", "lookup_sectors", "nearest_chain_gq", "nearest_chain_gq_cuda",
-           "nearest_chain_gq_torch", "nearest_gq", "nearest_gq_cuda", "nearest_gq_torch"]
+__all__ = ["MAX_K", "V2_MAX_K", "V2_MAX_RFC", "VARIANTS", "lookup_sectors", "nearest_chain_gq",
+           "nearest_chain_gq_cuda", "nearest_chain_gq_torch", "nearest_gq", "nearest_gq_cuda",
+           "nearest_gq_torch", "resolve_variant"]
 
 MAX_K = 64  # the largest rule the kernels take (csrc/nearest_gq.cu, kMaxK)
 MAX_RFC = 20  # the largest upsampling exponent they take
+V2_MAX_K, V2_MAX_RFC = 24, 8  # "v2"'s (kV2MaxK, kV2MaxRfc: its tables in 48 KB)
+VARIANTS = ("v1", "v2")
+_DEFAULT_VARIANT = "v2"
+
+
+def resolve_variant(variant: str | None, K: int, rfc: int) -> str:
+    """The variant a launch runs: ``variant``, or with None ``"v2"`` where
+    it takes the shape (``K`` at most :data:`V2_MAX_K`, ``rfc`` at most
+    :data:`V2_MAX_RFC`) and ``"v1"`` elsewhere; an explicit ``"v2"`` outside
+    that raises."""
+    fits = int(K) <= V2_MAX_K and int(rfc) <= V2_MAX_RFC
+    if variant is None:
+        return _DEFAULT_VARIANT if fits else "v1"
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown nearest_gq kernel variant {variant!r}")
+    if variant == "v2" and not fits:
+        raise ValueError(f"nearest_gq variant 'v2' takes rules of at most {V2_MAX_K} points an "
+                         f"axis and rfc at most {V2_MAX_RFC}, not K = {K}, rfc = {rfc}")
+    return variant
 
 
 def nearest_gq_torch(I1, tab, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
                      rfc: int, rg: int = 0, origin=None, local_image_shape=None,
-                     quad_chunk: int = 0) -> GQRaw:
+                     quad_chunk: int = 0, pads=None) -> GQRaw:
     """Plain version of K6: ``gq_accumulate`` of the nearest-lookup potential
     (the mean over the ``(2 rg + 1)^2`` window for ``rg > 0``) over the K^2
     rule, ``quad_chunk`` points a step."""
@@ -76,7 +104,8 @@ def nearest_gq_torch(I1, tab, muu, muv, su, sv, pn, K: int, lambdad: float, epsn
 
 def nearest_chain_gq_torch(I1, tab, tab_u, tab_v, muu, muv, su, sv, pn, K: int,
                            lambdad: float, epsn: float, rfc: int, origin=None,
-                           local_image_shape=None, quad_chunk: int = 0) -> GQChainRaw:
+                           local_image_shape=None, quad_chunk: int = 0,
+                           pads=None) -> GQChainRaw:
     """Plain version of K7: ``gq_accumulate_chain`` of the Prewitt chain
     potential over the K^2 rule, ``quad_chunk`` points a step."""
     fg = make_node_pot_nearest_chain(I1, tab, tab_u, tab_v, lambdad, epsn, rfc, origin=origin,
@@ -93,6 +122,33 @@ def _rule_host(K: int, dtype: torch.dtype) -> np.ndarray:
     """:func:`.node_gq.node_rule` in the launch's type on the host, copied
     into the launch's parameters; kept alive by the cache."""
     return np.ascontiguousarray(node_rule(K, _NP_DTYPES[dtype]))
+
+
+@functools.lru_cache(maxsize=None)
+def _weights_on(rfc: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`..ops.interp.phase_weights` on the launch's device, made once
+    (a captured sweep copies nothing from the host): the tensor expression
+    ``upsample_cubic`` weighs its taps with on that device."""
+    return phase_weights(rfc, dtype, device)
+
+
+def _check_pads(what, I1, pads, n, rfc, state):
+    """``"v2"``'s padded fields: the first ``n`` of ``pads``, each ``(Mo + 2,
+    No + 2)``, contiguous, on the state's device and in its type."""
+    muu = state[0]
+    if pads is None or len(pads) < n:
+        raise ValueError(f"{what} variant 'v2' reads the padded field{'s' if n > 1 else ''} "
+                         f"(Problem.nearest_pads, pad_cubic of frame 2"
+                         f"{' and of its Prewitt fields' if n > 1 else ''}): pass pads=")
+    want = (I1.shape[0] + 2, I1.shape[1] + 2)
+    for k, x in enumerate(pads[:n]):
+        if tuple(x.shape) != want:
+            raise ValueError(f"pad {k} has shape {tuple(x.shape)}, expected {want}")
+        if x.device != muu.device or x.dtype != muu.dtype:
+            raise ValueError(f"pad {k} must share muu's device and dtype")
+        if not x.is_contiguous():
+            raise ValueError(f"pad {k} must be contiguous")
+    return pads[:n], _weights_on(int(rfc), muu.dtype, muu.device)
 
 
 def _check(what, I1, tabs, state, K, rfc, rg, origin, local_image_shape):
@@ -132,22 +188,36 @@ def _check(what, I1, tabs, state, K, rfc, rg, origin, local_image_shape):
 
 
 def nearest_gq_cuda(I1, tab, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
-                    rfc: int, rg: int = 0, origin=None, local_image_shape=None) -> GQRaw:
+                    rfc: int, rg: int = 0, origin=None, local_image_shape=None, pads=None,
+                    variant: str | None = None) -> GQRaw:
     """Kernel K6 over every point of the K^2 rule and every tap of the
-    ``(2 rg + 1)^2`` window."""
+    ``(2 rg + 1)^2`` window; ``variant`` by :func:`resolve_variant`,
+    ``"v2"`` reading ``pads[0]`` (``pad_cubic`` of frame 2) where ``"v1"``
+    reads ``tab``."""
     state = (muu, muv, su, sv, pn)
     r0, c0 = _check("nearest_gq_cuda", I1, (tab,), state, K, rfc, rg, origin,
                     local_image_shape)
+    variant = resolve_variant(variant, K, rfc)
+    if variant == "v2":
+        (pad,), wts = _check_pads("nearest_gq_cuda", I1, pads, 1, rfc, state)
     L, M, N = muu.shape
     out = torch.empty((6, L, M, N), dtype=muu.dtype, device=muu.device)
     lib = build.library_for(muu.device)
-    fn = lib.gqmap_nearest_gq_f32 if muu.dtype == torch.float32 else lib.gqmap_nearest_gq_f64
+    f32 = muu.dtype == torch.float32
     stream = torch.cuda.current_stream(muu.device).cuda_stream
-    build.check(fn(I1.data_ptr(), tab.data_ptr(), *(x.data_ptr() for x in state),
-                   _rule_host(int(K), muu.dtype).ctypes.data, out.data_ptr(), *I1.shape,
-                   *tab.shape, L, M, N, r0, c0, int(K), int(rg), int(rfc), float(lambdad),
-                   float(epsn), muu.device.index, stream),
-                "nearest_gq_cuda")
+    rule = _rule_host(int(K), muu.dtype).ctypes.data
+    sites = [x.data_ptr() for x in state]
+    if variant == "v2":
+        fn = lib.gqmap_nearest_gq_v2_f32 if f32 else lib.gqmap_nearest_gq_v2_f64
+        code = fn(I1.data_ptr(), pad.data_ptr(), wts.data_ptr(), *sites, rule, out.data_ptr(),
+                  *I1.shape, *pad.shape, L, M, N, r0, c0, int(K), int(rg), int(rfc),
+                  float(lambdad), float(epsn), muu.device.index, stream)
+    else:
+        fn = lib.gqmap_nearest_gq_f32 if f32 else lib.gqmap_nearest_gq_f64
+        code = fn(I1.data_ptr(), tab.data_ptr(), *sites, rule, out.data_ptr(), *I1.shape,
+                  *tab.shape, L, M, N, r0, c0, int(K), int(rg), int(rfc), float(lambdad),
+                  float(epsn), muu.device.index, stream)
+    build.check(code, f"nearest_gq_cuda ({variant})")
     nearest_gq_cuda.launches += 1
     return GQRaw(*out.unbind(0))
 
@@ -156,23 +226,35 @@ nearest_gq_cuda.launches = 0
 
 
 def nearest_chain_gq_cuda(I1, tab, tab_u, tab_v, muu, muv, su, sv, pn, K: int, lambdad: float,
-                          epsn: float, rfc: int, origin=None,
-                          local_image_shape=None) -> GQChainRaw:
-    """Kernel K7 over every point of the K^2 rule."""
+                          epsn: float, rfc: int, origin=None, local_image_shape=None, pads=None,
+                          variant: str | None = None) -> GQChainRaw:
+    """Kernel K7 over every point of the K^2 rule; ``variant`` by
+    :func:`resolve_variant`, ``"v2"`` reading the three ``pads`` where
+    ``"v1"`` reads the three tables."""
     state = (muu, muv, su, sv, pn)
     r0, c0 = _check("nearest_chain_gq_cuda", I1, (tab, tab_u, tab_v), state, K, rfc, 0, origin,
                     local_image_shape)
+    variant = resolve_variant(variant, K, rfc)
+    if variant == "v2":
+        fields, wts = _check_pads("nearest_chain_gq_cuda", I1, pads, 3, rfc, state)
     L, M, N = muu.shape
     out = torch.empty((7, L, M, N), dtype=muu.dtype, device=muu.device)
     lib = build.library_for(muu.device)
-    fn = (lib.gqmap_nearest_chain_f32 if muu.dtype == torch.float32
-          else lib.gqmap_nearest_chain_f64)
+    f32 = muu.dtype == torch.float32
     stream = torch.cuda.current_stream(muu.device).cuda_stream
-    build.check(fn(I1.data_ptr(), tab.data_ptr(), tab_u.data_ptr(), tab_v.data_ptr(),
-                   *(x.data_ptr() for x in state), _rule_host(int(K), muu.dtype).ctypes.data,
-                   out.data_ptr(), *I1.shape, *tab.shape, L, M, N, r0, c0, int(K), int(rfc),
-                   float(lambdad), float(epsn), muu.device.index, stream),
-                "nearest_chain_gq_cuda")
+    rule = _rule_host(int(K), muu.dtype).ctypes.data
+    sites = [x.data_ptr() for x in state]
+    if variant == "v2":
+        fn = lib.gqmap_nearest_chain_v2_f32 if f32 else lib.gqmap_nearest_chain_v2_f64
+        code = fn(I1.data_ptr(), *(x.data_ptr() for x in fields), wts.data_ptr(), *sites, rule,
+                  out.data_ptr(), *I1.shape, *fields[0].shape, L, M, N, r0, c0, int(K),
+                  int(rfc), float(lambdad), float(epsn), muu.device.index, stream)
+    else:
+        fn = lib.gqmap_nearest_chain_f32 if f32 else lib.gqmap_nearest_chain_f64
+        code = fn(I1.data_ptr(), tab.data_ptr(), tab_u.data_ptr(), tab_v.data_ptr(), *sites,
+                  rule, out.data_ptr(), *I1.shape, *tab.shape, L, M, N, r0, c0, int(K),
+                  int(rfc), float(lambdad), float(epsn), muu.device.index, stream)
+    build.check(code, f"nearest_chain_gq_cuda ({variant})")
     nearest_chain_gq_cuda.launches += 1
     return GQChainRaw(*out.unbind(0))
 
@@ -181,25 +263,26 @@ nearest_chain_gq_cuda.launches = 0
 
 
 def nearest_gq(I1, tab, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float, rfc: int,
-               rg: int = 0, origin=None, local_image_shape=None, quad_chunk: int = 0) -> GQRaw:
-    """Kernel K6 for CUDA tensors, its plain version (``quad_chunk`` points
-    a step) for CPU tensors."""
+               rg: int = 0, origin=None, local_image_shape=None, quad_chunk: int = 0,
+               pads=None) -> GQRaw:
+    """Kernel K6 (its default variant) for CUDA tensors, its plain version
+    (``quad_chunk`` points a step) for CPU tensors."""
     args = (I1, tab, muu, muv, su, sv, pn, K, lambdad, epsn, rfc, rg, origin, local_image_shape)
     if muu.device.type == "cpu":
         return nearest_gq_torch(*args, quad_chunk=quad_chunk)
-    return nearest_gq_cuda(*args)
+    return nearest_gq_cuda(*args, pads=pads)
 
 
 def nearest_chain_gq(I1, tab, tab_u, tab_v, muu, muv, su, sv, pn, K: int, lambdad: float,
                      epsn: float, rfc: int, origin=None, local_image_shape=None,
-                     quad_chunk: int = 0) -> GQChainRaw:
-    """Kernel K7 for CUDA tensors, its plain version (``quad_chunk`` points
-    a step) for CPU tensors."""
+                     quad_chunk: int = 0, pads=None) -> GQChainRaw:
+    """Kernel K7 (its default variant) for CUDA tensors, its plain version
+    (``quad_chunk`` points a step) for CPU tensors."""
     args = (I1, tab, tab_u, tab_v, muu, muv, su, sv, pn, K, lambdad, epsn, rfc, origin,
             local_image_shape)
     if muu.device.type == "cpu":
         return nearest_chain_gq_torch(*args, quad_chunk=quad_chunk)
-    return nearest_chain_gq_cuda(*args)
+    return nearest_chain_gq_cuda(*args, pads=pads)
 
 
 def lookup_sectors(tab, muu, muv, su, sv, pn, K: int, rfc: int, rg: int = 0,

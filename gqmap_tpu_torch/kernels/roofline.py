@@ -94,10 +94,13 @@ L1_BYTES_PER_CLOCK = 128
 # site (s, t 6, sqrt2 sigma 2, the scale 6) "K6 site". K7 per point (z 4, x 4,
 # two lines 8, the difference 1, eps + d^2 2, d / root 1, its weight 1, w1, w2
 # 2, Ei 2, A1, A2 2, Ci .. Dj 8) "K7 point" and one root; a site "K7 site".
+# K6 and K7 "v2" add the phase stencil that stands for the table: a chain of
+# four FMAs ("stencil chain") for each vertical sum of the window's rows at
+# the columns it spans and for each of its cells.
 FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K3 pair": 25, "K3 centre": 7, "K3 element": 10, "K4 point": 50, "K4 tap row": 7,
          "K4 pixel": 5, "K4 site": 20, "K6 point": 20, "K6 line": 4, "K6 tap": 4,
-         "K6 site": 14, "K7 point": 35, "K7 site": 15}
+         "K6 site": 14, "K7 point": 35, "K7 site": 15, "stencil chain": 8}
 SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
@@ -216,14 +219,19 @@ def k5_work(site_shape, K: int, P: int, Q: int, L: int, itemsize: int = 4,
                 tc_flops_single=samples * 2 * P * Q)
 
 
-def k6_work(site_shape, K: int, rg: int, sectors: int, itemsize: int = 4) -> dict:
+def k6_work(site_shape, K: int, rg: int, sectors: int, itemsize: int = 4, variant: str = "v1",
+            pad_shape=None) -> dict:
     """K6's function on ``(L, M, N)`` sites of one pixel each with the
     K^2-point rule and the ``(2 rg + 1)^2`` window: the 5 state fields and
     frame 1's pixels read once, 6 raw sums written, and of the table the
     ``sectors`` distinct 32-byte sectors its lookups touch (the data's own
     count, :func:`..kernels.nearest_gq.lookup_sectors`); one root a lookup.
     ``lookup_bytes``, one sector a lookup, is the ceiling beside it, not the
-    bound."""
+    bound. ``variant="v2"`` reads no table: the padded frame 2 (``pad_shape``,
+    by default the lattice's frame with its ring) once in place of the
+    sectors, and per point the phase stencil as v2 evaluates a window, its
+    (2 rg + 1)(2 rg + 4) vertical sums and (2 rg + 1)^2 cells, a
+    ``"stencil chain"`` each."""
     L, M, N = site_shape
     sites = L * M * N
     points = sites * K * K
@@ -231,24 +239,37 @@ def k6_work(site_shape, K: int, rg: int, sectors: int, itemsize: int = 4) -> dic
     lookups = points * W * W
     flops = (points * (FLOPS["K6 point"] + 2 * W * FLOPS["K6 line"])
              + lookups * FLOPS["K6 tap"] + sites * FLOPS["K6 site"])
-    return dict(bytes=(5 * sites + M * N + 6 * sites) * itemsize + sectors * SECTOR_BYTES,
-                flops=flops, roots=lookups + 2 * sites, lookups=lookups,
-                lookup_bytes=lookups * SECTOR_BYTES)
+    state = (5 * sites + M * N + 6 * sites) * itemsize
+    work = dict(roots=lookups + 2 * sites, lookups=lookups, lookup_bytes=lookups * SECTOR_BYTES)
+    if variant == "v2":
+        M2, N2 = pad_shape or (M + 2, N + 2)
+        chains = W * (W + 3) + W * W
+        return dict(work, bytes=state + M2 * N2 * itemsize,
+                    flops=flops + points * chains * FLOPS["stencil chain"])
+    return dict(work, bytes=state + sectors * SECTOR_BYTES, flops=flops)
 
 
-def k7_work(site_shape, K: int, sectors: int, itemsize: int = 4) -> dict:
+def k7_work(site_shape, K: int, sectors: int, itemsize: int = 4, variant: str = "v1",
+            pad_shape=None) -> dict:
     """K7's function on ``(L, M, N)`` sites with the K^2-point rule: the 5
     state fields and frame 1's pixels read once, 7 raw sums written, and of
     each of the three tables (value and Prewitt fields, read at one index)
     the ``sectors`` distinct 32-byte sectors the lookups touch; one root a
     lookup. ``lookup_bytes``, three sectors a lookup, is the ceiling beside
-    it."""
+    it. ``variant="v2"``: the three padded fields once in place of the
+    sectors, and per point three cells of the phase stencil, 4 vertical sums
+    and the cell each."""
     L, M, N = site_shape
     sites = L * M * N
     points = sites * K * K
-    return dict(bytes=(5 * sites + M * N + 7 * sites) * itemsize + 3 * sectors * SECTOR_BYTES,
-                flops=points * FLOPS["K7 point"] + sites * FLOPS["K7 site"],
-                roots=points + 2 * sites, lookups=points, lookup_bytes=3 * points * SECTOR_BYTES)
+    flops = points * FLOPS["K7 point"] + sites * FLOPS["K7 site"]
+    state = (5 * sites + M * N + 7 * sites) * itemsize
+    work = dict(roots=points + 2 * sites, lookups=points, lookup_bytes=3 * points * SECTOR_BYTES)
+    if variant == "v2":
+        M2, N2 = pad_shape or (M + 2, N + 2)
+        return dict(work, bytes=state + 3 * M2 * N2 * itemsize,
+                    flops=flops + points * 3 * 5 * FLOPS["stencil chain"])
+    return dict(work, bytes=state + 3 * sectors * SECTOR_BYTES, flops=flops)
 
 
 def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
@@ -501,7 +522,9 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
             else:
                 sites = (state.muu, state.muv, state.sigmau, state.sigmav, state.pn)
                 sectors = nearest_gq.lookup_sectors(problem.I2_tab, *sites, cfg.K, cfg.rfc)[1]
-                node, governing = k6_work(site_shape, cfg.K, 0, sectors), "K6+K3"
+                node = k6_work(site_shape, cfg.K, 0, sectors,
+                               variant=nearest_gq.resolve_variant(None, cfg.K, cfg.rfc))
+                governing = "K6+K3"
             bound_ms = (bound(node, rates)["bound_ms"]
                         + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"])
         else:

@@ -155,6 +155,10 @@ class Problem(NamedTuple):
     cheb: CosData | ChebData | None = None  # spectral coefficient field (cosine, chebyshev)
     init_flow: torch.Tensor | None = None  # (M, N, 2) prior flow (data_term="quadratic")
     grad_tabs: tuple | None = None  # upsampled Prewitt fields (gradient_estimator="prewitt")
+    # data_term="nearest": pad_cubic(I2) (and pad_cubic of each Prewitt field
+    # for gradient_estimator="prewitt"), which kernels K6 and K7 "v2" read in
+    # place of the tables
+    nearest_pads: tuple | None = None
 
 
 class SweepAux(NamedTuple):
@@ -276,7 +280,9 @@ def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
     I1 = torch.as_tensor(np.asarray(I1), dtype=dt, device=device).contiguous()
     I2 = torch.as_tensor(np.asarray(I2), dtype=dt, device=device).contiguous()
     tab = upsample_cubic(I2, cfg.rfc) if cfg.data_term == "nearest" else pad_cubic(I2)
-    cheb = grad_tabs = None
+    cheb = grad_tabs = pads = None
+    if cfg.data_term == "nearest":
+        pads = (pad_cubic(I2),)
     if spectral is not None:
         m = cfg.cheb_margin
         box = (flow_range.minu - m, flow_range.maxu + m,
@@ -284,11 +290,13 @@ def make_problem(cfg: GQMAPConfig, I1, I2, flow_range: FlowRange | None = None,
         cheb = spectral(I1, tab, cfg.lambdad, cfg.epsn, box, cfg.cheb_p, cfg.cheb_q,
                         patch=cfg.patch, window_rg=cfg.window_rg)
     if cfg.gradient_estimator == "prewitt":
-        grad_tabs = tuple(upsample_cubic(G, cfg.rfc) for G in prewitt_gradients(I2))
+        grads = prewitt_gradients(I2)
+        grad_tabs = tuple(upsample_cubic(G, cfg.rfc) for G in grads)
+        pads += tuple(pad_cubic(G) for G in grads)
     M, N = flow_lattice_shape(cfg, I1.shape)
     interior = torch.as_tensor(_interior_mask(M, N, cfg.border), device=device)
     return Problem(I1=I1, I2_tab=tab, interior=interior, rng=flow_range, cheb=cheb,
-                   grad_tabs=grad_tabs)
+                   grad_tabs=grad_tabs, nearest_pads=pads)
 
 
 def init_state(cfg: GQMAPConfig, rng: FlowRange, image_shape, seed=None,
@@ -510,7 +518,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                                                         local_image_shape=(ml, nl))
                 raw_c = node_route(problem.I1, problem.I2_tab, *problem.grad_tabs, st.muu, st.muv,
                                    st.sigmau, st.sigmav, st.pn, cfg.K, cfg.lambdad, cfg.epsn,
-                                   cfg.rfc, **chain_at)
+                                   cfg.rfc, pads=problem.nearest_pads, **chain_at)
                 gn = finalize_chain(raw_c, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
             elif cfg.data_term == "cosine":  # kernel K1
                 sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
@@ -525,7 +533,8 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                     raw_n = node_route(problem.cheb, *site, cfg.K)
                 elif kernel == "K6":
                     raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
-                                       cfg.epsn, cfg.rfc, cfg.window_rg, **node_at)
+                                       cfg.epsn, cfg.rfc, cfg.window_rg,
+                                       pads=problem.nearest_pads, **node_at)
                 else:
                     raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
                                           node_tab)

@@ -18,8 +18,8 @@ import math
 
 import torch
 
-__all__ = ["pad_cubic", "sample_bicubic", "interp2_cubic", "upsample_cubic", "prewitt_gradients",
-           "interp2_linear", "fill_missing_nearest"]
+__all__ = ["pad_cubic", "sample_bicubic", "interp2_cubic", "upsample_cubic", "phase_weights",
+           "prewitt_gradients", "interp2_linear", "fill_missing_nearest"]
 
 
 def pad_cubic(V: torch.Tensor) -> torch.Tensor:
@@ -145,8 +145,7 @@ def upsample_cubic(V: torch.Tensor, rfc: int) -> torch.Tensor:
     M, N = V.shape
     r = 1 << rfc
     VV = pad_cubic(V)
-    fr = torch.arange(r, dtype=V.dtype, device=V.device) / r
-    w = [x * 0.5 for x in _cubic_weights(fr)]  # 4 x (r,)
+    w = phase_weights(rfc, V.dtype, V.device)  # (4, r)
 
     # vertical pass: base row iy = 1 + i (i in 0..M-2) uses VV rows i .. i+3
     rows = (M - 1) * r + 1
@@ -163,6 +162,22 @@ def upsample_cubic(V: torch.Tensor, rfc: int) -> torch.Tensor:
         hv.addcmul_(w[t][None, None, :], vert[:, t:t + N - 1][:, :, None])
     out[:, -1] = vert[:, N]  # the exact last column
     return out
+
+
+def phase_weights(rfc: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The ``(4, 2^rfc)`` cubic weights of :func:`upsample_cubic`'s phase
+    stencil, halved: row ``t``, column ``p`` weighs tap ``t`` at the fractional
+    offset ``p / 2^rfc``. A table cell ``(ci, cj)`` below the last row and
+    column is, with ``(iy, py) = divmod(ci, r)`` and ``(ix, px) = divmod(cj, r)``,
+    the fused multiply-add chain ``sum_t w[t, px] vert(ci, ix + t)`` (tap 0
+    first, from 0) over ``vert(ci, col) = sum_t w[t, py] VV[iy + t, col]``,
+    ``VV = pad_cubic(V)``; the last row reads ``vert = VV[M, col]``, the last
+    column ``vert(ci, N)``: ``addcmul_`` rounds each step once, on the CPU and
+    on the H100. Kernel K6's and K7's ``"v2"`` evaluate cells so, from the
+    weights this function gives, bit for bit the table's."""
+    r = 1 << rfc
+    fr = torch.arange(r, dtype=dtype, device=device) / r
+    return torch.stack([x * 0.5 for x in _cubic_weights(fr)])
 
 
 def interp2_linear(V: torch.Tensor, Xq, Yq, fill=math.nan) -> torch.Tensor:

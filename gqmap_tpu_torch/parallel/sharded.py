@@ -47,14 +47,14 @@ def _cheb_cls(data_term: str):
 
 
 def problem_sharding(mesh: Mesh | None = None, cfg: GQMAPConfig | None = None) -> Problem:
-    """The spec of every Problem field: the frames and Prewitt fields whole,
+    """The spec of every Problem field: the frames, Prewitt fields and pads whole,
     the interior mask, the coefficient field's lattice axes (the record of
     ``cfg.data_term``; without ``cfg`` the cosine one, whose fields are the
     Chebyshev one's) and the init flow's split over ``(x, y)``."""
     cls = CosData if cfg is None else _cheb_cls(cfg.data_term)
     return Problem(I1=(), I2_tab=(), interior=("x", "y"), rng=(),
                    cheb=None if cls is None else cls((None, None, "x", "y"), (), (), (), ()),
-                   init_flow=("x", "y", None), grad_tabs=())
+                   init_flow=("x", "y", None), grad_tabs=(), nearest_pads=())
 
 
 def shard_problem(problem: Problem, mesh: Mesh) -> Problem:

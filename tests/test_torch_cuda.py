@@ -515,6 +515,7 @@ GRAPH_CASES = {
                                                     cheb_p=24, cheb_q=8, corr_tor=0.99), 30),
     "legacy_v2": ("legacy_v2", dict(step0=0.03, corr_tor=0.95), 30),
     "legacy_v3": ("legacy_v3", dict(step0=0.03, corr_tor=0.95), 30),
+    "blockmatch_v2": ("blockmatch_v2", dict(step0=0.03, corr_tor=0.95), 30),
     "its4": ("tpu_fast", dict(its=4), 30),
     "limit1": ("tpu_fast", {}, 1),
 }
@@ -1003,28 +1004,30 @@ K7_CASES = {"legacy_v3": (1, 9, 4, (376, 452)), "ragged": (2, 5, 3, (37, 53))}
 def _nearest_inputs(dev, dtype, L, rfc, shape, probe, chain=False):
     """Frame 1, the upsampled frame 2 (and, for ``chain``, its upsampled
     Prewitt fields) and the five state fields of ``_k4_inputs``' probes, one
-    pixel a site."""
-    from gqmap_tpu_torch.ops.interp import prewitt_gradients, upsample_cubic
+    pixel a site; and ``dict(pads=...)``, the padded fields ``"v2"`` reads."""
+    from gqmap_tpu_torch.ops.interp import pad_cubic, prewitt_gradients, upsample_cubic
 
     g = torch.Generator().manual_seed(sum(shape) + L + rfc)
     I1 = 255 * torch.rand(shape, generator=g, dtype=torch.float64)
     I2 = I1.roll(1, 1).to(dev, dtype)
-    tabs = [upsample_cubic(x, rfc) for x in ((I2, *prewitt_gradients(I2)) if chain else (I2,))]
+    fields = (I2, *prewitt_gradients(I2)) if chain else (I2,)
+    tabs = [upsample_cubic(x, rfc) for x in fields]
     st = _k4_inputs(dev, dtype, L, 1, shape, probe)[2:]
-    return (I1.to(dev, dtype), *tabs, *st)
+    return (I1.to(dev, dtype), *tabs, *st), dict(pads=tuple(pad_cubic(x) for x in fields))
 
 
+@pytest.mark.parametrize("variant", nearest_gq.VARIANTS)
 @pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", list(K6_CASES))
-def test_nearest_gq_kernel_matches_plain(dev, case, dtype, probe):
+def test_nearest_gq_kernel_matches_plain(dev, case, dtype, probe, variant):
     # float64 within 1e-10 of each sum's largest magnitude; float32 held to
     # the f64 golden on the same inputs (ratio rule)
     L, K, rg, rfc, shape = K6_CASES[case]
-    args = _nearest_inputs(dev, dtype, L, rfc, shape, probe)
+    args, pads = _nearest_inputs(dev, dtype, L, rfc, shape, probe)
     rest = (K, 0.3, 1e-4, rfc, rg)
     n = nearest_gq.nearest_gq_cuda.launches
-    got = nearest_gq.nearest_gq_cuda(*args, *rest)
+    got = nearest_gq.nearest_gq_cuda(*args, *rest, variant=variant, **pads)
     torch.cuda.synchronize()
     assert nearest_gq.nearest_gq_cuda.launches == n + 1
     plain = nearest_gq.nearest_gq_torch(*args, *rest, quad_chunk=27)
@@ -1036,15 +1039,16 @@ def test_nearest_gq_kernel_matches_plain(dev, case, dtype, probe):
         _ratio_to_golden(got, plain, gold)
 
 
+@pytest.mark.parametrize("variant", nearest_gq.VARIANTS)
 @pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", list(K7_CASES))
-def test_nearest_chain_kernel_matches_plain(dev, case, dtype, probe):
+def test_nearest_chain_kernel_matches_plain(dev, case, dtype, probe, variant):
     L, K, rfc, shape = K7_CASES[case]
-    args = _nearest_inputs(dev, dtype, L, rfc, shape, probe, chain=True)
+    args, pads = _nearest_inputs(dev, dtype, L, rfc, shape, probe, chain=True)
     rest = (K, 1.0, 1e-4, rfc)
     n = nearest_gq.nearest_chain_gq_cuda.launches
-    got = nearest_gq.nearest_chain_gq_cuda(*args, *rest)
+    got = nearest_gq.nearest_chain_gq_cuda(*args, *rest, variant=variant, **pads)
     torch.cuda.synchronize()
     assert nearest_gq.nearest_chain_gq_cuda.launches == n + 1
     plain = nearest_gq.nearest_chain_gq_torch(*args, *rest, quad_chunk=27)
@@ -1057,24 +1061,50 @@ def test_nearest_chain_kernel_matches_plain(dev, case, dtype, probe):
         _ratio_to_golden(got, plain, gold)
 
 
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K6_CASES) + [f"K7 {c}" for c in K7_CASES])
+def test_nearest_v2_equals_v1_bit_for_bit(dev, case, dtype, probe):
+    # "v2" evaluates each cell from the pads by the table's own chain (the
+    # step addcmul_ takes on the card) and sums in v1's order with v1's
+    # roundings: the same sums, bit for bit
+    chain = case.startswith("K7 ")
+    if chain:
+        L, K, rfc, shape = K7_CASES[case[3:]]
+        rest, fn = (K, 1.0, 1e-4, rfc), nearest_gq.nearest_chain_gq_cuda
+    else:
+        L, K, rg, rfc, shape = K6_CASES[case]
+        rest, fn = (K, 0.3, 1e-4, rfc, rg), nearest_gq.nearest_gq_cuda
+    args, pads = _nearest_inputs(dev, dtype, L, rfc, shape, probe, chain=chain)
+    v1 = fn(*args, *rest, variant="v1")
+    v2 = fn(*args, *rest, variant="v2", **pads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(v1._fields, v1, v2):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
 def _nearest_call(kind, args, **at):
-    """K6 at rg = 2 or K7 on ``args`` (frame, tables, state)."""
+    """K6 at rg = 2 or K7 on ``args`` (frame, tables, state) in ``variant``
+    (``at``, with the pads)."""
     if kind == "K7":
         return nearest_gq.nearest_chain_gq_cuda(*args, 9, 1.0, 1e-4, 4, **at)
     return nearest_gq.nearest_gq_cuda(*args, 9, 0.3, 1e-4, 3, 2, **at)
 
 
+@pytest.mark.parametrize("variant", nearest_gq.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kind", ["K6", "K7"])
-def test_nearest_kernels_nan_probe(dev, kind, dtype):
+def test_nearest_kernels_nan_probe(dev, kind, dtype, variant):
     # NaN means, sigmas and correlations at a few sites: a NaN query reads
     # the element the plain version reads (a NaN cell is -1, the flat index
     # wraps), so the sums are NaN where the plain version's are and within
     # tolerance of it elsewhere; every other site bit for bit the NaN-free
     # call's
     rfc = 4 if kind == "K7" else 3
-    args = list(_nearest_inputs(dev, dtype, 3, rfc, (64, 96), "converged", chain=kind == "K7"))
-    clean = _nearest_call(kind, args)
+    args, pads = _nearest_inputs(dev, dtype, 3, rfc, (64, 96), "converged", chain=kind == "K7")
+    args = list(args)
+    at = dict(pads, variant=variant)
+    clean = _nearest_call(kind, args, **at)
     first = 4 if kind == "K7" else 2  # muu's position in args
     _, M, N = args[first].shape
     sites = [(0, 1, 2), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
@@ -1083,7 +1113,7 @@ def test_nearest_kernels_nan_probe(dev, kind, dtype):
         args[first + field] = args[first + field].clone()
         args[first + field][site] = float("nan")
         mask[site] = True
-    got = _nearest_call(kind, args)
+    got = _nearest_call(kind, args, **at)
     rest = ((9, 1.0, 1e-4, 4) if kind == "K7" else (9, 0.3, 1e-4, 3, 2))
     plain = (nearest_gq.nearest_chain_gq_torch if kind == "K7"
              else nearest_gq.nearest_gq_torch)(*args, *rest)
@@ -1095,27 +1125,52 @@ def test_nearest_kernels_nan_probe(dev, kind, dtype):
         _close(g[ok], p[ok], dtype, name)
 
 
+@pytest.mark.parametrize("variant", nearest_gq.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kind", ["K6", "K7"])
-def test_nearest_kernels_on_a_block_equal_the_whole(dev, kind, dtype):
+def test_nearest_kernels_on_a_block_equal_the_whole(dev, kind, dtype, variant):
     # frame 1 addressed at a shard's pixel origin (K6's window taps across
     # the cut read the true neighbours): the block's sums are the whole
     # lattice's there, bit for bit; two launches are equal bit for bit
     rfc = 4 if kind == "K7" else 3
-    args = _nearest_inputs(dev, dtype, 2, rfc, (64, 96), "converged", chain=kind == "K7")
+    args, pads = _nearest_inputs(dev, dtype, 2, rfc, (64, 96), "converged", chain=kind == "K7")
+    at = dict(pads, variant=variant)
     first = 4 if kind == "K7" else 2
     frames, st = args[:first], args[first:]
-    whole = _nearest_call(kind, args)
-    again = _nearest_call(kind, args)
+    whole = _nearest_call(kind, args, **at)
+    again = _nearest_call(kind, args, **at)
     assert all(torch.equal(a, b) for a, b in zip(whole, again))
     _, M, N = st[0].shape
     for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3),
                          (3, 5, M - 6, N - 7)):
         blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
         got = _nearest_call(kind, (*frames, *(x[blk].contiguous() for x in st)),
-                            origin=(r0, c0), local_image_shape=(m, n))
+                            origin=(r0, c0), local_image_shape=(m, n), **at)
         for g, w in zip(got, whole):
             assert torch.equal(g, w[blk])
+
+
+def test_nearest_variant_rule_and_refusals(dev):
+    # None runs "v2" where it takes the shape (and then needs the pads),
+    # "v1" elsewhere (K > 24: the same sums as an explicit "v1"); an explicit
+    # "v2" outside its shape raises before a launch
+    args, pads = _nearest_inputs(dev, torch.float32, 1, 3, (24, 40), "converged")
+    n = nearest_gq.nearest_gq_cuda.launches
+    with pytest.raises(ValueError, match="pass pads="):
+        nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3)
+    with pytest.raises(ValueError, match="at most 24 points"):
+        nearest_gq.nearest_gq_cuda(*args, 25, 1.0, 1e-4, 3, variant="v2", **pads)
+    with pytest.raises(ValueError, match="unknown nearest_gq kernel variant"):
+        nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3, variant="v3", **pads)
+    with pytest.raises(ValueError, match="pad 0 has shape"):
+        nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3, pads=(pads["pads"][0][1:],))
+    assert nearest_gq.nearest_gq_cuda.launches == n
+    wide = nearest_gq.nearest_gq_cuda(*args, 25, 1.0, 1e-4, 3, **pads)
+    v1 = nearest_gq.nearest_gq_cuda(*args, 25, 1.0, 1e-4, 3, variant="v1")
+    assert all(torch.equal(a, b) for a, b in zip(wide, v1))
+    fine = nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3, **pads)
+    v2 = nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3, variant="v2", **pads)
+    assert all(torch.equal(a, b) for a, b in zip(fine, v2))
 
 
 @pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0]),
@@ -1133,7 +1188,7 @@ def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
 def test_nearest_kernels_refuse_what_they_do_not_take(dev):
     # a lattice that is not the block of pixels at the origin, a rule over
     # 64 points an axis, and a strided table: ValueError before any launch
-    args = _nearest_inputs(dev, torch.float32, 1, 3, (24, 40), "converged")
+    args, _ = _nearest_inputs(dev, torch.float32, 1, 3, (24, 40), "converged")
     n = nearest_gq.nearest_gq_cuda.launches
     with pytest.raises(ValueError, match="does not cover"):
         nearest_gq.nearest_gq_cuda(*args, 9, 1.0, 1e-4, 3, origin=(1, 0))

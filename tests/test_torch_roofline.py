@@ -106,6 +106,25 @@ def test_k6_work_counts_by_hand(rg):
         assert roofline.bound(work, sheet)["bound_by"] == "operations"
 
 
+@pytest.mark.parametrize("rg", [0, 2])
+def test_k6_v2_work_counts_by_hand(rg):
+    # "v2": the padded frame (378 x 454) read once in place of the table's
+    # sectors, and per point the stencil: (2 rg + 1)(2 rg + 4) vertical sums
+    # and (2 rg + 1)^2 cells, 4 FMAs (8 operations) each
+    L, M, N, K, W = 1, 376, 452, 9, 2 * rg + 1
+    sites, points = L * M * N, L * M * N * K * K
+    v1 = roofline.k6_work((L, M, N), K, rg, sectors=12345)
+    work = roofline.k6_work((L, M, N), K, rg, sectors=12345, variant="v2")
+    assert work["bytes"] == (11 * sites + M * N) * 4 + 378 * 454 * 4
+    assert work["flops"] == v1["flops"] + points * (W * (W + 3) + W * W) * 8
+    assert work["roots"] == v1["roots"] and work["lookups"] == v1["lookups"]
+    assert roofline.k6_work((L, M, N), K, rg, 0, 8, "v2", (10, 20))["bytes"] == (
+        (11 * sites + M * N) * 8 + 200 * 8)
+    # at rg = 2 the stencil's operations bound it, at the data sheet's rates
+    if rg == 2:
+        assert roofline.bound(work, roofline.datasheet_rates(1980.0))["bound_by"] == "operations"
+
+
 def test_k7_work_counts_by_hand():
     # legacy_v3's lattice at K = 9: per point 35 operations and a root,
     # three tables read at one index (three sectors a distinct sector)
@@ -116,6 +135,10 @@ def test_k7_work_counts_by_hand():
     assert work["flops"] == points * 35 + sites * 15
     assert work["roots"] == points + 2 * sites
     assert work["bytes"] == (12 * sites + M * N) * 4 + 3 * 1000 * 32
+    # "v2": the three pads once, three cells of 5 stencil chains a point
+    v2 = roofline.k7_work((L, M, N), K, sectors=1000, variant="v2")
+    assert v2["bytes"] == (12 * sites + M * N) * 4 + 3 * 378 * 454 * 4
+    assert v2["flops"] == work["flops"] + points * 15 * 8 and v2["roots"] == work["roots"]
 
 
 def test_measured_rates_set_the_bound():
@@ -161,9 +184,10 @@ def test_sweep_roofline_on_the_cpu():
         assert m["share_of_bound"] == pytest.approx(m["bound_ms"] / m["ms_per_sweep"])
     assert {m: out["modes"][m]["governing_bound"] for m in out["modes"]} == {
         "cosine": "flops", "chebyshev": "K5+K3", "nearest": "K6+K3", "bicubic": "K4+K3"}
-    # the nearest path runs kernels K6 (node sums, its table bytes the sectors
-    # the converged state's lookups touch) and K3 (edge sums) and is bound by
-    # the sum of their bounds; so is the bicubic path by K4's and K3's
+    # the nearest path runs kernels K6 (node sums; its default "v2" reads the
+    # padded frame, not the sectors the converged state's lookups touch) and K3
+    # (edge sums) and is bound by the sum of their bounds; so is the bicubic
+    # path by K4's and K3's
     rates = roofline.measured_rates(CEILINGS)
     cfg = GQMAPConfig.full_mixture(dtype="float32", quad_chunk=27, data_term="nearest")
     fr = FlowRange(-10.0, 2.0, -2.0, 2.0)
@@ -173,7 +197,8 @@ def test_sweep_roofline_on_the_cpu():
                                         st.pn, 9, cfg.rfc)[1]
     assert 0 < sectors < 3 * 24 * 28 * 81
     assert out["modes"]["nearest"]["bound_ms"] == pytest.approx(
-        roofline.bound(roofline.k6_work((3, 24, 28), 9, 0, sectors), rates)["bound_ms"]
+        roofline.bound(roofline.k6_work((3, 24, 28), 9, 0, sectors, variant="v2"),
+                       rates)["bound_ms"]
         + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
     assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k4_work((3, 24, 28), 9), rates)["bound_ms"]
