@@ -21,8 +21,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    clock; then the
    card's ceilings (``roofline.measure_ceilings``: memory stream, float32
    FMA chains (8 independent a thread, and one, with the SM clock read while
-   each runs), gather, ``expf``, ``rsqrtf``, L1 load and ``mma.sync`` TF32
-   rates), whose rates
+   each runs), gather, ``expf``, ``rsqrtf``, L1 load and TF32 rates, the
+   latter through ``wgmma`` (the bounds' rate) and ``mma.sync``), whose rates
    give every kernel's bound a second time beside the data sheet's
    (``bound_ms_measured``);
 3. each kernel against its plain PyTorch version on the card, at the shapes
@@ -58,7 +58,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    order (``sweep_order="redblack"``: two half-steps, each kernel twice);
 5. the slice: ``solve(GQMAPConfig.tpu_fast(its=900, eval_every=300), ...)``
    on the synthetic 376x452 pair (smoothed noise, I2 = I1 shifted one pixel
-   right: u=1, v=0) with both kernels' launch counters reset just before it;
+   right: u=1, v=0) with the launch counters of both kernels and of K8 and
+   K9 (the sweep's update) reset just before it;
    the energy must stay finite, the AEPE at it=900 be at most half that at
    it=1, and each counter equal the sweep count; a second such solve must
    give the same AEPE trace, bit for bit. Then ms/sweep of 300-sweep
@@ -312,17 +313,37 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    at each POLL of ``GRAPH_POLLS``; then 3 sweeps of every other
    single-process configuration (``legacy_v1``-``v3``, autodiff,
    ``blockmatch_v2``, windowed ``tpu_fast``, the Chebyshev ``tpu_fast``,
-   ``tpu_fast`` in float64), graph against host loop bit for bit.
+   ``tpu_fast`` in float64), graph against host loop bit for bit (K8's and
+   K9's launches counted with the others').
    Every other segment and solve of the script (single process) runs the
    graph route too;
+30b. the sweep's update, kernels K8 (finalize, neighbour assembly, clamped
+   step, a CTA's partial sums) and K9 (the sums, alpha step, anneal,
+   counter, the device loop's bookkeeping), ``csrc/sweep_update.cu``, on
+   every path K8 takes (``UPDATE_PATHS``: each preset, red-black, the
+   legacy families, windowed ``tpu_fast``, both Chebyshev paths) in float32
+   and float64 at the init, random-means and |rho|-clamp probes: from the
+   same state and the same node and edge kernels' outputs, K8's new state
+   the plain glue's bit for bit and K9's energy, |dmu|, |dsigma| and dalpha
+   within their summation order (float64 1e-12 of the terms' magnitudes,
+   float32 by the ratio rule against the float64 golden); 300-sweep
+   ``tpu_fast`` and ``full_mixture`` solves (``tor = 0``) through K8 and K9
+   ending in the plain glue's state bit for bit; K8's and K9's times
+   (``tpu_fast``, ``full_mixture``, ``super_entropy``, ``legacy_v3``)
+   beside their plain versions' and their bounds (``roofline.k8_work``,
+   ``k9_work``) at the data sheet's and the measured rates; each path's
+   graph sweep in turns (kernels, plain glue, kernels again) with the
+   capturing call's peak memory;
 31. last, since the profiler's hooks may stay in the process: one
    ``tpu_fast``, ``full_mixture`` and Chebyshev ``full_mixture`` sweep from
    sigma = 0.05 under ``torch.profiler``, and a 20-sweep graph segment of
    the first two: wall and device time, the device's idle share, the
-   kernel count and the top operators.
+   kernel count and the top operators; one ``tpu_fast`` graph replay and a
+   20-sweep segment through K8 and K9 and through the plain glue: at most
+   20 kernels a sweep through K8 and K9.
 
 It prints the kernels' record as one JSON line before the last (``launches``
-counts the main path's run: ``tpu_fast`` for K1 and K2, ``full_mixture`` for
+counts the main path's run: ``tpu_fast`` for K1, K2, K8 and K9, ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
 solve for K6 and the ``legacy_v3`` solve for K7; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
@@ -1711,12 +1732,28 @@ def rank_main(rank, world, port, out_dir):
         cfg = GQMAPConfig.tpu_fast()
         prob = pg.make_problem(cfg, I1, I2, fr, dev)
         st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
-        want, waux = pg.make_sweep(cfg, (H, W))(prob, st)
+        # a mesh runs the plain glue (models/gqmap._update_route), the single
+        # process K8 and K9: the sharded sweep is held bit for bit to the
+        # single-process plain glue, state and sums, and its state to the
+        # K8 route's bit for bit, whose sums differ in their order
+        kern, kaux = pg.make_sweep(cfg, (H, W))(prob, st)
+        kept = pg._update_route
+        pg._update_route = lambda c, d, device: "plain"
+        try:
+            want, waux = pg.make_sweep(cfg, (H, W))(prob, st)
+        finally:
+            pg._update_route = kept
         got, gaux = counted("tpu_fast sharded (1 rank, NCCL)", lambda: make_sharded_sweep(
             cfg, (H, W), mesh)(shard_problem(prob, mesh), shard_state(st, mesh)))
         same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in got._fields)
         same &= all(torch.equal(a, b) for a, b in zip(gaux, waux))
-        check(same, "NCCL rank: the sharded tpu_fast sweep equals make_sweep's, bit for bit")
+        check(same, "NCCL rank: the sharded tpu_fast sweep equals make_sweep's on the plain "
+                    "glue, bit for bit")
+        rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(kaux, gaux))
+        check(all(torch.equal(getattr(got, f), getattr(kern, f)) for f in got._fields)
+              and rel <= 1e-5, f"NCCL rank: the sharded tpu_fast sweep's state equals "
+                               f"make_sweep's through K8 and K9, bit for bit; SweepAux within "
+                               f"{rel:.3e} (summation order)")
     else:
         mesh = Mesh(*SHARDED_MESH, rank=rank)
         for path, make_cfg in SHARDED_PATHS.items():
@@ -1743,10 +1780,10 @@ def rank_main(rank, world, port, out_dir):
                     halo = halo_edges(torch.stack([mu, sg]), mesh.ring("x"), mesh.ring("y"))
                     args = (mu, sg, st.rou, torch.softmax(st.w, 0), st.temperature,
                             2 * cfg.K + 3, cfg.lambdas, cfg.epsn, EDGE)
-                    a, r, ok = compare(edge_reduced_gq.edge_reduced_grads_cuda(*args, halo=halo),
-                                       edge_reduced_gq.edge_reduced_grads_torch(*args,
-                                                                                halo=halo),
-                                       getattr(torch, dtype))
+                    a, r, ok = compare(  # the six gradients: K2's E is None
+                        edge_reduced_gq.edge_reduced_grads_cuda(*args, halo=halo)[:6],
+                        edge_reduced_gq.edge_reduced_grads_torch(*args, halo=halo)[:6],
+                        getattr(torch, dtype))
                     check(ok, f"rank {rank}: K2 with its halo on the padded block "
                               f"{tuple(mu.shape[:2])} + ({mu.shape[2] + 1}, {mu.shape[3] + 1}) "
                               f"{dtype} against its padded plain version: max abs err {a:.3e},"
@@ -2380,12 +2417,405 @@ def graph_phase(dev, record, by_path, kfns):
     log(f"  phase graph segments {out['phase_s']:.1f} s")
 
 
+# the K8 route's paths (models/gqmap._update_route): every single-device Stein
+# or Prewitt preset, each node form (K1's mode sums, a GQRaw, K7's chain) and
+# edge form (K2's gradients, raw sums), Jacobi and red-black
+UPDATE_PATHS = {
+    "tpu_fast": GQMAPConfig.tpu_fast(),
+    "tpu_fast redblack": GQMAPConfig.tpu_fast(sweep_order="redblack"),
+    "tpu_fast_super": GQMAPConfig.tpu_fast_super(),
+    "full_mixture": GQMAPConfig.full_mixture(quad_chunk=27),
+    "super_entropy": GQMAPConfig.super_entropy(),
+    "ctf_level": GQMAPConfig.ctf_level(),
+    "legacy_v1": GQMAPConfig.legacy_v1(quad_var=0.05),
+    "legacy_v2": GQMAPConfig.legacy_v2(),
+    "legacy_v3": GQMAPConfig.legacy_v3(),
+    "blockmatch_v2": GQMAPConfig.blockmatch_v2(),
+    "tpu_fast window_rg=2": GQMAPConfig.tpu_fast(window_rg=2),
+    "tpu_fast chebyshev": GQMAPConfig.tpu_fast(data_term="chebyshev"),
+    "full_mixture chebyshev": GQMAPConfig.full_mixture(quad_chunk=27, **CHEB),
+}
+UPDATE_TIMED = ("tpu_fast", "full_mixture", "super_entropy", "legacy_v3")  # K8's shapes timed
+UPDATE_SWEEPS = 100  # the graph sweeps' segments, in turns
+UPDATE_SOLVE_ITS = 300  # the solves held bit for bit to the plain glue's (alpha_start 500)
+# K9's alpha step (it = alpha_start + 1) in both alpha_update modes: (path, L);
+# legacy_v1 at twenty components, since K9 takes any L
+UPDATE_ALPHA = (("tpu_fast", 3), ("tpu_fast redblack", 3), ("full_mixture", 3),
+                ("legacy_v1", 20))
+UPDATE_LAUNCH_LIMIT = 20  # kernels a tpu_fast sweep under replay on the K8 route
+
+
+def update_problem(pg, cfg, fr, dev, pair):
+    """``make_problem`` on the synthetic pair; ``legacy_v1``'s prior is the
+    pair's shift."""
+    p = pg.make_problem(cfg, *pair[:2], fr, dev)
+    if cfg.data_term == "quadratic":
+        p = p._replace(init_flow=torch.stack([torch.ones_like(p.I1), torch.zeros_like(p.I1)],
+                                             -1))
+    return p
+
+
+def update_probes(pg, cfg, fr, dev):
+    """The init, random means (sigma 0.05, means over the flow range, |rho|
+    and |p| up to 0.9) and the |rho| clamp (every correlation at
+    +-corr_tor, sigma in [0.01, 3])."""
+    st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def u(lo, hi, like):
+        return lo + (hi - lo) * torch.rand(like.shape, generator=g, dtype=like.dtype,
+                                           device=dev)
+
+    def sign(like):
+        return torch.where(u(0, 1, like) < 0.5, -1.0, 1.0).to(like.dtype)
+
+    ct = cfg.corr_tor
+    return {"init": st,
+            "random means": st._replace(
+                muu=u(fr.minu, fr.maxu, st.muu), muv=u(fr.minv, fr.maxv, st.muv),
+                sigmau=torch.full_like(st.sigmau, 0.05), sigmav=torch.full_like(st.sigmav, 0.05),
+                pn=u(-0.9, 0.9, st.pn), rou=u(-0.9, 0.9, st.rou)),
+            "clamp": st._replace(rou=sign(st.rou) * ct, pn=sign(st.pn) * ct,
+                                 sigmau=u(0.01, 3, st.sigmau), sigmav=u(0.01, 3, st.sigmav))}
+
+
+def alpha_probe(st, cfg, dev):
+    """``st`` one sweep past ``alpha_start``, so K9 takes the alpha step, with
+    mixture weights drawn for ``cfg.alpha_update``: logits in [-1, 1], or a
+    point of the simplex."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    r = torch.rand(cfg.L, generator=g, dtype=st.w.dtype, device=dev)
+    w = 2 * r - 1 if cfg.alpha_update == "softmax_natural" else (r + 0.1) / (r + 0.1).sum()
+    return st._replace(w=w, it=torch.full_like(st.it, cfg.alpha_start + 1))
+
+
+def capture_update(pg, su, cfg, problem, st):
+    """One sweep of ``cfg`` on the K8 route: each K8 launch's arguments and
+    outputs (both passes in red-black), then K9's."""
+    calls = []
+
+    def site(*a, **k):
+        out = su.site_update_cuda(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    def tail(*a, **k):
+        out = su.sweep_tail_cuda(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    kept = pg._UPDATE["K8"]
+    pg._UPDATE["K8"] = (site, tail)
+    try:
+        pg.make_sweep(cfg, (H, W))(problem, st)
+    finally:
+        pg._UPDATE["K8"] = kept
+    return calls
+
+
+def site_mask(interior, colour):
+    """The pass's site mask of the plain glue: the interior, of one colour."""
+    if colour is None:
+        return interior
+    M, N = interior.shape
+    red = torch.as_tensor((np.add.outer(np.arange(M), np.arange(N)) & 1) == colour,
+                          device=interior.device)
+    return interior & red
+
+
+def to64(x):
+    """A K8 argument in float64 (tensors, NodeSums, EdgeSums, states; K1's
+    coefficient field stays as it is: only its box is read)."""
+    if type(x).__name__ == "CosData":
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to64(v) for v in x))
+    if isinstance(x, tuple):
+        return tuple(to64(v) for v in x)
+    return x
+
+
+def sum_scales(su, node, edge, state, alpha, T, interior):
+    """The energy's and dalpha's terms' magnitudes, summed in float64: the
+    yardstick of a summation order."""
+    a3 = alpha.double().reshape(-1, 1, 1)
+    node, edge, state, T = to64(node), to64(edge), to64(state), T.double()
+    gn = su.node_grads_torch(node, a3, state, T)
+    mu = torch.stack([state.muu, state.muv])
+    sg = torch.stack([state.sigmau, state.sigmav])
+    ge = su.edge_grads_torch(edge, a3, mu, sg, state.rou, T)
+    zero = torch.zeros((), dtype=torch.float64, device=a3.device)
+    e = (torch.where(interior, gn.E.abs(), zero).sum()
+         + torch.where(interior, ge.E.abs(), zero).sum())
+    d = (torch.where(interior, gn.da.abs(), zero).sum((-2, -1))
+         + torch.where(interior, ge.da.abs(), zero).sum((0, 1, -2, -1)))
+    return e, d
+
+
+def check_update(pg, su, label, calls, dtype):
+    """Each K8 launch's new state against the plain glue's on the same
+    arguments, bit for bit; K9's sums (energy, |dmu|, |dsigma|, dalpha)
+    against the plain sums: float64 within 1e-12 of the terms' summed
+    magnitudes, float32 by the ratio rule against the float64 golden (the
+    kernel's error at most twice the plain version's, plus 2^-22 of the terms'
+    magnitudes); w, T and it bit for bit. Returns (largest state difference,
+    the sums' worst error over its allowance). Past ``alpha_start`` w moves by
+    dalpha and is held to the plain w by the sums' rule, with sum |w| + 2 lr x
+    dalpha's terms' magnitudes as its magnitude (the softmax and the
+    projection's threshold sum over the components; their change of w is at
+    most twice lr x dalpha's)."""
+    sums, golds, worst_state, scales = [], [], 0.0, None
+    for a, k, (planes, part) in calls[:-1]:
+        node, edge, state, alpha, T, step, interior, cfg, rng = a
+        mask = site_mask(interior, k.get("colour"))
+        new, s = su.site_update_torch(node, edge, state, alpha, T, step, interior, mask, cfg,
+                                      rng)
+        for f, x in zip(("muu", "muv", "sigmau", "sigmav", "pn", "rou"),
+                        su.lattice_views(planes)):
+            y = getattr(new, f)
+            same = torch.equal(torch.isnan(x), torch.isnan(y)) and torch.equal(
+                torch.nan_to_num(x), torch.nan_to_num(y))
+            diff = float((x.double() - y.double()).abs().nan_to_num(float("inf")).max())
+            worst_state = max(worst_state, 0.0 if same else max(diff, 1e-300))
+        sums.append(s)
+        if dtype == torch.float32:
+            golds.append(su.site_update_torch(
+                to64(node), to64(edge), to64(state), alpha.double(), T.double(),
+                step.double(), interior, mask, cfg, rng)[1])
+        scales = sum_scales(su, node, edge, state, alpha, T, interior)
+    parts, st0, step, cfg, n_int = calls[-1][0]
+    w, T, it, aux = calls[-1][2]
+    pw, pT, pit, paux = su.sweep_tail_torch(sums, st0, step, cfg, n_int)
+    stepped = cfg.L > 1 and int(st0.it) > cfg.alpha_start
+    same_tail = (torch.equal(T, pT) and torch.equal(it, pit)
+                 and (stepped or torch.equal(w, pw)))
+    bits = "T and it" if stepped else "w, T and it"
+    require(same_tail and worst_state == 0.0,
+            f"update {label}: K8's new state is the plain glue's bit for bit "
+            f"(largest difference {worst_state:.3e}); K9's {bits} too ({same_tail})")
+    e_scale, d_scale = scales
+    w_mag = (pw.double().abs().sum()
+             + 2.0 * float(step) * cfg.alpha_lr_scale * float(torch.as_tensor(d_scale).max()))
+    allow = [e_scale, float(aux[1]) * n_int, float(aux[2]) * n_int, d_scale]
+    got = [aux[0], aux[1] * n_int, aux[2] * n_int, aux[3]]
+    want = [paux[0], paux[1] * n_int, paux[2] * n_int, paux[3]]
+    if stepped:
+        got, want, allow = got + [w], want + [pw], allow + [w_mag]
+    if dtype == torch.float32:
+        gw, _, _, gaux = su.sweep_tail_torch(golds, to64(st0), step.double(), cfg, n_int)
+        gold = [gaux[0], gaux[1] * n_int, gaux[2] * n_int, gaux[3]] + ([gw] if stepped else [])
+        worst = max(float(((g_ - gd).abs() / (2.0 * (p_ - gd).abs() + 2.0 ** -22 * sc)).max())
+                    for g_, p_, gd, sc in zip(got, want, gold,
+                                              [torch.as_tensor(x) for x in allow]))
+        rule = "kernel error <= 2 x plain error + 2^-22 x the terms' magnitudes"
+    else:
+        worst = max(float(((g_ - p_).abs() / (1e-12 * torch.as_tensor(sc, device=p_.device)
+                                              + 1e-300)).max())
+                    for g_, p_, sc in zip(got, want, allow))
+        rule = "within 1e-12 of the terms' magnitudes"
+    what = "energy, |dmu|, |dsigma| and dalpha sums" + (" and the w they step" if stepped
+                                                        else "")
+    require(worst <= 1.0, f"update {label}: K9's {what} {rule} (worst {worst:.3f} of it)")
+    if stepped:
+        moved = float((pw - st0.w).abs().max())
+        require(moved > 0.0, f"update {label}: the alpha step moved w (largest change "
+                             f"{moved:.3e})")
+    return worst_state, worst
+
+
+def update_phase(dev, record, by_path, ufns):
+    """Phase 30b: the sweep's update, kernels K8 and K9, against their plain
+    versions (``kernels/sweep_update.site_update_torch``,
+    ``sweep_tail_torch``) on every path of :data:`UPDATE_PATHS` in float32
+    and float64 at the init, random-means and |rho|-clamp probes: from the
+    same state with the same node and edge kernels' outputs, K8's new state
+    bit for bit and K9's sums within their order (:func:`check_update`);
+    300-sweep ``tpu_fast`` and ``full_mixture`` solves with ``tor = 0``
+    (stopping before ``alpha_start = 500``) on the K8 route and on the plain
+    glue, their final states bit for bit; K8's time (:data:`UPDATE_TIMED`)
+    and K9's beside their plain versions' and bounds; each path's graph
+    sweep in turns (kernels, plain glue, kernels again) with the capturing
+    call's peak memory. (One replay's kernels and the idle share are
+    profiled in the last phase.)"""
+    from gqmap_tpu_torch import FlowRange, solve
+    from gqmap_tpu_torch.kernels import sweep_update as su
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    log("phase update (K8, K9)")
+    t_phase = time.time()
+    fr = FlowRange(*FR)
+    pair = synthetic_pair()
+    I1, I2, gt = pair
+    out = record["update"] = {"card": smi("name,power.limit")}
+    plain_route = pg._update_route
+
+    def force_plain():
+        pg._update_route = lambda cfg, dist, device: "plain"
+
+    def restore():
+        pg._update_route = plain_route
+
+    # ---- K8 and K9 against the plain glue, every path, both types, three probes
+    checks = out["checks"] = {}
+    for path, base in UPDATE_PATHS.items():
+        for dtype in (torch.float32, torch.float64):
+            cfg = dataclasses.replace(base, dtype=str(dtype)[6:])
+            require(pg._update_route(cfg, None, dev) == "K8", f"update {path}: route K8")
+            problem = update_problem(pg, cfg, fr, dev, pair)
+            for probe, st in update_probes(pg, cfg, fr, dev).items():
+                calls = capture_update(pg, su, cfg, problem, st)
+                passes = 2 if cfg.sweep_order == "redblack" else 1
+                require(len(calls) == passes + 1, f"update {path}: {passes} K8 launches and "
+                                                  f"one K9 in a sweep ({len(calls)} calls)")
+                label = f"{path} {str(dtype)[6:]} {probe}"
+                checks[label] = check_update(pg, su, label, calls, dtype)
+                del calls
+            del problem
+            torch.cuda.empty_cache()
+    # ---- K9's alpha step, both modes, from the random-means probe
+    for path, L in UPDATE_ALPHA:
+        for dtype in (torch.float32, torch.float64):
+            for mode in ("softmax_natural", "projsplx"):
+                cfg = dataclasses.replace(UPDATE_PATHS[path], dtype=str(dtype)[6:], L=L,
+                                          alpha_update=mode)
+                problem = update_problem(pg, cfg, fr, dev, pair)
+                st = alpha_probe(update_probes(pg, cfg, fr, dev)["random means"], cfg, dev)
+                label = f"{path} L={L} {str(dtype)[6:]} alpha step {mode}"
+                checks[label] = check_update(pg, su, label,
+                                             capture_update(pg, su, cfg, problem, st), dtype)
+                del problem, st
+                torch.cuda.empty_cache()
+    log(f"  K8/K9 against the plain glue on {len(checks)} path, type and probe cases: "
+        f"largest state difference {max(v[0] for v in checks.values()):.3e}, worst sum "
+        f"{max(v[1] for v in checks.values()):.3f} of its allowance")
+
+    # ---- 300-sweep solves, K8 route against the plain glue, bit for bit
+    for path in ("tpu_fast", "full_mixture"):
+        cfg = dataclasses.replace(UPDATE_PATHS[path], its=UPDATE_SOLVE_ITS,
+                                  eval_every=UPDATE_SOLVE_ITS, tor=0.0)
+        for f in ufns.values():
+            f.launches = 0
+        t = time.time()
+        kres = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
+        k_s = time.time() - t
+        counts = {k: f.launches for k, f in ufns.items()}
+        by_path[f"update {path} solve ({UPDATE_SOLVE_ITS} sweeps)"] = dict(counts)
+        force_plain()
+        try:
+            t = time.time()
+            pres = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
+            p_s = time.time() - t
+        finally:
+            restore()
+        same = all(torch.equal(getattr(kres.state, f), getattr(pres.state, f))
+                   for f in kres.state._fields)
+        e_rel = float(np.max(np.abs(kres.Energy - pres.Energy) / np.abs(pres.Energy)))
+        require(kres.iters == pres.iters == UPDATE_SOLVE_ITS and same
+                and counts == {"K8": UPDATE_SOLVE_ITS, "K9": UPDATE_SOLVE_ITS},
+                f"update {path}: a {UPDATE_SOLVE_ITS}-sweep solve (tor 0) through K8 and K9 "
+                f"ends in the plain glue's state bit for bit ({same}); launches {counts}; "
+                f"energy trace within {e_rel:.3e} (summation order); AEPE "
+                f"{kres.AEPE[UPDATE_SOLVE_ITS - 1]:.6f} / {pres.AEPE[UPDATE_SOLVE_ITS - 1]:.6f}")
+        out[f"{path} solve"] = dict(kernels_s=k_s, plain_s=p_s, same_state=same,
+                                    energy_rel=e_rel)
+        del kres, pres
+    torch.cuda.empty_cache()
+
+    # ---- K8's and K9's times beside their plain versions' and bounds (f32)
+    for path in UPDATE_TIMED:
+        cfg = UPDATE_PATHS[path]
+        problem = update_problem(pg, cfg, fr, dev, pair)
+        st = update_probes(pg, cfg, fr, dev)["random means"]
+        calls = capture_update(pg, su, cfg, problem, st)
+        (a, k, (planes, part)), (ta, tk, (w, T, it, aux)) = calls[0], calls[-1]
+        node, edge, state, alpha, Tt, step, interior, c, rng = a
+        mask = site_mask(interior, k.get("colour"))
+        ms = kernel_ms(lambda: su.site_update_cuda(*a, **k))
+        tms = kernel_ms(lambda: su.sweep_tail_cuda(*ta, **tk))
+        pms = time_ms(lambda: su.site_update_torch(node, edge, state, alpha, Tt, step, interior,
+                                                   mask, c, rng), 5)
+        sums = su.site_update_torch(node, edge, state, alpha, Tt, step, interior, mask, c,
+                                    rng)[1]
+        tpms = time_ms(lambda: su.sweep_tail_torch([sums], *ta[1:]), 5)
+        L, M, N = state.muu.shape
+        site_shape = tuple(state.muu.shape)
+        k8 = dict(ms=ms[0], ms_min=ms[1], plain_ms=pms, library_ms=None,
+                  forms=(node.form, edge.form), shape=site_shape,
+                  **bound(roofline.k8_work(site_shape, node.form, edge.form)))
+        k9 = dict(ms=tms[0], ms_min=tms[1], plain_ms=tpms, library_ms=None,
+                  **bound(roofline.k9_work(L, M, N)))
+        out[f"K8 {path}"], out[f"K9 {path}"] = k8, k9
+        log(f"  {path} f32 ({node.form}, {edge.form}) at {site_shape} on {out['card']}, "
+            f"(median, min) of {TIMING[0]} windows of {TIMING[1]}: K8 {ms} ms (plain "
+            f"{pms:.4f}; {fmt_bound(k8)}, {k8['bound_ms'] / ms[0]:.1%} of it); K9 {tms} ms "
+            f"(plain {tpms:.4f}; {fmt_bound(k9)})")
+        if path == "tpu_fast":
+            worst_state, _ = check_update(pg, su, "tpu_fast f32 random means (timed)", calls,
+                                          torch.float32)
+            record["K8"] = dict(k8, max_abs_err=worst_state)
+            pw, pT, pit, paux = su.sweep_tail_torch([sums], *ta[1:])
+            record["K9"] = dict(k9, max_abs_err=max(float((x - y).abs().max())
+                                                    for x, y in zip(aux, paux)))
+        del calls, problem
+        torch.cuda.empty_cache()
+
+    # ---- each path's graph sweep in turns: kernels, plain glue, kernels again
+    turns = out["graph_ms"] = {}
+    for path, base in UPDATE_PATHS.items():
+        cfg = dataclasses.replace(base, its=100000, eval_every=UPDATE_SWEEPS, tor=0.0)
+        problem = update_problem(pg, cfg, fr, dev, pair)
+        st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+        st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                         sigmav=torch.full_like(st.sigmav, 0.05))
+        runners, peaks = {}, {}
+        for route in ("kernels", "plain"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if route == "plain":
+                force_plain()
+            try:
+                seg = runners[route] = pg.make_segment_runner(cfg, (H, W))
+                seg(problem, st, 10)  # the capture
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            peaks[route] = (torch.cuda.max_memory_allocated() - held) / 2**30
+            require(seg.route == "graph", f"update {path} {route}: route {seg.route!r}")
+        ms = {}
+        for route in ("kernels", "plain", "kernels again"):
+            seg = runners[route.split()[0]]
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            seg(problem, st, UPDATE_SWEEPS)
+            t1.record()
+            torch.cuda.synchronize()
+            ms[route] = t0.elapsed_time(t1) / UPDATE_SWEEPS
+        deltas = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"),
+                          runners["kernels"]._captured.deltas))
+        turns[path] = dict(ms, capture_GiB_above_held=peaks, counted_launches_a_sweep=deltas)
+        log(f"  {path} graph, ms a sweep ({UPDATE_SWEEPS} sweeps from sigma 0.05): kernels "
+            f"{ms['kernels']:.4f}, plain glue {ms['plain']:.4f}, kernels again "
+            f"{ms['kernels again']:.4f}; capturing call's peak above held, GiB: {peaks}; "
+            f"counted launches a sweep {deltas}")
+        del runners, seg, problem
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase update {out['phase_s']:.1f} s")
+
+
 def profiles_phase(dev, record):
     """Phase 31, the last: the profiler's hooks may stay in the process and
     slow later launches, so nothing is timed after it. One sweep of
     ``tpu_fast``, ``full_mixture`` and the Chebyshev ``full_mixture`` from
     the sigma = 0.05 state under ``torch.profiler`` (:func:`profile_call`),
-    and a 20-sweep segment of the first two on the graph route."""
+    and a 20-sweep segment of the first two on the graph route; then one
+    ``tpu_fast`` graph replay (one sweep) and a 20-sweep segment on the K8
+    route and on the plain glue: the kernels a sweep (at most
+    :data:`UPDATE_LAUNCH_LIMIT` through K8 and K9) and the idle share."""
     from gqmap_tpu_torch import FlowRange, GQMAPConfig
     from gqmap_tpu_torch.models import gqmap as pg
 
@@ -2413,6 +2843,37 @@ def profiles_phase(dev, record):
             del seg
         del problem
         torch.cuda.empty_cache()
+    # one tpu_fast sweep under replay, its kernels (K8 and K9 in place of the
+    # plain glue's ~140), and a 20-sweep segment's idle share, on both routes
+    cfg = dataclasses.replace(GQMAPConfig.tpu_fast(), tor=0.0)
+    problem = pg.make_problem(cfg, I1, I2, fr, dev)
+    st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+    st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                     sigmav=torch.full_like(st.sigmav, 0.05))
+    kept, count = pg._update_route, {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            pg._update_route = lambda c, d, device: "plain"
+        try:
+            seg = pg.make_segment_runner(cfg, (H, W))
+            seg(problem, st, 10)
+        finally:
+            pg._update_route = kept
+        rep = record["profile"][f"tpu_fast graph replay, {route}"] = profile_call(
+            seg._captured.graph.replay)
+        seg20 = record["profile"][f"tpu_fast graph, 20 sweeps, {route}"] = profile_call(
+            lambda: seg(problem, st, 20))
+        count[route] = rep["kernels"]
+        log(f"  one tpu_fast sweep under replay, {route}: {rep['kernels']} kernels, "
+            f"{rep['device_ms']:.4f} ms on the card of {rep['wall_ms']:.4f} wall; 20 sweeps: "
+            f"idle {seg20['idle_share']:.1%}, {seg20['device_ms']:.3f} ms on the card of "
+            f"{seg20['wall_ms']:.3f}")
+        del seg
+    require(count["kernels"] <= UPDATE_LAUNCH_LIMIT,
+            f"a tpu_fast sweep under replay launches {count['kernels']} kernels through K8 and "
+            f"K9 (at most {UPDATE_LAUNCH_LIMIT}; the plain glue's {count['plain']})")
+    del problem
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -2423,7 +2884,7 @@ def main():
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
     from gqmap_tpu_torch.kernels import (build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                         nearest_gq, node_gq)
+                                         nearest_gq, node_gq, sweep_update)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize
@@ -2431,6 +2892,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     k1_fn, k2_fn = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
+    ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_cuda}
 
     # ---- 1. the card
     card = smi("name,power.limit")
@@ -2475,6 +2937,8 @@ def main():
     RATES["measured"] = roofline.measured_rates(ceil)
     sheet = RATES["datasheet"]
     l1_per_clock = ceil["l1_GBps"] * 1e9 / roofline.SMS / (float(max_clock.split()[0]) * 1e6)
+    log(f"  TF32 tensor cores: wgmma m64n96k8 {ceil['tc_wgmma_tf32_GFLOPs']:.0f} GFLOP/s (the "
+        f"bounds' rate: K5 v2's instruction), mma.sync m16n8k8 {ceil['tc_tf32_GFLOPs']:.0f}")
     log(f"  measured ({time.time() - t:.1f} s): {json.dumps(ceil)} (L1: {l1_per_clock:.2f} "
         f"bytes an SM a clock at the max SM clock); data sheet: "
         f"{roofline.HBM_BYTES_PER_S / 1e9:g} GB/s, {roofline.FP32_FLOPS_PER_S / 1e9:g} GFLOP/s, "
@@ -2675,21 +3139,22 @@ def main():
     del crop, prob, gold, plain32, kern32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    k1_fn.launches = 0
-    k2_fn.launches = 0
+    for f in (k1_fn, k2_fn, *ufns.values()):
+        f.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
     res = solve(cfg32, I1, I2, gt_flow=gt, flow_range=fr, device=dev, verbose=True)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = {"K1": k1_fn.launches, "K2": k2_fn.launches}
+    launches = {"K1": k1_fn.launches, "K2": k2_fn.launches,
+                **{k: f.launches for k, f in ufns.items()}}
     peak = torch.cuda.max_memory_allocated()
     require(res.iters == 900, f"solve ran {res.iters} sweeps (900 asked)")
     require(bool(np.isfinite(res.Energy[:res.iters]).all()), "energy finite over every sweep")
     a1, a900 = res.AEPE[0], res.AEPE[res.iters - 1]
     require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
                                     "(at most half)")
-    require(launches == {"K1": res.iters, "K2": res.iters},
+    require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters},
             f"launch counters {launches} equal the sweep count {res.iters}")
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
@@ -3414,13 +3879,17 @@ def main():
     roofline_phase(dev, record, by_path, kfns, ceil)
     bench_phase(record)
     d4_phase(dev, record)
-    graph_phase(dev, record, by_path, kfns)
+    graph_phase(dev, record, by_path, {**kfns, **ufns})
+    update_phase(dev, record, by_path, ufns)
     profiles_phase(dev, record)
 
     for k in kfns:
         record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}
+    for k in ufns:
+        record[k]["launches_by_path"] = {path: c[k] for path, c in by_path.items() if k in c}
     log("  launches per path: " + json.dumps(by_path))
-    log("  records: " + json.dumps({k: v for k, v in record.items() if k not in kfns}))
+    log("  records: " + json.dumps({k: v for k, v in record.items()
+                                     if k not in kfns and k not in ufns}))
 
     kernels = [
         dict(name="cos_mode_sums (K1)", route="cuda", source="gqmap_tpu_torch/csrc/cosine_gq.cu",
@@ -3448,6 +3917,14 @@ def main():
              source="gqmap_tpu_torch/csrc/nearest_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:339 on gqmap_tpu/ops/potentials.py:211 (XLA scan, "
                       "no Pallas)", launches=by_path["legacy_v3"]["K7"], **record["K7"]),
+        dict(name="site_update (K8)", route="cuda", source="gqmap_tpu_torch/csrc/sweep_update.cu",
+             replaces="gqmap_tpu/models/gqmap.py:386 compute_grads and :552 one_pass (XLA "
+                      "fusion in the jit-compiled sweep, no Pallas)", launches=launches["K8"],
+             **record["K8"]),
+        dict(name="sweep_tail (K9)", route="cuda", source="gqmap_tpu_torch/csrc/sweep_update.cu",
+             replaces="gqmap_tpu/models/gqmap.py:572-616 the passes' sums, alpha update, anneal "
+                      "and counter (XLA fusion, no Pallas)", launches=launches["K9"],
+             **record["K9"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

@@ -11,6 +11,8 @@ from .edge_gq import edge_gq_cuda
 from .edge_reduced_gq import edge_reduced_grads_cuda
 from .nearest_gq import nearest_chain_gq_cuda, nearest_gq_cuda
 from .node_gq import node_gq_cuda
+from .sweep_update import site_update_cuda, sweep_tail_cuda
 
 COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda, node_gq_cuda,
-           cheb_gq_cuda, nearest_gq_cuda, nearest_chain_gq_cuda)
+           cheb_gq_cuda, nearest_gq_cuda, nearest_chain_gq_cuda, site_update_cuda,
+           sweep_tail_cuda)

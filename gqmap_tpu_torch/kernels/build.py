@@ -85,10 +85,19 @@ _SIGNATURES = {
     # r0, c0, K, rfc, lam, eps, device, stream
     "gqmap_nearest_chain_v2_f32": [_P] * 12 + [_I] * 11 + [_D] * 2 + [_I, _P],
     "gqmap_nearest_chain_v2_f64": [_P] * 12 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    # ptrs (27 device pointers), consts (19 doubles), node_form, edge_form, L, M, N, colour,
+    # device, stream (kernels/sweep_update.site_update_cuda, K8)
+    "gqmap_site_update_f32": [_P] * 2 + [_I] * 7 + [_P],
+    "gqmap_site_update_f64": [_P] * 2 + [_I] * 7 + [_P],
+    # ptrs (15 device pointers), consts (6 doubles), L, G, alpha_start, anneal_every, its, cap,
+    # softmax_mode, device, stream (kernels/sweep_update.sweep_tail_cuda, K9)
+    "gqmap_sweep_tail_f32": [_P] * 2 + [_I] * 8 + [_P],
+    "gqmap_sweep_tail_f64": [_P] * 2 + [_I] * 8 + [_P],
     # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
     # out, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_mma_tf32": [_P] + [_I] * 3 + [_P],
+    "gqmap_wgmma_tf32": [_P] + [_I] * 3 + [_P],
 }
 
 

@@ -14,7 +14,7 @@ Counterpart of ``gqmap_tpu/kernels/edge_reduced_gq.py``
 All three take ``mu``/``sg``, the ``(C, L, M, N)`` state stacks, ``rou``, the
 ``(2, C, L, M, N)`` edge correlations, ``alpha`` the ``(L,)`` mixture weights
 and ``T`` the temperature, and return :class:`GQGrads` with
-``(2, C, L, M, N)`` fields. Endpoint 1 of an edge is the site, endpoint 2
+``(2, C, L, M, N)`` fields (the kernel's ``E`` None). Endpoint 1 of an edge is the site, endpoint 2
 its neighbour one row down (direction 0) or one column right (direction 1),
 with wrap: the JAX function's ``u2e``/``o2e`` stacks, which
 :func:`neighbour_stacks` builds and the plain version uses, and which the
@@ -78,7 +78,7 @@ def pad_halo(mu, sg, rou, halo):
 
 
 def _crop(g: GQGrads, M: int, N: int) -> GQGrads:
-    return GQGrads(*(x[..., :M, :N] for x in g))
+    return GQGrads(*(None if x is None else x[..., :M, :N] for x in g))
 
 
 def paired_rule_1d(k1: int, dtype=np.float64) -> np.ndarray:
@@ -134,7 +134,9 @@ def edge_reduced_grads_cuda(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn
     :data:`SPECIALISED` and ``generic`` is false, else the generic instance.
     ``alpha`` and ``T`` must be tensors on the card: the kernel reads them
     through device pointers. With a ``halo``, one launch on the padded
-    block, cropped."""
+    block, cropped. The kernel writes the six gradients; ``E`` (``alpha *
+    da``, which would be one more launch) is None: its callers form it
+    (kernel K8 and ``sweep_update.edge_grads_torch``)."""
     if halo is not None:
         M, N = mu.shape[-2:]
         return _crop(edge_reduced_grads_cuda(*pad_halo(mu, sg, rou, halo), alpha, T, k1,
@@ -174,8 +176,7 @@ def edge_reduced_grads_cuda(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn
                 "edge_reduced_grads_cuda")
     edge_reduced_grads_cuda.launches += 1
     da, du1, du2, do1, do2, dp = out.unbind(0)
-    return GQGrads(da=da, du1=du1, du2=du2, do1=do1, do2=do2, dp=dp,
-                   E=alpha.reshape(1, 1, L, 1, 1) * da)
+    return GQGrads(da=da, du1=du1, du2=du2, do1=do1, do2=do2, dp=dp, E=None)
 
 
 edge_reduced_grads_cuda.launches = 0
@@ -183,7 +184,8 @@ edge_reduced_grads_cuda.launches = 0
 
 def edge_reduced_grads(mu, sg, rou, alpha, T, k1: int, lambdas: float, epsn: float,
                        entropy_scale: float, halo=None) -> GQGrads:
-    """Kernel K2 for CUDA tensors, its plain version for CPU tensors."""
+    """Kernel K2 for CUDA tensors (``E`` None), its plain version for CPU
+    tensors."""
     if mu.device.type == "cpu":
         return edge_reduced_grads_torch(mu, sg, rou, alpha, T, k1, lambdas, epsn,
                                         entropy_scale, halo)

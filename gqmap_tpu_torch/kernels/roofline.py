@@ -10,9 +10,9 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
   ``expf`` and of ``rsqrtf`` (the special-function unit that K2's and K3's
   roots use), the L1 load rate (``csrc/ceilings.cu``: warp-wide
   four-byte loads of a table that stays in L1, the loads K4's taps are) and
-  the tensor cores' TF32 rate (``csrc/ceilings.cu``: ``mma.sync`` m16n8k8
+  the tensor cores' TF32 rate (``csrc/ceilings.cu``: ``wgmma`` m64n96k8
   products with independent accumulators, the instruction K5's ``"v2"``
-  runs).
+  runs, and beside it ``mma.sync`` m16n8k8, which it does not).
   The compute chains run as one fused elementwise kernel each, compiled at
   run time by PyTorch's jiterator, so the chain and not the memory stream
   is timed; every ceiling is timed by :func:`kernel_ms`.
@@ -22,7 +22,7 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 * :func:`flagship_roofline` times kernel K1 alone in ``"v1"`` against its
   operation, ``exp`` and memory bounds, and the ``tpu_fast`` sweep inside a
   300-sweep segment against its kernels' bounds.
-* :func:`k1_work` to :func:`k7_work` count what each kernel's function
+* :func:`k1_work` to :func:`k9_work` count what each kernel's function
   must do at given shapes: bytes (each input read once, each output
   written once; for K6 and K7 the table bytes are the distinct 32-byte
   sectors the state's lookups touch, which the caller counts), float32
@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "kernel_ms",
-           "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "k6_work", "k7_work", "bound",
+           "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "k6_work", "k7_work", "k8_work",
+           "k9_work", "update_bound_ms", "bound",
            "datasheet_rates", "measured_rates", "card_line", "FLOPS", "TIMING"]
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, float32 rate outside the
@@ -97,10 +98,23 @@ L1_BYTES_PER_CLOCK = 128
 # K6 and K7 "v2" add the phase stencil that stands for the table: a chain of
 # four FMAs ("stencil chain") for each vertical sum of the window's rows at
 # the columns it spans and for each of its cells.
+# K8 per site (a log counts one): the node term's finalize from K1's mode sums
+# (s1, s2 2, six scaled sums 16, finalize_closed 22) "K8 modes", from a GQRaw
+# (1 - p^2 2, its root, du1 and du2 8 each, da 7, Sm / root 1, do1 and do2 5
+# each, dp 8, E 1) "K8 raw", from a GQChainRaw (the roots' arguments 2 and
+# roots 2, s, t, ds, dt 6, reciprocals 2, dE/do1, dE/do2 5 each, dE/dp 11,
+# three scaled sums 3, finalize_closed 22) "K8 chain"; per edge (4 a site)
+# from K2's gradients (E 1) "K8 grads edge", from raw sums (the site's edge:
+# 1 - p^2, root, du1, da, Sm / root, do1, dp, E; and the up or left edge's
+# du2 and do2 with their own 1 - p^2 and root) "K8 raw edge"; per site the
+# assembly 16, the nine clamped steps (x + dx s and two compares) 36, sstep
+# 1, the energy and dalpha 10 and two magnitudes "K8 site".
 FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K3 pair": 25, "K3 centre": 7, "K3 element": 10, "K4 point": 50, "K4 tap row": 7,
          "K4 pixel": 5, "K4 site": 20, "K6 point": 20, "K6 line": 4, "K6 tap": 4,
-         "K6 site": 14, "K7 point": 35, "K7 site": 15, "stencil chain": 8}
+         "K6 site": 14, "K7 point": 35, "K7 site": 15, "stencil chain": 8,
+         "K8 modes": 40, "K8 raw": 46, "K8 chain": 60, "K8 grads edge": 1,
+         "K8 raw edge": 50, "K8 site": 65}
 SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
@@ -272,6 +286,43 @@ def k7_work(site_shape, K: int, sectors: int, itemsize: int = 4, variant: str = 
     return dict(work, bytes=state + 3 * sectors * SECTOR_BYTES, flops=flops)
 
 
+def k8_work(site_shape, node_form: str, edge_form: str, itemsize: int = 4) -> dict:
+    """K8 (one pass) on ``(L, M, N)`` sites: the node route's fields (6, or
+    7 for ``"chain"``), the edge route's six ``(2, 2, L, M, N)`` fields, the
+    state (9 planes) and the interior mask read once, the new state written
+    once and one 4-value partial a CTA; the finalize of each form, the
+    assembly, the clamped step and the sums (:data:`FLOPS`)."""
+    from .sweep_update import partial_blocks
+
+    L, M, N = site_shape
+    sites = L * M * N
+    node = {"modes": 6, "raw": 6, "chain": 7}[node_form]
+    parts = L * partial_blocks(M, N) * 4
+    flops = sites * (FLOPS[f"K8 {node_form}"] + 4 * FLOPS[f"K8 {edge_form} edge"]
+                     + FLOPS["K8 site"])
+    return dict(bytes=(node + 24 + 9 + 9) * sites * itemsize + M * N + parts * itemsize,
+                flops=flops, roots=0)
+
+
+def k9_work(L: int, M: int, N: int, passes: int = 1, itemsize: int = 4) -> dict:
+    """K9 on ``passes`` passes' partials of ``(L, M, N)`` sites: the partials
+    read once and summed, a few dozen scalar operations."""
+    from .sweep_update import partial_blocks
+
+    parts = passes * L * partial_blocks(M, N) * 4
+    return dict(bytes=parts * itemsize, flops=parts, roots=0)
+
+
+def update_bound_ms(cfg, site_shape, node_form: str, edge_form: str, rates: dict) -> float:
+    """The sweep's update at ``rates``: K8's bound once a pass (twice in
+    red-black) and K9's once, in ``cfg``'s type."""
+    L, M, N = site_shape
+    itemsize = 8 if cfg.dtype == "float64" else 4
+    passes = 2 if cfg.sweep_order == "redblack" else 1
+    return (passes * bound(k8_work(site_shape, node_form, edge_form, itemsize), rates)["bound_ms"]
+            + bound(k9_work(L, M, N, passes, itemsize), rates)["bound_ms"])
+
+
 def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
     """The data sheet's rates, per second: memory bytes, float32 operations,
     roots at 16 an SM a clock, L1 bytes at :data:`L1_BYTES_PER_CLOCK` an SM a
@@ -282,10 +333,12 @@ def datasheet_rates(max_sm_clock_mhz: float = 1980.0) -> dict:
 
 
 def measured_rates(ceilings: dict) -> dict:
-    """The rates of :func:`measure_ceilings`' result, per second."""
+    """The rates of :func:`measure_ceilings`' result, per second; the
+    tensor cores' TF32 rate is ``wgmma``'s (``tc_wgmma_tf32_GFLOPs``), the
+    instruction K5 v2 issues."""
     return dict(bytes=ceilings["hbm_stream_GBps"] * 1e9, flops=ceilings["vpu_GFLOPs"] * 1e9,
                 roots=ceilings["rsqrt_Gops"] * 1e9, l1_bytes=ceilings["l1_GBps"] * 1e9,
-                tc_flops=ceilings["tc_tf32_GFLOPs"] * 1e9)
+                tc_flops=ceilings["tc_wgmma_tf32_GFLOPs"] * 1e9)
 
 
 def bound(work: dict, rates: dict) -> dict:
@@ -356,9 +409,11 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
     ``exp_Gops`` and ``rsqrt_Gops`` (640 dependent ``expf`` / ``rsqrtf`` an
     element), ``l1_GBps`` (four-byte loads of a 16 KB table, 16K a thread,
     by the kernels' library, which is built if it is not),
-    ``tc_tf32_GFLOPs`` (``mma.sync`` m16n8k8 TF32 products, 8 independent
-    accumulators a warp, 32 warps an SM, by the same library) and ``card``,
-    the card's name and power limit. ``device``: a CUDA device, the GPU by
+    ``tc_wgmma_tf32_GFLOPs`` (``wgmma`` m64n96k8 TF32 products, 2
+    independent accumulators a warpgroup, 4 warpgroups an SM: the rate of
+    the bounds), ``tc_tf32_GFLOPs`` (``mma.sync`` m16n8k8 TF32 products, 8
+    independent accumulators a warp, 32 warps an SM), both by the same
+    library, and ``card``, the card's name and power limit. ``device``: a CUDA device, the GPU by
     default; anything else raises."""
     if device is None:
         if not torch.cuda.is_available():
@@ -435,12 +490,19 @@ def measure_ceilings(dtype=torch.float32, device=None) -> dict:
         mma_out.data_ptr(), mma_iters, mma_blocks, mma_out.device.index, cu_stream),
         "gqmap_mma_tf32"), n=10)[0]
     tc = mma_blocks * 8 * mma_iters * 8 * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e9
+    # wgmma: 2 CTAs of 2 warpgroups an SM, each warpgroup 256 x 2 m64n96k8 products
+    wg_blocks, wg_iters = blocks // 4, 256
+    wg_out = torch.empty(wg_blocks * 256, device=device)
+    ms = kernel_ms(lambda: build.check(lib.gqmap_wgmma_tf32(
+        wg_out.data_ptr(), wg_iters, wg_blocks, wg_out.device.index, cu_stream),
+        "gqmap_wgmma_tf32"), n=10)[0]
+    wgmma = wg_blocks * 2 * wg_iters * 2 * 2 * 64 * 96 * 8 / (ms * 1e-3) / 1e9
 
     return dict(roundtrip_ms=roundtrip * 1e3, hbm_stream_GBps=stream,
                 vpu_GFLOPs=vpu["chains"], vpu_1chain_GFLOPs=vpu["one chain"],
                 fma_sm_clock_MHz=clock["chains"], fma_1chain_sm_clock_MHz=clock["one chain"],
                 gather_Mtaps_s=gather, exp_Gops=exp_rate, rsqrt_Gops=rsqrt_rate, l1_GBps=l1,
-                tc_tf32_GFLOPs=tc, card=card_line(device))
+                tc_wgmma_tf32_GFLOPs=wgmma, tc_tf32_GFLOPs=tc, card=card_line(device))
 
 
 # ---- sweeps against their bounds -------------------------------------------------
@@ -480,13 +542,13 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
     data-term mode from a converged-width state, with its governing bound
     at the measured ceilings and the bound's share of the time.
 
-    ``cosine`` is ``tpu_fast`` (K1 by operations); the others are
+    ``cosine`` is ``tpu_fast`` (K1 and K2); the others are
     ``full_mixture(float32, quad_chunk=27, cheb_p=96, cheb_q=16)`` with the
-    term, each by the sum of its kernels' bounds (the node sums, K4, K5 or
-    K6, and K3's edge sums, :func:`bound` at the measured rates): K5's with
-    its contraction on the tensor cores where its default variant, "v2",
-    takes the shape, K6's with the table sectors this state's lookups
-    touch."""
+    term (the node sums, K4, K5 or K6, and K3's edge sums); each by the sum
+    of its kernels' bounds (:func:`bound` at the measured rates), the
+    update's K8 and K9 (:func:`update_bound_ms`) among them: K5's with its
+    contraction on the tensor cores where its default variant, "v2", takes
+    the shape, K6's with the table sectors this state's lookups touch."""
     from ..config import FlowRange, GQMAPConfig
     from ..models.gqmap import _device, make_problem, make_sweep
     from . import cheb_gq, nearest_gq
@@ -526,10 +588,14 @@ def sweep_roofline(image_shape=(376, 452), seed=0,
                                variant=nearest_gq.resolve_variant(None, cfg.K, cfg.rfc))
                 governing = "K6+K3"
             bound_ms = (bound(node, rates)["bound_ms"]
-                        + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"])
+                        + bound(k3_work((2, 2, cfg.L, M, N), cfg.K), rates)["bound_ms"]
+                        + update_bound_ms(cfg, (cfg.L, M, N), "raw", "raw", rates))
         else:
-            bound_ms = k1_work(problem.cheb.coeffs.shape, cfg.L)["flops"] / rates["flops"] * 1e3
-            governing = "flops"
+            bound_ms = (bound(k1_work(problem.cheb.coeffs.shape, cfg.L), rates)["bound_ms"]
+                        + bound(k2_work((2, 2, cfg.L, M, N), 2 * cfg.K + 3), rates)["bound_ms"]
+                        + update_bound_ms(cfg, (cfg.L, M, N), "modes", "grads", rates))
+            governing = "K1+K2"
+        governing += "+K8+K9"
         out["modes"][mode] = dict(ms_per_sweep=ms, mpix_sweeps_per_s=M * N / ms / 1e3,
                                   governing_bound=governing, bound_ms=bound_ms,
                                   share_of_bound=bound_ms / ms, device=str(dev))
@@ -547,8 +613,9 @@ def flagship_roofline(image_shape=(376, 452), seed=0, A=64, B=16, ceilings=None,
       (two a mode) and memory bounds;
     * the ``tpu_fast`` sweep inside a ``seg_len``-sweep segment after a
       10-sweep one (host clock: the pace a solve runs at) against the sum of
-      K1's and K2's bounds; the sweep's other operators move bytes that
-      this bound does not count.
+      K1's, K2's, K8's and K9's bounds; the sweep's other operators (K1's
+      phases, alpha and the step) move bytes that this bound does not
+      count.
     """
     from ..config import FlowRange, GQMAPConfig
     from ..models.gqmap import _device, make_problem, make_segment_runner
@@ -582,9 +649,11 @@ def flagship_roofline(image_shape=(376, 452), seed=0, A=64, B=16, ceilings=None,
     st = seg(problem, state, 10)[0]
     t_s = _wall_ms(lambda: seg(problem, st, seg_len), 1, dev) / seg_len
     k2 = bound(k2_work((2, 2, cfg.L, M, N), 2 * cfg.K + 3), rates)["bound_ms"]
-    sweep_bound = bounds[governing] + k2
+    k8 = bound(k8_work((cfg.L, M, N), "modes", "grads"), rates)["bound_ms"]
+    k9 = bound(k9_work(cfg.L, M, N), rates)["bound_ms"]
+    sweep_bound = bounds[governing] + k2 + k8 + k9
     sweep = dict(ms=t_s, mpix_sweeps_per_s=M * N / t_s / 1e3, bound_ms=sweep_bound,
-                 bound_terms_ms=dict(K1=bounds[governing], K2=k2),
+                 bound_terms_ms=dict(K1=bounds[governing], K2=k2, K8=k8, K9=k9),
                  share_of_bound=sweep_bound / t_s)
     return {"ceilings": ceil, "cosine_kernel_v1": kernel, "tpu_fast_sweep": sweep,
             "device": str(dev)}

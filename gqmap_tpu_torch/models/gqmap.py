@@ -76,11 +76,13 @@ from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cu
 from ..kernels.nearest_gq import (nearest_chain_gq, nearest_chain_gq_cuda, nearest_chain_gq_torch,
                                   nearest_gq, nearest_gq_cuda, nearest_gq_torch)
 from ..kernels.node_gq import node_gq, node_gq_cuda, node_gq_torch
+from ..kernels.sweep_update import (EdgeSums, NodeSums, lattice_views, site_update_cuda,
+                                    site_update_torch, stack2, step_torch,
+                                    sweep_tail_cuda, sweep_tail_torch)
 from ..ops.chebyshev import ChebData, build_cheb_data, make_node_pot_chebyshev
-from ..ops.cosine import CosData, _finalize_mode_sums, build_cos_data, cos_ei
+from ..ops.cosine import CosData, build_cos_data, cos_ei
 from ..ops.flowviz import flow_to_color
-from ..ops.gq import (EDGE, NODE, finalize, finalize_chain, gq_accumulate, gq_accumulate_diff,
-                      gq_ei, gq_ei_diff)
+from ..ops.gq import EDGE, gq_accumulate, gq_accumulate_diff, gq_ei, gq_ei_diff
 from ..ops.interp import pad_cubic, prewitt_gradients, upsample_cubic
 from ..ops.mixture import extract_map
 from ..ops.potentials import (make_edge_pot, make_edge_pot_diff, make_edge_pot_truncquad,
@@ -88,7 +90,7 @@ from ..ops.potentials import (make_edge_pot, make_edge_pot_diff, make_edge_pot_t
                               make_node_pot_nearest, make_node_pot_quadratic,
                               make_node_pot_windowed)
 from ..ops.quadrature import table_on
-from ..ops.simplex import project_simplex, softmax, softmax_natural_step
+from ..ops.simplex import softmax
 
 __all__ = [
     "DistHooks",
@@ -383,13 +385,34 @@ class DistHooks(NamedTuple):
     halo: Callable
 
 
+def _update_route(cfg: GQMAPConfig, dist: DistHooks | None, device) -> str:
+    """The route of the sweep's update around the node and edge kernels:
+    ``"K8"``, kernels K8 and K9 (``kernels/sweep_update``), for every
+    single-device Stein or Prewitt sweep on a CUDA device whose node term is
+    not asked for in plain torch (``node_kernel != "torch"``), at any L;
+    else ``"plain"``, their plain versions: on the CPU, for
+    ``node_kernel="torch"``, the autodiff estimator (whose gradients come
+    from ``torch.autograd``) and a mesh (whose rolls and sums are host
+    collectives)."""
+    if (torch.device(device).type == "cuda" and dist is None and cfg.node_kernel != "torch"
+            and cfg.gradient_estimator != "autodiff"):
+        return "K8"
+    return "plain"
+
+
+# the K8 route's kernels (site update, sweep tail)
+_UPDATE = {"K8": (site_update_cuda, sweep_tail_cuda)}
+_LATTICE = ("muu", "muv", "sigmau", "sigmav", "pn", "rou")
+
+
 def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
-    """Build the single-sweep update: ``sweep(problem, state, active=None) ->
-    (state, SweepAux)``. ``sweep_order="jacobi"`` is one synchronous step over the
-    interior; ``"redblack"`` is a step over the interior's red sites
-    (``(row + col)`` even, in global lattice coordinates) and then one over
-    its black sites from the red step's state, so every kernel launches twice
-    a sweep. Energy and the alpha gradient come from the second half.
+    """Build the single-sweep update: ``sweep(problem, state, active=None,
+    loop=None) -> (state, SweepAux)``. ``sweep_order="jacobi"`` is one
+    synchronous step over the interior; ``"redblack"`` is a step over the
+    interior's red sites (``(row + col)`` even, in global lattice
+    coordinates) and then one over its black sites from the red step's
+    state, so every kernel launches twice a sweep. Energy and the alpha
+    gradient come from the second half.
 
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
@@ -398,7 +421,12 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     under the Stein estimator, and K7 for the Prewitt estimator's chain sums
     (each of which the JAX package runs as one XLA scan); the other node
     terms, truncated-quadratic edges and the autodiff estimator run plain
-    sums (:func:`check_supported` refuses ``"cuda"`` there).
+    sums (:func:`check_supported` refuses ``"cuda"`` there). What the JAX
+    package fuses around them (the finalize of the raw sums, the neighbour
+    assembly, the clamped step, the reductions, the alpha update and the
+    counter) runs as kernels K8 and K9 where :func:`_update_route` names
+    them, else as their plain versions; the new state is the same bit for
+    bit either way, and the sums differ in their order.
 
     With ``dist`` the sweep is one shard's: ``problem`` and ``state`` hold
     its block, every neighbour roll goes through ``dist.roll``, K2 reads the
@@ -408,11 +436,18 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     lattice's.
 
     ``active``, a boolean tensor of no dimensions on the state's device,
-    predicates the sweep on the device (the segment runner's graph route):
-    it joins the site mask of the clamped step and gates the mixture
-    weights, the temperature and the iteration counter. Where it is true the
-    sweep computes what it computes without it, bit for bit; where it is
-    false the state comes back unchanged, with no host read either way."""
+    predicates the sweep on the device: it joins the site mask of the
+    clamped step and gates the mixture weights, the temperature and the
+    iteration counter. Where it is true the sweep computes what it computes
+    without it, bit for bit; where it is false the state comes back
+    unchanged, with no host read either way. ``loop = (n, stop, bufs,
+    planes)`` makes the sweep the segment runner's predicated step
+    (:func:`_predicated_step`), predicated on ``~stop``: ``state``, whose
+    lattice fields are the :func:`lattice_views` of the ``(9, L, M, N)``
+    buffer ``planes``, is updated in place and returned, and, where the
+    sweep ran, its traces go to slot ``n`` of the ``(3, cap)`` traces
+    ``bufs``, the reference's stop rule (``it > its || ptdmu < tor``,
+    ``gqmap_gpu_mixture.m:75``) may set ``stop`` and ``n`` advances."""
     check_supported(cfg)
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -421,7 +456,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     k1 = cfg.edge_quad_k if cfg.edge_quad_k > 0 else 2 * cfg.K + 3
     n_interior = (M - 2 * b) * (N - 2 * b) * L
     softmax_mode = cfg.alpha_update == "softmax_natural"
-    node_sums = _NODE_SUMS[cfg.node_kernel]
+    node_sums_fn = _NODE_SUMS[cfg.node_kernel]
     autodiff = cfg.gradient_estimator == "autodiff"
     # K4, K5, K6 or K7 (or its plain version) where the JAX package scans the
     # bicubic term, the Chebyshev series, the nearest lookup or the Prewitt chain
@@ -453,12 +488,17 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     # parity in global lattice coordinates, so the order is shard-invariant
     red_np = (np.add.outer(np.arange(ml) + r0, np.arange(nl) + c0) & 1) == 0
     red_on = {}  # device -> the red mask there
+    redblack = cfg.sweep_order == "redblack"
 
-    def sweep(problem: Problem, state: GQState, active=None) -> tuple[GQState, SweepAux]:
+    def sweep(problem: Problem, state: GQState, active=None,
+              loop=None) -> tuple[GQState, SweepAux]:
+        if loop is not None and active is not None:
+            raise ValueError("the device loop's predicate is its stop flag: pass no active")
         rngv = problem.rng
         interior = problem.interior  # (M, N), broadcasts left
-        live = interior if active is None else interior & active  # the sites a step moves
-        zero = torch.zeros((), dtype=dt, device=interior.device)
+        route = _update_route(cfg, dist, interior.device)
+        if loop is not None and route == "plain":
+            active = ~loop[1]
         node_tab = table_on(cfg.K, cfg.quad_chunk, False, dt, interior.device)
         tab1 = table_on(k1, 0, True, dt, interior.device)
         it_f = state.it.to(dt)
@@ -479,6 +519,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             the full lattice (border-owned and wrap-around edges too: what the
             reference's assembled gradients differentiate); the energy and
             dalpha it reports are the interior's (``gqmap_gpu_mixture.m:36,48``)."""
+            zero = torch.zeros((), dtype=dt, device=interior.device)
             leaves = [x.detach().requires_grad_() for x in
                       (st.muu, st.muv, st.sigmau, st.sigmav, st.pn, st.rou)]
             muu, muv, su, sv, pn, rou = leaves
@@ -504,13 +545,10 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                       + torch.where(interior, a3 * da_e, zero).sum())
             dalpha = (torch.where(interior, da_n, zero).sum((-2, -1))
                       + torch.where(interior, da_e, zero).sum((0, 1, -2, -1)))
-            return (*grads, energy, dalpha)
+            return grads, energy, dalpha
 
-        def compute_grads(st: GQState):
-            """Every parameter gradient and the interior energy and dalpha at ``st``."""
-            if autodiff:
-                return autodiff_grads(st)
-            # --- node term (gqmap_gpu_mixture.m:29, :87-116) ---
+        def node_sums(st: GQState) -> NodeSums:
+            """The node term's raw output (gqmap_gpu_mixture.m:29, :87-116)."""
             if cfg.gradient_estimator == "prewitt":  # kernel K7
                 # quadrature of the chain-rule df/dx against the upsampled
                 # Prewitt fields (legacy/gqmap_gpuV3.m:91-125)
@@ -519,30 +557,29 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 raw_c = node_route(problem.I1, problem.I2_tab, *problem.grad_tabs, st.muu, st.muv,
                                    st.sigmau, st.sigmav, st.pn, cfg.K, cfg.lambdad, cfg.epsn,
                                    cfg.rfc, pads=problem.nearest_pads, **chain_at)
-                gn = finalize_chain(raw_c, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
-            elif cfg.data_term == "cosine":  # kernel K1
-                sums = node_sums(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
-                gn = _finalize_mode_sums(problem.cheb, sums, st.muu, st.sigmau, st.sigmav,
-                                         st.pn, a3, T, NODE)
-            else:  # the K^2-point node quadrature: kernel K4, K5 or K6, else plain torch
-                site = (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
-                if kernel == "K4":
-                    raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
-                                       cfg.epsn, patch=cfg.patch, **node_at)
-                elif kernel == "K5":  # the field is the shard's own block
-                    raw_n = node_route(problem.cheb, *site, cfg.K)
-                elif kernel == "K6":
-                    raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
-                                       cfg.epsn, cfg.rfc, cfg.window_rg,
-                                       pads=problem.nearest_pads, **node_at)
-                else:
-                    raw_n = gq_accumulate(node_f, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
-                                          node_tab)
-                gn = finalize(raw_n, a3, st.sigmau, st.sigmav, st.pn, T, NODE)
+                return NodeSums("chain", tuple(raw_c))
+            if cfg.data_term == "cosine":  # kernel K1
+                sums = node_sums_fn(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
+                return NodeSums("modes", tuple(sums), problem.cheb)
+            # the K^2-point node quadrature: kernel K4, K5 or K6, else plain torch
+            site = (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
+            if kernel == "K4":
+                raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
+                                   cfg.epsn, patch=cfg.patch, **node_at)
+            elif kernel == "K5":  # the field is the shard's own block
+                raw_n = node_route(problem.cheb, *site, cfg.K)
+            elif kernel == "K6":
+                raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
+                                   cfg.epsn, cfg.rfc, cfg.window_rg,
+                                   pads=problem.nearest_pads, **node_at)
+            else:
+                raw_n = gq_accumulate(node_f, *site, node_tab)
+            return NodeSums("raw", tuple(raw_n))
 
-            # --- edge term (:31-34, :118-146); dims (dir, chan, L, M, N) ---
-            mu = torch.stack([st.muu, st.muv])
-            sg = torch.stack([st.sigmau, st.sigmav])
+        def edge_sums(st: GQState) -> EdgeSums:
+            """The edge term's output (:31-34, :118-146); dims (dir, chan, L, M, N)."""
+            mu = stack2(st.muu, st.muv)
+            sg = stack2(st.sigmau, st.sigmav)
             if edge_route is None:  # truncated-quadratic edges, plain torch
                 u2e, o2e = neighbour_stacks(mu, sg, roll)
                 if reduced:
@@ -550,92 +587,73 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                                                tab1)
                 else:
                     raw_e = gq_accumulate(edge_f, mu[None], u2e, sg[None], o2e, st.rou, node_tab)
-                ge = finalize(raw_e, a3, sg[None], o2e, st.rou, T, EDGE)
-            elif reduced:  # kernel K2, which reads the neighbour itself
+                return EdgeSums("raw", tuple(raw_e), o2e)
+            if reduced:  # kernel K2, which reads the neighbour itself; its E is alpha * da
                 halo = None if dist is None else dist.halo(torch.stack([mu, sg]))
                 ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE,
                                 halo=halo)
-            else:  # kernel K3
-                u2e, o2e = neighbour_stacks(mu, sg, roll)
-                raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)
-                ge = finalize(raw_e, a3, sg[None], o2e, st.rou, T, EDGE)
+                return EdgeSums("grads", tuple(ge)[:6])
+            u2e, o2e = neighbour_stacks(mu, sg, roll)  # kernel K3
+            raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)
+            return EdgeSums("raw", tuple(raw_e), o2e)
 
-            # --- assembly: endpoint-1 terms stay, endpoint-2 terms go back to the
-            # neighbour that owns them (:37-40); one roll an axis for the four ---
-            d2 = torch.stack([ge.du2, ge.do2])  # (mu | sigma, dir, C, L, M, N)
-            up, left = roll(d2[:, 0], 1, -2), roll(d2[:, 1], 1, -1)
-
-            def assemble(dn, d1, k, chan):
-                return dn + d1[0, chan] + d1[1, chan] + up[k, chan] + left[k, chan]
-
-            dmuu = assemble(gn.du1, ge.du1, 0, 0)
-            dmuv = assemble(gn.du2, ge.du1, 0, 1)
-            dsigmau = assemble(gn.do1, ge.do1, 1, 0)
-            dsigmav = assemble(gn.do2, ge.do1, 1, 1)
-
-            # --- energy + global mixture gradient (:36, :48) ---
-            energy = (torch.where(interior, gn.E, zero).sum()
-                      + torch.where(interior, ge.E, zero).sum())
-            dalpha = (torch.where(interior, gn.da, zero).sum((-2, -1))
-                      + torch.where(interior, ge.da, zero).sum((0, 1, -2, -1)))
-            return dmuu, dmuv, dsigmau, dsigmav, gn.dp, ge.dp, energy, dalpha
-
-        # --- clamped ascent over a site mask (:41-46) ---
-        sstep = step * cfg.sigma_step_scale
+        if route != "plain":  # kernels K8 (each pass) and K9
+            site_update, sweep_tail = _UPDATE[route]
+            stop = None if loop is None else loop[1]
+            st, parts = state, []
+            for colour in ((0, 1) if redblack else (None,)):
+                planes, part = site_update(node_sums(st), edge_sums(st), st, alpha, T, step,
+                                           interior, cfg, rngv, colour=colour, active=active,
+                                           stop=stop)
+                st = st._replace(**dict(zip(_LATTICE, lattice_views(planes))))
+                parts.append(part)
+            w, T, it, aux = sweep_tail(parts, state, step, cfg, n_interior, active=active,
+                                       loop=None if loop is None else loop[:3])
+            if loop is None:
+                return st._replace(w=w, temperature=T, it=it), SweepAux(*aux[:3])
+            loop[3].copy_(planes)  # w, T and it are already state's; the lattice comes back
+            return state, SweepAux(*aux[:3])
 
         def one_pass(st: GQState, mask):
-            dmuu, dmuv, dsigmau, dsigmav, dpn, drou, energy, dalpha = compute_grads(st)
-
-            def upd(x, dx, lo, hi, s=step):
-                return torch.where(mask, torch.clamp(x + dx * s, lo, hi), x)
-
-            st2 = st._replace(
-                muu=upd(st.muu, dmuu, rngv.minu, rngv.maxu),
-                muv=upd(st.muv, dmuv, rngv.minv, rngv.maxv),
-                sigmau=upd(st.sigmau, dsigmau, cfg.sigma_min, cfg.sigma_max, sstep),
-                sigmav=upd(st.sigmav, dsigmav, cfg.sigma_min, cfg.sigma_max, sstep),
-                rou=upd(st.rou, drou, -cfg.corr_tor, cfg.corr_tor),
-                pn=upd(st.pn, dpn, -cfg.corr_tor, cfg.corr_tor))
-            dmu_sum = torch.where(mask, dmuu.abs(), zero).sum()
-            dsig_sum = torch.where(mask, dsigmau.abs(), zero).sum()
+            """One pass of the plain glue over a site mask: the state with its
+            new lattice fields and (energy, dalpha, sum |dmu|, sum |dsigma|)."""
+            if autodiff:
+                grads, energy, dalpha = autodiff_grads(st)
+                st2, dmu_sum, dsig_sum = step_torch(st, grads, step, mask, cfg, rngv)
+            else:
+                st2, (energy, dalpha, dmu_sum, dsig_sum) = site_update_torch(
+                    node_sums(st), edge_sums(st), st, alpha, T, step, interior, mask, cfg,
+                    rngv, roll)
             if dist is not None:  # one reduction a pass over the shards
                 v = dist.psum(torch.cat([energy.reshape(1), dalpha.reshape(L),
                                          dmu_sum.reshape(1), dsig_sum.reshape(1)]))
                 energy, dalpha, dmu_sum, dsig_sum = v[0], v[1:L + 1], v[L + 1], v[L + 2]
-            return st2, energy, dalpha, dmu_sum, dsig_sum
+            return st2, (energy, dalpha, dmu_sum, dsig_sum)
 
-        if cfg.sweep_order == "redblack":
+        live = interior if active is None else interior & active  # the sites a step moves
+        if redblack:
             red = red_on.get(interior.device)
             if red is None:
                 red = red_on[interior.device] = torch.as_tensor(red_np, device=interior.device)
-            st1, _, _, p1, s1 = one_pass(state, live & red)
-            stc, energy, dalpha, p2, s2 = one_pass(st1, live & ~red)
-            dmu_sum, dsig_sum = p1 + p2, s1 + s2
+            st1, s1 = one_pass(state, live & red)
+            stc, s2 = one_pass(st1, live & ~red)
+            sums = [s1, s2]
         else:
-            stc, energy, dalpha, dmu_sum, dsig_sum = one_pass(state, live)
-
-        # --- mixture-weight update, active after alpha_start iters (:50) ---
-        w = state.w
-        if L > 1:
-            lr = step * cfg.alpha_lr_scale
-            if softmax_mode:
-                w_new = softmax_natural_step(state.w, dalpha, lr)
-            else:
-                w_new = project_simplex(state.w + dalpha * lr)
-            w = torch.where(state.it > cfg.alpha_start, w_new, state.w)
-
-        # --- diagnostics & annealing (:69-73) ---
-        if cfg.anneal_every > 0:
-            T = torch.where(state.it % cfg.anneal_every == 0,
-                            torch.clamp(T * cfg.drate, min=cfg.t_floor), T)
-
-        it = state.it + 1
-        if active is not None:
-            w, T, it = (torch.where(active, x, x0) for x, x0 in
-                        ((w, state.w), (T, state.temperature), (it, state.it)))
-        new = stc._replace(w=w, temperature=T, it=it)
-        return new, SweepAux(energy=energy, ptdmu=dmu_sum / n_interior,
-                             ptdsigma=dsig_sum / n_interior)
+            stc, s = one_pass(state, live)
+            sums = [s]
+        w, T, it, aux = sweep_tail_torch(sums, state, step, cfg, n_interior, active)
+        new, aux = stc._replace(w=w, temperature=T, it=it), SweepAux(*aux[:3])
+        if loop is None:
+            return new, aux
+        n, stop, bufs = loop[:3]
+        for dst, src in zip(state, new):
+            dst.copy_(src)
+        slot = n.clamp(max=bufs.shape[1] - 1).reshape(1)
+        vals = torch.stack([aux.energy, aux.ptdmu, aux.ptdsigma]).reshape(3, 1).to(bufs.dtype)
+        bufs.index_copy_(1, slot, torch.where(active, vals, bufs.index_select(1, slot)))
+        stop |= active & ((aux.ptdmu < cfg.tor) | (new.it > cfg.its))
+        n += active
+        return state, aux
 
     return sweep
 
@@ -644,23 +662,19 @@ POLL = 10  # graph replays between reads of the device's (n, stop); timed by chi
 _WARMUP = 2  # eager sweeps on a scratch copy of the state before a capture
 
 
-def _predicated_step(sweep, cfg: GQMAPConfig, problem: Problem, st: GQState, n, stop, bufs):
-    """One sweep of the device loop, in place on the state buffers ``st``, the
-    sweep count ``n``, the stop flag ``stop`` and the ``(3, cap)`` traces
-    ``bufs``, all on the device: while ``stop`` is false the sweep runs as the
-    host loop's does, bit for bit, its traces go to slot ``n``, ``n``
-    advances and the reference's stop rule (``it > its || ptdmu < tor``,
-    ``gqmap_gpu_mixture.m:75``) may set ``stop``; once it is set, the step
-    leaves everything as it is. No host read: a CUDA graph captures it."""
-    active = ~stop
-    new, aux = sweep(problem, st, active)
-    for dst, src in zip(st, new):
-        dst.copy_(src)
-    slot = n.clamp(max=bufs.shape[1] - 1).reshape(1)
-    vals = torch.stack([aux.energy, aux.ptdmu, aux.ptdsigma]).reshape(3, 1).to(bufs.dtype)
-    bufs.index_copy_(1, slot, torch.where(active, vals, bufs.index_select(1, slot)))
-    stop |= active & ((aux.ptdmu < cfg.tor) | (new.it > cfg.its))
-    n += active
+def _predicated_step(sweep, problem: Problem, st: GQState, loop):
+    """One sweep of the device loop, in place on the state buffers ``st`` and
+    ``loop = (n, stop, bufs, planes)``: the sweep count, the stop flag, the
+    ``(3, cap)`` traces and the ``(9, L, M, N)`` buffer that ``st``'s lattice
+    fields view (:meth:`SegmentRunner._buffers`), all on the device: while
+    ``stop`` is false the sweep runs as the host loop's does, bit for bit,
+    its traces go to slot ``n``, ``n`` advances and the reference's stop
+    rule (``it > its || ptdmu < tor``, ``gqmap_gpu_mixture.m:75``) may set
+    ``stop``; once it is set, the step leaves everything as it is. No host
+    read: a CUDA graph captures it. On the K8 route kernel K9 does that
+    bookkeeping and K8's new lattice comes back into ``planes`` in one
+    copy."""
+    sweep(problem, st, loop=loop)
 
 
 def _same(a, b) -> bool:
@@ -680,9 +694,7 @@ class _Captured(NamedTuple):
     problem: Problem  # the caller's, to tell whether a later call's is the same
     run: Problem  # the one the graph reads (init_flow on the device), kept as long as it
     st: GQState
-    n: torch.Tensor
-    stop: torch.Tensor
-    bufs: torch.Tensor
+    loop: tuple  # (n, stop, bufs, planes): see _predicated_step
     deltas: tuple  # each launch counter's increase in one sweep
 
 
@@ -754,21 +766,23 @@ class SegmentRunner:
         replay."""
         if graph:
             c = self._graph_for(problem, state, cap)
-            st, n, stop, bufs = c.st, c.n, c.stop, c.bufs
+            st, loop = c.st, c.loop
+            n, stop, bufs = loop[:3]
             for dst, src in zip(st, state):
                 dst.copy_(src)
             n.zero_()
             stop.zero_()
             bufs.zero_()
         else:
-            st, n, stop, bufs = self._buffers(state, cap)
+            st, loop = self._buffers(state, cap)
+            n, stop, bufs = loop[:3]
         done, polls, n_done, stopped = 0, 0, 0, 0
         while done < limit and not stopped:
             for _ in range(min(POLL, limit - done)):
                 if graph:
                     c.graph.replay()
                 else:
-                    _predicated_step(self.sweep, self.cfg, problem, st, n, stop, bufs)
+                    _predicated_step(self.sweep, problem, st, loop)
                 done += 1
             n_done, stopped = torch.stack([n, stop.long()]).tolist()  # the window's one read
             polls += 1
@@ -781,19 +795,25 @@ class SegmentRunner:
         return st, n_done, bufs[0], bufs[1], bufs[2], bool(stopped)
 
     def _buffers(self, state, cap):
-        """The device loop's state (a copy of ``state``), sweep count, stop
-        flag and ``(3, cap)`` traces."""
+        """The device loop's state (a copy of ``state``, its lattice fields
+        views of one ``(9, L, M, N)`` buffer, as kernel K8 writes it) and its
+        ``loop``: the sweep count, the stop flag, the ``(3, cap)`` traces and
+        that buffer."""
         dev = state.muu.device
-        return (GQState(*(x.clone() for x in state)),
-                torch.zeros((), dtype=torch.int64, device=dev),
-                torch.zeros((), dtype=torch.bool, device=dev),
-                torch.zeros((3, cap), dtype=_dt(self.cfg), device=dev))
+        planes = torch.empty((9,) + tuple(state.muu.shape), dtype=state.muu.dtype, device=dev)
+        lattice = lattice_views(planes)
+        for dst, f in zip(lattice, _LATTICE):
+            dst.copy_(getattr(state, f))
+        st = GQState(state.w.clone(), *lattice, state.temperature.clone(), state.it.clone())
+        return st, (torch.zeros((), dtype=torch.int64, device=dev),
+                    torch.zeros((), dtype=torch.bool, device=dev),
+                    torch.zeros((3, cap), dtype=_dt(self.cfg), device=dev), planes)
 
     def _graph_for(self, problem, state, cap) -> _Captured:
         """The graph for this problem, state layout and trace length, captured
         if the last one does not fit (which is released first)."""
         c = self._captured
-        if (c is not None and c.bufs.shape[1] >= cap and _same(problem, c.problem)
+        if (c is not None and c.loop[2].shape[1] >= cap and _same(problem, c.problem)
                 and all(a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
                         for a, b in zip(state, c.st))):
             return c
@@ -813,24 +833,24 @@ class SegmentRunner:
         if problem.init_flow is not None:  # a host array would be copied every sweep
             run = problem._replace(init_flow=torch.as_tensor(
                 problem.init_flow, dtype=problem.I1.dtype, device=dev))
-        st, n, stop, bufs = self._buffers(state, cap)
+        st, loop = self._buffers(state, cap)
         held = [f.launches for f in COUNTED]
         with torch.cuda.device(dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(_WARMUP):
-                    _predicated_step(self.sweep, self.cfg, run, st, n, stop, bufs)
+                    _predicated_step(self.sweep, run, st, loop)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 before = [f.launches for f in COUNTED]
-                _predicated_step(self.sweep, self.cfg, run, st, n, stop, bufs)
+                _predicated_step(self.sweep, run, st, loop)
                 deltas = tuple(f.launches - b for f, b in zip(COUNTED, before))
         for f, h in zip(COUNTED, held):
             f.launches = h
         self.capture_s = time.perf_counter() - t
-        return _Captured(graph, problem, run, st, n, stop, bufs, deltas)
+        return _Captured(graph, problem, run, st, loop, deltas)
 
 
 def make_segment_runner(cfg: GQMAPConfig, image_shape, mesh=None) -> SegmentRunner:

@@ -148,7 +148,8 @@ def test_edge_reduced_kernel_matches_plain(dev, dtype, L, M, N, k1, generic):
     want = edge_reduced_gq.edge_reduced_grads_torch(*args, k1, 5.0, 1e-6, EDGE)
     torch.cuda.synchronize()
     assert edge_reduced_gq.edge_reduced_grads_cuda.launches == n + 1
-    for name in want._fields:
+    assert got.E is None  # K2 writes the six gradients; its callers form alpha * da
+    for name in want._fields[:6]:
         _close(getattr(got, name), getattr(want, name), dtype, name)
 
 
@@ -181,7 +182,7 @@ def test_edge_reduced_kernel_with_halo(dev, dtype, split):
             want = edge_reduced_gq.edge_reduced_grads_torch(*args, halo=halo)
             torch.cuda.synchronize()
             assert edge_reduced_gq.edge_reduced_grads_cuda.launches == n + 1
-            for name in want._fields:
+            for name in want._fields[:6]:  # K2's E is None
                 _close(getattr(got, name), getattr(want, name), dtype, name)
                 assert torch.equal(getattr(got, name), getattr(whole, name)[blk]), name
 
@@ -210,8 +211,9 @@ def test_build_is_cached(dev):
 
 def _ratio_to_golden(got, plain, gold):
     # each f32 version against the f64 golden: kernel error at most twice the
-    # plain version's, with 1e-6 of the field's magnitude as the floor
-    for name in gold._fields:
+    # plain version's, with 1e-6 of the field's magnitude as the floor (the
+    # fields the kernel writes: K2's E is None)
+    for name in (f for f in gold._fields if getattr(got, f) is not None):
         ref = getattr(gold, name)
         ek = float((getattr(got, name).double() - ref).abs().max())
         ep = float((getattr(plain, name).double() - ref).abs().max())
@@ -278,8 +280,8 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # K4 computes the bicubic node term once a sweep
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0]
+    # K4 computes the bicubic node term once a sweep; K8 and K9 the update
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 3]
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -293,7 +295,9 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    want = [6, 6, 0, 0, 0, 0, 0] if preset == "tpu_fast" else [0, 0, 6, 6, 0, 0, 0]
+    # K8 once a half-step, K9 once a sweep
+    want = ([6, 6, 0, 0, 0, 0, 0, 6, 3] if preset == "tpu_fast"
+            else [0, 0, 6, 6, 0, 0, 0, 6, 3])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -309,7 +313,8 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = [3, 3, 0, 0, 0, 0, 0] if preset == "tpu_fast_super" else [0, 0, 3, 3, 0, 0, 0]
+    want = ([3, 3, 0, 0, 0, 0, 0, 3, 3] if preset == "tpu_fast_super"
+            else [0, 0, 3, 3, 0, 0, 0, 3, 3])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -360,11 +365,13 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0)), ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3)),
-    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0)),
-    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0)),
-    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0)),
-    ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8), (0, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 3)),
+    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 3)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 3)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 3)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8),
+     (0, 0, 0, 0, 0, 0, 0, 0, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
@@ -378,12 +385,15 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # autodiff's sums are plain; K4 and K5 are never launched here
+    # autodiff's sums and update are plain; K4 and K5 are never launched here;
+    # K8 and K9 run the update of every other path
     assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want)
 
 
 def test_legacy_v1_segment_launches_no_kernel(dev):
-    # truncated-quadratic edges and the quadratic prior: plain sums only
+    # The segment launches no kernel of K1-K7 (the name predates K8 and K9):
+    # truncated-quadratic edges and the quadratic prior are plain sums; K8
+    # and K9 run the update, once each a sweep
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     cfg = GQMAPConfig.legacy_v1(its=3)
@@ -395,7 +405,7 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
-    assert [k.launches for k in COUNTED] == n
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 3]
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -443,8 +453,9 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
                                scales=(0.25, 0.5, 1.0), device=dev)
     sweeps = sum(lv.iters for lv in res.levels)
     assert sweeps == 12 and np.isfinite(res.flow).all()
-    # K4 (the bicubic node term) and K3 once a sweep of every level
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, sweeps, sweeps, 0, 0, 0]
+    # K4 (the bicubic node term) and K3 once a sweep of every level, K8 and K9 too
+    assert ([k.launches - m for k, m in zip(COUNTED, n)]
+            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, sweeps])
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -584,7 +595,8 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert h[1] == k + 1 and h[5] and _identical(g, h)
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels
-    assert gn == [min(pg.POLL * seg.polls, 30), min(pg.POLL * seg.polls, 30), 0, 0, 0, 0, 0]
+    replays = min(pg.POLL * seg.polls, 30)
+    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, replays]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -751,7 +763,7 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 20]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -962,12 +974,13 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0]),
-    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"), [0, 0, 6, 0, 6, 0, 0]),
-    ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"), [0, 0, 0, 0, 0, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 3]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 3]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 3]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 3]),
+    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"), [0, 0, 6, 0, 6, 0, 0, 6, 3]),
+    ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
@@ -1173,9 +1186,9 @@ def test_nearest_variant_rule_and_refusals(dev):
     assert all(torch.equal(a, b) for a, b in zip(fine, v2))
 
 
-@pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0]),
-                                            ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0]),
-                                            ("legacy_v3", [0, 0, 20, 0, 0, 0, 20])])
+@pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 20]),
+                                            ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 20]),
+                                            ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 20])])
 def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
     # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
     # K7) once a replayed sweep
@@ -1198,3 +1211,198 @@ def test_nearest_kernels_refuse_what_they_do_not_take(dev):
         nearest_gq.nearest_gq_cuda(args[0], args[1].t().contiguous().t(), *args[2:], 9, 1.0,
                                    1e-4, 3)
     assert nearest_gq.nearest_gq_cuda.launches == n
+
+
+# K8 and K9 (the sweep's update, csrc/sweep_update.cu) on every path K8 takes,
+# at a small size: (preset, overrides)
+UPDATE_CASES = {
+    "tpu_fast": ("tpu_fast", {}),
+    "tpu_fast redblack": ("tpu_fast", dict(sweep_order="redblack")),
+    "tpu_fast_super": ("tpu_fast_super", {}),
+    "full_mixture": ("full_mixture", dict(quad_chunk=7)),
+    "super_entropy": ("super_entropy", {}),
+    "ctf_level": ("ctf_level", {}),
+    "legacy_v1": ("legacy_v1", dict(quad_var=0.05)),
+    "legacy_v2": ("legacy_v2", {}),
+    "legacy_v3": ("legacy_v3", {}),
+    "blockmatch_v2": ("blockmatch_v2", {}),
+    "tpu_fast window": ("tpu_fast", dict(window_rg=2)),
+    "tpu_fast chebyshev": ("tpu_fast", dict(data_term="chebyshev", cheb_p=24, cheb_q=8)),
+    "full_mixture chebyshev": ("full_mixture", dict(data_term="chebyshev", cheb_p=24,
+                                                    cheb_q=8)),
+}
+
+
+def _update_toy(dev, name, dtype, **over):
+    preset, kw = UPDATE_CASES[name]
+    cfg, problem, state = _graph_toy(dev, preset, dtype=str(dtype)[6:], **{**kw, **over})
+    if cfg.data_term == "quadratic":
+        problem = problem._replace(init_flow=torch.stack(
+            [torch.ones_like(problem.I1), torch.zeros_like(problem.I1)], -1))
+    return cfg, problem, state
+
+
+def _update_probe(state, probe, corr_tor):
+    g = torch.Generator(device=state.muu.device).manual_seed(11)
+
+    def u(lo, hi, like):
+        return lo + (hi - lo) * torch.rand(like.shape, generator=g, dtype=like.dtype,
+                                           device=like.device)
+
+    if probe == "random means":
+        return state._replace(muu=u(-2, 2, state.muu), muv=u(-2, 2, state.muv),
+                              sigmau=torch.full_like(state.sigmau, 0.05),
+                              sigmav=torch.full_like(state.sigmav, 0.05),
+                              pn=u(-0.9, 0.9, state.pn), rou=u(-0.9, 0.9, state.rou))
+    if probe == "clamp":
+        def sign(like):
+            return torch.where(u(0, 1, like) < 0.5, -1.0, 1.0).to(like.dtype)
+
+        return state._replace(rou=sign(state.rou) * corr_tor, pn=sign(state.pn) * corr_tor)
+    return state
+
+
+@pytest.mark.parametrize("probe", ["init", "random means", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(UPDATE_CASES))
+def test_sweep_update_kernels_are_the_plain_glue(dev, name, dtype, probe):
+    # one sweep through K8 and K9 and one through the plain glue (the same
+    # node and edge kernels, models/gqmap._update_route forced): the new
+    # state bit for bit; the energy and the |dmu| and |dsigma| means within
+    # their summation order (f64 1e-12, f32 1e-4 relative)
+    from gqmap_tpu_torch.kernels import sweep_update
+
+    cfg, problem, state = _update_toy(dev, name, dtype)
+    state = _update_probe(state, probe, cfg.corr_tor)
+    assert pg._update_route(cfg, None, dev) == "K8"
+    n = [sweep_update.site_update_cuda.launches, sweep_update.sweep_tail_cuda.launches]
+    got, gaux = pg.make_sweep(cfg, (24, 40))(problem, state)
+    passes = 2 if cfg.sweep_order == "redblack" else 1
+    assert [sweep_update.site_update_cuda.launches - n[0],
+            sweep_update.sweep_tail_cuda.launches - n[1]] == [passes, 1]
+    kept = pg._update_route
+    pg._update_route = lambda c, d, device: "plain"
+    try:
+        want, waux = pg.make_sweep(cfg, (24, 40))(problem, state)
+    finally:
+        pg._update_route = kept
+    torch.cuda.synchronize()
+    for f in ("w", "muu", "muv", "sigmau", "sigmav", "pn", "rou", "temperature", "it"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for a, b in zip(gaux, waux):
+        assert abs(float(a) - float(b)) <= tol * abs(float(b)), (float(a), float(b))
+
+
+@pytest.mark.parametrize("mode", ["softmax_natural", "projsplx"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name, L", [("tpu_fast", 3), ("tpu_fast redblack", 3),
+                                     ("full_mixture", 3), ("legacy_v1", 20)])
+def test_sweep_tail_alpha_step_is_the_plain_versions(dev, name, L, dtype, mode):
+    # K9's alpha step (it = alpha_start + 1) on K8's partials of one sweep,
+    # against sweep_tail_torch on the same partials summed by torch: T and it
+    # bit for bit; w, which the step moves, within dalpha's summation order
+    # (f64: 1e-12 of sum |w| + 2 lr x the partials' magnitude, sum |w| for
+    # the sums over components of the softmax and the projection's
+    # threshold; f32: its error against the f64 golden at most twice the
+    # plain version's plus 2^-22 of that magnitude). Twenty components: K9
+    # takes any L.
+    from gqmap_tpu_torch.kernels import sweep_update
+
+    cfg, problem, state = _update_toy(dev, name, dtype, L=L, alpha_update=mode)
+    state = _update_probe(state, "random means", cfg.corr_tor)
+    g = torch.Generator(device=dev).manual_seed(13)
+    r = torch.rand(L, generator=g, dtype=dtype, device=dev)
+    w0 = 2 * r - 1 if mode == "softmax_natural" else (r + 0.1) / (r + 0.1).sum()
+    state = state._replace(w=w0, it=torch.full_like(state.it, cfg.alpha_start + 1))
+    assert pg._update_route(cfg, None, dev) == "K8"
+    tails = []
+
+    def tail(*a, **k):
+        out = sweep_update.sweep_tail_cuda(*a, **k)
+        tails.append((a, out))
+        return out
+
+    kept = pg._UPDATE["K8"]
+    pg._UPDATE["K8"] = (kept[0], tail)
+    try:
+        got, _ = pg.make_sweep(cfg, (24, 40))(problem, state)
+    finally:
+        pg._UPDATE["K8"] = kept
+    (parts, st0, step, c, n_int), (w, T, it, _) = tails[0]
+
+    def sums(ps):
+        return [(p[..., 0].sum(), p[..., 1].sum(1), p[..., 2].sum(), p[..., 3].sum())
+                for p in ps]
+
+    pw, pT, pit, _ = sweep_update.sweep_tail_torch(sums(parts), st0, step, c, n_int)
+    torch.cuda.synchronize()
+    assert w.shape == (L,) and torch.equal(got.w, w)
+    assert torch.equal(T, pT) and torch.equal(it, pit)
+    assert not torch.equal(pw, st0.w)  # the step moved w
+    mag = (float(pw.double().abs().sum()) + 2.0 * float(step) * c.alpha_lr_scale
+           * float(parts[-1][..., 1].double().abs().sum(1).max()))
+    if dtype == torch.float64:
+        assert bool(((w - pw).abs() <= 1e-12 * mag).all()), (w, pw)
+    else:
+        gold = sweep_update.sweep_tail_torch(
+            sums([p.double() for p in parts]), st0._replace(
+                w=st0.w.double(), temperature=st0.temperature.double()),
+            step.double(), c, n_int)[0]
+        ek, ep = (w.double() - gold).abs(), (pw.double() - gold).abs()
+        assert bool((ek <= 2.0 * ep + 2.0 ** -22 * mag).all()), (ek, ep)
+
+
+@pytest.mark.parametrize("name", ["tpu_fast", "full_mixture", "tpu_fast redblack", "legacy_v3"])
+def test_sweep_update_segment_is_the_plain_glues(dev, name):
+    # 30 sweeps (tor 0, before alpha_start) on the graph route through K8 and
+    # K9 against the plain glue's graph: the state bit for bit; and the
+    # graph through K8 and K9 bit for bit its own host loop
+    cfg, problem, state = _update_toy(dev, name, torch.float32)
+    cfg = dataclasses.replace(cfg, tor=0.0)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    got = seg(problem, state, 30)
+    host = pg.SegmentRunner(cfg, (24, 40), _route="host")(problem, state, 30)
+    kept = pg._update_route
+    pg._update_route = lambda c, d, device: "plain"
+    try:
+        want = pg.make_segment_runner(cfg, (24, 40))(problem, state, 30)
+    finally:
+        pg._update_route = kept
+    assert seg.route == "graph" and got[1] == want[1] == 30 and _identical(got, host)
+    for f in ("w", "muu", "muv", "sigmau", "sigmav", "pn", "rou", "temperature", "it"):
+        assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+
+
+def test_sweep_update_kernels_refuse_what_they_do_not_take(dev):
+    from gqmap_tpu_torch.kernels import sweep_update
+
+    cfg, problem, state = _update_toy(dev, "full_mixture", torch.float32)
+    calls = []
+
+    def grab(*a, **k):
+        calls.append((a, k))
+        return sweep_update.site_update_cuda(*a, **k)
+
+    kept = pg._UPDATE["K8"]
+    pg._UPDATE["K8"] = (grab, kept[1])
+    try:
+        pg.make_sweep(cfg, (24, 40))(problem, state)
+    finally:
+        pg._UPDATE["K8"] = kept
+    (node, edge, st, alpha, T, step, interior, c, rng), kw = calls[0]
+    n = sweep_update.site_update_cuda.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep_update.site_update_cuda(node, edge, st._replace(muu=st.muu.transpose(1, 2)
+                                                              .contiguous().transpose(1, 2)),
+                                      alpha, T, step, interior, c, rng)
+    with pytest.raises(ValueError, match="node fields"):
+        sweep_update.site_update_cuda(node._replace(fields=node.fields[:5]), edge, st, alpha, T,
+                                      step, interior, c, rng)
+    with pytest.raises(ValueError, match="float32"):
+        sweep_update.site_update_cuda(node, edge, st, alpha.double(), T, step, interior, c, rng)
+    with pytest.raises(TypeError, match="tensor"):
+        sweep_update.site_update_cuda(node, edge, st, alpha, 0.0, step, interior, c, rng)
+    with pytest.raises(ValueError, match="colour"):
+        sweep_update.site_update_cuda(node, edge, st, alpha, T, step, interior, c, rng, colour=2)
+    assert sweep_update.site_update_cuda.launches == n

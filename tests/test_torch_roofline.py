@@ -36,10 +36,15 @@ BOUNDS = {
                                  0.5126, "operations"),
     "K5 super tensor cores": (roofline.k5_work(SUPER, 11, 96, 16, 3, tensor_cores=True),
                               0.0718, "operations"),
+    "K8 main": (roofline.k8_work((3,) + MAIN, "modes", "grads"), 0.0293, "bytes"),
+    "K8 full_mixture": (roofline.k8_work((3,) + MAIN, "raw", "raw"), 0.0293, "bytes"),
+    "K8 super": (roofline.k8_work((3,) + SUPER, "raw", "raw"), 0.0018, "bytes"),
+    "K8 legacy_v3": (roofline.k8_work((1,) + MAIN, "chain", "raw"), 0.0100, "bytes"),
+    "K9 main": (roofline.k9_work(3, *MAIN), 0.0000, "bytes"),
 }
 CEILINGS = dict(roundtrip_ms=0.03, hbm_stream_GBps=3000.0, vpu_GFLOPs=50000.0,
                 gather_Mtaps_s=2e5, exp_Gops=2000.0, rsqrt_Gops=4000.0, l1_GBps=30000.0,
-                tc_tf32_GFLOPs=300000.0, card="given")
+                tc_wgmma_tf32_GFLOPs=300000.0, tc_tf32_GFLOPs=200000.0, card="given")
 
 
 @pytest.mark.parametrize("name", list(BOUNDS))
@@ -162,6 +167,40 @@ def test_measured_rates_set_the_bound():
                                                 got["bound_terms_ms"]["bytes"]))
 
 
+def test_measured_rates_take_wgmmas_tf32_rate():
+    # the tensor cores' rate of the bounds is wgmma's (the instruction K5 v2
+    # issues), not mma.sync's, which measure_ceilings reports beside it
+    rates = roofline.measured_rates(CEILINGS)
+    assert rates["tc_flops"] == CEILINGS["tc_wgmma_tf32_GFLOPs"] * 1e9
+    other = dict(CEILINGS, tc_wgmma_tf32_GFLOPs=450000.0)
+    assert roofline.measured_rates(other)["tc_flops"] == 4.5e14
+    assert roofline.measured_rates(dict(other, tc_tf32_GFLOPs=1.0))["tc_flops"] == 4.5e14
+    del other["tc_wgmma_tf32_GFLOPs"]
+    with pytest.raises(KeyError, match="tc_wgmma_tf32_GFLOPs"):
+        roofline.measured_rates(other)
+
+
+def test_k8_and_k9_work_count_by_hand():
+    # K8 on tpu_fast's lattice: K1's six sums, K2's six (2, 2) fields, the
+    # state read and written, the interior mask and 4 values a CTA; each
+    # form's operations a site
+    L, M, N = 3, 376, 452
+    sites, G = L * M * N, -(-M * N // 256)
+    for node, edge, fields in (("modes", "grads", 6), ("raw", "raw", 6), ("chain", "raw", 7)):
+        for itemsize in (4, 8):
+            work = roofline.k8_work((L, M, N), node, edge, itemsize)
+            assert work["bytes"] == ((fields + 24 + 18) * sites + L * G * 4) * itemsize + M * N
+            f = roofline.FLOPS
+            assert work["flops"] == sites * (f[f"K8 {node}"] + 4 * f[f"K8 {edge} edge"]
+                                             + f["K8 site"])
+    assert roofline.k9_work(L, M, N, 2)["bytes"] == 2 * L * G * 4 * 4
+    cfg = GQMAPConfig.tpu_fast(sweep_order="redblack")
+    rates = roofline.datasheet_rates(1980.0)
+    one = roofline.bound(roofline.k8_work((L, M, N), "modes", "grads"), rates)["bound_ms"]
+    assert roofline.update_bound_ms(cfg, (L, M, N), "modes", "grads", rates) == pytest.approx(
+        2 * one + roofline.bound(roofline.k9_work(L, M, N, 2), rates)["bound_ms"])
+
+
 def test_measure_ceilings_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         roofline.measure_ceilings(device="cpu")
@@ -183,12 +222,16 @@ def test_sweep_roofline_on_the_cpu():
         assert m["ms_per_sweep"] > 0 and m["bound_ms"] > 0 and m["device"] == "cpu"
         assert m["share_of_bound"] == pytest.approx(m["bound_ms"] / m["ms_per_sweep"])
     assert {m: out["modes"][m]["governing_bound"] for m in out["modes"]} == {
-        "cosine": "flops", "chebyshev": "K5+K3", "nearest": "K6+K3", "bicubic": "K4+K3"}
+        "cosine": "K1+K2+K8+K9", "chebyshev": "K5+K3+K8+K9", "nearest": "K6+K3+K8+K9",
+        "bicubic": "K4+K3+K8+K9"}
     # the nearest path runs kernels K6 (node sums; its default "v2" reads the
-    # padded frame, not the sectors the converged state's lookups touch) and K3
-    # (edge sums) and is bound by the sum of their bounds; so is the bicubic
-    # path by K4's and K3's
+    # padded frame, not the sectors the converged state's lookups touch), K3
+    # (edge sums) and K8 and K9 (the update: raw node and edge sums) and is
+    # bound by the sum of their bounds; so is the bicubic path by K4's, K3's,
+    # K8's and K9's, the cosine path by K1's, K2's, K8's and K9's
     rates = roofline.measured_rates(CEILINGS)
+    update = roofline.bound(roofline.k8_work((3, 24, 28), "raw", "raw"), rates)["bound_ms"] + (
+        roofline.bound(roofline.k9_work(3, 24, 28), rates)["bound_ms"])
     cfg = GQMAPConfig.full_mixture(dtype="float32", quad_chunk=27, data_term="nearest")
     fr = FlowRange(-10.0, 2.0, -2.0, 2.0)
     problem = make_problem(cfg, *roofline._pair((24, 28), 0), fr, "cpu")
@@ -199,16 +242,21 @@ def test_sweep_roofline_on_the_cpu():
     assert out["modes"]["nearest"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k6_work((3, 24, 28), 9, 0, sectors, variant="v2"),
                        rates)["bound_ms"]
-        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
+        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"] + update)
     assert out["modes"]["bicubic"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k4_work((3, 24, 28), 9), rates)["bound_ms"]
-        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
+        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"] + update)
+    cos = roofline.bound(roofline.k1_work((64, 16, 24, 28), 3), rates)["bound_ms"] + (
+        roofline.bound(roofline.k2_work((2, 2, 3, 24, 28), 21), rates)["bound_ms"])
+    assert out["modes"]["cosine"]["bound_ms"] == pytest.approx(
+        cos + roofline.bound(roofline.k8_work((3, 24, 28), "modes", "grads"), rates)["bound_ms"]
+        + roofline.bound(roofline.k9_work(3, 24, 28), rates)["bound_ms"])
     # and the Chebyshev path, kernels K5 (96 x 16; "v2", the contraction on
     # the tensor cores) and K3
     assert out["modes"]["chebyshev"]["bound_ms"] == pytest.approx(
         roofline.bound(roofline.k5_work((24, 28), 9, 96, 16, 3, tensor_cores=True),
                        rates)["bound_ms"]
-        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"])
+        + roofline.bound(roofline.k3_work((2, 2, 3, 24, 28), 9), rates)["bound_ms"] + update)
 
 
 def test_flagship_roofline_on_the_cpu():
