@@ -317,33 +317,43 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    K9's launches counted with the others').
    Every other segment and solve of the script (single process) runs the
    graph route too;
-30b. the sweep's update, kernels K8 (finalize, neighbour assembly, clamped
-   step, a CTA's partial sums) and K9 (the sums, alpha step, anneal,
-   counter, the device loop's bookkeeping), ``csrc/sweep_update.cu``, on
-   every path K8 takes (``UPDATE_PATHS``: each preset, red-black, the
-   legacy families, windowed ``tpu_fast``, both Chebyshev paths) in float32
-   and float64 at the init, random-means and |rho|-clamp probes: from the
-   same state and the same node and edge kernels' outputs, K8's new state
-   the plain glue's bit for bit and K9's energy, |dmu|, |dsigma| and dalpha
-   within their summation order (float64 1e-12 of the terms' magnitudes,
-   float32 by the ratio rule against the float64 golden); 300-sweep
-   ``tpu_fast`` and ``full_mixture`` solves (``tor = 0``) through K8 and K9
-   ending in the plain glue's state bit for bit; K8's and K9's times
-   (``tpu_fast``, ``full_mixture``, ``super_entropy``, ``legacy_v3``)
-   beside their plain versions' and their bounds (``roofline.k8_work``,
-   ``k9_work``) at the data sheet's and the measured rates; each path's
-   graph sweep in turns (kernels, plain glue, kernels again) with the
-   capturing call's peak memory;
+30b. the sweep's update, kernel K8 v2 (tiles staged by cp.async, each raw
+   edge finalized once, one partial a tile; K9's tail in its last CTA;
+   the device loop's carry) and v1 with K9 v1 beside it,
+   ``csrc/sweep_update.cu``: PyTorch's reduction order of ``e.sum()``
+   against ``sweep_update.card_sum`` for 1 to 64 values; on every path K8
+   takes (``UPDATE_PATHS``: each preset, red-black, the legacy families,
+   windowed ``tpu_fast``, both Chebyshev paths) in float32 and float64 at
+   the init, random-means and |rho|-clamp probes: from the same state and
+   the same node and edge kernels' outputs, K8 v2's new state the plain
+   glue's and K8 v1's bit for bit and the tail's energy, |dmu|, |dsigma|
+   and dalpha within their summation order (float64 1e-12 of the terms'
+   magnitudes, float32 by the ratio rule against the float64 golden); the
+   carry (step, alpha, K1's phase stack, the neighbour stacks) after 3
+   device-loop sweeps bit for bit its torch expressions, and unchanged
+   under the stop flag; one sweep past ``alpha_start`` in both alpha modes
+   through v2 and v1 (w within the sums' rule) and the carry after it;
+   300-sweep ``tpu_fast`` and ``full_mixture`` solves (``tor = 0``)
+   through K8 v2, v1 and the plain glue ending in the same state bit for
+   bit; K8 v2's times (alone, with the tail, with the tail and the carry),
+   v1's and K9 v1's (``tpu_fast``, ``full_mixture``, ``super_entropy``,
+   ``legacy_v3``) beside the plain versions' and their bounds
+   (``roofline.k8_work``, ``k9_work``, each variant's) at the data sheet's
+   and the measured rates; each path's graph sweep in turns (v2, v1, the
+   plain glue, v2 again) with the capturing call's peak memory;
 31. last, since the profiler's hooks may stay in the process: one
    ``tpu_fast``, ``full_mixture`` and Chebyshev ``full_mixture`` sweep from
    sigma = 0.05 under ``torch.profiler``, and a 20-sweep graph segment of
    the first two: wall and device time, the device's idle share, the
-   kernel count and the top operators; one ``tpu_fast`` graph replay and a
-   20-sweep segment through K8 and K9 and through the plain glue: at most
-   20 kernels a sweep through K8 and K9.
+   kernel count and the top operators; one ``tpu_fast`` and one
+   ``full_mixture`` graph replay and a 20-sweep segment through K8 v2,
+   through K8 and K9 v1 and through the plain glue: at most 4 (``tpu_fast``)
+   and 5 (``full_mixture``) kernels a sweep through v2, 20 through v1.
 
 It prints the kernels' record as one JSON line before the last (``launches``
-counts the main path's run: ``tpu_fast`` for K1, K2, K8 and K9, ``full_mixture`` for
+counts the main path's run: ``tpu_fast`` for K1, K2, K8 and K9 (K9 v2's tails,
+each run by K8 v2's last CTA inside its launch; ``launches_of_its_own``, K9
+v1's launches, is 0), ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
 solve for K6 and the ``legacy_v3`` solve for K7; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
@@ -2442,7 +2452,12 @@ UPDATE_SOLVE_ITS = 300  # the solves held bit for bit to the plain glue's (alpha
 # legacy_v1 at twenty components, since K9 takes any L
 UPDATE_ALPHA = (("tpu_fast", 3), ("tpu_fast redblack", 3), ("full_mixture", 3),
                 ("legacy_v1", 20))
-UPDATE_LAUNCH_LIMIT = 20  # kernels a tpu_fast sweep under replay on the K8 route
+# kernels of one sweep under replay on the K8 route, v2 (K1 or K4, K2 or K3, K8):
+# tpu_fast and full_mixture; 3 more where softmax stays in torch (alpha not carried)
+UPDATE_LAUNCH_LIMIT = 4
+UPDATE_LAUNCH_LIMIT_EXACT = 5
+UPDATE_LAUNCH_LIMIT_V1 = 20  # v1: K9 a launch, the step, softmax, K1's stack, a copy
+UPDATE_CARRY_SWEEPS = 3  # device-loop sweeps whose carry is held to its torch expressions
 
 
 def update_problem(pg, cfg, fr, dev, pair):
@@ -2489,9 +2504,10 @@ def alpha_probe(st, cfg, dev):
     return st._replace(w=w, it=torch.full_like(st.it, cfg.alpha_start + 1))
 
 
-def capture_update(pg, su, cfg, problem, st):
-    """One sweep of ``cfg`` on the K8 route: each K8 launch's arguments and
-    outputs (both passes in red-black), then K9's."""
+def capture_update(pg, su, cfg, problem, st, variant="v2"):
+    """One sweep of ``cfg`` on the K8 route through K8 ``variant``: each K8
+    launch's arguments and outputs (both passes in red-black; v2's last
+    with its tail), then K9 v1's where it launches."""
     calls = []
 
     def site(*a, **k):
@@ -2504,12 +2520,12 @@ def capture_update(pg, su, cfg, problem, st):
         calls.append((a, k, out))
         return out
 
-    kept = pg._UPDATE["K8"]
-    pg._UPDATE["K8"] = (site, tail)
+    kept, kv = pg._UPDATE["K8"], pg.UPDATE_VARIANT["K8"]
+    pg._UPDATE["K8"], pg.UPDATE_VARIANT["K8"] = (site, tail), variant
     try:
         pg.make_sweep(cfg, (H, W))(problem, st)
     finally:
-        pg._UPDATE["K8"] = kept
+        pg._UPDATE["K8"], pg.UPDATE_VARIANT["K8"] = kept, kv
     return calls
 
 
@@ -2554,20 +2570,29 @@ def sum_scales(su, node, edge, state, alpha, T, interior):
     return e, d
 
 
+def same_bits(x, y):
+    return bool(torch.equal(torch.isnan(x), torch.isnan(y))
+                and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)))
+
+
 def check_update(pg, su, label, calls, dtype):
     """Each K8 launch's new state against the plain glue's on the same
-    arguments, bit for bit; K9's sums (energy, |dmu|, |dsigma|, dalpha)
-    against the plain sums: float64 within 1e-12 of the terms' summed
-    magnitudes, float32 by the ratio rule against the float64 golden (the
-    kernel's error at most twice the plain version's, plus 2^-22 of the terms'
-    magnitudes); w, T and it bit for bit. Returns (largest state difference,
-    the sums' worst error over its allowance). Past ``alpha_start`` w moves by
-    dalpha and is held to the plain w by the sums' rule, with sum |w| + 2 lr x
-    dalpha's terms' magnitudes as its magnitude (the softmax and the
-    projection's threshold sum over the components; their change of w is at
-    most twice lr x dalpha's)."""
-    sums, golds, worst_state, scales = [], [], 0.0, None
-    for a, k, (planes, part) in calls[:-1]:
+    arguments, bit for bit (a v2 launch's also against K8 v1's on them);
+    the tail's sums (energy, |dmu|, |dsigma|, dalpha; K9 v1's, or v2's in K8's
+    last CTA) against the plain sums: float64 within 1e-12 of the terms'
+    summed magnitudes, float32 by the ratio rule against the float64 golden
+    (the kernel's error at most twice the plain version's, plus 2^-22 of the
+    terms' magnitudes); w, T and it bit for bit. Returns (largest state
+    difference, the sums' worst error over its allowance). Past
+    ``alpha_start`` w moves by dalpha and is held to the plain w by the sums'
+    rule, with sum |w| + 2 lr x dalpha's terms' magnitudes as its magnitude
+    (the softmax and the projection's threshold sum over the components;
+    their change of w is at most twice lr x dalpha's)."""
+    v2 = calls[-1][1].get("variant") == "v2"
+    k8 = calls if v2 else calls[:-1]
+    sums, golds, worst_state, scales, same_v1 = [], [], 0.0, None, True
+    for a, k, out in k8:
+        planes, part = out[:2]
         node, edge, state, alpha, T, step, interior, cfg, rng = a
         mask = site_mask(interior, k.get("colour"))
         new, s = su.site_update_torch(node, edge, state, alpha, T, step, interior, mask, cfg,
@@ -2575,26 +2600,44 @@ def check_update(pg, su, label, calls, dtype):
         for f, x in zip(("muu", "muv", "sigmau", "sigmav", "pn", "rou"),
                         su.lattice_views(planes)):
             y = getattr(new, f)
-            same = torch.equal(torch.isnan(x), torch.isnan(y)) and torch.equal(
-                torch.nan_to_num(x), torch.nan_to_num(y))
             diff = float((x.double() - y.double()).abs().nan_to_num(float("inf")).max())
-            worst_state = max(worst_state, 0.0 if same else max(diff, 1e-300))
+            worst_state = max(worst_state, 0.0 if same_bits(x, y) else max(diff, 1e-300))
+        if v2:  # K8 v1 on the same arguments
+            p1, _ = su.site_update_cuda(*a, variant="v1", **{q: k[q] for q in
+                                                             ("colour", "active", "stop")
+                                                             if q in k})
+            same_v1 &= same_bits(p1, planes)
         sums.append(s)
         if dtype == torch.float32:
             golds.append(su.site_update_torch(
                 to64(node), to64(edge), to64(state), alpha.double(), T.double(),
                 step.double(), interior, mask, cfg, rng)[1])
         scales = sum_scales(su, node, edge, state, alpha, T, interior)
-    parts, st0, step, cfg, n_int = calls[-1][0]
-    w, T, it, aux = calls[-1][2]
+    if v2:
+        a, k, out = k8[-1]
+        tail = k["tail"]
+        st0, n_int, step, cfg = tail.state, tail.n_interior, a[5], a[7]
+        w, T, it, aux = out[2]
+    else:
+        parts, st0, step, cfg, n_int = calls[-1][0]
+        w, T, it, aux = calls[-1][2]
     pw, pT, pit, paux = su.sweep_tail_torch(sums, st0, step, cfg, n_int)
+    order = True
+    if v2:  # the tail's sums: their fixed order's, bit for bit, from the kernel's own partials
+        e, da, dm, ds = su.v2_tail_sums(k8[-1][2][1], k8[0][2][1] if len(k8) == 2 else None)
+        nt = torch.tensor(float(n_int), dtype=e.dtype, device=e.device)
+        order = all(same_bits(a_, b_) for a_, b_ in zip(aux, (e, dm / nt, ds / nt, da)))
+        require(order, f"update {label}: the tail's sums are their order's (v2_tail_sums on "
+                       f"K8 v2's partials) bit for bit")
     stepped = cfg.L > 1 and int(st0.it) > cfg.alpha_start
     same_tail = (torch.equal(T, pT) and torch.equal(it, pit)
                  and (stepped or torch.equal(w, pw)))
     bits = "T and it" if stepped else "w, T and it"
-    require(same_tail and worst_state == 0.0,
+    also = " and K8 v1's" if v2 else ""
+    require(same_tail and worst_state == 0.0 and same_v1,
             f"update {label}: K8's new state is the plain glue's bit for bit "
-            f"(largest difference {worst_state:.3e}); K9's {bits} too ({same_tail})")
+            f"(largest difference {worst_state:.3e}){also} ({same_v1}); the tail's {bits} too "
+            f"({same_tail})")
     e_scale, d_scale = scales
     w_mag = (pw.double().abs().sum()
              + 2.0 * float(step) * cfg.alpha_lr_scale * float(torch.as_tensor(d_scale).max()))
@@ -2617,7 +2660,8 @@ def check_update(pg, su, label, calls, dtype):
         rule = "within 1e-12 of the terms' magnitudes"
     what = "energy, |dmu|, |dsigma| and dalpha sums" + (" and the w they step" if stepped
                                                         else "")
-    require(worst <= 1.0, f"update {label}: K9's {what} {rule} (worst {worst:.3f} of it)")
+    require(worst <= 1.0, f"update {label}: the tail's {what} {rule} (worst {worst:.3f} of "
+                          f"it; {'v2, in K8' if v2 else 'K9 v1'})")
     if stepped:
         moved = float((pw - st0.w).abs().max())
         require(moved > 0.0, f"update {label}: the alpha step moved w (largest change "
@@ -2625,25 +2669,59 @@ def check_update(pg, su, label, calls, dtype):
     return worst_state, worst
 
 
+def check_carry(pg, label, cfg, problem, st, sweeps=UPDATE_CARRY_SWEEPS):
+    """The device loop through K8 v2 (eager predicated sweeps, as a graph
+    replays them): after each sweep the carry (the step, alpha, K1's phase
+    stack, the neighbour stacks) is bit for bit what ``sweep.carry`` builds
+    from the new state by the torch expressions; with the stop flag set, a
+    sweep leaves state and carry as they were. Returns the carry's fields."""
+    seg = pg.SegmentRunner(cfg, (H, W), _route="predicated")
+    sto, loop = seg._buffers(st, 4, problem)
+    require(len(loop) == 5, f"carry {label}: the device loop carries ({len(loop)} entries)")
+    carry = loop[4]
+    ok, first_bad = True, None
+    for k in range(sweeps + 1):
+        if k == sweeps:  # the stop flag holds: nothing may move
+            loop[1].fill_(True)
+            before = [x.clone() for x in sto] + [x.clone() for x in carry if x is not None]
+        pg._predicated_step(seg.sweep, problem, sto, loop)
+        fresh = seg.sweep.carry(problem, sto)
+        for f, x, y in zip(carry._fields, carry, fresh):
+            if x is not None and not torch.equal(x, y):
+                ok, first_bad = False, first_bad or (k, f)
+        if k == sweeps:
+            after = [x for x in sto] + [x for x in carry if x is not None]
+            ok &= all(torch.equal(x, y) for x, y in zip(before, after))
+    fields = [f for f, x in zip(carry._fields, carry) if x is not None]
+    require(ok, f"carry {label}: {fields} bit for bit their torch expressions after each of "
+                f"{sweeps} sweeps, and unchanged under the stop flag (first off: {first_bad})")
+    return fields
+
+
 def update_phase(dev, record, by_path, ufns):
-    """Phase 30b: the sweep's update, kernels K8 and K9, against their plain
-    versions (``kernels/sweep_update.site_update_torch``,
-    ``sweep_tail_torch``) on every path of :data:`UPDATE_PATHS` in float32
-    and float64 at the init, random-means and |rho|-clamp probes: from the
-    same state with the same node and edge kernels' outputs, K8's new state
-    bit for bit and K9's sums within their order (:func:`check_update`);
-    300-sweep ``tpu_fast`` and ``full_mixture`` solves with ``tor = 0``
-    (stopping before ``alpha_start = 500``) on the K8 route and on the plain
-    glue, their final states bit for bit; K8's time (:data:`UPDATE_TIMED`)
-    and K9's beside their plain versions' and bounds; each path's graph
-    sweep in turns (kernels, plain glue, kernels again) with the capturing
-    call's peak memory. (One replay's kernels and the idle share are
-    profiled in the last phase.)"""
+    """Phase 30b: the sweep's update, kernels K8 (v2, the default, with K9's
+    tail in its last CTA; v1 and K9 v1 beside) against their plain versions
+    (``kernels/sweep_update.site_update_torch``, ``sweep_tail_torch``) on
+    every path of :data:`UPDATE_PATHS` in float32 and float64 at the init,
+    random-means and |rho|-clamp probes: from the same state with the same
+    node and edge kernels' outputs, K8 v2's new state bit for bit the plain
+    glue's and K8 v1's, the tail's sums within their order
+    (:func:`check_update`), and one sweep past ``alpha_start`` in both
+    alpha modes through v2 and v1; the device loop's carry bit for bit its
+    torch expressions (:func:`check_carry`), and PyTorch's reduction order
+    (``sweep_update.card_sum``) for 1 to 64 values; 300-sweep ``tpu_fast``
+    and ``full_mixture`` solves (``tor = 0``, stopping before ``alpha_start
+    = 500``) through v2, v1 and the plain glue, their final states bit for
+    bit; K8 v2's time (:data:`UPDATE_TIMED`; with and without the tail and
+    the carry), v1's and K9 v1's beside the plain versions' and the bounds;
+    each path's graph sweep in turns (v2, v1, the plain glue, v2 again)
+    with the capturing call's peak memory. (One replay's kernels and the
+    idle share are profiled in the last phase.)"""
     from gqmap_tpu_torch import FlowRange, solve
     from gqmap_tpu_torch.kernels import sweep_update as su
     from gqmap_tpu_torch.models import gqmap as pg
 
-    log("phase update (K8, K9)")
+    log("phase update (K8, K9: v2 and v1)")
     t_phase = time.time()
     fr = FlowRange(*FR)
     pair = synthetic_pair()
@@ -2656,8 +2734,24 @@ def update_phase(dev, record, by_path, ufns):
 
     def restore():
         pg._update_route = plain_route
+        pg.UPDATE_VARIANT["K8"] = "v2"
 
-    # ---- K8 and K9 against the plain glue, every path, both types, three probes
+    # ---- PyTorch's reduction order of e.sum(), which K9 v2's alpha carry takes
+    bad = {}
+    g = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (torch.float32, torch.float64):
+        for L in range(1, su.MAX_CARRY_L + 1):
+            for trial in range(20):
+                e = torch.exp((torch.rand(L, generator=g, dtype=dtype, device=dev) * 12 - 6)
+                              * 10.0 ** (trial % 4 - 2))
+                if not torch.equal(e.sum(), su.card_sum(e)):
+                    bad.setdefault(str(dtype)[6:], []).append(L)
+                    break
+    out["card_sum_mismatch"] = bad
+    require(not bad, f"card_sum is the card's e.sum() order for 1 to {su.MAX_CARRY_L} values, "
+                     f"both types, 20 draws each (mismatch at {bad})")
+
+    # ---- K8 v2 (and v1) against the plain glue, every path, both types, three probes
     checks = out["checks"] = {}
     for path, base in UPDATE_PATHS.items():
         for dtype in (torch.float32, torch.float64):
@@ -2667,14 +2761,18 @@ def update_phase(dev, record, by_path, ufns):
             for probe, st in update_probes(pg, cfg, fr, dev).items():
                 calls = capture_update(pg, su, cfg, problem, st)
                 passes = 2 if cfg.sweep_order == "redblack" else 1
-                require(len(calls) == passes + 1, f"update {path}: {passes} K8 launches and "
-                                                  f"one K9 in a sweep ({len(calls)} calls)")
+                require(len(calls) == passes and "tail" in calls[-1][1],
+                        f"update {path}: {passes} K8 v2 launches a sweep, the last with the "
+                        f"tail, no K9 launch ({len(calls)} calls)")
                 label = f"{path} {str(dtype)[6:]} {probe}"
                 checks[label] = check_update(pg, su, label, calls, dtype)
                 del calls
+                if probe == "random means":
+                    check_carry(pg, label, cfg, problem, st)
             del problem
             torch.cuda.empty_cache()
-    # ---- K9's alpha step, both modes, from the random-means probe
+    # ---- the alpha step, both modes, from the random-means probe: v2 and v1, and the
+    # carry's step and alpha after it
     for path, L in UPDATE_ALPHA:
         for dtype in (torch.float32, torch.float64):
             for mode in ("softmax_natural", "projsplx"):
@@ -2682,45 +2780,51 @@ def update_phase(dev, record, by_path, ufns):
                                           alpha_update=mode)
                 problem = update_problem(pg, cfg, fr, dev, pair)
                 st = alpha_probe(update_probes(pg, cfg, fr, dev)["random means"], cfg, dev)
-                label = f"{path} L={L} {str(dtype)[6:]} alpha step {mode}"
-                checks[label] = check_update(pg, su, label,
-                                             capture_update(pg, su, cfg, problem, st), dtype)
+                for variant in ("v2", "v1"):
+                    label = f"{path} L={L} {str(dtype)[6:]} alpha step {mode} {variant}"
+                    checks[label] = check_update(
+                        pg, su, label, capture_update(pg, su, cfg, problem, st, variant), dtype)
+                check_carry(pg, f"{path} L={L} {str(dtype)[6:]} alpha step {mode}", cfg,
+                            problem, st)
                 del problem, st
                 torch.cuda.empty_cache()
-    log(f"  K8/K9 against the plain glue on {len(checks)} path, type and probe cases: "
-        f"largest state difference {max(v[0] for v in checks.values()):.3e}, worst sum "
-        f"{max(v[1] for v in checks.values()):.3f} of its allowance")
+    log(f"  K8 v2 (and v1) against the plain glue on {len(checks)} path, type and probe "
+        f"cases: largest state difference {max(v[0] for v in checks.values()):.3e}, worst sum "
+        f"{max(v[1] for v in checks.values()):.3f} of its allowance; carries held")
 
-    # ---- 300-sweep solves, K8 route against the plain glue, bit for bit
+    # ---- 300-sweep solves through v2, v1 and the plain glue, bit for bit
     for path in ("tpu_fast", "full_mixture"):
         cfg = dataclasses.replace(UPDATE_PATHS[path], its=UPDATE_SOLVE_ITS,
                                   eval_every=UPDATE_SOLVE_ITS, tor=0.0)
-        for f in ufns.values():
-            f.launches = 0
-        t = time.time()
-        kres = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
-        k_s = time.time() - t
-        counts = {k: f.launches for k, f in ufns.items()}
-        by_path[f"update {path} solve ({UPDATE_SOLVE_ITS} sweeps)"] = dict(counts)
-        force_plain()
-        try:
-            t = time.time()
-            pres = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
-            p_s = time.time() - t
-        finally:
-            restore()
-        same = all(torch.equal(getattr(kres.state, f), getattr(pres.state, f))
-                   for f in kres.state._fields)
-        e_rel = float(np.max(np.abs(kres.Energy - pres.Energy) / np.abs(pres.Energy)))
-        require(kres.iters == pres.iters == UPDATE_SOLVE_ITS and same
-                and counts == {"K8": UPDATE_SOLVE_ITS, "K9": UPDATE_SOLVE_ITS},
-                f"update {path}: a {UPDATE_SOLVE_ITS}-sweep solve (tor 0) through K8 and K9 "
-                f"ends in the plain glue's state bit for bit ({same}); launches {counts}; "
-                f"energy trace within {e_rel:.3e} (summation order); AEPE "
-                f"{kres.AEPE[UPDATE_SOLVE_ITS - 1]:.6f} / {pres.AEPE[UPDATE_SOLVE_ITS - 1]:.6f}")
-        out[f"{path} solve"] = dict(kernels_s=k_s, plain_s=p_s, same_state=same,
-                                    energy_rel=e_rel)
-        del kres, pres
+        res, secs, counts = {}, {}, {}
+        for route in ("v2", "v1", "plain"):
+            for f in ufns.values():
+                f.launches = 0
+            if route == "plain":
+                force_plain()
+            pg.UPDATE_VARIANT["K8"] = "v1" if route == "v1" else "v2"
+            try:
+                t = time.time()
+                res[route] = solve(cfg, I1, I2, gt_flow=gt, flow_range=fr, device=dev)
+                secs[route] = time.time() - t
+            finally:
+                restore()
+            counts[route] = {k: f.launches for k, f in ufns.items()}
+        by_path[f"update {path} solve ({UPDATE_SOLVE_ITS} sweeps)"] = dict(counts["v2"])
+        same = {r: all(torch.equal(getattr(res["plain"].state, f), getattr(res[r].state, f))
+                       for f in res[r].state._fields) for r in ("v2", "v1")}
+        e_rel = float(np.max(np.abs(res["v2"].Energy - res["plain"].Energy)
+                             / np.abs(res["plain"].Energy)))
+        n = UPDATE_SOLVE_ITS
+        require(all(r.iters == n for r in res.values()) and all(same.values())
+                and counts["v2"] == {"K8": n, "K9": n, "K9 v1": 0}
+                and counts["v1"] == {"K8": n, "K9": 0, "K9 v1": n},
+                f"update {path}: {n}-sweep solves (tor 0) through K8 v2 and v1 end in the plain "
+                f"glue's state bit for bit ({same}); launches {counts}; v2's energy trace "
+                f"within {e_rel:.3e} (summation order); AEPE "
+                f"{[round(float(r.AEPE[n - 1]), 6) for r in res.values()]}")
+        out[f"{path} solve"] = dict(seconds=secs, same_state=same, energy_rel=e_rel)
+        del res
     torch.cuda.empty_cache()
 
     # ---- K8's and K9's times beside their plain versions' and bounds (f32)
@@ -2729,40 +2833,82 @@ def update_phase(dev, record, by_path, ufns):
         problem = update_problem(pg, cfg, fr, dev, pair)
         st = update_probes(pg, cfg, fr, dev)["random means"]
         calls = capture_update(pg, su, cfg, problem, st)
-        (a, k, (planes, part)), (ta, tk, (w, T, it, aux)) = calls[0], calls[-1]
+        a, k, (planes, part, tail_out) = calls[0]
         node, edge, state, alpha, Tt, step, interior, c, rng = a
+        L, M, N = state.muu.shape
         mask = site_mask(interior, k.get("colour"))
-        ms = kernel_ms(lambda: su.site_update_cuda(*a, **k))
-        tms = kernel_ms(lambda: su.sweep_tail_cuda(*ta, **tk))
+        bare = {q: k[q] for q in ("colour", "active", "stop") if q in k}
+        carry = su.Carry(torch.empty_like(step), torch.empty_like(alpha)
+                         if c.alpha_update == "softmax_natural" else None,
+                         torch.empty((5, L, M, N), dtype=alpha.dtype, device=dev)
+                         if node.form == "modes" else None,
+                         *((torch.empty_like(state.rou), torch.empty_like(state.rou))
+                           if edge.form == "raw" else (None, None)))
+        # the same bits on every run and at every grid: the tail's CTA varies, nothing else
+        outs = [su.site_update_cuda(*a, **{**k, "max_ctas": mc}) for mc in (0, 0, 5)]
+
+        def flat(o):
+            return [o[0], o[1], *o[2][:3], *o[2][3]]
+
+        same_grid = all(same_bits(x, y) for o in outs[1:] for x, y in zip(flat(outs[0]), flat(o)))
+        require(same_grid, f"update {path}: K8 v2 and its tail give the same bits on two runs "
+                           f"at the default grid and one of 5 CTAs")
+        del outs
+        ms = kernel_ms(lambda: su.site_update_cuda(*a, **bare, variant="v2"))
+        ms_tail = kernel_ms(lambda: su.site_update_cuda(*a, **k))
+        ms_carry = kernel_ms(lambda: su.site_update_cuda(*a, **{**k, "carry": carry}))
+        ms_v1 = kernel_ms(lambda: su.site_update_cuda(*a, **bare, variant="v1"))
+        _, part1 = su.site_update_cuda(*a, **bare, variant="v1")
+        tail = k["tail"]
+        targs = ([part1], tail.state, step, c, tail.n_interior)
+        k9_v1 = kernel_ms(lambda: su.sweep_tail_cuda(*targs))
         pms = time_ms(lambda: su.site_update_torch(node, edge, state, alpha, Tt, step, interior,
                                                    mask, c, rng), 5)
         sums = su.site_update_torch(node, edge, state, alpha, Tt, step, interior, mask, c,
                                     rng)[1]
-        tpms = time_ms(lambda: su.sweep_tail_torch([sums], *ta[1:]), 5)
-        L, M, N = state.muu.shape
+        tpms = time_ms(lambda: su.sweep_tail_torch([sums], *targs[1:]), 5)
         site_shape = tuple(state.muu.shape)
-        k8 = dict(ms=ms[0], ms_min=ms[1], plain_ms=pms, library_ms=None,
-                  forms=(node.form, edge.form), shape=site_shape,
+        # the bound: the bytes the function must move (each input read once, each
+        # output written once: k8_work's v1 count); v2's own traffic, with each
+        # tile's halo read again, beside it
+        k8 = dict(variant="v2", ms=ms[0], ms_min=ms[1], ms_with_tail=ms_tail[0],
+                  ms_with_tail_and_carry=ms_carry[0], ms_v1=ms_v1[0], plain_ms=pms,
+                  library_ms=None, forms=(node.form, edge.form), shape=site_shape,
                   **bound(roofline.k8_work(site_shape, node.form, edge.form)))
-        k9 = dict(ms=tms[0], ms_min=tms[1], plain_ms=tpms, library_ms=None,
-                  **bound(roofline.k9_work(L, M, N)))
+        k8["bound_ms_v2_traffic"] = bound(roofline.k8_work(site_shape, node.form, edge.form,
+                                                           variant="v2"))["bound_ms"]
+        k8["bound_ms_with_carry"] = bound(roofline.k8_work(site_shape, node.form, edge.form,
+                                                           variant="v2", carry=True))["bound_ms"]
+        k9 = dict(variant="v2 (K8 v2's last CTA)", ms=ms_tail[0] - ms[0], ms_v1=k9_v1[0],
+                  ms_v1_min=k9_v1[1], plain_ms=tpms, library_ms=None,
+                  **bound(roofline.k9_work(L, M, N, variant="v2")))
+        k9["bound_ms_v1"] = bound(roofline.k9_work(L, M, N))["bound_ms"]
         out[f"K8 {path}"], out[f"K9 {path}"] = k8, k9
         log(f"  {path} f32 ({node.form}, {edge.form}) at {site_shape} on {out['card']}, "
-            f"(median, min) of {TIMING[0]} windows of {TIMING[1]}: K8 {ms} ms (plain "
-            f"{pms:.4f}; {fmt_bound(k8)}, {k8['bound_ms'] / ms[0]:.1%} of it); K9 {tms} ms "
-            f"(plain {tpms:.4f}; {fmt_bound(k9)})")
+            f"(median, min) of {TIMING[0]} windows of {TIMING[1]}: K8 v2 {ms} ms "
+            f"({k8['bound_ms'] / ms[0]:.1%} of {fmt_bound(k8)}; of v2's traffic with the "
+            f"halo's re-reads, {k8['bound_ms_v2_traffic']:.4f} ms, "
+            f"{k8['bound_ms_v2_traffic'] / ms[0]:.1%}), with the tail {ms_tail[0]:.4f}, with "
+            f"tail and carry {ms_carry[0]:.4f} (bound {k8['bound_ms_with_carry']:.4f}); K8 v1 "
+            f"{ms_v1} ({k8['bound_ms'] / ms_v1[0]:.1%}); plain {pms:.4f}; K9 v2 in K8 "
+            f"{k9['ms']:.4f}, "
+            f"K9 v1 {k9_v1} (bound {k9['bound_ms_v1']:.2e}), plain {tpms:.4f}")
         if path == "tpu_fast":
             worst_state, _ = check_update(pg, su, "tpu_fast f32 random means (timed)", calls,
                                           torch.float32)
             record["K8"] = dict(k8, max_abs_err=worst_state)
-            pw, pT, pit, paux = su.sweep_tail_torch([sums], *ta[1:])
+            pw, pT, pit, paux = su.sweep_tail_torch([sums], *targs[1:])
             record["K9"] = dict(k9, max_abs_err=max(float((x - y).abs().max())
-                                                    for x, y in zip(aux, paux)))
+                                                    for x, y in zip(tail_out[3], paux)))
+            record["K9 v1"] = dict(ms=k9_v1[0], plain_ms=tpms, bound_ms=k9["bound_ms_v1"])
+        elif path == "super_entropy":
+            record["super"] = dict(record.get("super", {}), K8=k8, K9=k9)
         del calls, problem
         torch.cuda.empty_cache()
 
-    # ---- each path's graph sweep in turns: kernels, plain glue, kernels again
+    # ---- each path's graph sweep in turns: v2, v1, plain glue, v2 again
     turns = out["graph_ms"] = {}
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9")
     for path, base in UPDATE_PATHS.items():
         cfg = dataclasses.replace(base, its=100000, eval_every=UPDATE_SWEEPS, tor=0.0)
         problem = update_problem(pg, cfg, fr, dev, pair)
@@ -2770,13 +2916,14 @@ def update_phase(dev, record, by_path, ufns):
         st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
                          sigmav=torch.full_like(st.sigmav, 0.05))
         runners, peaks = {}, {}
-        for route in ("kernels", "plain"):
+        for route in ("v2", "v1", "plain"):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             if route == "plain":
                 force_plain()
+            pg.UPDATE_VARIANT["K8"] = "v1" if route == "v1" else "v2"
             try:
                 seg = runners[route] = pg.make_segment_runner(cfg, (H, W))
                 seg(problem, st, 10)  # the capture
@@ -2786,7 +2933,7 @@ def update_phase(dev, record, by_path, ufns):
             peaks[route] = (torch.cuda.max_memory_allocated() - held) / 2**30
             require(seg.route == "graph", f"update {path} {route}: route {seg.route!r}")
         ms = {}
-        for route in ("kernels", "plain", "kernels again"):
+        for route in ("v2", "v1", "plain", "v2 again"):
             seg = runners[route.split()[0]]
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -2794,13 +2941,12 @@ def update_phase(dev, record, by_path, ufns):
             t1.record()
             torch.cuda.synchronize()
             ms[route] = t0.elapsed_time(t1) / UPDATE_SWEEPS
-        deltas = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"),
-                          runners["kernels"]._captured.deltas))
+        deltas = {r: dict(zip(names, runners[r]._captured.deltas)) for r in ("v2", "v1")}
         turns[path] = dict(ms, capture_GiB_above_held=peaks, counted_launches_a_sweep=deltas)
-        log(f"  {path} graph, ms a sweep ({UPDATE_SWEEPS} sweeps from sigma 0.05): kernels "
-            f"{ms['kernels']:.4f}, plain glue {ms['plain']:.4f}, kernels again "
-            f"{ms['kernels again']:.4f}; capturing call's peak above held, GiB: {peaks}; "
-            f"counted launches a sweep {deltas}")
+        log(f"  {path} graph, ms a sweep ({UPDATE_SWEEPS} sweeps from sigma 0.05): v2 "
+            f"{ms['v2']:.4f}, v1 {ms['v1']:.4f}, plain glue {ms['plain']:.4f}, v2 again "
+            f"{ms['v2 again']:.4f}; capturing call's peak above held, GiB: {peaks}; counted "
+            f"launches a sweep {deltas}")
         del runners, seg, problem
         torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
@@ -2813,10 +2959,12 @@ def profiles_phase(dev, record):
     ``tpu_fast``, ``full_mixture`` and the Chebyshev ``full_mixture`` from
     the sigma = 0.05 state under ``torch.profiler`` (:func:`profile_call`),
     and a 20-sweep segment of the first two on the graph route; then one
-    ``tpu_fast`` graph replay (one sweep) and a 20-sweep segment on the K8
-    route and on the plain glue: the kernels a sweep (at most
-    :data:`UPDATE_LAUNCH_LIMIT` through K8 and K9) and the idle share."""
+    ``tpu_fast`` and one ``full_mixture`` graph replay (one sweep) and a
+    20-sweep segment through K8 v2, K8 and K9 v1 and the plain glue: the
+    kernels a sweep (at most :data:`UPDATE_LAUNCH_LIMIT` and
+    :data:`UPDATE_LAUNCH_LIMIT_EXACT` through v2) and the idle share."""
     from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.kernels import sweep_update as su
     from gqmap_tpu_torch.models import gqmap as pg
 
     log("phase profiles")
@@ -2843,37 +2991,48 @@ def profiles_phase(dev, record):
             del seg
         del problem
         torch.cuda.empty_cache()
-    # one tpu_fast sweep under replay, its kernels (K8 and K9 in place of the
-    # plain glue's ~140), and a 20-sweep segment's idle share, on both routes
-    cfg = dataclasses.replace(GQMAPConfig.tpu_fast(), tor=0.0)
-    problem = pg.make_problem(cfg, I1, I2, fr, dev)
-    st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
-    st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
-                     sigmav=torch.full_like(st.sigmav, 0.05))
+    # one sweep under replay, its kernels (K8 v2 in place of the plain glue's ~140 and
+    # of v1's 16 around K1, K2, K8, K9), and a 20-sweep segment's idle share, each route
     kept, count = pg._update_route, {}
-    for route in ("kernels", "plain"):
-        if route == "plain":
-            pg._update_route = lambda c, d, device: "plain"
-        try:
-            seg = pg.make_segment_runner(cfg, (H, W))
-            seg(problem, st, 10)
-        finally:
-            pg._update_route = kept
-        rep = record["profile"][f"tpu_fast graph replay, {route}"] = profile_call(
-            seg._captured.graph.replay)
-        seg20 = record["profile"][f"tpu_fast graph, 20 sweeps, {route}"] = profile_call(
-            lambda: seg(problem, st, 20))
-        count[route] = rep["kernels"]
-        log(f"  one tpu_fast sweep under replay, {route}: {rep['kernels']} kernels, "
-            f"{rep['device_ms']:.4f} ms on the card of {rep['wall_ms']:.4f} wall; 20 sweeps: "
-            f"idle {seg20['idle_share']:.1%}, {seg20['device_ms']:.3f} ms on the card of "
-            f"{seg20['wall_ms']:.3f}")
-        del seg
-    require(count["kernels"] <= UPDATE_LAUNCH_LIMIT,
-            f"a tpu_fast sweep under replay launches {count['kernels']} kernels through K8 and "
-            f"K9 (at most {UPDATE_LAUNCH_LIMIT}; the plain glue's {count['plain']})")
-    del problem
-    torch.cuda.empty_cache()
+    for label, cfg in (("tpu_fast", GQMAPConfig.tpu_fast(tor=0.0)),
+                       ("full_mixture", GQMAPConfig.full_mixture(quad_chunk=27, tor=0.0))):
+        problem = pg.make_problem(cfg, I1, I2, fr, dev)
+        st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+        st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                         sigmav=torch.full_like(st.sigmav, 0.05))
+        carried = cfg.alpha_update == "softmax_natural" and cfg.L <= su.MAX_CARRY_L
+        for route in ("v2", "v1", "plain"):
+            if route == "plain":
+                pg._update_route = lambda c, d, device: "plain"
+            pg.UPDATE_VARIANT["K8"] = "v1" if route == "v1" else "v2"
+            try:
+                seg = pg.make_segment_runner(cfg, (H, W))
+                seg(problem, st, 10)
+            finally:
+                pg._update_route = kept
+                pg.UPDATE_VARIANT["K8"] = "v2"
+            rep = record["profile"][f"{label} graph replay, {route}"] = profile_call(
+                seg._captured.graph.replay)
+            seg20 = record["profile"][f"{label} graph, 20 sweeps, {route}"] = profile_call(
+                lambda: seg(problem, st, 20))
+            count[label, route] = rep["kernels"]
+            log(f"  one {label} sweep under replay, {route}: {rep['kernels']} kernels, "
+                f"{rep['device_ms']:.4f} ms on the card of {rep['wall_ms']:.4f} wall "
+                f"({rep['top_ops_device_ms']}); 20 sweeps: idle {seg20['idle_share']:.1%}, "
+                f"{seg20['device_ms']:.3f} ms on the card of {seg20['wall_ms']:.3f}")
+            del seg
+        limit = {"tpu_fast": UPDATE_LAUNCH_LIMIT, "full_mixture": UPDATE_LAUNCH_LIMIT_EXACT}[label]
+        limit += 0 if carried else 3
+        require(count[label, "v2"] <= limit,
+                f"a {label} sweep under replay launches {count[label, 'v2']} kernels through K8 "
+                f"v2 (at most {limit}; v1 {count[label, 'v1']}, the plain glue "
+                f"{count[label, 'plain']})")
+        if label == "tpu_fast":
+            require(count[label, "v1"] <= UPDATE_LAUNCH_LIMIT_V1,
+                    f"a tpu_fast sweep under replay launches {count[label, 'v1']} kernels "
+                    f"through K8 and K9 v1 (at most {UPDATE_LAUNCH_LIMIT_V1})")
+        del problem
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -2892,7 +3051,10 @@ def main():
 
     dev = torch.device("cuda", 0)
     k1_fn, k2_fn = cosine_gq.cos_mode_sums_cuda, edge_reduced_gq.edge_reduced_grads_cuda
-    ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_cuda}
+    # K8 (v2 by default), K9 v2 (its tail, counted where K8 v2 launches with it) and
+    # K9 v1 (a launch of its own, on the v1 route only)
+    ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_v2,
+            "K9 v1": sweep_update.sweep_tail_cuda}
 
     # ---- 1. the card
     card = smi("name,power.limit")
@@ -3154,8 +3316,10 @@ def main():
     a1, a900 = res.AEPE[0], res.AEPE[res.iters - 1]
     require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
                                     "(at most half)")
-    require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters},
-            f"launch counters {launches} equal the sweep count {res.iters}")
+    require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters,
+                         "K9 v1": 0},
+            f"launch counters {launches} equal the sweep count {res.iters} (K9 v2's tails run "
+            f"in K8 v2's launches; no K9 v1 launch)")
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
@@ -3917,14 +4081,16 @@ def main():
              source="gqmap_tpu_torch/csrc/nearest_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:339 on gqmap_tpu/ops/potentials.py:211 (XLA scan, "
                       "no Pallas)", launches=by_path["legacy_v3"]["K7"], **record["K7"]),
-        dict(name="site_update (K8)", route="cuda", source="gqmap_tpu_torch/csrc/sweep_update.cu",
+        dict(name="site_update (K8, v2)", route="cuda",
+             source="gqmap_tpu_torch/csrc/sweep_update.cu",
              replaces="gqmap_tpu/models/gqmap.py:386 compute_grads and :552 one_pass (XLA "
                       "fusion in the jit-compiled sweep, no Pallas)", launches=launches["K8"],
              **record["K8"]),
-        dict(name="sweep_tail (K9)", route="cuda", source="gqmap_tpu_torch/csrc/sweep_update.cu",
+        dict(name="sweep_tail (K9, v2: run by K8 v2's last CTA, inside its launch)",
+             route="cuda", source="gqmap_tpu_torch/csrc/sweep_update.cu",
              replaces="gqmap_tpu/models/gqmap.py:572-616 the passes' sums, alpha update, anneal "
                       "and counter (XLA fusion, no Pallas)", launches=launches["K9"],
-             **record["K9"]),
+             launches_of_its_own=launches["K9 v1"], **record["K9"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

@@ -2,7 +2,8 @@
 
 :data:`COUNTED` lists the wrappers that count their launches (each adds one
 to its ``launches`` where it launches its kernel), so a caller that replays
-captured launches can keep the counts without knowing the kernels.
+captured launches can keep the counts without knowing the kernels. The last,
+``sweep_tail_v2``, counts K9 v2's tails, which run inside K8 v2's launches.
 """
 
 from .cheb_gq import cheb_gq_cuda
@@ -11,8 +12,8 @@ from .edge_gq import edge_gq_cuda
 from .edge_reduced_gq import edge_reduced_grads_cuda
 from .nearest_gq import nearest_chain_gq_cuda, nearest_gq_cuda
 from .node_gq import node_gq_cuda
-from .sweep_update import site_update_cuda, sweep_tail_cuda
+from .sweep_update import site_update_cuda, sweep_tail_cuda, sweep_tail_v2
 
 COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda, node_gq_cuda,
            cheb_gq_cuda, nearest_gq_cuda, nearest_chain_gq_cuda, site_update_cuda,
-           sweep_tail_cuda)
+           sweep_tail_cuda, sweep_tail_v2)

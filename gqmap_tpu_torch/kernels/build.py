@@ -93,6 +93,9 @@ _SIGNATURES = {
     # softmax_mode, device, stream (kernels/sweep_update.sweep_tail_cuda, K9)
     "gqmap_sweep_tail_f32": [_P] * 2 + [_I] * 8 + [_P],
     "gqmap_sweep_tail_f64": [_P] * 2 + [_I] * 8 + [_P],
+    # ptrs, consts, ints, device, stream (kernels/sweep_update.site_update_cuda, K8 v2)
+    "gqmap_site_update_v2_f32": [_P] * 3 + [_I, _P],
+    "gqmap_site_update_v2_f64": [_P] * 3 + [_I, _P],
     # tab, out, mask, iters, blocks, device, stream (roofline.measure_ceilings)
     "gqmap_l1_load_f32": [_P] * 2 + [_I] * 4 + [_P],
     # out, iters, blocks, device, stream (roofline.measure_ceilings)

@@ -26,8 +26,8 @@ from ..ops.cosine import CosData
 from ..ops.cosine import _mode_sums as cos_mode_sums_torch
 from . import build
 
-__all__ = ["cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch", "MAX_L",
-           "VARIANTS"]
+__all__ = ["cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch", "phase_stack",
+           "MAX_L", "VARIANTS"]
 
 MAX_L = 4  # mixture components the kernel is instantiated for (csrc/cosine_gq.cu)
 VARIANTS = ("v1", "adaptive", "recur")  # kernel codes 0, 1, 2
@@ -41,12 +41,24 @@ def _variant_code(variant: str | None) -> int:
     return VARIANTS.index(variant)
 
 
+def phase_stack(cos: CosData, u1, u2, o1, o2, p) -> torch.Tensor:
+    """K1's input: the phases and scales ``(ku (u1 - lo_u), kv (u2 - lo_v), ku
+    o1, kv o2, p)`` of ``(L, M, N)`` sites as one ``(5, L, M, N)`` tensor."""
+    ku = math.pi / (cos.hi_u - cos.lo_u)
+    kv = math.pi / (cos.hi_v - cos.lo_v)
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    return torch.stack([x.expand(site) for x in
+                        (ku * (u1 - cos.lo_u), kv * (u2 - cos.lo_v), ku * o1, kv * o2, p)])
+
+
 def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = None,
-                       counters: torch.Tensor | None = None):
+                       counters: torch.Tensor | None = None, stack: torch.Tensor | None = None):
     """Kernel K1 on ``(L, M, N)`` site tensors and ``(A, B, M, N)`` coefficients.
 
     Computes the phases and scales (``ph = k (mu - lo)``, ``s = k sigma``) in
-    torch, stacks them as one ``(5, L, M, N)`` input and returns the six
+    torch, stacks them as one ``(5, L, M, N)`` input (:func:`phase_stack`; or
+    takes ``stack``, that input as given, which K8 v2 carries from the last
+    sweep) and returns the six
     ``(L, M, N)`` sums ``(E0, A1, A2, Aa, Ab, Ax)``. ``variant`` is one of
     :data:`VARIANTS` (None: ``"recur"``). ``counters``, if given, is an int64
     tensor of 3 on the same device that the kernel adds to: warps (32-site
@@ -79,10 +91,14 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = No
         raise ValueError("counters must be a contiguous int64 tensor of 3 on the "
                          "coefficients' device")
 
-    ku = math.pi / (cos.hi_u - cos.lo_u)
-    kv = math.pi / (cos.hi_v - cos.lo_v)
-    sp = torch.stack([x.expand(site) for x in
-                      (ku * (u1 - cos.lo_u), kv * (u2 - cos.lo_v), ku * o1, kv * o2, p)])
+    if stack is None:
+        sp = phase_stack(cos, u1, u2, o1, o2, p)
+    else:
+        if (tuple(stack.shape) != (5,) + tuple(site) or stack.dtype != coeffs.dtype
+                or stack.device != coeffs.device or not stack.is_contiguous()):
+            raise ValueError(f"stack must be a contiguous (5, {L}, {M}, {N}) tensor of the "
+                             "coefficients' type and device")
+        sp = stack
     out = torch.empty((6, L, M, N), dtype=coeffs.dtype, device=coeffs.device)
     lib = build.library_for(coeffs.device)
     fn = (lib.gqmap_cos_mode_sums_f32 if coeffs.dtype == torch.float32
@@ -98,10 +114,12 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = No
 cos_mode_sums_cuda.launches = 0
 
 
-def cos_mode_sums(cos: CosData, u1, u2, o1, o2, p, variant: str | None = None):
+def cos_mode_sums(cos: CosData, u1, u2, o1, o2, p, variant: str | None = None,
+                  stack: torch.Tensor | None = None):
     """Kernel K1 for CUDA tensors, its plain version (the full sum, whatever
-    the variant) for CPU tensors."""
+    the variant, from the state: ``stack`` is K1's input only) for CPU
+    tensors."""
     _variant_code(variant)
     if cos.coeffs.device.type == "cpu":
         return cos_mode_sums_torch(cos, u1, u2, o1, o2, p)
-    return cos_mode_sums_cuda(cos, u1, u2, o1, o2, p, variant)
+    return cos_mode_sums_cuda(cos, u1, u2, o1, o2, p, variant, stack=stack)

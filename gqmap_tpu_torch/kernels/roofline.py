@@ -286,30 +286,51 @@ def k7_work(site_shape, K: int, sectors: int, itemsize: int = 4, variant: str = 
     return dict(work, bytes=state + 3 * sectors * SECTOR_BYTES, flops=flops)
 
 
-def k8_work(site_shape, node_form: str, edge_form: str, itemsize: int = 4) -> dict:
+def k8_work(site_shape, node_form: str, edge_form: str, itemsize: int = 4,
+            variant: str = "v1", carry: bool = False) -> dict:
     """K8 (one pass) on ``(L, M, N)`` sites: the node route's fields (6, or
     7 for ``"chain"``), the edge route's six ``(2, 2, L, M, N)`` fields, the
     state (9 planes) and the interior mask read once, the new state written
     once and one 4-value partial a CTA; the finalize of each form, the
-    assembly, the clamped step and the sums (:data:`FLOPS`)."""
-    from .sweep_update import partial_blocks
+    assembly, the clamped step and the sums (:data:`FLOPS`). ``variant="v2"``:
+    one partial a tile, and each tile's halo read again (the row above and
+    the column left: 10 end-2 inputs a site for raw edges, K2's du2 and do2
+    for its gradients; for raw edges also sigma one row below and one column
+    right); with ``carry`` (the device loop) also the carried stacks written,
+    K1's 5 planes for ``"modes"`` and u2e and o2e, 8 planes, for raw edges.
+    The new lattice is written once either way: v2 writes it into the state's
+    buffer for K2's gradients, where v1's sweep then copies it (9 planes read
+    and written, outside K8: :func:`update_bound_ms`)."""
+    from .sweep_update import TILE, partial_blocks, tile_blocks
 
     L, M, N = site_shape
     sites = L * M * N
     node = {"modes": 6, "raw": 6, "chain": 7}[node_form]
-    parts = L * partial_blocks(M, N) * 4
     flops = sites * (FLOPS[f"K8 {node_form}"] + 4 * FLOPS[f"K8 {edge_form} edge"]
                      + FLOPS["K8 site"])
-    return dict(bytes=(node + 24 + 9 + 9) * sites * itemsize + M * N + parts * itemsize,
-                flops=flops, roots=0)
+    if variant == "v1":
+        parts = L * partial_blocks(M, N) * 4
+        return dict(bytes=(node + 24 + 9 + 9) * sites * itemsize + M * N + parts * itemsize,
+                    flops=flops, roots=0)
+    tiles = L * tile_blocks(M, N)
+    halo = tiles * (TILE[0] + TILE[1]) * (12 if edge_form == "raw" else 4)
+    carried = 0
+    if carry:
+        carried = (5 * sites if node_form == "modes" else 0) + (8 * sites if edge_form == "raw"
+                                                                else 0)
+    return dict(bytes=((node + 24 + 9 + 9) * sites + halo + carried + 4 * tiles) * itemsize
+                + M * N, flops=flops, roots=0)
 
 
-def k9_work(L: int, M: int, N: int, passes: int = 1, itemsize: int = 4) -> dict:
+def k9_work(L: int, M: int, N: int, passes: int = 1, itemsize: int = 4,
+            variant: str = "v1") -> dict:
     """K9 on ``passes`` passes' partials of ``(L, M, N)`` sites: the partials
-    read once and summed, a few dozen scalar operations."""
-    from .sweep_update import partial_blocks
+    read once and summed, a few dozen scalar operations; v2's partials are
+    one a tile (it runs in K8 v2's last CTA)."""
+    from .sweep_update import partial_blocks, tile_blocks
 
-    parts = passes * L * partial_blocks(M, N) * 4
+    blocks = tile_blocks(M, N) if variant == "v2" else partial_blocks(M, N)
+    parts = passes * L * blocks * 4
     return dict(bytes=parts * itemsize, flops=parts, roots=0)
 
 

@@ -69,16 +69,17 @@ import torch.distributed
 from ..config import FlowRange, GQMAPConfig
 from ..kernels import COUNTED
 from ..kernels.cheb_gq import MAX_Q, cheb_gq, cheb_gq_cuda, cheb_gq_torch
-from ..kernels.cosine_gq import cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch
+from ..kernels.cosine_gq import (cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch,
+                                 phase_stack)
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch, neighbour_stacks)
 from ..kernels.nearest_gq import (nearest_chain_gq, nearest_chain_gq_cuda, nearest_chain_gq_torch,
                                   nearest_gq, nearest_gq_cuda, nearest_gq_torch)
 from ..kernels.node_gq import node_gq, node_gq_cuda, node_gq_torch
-from ..kernels.sweep_update import (EdgeSums, NodeSums, lattice_views, site_update_cuda,
-                                    site_update_torch, stack2, step_torch,
-                                    sweep_tail_cuda, sweep_tail_torch)
+from ..kernels.sweep_update import (MAX_CARRY_L, Carry, EdgeSums, NodeSums, Tail,
+                                    lattice_views, site_update_cuda, site_update_torch, stack2,
+                                    step_of, step_torch, sweep_tail_cuda, sweep_tail_torch)
 from ..ops.chebyshev import ChebData, build_cheb_data, make_node_pot_chebyshev
 from ..ops.cosine import CosData, build_cos_data, cos_ei
 from ..ops.flowviz import flow_to_color
@@ -400,8 +401,11 @@ def _update_route(cfg: GQMAPConfig, dist: DistHooks | None, device) -> str:
     return "plain"
 
 
-# the K8 route's kernels (site update, sweep tail)
+# the K8 route's kernels (site update, sweep tail) and K8's variant: "v2" runs
+# K9's work in K8's last CTA and, on the device loop, writes the carry;
+# "v1" launches K9 after K8
 _UPDATE = {"K8": (site_update_cuda, sweep_tail_cuda)}
+UPDATE_VARIANT = {"K8": "v2"}
 _LATTICE = ("muu", "muv", "sigmau", "sigmav", "pn", "rou")
 
 
@@ -447,7 +451,13 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     buffer ``planes``, is updated in place and returned, and, where the
     sweep ran, its traces go to slot ``n`` of the ``(3, cap)`` traces
     ``bufs``, the reference's stop rule (``it > its || ptdmu < tor``,
-    ``gqmap_gpu_mixture.m:75``) may set ``stop`` and ``n`` advances."""
+    ``gqmap_gpu_mixture.m:75``) may set ``stop`` and ``n`` advances. A fifth
+    entry of ``loop``, a :class:`~gqmap_tpu_torch.kernels.sweep_update.Carry`
+    (``sweep.carry(problem, state)`` builds it), is what the last sweep's K8
+    v2 wrote for this one: the step, alpha, K1's phase stack and the raw
+    edges' neighbour stacks, read in place of their torch expressions; K8
+    v2 then rewrites it, and for K2's gradients writes the new lattice into
+    ``planes`` itself. The sweep returned also has ``sweep.carry``."""
     check_supported(cfg)
     dt = _dt(cfg)
     M, N = flow_lattice_shape(cfg, image_shape)
@@ -489,6 +499,34 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     red_np = (np.add.outer(np.arange(ml) + r0, np.arange(nl) + c0) & 1) == 0
     red_on = {}  # device -> the red mask there
     redblack = cfg.sweep_order == "redblack"
+    # the node and edge forms K8 sees: K1's mode sums; K2's gradients (else
+    # raw sums over neighbour stacks)
+    modes_node = cfg.gradient_estimator != "prewitt" and cfg.data_term == "cosine"
+    grads_edges = edge_route is not None and reduced
+    carry_alpha = softmax_mode and L <= MAX_CARRY_L
+
+    def carry_of(problem: Problem, state: GQState, into: Carry | None = None):
+        """The device loop's carry for ``state`` by the plain expressions
+        (None off the K8 v2 route); ``into``, an earlier carry whose buffers a
+        graph reads, is rewritten in place and returned, whatever the route
+        now (the graph keeps the one it was captured on)."""
+        route = _update_route(cfg, dist, state.muu.device)
+        if into is None and (route == "plain" or UPDATE_VARIANT[route] != "v2"):
+            return None
+        new = Carry(step_of(state.it, cfg, dt), softmax(state.w) if carry_alpha else None)
+        if modes_node:
+            new = new._replace(stack=phase_stack(problem.cheb, state.muu, state.muv,
+                                                 state.sigmau, state.sigmav, state.pn))
+        if not grads_edges:
+            u2e, o2e = neighbour_stacks(stack2(state.muu, state.muv),
+                                        stack2(state.sigmau, state.sigmav), roll)
+            new = new._replace(u2e=u2e, o2e=o2e)
+        if into is None:
+            return Carry(*(None if x is None else x.contiguous() for x in new))
+        for dst, src in zip(into, new):
+            if dst is not None:
+                dst.copy_(src)
+        return into
 
     def sweep(problem: Problem, state: GQState, active=None,
               loop=None) -> tuple[GQState, SweepAux]:
@@ -499,14 +537,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
         route = _update_route(cfg, dist, interior.device)
         if loop is not None and route == "plain":
             active = ~loop[1]
+        v2 = route != "plain" and UPDATE_VARIANT[route] == "v2"
+        carry = loop[4] if v2 and loop is not None and len(loop) > 4 else None
         node_tab = table_on(cfg.K, cfg.quad_chunk, False, dt, interior.device)
         tab1 = table_on(k1, 0, True, dt, interior.device)
-        it_f = state.it.to(dt)
-        if cfg.step_const:
-            step = torch.full((), cfg.step0, dtype=dt, device=interior.device)
+        step = step_of(state.it, cfg, dt) if carry is None else carry.step
+        if carry is not None and carry.alpha is not None:
+            alpha = carry.alpha
         else:
-            step = cfg.step0 / (1.0 + it_f / cfg.step_tau)
-        alpha = softmax(state.w) if softmax_mode else state.w
+            alpha = softmax(state.w) if softmax_mode else state.w
         a3 = alpha.reshape(L, 1, 1)
         T = state.temperature
 
@@ -559,7 +598,9 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                                    cfg.rfc, pads=problem.nearest_pads, **chain_at)
                 return NodeSums("chain", tuple(raw_c))
             if cfg.data_term == "cosine":  # kernel K1
-                sums = node_sums_fn(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
+                at = {} if carry is None or carry.stack is None else {"stack": carry.stack}
+                sums = node_sums_fn(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
+                                    **at)
                 return NodeSums("modes", tuple(sums), problem.cheb)
             # the K^2-point node quadrature: kernel K4, K5 or K6, else plain torch
             site = (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
@@ -580,8 +621,12 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             """The edge term's output (:31-34, :118-146); dims (dir, chan, L, M, N)."""
             mu = stack2(st.muu, st.muv)
             sg = stack2(st.sigmau, st.sigmav)
+            if not grads_edges:  # raw sums on the neighbour stacks (or their carry)
+                if carry is None or carry.u2e is None:
+                    u2e, o2e = neighbour_stacks(mu, sg, roll)
+                else:
+                    u2e, o2e = carry.u2e, carry.o2e
             if edge_route is None:  # truncated-quadratic edges, plain torch
-                u2e, o2e = neighbour_stacks(mu, sg, roll)
                 if reduced:
                     raw_e = gq_accumulate_diff(edge_fd, mu[None], u2e, sg[None], o2e, st.rou,
                                                tab1)
@@ -593,25 +638,36 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE,
                                 halo=halo)
                 return EdgeSums("grads", tuple(ge)[:6])
-            u2e, o2e = neighbour_stacks(mu, sg, roll)  # kernel K3
-            raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)
+            raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)  # K3
             return EdgeSums("raw", tuple(raw_e), o2e)
 
-        if route != "plain":  # kernels K8 (each pass) and K9
+        if route != "plain":  # kernel K8 each pass; K9 in v2's last pass, or after it
             site_update, sweep_tail = _UPDATE[route]
             stop = None if loop is None else loop[1]
-            st, parts = state, []
-            for colour in ((0, 1) if redblack else (None,)):
-                planes, part = site_update(node_sums(st), edge_sums(st), st, alpha, T, step,
-                                           interior, cfg, rngv, colour=colour, active=active,
-                                           stop=stop)
+            st, parts, res = state, [], None
+            colours = (0, 1) if redblack else (None,)
+            for colour in colours:
+                kw = {}
+                if v2:
+                    kw = dict(variant="v2", carry=carry,
+                              out=loop[3] if carry is not None and grads_edges else None)
+                    if colour == colours[-1]:
+                        kw["tail"] = Tail(state, n_interior, parts[0] if parts else None,
+                                          None if loop is None else loop[:3])
+                res = site_update(node_sums(st), edge_sums(st), st, alpha, T, step, interior,
+                                  cfg, rngv, colour=colour, active=active, stop=stop, **kw)
+                planes, part = res[:2]
                 st = st._replace(**dict(zip(_LATTICE, lattice_views(planes))))
                 parts.append(part)
-            w, T, it, aux = sweep_tail(parts, state, step, cfg, n_interior, active=active,
-                                       loop=None if loop is None else loop[:3])
+            if v2:
+                w, T, it, aux = res[2]
+            else:
+                w, T, it, aux = sweep_tail(parts, state, step, cfg, n_interior, active=active,
+                                           loop=None if loop is None else loop[:3])
             if loop is None:
                 return st._replace(w=w, temperature=T, it=it), SweepAux(*aux[:3])
-            loop[3].copy_(planes)  # w, T and it are already state's; the lattice comes back
+            if planes is not loop[3]:  # w, T and it are already state's; the lattice comes back
+                loop[3].copy_(planes)
             return state, SweepAux(*aux[:3])
 
         def one_pass(st: GQState, mask):
@@ -655,6 +711,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
         n += active
         return state, aux
 
+    sweep.carry = carry_of
     return sweep
 
 
@@ -672,8 +729,10 @@ def _predicated_step(sweep, problem: Problem, st: GQState, loop):
     rule (``it > its || ptdmu < tor``, ``gqmap_gpu_mixture.m:75``) may set
     ``stop``; once it is set, the step leaves everything as it is. No host
     read: a CUDA graph captures it. On the K8 route kernel K9 does that
-    bookkeeping and K8's new lattice comes back into ``planes`` in one
-    copy."""
+    bookkeeping (in v2, K8's last CTA), K8's new lattice comes back into
+    ``planes`` in one copy (v2 with K2's gradients: written there) and, in
+    v2, ``loop``'s fifth entry, the carry, holds what the next sweep
+    reads in place of its torch expressions."""
     sweep(problem, st, loop=loop)
 
 
@@ -773,8 +832,10 @@ class SegmentRunner:
             n.zero_()
             stop.zero_()
             bufs.zero_()
+            if len(loop) > 4:  # the carry, rebuilt from the state copied in
+                self.sweep.carry(c.run, st, into=loop[4])
         else:
-            st, loop = self._buffers(state, cap)
+            st, loop = self._buffers(state, cap, problem)
             n, stop, bufs = loop[:3]
         done, polls, n_done, stopped = 0, 0, 0, 0
         while done < limit and not stopped:
@@ -794,20 +855,24 @@ class SegmentRunner:
             bufs = bufs[:, :cap].clone()
         return st, n_done, bufs[0], bufs[1], bufs[2], bool(stopped)
 
-    def _buffers(self, state, cap):
+    def _buffers(self, state, cap, problem=None):
         """The device loop's state (a copy of ``state``, its lattice fields
         views of one ``(9, L, M, N)`` buffer, as kernel K8 writes it) and its
         ``loop``: the sweep count, the stop flag, the ``(3, cap)`` traces and
-        that buffer."""
+        that buffer; with ``problem``, on the K8 v2 route, also the carry
+        (``sweep.carry``) built from the state by its plain expressions."""
         dev = state.muu.device
         planes = torch.empty((9,) + tuple(state.muu.shape), dtype=state.muu.dtype, device=dev)
         lattice = lattice_views(planes)
         for dst, f in zip(lattice, _LATTICE):
             dst.copy_(getattr(state, f))
         st = GQState(state.w.clone(), *lattice, state.temperature.clone(), state.it.clone())
-        return st, (torch.zeros((), dtype=torch.int64, device=dev),
-                    torch.zeros((), dtype=torch.bool, device=dev),
-                    torch.zeros((3, cap), dtype=_dt(self.cfg), device=dev), planes)
+        loop = (torch.zeros((), dtype=torch.int64, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev),
+                torch.zeros((3, cap), dtype=_dt(self.cfg), device=dev), planes)
+        carry_of = getattr(self.sweep, "carry", None)  # the sharded sweep has none
+        carry = None if problem is None or carry_of is None else carry_of(problem, st)
+        return st, loop if carry is None else loop + (carry,)
 
     def _graph_for(self, problem, state, cap) -> _Captured:
         """The graph for this problem, state layout and trace length, captured
@@ -833,7 +898,7 @@ class SegmentRunner:
         if problem.init_flow is not None:  # a host array would be copied every sweep
             run = problem._replace(init_flow=torch.as_tensor(
                 problem.init_flow, dtype=problem.I1.dtype, device=dev))
-        st, loop = self._buffers(state, cap)
+        st, loop = self._buffers(state, cap, run)
         held = [f.launches for f in COUNTED]
         with torch.cuda.device(dev):
             side = torch.cuda.Stream()

@@ -280,8 +280,9 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # K4 computes the bicubic node term once a sweep; K8 and K9 the update
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 3]
+    # K4 computes the bicubic node term once a sweep; K8 v2 the update, K9 v2's
+    # tail in its last CTA (no K9 v1 launch)
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3]
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -295,9 +296,9 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # K8 once a half-step, K9 once a sweep
-    want = ([6, 6, 0, 0, 0, 0, 0, 6, 3] if preset == "tpu_fast"
-            else [0, 0, 6, 6, 0, 0, 0, 6, 3])
+    # K8 once a half-step, K9 v2's tail once a sweep (in the second's K8)
+    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3] if preset == "tpu_fast"
+            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -313,8 +314,8 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = ([3, 3, 0, 0, 0, 0, 0, 3, 3] if preset == "tpu_fast_super"
-            else [0, 0, 3, 3, 0, 0, 0, 3, 3])
+    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3] if preset == "tpu_fast_super"
+            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -365,13 +366,13 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 3)),
-    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 3)),
-    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 3)),
-    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 3)),
-    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3)),
+    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 0, 3)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8),
-     (0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
@@ -386,14 +387,14 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # autodiff's sums and update are plain; K4 and K5 are never launched here;
-    # K8 and K9 run the update of every other path
+    # K8 v2 and its tail (K9 v2) run the update of every other path
     assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want)
 
 
 def test_legacy_v1_segment_launches_no_kernel(dev):
     # The segment launches no kernel of K1-K7 (the name predates K8 and K9):
     # truncated-quadratic edges and the quadratic prior are plain sums; K8
-    # and K9 run the update, once each a sweep
+    # v2 runs the update, its last CTA K9 v2's tail, once each a sweep
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     cfg = GQMAPConfig.legacy_v1(its=3)
@@ -405,7 +406,7 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 3]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3]
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -453,9 +454,10 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
                                scales=(0.25, 0.5, 1.0), device=dev)
     sweeps = sum(lv.iters for lv in res.levels)
     assert sweeps == 12 and np.isfinite(res.flow).all()
-    # K4 (the bicubic node term) and K3 once a sweep of every level, K8 and K9 too
+    # K4 (the bicubic node term) and K3 once a sweep of every level, K8 v2 and
+    # its tail too
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, sweeps])
+            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps])
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -594,9 +596,9 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     g, gn = _counted(seg, problem, start, 30)
     assert h[1] == k + 1 and h[5] and _identical(g, h)
     assert seg.polls == -(-(k + 1) // pg.POLL)
-    # every replay of the window launched the sweep's kernels
+    # every replay of the window launched the sweep's kernels (K9 v2's tail in K8 v2)
     replays = min(pg.POLL * seg.polls, 30)
-    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, replays]
+    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -763,7 +765,7 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 20]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -974,13 +976,14 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 3]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 3]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 3]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 3]),
-    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"), [0, 0, 6, 0, 6, 0, 0, 6, 3]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3]),
+    ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"),
+     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3]),
     ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"),
-     [0, 0, 0, 0, 0, 0, 0, 0, 0]),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
@@ -1186,9 +1189,10 @@ def test_nearest_variant_rule_and_refusals(dev):
     assert all(torch.equal(a, b) for a, b in zip(fine, v2))
 
 
-@pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 20]),
-                                            ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 20]),
-                                            ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 20])])
+@pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20]),
+                                            ("blockmatch_v2",
+                                             [0, 0, 20, 0, 0, 20, 0, 20, 0, 20]),
+                                            ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20])])
 def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
     # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
     # K7) once a replayed sweep
@@ -1275,11 +1279,13 @@ def test_sweep_update_kernels_are_the_plain_glue(dev, name, dtype, probe):
     cfg, problem, state = _update_toy(dev, name, dtype)
     state = _update_probe(state, probe, cfg.corr_tor)
     assert pg._update_route(cfg, None, dev) == "K8"
-    n = [sweep_update.site_update_cuda.launches, sweep_update.sweep_tail_cuda.launches]
+    counters = (sweep_update.site_update_cuda, sweep_update.sweep_tail_v2,
+                sweep_update.sweep_tail_cuda)
+    n = [f.launches for f in counters]
     got, gaux = pg.make_sweep(cfg, (24, 40))(problem, state)
     passes = 2 if cfg.sweep_order == "redblack" else 1
-    assert [sweep_update.site_update_cuda.launches - n[0],
-            sweep_update.sweep_tail_cuda.launches - n[1]] == [passes, 1]
+    # K8 v2 once a pass, its tail (K9 v2) in the last, no K9 v1 launch
+    assert [f.launches - m for f, m in zip(counters, n)] == [passes, 1, 0]
     kept = pg._update_route
     pg._update_route = lambda c, d, device: "plain"
     try:
@@ -1324,11 +1330,11 @@ def test_sweep_tail_alpha_step_is_the_plain_versions(dev, name, L, dtype, mode):
         return out
 
     kept = pg._UPDATE["K8"]
-    pg._UPDATE["K8"] = (kept[0], tail)
+    pg._UPDATE["K8"], pg.UPDATE_VARIANT["K8"] = (kept[0], tail), "v1"  # K9 v1, a launch
     try:
         got, _ = pg.make_sweep(cfg, (24, 40))(problem, state)
     finally:
-        pg._UPDATE["K8"] = kept
+        pg._UPDATE["K8"], pg.UPDATE_VARIANT["K8"] = kept, "v2"
     (parts, st0, step, c, n_int), (w, T, it, _) = tails[0]
 
     def sums(ps):

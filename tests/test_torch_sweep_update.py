@@ -11,7 +11,9 @@ and K9's fixed order (512 strided running sums, then a halving tree), the
 alpha step, anneal, counter, predicate and the device loop's trace slot,
 stop flag and count.
 
-Routed into ``make_sweep`` (``pg._update_route`` and ``pg._UPDATE``, as
+These are K8 and K9 v1 (``pg.UPDATE_VARIANT["K8"] = "v1"`` here; v2, the
+default, is ``tests/test_torch_update_v2.py``). Routed into ``make_sweep``
+(``pg._update_route`` and ``pg._UPDATE``, as
 ``tests/test_torch_nearest_gq.py`` routes ``k6_transcribed``), one sweep and
 a 30-sweep segment of every path K8 takes are held to JAX's ``make_sweep`` /
 ``make_segment_runner`` in float64 at 1e-10, at the multi-sweep settings of
@@ -311,6 +313,7 @@ def transcribed(monkeypatch):
 
     monkeypatch.setattr(pg, "_update_route", lambda cfg, dist, device: "K8")
     monkeypatch.setitem(pg._UPDATE, "K8", (named(k8_transcribed), named(k9_transcribed)))
+    monkeypatch.setitem(pg.UPDATE_VARIANT, "K8", "v1")
     return calls
 
 
@@ -364,6 +367,7 @@ def _captured(cfg, shape, st, problem, monkeypatch):
 
     monkeypatch.setattr(pg, "_update_route", lambda c, d, dev: "K8")
     monkeypatch.setitem(pg._UPDATE, "K8", (grab, k9_transcribed))
+    monkeypatch.setitem(pg.UPDATE_VARIANT, "K8", "v1")
     pg.make_sweep(cfg, shape)(problem, st)
     monkeypatch.undo()
     return got["call"]
@@ -555,6 +559,8 @@ def test_sweep_update_entry_points_have_their_ctypes_signatures():
                               for x in params]
     entries = re.findall(r"^(GQMAP_\w+)\((gqmap_\w+), \w+\)$", text, re.M)
     assert sorted(e for _, e in entries) == ["gqmap_site_update_f32", "gqmap_site_update_f64",
+                                             "gqmap_site_update_v2_f32",
+                                             "gqmap_site_update_v2_f64",
                                              "gqmap_sweep_tail_f32", "gqmap_sweep_tail_f64"]
     for macro, entry in entries:
         assert build._SIGNATURES[entry] == macros[macro], entry
