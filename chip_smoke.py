@@ -144,6 +144,28 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    8 tiles; v2: a warp's round of 8 points of each of its 4 sites on the
    shared patch's path with its serial sums, every round) and ``torch.take``'s rate of
    random gathers over ``legacy_v2``'s table;
+6e. K10 (the quadratic prior's node sums) and K11 (the truncated-quadratic
+   tensor-rule edge sums), ``csrc/quad_gq.cu``, against their plain versions
+   (``kernels/quad_gq``) at ``legacy_v1``'s K = 9 (quad_var 0.05; gama 1,
+   dta 10) on (1, 376, 452) sites, at L = 20 (the plain versions 27 points
+   a step) and on a ragged (3, 61, 37) lattice, through the K = 9 instance
+   and the generic one (at K = 9 and 5), from the init, the sigma = 0.05
+   state and the |rho| clamp: float64 within 1e-10 of each sum's largest
+   magnitude, float32 within 2e-4 of it plus 2e-5 relative, each with a
+   floor of 1e-13 (float64) or 1e-5 (float32) of the largest |Ei| (a sum
+   that is zero in exact arithmetic is rounding noise of that size), and at
+   the clamp in float32 against the f64 golden (ratio rule); the cutoff:
+   neighbour means at +-dta within a few ulps and equal sigmas at both ends,
+   under a rule of unit weights, no sample on the other side of |d| = dta
+   from the plain version's (both instances, both types), and at the true
+   rule every site within the tolerance; NaN means, sigmas and correlations
+   at a few sites: NaN exactly where the plain version has NaN and every
+   other site bit for bit the NaN-free call's; a shard's blocks (the (2, 2)
+   mesh's four and one at odd offsets) bit for bit the whole lattice's; each
+   kernel's time (sigma 0.05 and the init, the generic instance beside), the
+   plain version's, the bounds (``roofline.k10_work``, ``k11_work`` at the
+   data sheet's and the measured rates), the share of each and the SASS
+   issue bound (the K = 9 instance's whole function per point);
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -201,7 +223,9 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    ``tpu_fast``; then ``legacy_v1`` through
    ``make_problem(...)._replace(init_flow=...)`` and the segment runner (its
    quadratic prior is the block-matching flow; ``solve`` does not set it):
-   no kernel launched, the median interior mean within 0.15 of the prior's;
+   K10 and K11 launched once a sweep (300 each) and K1-K7 not at all, the
+   median interior mean within 0.15 of the prior's, the run's peak memory,
+   and ms a sweep of 300-sweep graph segments converged and from init;
 17. ``legacy_v2``'s ms a sweep (a 30-sweep segment from its solve's final
    state, in turns: v2, v1, v2), the node term's share of a sweep (K6 v2 and
    its finalize; through v1 and through the plain version beside it), K6
@@ -340,7 +364,11 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    ``legacy_v3``) beside the plain versions' and their bounds
    (``roofline.k8_work``, ``k9_work``, each variant's) at the data sheet's
    and the measured rates; each path's graph sweep in turns (v2, v1, the
-   plain glue, v2 again) with the capturing call's peak memory;
+   plain glue, v2 again) with the capturing call's peak memory, and on
+   ``legacy_v1`` two turns more: K8 v2 around the plain versions of K10 and
+   K11 (the sweep before them), and ``node_kernel = edge_kernel = "torch"``
+   (the plain sums and the plain glue), K10 and K11 once a sweep through
+   the kernels and not at all around the plain sums;
 31. last, since the profiler's hooks may stay in the process: one
    ``tpu_fast``, ``full_mixture`` and Chebyshev ``full_mixture`` sweep from
    sigma = 0.05 under ``torch.profiler``, and a 20-sweep graph segment of
@@ -348,14 +376,18 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    kernel count and the top operators; one ``tpu_fast`` and one
    ``full_mixture`` graph replay and a 20-sweep segment through K8 v2,
    through K8 and K9 v1 and through the plain glue: at most 4 (``tpu_fast``)
-   and 5 (``full_mixture``) kernels a sweep through v2, 20 through v1.
+   and 5 (``full_mixture``) kernels a sweep through v2, 20 through v1; one
+   ``legacy_v1`` graph replay through K10, K11 and K8 v2 (at most 4 kernels:
+   the raw lattice's copy beside them) and through K8 v2 around the plain
+   sums.
 
 It prints the kernels' record as one JSON line before the last (``launches``
 counts the main path's run: ``tpu_fast`` for K1, K2, K8 and K9 (K9 v2's tails,
 each run by K8 v2's last CTA inside its launch; ``launches_of_its_own``, K9
 v1's launches, is 0), ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
-solve for K6 and the ``legacy_v3`` solve for K7; ``launches_by_path``
+solve for K6, the ``legacy_v3`` solve for K7 and the ``legacy_v1`` run for
+K10 and K11; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
@@ -393,7 +425,7 @@ LANES_PER_CLOCK = 128  # H100 SXM: thread-instructions an SM issues a clock
 # clock) and "measured" (roofline.measure_ceilings), set in main()
 RATES = {}
 FAILURES = []
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11")
 
 
 def launch_counts(**launches):
@@ -483,10 +515,11 @@ def sass_loops(instrs, label_addr):
 def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
     """SASS instructions of each f32 kernel per unit of work. K1: its u-degree
     loop per mode (B x L modes an iteration; the recur loop has 3 L exp, the
-    exp loop L + 2 (B - 1) L). K2 and K3: the whole function of the instance
-    compiled for the main path's rule (K1 = k1, K = K; fully unrolled, so it
-    has no loop) per quadrature point of the elements a thread computes (K2:
-    both edges of a site; K3: one element), so the figure includes the
+    exp loop L + 2 (B - 1) L). K2, K3, K10 and K11: the whole function of the
+    instance compiled for the main path's rule (K1 = k1, K = K; fully
+    unrolled, so it has no loop) per quadrature point of the elements a
+    thread computes (K2: both edges of a site; K3, K11: one element; K10: one
+    site), so the figure includes the
     per-element set-up and epilogue; NOPs are not counted; beside it the
     function's MUFU.RSQ count. None where the function or loop is not found."""
     funcs = sass_functions(subprocess.run([cuobjdump, "-sass", path], capture_output=True,
@@ -501,7 +534,9 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         lp = [x for x in lps if x["ex2"] == ex2]
         per[f"K1 {body} mode"] = lp[0]["instructions"] / (B * L) if lp else None
     for k, key, points in (("K2", f"edge_reduced_kernelIfLi{k1}EE", 2 * k1),
-                           ("K3", f"edge_gq_kernelIfLi{K}EE", K * K)):
+                           ("K3", f"edge_gq_kernelIfLi{K}EE", K * K),
+                           ("K10", f"quad_node_kernelIfLi{K}EE", K * K),
+                           ("K11", f"truncquad_edge_kernelIfLi{K}EE", K * K)):
         ins = [i for _, i in find(key)[0] if not i.startswith("NOP")]
         per[f"{k} point"] = len(ins) / points if ins else None
         per[f"{k} rsq"] = sum("MUFU.RSQ" in i for i in ins) if ins else None
@@ -1366,6 +1401,267 @@ def kernels_k6_k7(dev, record, I1, I2, issue_ms):
         f"not a main path) {made}")
 
 
+QUAD_SHAPES = {  # name: (L, M, N): legacy_v1's lattice, the update phase's L = 20, a ragged one
+    "legacy_v1": (1, H, W),
+    "L=20": (20, H, W),
+    "ragged": (3, 61, 37),
+}
+QUAD_NODE = (9, 0.05)          # legacy_v1's K and the chip's quad_var (its prior dominant)
+QUAD_EDGE = (9, 1.0, 10.0)     # legacy_v1's K, gama and dta
+QUAD_RULES = ((9, False), (9, True), (5, True))  # (K, generic): K = 9's instance, the generic
+QUAD_PLAIN_CHUNK = {"L=20": 27}  # the plain versions' points a step (their temporaries)
+# the absolute floor of the K10/K11 checks, of the largest |Ei| (the size of
+# the terms every sum adds): a sum that is zero in exact arithmetic (K10's Sxy
+# at p = 0) is rounding noise of that size
+QUAD_FLOOR = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+def compare_quad(got, want, dtype):
+    """:func:`compare` with :data:`QUAD_FLOOR` beside each sum's tolerance."""
+    floor = QUAD_FLOOR[dtype] * float(want.Ei.abs().max())
+    abs_err, rel_err, ok = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        abs_err = max(abs_err, float(err.max()))
+        rel_err = max(rel_err, float(err.max()) / max(scale, 1e-300))
+        if dtype == torch.float64:
+            ok &= float(err.max()) <= F64_TOL * scale + floor
+        else:
+            ok &= bool((err <= F32_TOL[0] * scale + F32_TOL[1] * b.abs() + floor).all())
+    return abs_err, rel_err, ok
+
+
+def kernels_k10_k11(dev, record, issue_ms):
+    """Phase 6e: K10 (the quadratic prior's node sums) and K11 (the
+    truncated-quadratic tensor-rule edge sums) against their plain versions
+    on the card (see the module docstring); fills ``record["K10"]`` and
+    ``record["K11"]`` (``legacy_v1``'s lattice: error, times, bounds, SASS
+    issue bound). ``issue_ms(unit, work)``: the SASS issue bound of ``work``
+    units."""
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.kernels import edge_reduced_gq, quad_gq
+    from gqmap_tpu_torch.models import gqmap as pg
+    from gqmap_tpu_torch.ops.gq import gq_accumulate
+    from gqmap_tpu_torch.ops.potentials import make_edge_pot_truncquad
+    from gqmap_tpu_torch.ops.quadrature import build_table
+
+    log("phase kernels K10/K11")
+    t_phase = time.time()
+    f64, f32 = torch.float64, torch.float32
+    k10, k11 = quad_gq.quad_node_gq_cuda, quad_gq.truncquad_edge_gq_cuda
+    cfg = GQMAPConfig.legacy_v1(quad_var=QUAD_NODE[1], dtype="float64")
+    gen = torch.Generator().manual_seed(20)
+
+    def rand(lo, hi, shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=f64)).to(dev)
+
+    def probes(shape):
+        """init (``init_state``: wide sigma, no correlation), sigma = 0.05
+        (means over the flow range, |p| and |rho| up to 0.9) and the clamp
+        (every correlation at +-0.99999, sigma in [0.01, 3]); the prior over
+        the flow range"""
+        L, M, N = shape
+        st = pg.init_state(dataclasses.replace(cfg, L=L), FlowRange(*FR), (M, N), seed=L,
+                           device=dev)
+        sign = torch.where(rand(0, 1, (2, 2, L, M, N)) < 0.5, -1.0, 1.0)
+        out = {"init": st,
+               "sigma 0.05": st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                                         sigmav=torch.full_like(st.sigmav, 0.05),
+                                         pn=rand(-0.9, 0.9, st.pn.shape),
+                                         rou=rand(-0.9, 0.9, st.rou.shape)),
+               "clamp": st._replace(pn=0.99999 * sign[0, 0], rou=0.99999 * sign,
+                                    sigmau=rand(0.01, 3, st.sigmau.shape),
+                                    sigmav=rand(0.01, 3, st.sigmav.shape))}
+        return out, rand(FR[0], FR[1], (M, N, 2))
+
+    def args_of(st, prior, dtype):
+        """K10's (prior, five site fields) and K11's (mu, sg, u2e, o2e, rou)"""
+        site = [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+        mu, sg = torch.stack(site[:2]), torch.stack(site[2:4])
+        return ((prior.to(dtype), *site),
+                (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), st.rou.to(dtype)))
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    kinds = {"K10": (k10, quad_gq.quad_node_gq_torch, QUAD_NODE),
+             "K11": (k11, quad_gq.truncquad_edge_gq_torch, QUAD_EDGE)}
+    reason = ("no PyTorch call computes the K^2-point raw sums (six Stein sums of a potential "
+              "under the whitened tensor rule); the plain version is gq_accumulate's chain of "
+              "elementwise calls and sums")
+    recs = {k: dict(library_ms=None, library_reason=reason, checks=0) for k in kinds}
+    for name, shape in QUAD_SHAPES.items():
+        sts, prior = probes(shape)
+        chunk = QUAD_PLAIN_CHUNK.get(name, 0)
+        for sname, st in sts.items():
+            gold = None
+            for dtype in (f64, f32):
+                a10, a11 = args_of(st, prior, dtype)
+                for kern, args in (("K10", a10), ("K11", a11)):
+                    fn, plain, rest = kinds[kern]
+                    want = plain(*args, *rest, quad_chunk=chunk)
+                    for K, generic in QUAD_RULES if name != "L=20" else QUAD_RULES[:1]:
+                        if K == rest[0]:
+                            w = want
+                        else:
+                            w = plain(*args, K, *rest[1:], quad_chunk=chunk)
+                        got = fn(*args, K, *rest[1:], generic=generic)
+                        a, r, ok = compare_quad(got, w, dtype)
+                        label = (f"{kern} {name} {tuple(args[1].shape)} K={K} "
+                                 f"{'generic' if generic else 'specialised'} "
+                                 f"{str(dtype)[6:]} {sname}")
+                        recs[kern]["checks"] += 1
+                        if dtype == f32 and sname == "clamp":
+                            # each f32 version against the f64 golden on the same inputs
+                            g64 = plain(*(x.double() for x in args), K, *rest[1:],
+                                        quad_chunk=chunk)
+                            ek, ep = worst_rel(got, g64), worst_rel(w, g64)
+                            require(ek <= 2.0 * ep + 1e-6,
+                                    f"{label}: error vs f64 golden kernel {ek:.3e} <= 2 x plain "
+                                    f"{ep:.3e} + 1e-6 (kernel vs plain {a:.3e})")
+                            del g64
+                        else:
+                            require(ok, f"{label}: max abs err {a:.3e}, rel {r:.3e}")
+                        if (name, sname, dtype, K, generic) == ("legacy_v1", "sigma 0.05", f32,
+                                                                9, False):
+                            recs[kern]["max_abs_err"] = a
+                        del got
+                    del want
+        del sts
+        torch.cuda.empty_cache()
+
+    # times at legacy_v1's lattice: sigma 0.05 and the init, the generic
+    # instance beside; the plain version; the bounds
+    sts, prior = probes(QUAD_SHAPES["legacy_v1"])
+    for sname, st in (("sigma 0.05", sts["sigma 0.05"]), ("init", sts["init"])):
+        a10, a11 = args_of(st, prior, f32)
+        for kern, args in (("K10", a10), ("K11", a11)):
+            fn, plain, rest = kinds[kern]
+            rec = recs[kern]
+            tag = "" if sname == "sigma 0.05" else "init_"
+            rec[f"{tag}ms"], rec[f"{tag}ms_min"] = kernel_ms(lambda: fn(*args, *rest))
+            rec[f"{tag}plain_ms"] = time_ms(lambda: plain(*args, *rest), 5)
+            if sname != "sigma 0.05":
+                continue
+            rec["generic_ms"] = kernel_ms(lambda: fn(*args, *rest, generic=True))[0]
+            shape = tuple(args[1].shape) if kern == "K10" else tuple(args[4].shape)
+            work = (roofline.k10_work(shape, rest[0]) if kern == "K10"
+                    else roofline.k11_work(shape, rest[0]))
+            rec.update(bound(work), shape=list(shape))
+            rec["sass_issue_ms"] = issue_ms(f"{kern} point", math.prod(shape) * rest[0] ** 2)
+            rec["share"] = dict(sheet=rec["bound_ms"] / rec["ms"],
+                                measured=rec["bound_ms_measured"] / rec["ms"],
+                                issue=(rec["sass_issue_ms"] / rec["ms"]
+                                       if rec["sass_issue_ms"] else None))
+    card = smi("name,power.limit,clocks.sm")
+    for kern in kinds:
+        rec = recs[kern]
+        log(f"  {kern} {tuple(rec['shape'])} K=9 f32 on {card} (median, min) of {TIMING[0]} "
+            f"windows of {TIMING[1]} calls: sigma 0.05 ({rec['ms']:.4f}, {rec['ms_min']:.4f}) "
+            f"ms, init ({rec['init_ms']:.4f}, {rec['init_ms_min']:.4f}) ms, generic instance "
+            f"{rec['generic_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms (init "
+            f"{rec['init_plain_ms']:.4f}); {fmt_bound(rec)} ({rec['bound_terms_ms']}); SASS "
+            f"issue bound {rec['sass_issue_ms']} ms; share of the bound: data sheet "
+            f"{rec['share']['sheet']:.1%}, measured {rec['share']['measured']:.1%}")
+
+    # the cutoff: neighbour means at +-dta from endpoint 1's within a few ulps
+    # and equal sigmas at both ends, so the diagonal points' d lies within
+    # rounding of |d| = dta. Under a rule of unit weights (monomials 0) Ei
+    # is the sum of -d^2 / (2 gama) over the samples inside the cutoff, so a
+    # sample on the other side from the plain version's (|d| ~ dta there)
+    # changes its site's Ei by about dta^2 / (2 gama). Both instances, both
+    # types: no sample flipped; at the true rule every site within the
+    # tolerance. ``inside`` counts the plain version's samples with |d| <= dta
+    # (its own d, under the same unit rule)
+    L, M, N = QUAD_SHAPES["legacy_v1"]
+    K, gama, dta = QUAD_EDGE
+    edge = (2, 2, L, M, N)
+    mu = rand(-3, 3, (2, L, M, N))
+    side = torch.where(rand(0, 1, edge) < 0.5, -1.0, 1.0)
+    u2e = mu[None] + side * dta * (1 + rand(-3e-7, 3e-7, edge))
+    sg = rand(0.5, 3, (2, L, M, N))
+    cut = (mu, sg, u2e, sg[None].expand(edge).contiguous(), rand(-0.9, 0.9, edge))
+    unit = quad_gq.rule_values(K)
+    unit[K:] = 0.0
+    unit[K:K + K * K] = 1.0
+    tab = torch.as_tensor(np.stack(build_table(K, 0, np.float64)))
+    tab[2] = 1.0
+    one = dta * dta / (2 * gama)
+    flips = recs["K11"]["cutoff_flips"] = {}
+    for dtype in (f64, f32):
+        args = [x.to(dtype) for x in cut]
+        a, r, ok = compare_quad(k11(*args, *QUAD_EDGE), quad_gq.truncquad_edge_gq_torch(
+            *args, *QUAD_EDGE), dtype)
+        require(ok, f"K11 cutoff {str(dtype)[6:]} (legacy_v1's rule): max abs err {a:.3e}, "
+                    f"rel {r:.3e}")
+        want = gq_accumulate(make_edge_pot_truncquad(gama, dta), args[0][None], args[2],
+                             args[1][None], args[3], args[4], tab.to(dev, dtype))
+        inside = int(gq_accumulate(lambda x1, x2: ((x2 - x1).abs() <= dta).to(dtype),
+                                   args[0][None], args[2], args[1][None], args[3], args[4],
+                                   tab.to(dev, dtype)).Ei.sum())
+        kept = quad_gq.rule_values
+        quad_gq.rule_values = lambda K, dtype=np.float64: unit.astype(dtype)
+        try:
+            for generic in (False, True):
+                got = k11(*args, *QUAD_EDGE, generic=generic)
+                n = int(((got.Ei - want.Ei).abs() / one).round().sum())
+                key = f"{str(dtype)[6:]} {'generic' if generic else 'K=9'}"
+                flips[key] = n
+                require(n == 0 and 0.1 < inside / (K * K * want.Ei.numel()) < 0.9,
+                        f"K11 cutoff {key}: {n} samples on the other side of |d| = dta from "
+                        f"the plain version's, of {K * K * want.Ei.numel()} ({inside} inside)")
+        finally:
+            quad_gq.rule_values = kept
+
+    # NaN means, sigmas and correlations at a few sites: NaN exactly there
+    # (as in the plain version), every other site bit for bit the NaN-free
+    # call's; a shard's block (the (2, 2) mesh's four and one at odd offsets:
+    # its sites and a view of the prior's block) bit for bit the whole
+    # lattice's sums there
+    sts, prior = probes((2, H, W))
+    st = sts["sigma 0.05"]
+    blocks = [(slice(r0, r0 + H // 2), slice(c0, c0 + W // 2)) for r0 in (0, H // 2)
+              for c0 in (0, W // 2)] + [(slice(H // 10, H // 2 + 11), slice(11, W - W // 3))]
+    for dtype in (f64, f32):
+        a10, a11 = args_of(st, prior, dtype)
+        for kern, args in (("K10", a10), ("K11", a11)):
+            fn, plain, rest = kinds[kern]
+            base = fn(*args, *rest)
+            lead = 1 if kern == "K10" else 3  # the fields' leading axes
+            bad = ((0, 5, 7), (1, H // 2, 0), (1, H - 1, W - 1))
+            nan_ok = True
+            for i, at in enumerate(bad):
+                a2 = [x.clone() for x in args]
+                field = (1, 3, 5)[i] if kern == "K10" else (0, 1, 4)[i]
+                idx = at if a2[field].ndim == 3 else ((0,) * (a2[field].ndim - 3) + at)
+                a2[field][idx] = float("nan")
+                got, want = fn(*a2, *rest), plain(*a2, *rest)
+                for x, b, p in zip(got, base, want):
+                    nan = torch.isnan(x)
+                    nan_ok &= bool(torch.equal(nan, torch.isnan(p)) and nan.any()
+                                   and torch.equal(x[~nan], b[~nan]))
+            require(nan_ok, f"{kern} {str(dtype)[6:]} NaN sites: NaN exactly where the plain "
+                            "version has NaN, every other site bit for bit the NaN-free call's")
+            blk_ok = True
+            for rs, cs in blocks:
+                sl = (slice(None),) * lead + (rs, cs)
+                if kern == "K10":
+                    bargs = [args[0][rs, cs]] + [x[:, rs, cs].contiguous() for x in args[1:]]
+                else:
+                    bargs = ([x[:, :, rs, cs].contiguous() for x in args[:2]]
+                             + [x[:, :, :, rs, cs].contiguous() for x in args[2:]])
+                blk_ok &= all(torch.equal(x, b[sl]) for x, b in zip(fn(*bargs, *rest), base))
+            require(blk_ok, f"{kern} {str(dtype)[6:]}: a shard's block (the (2, 2) mesh's four, "
+                            "one at odd offsets) equals the whole lattice's sums there, bit for "
+                            "bit")
+    del sts, prior
+    torch.cuda.empty_cache()
+    record["K10"], record["K11"] = recs["K10"], recs["K11"]
+    log(f"  phase kernels K10/K11: {recs['K10']['checks'] + recs['K11']['checks']} checks "
+        f"against the plain versions, {time.time() - t_phase:.1f} s")
+
+
 def flow_sequence(seed, dev, H=H, W=W):
     """An H x W pair with a smooth, non-constant flow: smoothed noise as
     frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
@@ -1704,7 +2000,7 @@ def rank_main(rank, world, port, out_dir):
 
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
     from gqmap_tpu_torch.kernels import (cheb_gq, cosine_gq, edge_gq, edge_reduced_gq, nearest_gq,
-                                         node_gq)
+                                         node_gq, quad_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import EDGE
     from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
@@ -1718,7 +2014,8 @@ def rank_main(rank, world, port, out_dir):
     kfns = {"K1": cosine_gq.cos_mode_sums_cuda, "K2": edge_reduced_gq.edge_reduced_grads_cuda,
             "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda,
             "K5": cheb_gq.cheb_gq_cuda, "K6": nearest_gq.nearest_gq_cuda,
-            "K7": nearest_gq.nearest_chain_gq_cuda}
+            "K7": nearest_gq.nearest_chain_gq_cuda, "K10": quad_gq.quad_node_gq_cuda,
+            "K11": quad_gq.truncquad_edge_gq_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -2458,6 +2755,11 @@ UPDATE_LAUNCH_LIMIT = 4
 UPDATE_LAUNCH_LIMIT_EXACT = 5
 UPDATE_LAUNCH_LIMIT_V1 = 20  # v1: K9 a launch, the step, softmax, K1's stack, a copy
 UPDATE_CARRY_SWEEPS = 3  # device-loop sweeps whose carry is held to its torch expressions
+# legacy_v1's extra turns: K8 v2 around the plain versions of K10 and K11 (the
+# sweep before K10 and K11), and node_kernel = edge_kernel = "torch" (the
+# plain sums and the plain glue)
+QUAD_TURNS = ("plain sums", "torch routes")
+QUAD_REPLAY_KERNELS = 4  # legacy_v1's sweep under replay: K10, K11, K8 v2, the lattice's copy
 
 
 def update_problem(pg, cfg, fr, dev, pair):
@@ -2718,6 +3020,7 @@ def update_phase(dev, record, by_path, ufns):
     with the capturing call's peak memory. (One replay's kernels and the
     idle share are profiled in the last phase.)"""
     from gqmap_tpu_torch import FlowRange, solve
+    from gqmap_tpu_torch.kernels import quad_gq
     from gqmap_tpu_torch.kernels import sweep_update as su
     from gqmap_tpu_torch.models import gqmap as pg
 
@@ -2908,7 +3211,7 @@ def update_phase(dev, record, by_path, ufns):
 
     # ---- each path's graph sweep in turns: v2, v1, plain glue, v2 again
     turns = out["graph_ms"] = {}
-    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9")
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11")
     for path, base in UPDATE_PATHS.items():
         cfg = dataclasses.replace(base, its=100000, eval_every=UPDATE_SWEEPS, tor=0.0)
         problem = update_problem(pg, cfg, fr, dev, pair)
@@ -2916,7 +3219,8 @@ def update_phase(dev, record, by_path, ufns):
         st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
                          sigmav=torch.full_like(st.sigmav, 0.05))
         runners, peaks = {}, {}
-        for route in ("v2", "v1", "plain"):
+        routes = ("v2", "v1", "plain") + (QUAD_TURNS if path == "legacy_v1" else ())
+        for route in routes:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             held = torch.cuda.memory_allocated()
@@ -2924,29 +3228,45 @@ def update_phase(dev, record, by_path, ufns):
             if route == "plain":
                 force_plain()
             pg.UPDATE_VARIANT["K8"] = "v1" if route == "v1" else "v2"
+            kept = dict(pg._NODE_QUAD), dict(pg._EDGE_ROUTES["K11"])
+            if route == "plain sums":  # K8 v2 around the plain versions of K10 and K11
+                pg._NODE_QUAD["auto"] = quad_gq.quad_node_gq_torch
+                pg._EDGE_ROUTES["K11"]["auto"] = quad_gq.truncquad_edge_gq_torch
+            rcfg = (dataclasses.replace(cfg, node_kernel="torch", edge_kernel="torch")
+                    if route == "torch routes" else cfg)
             try:
-                seg = runners[route] = pg.make_segment_runner(cfg, (H, W))
+                seg = runners[route] = pg.make_segment_runner(rcfg, (H, W))
                 seg(problem, st, 10)  # the capture
             finally:
                 restore()
+                pg._NODE_QUAD.update(kept[0])
+                pg._EDGE_ROUTES["K11"].update(kept[1])
             torch.cuda.synchronize()
             peaks[route] = (torch.cuda.max_memory_allocated() - held) / 2**30
             require(seg.route == "graph", f"update {path} {route}: route {seg.route!r}")
         ms = {}
-        for route in ("v2", "v1", "plain", "v2 again"):
-            seg = runners[route.split()[0]]
+        for route in routes[:3] + ("v2 again",) + routes[3:]:
+            seg = runners["v2" if route == "v2 again" else route]
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
             seg(problem, st, UPDATE_SWEEPS)
             t1.record()
             torch.cuda.synchronize()
             ms[route] = t0.elapsed_time(t1) / UPDATE_SWEEPS
-        deltas = {r: dict(zip(names, runners[r]._captured.deltas)) for r in ("v2", "v1")}
+        deltas = {r: dict(zip(names, runners[r]._captured.deltas))
+                  for r in ("v2", "v1") + routes[3:]}
         turns[path] = dict(ms, capture_GiB_above_held=peaks, counted_launches_a_sweep=deltas)
         log(f"  {path} graph, ms a sweep ({UPDATE_SWEEPS} sweeps from sigma 0.05): v2 "
             f"{ms['v2']:.4f}, v1 {ms['v1']:.4f}, plain glue {ms['plain']:.4f}, v2 again "
-            f"{ms['v2 again']:.4f}; capturing call's peak above held, GiB: {peaks}; counted "
-            f"launches a sweep {deltas}")
+            f"{ms['v2 again']:.4f}"
+            + "".join(f", {r} {ms[r]:.4f}" for r in routes[3:])
+            + f"; capturing call's peak above held, GiB: {peaks}; counted launches a sweep "
+            f"{deltas}")
+        if path == "legacy_v1":
+            q = deltas["v2"]
+            require(q["K10"] == q["K11"] == 1 and deltas["plain sums"]["K10"] == 0,
+                    f"update legacy_v1: one K10 and one K11 launch a sweep through the kernels, "
+                    f"none through the plain sums ({deltas})")
         del runners, seg, problem
         torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
@@ -2964,6 +3284,7 @@ def profiles_phase(dev, record):
     kernels a sweep (at most :data:`UPDATE_LAUNCH_LIMIT` and
     :data:`UPDATE_LAUNCH_LIMIT_EXACT` through v2) and the idle share."""
     from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.kernels import quad_gq
     from gqmap_tpu_torch.kernels import sweep_update as su
     from gqmap_tpu_torch.models import gqmap as pg
 
@@ -3033,6 +3354,35 @@ def profiles_phase(dev, record):
                     f"through K8 and K9 v1 (at most {UPDATE_LAUNCH_LIMIT_V1})")
         del problem
         torch.cuda.empty_cache()
+    # legacy_v1: one sweep under replay through K10, K11 and K8 v2 (and the raw
+    # lattice's copy), and through K8 v2 around the plain versions of K10 and K11
+    cfg = GQMAPConfig.legacy_v1(quad_var=0.05, tor=0.0)
+    problem = update_problem(pg, cfg, fr, dev, (I1, I2))
+    st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+    st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                     sigmav=torch.full_like(st.sigmav, 0.05))
+    for route in ("kernels", "plain sums"):
+        kept_routes = dict(pg._NODE_QUAD), dict(pg._EDGE_ROUTES["K11"])
+        if route == "plain sums":
+            pg._NODE_QUAD["auto"] = quad_gq.quad_node_gq_torch
+            pg._EDGE_ROUTES["K11"]["auto"] = quad_gq.truncquad_edge_gq_torch
+        try:
+            seg = pg.make_segment_runner(cfg, (H, W))
+            seg(problem, st, 10)
+        finally:
+            pg._NODE_QUAD.update(kept_routes[0])
+            pg._EDGE_ROUTES["K11"].update(kept_routes[1])
+        rep = record["profile"][f"legacy_v1 graph replay, {route}"] = profile_call(
+            seg._captured.graph.replay)
+        count["legacy_v1", route] = rep["kernels"]
+        log(f"  one legacy_v1 sweep under replay, {route}: {rep['kernels']} kernels, "
+            f"{rep['device_ms']:.4f} ms on the card of {rep['wall_ms']:.4f} wall "
+            f"({rep['top_ops_device_ms']})")
+        del seg
+    require(count["legacy_v1", "kernels"] <= QUAD_REPLAY_KERNELS,
+            f"a legacy_v1 sweep under replay launches {count['legacy_v1', 'kernels']} kernels "
+            f"through K10, K11 and K8 v2 (at most {QUAD_REPLAY_KERNELS}; around the plain sums "
+            f"{count['legacy_v1', 'plain sums']})")
 
 
 def main():
@@ -3043,7 +3393,7 @@ def main():
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
     from gqmap_tpu_torch.kernels import (build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                         nearest_gq, node_gq, sweep_update)
+                                         nearest_gq, node_gq, quad_gq, sweep_update)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize
@@ -3055,6 +3405,7 @@ def main():
     # K9 v1 (a launch of its own, on the v1 route only)
     ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_v2,
             "K9 v1": sweep_update.sweep_tail_cuda}
+    qfns = {"K10": quad_gq.quad_node_gq_cuda, "K11": quad_gq.truncquad_edge_gq_cuda}
 
     # ---- 1. the card
     card = smi("name,power.limit")
@@ -3083,13 +3434,14 @@ def main():
     issue_rate = roofline.SMS * LANES_PER_CLOCK * float(max_clock.split()[0]) * 1e6
     RATES["datasheet"] = roofline.datasheet_rates(float(max_clock.split()[0]))
     log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
-        "mode; K2 and K3: the main path's rule instance, whole function (set-up and "
+        "mode; K2, K3, K10 and K11: the main path's rule instance, whole function (set-up and "
         "epilogue included) per point, and its MUFU.RSQ count")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
                  "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point",
-                 "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round"):
+                 "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
+                 "K11 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -3301,7 +3653,7 @@ def main():
     del crop, prob, gold, plain32, kern32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    for f in (k1_fn, k2_fn, *ufns.values()):
+    for f in (k1_fn, k2_fn, *ufns.values(), *qfns.values()):
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -3309,7 +3661,8 @@ def main():
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = {"K1": k1_fn.launches, "K2": k2_fn.launches,
-                **{k: f.launches for k, f in ufns.items()}}
+                **{k: f.launches for k, f in ufns.items()},
+                **{k: f.launches for k, f in qfns.items()}}
     peak = torch.cuda.max_memory_allocated()
     require(res.iters == 900, f"solve ran {res.iters} sweeps (900 asked)")
     require(bool(np.isfinite(res.Energy[:res.iters]).all()), "energy finite over every sweep")
@@ -3317,9 +3670,9 @@ def main():
     require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
                                     "(at most half)")
     require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters,
-                         "K9 v1": 0},
+                         "K9 v1": 0, "K10": 0, "K11": 0},
             f"launch counters {launches} equal the sweep count {res.iters} (K9 v2's tails run "
-            f"in K8 v2's launches; no K9 v1 launch)")
+            f"in K8 v2's launches; no K9 v1, K10 or K11 launch)")
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
@@ -3441,6 +3794,9 @@ def main():
     kernels_k6_k7(dev, record, I1, I2, issue_ms)
     k6_fn, k7_fn = nearest_gq.nearest_gq_cuda, nearest_gq.nearest_chain_gq_cuda
 
+    # ---- 6e. K10 and K11 against their plain versions
+    kernels_k10_k11(dev, record, issue_ms)
+
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
     fprob = {torch.float32: pg.make_problem(fm32, I1, I2, fr, dev),
@@ -3459,7 +3815,7 @@ def main():
     del fprob
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    for f in (k1_fn, k2_fn, k3_fn, k4_fn, k5_fn, k6_fn, k7_fn):
+    for f in (k1_fn, k2_fn, k3_fn, k4_fn, k5_fn, k6_fn, k7_fn, *qfns.values()):
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -3468,7 +3824,7 @@ def main():
     fwall = time.time() - t
     flaunch = {"K1": k1_fn.launches, "K2": k2_fn.launches, "K3": k3_fn.launches,
                "K4": k4_fn.launches, "K5": k5_fn.launches, "K6": k6_fn.launches,
-               "K7": k7_fn.launches}
+               "K7": k7_fn.launches, **{k: f.launches for k, f in qfns.items()}}
     fpeak = torch.cuda.max_memory_allocated()
     record["peak_GiB"] = {"full_mixture": fpeak / 2**30}
     require(fres.iters == fm32.its, f"solve ran {fres.iters} sweeps ({fm32.its} asked)")
@@ -3684,7 +4040,7 @@ def main():
     # ---- 12. the super presets through the user entry point
     log("phase super solves")
     kfns = {"K1": k1_fn, "K2": k2_fn, "K3": edge_gq.edge_gq_cuda, "K4": k4_fn, "K5": k5_fn,
-            "K6": k6_fn, "K7": k7_fn}
+            "K6": k6_fn, "K7": k7_fn, **qfns}
     by_path = {"tpu_fast": launches, "full_mixture": flaunch}
 
     def counted_solve(path, cfg, want, **kw):
@@ -3904,23 +4260,51 @@ def main():
     # legacy_v1: its quadratic prior is Problem.init_flow, which solve() does
     # not set (as in the JAX package), so it runs through the segment runner;
     # with a dominant prior (quad_var = 0.05) the means track the
-    # block-matching flow (tests/test_solver.py:178-199)
+    # block-matching flow (tests/test_solver.py:178-199). K10 computes the
+    # prior's sums and K11 the truncated-quadratic edges', once a sweep each
     v1_32 = GQMAPConfig.legacy_v1(its=300, quad_var=0.05)
     v1p = pg.make_problem(v1_32, I1, I2, fr, dev)._replace(
         init_flow=torch.as_tensor(bm_flow, device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for f in kfns.values():
         f.launches = 0
-    v1st, v1n, v1e, *_ = pg.make_segment_runner(v1_32, (H, W))(
-        v1p, pg.init_state(v1_32, fr, (H, W), device=dev), 300)
+    v1init = pg.init_state(v1_32, fr, (H, W), device=dev)
+    v1st, v1n, v1e, *_ = pg.make_segment_runner(v1_32, (H, W))(v1p, v1init, 300)
+    torch.cuda.synchronize()
+    v1peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     by_path["legacy_v1"] = counts = {k: f.launches for k, f in kfns.items()}
     med = float(v1st.muu[0, 1:-1, 1:-1].median())
     want_u = float(np.median(bm_flow[1:-1, 1:-1, 0]))
-    require(counts == launch_counts(),
-            f"legacy_v1: launch counters {counts} all 0 (truncated-quadratic edges)")
+    require(counts == launch_counts(K10=v1n, K11=v1n) and v1n == 300,
+            f"legacy_v1: launch counters {counts}: K10 and K11 once a sweep of "
+            f"{v1n} (300 asked)")
     require(bool(torch.isfinite(v1e[:v1n]).all()), "legacy_v1: energy finite over every sweep")
     require(abs(med - want_u) < 0.15, f"legacy_v1: median interior mean u {med:.4f} within 0.15 "
                                       f"of the prior's {want_u:.4f} after {v1n} sweeps")
-    del v1p
+    # ms a sweep of 300-sweep graph segments: converged (from the run's final
+    # state) and from the init
+    v1seg = pg.make_segment_runner(dataclasses.replace(v1_32, its=100000, tor=0.0), (H, W))
+    v1ms = {}
+    for sname, st in (("converged", v1st), ("from init", v1init)):
+        v1seg(v1p, st, 5)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        done = v1seg(v1p, st, 300)[1]
+        t1.record()
+        torch.cuda.synchronize()
+        require(done == 300 and v1seg.route == "graph",
+                f"legacy_v1 segment {sname}: {done} sweeps on route {v1seg.route!r}")
+        v1ms[sname] = t0.elapsed_time(t1) / 300
+    record["legacy_v1"] = dict(segment_ms_per_sweep=v1ms, run_GiB_above_held=v1peak,
+                               card=smi("name,power.limit"))
+    log(f"  legacy_v1 on {record['legacy_v1']['card']}: 300-sweep graph segments "
+        f"{v1ms['converged']:.4f} ms a sweep converged, {v1ms['from init']:.4f} from init; the "
+        f"300-sweep run's peak {v1peak:.4f} GiB above the {held / 2**30:.3f} GiB held (its "
+        "capture included)")
+    del v1p, v1seg
 
     # ---- 17. legacy_v2's sweep: time, node term, table build, memory
     log("phase legacy_v2 sweep")
@@ -4047,9 +4431,8 @@ def main():
     update_phase(dev, record, by_path, ufns)
     profiles_phase(dev, record)
 
-    for k in kfns:
-        record[k]["launches_by_path"] = {path: c.get(k, 0) for path, c in by_path.items()}
-    for k in ufns:
+    # only the runs that set a kernel's counter to 0 and read it list it
+    for k in (*kfns, *ufns):
         record[k]["launches_by_path"] = {path: c[k] for path, c in by_path.items() if k in c}
     log("  launches per path: " + json.dumps(by_path))
     log("  records: " + json.dumps({k: v for k, v in record.items()
@@ -4091,6 +4474,13 @@ def main():
              replaces="gqmap_tpu/models/gqmap.py:572-616 the passes' sums, alpha update, anneal "
                       "and counter (XLA fusion, no Pallas)", launches=launches["K9"],
              launches_of_its_own=launches["K9 v1"], **record["K9"]),
+        dict(name="quad_node_gq (K10)", route="cuda", source="gqmap_tpu_torch/csrc/quad_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:321 (XLA scan, no "
+                      "Pallas)", launches=by_path["legacy_v1"]["K10"], **record["K10"]),
+        dict(name="truncquad_edge_gq (K11)", route="cuda",
+             source="gqmap_tpu_torch/csrc/quad_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:296 (XLA scan, no "
+                      "Pallas)", launches=by_path["legacy_v1"]["K11"], **record["K11"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

@@ -34,10 +34,12 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 __all__ = ["build_library", "library_path", "load_library", "library_for",
-           "require_capability", "check", "NVCC_FLAGS", "CAPABILITY"]
+           "require_capability", "check", "check_operands", "rule_args", "NVCC_FLAGS",
+           "CAPABILITY"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -85,6 +87,14 @@ _SIGNATURES = {
     # r0, c0, K, rfc, lam, eps, device, stream
     "gqmap_nearest_chain_v2_f32": [_P] * 12 + [_I] * 11 + [_D] * 2 + [_I, _P],
     "gqmap_nearest_chain_v2_f64": [_P] * 12 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    # muu, muv, su, sv, pn, prior, rule_host, rule_dev, out, L, M, N, K, the prior's strides
+    # (3, in elements), scale, device, stream (kernels/quad_gq.quad_node_gq_cuda, K10)
+    "gqmap_quad_node_gq_f32": [_P] * 9 + [_I] * 7 + [_D, _I, _P],
+    "gqmap_quad_node_gq_f64": [_P] * 9 + [_I] * 7 + [_D, _I, _P],
+    # mu, sg, u2e, o2e, rou, rule_host, rule_dev, out, DC, C, L, S, K, dta, scale, device,
+    # stream (kernels/quad_gq.truncquad_edge_gq_cuda, K11)
+    "gqmap_truncquad_edge_gq_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_truncquad_edge_gq_f64": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
     # ptrs (27 device pointers), consts (19 doubles), node_form, edge_form, L, M, N, colour,
     # device, stream (kernels/sweep_update.site_update_cuda, K8)
     "gqmap_site_update_f32": [_P] * 2 + [_I] * 7 + [_P],
@@ -217,3 +227,52 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = load_library().gqmap_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def check_operands(name: str, like: torch.Tensor, named) -> None:
+    """Raise unless ``like`` is a float32 or float64 CUDA tensor and every
+    ``(what, x, shape)`` of ``named`` has that shape, ``like``'s device and
+    dtype, and is contiguous."""
+    if like.device.type != "cuda":
+        raise RuntimeError(f"{name} needs CUDA tensors, got {like.device}")
+    if like.dtype not in _NP_DTYPES:
+        raise TypeError(f"{name} takes float32 or float64, not {like.dtype}")
+    for what, x, shape in named:
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{what} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+        if x.device != like.device or x.dtype != like.dtype:
+            raise ValueError(f"{what} must share the state's device and dtype")
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _rule_host(values, K: int, dtype: torch.dtype) -> np.ndarray:
+    """``values(K, dtype)`` on the host, kept alive by the cache."""
+    return np.ascontiguousarray(values(K, _NP_DTYPES[dtype]))
+
+
+@functools.lru_cache(maxsize=None)
+def _rule_dev(values, K: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values(K, dtype)`` on the device, kept alive by the cache."""
+    return torch.as_tensor(values(K, _NP_DTYPES[dtype]), device=device)
+
+
+def rule_args(values, K: int, specialised, generic: bool, like: torch.Tensor):
+    """The rule of a kernel with rule instances (K3, K10, K11):
+    ``(held, rule_host, rule_dev)``. ``values(K, numpy dtype)`` gives the
+    rule's values in the order the kernel reads them. For K in
+    ``specialised`` (and ``generic`` false) ``rule_host`` points at them on
+    the host, which selects the instance compiled for K (the launch copies
+    them into its parameters); otherwise ``rule_dev`` points at them on
+    ``like``'s device, which selects the generic instance. ``held`` is the
+    array or tensor pointed at: the caller keeps it until the launch has
+    read it."""
+    if generic or K not in specialised:
+        held = _rule_dev(values, K, like.dtype, like.device)
+        return held, None, held.data_ptr()
+    held = _rule_host(values, K, like.dtype)
+    return held, held.ctypes.data, None

@@ -25,8 +25,6 @@ from a table on the card.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -90,49 +88,21 @@ def edge_gq_torch(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float) ->
                          table_on(K, 0, False, mu.dtype, mu.device))
 
 
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
-
-
-@functools.lru_cache(maxsize=None)
-def _rule_host(K: int, dtype: torch.dtype) -> np.ndarray:
-    """:func:`paired_rule` on the host, for a specialised instance (copied
-    into the launch's parameters); kept alive by the cache."""
-    return np.ascontiguousarray(paired_rule(K, _NP_DTYPES[dtype]))
-
-
-@functools.lru_cache(maxsize=None)
-def _rule_dev(K: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """:func:`paired_rule` on the device, for the generic instance."""
-    return torch.as_tensor(paired_rule(K), dtype=dtype, device=device)
-
-
 def edge_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float,
                  generic: bool = False) -> GQRaw:
     """Kernel K3: the instance compiled for K if K is in :data:`SPECIALISED`
     and ``generic`` is false, else the generic instance."""
-    if mu.device.type != "cuda":
-        raise RuntimeError(f"edge_gq_cuda needs CUDA tensors, got {mu.device}")
-    if mu.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"edge_gq_cuda takes float32 or float64, not {mu.dtype}")
     if mu.ndim != 4:
         raise ValueError(f"mu must be (C, L, M, N), got {tuple(mu.shape)}")
     C, L, M, N = mu.shape
     D = u2e.shape[0]
     edge = (D, C, L, M, N)
-    for name, x, shape in (("mu", mu, mu.shape), ("sg", sg, mu.shape), ("u2e", u2e, edge),
-                           ("o2e", o2e, edge), ("rou", rou, edge)):
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-        if x.device != mu.device or x.dtype != mu.dtype:
-            raise ValueError(f"{name} must share mu's device and dtype")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
+    build.check_operands("edge_gq_cuda", mu, (("mu", mu, mu.shape), ("sg", sg, mu.shape),
+                                              ("u2e", u2e, edge), ("o2e", o2e, edge),
+                                              ("rou", rou, edge)))
     K = int(K)
-    if generic or K not in SPECIALISED:
-        rule_host, rule_dev = None, _rule_dev(K, mu.dtype, mu.device).data_ptr()
-    else:
-        rule_host, rule_dev = _rule_host(K, mu.dtype).ctypes.data, None
+    # `rule` holds what rule_host or rule_dev points at through the launch
+    rule, rule_host, rule_dev = build.rule_args(paired_rule, K, SPECIALISED, generic, mu)
     out = torch.empty((6, D * C, L, M, N), dtype=mu.dtype, device=mu.device)
     lib = build.library_for(mu.device)
     fn = lib.gqmap_edge_gq_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_gq_f64

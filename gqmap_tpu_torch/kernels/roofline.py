@@ -22,7 +22,7 @@ Port of ``gqmap_tpu/kernels/roofline.py``, rebuilt for an NVIDIA card:
 * :func:`flagship_roofline` times kernel K1 alone in ``"v1"`` against its
   operation, ``exp`` and memory bounds, and the ``tpu_fast`` sweep inside a
   300-sweep segment against its kernels' bounds.
-* :func:`k1_work` to :func:`k9_work` count what each kernel's function
+* :func:`k1_work` to :func:`k11_work` count what each kernel's function
   must do at given shapes: bytes (each input read once, each output
   written once; for K6 and K7 the table bytes are the distinct 32-byte
   sectors the state's lookups touch, which the caller counts), float32
@@ -55,7 +55,7 @@ import torch
 
 __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "kernel_ms",
            "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "k6_work", "k7_work", "k8_work",
-           "k9_work", "update_bound_ms", "bound",
+           "k9_work", "k10_work", "k11_work", "update_bound_ms", "bound",
            "datasheet_rates", "measured_rates", "card_line", "FLOPS", "TIMING"]
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, float32 rate outside the
@@ -109,12 +109,23 @@ L1_BYTES_PER_CLOCK = 128
 # du2 and do2 with their own 1 - p^2 and root) "K8 raw edge"; per site the
 # assembly 16, the nine clamped steps (x + dx s and two compares) 36, sstep
 # 1, the energy and dalpha 10 and two magnitudes "K8 site".
+# K10 per point (fu - x1 and fv - x2 each a column term less a row term 2;
+# du^2 + dv^2 3; w g 1; Ei 1; the five other sums 10, their weights being
+# rule constants) "K10 point"; per node of the K (the column and row terms
+# a - o1e s x, o1e t x, b - o2e t x, o2e s x) "K10 node"; a site (a, b 2;
+# s, t 6 and two roots; o1e, o2e 2; their products with s and t 4; Z1, Z2
+# 6; the scale 6) "K10 site". K11 per point (z_i, z_j 2 from per-node
+# products s x, t x; x1, x2 4; d 1; d^2 1; w d^2 1; Ei 1; the five other
+# sums 10; the cutoff's compare and select not counted) "K11 point"; per
+# node its two products "K11 node"; an element (s, t 6 and two roots;
+# o1e, o2e 2; Z1, Z2 6; the scale 6) "K11 site".
 FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K3 pair": 25, "K3 centre": 7, "K3 element": 10, "K4 point": 50, "K4 tap row": 7,
          "K4 pixel": 5, "K4 site": 20, "K6 point": 20, "K6 line": 4, "K6 tap": 4,
          "K6 site": 14, "K7 point": 35, "K7 site": 15, "stencil chain": 8,
          "K8 modes": 40, "K8 raw": 46, "K8 chain": 60, "K8 grads edge": 1,
-         "K8 raw edge": 50, "K8 site": 65}
+         "K8 raw edge": 50, "K8 site": 65, "K10 point": 17, "K10 node": 6, "K10 site": 26,
+         "K11 point": 20, "K11 node": 2, "K11 site": 20}
 SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
@@ -332,6 +343,27 @@ def k9_work(L: int, M: int, N: int, passes: int = 1, itemsize: int = 4,
     blocks = tile_blocks(M, N) if variant == "v2" else partial_blocks(M, N)
     parts = passes * L * blocks * 4
     return dict(bytes=parts * itemsize, flops=parts, roots=0)
+
+
+def k10_work(site_shape, K: int, itemsize: int = 4) -> dict:
+    """K10 on ``(L, M, N)`` sites with the K^2-point rule: the 5 state fields
+    and the ``(M, N, 2)`` prior read once (the prior shared by the L
+    components), 6 raw sums written; :data:`FLOPS`' operations, two roots a
+    site."""
+    L, M, N = site_shape
+    sites = L * M * N
+    flops = sites * (K * K * FLOPS["K10 point"] + K * FLOPS["K10 node"] + FLOPS["K10 site"])
+    return dict(bytes=(5 * sites + 2 * M * N + 6 * sites) * itemsize, flops=flops,
+                roots=2 * sites)
+
+
+def k11_work(edge_shape, K: int, itemsize: int = 4) -> dict:
+    """K11 on the ``(2, 2, L, M, N)`` edge lattice with the K^2-point rule:
+    mu, sigma and rho read, 6 raw sums written (:func:`k3_work`'s bytes);
+    :data:`FLOPS`' operations, two roots an element."""
+    n_el = math.prod(edge_shape)
+    flops = n_el * (K * K * FLOPS["K11 point"] + K * FLOPS["K11 node"] + FLOPS["K11 site"])
+    return dict(bytes=(2 * n_el + 6 * n_el) * itemsize, flops=flops, roots=2 * n_el)
 
 
 def update_bound_ms(cfg, site_shape, node_form: str, edge_form: str, rates: dict) -> float:

@@ -18,9 +18,11 @@ truncated-quadratic edges, and the Prewitt (chain-rule) and autodiff
 (``torch.autograd`` of the expected energy) gradient estimators. Kernels
 launch where the JAX package would run its Pallas kernels: K1 for the
 cosine term, K2 / K3 for Charbonnier edges, never under autodiff; and
-where it scans the nearest lookup (kernel K6, with or without the window)
-and the Prewitt chain (kernel K7); the truncated-quadratic edges and the
-autodiff sums are the plain ones, as they are the JAX package's XLA ones.
+where it scans the nearest lookup (kernel K6, with or without the window),
+the Prewitt chain (kernel K7), the quadratic prior (kernel K10) and the
+truncated-quadratic edges under the tensor rule (kernel K11); the reduced
+truncated-quadratic edges and the autodiff sums are the plain ones, as they
+are the JAX package's XLA ones.
 
 The Chebyshev data term (``data_term="chebyshev"``,
 :mod:`gqmap_tpu_torch.ops.chebyshev`) runs through the K^2-point node
@@ -77,6 +79,8 @@ from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cu
 from ..kernels.nearest_gq import (nearest_chain_gq, nearest_chain_gq_cuda, nearest_chain_gq_torch,
                                   nearest_gq, nearest_gq_cuda, nearest_gq_torch)
 from ..kernels.node_gq import node_gq, node_gq_cuda, node_gq_torch
+from ..kernels.quad_gq import (quad_node_gq, quad_node_gq_cuda, quad_node_gq_torch,
+                               truncquad_edge_gq, truncquad_edge_gq_cuda, truncquad_edge_gq_torch)
 from ..kernels.sweep_update import (MAX_CARRY_L, Carry, EdgeSums, NodeSums, Tail,
                                     lattice_views, site_update_cuda, site_update_torch, stack2,
                                     step_of, step_torch, sweep_tail_cuda, sweep_tail_torch)
@@ -121,12 +125,17 @@ _NODE_CHEB = {"auto": cheb_gq, "cuda": cheb_gq_cuda, "torch": cheb_gq_torch}
 _NODE_NEAREST = {"auto": nearest_gq, "cuda": nearest_gq_cuda, "torch": nearest_gq_torch}
 _NODE_CHAIN = {"auto": nearest_chain_gq, "cuda": nearest_chain_gq_cuda,
                "torch": nearest_chain_gq_torch}
-# edge_quad -> edge_kernel -> the K2 route (finalized gradients) or the K3
-# route (raw sums, finalized here)
+# the quadratic prior's K10 route (raw sums)
+_NODE_QUAD = {"auto": quad_node_gq, "cuda": quad_node_gq_cuda, "torch": quad_node_gq_torch}
+# the edge term's kernel (_edge_kernel) -> edge_kernel -> its route: K2
+# (finalized gradients) or K3 (raw sums, finalized here) of Charbonnier
+# edges, K11 (raw sums) of truncated-quadratic tensor-rule edges
 _EDGE_ROUTES = {
-    "reduced": {"auto": edge_reduced_grads, "cuda": edge_reduced_grads_cuda,
-                "torch": edge_reduced_grads_torch},
-    "tensor": {"auto": edge_gq, "cuda": edge_gq_cuda, "torch": edge_gq_torch},
+    "K2": {"auto": edge_reduced_grads, "cuda": edge_reduced_grads_cuda,
+           "torch": edge_reduced_grads_torch},
+    "K3": {"auto": edge_gq, "cuda": edge_gq_cuda, "torch": edge_gq_torch},
+    "K11": {"auto": truncquad_edge_gq, "cuda": truncquad_edge_gq_cuda,
+            "torch": truncquad_edge_gq_torch},
 }
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _E_CONST1 = 1.0 + math.log(2.0 * math.pi)  # entropy constant of a bivariate Gaussian
@@ -195,8 +204,10 @@ def check_supported(cfg: GQMAPConfig) -> None:
     that no kernel computes: K1 computes only the cosine term's Stein sums,
     K4 only the bicubic term's (without a window), K5 only the Chebyshev
     term's (at most ``MAX_Q`` v-degrees), K6 only the nearest lookup's (with
-    or without a window), K7 only the Prewitt chain's, K2 and K3 only
-    Charbonnier edges, and the autodiff estimator differentiates plain sums.
+    or without a window), K7 only the Prewitt chain's, K10 only the quadratic
+    prior's, K2 and K3 only Charbonnier edges, K11 only truncated-quadratic
+    edges under the tensor rule, and the autodiff estimator differentiates
+    plain sums.
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -214,16 +225,18 @@ def check_supported(cfg: GQMAPConfig) -> None:
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
             f"Stein sums, kernel K4, which computes the bicubic term's without a window, "
             f"kernel K5, which computes the Chebyshev term's with at most {MAX_Q} v-degrees, "
-            f"kernel K6, which computes the nearest lookup's, or kernel K7, which computes the "
-            f"Prewitt chain's; with data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, "
+            f"kernel K6, which computes the nearest lookup's, kernel K7, which computes the "
+            f"Prewitt chain's, or kernel K10, which computes the quadratic prior's; with "
+            f"data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, "
             f"cheb_q={cfg.cheb_q} and gradient_estimator={cfg.gradient_estimator!r} the node "
             "term is plain torch (use 'auto' or 'torch')")
-    if cfg.edge_kernel == "cuda" and (cfg.edge_kind != "charbonnier" or autodiff):
+    if cfg.edge_kernel == "cuda" and (_edge_kernel(cfg) is None or autodiff):
         raise ValueError(
-            f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges "
-            f"for the Stein and Prewitt estimators; with edge_kind={cfg.edge_kind!r} and "
-            f"gradient_estimator={cfg.gradient_estimator!r} the edge sums are plain torch "
-            "(use 'auto' or 'torch')")
+            f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges, "
+            f"or kernel K11, which computes truncated-quadratic edges under the tensor rule, "
+            f"for the Stein and Prewitt estimators; with edge_kind={cfg.edge_kind!r}, "
+            f"edge_quad={cfg.edge_quad!r} and gradient_estimator={cfg.gradient_estimator!r} "
+            "the edge sums are plain torch (use 'auto' or 'torch')")
     _dt(cfg)
 
 
@@ -233,8 +246,8 @@ def _node_kernel(cfg: GQMAPConfig) -> str | None:
     term without a window), ``"K5"`` (the Chebyshev term, whose window is in
     its coefficients, with at most ``MAX_Q`` v-degrees), ``"K6"`` (the
     nearest lookup, with or without a window), ``"K7"`` (the Prewitt
-    estimator's chain on the nearest lookup), or None where the sums are
-    plain torch."""
+    estimator's chain on the nearest lookup), ``"K10"`` (the quadratic prior
+    toward ``Problem.init_flow``), or None where the sums are plain torch."""
     if cfg.gradient_estimator == "prewitt":
         return "K7" if cfg.data_term == "nearest" else None
     if cfg.data_term == "nearest":
@@ -245,7 +258,20 @@ def _node_kernel(cfg: GQMAPConfig) -> str | None:
         return "K4"
     if cfg.data_term == "chebyshev" and cfg.cheb_q <= MAX_Q:
         return "K5"
+    if cfg.data_term == "quadratic":
+        return "K10"
     return None
+
+
+def _edge_kernel(cfg: GQMAPConfig) -> str | None:
+    """The kernel that computes ``cfg``'s edge term under the Stein and
+    Prewitt estimators: ``"K2"`` (reduced Charbonnier edges), ``"K3"``
+    (tensor-rule Charbonnier edges), ``"K11"`` (tensor-rule truncated-
+    quadratic edges), or None where the sums are plain torch (the reduced
+    truncated-quadratic edges)."""
+    if cfg.edge_kind == "charbonnier":
+        return "K2" if cfg.edge_quad == "reduced" else "K3"
+    return "K11" if cfg.edge_quad == "tensor" else None
 
 
 def flow_lattice_shape(cfg: GQMAPConfig, image_shape) -> tuple[int, int]:
@@ -345,15 +371,7 @@ def _node_f(cfg: GQMAPConfig, problem: Problem, origin=None, local_image_shape=N
     if cfg.data_term == "cosine":
         return None
     if cfg.data_term == "quadratic":
-        if problem.init_flow is None:
-            # the JAX package fails here too, with a TypeError: its solve(init_flow=...)
-            # also seeds only the means (ROADMAP Queue 3, F4)
-            raise ValueError("data_term='quadratic' needs Problem.init_flow, the (M, N, 2) "
-                             "prior flow: set it with problem._replace(init_flow=...); "
-                             "solve(init_flow=...) seeds only the means")
-        flow = torch.as_tensor(problem.init_flow, dtype=problem.I1.dtype,
-                               device=problem.I1.device)
-        return make_node_pot_quadratic(flow, cfg.quad_var)
+        return make_node_pot_quadratic(_prior(problem), cfg.quad_var)
     if cfg.data_term == "chebyshev":
         return make_node_pot_chebyshev(problem.cheb, cfg.cheb_ablock)
     at = dict(origin=origin, local_image_shape=local_image_shape)
@@ -365,6 +383,18 @@ def _node_f(cfg: GQMAPConfig, problem: Problem, origin=None, local_image_shape=N
                                      patch=cfg.patch, **at)
     return make_node_pot_nearest(problem.I1, problem.I2_tab, cfg.lambdad, cfg.epsn, cfg.rfc,
                                  **at)
+
+
+def _prior(problem: Problem) -> torch.Tensor:
+    """The quadratic prior's ``(M, N, 2)`` flow, ``Problem.init_flow``, in the
+    frames' type and on their device (no copy where it is already so)."""
+    if problem.init_flow is None:
+        # the JAX package fails here too, with a TypeError: its solve(init_flow=...)
+        # also seeds only the means (ROADMAP Queue 3, F4)
+        raise ValueError("data_term='quadratic' needs Problem.init_flow, the (M, N, 2) "
+                         "prior flow: set it with problem._replace(init_flow=...); "
+                         "solve(init_flow=...) seeds only the means")
+    return torch.as_tensor(problem.init_flow, dtype=problem.I1.dtype, device=problem.I1.device)
 
 
 class DistHooks(NamedTuple):
@@ -421,11 +451,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
     estimators; K4 for the bicubic term without a window, K5 for the
-    Chebyshev term and K6 for the nearest lookup (with or without a window)
-    under the Stein estimator, and K7 for the Prewitt estimator's chain sums
-    (each of which the JAX package runs as one XLA scan); the other node
-    terms, truncated-quadratic edges and the autodiff estimator run plain
-    sums (:func:`check_supported` refuses ``"cuda"`` there). What the JAX
+    Chebyshev term, K6 for the nearest lookup (with or without a window) and
+    K10 for the quadratic prior under the Stein estimator, K7 for the
+    Prewitt estimator's chain sums and K11 for truncated-quadratic edges
+    under the tensor rule (each of which the JAX package runs as one XLA
+    scan); the other node terms (the windowed bicubic term, ``cheb_q >
+    MAX_Q``), the reduced truncated-quadratic edges and the autodiff
+    estimator run plain sums (:func:`check_supported` refuses ``"cuda"``
+    there). What the JAX
     package fuses around them (the finalize of the raw sums, the neighbour
     assembly, the clamped step, the reductions, the alpha update and the
     counter) runs as kernels K8 and K9 where :func:`_update_route` names
@@ -468,9 +501,11 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums_fn = _NODE_SUMS[cfg.node_kernel]
     autodiff = cfg.gradient_estimator == "autodiff"
-    # K4, K5, K6 or K7 (or its plain version) where the JAX package scans the
-    # bicubic term, the Chebyshev series, the nearest lookup or the Prewitt chain
-    routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN}
+    # K4, K5, K6, K7 or K10 (or its plain version) where the JAX package scans
+    # the bicubic term, the Chebyshev series, the nearest lookup, the Prewitt
+    # chain or the quadratic prior
+    routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN,
+              "K10": _NODE_QUAD}
     kernel = None if autodiff else _node_kernel(cfg)
     node_route = routes[kernel][cfg.node_kernel] if kernel in routes else None
     if node_route is not None and cfg.node_kernel != "cuda":
@@ -480,12 +515,18 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     if cfg.edge_kind == "truncquad":
         edge_f = make_edge_pot_truncquad(cfg.gama, cfg.dta)
         edge_fd = make_edge_pot_truncquad_diff(cfg.gama, cfg.dta)
+        edge_par = (cfg.gama, cfg.dta)
     else:
         edge_f = make_edge_pot(cfg.lambdas, cfg.epsn)
         edge_fd = make_edge_pot_diff(cfg.lambdas, cfg.epsn)
-    # K2 or K3 where the JAX package runs its Pallas edge kernels, else the plain sums
-    edge_route = (_EDGE_ROUTES[cfg.edge_quad][cfg.edge_kernel]
-                  if cfg.edge_kind == "charbonnier" and not autodiff else None)
+        edge_par = (cfg.lambdas, cfg.epsn)
+    # K2 or K3 where the JAX package runs its Pallas edge kernels, K11 where it
+    # scans truncated-quadratic tensor-rule edges, else the plain sums
+    edge_kernel = None if autodiff else _edge_kernel(cfg)
+    edge_route = None if edge_kernel is None else _EDGE_ROUTES[edge_kernel][cfg.edge_kernel]
+    if edge_kernel == "K11" and cfg.edge_kernel != "cuda":
+        # K11's plain version steps quad_chunk points at a time
+        edge_route = functools.partial(edge_route, quad_chunk=cfg.quad_chunk)
     roll = torch.roll if dist is None else dist.roll
     node_at = {}
     r0 = c0 = 0
@@ -613,6 +654,8 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
                                    cfg.epsn, cfg.rfc, cfg.window_rg,
                                    pads=problem.nearest_pads, **node_at)
+            elif kernel == "K10":  # the prior is the shard's own block
+                raw_n = node_route(_prior(problem), *site, cfg.K, cfg.quad_var)
             else:
                 raw_n = gq_accumulate(node_f, *site, node_tab)
             return NodeSums("raw", tuple(raw_n))
@@ -626,19 +669,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                     u2e, o2e = neighbour_stacks(mu, sg, roll)
                 else:
                     u2e, o2e = carry.u2e, carry.o2e
-            if edge_route is None:  # truncated-quadratic edges, plain torch
-                if reduced:
-                    raw_e = gq_accumulate_diff(edge_fd, mu[None], u2e, sg[None], o2e, st.rou,
-                                               tab1)
-                else:
-                    raw_e = gq_accumulate(edge_f, mu[None], u2e, sg[None], o2e, st.rou, node_tab)
+            if edge_route is None:  # reduced truncated-quadratic edges, plain torch
+                raw_e = gq_accumulate_diff(edge_fd, mu[None], u2e, sg[None], o2e, st.rou, tab1)
                 return EdgeSums("raw", tuple(raw_e), o2e)
             if reduced:  # kernel K2, which reads the neighbour itself; its E is alpha * da
                 halo = None if dist is None else dist.halo(torch.stack([mu, sg]))
                 ge = edge_route(mu, sg, st.rou, alpha, T, k1, cfg.lambdas, cfg.epsn, EDGE,
                                 halo=halo)
                 return EdgeSums("grads", tuple(ge)[:6])
-            raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, cfg.lambdas, cfg.epsn)  # K3
+            raw_e = edge_route(mu, sg, u2e, o2e, st.rou, cfg.K, *edge_par)  # K3 or K11
             return EdgeSums("raw", tuple(raw_e), o2e)
 
         if route != "plain":  # kernel K8 each pass; K9 in v2's last pass, or after it

@@ -113,16 +113,18 @@ def test_legacy_settings_are_supported(override):
 
 @pytest.mark.parametrize("override", [
     dict(edge_kernel="cuda", edge_kind="truncquad"),
-    dict(edge_kernel="cuda", edge_kind="truncquad", edge_quad="tensor"),
+    dict(edge_kernel="cuda", edge_kind="truncquad", edge_quad="tensor",
+         gradient_estimator="autodiff"),
     dict(edge_kernel="cuda", gradient_estimator="autodiff"),
     dict(node_kernel="cuda", gradient_estimator="autodiff"),
     dict(node_kernel="cuda", data_term="bicubic", window_rg=2),
 ])
 def test_cuda_route_on_a_path_no_kernel_computes_raises(override):
     # K1 computes only the cosine term's Stein sums, K2 and K3 only
-    # Charbonnier edges, no kernel the windowed bicubic term, and autodiff
-    # differentiates plain sums: "cuda" there raises instead of running the
-    # plain path
+    # Charbonnier edges, K11 truncated-quadratic edges under the tensor rule
+    # only (tpu_fast's edges are reduced), no kernel the windowed bicubic
+    # term, and autodiff differentiates plain sums: "cuda" there raises
+    # instead of running the plain path
     with pytest.raises(ValueError, match="kernel K"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
     # "auto" and "torch" run the plain sums there

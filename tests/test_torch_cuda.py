@@ -19,10 +19,12 @@ import torch
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
 from gqmap_tpu_torch.kernels import (COUNTED, build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                     nearest_gq, node_gq)
+                                     nearest_gq, node_gq, quad_gq)
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
-from gqmap_tpu_torch.ops.gq import EDGE
+from gqmap_tpu_torch.ops.gq import EDGE, gq_accumulate
+from gqmap_tpu_torch.ops.potentials import make_edge_pot_truncquad
+from gqmap_tpu_torch.ops.quadrature import build_table
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float64: (1e-10, 0.0), torch.float32: (2e-4, 2e-5)}
@@ -282,7 +284,7 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K4 computes the bicubic node term once a sweep; K8 v2 the update, K9 v2's
     # tail in its last CTA (no K9 v1 launch)
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0]
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -297,8 +299,8 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K8 once a half-step, K9 v2's tail once a sweep (in the second's K8)
-    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3] if preset == "tpu_fast"
-            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3])
+    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0] if preset == "tpu_fast"
+            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -314,8 +316,8 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3] if preset == "tpu_fast_super"
-            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3])
+    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0] if preset == "tpu_fast_super"
+            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -349,13 +351,14 @@ def test_edge_gq_kernel_on_l1_lattice(dev, K, probe):
                 _close(getattr(got, name), getattr(plain, name), dtype, name)
 
 
-@pytest.mark.parametrize("override", [dict(edge_kind="truncquad"),
+@pytest.mark.parametrize("override", [dict(edge_kind="truncquad", edge_quad="reduced"),
                                       dict(gradient_estimator="autodiff")])
 def test_cuda_edge_route_without_a_kernel_raises(dev, override):
-    # no kernel computes truncated-quadratic edges or the autodiff sums:
-    # edge_kernel="cuda" raises rather than run the plain path
+    # no kernel computes reduced truncated-quadratic edges (K11 takes the
+    # tensor rule's) or the autodiff sums: edge_kernel="cuda" raises rather
+    # than run the plain path
     cfg = GQMAPConfig.legacy_v2(edge_kernel="cuda", **override)
-    with pytest.raises(ValueError, match="kernel K2 or K3"):
+    with pytest.raises(ValueError, match="kernel K2 or K3, .* or kernel K11"):
         pg.make_sweep(cfg, (24, 40))
     with pytest.raises(ValueError, match="kernel K1"):
         pg.make_sweep(GQMAPConfig.tpu_fast(node_kernel="cuda", gradient_estimator="autodiff"),
@@ -366,13 +369,13 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3)),
-    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3)),
-    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3)),
-    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 0, 3)),
-    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0)),
+    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8),
-     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
@@ -392,9 +395,10 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
 
 
 def test_legacy_v1_segment_launches_no_kernel(dev):
-    # The segment launches no kernel of K1-K7 (the name predates K8 and K9):
-    # truncated-quadratic edges and the quadratic prior are plain sums; K8
-    # v2 runs the update, its last CTA K9 v2's tail, once each a sweep
+    # The segment launches no kernel of K1-K7 (the name predates K8-K11): K10
+    # computes the quadratic prior's sums and K11 the truncated-quadratic
+    # tensor-rule edges', K8 v2 runs the update, its last CTA K9 v2's tail,
+    # each once a sweep
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     cfg = GQMAPConfig.legacy_v1(its=3)
@@ -406,7 +410,7 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3]
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -457,7 +461,7 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     # K4 (the bicubic node term) and K3 once a sweep of every level, K8 v2 and
     # its tail too
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps])
+            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0])
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -598,7 +602,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels (K9 v2's tail in K8 v2)
     replays = min(pg.POLL * seg.polls, 30)
-    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays]
+    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -765,7 +769,7 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -976,14 +980,14 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"),
-     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3]),
+     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"),
-     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
@@ -1189,10 +1193,10 @@ def test_nearest_variant_rule_and_refusals(dev):
     assert all(torch.equal(a, b) for a, b in zip(fine, v2))
 
 
-@pytest.mark.parametrize("preset, counts", [("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20]),
-                                            ("blockmatch_v2",
-                                             [0, 0, 20, 0, 0, 20, 0, 20, 0, 20]),
-                                            ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20])])
+@pytest.mark.parametrize("preset, counts", [
+    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0]),
+    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0]),
+    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0])])
 def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
     # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
     # K7) once a replayed sweep
@@ -1412,3 +1416,177 @@ def test_sweep_update_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="colour"):
         sweep_update.site_update_cuda(node, edge, st, alpha, T, step, interior, c, rng, colour=2)
     assert sweep_update.site_update_cuda.launches == n
+
+
+# ---- K10 and K11: the quadratic prior's node sums, truncated-quadratic tensor edges
+
+QUAD_RULES = ((9, False), (9, True), (5, True))  # (K, generic): K = 9's instance, the generic
+QUAD_FLOOR = {torch.float64: 1e-13, torch.float32: 1e-5}  # of the largest |Ei|
+
+
+def _quad_inputs(dev, probe, L, M, N, seed=0):
+    """The sites, the prior and the edge stacks of a probe, float64: the init
+    (wide sigma, no correlation), warm (sigma in [0.01, 3], |p|, |rho| <=
+    0.9) or the clamp (every correlation at +-0.99999)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g, dtype=torch.float64)).to(dev)
+
+    muu, muv = u(-10, 2, L, M, N), u(-2, 2, L, M, N)
+    su, sv = (u(12, 13, L, M, N), u(4, 5, L, M, N)) if probe == "init" else (
+        u(0.01, 3, L, M, N), u(0.01, 3, L, M, N))
+    if probe == "init":
+        pn, rou = torch.zeros_like(muu), torch.zeros((2, 2, L, M, N), dtype=torch.float64,
+                                                     device=dev)
+    elif probe == "warm":
+        pn, rou = u(-0.9, 0.9, L, M, N), u(-0.9, 0.9, 2, 2, L, M, N)
+    else:
+        pn = 0.99999 * torch.sign(u(-1, 1, L, M, N))
+        rou = 0.99999 * torch.sign(u(-1, 1, 2, 2, L, M, N))
+    mu, sg = torch.stack([muu, muv]), torch.stack([su, sv])
+    return (muu, muv, su, sv, pn), u(-10, 2, M, N, 2), (mu, sg, *edge_reduced_gq.neighbour_stacks(
+        mu, sg), rou)
+
+
+@pytest.mark.parametrize("K, generic", QUAD_RULES)
+@pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L, M, N", [(1, 24, 40), (20, 12, 14), (3, 37, 53)])
+def test_quad_gq_kernels_match_plain(dev, L, M, N, dtype, probe, K, generic):
+    # K10 and K11 against their plain versions on the card: legacy_v1's L = 1,
+    # the update phase's L = 20 and a ragged lattice (a partial last block);
+    # float32 at the clamp against the f64 golden (ratio rule)
+    site, prior, edge = _quad_inputs(dev, probe, L, M, N)
+    node_rest, edge_rest = (K, 0.05), (K, 1.0, 10.0)
+    cast = [x.to(dtype) for x in site], prior.to(dtype), [x.to(dtype) for x in edge]
+    pairs = (
+        (quad_gq.quad_node_gq_cuda(cast[1], *cast[0], *node_rest, generic=generic),
+         quad_gq.quad_node_gq_torch(cast[1], *cast[0], *node_rest),
+         lambda: quad_gq.quad_node_gq_torch(prior, *site, *node_rest)),
+        (quad_gq.truncquad_edge_gq_cuda(*cast[2], *edge_rest, generic=generic),
+         quad_gq.truncquad_edge_gq_torch(*cast[2], *edge_rest),
+         lambda: quad_gq.truncquad_edge_gq_torch(*edge, *edge_rest)))
+    for got, plain, golden in pairs:
+        if dtype == torch.float32 and probe == "clamp":
+            _ratio_to_golden(got, plain, golden())
+            continue
+        # a floor of the largest |Ei| (the size of the terms every sum adds):
+        # K10's Sxy at p = 0 is zero in exact arithmetic, rounding noise here
+        floor = QUAD_FLOOR[dtype] * float(plain.Ei.abs().max())
+        scaled, rel = TOL[dtype]
+        for name in plain._fields:
+            g, w = getattr(got, name), getattr(plain, name)
+            bound = scaled * w.abs().max() + rel * w.abs() + floor
+            assert bool(((g - w).abs() <= bound).all()), (name, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("generic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_truncquad_edge_kernel_puts_every_sample_on_the_plain_side_of_the_cutoff(dev, dtype,
+                                                                                   generic,
+                                                                                   monkeypatch):
+    # neighbour means at +-dta from endpoint 1's within a few ulps, equal
+    # sigmas at both ends: the diagonal points' d lies within rounding of the
+    # cutoff. Under a rule of unit weights (monomials 0) Ei is the sum of
+    # -d^2 / (2 gama) over the samples inside, so a sample on the other side
+    # of the cutoff from the plain version's (|d| ~ dta there) changes a
+    # site's Ei by about dta^2 / (2 gama): none may. ``inside`` counts the
+    # plain version's samples with |d| <= dta (its own d, the same unit rule)
+    g = torch.Generator().manual_seed(11)
+
+    def u(lo, hi, *shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g, dtype=torch.float64)).to(dev)
+
+    L, M, N, K, gama, dta = 1, 64, 96, 9, 1.0, 10.0
+    edge = (2, 2, L, M, N)
+    mu = u(-3, 3, 2, L, M, N)
+    u2e = mu[None] + torch.sign(u(-1, 1, *edge)) * dta * (1 + u(-3e-7, 3e-7, *edge))
+    sg = u(0.5, 3, 2, L, M, N)
+    args = [x.to(dtype).contiguous() for x in (mu, sg, u2e, sg[None].expand(edge), u(-0.9, 0.9,
+                                                                                 *edge))]
+    unit = quad_gq.rule_values(K, np.float64)
+    unit[K:] = 0.0
+    unit[K:K + K * K] = 1.0
+    monkeypatch.setattr(quad_gq, "rule_values", lambda K, dtype=np.float64: unit.astype(dtype))
+    tab = torch.as_tensor(np.stack(build_table(K, 0, np.float64)))
+    tab[2] = 1.0
+    got = quad_gq.truncquad_edge_gq_cuda(*args, K, gama, dta, generic=generic)
+    want = gq_accumulate(make_edge_pot_truncquad(gama, dta), args[0][None], args[2],
+                         args[1][None], args[3], args[4], tab.to(dev, dtype))
+    one = dta * dta / (2 * gama)
+    inside = int(gq_accumulate(lambda x1, x2: ((x2 - x1).abs() <= dta).to(dtype),
+                               args[0][None], args[2], args[1][None], args[3], args[4],
+                               tab.to(dev, dtype)).Ei.sum())
+    assert 0.1 * K * K * want.Ei.numel() < inside < 0.9 * K * K * want.Ei.numel()
+    assert int(((got.Ei - want.Ei).abs() / one).round().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_quad_gq_kernels_nan_probe_and_block(dev, dtype):
+    # NaN means, sigmas and correlations at a few sites: NaN exactly there
+    # (as in the plain versions), every other site bit for bit the NaN-free
+    # call's; a shard's block (its sites and a view of the prior's block)
+    # bit for bit the whole lattice's sums there
+    site, prior, edge = _quad_inputs(dev, "warm", 2, 24, 40, seed=3)
+    site, prior, edge = [x.to(dtype) for x in site], prior.to(dtype), [x.to(dtype) for x in edge]
+    base_n = quad_gq.quad_node_gq_cuda(prior, *site, 9, 0.05)
+    base_e = quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0)
+    bad = [(0, 3, 5), (1, 10, 0), (1, 23, 39)]
+    for i, field in enumerate((0, 2, 4)):
+        l, m, n = bad[i]
+        s2 = [x.clone() for x in site]
+        s2[field][l, m, n] = float("nan")
+        got = quad_gq.quad_node_gq_cuda(prior, *s2, 9, 0.05)
+        plain = quad_gq.quad_node_gq_torch(prior, *s2, 9, 0.05)
+        for a, b, p in zip(got, base_n, plain):
+            nan = torch.isnan(a)
+            assert torch.equal(nan, torch.isnan(p)) and bool(nan[l, m, n]) and int(nan.sum()) == 1
+            assert torch.equal(a[~nan], b[~nan])
+        e2 = [x.clone() for x in edge]
+        e2[4][1, 0, l, m, n] = float("nan")  # rho of one edge
+        got = quad_gq.truncquad_edge_gq_cuda(*e2, 9, 1.0, 10.0)
+        plain = quad_gq.truncquad_edge_gq_torch(*e2, 9, 1.0, 10.0)
+        for a, b, p in zip(got, base_e, plain):
+            nan = torch.isnan(a)
+            assert torch.equal(nan, torch.isnan(p)) and int(nan.sum()) == 1
+            assert torch.equal(a[~nan], b[~nan])
+    blk = (slice(None), slice(5, 17), slice(3, 30))
+    got = quad_gq.quad_node_gq_cuda(prior[5:17, 3:30], *(x[blk].contiguous() for x in site),
+                                    9, 0.05)
+    assert all(torch.equal(a, b[blk]) for a, b in zip(got, base_n))
+    eblk = (slice(None), slice(None)) + blk
+    got = quad_gq.truncquad_edge_gq_cuda(
+        *(x[(slice(None),) + blk].contiguous() for x in edge[:2]),
+        *(x[eblk].contiguous() for x in edge[2:]), 9, 1.0, 10.0)
+    assert all(torch.equal(a, b[eblk]) for a, b in zip(got, base_e))
+
+
+def test_quad_gq_kernels_refuse_what_they_do_not_take(dev):
+    site, prior, edge = _quad_inputs(dev, "warm", 1, 8, 12)
+    n = (quad_gq.quad_node_gq_cuda.launches, quad_gq.truncquad_edge_gq_cuda.launches)
+    with pytest.raises(ValueError, match="prior has shape"):
+        quad_gq.quad_node_gq_cuda(prior[:4], *site, 9, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        quad_gq.quad_node_gq_cuda(prior, site[0].transpose(1, 2).contiguous().transpose(1, 2),
+                                  *site[1:], 9, 1.0)
+    with pytest.raises(ValueError, match="device and dtype"):
+        quad_gq.truncquad_edge_gq_cuda(edge[0].float(), *edge[1:], 9, 1.0, 10.0)
+    with pytest.raises(ValueError, match="shape"):
+        quad_gq.truncquad_edge_gq_cuda(*edge[:4], edge[4][:, :, :, :4], 9, 1.0, 10.0)
+    assert (quad_gq.quad_node_gq_cuda.launches, quad_gq.truncquad_edge_gq_cuda.launches) == n
+
+
+@pytest.mark.parametrize("kw", [{}, dict(quad_var=0.05)])
+def test_legacy_v1_graph_segment_launches_k10_and_k11(dev, kw):
+    # legacy_v1's segment on the graph route: K10 and K11 once a replayed
+    # sweep, beside K8 v2 and its tail; bit for bit the host loop's
+    cfg, problem, state = _graph_toy(dev, "legacy_v1", **kw)
+    problem = problem._replace(init_flow=torch.stack(
+        [torch.ones_like(problem.I1), torch.zeros_like(problem.I1)], -1))
+    h, _ = _counted(pg.SegmentRunner(cfg, (24, 40), _route="host"), problem, state, 20)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    g, got = _counted(seg, problem, state, 20)
+    assert seg.route == "graph" and _identical(g, h)
+    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20]
+
