@@ -14,8 +14,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    and epilogue included), of K4 v1's innermost loop per sample and of K4
    v2's shared-memory point loop per point (patch 1 at K = 9, patch 4 at
    K = 11; the shared form, the per-pixel fallback being a function of its
-   own), of K5 v1's u-degree loop per lane and a-step (its Q = 16 and 32
-   instances) and of K5 v2's chunk loop per warp and chunk of N u-degrees
+   own) and of K12's (K = 9, rg = 2), of K5 v1's u-degree loop per lane
+   and a-step (its Q = 16 and 32 instances) and of K5 v2's chunk loop per warp and chunk of N u-degrees
    (its instructions and HGMMA), with each one's MUFU.RSQ count, which give each
    kernel's issue bound at 132 SMs x 128 lanes x the card's maximum SM
    clock; then the
@@ -166,6 +166,25 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    plain version's, the bounds (``roofline.k10_work``, ``k11_work`` at the
    data sheet's and the measured rates), the share of each and the SASS
    issue bound (the K = 9 instance's whole function per point);
+6f. K12 (the windowed bicubic node term's raw sums, ``window_gq_kernel`` in
+   ``csrc/node_gq.cu``) against its plain version (``kernels/window_gq``)
+   on ``full_mixture(window_rg=2)``'s (3, 376, 452) and
+   ``legacy_v2(data_term="bicubic")``'s (1, 376, 452) lattices at K = 9,
+   rg = 2, from the init, the sigma = 0.05 state and the |rho| clamp:
+   float64 (the generic instance) within 1e-10 of each sum's largest
+   magnitude, float32 (the K = 9, rg = 2 instance and the generic one)
+   against the f64 golden (ratio rule); every site through L1
+   (``window_bytes=0``) bit for bit the shared-window route, with the
+   L1-route shares per probe; a shard's blocks (the (2, 2) mesh's four and
+   one at odd offsets) bit for bit the whole lattice's and, in float64,
+   within 1e-10 of their plain version; NaN means, sigmas and correlations
+   at a few sites: NaN exactly there in both versions, every other site bit
+   for bit the NaN-free call's; the time (sigma 0.05 and the init, the
+   generic instance beside), the plain version's (2 calls after one), the
+   bound (``roofline.k12_work`` at the data sheet's and the measured
+   rates), the shares and the SASS issue bound (the point loop of the
+   shared-memory route, every lane's rounds); K12 must be at least
+   ``WINDOW_SPEEDUP`` times faster than its plain version on both lattices;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -225,7 +244,11 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    quadratic prior is the block-matching flow; ``solve`` does not set it):
    K10 and K11 launched once a sweep (300 each) and K1-K7 not at all, the
    median interior mean within 0.15 of the prior's, the run's peak memory,
-   and ms a sweep of 300-sweep graph segments converged and from init;
+   and ms a sweep of 300-sweep graph segments converged and from init; then
+   300-sweep ``full_mixture(window_rg=2)`` and ``legacy_v2(data_term=
+   "bicubic")`` solves: K12 and K3 once a sweep, every other kernel not at
+   all, the AEPE falling, and the first's ms a sweep of a 30-sweep segment
+   from its final state;
 17. ``legacy_v2``'s ms a sweep (a 30-sweep segment from its solve's final
    state, in turns: v2, v1, v2), the node term's share of a sweep (K6 v2 and
    its finalize; through v1 and through the plain version beside it), K6
@@ -324,8 +347,9 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    captured as a CUDA graph and replayed, ``(n, stop)`` read every ``POLL``
    sweeps) against its host loop (``_route="host"``) at 376x452 f32 on
    ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
-   ``tpu_fast_super``, ``super_entropy``, ``ctf_level`` and the Chebyshev
-   ``full_mixture``: the route is ``"graph"``; from the init (300 sweeps)
+   ``tpu_fast_super``, ``super_entropy``, ``ctf_level``, the Chebyshev
+   ``full_mixture`` and ``full_mixture(window_rg=2)``: the route is
+   ``"graph"``; from the init (300 sweeps)
    and the sigma = 0.05 state (300; 100 on the K4 and K5 paths) the final
    state, the sweep count, the three traces and the
    flag are the host loop's bit for bit, with the same launch counts and
@@ -334,7 +358,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the script held; a ``tor`` that trips inside a poll window (from the host
    loop's |dmu| trace) gives the host loop's ``n``, flag, traces and state;
    the converged ``tpu_fast`` and ``tpu_fast_super`` segments' ms a sweep
-   at each POLL of ``GRAPH_POLLS``; then 3 sweeps of every other
+   at each POLL of ``GRAPH_POLLS``; ``full_mixture(window_rg=2)`` converged
+   in turns, through K12, around its plain sums (``WINDOW_PLAIN_SWEEPS``
+   sweeps, their capturing call's peak memory) and through K12 again, K12
+   once a sweep and not at all around the plain sums; then 3 sweeps of every other
    single-process configuration (``legacy_v1``-``v3``, autodiff,
    ``blockmatch_v2``, windowed ``tpu_fast``, the Chebyshev ``tpu_fast``,
    ``tpu_fast`` in float64), graph against host loop bit for bit (K8's and
@@ -347,7 +374,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    ``csrc/sweep_update.cu``: PyTorch's reduction order of ``e.sum()``
    against ``sweep_update.card_sum`` for 1 to 64 values; on every path K8
    takes (``UPDATE_PATHS``: each preset, red-black, the legacy families,
-   windowed ``tpu_fast``, both Chebyshev paths) in float32 and float64 at
+   windowed ``tpu_fast``, both Chebyshev paths, ``full_mixture(window_rg=
+   2)``) in float32 and float64 at
    the init, random-means and |rho|-clamp probes: from the same state and
    the same node and edge kernels' outputs, K8 v2's new state the plain
    glue's and K8 v1's bit for bit and the tail's energy, |dmu|, |dsigma|
@@ -379,6 +407,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    and 5 (``full_mixture``) kernels a sweep through v2, 20 through v1; one
    ``legacy_v1`` graph replay through K10, K11 and K8 v2 (at most 4 kernels:
    the raw lattice's copy beside them) and through K8 v2 around the plain
+   sums; one ``full_mixture(window_rg=2)`` graph replay through K12, K3 and
+   K8 v2 (at most 5 kernels, ``full_mixture``'s limit) and around its plain
    sums.
 
 It prints the kernels' record as one JSON line before the last (``launches``
@@ -386,8 +416,9 @@ counts the main path's run: ``tpu_fast`` for K1, K2, K8 and K9 (K9 v2's tails,
 each run by K8 v2's last CTA inside its launch; ``launches_of_its_own``, K9
 v1's launches, is 0), ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
-solve for K6, the ``legacy_v3`` solve for K7 and the ``legacy_v1`` run for
-K10 and K11; ``launches_by_path``
+solve for K6, the ``legacy_v3`` solve for K7, the ``legacy_v1`` run for
+K10 and K11 and the ``full_mixture(window_rg=2)`` solve for K12;
+``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
@@ -425,7 +456,7 @@ LANES_PER_CLOCK = 128  # H100 SXM: thread-instructions an SM issues a clock
 # clock) and "measured" (roofline.measure_ceilings), set in main()
 RATES = {}
 FAILURES = []
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11", "K12")
 
 
 def launch_counts(**launches):
@@ -556,6 +587,15 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
         per[f"K4 v2 point P={P}"] = lp["instructions"] if lp else None
         per[f"K4 v2 rsq P={P}"] = lp["rsq"] if lp else None
         per[f"K4 v2 lds P={P}"] = lp["lds"] if lp else None
+    # K12: the point loop of the shared-memory route of the float K = 9, rg = 2
+    # instance (the loop with the most LDS: the window's 64 taps and the
+    # point's constants; the per-tap fallback is a function of its own), per
+    # point, the shared form
+    lp = [x for x in sass_loops(*find(f"window_gq_kernelIfLi{K}ELi2EE")) if x["lds"] >= 64]
+    lp = max(lp, key=lambda x: x["lds"]) if lp else None
+    per["K12 point"] = lp["instructions"] if lp else None
+    per["K12 rsq"] = lp["rsq"] if lp else None
+    per["K12 lds"] = lp["lds"] if lp else None
     # K5: the u-degree loop of the instances for Q = 16 and 32 (the
     # innermost loop holding an a-step: the fewest instructions among those
     # with at least R (QB + 2) FFMA and FMUL, a row's QB - 1 products for each
@@ -1662,6 +1702,176 @@ def kernels_k10_k11(dev, record, issue_ms):
         f"against the plain versions, {time.time() - t_phase:.1f} s")
 
 
+WINDOW_CASES = {  # name: the configuration whose (L, 376, 452) lattice K12 is probed on
+    "full_mixture window_rg=2": GQMAPConfig.full_mixture(window_rg=2),
+    "legacy_v2 bicubic": GQMAPConfig.legacy_v2(data_term="bicubic"),
+}
+WINDOW_PLAIN_CHUNK = 27  # the plain version's points a step (its (27, L, M, N) temporaries)
+WINDOW_SPEEDUP = 10.0  # K12 at least this many times faster than its plain version
+
+
+def kernels_k12(dev, record, I1, I2, issue_ms):
+    """Phase 6f: K12 (the windowed bicubic node term's raw sums) against its
+    plain version (see the module docstring); fills ``record["K12"]``
+    (``full_mixture(window_rg=2)``'s lattice: error, times, bounds, shares,
+    SASS issue bound; ``legacy_v2(data_term="bicubic")``'s under its name).
+    ``issue_ms(unit, work)``: the SASS issue bound of ``work`` units."""
+    from gqmap_tpu_torch.kernels import window_gq
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    log("phase kernels K12")
+    t_phase = time.time()
+    k12, plain = window_gq.node_window_gq_cuda, window_gq.node_window_gq_torch
+    G = window_gq.TILE[0]
+
+    def frames(dtype):
+        return (torch.as_tensor(I1, dtype=dtype, device=dev),
+                pad_cubic(torch.as_tensor(I2, dtype=dtype, device=dev)))
+
+    def sites(st, dtype):
+        return [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    rec = record["K12"] = dict(library_ms=None, library_reason=(
+        "no PyTorch call computes the windowed K^2-point sums; grid_sample's bicubic uses "
+        "a = -0.75, not MATLAB's Keys a = -0.5, and has no quadrature or window"), checks=0)
+    for name, cfg in WINDOW_CASES.items():
+        K, rg = cfg.K, cfg.window_rg
+        pkw = dict(quad_chunk=WINDOW_PLAIN_CHUNK)
+        probes = k4_probes(cfg, (H, W), dev)
+        site_shape = tuple(probes["init"].muu.shape)
+        n_sites, ctas = math.prod(site_shape), window_gq.window_ctas(site_shape)
+        rw = dict(shape=list(site_shape), K=K, rg=rg, l1_route_share={})
+        for dtype in (torch.float64, torch.float32):
+            I1d, VVd = frames(dtype)
+            for sname, st in probes.items():
+                args = (I1d, VVd, *sites(st, dtype), K, cfg.lambdad, cfg.epsn, rg)
+                want = plain(*args, **pkw)
+                gold = None if dtype == torch.float64 else plain(
+                    *(x.double() if isinstance(x, torch.Tensor) else x for x in args), **pkw)
+                for inst in ("specialised", "generic") if dtype == torch.float32 else ("generic",):
+                    cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+                    got = k12(*args, l1_counts=cnt, generic=inst == "generic")
+                    a, r, ok = compare(got, want, dtype)
+                    what = (f"K12 {name} {site_shape} K={K} rg={rg} {inst} {str(dtype)[6:]} "
+                            f"{sname}")
+                    rec["checks"] += 1
+                    if dtype == torch.float64:
+                        require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                    else:
+                        ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                        require(ek <= 2.0 * ep + 1e-6,
+                                f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain "
+                                f"{ep:.3e} + 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                    # the L1 route (a budget of 0): the same sums, bit for bit
+                    every = torch.zeros(2, dtype=torch.int64, device=dev)
+                    l1 = k12(*args, window_bytes=0, l1_counts=every, generic=inst == "generic")
+                    n_ctas, n_l1 = cnt.tolist()
+                    share = dict(ctas=n_ctas / ctas, sites=n_l1 / n_sites)
+                    if inst == "generic":
+                        rw["l1_route_share"][f"{sname} {str(dtype)[6:]}"] = share
+                    require(every.tolist() == [ctas, n_sites]
+                            and all(torch.equal(x, y) for x, y in zip(got, l1)),
+                            f"{what}: {n_ctas} of {ctas} CTAs without a window, {n_l1} of "
+                            f"{n_sites} sites through L1 ({share}); every site through L1 "
+                            f"({every.tolist()}) gives the same sums, bit for bit")
+                    if (dtype, inst, sname) == (torch.float32, "specialised", "converged"):
+                        rw["max_abs_err"] = a
+                    del got, l1
+                del want, gold
+
+        # times (float32): sigma = 0.05 and the init, the generic instance
+        # beside; the plain version (about half a second a call: 2 after one)
+        I1d, VVd = frames(torch.float32)
+        for sname in ("converged", "init"):
+            args = (I1d, VVd, *sites(probes[sname], torch.float32), K, cfg.lambdad, cfg.epsn, rg)
+            tag = "" if sname == "converged" else "init_"
+            rw[f"{tag}ms"], rw[f"{tag}ms_min"] = kernel_ms(lambda: k12(*args))
+            rw[f"{tag}generic_ms"] = kernel_ms(lambda: k12(*args, generic=True))[0]
+            rw[f"{tag}plain_ms"] = time_ms(lambda: plain(*args, **pkw), 2)
+        rw.update(bound(roofline.k12_work(site_shape, K, rg)))
+        rw["sass_issue_ms"] = issue_ms("K12 point", n_sites * G * -(-K * K // G))
+        rw["share"] = dict(sheet=rw["bound_ms"] / rw["ms"],
+                           measured=rw["bound_ms_measured"] / rw["ms"],
+                           issue=(rw["sass_issue_ms"] / rw["ms"] if rw["sass_issue_ms"]
+                                  else None))
+        rw["speedup"] = rw["plain_ms"] / rw["ms"]
+        card = smi("name,power.limit,clocks.sm")
+        log(f"  K12 {name} {site_shape} K={K} rg={rg} f32 on {card} (median, min) of "
+            f"{TIMING[0]} windows of {TIMING[1]} calls: sigma 0.05 ({rw['ms']:.4f}, "
+            f"{rw['ms_min']:.4f}) ms, init ({rw['init_ms']:.4f}, {rw['init_ms_min']:.4f}) ms; "
+            f"generic instance {rw['generic_ms']:.4f} / {rw['init_generic_ms']:.4f} ms; plain "
+            f"{rw['plain_ms']:.4f} / {rw['init_plain_ms']:.4f} ms ({rw['speedup']:.0f}x); "
+            f"{fmt_bound(rw)} ({rw['bound_terms_ms']}); SASS issue bound {rw['sass_issue_ms']} "
+            f"ms; share of the bound: data sheet {rw['share']['sheet']:.1%}, measured "
+            f"{rw['share']['measured']:.1%}; L1-route shares {rw['l1_route_share']}")
+        require(rw["speedup"] >= WINDOW_SPEEDUP and rw["init_plain_ms"] >= WINDOW_SPEEDUP
+                * rw["init_ms"], f"K12 {name}: at least {WINDOW_SPEEDUP:g}x faster than its "
+                                 f"plain version ({rw['speedup']:.1f}x at sigma 0.05, "
+                                 f"{rw['init_plain_ms'] / rw['init_ms']:.1f}x from init)")
+        if name == "full_mixture window_rg=2":
+            rec.update(rw)
+        else:
+            rec[name] = rw
+        del probes
+        torch.cuda.empty_cache()
+
+    # a shard's block (frame 1 and VV whole, addressed at its pixel origin;
+    # windows across the cut): the (2, 2) mesh's four blocks and one at odd
+    # offsets, the whole lattice's sums there bit for bit, and in float64
+    # within 1e-10 of its plain version
+    cfg = WINDOW_CASES["full_mixture window_rg=2"]
+    K, rg = cfg.K, cfg.window_rg
+    st = k4_probes(cfg, (H, W), dev)["converged"]
+    hm, hn = H // 2, W // 2
+    blocks = [(r0, c0, hm, hn) for r0 in (0, hm) for c0 in (0, hn)] + [(37, 51, 101, 203)]
+    for dtype in (torch.float64, torch.float32):
+        I1d, VVd = frames(dtype)
+        s5 = sites(st, dtype)
+        whole = k12(I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg)
+        for r0, c0, m, n in blocks:
+            blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+            at = dict(origin=(r0, c0), local_image_shape=(m, n))
+            bs = [x[blk].contiguous() for x in s5]
+            got = k12(I1d, VVd, *bs, K, cfg.lambdad, cfg.epsn, rg, **at)
+            what = (f"K12 {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0})")
+            if dtype == torch.float64:
+                a, r, ok = compare(got, plain(I1d, VVd, *bs, K, cfg.lambdad, cfg.epsn, rg,
+                                              quad_chunk=WINDOW_PLAIN_CHUNK, **at), dtype)
+                require(ok, f"{what} against its plain version: max abs err {a:.3e}, rel {r:.3e}")
+            require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                    f"{what}: the whole lattice's sums there, bit for bit")
+
+    # NaN means, sigmas and correlations at a few sites: NaN exactly there in
+    # the kernel and the plain version, every other site bit for bit the
+    # NaN-free call's
+    L, M, N = st.muu.shape
+    at = [(0, M // 4, N // 5), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
+    mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+    for site in at:
+        mask[site] = True
+    for dtype in (torch.float64, torch.float32):
+        I1d, VVd = frames(dtype)
+        s5 = [x.clone() for x in sites(st, dtype)]
+        clean = k12(I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg)
+        for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
+            s5[field][site] = float("nan")
+        args = (I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg)
+        got, want = k12(*args), plain(*args, quad_chunk=WINDOW_PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
+                 and torch.equal(g[~mask], c[~mask]) for g, w, c in zip(got, want, clean))
+        require(ok, f"K12 {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in the kernel "
+                    "and the plain version, every other site bit for bit the NaN-free call's")
+    del st
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.time() - t_phase
+    log(f"  phase kernels K12: {rec['checks']} checks against the plain version, "
+        f"{rec['phase_s']:.1f} s")
+
+
 def flow_sequence(seed, dev, H=H, W=W):
     """An H x W pair with a smooth, non-constant flow: smoothed noise as
     frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
@@ -2000,7 +2210,7 @@ def rank_main(rank, world, port, out_dir):
 
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
     from gqmap_tpu_torch.kernels import (cheb_gq, cosine_gq, edge_gq, edge_reduced_gq, nearest_gq,
-                                         node_gq, quad_gq)
+                                         node_gq, quad_gq, window_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import EDGE
     from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
@@ -2015,7 +2225,7 @@ def rank_main(rank, world, port, out_dir):
             "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda,
             "K5": cheb_gq.cheb_gq_cuda, "K6": nearest_gq.nearest_gq_cuda,
             "K7": nearest_gq.nearest_chain_gq_cuda, "K10": quad_gq.quad_node_gq_cuda,
-            "K11": quad_gq.truncquad_edge_gq_cuda}
+            "K11": quad_gq.truncquad_edge_gq_cuda, "K12": window_gq.node_window_gq_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -2520,6 +2730,7 @@ def stop_point(trace, limit, poll):
 
 
 GRAPH_SWEEPS = 300  # the graph phase's segments (100 converged on the two slow paths)
+WINDOW_PLAIN_SWEEPS = 5  # the windowed term's plain-sums turn (~0.6 s a sweep)
 GRAPH_POLLS = (1, 5, 10, 25, 100)  # POLL values timed on the converged tpu_fast(_super)
 
 
@@ -2555,6 +2766,7 @@ def graph_phase(dev, record, by_path, kfns):
         "super_entropy": (GQMAPConfig.super_entropy(), 100),
         "ctf_level": (GQMAPConfig.ctf_level(), 100),
         "full_mixture chebyshev": (GQMAPConfig.full_mixture(quad_chunk=27, **CHEB), 100),
+        "full_mixture window_rg=2": (GQMAPConfig.full_mixture(quad_chunk=27, window_rg=2), 100),
     }
     out = record["graph"] = {"card": smi("name,power.limit"), "POLL": pg.POLL}
 
@@ -2622,7 +2834,42 @@ def graph_phase(dev, record, by_path, kfns):
             f"{rec['capture_s']:.3f} s, the capturing call {rec['capture_call_GiB_above_held']:.3f}"
             f" GiB at peak above held, reserved +{rec['reserved_GiB_above']:.3f} GiB; launches "
             f"{rec['init']['graph_launches']}")
-        if cfg.data_term in ("bicubic", "chebyshev"):
+        if cfg.data_term == "bicubic" and cfg.window_rg > 0:
+            # the windowed term in turns, converged: K12 (above), the plain sums
+            # around K8 v2 (a runner captured with them in K12's place;
+            # WINDOW_PLAIN_SWEEPS sweeps, at ~0.6 s a sweep), K12 again
+            from gqmap_tpu_torch.kernels import window_gq
+
+            kept = dict(pg._NODE_WINDOW)
+            pg._NODE_WINDOW["auto"] = window_gq.node_window_gq_torch
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                held_p = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                old = pg.make_segment_runner(cfg, (H, W))
+                old(problem, conv, 2)  # the capture
+                torch.cuda.synchronize()
+                rec["plain_sums_capture_call_GiB_above_held"] = (
+                    torch.cuda.max_memory_allocated() - held_p) / 2**30
+            finally:
+                pg._NODE_WINDOW.update(kept)
+            c = rec["converged"]
+            _, c["graph_ms_plain_sums"], plain_counts = timed(old, problem, conv,
+                                                               WINDOW_PLAIN_SWEEPS)
+            del old
+            torch.cuda.empty_cache()
+            c["graph_ms_again"] = timed(graph, problem, conv, conv_n)[1]
+            require(plain_counts["K12"] == 0 and c["graph_launches"]["K12"] == conv_n
+                    and c["graph_launches"]["K4"] == 0,
+                    f"graph {path}: K12 once a sweep ({c['graph_launches']}), not at all around "
+                    f"the plain sums ({plain_counts})")
+            log(f"  {path} graph, converged ms a sweep with K12 / the plain sums / K12 again: "
+                f"{c['graph_ms']:.4f} / {c['graph_ms_plain_sums']:.4f} / "
+                f"{c['graph_ms_again']:.4f}; the capturing call's peak above held: K12 "
+                f"{rec['capture_call_GiB_above_held']:.3f} GiB, plain sums "
+                f"{rec['plain_sums_capture_call_GiB_above_held']:.3f} GiB")
+        elif cfg.data_term in ("bicubic", "chebyshev"):
             # the node kernel's variants on the graph route, in turns: v2 (the
             # default, above), v1 (a runner captured with v1 as the default),
             # v2 again (K4 on the bicubic paths, K5 on the Chebyshev one)
@@ -2741,6 +2988,7 @@ UPDATE_PATHS = {
     "tpu_fast window_rg=2": GQMAPConfig.tpu_fast(window_rg=2),
     "tpu_fast chebyshev": GQMAPConfig.tpu_fast(data_term="chebyshev"),
     "full_mixture chebyshev": GQMAPConfig.full_mixture(quad_chunk=27, **CHEB),
+    "full_mixture window_rg=2": GQMAPConfig.full_mixture(quad_chunk=27, window_rg=2),
 }
 UPDATE_TIMED = ("tpu_fast", "full_mixture", "super_entropy", "legacy_v3")  # K8's shapes timed
 UPDATE_SWEEPS = 100  # the graph sweeps' segments, in turns
@@ -3211,7 +3459,7 @@ def update_phase(dev, record, by_path, ufns):
 
     # ---- each path's graph sweep in turns: v2, v1, plain glue, v2 again
     turns = out["graph_ms"] = {}
-    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11")
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11", "K12")
     for path, base in UPDATE_PATHS.items():
         cfg = dataclasses.replace(base, its=100000, eval_every=UPDATE_SWEEPS, tor=0.0)
         problem = update_problem(pg, cfg, fr, dev, pair)
@@ -3383,6 +3631,37 @@ def profiles_phase(dev, record):
             f"a legacy_v1 sweep under replay launches {count['legacy_v1', 'kernels']} kernels "
             f"through K10, K11 and K8 v2 (at most {QUAD_REPLAY_KERNELS}; around the plain sums "
             f"{count['legacy_v1', 'plain sums']})")
+    # full_mixture(window_rg=2): one sweep under replay through K12, K3 and K8 v2,
+    # full_mixture's kernels with K12 in K4's place; and around the plain sums
+    from gqmap_tpu_torch.kernels import window_gq
+
+    cfg = GQMAPConfig.full_mixture(quad_chunk=27, window_rg=2, tor=0.0)
+    problem = pg.make_problem(cfg, I1, I2, fr, dev)
+    st = pg.init_state(cfg, fr, (H, W), seed=0, device=dev)
+    st = st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                     sigmav=torch.full_like(st.sigmav, 0.05))
+    label = "full_mixture window_rg=2"
+    for route in ("kernels", "plain sums"):
+        kept_routes = dict(pg._NODE_WINDOW)
+        if route == "plain sums":
+            pg._NODE_WINDOW["auto"] = window_gq.node_window_gq_torch
+        try:
+            seg = pg.make_segment_runner(cfg, (H, W))
+            seg(problem, st, 2)
+        finally:
+            pg._NODE_WINDOW.update(kept_routes)
+        rep = record["profile"][f"{label} graph replay, {route}"] = profile_call(
+            seg._captured.graph.replay)
+        count[label, route] = rep["kernels"]
+        log(f"  one {label} sweep under replay, {route}: {rep['kernels']} kernels, "
+            f"{rep['device_ms']:.4f} ms on the card of {rep['wall_ms']:.4f} wall "
+            f"({rep['top_ops_device_ms']})")
+        del seg
+    require(count[label, "kernels"] <= UPDATE_LAUNCH_LIMIT_EXACT,
+            f"a {label} sweep under replay launches {count[label, 'kernels']} kernels through "
+            f"K12, K3 and K8 v2 (at most {UPDATE_LAUNCH_LIMIT_EXACT}, full_mixture's limit; "
+            f"around the plain sums {count[label, 'plain sums']})")
+    del problem
 
 
 def main():
@@ -3393,7 +3672,7 @@ def main():
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
     from gqmap_tpu_torch.kernels import (build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                         nearest_gq, node_gq, quad_gq, sweep_update)
+                                         nearest_gq, node_gq, quad_gq, sweep_update, window_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize
@@ -3405,7 +3684,9 @@ def main():
     # K9 v1 (a launch of its own, on the v1 route only)
     ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_v2,
             "K9 v1": sweep_update.sweep_tail_cuda}
-    qfns = {"K10": quad_gq.quad_node_gq_cuda, "K11": quad_gq.truncquad_edge_gq_cuda}
+    # kernels counted on every counted run: K10, K11 and K12
+    qfns = {"K10": quad_gq.quad_node_gq_cuda, "K11": quad_gq.truncquad_edge_gq_cuda,
+            "K12": window_gq.node_window_gq_cuda}
 
     # ---- 1. the card
     card = smi("name,power.limit")
@@ -3435,13 +3716,14 @@ def main():
     RATES["datasheet"] = roofline.datasheet_rates(float(max_clock.split()[0]))
     log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
         "mode; K2, K3, K10 and K11: the main path's rule instance, whole function (set-up and "
-        "epilogue included) per point, and its MUFU.RSQ count")
+        "epilogue included) per point, and its MUFU.RSQ count; K12: the K = 9, rg = 2 "
+        "instance's shared-memory point loop per point")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
                  "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point",
                  "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
-                 "K11 point"):
+                 "K11 point", "K12 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -3670,9 +3952,9 @@ def main():
     require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
                                     "(at most half)")
     require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters,
-                         "K9 v1": 0, "K10": 0, "K11": 0},
+                         "K9 v1": 0, "K10": 0, "K11": 0, "K12": 0},
             f"launch counters {launches} equal the sweep count {res.iters} (K9 v2's tails run "
-            f"in K8 v2's launches; no K9 v1, K10 or K11 launch)")
+            f"in K8 v2's launches; no K9 v1, K10, K11 or K12 launch)")
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
@@ -3796,6 +4078,9 @@ def main():
 
     # ---- 6e. K10 and K11 against their plain versions
     kernels_k10_k11(dev, record, issue_ms)
+
+    # ---- 6f. K12 against its plain version
+    kernels_k12(dev, record, I1, I2, issue_ms)
 
     # ---- 7. one full_mixture sweep, three ways
     log("phase exact sweep")
@@ -4256,6 +4541,16 @@ def main():
         "tpu_fast window_rg=2", wf32, launch_counts(K1=1, K2=1), verbose=True))
     segment_ms("tpu_fast window_rg=2", wf32, wp32, wres.state)
     del wp32
+    # the windowed bicubic term through K12, beside K3 (the main path of K12's launches)
+    wb32 = GQMAPConfig.full_mixture(window_rg=2, quad_chunk=27, its=300, eval_every=300)
+    wbres = aepe_falls("full_mixture window_rg=2", counted_solve(
+        "full_mixture window_rg=2", wb32, launch_counts(K3=1, K12=1), verbose=True))
+    segment_ms("full_mixture window_rg=2", wb32, pg.make_problem(wb32, I1, I2, fr, dev),
+               wbres.state)
+    lb32 = GQMAPConfig.legacy_v2(data_term="bicubic", its=300, eval_every=300)
+    aepe_falls("legacy_v2 bicubic", counted_solve("legacy_v2 bicubic", lb32,
+                                                  launch_counts(K3=1, K12=1)))
+    del wbres
 
     # legacy_v1: its quadratic prior is Problem.init_flow, which solve() does
     # not set (as in the JAX package), so it runs through the segment runner;
@@ -4481,6 +4776,10 @@ def main():
              source="gqmap_tpu_torch/csrc/quad_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:296 (XLA scan, no "
                       "Pallas)", launches=by_path["legacy_v1"]["K11"], **record["K11"]),
+        dict(name="window_gq (K12)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
+             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:142 (XLA scan, no "
+                      "Pallas)", launches=by_path["full_mixture window_rg=2"]["K12"],
+             **record["K12"]),
     ]
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")

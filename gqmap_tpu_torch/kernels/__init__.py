@@ -4,7 +4,7 @@
 to its ``launches`` where it launches its kernel), so a caller that replays
 captured launches can keep the counts without knowing the kernels:
 K1-K7, K8, K9 v1, K9 v2 (``sweep_tail_v2`` counts its tails, which run
-inside K8 v2's launches), K10 and K11.
+inside K8 v2's launches), K10, K11 and K12.
 """
 
 from .cheb_gq import cheb_gq_cuda
@@ -15,7 +15,9 @@ from .nearest_gq import nearest_chain_gq_cuda, nearest_gq_cuda
 from .node_gq import node_gq_cuda
 from .quad_gq import quad_node_gq_cuda, truncquad_edge_gq_cuda
 from .sweep_update import site_update_cuda, sweep_tail_cuda, sweep_tail_v2
+from .window_gq import node_window_gq_cuda
 
 COUNTED = (cos_mode_sums_cuda, edge_reduced_grads_cuda, edge_gq_cuda, node_gq_cuda,
            cheb_gq_cuda, nearest_gq_cuda, nearest_chain_gq_cuda, site_update_cuda,
-           sweep_tail_cuda, sweep_tail_v2, quad_node_gq_cuda, truncquad_edge_gq_cuda)
+           sweep_tail_cuda, sweep_tail_v2, quad_node_gq_cuda, truncquad_edge_gq_cuda,
+           node_window_gq_cuda)

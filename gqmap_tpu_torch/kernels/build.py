@@ -67,6 +67,10 @@ _SIGNATURES = {
     # K, variant, window_bytes, lam, eps, device, stream
     "gqmap_node_gq_f32": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
     "gqmap_node_gq_f64": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
+    # I1, VV, muu, muv, su, sv, pn, rule_host, out, l1_counts, Mo, No, M2, N2, L, M, N, r0, c0,
+    # K, rg, window_bytes, generic, lam, eps, device, stream (kernels/window_gq, K12)
+    "gqmap_window_gq_f32": [_P] * 10 + [_I] * 13 + [_D] * 2 + [_I, _P],
+    "gqmap_window_gq_f64": [_P] * 10 + [_I] * 13 + [_D] * 2 + [_I, _P],
     # coeffs, muu, muv, su, sv, pn, rule_host, out, L, S, P, Q, K, variant, cu, ru, cv, rv,
     # device, stream
     "gqmap_cheb_gq_f32": [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P],

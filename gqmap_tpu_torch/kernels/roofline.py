@@ -55,7 +55,7 @@ import torch
 
 __all__ = ["measure_ceilings", "sweep_roofline", "flagship_roofline", "main", "kernel_ms",
            "k1_work", "k2_work", "k3_work", "k4_work", "k5_work", "k6_work", "k7_work", "k8_work",
-           "k9_work", "k10_work", "k11_work", "update_bound_ms", "bound",
+           "k9_work", "k10_work", "k11_work", "k12_work", "update_bound_ms", "bound",
            "datasheet_rates", "measured_rates", "card_line", "FLOPS", "TIMING"]
 
 # H100 SXM, NVIDIA's data sheet: device memory rate, float32 rate outside the
@@ -364,6 +364,28 @@ def k11_work(edge_shape, K: int, itemsize: int = 4) -> dict:
     n_el = math.prod(edge_shape)
     flops = n_el * (K * K * FLOPS["K11 point"] + K * FLOPS["K11 node"] + FLOPS["K11 site"])
     return dict(bytes=(2 * n_el + 6 * n_el) * itemsize, flops=flops, roots=2 * n_el)
+
+
+def k12_work(site_shape, K: int, rg: int, itemsize: int = 4) -> dict:
+    """K12's function on ``(L, M, N)`` sites of one pixel each with the
+    K^2-point rule and the ``(2 rg + 1)^2`` window: the 5 state fields, frame
+    1 and frame 2's padded table read once, 6 raw sums written; per site and
+    point :func:`k4_work`'s count for a ``P x P`` block, ``P = 2 rg + 1``
+    (one weight set, ``(P + 3) P`` row passes, ``P^2`` column passes, ``P^2``
+    differences and roots), the window's taps being its ``(P + 3)^2`` table
+    reads (``l1_bytes``), and the scale ``-lam / W`` a site in the epilogue
+    (counted with ``-lam``). Frame 1's window is read from the frame, not
+    counted again."""
+    L, M, N = site_shape
+    P = 2 * rg + 1
+    sites = L * M * N
+    points = sites * K * K
+    flops = (points * (FLOPS["K4 point"] + FLOPS["K4 tap row"] * P * (2 * P + 3)
+                       + FLOPS["K4 pixel"] * P * P - 1)
+             + sites * (FLOPS["K4 site"] + 2 * K))
+    return dict(bytes=(5 * sites + M * N + (M + 2) * (N + 2) + 6 * sites) * itemsize,
+                flops=flops, roots=points * P * P + 2 * sites,
+                l1_bytes=points * (P + 3) ** 2 * itemsize)
 
 
 def update_bound_ms(cfg, site_shape, node_form: str, edge_form: str, rates: dict) -> float:

@@ -19,8 +19,9 @@ truncated-quadratic edges, and the Prewitt (chain-rule) and autodiff
 launch where the JAX package would run its Pallas kernels: K1 for the
 cosine term, K2 / K3 for Charbonnier edges, never under autodiff; and
 where it scans the nearest lookup (kernel K6, with or without the window),
-the Prewitt chain (kernel K7), the quadratic prior (kernel K10) and the
-truncated-quadratic edges under the tensor rule (kernel K11); the reduced
+the windowed bicubic term (kernel K12), the Prewitt chain (kernel K7), the
+quadratic prior (kernel K10) and the truncated-quadratic edges under the
+tensor rule (kernel K11); the reduced
 truncated-quadratic edges and the autodiff sums are the plain ones, as they
 are the JAX package's XLA ones.
 
@@ -81,6 +82,8 @@ from ..kernels.nearest_gq import (nearest_chain_gq, nearest_chain_gq_cuda, neare
 from ..kernels.node_gq import node_gq, node_gq_cuda, node_gq_torch
 from ..kernels.quad_gq import (quad_node_gq, quad_node_gq_cuda, quad_node_gq_torch,
                                truncquad_edge_gq, truncquad_edge_gq_cuda, truncquad_edge_gq_torch)
+from ..kernels import window_gq
+from ..kernels.window_gq import node_window_gq, node_window_gq_cuda, node_window_gq_torch
 from ..kernels.sweep_update import (MAX_CARRY_L, Carry, EdgeSums, NodeSums, Tail,
                                     lattice_views, site_update_cuda, site_update_torch, stack2,
                                     step_of, step_torch, sweep_tail_cuda, sweep_tail_torch)
@@ -127,6 +130,9 @@ _NODE_CHAIN = {"auto": nearest_chain_gq, "cuda": nearest_chain_gq_cuda,
                "torch": nearest_chain_gq_torch}
 # the quadratic prior's K10 route (raw sums)
 _NODE_QUAD = {"auto": quad_node_gq, "cuda": quad_node_gq_cuda, "torch": quad_node_gq_torch}
+# the windowed bicubic term's K12 route (raw sums)
+_NODE_WINDOW = {"auto": node_window_gq, "cuda": node_window_gq_cuda,
+                "torch": node_window_gq_torch}
 # the edge term's kernel (_edge_kernel) -> edge_kernel -> its route: K2
 # (finalized gradients) or K3 (raw sums, finalized here) of Charbonnier
 # edges, K11 (raw sums) of truncated-quadratic tensor-rule edges
@@ -202,12 +208,13 @@ def check_supported(cfg: GQMAPConfig) -> None:
     Unknown values raise ``ValueError``, as the JAX package's
     ``make_problem`` does, and so does a kernel asked for (``"cuda"``) on a path
     that no kernel computes: K1 computes only the cosine term's Stein sums,
-    K4 only the bicubic term's (without a window), K5 only the Chebyshev
-    term's (at most ``MAX_Q`` v-degrees), K6 only the nearest lookup's (with
-    or without a window), K7 only the Prewitt chain's, K10 only the quadratic
-    prior's, K2 and K3 only Charbonnier edges, K11 only truncated-quadratic
-    edges under the tensor rule, and the autodiff estimator differentiates
-    plain sums.
+    K4 only the bicubic term's without a window, K12 only the bicubic term's
+    with a window (rules up to ``window_gq.MAX_K`` points an axis, radii up
+    to ``window_gq.MAX_RG``), K5 only the Chebyshev term's (at most
+    ``MAX_Q`` v-degrees), K6 only the nearest lookup's (with or without a
+    window), K7 only the Prewitt chain's, K10 only the quadratic prior's, K2
+    and K3 only Charbonnier edges, K11 only truncated-quadratic edges under
+    the tensor rule, and the autodiff estimator differentiates plain sums.
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -224,10 +231,12 @@ def check_supported(cfg: GQMAPConfig) -> None:
         raise ValueError(
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
             f"Stein sums, kernel K4, which computes the bicubic term's without a window, "
-            f"kernel K5, which computes the Chebyshev term's with at most {MAX_Q} v-degrees, "
+            f"kernel K12, which computes the bicubic term's with a window of radius 1 to "
+            f"{window_gq.MAX_RG} and rules of at most {window_gq.MAX_K} points an axis, kernel K5, "
+            f"which computes the Chebyshev term's with at most {MAX_Q} v-degrees, "
             f"kernel K6, which computes the nearest lookup's, kernel K7, which computes the "
             f"Prewitt chain's, or kernel K10, which computes the quadratic prior's; with "
-            f"data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, "
+            f"data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, K={cfg.K}, "
             f"cheb_q={cfg.cheb_q} and gradient_estimator={cfg.gradient_estimator!r} the node "
             "term is plain torch (use 'auto' or 'torch')")
     if cfg.edge_kernel == "cuda" and (_edge_kernel(cfg) is None or autodiff):
@@ -243,7 +252,8 @@ def check_supported(cfg: GQMAPConfig) -> None:
 def _node_kernel(cfg: GQMAPConfig) -> str | None:
     """The kernel that computes ``cfg``'s node term under the Stein and
     Prewitt estimators: ``"K1"`` (the cosine term), ``"K4"`` (the bicubic
-    term without a window), ``"K5"`` (the Chebyshev term, whose window is in
+    term without a window), ``"K12"`` (the bicubic term with a window that
+    ``window_gq.takes``), ``"K5"`` (the Chebyshev term, whose window is in
     its coefficients, with at most ``MAX_Q`` v-degrees), ``"K6"`` (the
     nearest lookup, with or without a window), ``"K7"`` (the Prewitt
     estimator's chain on the nearest lookup), ``"K10"`` (the quadratic prior
@@ -256,6 +266,8 @@ def _node_kernel(cfg: GQMAPConfig) -> str | None:
         return "K1"
     if cfg.data_term == "bicubic" and cfg.window_rg == 0:
         return "K4"
+    if cfg.data_term == "bicubic" and window_gq.takes(cfg.K, cfg.window_rg):
+        return "K12"
     if cfg.data_term == "chebyshev" and cfg.cheb_q <= MAX_Q:
         return "K5"
     if cfg.data_term == "quadratic":
@@ -450,15 +462,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
 
     The kernels' routes follow the JAX package's rule: K1 for the cosine
     term and K2 / K3 for Charbonnier edges under the Stein and Prewitt
-    estimators; K4 for the bicubic term without a window, K5 for the
-    Chebyshev term, K6 for the nearest lookup (with or without a window) and
-    K10 for the quadratic prior under the Stein estimator, K7 for the
-    Prewitt estimator's chain sums and K11 for truncated-quadratic edges
-    under the tensor rule (each of which the JAX package runs as one XLA
-    scan); the other node terms (the windowed bicubic term, ``cheb_q >
-    MAX_Q``), the reduced truncated-quadratic edges and the autodiff
-    estimator run plain sums (:func:`check_supported` refuses ``"cuda"``
-    there). What the JAX
+    estimators; K4 for the bicubic term without a window, K12 for it with
+    a window, K5 for the Chebyshev term, K6 for the nearest lookup (with or
+    without a window) and K10 for the quadratic prior under the Stein
+    estimator, K7 for the Prewitt estimator's chain sums and K11 for
+    truncated-quadratic edges under the tensor rule (each of which the JAX
+    package runs as one XLA scan); the other node terms (``cheb_q >
+    MAX_Q``, a window or a rule K12 does not take), the reduced
+    truncated-quadratic edges and the autodiff estimator run plain sums
+    (:func:`check_supported` refuses ``"cuda"`` there). What the JAX
     package fuses around them (the finalize of the raw sums, the neighbour
     assembly, the clamped step, the reductions, the alpha update and the
     counter) runs as kernels K8 and K9 where :func:`_update_route` names
@@ -501,11 +513,11 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums_fn = _NODE_SUMS[cfg.node_kernel]
     autodiff = cfg.gradient_estimator == "autodiff"
-    # K4, K5, K6, K7 or K10 (or its plain version) where the JAX package scans
+    # K4, K5, K6, K7, K10 or K12 (or its plain version) where the JAX package scans
     # the bicubic term, the Chebyshev series, the nearest lookup, the Prewitt
-    # chain or the quadratic prior
+    # chain, the quadratic prior or the windowed bicubic term
     routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN,
-              "K10": _NODE_QUAD}
+              "K10": _NODE_QUAD, "K12": _NODE_WINDOW}
     kernel = None if autodiff else _node_kernel(cfg)
     node_route = routes[kernel][cfg.node_kernel] if kernel in routes else None
     if node_route is not None and cfg.node_kernel != "cuda":
@@ -643,11 +655,14 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 sums = node_sums_fn(problem.cheb, st.muu, st.muv, st.sigmau, st.sigmav, st.pn,
                                     **at)
                 return NodeSums("modes", tuple(sums), problem.cheb)
-            # the K^2-point node quadrature: kernel K4, K5 or K6, else plain torch
+            # the K^2-point node quadrature: kernel K4, K5, K6, K10 or K12, else plain torch
             site = (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)
             if kernel == "K4":
                 raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
                                    cfg.epsn, patch=cfg.patch, **node_at)
+            elif kernel == "K12":  # frame 1 and VV whole, addressed at the block's origin
+                raw_n = node_route(problem.I1, problem.I2_tab, *site, cfg.K, cfg.lambdad,
+                                   cfg.epsn, cfg.window_rg, **node_at)
             elif kernel == "K5":  # the field is the shard's own block
                 raw_n = node_route(problem.cheb, *site, cfg.K)
             elif kernel == "K6":

@@ -29,8 +29,7 @@ import chip_smoke as cs
 from gqmap_tpu_torch import FlowRange, GQMAPConfig
 from gqmap_tpu_torch.models import gqmap as pg
 
-TERMS = {  # ROADMAP Queue 1 item 4
-    "full_mixture window_rg=2 (windowed bicubic term)": GQMAPConfig.full_mixture(window_rg=2),
+TERMS = {  # ROADMAP Queue 1 (the windowed bicubic term runs through kernel K12)
     "full_mixture chebyshev cheb_q=96": GQMAPConfig.full_mixture(data_term="chebyshev",
                                                                  cheb_q=96, quad_chunk=27),
     "legacy_v2 autodiff": GQMAPConfig.legacy_v2(gradient_estimator="autodiff"),

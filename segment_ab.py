@@ -14,9 +14,14 @@ process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
 * ``tpu_fast`` red-black: a 100-sweep segment;
 * 50 ``tpu_fast`` sweeps without the segment's per-sweep flag read: the
   host's time to enqueue them and the time until the card has run them;
-* ``full_mixture`` (``quad_chunk=27``, the exact path: the plain bicubic
-  node term and K3): 10 sweeps from the random init, after 2 of warm-up
-  (CUDA events), device-bound where the others are host-bound;
+* ``full_mixture`` (``quad_chunk=27``, the exact path: kernels K4 and K3):
+  10 sweeps from the random init, after 2 of warm-up (CUDA events),
+  device-bound where the others are host-bound;
+* the K4 paths (``full_mixture``, ``super_entropy``, ``ctf_level``): a
+  100-sweep graph segment from a converged state (sigma 0.05);
+* ``k4_sums_sha256``: a digest of kernel K4's sums, both variants, on the
+  init and converged states of those three paths in float32 and float64:
+  equal digests mean the two checkouts' K4 sums are equal bit for bit;
 * the torch operators one ``tpu_fast``, one red-black and one
   ``full_mixture`` sweep dispatch (the kernels themselves, launched through
   ``ctypes``, are not among them): equal counts mean the same glue work on
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -76,7 +82,7 @@ def one(root: str) -> dict:
     conv = st0._replace(sigmau=torch.full_like(st0.sigmau, 0.05),
                         sigmav=torch.full_like(st0.sigmav, 0.05))
 
-    def segment_ms(c, st, n):
+    def segment_ms(c, st, n, problem=problem):
         seg = pg.make_segment_runner(c, (H, W))
         st, *_ = seg(problem, st, 10)
         times = []
@@ -123,6 +129,29 @@ def one(root: str) -> dict:
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1) / 10)
     out["full_mixture_ms"] = float(np.median(times))
+    from gqmap_tpu_torch.kernels import node_gq
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    digest = hashlib.sha256()
+    for name, c in (("full_mixture", fm), ("super_entropy", GQMAPConfig.super_entropy()),
+                    ("ctf_level", GQMAPConfig.ctf_level())):
+        c = dataclasses.replace(c, tor=0.0)
+        s0 = pg.init_state(c, fr, (H, W), seed=0, device=dev)
+        sc = s0._replace(sigmau=torch.full_like(s0.sigmau, 0.05),
+                         sigmav=torch.full_like(s0.sigmav, 0.05))
+        out[f"{name}_graph_converged_ms"] = segment_ms(c, sc, 100,
+                                                       pg.make_problem(c, I1, I2, fr, dev))
+        for s in (s0, sc):
+            for dtype in (torch.float32, torch.float64):
+                I1d = torch.as_tensor(I1, dtype=dtype, device=dev)
+                VVd = pad_cubic(torch.as_tensor(I2, dtype=dtype, device=dev))
+                fields = [x.to(dtype).contiguous() for x in (s.muu, s.muv, s.sigmau, s.sigmav,
+                                                              s.pn)]
+                for variant in node_gq.VARIANTS:
+                    got = node_gq.node_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad, c.epsn,
+                                               patch=c.patch, variant=variant)
+                    digest.update(torch.stack(got).cpu().numpy().tobytes())
+    out["k4_sums_sha256"] = digest.hexdigest()
     for name, sw, prob in (
             ("tpu_fast", pg.make_sweep(cfg, (H, W)), problem),
             ("redblack", pg.make_sweep(dataclasses.replace(cfg, sweep_order="redblack"), (H, W)),

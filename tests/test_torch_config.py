@@ -117,20 +117,30 @@ def test_legacy_settings_are_supported(override):
          gradient_estimator="autodiff"),
     dict(edge_kernel="cuda", gradient_estimator="autodiff"),
     dict(node_kernel="cuda", gradient_estimator="autodiff"),
-    dict(node_kernel="cuda", data_term="bicubic", window_rg=2),
+    dict(node_kernel="cuda", data_term="bicubic", window_rg=5),
 ])
 def test_cuda_route_on_a_path_no_kernel_computes_raises(override):
     # K1 computes only the cosine term's Stein sums, K2 and K3 only
     # Charbonnier edges, K11 truncated-quadratic edges under the tensor rule
-    # only (tpu_fast's edges are reduced), no kernel the windowed bicubic
-    # term, and autodiff differentiates plain sums: "cuda" there raises
-    # instead of running the plain path
+    # only (tpu_fast's edges are reduced), K12 the windowed bicubic term up
+    # to a radius of 4 only, and autodiff differentiates plain sums: "cuda"
+    # there raises instead of running the plain path
     with pytest.raises(ValueError, match="kernel K"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
     # "auto" and "torch" run the plain sums there
     for route in ("auto", "torch"):
         kw = {k: (route if k.endswith("_kernel") else v) for k, v in override.items()}
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**kw))
+
+
+@pytest.mark.parametrize("preset, override", [
+    ("full_mixture", dict(window_rg=2)),
+    ("legacy_v2", dict(data_term="bicubic")),
+    ("tpu_fast", dict(data_term="bicubic", window_rg=2)),
+])
+def test_cuda_node_route_on_the_windowed_bicubic_term_is_supported(preset, override):
+    # K12 computes the windowed bicubic term's sums
+    check_supported(getattr(gqmap_tpu_torch.GQMAPConfig, preset)(node_kernel="cuda", **override))
 
 
 @pytest.mark.parametrize("preset", ["legacy_v2", "legacy_v3", "blockmatch_v2"])

@@ -11,6 +11,7 @@ kernel and its plain version differ only in summation order); float32 at
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ import torch
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
 from gqmap_tpu_torch.kernels import (COUNTED, build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                     nearest_gq, node_gq, quad_gq)
+                                     nearest_gq, node_gq, quad_gq, window_gq)
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE, gq_accumulate
@@ -284,7 +285,7 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K4 computes the bicubic node term once a sweep; K8 v2 the update, K9 v2's
     # tail in its last CTA (no K9 v1 launch)
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0]
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -299,8 +300,8 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K8 once a half-step, K9 v2's tail once a sweep (in the second's K8)
-    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0] if preset == "tpu_fast"
-            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0])
+    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0, 0] if preset == "tpu_fast"
+            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -316,8 +317,8 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0] if preset == "tpu_fast_super"
-            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0])
+    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0] if preset == "tpu_fast_super"
+            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -363,19 +364,23 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
     with pytest.raises(ValueError, match="kernel K1"):
         pg.make_sweep(GQMAPConfig.tpu_fast(node_kernel="cuda", gradient_estimator="autodiff"),
                       (24, 40))
-    # K4 computes the bicubic term without a window only
-    with pytest.raises(ValueError, match="kernel K4"):
-        pg.make_sweep(GQMAPConfig.full_mixture(node_kernel="cuda", window_rg=2), (24, 40))
+    # the windowed bicubic term is K12's: "cuda" builds a sweep that launches it
+    cfg, problem, state = _graph_toy(dev, "full_mixture", node_kernel="cuda", window_rg=2,
+                                     quad_chunk=7)
+    n = window_gq.node_window_gq_cuda.launches
+    st, _ = pg.make_sweep(cfg, (24, 40))(problem, state)
+    torch.cuda.synchronize()
+    assert window_gq.node_window_gq_cuda.launches == n + 1 and bool(torch.isfinite(st.muu).all())
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0)),
-    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0)),
-    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0)),
-    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0)),
-    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0)),
+    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0, 0)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8),
-     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
@@ -410,7 +415,7 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3]
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3, 0]
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -461,7 +466,7 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     # K4 (the bicubic node term) and K3 once a sweep of every level, K8 v2 and
     # its tail too
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0])
+            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0, 0])
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -602,7 +607,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels (K9 v2's tail in K8 v2)
     replays = min(pg.POLL * seg.polls, 30)
-    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0]
+    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -769,7 +774,153 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0, 0]
+
+
+# K12 (the windowed bicubic node term) at the main paths' shapes on 376x452:
+# full_mixture(window_rg=2)'s lattice at K = 9, legacy_v2(data_term="bicubic")'s
+# L = 1 lattice, and a ragged lattice at radii 1 and 3 (the generic
+# instance): (L, K, rg, frame)
+K12_CASES = {
+    "full_mixture window_rg=2": (3, 9, 2, (376, 452)),
+    "legacy_v2 bicubic": (1, 9, 2, (376, 452)),
+    "ragged rg=1": (2, 9, 1, (37, 53)),
+    "ragged rg=3": (2, 5, 3, (37, 53)),
+}
+
+
+def _k12_args(dev, dtype, case, probe, shape=None):
+    L, K, rg, frame = K12_CASES[case]
+    return _k4_inputs(dev, dtype, L, 1, shape or frame, probe), K, rg
+
+
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_window_gq_kernel_matches_plain(dev, case, dtype, probe):
+    # float64 within 1e-10 of each sum's largest magnitude; float32 held to
+    # the f64 golden on the same inputs (the ratio rule of
+    # tests/test_f32_conditioning.py); the generic instance beside
+    args, K, rg = _k12_args(dev, dtype, case, probe)
+    n = window_gq.node_window_gq_cuda.launches
+    got = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg)
+    generic = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, generic=True)
+    torch.cuda.synchronize()
+    assert window_gq.node_window_gq_cuda.launches == n + 2
+    plain = window_gq.node_window_gq_torch(*args, K, 1.0, 1e-6, rg, quad_chunk=27)
+    if dtype == torch.float64:
+        for out in (got, generic):
+            for name in plain._fields:
+                _close(getattr(out, name), getattr(plain, name), dtype, name)
+    else:
+        gold = window_gq.node_window_gq_torch(*(x.double() for x in args), K, 1.0, 1e-6, rg,
+                                              quad_chunk=27)
+        _ratio_to_golden(got, plain, gold)
+        _ratio_to_golden(generic, plain, gold)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_window_gq_kernel_nan_probe(dev, dtype):
+    # NaN means, sigmas and correlations at a few sites: NaN exactly there in
+    # the kernel and its plain version, every other site as the NaN-free call
+    # gives it, bit for bit
+    args, K, rg = _k12_args(dev, dtype, "full_mixture window_rg=2", "converged", (64, 96))
+    args = list(args)
+    clean = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg)
+    L, M, N = args[2].shape
+    sites = [(0, 1, 2), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
+    mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
+    for field, site in zip((2, 3, 5, 6), sites):  # muu, muv, sv, pn
+        args[field] = args[field].clone()
+        args[field][site] = float("nan")
+        mask[site] = True
+    got = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg)
+    plain = window_gq.node_window_gq_torch(*args, K, 1.0, 1e-6, rg)
+    torch.cuda.synchronize()
+    for g, p, c in zip(got, plain, clean):
+        assert torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(p), mask)
+        assert torch.equal(g[~mask], c[~mask])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["full_mixture window_rg=2", "ragged rg=3"])
+def test_window_gq_kernel_routes_and_blocks_are_bit_for_bit(dev, case, dtype):
+    # the L1 route (a budget of 0; at full_mixture's 376x452 also sigma ~ 40
+    # px, every site's box over the budget) gives the shared-window route's
+    # sums bit for bit; a shard's block (frame 1 and VV whole, addressed at
+    # its pixel origin; windows across the cut) is the whole lattice's there,
+    # bit for bit
+    args, K, rg = _k12_args(dev, dtype, case, "converged", (64, 96))
+    I1, VV, *st = args
+    sites = tuple(st[0].shape)
+    ctas, n_sites = window_gq.window_ctas(sites), math.prod(sites)
+    cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+    whole = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, l1_counts=cnt)
+    every = torch.zeros(2, dtype=torch.int64, device=dev)
+    l1 = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, window_bytes=0,
+                                       l1_counts=every)
+    torch.cuda.synchronize()
+    assert cnt.tolist() == [0, 0] and every.tolist() == [ctas, n_sites]
+    assert all(torch.equal(g, w) for g, w in zip(whole, l1))
+    if case == "full_mixture window_rg=2":
+        wide = list(_k12_args(dev, dtype, case, "init")[0])
+        wide[4], wide[5] = wide[4] * 3.0, wide[5] * 8.0
+        big = tuple(wide[2].shape)
+        cnt.zero_()
+        w1 = window_gq.node_window_gq_cuda(*wide, K, 1.0, 1e-6, rg, l1_counts=cnt)
+        w2 = window_gq.node_window_gq_cuda(*wide, K, 1.0, 1e-6, rg, window_bytes=0)
+        torch.cuda.synchronize()
+        assert cnt.tolist() == [window_gq.window_ctas(big), math.prod(big)]
+        assert all(torch.equal(g, w) for g, w in zip(w1, w2))
+    _, M, N = st[0].shape
+    for r0, c0, m, n in ((0, 0, M // 2, N // 2), (M // 2, N // 3, M - M // 2, N - N // 3),
+                         (3, 5, M - 6, N - 7)):
+        blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+        got = window_gq.node_window_gq_cuda(I1, VV, *(x[blk].contiguous() for x in st), K, 1.0,
+                                            1e-6, rg, origin=(r0, c0), local_image_shape=(m, n))
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w[blk])
+
+
+def test_window_gq_kernel_refuses_what_it_does_not_take(dev):
+    args, K, rg = _k12_args(dev, torch.float32, "ragged rg=1", "converged")
+    n = window_gq.node_window_gq_cuda.launches
+    for bad_K, bad_rg in ((17, 2), (9, 0), (9, window_gq.MAX_RG + 1)):
+        with pytest.raises(ValueError, match="takes rules"):
+            window_gq.node_window_gq_cuda(*args, bad_K, 1.0, 1e-6, bad_rg)
+    with pytest.raises(ValueError, match="VV"):
+        window_gq.node_window_gq_cuda(args[0], args[1][1:], *args[2:], K, 1.0, 1e-6, rg)
+    with pytest.raises(ValueError, match="window_bytes"):
+        window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, window_bytes=64 * 1024)
+    assert window_gq.node_window_gq_cuda.launches == n
+
+
+@pytest.mark.parametrize("preset, kw", [("full_mixture", dict(window_rg=2, quad_chunk=7)),
+                                        ("legacy_v2", dict(data_term="bicubic"))])
+def test_windowed_bicubic_solve_launches_k12(dev, preset, kw):
+    # the windowed bicubic term through the user entry point: K12 once a
+    # sweep, K4 and the plain sums never, K3 and K8 v2 (its tail in its last
+    # CTA) beside it
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (24, 40))
+    cfg = getattr(GQMAPConfig, preset)(its=3, eval_every=3, **kw)
+    n = [k.launches for k in COUNTED]
+    res = pg.solve(cfg, I1, np.roll(I1, 1, axis=1), flow_range=FlowRange(-2, 2, -2, 2),
+                   device=dev)
+    assert res.iters == 3 and np.isfinite(res.Energy).all()
+    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 0, 0, 0, 0, 3, 0, 3, 0, 0,
+                                                            3]
+
+
+def test_windowed_bicubic_graph_segment_launches_k12(dev):
+    # full_mixture(window_rg=2)'s segment on the graph route: K12 and K3 once a
+    # replayed sweep, bit for bit the host loop's
+    cfg, problem, state = _graph_toy(dev, "full_mixture", window_rg=2, quad_chunk=7)
+    h, _ = _counted(pg.SegmentRunner(cfg, (24, 40), _route="host"), problem, state, 20)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    g, counts = _counted(seg, problem, state, 20)
+    assert seg.route == "graph" and _identical(g, h)
+    assert counts == [0, 0, 20, 0, 0, 0, 0, 20, 0, 20, 0, 0, 20]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -980,14 +1131,14 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"),
-     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0]),
+     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"),
-     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
@@ -1194,9 +1345,9 @@ def test_nearest_variant_rule_and_refusals(dev):
 
 
 @pytest.mark.parametrize("preset, counts", [
-    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0]),
-    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0]),
-    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0])])
+    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0]),
+    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0]),
+    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0, 0])])
 def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
     # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
     # K7) once a replayed sweep
@@ -1588,5 +1739,5 @@ def test_legacy_v1_graph_segment_launches_k10_and_k11(dev, kw):
     seg = pg.make_segment_runner(cfg, (24, 40))
     g, got = _counted(seg, problem, state, 20)
     assert seg.route == "graph" and _identical(g, h)
-    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20]
+    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20, 0]
 

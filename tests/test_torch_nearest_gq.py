@@ -710,7 +710,8 @@ def test_phase_weights_are_the_tables():
     ("full_mixture", dict(data_term="nearest"), "K6"),
     ("full_mixture", dict(data_term="nearest", window_rg=1), "K6"),
     ("legacy_v2", dict(window_rg=0), "K6"), ("legacy_v3", dict(window_rg=2), "K7"),
-    ("full_mixture", dict(data_term="bicubic", window_rg=2), None),
+    # the windowed bicubic term is K12's up to a radius of 4, plain beyond it
+    ("full_mixture", dict(data_term="bicubic", window_rg=5), None),
 ])
 def test_node_kernel_names_k6_and_k7(preset, kw, want):
     cfg = getattr(gqmap_tpu_torch.GQMAPConfig, preset)(**kw)
