@@ -14,7 +14,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    and epilogue included), of K4 v1's innermost loop per sample and of K4
    v2's shared-memory point loop per point (patch 1 at K = 9, patch 4 at
    K = 11; the shared form, the per-pixel fallback being a function of its
-   own) and of K12's (K = 9, rg = 2), of K5 v1's u-degree loop per lane
+   own) and of K12's (K = 9, rg = 2; v2: its 16-byte route's path through
+   the shared form, ``shared_form_path``), of K5 v1's u-degree loop per lane
    and a-step (its Q = 16 and 32 instances) and of K5 v2's chunk loop per warp and chunk of N u-degrees
    (its instructions and HGMMA), with each one's MUFU.RSQ count, which give each
    kernel's issue bound at 132 SMs x 128 lanes x the card's maximum SM
@@ -166,25 +167,32 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    plain version's, the bounds (``roofline.k10_work``, ``k11_work`` at the
    data sheet's and the measured rates), the share of each and the SASS
    issue bound (the K = 9 instance's whole function per point);
-6f. K12 (the windowed bicubic node term's raw sums, ``window_gq_kernel`` in
-   ``csrc/node_gq.cu``) against its plain version (``kernels/window_gq``)
-   on ``full_mixture(window_rg=2)``'s (3, 376, 452) and
+6f. K12 (the windowed bicubic node term's raw sums, ``window_gq_kernel`` and
+   ``window_gq_v2_kernel`` in ``csrc/node_gq.cu``) against its plain
+   version (``kernels/window_gq``) in both variants on
+   ``full_mixture(window_rg=2)``'s (3, 376, 452) and
    ``legacy_v2(data_term="bicubic")``'s (1, 376, 452) lattices at K = 9,
    rg = 2, from the init, the sigma = 0.05 state and the |rho| clamp:
-   float64 (the generic instance) within 1e-10 of each sum's largest
-   magnitude, float32 (the K = 9, rg = 2 instance and the generic one)
-   against the f64 golden (ratio rule); every site through L1
-   (``window_bytes=0``) bit for bit the shared-window route, with the
+   float64 (the runtime-K instance) within 1e-10 of each sum's largest
+   magnitude, float32 (the K = 9 instance and the runtime-K one) against
+   the f64 golden (ratio rule); v2's sums v1's bit for bit in float32 (and
+   within 1e-10 of v1's runtime-rg instance in float64); every site through
+   L1 (``window_bytes=0``) bit for bit the shared-window route, with the
    L1-route shares per probe; a shard's blocks (the (2, 2) mesh's four and
    one at odd offsets) bit for bit the whole lattice's and, in float64,
    within 1e-10 of their plain version; NaN means, sigmas and correlations
    at a few sites: NaN exactly there in both versions, every other site bit
-   for bit the NaN-free call's; the time (sigma 0.05 and the init, the
-   generic instance beside), the plain version's (2 calls after one), the
-   bound (``roofline.k12_work`` at the data sheet's and the measured
-   rates), the shares and the SASS issue bound (the point loop of the
-   shared-memory route, every lane's rounds); K12 must be at least
-   ``WINDOW_SPEEDUP`` times faster than its plain version on both lattices;
+   for bit the NaN-free call's; each instance's registers, local memory and
+   resident CTAs an SM (``window_gq.occupancy``) beside ptxas's spills
+   (every float32 v2 instance without local memory); the share of points
+   whose window fails the border test (the per-tap fallback) at each probe;
+   each variant's time (sigma 0.05 and the init, the runtime-K instance
+   beside), the plain version's (2 calls after one), the bound
+   (``roofline.k12_work`` at the data sheet's and the measured rates), the
+   shares and the SASS issue bound (v1: the point loop of the shared-memory
+   route; v2: its 16-byte route's shared-form path; every lane's rounds);
+   each variant must be at least ``WINDOW_SPEEDUP`` times faster than the
+   plain version on both lattices, the default no slower than the other;
 7. one full 376x452 ``full_mixture`` sweep three ways (K4 and K3 f32, plain
    f32, plain f64 = the golden) from the init and the sigma = 0.05 states:
    the kernel arm's error against the golden at most twice the plain f32
@@ -348,7 +356,8 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    sweeps) against its host loop (``_route="host"``) at 376x452 f32 on
    ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
    ``tpu_fast_super``, ``super_entropy``, ``ctf_level``, the Chebyshev
-   ``full_mixture`` and ``full_mixture(window_rg=2)``: the route is
+   ``full_mixture``, ``full_mixture(window_rg=2)`` and
+   ``legacy_v2(data_term="bicubic")``: the route is
    ``"graph"``; from the init (300 sweeps)
    and the sigma = 0.05 state (300; 100 on the K4 and K5 paths) the final
    state, the sweep count, the three traces and the
@@ -358,10 +367,13 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    the script held; a ``tor`` that trips inside a poll window (from the host
    loop's |dmu| trace) gives the host loop's ``n``, flag, traces and state;
    the converged ``tpu_fast`` and ``tpu_fast_super`` segments' ms a sweep
-   at each POLL of ``GRAPH_POLLS``; ``full_mixture(window_rg=2)`` converged
-   in turns, through K12, around its plain sums (``WINDOW_PLAIN_SWEEPS``
-   sweeps, their capturing call's peak memory) and through K12 again, K12
-   once a sweep and not at all around the plain sums; then 3 sweeps of every other
+   at each POLL of ``GRAPH_POLLS``; the two windowed bicubic paths converged
+   in turns through K12 v2 (the default), v1 and v2 again (each variant's
+   runner captured with it as ``window_gq._DEFAULT_VARIANT``; the three
+   segments' states and traces bit for bit, the same launches), then around
+   their plain sums (``WINDOW_PLAIN_SWEEPS`` sweeps, their capturing call's
+   peak memory), K12 once a sweep and not at all around the plain sums;
+   then 3 sweeps of every other
    single-process configuration (``legacy_v1``-``v3``, autodiff,
    ``blockmatch_v2``, windowed ``tpu_fast``, the Chebyshev ``tpu_fast``,
    ``tpu_fast`` in float64), graph against host loop bit for bit (K8's and
@@ -523,7 +535,7 @@ def sass_loops(instrs, label_addr):
     """Every backward branch of one function: the instructions from its
     target label to the branch, and how many of them are
     MUFU.EX2, MUFU.RSQ, device-memory loads (LDG), shared-memory loads
-    (LDS), float32 FMAs and multiplies (FFMA, FMUL) and tensor-core products
+    (LDS; LDS.128 also apart), float32 FMAs and multiplies (FFMA, FMUL) and tensor-core products
     (HMMA: mma.sync; HGMMA: wgmma)."""
     loops = []
     for addr, ins in instrs:
@@ -537,10 +549,43 @@ def sass_loops(instrs, label_addr):
                               rsq=sum("MUFU.RSQ" in i for i in body_ins),
                               ldg=sum(bool(re.search(r"\bLDG\b", i)) for i in body_ins),
                               lds=sum(bool(re.search(r"\bLDS\b", i)) for i in body_ins),
+                              lds128=sum("LDS.128" in i for i in body_ins),
                               fmul=sum(bool(re.search(r"\bF(FMA|MUL)\b", i)) for i in body_ins),
                               hmma=sum(i.startswith("HMMA") for i in body_ins),
                               hgmma=sum(i.startswith("HGMMA") for i in body_ins)))
     return loops
+
+
+def shared_form_path(instrs, label_addr, loop, loops):
+    """The instructions one iteration of ``loop`` issues on the longest path
+    through its basic blocks, from its first instruction to its back branch,
+    that enters none of the loops nested in it (K12 v2: the shared form,
+    where the inlined per-tap fallback holds the nested loop); None where no
+    path avoids them."""
+    body = [(a, i) for a, i in instrs if loop["start"] <= a <= loop["end"]]
+    nested = [(x["start"], x["end"]) for x in loops if x is not loop
+              and loop["start"] <= x["start"] and x["end"] <= loop["end"]]
+    index = {a: k for k, (a, _) in enumerate(body)}
+    best = [None] * len(body)  # the longest path from instruction k, forward edges only
+    for k in range(len(body) - 1, -1, -1):
+        a, ins = body[k]
+        if any(lo <= a <= hi for lo, hi in nested):
+            continue
+        if a == loop["end"]:
+            best[k] = [ins]
+            continue
+        # a branch's target (after a predicate operand, as in "@P0 BRA P1, 0x...")
+        m = re.search(r"\bBRA\S*\s+(?:!?U?P\w+,\s*)?(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
+        succ = []
+        if m:
+            t = int(m.group(1), 16) if m.group(1)[0] == "0" else label_addr.get(m.group(1))
+            if t in index and t > a:
+                succ.append(index[t])
+        if (m is None and not ins.startswith("EXIT")) or ins.startswith("@"):
+            succ.append(k + 1)
+        paths = [best[j] for j in succ if j < len(body) and best[j] is not None]
+        best[k] = [ins] + max(paths, key=len) if paths else None
+    return best[0] if body else None
 
 
 def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
@@ -596,6 +641,16 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
     per["K12 point"] = lp["instructions"] if lp else None
     per["K12 rsq"] = lp["rsq"] if lp else None
     per["K12 lds"] = lp["lds"] if lp else None
+    # K12 v2: the point loop of the 16-byte route of the float K = 9, rg = 2
+    # instance (the loop with the most LDS.128: the tap rows, frame 1's rows,
+    # the point's constants), per point, on the shared form's path: less the
+    # inlined per-tap fallback (shared_form_path)
+    lps = sass_loops(*find(f"window_gq_v2_kernelIfLi{K}ELi2EE"))
+    lp = max(lps, key=lambda x: x["lds128"]) if lps else None
+    path = shared_form_path(*find(f"window_gq_v2_kernelIfLi{K}ELi2EE"), lp, lps) if lp else None
+    per["K12 v2 point"] = len(path) if path else None
+    per["K12 v2 rsq"] = sum("MUFU.RSQ" in i for i in path) if path else None
+    per["K12 v2 lds"] = sum(bool(re.search(r"\bLDS\b", i)) for i in path) if path else None
     # K5: the u-degree loop of the instances for Q = 16 and 32 (the
     # innermost loop holding an a-step: the fewest instructions among those
     # with at least R (QB + 2) FFMA and FMUL, a row's QB - 1 products for each
@@ -1710,12 +1765,102 @@ WINDOW_PLAIN_CHUNK = 27  # the plain version's points a step (its (27, L, M, N) 
 WINDOW_SPEEDUP = 10.0  # K12 at least this many times faster than its plain version
 
 
+def border_fails(st, K, rg, frame):
+    """The share of a state's (site, point) pairs whose window fails K12's
+    border test (its first tap's query below 1 or its last tap's cell past
+    the frame, or NaN: the kernel then samples each tap alone), and the share
+    of warp rounds (a warp's 8 sites, each lane one point) with any such
+    lane; in float64 from the state (the kernel tests in its own type)."""
+    from gqmap_tpu_torch.kernels import node_gq, window_gq
+
+    L, M, N = st.muu.shape
+    Mo, No = frame
+    P = 2 * rg + 1
+    G, _, TC = window_gq.TILE
+    dev = st.muu.device
+    x = torch.as_tensor(node_gq.node_rule(K)[:K], device=dev)
+    xi, xj = x.repeat(K), x.repeat_interleave(K)  # XJ outer, XI inner
+    n = torch.arange(N, dtype=torch.float64, device=dev).reshape(N, 1)
+    m = torch.arange(M, dtype=torch.float64, device=dev).reshape(M, 1, 1)
+    rounds = -(-K * K // G)
+    fails = rounds_with = 0
+    for l in range(L):
+        p = st.pn[l].double().unsqueeze(-1)
+        sp, sm = torch.sqrt(1 + p), torch.sqrt(1 - p)
+        s, t = (sp + sm) / 2, (sp - sm) / 2
+        o1 = st.sigmau[l].double().unsqueeze(-1) * math.sqrt(2)
+        o2 = st.sigmav[l].double().unsqueeze(-1) * math.sqrt(2)
+        X0 = (n + 1 - rg) + (o1 * s * xi + o1 * t * xj + st.muu[l].double().unsqueeze(-1))
+        Y0 = (m + 1 - rg) + (o2 * t * xi + o2 * s * xj + st.muv[l].double().unsqueeze(-1))
+        fail = ~((X0 >= 1) & (torch.floor(X0) <= No - P) & (Y0 >= 1)
+                 & (torch.floor(Y0) <= Mo - P))
+        fails += int(fail.sum())
+        lanes = torch.zeros((M, -(-N // TC) * TC, rounds * G), dtype=torch.bool, device=dev)
+        lanes[:, :N, :K * K] = fail
+        rounds_with += int(lanes.reshape(M, -1, TC, rounds, G).any(dim=4).any(dim=2).sum())
+    return dict(points=fails / (L * M * N * K * K),
+                warp_rounds=rounds_with / (L * M * -(-N // TC) * rounds))
+
+
+def ptxas_entries(log_text):
+    """``{entry function: dict(registers, stack, spill_stores, spill_loads)}``
+    from a ``-Xptxas -v`` report."""
+    out, name = {}, None
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and m.group(1) == name and i + 1 < len(lines):
+            nums = re.findall(r"(\d+) bytes", lines[i + 1])
+            if len(nums) == 3:
+                out[name].update(stack=int(nums[0]), spill_stores=int(nums[1]),
+                                 spill_loads=int(nums[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def k12_instances(dev):
+    """K12's instances: for each (type, variant, K, rg, generic) a launch can
+    select, its registers, local memory and resident CTAs an SM at the
+    default window budget (``window_gq.occupancy``: the card's own report)
+    beside ptxas's registers, stack and spills for that entry function."""
+    from gqmap_tpu_torch.kernels import build, window_gq
+
+    with open(build.library_path()[:-3] + ".log") as f:
+        entries = ptxas_entries(f.read())
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        t = "f" if dtype == torch.float32 else "d"
+        for variant, rg, generic in ([("v1", 2, False), ("v1", 2, True)]
+                                     + [("v2", rg, g) for rg in range(1, window_gq.MAX_RG + 1)
+                                        for g in (False, True)]):
+            if dtype == torch.float64 and generic:
+                continue  # float64 has the runtime-K instances only
+            kk = 9 if t == "f" and not generic and (variant == "v2" or rg == 2) else 0
+            key = (f"window_gq_kernelI{t}Li{kk}ELi{2 if kk else 0}E" if variant == "v1"
+                   else f"window_gq_v2_kernelI{t}Li{kk}ELi{rg}E")
+            ptx = next((v for k, v in entries.items() if key in k), {})
+            label = (f"{str(dtype)[6:]} {variant} " + ("K=9" if kk else "runtime K")
+                     + (f" rg={rg}" if variant == "v2" or kk else " runtime rg"))
+            out[label] = dict(window_gq.occupancy(9, rg, dtype, variant, generic=generic,
+                                                  device=dev), ptxas=ptx)
+    return out
+
+
 def kernels_k12(dev, record, I1, I2, issue_ms):
     """Phase 6f: K12 (the windowed bicubic node term's raw sums) against its
-    plain version (see the module docstring); fills ``record["K12"]``
-    (``full_mixture(window_rg=2)``'s lattice: error, times, bounds, shares,
-    SASS issue bound; ``legacy_v2(data_term="bicubic")``'s under its name).
-    ``issue_ms(unit, work)``: the SASS issue bound of ``work`` units."""
+    plain version in both variants (see the module docstring); fills
+    ``record["K12"]``: under each variant ``full_mixture(window_rg=2)``'s
+    lattice (error, times, bounds, shares, SASS issue bound), under
+    ``legacy_v2 bicubic`` the same for its lattice, the border-fallback
+    shares and the instance report. ``issue_ms(unit, work)``: the SASS issue
+    bound of ``work`` units."""
     from gqmap_tpu_torch.kernels import window_gq
     from gqmap_tpu_torch.ops.interp import pad_cubic
 
@@ -1723,6 +1868,9 @@ def kernels_k12(dev, record, I1, I2, issue_ms):
     t_phase = time.time()
     k12, plain = window_gq.node_window_gq_cuda, window_gq.node_window_gq_torch
     G = window_gq.TILE[0]
+    default = window_gq._DEFAULT_VARIANT
+    variants = window_gq.VARIANTS
+    units = {"v1": "K12 point", "v2": "K12 v2 point"}  # sass_per_unit's point loops
 
     def frames(dtype):
         return (torch.as_tensor(I1, dtype=dtype, device=dev),
@@ -1734,29 +1882,47 @@ def kernels_k12(dev, record, I1, I2, issue_ms):
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
 
-    rec = record["K12"] = dict(library_ms=None, library_reason=(
-        "no PyTorch call computes the windowed K^2-point sums; grid_sample's bicubic uses "
-        "a = -0.75, not MATLAB's Keys a = -0.5, and has no quadrature or window"), checks=0)
+    def same(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    rec = record["K12"] = dict(variant=default, checks=0, border_fallback_share={},
+                               instances=k12_instances(dev))
+    for label, inst in rec["instances"].items():
+        log(f"  K12 instance {label}: {inst}")
+        if label.startswith("float32 v2"):
+            require(inst["local_bytes"] == 0 and inst["ptxas"].get("spill_stores") == 0,
+                    f"K12 {label}: no local memory, no spill ({inst})")
     for name, cfg in WINDOW_CASES.items():
         K, rg = cfg.K, cfg.window_rg
         pkw = dict(quad_chunk=WINDOW_PLAIN_CHUNK)
         probes = k4_probes(cfg, (H, W), dev)
         site_shape = tuple(probes["init"].muu.shape)
         n_sites, ctas = math.prod(site_shape), window_gq.window_ctas(site_shape)
-        rw = dict(shape=list(site_shape), K=K, rg=rg, l1_route_share={})
+        rws = {v: dict(variant=v, shape=list(site_shape), K=K, rg=rg, l1_route_share={},
+                       library_ms=None, library_reason=(
+                           "no PyTorch call computes the windowed K^2-point sums; grid_sample's "
+                           "bicubic uses a = -0.75, not MATLAB's Keys a = -0.5, and has no "
+                           "quadrature or window")) for v in variants}
+        border = rec["border_fallback_share"][name] = {
+            sname: border_fails(st, K, rg, (H, W)) for sname, st in probes.items()}
+        log(f"  K12 {name}: shares of points failing the border test (per-tap fallback) and of "
+            f"warp rounds with such a point, by probe: {border}")
         for dtype in (torch.float64, torch.float32):
             I1d, VVd = frames(dtype)
+            insts = ("specialised", "generic") if dtype == torch.float32 else ("generic",)
             for sname, st in probes.items():
                 args = (I1d, VVd, *sites(st, dtype), K, cfg.lambdad, cfg.epsn, rg)
                 want = plain(*args, **pkw)
                 gold = None if dtype == torch.float64 else plain(
                     *(x.double() if isinstance(x, torch.Tensor) else x for x in args), **pkw)
-                for inst in ("specialised", "generic") if dtype == torch.float32 else ("generic",):
+                outs = {}
+                for variant, inst in ((v, i) for v in variants for i in insts):
+                    kw = dict(variant=variant, generic=inst == "generic")
                     cnt = torch.zeros(2, dtype=torch.int64, device=dev)
-                    got = k12(*args, l1_counts=cnt, generic=inst == "generic")
+                    got = outs[variant, inst] = k12(*args, l1_counts=cnt, **kw)
                     a, r, ok = compare(got, want, dtype)
-                    what = (f"K12 {name} {site_shape} K={K} rg={rg} {inst} {str(dtype)[6:]} "
-                            f"{sname}")
+                    what = (f"K12 {variant} {name} {site_shape} K={K} rg={rg} {inst} "
+                            f"{str(dtype)[6:]} {sname}")
                     rec["checks"] += 1
                     if dtype == torch.float64:
                         require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
@@ -1767,54 +1933,81 @@ def kernels_k12(dev, record, I1, I2, issue_ms):
                                 f"{ep:.3e} + 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
                     # the L1 route (a budget of 0): the same sums, bit for bit
                     every = torch.zeros(2, dtype=torch.int64, device=dev)
-                    l1 = k12(*args, window_bytes=0, l1_counts=every, generic=inst == "generic")
+                    l1 = k12(*args, window_bytes=0, l1_counts=every, **kw)
                     n_ctas, n_l1 = cnt.tolist()
                     share = dict(ctas=n_ctas / ctas, sites=n_l1 / n_sites)
-                    if inst == "generic":
-                        rw["l1_route_share"][f"{sname} {str(dtype)[6:]}"] = share
-                    require(every.tolist() == [ctas, n_sites]
-                            and all(torch.equal(x, y) for x, y in zip(got, l1)),
+                    if inst == insts[0]:
+                        rws[variant]["l1_route_share"][f"{sname} {str(dtype)[6:]}"] = share
+                    require(every.tolist() == [ctas, n_sites] and same(got, l1),
                             f"{what}: {n_ctas} of {ctas} CTAs without a window, {n_l1} of "
                             f"{n_sites} sites through L1 ({share}); every site through L1 "
                             f"({every.tolist()}) gives the same sums, bit for bit")
                     if (dtype, inst, sname) == (torch.float32, "specialised", "converged"):
-                        rw["max_abs_err"] = a
-                    del got, l1
-                del want, gold
+                        rws[variant]["max_abs_err"] = a
+                    del l1
+                # v2 is v1's arithmetic on v1's lanes: v1's compiled instance's sums
+                # bit for bit, and its own runtime-K instance's; against v1's
+                # runtime-rg instance (float64) within the tolerance
+                v1, v2 = outs["v1", insts[0]], outs["v2", insts[0]]
+                a, r, ok = compare(v2, v1, dtype)
+                bits = same(v2, v1) and same(v2, outs["v2", "generic"])
+                if dtype == torch.float32:
+                    require(bits, f"K12 {name} float32 {sname}: v2's sums are v1's bit for bit "
+                                  f"(both instances; max abs difference {a:.3e})")
+                else:
+                    require(ok, f"K12 {name} float64 {sname}: v2 against v1's runtime-rg "
+                                f"instance max abs {a:.3e}, rel {r:.3e}; bit for bit: {bits}")
+                del outs, want, gold
 
-        # times (float32): sigma = 0.05 and the init, the generic instance
-        # beside; the plain version (about half a second a call: 2 after one)
+        # times (float32), each variant at sigma = 0.05 and from the init, its
+        # runtime-K instance beside; the plain version (about half a second a
+        # call: 2 after one)
         I1d, VVd = frames(torch.float32)
         for sname in ("converged", "init"):
             args = (I1d, VVd, *sites(probes[sname], torch.float32), K, cfg.lambdad, cfg.epsn, rg)
             tag = "" if sname == "converged" else "init_"
-            rw[f"{tag}ms"], rw[f"{tag}ms_min"] = kernel_ms(lambda: k12(*args))
-            rw[f"{tag}generic_ms"] = kernel_ms(lambda: k12(*args, generic=True))[0]
-            rw[f"{tag}plain_ms"] = time_ms(lambda: plain(*args, **pkw), 2)
-        rw.update(bound(roofline.k12_work(site_shape, K, rg)))
-        rw["sass_issue_ms"] = issue_ms("K12 point", n_sites * G * -(-K * K // G))
-        rw["share"] = dict(sheet=rw["bound_ms"] / rw["ms"],
-                           measured=rw["bound_ms_measured"] / rw["ms"],
-                           issue=(rw["sass_issue_ms"] / rw["ms"] if rw["sass_issue_ms"]
-                                  else None))
-        rw["speedup"] = rw["plain_ms"] / rw["ms"]
+            for variant in variants:
+                rw = rws[variant]
+                rw[f"{tag}ms"], rw[f"{tag}ms_min"] = kernel_ms(lambda: k12(*args,
+                                                                           variant=variant))
+                rw[f"{tag}generic_ms"] = kernel_ms(lambda: k12(*args, variant=variant,
+                                                               generic=True))[0]
+            plain_ms = time_ms(lambda: plain(*args, **pkw), 2)
+            for variant in variants:
+                rws[variant][f"{tag}plain_ms"] = plain_ms
+        work = bound(roofline.k12_work(site_shape, K, rg))
         card = smi("name,power.limit,clocks.sm")
-        log(f"  K12 {name} {site_shape} K={K} rg={rg} f32 on {card} (median, min) of "
-            f"{TIMING[0]} windows of {TIMING[1]} calls: sigma 0.05 ({rw['ms']:.4f}, "
-            f"{rw['ms_min']:.4f}) ms, init ({rw['init_ms']:.4f}, {rw['init_ms_min']:.4f}) ms; "
-            f"generic instance {rw['generic_ms']:.4f} / {rw['init_generic_ms']:.4f} ms; plain "
-            f"{rw['plain_ms']:.4f} / {rw['init_plain_ms']:.4f} ms ({rw['speedup']:.0f}x); "
-            f"{fmt_bound(rw)} ({rw['bound_terms_ms']}); SASS issue bound {rw['sass_issue_ms']} "
-            f"ms; share of the bound: data sheet {rw['share']['sheet']:.1%}, measured "
-            f"{rw['share']['measured']:.1%}; L1-route shares {rw['l1_route_share']}")
-        require(rw["speedup"] >= WINDOW_SPEEDUP and rw["init_plain_ms"] >= WINDOW_SPEEDUP
-                * rw["init_ms"], f"K12 {name}: at least {WINDOW_SPEEDUP:g}x faster than its "
-                                 f"plain version ({rw['speedup']:.1f}x at sigma 0.05, "
-                                 f"{rw['init_plain_ms'] / rw['init_ms']:.1f}x from init)")
+        for variant in variants:
+            rw = rws[variant]
+            rw.update(work)
+            rw["sass_issue_ms"] = issue_ms(units[variant], n_sites * G * -(-K * K // G))
+            rw["share"] = dict(sheet=rw["bound_ms"] / rw["ms"],
+                               measured=rw["bound_ms_measured"] / rw["ms"],
+                               issue=(rw["sass_issue_ms"] / rw["ms"] if rw["sass_issue_ms"]
+                                      else None))
+            rw["speedup"] = rw["plain_ms"] / rw["ms"]
+            log(f"  K12 {variant} {name} {site_shape} K={K} rg={rg} f32 on {card} (median, min) "
+                f"of {TIMING[0]} windows of {TIMING[1]} calls: sigma 0.05 ({rw['ms']:.4f}, "
+                f"{rw['ms_min']:.4f}) ms, init ({rw['init_ms']:.4f}, {rw['init_ms_min']:.4f}) ms; "
+                f"runtime-K instance {rw['generic_ms']:.4f} / {rw['init_generic_ms']:.4f} ms; "
+                f"plain {rw['plain_ms']:.4f} / {rw['init_plain_ms']:.4f} ms "
+                f"({rw['speedup']:.0f}x); {fmt_bound(rw)} ({rw['bound_terms_ms']}); SASS issue "
+                f"bound {rw['sass_issue_ms']} ms; share of the bound: data sheet "
+                f"{rw['share']['sheet']:.1%}, measured {rw['share']['measured']:.1%}, issue "
+                f"{rw['share']['issue']}; L1-route shares {rw['l1_route_share']}")
+            require(rw["speedup"] >= WINDOW_SPEEDUP and rw["init_plain_ms"] >= WINDOW_SPEEDUP
+                    * rw["init_ms"], f"K12 {variant} {name}: at least {WINDOW_SPEEDUP:g}x faster "
+                                     f"than its plain version ({rw['speedup']:.1f}x at sigma "
+                                     f"0.05, {rw['init_plain_ms'] / rw['init_ms']:.1f}x from "
+                                     "init)")
+        other = next(v for v in variants if v != default)
+        require(rws[default]["ms"] <= rws[other]["ms"],
+                f"K12 {name}: the default variant {default} ({rws[default]['ms']:.4f} ms) no "
+                f"slower than {other} ({rws[other]['ms']:.4f} ms) at sigma 0.05")
         if name == "full_mixture window_rg=2":
-            rec.update(rw)
+            rec.update(rws)
         else:
-            rec[name] = rw
+            rec[name] = rws
         del probes
         torch.cuda.empty_cache()
 
@@ -1827,16 +2020,16 @@ def kernels_k12(dev, record, I1, I2, issue_ms):
     st = k4_probes(cfg, (H, W), dev)["converged"]
     hm, hn = H // 2, W // 2
     blocks = [(r0, c0, hm, hn) for r0 in (0, hm) for c0 in (0, hn)] + [(37, 51, 101, 203)]
-    for dtype in (torch.float64, torch.float32):
+    for dtype, variant in ((d, v) for d in (torch.float64, torch.float32) for v in variants):
         I1d, VVd = frames(dtype)
         s5 = sites(st, dtype)
-        whole = k12(I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg)
+        whole = k12(I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg, variant=variant)
         for r0, c0, m, n in blocks:
             blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
             at = dict(origin=(r0, c0), local_image_shape=(m, n))
             bs = [x[blk].contiguous() for x in s5]
-            got = k12(I1d, VVd, *bs, K, cfg.lambdad, cfg.epsn, rg, **at)
-            what = (f"K12 {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0})")
+            got = k12(I1d, VVd, *bs, K, cfg.lambdad, cfg.epsn, rg, variant=variant, **at)
+            what = f"K12 {variant} {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0})"
             if dtype == torch.float64:
                 a, r, ok = compare(got, plain(I1d, VVd, *bs, K, cfg.lambdad, cfg.epsn, rg,
                                               quad_chunk=WINDOW_PLAIN_CHUNK, **at), dtype)
@@ -1852,19 +2045,20 @@ def kernels_k12(dev, record, I1, I2, issue_ms):
     mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
     for site in at:
         mask[site] = True
-    for dtype in (torch.float64, torch.float32):
+    for dtype, variant in ((d, v) for d in (torch.float64, torch.float32) for v in variants):
         I1d, VVd = frames(dtype)
         s5 = [x.clone() for x in sites(st, dtype)]
-        clean = k12(I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg)
+        clean = k12(I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg, variant=variant)
         for field, site in zip((0, 1, 3, 4), at):  # muu, muv, sigmav, pn
             s5[field][site] = float("nan")
         args = (I1d, VVd, *s5, K, cfg.lambdad, cfg.epsn, rg)
-        got, want = k12(*args), plain(*args, quad_chunk=WINDOW_PLAIN_CHUNK)
+        got, want = k12(*args, variant=variant), plain(*args, quad_chunk=WINDOW_PLAIN_CHUNK)
         torch.cuda.synchronize()
         ok = all(torch.equal(torch.isnan(g), mask) and torch.equal(torch.isnan(w), mask)
                  and torch.equal(g[~mask], c[~mask]) for g, w, c in zip(got, want, clean))
-        require(ok, f"K12 {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in the kernel "
-                    "and the plain version, every other site bit for bit the NaN-free call's")
+        require(ok, f"K12 {variant} {str(dtype)[6:]} NaN probes at {at}: NaN exactly there in "
+                    "the kernel and the plain version, every other site bit for bit the "
+                    "NaN-free call's")
     del st
     torch.cuda.empty_cache()
     rec["phase_s"] = time.time() - t_phase
@@ -2737,13 +2931,15 @@ GRAPH_POLLS = (1, 5, 10, 25, 100)  # POLL values timed on the converged tpu_fast
 def graph_phase(dev, record, by_path, kfns):
     """Phase 30: the segment runner's graph route against its host loop at
     376x452 f32 on ``tpu_fast``, ``full_mixture``, red-black ``tpu_fast``,
-    ``tpu_fast_super``, ``super_entropy``, ``ctf_level`` and the Chebyshev
-    ``full_mixture`` (K5 and K3): the route is ``"graph"``; from the init and
-    from the sigma = 0.05 state both runners end in the same state and
-    traces, bit for bit, after 300 sweeps (100 converged on the K4 and K5
-    paths), with the same launch counts; on the K4 paths the graph's ms a
-    sweep with K4 v1 beside v2's, on the Chebyshev path with K5 v1 beside
-    v2's, in turns; each
+    ``tpu_fast_super``, ``super_entropy``, ``ctf_level``, the Chebyshev
+    ``full_mixture`` (K5 and K3) and the two windowed bicubic paths (K12 and
+    K3): the route is ``"graph"``; from the init and from the sigma = 0.05
+    state both runners end in the same state and traces, bit for bit, after
+    300 sweeps (100 converged on the K4, K5 and K12 paths), with the same
+    launch counts; on the K4 paths the graph's ms a sweep with K4 v1 beside
+    v2's, on the Chebyshev path with K5 v1 beside v2's, in turns; on the
+    K12 paths its other variant's and its default's again, in turns, bit for
+    bit, then around the plain sums; each
     runner's ms a sweep by CUDA events, the capture's seconds and the peak
     device memory of the capturing call; an early stop that trips inside a
     poll window (``tor`` from the host loop's |dmu| trace) gives the host
@@ -2767,6 +2963,7 @@ def graph_phase(dev, record, by_path, kfns):
         "ctf_level": (GQMAPConfig.ctf_level(), 100),
         "full_mixture chebyshev": (GQMAPConfig.full_mixture(quad_chunk=27, **CHEB), 100),
         "full_mixture window_rg=2": (GQMAPConfig.full_mixture(quad_chunk=27, window_rg=2), 100),
+        "legacy_v2 bicubic": (GQMAPConfig.legacy_v2(data_term="bicubic", quad_chunk=27), 100),
     }
     out = record["graph"] = {"card": smi("name,power.limit"), "POLL": pg.POLL}
 
@@ -2812,9 +3009,10 @@ def graph_phase(dev, record, by_path, kfns):
             reserved_GiB_above=(torch.cuda.memory_reserved() - reserved) / 2**30,
             capture_call_launches={k: f.launches for k, f in kfns.items()})
         require(graph.route == "graph", f"graph {path}: route {graph.route!r} is 'graph'")
+        ends = {}
         for sname, st, n in (("init", init, GRAPH_SWEEPS), ("converged", conv, conv_n)):
             h, h_ms, h_counts = timed(host, problem, st, n)
-            g, g_ms, g_counts = timed(graph, problem, st, n)
+            g, g_ms, g_counts = ends[sname] = timed(graph, problem, st, n)
             rec[sname] = dict(sweeps=n, host_ms=h_ms, graph_ms=g_ms, host_launches=h_counts,
                               graph_launches=g_counts, graph_polls=graph.polls)
             by_path[f"graph {path} {sname} ({n} sweeps)"] = g_counts
@@ -2835,11 +3033,35 @@ def graph_phase(dev, record, by_path, kfns):
             f" GiB at peak above held, reserved +{rec['reserved_GiB_above']:.3f} GiB; launches "
             f"{rec['init']['graph_launches']}")
         if cfg.data_term == "bicubic" and cfg.window_rg > 0:
-            # the windowed term in turns, converged: K12 (above), the plain sums
-            # around K8 v2 (a runner captured with them in K12's place;
-            # WINDOW_PLAIN_SWEEPS sweeps, at ~0.6 s a sweep), K12 again
+            # the windowed term in turns, converged: K12's default variant
+            # (above), its other variant (a runner captured with it as the
+            # default) and the default again, their states and traces bit for
+            # bit (v2 is v1's arithmetic); then the plain sums around K8 v2 (a
+            # runner captured with them in K12's place; WINDOW_PLAIN_SWEEPS
+            # sweeps, at ~0.6 s a sweep)
             from gqmap_tpu_torch.kernels import window_gq
 
+            c = rec["converged"]
+            default = window_gq._DEFAULT_VARIANT
+            other = next(v for v in window_gq.VARIANTS if v != default)
+            window_gq._DEFAULT_VARIANT = other
+            try:
+                alt = pg.make_segment_runner(cfg, (H, W))
+                alt(problem, init, 10)  # the capture
+                g_alt, c[f"graph_ms_k12_{other}"], alt_counts = timed(alt, problem, conv, conv_n)
+            finally:
+                window_gq._DEFAULT_VARIANT = default
+            del alt
+            torch.cuda.empty_cache()
+            g_again, c["graph_ms_again"], again_counts = timed(graph, problem, conv, conv_n)
+            by_path[f"graph {path} converged K12 {other} ({conv_n} sweeps)"] = alt_counts
+            require(same(ends["converged"][0], g_alt) and same(ends["converged"][0], g_again),
+                    f"graph {path}: the {conv_n}-sweep segments through K12 {default}, "
+                    f"{other} and {default} again end in the same state and traces, bit for "
+                    "bit")
+            require(alt_counts == again_counts == c["graph_launches"],
+                    f"graph {path}: K12 {other}'s turn launches as {default}'s "
+                    f"({alt_counts}, {again_counts})")
             kept = dict(pg._NODE_WINDOW)
             pg._NODE_WINDOW["auto"] = window_gq.node_window_gq_torch
             try:
@@ -2854,19 +3076,18 @@ def graph_phase(dev, record, by_path, kfns):
                     torch.cuda.max_memory_allocated() - held_p) / 2**30
             finally:
                 pg._NODE_WINDOW.update(kept)
-            c = rec["converged"]
             _, c["graph_ms_plain_sums"], plain_counts = timed(old, problem, conv,
                                                                WINDOW_PLAIN_SWEEPS)
             del old
             torch.cuda.empty_cache()
-            c["graph_ms_again"] = timed(graph, problem, conv, conv_n)[1]
             require(plain_counts["K12"] == 0 and c["graph_launches"]["K12"] == conv_n
                     and c["graph_launches"]["K4"] == 0,
                     f"graph {path}: K12 once a sweep ({c['graph_launches']}), not at all around "
                     f"the plain sums ({plain_counts})")
-            log(f"  {path} graph, converged ms a sweep with K12 / the plain sums / K12 again: "
-                f"{c['graph_ms']:.4f} / {c['graph_ms_plain_sums']:.4f} / "
-                f"{c['graph_ms_again']:.4f}; the capturing call's peak above held: K12 "
+            log(f"  {path} graph, converged ms a sweep with K12 {default} / {other} / "
+                f"{default} again / the plain sums: {c['graph_ms']:.4f} / "
+                f"{c[f'graph_ms_k12_{other}']:.4f} / {c['graph_ms_again']:.4f} / "
+                f"{c['graph_ms_plain_sums']:.4f}; the capturing call's peak above held: K12 "
                 f"{rec['capture_call_GiB_above_held']:.3f} GiB, plain sums "
                 f"{rec['plain_sums_capture_call_GiB_above_held']:.3f} GiB")
         elif cfg.data_term in ("bicubic", "chebyshev"):
@@ -3717,13 +3938,14 @@ def main():
     log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
         "mode; K2, K3, K10 and K11: the main path's rule instance, whole function (set-up and "
         "epilogue included) per point, and its MUFU.RSQ count; K12: the K = 9, rg = 2 "
-        "instance's shared-memory point loop per point")
+        "instance's shared-memory point loop per point (v2: its 16-byte route's shared-form "
+        "path)")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
                  "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point",
                  "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
-                 "K11 point", "K12 point"):
+                 "K11 point", "K12 point", "K12 v2 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -4776,11 +4998,22 @@ def main():
              source="gqmap_tpu_torch/csrc/quad_gq.cu",
              replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:296 (XLA scan, no "
                       "Pallas)", launches=by_path["legacy_v1"]["K11"], **record["K11"]),
-        dict(name="window_gq (K12)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
-             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:142 (XLA scan, no "
-                      "Pallas)", launches=by_path["full_mixture window_rg=2"]["K12"],
-             **record["K12"]),
     ]
+    # K12 under each variant: the default's launches from the main path's solve,
+    # the other's from its turn in the graph phase
+    k12 = record["K12"]
+    for variant in sorted(window_gq.VARIANTS, key=lambda v: v != k12["variant"]):
+        runs = ("full_mixture window_rg=2" if variant == k12["variant"] else
+                f"graph full_mixture window_rg=2 converged K12 {variant} (100 sweeps)")
+        kernels.append(dict(
+            name=f"window_gq (K12, {variant})", route="cuda",
+            source="gqmap_tpu_torch/csrc/node_gq.cu",
+            replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:142 (XLA scan, no "
+                     "Pallas)", launches=by_path[runs]["K12"], launches_run=runs,
+            **{k: v for k, v in k12[variant].items() if k != "variant"},
+            legacy_v2_bicubic=k12["legacy_v2 bicubic"][variant],
+            border_fallback_share=k12["border_fallback_share"], instances={
+                k: v for k, v in k12["instances"].items() if f" {variant} " in k}))
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")
         raise SystemExit(1)

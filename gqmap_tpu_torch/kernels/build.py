@@ -68,9 +68,12 @@ _SIGNATURES = {
     "gqmap_node_gq_f32": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
     "gqmap_node_gq_f64": [_P] * 10 + [_I] * 12 + [_D] * 2 + [_I, _P],
     # I1, VV, muu, muv, su, sv, pn, rule_host, out, l1_counts, Mo, No, M2, N2, L, M, N, r0, c0,
-    # K, rg, window_bytes, generic, lam, eps, device, stream (kernels/window_gq, K12)
-    "gqmap_window_gq_f32": [_P] * 10 + [_I] * 13 + [_D] * 2 + [_I, _P],
-    "gqmap_window_gq_f64": [_P] * 10 + [_I] * 13 + [_D] * 2 + [_I, _P],
+    # K, rg, window_bytes, generic, variant, lam, eps, device, stream (kernels/window_gq, K12)
+    "gqmap_window_gq_f32": [_P] * 10 + [_I] * 14 + [_D] * 2 + [_I, _P],
+    "gqmap_window_gq_f64": [_P] * 10 + [_I] * 14 + [_D] * 2 + [_I, _P],
+    # double, variant, K, rg, generic, window_bytes, device, regs, local_bytes, ctas (K12's
+    # instance report, kernels/window_gq.occupancy)
+    "gqmap_window_gq_occupancy": [_I] * 7 + [_P] * 3,
     # coeffs, muu, muv, su, sv, pn, rule_host, out, L, S, P, Q, K, variant, cu, ru, cv, rv,
     # device, stream
     "gqmap_cheb_gq_f32": [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P],

@@ -794,17 +794,25 @@ def _k12_args(dev, dtype, case, probe, shape=None):
     return _k4_inputs(dev, dtype, L, 1, shape or frame, probe), K, rg
 
 
+def _v1_compiled(dtype, K, rg):
+    """Whether K12 v1 runs a compiled instance (float32, K = 9, rg = 2): its
+    arrays in registers, as every v2 instance keeps them."""
+    return dtype == torch.float32 and K == 9 and rg == 2
+
+
+@pytest.mark.parametrize("variant", window_gq.VARIANTS)
 @pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", list(K12_CASES))
-def test_window_gq_kernel_matches_plain(dev, case, dtype, probe):
+def test_window_gq_kernel_matches_plain(dev, case, dtype, probe, variant):
     # float64 within 1e-10 of each sum's largest magnitude; float32 held to
     # the f64 golden on the same inputs (the ratio rule of
     # tests/test_f32_conditioning.py); the generic instance beside
     args, K, rg = _k12_args(dev, dtype, case, probe)
     n = window_gq.node_window_gq_cuda.launches
-    got = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg)
-    generic = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, generic=True)
+    got = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, variant=variant)
+    generic = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, variant=variant,
+                                            generic=True)
     torch.cuda.synchronize()
     assert window_gq.node_window_gq_cuda.launches == n + 2
     plain = window_gq.node_window_gq_torch(*args, K, 1.0, 1e-6, rg, quad_chunk=27)
@@ -819,14 +827,42 @@ def test_window_gq_kernel_matches_plain(dev, case, dtype, probe):
         _ratio_to_golden(generic, plain, gold)
 
 
+@pytest.mark.parametrize("probe", ["init", "converged", "clamp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_window_gq_kernel_nan_probe(dev, dtype):
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_window_gq_v2_is_v1_bit_for_bit(dev, case, dtype, probe):
+    # v2 is v1's arithmetic op for op on v1's lanes: its sums are v1's
+    # compiled instance's bit for bit, and its runtime-K instance's are its
+    # compiled one's; v1's runtime-rg instance keeps its tap rows in local
+    # memory, where the compiler fuses other products, so against it v2 is
+    # held to the tolerance of test_window_gq_kernel_matches_plain
+    args, K, rg = _k12_args(dev, dtype, case, probe)
+    v1, v2, v2g = (window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, variant=v, generic=g)
+                   for v, g in (("v1", False), ("v2", False), ("v2", True)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(v2, v2g))
+    if _v1_compiled(dtype, K, rg):
+        assert all(torch.equal(a, b) for a, b in zip(v2, v1))
+    elif dtype == torch.float64:
+        for name in v1._fields:
+            _close(getattr(v2, name), getattr(v1, name), dtype, name)
+    else:
+        plain = window_gq.node_window_gq_torch(*args, K, 1.0, 1e-6, rg, quad_chunk=27)
+        gold = window_gq.node_window_gq_torch(*(x.double() for x in args), K, 1.0, 1e-6, rg,
+                                              quad_chunk=27)
+        _ratio_to_golden(v2, plain, gold)
+        _ratio_to_golden(v1, plain, gold)
+
+
+@pytest.mark.parametrize("variant", window_gq.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_window_gq_kernel_nan_probe(dev, dtype, variant):
     # NaN means, sigmas and correlations at a few sites: NaN exactly there in
     # the kernel and its plain version, every other site as the NaN-free call
     # gives it, bit for bit
     args, K, rg = _k12_args(dev, dtype, "full_mixture window_rg=2", "converged", (64, 96))
     args = list(args)
-    clean = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg)
+    clean = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, variant=variant)
     L, M, N = args[2].shape
     sites = [(0, 1, 2), (1, M // 2, N // 3), (2, M - 1, N - 1), (1, 0, N // 2)]
     mask = torch.zeros((L, M, N), dtype=torch.bool, device=dev)
@@ -834,7 +870,7 @@ def test_window_gq_kernel_nan_probe(dev, dtype):
         args[field] = args[field].clone()
         args[field][site] = float("nan")
         mask[site] = True
-    got = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg)
+    got = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, variant=variant)
     plain = window_gq.node_window_gq_torch(*args, K, 1.0, 1e-6, rg)
     torch.cuda.synchronize()
     for g, p, c in zip(got, plain, clean):
@@ -842,9 +878,10 @@ def test_window_gq_kernel_nan_probe(dev, dtype):
         assert torch.equal(g[~mask], c[~mask])
 
 
+@pytest.mark.parametrize("variant", window_gq.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["full_mixture window_rg=2", "ragged rg=3"])
-def test_window_gq_kernel_routes_and_blocks_are_bit_for_bit(dev, case, dtype):
+def test_window_gq_kernel_routes_and_blocks_are_bit_for_bit(dev, case, dtype, variant):
     # the L1 route (a budget of 0; at full_mixture's 376x452 also sigma ~ 40
     # px, every site's box over the budget) gives the shared-window route's
     # sums bit for bit; a shard's block (frame 1 and VV whole, addressed at
@@ -852,13 +889,14 @@ def test_window_gq_kernel_routes_and_blocks_are_bit_for_bit(dev, case, dtype):
     # bit for bit
     args, K, rg = _k12_args(dev, dtype, case, "converged", (64, 96))
     I1, VV, *st = args
+    kw = dict(variant=variant)
     sites = tuple(st[0].shape)
     ctas, n_sites = window_gq.window_ctas(sites), math.prod(sites)
     cnt = torch.zeros(2, dtype=torch.int64, device=dev)
-    whole = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, l1_counts=cnt)
+    whole = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, l1_counts=cnt, **kw)
     every = torch.zeros(2, dtype=torch.int64, device=dev)
     l1 = window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, window_bytes=0,
-                                       l1_counts=every)
+                                       l1_counts=every, **kw)
     torch.cuda.synchronize()
     assert cnt.tolist() == [0, 0] and every.tolist() == [ctas, n_sites]
     assert all(torch.equal(g, w) for g, w in zip(whole, l1))
@@ -867,8 +905,8 @@ def test_window_gq_kernel_routes_and_blocks_are_bit_for_bit(dev, case, dtype):
         wide[4], wide[5] = wide[4] * 3.0, wide[5] * 8.0
         big = tuple(wide[2].shape)
         cnt.zero_()
-        w1 = window_gq.node_window_gq_cuda(*wide, K, 1.0, 1e-6, rg, l1_counts=cnt)
-        w2 = window_gq.node_window_gq_cuda(*wide, K, 1.0, 1e-6, rg, window_bytes=0)
+        w1 = window_gq.node_window_gq_cuda(*wide, K, 1.0, 1e-6, rg, l1_counts=cnt, **kw)
+        w2 = window_gq.node_window_gq_cuda(*wide, K, 1.0, 1e-6, rg, window_bytes=0, **kw)
         torch.cuda.synchronize()
         assert cnt.tolist() == [window_gq.window_ctas(big), math.prod(big)]
         assert all(torch.equal(g, w) for g, w in zip(w1, w2))
@@ -877,9 +915,22 @@ def test_window_gq_kernel_routes_and_blocks_are_bit_for_bit(dev, case, dtype):
                          (3, 5, M - 6, N - 7)):
         blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
         got = window_gq.node_window_gq_cuda(I1, VV, *(x[blk].contiguous() for x in st), K, 1.0,
-                                            1e-6, rg, origin=(r0, c0), local_image_shape=(m, n))
+                                            1e-6, rg, origin=(r0, c0), local_image_shape=(m, n),
+                                            **kw)
         for g, w in zip(got, whole):
             assert torch.equal(g, w[blk])
+
+
+def test_window_gq_v2_instances_hold_no_arrays_in_local_memory(dev):
+    # every float32 v2 instance (K = 9 and the runtime K, rg 1 to 4) keeps its
+    # arrays in registers: no local memory, no spill; v1's compiled instance
+    # neither; the resident CTAs an SM are those its registers allow
+    for rg in range(1, window_gq.MAX_RG + 1):
+        for generic in (False, True):
+            occ = window_gq.occupancy(9, rg, torch.float32, "v2", generic=generic, device=dev)
+            assert occ["local_bytes"] == 0, (rg, generic, occ)
+            assert occ["ctas_per_sm"] >= 2, (rg, generic, occ)
+    assert window_gq.occupancy(9, 2, torch.float32, "v1", device=dev)["local_bytes"] == 0
 
 
 def test_window_gq_kernel_refuses_what_it_does_not_take(dev):
@@ -890,8 +941,12 @@ def test_window_gq_kernel_refuses_what_it_does_not_take(dev):
             window_gq.node_window_gq_cuda(*args, bad_K, 1.0, 1e-6, bad_rg)
     with pytest.raises(ValueError, match="VV"):
         window_gq.node_window_gq_cuda(args[0], args[1][1:], *args[2:], K, 1.0, 1e-6, rg)
-    with pytest.raises(ValueError, match="window_bytes"):
-        window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, window_bytes=64 * 1024)
+    for variant in window_gq.VARIANTS:
+        with pytest.raises(ValueError, match="window_bytes"):
+            window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, window_bytes=64 * 1024,
+                                          variant=variant)
+    with pytest.raises(ValueError, match="unknown window_gq kernel variant"):
+        window_gq.node_window_gq_cuda(*args, K, 1.0, 1e-6, rg, variant="v3")
     assert window_gq.node_window_gq_cuda.launches == n
 
 

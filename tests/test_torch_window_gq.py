@@ -20,7 +20,11 @@ algebra error in the kernel's loop shows here before any card run; the
 kernel itself runs on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Then one ``full_mixture(window_rg=2, L=2)`` sweep on the
 CPU route, and with the transcription routed in, against JAX's sweep, the
-routes, and the work count.
+routes, and the work count. The kernel's variant "v2" keeps v1's lanes and
+arithmetic op for op (its sums are v1's bit for bit on the card), so the
+one transcription holds both; v2's own layouts (the window of VV as shifted
+copies, the frame-1 tile, the shared-memory budget) and the variant's
+selection are checked here too.
 """
 
 import dataclasses
@@ -438,6 +442,114 @@ def test_wrapper_runs_plain_version_on_cpu_and_launches_nothing():
     assert window_gq.node_window_gq_cuda.launches == 0
 
 
+# ---- the variants ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resolve_variant(dtype):
+    # "v2" by default wherever K12 takes the term (both variants are compiled
+    # for every rule up to 16 points an axis and every radius 1 to 4, in both
+    # types); "v1" on request; anything else raises before a launch
+    for K in range(1, window_gq.MAX_K + 1):
+        for rg in range(1, window_gq.MAX_RG + 1):
+            assert window_gq.resolve_variant(None, K, rg, dtype) == "v2"
+            for v in window_gq.VARIANTS:
+                assert window_gq.resolve_variant(v, K, rg, dtype) == v
+    assert window_gq.VARIANTS == ("v1", "v2") and window_gq._DEFAULT_VARIANT == "v2"
+    for bad in ("v3", "V2", ""):
+        with pytest.raises(ValueError, match="unknown window_gq kernel variant"):
+            window_gq.resolve_variant(bad, 9, 2, dtype)
+    for K, rg in ((0, 2), (window_gq.MAX_K + 1, 2), (9, 0), (9, window_gq.MAX_RG + 1)):
+        for v in (None, "v1", "v2"):
+            with pytest.raises(ValueError, match="takes rules"):
+                window_gq.resolve_variant(v, K, rg, dtype)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        window_gq.resolve_variant(None, 9, 2, torch.float16)
+
+
+@pytest.mark.parametrize("variant", [None, "v1", "v2"])
+def test_cpu_wrapper_runs_plain_version_whatever_the_variant(variant):
+    # on CPU tensors node_window_gq runs the plain version and launches
+    # nothing, whichever variant is asked; the CUDA wrapper refuses them
+    K, L, rg, shape, _, _ = CASES["rg=3 K=5"]
+    I1, VV, st = _inputs(K, L, shape, None)
+    args = (*_port_args(I1, VV, st), K, LAM, EPS, rg)
+    got = window_gq.node_window_gq(*args, quad_chunk=5, variant=variant)
+    want = window_gq.node_window_gq_torch(*args, quad_chunk=5)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(RuntimeError, match="node_window_gq_cuda needs CUDA"):
+        window_gq.node_window_gq_cuda(*args, variant=variant)
+    assert window_gq.node_window_gq_cuda.launches == 0
+
+
+def _copy_stride(n, size):
+    """``copy_stride`` of the source: n elements padded to 16 bytes past a
+    multiple of 128."""
+    unit, off = 128 // size, 16 // size
+    return n + (off - n % unit) % unit
+
+
+def _row_stride(w, size):
+    """``window_stride`` of the source: w elements padded to 64 bytes past a
+    multiple of 128."""
+    pad = 64 // size
+    return w + (pad - w % (2 * pad)) % (2 * pad)
+
+
+@pytest.mark.parametrize("size", [4, 8])
+@pytest.mark.parametrize("rg", [1, 2, 3, 4])
+def test_v2_shifted_copies_read_every_tap_row(rg, size):
+    # v2's layouts, transcribed: the window of VV as V = 16 / size shifted
+    # copies (window_shape: copy s holds element (r, c + s) at (r, c), rows
+    # window_stride(cols + V - 1) apart, copies copy_stride apart), and the
+    # CTA's frame-1 tile (Frame1Tile, as frame1_bytes counts it). A row that
+    # starts at any column the shared form can reach is read by whole 16-byte
+    # vectors at an aligned element of one copy, inside its row, and gives
+    # the window's elements there; each copy starts 16 bytes of banks past
+    # the one before
+    V, P = 16 // size, 2 * rg + 1
+    dtype = torch.float32 if size == 4 else torch.float64
+    for cols, rows in ((P + 3, P + 3), (P + 4, 9), (23, 17), (40, 31)):
+        ts = _row_stride(cols + V - 1, size)
+        cs = _copy_stride(ts * rows, size)
+        assert ts % V == 0 and cs % V == 0 and (cs * size) % 128 == 16
+        window = np.arange(rows * cols, dtype=float).reshape(rows, cols)
+        flat = np.full(V * cs, np.nan)
+        for s in range(V):
+            for r in range(rows):
+                for c in range(cols - s):
+                    flat[s * cs + r * ts + c] = window[r, c + s]
+        for x in range(cols - (P + 3) + 1):
+            start = (x % V) * cs + (x - x % V)
+            for r in range(rows):
+                lo = start + r * ts
+                n = -(-(P + 3) // V) * V
+                assert lo % V == 0 and (lo - (x % V) * cs) + n <= (r + 1) * ts
+                np.testing.assert_array_equal(flat[lo:lo + P + 3], window[r, x:x + P + 3])
+    # the frame-1 tile: TR + 2 rg rows, a site at tile column nt reads its P
+    # pixels by whole vectors from copy nt mod V at nt - nt mod V
+    _, TR, TC = window_gq.TILE
+    S = -(-(TC + P + V - 2) // V) * V
+    R, CS = TR + 2 * rg, _copy_stride((TR + 2 * rg) * S, size)
+    assert window_gq.frame1_bytes(rg, dtype, "v2") == V * CS * size
+    assert window_gq.frame1_bytes(rg, dtype, "v1") == 0
+    tile = np.arange(R * (TC + 2 * rg), dtype=float).reshape(R, TC + 2 * rg)
+    for nt in range(TC):
+        q = nt - nt % V
+        assert q + -(-P // V) * V <= S and TC + 2 * rg <= S
+        for i in range(P):
+            np.testing.assert_array_equal(
+                [tile[i, min(q + k + nt % V, tile.shape[1] - 1)] for k in range(P)],
+                tile[i, nt:nt + P])
+    # the budget: the rule table, the frame-1 tile and the window fill 44 KB,
+    # within the launch's 47 KB
+    for K in (1, 9, 16):
+        for v in window_gq.VARIANTS:
+            used = (K * K * 8 * size + window_gq.frame1_bytes(rg, dtype, v)
+                    + window_gq.window_budget(K, rg, dtype, v))
+            assert used == 44 * 1024 <= node_gq._MAX_SMEM_BYTES
+        assert window_gq.window_budget(K, rg, dtype, "v1") == node_gq.window_budget(K, dtype)
+
+
 def test_work_count_and_tiles():
     # k12_work is k4_work's count a point for a P x P block, P = 2 rg + 1,
     # with the pixel lattice's frame 1 and table: at full_mixture's (3, 376,
@@ -460,4 +572,7 @@ def test_work_count_and_tiles():
     assert abs(main["bound_terms_ms"]["l1_bytes"] - 0.316) < 5e-4
     assert abs(roofline.bound(roofline.k12_work((1, 376, 452), 9, 2), rates)["bound_ms"]
                - 0.129) < 5e-4
+    # K12's own tile (csrc WinTile), both variants', not K4's: window_ctas is
+    # the denominator of either variant's first L1-route counter
     assert window_gq.TILE == (4, 8, 8) and window_gq.window_ctas((3, 376, 452)) == 3 * 47 * 57
+    assert window_gq.window_ctas((2, 9, 17)) == 2 * 2 * 3
