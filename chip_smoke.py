@@ -146,27 +146,35 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    shared patch's path with its serial sums, every round) and ``torch.take``'s rate of
    random gathers over ``legacy_v2``'s table;
 6e. K10 (the quadratic prior's node sums) and K11 (the truncated-quadratic
-   tensor-rule edge sums), ``csrc/quad_gq.cu``, against their plain versions
-   (``kernels/quad_gq``) at ``legacy_v1``'s K = 9 (quad_var 0.05; gama 1,
-   dta 10) on (1, 376, 452) sites, at L = 20 (the plain versions 27 points
-   a step) and on a ragged (3, 61, 37) lattice, through the K = 9 instance
-   and the generic one (at K = 9 and 5), from the init, the sigma = 0.05
-   state and the |rho| clamp: float64 within 1e-10 of each sum's largest
-   magnitude, float32 within 2e-4 of it plus 2e-5 relative, each with a
-   floor of 1e-13 (float64) or 1e-5 (float32) of the largest |Ei| (a sum
-   that is zero in exact arithmetic is rounding noise of that size), and at
-   the clamp in float32 against the f64 golden (ratio rule); the cutoff:
-   neighbour means at +-dta within a few ulps and equal sigmas at both ends,
-   under a rule of unit weights, no sample on the other side of |d| = dta
-   from the plain version's (both instances, both types), and at the true
-   rule every site within the tolerance; NaN means, sigmas and correlations
-   at a few sites: NaN exactly where the plain version has NaN and every
-   other site bit for bit the NaN-free call's; a shard's blocks (the (2, 2)
-   mesh's four and one at odd offsets) bit for bit the whole lattice's; each
-   kernel's time (sigma 0.05 and the init, the generic instance beside), the
-   plain version's, the bounds (``roofline.k10_work``, ``k11_work`` at the
-   data sheet's and the measured rates), the share of each and the SASS
-   issue bound (the K = 9 instance's whole function per point);
+   tensor-rule edge sums), ``csrc/quad_gq.cu``, each variant (v2, the
+   closed form and K11's classes; v1, the point loop) against their plain
+   versions (``kernels/quad_gq``) at ``legacy_v1``'s K = 9 (quad_var 0.05;
+   gama 1, dta 10) on (1, 376, 452) sites, at L = 20 (the plain versions 27
+   points a step) and on a ragged (3, 61, 37) lattice, through the K = 9
+   instance and the generic one (at K = 9 and 5), from the init, the sigma
+   = 0.05 state and the |rho| clamp: float64 within 1e-10 of each sum's
+   largest magnitude, float32 within 2e-4 of it plus 2e-5 relative, each
+   with a floor of 1e-13 (float64) or 1e-5 (float32) of the largest |Ei| (a
+   sum that is zero in exact arithmetic is rounding noise of that size),
+   and at the clamp in float32 against the f64 golden (ratio rule); the
+   cutoff, under a rule of unit weights (``quad_gq.unit_rule``): every element
+   near it (neighbour means at +-dta within a few ulps, equal sigmas at both
+   ends: K11 v2's per-lane form) and one element a warp near it, the rest
+   well inside (the cooperative form), no sample on the other side of
+   |d| = dta from the plain version's (each variant and instance, each v2
+   form forced by ``quad_gq.COOP_LANES``, both types), v2's forms bit for bit each
+   other, and at the true rule every site within the tolerance; NaN means,
+   sigmas and correlations at a few sites: NaN exactly where the plain
+   version has NaN and every other site bit for bit the NaN-free call's; a
+   shard's blocks (the (2, 2) mesh's four and one at odd offsets) bit for
+   bit the whole lattice's; each kernel's time in both variants (sigma
+   0.05, the init and the clamp, the generic instance beside; K11 v2 also
+   with each mixed form forced), K11 v2's class shares on each probe, the
+   plain version's time, the bounds (``roofline.k10_work``, ``k11_work``
+   with the probe's own classes, at the data sheet's and the measured
+   rates), the share of each and the SASS issue bound (v1: the K = 9
+   instance's whole function per point; v2: K10's function per site,
+   K11's mixed forms per point);
 6f. K12 (the windowed bicubic node term's raw sums, ``window_gq_kernel`` and
    ``window_gq_v2_kernel`` in ``csrc/node_gq.cu``) against its plain
    version (``kernels/window_gq``) in both variants on
@@ -252,7 +260,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    quadratic prior is the block-matching flow; ``solve`` does not set it):
    K10 and K11 launched once a sweep (300 each) and K1-K7 not at all, the
    median interior mean within 0.15 of the prior's, the run's peak memory,
-   and ms a sweep of 300-sweep graph segments converged and from init; then
+   and ms a sweep of 300-sweep graph segments converged and from init; on
+   the run's final state K11 v2's class shares and K10's and K11's times in
+   both variants, and a 30-sweep segment through K10/K11 v1 (the launches of
+   v1's records); then
    300-sweep ``full_mixture(window_rg=2)`` and ``legacy_v2(data_term=
    "bicubic")`` solves: K12 and K3 once a sweep, every other kernel not at
    all, the AEPE falling, and the first's ms a sweep of a 30-sweep segment
@@ -405,10 +416,11 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    (``roofline.k8_work``, ``k9_work``, each variant's) at the data sheet's
    and the measured rates; each path's graph sweep in turns (v2, v1, the
    plain glue, v2 again) with the capturing call's peak memory, and on
-   ``legacy_v1`` two turns more: K8 v2 around the plain versions of K10 and
-   K11 (the sweep before them), and ``node_kernel = edge_kernel = "torch"``
-   (the plain sums and the plain glue), K10 and K11 once a sweep through
-   the kernels and not at all around the plain sums;
+   ``legacy_v1`` four turns more: K10 and K11 v1 then v2 again (the first
+   turn's runner), K8 v2 around the plain versions of K10 and K11 (the sweep
+   before them), and ``node_kernel = edge_kernel = "torch"`` (the plain sums
+   and the plain glue), K10 and K11 once a sweep through the kernels (either
+   variant) and not at all around the plain sums;
 31. last, since the profiler's hooks may stay in the process: one
    ``tpu_fast``, ``full_mixture`` and Chebyshev ``full_mixture`` sweep from
    sigma = 0.05 under ``torch.profiler``, and a 20-sweep graph segment of
@@ -535,8 +547,8 @@ def sass_loops(instrs, label_addr):
     """Every backward branch of one function: the instructions from its
     target label to the branch, and how many of them are
     MUFU.EX2, MUFU.RSQ, device-memory loads (LDG), shared-memory loads
-    (LDS; LDS.128 also apart), float32 FMAs and multiplies (FFMA, FMUL) and tensor-core products
-    (HMMA: mma.sync; HGMMA: wgmma)."""
+    (LDS; LDS.128 also apart), float32 FMAs and multiplies (FFMA, FMUL), tensor-core products
+    (HMMA: mma.sync; HGMMA: wgmma) and warp shuffles (SHFL)."""
     loops = []
     for addr, ins in instrs:
         m = re.search(r"\bBRA\S*\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", ins)
@@ -552,8 +564,29 @@ def sass_loops(instrs, label_addr):
                               lds128=sum("LDS.128" in i for i in body_ins),
                               fmul=sum(bool(re.search(r"\bF(FMA|MUL)\b", i)) for i in body_ins),
                               hmma=sum(i.startswith("HMMA") for i in body_ins),
-                              hgmma=sum(i.startswith("HGMMA") for i in body_ins)))
+                              hgmma=sum(i.startswith("HGMMA") for i in body_ins),
+                              shfl=sum(bool(re.search(r"\bSHFL\b", i)) for i in body_ins)))
     return loops
+
+
+def longest_block(instrs, label_addr):
+    """The longest run of one function's instructions that no branch leaves
+    and no branch enters (a basic block; K11 v2's per-lane form, fully
+    unrolled with selects for the cutoff, is one), NOPs not counted."""
+    starts = set(label_addr.values())
+    for _, ins in instrs:
+        m = re.search(r"\bBRA\S*\s+(?:!?U?P\w+,\s*)?(?:`\()?(0x[0-9a-f]+)", ins)
+        if m:
+            starts.add(int(m.group(1), 16))
+    best, run = [], []
+    for addr, ins in instrs:
+        if addr in starts:
+            best, run = max(best, run, key=len), []
+        if not ins.startswith("NOP"):
+            run.append(ins)
+        if re.search(r"\b(BRA|EXIT|RET|CALL|BSSY|BSYNC|WARPSYNC|BREAK)\b", ins):
+            best, run = max(best, run, key=len), []
+    return max(best, run, key=len)
 
 
 def shared_form_path(instrs, label_addr, loop, loops):
@@ -612,10 +645,26 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
     for k, key, points in (("K2", f"edge_reduced_kernelIfLi{k1}EE", 2 * k1),
                            ("K3", f"edge_gq_kernelIfLi{K}EE", K * K),
                            ("K10", f"quad_node_kernelIfLi{K}EE", K * K),
-                           ("K11", f"truncquad_edge_kernelIfLi{K}EE", K * K)):
+                           ("K11", f"truncquad_edge_kernelIfLi{K}EE", K * K),
+                           ("K10 v2", "quad_node_v2_kernelIfE", 1)):
         ins = [i for _, i in find(key)[0] if not i.startswith("NOP")]
-        per[f"{k} point"] = len(ins) / points if ins else None
+        unit = "site" if k == "K10 v2" else "point"
+        per[f"{k} {unit}"] = len(ins) / points if ins else None
         per[f"{k} rsq"] = sum("MUFU.RSQ" in i for i in ins) if ins else None
+    # K11 v2 at K = 9, each mixed form per point of an element, in lane
+    # instructions (a warp instruction is 32): the per-lane form, its longest
+    # basic block (the unrolled 81 points, the rows' terms and the tree) per
+    # point; the cooperative form, its pass loop (the loop with the element's
+    # 6 shuffles and the xor tree's 24) a warp, 32 lanes, over the pass's two
+    # elements' 2 K^2 points
+    fn = find(f"truncquad_edge_v2_kernelIfLi{K}EE")
+    block = longest_block(*fn) if fn[0] else []
+    per["K11 v2 lane point"] = len(block) / (K * K) if block else None
+    per["K11 v2 lane block"] = len(block) if block else None
+    lp = [x for x in sass_loops(*fn) if x["shfl"] >= 30]
+    lp = min(lp, key=lambda x: x["instructions"]) if lp else None
+    per["K11 v2 pass"] = lp["instructions"] if lp else None
+    per["K11 v2 coop point"] = 32 * lp["instructions"] / (2 * K * K) if lp else None
     # K4 v1: the innermost loop holding a sample's 16 table loads (LDG), per
     # sample (its LDG count / 16 samples an iteration); v2: the point loop of
     # the shared-memory route (the loop with the most LDS: the (P + 3)^2 taps
@@ -1527,15 +1576,50 @@ def compare_quad(got, want, dtype):
     return abs_err, rel_err, ok
 
 
+QUAD_VARIANTS = ("v2", "v1")  # K10 and K11: the default first
+QUAD_V1_SWEEPS = 30  # legacy_v1's segment through K10/K11 v1 (the launches of v1's records)
+QUAD_COOP = (0, 32)  # K11 v2's COOP_LANES that force each mixed form: per-lane, cooperative
+
+
+def with_coop_lanes(lanes, fn):
+    """``fn`` with ``quad_gq.COOP_LANES`` = ``lanes`` (None: as it is) while
+    it runs: K11 v2's mixed form forced."""
+    from gqmap_tpu_torch.kernels import quad_gq
+
+    def run(*args, **kw):
+        kept = quad_gq.COOP_LANES
+        quad_gq.COOP_LANES = kept if lanes is None else lanes
+        try:
+            return fn(*args, **kw)
+        finally:
+            quad_gq.COOP_LANES = kept
+    return run
+
+
+def quad_classes(counts):
+    """K11 v2's counters (``quad_gq.CLASS_COUNTS``) and their shares: of the
+    elements (inside, outside, mixed), of the warps (with a mixed lane;
+    cooperative, of those), of the mixed elements (cooperative)."""
+    from gqmap_tpu_torch.kernels import quad_gq
+
+    c = dict(zip(quad_gq.CLASS_COUNTS, (int(x) for x in counts)))
+    n = c["inside"] + c["outside"] + c["mixed"]
+    return dict(c, elements=n, share_inside=c["inside"] / n, share_outside=c["outside"] / n,
+                share_mixed=c["mixed"] / n, share_mixed_warps=c["mixed warps"] / (-(-n // 32)),
+                share_cooperative_warps=c["cooperative warps"] / max(c["mixed warps"], 1),
+                share_cooperative_elements=c["cooperative elements"] / max(c["mixed"], 1))
+
+
 def kernels_k10_k11(dev, record, issue_ms):
     """Phase 6e: K10 (the quadratic prior's node sums) and K11 (the
-    truncated-quadratic tensor-rule edge sums) against their plain versions
-    on the card (see the module docstring); fills ``record["K10"]`` and
-    ``record["K11"]`` (``legacy_v1``'s lattice: error, times, bounds, SASS
-    issue bound). ``issue_ms(unit, work)``: the SASS issue bound of ``work``
-    units."""
+    truncated-quadratic tensor-rule edge sums), v2 and v1 in turn, against
+    their plain versions on the card (see the module docstring); fills
+    ``record["K10"]`` and ``record["K11"]``: a record a variant
+    (``legacy_v1``'s lattice: error, times, bounds, SASS issue bound), K11
+    v2's class shares on the probes (``classes``) and the cutoff's flips.
+    ``issue_ms(unit, work)``: the SASS issue bound of ``work`` units."""
     from gqmap_tpu_torch import FlowRange, GQMAPConfig
-    from gqmap_tpu_torch.kernels import edge_reduced_gq, quad_gq
+    from gqmap_tpu_torch.kernels import quad_gq
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import gq_accumulate
     from gqmap_tpu_torch.ops.potentials import make_edge_pot_truncquad
@@ -1570,29 +1654,28 @@ def kernels_k10_k11(dev, record, issue_ms):
                                     sigmav=rand(0.01, 3, st.sigmav.shape))}
         return out, rand(FR[0], FR[1], (M, N, 2))
 
-    def args_of(st, prior, dtype):
-        """K10's (prior, five site fields) and K11's (mu, sg, u2e, o2e, rou)"""
-        site = [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
-        mu, sg = torch.stack(site[:2]), torch.stack(site[2:4])
-        return ((prior.to(dtype), *site),
-                (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), st.rou.to(dtype)))
-
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    def classes_of(args, **kw):
+        counts = torch.zeros(len(quad_gq.CLASS_COUNTS), dtype=torch.int64, device=dev)
+        got = k11(*args, *QUAD_EDGE, counts=counts, **kw)
+        return got, quad_classes(counts.tolist())
 
     kinds = {"K10": (k10, quad_gq.quad_node_gq_torch, QUAD_NODE),
              "K11": (k11, quad_gq.truncquad_edge_gq_torch, QUAD_EDGE)}
     reason = ("no PyTorch call computes the K^2-point raw sums (six Stein sums of a potential "
               "under the whitened tensor rule); the plain version is gq_accumulate's chain of "
               "elementwise calls and sums")
-    recs = {k: dict(library_ms=None, library_reason=reason, checks=0) for k in kinds}
+    recs = {k: dict(variant=quad_gq._DEFAULT_VARIANT, checks=0,
+                    **{v: dict(library_ms=None, library_reason=reason) for v in QUAD_VARIANTS})
+            for k in kinds}
     for name, shape in QUAD_SHAPES.items():
         sts, prior = probes(shape)
         chunk = QUAD_PLAIN_CHUNK.get(name, 0)
         for sname, st in sts.items():
-            gold = None
             for dtype in (f64, f32):
-                a10, a11 = args_of(st, prior, dtype)
+                a10, a11 = quad_args(st, prior, dtype)
                 for kern, args in (("K10", a10), ("K11", a11)):
                     fn, plain, rest = kinds[kern]
                     want = plain(*args, *rest, quad_chunk=chunk)
@@ -1601,160 +1684,249 @@ def kernels_k10_k11(dev, record, issue_ms):
                             w = want
                         else:
                             w = plain(*args, K, *rest[1:], quad_chunk=chunk)
-                        got = fn(*args, K, *rest[1:], generic=generic)
-                        a, r, ok = compare_quad(got, w, dtype)
-                        label = (f"{kern} {name} {tuple(args[1].shape)} K={K} "
-                                 f"{'generic' if generic else 'specialised'} "
-                                 f"{str(dtype)[6:]} {sname}")
-                        recs[kern]["checks"] += 1
-                        if dtype == f32 and sname == "clamp":
-                            # each f32 version against the f64 golden on the same inputs
-                            g64 = plain(*(x.double() for x in args), K, *rest[1:],
-                                        quad_chunk=chunk)
-                            ek, ep = worst_rel(got, g64), worst_rel(w, g64)
-                            require(ek <= 2.0 * ep + 1e-6,
-                                    f"{label}: error vs f64 golden kernel {ek:.3e} <= 2 x plain "
-                                    f"{ep:.3e} + 1e-6 (kernel vs plain {a:.3e})")
-                            del g64
-                        else:
-                            require(ok, f"{label}: max abs err {a:.3e}, rel {r:.3e}")
-                        if (name, sname, dtype, K, generic) == ("legacy_v1", "sigma 0.05", f32,
-                                                                9, False):
-                            recs[kern]["max_abs_err"] = a
-                        del got
+                        g64 = None
+                        for variant in QUAD_VARIANTS:
+                            got = fn(*args, K, *rest[1:], generic=generic, variant=variant)
+                            a, r, ok = compare_quad(got, w, dtype)
+                            label = (f"{kern} {variant} {name} {tuple(args[1].shape)} K={K} "
+                                     f"{'generic' if generic else 'specialised'} "
+                                     f"{str(dtype)[6:]} {sname}")
+                            recs[kern]["checks"] += 1
+                            if dtype == f32 and sname == "clamp":
+                                # each f32 version against the f64 golden on the same inputs
+                                if g64 is None:
+                                    g64 = plain(*(x.double() for x in args), K, *rest[1:],
+                                                quad_chunk=chunk)
+                                ek, ep = worst_rel(got, g64), worst_rel(w, g64)
+                                require(ek <= 2.0 * ep + 1e-6,
+                                        f"{label}: error vs f64 golden kernel {ek:.3e} <= 2 x "
+                                        f"plain {ep:.3e} + 1e-6 (kernel vs plain {a:.3e})")
+                            else:
+                                require(ok, f"{label}: max abs err {a:.3e}, rel {r:.3e}")
+                            if (name, sname, dtype, K, generic) == ("legacy_v1", "sigma 0.05",
+                                                                    f32, 9, False):
+                                recs[kern][variant]["max_abs_err"] = a
+                            del got
+                        del g64
                     del want
         del sts
         torch.cuda.empty_cache()
 
-    # times at legacy_v1's lattice: sigma 0.05 and the init, the generic
-    # instance beside; the plain version; the bounds
+    # times at legacy_v1's lattice, v2 and v1 in turn: sigma 0.05, the init
+    # and the clamp, the generic instance beside; K11 v2 with each mixed form
+    # forced and its class shares; the plain version; the bounds (K11's from
+    # the probe's own classes)
     sts, prior = probes(QUAD_SHAPES["legacy_v1"])
-    for sname, st in (("sigma 0.05", sts["sigma 0.05"]), ("init", sts["init"])):
-        a10, a11 = args_of(st, prior, f32)
+    tags = {"sigma 0.05": "", "init": "init_", "clamp": "clamp_"}
+    classes = recs["K11"]["classes"] = {}
+    for sname, tag in tags.items():
+        a10, a11 = quad_args(sts[sname], prior, f32)
+        classes[sname] = cl = classes_of(a11)[1]
         for kern, args in (("K10", a10), ("K11", a11)):
             fn, plain, rest = kinds[kern]
-            rec = recs[kern]
-            tag = "" if sname == "sigma 0.05" else "init_"
-            rec[f"{tag}ms"], rec[f"{tag}ms_min"] = kernel_ms(lambda: fn(*args, *rest))
-            rec[f"{tag}plain_ms"] = time_ms(lambda: plain(*args, *rest), 5)
-            if sname != "sigma 0.05":
+            for variant in QUAD_VARIANTS:
+                rv = recs[kern][variant]
+                rv[f"{tag}ms"], rv[f"{tag}ms_min"] = kernel_ms(
+                    lambda: fn(*args, *rest, variant=variant))
+            if kern == "K11":
+                for c in QUAD_COOP:
+                    recs[kern]["v2"][f"{tag}ms_coop_lanes_{c}"] = kernel_ms(
+                        lambda: with_coop_lanes(c, fn)(*args, *rest))[0]
+            if sname == "clamp":
                 continue
-            rec["generic_ms"] = kernel_ms(lambda: fn(*args, *rest, generic=True))[0]
+            plain_ms = time_ms(lambda: plain(*args, *rest), 5)
             shape = tuple(args[1].shape) if kern == "K10" else tuple(args[4].shape)
-            work = (roofline.k10_work(shape, rest[0]) if kern == "K10"
-                    else roofline.k11_work(shape, rest[0]))
-            rec.update(bound(work), shape=list(shape))
-            rec["sass_issue_ms"] = issue_ms(f"{kern} point", math.prod(shape) * rest[0] ** 2)
-            rec["share"] = dict(sheet=rec["bound_ms"] / rec["ms"],
-                                measured=rec["bound_ms_measured"] / rec["ms"],
-                                issue=(rec["sass_issue_ms"] / rec["ms"]
-                                       if rec["sass_issue_ms"] else None))
+            work = (roofline.k10_work(shape, rest[0]) if kern == "K10" else roofline.k11_work(
+                shape, rest[0], classes=(cl["inside"], cl["outside"], cl["mixed"])))
+            b = bound(work)
+            n_el = math.prod(shape)
+            for variant in QUAD_VARIANTS:
+                rv = recs[kern][variant]
+                rv[f"{tag}plain_ms"] = plain_ms
+                rv[f"{tag}bound_ms"], rv[f"{tag}bound_by"] = b["bound_ms"], b["bound_by"]
+                if sname != "sigma 0.05":
+                    continue
+                rv.update(b, shape=list(shape))
+                rv["generic_ms"] = kernel_ms(
+                    lambda: fn(*args, *rest, generic=True, variant=variant))[0]
+                if variant == "v1":
+                    rv["sass_issue_ms"] = issue_ms(f"{kern} point", n_el * rest[0] ** 2)
+                elif kern == "K10":
+                    rv["sass_issue_ms"] = issue_ms("K10 v2 site", n_el)
+                else:  # the mixed forms' point loops alone
+                    lane = issue_ms("K11 v2 lane point",
+                                    (cl["mixed"] - cl["cooperative elements"]) * rest[0] ** 2)
+                    coop = issue_ms("K11 v2 coop point",
+                                    cl["cooperative elements"] * rest[0] ** 2)
+                    rv["sass_issue_ms"] = None if lane is None or coop is None else lane + coop
+                rv["share"] = dict(sheet=rv["bound_ms"] / rv["ms"],
+                                   measured=rv["bound_ms_measured"] / rv["ms"],
+                                   issue=(rv["sass_issue_ms"] / rv["ms"]
+                                          if rv["sass_issue_ms"] else None))
     card = smi("name,power.limit,clocks.sm")
     for kern in kinds:
-        rec = recs[kern]
-        log(f"  {kern} {tuple(rec['shape'])} K=9 f32 on {card} (median, min) of {TIMING[0]} "
-            f"windows of {TIMING[1]} calls: sigma 0.05 ({rec['ms']:.4f}, {rec['ms_min']:.4f}) "
-            f"ms, init ({rec['init_ms']:.4f}, {rec['init_ms_min']:.4f}) ms, generic instance "
-            f"{rec['generic_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms (init "
-            f"{rec['init_plain_ms']:.4f}); {fmt_bound(rec)} ({rec['bound_terms_ms']}); SASS "
-            f"issue bound {rec['sass_issue_ms']} ms; share of the bound: data sheet "
-            f"{rec['share']['sheet']:.1%}, measured {rec['share']['measured']:.1%}")
+        for variant in QUAD_VARIANTS:
+            rv = recs[kern][variant]
+            log(f"  {kern} {variant} {tuple(rv['shape'])} K=9 f32 on {card} (median, min) of "
+                f"{TIMING[0]} windows of {TIMING[1]} calls: sigma 0.05 ({rv['ms']:.4f}, "
+                f"{rv['ms_min']:.4f}) ms, init ({rv['init_ms']:.4f}, {rv['init_ms_min']:.4f}) ms, "
+                f"clamp {rv['clamp_ms']:.4f} ms, generic instance {rv['generic_ms']:.4f} ms; "
+                f"plain {rv['plain_ms']:.4f} ms (init {rv['init_plain_ms']:.4f}); {fmt_bound(rv)} "
+                f"({rv['bound_terms_ms']}; init {rv['init_bound_ms']:.4f} ms by "
+                f"{rv['init_bound_by']}, share {rv['init_bound_ms'] / rv['init_ms']:.1%}); "
+                f"SASS issue bound "
+                f"{rv['sass_issue_ms']} ms; share of the bound: data sheet "
+                f"{rv['share']['sheet']:.1%}, measured {rv['share']['measured']:.1%}")
+    v2 = recs["K11"]["v2"]
+    log("  K11 v2 with each mixed form forced (COOP_LANES 0: per-lane, 32: cooperative), ms: "
+        + ", ".join(f"{s} {v2[t + 'ms_coop_lanes_0']:.4f} / {v2[t + 'ms_coop_lanes_32']:.4f}"
+                    for s, t in tags.items())
+        + f"; the default COOP_LANES {quad_gq.COOP_LANES}; classes: {json.dumps(classes)}")
 
-    # the cutoff: neighbour means at +-dta from endpoint 1's within a few ulps
-    # and equal sigmas at both ends, so the diagonal points' d lies within
-    # rounding of |d| = dta. Under a rule of unit weights (monomials 0) Ei
-    # is the sum of -d^2 / (2 gama) over the samples inside the cutoff, so a
-    # sample on the other side from the plain version's (|d| ~ dta there)
-    # changes its site's Ei by about dta^2 / (2 gama). Both instances, both
-    # types: no sample flipped; at the true rule every site within the
-    # tolerance. ``inside`` counts the plain version's samples with |d| <= dta
-    # (its own d, under the same unit rule)
+    # the cutoff, under a rule of unit weights (quad_gq.unit_rule: Ei is the sum
+    # of -d^2 / (2 gama) over the samples inside the cutoff), so a sample on
+    # the other side of |d| = dta from the plain version's (|d| ~ dta there)
+    # changes its element's Ei by about dta^2 / (2 gama). Two probes: "every
+    # element" (neighbour means at +-dta from endpoint 1's within a few ulps,
+    # equal sigmas at both ends: every element mixed, the per-lane form) and
+    # "one in 32" (one element a warp so, the rest well inside with sigmas
+    # ~1e-3: the cooperative form). Every variant, instance and form forced,
+    # both types: no sample flipped; v2's forms bit for bit each other; at the
+    # true rule every element within the tolerance. ``inside`` counts the
+    # plain version's samples with |d| <= dta (its own d, the same unit rule)
     L, M, N = QUAD_SHAPES["legacy_v1"]
     K, gama, dta = QUAD_EDGE
     edge = (2, 2, L, M, N)
     mu = rand(-3, 3, (2, L, M, N))
     side = torch.where(rand(0, 1, edge) < 0.5, -1.0, 1.0)
-    u2e = mu[None] + side * dta * (1 + rand(-3e-7, 3e-7, edge))
     sg = rand(0.5, 3, (2, L, M, N))
-    cut = (mu, sg, u2e, sg[None].expand(edge).contiguous(), rand(-0.9, 0.9, edge))
-    unit = quad_gq.rule_values(K)
-    unit[K:] = 0.0
-    unit[K:K + K * K] = 1.0
+    every = (mu, sg, mu[None] + side * dta * (1 + rand(-3e-7, 3e-7, edge)),
+             sg[None].expand(edge).contiguous(), rand(-0.9, 0.9, edge))
+    sg1 = rand(1e-3, 2e-3, (2, L, M, N))
+    near = (torch.arange(M * N, device=dev) % 32 == 7).reshape(M, N)
+    one = (mu, sg1, mu[None] + torch.where(near, side * dta * (1 + rand(-1e-7, 1e-7, edge)),
+                                          rand(-1, 1, edge)),
+           sg1[None].expand(edge).contiguous(), rand(-0.9, 0.9, edge))
     tab = torch.as_tensor(np.stack(build_table(K, 0, np.float64)))
     tab[2] = 1.0
-    one = dta * dta / (2 * gama)
+    step = dta * dta / (2 * gama)
     flips = recs["K11"]["cutoff_flips"] = {}
-    for dtype in (f64, f32):
-        args = [x.to(dtype) for x in cut]
-        a, r, ok = compare_quad(k11(*args, *QUAD_EDGE), quad_gq.truncquad_edge_gq_torch(
-            *args, *QUAD_EDGE), dtype)
-        require(ok, f"K11 cutoff {str(dtype)[6:]} (legacy_v1's rule): max abs err {a:.3e}, "
-                    f"rel {r:.3e}")
-        want = gq_accumulate(make_edge_pot_truncquad(gama, dta), args[0][None], args[2],
-                             args[1][None], args[3], args[4], tab.to(dev, dtype))
-        inside = int(gq_accumulate(lambda x1, x2: ((x2 - x1).abs() <= dta).to(dtype),
-                                   args[0][None], args[2], args[1][None], args[3], args[4],
-                                   tab.to(dev, dtype)).Ei.sum())
-        kept = quad_gq.rule_values
-        quad_gq.rule_values = lambda K, dtype=np.float64: unit.astype(dtype)
-        try:
-            for generic in (False, True):
-                got = k11(*args, *QUAD_EDGE, generic=generic)
-                n = int(((got.Ei - want.Ei).abs() / one).round().sum())
-                key = f"{str(dtype)[6:]} {'generic' if generic else 'K=9'}"
-                flips[key] = n
-                require(n == 0 and 0.1 < inside / (K * K * want.Ei.numel()) < 0.9,
-                        f"K11 cutoff {key}: {n} samples on the other side of |d| = dta from "
-                        f"the plain version's, of {K * K * want.Ei.numel()} ({inside} inside)")
-        finally:
-            quad_gq.rule_values = kept
+    forms = (("v1", None, dict(variant="v1")), ("v1 generic", None, dict(variant="v1",
+                                                                         generic=True)),
+             ("v2", None, {}), ("v2 per-lane", QUAD_COOP[0], {}),
+             ("v2 cooperative", QUAD_COOP[1], {}), ("v2 generic", None, dict(generic=True)))
+    for pname, cut, form in (("every element", every, "per-lane"), ("one in 32", one,
+                                                                    "cooperative")):
+        for dtype in (f64, f32):
+            args = [x.to(dtype) for x in cut]
+            for variant in QUAD_VARIANTS:
+                a, r, ok = compare_quad(k11(*args, *QUAD_EDGE, variant=variant),
+                                        quad_gq.truncquad_edge_gq_torch(*args, *QUAD_EDGE), dtype)
+                require(ok, f"K11 {variant} cutoff {pname} {str(dtype)[6:]} (legacy_v1's rule): "
+                            f"max abs err {a:.3e}, rel {r:.3e}")
+            want = gq_accumulate(make_edge_pot_truncquad(gama, dta), args[0][None], args[2],
+                                 args[1][None], args[3], args[4], tab.to(dev, dtype))
+            # the samples inside the cutoff of the elements near it
+            at = torch.ones_like(near) if pname == "every element" else near
+            inside = int(gq_accumulate(lambda x1, x2: ((x2 - x1).abs() <= dta).to(dtype),
+                                       args[0][None], args[2], args[1][None], args[3], args[4],
+                                       tab.to(dev, dtype)).Ei[..., at].sum())
+            total = K * K * int(at.sum()) * want.Ei[..., 0, 0].numel()
+            kept = {k: getattr(quad_gq, k) for k in ("rule_values", "closed_form_table",
+                                                     "node_values")}
+            for k, v in quad_gq.unit_rule(K).items():
+                setattr(quad_gq, k, v)
+            try:
+                v2_sums = {}
+                for fname, lanes, kw in forms:
+                    counts = None
+                    if fname.startswith("v2"):
+                        got, counts = with_coop_lanes(lanes, classes_of)(args, **kw)
+                        v2_sums[fname] = got
+                    else:
+                        got = k11(*args, *QUAD_EDGE, **kw)
+                    n = int(((got.Ei - want.Ei).abs() / step).round().sum())
+                    key = f"{pname}, {str(dtype)[6:]}, {fname}"
+                    flips[key] = dict(flipped=n, classes=counts)
+                    require(n == 0 and 0.1 < inside / total < 0.9,
+                            f"K11 cutoff {key}: {n} samples on the other side of |d| = dta from "
+                            f"the plain version's, of {K * K * want.Ei.numel()} ({inside} of the "
+                            f"{total} near it inside)")
+                    if fname == "v2":
+                        cooperative = counts["cooperative warps"]
+                        require(counts["mixed warps"] > 0 and cooperative == (
+                            0 if form == "per-lane" else counts["mixed warps"]),
+                                f"K11 cutoff {key}: the {form} form in every warp with a mixed "
+                                f"lane ({counts})")
+                require(all(torch.equal(x, y) for f in ("v2 per-lane", "v2 cooperative")
+                            for x, y in zip(v2_sums[f], v2_sums["v2"])),
+                        f"K11 cutoff {pname}, {str(dtype)[6:]}: v2's two mixed forms give the "
+                        "same sums bit for bit")
+            finally:
+                for k, v in kept.items():
+                    setattr(quad_gq, k, v)
 
     # NaN means, sigmas and correlations at a few sites: NaN exactly there
     # (as in the plain version), every other site bit for bit the NaN-free
     # call's; a shard's block (the (2, 2) mesh's four and one at odd offsets:
     # its sites and a view of the prior's block) bit for bit the whole
-    # lattice's sums there
+    # lattice's sums there; each variant
     sts, prior = probes((2, H, W))
     st = sts["sigma 0.05"]
     blocks = [(slice(r0, r0 + H // 2), slice(c0, c0 + W // 2)) for r0 in (0, H // 2)
               for c0 in (0, W // 2)] + [(slice(H // 10, H // 2 + 11), slice(11, W - W // 3))]
     for dtype in (f64, f32):
-        a10, a11 = args_of(st, prior, dtype)
+        a10, a11 = quad_args(st, prior, dtype)
         for kern, args in (("K10", a10), ("K11", a11)):
             fn, plain, rest = kinds[kern]
-            base = fn(*args, *rest)
-            lead = 1 if kern == "K10" else 3  # the fields' leading axes
-            bad = ((0, 5, 7), (1, H // 2, 0), (1, H - 1, W - 1))
-            nan_ok = True
-            for i, at in enumerate(bad):
-                a2 = [x.clone() for x in args]
-                field = (1, 3, 5)[i] if kern == "K10" else (0, 1, 4)[i]
-                idx = at if a2[field].ndim == 3 else ((0,) * (a2[field].ndim - 3) + at)
-                a2[field][idx] = float("nan")
-                got, want = fn(*a2, *rest), plain(*a2, *rest)
-                for x, b, p in zip(got, base, want):
-                    nan = torch.isnan(x)
-                    nan_ok &= bool(torch.equal(nan, torch.isnan(p)) and nan.any()
-                                   and torch.equal(x[~nan], b[~nan]))
-            require(nan_ok, f"{kern} {str(dtype)[6:]} NaN sites: NaN exactly where the plain "
-                            "version has NaN, every other site bit for bit the NaN-free call's")
-            blk_ok = True
-            for rs, cs in blocks:
-                sl = (slice(None),) * lead + (rs, cs)
-                if kern == "K10":
-                    bargs = [args[0][rs, cs]] + [x[:, rs, cs].contiguous() for x in args[1:]]
-                else:
-                    bargs = ([x[:, :, rs, cs].contiguous() for x in args[:2]]
-                             + [x[:, :, :, rs, cs].contiguous() for x in args[2:]])
-                blk_ok &= all(torch.equal(x, b[sl]) for x, b in zip(fn(*bargs, *rest), base))
-            require(blk_ok, f"{kern} {str(dtype)[6:]}: a shard's block (the (2, 2) mesh's four, "
-                            "one at odd offsets) equals the whole lattice's sums there, bit for "
-                            "bit")
+            for variant in QUAD_VARIANTS:
+                base = fn(*args, *rest, variant=variant)
+                lead = 1 if kern == "K10" else 3  # the fields' leading axes
+                bad = ((0, 5, 7), (1, H // 2, 0), (1, H - 1, W - 1))
+                nan_ok = True
+                for i, at in enumerate(bad):
+                    a2 = [x.clone() for x in args]
+                    field = (1, 3, 5)[i] if kern == "K10" else (0, 1, 4)[i]
+                    idx = at if a2[field].ndim == 3 else ((0,) * (a2[field].ndim - 3) + at)
+                    a2[field][idx] = float("nan")
+                    got, want = fn(*a2, *rest, variant=variant), plain(*a2, *rest)
+                    for x, b, p in zip(got, base, want):
+                        nan = torch.isnan(x)
+                        nan_ok &= bool(torch.equal(nan, torch.isnan(p)) and nan.any()
+                                       and torch.equal(x[~nan], b[~nan]))
+                require(nan_ok, f"{kern} {variant} {str(dtype)[6:]} NaN sites: NaN exactly where "
+                                "the plain version has NaN, every other site bit for bit the "
+                                "NaN-free call's")
+                blk_ok = True
+                for rs, cs in blocks:
+                    sl = (slice(None),) * lead + (rs, cs)
+                    if kern == "K10":
+                        bargs = [args[0][rs, cs]] + [x[:, rs, cs].contiguous() for x in args[1:]]
+                    else:
+                        bargs = ([x[:, :, rs, cs].contiguous() for x in args[:2]]
+                                 + [x[:, :, :, rs, cs].contiguous() for x in args[2:]])
+                    blk_ok &= all(torch.equal(x, b[sl]) for x, b in
+                                  zip(fn(*bargs, *rest, variant=variant), base))
+                require(blk_ok, f"{kern} {variant} {str(dtype)[6:]}: a shard's block (the (2, 2) "
+                                "mesh's four, one at odd offsets) equals the whole lattice's sums "
+                                "there, bit for bit")
     del sts, prior
     torch.cuda.empty_cache()
     record["K10"], record["K11"] = recs["K10"], recs["K11"]
     log(f"  phase kernels K10/K11: {recs['K10']['checks'] + recs['K11']['checks']} checks "
-        f"against the plain versions, {time.time() - t_phase:.1f} s")
+        f"against the plain versions (v2 and v1), cutoff flips {json.dumps(flips)}, "
+        f"{time.time() - t_phase:.1f} s")
+
+
+def quad_args(st, prior, dtype):
+    """K10's (prior, five site fields) and K11's (mu, sg, u2e, o2e, rou) of a
+    state and a prior, in ``dtype``."""
+    from gqmap_tpu_torch.kernels import edge_reduced_gq
+
+    site = [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+    mu, sg = torch.stack(site[:2]), torch.stack(site[2:4])
+    return ((prior.to(dtype), *site),
+            (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg), st.rou.to(dtype)))
 
 
 WINDOW_CASES = {  # name: the configuration whose (L, 376, 452) lattice K12 is probed on
@@ -3224,10 +3396,11 @@ UPDATE_LAUNCH_LIMIT = 4
 UPDATE_LAUNCH_LIMIT_EXACT = 5
 UPDATE_LAUNCH_LIMIT_V1 = 20  # v1: K9 a launch, the step, softmax, K1's stack, a copy
 UPDATE_CARRY_SWEEPS = 3  # device-loop sweeps whose carry is held to its torch expressions
-# legacy_v1's extra turns: K8 v2 around the plain versions of K10 and K11 (the
-# sweep before K10 and K11), and node_kernel = edge_kernel = "torch" (the
-# plain sums and the plain glue)
-QUAD_TURNS = ("plain sums", "torch routes")
+# legacy_v1's extra turns: K10 and K11 v1 (then v2 again, the first turn's
+# runner), K8 v2 around the plain versions of K10 and K11 (the sweep before
+# K10 and K11), and node_kernel = edge_kernel = "torch" (the plain sums and the
+# plain glue)
+QUAD_TURNS = ("K10/K11 v1", "plain sums", "torch routes")
 QUAD_REPLAY_KERNELS = 4  # legacy_v1's sweep under replay: K10, K11, K8 v2, the lattice's copy
 
 
@@ -3697,10 +3870,12 @@ def update_phase(dev, record, by_path, ufns):
             if route == "plain":
                 force_plain()
             pg.UPDATE_VARIANT["K8"] = "v1" if route == "v1" else "v2"
-            kept = dict(pg._NODE_QUAD), dict(pg._EDGE_ROUTES["K11"])
+            kept = dict(pg._NODE_QUAD), dict(pg._EDGE_ROUTES["K11"]), quad_gq._DEFAULT_VARIANT
             if route == "plain sums":  # K8 v2 around the plain versions of K10 and K11
                 pg._NODE_QUAD["auto"] = quad_gq.quad_node_gq_torch
                 pg._EDGE_ROUTES["K11"]["auto"] = quad_gq.truncquad_edge_gq_torch
+            if route == "K10/K11 v1":
+                quad_gq._DEFAULT_VARIANT = "v1"
             rcfg = (dataclasses.replace(cfg, node_kernel="torch", edge_kernel="torch")
                     if route == "torch routes" else cfg)
             try:
@@ -3710,12 +3885,14 @@ def update_phase(dev, record, by_path, ufns):
                 restore()
                 pg._NODE_QUAD.update(kept[0])
                 pg._EDGE_ROUTES["K11"].update(kept[1])
+                quad_gq._DEFAULT_VARIANT = kept[2]
             torch.cuda.synchronize()
             peaks[route] = (torch.cuda.max_memory_allocated() - held) / 2**30
             require(seg.route == "graph", f"update {path} {route}: route {seg.route!r}")
         ms = {}
-        for route in routes[:3] + ("v2 again",) + routes[3:]:
-            seg = runners["v2" if route == "v2 again" else route]
+        again = ("K10/K11 v2 again",) if path == "legacy_v1" else ()
+        for route in routes[:3] + ("v2 again",) + routes[3:4] + again + routes[4:]:
+            seg = runners["v2" if route in ("v2 again", "K10/K11 v2 again") else route]
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
             seg(problem, st, UPDATE_SWEEPS)
@@ -3728,14 +3905,15 @@ def update_phase(dev, record, by_path, ufns):
         log(f"  {path} graph, ms a sweep ({UPDATE_SWEEPS} sweeps from sigma 0.05): v2 "
             f"{ms['v2']:.4f}, v1 {ms['v1']:.4f}, plain glue {ms['plain']:.4f}, v2 again "
             f"{ms['v2 again']:.4f}"
-            + "".join(f", {r} {ms[r]:.4f}" for r in routes[3:])
+            + "".join(f", {r} {ms[r]:.4f}" for r in routes[3:4] + again + routes[4:])
             + f"; capturing call's peak above held, GiB: {peaks}; counted launches a sweep "
             f"{deltas}")
         if path == "legacy_v1":
-            q = deltas["v2"]
-            require(q["K10"] == q["K11"] == 1 and deltas["plain sums"]["K10"] == 0,
-                    f"update legacy_v1: one K10 and one K11 launch a sweep through the kernels, "
-                    f"none through the plain sums ({deltas})")
+            q, q1 = deltas["v2"], deltas["K10/K11 v1"]
+            require(q["K10"] == q["K11"] == q1["K10"] == q1["K11"] == 1
+                    and deltas["plain sums"]["K10"] == 0,
+                    f"update legacy_v1: one K10 and one K11 launch a sweep through the kernels "
+                    f"(v2 and v1), none through the plain sums ({deltas})")
         del runners, seg, problem
         torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
@@ -3937,15 +4115,18 @@ def main():
     RATES["datasheet"] = roofline.datasheet_rates(float(max_clock.split()[0]))
     log(f"  SASS instructions (f32): {sass}; max SM clock {max_clock}. K1: its loop per "
         "mode; K2, K3, K10 and K11: the main path's rule instance, whole function (set-up and "
-        "epilogue included) per point, and its MUFU.RSQ count; K12: the K = 9, rg = 2 "
-        "instance's shared-memory point loop per point (v2: its 16-byte route's shared-form "
-        "path)")
+        "epilogue included) per point, and its MUFU.RSQ count; K10 v2: the function per site; "
+        "K11 v2 at K = 9: each mixed form per point of an element in lane instructions (the "
+        "per-lane form's basic block, the cooperative form's pass loop); K12: the K = 9, "
+        "rg = 2 instance's shared-memory point loop per point (v2: its 16-byte route's "
+        "shared-form path)")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
                  "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point",
                  "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
-                 "K11 point", "K12 point", "K12 v2 point"):
+                 "K11 point", "K10 v2 site", "K11 v2 lane point", "K11 v2 coop point",
+                 "K12 point", "K12 v2 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -4815,6 +4996,44 @@ def main():
         require(done == 300 and v1seg.route == "graph",
                 f"legacy_v1 segment {sname}: {done} sweeps on route {v1seg.route!r}")
         v1ms[sname] = t0.elapsed_time(t1) / 300
+    # on the run's own state (after its 300 sweeps): K11 v2's classes, K10's
+    # and K11's times in both variants; then a segment through v1 (the
+    # launches of v1's records)
+    from gqmap_tpu_torch.kernels import quad_gq
+
+    qa10, qa11 = quad_args(v1st, pg._prior(v1p), torch.float32)
+    counts = torch.zeros(len(quad_gq.CLASS_COUNTS), dtype=torch.int64, device=dev)
+    quad_gq.truncquad_edge_gq_cuda(*qa11, v1_32.K, v1_32.gama, v1_32.dta, counts=counts)
+    on_state = record["K11"]["classes"]["legacy_v1 after 300 sweeps"] = quad_classes(
+        counts.tolist())
+    times = {}
+    for variant in QUAD_VARIANTS:
+        times[f"K10 {variant}"] = kernel_ms(lambda: quad_gq.quad_node_gq_cuda(
+            *qa10, v1_32.K, v1_32.quad_var, variant=variant))[0]
+        times[f"K11 {variant}"] = kernel_ms(lambda: quad_gq.truncquad_edge_gq_cuda(
+            *qa11, v1_32.K, v1_32.gama, v1_32.dta, variant=variant))[0]
+    for c in QUAD_COOP:
+        times[f"K11 v2 coop_lanes {c}"] = kernel_ms(lambda: with_coop_lanes(
+            c, quad_gq.truncquad_edge_gq_cuda)(*qa11, v1_32.K, v1_32.gama, v1_32.dta))[0]
+    record["K11"]["on_legacy_v1_state_ms"] = times
+    log(f"  legacy_v1 after 300 sweeps (median sigma_u "
+        f"{float(v1st.sigmau.median()):.4f}): K11 v2's classes {json.dumps(on_state)}; ms "
+        f"{json.dumps(times)}")
+    del qa10, qa11
+    default = quad_gq._DEFAULT_VARIANT
+    quad_gq._DEFAULT_VARIANT = "v1"
+    try:
+        for f in kfns.values():
+            f.launches = 0
+        seg1 = pg.make_segment_runner(dataclasses.replace(v1_32, its=100000, tor=0.0), (H, W))
+        n1 = seg1(v1p, v1st, QUAD_V1_SWEEPS)[1]
+    finally:
+        quad_gq._DEFAULT_VARIANT = default
+    by_path[f"legacy_v1 K10/K11 v1 ({QUAD_V1_SWEEPS} sweeps)"] = c1 = {
+        k: f.launches for k, f in kfns.items()}
+    require(n1 == QUAD_V1_SWEEPS and c1["K10"] == c1["K11"] > 0,
+            f"legacy_v1 through K10/K11 v1: {n1} sweeps, launch counters {c1}")
+    del seg1
     record["legacy_v1"] = dict(segment_ms_per_sweep=v1ms, run_GiB_above_held=v1peak,
                                card=smi("name,power.limit"))
     log(f"  legacy_v1 on {record['legacy_v1']['card']}: 300-sweep graph segments "
@@ -4991,14 +5210,22 @@ def main():
              replaces="gqmap_tpu/models/gqmap.py:572-616 the passes' sums, alpha update, anneal "
                       "and counter (XLA fusion, no Pallas)", launches=launches["K9"],
              launches_of_its_own=launches["K9 v1"], **record["K9"]),
-        dict(name="quad_node_gq (K10)", route="cuda", source="gqmap_tpu_torch/csrc/quad_gq.cu",
-             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:321 (XLA scan, no "
-                      "Pallas)", launches=by_path["legacy_v1"]["K10"], **record["K10"]),
-        dict(name="truncquad_edge_gq (K11)", route="cuda",
-             source="gqmap_tpu_torch/csrc/quad_gq.cu",
-             replaces="gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:296 (XLA scan, no "
-                      "Pallas)", launches=by_path["legacy_v1"]["K11"], **record["K11"]),
     ]
+    # K10 and K11 under each variant: the default's launches from the legacy_v1
+    # run, the other's from its segment after it
+    for kern, fname, line in (("K10", "quad_node_gq", 321), ("K11", "truncquad_edge_gq", 296)):
+        rq = record[kern]
+        for variant in QUAD_VARIANTS:
+            runs = ("legacy_v1" if variant == rq["variant"] else
+                    f"legacy_v1 K10/K11 {variant} ({QUAD_V1_SWEEPS} sweeps)")
+            extra = ({k: rq[k] for k in ("classes", "cutoff_flips", "on_legacy_v1_state_ms")}
+                     if kern == "K11" and variant == "v2" else {})
+            kernels.append(dict(
+                name=f"{fname} ({kern}, {variant})", route="cuda",
+                source="gqmap_tpu_torch/csrc/quad_gq.cu",
+                replaces=f"gqmap_tpu/ops/gq.py:93 on gqmap_tpu/ops/potentials.py:{line} (XLA "
+                         "scan, no Pallas)", launches=by_path[runs][kern], launches_run=runs,
+                **rq[variant], **extra))
     # K12 under each variant: the default's launches from the main path's solve,
     # the other's from its turn in the graph phase
     k12 = record["K12"]

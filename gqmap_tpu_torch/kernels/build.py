@@ -9,9 +9,10 @@ link into ONE shared library with a plain C interface, loaded with
          -Xptxas -v -c -o <obj> csrc/<source>.cu        (one per source)
     nvcc -shared -o gqmap_tpu_torch/_build/libgqmap_kernels_<hash>.so <objs>
 
-The file name carries a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is a cache hit. The library is written under a
-temporary name and renamed into place, so concurrent first uses do not
+The file name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is a cache hit. The library is written under a temporary
+name and renamed into place, so concurrent first uses do not
 collide. A missing ``nvcc`` or a failed build raises; there is no fallback.
 The library is built for ``sm_90a`` only, so :func:`library_for` refuses a
 device of any other compute capability before a launch (checked once a
@@ -102,6 +103,14 @@ _SIGNATURES = {
     # stream (kernels/quad_gq.truncquad_edge_gq_cuda, K11)
     "gqmap_truncquad_edge_gq_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "gqmap_truncquad_edge_gq_f64": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # muu, muv, su, sv, pn, prior, table, out, L, M, N, the prior's strides (3), scale,
+    # device, stream (quad_node_gq_cuda, K10 v2)
+    "gqmap_quad_node_gq_v2_f32": [_P] * 8 + [_I] * 6 + [_D, _I, _P],
+    "gqmap_quad_node_gq_v2_f64": [_P] * 8 + [_I] * 6 + [_D, _I, _P],
+    # mu, sg, u2e, o2e, rou, table, nodes, out, counts, DC, C, L, S, K, generic, coop_lanes,
+    # dta, scale, device, stream (truncquad_edge_gq_cuda, K11 v2)
+    "gqmap_truncquad_edge_gq_v2_f32": [_P] * 9 + [_I] * 7 + [_D] * 2 + [_I, _P],
+    "gqmap_truncquad_edge_gq_v2_f64": [_P] * 9 + [_I] * 7 + [_D] * 2 + [_I, _P],
     # ptrs (27 device pointers), consts (19 doubles), node_form, edge_form, L, M, N, colour,
     # device, stream (kernels/sweep_update.site_update_cuda, K8)
     "gqmap_site_update_f32": [_P] * 2 + [_I] * 7 + [_P],
@@ -139,9 +148,13 @@ def _sources() -> list[str]:
     return srcs
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in _sources() + _headers():
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libgqmap_kernels_{h.hexdigest()[:16]}.so")

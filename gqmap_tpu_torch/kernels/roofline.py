@@ -109,23 +109,27 @@ L1_BYTES_PER_CLOCK = 128
 # du2 and do2 with their own 1 - p^2 and root) "K8 raw edge"; per site the
 # assembly 16, the nine clamped steps (x + dx s and two compares) 36, sstep
 # 1, the energy and dalpha 10 and two magnitudes "K8 site".
-# K10 per point (fu - x1 and fv - x2 each a column term less a row term 2;
-# du^2 + dv^2 3; w g 1; Ei 1; the five other sums 10, their weights being
-# rule constants) "K10 point"; per node of the K (the column and row terms
-# a - o1e s x, o1e t x, b - o2e t x, o2e s x) "K10 node"; a site (a, b 2;
-# s, t 6 and two roots; o1e, o2e 2; their products with s and t 4; Z1, Z2
-# 6; the scale 6) "K10 site". K11 per point (z_i, z_j 2 from per-node
-# products s x, t x; x1, x2 4; d 1; d^2 1; w d^2 1; Ei 1; the five other
-# sums 10; the cutoff's compare and select not counted) "K11 point"; per
-# node its two products "K11 node"; an element (s, t 6 and two roots;
-# o1e, o2e 2; Z1, Z2 6; the scale 6) "K11 site".
+# K10's function is the closed form a site: a, b 2; o1e, o2e 2; s, t 6 and
+# two roots; their products with o1e, o2e 4; the six coefficients 21; the
+# 6 x 6 table times them 66; Z1, Z2 6; the scale 6 ("K10 site"), not the
+# K^2-point rule's own (v1's loop: 17 a point, 6 a node, 26 a site). K11
+# per point of a mixed element, its sums factored by rows (z_i, z_j 2 from
+# per-node products s x, t x; x1, x2 4; d 1; d^2 1; the column sums w g,
+# w x g, w x^2 g, three FMAs 6; the cutoff's compare and select not
+# counted) "K11 point", not v1's loop's 20 (all six sums a point); per row
+# its six terms (w A, w B, w x A, w C, two FMAs, w x B) "K11 row" and, past
+# the first row, the tree's six adds; per node its two products "K11 node";
+# an element (s, t 6 and two roots; o1e, o2e 2; Z1, Z2 6; the scale 6) "K11
+# site"; an element inside the cutoff, the closed form (s, t 6 and two
+# roots; o1e, o2e 2; delta, alpha, beta 11; the six coefficients 9; the
+# table 66; Z1, Z2 6; the scale 6) "K11 closed form"; one beyond it nothing.
 FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K3 pair": 25, "K3 centre": 7, "K3 element": 10, "K4 point": 50, "K4 tap row": 7,
          "K4 pixel": 5, "K4 site": 20, "K6 point": 20, "K6 line": 4, "K6 tap": 4,
          "K6 site": 14, "K7 point": 35, "K7 site": 15, "stencil chain": 8,
          "K8 modes": 40, "K8 raw": 46, "K8 chain": 60, "K8 grads edge": 1,
-         "K8 raw edge": 50, "K8 site": 65, "K10 point": 17, "K10 node": 6, "K10 site": 26,
-         "K11 point": 20, "K11 node": 2, "K11 site": 20}
+         "K8 raw edge": 50, "K8 site": 65, "K10 site": 113, "K11 point": 14, "K11 row": 9,
+         "K11 node": 2, "K11 site": 20, "K11 closed form": 106}
 SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
@@ -346,24 +350,34 @@ def k9_work(L: int, M: int, N: int, passes: int = 1, itemsize: int = 4,
 
 
 def k10_work(site_shape, K: int, itemsize: int = 4) -> dict:
-    """K10 on ``(L, M, N)`` sites with the K^2-point rule: the 5 state fields
-    and the ``(M, N, 2)`` prior read once (the prior shared by the L
-    components), 6 raw sums written; :data:`FLOPS`' operations, two roots a
-    site."""
+    """K10 on ``(L, M, N)`` sites: the 5 state fields and the ``(M, N, 2)``
+    prior read once (the prior shared by the L components), 6 raw sums
+    written; the closed form's operations a site (any K: the K^2-point
+    rule's sums of a quadratic are a fixed linear map of its six
+    coefficients), two roots a site."""
     L, M, N = site_shape
     sites = L * M * N
-    flops = sites * (K * K * FLOPS["K10 point"] + K * FLOPS["K10 node"] + FLOPS["K10 site"])
-    return dict(bytes=(5 * sites + 2 * M * N + 6 * sites) * itemsize, flops=flops,
-                roots=2 * sites)
+    return dict(bytes=(5 * sites + 2 * M * N + 6 * sites) * itemsize,
+                flops=sites * FLOPS["K10 site"], roots=2 * sites)
 
 
-def k11_work(edge_shape, K: int, itemsize: int = 4) -> dict:
+def k11_work(edge_shape, K: int, itemsize: int = 4, classes=None) -> dict:
     """K11 on the ``(2, 2, L, M, N)`` edge lattice with the K^2-point rule:
     mu, sigma and rho read, 6 raw sums written (:func:`k3_work`'s bytes);
-    :data:`FLOPS`' operations, two roots an element."""
+    ``classes`` = (inside, outside, mixed) elements (K11 v2's counters, or
+    None: every element mixed): the closed form for one inside the cutoff,
+    nothing for one beyond it, the K^2 points for a mixed one (summed by
+    rows: three column sums a point, six terms a row, the rows' tree), two
+    roots for each element not beyond it."""
     n_el = math.prod(edge_shape)
-    flops = n_el * (K * K * FLOPS["K11 point"] + K * FLOPS["K11 node"] + FLOPS["K11 site"])
-    return dict(bytes=(2 * n_el + 6 * n_el) * itemsize, flops=flops, roots=2 * n_el)
+    inside, outside, mixed = (0, 0, n_el) if classes is None else map(int, classes[:3])
+    if inside + outside + mixed != n_el:
+        raise ValueError(f"classes {classes} do not add up to the {n_el} edge elements")
+    flops = (inside * FLOPS["K11 closed form"]
+             + mixed * (K * K * FLOPS["K11 point"] + K * (FLOPS["K11 row"] + FLOPS["K11 node"])
+                        + 6 * (K - 1) + FLOPS["K11 site"]))
+    return dict(bytes=(2 * n_el + 6 * n_el) * itemsize, flops=flops,
+                roots=2 * (inside + mixed))
 
 
 def k12_work(site_shape, K: int, rg: int, itemsize: int = 4) -> dict:

@@ -22,6 +22,10 @@ process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
 * ``k4_sums_sha256``: a digest of kernel K4's sums, both variants, on the
   init and converged states of those three paths in float32 and float64:
   equal digests mean the two checkouts' K4 sums are equal bit for bit;
+  ``k3_sums_sha256`` the same of kernel K3's (the rule's own instance and
+  the generic one), and ``k10_k11_v1_sums_sha256`` of K10's and K11's v1
+  (a checkout without ``variant`` runs only v1) at K = 9, both instances,
+  on those states with the state's means as the quadratic prior;
 * the torch operators one ``tpu_fast``, one red-black and one
   ``full_mixture`` sweep dispatch (the kernels themselves, launched through
   ``ctypes``, are not among them): equal counts mean the same glue work on
@@ -132,7 +136,13 @@ def one(root: str) -> dict:
     from gqmap_tpu_torch.kernels import node_gq
     from gqmap_tpu_torch.ops.interp import pad_cubic
 
-    digest = hashlib.sha256()
+    import inspect
+
+    from gqmap_tpu_torch.kernels import edge_gq, edge_reduced_gq, quad_gq
+
+    v1 = ({"variant": "v1"} if "variant" in inspect.signature(
+        quad_gq.quad_node_gq_cuda).parameters else {})
+    digest, d3, d10 = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
     for name, c in (("full_mixture", fm), ("super_entropy", GQMAPConfig.super_entropy()),
                     ("ctf_level", GQMAPConfig.ctf_level())):
         c = dataclasses.replace(c, tor=0.0)
@@ -151,7 +161,22 @@ def one(root: str) -> dict:
                     got = node_gq.node_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad, c.epsn,
                                                patch=c.patch, variant=variant)
                     digest.update(torch.stack(got).cpu().numpy().tobytes())
+                mu, sg = torch.stack(fields[:2]), torch.stack(fields[2:4])
+                edge = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg),
+                        s.rou.to(dtype).contiguous())
+                prior = torch.stack(fields[:2], -1)[0]
+                for generic in (False, True):
+                    got = edge_gq.edge_gq_cuda(*edge, c.K, c.lambdas, c.epsn, generic=generic)
+                    d3.update(torch.stack(got).cpu().numpy().tobytes())
+                    got = quad_gq.quad_node_gq_cuda(prior, *fields, 9, 0.05, generic=generic,
+                                                    **v1)
+                    d10.update(torch.stack(got).cpu().numpy().tobytes())
+                    got = quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0, generic=generic,
+                                                         **v1)
+                    d10.update(torch.stack(got).cpu().numpy().tobytes())
     out["k4_sums_sha256"] = digest.hexdigest()
+    out["k3_sums_sha256"] = d3.hexdigest()
+    out["k10_k11_v1_sums_sha256"] = d10.hexdigest()
     for name, sw, prob in (
             ("tpu_fast", pg.make_sweep(cfg, (H, W)), problem),
             ("redblack", pg.make_sweep(dataclasses.replace(cfg, sweep_order="redblack"), (H, W)),

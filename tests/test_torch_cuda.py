@@ -1687,6 +1687,35 @@ def test_quad_gq_kernels_match_plain(dev, L, M, N, dtype, probe, K, generic):
             assert bool(((g - w).abs() <= bound).all()), (name, float((g - w).abs().max()))
 
 
+def _unit_rule(K, monkeypatch):
+    """``quad_gq.unit_rule`` patched in (Ei the sum of -d^2 / (2 gama) over
+    the samples inside the cutoff); the plain version's table under the same
+    rule."""
+    for name, fn in quad_gq.unit_rule(K).items():
+        monkeypatch.setattr(quad_gq, name, fn)
+    tab = torch.as_tensor(np.stack(build_table(K, 0, np.float64)))
+    tab[2] = 1.0
+    return tab
+
+
+def _cutoff_flips(dev, args, tab, K, gama, dta, near, monkeypatch, coop_lanes=None, **kw):
+    """Samples of K11 (``kw``; v2's ``COOP_LANES`` set to ``coop_lanes``
+    where given) on the other side of the cutoff from the plain version's
+    under the unit rule, and the plain version's samples inside it among the
+    elements ``near`` it."""
+    with monkeypatch.context() as m:
+        if coop_lanes is not None:
+            m.setattr(quad_gq, "COOP_LANES", coop_lanes)
+        got = quad_gq.truncquad_edge_gq_cuda(*args, K, gama, dta, **kw)
+    tab = tab.to(dev, args[0].dtype)
+    want = gq_accumulate(make_edge_pot_truncquad(gama, dta), args[0][None], args[2],
+                         args[1][None], args[3], args[4], tab)
+    inside = gq_accumulate(lambda x1, x2: ((x2 - x1).abs() <= dta).to(args[0].dtype),
+                           args[0][None], args[2], args[1][None], args[3], args[4], tab).Ei
+    flipped = int(((got.Ei - want.Ei).abs() / (dta * dta / (2 * gama))).round().sum())
+    return flipped, float(inside[..., near].sum()) / (K * K * inside[..., near].numel())
+
+
 @pytest.mark.parametrize("generic", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_truncquad_edge_kernel_puts_every_sample_on_the_plain_side_of_the_cutoff(dev, dtype,
@@ -1697,8 +1726,8 @@ def test_truncquad_edge_kernel_puts_every_sample_on_the_plain_side_of_the_cutoff
     # cutoff. Under a rule of unit weights (monomials 0) Ei is the sum of
     # -d^2 / (2 gama) over the samples inside, so a sample on the other side
     # of the cutoff from the plain version's (|d| ~ dta there) changes a
-    # site's Ei by about dta^2 / (2 gama): none may. ``inside`` counts the
-    # plain version's samples with |d| <= dta (its own d, the same unit rule)
+    # site's Ei by about dta^2 / (2 gama): none may, in either variant (v2:
+    # every element mixed, each of its forms forced too)
     g = torch.Generator().manual_seed(11)
 
     def u(lo, hi, *shape):
@@ -1711,21 +1740,121 @@ def test_truncquad_edge_kernel_puts_every_sample_on_the_plain_side_of_the_cutoff
     sg = u(0.5, 3, 2, L, M, N)
     args = [x.to(dtype).contiguous() for x in (mu, sg, u2e, sg[None].expand(edge), u(-0.9, 0.9,
                                                                                  *edge))]
-    unit = quad_gq.rule_values(K, np.float64)
-    unit[K:] = 0.0
-    unit[K:K + K * K] = 1.0
-    monkeypatch.setattr(quad_gq, "rule_values", lambda K, dtype=np.float64: unit.astype(dtype))
-    tab = torch.as_tensor(np.stack(build_table(K, 0, np.float64)))
-    tab[2] = 1.0
-    got = quad_gq.truncquad_edge_gq_cuda(*args, K, gama, dta, generic=generic)
-    want = gq_accumulate(make_edge_pot_truncquad(gama, dta), args[0][None], args[2],
-                         args[1][None], args[3], args[4], tab.to(dev, dtype))
-    one = dta * dta / (2 * gama)
-    inside = int(gq_accumulate(lambda x1, x2: ((x2 - x1).abs() <= dta).to(dtype),
-                               args[0][None], args[2], args[1][None], args[3], args[4],
-                               tab.to(dev, dtype)).Ei.sum())
-    assert 0.1 * K * K * want.Ei.numel() < inside < 0.9 * K * K * want.Ei.numel()
-    assert int(((got.Ei - want.Ei).abs() / one).round().sum()) == 0
+    tab = _unit_rule(K, monkeypatch)
+    near = torch.ones((M, N), dtype=torch.bool, device=dev)
+    for kw in (dict(variant="v1"), {}, dict(coop_lanes=0), dict(coop_lanes=32)):
+        flipped, inside = _cutoff_flips(dev, args, tab, K, gama, dta, near, monkeypatch,
+                                        generic=generic, **kw)
+        assert 0.1 < inside < 0.9 and flipped == 0, (kw, flipped, inside)
+
+
+@pytest.mark.parametrize("generic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_truncquad_edge_v2_cooperative_form_keeps_the_cutoff(dev, dtype, generic, monkeypatch):
+    # one element a warp at the cutoff (its neighbour mean at +-dta within
+    # a few ulps), the others well inside with sigmas ~1e-3: every warp has
+    # one mixed lane, which the cooperative form sums; no sample flipped,
+    # the per-lane form's sums bit for bit
+    g = torch.Generator().manual_seed(12)
+
+    def u(lo, hi, *shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=g, dtype=torch.float64)).to(dev)
+
+    L, M, N, K, gama, dta = 1, 64, 96, 9, 1.0, 10.0
+    edge = (2, 2, L, M, N)
+    mu, sg = u(-3, 3, 2, L, M, N), u(1e-3, 2e-3, 2, L, M, N)
+    near = (torch.arange(M * N, device=dev) % 32 == 7).reshape(M, N)
+    u2e = mu[None] + torch.where(near, torch.sign(u(-1, 1, *edge)) * dta * (
+        1 + u(-1e-7, 1e-7, *edge)), u(-1, 1, *edge))
+    args = [x.to(dtype).contiguous() for x in (mu, sg, u2e, sg[None].expand(edge), u(-0.9, 0.9,
+                                                                                 *edge))]
+    tab = _unit_rule(K, monkeypatch)
+    counts = torch.zeros(len(quad_gq.CLASS_COUNTS), dtype=torch.int64, device=dev)
+    flipped, inside = _cutoff_flips(dev, args, tab, K, gama, dta, near, monkeypatch,
+                                    generic=generic, counts=counts)
+    c = dict(zip(quad_gq.CLASS_COUNTS, counts.tolist()))
+    warps = 4 * M * N // 32
+    assert c["mixed"] == c["mixed warps"] == c["cooperative warps"] == warps, c
+    assert c["inside"] == 4 * M * N - warps and 0.1 < inside < 0.9 and flipped == 0
+    a = quad_gq.truncquad_edge_gq_cuda(*args, K, gama, dta, generic=generic)
+    monkeypatch.setattr(quad_gq, "COOP_LANES", 0)
+    b = quad_gq.truncquad_edge_gq_cuda(*args, K, gama, dta, generic=generic)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("K, generic", QUAD_RULES)
+@pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_quad_gq_v1_kernels_match_plain(dev, dtype, probe, K, generic):
+    # v1 (the point loop), kept beside v2: against the plain versions, at
+    # the clamp in float32 by the ratio rule
+    site, prior, edge = _quad_inputs(dev, probe, 3, 37, 53, seed=1)
+    cast = [x.to(dtype) for x in site], prior.to(dtype), [x.to(dtype) for x in edge]
+    pairs = ((quad_gq.quad_node_gq_cuda(cast[1], *cast[0], K, 0.05, generic=generic,
+                                        variant="v1"),
+              quad_gq.quad_node_gq_torch(cast[1], *cast[0], K, 0.05),
+              lambda: quad_gq.quad_node_gq_torch(prior, *site, K, 0.05)),
+             (quad_gq.truncquad_edge_gq_cuda(*cast[2], K, 1.0, 10.0, generic=generic,
+                                             variant="v1"),
+              quad_gq.truncquad_edge_gq_torch(*cast[2], K, 1.0, 10.0),
+              lambda: quad_gq.truncquad_edge_gq_torch(*edge, K, 1.0, 10.0)))
+    for got, plain, golden in pairs:
+        if dtype == torch.float32 and probe == "clamp":
+            _ratio_to_golden(got, plain, golden())
+            continue
+        floor = QUAD_FLOOR[dtype] * float(plain.Ei.abs().max())
+        scaled, rel = TOL[dtype]
+        for name in plain._fields:
+            g, w = getattr(got, name), getattr(plain, name)
+            assert bool(((g - w).abs() <= scaled * w.abs().max() + rel * w.abs() + floor).all())
+
+
+@pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_truncquad_edge_v2_matches_v1_on_mixed_elements(dev, dtype, probe, monkeypatch):
+    # the elements v2 classifies mixed run its point loop: there v2's sums
+    # (rows of column sums, a tree) are v1's (the point loop) within the
+    # tolerance; each mixed form forced gives v2's sums bit for bit, and the
+    # counters add up
+    site, prior, edge = _quad_inputs(dev, probe, 2, 37, 53, seed=2)
+    edge = [x.to(dtype) for x in edge]
+    counts = torch.zeros(len(quad_gq.CLASS_COUNTS), dtype=torch.int64, device=dev)
+    v2 = quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0, counts=counts)
+    v1 = quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0, variant="v1")
+    c = dict(zip(quad_gq.CLASS_COUNTS, counts.tolist()))
+    assert c["inside"] + c["outside"] + c["mixed"] == v2.Ei.numel() and c["mixed"] > 0, c
+    # every element, the mixed ones among them, within the tolerance of v1's
+    floor = QUAD_FLOOR[dtype] * float(v1.Ei.abs().max())
+    scaled, rel = TOL[dtype]
+    for a, b in zip(v2, v1):
+        assert bool(((a - b).abs() <= scaled * b.abs().max() + rel * b.abs() + floor).all())
+    for lanes in (0, 32):
+        forced = torch.zeros_like(counts)
+        monkeypatch.setattr(quad_gq, "COOP_LANES", lanes)
+        got = quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0, counts=forced)
+        assert all(torch.equal(a, b) for a, b in zip(got, v2))
+        f = dict(zip(quad_gq.CLASS_COUNTS, forced.tolist()))
+        assert f["cooperative warps"] == (0 if lanes == 0 else f["mixed warps"])
+        assert f["cooperative elements"] == (0 if lanes == 0 else f["mixed"])
+
+
+def test_quad_gq_variants_on_the_card(dev):
+    # v2 by default; v1 on request; counts are K11 v2's
+    site, prior, edge = _quad_inputs(dev, "warm", 1, 8, 12)
+    n = (quad_gq.quad_node_gq_cuda.launches, quad_gq.truncquad_edge_gq_cuda.launches)
+    counts = torch.zeros(len(quad_gq.CLASS_COUNTS), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="K11 v2's"):
+        quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0, variant="v1", counts=counts)
+    with pytest.raises(ValueError, match="int64 tensor"):
+        quad_gq.truncquad_edge_gq_cuda(*edge, 9, 1.0, 10.0, counts=counts[:5])
+    with pytest.raises(ValueError, match="at most 32"):
+        quad_gq.truncquad_edge_gq_cuda(*edge, 33, 1.0, 10.0, variant="v2")
+    assert (quad_gq.quad_node_gq_cuda.launches, quad_gq.truncquad_edge_gq_cuda.launches) == n
+    # K = 33: K11 runs v1 by default, K10 v2
+    for kern, a, variant in ((quad_gq.truncquad_edge_gq_cuda, (*edge, 33, 1.0, 10.0), "v1"),
+                             (quad_gq.quad_node_gq_cuda, (prior, *site, 33, 0.05), "v2")):
+        got, want = kern(*a), kern(*a, variant=variant)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
