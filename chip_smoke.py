@@ -278,7 +278,27 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    seconds and memory to build its ``upsample_cubic`` table, and its solve's
    peak device memory;
 18. one full-width ``legacy_v2(gradient_estimator="autodiff")`` sweep: a
-   finite state and energy, no kernel launched, its peak memory;
+   finite state and energy, K6 (the lookup's value) and K14 launched once
+   each, its peak memory;
+18b. the autodiff estimator's kernels at 376x452 (``kernels_autodiff``): K13
+   (the bicubic node term's chain-rule sums, ``full_mixture``'s (3, 376,
+   452) sites, K = 9), K14 (the tensor-rule Charbonnier edges' on its edge
+   lattice) and K15 (the reduced Charbonnier edges' value and derivatives,
+   K1 = 21) against their plain versions on the init, sigma = 0.05, the
+   means on the flow range's integer bounds (queries on the frame's clamp)
+   and the |rho| clamp, float64 within 1e-10 of each sum's largest magnitude
+   (plus 1e-12), float32 by the ratio rule against the float64 golden; a
+   shard's block bit for bit the whole lattice's (K13 at its pixel origin,
+   K15 with its halo); NaN probes; each one's time beside its plain
+   version's and its bound (``roofline.k13_work`` .. ``k15_work``);
+18c. the three autodiff paths through ``make_segment_runner``
+   (``autodiff_segments``: ``tpu_fast`` through K1 and K15, ``full_mixture``
+   through K13 and K14, ``legacy_v2`` through K6 and K14): one sweep from the
+   init and from sigma = 0.05 through the kernels no further from the
+   float64 golden than twice the plain route (``node_kernel = edge_kernel =
+   "torch"``); 30-sweep graph segments in turns, kernels, plain route,
+   kernels again: ms a sweep, the capturing call's peak memory, the kernels
+   a replay launches (each path's once a sweep, none on the plain route);
 19. the command line (``gqmap_tpu_torch.cli.main.main``, in this process,
    every launch counter set to 0 before each call) on a synthetic dataset
    written under ``GQMAP_DATA``: two 376x452 sequences (smoothed noise,
@@ -441,8 +461,9 @@ each run by K8 v2's last CTA inside its launch; ``launches_of_its_own``, K9
 v1's launches, is 0), ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
 solve for K6, the ``legacy_v3`` solve for K7, the ``legacy_v1`` run for
-K10 and K11 and the ``full_mixture(window_rg=2)`` solve for K12;
-``launches_by_path``
+K10 and K11, the ``full_mixture(window_rg=2)`` solve for K12, and phase
+18c's first 30-sweep segments of ``full_mixture`` (K13, K14) and
+``tpu_fast`` (K15) under autodiff; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
@@ -480,7 +501,7 @@ LANES_PER_CLOCK = 128  # H100 SXM: thread-instructions an SM issues a clock
 # clock) and "measured" (roofline.measure_ceilings), set in main()
 RATES = {}
 FAILURES = []
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11", "K12")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11", "K12", "K13", "K14", "K15")
 
 
 def launch_counts(**launches):
@@ -1561,8 +1582,9 @@ QUAD_FLOOR = {torch.float64: 1e-13, torch.float32: 1e-5}
 
 
 def compare_quad(got, want, dtype):
-    """:func:`compare` with :data:`QUAD_FLOOR` beside each sum's tolerance."""
-    floor = QUAD_FLOOR[dtype] * float(want.Ei.abs().max())
+    """:func:`compare` with :data:`QUAD_FLOOR` beside each sum's tolerance
+    (``want``'s first field is the value, ``Ei``)."""
+    floor = QUAD_FLOOR[dtype] * float(want[0].abs().max())
     abs_err, rel_err, ok = 0.0, 0.0, True
     for a, b in zip(got, want):
         err = (a - b).abs()
@@ -2238,6 +2260,269 @@ def kernels_k12(dev, record, I1, I2, issue_ms):
         f"{rec['phase_s']:.1f} s")
 
 
+# the autodiff estimator's paths through kernels: their configuration and the
+# kernels a sweep launches (K1 the cosine term's adjoint, K6 the nearest
+# lookup's value, K13 the bicubic node term, K14 and K15 the Charbonnier edges)
+AUTODIFF_PATHS = {
+    "tpu_fast autodiff": (GQMAPConfig.tpu_fast(gradient_estimator="autodiff"),
+                          dict(K1=1, K15=1)),
+    "full_mixture autodiff": (GQMAPConfig.full_mixture(gradient_estimator="autodiff"),
+                              dict(K13=1, K14=1)),
+    "legacy_v2 autodiff": (GQMAPConfig.legacy_v2(gradient_estimator="autodiff"),
+                           dict(K6=1, K14=1)),
+}
+AUTODIFF_SWEEPS = 30  # each turn's graph segment, from sigma = 0.05
+AUTODIFF_PLAIN_CHUNK = 27  # the plain versions' points a step in the kernel checks
+
+
+def autodiff_probes(cfg, dev):
+    """``k4_probes``' states (init, sigma = 0.05, the |rho| clamp) and
+    ``bounds``: every mean on an integer bound of the flow range (sigma 0.05),
+    so the centre node's queries of the sites at those columns and rows lie
+    exactly on the frame's clamp; each with edge correlations: zero at the
+    init, uniform in [-0.9, 0.9] at sigma = 0.05 and on the bounds, +-0.99999
+    at the clamp."""
+    probes = k4_probes(cfg, (H, W), dev)
+    gen = torch.Generator().manual_seed(7)
+
+    def rand(like):
+        return torch.rand(like.shape, generator=gen, dtype=torch.float64).to(dev)
+
+    conv = probes["converged"]
+    probes["bounds"] = conv._replace(
+        muu=torch.where(rand(conv.muu) < 0.5, FR[0], FR[1]),
+        muv=torch.where(rand(conv.muv) < 0.5, FR[2], FR[3]))
+    for name in ("converged", "bounds"):
+        probes[name] = probes[name]._replace(rou=1.8 * rand(probes[name].rou) - 0.9)
+    probes["clamp"] = probes["clamp"]._replace(
+        rou=0.99999 * torch.where(rand(probes["clamp"].rou) < 0.5, -1.0, 1.0))
+    return probes
+
+
+def kernels_autodiff(dev, record, I1, I2):
+    """Phase 18b: K13, K14 and K15 at 376x452 against their plain versions
+    (float64 within 1e-10 of each sum's largest magnitude, float32 by the
+    ratio rule against the float64 golden; :func:`compare_quad`'s floor) on
+    :func:`autodiff_probes`' states,
+    a shard's block bit for bit the whole lattice's, NaN probes, each one's
+    time beside its plain version's and its bound; fills ``record["K13"]`` ..
+    ``record["K15"]``."""
+    from gqmap_tpu_torch.kernels import autodiff_gq as ag
+    from gqmap_tpu_torch.kernels.edge_reduced_gq import neighbour_stacks
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    log("phase kernels K13-K15")
+    t_phase = time.time()
+    fm = AUTODIFF_PATHS["full_mixture autodiff"][0]
+    fast = AUTODIFF_PATHS["tpu_fast autodiff"][0]
+    K, k1 = fm.K, 2 * fast.K + 3
+    probes = autodiff_probes(fm, dev)
+
+    def frames(dtype):
+        return (torch.as_tensor(I1, dtype=dtype, device=dev),
+                pad_cubic(torch.as_tensor(I2, dtype=dtype, device=dev)))
+
+    def operands(name, st, dtype):
+        """(kernel, plain version, arguments) of each kernel on ``st``."""
+        site = [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
+        mu, sg = torch.stack(site[:2]), torch.stack(site[2:4])
+        rou = st.rou.to(dtype).contiguous()
+        if name == "K13":
+            return (ag.node_chain_gq_cuda, ag.node_chain_gq_torch,
+                    (*frames(dtype), *site, K, fm.lambdad, fm.epsn), dict(
+                        quad_chunk=AUTODIFF_PLAIN_CHUNK))
+        if name == "K14":
+            u2e, o2e = neighbour_stacks(mu, sg)
+            return (ag.edge_chain_gq_cuda, ag.edge_chain_gq_torch,
+                    (mu, sg, u2e, o2e, rou, K, fm.lambdas, fm.epsn),
+                    dict(quad_chunk=AUTODIFF_PLAIN_CHUNK))
+        return (ag.edge_diff_adjoint_cuda, ag.edge_diff_adjoint_torch,
+                (mu, sg, rou, k1, fast.lambdas, fast.epsn), {})
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    shapes = {"K13": (3, H, W), "K14": (2, 2, 3, H, W), "K15": (2, 2, 3, H, W)}
+    works = {"K13": roofline.k13_work(shapes["K13"], K),
+             "K14": roofline.k14_work(shapes["K14"], K),
+             "K15": roofline.k15_work(shapes["K15"], k1)}
+    checks = 0
+    for name in ("K13", "K14", "K15"):
+        rec = record[name] = dict(shape=list(shapes[name]), K=k1 if name == "K15" else K,
+                                  library_ms=None, library_reason=(
+                                      "no PyTorch call computes these sums; torch.autograd of "
+                                      "the plain version is the plain version"))
+        for dtype in (torch.float64, torch.float32):
+            for sname, st in probes.items():
+                kern, plain, args, pkw = operands(name, st, dtype)
+                got, want = kern(*args), plain(*args, **pkw)
+                a, r, ok = compare_quad(got, want, dtype)
+                what = f"{name} {shapes[name]} {str(dtype)[6:]} {sname}"
+                checks += 1
+                if dtype == torch.float64:
+                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                else:
+                    _, _, gargs, _ = operands(name, st, torch.float64)
+                    gold = plain(*gargs, **pkw)
+                    ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                    require(ek <= 2.0 * ep + 1e-6,
+                            f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} "
+                            f"+ 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                    if sname == "converged":
+                        rec["max_abs_err"] = a
+                    del gold
+                del got, want
+        torch.cuda.empty_cache()
+
+        # a shard's block: K13 at its pixel origin, K15 with its halo, K14 on
+        # its block's operands: the whole lattice's sums there, bit for bit
+        st = probes["converged"]
+        for dtype in (torch.float64, torch.float32):
+            kern, plain, args, pkw = operands(name, st, dtype)
+            whole = kern(*args)
+            r0, c0, m, n = H // 10, W // 9, H // 4 + 7, W // 2 - 23  # odd offsets
+            if name == "K13":
+                blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+                got = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:],
+                           origin=(r0, c0), local_image_shape=(m, n))
+            elif name == "K14":
+                blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
+                got = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:])
+            else:
+                blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
+                mu, sg, rou = args[:3]
+                ms = torch.stack([mu, sg])
+                halo = (ms[..., r0 + m:r0 + m + 1, c0:c0 + n].contiguous(),
+                        ms[..., r0:r0 + m, c0 + n:c0 + n + 1].contiguous())
+                got = kern(*[x[blk].contiguous() for x in (mu, sg, rou)], *args[3:], halo=halo)
+            require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                    f"{name} {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0}): the "
+                    "whole lattice's sums there, bit for bit")
+
+        # NaN inputs at a few sites: NaN exactly where the plain version's is,
+        # every other element bit for bit the NaN-free call's
+        for dtype in (torch.float64, torch.float32):
+            bad = st._replace(muu=st.muu.clone(), pn=st.pn.clone(), rou=st.rou.clone())
+            bad.muu[0, H // 4, W // 5] = float("nan")
+            bad.pn[2, H - 1, W - 1] = float("nan")
+            bad.rou[1, 0, 1, H // 2, W // 3] = float("nan")
+            kern, plain, args, pkw = operands(name, bad, dtype)
+            got, want = kern(*args), plain(*args, **pkw)
+            clean = kern(*operands(name, st, dtype)[2])
+            ok = all(bool(torch.isnan(w).any()) and torch.equal(torch.isnan(g), torch.isnan(w))
+                     and torch.equal(g[~torch.isnan(w)], c[~torch.isnan(w)])
+                     for g, w, c in zip(got, want, clean))
+            require(ok, f"{name} {str(dtype)[6:]} NaN probes: NaN exactly where the plain "
+                        "version's is, every other element bit for bit the NaN-free call's")
+
+        # times (float32, sigma = 0.05) beside the plain version's and the bound
+        kern, plain, args, pkw = operands(name, st, torch.float32)
+        rec["ms"], rec["ms_min"] = kernel_ms(lambda: kern(*args))
+        rec["plain_ms"] = time_ms(lambda: plain(*args, **pkw), 2)
+        rec.update(bound(works[name]))
+        rec["share"] = dict(sheet=rec["bound_ms"] / rec["ms"],
+                            measured=rec["bound_ms_measured"] / rec["ms"])
+        log(f"  {name} {shapes[name]} f32 on {smi('name,power.limit,clocks.sm')} (median, min) "
+            f"of {TIMING[0]} windows of {TIMING[1]} calls: ({rec['ms']:.4f}, "
+            f"{rec['ms_min']:.4f}) ms; plain {rec['plain_ms']:.4f} ms "
+            f"({rec['plain_ms'] / rec['ms']:.0f}x); {fmt_bound(rec)} ({rec['bound_terms_ms']}); "
+            f"share of the bound: data sheet {rec['share']['sheet']:.1%}, measured "
+            f"{rec['share']['measured']:.1%}")
+        del args
+        torch.cuda.empty_cache()
+    del probes
+    record["K13"]["phase_s"] = time.time() - t_phase
+    log(f"  phase kernels K13-K15: {checks} checks against the plain versions, "
+        f"{time.time() - t_phase:.1f} s")
+
+
+def autodiff_segments(dev, record, by_path, kfns):
+    """Phase 18c: the three autodiff paths of :data:`AUTODIFF_PATHS` at
+    376x452 f32 through the user's entry point (``make_segment_runner``, the
+    graph route, the backward captured with the sweep): one sweep of each
+    from the init and from sigma = 0.05 through the kernels and through the
+    plain route (``node_kernel = edge_kernel = "torch"``: ``torch.autograd``
+    of the plain expectation) against the float64 golden (the plain route in
+    float64; the kernels' error at most twice the plain route's); then
+    :data:`AUTODIFF_SWEEPS`-sweep graph segments from sigma = 0.05 in turns
+    (kernels, plain, kernels again): ms a sweep by CUDA events, the capturing
+    call's peak memory, and the kernels a replay launches (counters 0 just
+    before each timed segment, read after): the path's kernels once a sweep
+    through the kernels, none through the plain route."""
+    from gqmap_tpu_torch import FlowRange
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    log("phase autodiff segments")
+    t_phase = time.time()
+    I1, I2, _ = synthetic_pair()
+    fr = FlowRange(*FR)
+    plain_routes = dict(node_kernel="torch", edge_kernel="torch")
+    out = record["autodiff"] = {"card": smi("name,power.limit")}
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in kfns.values():
+            f.launches = 0
+
+    def cast(st, dtype):
+        return pg.GQState(*(x.to(dtype) if x.is_floating_point() else x for x in st))
+
+    for path, (base, want) in AUTODIFF_PATHS.items():
+        rec = out[path] = {}
+        cfg = dataclasses.replace(base, its=100000, eval_every=AUTODIFF_SWEEPS, tor=0.0)
+        c64 = dataclasses.replace(cfg, dtype="float64")
+        probs = {torch.float32: pg.make_problem(cfg, I1, I2, fr, dev),
+                 torch.float64: pg.make_problem(c64, I1, I2, fr, dev)}
+        st64 = pg.init_state(c64, fr, (H, W), seed=0, device=dev)
+        conv64 = st64._replace(sigmau=torch.full_like(st64.sigmau, 0.05),
+                               sigmav=torch.full_like(st64.sigmav, 0.05))
+        three_way_sweep(f"{path} ", pg.make_sweep(dataclasses.replace(c64, **plain_routes),
+                                                  (H, W)),
+                        pg.make_sweep(dataclasses.replace(cfg, **plain_routes), (H, W)),
+                        pg.make_sweep(cfg, (H, W)), probs,
+                        (("init", st64), ("converged", conv64)), cast)
+        del probs[torch.float64]
+        problem = probs[torch.float32]
+        start = cast(conv64, torch.float32)
+        for turn, routes in (("kernels", {}), ("plain", plain_routes),
+                             ("kernels again", {})):
+            tcfg = dataclasses.replace(cfg, **routes)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            seg = pg.make_segment_runner(tcfg, (H, W))
+            seg(problem, start, 1)  # the capture
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            zero()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            res = seg(problem, start, AUTODIFF_SWEEPS)
+            t1.record()
+            torch.cuda.synchronize()
+            counts = {k: f.launches for k, f in kfns.items()}
+            ms = t0.elapsed_time(t1) / AUTODIFF_SWEEPS
+            finite = all(bool(torch.isfinite(x).all()) for x in res[0])
+            expect = launch_counts(**({k: v * AUTODIFF_SWEEPS for k, v in want.items()}
+                                      if not routes else {}))
+            by_path[f"{path} {turn} ({AUTODIFF_SWEEPS} sweeps)"] = counts
+            rec[turn] = dict(ms_a_sweep=ms, capture_peak_GiB=peak, capture_s=seg.capture_s,
+                             launches=counts, kernels_a_replay=sum(counts.values())
+                             / AUTODIFF_SWEEPS)
+            require(seg.route == "graph" and res[1] == AUTODIFF_SWEEPS and finite
+                    and counts == expect,
+                    f"{path} {turn}: route {seg.route!r}, {res[1]} sweeps, finite state, "
+                    f"launches {counts} (want {expect})")
+            log(f"  {path} {turn} on {out['card']}: {ms:.4f} ms a sweep ({AUTODIFF_SWEEPS}-sweep "
+                f"graph segment from sigma 0.05), capture {seg.capture_s:.3f} s at a peak of "
+                f"{peak:.3f} GiB above what was held")
+            del seg, res
+        del problem, probs
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase autodiff segments {out['phase_s']:.1f} s")
+
+
 def flow_sequence(seed, dev, H=H, W=W):
     """An H x W pair with a smooth, non-constant flow: smoothed noise as
     frame 1, frame 2 backward-warped from it by u = 1.5 + 1.5 cos(2 pi y / H),
@@ -2575,8 +2860,9 @@ def rank_main(rank, world, port, out_dir):
     import torch.distributed as tdist
 
     from gqmap_tpu_torch import FlowRange, GQMAPConfig, solve
-    from gqmap_tpu_torch.kernels import (cheb_gq, cosine_gq, edge_gq, edge_reduced_gq, nearest_gq,
-                                         node_gq, quad_gq, window_gq)
+    from gqmap_tpu_torch.kernels import (autodiff_gq, cheb_gq, cosine_gq, edge_gq,
+                                         edge_reduced_gq, nearest_gq, node_gq, quad_gq,
+                                         window_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.ops.gq import EDGE
     from gqmap_tpu_torch.parallel import (Mesh, gather_state, initialize, make_sharded_sweep,
@@ -2591,7 +2877,9 @@ def rank_main(rank, world, port, out_dir):
             "K3": edge_gq.edge_gq_cuda, "K4": node_gq.node_gq_cuda,
             "K5": cheb_gq.cheb_gq_cuda, "K6": nearest_gq.nearest_gq_cuda,
             "K7": nearest_gq.nearest_chain_gq_cuda, "K10": quad_gq.quad_node_gq_cuda,
-            "K11": quad_gq.truncquad_edge_gq_cuda, "K12": window_gq.node_window_gq_cuda}
+            "K11": quad_gq.truncquad_edge_gq_cuda, "K12": window_gq.node_window_gq_cuda,
+            "K13": autodiff_gq.node_chain_gq_cuda, "K14": autodiff_gq.edge_chain_gq_cuda,
+            "K15": autodiff_gq.edge_diff_adjoint_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -3335,6 +3623,8 @@ def graph_phase(dev, record, by_path, kfns):
         "legacy_v1": GQMAPConfig.legacy_v1(quad_var=0.05),
         "legacy_v2": GQMAPConfig.legacy_v2(),
         "legacy_v2 autodiff": GQMAPConfig.legacy_v2(gradient_estimator="autodiff"),
+        "tpu_fast autodiff": GQMAPConfig.tpu_fast(gradient_estimator="autodiff"),
+        "full_mixture autodiff": GQMAPConfig.full_mixture(gradient_estimator="autodiff"),
         "legacy_v3": GQMAPConfig.legacy_v3(),
         "blockmatch_v2": GQMAPConfig.blockmatch_v2(),
         "tpu_fast window_rg=2": GQMAPConfig.tpu_fast(window_rg=2),
@@ -4070,8 +4360,9 @@ def main():
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs a Hopper card (capability 9.0), found {cap}")
     from gqmap_tpu_torch import GQMAPConfig, FlowRange, solve
-    from gqmap_tpu_torch.kernels import (build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                         nearest_gq, node_gq, quad_gq, sweep_update, window_gq)
+    from gqmap_tpu_torch.kernels import (autodiff_gq, build, cheb_gq, cosine_gq, edge_gq,
+                                         edge_reduced_gq, nearest_gq, node_gq, quad_gq,
+                                         sweep_update, window_gq)
     from gqmap_tpu_torch.models import gqmap as pg
     from gqmap_tpu_torch.models.blockmatch import block_matching_init
     from gqmap_tpu_torch.ops.gq import EDGE, NODE, finalize
@@ -4083,9 +4374,11 @@ def main():
     # K9 v1 (a launch of its own, on the v1 route only)
     ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_v2,
             "K9 v1": sweep_update.sweep_tail_cuda}
-    # kernels counted on every counted run: K10, K11 and K12
+    # kernels counted on every counted run: K10, K11, K12 and the autodiff
+    # estimator's K13, K14 and K15
     qfns = {"K10": quad_gq.quad_node_gq_cuda, "K11": quad_gq.truncquad_edge_gq_cuda,
-            "K12": window_gq.node_window_gq_cuda}
+            "K12": window_gq.node_window_gq_cuda, "K13": autodiff_gq.node_chain_gq_cuda,
+            "K14": autodiff_gq.edge_chain_gq_cuda, "K15": autodiff_gq.edge_diff_adjoint_cuda}
 
     # ---- 1. the card
     card = smi("name,power.limit")
@@ -4355,9 +4648,9 @@ def main():
     require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
                                     "(at most half)")
     require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters,
-                         "K9 v1": 0, "K10": 0, "K11": 0, "K12": 0},
+                         "K9 v1": 0, "K10": 0, "K11": 0, "K12": 0, "K13": 0, "K14": 0, "K15": 0},
             f"launch counters {launches} equal the sweep count {res.iters} (K9 v2's tails run "
-            f"in K8 v2's launches; no K9 v1, K10, K11 or K12 launch)")
+            f"in K8 v2's launches; no K9 v1 or K10-K15 launch)")
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
@@ -5125,16 +5418,16 @@ def main():
         f"and {up_peak / 2**30:.3f} GiB at peak; solve peak {record['peak_GiB']['legacy_v2']:.3f}"
         " GiB")
 
-    # ---- 18. one autodiff sweep at full width (no kernel runs)
+    # ---- 18. one autodiff sweep at full width (K6's value and K14 once each)
     log("phase autodiff sweep")
     ad32 = dataclasses.replace(v2_32, gradient_estimator="autodiff")
     adsweep = pg.make_sweep(ad32, (H, W))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    ad_ms = time_ms(lambda: adsweep(v2p, v2st), 1)
     for f in kfns.values():
         f.launches = 0
-    ad_ms = time_ms(lambda: adsweep(v2p, v2st), 1)
     ad1, adaux = adsweep(v2p, v2st)
     torch.cuda.synchronize()
     ad_peak = torch.cuda.max_memory_allocated() - base
@@ -5145,12 +5438,16 @@ def main():
     require(finite and bool(torch.isfinite(adaux.energy)) and moved > 0,
             f"legacy_v2 autodiff sweep: finite gradients and state (largest step {moved:.3e}), "
             f"energy {float(adaux.energy):.6e}")
-    require(counts == launch_counts(),
-            f"autodiff: launch counters {counts} all 0")
+    require(counts == launch_counts(K6=1, K14=1),
+            f"autodiff: launch counters {counts}: K6 (the lookup's value) and K14 once each")
     record["legacy_v2_autodiff"] = dict(sweep_ms=ad_ms, GiB_above_held=ad_peak / 2**30)
     log(f"  legacy_v2 autodiff: one sweep {ad_ms:.3f} ms, peak {ad_peak / 2**30:.3f} GiB above "
         "what the script held")
     del v2p
+
+    # ---- 18b-c. the autodiff estimator's kernels and its three graph segments
+    kernels_autodiff(dev, record, I1, I2)
+    autodiff_segments(dev, record, by_path, kfns)
 
     # ---- 19-23. the drivers, the command line and K3 on the pyramid's lattice
     drivers(dev, record, by_path, kfns, segment_ms)
@@ -5241,6 +5538,24 @@ def main():
             legacy_v2_bicubic=k12["legacy_v2 bicubic"][variant],
             border_fallback_share=k12["border_fallback_share"], instances={
                 k: v for k, v in k12["instances"].items() if f" {variant} " in k}))
+    # K13-K15: launches from the kernel route's first timed graph segment of
+    # their path
+    ad = record["autodiff"]
+    for kern, fname, path, replaces in (
+            ("K13", "node_chain_gq", "full_mixture autodiff",
+             "gqmap_tpu/ops/gq.py:299 gq_ei on gqmap_tpu/ops/potentials.py:44, under jax.grad "
+             "(XLA scan, no Pallas)"),
+            ("K14", "edge_chain_gq", "full_mixture autodiff",
+             "gqmap_tpu/ops/gq.py:299 gq_ei on the Charbonnier edge potential, under jax.grad "
+             "(XLA scan, no Pallas)"),
+            ("K15", "edge_diff_adjoint", "tpu_fast autodiff",
+             "gqmap_tpu/ops/gq.py:430 gq_ei_diff on the Charbonnier difference potential, "
+             "under jax.grad (XLA scan, no Pallas)")):
+        kernels.append(dict(
+            name=f"{fname} ({kern})", route="cuda", source="gqmap_tpu_torch/csrc/autodiff_gq.cu",
+            replaces=replaces, launches=ad[path]["kernels"]["launches"][kern],
+            launches_run=f"{path} kernels ({AUTODIFF_SWEEPS} sweeps)",
+            **{k: v for k, v in record[kern].items() if k != "phase_s"}))
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")
         raise SystemExit(1)

@@ -17,7 +17,9 @@ tests compare every preset field by field). Two fields differ in meaning:
   cosine term, K4 for the bicubic term without a window and K5 for the
   Chebyshev term (at most 64 v-degrees; the JAX package's XLA scans of
   those two), under the Stein estimator; the other node terms are plain
-  sums.
+  sums. Under the autodiff estimator the kernels K1, K13, K6, K14 and K15
+  compute the terms ``models.gqmap.check_supported`` names, and
+  ``"torch"`` is ``torch.autograd`` of the plain expectation.
 * ``bicubic_pack`` is accepted and has no effect: it selects a TPU gather
   layout whose values differ from the 16-tap path only by summation order.
 

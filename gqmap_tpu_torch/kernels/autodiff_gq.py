@@ -1,0 +1,304 @@
+"""Kernels K13, K14 and K15: the autodiff estimator's sums, on the card.
+
+Under ``gradient_estimator="autodiff"`` the JAX package takes
+``jax.value_and_grad`` of the quadrature-estimated expected energy
+(``gqmap_tpu/models/gqmap.py``): XLA scans of ``gq_ei`` and ``gq_ei_diff``
+(``gqmap_tpu/ops/gq.py``) and their derivatives, no Pallas kernel. Here
+each term's value and the sums of its exact derivatives come from one
+launch, and a ``torch.autograd.Function`` scales them by the incoming
+gradient (:func:`chain_ei`, :func:`diff_ei`); the rest of the estimator
+stays ``torch.autograd`` of plain torch. The CUDA kernels are
+``gqmap_tpu_torch/csrc/autodiff_gq.cu``:
+
+* K13, :func:`node_chain_gq_cuda`: the bicubic node term at one pixel a
+  site, the seven chain-rule sums (:class:`GQChainRaw`) of its potential
+  with its exact derivatives; plain version :func:`node_chain_gq_torch`
+  (``gq_accumulate_chain`` on ``make_node_pot_bicubic_chain``);
+* K14, :func:`edge_chain_gq_cuda`: the tensor-rule Charbonnier edges, the
+  same seven sums on the edge lattice; plain version
+  :func:`edge_chain_gq_torch` (``gq_accumulate_chain`` on
+  ``make_edge_pot_chain``);
+* K15, :func:`edge_diff_adjoint_cuda`: the reduced Charbonnier edges, the
+  value of ``gq_ei_diff`` and its five derivatives, the neighbour read in
+  the kernel as K2 reads it; plain version :func:`edge_diff_adjoint_torch`
+  (``gq_ei_diff_adjoint`` and ``diff_partials``).
+
+Each ``*_cuda`` wrapper counts its launches (``.launches``) and raises for
+tensors that are not on a CUDA device; the dispatchers (:func:`node_chain_gq`,
+:func:`edge_chain_gq`, :func:`edge_diff_adjoint`) launch the kernel for CUDA
+tensors and run the plain version for CPU tensors. The plain versions also
+take ``quad_chunk``, their points a step (0: all).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.gq import (GQChainRaw, chain_partials, diff_partials, gq_accumulate_chain,
+                      gq_ei_diff_adjoint)
+from ..ops.potentials import (make_edge_pot_chain, make_edge_pot_diff_grad,
+                              make_node_pot_bicubic_chain)
+from ..ops.quadrature import gauss_hermite, table_on
+from . import build
+from .edge_reduced_gq import neighbour_stacks, pad_halo, paired_rule_1d
+from .node_gq import node_rule
+
+__all__ = ["MAX_K", "Partials", "chain_ei", "diff_ei", "edge_chain_gq", "edge_chain_gq_cuda",
+           "edge_chain_gq_torch", "edge_diff_adjoint", "edge_diff_adjoint_cuda",
+           "edge_diff_adjoint_torch", "node_chain_gq", "node_chain_gq_cuda",
+           "node_chain_gq_torch", "paired_chain_rule"]
+
+MAX_K = 64  # K13's largest rule (csrc/autodiff_gq.cu, kMaxK)
+
+
+def paired_chain_rule(K: int, dtype=np.float64) -> np.ndarray:
+    """K14's rule: ``5 P + 1`` values for the ``P = K^2 // 2`` pairs of a
+    point (flat index ``j K + i``, XI = x_i, XJ = x_j) and its mirror ``K^2 -
+    1`` minus it, row by row: XI, XJ, WIWJ, WIWJ XI and WIWJ XJ of the
+    pair's first point; last the centre point's weight (odd K; 0 for even
+    K). Nodes and weights symmetrised, as ``edge_gq.paired_rule``."""
+    x, w = gauss_hermite(K)
+    x = 0.5 * (x - x[::-1])
+    w = 0.5 * (w + w[::-1])
+    k = np.arange(K * K // 2)
+    xi, xj = x[k % K], x[k // K]
+    wiwj = w[k % K] * w[k // K]
+    wc = w[K // 2] ** 2 if K % 2 else 0.0
+    return np.concatenate([xi, xj, wiwj, wiwj * xi, wiwj * xj, [wc]]).astype(dtype)
+
+
+# --- K13 ---------------------------------------------------------------------------
+
+def node_chain_gq_torch(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
+                        origin=None, local_image_shape=None, quad_chunk: int = 0) -> GQChainRaw:
+    """Plain version of K13: ``gq_accumulate_chain`` on the bicubic node
+    potential with its exact derivatives, ``quad_chunk`` points a step."""
+    fg = make_node_pot_bicubic_chain(I1, VV, lambdad, epsn, origin=origin,
+                                     local_image_shape=local_image_shape)
+    return gq_accumulate_chain(fg, muu, muv, su, sv, pn,
+                               table_on(K, quad_chunk, False, muu.dtype, muu.device))
+
+
+def node_chain_gq_cuda(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
+                       origin=None, local_image_shape=None) -> GQChainRaw:
+    """Kernel K13 on the ``(L, M, N)`` sites of frame 1's block at pixel
+    ``origin`` (the whole frame by default; ``local_image_shape`` must be
+    the sites' ``(M, N)``, one pixel a site)."""
+    if muu.ndim != 3:
+        raise ValueError(f"muu must be (L, M, N), got {tuple(muu.shape)}")
+    L, M, N = muu.shape
+    Mo, No = I1.shape
+    if local_image_shape is not None and tuple(local_image_shape) != (M, N):
+        raise ValueError(f"K13 takes one pixel a site: local_image_shape "
+                         f"{tuple(local_image_shape)} is not the sites' {(M, N)}")
+    r0, c0 = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
+    site = muu.shape
+    build.check_operands("node_chain_gq_cuda", muu, (
+        ("I1", I1, (Mo, No)), ("VV", VV, (Mo + 2, No + 2)), ("muu", muu, site),
+        ("muv", muv, site), ("su", su, site), ("sv", sv, site), ("pn", pn, site)))
+    K = int(K)
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K13 takes rules of 1 to {MAX_K} points an axis, not {K}")
+    rule, _, rule_dev = build.rule_args(node_rule, K, (), True, muu)
+    out = torch.empty((7,) + site, dtype=muu.dtype, device=muu.device)
+    lib = build.library_for(muu.device)
+    fn = lib.gqmap_node_chain_f32 if muu.dtype == torch.float32 else lib.gqmap_node_chain_f64
+    stream = torch.cuda.current_stream(muu.device).cuda_stream
+    build.check(fn(I1.data_ptr(), VV.data_ptr(), muu.data_ptr(), muv.data_ptr(), su.data_ptr(),
+                   sv.data_ptr(), pn.data_ptr(), rule_dev, out.data_ptr(), Mo, No, L, M, N,
+                   r0, c0, K, float(lambdad), float(epsn), muu.device.index, stream),
+                "node_chain_gq_cuda")
+    node_chain_gq_cuda.launches += 1
+    return GQChainRaw(*out.unbind(0))
+
+
+node_chain_gq_cuda.launches = 0
+
+
+def node_chain_gq(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
+                  origin=None, local_image_shape=None, quad_chunk: int = 0) -> GQChainRaw:
+    """Kernel K13 for CUDA tensors, its plain version for CPU tensors."""
+    at = dict(origin=origin, local_image_shape=local_image_shape)
+    if muu.device.type == "cpu":
+        return node_chain_gq_torch(I1, VV, muu, muv, su, sv, pn, K, lambdad, epsn,
+                                   quad_chunk=quad_chunk, **at)
+    return node_chain_gq_cuda(I1, VV, muu, muv, su, sv, pn, K, lambdad, epsn, **at)
+
+
+# --- K14 ---------------------------------------------------------------------------
+
+def edge_chain_gq_torch(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float,
+                        quad_chunk: int = 0) -> GQChainRaw:
+    """Plain version of K14: ``gq_accumulate_chain`` on the Charbonnier edge
+    potential with its exact derivatives, over the ``(D, C, L, M, N)`` edge
+    lattice (endpoint 1 ``mu``/``sg``, ``(C, L, M, N)``)."""
+    return gq_accumulate_chain(make_edge_pot_chain(lambdas, epsn), mu[None], u2e, sg[None],
+                               o2e, rou, table_on(K, quad_chunk, False, mu.dtype, mu.device))
+
+
+def edge_chain_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float,
+                       epsn: float) -> GQChainRaw:
+    """Kernel K14, on K3's operands: ``mu``/``sg`` ``(C, L, M, N)``,
+    ``u2e``/``o2e``/``rou`` ``(D, C, L, M, N)``."""
+    if mu.ndim != 4:
+        raise ValueError(f"mu must be (C, L, M, N), got {tuple(mu.shape)}")
+    C, L, M, N = mu.shape
+    D = u2e.shape[0]
+    edge = (D, C, L, M, N)
+    build.check_operands("edge_chain_gq_cuda", mu, (
+        ("mu", mu, mu.shape), ("sg", sg, mu.shape), ("u2e", u2e, edge), ("o2e", o2e, edge),
+        ("rou", rou, edge)))
+    K = int(K)
+    rule, _, rule_dev = build.rule_args(paired_chain_rule, K, (), True, mu)
+    out = torch.empty((7,) + edge, dtype=mu.dtype, device=mu.device)
+    lib = build.library_for(mu.device)
+    fn = lib.gqmap_edge_chain_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_chain_f64
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    build.check(fn(mu.data_ptr(), sg.data_ptr(), u2e.data_ptr(), o2e.data_ptr(), rou.data_ptr(),
+                   rule_dev, out.data_ptr(), D * C, C, L, M * N, K, float(lambdas),
+                   float(epsn), mu.device.index, stream),
+                "edge_chain_gq_cuda")
+    edge_chain_gq_cuda.launches += 1
+    return GQChainRaw(*out.unbind(0))
+
+
+edge_chain_gq_cuda.launches = 0
+
+
+def edge_chain_gq(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float,
+                  quad_chunk: int = 0) -> GQChainRaw:
+    """Kernel K14 for CUDA tensors, its plain version for CPU tensors."""
+    if mu.device.type == "cpu":
+        return edge_chain_gq_torch(mu, sg, u2e, o2e, rou, K, lambdas, epsn, quad_chunk)
+    return edge_chain_gq_cuda(mu, sg, u2e, o2e, rou, K, lambdas, epsn)
+
+
+# --- K15 ---------------------------------------------------------------------------
+
+def _crop(fields, M: int, N: int) -> tuple:
+    return tuple(x[..., :M, :N] for x in fields)
+
+
+def edge_diff_adjoint_torch(mu, sg, rou, k1: int, lambdas: float, epsn: float,
+                            halo=None) -> tuple:
+    """Plain version of K15: ``(Ei, dEi/du1, dEi/do1, dEi/do2, dEi/dp)`` of
+    ``gq_ei_diff`` on the Charbonnier difference potential over the ``(2, C,
+    L, M, N)`` edge lattice of ``mu``/``sg`` and their neighbours
+    (:func:`neighbour_stacks`; ``dEi/du2 = -dEi/du1``); with a ``halo``, on
+    the block padded by it (``edge_reduced_gq.pad_halo``), cropped."""
+    if halo is not None:
+        M, N = mu.shape[-2:]
+        return _crop(edge_diff_adjoint_torch(*pad_halo(mu, sg, rou, halo), k1, lambdas, epsn),
+                     M, N)
+    u2e, o2e = neighbour_stacks(mu, sg)
+    sums = gq_ei_diff_adjoint(make_edge_pot_diff_grad(lambdas, epsn), mu[None], u2e, sg[None],
+                              o2e, rou, table_on(k1, 0, True, mu.dtype, mu.device))
+    ei, du1, _, do1, do2, dp = diff_partials(sums, sg[None], o2e, rou)
+    return ei, du1, do1, do2, dp
+
+
+def edge_diff_adjoint_cuda(mu, sg, rou, k1: int, lambdas: float, epsn: float,
+                           halo=None) -> tuple:
+    """Kernel K15, on K2's operands (``mu``/``sg`` ``(C, L, M, N)``, ``rou``
+    ``(2, C, L, M, N)``, the neighbours read in the kernel with wrap); with
+    a ``halo``, one launch on the padded block, cropped."""
+    if halo is not None:
+        M, N = mu.shape[-2:]
+        return _crop(edge_diff_adjoint_cuda(*pad_halo(mu, sg, rou, halo), k1, lambdas, epsn),
+                     M, N)
+    if mu.ndim != 4:
+        raise ValueError(f"mu must be (C, L, M, N), got {tuple(mu.shape)}")
+    C, L, M, N = mu.shape
+    edge = (2, C, L, M, N)
+    build.check_operands("edge_diff_adjoint_cuda", mu, (
+        ("mu", mu, mu.shape), ("sg", sg, mu.shape), ("rou", rou, edge)))
+    k1 = int(k1)
+    rule, _, rule_dev = build.rule_args(paired_rule_1d, k1, (), True, mu)
+    out = torch.empty((5,) + edge, dtype=mu.dtype, device=mu.device)
+    lib = build.library_for(mu.device)
+    fn = lib.gqmap_edge_diff_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_diff_f64
+    stream = torch.cuda.current_stream(mu.device).cuda_stream
+    build.check(fn(mu.data_ptr(), sg.data_ptr(), rou.data_ptr(), rule_dev, out.data_ptr(), C, L,
+                   M, N, k1, float(lambdas), float(epsn), mu.device.index, stream),
+                "edge_diff_adjoint_cuda")
+    edge_diff_adjoint_cuda.launches += 1
+    return tuple(out.unbind(0))
+
+
+edge_diff_adjoint_cuda.launches = 0
+
+
+def edge_diff_adjoint(mu, sg, rou, k1: int, lambdas: float, epsn: float, halo=None) -> tuple:
+    """Kernel K15 for CUDA tensors, its plain version for CPU tensors."""
+    fn = edge_diff_adjoint_torch if mu.device.type == "cpu" else edge_diff_adjoint_cuda
+    return fn(mu, sg, rou, k1, lambdas, epsn, halo=halo)
+
+
+# --- the autograd Functions ---------------------------------------------------------
+
+class Partials(torch.autograd.Function):
+    """``fn(*inputs) -> (value, partials)`` as a function ``torch.autograd``
+    differentiates: forward runs ``fn`` once (one kernel launch) and keeps
+    ``partials``, each the elementwise derivative of ``value`` by one input
+    on ``value``'s shape; backward is ``grad * partial``, summed to the
+    input's shape where it was broadcast. Nothing reads the host."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        value, partials = fn(*inputs)
+        ctx.shapes = [x.shape for x in inputs]
+        ctx.save_for_backward(*partials)
+        return value
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None,) + tuple(
+            (grad * d).sum_to_size(shape) if need else None
+            for d, shape, need in zip(ctx.saved_tensors, ctx.shapes, ctx.needs_input_grad[1:]))
+
+
+def chain_ei(sums, u1, u2, o1, o2, p) -> torch.Tensor:
+    """``Ei`` (``gq_ei``'s value) of a potential whose chain-rule sums
+    ``sums(u1, u2, o1, o2, p) -> GQChainRaw`` come from one launch (K13,
+    K14 or their plain versions), differentiable in the five inputs by
+    ``chain_partials``."""
+    def fn(*site):
+        raw = sums(*site)
+        return raw.Ei, chain_partials(raw, site[2], site[3], site[4])
+
+    return Partials.apply(fn, u1, u2, o1, o2, p)
+
+
+class _DiffEi(torch.autograd.Function):
+    """K15's ``Ei`` on the ``(2, C, L, M, N)`` edge lattice of ``(mu, sg,
+    rou)``; backward scales the saved derivatives by the gradient and sends
+    endpoint 2's back to its site by ``roll(x, +1, axis)``, the adjoint of
+    the neighbour read (``roll`` the lattice's: ``torch.roll``, or a shard's
+    halo roll)."""
+
+    @staticmethod
+    def forward(ctx, adjoint, roll, mu, sg, rou):
+        ei, du1, do1, do2, dp = adjoint(mu, sg, rou)
+        ctx.roll = roll
+        ctx.save_for_backward(du1, do1, do2, dp)
+        return ei
+
+    @staticmethod
+    def backward(ctx, grad):
+        du1, do1, do2, dp = ctx.saved_tensors
+        roll = ctx.roll
+
+        def back(d1, d2):
+            g1, g2 = grad * d1, grad * d2
+            return g1.sum(0) + roll(g2[0], 1, -2) + roll(g2[1], 1, -1)
+
+        return None, None, back(du1, -du1), back(do1, do2), grad * dp
+
+
+def diff_ei(adjoint, mu, sg, rou, roll=torch.roll) -> torch.Tensor:
+    """``gq_ei_diff``'s value on the edge lattice of the ``(C, L, M, N)``
+    stacks ``mu``, ``sg`` and ``rou``, from ``adjoint(mu, sg, rou) -> (Ei,
+    dEi/du1, dEi/do1, dEi/do2, dEi/dp)`` (K15 or its plain version, with the
+    shard's halo bound in), differentiable in the three."""
+    return _DiffEi.apply(adjoint, roll, mu, sg, rou)

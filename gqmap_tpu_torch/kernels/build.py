@@ -111,6 +111,18 @@ _SIGNATURES = {
     # dta, scale, device, stream (truncquad_edge_gq_cuda, K11 v2)
     "gqmap_truncquad_edge_gq_v2_f32": [_P] * 9 + [_I] * 7 + [_D] * 2 + [_I, _P],
     "gqmap_truncquad_edge_gq_v2_f64": [_P] * 9 + [_I] * 7 + [_D] * 2 + [_I, _P],
+    # I1, VV, muu, muv, su, sv, pn, rule, out, Mo, No, L, M, N, r0, c0, K, lam, eps, device,
+    # stream (kernels/autodiff_gq.node_chain_gq_cuda, K13)
+    "gqmap_node_chain_f32": [_P] * 9 + [_I] * 8 + [_D] * 2 + [_I, _P],
+    "gqmap_node_chain_f64": [_P] * 9 + [_I] * 8 + [_D] * 2 + [_I, _P],
+    # mu, sg, u2e, o2e, rou, rule, out, DC, C, L, S, K, lam, eps, device, stream
+    # (kernels/autodiff_gq.edge_chain_gq_cuda, K14)
+    "gqmap_edge_chain_f32": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_edge_chain_f64": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # mu, sg, rou, rule, out, C, L, M, N, K1, lam, eps, device, stream
+    # (kernels/autodiff_gq.edge_diff_adjoint_cuda, K15)
+    "gqmap_edge_diff_f32": [_P] * 5 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_edge_diff_f64": [_P] * 5 + [_I] * 5 + [_D] * 2 + [_I, _P],
     # ptrs (27 device pointers), consts (19 doubles), node_form, edge_form, L, M, N, colour,
     # device, stream (kernels/sweep_update.site_update_cuda, K8)
     "gqmap_site_update_f32": [_P] * 2 + [_I] * 7 + [_P],

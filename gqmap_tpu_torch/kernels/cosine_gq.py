@@ -14,6 +14,12 @@ variants differ from it only at rounding level.
   launches.
 * :func:`cos_mode_sums` launches the kernel for CUDA tensors and runs the
   plain version for CPU tensors, whatever the variant.
+
+The six sums are the exact gradient of the closed-form expectation
+``ops.cosine.cos_ei`` (``_finalize_mode_sums`` with ``a = 1``, ``T = 0``):
+:func:`cos_ei_adjoint` is ``cos_ei`` as a ``torch.autograd.Function`` whose
+forward is one launch of K1 and whose backward scales the saved gradients,
+the autodiff estimator's cosine term.
 """
 
 from __future__ import annotations
@@ -22,12 +28,14 @@ import math
 
 import torch
 
-from ..ops.cosine import CosData
+from ..ops.cosine import CosData, _finalize_mode_sums
 from ..ops.cosine import _mode_sums as cos_mode_sums_torch
+from ..ops.gq import NODE
 from . import build
+from .autodiff_gq import Partials
 
-__all__ = ["cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch", "phase_stack",
-           "MAX_L", "VARIANTS"]
+__all__ = ["cos_ei_adjoint", "cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch",
+           "phase_stack", "MAX_L", "VARIANTS"]
 
 MAX_L = 4  # mixture components the kernel is instantiated for (csrc/cosine_gq.cu)
 VARIANTS = ("v1", "adaptive", "recur")  # kernel codes 0, 1, 2
@@ -123,3 +131,17 @@ def cos_mode_sums(cos: CosData, u1, u2, o1, o2, p, variant: str | None = None,
     if cos.coeffs.device.type == "cpu":
         return cos_mode_sums_torch(cos, u1, u2, o1, o2, p)
     return cos_mode_sums_cuda(cos, u1, u2, o1, o2, p, variant, stack=stack)
+
+
+def cos_ei_adjoint(cos: CosData, u1, u2, o1, o2, p, sums=cos_mode_sums) -> torch.Tensor:
+    """``ops.cosine.cos_ei`` differentiable in its five site inputs, from one
+    call of ``sums`` (K1's mode sums by :func:`cos_mode_sums`, or a route of
+    them): the value is ``_finalize_mode_sums``' ``da`` at ``a = 1``, ``T =
+    0``, and its saved gradients ``du1 .. dp`` are the value's exact
+    derivatives (``tests/test_cosine.py`` holds them to ``jax.grad``)."""
+    def fn(*site):
+        g = _finalize_mode_sums(cos, sums(cos, *site), site[0], site[2], site[3], site[4],
+                                1.0, 0.0, NODE)
+        return g.da, (g.du1, g.du2, g.do1, g.do2, g.dp)
+
+    return Partials.apply(fn, u1, u2, o1, o2, p)

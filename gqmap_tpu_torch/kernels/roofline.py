@@ -129,7 +129,24 @@ FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K6 site": 14, "K7 point": 35, "K7 site": 15, "stencil chain": 8,
          "K8 modes": 40, "K8 raw": 46, "K8 chain": 60, "K8 grads edge": 1,
          "K8 raw edge": 50, "K8 site": 65, "K10 site": 113, "K11 point": 14, "K11 row": 9,
-         "K11 node": 2, "K11 site": 20, "K11 closed form": 106}
+         "K11 node": 2, "K11 site": 20, "K11 closed form": 106, "K13 point": 183,
+         "K13 site": 35, "K14 pair": 22, "K14 centre": 7, "K14 element": 20, "K15 pair": 18,
+         "K15 centre": 7, "K15 element": 27}
+# K13 per point (an FMA two operations): z_i, z_j 6; x1, x2 and the queries 6;
+# the clamps' slopes 2; the fractions 2; each axis's four cubic weights 17 and
+# their four slopes 14, 62; a tap row's three dots (value, d/dx: 7 each) and
+# their three products with the row's weights 6, 20 a row, 80; the difference
+# 2, eps + d^2 2, h = w d / F 2, the two chained derivatives 6, the seven sums
+# 12, the point's weight 1 ("K13 point", 183; and one root); per site s, t 6,
+# o1e, o2e 2, the lanes' tree 21 and the epilogue's seven products ("K13
+# site", 35). K14 per pair of mirror points: q 3, d+- 2, eps + d^2 4, h+- 2,
+# the even and odd combinations 3, four sums 8 ("K14 pair", 22; two roots);
+# the centre 7 and a root; per element s, t (two roots), o1e, o2e, delta, A,
+# B and the seven outputs' products ("K14 element", 20). K15 per pair of
+# +-x: sqrt(c) x 1, d+- 2, eps + d^2 4, h+- 2, their combinations 3, three
+# sums 6 ("K15 pair", 18; two roots); the centre 7 and a root; per element
+# o1e, o2e 2, delta 1, c 6, dEi/dc 4 and the five outputs 14 ("K15
+# element", 27; the root of c).
 SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
@@ -400,6 +417,42 @@ def k12_work(site_shape, K: int, rg: int, itemsize: int = 4) -> dict:
     return dict(bytes=(5 * sites + M * N + (M + 2) * (N + 2) + 6 * sites) * itemsize,
                 flops=flops, roots=points * P * P + 2 * sites,
                 l1_bytes=points * (P + 3) ** 2 * itemsize)
+
+
+def k13_work(site_shape, K: int, itemsize: int = 4) -> dict:
+    """K13's function on ``(L, M, N)`` sites of one pixel each with the
+    K^2-point rule: the 5 state fields, frame 1 and frame 2's padded table
+    read once, 7 chain-rule sums written; per site and point one set of cubic
+    weights and their slopes, the three separable dots of the 4 x 4 taps
+    (``l1_bytes``: the taps from L1 and L2), one root."""
+    L, M, N = site_shape
+    sites = L * M * N
+    points = sites * K * K
+    return dict(bytes=(5 * sites + M * N + (M + 2) * (N + 2) + 7 * sites) * itemsize,
+                flops=points * FLOPS["K13 point"] + sites * FLOPS["K13 site"],
+                roots=points + 2 * sites, l1_bytes=points * 16 * itemsize)
+
+
+def k14_work(edge_shape, K: int, itemsize: int = 4) -> dict:
+    """K14 on the ``(2, 2, L, M, N)`` edge lattice with the K^2-point rule:
+    mu, sigma (each state value once) and rho read, 7 chain-rule sums
+    written; the paired rule's operations and one root a point."""
+    n_el = math.prod(edge_shape)
+    points = K * K
+    flops = n_el * (points // 2 * FLOPS["K14 pair"] + FLOPS["K14 centre"]
+                    + FLOPS["K14 element"])
+    return dict(bytes=(2 * n_el + 7 * n_el) * itemsize, flops=flops,
+                roots=n_el * (points + 2))
+
+
+def k15_work(edge_shape, k1: int, itemsize: int = 4) -> dict:
+    """K15 on the ``(2, 2, L, M, N)`` edge lattice with the ``k1``-point
+    rule: mu, sigma (each state value once) and rho read, the value and its
+    4 derivatives written (``dEi/du2 = -dEi/du1`` is not); the paired
+    rule's operations and one root a point."""
+    n_el = math.prod(edge_shape)
+    flops = n_el * (k1 // 2 * FLOPS["K15 pair"] + FLOPS["K15 centre"] + FLOPS["K15 element"])
+    return dict(bytes=(2 * n_el + 5 * n_el) * itemsize, flops=flops, roots=n_el * (k1 + 1))
 
 
 def update_bound_ms(cfg, site_shape, node_form: str, edge_form: str, rates: dict) -> float:

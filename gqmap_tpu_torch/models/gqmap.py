@@ -17,13 +17,18 @@ then window-meaned), a quadratic node prior toward ``Problem.init_flow``,
 truncated-quadratic edges, and the Prewitt (chain-rule) and autodiff
 (``torch.autograd`` of the expected energy) gradient estimators. Kernels
 launch where the JAX package would run its Pallas kernels: K1 for the
-cosine term, K2 / K3 for Charbonnier edges, never under autodiff; and
-where it scans the nearest lookup (kernel K6, with or without the window),
-the windowed bicubic term (kernel K12), the Prewitt chain (kernel K7), the
-quadratic prior (kernel K10) and the truncated-quadratic edges under the
-tensor rule (kernel K11); the reduced
-truncated-quadratic edges and the autodiff sums are the plain ones, as they
-are the JAX package's XLA ones.
+cosine term, K2 / K3 for Charbonnier edges; and where it scans the nearest
+lookup (kernel K6, with or without the window), the windowed bicubic term
+(kernel K12), the Prewitt chain (kernel K7), the quadratic prior (kernel
+K10) and the truncated-quadratic edges under the tensor rule (kernel K11);
+the reduced truncated-quadratic edges are the plain ones, as they are the
+JAX package's XLA ones. Under the autodiff estimator, where the JAX package
+differentiates its XLA scans, one launch gives a term's value and the sums
+of its exact derivatives, which a ``torch.autograd.Function`` scales: K1 for
+the cosine term, K13 for the bicubic term without a window, K14 and K15 for
+the tensor-rule and reduced Charbonnier edges, and K6 for the nearest
+lookup's value, whose gradient is zero; the other terms stay
+``torch.autograd`` of plain torch.
 
 The Chebyshev data term (``data_term="chebyshev"``,
 :mod:`gqmap_tpu_torch.ops.chebyshev`) runs through the K^2-point node
@@ -71,9 +76,13 @@ import torch.distributed
 
 from ..config import FlowRange, GQMAPConfig
 from ..kernels import COUNTED
+from ..kernels.autodiff_gq import (chain_ei, diff_ei, edge_chain_gq, edge_chain_gq_cuda,
+                                   edge_chain_gq_torch, edge_diff_adjoint, edge_diff_adjoint_cuda,
+                                   edge_diff_adjoint_torch, node_chain_gq, node_chain_gq_cuda,
+                                   node_chain_gq_torch)
 from ..kernels.cheb_gq import MAX_Q, cheb_gq, cheb_gq_cuda, cheb_gq_torch
-from ..kernels.cosine_gq import (cos_mode_sums, cos_mode_sums_cuda, cos_mode_sums_torch,
-                                 phase_stack)
+from ..kernels.cosine_gq import (cos_ei_adjoint, cos_mode_sums, cos_mode_sums_cuda,
+                                 cos_mode_sums_torch, phase_stack)
 from ..kernels.edge_gq import edge_gq, edge_gq_cuda, edge_gq_torch
 from ..kernels.edge_reduced_gq import (edge_reduced_grads, edge_reduced_grads_cuda,
                                        edge_reduced_grads_torch, neighbour_stacks)
@@ -133,6 +142,9 @@ _NODE_QUAD = {"auto": quad_node_gq, "cuda": quad_node_gq_cuda, "torch": quad_nod
 # the windowed bicubic term's K12 route (raw sums)
 _NODE_WINDOW = {"auto": node_window_gq, "cuda": node_window_gq_cuda,
                 "torch": node_window_gq_torch}
+# the autodiff estimator's bicubic node term, K13 (chain-rule sums of its exact
+# derivatives, differentiated by autodiff_gq.chain_ei)
+_NODE_ADJOINT = {"auto": node_chain_gq, "cuda": node_chain_gq_cuda, "torch": node_chain_gq_torch}
 # the edge term's kernel (_edge_kernel) -> edge_kernel -> its route: K2
 # (finalized gradients) or K3 (raw sums, finalized here) of Charbonnier
 # edges, K11 (raw sums) of truncated-quadratic tensor-rule edges
@@ -142,6 +154,12 @@ _EDGE_ROUTES = {
     "K3": {"auto": edge_gq, "cuda": edge_gq_cuda, "torch": edge_gq_torch},
     "K11": {"auto": truncquad_edge_gq, "cuda": truncquad_edge_gq_cuda,
             "torch": truncquad_edge_gq_torch},
+    # under the autodiff estimator: K14 (chain-rule sums of tensor-rule
+    # Charbonnier edges) and K15 (reduced Charbonnier edges' value and
+    # derivatives), differentiated by autodiff_gq.chain_ei and diff_ei
+    "K14": {"auto": edge_chain_gq, "cuda": edge_chain_gq_cuda, "torch": edge_chain_gq_torch},
+    "K15": {"auto": edge_diff_adjoint, "cuda": edge_diff_adjoint_cuda,
+            "torch": edge_diff_adjoint_torch},
 }
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _E_CONST1 = 1.0 + math.log(2.0 * math.pi)  # entropy constant of a bivariate Gaussian
@@ -207,14 +225,17 @@ def check_supported(cfg: GQMAPConfig) -> None:
 
     Unknown values raise ``ValueError``, as the JAX package's
     ``make_problem`` does, and so does a kernel asked for (``"cuda"``) on a path
-    that no kernel computes: K1 computes only the cosine term's Stein sums,
-    K4 only the bicubic term's without a window, K12 only the bicubic term's
-    with a window (rules up to ``window_gq.MAX_K`` points an axis, radii up
-    to ``window_gq.MAX_RG``), K5 only the Chebyshev term's (at most
-    ``MAX_Q`` v-degrees), K6 only the nearest lookup's (with or without a
-    window), K7 only the Prewitt chain's, K10 only the quadratic prior's, K2
-    and K3 only Charbonnier edges, K11 only truncated-quadratic edges under
-    the tensor rule, and the autodiff estimator differentiates plain sums.
+    that no kernel computes: K1 computes only the cosine term's sums, K4 only
+    the bicubic term's without a window, K12 only the bicubic term's with a
+    window (rules up to ``window_gq.MAX_K`` points an axis, radii up to
+    ``window_gq.MAX_RG``), K5 only the Chebyshev term's (at most ``MAX_Q``
+    v-degrees), K6 only the nearest lookup's (with or without a window), K7
+    only the Prewitt chain's, K10 only the quadratic prior's, K2 and K3 only
+    Charbonnier edges, K11 only truncated-quadratic edges under the tensor
+    rule; under the autodiff estimator K1 the cosine term's, K13 the bicubic
+    term's without a window at one pixel a site, K6 the nearest lookup's
+    value (its index carries no gradient), K14 and K15 Charbonnier edges,
+    and every other term is differentiated plain torch.
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -226,26 +247,28 @@ def check_supported(cfg: GQMAPConfig) -> None:
         value = getattr(cfg, field)
         if value not in ok:
             raise ValueError(f"unknown {field} {value!r} (expected one of {ok})")
-    autodiff = cfg.gradient_estimator == "autodiff"
-    if cfg.node_kernel == "cuda" and (_node_kernel(cfg) is None or autodiff):
+    if cfg.node_kernel == "cuda" and _node_kernel(cfg) is None:
         raise ValueError(
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
-            f"Stein sums, kernel K4, which computes the bicubic term's without a window, "
+            f"sums, kernel K4, which computes the bicubic term's without a window, "
             f"kernel K12, which computes the bicubic term's with a window of radius 1 to "
             f"{window_gq.MAX_RG} and rules of at most {window_gq.MAX_K} points an axis, kernel K5, "
             f"which computes the Chebyshev term's with at most {MAX_Q} v-degrees, "
             f"kernel K6, which computes the nearest lookup's, kernel K7, which computes the "
-            f"Prewitt chain's, or kernel K10, which computes the quadratic prior's; with "
-            f"data_term={cfg.data_term!r}, window_rg={cfg.window_rg}, K={cfg.K}, "
-            f"cheb_q={cfg.cheb_q} and gradient_estimator={cfg.gradient_estimator!r} the node "
-            "term is plain torch (use 'auto' or 'torch')")
-    if cfg.edge_kernel == "cuda" and (_edge_kernel(cfg) is None or autodiff):
+            f"Prewitt chain's, or kernel K10, which computes the quadratic prior's; under the "
+            f"autodiff estimator kernel K1, kernel K13, which computes the bicubic term's "
+            f"without a window at patch 1, or kernel K6; with data_term={cfg.data_term!r}, "
+            f"window_rg={cfg.window_rg}, patch={cfg.patch}, K={cfg.K}, cheb_q={cfg.cheb_q} and "
+            f"gradient_estimator={cfg.gradient_estimator!r} the node term is plain torch "
+            "(use 'auto' or 'torch')")
+    if cfg.edge_kernel == "cuda" and _edge_kernel(cfg) is None:
         raise ValueError(
             f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges, "
             f"or kernel K11, which computes truncated-quadratic edges under the tensor rule, "
-            f"for the Stein and Prewitt estimators; with edge_kind={cfg.edge_kind!r}, "
-            f"edge_quad={cfg.edge_quad!r} and gradient_estimator={cfg.gradient_estimator!r} "
-            "the edge sums are plain torch (use 'auto' or 'torch')")
+            f"for the Stein and Prewitt estimators, or kernel K14 or K15, which compute "
+            f"Charbonnier edges under the autodiff estimator; with edge_kind="
+            f"{cfg.edge_kind!r}, edge_quad={cfg.edge_quad!r} and gradient_estimator="
+            f"{cfg.gradient_estimator!r} the edge sums are plain torch (use 'auto' or 'torch')")
     _dt(cfg)
 
 
@@ -257,7 +280,17 @@ def _node_kernel(cfg: GQMAPConfig) -> str | None:
     its coefficients, with at most ``MAX_Q`` v-degrees), ``"K6"`` (the
     nearest lookup, with or without a window), ``"K7"`` (the Prewitt
     estimator's chain on the nearest lookup), ``"K10"`` (the quadratic prior
-    toward ``Problem.init_flow``), or None where the sums are plain torch."""
+    toward ``Problem.init_flow``), or None where the sums are plain torch.
+    Under the autodiff estimator: ``"K1"`` (the cosine term, whose mode sums
+    are its exact gradient), ``"K13"`` (the bicubic term without a window,
+    one pixel a site), ``"K6"`` (the nearest lookup's value: its index is a
+    floor, so its gradient is zero), else None."""
+    if cfg.gradient_estimator == "autodiff":
+        if cfg.data_term in ("cosine", "nearest"):
+            return {"cosine": "K1", "nearest": "K6"}[cfg.data_term]
+        if cfg.data_term == "bicubic" and cfg.window_rg == 0 and cfg.patch == 1:
+            return "K13"
+        return None
     if cfg.gradient_estimator == "prewitt":
         return "K7" if cfg.data_term == "nearest" else None
     if cfg.data_term == "nearest":
@@ -280,7 +313,13 @@ def _edge_kernel(cfg: GQMAPConfig) -> str | None:
     Prewitt estimators: ``"K2"`` (reduced Charbonnier edges), ``"K3"``
     (tensor-rule Charbonnier edges), ``"K11"`` (tensor-rule truncated-
     quadratic edges), or None where the sums are plain torch (the reduced
-    truncated-quadratic edges)."""
+    truncated-quadratic edges). Under the autodiff estimator: ``"K15"``
+    (reduced Charbonnier edges), ``"K14"`` (tensor-rule Charbonnier edges),
+    else None."""
+    if cfg.gradient_estimator == "autodiff":
+        if cfg.edge_kind != "charbonnier":
+            return None
+        return "K15" if cfg.edge_quad == "reduced" else "K14"
     if cfg.edge_kind == "charbonnier":
         return "K2" if cfg.edge_quad == "reduced" else "K3"
     return "K11" if cfg.edge_quad == "tensor" else None
@@ -468,9 +507,13 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     estimator, K7 for the Prewitt estimator's chain sums and K11 for
     truncated-quadratic edges under the tensor rule (each of which the JAX
     package runs as one XLA scan); the other node terms (``cheb_q >
-    MAX_Q``, a window or a rule K12 does not take), the reduced
-    truncated-quadratic edges and the autodiff estimator run plain sums
-    (:func:`check_supported` refuses ``"cuda"`` there). What the JAX
+    MAX_Q``, a window or a rule K12 does not take) and the reduced
+    truncated-quadratic edges run plain sums (:func:`check_supported`
+    refuses ``"cuda"`` there). Under the autodiff estimator K1, K13, K6, K14
+    and K15 compute the terms :func:`_node_kernel` and :func:`_edge_kernel`
+    name, inside ``torch.autograd.Function``s (``node_kernel`` or
+    ``edge_kernel`` ``"torch"``: ``torch.autograd`` of the plain expectation),
+    and the other terms are differentiated plain torch. What the JAX
     package fuses around them (the finalize of the raw sums, the neighbour
     assembly, the clamped step, the reductions, the alpha update and the
     counter) runs as kernels K8 and K9 where :func:`_update_route` names
@@ -516,9 +559,13 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     # K4, K5, K6, K7, K10 or K12 (or its plain version) where the JAX package scans
     # the bicubic term, the Chebyshev series, the nearest lookup, the Prewitt
     # chain, the quadratic prior or the windowed bicubic term
+    # (and under the autodiff estimator K13, or K6 for the nearest lookup's value;
+    # node_kernel="torch" there is torch.autograd of the plain expectation)
     routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN,
-              "K10": _NODE_QUAD, "K12": _NODE_WINDOW}
-    kernel = None if autodiff else _node_kernel(cfg)
+              "K10": _NODE_QUAD, "K12": _NODE_WINDOW, "K13": _NODE_ADJOINT}
+    kernel = _node_kernel(cfg)
+    if autodiff and cfg.node_kernel == "torch":
+        kernel = None
     node_route = routes[kernel][cfg.node_kernel] if kernel in routes else None
     if node_route is not None and cfg.node_kernel != "cuda":
         # the plain versions step quad_chunk points at a time; the kernels take all
@@ -533,11 +580,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
         edge_fd = make_edge_pot_diff(cfg.lambdas, cfg.epsn)
         edge_par = (cfg.lambdas, cfg.epsn)
     # K2 or K3 where the JAX package runs its Pallas edge kernels, K11 where it
-    # scans truncated-quadratic tensor-rule edges, else the plain sums
-    edge_kernel = None if autodiff else _edge_kernel(cfg)
+    # scans truncated-quadratic tensor-rule edges, else the plain sums; under
+    # the autodiff estimator K14 or K15 (edge_kernel="torch": torch.autograd of
+    # the plain expectation)
+    edge_kernel = _edge_kernel(cfg)
+    if autodiff and cfg.edge_kernel == "torch":
+        edge_kernel = None
     edge_route = None if edge_kernel is None else _EDGE_ROUTES[edge_kernel][cfg.edge_kernel]
-    if edge_kernel == "K11" and cfg.edge_kernel != "cuda":
-        # K11's plain version steps quad_chunk points at a time
+    if edge_kernel in ("K11", "K14") and cfg.edge_kernel != "cuda":
+        # K11's and K14's plain versions step quad_chunk points at a time
         edge_route = functools.partial(edge_route, quad_chunk=cfg.quad_chunk)
     roll = torch.roll if dist is None else dist.roll
     node_at = {}
@@ -555,7 +606,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     # the node and edge forms K8 sees: K1's mode sums; K2's gradients (else
     # raw sums over neighbour stacks)
     modes_node = cfg.gradient_estimator != "prewitt" and cfg.data_term == "cosine"
-    grads_edges = edge_route is not None and reduced
+    grads_edges = edge_route is not None and reduced and not autodiff
     carry_alpha = softmax_mode and L <= MAX_CARRY_L
 
     def carry_of(problem: Problem, state: GQState, into: Carry | None = None):
@@ -610,21 +661,43 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             ``torch.autograd`` of the quadrature-estimated expected energy of
             the full lattice (border-owned and wrap-around edges too: what the
             reference's assembled gradients differentiate); the energy and
-            dalpha it reports are the interior's (``gqmap_gpu_mixture.m:36,48``)."""
+            dalpha it reports are the interior's (``gqmap_gpu_mixture.m:36,48``).
+            Where a kernel computes a term (K1, K13, K14, K15, or its plain
+            version), one launch gives its value and the sums of its exact
+            derivatives, a ``torch.autograd.Function``; the nearest lookup's
+            value comes from K6, with no gradient, as under ``jax.grad``."""
             zero = torch.zeros((), dtype=dt, device=interior.device)
             leaves = [x.detach().requires_grad_() for x in
                       (st.muu, st.muv, st.sigmau, st.sigmav, st.pn, st.rou)]
             muu, muv, su, sv, pn, rou = leaves
+            site = (muu, muv, su, sv, pn)
             with torch.enable_grad():
-                if cfg.data_term == "cosine":
-                    en = cos_ei(problem.cheb, muu, muv, su, sv, pn)
+                if cfg.data_term == "cosine" and cfg.node_kernel == "torch":
+                    en = cos_ei(problem.cheb, *site)
+                elif cfg.data_term == "cosine":  # kernel K1
+                    en = cos_ei_adjoint(problem.cheb, *site, sums=node_sums_fn)
+                elif kernel == "K6":  # the lookup's index is a floor: no gradient
+                    with torch.no_grad():
+                        en = node_sums(st).fields[0] * _INV_PI
+                elif kernel == "K13":
+                    en = chain_ei(lambda *x: node_route(problem.I1, problem.I2_tab, *x, cfg.K,
+                                                        cfg.lambdad, cfg.epsn, **node_at),
+                                  *site) * _INV_PI
                 else:
-                    en = gq_ei(node_f, muu, muv, su, sv, pn, node_tab) * _INV_PI
+                    en = gq_ei(node_f, *site, node_tab) * _INV_PI
                 da_n = en - 3.0 * T * (_E_CONST1 + torch.log(torch.sqrt(1.0 - pn * pn) * su * sv))
                 mu = torch.stack([muu, muv])
                 sg = torch.stack([su, sv])
                 u2e, o2e = neighbour_stacks(mu, sg, roll)
-                if reduced:
+                if edge_kernel == "K15":  # the kernel reads the neighbours (a shard's halo)
+                    halo = None if dist is None else dist.halo(torch.stack([mu, sg]).detach())
+                    ei_e = diff_ei(lambda m, s, r: edge_route(m, s, r, k1, cfg.lambdas, cfg.epsn,
+                                                              halo=halo), mu, sg, rou, roll)
+                elif edge_kernel == "K14":
+                    ei_e = chain_ei(lambda u1, u2, o1, o2, p: edge_route(
+                        u1[0], o1[0], u2, o2, p, cfg.K, cfg.lambdas, cfg.epsn),
+                        mu[None], u2e, sg[None], o2e, rou)
+                elif reduced:
                     ei_e = gq_ei_diff(edge_fd, mu[None], u2e, sg[None], o2e, rou, tab1)
                 else:
                     ei_e = gq_ei(edge_f, mu[None], u2e, sg[None], o2e, rou, node_tab)

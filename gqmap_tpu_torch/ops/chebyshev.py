@@ -29,6 +29,7 @@ import torch
 
 from .cosine import _dct2_matrix as _dct_matrix
 from .cosine import _sample_surface, no_tf32
+from .interp import clip
 
 __all__ = ["ChebData", "build_cheb_data", "make_node_pot_chebyshev"]
 
@@ -110,8 +111,8 @@ def make_node_pot_chebyshev(cheb: ChebData, a_block: int = 8):
     cv, rv = (cheb.lo_v + cheb.hi_v) * 0.5, (cheb.hi_v - cheb.lo_v) * 0.5
 
     def f(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        up = torch.clamp((x1 - cu) / ru, -1.0, 1.0)
-        vp = torch.clamp((x2 - cv) / rv, -1.0, 1.0)
+        up = clip((x1 - cu) / ru, -1.0, 1.0)
+        vp = clip((x2 - cv) / rv, -1.0, 1.0)
         up, vp = torch.broadcast_tensors(up, vp)
         lead = up.shape[:-2]
         S = math.prod(lead)

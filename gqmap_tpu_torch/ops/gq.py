@@ -8,7 +8,10 @@ alpha weighting and Bethe-entropy terms (``gqmap_gpu_mixture.m:87-146``);
 for the legacy estimators the chain-rule sums of the Prewitt family
 (:func:`gq_accumulate_chain`, :func:`finalize_chain`) and the bare
 expectations that ``torch.autograd`` differentiates in the autodiff family
-(:func:`gq_ei`, :func:`gq_ei_diff`).
+(:func:`gq_ei`, :func:`gq_ei_diff`), with their exact derivatives from
+adjoint sums (:func:`chain_partials` of the chain-rule sums on a potential's
+exact derivatives, :func:`gq_ei_diff_adjoint` and :func:`diff_partials`),
+which kernels K13-K15 compute.
 The raw sums are those of the tensor rule under the spectral whitening
 ``z_i = s XI + t XJ``, ``z_j = t XI + s XJ`` (see the JAX module docstring):
 
@@ -27,8 +30,9 @@ import torch
 from .quadrature import QuadTable, QuadTable1D
 
 __all__ = ["GQRaw", "GQGrads", "GQChainRaw", "gq_accumulate", "gq_accumulate_diff",
-           "gq_accumulate_chain", "gq_ei", "gq_ei_diff", "gq_expectation", "finalize",
-           "finalize_chain", "finalize_closed", "NODE", "EDGE"]
+           "gq_accumulate_chain", "gq_ei", "gq_ei_diff", "gq_ei_diff_adjoint", "gq_expectation",
+           "finalize", "finalize_chain", "finalize_closed", "chain_partials", "diff_partials",
+           "NODE", "EDGE"]
 
 _SQRT2 = math.sqrt(2.0)
 _CONST1 = 1.0 + math.log(2.0 * math.pi)  # 1 + log(2*pi), entropy constant
@@ -72,6 +76,14 @@ class GQChainRaw(NamedTuple):
     Cj: torch.Tensor   # sum w df/dx1 XJ
     Di: torch.Tensor   # sum w df/dx2 XI
     Dj: torch.Tensor   # sum w df/dx2 XJ
+
+
+def _floor_tiny(c: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(c, tiny)``: NaN kept, and differentiated as JAX does,
+    1/2 at ``c == tiny`` (``clamp``'s derivative there is 1). The bound is
+    filled on the device, so a graph capture copies nothing from the host."""
+    return torch.maximum(c, torch.full((), torch.finfo(c.dtype).tiny, dtype=c.dtype,
+                                       device=c.device))
 
 
 def _stacked(tab, like: torch.Tensor) -> torch.Tensor:
@@ -140,7 +152,7 @@ def gq_accumulate_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o
     o2e = o2 * _SQRT2
     delta = u1 - u2
     c = o1e * o1e + o2e * o2e - 2.0 * p * o1e * o2e
-    c = torch.clamp(c, min=torch.finfo(c.dtype).tiny)
+    c = _floor_tiny(c)
     rc = torch.sqrt(c)
 
     site = torch.broadcast_shapes(delta.shape, c.shape)
@@ -236,7 +248,7 @@ def gq_ei_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
     o2e = o2 * _SQRT2
     delta = u1 - u2
     c = o1e * o1e + o2e * o2e - 2.0 * p * o1e * o2e
-    c = torch.clamp(c, min=torch.finfo(c.dtype).tiny)
+    c = _floor_tiny(c)
     rc = torch.sqrt(c)
     site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
     pts = (-1,) + (1,) * len(site)
@@ -246,6 +258,74 @@ def gq_ei_diff(gd: Callable[[torch.Tensor], torch.Tensor], u1, u2, o1, o2, p,
         x, w = (r.reshape(pts) for r in table[:, step])
         h0 = h0 + (w * gd(delta + rc * x)).sum(0)
     return math.sqrt(math.pi) * h0
+
+
+def chain_partials(raw: GQChainRaw, o1, o2, p):
+    """The derivatives of ``Ei`` (:func:`gq_ei`'s value, the weighted sum of
+    ``f``) with respect to ``(u1, u2, o1, o2, p)``, from the chain-rule sums
+    of ``f`` with its exact derivatives: :func:`finalize_chain`'s formulas
+    without the 1/pi, the alpha weighting and the entropy terms,
+
+        dEi/du1 = A1,   dEi/do1 = sqrt2 (s Ci + t Cj),
+        dEi/dp  = sqrt2 ( o1 (ds Ci + dt Cj) + o2 (dt Di + ds Dj) ),
+
+    and the same for endpoint 2; what ``jax.grad`` takes of the JAX
+    package's ``gq_ei``, since ``x1 = sqrt2 o1 (s XI + t XJ) + u1``."""
+    q = torch.sqrt(1.0 + p)
+    r = torch.sqrt(1.0 - p)
+    s = (q + r) * 0.5
+    t = (q - r) * 0.5
+    ds = (1.0 / q - 1.0 / r) * 0.25
+    dt = (1.0 / q + 1.0 / r) * 0.25
+    return (raw.A1, raw.A2, _SQRT2 * (s * raw.Ci + t * raw.Cj),
+            _SQRT2 * (t * raw.Di + s * raw.Dj),
+            _SQRT2 * (o1 * (ds * raw.Ci + dt * raw.Cj) + o2 * (dt * raw.Di + ds * raw.Dj)))
+
+
+def gq_ei_diff_adjoint(gdd: Callable, u1, u2, o1, o2, p,
+                       tab: QuadTable1D | torch.Tensor) -> tuple:
+    """The adjoint sums of :func:`gq_ei_diff`: with ``gdd(d) -> (gd(d),
+    gd'(d))`` and ``d_k = delta + sqrt(c) x_k`` as there (``c`` floored at
+    the smallest normal number), ``(H0, G0, G1) = (sum w gd(d), sum w gd'(d),
+    sum w gd'(d) x)``; :func:`diff_partials` turns them into the value and
+    its derivatives."""
+    o1e = o1 * _SQRT2
+    o2e = o2 * _SQRT2
+    delta = u1 - u2
+    c = _floor_tiny(o1e * o1e + o2e * o2e - 2.0 * p * o1e * o2e)
+    rc = torch.sqrt(c)
+    site = torch.broadcast_shapes(u1.shape, u2.shape, o1.shape, o2.shape, p.shape)
+    pts = (-1,) + (1,) * len(site)
+    sums = [torch.zeros(site, dtype=u1.dtype, device=u1.device) for _ in range(3)]
+    table = _stacked(tab, c)
+    for step in range(table.shape[1]):
+        x, w = (r.reshape(pts) for r in table[:, step])
+        gv, dv = gdd(delta + rc * x)
+        wd = w * dv
+        for acc, term in zip(sums, (w * gv, wd, wd * x)):
+            acc.add_(term.sum(0))
+    return tuple(sums)
+
+
+def diff_partials(sums, o1, o2, p):
+    """``(Ei, dEi/du1, dEi/du2, dEi/do1, dEi/do2, dEi/dp)`` of
+    :func:`gq_ei_diff` from its adjoint sums (:func:`gq_ei_diff_adjoint`),
+    chained through ``delta = u1 - u2`` and ``c = max(o1e^2 + o2e^2 - 2 p
+    o1e o2e, tiny)`` as ``jax.grad`` chains the JAX function: ``dEi/dc =
+    sqrt(pi) G1 / (2 sqrt(c))`` times the floor's slope, 1 above ``tiny``,
+    1/2 on it (``lax.max``'s tie rule), 0 below."""
+    H0, G0, G1 = sums
+    o1e = o1 * _SQRT2
+    o2e = o2 * _SQRT2
+    c_raw = o1e * o1e + o2e * o2e - 2.0 * p * o1e * o2e
+    tiny = torch.finfo(c_raw.dtype).tiny
+    slope = torch.where(c_raw > tiny, 1.0, torch.where(c_raw == tiny, 0.5, 0.0)).to(c_raw.dtype)
+    rc = torch.sqrt(_floor_tiny(c_raw))
+    sq_pi = math.sqrt(math.pi)
+    dc = sq_pi * G1 * 0.5 / rc * slope
+    du = sq_pi * G0
+    return (sq_pi * H0, du, -du, dc * (2.0 * _SQRT2) * (o1e - p * o2e),
+            dc * (2.0 * _SQRT2) * (o2e - p * o1e), dc * (-2.0) * o1e * o2e)
 
 
 def gq_expectation(f: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], u1, u2, o1, o2,

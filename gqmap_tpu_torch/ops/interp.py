@@ -18,8 +18,9 @@ import math
 
 import torch
 
-__all__ = ["pad_cubic", "sample_bicubic", "interp2_cubic", "upsample_cubic", "phase_weights",
-           "prewitt_gradients", "interp2_linear", "fill_missing_nearest"]
+__all__ = ["pad_cubic", "sample_bicubic", "sample_bicubic_grad", "clip", "clip_slope",
+           "interp2_cubic", "upsample_cubic", "phase_weights", "prewitt_gradients",
+           "interp2_linear", "fill_missing_nearest"]
 
 
 def pad_cubic(V: torch.Tensor) -> torch.Tensor:
@@ -69,33 +70,72 @@ def _cubic_weights(f):
     return w0, w1, w2, w3
 
 
-def sample_bicubic(VV: torch.Tensor, Xq, Yq) -> torch.Tensor:
-    """Sample the cubic-padded image ``VV = pad_cubic(V)`` at 1-based points.
+def _cubic_slopes(f):
+    """The derivatives of :func:`_cubic_weights` with respect to ``f``."""
+    d0 = (4.0 - 3.0 * f) * f - 1.0
+    d1 = (9.0 * f - 10.0) * f
+    d2 = (8.0 - 9.0 * f) * f + 1.0
+    d3 = (3.0 * f - 2.0) * f
+    return d0, d1, d2, d3
 
-    ``Xq``/``Yq`` broadcast together; queries are clamped to ``[1, N] x
-    [1, M]`` as ``node_pot`` does (``gqmap_gpu_mixture.m:157-161``).
-    """
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``min(max(x, lo), hi)`` against tensor bounds,
+    NaN kept. Its values are ``x.clamp(lo, hi)``'s; its derivative is JAX's,
+    1/2 where ``x`` lies on a bound (the tie rule of ``lax.max`` and
+    ``lax.min``), where ``clamp``'s is 1. The bounds are filled on the device,
+    so a graph capture copies nothing from the host."""
+    def bound(v):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
+def clip_slope(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """The derivative of :func:`clip` at ``x``, as JAX differentiates
+    ``jnp.clip``: 1 inside, 1/2 on a bound, 0 outside and at a NaN."""
+    def slope(above, on):
+        return torch.where(above, 1.0, torch.where(on, 0.5, 0.0)).to(x.dtype)
+
+    y = torch.clamp(x, min=lo)
+    return slope(x > lo, x == lo) * slope(y < hi, y == hi)
+
+
+def _bicubic_cells(VV: torch.Tensor, Xq, Yq):
+    """The queries broadcast together (before the clip), the fractions of
+    the clipped ones in their cell, and the (16,) + shape taps of VV around
+    them, as :func:`sample_bicubic` reads them."""
     M2, N2 = VV.shape
     M, N = M2 - 2, N2 - 2
     Xq, Yq = torch.broadcast_tensors(torch.as_tensor(Xq, dtype=VV.dtype, device=VV.device),
                                      torch.as_tensor(Yq, dtype=VV.dtype, device=VV.device))
-    Xq = Xq.clamp(1.0, N)
-    Yq = Yq.clamp(1.0, M)
+    Xc = clip(Xq, 1.0, N)
+    Yc = clip(Yq, 1.0, M)
     # ix in [1, N-1]: floor for Xq <= N-1, else N-1 (the reference's
     # three-way branch, since Xq >= 1 after the clamp).
-    ix = torch.clamp(torch.floor(Xq), max=N - 1.0)
-    iy = torch.clamp(torch.floor(Yq), max=M - 1.0)
-    so = Xq - ix
-    to = Yq - iy
+    ix = torch.clamp(torch.floor(Xc), max=N - 1.0)
+    iy = torch.clamp(torch.floor(Yc), max=M - 1.0)
+    so = Xc - ix
+    to = Yc - iy
     # 0-based top-left corner of the 4x4 patch in VV: row iy-1, col ix-1. A NaN
     # query's index becomes 0, as XLA converts it, so the gather stays in range
     # and the NaN weights carry the NaN into its result, as in the JAX package.
     base = (_index(iy) - 1) * N2 + (_index(ix) - 1)
+    offs = _tap_offsets(N2, VV.device).reshape((16,) + (1,) * base.ndim)
+    return Xq, Yq, so, to, VV.reshape(-1)[offs + base[None]]
 
+
+def sample_bicubic(VV: torch.Tensor, Xq, Yq) -> torch.Tensor:
+    """Sample the cubic-padded image ``VV = pad_cubic(V)`` at 1-based points.
+
+    ``Xq``/``Yq`` broadcast together; queries are clamped to ``[1, N] x
+    [1, M]`` as ``node_pot`` does (``gqmap_gpu_mixture.m:157-161``), by
+    :func:`clip`, so ``torch.autograd`` differentiates a query on the clamp as
+    ``jax.grad`` does.
+    """
+    Xq, _, so, to, taps = _bicubic_cells(VV, Xq, Yq)
     wy = _cubic_weights(to)
     wx = _cubic_weights(so)
-    offs = _tap_offsets(N2, VV.device).reshape((16,) + (1,) * base.ndim)
-    taps = VV.reshape(-1)[offs + base[None]]  # (16,) + shape
     Vq = torch.zeros_like(Xq)
     k = 0
     for dc in range(4):
@@ -103,6 +143,30 @@ def sample_bicubic(VV: torch.Tensor, Xq, Yq) -> torch.Tensor:
             Vq = Vq + taps[k] * (wx[dc] * wy[dr])
             k += 1
     return Vq * 0.25
+
+
+def sample_bicubic_grad(VV: torch.Tensor, Xq, Yq):
+    """:func:`sample_bicubic` with its derivatives: ``(V, dV/dXq, dV/dYq)``,
+    ``V`` bit for bit :func:`sample_bicubic`'s. The derivatives are the ones
+    ``jax.grad`` takes of the JAX function: the Keys weights' slopes at the
+    fractions, the floor without one, and the clamp's :func:`clip_slope`
+    (1/2 for a query on the frame's edge)."""
+    M2, N2 = VV.shape
+    Xq, Yq, so, to, taps = _bicubic_cells(VV, Xq, Yq)
+    wy, wx = _cubic_weights(to), _cubic_weights(so)
+    dy, dx = _cubic_slopes(to), _cubic_slopes(so)
+    Vq = torch.zeros_like(Xq)
+    Vx = torch.zeros_like(Xq)
+    Vy = torch.zeros_like(Xq)
+    k = 0
+    for dc in range(4):
+        for dr in range(4):
+            Vq = Vq + taps[k] * (wx[dc] * wy[dr])
+            Vx = Vx + taps[k] * (dx[dc] * wy[dr])
+            Vy = Vy + taps[k] * (wx[dc] * dy[dr])
+            k += 1
+    return (Vq * 0.25, Vx * (0.25 * clip_slope(Xq, 1.0, N2 - 2)),
+            Vy * (0.25 * clip_slope(Yq, 1.0, M2 - 2)))
 
 
 def prewitt_gradients(V: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -27,11 +27,12 @@ from typing import Callable
 
 import torch
 
-from .interp import _index, sample_bicubic
+from .interp import _index, sample_bicubic, sample_bicubic_grad
 
 __all__ = ["make_node_pot_bicubic", "make_node_pot_nearest", "make_node_pot_quadratic",
-           "make_node_pot_windowed", "make_node_pot_nearest_chain", "make_edge_pot",
-           "make_edge_pot_diff", "make_edge_pot_truncquad", "make_edge_pot_truncquad_diff"]
+           "make_node_pot_windowed", "make_node_pot_nearest_chain", "make_node_pot_bicubic_chain",
+           "make_edge_pot", "make_edge_pot_chain", "make_edge_pot_diff", "make_edge_pot_diff_grad",
+           "make_edge_pot_truncquad", "make_edge_pot_truncquad_diff"]
 
 
 def _grid(I1: torch.Tensor, origin=None, local_image_shape=None):
@@ -187,6 +188,30 @@ def make_node_pot_nearest_chain(I1: torch.Tensor, I2_cont: torch.Tensor,
     return fg
 
 
+def make_node_pot_bicubic_chain(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
+                                epsn: float, origin=None, local_image_shape=None) -> Callable:
+    """:func:`make_node_pot_bicubic` (one pixel a site) with its exact
+    derivatives, ``fg(x1, x2) -> (f, df/dx1, df/dx2)`` in the form
+    :func:`gqmap_tpu_torch.ops.gq.gq_accumulate_chain` takes:
+
+        f = -lambda_d sqrt(eps + diff^2),   diff = I1 - V(c + 1 + x1, r + 1 + x2),
+        df/dx1 = lambda_d diff / sqrt(eps + diff^2) dV/dXq,
+
+    ``V`` and its derivatives by :func:`.interp.sample_bicubic_grad`: what
+    ``jax.grad`` takes of the JAX potential, with 1/2 for a query on the
+    frame's clamp. ``f`` is :func:`make_node_pot_bicubic`'s bit for bit."""
+    jj, ii, I1 = _grid(I1, origin, local_image_shape)
+
+    def fg(x1: torch.Tensor, x2: torch.Tensor):
+        Vq, Vx, Vy = sample_bicubic_grad(VV, jj + x1, ii + x2)
+        diff = I1 - Vq
+        deno = torch.sqrt(epsn + diff ** 2)
+        s = lambdad * diff / deno
+        return -lambdad * deno, s * Vx, s * Vy
+
+    return fg
+
+
 def make_node_pot_quadratic(init_flow: torch.Tensor, var: float) -> Callable:
     """Quadratic node potential toward a given ``(M, N, 2)`` init flow
     (``legacy/gqmap_cpu.m:22-23``): ``-((fu-x1)^2 + (fv-x2)^2) / (2 var)``."""
@@ -217,6 +242,30 @@ def make_edge_pot_diff(lambdas: float, epsn: float) -> Callable:
         return -lambdas * torch.sqrt(epsn + d * d)
 
     return gd
+
+
+def make_edge_pot_chain(lambdas: float, epsn: float) -> Callable:
+    """:func:`make_edge_pot` with its exact derivatives, ``fg(x1, x2) -> (f,
+    g, -g)``, ``g = df/dx1 = -lambdas d / sqrt(epsn + d^2)``, ``d = x1 - x2``."""
+
+    def fg(x1: torch.Tensor, x2: torch.Tensor):
+        d = x1 - x2
+        deno = torch.sqrt(epsn + d ** 2)
+        g = -lambdas * d / deno
+        return -lambdas * deno, g, -g
+
+    return fg
+
+
+def make_edge_pot_diff_grad(lambdas: float, epsn: float) -> Callable:
+    """:func:`make_edge_pot_diff` with its derivative: ``gdd(d) -> (gd(d),
+    gd'(d))``, ``gd'(d) = -lambdas d / sqrt(epsn + d^2)``."""
+
+    def gdd(d: torch.Tensor):
+        deno = torch.sqrt(epsn + d * d)
+        return -lambdas * deno, -lambdas * d / deno
+
+    return gdd
 
 
 def make_edge_pot_truncquad(gama: float, dta: float) -> Callable:

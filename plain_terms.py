@@ -4,7 +4,8 @@
 
 On the synthetic 376x452 pair of ``chip_smoke.py`` in float32: for each
 configuration of :data:`TERMS`, one whose node or edge term no kernel of the
-port computes, the ms a sweep of a :data:`SWEEPS`-sweep graph segment
+port computed before the autodiff estimator's kernels K13-K15 (the autodiff
+configurations now run them, with K1 and K6), the ms a sweep of a :data:`SWEEPS`-sweep graph segment
 (``make_segment_runner``, tor = 0) from the init state with every sigma at
 0.05, timed by CUDA events after the capture, with the capture's time and
 the peak device memory above what was held before the problem was made;
@@ -33,6 +34,8 @@ TERMS = {  # ROADMAP Queue 1 (the windowed bicubic term runs through kernel K12)
     "full_mixture chebyshev cheb_q=96": GQMAPConfig.full_mixture(data_term="chebyshev",
                                                                  cheb_q=96, quad_chunk=27),
     "legacy_v2 autodiff": GQMAPConfig.legacy_v2(gradient_estimator="autodiff"),
+    "tpu_fast autodiff": GQMAPConfig.tpu_fast(gradient_estimator="autodiff"),
+    "full_mixture autodiff": GQMAPConfig.full_mixture(gradient_estimator="autodiff"),
     "legacy_v1 edge_quad=reduced": GQMAPConfig.legacy_v1(quad_var=0.05, edge_quad="reduced"),
 }
 SWEEPS = 30

@@ -115,16 +115,20 @@ def test_legacy_settings_are_supported(override):
     dict(edge_kernel="cuda", edge_kind="truncquad"),
     dict(edge_kernel="cuda", edge_kind="truncquad", edge_quad="tensor",
          gradient_estimator="autodiff"),
-    dict(edge_kernel="cuda", gradient_estimator="autodiff"),
-    dict(node_kernel="cuda", gradient_estimator="autodiff"),
+    dict(edge_kernel="cuda", gradient_estimator="autodiff", edge_kind="truncquad"),
+    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="bicubic", window_rg=2),
     dict(node_kernel="cuda", data_term="bicubic", window_rg=5),
+    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="bicubic", patch=4),
+    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="chebyshev"),
+    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="quadratic"),
 ])
 def test_cuda_route_on_a_path_no_kernel_computes_raises(override):
     # K1 computes only the cosine term's Stein sums, K2 and K3 only
     # Charbonnier edges, K11 truncated-quadratic edges under the tensor rule
     # only (tpu_fast's edges are reduced), K12 the windowed bicubic term up
-    # to a radius of 4 only, and autodiff differentiates plain sums: "cuda"
-    # there raises instead of running the plain path
+    # to a radius of 4 only, and under autodiff K1, K13 (the bicubic term
+    # without a window, one pixel a site), K6, K14 and K15 (Charbonnier edges)
+    # only: "cuda" there raises instead of running the plain path
     with pytest.raises(ValueError, match="kernel K"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
     # "auto" and "torch" run the plain sums there

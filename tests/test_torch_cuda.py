@@ -19,8 +19,8 @@ import torch
 
 from gqmap_tpu_torch import GQMAPConfig
 from gqmap_tpu_torch.config import FlowRange
-from gqmap_tpu_torch.kernels import (COUNTED, build, cheb_gq, cosine_gq, edge_gq, edge_reduced_gq,
-                                     nearest_gq, node_gq, quad_gq, window_gq)
+from gqmap_tpu_torch.kernels import (COUNTED, autodiff_gq, build, cheb_gq, cosine_gq, edge_gq,
+                                     edge_reduced_gq, nearest_gq, node_gq, quad_gq, window_gq)
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops.cosine import CosData
 from gqmap_tpu_torch.ops.gq import EDGE, gq_accumulate
@@ -285,7 +285,8 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K4 computes the bicubic node term once a sweep; K8 v2 the update, K9 v2's
     # tail in its last CTA (no K9 v1 launch)
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0]
+    assert ([k.launches - m for k, m in zip(COUNTED, n)]
+            == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0])
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -300,8 +301,8 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K8 once a half-step, K9 v2's tail once a sweep (in the second's K8)
-    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0, 0] if preset == "tpu_fast"
-            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0, 0])
+    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0] if preset == "tpu_fast"
+            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -317,8 +318,8 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0] if preset == "tpu_fast_super"
-            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0])
+    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0] if preset == "tpu_fast_super"
+            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -353,17 +354,20 @@ def test_edge_gq_kernel_on_l1_lattice(dev, K, probe):
 
 
 @pytest.mark.parametrize("override", [dict(edge_kind="truncquad", edge_quad="reduced"),
-                                      dict(gradient_estimator="autodiff")])
+                                      dict(gradient_estimator="autodiff", edge_kind="truncquad")])
 def test_cuda_edge_route_without_a_kernel_raises(dev, override):
     # no kernel computes reduced truncated-quadratic edges (K11 takes the
-    # tensor rule's) or the autodiff sums: edge_kernel="cuda" raises rather
-    # than run the plain path
+    # tensor rule's) or truncated-quadratic edges under autodiff (K14 and K15
+    # take Charbonnier edges): edge_kernel="cuda" raises rather than run the
+    # plain path
     cfg = GQMAPConfig.legacy_v2(edge_kernel="cuda", **override)
     with pytest.raises(ValueError, match="kernel K2 or K3, .* or kernel K11"):
         pg.make_sweep(cfg, (24, 40))
+    # under autodiff K1 computes the cosine term, K13 the bicubic term without
+    # a window: the windowed bicubic term stays plain there
     with pytest.raises(ValueError, match="kernel K1"):
-        pg.make_sweep(GQMAPConfig.tpu_fast(node_kernel="cuda", gradient_estimator="autodiff"),
-                      (24, 40))
+        pg.make_sweep(GQMAPConfig.full_mixture(node_kernel="cuda", gradient_estimator="autodiff",
+                                               window_rg=2), (24, 40))
     # the windowed bicubic term is K12's: "cuda" builds a sweep that launches it
     cfg, problem, state = _graph_toy(dev, "full_mixture", node_kernel="cuda", window_rg=2,
                                      quad_chunk=7)
@@ -374,19 +378,24 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0)),
-    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0, 0)),
-    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0)),
-    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8), (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0)),
-    ("legacy_v2", dict(gradient_estimator="autodiff"), (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
+    ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8),
+     (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", dict(gradient_estimator="autodiff"),
+     (0, 0, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0)),
     ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8),
-     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
+     (3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3)),
+    ("full_mixture", dict(gradient_estimator="autodiff", quad_chunk=7),
+     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 3, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
     # blockmatch_v2 at K = 17) beside K6 (the nearest lookup, windowed on
     # legacy_v2) or K7 (legacy_v3's Prewitt chain), K1 and K2 on the windowed
-    # cosine term, none under autodiff
+    # cosine term; under autodiff K6's value and K14 (legacy_v2), K1 and K15
+    # (tpu_fast), K13 and K14 (full_mixture)
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (24, 40))
     I2 = np.roll(I1, 1, axis=1)
@@ -394,8 +403,8 @@ def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     n = [k.launches for k in COUNTED]
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
-    # autodiff's sums and update are plain; K4 and K5 are never launched here;
-    # K8 v2 and its tail (K9 v2) run the update of every other path
+    # autodiff's update is plain; K4 and K5 are never launched here; K8 v2 and
+    # its tail (K9 v2) run the update of every other path
     assert [k.launches - m for k, m in zip(COUNTED, n)] == list(want)
 
 
@@ -415,7 +424,8 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
     st, done, eb, *_ = pg.make_segment_runner(cfg, (24, 40))(
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
-    assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3, 0]
+    assert ([k.launches - m for k, m in zip(COUNTED, n)]
+            == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3, 0, 0, 0, 0])
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -466,7 +476,7 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     # K4 (the bicubic node term) and K3 once a sweep of every level, K8 v2 and
     # its tail too
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0, 0])
+            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0, 0, 0, 0, 0])
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -540,6 +550,12 @@ GRAPH_CASES = {
     "blockmatch_v2": ("blockmatch_v2", dict(step0=0.03, corr_tor=0.95), 30),
     "its4": ("tpu_fast", dict(its=4), 30),
     "limit1": ("tpu_fast", {}, 1),
+    # the autodiff estimator's kernel paths: the backward captured with the sweep
+    "tpu_fast autodiff": ("tpu_fast", dict(gradient_estimator="autodiff", corr_tor=0.99), 30),
+    "full_mixture autodiff": ("full_mixture", dict(gradient_estimator="autodiff", quad_chunk=7,
+                                                   corr_tor=0.99), 30),
+    "legacy_v2 autodiff": ("legacy_v2", dict(gradient_estimator="autodiff", step0=0.03,
+                                             corr_tor=0.95), 30),
 }
 
 
@@ -607,7 +623,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels (K9 v2's tail in K8 v2)
     replays = min(pg.POLL * seg.polls, 30)
-    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0, 0]
+    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0, 0, 0, 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -774,7 +790,7 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0, 0]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0]
 
 
 # K12 (the windowed bicubic node term) at the main paths' shapes on 376x452:
@@ -964,7 +980,7 @@ def test_windowed_bicubic_solve_launches_k12(dev, preset, kw):
                    device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 0, 0, 0, 0, 3, 0, 3, 0, 0,
-                                                            3]
+                                                            3, 0, 0, 0]
 
 
 def test_windowed_bicubic_graph_segment_launches_k12(dev):
@@ -975,7 +991,7 @@ def test_windowed_bicubic_graph_segment_launches_k12(dev):
     seg = pg.make_segment_runner(cfg, (24, 40))
     g, counts = _counted(seg, problem, state, 20)
     assert seg.route == "graph" and _identical(g, h)
-    assert counts == [0, 0, 20, 0, 0, 0, 0, 20, 0, 20, 0, 0, 20]
+    assert counts == [0, 0, 20, 0, 0, 0, 0, 20, 0, 20, 0, 0, 20, 0, 0, 0]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -1186,19 +1202,23 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"),
-     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0, 0]),
+     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"),
-     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0]),
+    ("tpu_fast", dict(gradient_estimator="autodiff"),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
     # (twice a red-black sweep), beside K3 (full_mixture, super_entropy) or
-    # K2 (tpu_fast); none under autodiff
+    # K2 (tpu_fast); under autodiff the Chebyshev term stays plain and only
+    # the edges launch (K14 on full_mixture's tensor rule, K15 on tpu_fast's
+    # reduced one)
     r = np.random.default_rng(0)
     I1 = r.uniform(0, 255, (32, 48))
     I2 = np.roll(I1, 1, axis=1)
@@ -1400,9 +1420,9 @@ def test_nearest_variant_rule_and_refusals(dev):
 
 
 @pytest.mark.parametrize("preset, counts", [
-    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0]),
-    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0]),
-    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0, 0])])
+    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0]),
+    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0]),
+    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0, 0, 0, 0, 0])])
 def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
     # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
     # K7) once a replayed sweep
@@ -1923,5 +1943,150 @@ def test_legacy_v1_graph_segment_launches_k10_and_k11(dev, kw):
     seg = pg.make_segment_runner(cfg, (24, 40))
     g, got = _counted(seg, problem, state, 20)
     assert seg.route == "graph" and _identical(g, h)
-    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20, 0]
+    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20, 0, 0, 0, 0]
 
+
+
+# ---- the autodiff estimator's kernels K13-K15 ----------------------------------------
+
+def _autodiff_state(g, L, M, N, probe):
+    """(muu, muv, su, sv, pn, rou) float64: sigma = 0.05 with means over the
+    flow range, the init's wide sigmas, means on the range's integer bounds
+    (queries on the frame's clamp), or |rho| at the clamp."""
+    def u(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, dtype=torch.float64)
+
+    site, edge = (L, M, N), (2, 2, L, M, N)
+    mu = [u(-2, 2, site), u(-2, 2, site)]
+    sg = [torch.full(site, 0.05, dtype=torch.float64)] * 2
+    pn, rou = u(-0.9, 0.9, site), u(-0.9, 0.9, edge)
+    if probe == "init":
+        sg = [u(4, 5, site), u(4, 5, site)]
+        pn, rou = torch.zeros(site, dtype=torch.float64), torch.zeros(edge, dtype=torch.float64)
+    elif probe == "bounds":
+        mu = [torch.where(u(0, 1, site) < 0.5, -2.0, 2.0).double() for _ in range(2)]
+    elif probe == "clamp":
+        sg = [u(0.01, 3, site), u(0.01, 3, site)]
+        pn = 0.99999 * torch.where(u(0, 1, site) < 0.5, -1.0, 1.0).double()
+        rou = _clamp_rho(g, L, M, N)
+    return (*mu, *sg, pn, rou)
+
+
+def _autodiff_calls(name, st, frames, dtype, dev):
+    """(kernel, plain version, arguments) of K13, K14 or K15 on ``st``."""
+    site = [x.to(dev, dtype).contiguous() for x in st[:5]]
+    mu, sg = torch.stack(site[:2]), torch.stack(site[2:4])
+    rou = st[5].to(dev, dtype).contiguous()
+    if name == "K13":
+        I1, VV = (x.to(dev, dtype) for x in frames)
+        return (autodiff_gq.node_chain_gq_cuda, autodiff_gq.node_chain_gq_torch,
+                (I1, VV, *site, 9, 1.0, 1e-6))
+    if name == "K14":
+        u2e, o2e = edge_reduced_gq.neighbour_stacks(mu, sg)
+        return (autodiff_gq.edge_chain_gq_cuda, autodiff_gq.edge_chain_gq_torch,
+                (mu, sg, u2e, o2e, rou, 9, 5.0, 1e-6))
+    return (autodiff_gq.edge_diff_adjoint_cuda, autodiff_gq.edge_diff_adjoint_torch,
+            (mu, sg, rou, 21, 5.0, 1e-6))
+
+
+def _autodiff_frames(M, N):
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    r = np.random.default_rng(M + N)
+    I1 = torch.as_tensor(r.uniform(0, 255, (M, N)))
+    return I1, pad_cubic(torch.roll(I1, 1, 1) + torch.as_tensor(r.normal(0, 5, (M, N))))
+
+
+@pytest.mark.parametrize("probe", ["sigma 0.05", "init", "bounds", "clamp"])
+@pytest.mark.parametrize("name", ["K13", "K14", "K15"])
+def test_autodiff_kernels_match_plain(dev, name, probe):
+    # float64 within 1e-10 of each output's largest magnitude; float32 against
+    # the f64 golden: the kernel's error at most twice the plain version's
+    g = torch.Generator().manual_seed(len(probe))
+    L, M, N = 3, 47, 57
+    st = _autodiff_state(g, L, M, N, probe)
+    frames = _autodiff_frames(M, N)
+    gold = None
+    for dtype in (torch.float64, torch.float32):
+        kern, plain, args = _autodiff_calls(name, st, frames, dtype, dev)
+        n = kern.launches
+        got, want = kern(*args), plain(*args)
+        assert kern.launches == n + 1
+        if dtype == torch.float64:
+            gold = want
+            for k, (a, b) in enumerate(zip(got, want)):
+                _close(a, b, dtype, f"{name} output {k}")
+        else:
+            for k, (a, p, w) in enumerate(zip(got, want, gold)):
+                ek, ep = float((a.double() - w).abs().max()), float((p.double() - w).abs().max())
+                assert ek <= 2.0 * ep + 1e-6 * float(w.abs().max()), (name, k, ek, ep)
+
+
+@pytest.mark.parametrize("name", ["K13", "K14", "K15"])
+def test_autodiff_kernels_nan_and_shard_block(dev, name):
+    # NaN inputs: NaN exactly where the plain version's is, every other element
+    # the NaN-free call's bit for bit; a shard's block (K13 at its pixel origin,
+    # K15 with its halo) gives the whole lattice's sums there bit for bit
+    g = torch.Generator().manual_seed(11)
+    L, M, N = 2, 40, 52
+    st = list(_autodiff_state(g, L, M, N, "sigma 0.05"))
+    frames = _autodiff_frames(M, N)
+    for dtype in (torch.float64, torch.float32):
+        kern, plain, args = _autodiff_calls(name, st, frames, dtype, dev)
+        clean = kern(*args)
+        bad = [x.clone() for x in st]
+        bad[0][1, 7, 9], bad[4][0, M - 1, N - 1], bad[5][1, 0, 1, 5, 5] = (float("nan"),) * 3
+        kern, plain, bargs = _autodiff_calls(name, bad, frames, dtype, dev)
+        got, want = kern(*bargs), plain(*bargs)
+        for a, w, c in zip(got, want, clean):
+            nan = torch.isnan(w)
+            assert bool(nan.any()) and torch.equal(torch.isnan(a), nan)
+            assert torch.equal(a[~nan], c[~nan])
+        r0, c0, m, n = 9, 13, 17, 29
+        if name == "K13":
+            blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+            part = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:],
+                        origin=(r0, c0), local_image_shape=(m, n))
+        elif name == "K14":
+            blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
+            part = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:])
+        else:
+            blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
+            ms = torch.stack(args[:2])
+            halo = (ms[..., r0 + m:r0 + m + 1, c0:c0 + n].contiguous(),
+                    ms[..., r0:r0 + m, c0 + n:c0 + n + 1].contiguous())
+            part = kern(*[x[blk].contiguous() for x in args[:3]], *args[3:], halo=halo)
+        assert all(torch.equal(a, c[blk]) for a, c in zip(part, clean))
+
+
+@pytest.mark.parametrize("preset, want", [
+    ("tpu_fast", dict(K1=1, K15=1)),
+    ("full_mixture", dict(K13=1, K14=1)),
+    ("legacy_v2", dict(K6=1, K14=1)),
+])
+def test_autodiff_graph_segment_launches_its_kernels(dev, preset, want):
+    # the three autodiff paths' graph segments: each sweep's kernels once a
+    # replay, its backward captured with it; node_kernel = edge_kernel =
+    # "torch" (torch.autograd of the plain expectation) launches none, and a
+    # sweep through the kernels is as close to the f64 golden as through it
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11", "K12",
+             "K13", "K14", "K15")
+    kw = dict(gradient_estimator="autodiff", corr_tor=0.99)
+    cfg, problem, state = _graph_toy(dev, preset, **kw)
+    seg = pg.make_segment_runner(cfg, (24, 40))
+    res, counts = _counted(seg, problem, state, 20)
+    assert seg.route == "graph" and res[1] == 20 and bool(torch.isfinite(res[2][:20]).all())
+    assert counts == [20 * want.get(k, 0) for k in names]
+    plain = dataclasses.replace(cfg, node_kernel="torch", edge_kernel="torch")
+    pres, pcounts = _counted(pg.make_segment_runner(plain, (24, 40)), problem, state, 3)
+    assert pcounts == [0] * len(names)
+    c64, p64, _ = _graph_toy(dev, preset, dtype="float64", node_kernel="torch",
+                             edge_kernel="torch", **kw)
+    s64 = pg.GQState(*(x.double() if x.is_floating_point() else x for x in state))
+    gold = pg.make_sweep(c64, (24, 40))(p64, s64)[0]
+    one = pg.make_sweep(cfg, (24, 40))(problem, state)[0]
+    ref = pg.make_sweep(plain, (24, 40))(problem, state)[0]
+    for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"):
+        ek = float((getattr(one, f).double() - getattr(gold, f)).abs().max())
+        ep = float((getattr(ref, f).double() - getattr(gold, f)).abs().max())
+        assert ek <= 2.0 * ep + 1e-6, (f, ek, ep)

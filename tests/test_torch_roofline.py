@@ -41,6 +41,9 @@ BOUNDS = {
     "K8 super": (roofline.k8_work((3,) + SUPER, "raw", "raw"), 0.0018, "bytes"),
     "K8 legacy_v3": (roofline.k8_work((1,) + MAIN, "chain", "raw"), 0.0100, "bytes"),
     "K9 main": (roofline.k9_work(3, *MAIN), 0.0000, "bytes"),
+    "K13 full_mixture": (roofline.k13_work((3,) + MAIN, 9), 0.1131, "operations"),
+    "K14 full_mixture": (roofline.k14_work((2, 2, 3) + MAIN, 9), 0.0405, "operations"),
+    "K15 tpu_fast": (roofline.k15_work((2, 2, 3) + MAIN, 21), 0.0170, "bytes"),
 }
 CEILINGS = dict(roundtrip_ms=0.03, hbm_stream_GBps=3000.0, vpu_GFLOPs=50000.0,
                 gather_Mtaps_s=2e5, exp_Gops=2000.0, rsqrt_Gops=4000.0, l1_GBps=30000.0,
