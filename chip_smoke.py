@@ -287,18 +287,22 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    K1 = 21) against their plain versions on the init, sigma = 0.05, the
    means on the flow range's integer bounds (queries on the frame's clamp)
    and the |rho| clamp, float64 within 1e-10 of each sum's largest magnitude
-   (plus 1e-12), float32 by the ratio rule against the float64 golden; a
-   shard's block bit for bit the whole lattice's (K13 at its pixel origin,
-   K15 with its halo); NaN probes; each one's time beside its plain
-   version's and its bound (``roofline.k13_work`` .. ``k15_work``);
+   (plus 1e-12), float32 by the ratio rule against the float64 golden, K13
+   and K14 in both variants, v2's sums v1's bit for bit on every probe (NaN
+   and infinite inputs too), K13 v2's L1 route its shared route's bit for
+   bit, with its L1-route shares; a shard's block bit for bit the whole
+   lattice's (K13 at its pixel origin, K15 with its halo); NaN probes; each
+   one's time (both variants in turns) beside its plain version's, its
+   bound (``roofline.k13_work`` .. ``k15_work``) and its SASS issue bound;
 18c. the three autodiff paths through ``make_segment_runner``
    (``autodiff_segments``: ``tpu_fast`` through K1 and K15, ``full_mixture``
    through K13 and K14, ``legacy_v2`` through K6 and K14): one sweep from the
    init and from sigma = 0.05 through the kernels no further from the
    float64 golden than twice the plain route (``node_kernel = edge_kernel =
-   "torch"``); 30-sweep graph segments in turns, kernels, plain route,
-   kernels again: ms a sweep, the capturing call's peak memory, the kernels
-   a replay launches (each path's once a sweep, none on the plain route);
+   "torch"``); 30-sweep graph segments in turns, K13 and K14 in v2, v1, v2
+   again, then the plain route: ms a sweep, the capturing call's peak
+   memory, the kernels a replay launches (each path's once a sweep in
+   either variant, none on the plain route);
 19. the command line (``gqmap_tpu_torch.cli.main.main``, in this process,
    every launch counter set to 0 before each call) on a synthetic dataset
    written under ``GQMAP_DATA``: two 376x452 sequences (smoothed noise,
@@ -462,8 +466,8 @@ v1's launches, is 0), ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
 solve for K6, the ``legacy_v3`` solve for K7, the ``legacy_v1`` run for
 K10 and K11, the ``full_mixture(window_rg=2)`` solve for K12, and phase
-18c's first 30-sweep segments of ``full_mixture`` (K13, K14) and
-``tpu_fast`` (K15) under autodiff; ``launches_by_path``
+18c's 30-sweep segments of ``full_mixture`` (K13, K14: each variant's
+first turn) and ``tpu_fast`` (K15) under autodiff; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
@@ -610,12 +614,13 @@ def longest_block(instrs, label_addr):
     return max(best, run, key=len)
 
 
-def shared_form_path(instrs, label_addr, loop, loops):
+def shared_form_path(instrs, label_addr, loop, loops, calls=True):
     """The instructions one iteration of ``loop`` issues on the longest path
     through its basic blocks, from its first instruction to its back branch,
     that enters none of the loops nested in it (K12 v2: the shared form,
-    where the inlined per-tap fallback holds the nested loop); None where no
-    path avoids them."""
+    where the inlined per-tap fallback holds the nested loop) and, with
+    ``calls`` false, no call (the slow paths of sqrt and the division, K13
+    v2's fallback); None where no path avoids them."""
     body = [(a, i) for a, i in instrs if loop["start"] <= a <= loop["end"]]
     nested = [(x["start"], x["end"]) for x in loops if x is not loop
               and loop["start"] <= x["start"] and x["end"] <= loop["end"]]
@@ -623,7 +628,7 @@ def shared_form_path(instrs, label_addr, loop, loops):
     best = [None] * len(body)  # the longest path from instruction k, forward edges only
     for k in range(len(body) - 1, -1, -1):
         a, ins = body[k]
-        if any(lo <= a <= hi for lo, hi in nested):
+        if any(lo <= a <= hi for lo, hi in nested) or (not calls and "CALL" in ins):
             continue
         if a == loop["end"]:
             best[k] = [ins]
@@ -721,6 +726,42 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
     per["K12 v2 point"] = len(path) if path else None
     per["K12 v2 rsq"] = sum("MUFU.RSQ" in i for i in path) if path else None
     per["K12 v2 lds"] = sum(bool(re.search(r"\bLDS\b", i)) for i in path) if path else None
+    # K13, K14 and K15 (the autodiff estimator's), per point, and beside each
+    # its MUFU a point (MUFU.RSQ of the roots, MUFU.RCP of the divisions), on
+    # the hot path (shared_form_path with no call: sqrt's and the division's
+    # slow paths, K13 v2's fallback, are calls). K13 v1: its point loop (the
+    # loop with a point's 16 table loads, LDG, and its root); v2: the float
+    # K = 9 instance's point loop of the shared-memory route (the loop with
+    # the most LDS: the 16 taps and the point's constants). K14 v1 and K15:
+    # the pair loop (the smallest loop with MUFU.RSQ, one a point) per point;
+    # K14 v2: the K = 9 instance's hot path through the whole function (its
+    # pairs unrolled; set-up and epilogue included) per point.
+    def mufu(ins):
+        return sum("MUFU" in i for i in ins)
+
+    def hot(key, pick):
+        fn = find(key)
+        lps = sass_loops(*fn)
+        lp = [x for x in lps if pick(x)]
+        lp = lp[0] if lp else None
+        return shared_form_path(*fn, lp, lps, calls=False) if lp else None
+
+    for kern, key, pick in (
+            ("K13 v1", "node_chain_kernelIfE", lambda x: x["ldg"] >= 16 and x["rsq"] >= 1),
+            ("K13 v2", f"node_chain_v2_kernelIfLi{K}EE", lambda x: x["lds"] >= 16),
+            ("K14 v1", "edge_chain_kernelIfE", lambda x: x["rsq"] >= 1),
+            ("K15", "edge_diff_kernelIfE", lambda x: x["rsq"] >= 1)):
+        path = hot(key, pick)
+        points = 1 if kern.startswith("K13") else (
+            sum("MUFU.RSQ" in i for i in path) if path else None)
+        per[f"{kern} point"] = len(path) / points if path else None
+        per[f"{kern} mufu"] = mufu(path) / points if path else None
+    instrs, labels = find(f"edge_chain_v2_kernelIfLi{K}EE")
+    exits = [a for a, i in instrs if "EXIT" in i]
+    path = shared_form_path(instrs, labels, dict(start=instrs[0][0], end=max(exits)), [],
+                            calls=False) if exits else None
+    per["K14 v2 point"] = len(path) / (K * K) if path else None
+    per["K14 v2 mufu"] = mufu(path) / (K * K) if path else None
     # K5: the u-degree loop of the instances for Q = 16 and 32 (the
     # innermost loop holding an a-step: the fewest instructions among those
     # with at least R (QB + 2) FFMA and FMUL, a row's QB - 1 products for each
@@ -2299,15 +2340,25 @@ def autodiff_probes(cfg, dev):
     return probes
 
 
-def kernels_autodiff(dev, record, I1, I2):
+AUTODIFF_VARIANTS = {"K13": ("v2", "v1"), "K14": ("v2", "v1"), "K15": (None,)}  # default first
+AUTODIFF_SIGMAS = (0.05, 0.5, 2.0, 3.0, 4.5)  # K13's budget table: converged .. the init's
+
+
+def kernels_autodiff(dev, record, I1, I2, issue_ms):
     """Phase 18b: K13, K14 and K15 at 376x452 against their plain versions
     (float64 within 1e-10 of each sum's largest magnitude, float32 by the
     ratio rule against the float64 golden; :func:`compare_quad`'s floor) on
-    :func:`autodiff_probes`' states,
-    a shard's block bit for bit the whole lattice's, NaN probes, each one's
-    time beside its plain version's and its bound; fills ``record["K13"]`` ..
-    ``record["K15"]``."""
+    :func:`autodiff_probes`' states, K13 and K14 in both variants
+    (:data:`AUTODIFF_VARIANTS`): v2's sums v1's bit for bit on every probe
+    (and in K13 v2's runtime-K and K14 v2's generic instance at K = 9), K13
+    v2's L1 route (``window_bytes=0``) its shared route's bit for bit, its
+    L1-route shares; a shard's block bit for bit the whole lattice's; NaN
+    and infinite probes; each variant's time beside its plain version's, its
+    bound and its SASS issue bound (``issue_ms(unit, work)``); fills
+    ``record["K13"]`` .. ``record["K15"]``, a record a variant under its
+    name."""
     from gqmap_tpu_torch.kernels import autodiff_gq as ag
+    from gqmap_tpu_torch.kernels import node_gq
     from gqmap_tpu_torch.kernels.edge_reduced_gq import neighbour_stacks
     from gqmap_tpu_torch.ops.interp import pad_cubic
 
@@ -2322,14 +2373,16 @@ def kernels_autodiff(dev, record, I1, I2):
         return (torch.as_tensor(I1, dtype=dtype, device=dev),
                 pad_cubic(torch.as_tensor(I2, dtype=dtype, device=dev)))
 
-    def operands(name, st, dtype):
-        """(kernel, plain version, arguments) of each kernel on ``st``."""
+    def operands(name, st, dtype, I1d=None):
+        """(kernel, plain version, arguments) of each kernel on ``st`` (K13:
+        frame 1 ``I1d`` where given)."""
         site = [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav, st.pn)]
         mu, sg = torch.stack(site[:2]), torch.stack(site[2:4])
         rou = st.rou.to(dtype).contiguous()
         if name == "K13":
+            I1t, VV = frames(dtype)
             return (ag.node_chain_gq_cuda, ag.node_chain_gq_torch,
-                    (*frames(dtype), *site, K, fm.lambdad, fm.epsn), dict(
+                    (I1t if I1d is None else I1d, VV, *site, K, fm.lambdad, fm.epsn), dict(
                         quad_chunk=AUTODIFF_PLAIN_CHUNK))
         if name == "K14":
             u2e, o2e = neighbour_stacks(mu, sg)
@@ -2339,101 +2392,226 @@ def kernels_autodiff(dev, record, I1, I2):
         return (ag.edge_diff_adjoint_cuda, ag.edge_diff_adjoint_torch,
                 (mu, sg, rou, k1, fast.lambdas, fast.epsn), {})
 
+    def vkw(variant):
+        return {} if variant is None else dict(variant=variant)
+
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    def same(xs, ys):
+        return all(same_bits(x, y) for x, y in zip(xs, ys))
 
     shapes = {"K13": (3, H, W), "K14": (2, 2, 3, H, W), "K15": (2, 2, 3, H, W)}
     works = {"K13": roofline.k13_work(shapes["K13"], K),
              "K14": roofline.k14_work(shapes["K14"], K),
              "K15": roofline.k15_work(shapes["K15"], k1)}
+    n_sites = math.prod(shapes["K13"])
+    ctas = node_gq.v2_ctas(shapes["K13"], 1)
+    # the issue bound's units: K13 a lane's round of points (a site's 4 lanes
+    # run ceil(K^2 / 4) rounds), K14 and K15 a point of an element
+    issue_units = {"K13": n_sites * 4 * -(-K * K // 4), "K14": math.prod(shapes["K14"]) * K * K,
+                   "K15": math.prod(shapes["K15"]) * k1}
+    sass_units = {("K13", "v1"): "K13 v1 point", ("K13", "v2"): "K13 v2 point",
+                  ("K14", "v1"): "K14 v1 point", ("K14", "v2"): "K14 v2 point",
+                  ("K15", None): "K15 point"}
     checks = 0
     for name in ("K13", "K14", "K15"):
+        variants = AUTODIFF_VARIANTS[name]
         rec = record[name] = dict(shape=list(shapes[name]), K=k1 if name == "K15" else K,
-                                  library_ms=None, library_reason=(
-                                      "no PyTorch call computes these sums; torch.autograd of "
-                                      "the plain version is the plain version"))
+                                  variant=variants[0], v2_equals_v1_checks=0)
+        recs = {v: dict(library_ms=None, library_reason=(
+            "no PyTorch call computes these sums; torch.autograd of the plain version is the "
+            "plain version")) for v in variants}
+        if name == "K13":
+            rec["l1_route_share"] = {}
         for dtype in (torch.float64, torch.float32):
             for sname, st in probes.items():
                 kern, plain, args, pkw = operands(name, st, dtype)
-                got, want = kern(*args), plain(*args, **pkw)
-                a, r, ok = compare_quad(got, want, dtype)
-                what = f"{name} {shapes[name]} {str(dtype)[6:]} {sname}"
-                checks += 1
-                if dtype == torch.float64:
-                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
-                else:
-                    _, _, gargs, _ = operands(name, st, torch.float64)
-                    gold = plain(*gargs, **pkw)
-                    ek, ep = worst_rel(got, gold), worst_rel(want, gold)
-                    require(ek <= 2.0 * ep + 1e-6,
-                            f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} "
-                            f"+ 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
-                    if sname == "converged":
-                        rec["max_abs_err"] = a
-                    del gold
-                del got, want
+                want = plain(*args, **pkw)
+                gold = None
+                if dtype == torch.float32:
+                    gold = plain(*operands(name, st, torch.float64)[2], **pkw)
+                outs = {}
+                for variant in variants:
+                    got = outs[variant] = kern(*args, **vkw(variant))
+                    a, r, ok = compare_quad(got, want, dtype)
+                    what = f"{name} {variant or ''} {shapes[name]} {str(dtype)[6:]} {sname}"
+                    checks += 1
+                    if dtype == torch.float64:
+                        require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                    else:
+                        ek, ep = worst_rel(got, gold), worst_rel(want, gold)
+                        require(ek <= 2.0 * ep + 1e-6,
+                                f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain "
+                                f"{ep:.3e} + 1e-6 (kernel vs plain max abs {a:.3e}, rel "
+                                f"{r:.3e})")
+                        if sname == "converged":
+                            recs[variant]["max_abs_err"] = a
+                if len(variants) > 1:
+                    # v2 is v1 bit for bit, in the other instance at K = 9 too
+                    other = kern(*args, variant="v2", generic=True)
+                    rec["v2_equals_v1_checks"] += 1
+                    require(same(outs["v2"], outs["v1"]) and same(other, outs["v1"]),
+                            f"{name} {str(dtype)[6:]} {sname}: v2's sums v1's bit for bit (the "
+                            "K = 9 instance and the generic one)")
+                if name == "K13":
+                    # the L1 route (a budget of 0): every CTA and site, the same bits
+                    cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+                    every = torch.zeros(2, dtype=torch.int64, device=dev)
+                    shared = kern(*args, l1_counts=cnt)
+                    l1 = kern(*args, window_bytes=0, l1_counts=every)
+                    require(same(shared, outs["v2"]) and same(l1, shared)
+                            and every.tolist() == [ctas, n_sites],
+                            f"K13 v2 {str(dtype)[6:]} {sname}: the L1 route's sums the shared "
+                            f"route's bit for bit, counts {every.tolist()} (want {[ctas, n_sites]})")
+                    rec["l1_route_share"][f"{str(dtype)[6:]} {sname}"] = dict(
+                        ctas=int(cnt[0]) / ctas, sites=int(cnt[1]) / n_sites)
+                del want, gold, outs
         torch.cuda.empty_cache()
+        if name == "K13":
+            log(f"  K13 v2 L1-route shares (CTAs with no window, sites read through L1) by "
+                f"probe: {rec['l1_route_share']}")
 
         # a shard's block: K13 at its pixel origin, K15 with its halo, K14 on
         # its block's operands: the whole lattice's sums there, bit for bit
         st = probes["converged"]
-        for dtype in (torch.float64, torch.float32):
-            kern, plain, args, pkw = operands(name, st, dtype)
-            whole = kern(*args)
-            r0, c0, m, n = H // 10, W // 9, H // 4 + 7, W // 2 - 23  # odd offsets
-            if name == "K13":
-                blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
-                got = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:],
-                           origin=(r0, c0), local_image_shape=(m, n))
-            elif name == "K14":
+        for variant in variants:
+            for dtype in (torch.float64, torch.float32):
+                kern, plain, args, pkw = operands(name, st, dtype)
+                whole = kern(*args, **vkw(variant))
+                r0, c0, m, n = H // 10, W // 9, H // 4 + 7, W // 2 - 23  # odd offsets
                 blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
-                got = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:])
-            else:
-                blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
-                mu, sg, rou = args[:3]
-                ms = torch.stack([mu, sg])
-                halo = (ms[..., r0 + m:r0 + m + 1, c0:c0 + n].contiguous(),
-                        ms[..., r0:r0 + m, c0 + n:c0 + n + 1].contiguous())
-                got = kern(*[x[blk].contiguous() for x in (mu, sg, rou)], *args[3:], halo=halo)
-            require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
-                    f"{name} {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0}): the "
-                    "whole lattice's sums there, bit for bit")
+                if name == "K13":
+                    got = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:],
+                               origin=(r0, c0), local_image_shape=(m, n), **vkw(variant))
+                elif name == "K14":
+                    got = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:],
+                               **vkw(variant))
+                else:
+                    mu, sg, rou = args[:3]
+                    ms = torch.stack([mu, sg])
+                    halo = (ms[..., r0 + m:r0 + m + 1, c0:c0 + n].contiguous(),
+                            ms[..., r0:r0 + m, c0 + n:c0 + n + 1].contiguous())
+                    got = kern(*[x[blk].contiguous() for x in (mu, sg, rou)], *args[3:],
+                               halo=halo)
+                require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                        f"{name} {variant or ''} {str(dtype)[6:]} block of ({m}, {n}) sites at "
+                        f"({r0}, {c0}): the whole lattice's sums there, bit for bit")
 
         # NaN inputs at a few sites: NaN exactly where the plain version's is,
-        # every other element bit for bit the NaN-free call's
+        # every other element bit for bit the NaN-free call's; infinite inputs
+        # (frame 1 and the state: root() gives NaN at +inf): v2 is v1 bit for bit
         for dtype in (torch.float64, torch.float32):
             bad = st._replace(muu=st.muu.clone(), pn=st.pn.clone(), rou=st.rou.clone())
             bad.muu[0, H // 4, W // 5] = float("nan")
             bad.pn[2, H - 1, W - 1] = float("nan")
             bad.rou[1, 0, 1, H // 2, W // 3] = float("nan")
             kern, plain, args, pkw = operands(name, bad, dtype)
-            got, want = kern(*args), plain(*args, **pkw)
-            clean = kern(*operands(name, st, dtype)[2])
-            ok = all(bool(torch.isnan(w).any()) and torch.equal(torch.isnan(g), torch.isnan(w))
-                     and torch.equal(g[~torch.isnan(w)], c[~torch.isnan(w)])
-                     for g, w, c in zip(got, want, clean))
-            require(ok, f"{name} {str(dtype)[6:]} NaN probes: NaN exactly where the plain "
-                        "version's is, every other element bit for bit the NaN-free call's")
+            want = plain(*args, **pkw)
+            clean_args = operands(name, st, dtype)[2]
+            for variant in variants:
+                got = kern(*args, **vkw(variant))
+                clean = kern(*clean_args, **vkw(variant))
+                ok = all(bool(torch.isnan(w).any())
+                         and torch.equal(torch.isnan(g), torch.isnan(w))
+                         and torch.equal(g[~torch.isnan(w)], c[~torch.isnan(w)])
+                         for g, w, c in zip(got, want, clean))
+                require(ok, f"{name} {variant or ''} {str(dtype)[6:]} NaN probes: NaN exactly "
+                            "where the plain version's is, every other element bit for bit the "
+                            "NaN-free call's")
+            if len(variants) > 1:
+                inf = st._replace(muu=st.muu.clone(), sigmav=st.sigmav.clone())
+                inf.muu[1, H // 3, W // 7] = float("inf")
+                inf.sigmav[0, 5, 9] = float("inf")
+                I1d = frames(dtype)[0].clone()
+                I1d[H // 2, W // 2] = float("inf")
+                kern, _, args, _ = operands(name, inf, dtype, I1d)
+                v1 = kern(*args, variant="v1")
+                rec["v2_equals_v1_checks"] += 1
+                require(not all(bool(torch.isfinite(x).all()) for x in v1)
+                        and same(kern(*args, variant="v2"), v1),
+                        f"{name} {str(dtype)[6:]} infinite inputs: v2's sums v1's bit for bit")
+                # quotients below div_fast's range: K14 on neighbours 1e-25 apart with
+                # sigma 1e-27, K13 at eps = 0 (v2 takes v1's division throughout)
+                kern, _, args, _ = operands(name, st, dtype)
+                if name == "K14":
+                    g = torch.Generator().manual_seed(5)
+                    mu = torch.round(args[0] * 4) / 4 + 1e-25 * torch.randint(
+                        -1, 2, args[0].shape, generator=g).to(dev, dtype)
+                    sg = torch.full_like(args[1], 1e-27)
+                    args = (mu, sg, *neighbour_stacks(mu, sg), *args[4:])
+                else:
+                    args = (*args[:9], 0.0)
+                v1 = kern(*args, variant="v1")
+                rec["v2_equals_v1_checks"] += 1
+                require(same(kern(*args, variant="v2"), v1),
+                        f"{name} {str(dtype)[6:]} quotients below the fast division's range: "
+                        "v2's sums v1's bit for bit")
 
-        # times (float32, sigma = 0.05) beside the plain version's and the bound
+        # times (float32, sigma = 0.05; K13 also from the init) in turns, beside
+        # the plain version's, the bound and the SASS issue bound
         kern, plain, args, pkw = operands(name, st, torch.float32)
-        rec["ms"], rec["ms_min"] = kernel_ms(lambda: kern(*args))
-        rec["plain_ms"] = time_ms(lambda: plain(*args, **pkw), 2)
-        rec.update(bound(works[name]))
-        rec["share"] = dict(sheet=rec["bound_ms"] / rec["ms"],
-                            measured=rec["bound_ms_measured"] / rec["ms"])
-        log(f"  {name} {shapes[name]} f32 on {smi('name,power.limit,clocks.sm')} (median, min) "
-            f"of {TIMING[0]} windows of {TIMING[1]} calls: ({rec['ms']:.4f}, "
-            f"{rec['ms_min']:.4f}) ms; plain {rec['plain_ms']:.4f} ms "
-            f"({rec['plain_ms'] / rec['ms']:.0f}x); {fmt_bound(rec)} ({rec['bound_terms_ms']}); "
-            f"share of the bound: data sheet {rec['share']['sheet']:.1%}, measured "
-            f"{rec['share']['measured']:.1%}")
-        del args
+        plain_ms = time_ms(lambda: plain(*args, **pkw), 2)
+        iargs = operands(name, probes["init"], torch.float32)[2]
+        for variant in variants:
+            r = recs[variant]
+            r["ms"], r["ms_min"] = kernel_ms(lambda: kern(*args, **vkw(variant)))
+            if name == "K13":
+                r["init_ms"], _ = kernel_ms(lambda: kern(*iargs, **vkw(variant)))
+            if (name, variant) == ("K13", "v2"):  # its L1 route (a budget of 0)
+                r["l1_route_ms"], _ = kernel_ms(lambda: kern(*args, window_bytes=0))
+                r["init_l1_route_ms"], _ = kernel_ms(lambda: kern(*iargs, window_bytes=0))
+            r["plain_ms"] = plain_ms
+            r.update(bound(works[name]))
+            r["share"] = dict(sheet=r["bound_ms"] / r["ms"],
+                              measured=r["bound_ms_measured"] / r["ms"])
+            r["sass_issue_ms"] = issue_ms(sass_units[name, variant], issue_units[name])
+        for variant in variants[::-1]:  # and again, in the other order
+            r = recs[variant]
+            r["ms_again"], _ = kernel_ms(lambda: kern(*args, **vkw(variant)))
+        if name == "K13":
+            # K13 v2's window budget (the default, K4 v2's; 12 KB, which sends the
+            # tiles of wide sites through L1; 0: every site through L1) against v1,
+            # on the probes and as sigma widens from sigma = 0.05's state
+            table = rec["window_budget_ms"] = {}
+            budgets = {"default": None, "12 KB": 12 * 1024, "L1": 0}
+            cases = {p: operands(name, probes[p], torch.float32)[2] for p in ("init", "clamp")}
+            for sig in AUTODIFF_SIGMAS:
+                cases[f"sigma {sig}"] = (*args[:4], torch.full_like(args[4], sig),
+                                         torch.full_like(args[5], sig), *args[6:])
+            for case, ca in cases.items():
+                row = table[case] = {"v1": kernel_ms(lambda: kern(*ca, variant="v1"))[0]}
+                for label, wb in budgets.items():
+                    cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+                    kern(*ca, window_bytes=wb, l1_counts=cnt)
+                    row[f"v2 {label}"] = kernel_ms(lambda: kern(*ca, window_bytes=wb))[0]
+                    row[f"v2 {label} L1 sites"] = int(cnt[1]) / n_sites
+            log(f"  K13 by window budget (ms; v1; v2 at the default "
+                f"{node_gq.window_budget(K, torch.float32)} B, at 12 KB, through L1 alone; and "
+                f"v2's share of sites read through L1): {table}")
+        for variant in variants:
+            r = recs[variant]
+            issue = r["sass_issue_ms"]
+            log(f"  {name} {variant or ''} {shapes[name]} f32 on "
+                f"{smi('name,power.limit,clocks.sm')} (median, min) of {TIMING[0]} windows of "
+                f"{TIMING[1]} calls: ({r['ms']:.4f}, {r['ms_min']:.4f}) ms, again "
+                f"{r['ms_again']:.4f}" + (f", from init {r['init_ms']:.4f}" if "init_ms" in r
+                                          else "") +
+                (f"; L1 route alone {r['l1_route_ms']:.4f}, from init "
+                 f"{r['init_l1_route_ms']:.4f}" if "l1_route_ms" in r else "") +
+                f"; plain {r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.0f}x); "
+                f"{fmt_bound(r)} ({r['bound_terms_ms']}); share of the bound: data sheet "
+                f"{r['share']['sheet']:.1%}, measured {r['share']['measured']:.1%}; SASS issue "
+                f"bound {issue if issue is None else f'{issue:.4f}'} ms"
+                + ("" if issue is None else f" ({issue / r['ms']:.1%})"))
+        rec.update(recs[None] if variants == (None,) else recs)
+        del args, iargs
         torch.cuda.empty_cache()
     del probes
     record["K13"]["phase_s"] = time.time() - t_phase
     log(f"  phase kernels K13-K15: {checks} checks against the plain versions, "
-        f"{time.time() - t_phase:.1f} s")
+        f"{record['K13']['v2_equals_v1_checks'] + record['K14']['v2_equals_v1_checks']} of v2 "
+        f"against v1, {time.time() - t_phase:.1f} s")
 
 
 def autodiff_segments(dev, record, by_path, kfns):
@@ -2445,11 +2623,14 @@ def autodiff_segments(dev, record, by_path, kfns):
     of the plain expectation) against the float64 golden (the plain route in
     float64; the kernels' error at most twice the plain route's); then
     :data:`AUTODIFF_SWEEPS`-sweep graph segments from sigma = 0.05 in turns
-    (kernels, plain, kernels again): ms a sweep by CUDA events, the capturing
-    call's peak memory, and the kernels a replay launches (counters 0 just
-    before each timed segment, read after): the path's kernels once a sweep
-    through the kernels, none through the plain route."""
+    (the kernels with K13 and K14 in v2, v1 (on the paths that launch them)
+    and v2 again, then the plain route): ms a sweep by CUDA events, the
+    capturing call's peak memory, and the kernels a replay launches
+    (counters 0 just before each timed segment, read after): the path's
+    kernels once a sweep through the kernels in either variant, none through
+    the plain route."""
     from gqmap_tpu_torch import FlowRange
+    from gqmap_tpu_torch.kernels import autodiff_gq as ag
     from gqmap_tpu_torch.models import gqmap as pg
 
     log("phase autodiff segments")
@@ -2484,8 +2665,13 @@ def autodiff_segments(dev, record, by_path, kfns):
         del probs[torch.float64]
         problem = probs[torch.float32]
         start = cast(conv64, torch.float32)
-        for turn, routes in (("kernels", {}), ("plain", plain_routes),
-                             ("kernels again", {})):
+        # K13 and K14 through v2 (the default), v1 and v2 again, then the plain route
+        turns = [("v2", {}, "v2"), ("v1", {}, "v1"), ("v2 again", {}, "v2"),
+                 ("plain", plain_routes, "v2")]
+        if "K13" not in want and "K14" not in want:
+            turns = [x for x in turns if x[0] != "v1"]
+        for turn, routes, variant in turns:
+            ag._DEFAULT_VARIANT = variant
             tcfg = dataclasses.replace(cfg, **routes)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -2517,6 +2703,7 @@ def autodiff_segments(dev, record, by_path, kfns):
                 f"graph segment from sigma 0.05), capture {seg.capture_s:.3f} s at a peak of "
                 f"{peak:.3f} GiB above what was held")
             del seg, res
+        ag._DEFAULT_VARIANT = "v2"
         del problem, probs
         torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
@@ -4412,14 +4599,17 @@ def main():
         "K11 v2 at K = 9: each mixed form per point of an element in lane instructions (the "
         "per-lane form's basic block, the cooperative form's pass loop); K12: the K = 9, "
         "rg = 2 instance's shared-memory point loop per point (v2: its 16-byte route's "
-        "shared-form path)")
+        "shared-form path); K13-K15 per point and their MUFU a point (K13 v1 its point loop, "
+        "v2 the K = 9 shared-memory loop's shared-form path; K14 v1 and K15 the pair loop; "
+        "K14 v2 the K = 9 instance's whole function)")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
                  "K5 v2 chunk Q=32 N=96", "K6 point rg=2", "K6 point rg=0", "K7 point",
                  "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
                  "K11 point", "K10 v2 site", "K11 v2 lane point", "K11 v2 coop point",
-                 "K12 point", "K12 v2 point"):
+                 "K12 point", "K12 v2 point", "K13 v1 point", "K13 v2 point", "K14 v1 point",
+                 "K14 v2 point", "K15 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -5446,7 +5636,7 @@ def main():
     del v2p
 
     # ---- 18b-c. the autodiff estimator's kernels and its three graph segments
-    kernels_autodiff(dev, record, I1, I2)
+    kernels_autodiff(dev, record, I1, I2, issue_ms)
     autodiff_segments(dev, record, by_path, kfns)
 
     # ---- 19-23. the drivers, the command line and K3 on the pyramid's lattice
@@ -5538,8 +5728,8 @@ def main():
             legacy_v2_bicubic=k12["legacy_v2 bicubic"][variant],
             border_fallback_share=k12["border_fallback_share"], instances={
                 k: v for k, v in k12["instances"].items() if f" {variant} " in k}))
-    # K13-K15: launches from the kernel route's first timed graph segment of
-    # their path
+    # K13-K15 (K13 and K14 under each variant): launches from their path's
+    # timed graph segment in that variant's first turn
     ad = record["autodiff"]
     for kern, fname, path, replaces in (
             ("K13", "node_chain_gq", "full_mixture autodiff",
@@ -5551,11 +5741,20 @@ def main():
             ("K15", "edge_diff_adjoint", "tpu_fast autodiff",
              "gqmap_tpu/ops/gq.py:430 gq_ei_diff on the Charbonnier difference potential, "
              "under jax.grad (XLA scan, no Pallas)")):
-        kernels.append(dict(
-            name=f"{fname} ({kern})", route="cuda", source="gqmap_tpu_torch/csrc/autodiff_gq.cu",
-            replaces=replaces, launches=ad[path]["kernels"]["launches"][kern],
-            launches_run=f"{path} kernels ({AUTODIFF_SWEEPS} sweeps)",
-            **{k: v for k, v in record[kern].items() if k != "phase_s"}))
+        rk = record[kern]
+        for variant in AUTODIFF_VARIANTS[kern]:
+            turn = variant or "v2"
+            source = ("gqmap_tpu_torch/csrc/node_gq.cu" if (kern, variant) == ("K13", "v2")
+                      else "gqmap_tpu_torch/csrc/autodiff_gq.cu")
+            fields = rk if variant is None else {**rk[variant], **{
+                k: v for k, v in rk.items() if k in ("shape", "K", "l1_route_share")}}
+            kernels.append(dict(
+                name=f"{fname} ({kern}{'' if variant is None else ', ' + variant})",
+                route="cuda", source=source, replaces=replaces,
+                launches=ad[path][turn]["launches"][kern],
+                launches_run=f"{path} {turn} ({AUTODIFF_SWEEPS} sweeps)",
+                **{k: v for k, v in fields.items()
+                   if k not in ("phase_s", "v1", "v2", "variant", "v2_equals_v1_checks")}))
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")
         raise SystemExit(1)

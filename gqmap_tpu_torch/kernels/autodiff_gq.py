@@ -23,8 +23,18 @@ stays ``torch.autograd`` of plain torch. The CUDA kernels are
   the kernel as K2 reads it; plain version :func:`edge_diff_adjoint_torch`
   (``gq_ei_diff_adjoint`` and ``diff_partials``).
 
-Each ``*_cuda`` wrapper counts its launches (``.launches``) and raises for
-tensors that are not on a CUDA device; the dispatchers (:func:`node_chain_gq`,
+K13 and K14 have two variants each (:data:`VARIANTS`, the same sums bit for
+bit): ``"v1"``, the first versions (every tap through L1, the rules staged
+into shared memory), and ``"v2"`` (the default where it is compiled,
+:func:`resolve_variant`): K13 on K4 v2's machinery in
+``csrc/node_gq.cu`` (a per-point constant table, a CTA's window of frame 2
+in shared memory, the shared form of a query strictly inside the frame),
+K14 with K3's rule by value; both with ``sqrtf``'s and the division's own
+fast paths (``csrc/fast_div.cuh``), falling back to v1's arithmetic where
+those could differ (the sources' notes say how).
+
+Each ``*_cuda`` wrapper counts its launches (``.launches``, of either
+variant) and raises for tensors that are not on a CUDA device; the dispatchers (:func:`node_chain_gq`,
 :func:`edge_chain_gq`, :func:`edge_diff_adjoint`) launch the kernel for CUDA
 tensors and run the plain version for CPU tensors. The plain versions also
 take ``quad_chunk``, their points a step (0: all).
@@ -42,14 +52,53 @@ from ..ops.potentials import (make_edge_pot_chain, make_edge_pot_diff_grad,
 from ..ops.quadrature import gauss_hermite, table_on
 from . import build
 from .edge_reduced_gq import neighbour_stacks, pad_halo, paired_rule_1d
-from .node_gq import node_rule
+from .node_gq import _MAX_SMEM_BYTES, V2_MAX_K, _rule_host, node_rule, window_budget
 
-__all__ = ["MAX_K", "Partials", "chain_ei", "diff_ei", "edge_chain_gq", "edge_chain_gq_cuda",
-           "edge_chain_gq_torch", "edge_diff_adjoint", "edge_diff_adjoint_cuda",
-           "edge_diff_adjoint_torch", "node_chain_gq", "node_chain_gq_cuda",
-           "node_chain_gq_torch", "paired_chain_rule"]
+__all__ = ["EDGE_V2_K", "MAX_K", "Partials", "VARIANTS", "chain_ei", "chain_rule_struct",
+           "diff_ei", "edge_chain_gq", "edge_chain_gq_cuda", "edge_chain_gq_torch",
+           "edge_diff_adjoint", "edge_diff_adjoint_cuda", "edge_diff_adjoint_torch",
+           "node_chain_gq", "node_chain_gq_cuda", "node_chain_gq_torch", "paired_chain_rule",
+           "point_constants", "resolve_variant"]
 
 MAX_K = 64  # K13's largest rule (csrc/autodiff_gq.cu, kMaxK)
+VARIANTS = ("v1", "v2")
+_DEFAULT_VARIANT = "v2"  # K13 and K14 (patch it to capture a graph through v1)
+EDGE_V2_K = (9,)  # K14 v2's rules by value (csrc/autodiff_gq.cu ChainRule); others generic
+_SHARED_RULE_BYTES = 48 * 1024  # K14's generic instances: the rule in shared memory
+
+
+def resolve_variant(kernel: str, variant: str | None, K: int, dtype=torch.float32) -> str:
+    """The variant of ``kernel`` ("K13" or "K14") a launch runs: ``variant``,
+    or with None ``"v2"`` where it is compiled and ``"v1"`` elsewhere; an
+    explicit ``"v2"`` outside that raises. K13 v2 takes rules up to
+    :data:`~.node_gq.V2_MAX_K` points an axis (its per-point table), K14 v2
+    at least 2 (``rule_instance.cuh``), each within v1's limits."""
+    if kernel not in ("K13", "K14"):
+        raise ValueError(f"no variants of {kernel!r}: K13 and K14 have them")
+    K = int(K)
+    itemsize = 4 if dtype == torch.float32 else 8
+    if kernel == "K13":
+        v1, v2 = 1 <= K <= MAX_K, 1 <= K <= V2_MAX_K
+    else:
+        v1 = K >= 1 and (5 * (K * K // 2) + 1) * itemsize <= _SHARED_RULE_BYTES
+        v2 = v1 and K >= 2
+    if variant is None:
+        return _DEFAULT_VARIANT if v2 else "v1"
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown {kernel} kernel variant {variant!r}")
+    if not (v2 if variant == "v2" else v1):
+        raise ValueError(f"{kernel} variant {variant!r} does not take K = {K}")
+    return variant
+
+
+def point_constants(K: int, dtype=np.float64) -> np.ndarray:
+    """K13 v2's per-point constants as ``point_table`` (``csrc/node_gq.cu``)
+    builds them from :func:`node_rule` in ``dtype``, point ``p = j K + i``
+    (XJ outer): ``(K^2, 3)`` of x_i, x_j and w_i w_j, the product rounded
+    once, as v1 forms it."""
+    x, w = np.split(node_rule(K, dtype), 2)
+    k = np.arange(K * K)
+    return np.stack([x[k % K], x[k // K], w[k % K] * w[k // K]], 1)
 
 
 def paired_chain_rule(K: int, dtype=np.float64) -> np.ndarray:
@@ -68,6 +117,16 @@ def paired_chain_rule(K: int, dtype=np.float64) -> np.ndarray:
     return np.concatenate([xi, xj, wiwj, wiwj * xi, wiwj * xj, [wc]]).astype(dtype)
 
 
+def chain_rule_struct(K: int, dtype=np.float32) -> np.ndarray:
+    """K14 v2's rule by value (``ChainRule<T, K>`` in ``csrc/autodiff_gq.cu``)
+    as a numpy record: the P pairs' ``xi``, ``xj``, ``w``, ``wxi``, ``wxj``,
+    then ``wc``, with no padding, so its bytes are :func:`paired_chain_rule`'s
+    (804 for float32 at K = 9), which the launch copies into it."""
+    P = K * K // 2
+    rec = np.dtype([(f, dtype, (P,)) for f in ("xi", "xj", "w", "wxi", "wxj")] + [("wc", dtype)])
+    return np.frombuffer(paired_chain_rule(K, dtype).tobytes(), dtype=rec)[0]
+
+
 # --- K13 ---------------------------------------------------------------------------
 
 def node_chain_gq_torch(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
@@ -81,10 +140,21 @@ def node_chain_gq_torch(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, ep
 
 
 def node_chain_gq_cuda(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: float,
-                       origin=None, local_image_shape=None) -> GQChainRaw:
+                       origin=None, local_image_shape=None, variant: str | None = None,
+                       window_bytes: int | None = None, l1_counts: torch.Tensor | None = None,
+                       generic: bool = False) -> GQChainRaw:
     """Kernel K13 on the ``(L, M, N)`` sites of frame 1's block at pixel
     ``origin`` (the whole frame by default; ``local_image_shape`` must be
-    the sites' ``(M, N)``, one pixel a site)."""
+    the sites' ``(M, N)``, one pixel a site).
+
+    ``variant``: one of :data:`VARIANTS` (None: :func:`resolve_variant`).
+    For ``"v2"``, ``window_bytes`` is a CTA's shared-memory budget for its
+    window of ``VV`` (None: K4 v2's ``window_budget``; 0 sends every site
+    through L1), ``l1_counts``, if given, an int64 tensor of 2 on the
+    state's device that the kernel adds to (its CTAs with no window, of
+    ``node_gq.v2_ctas(site_shape, 1)``, and its sites read through L1), and
+    ``generic`` runs the runtime-K instance at float32 K = 9. Every route,
+    instance and variant gives the same sums, bit for bit."""
     if muu.ndim != 3:
         raise ValueError(f"muu must be (L, M, N), got {tuple(muu.shape)}")
     L, M, N = muu.shape
@@ -100,15 +170,33 @@ def node_chain_gq_cuda(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, eps
     K = int(K)
     if not 1 <= K <= MAX_K:
         raise ValueError(f"K13 takes rules of 1 to {MAX_K} points an axis, not {K}")
-    rule, _, rule_dev = build.rule_args(node_rule, K, (), True, muu)
+    variant = resolve_variant("K13", variant, K, muu.dtype)
     out = torch.empty((7,) + site, dtype=muu.dtype, device=muu.device)
     lib = build.library_for(muu.device)
-    fn = lib.gqmap_node_chain_f32 if muu.dtype == torch.float32 else lib.gqmap_node_chain_f64
+    f32 = muu.dtype == torch.float32
     stream = torch.cuda.current_stream(muu.device).cuda_stream
-    build.check(fn(I1.data_ptr(), VV.data_ptr(), muu.data_ptr(), muv.data_ptr(), su.data_ptr(),
-                   sv.data_ptr(), pn.data_ptr(), rule_dev, out.data_ptr(), Mo, No, L, M, N,
-                   r0, c0, K, float(lambdad), float(epsn), muu.device.index, stream),
-                "node_chain_gq_cuda")
+    if variant == "v1":
+        rule, _, rule_dev = build.rule_args(node_rule, K, (), True, muu)
+        fn = lib.gqmap_node_chain_f32 if f32 else lib.gqmap_node_chain_f64
+        code = fn(I1.data_ptr(), VV.data_ptr(), muu.data_ptr(), muv.data_ptr(), su.data_ptr(),
+                  sv.data_ptr(), pn.data_ptr(), rule_dev, out.data_ptr(), Mo, No, L, M, N, r0,
+                  c0, K, float(lambdad), float(epsn), muu.device.index, stream)
+    else:
+        most = _MAX_SMEM_BYTES - K * K * 8 * muu.element_size()
+        window = window_budget(K, muu.dtype) if window_bytes is None else int(window_bytes)
+        if not 0 <= window <= most:
+            raise ValueError(f"window_bytes must lie in [0, {most}] at K = {K}, got {window}")
+        if l1_counts is not None and (l1_counts.device != muu.device or
+                                      l1_counts.dtype != torch.int64 or l1_counts.shape != (2,)):
+            raise ValueError("l1_counts must be an int64 tensor of 2 on the state's device")
+        rule = _rule_host(K, muu.dtype)  # held through the call, which copies it
+        fn = lib.gqmap_node_chain_v2_f32 if f32 else lib.gqmap_node_chain_v2_f64
+        code = fn(I1.data_ptr(), VV.data_ptr(), muu.data_ptr(), muv.data_ptr(), su.data_ptr(),
+                  sv.data_ptr(), pn.data_ptr(), rule.ctypes.data, out.data_ptr(),
+                  None if l1_counts is None else l1_counts.data_ptr(), Mo, No, L, M, N, r0, c0,
+                  K, window, int(bool(generic)), float(lambdad), float(epsn), muu.device.index,
+                  stream)
+    build.check(code, "node_chain_gq_cuda")
     node_chain_gq_cuda.launches += 1
     return GQChainRaw(*out.unbind(0))
 
@@ -137,10 +225,14 @@ def edge_chain_gq_torch(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: flo
                                o2e, rou, table_on(K, quad_chunk, False, mu.dtype, mu.device))
 
 
-def edge_chain_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float,
-                       epsn: float) -> GQChainRaw:
+def edge_chain_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float, epsn: float,
+                       variant: str | None = None, generic: bool = False) -> GQChainRaw:
     """Kernel K14, on K3's operands: ``mu``/``sg`` ``(C, L, M, N)``,
-    ``u2e``/``o2e``/``rou`` ``(D, C, L, M, N)``."""
+    ``u2e``/``o2e``/``rou`` ``(D, C, L, M, N)``. ``variant``: one of
+    :data:`VARIANTS` (None: :func:`resolve_variant`); ``"v2"`` takes the
+    rule by value for K in :data:`EDGE_V2_K` unless ``generic``, else from
+    shared memory. Both variants and instances give the same sums, bit for
+    bit."""
     if mu.ndim != 4:
         raise ValueError(f"mu must be (C, L, M, N), got {tuple(mu.shape)}")
     C, L, M, N = mu.shape
@@ -150,15 +242,23 @@ def edge_chain_gq_cuda(mu, sg, u2e, o2e, rou, K: int, lambdas: float,
         ("mu", mu, mu.shape), ("sg", sg, mu.shape), ("u2e", u2e, edge), ("o2e", o2e, edge),
         ("rou", rou, edge)))
     K = int(K)
-    rule, _, rule_dev = build.rule_args(paired_chain_rule, K, (), True, mu)
+    variant = resolve_variant("K14", variant, K, mu.dtype)
     out = torch.empty((7,) + edge, dtype=mu.dtype, device=mu.device)
     lib = build.library_for(mu.device)
-    fn = lib.gqmap_edge_chain_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_chain_f64
+    f32 = mu.dtype == torch.float32
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    build.check(fn(mu.data_ptr(), sg.data_ptr(), u2e.data_ptr(), o2e.data_ptr(), rou.data_ptr(),
-                   rule_dev, out.data_ptr(), D * C, C, L, M * N, K, float(lambdas),
-                   float(epsn), mu.device.index, stream),
-                "edge_chain_gq_cuda")
+    ptrs = (mu.data_ptr(), sg.data_ptr(), u2e.data_ptr(), o2e.data_ptr(), rou.data_ptr())
+    tail = (out.data_ptr(), D * C, C, L, M * N, K, float(lambdas), float(epsn), mu.device.index,
+            stream)
+    if variant == "v1":
+        rule, _, rule_dev = build.rule_args(paired_chain_rule, K, (), True, mu)
+        fn = lib.gqmap_edge_chain_f32 if f32 else lib.gqmap_edge_chain_f64
+        code = fn(*ptrs, rule_dev, *tail)
+    else:
+        rule, rule_host, rule_dev = build.rule_args(paired_chain_rule, K, EDGE_V2_K, generic, mu)
+        fn = lib.gqmap_edge_chain_v2_f32 if f32 else lib.gqmap_edge_chain_v2_f64
+        code = fn(*ptrs, rule_host, rule_dev, *tail)
+    build.check(code, "edge_chain_gq_cuda")
     edge_chain_gq_cuda.launches += 1
     return GQChainRaw(*out.unbind(0))
 

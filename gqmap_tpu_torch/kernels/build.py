@@ -119,6 +119,14 @@ _SIGNATURES = {
     # (kernels/autodiff_gq.edge_chain_gq_cuda, K14)
     "gqmap_edge_chain_f32": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "gqmap_edge_chain_f64": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # I1, VV, muu, muv, su, sv, pn, rule_host, out, l1_counts, Mo, No, L, M, N, r0, c0, K,
+    # window_bytes, generic, lam, eps, device, stream (node_chain_gq_cuda, K13 v2)
+    "gqmap_node_chain_v2_f32": [_P] * 10 + [_I] * 10 + [_D] * 2 + [_I, _P],
+    "gqmap_node_chain_v2_f64": [_P] * 10 + [_I] * 10 + [_D] * 2 + [_I, _P],
+    # mu, sg, u2e, o2e, rou, rule_host, rule_dev, out, DC, C, L, S, K, lam, eps, device,
+    # stream (edge_chain_gq_cuda, K14 v2)
+    "gqmap_edge_chain_v2_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_edge_chain_v2_f64": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],
     # mu, sg, rou, rule, out, C, L, M, N, K1, lam, eps, device, stream
     # (kernels/autodiff_gq.edge_diff_adjoint_cuda, K15)
     "gqmap_edge_diff_f32": [_P] * 5 + [_I] * 5 + [_D] * 2 + [_I, _P],
@@ -294,7 +302,7 @@ def _rule_dev(values, K: int, dtype: torch.dtype, device: torch.device) -> torch
 
 
 def rule_args(values, K: int, specialised, generic: bool, like: torch.Tensor):
-    """The rule of a kernel with rule instances (K3, K10, K11):
+    """The rule of a kernel with rule instances (K3, K10, K11, K14 v2):
     ``(held, rule_host, rule_dev)``. ``values(K, numpy dtype)`` gives the
     rule's values in the order the kernel reads them. For K in
     ``specialised`` (and ``generic`` false) ``rule_host`` points at them on

@@ -26,6 +26,12 @@ process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
   the generic one), and ``k10_k11_v1_sums_sha256`` of K10's and K11's v1
   (a checkout without ``variant`` runs only v1) at K = 9, both instances,
   on those states with the state's means as the quadratic prior;
+  ``k12_sums_sha256`` of kernel K12's, both variants, at rg = 2 on the
+  one-pixel lattices' states (``full_mixture``, ``ctf_level``), and
+  ``k13_k14_sums_sha256`` of kernels K13's (those lattices) and K14's (every
+  state) under each checkout's default variant: equal digests of a parent
+  whose default is v1 and a tree whose default is v2 mean v2's sums are
+  v1's bit for bit;
 * the torch operators one ``tpu_fast``, one red-black and one
   ``full_mixture`` sweep dispatch (the kernels themselves, launched through
   ``ctypes``, are not among them): equal counts mean the same glue work on
@@ -138,11 +144,12 @@ def one(root: str) -> dict:
 
     import inspect
 
-    from gqmap_tpu_torch.kernels import edge_gq, edge_reduced_gq, quad_gq
+    from gqmap_tpu_torch.kernels import autodiff_gq, edge_gq, edge_reduced_gq, quad_gq, window_gq
 
     v1 = ({"variant": "v1"} if "variant" in inspect.signature(
         quad_gq.quad_node_gq_cuda).parameters else {})
     digest, d3, d10 = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
+    d12, d13 = hashlib.sha256(), hashlib.sha256()
     for name, c in (("full_mixture", fm), ("super_entropy", GQMAPConfig.super_entropy()),
                     ("ctf_level", GQMAPConfig.ctf_level())):
         c = dataclasses.replace(c, tor=0.0)
@@ -161,9 +168,19 @@ def one(root: str) -> dict:
                     got = node_gq.node_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad, c.epsn,
                                                patch=c.patch, variant=variant)
                     digest.update(torch.stack(got).cpu().numpy().tobytes())
+                if c.patch == 1:
+                    for variant in window_gq.VARIANTS:
+                        got = window_gq.node_window_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad,
+                                                            c.epsn, 2, variant=variant)
+                        d12.update(torch.stack(got).cpu().numpy().tobytes())
+                    got = autodiff_gq.node_chain_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad,
+                                                         c.epsn)
+                    d13.update(torch.stack(got).cpu().numpy().tobytes())
                 mu, sg = torch.stack(fields[:2]), torch.stack(fields[2:4])
                 edge = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg),
                         s.rou.to(dtype).contiguous())
+                got = autodiff_gq.edge_chain_gq_cuda(*edge, c.K, c.lambdas, c.epsn)
+                d13.update(torch.stack(got).cpu().numpy().tobytes())
                 prior = torch.stack(fields[:2], -1)[0]
                 for generic in (False, True):
                     got = edge_gq.edge_gq_cuda(*edge, c.K, c.lambdas, c.epsn, generic=generic)
@@ -177,6 +194,8 @@ def one(root: str) -> dict:
     out["k4_sums_sha256"] = digest.hexdigest()
     out["k3_sums_sha256"] = d3.hexdigest()
     out["k10_k11_v1_sums_sha256"] = d10.hexdigest()
+    out["k12_sums_sha256"] = d12.hexdigest()
+    out["k13_k14_sums_sha256"] = d13.hexdigest()
     for name, sw, prob in (
             ("tpu_fast", pg.make_sweep(cfg, (H, W)), problem),
             ("redblack", pg.make_sweep(dataclasses.replace(cfg, sweep_order="redblack"), (H, W)),

@@ -62,7 +62,7 @@ from gqmap_tpu_torch.kernels.edge_reduced_gq import neighbour_stacks, paired_rul
 from gqmap_tpu_torch.kernels.node_gq import node_rule
 from gqmap_tpu_torch.models import gqmap as pg
 from gqmap_tpu_torch.ops import chebyshev, cosine, gq, interp, potentials
-from gqmap_tpu_torch.ops.quadrature import build_table, build_table_1d
+from gqmap_tpu_torch.ops.quadrature import build_table, build_table_1d, gauss_hermite
 
 SQRT2 = math.sqrt(2.0)
 TOL, FLOOR = 1e-10, 1e-12
@@ -482,32 +482,196 @@ def k15_transcribed(mu, sg, rou, k1, lam, eps, halo=None):
             dc * (2 * SQRT2) * (o2e - rou * o1e), dc * -2.0 * o1e * o2e)
 
 
-VERSIONS = ["plain", "transcribed"]
-K13 = {"plain": autodiff_gq.node_chain_gq_torch, "transcribed": k13_transcribed}
-K14 = {"plain": autodiff_gq.edge_chain_gq_torch, "transcribed": k14_transcribed}
+def _root(r):
+    """``root()`` of the v2 kernels: sqrt's value, NaN at +inf (sqrt: inf)."""
+    return torch.where(torch.isinf(r), torch.nan, torch.sqrt(r))
+
+
+def _cubic_quarter(f):
+    """``gqmap::chain::cubic_quarter``: ``_cubic``'s weights and slopes times
+    0.25 by coefficients scaled by powers of two."""
+    return ((((0.5 - 0.25 * f) * f - 0.25) * f, (0.75 * f - 1.25) * f * f + 0.5,
+             ((1.0 - 0.75 * f) * f + 0.25) * f, (0.25 * f - 0.25) * f * f),
+            ((1.0 - 0.75 * f) * f - 0.25, (2.25 * f - 2.5) * f, (2.0 - 2.25 * f) * f + 0.25,
+             (0.75 * f - 0.5) * f))
+
+
+def _k13_point(flat, N2, Mo, No, i1, Xq, Yq, eps, shared):
+    """One point of every site: ``(diff, F, X, Y)``. ``shared``: K13 v2's
+    shared form at the cell floor(query), no slopes, the 0.25 in the y
+    weights, root(); else v1's sample (bicubic_chain.cuh: the clip and its
+    slope, the NaN cell, sqrt)."""
+    if shared:
+        fx, fy = torch.floor(Xq), torch.floor(Yq)
+        wx, dx = _cubic(Xq - fx)
+        wy, dy = _cubic_quarter(Yq - fy)
+        ok = (fx >= 1) & (fx <= No - 1) & (fy >= 1) & (fy <= Mo - 1)  # the gather's range only
+        base = (torch.where(ok, fy, 1.0).long() - 1) * N2 + (torch.where(ok, fx, 1.0).long() - 1)
+    else:
+        Xc, slx = _clip(Xq, 1.0, float(No))
+        Yc, sly = _clip(Yq, 1.0, float(Mo))
+        fx, fy = torch.floor(Xc), torch.floor(Yc)
+        ix = torch.where(fx <= No - 1, fx, float(No - 1))
+        iy = torch.where(fy <= Mo - 1, fy, float(Mo - 1))
+        wx, dx = _cubic(Xc - ix)
+        wy, dy = _cubic(Yc - iy)
+        base = (iy.long() - 1) * N2 + (ix.long() - 1)
+    V = Vx = Vy = torch.zeros_like(Xq)
+    for dr in range(4):
+        tap = [flat[base + dr * N2 + dc] for dc in range(4)]
+        rx = wx[0] * tap[0] + wx[1] * tap[1] + wx[2] * tap[2] + wx[3] * tap[3]
+        rd = dx[0] * tap[0] + dx[1] * tap[1] + dx[2] * tap[2] + dx[3] * tap[3]
+        V, Vx, Vy = V + wy[dr] * rx, Vx + wy[dr] * rd, Vy + dy[dr] * rx
+    if shared:
+        diff = i1 - V
+        return diff, _root(eps + diff * diff), Vx, Vy
+    diff = i1 - V * 0.25
+    return diff, torch.sqrt(eps + diff * diff), Vx * (0.25 * slx), Vy * (0.25 * sly)
+
+
+def k13_v2_transcribed(I1, VV, muu, muv, su, sv, pn, K, lam, eps, origin=None,
+                       local_image_shape=None, quad_chunk=0):
+    """``node_chain_v2_kernel``: v1's lanes, points and tree; per point its
+    constants from the table (``point_constants``), the query as v1 forms it,
+    the shared form where the query lies strictly inside the frame (the test
+    on global coordinates; a NaN query fails it) and v1's sample elsewhere;
+    a lane whose Ei sum is not finite, or that met a quotient's numerator
+    below the fast division's range (or eps below it), takes v1's sample at
+    every point."""
+    pts = autodiff_gq.point_constants(K).tolist()
+    Lx, M, N = muu.shape
+    Mo, No = I1.shape
+    r0, c0 = (0, 0) if origin is None else origin
+    rows = (r0 + torch.arange(M)).reshape(M, 1)
+    cols = (c0 + torch.arange(N)).reshape(1, N)
+    i1 = I1[rows, cols].expand(muu.shape)
+    col, row = (cols + 1).to(muu.dtype), (rows + 1).to(muu.dtype)
+    o1e, o2e = su * SQRT2, sv * SQRT2
+    sp, sm = torch.sqrt(1.0 + pn), torch.sqrt(1.0 - pn)
+    s, tt = (sp + sm) * 0.5, (sp - sm) * 0.5
+    flat, N2 = VV.reshape(-1), No + 2
+
+    def lane_sums(lane, fallback_only):
+        acc = [torch.zeros_like(muu) for _ in range(7)]
+        tiny = torch.zeros_like(muu, dtype=torch.bool) | (not eps >= 2.0 ** -120)
+        for k in range(lane, K * K, 4):
+            XI, XJ, ww = pts[k]
+            zi, zj = s * XI + tt * XJ, tt * XI + s * XJ
+            Xq, Yq = col + (o1e * zi + muu), row + (o2e * zj + muv)
+            v1 = _k13_point(flat, N2, Mo, No, i1, Xq, Yq, eps, False)
+            if fallback_only:
+                diff, F, X, Y = v1
+            else:
+                inside = (Xq > 1) & (Xq < No) & (Yq > 1) & (Yq < Mo)
+                v2 = _k13_point(flat, N2, Mo, No, i1, Xq, Yq, eps, True)
+                tiny = tiny | (inside & _below_fast_range(v2[0]))
+                diff, F, X, Y = (torch.where(inside, a, b) for a, b in zip(v2, v1))
+            h = ww * (diff / F)
+            gx, gy = h * X, h * Y
+            for q, term in enumerate((ww * F, gx, gy, gx * XI, gx * XJ, gy * XI, gy * XJ)):
+                acc[q] = acc[q] + term
+        return acc, tiny
+
+    lanes = []
+    for lane in range(4):
+        acc, tiny = lane_sums(lane, False)
+        exact, _ = lane_sums(lane, True)
+        ok = torch.isfinite(acc[0]) & ~tiny
+        lanes.append([torch.where(ok, a, b) for a, b in zip(acc, exact)])
+    tot = [(lanes[0][q] + lanes[1][q]) + (lanes[2][q] + lanes[3][q]) for q in range(7)]
+    return gq.GQChainRaw(-lam * tot[0], *(lam * v for v in tot[1:]))
+
+
+def _below_fast_range(d):
+    """``fast_div.cuh``'s record: a numerator with 0 < |d| < 2^-60, where
+    div_fast's quotient may not be the division's (torch divides exactly, so
+    here the record only selects which of two equal values is taken)."""
+    return (d != 0) & (d.abs() < 2.0 ** -60)
+
+
+def k14_v2_transcribed(mu, sg, u2e, o2e, rou, K, lam, eps, quad_chunk=0):
+    """``edge_chain_v2_kernel``: the pairs in the by-value rule's order
+    (``chain_rule_struct``: ``xi[k]``, ``xj[k]``, ``w[k]``, ``wxi[k]``,
+    ``wxj[k]``, k = 0 .. P - 1, then ``wc``), F by root(), h by the fast
+    division; an element whose Ei sum is not finite, or with a numerator
+    below the fast division's range (or eps below it), takes v1's sums
+    (sqrt and the division)."""
+    rule = autodiff_gq.chain_rule_struct(K, np.float64)
+    P = K * K // 2
+    o1e, o2e = sg[None] * SQRT2, o2e * SQRT2
+    delta = mu[None] - u2e
+    sp, sm = torch.sqrt(1.0 + rou), torch.sqrt(1.0 - rou)
+    s, tt = (sp + sm) * 0.5, (sp - sm) * 0.5
+    A, B = o1e * s - o2e * tt, o1e * tt - o2e * s
+
+    tiny = torch.zeros_like(rou, dtype=torch.bool) | (not eps >= 2.0 ** -120)
+
+    def sums(root):
+        nonlocal tiny
+        ef = eh = ci = cj = torch.zeros_like(rou)
+        for k in range(P):
+            q = A * float(rule["xi"][k]) + B * float(rule["xj"][k])
+            dp, dm = delta + q, delta - q
+            tiny = tiny | _below_fast_range(dp) | _below_fast_range(dm)
+            fp, fm = root(eps + dp * dp), root(eps + dm * dm)
+            hp, hm = dp / fp, dm / fm
+            odd = hp - hm
+            ef = ef + float(rule["w"][k]) * (fp + fm)
+            eh = eh + float(rule["w"][k]) * (hp + hm)
+            ci = ci + float(rule["wxi"][k]) * odd
+            cj = cj + float(rule["wxj"][k]) * odd
+        f0 = root(eps + delta * delta)
+        tiny = tiny | _below_fast_range(delta)
+        wc = float(rule["wc"])
+        return ef + wc * f0, eh + wc * (delta / f0), ci, cj
+
+    fast, exact = sums(_root), sums(torch.sqrt)
+    ok = torch.isfinite(fast[0]) & ~tiny
+    ef, eh, ci, cj = (torch.where(ok, a, b) for a, b in zip(fast, exact))
+    return gq.GQChainRaw(-lam * ef, -lam * eh, lam * eh, -lam * ci, -lam * cj, lam * ci,
+                         lam * cj)
+
+
+VERSIONS = ["plain", "transcribed", "v2 transcribed"]
+K13 = {"plain": autodiff_gq.node_chain_gq_torch, "transcribed": k13_transcribed,
+       "v2 transcribed": k13_v2_transcribed}
+K14 = {"plain": autodiff_gq.edge_chain_gq_torch, "transcribed": k14_transcribed,
+       "v2 transcribed": k14_v2_transcribed}
 K15 = {"plain": autodiff_gq.edge_diff_adjoint_torch, "transcribed": k15_transcribed}
 
 
-@pytest.mark.parametrize("probe", PROBES + ("nan", "shard block"))
-def test_k13_transcription_matches_jax_grad(probe):
-    I1, _, VV = _frames(1)
-    st = list(_probe("sigma 0.05" if probe in ("nan", "shard block") else probe, seed=1))
-    K = 5
+def _k13_probe(probe, seed=1):
+    """The K13 transcription tests' inputs: frames, the state (a NaN at a few
+    sites, +-inf in frame 1 and the state, or a shard's block) and the block's
+    origin."""
+    I1, _, VV = _frames(seed)
+    st = list(_probe("sigma 0.05" if probe in ("nan", "inf", "shard block") else probe,
+                     seed=seed))
     if probe == "nan":
         for k, site in ((0, (0, 3, 4)), (1, (1, 0, 0)), (4, (1, 5, 13))):
             st[k][site] = np.nan
-    origin = None
-    if probe == "shard block":  # frame 1 addressed at the block's pixel origin
-        origin = (4, 6)
+    if probe == "inf":  # a pixel of frame 1 and two state values
+        I1 = I1.copy()
+        I1[5, 6], I1[0, 0] = np.inf, -np.inf
+        st[0][0, 3, 4], st[2][1, 7, 2] = np.inf, np.inf
+    origin = (4, 6) if probe == "shard block" else None  # frame 1 at the block's origin
+    if origin is not None:
+        st = [x[:, :6, :8] for x in st[:5]] + [None]
+    return I1, VV, st, origin
+
+
+def _k13_transcription_matches_jax(fn, probe):
+    I1, VV, st, origin = _k13_probe(probe)
+    K = 5
+    if origin is not None:
         f = jpot.make_node_pot_bicubic(jnp.asarray(I1), jnp.asarray(VV), LAMD, EPS,
                                        origin=tuple(jnp.int32(o) for o in origin),
                                        local_image_shape=(6, 8))
-        st = [x[:, :6, :8] for x in st[:5]] + [None]
         value, want = _jax_grads(lambda *x: jgq.gq_ei(f, *x, jax_build_table(K, 0, np.float64)),
                                  *st[:5])
     else:
         value, want = _k13_jax(I1, VV, st, K)
-    raw = k13_transcribed(t(I1), t(VV), *map(t, st[:5]), K, LAMD, EPS, origin=origin)
+    raw = fn(t(I1), t(VV), *map(t, st[:5]), K, LAMD, EPS, origin=origin)
     plain = autodiff_gq.node_chain_gq_torch(
         t(I1), t(VV), *map(t, st[:5]), K, LAMD, EPS, origin=origin,
         local_image_shape=None if origin is None else (6, 8))
@@ -518,22 +682,147 @@ def test_k13_transcription_matches_jax_grad(probe):
         _close(getattr(raw, name), getattr(plain, name).numpy(), name)
 
 
-@pytest.mark.parametrize("probe", PROBES + ("nan",))
-@pytest.mark.parametrize("K", [5, 6])
-def test_k14_transcription_matches_jax_grad(probe, K):
-    st = list(_probe("sigma 0.05" if probe == "nan" else probe, seed=2))
+@pytest.mark.parametrize("probe", PROBES + ("nan", "shard block"))
+def test_k13_transcription_matches_jax_grad(probe):
+    _k13_transcription_matches_jax(k13_transcribed, probe)
+
+
+@pytest.mark.parametrize("probe", PROBES + ("nan", "shard block"))
+def test_k13_v2_transcription_matches_jax_grad(probe):
+    _k13_transcription_matches_jax(k13_v2_transcribed, probe)
+
+
+def _same(got, want, name):
+    """Bit for bit, NaN where NaN."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan]), (name, f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("probe", PROBES + ("nan", "inf", "tiny", "shard block"))
+@pytest.mark.parametrize("K", [5, 9])
+def test_k13_v2_transcription_is_v1s_bit_for_bit(K, probe, dtype):
+    # the shared form (no clamp: both slopes 1, the 0.25 in the y weights, the
+    # cell at the floor) and root() give v1's sums exactly; a query on the
+    # frame's clamp ("clamp": the centre node's), a NaN query, a lane whose
+    # sum root() leaves non-finite ("inf") and eps below the fast division's
+    # range ("tiny": eps = 0) take v1's sample
+    I1, VV, st, origin = _k13_probe("sigma 0.05" if probe == "tiny" else probe, seed=2)
+    args = ([t(I1).to(dtype), t(VV).to(dtype)] + [t(x).to(dtype) for x in st[:5]]
+            + [K, LAMD, 0.0 if probe == "tiny" else EPS])
+    v1 = k13_transcribed(*args, origin=origin)
+    v2 = k13_v2_transcribed(*args, origin=origin)
+    _same(v2, v1, f"K13 {probe} {dtype}")
+    if probe in ("nan", "inf"):
+        assert not bool(torch.isfinite(v2.Ei).all())
+
+
+def _k14_probe(probe, seed=2):
+    st = list(_probe("sigma 0.05" if probe in ("nan", "inf", "tiny") else probe, seed=seed))
+    if probe == "tiny":  # neighbours 1e-25 apart (or equal) at sigma 1e-27: |d| < 2^-60
+        r = np.random.default_rng(seed)
+        for k in (0, 1):
+            st[k] = np.round(st[k] * 4) / 4 + 1e-25 * r.integers(-1, 2, st[k].shape)
+        st[2], st[3] = np.full_like(st[2], 1e-27), np.full_like(st[3], 1e-27)
     if probe == "nan":
         st[0][0, 2, 3] = np.nan
         st[5][1, 0, 1, 4, 4] = np.nan
+    if probe == "inf":
+        st[0][0, 2, 3] = np.inf
+        st[3][1, 6, 7] = np.inf
+    return st
+
+
+def _k14_transcription_matches_jax(fn, probe, K):
+    st = _k14_probe(probe)
     ed = _edge_inputs(st)
     fj = jpot.make_edge_pot(LAMS, EPS)
     value, want = _jax_grads(lambda *x: jgq.gq_ei(fj, *x, jax_build_table(K, 0, np.float64)), *ed)
     mu, sg = t(np.stack(st[:2])), t(np.stack(st[2:4]))
     u2e, o2e = neighbour_stacks(mu, sg)
-    raw = k14_transcribed(mu, sg, u2e, o2e, t(st[5]), K, LAMS, EPS)
+    raw = fn(mu, sg, u2e, o2e, t(st[5]), K, LAMS, EPS)
     _close(raw.Ei, value, "Ei")
     for k, (p, w) in enumerate(zip(gq.chain_partials(raw, sg[None], o2e, t(st[5])), want)):
         _close(p.expand(w.shape), w, f"d/d(arg {k})")
+
+
+@pytest.mark.parametrize("probe", PROBES + ("nan",))
+@pytest.mark.parametrize("K", [5, 6])
+def test_k14_transcription_matches_jax_grad(probe, K):
+    _k14_transcription_matches_jax(k14_transcribed, probe, K)
+
+
+@pytest.mark.parametrize("probe", PROBES + ("nan",))
+@pytest.mark.parametrize("K", [5, 9])
+def test_k14_v2_transcription_matches_jax_grad(probe, K):
+    _k14_transcription_matches_jax(k14_v2_transcribed, probe, K)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("probe", PROBES + ("nan", "inf", "tiny"))
+@pytest.mark.parametrize("K", [6, 9])
+def test_k14_v2_transcription_is_v1s_bit_for_bit(K, probe, dtype):
+    # the by-value rule's order is v1's flat order and root() is sqrt's value,
+    # so the sums are v1's exactly; an element with an infinite input (root()
+    # gives NaN at +inf) or a numerator below the fast division's range
+    # ("tiny") takes v1's sums
+    st = _k14_probe(probe, seed=4)
+    if probe == "sigma 0.05":  # o1 = o2 on a few edges: a diagonal point's q = 0
+        st[2][:, 2:5], st[3][:, 2:5] = 0.37, 0.37
+    mu, sg = t(np.stack(st[:2])).to(dtype), t(np.stack(st[2:4])).to(dtype)
+    u2e, o2e = neighbour_stacks(mu, sg)
+    args = (mu, sg, u2e, o2e, t(st[5]).to(dtype), K, LAMS, EPS)
+    _same(k14_v2_transcribed(*args), k14_transcribed(*args), f"K14 {probe} {dtype}")
+
+
+def test_variants_resolve():
+    # "v2" by default where it is compiled: K13 up to node_gq.V2_MAX_K points an
+    # axis (its point table), K14 from K = 2 (rule_instance.cuh); "v1" elsewhere
+    assert autodiff_gq.VARIANTS == ("v1", "v2")
+    rv = autodiff_gq.resolve_variant
+    assert rv("K13", None, 9) == rv("K13", None, 16) == rv("K13", "v2", 3) == "v2"
+    assert rv("K13", None, 17) == rv("K13", "v1", 64) == "v1"
+    assert rv("K14", None, 9) == rv("K14", None, 2) == rv("K14", None, 64) == "v2"
+    assert rv("K14", None, 1) == "v1"
+    for call in (lambda: rv("K13", "v2", 17), lambda: rv("K13", "v1", 65),
+                 lambda: rv("K14", "v2", 1), lambda: rv("K13", "v3", 9),
+                 lambda: rv("K15", None, 9)):
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("K, dtype", [(9, np.float32), (9, np.float64), (5, np.float32)])
+def test_chain_rule_struct_is_paired_chain_rules(K, dtype):
+    # K14 v2's rule by value (ChainRule<T, K>): the flat rule's bytes, field by
+    # field; 804 bytes for float32 at K = 9 (the source's static_assert)
+    rec = autodiff_gq.chain_rule_struct(K, dtype)
+    flat = autodiff_gq.paired_chain_rule(K, dtype)
+    P = K * K // 2
+    assert rec.tobytes() == flat.tobytes() and rec.dtype.itemsize == (5 * P + 1) * flat.itemsize
+    if (K, dtype) == (9, np.float32):
+        assert rec.dtype.itemsize == 804
+    for k, f in enumerate(("xi", "xj", "w", "wxi", "wxj")):
+        np.testing.assert_array_equal(rec[f], flat[k * P:(k + 1) * P])
+    _, w = gauss_hermite(K)
+    w = 0.5 * (w + w[::-1])  # symmetrised, as paired_chain_rule's
+    k = np.arange(P)
+    np.testing.assert_array_equal(rec["w"], (w[k % K] * w[k // K]).astype(dtype))
+    assert rec["wc"] == flat[-1] == dtype(w[K // 2] ** 2 if K % 2 else 0)
+
+
+@pytest.mark.parametrize("K", [3, 9, 16])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_point_constants_are_node_rules(K, dtype):
+    # K13 v2's per-point table (point_table in csrc/node_gq.cu): XJ outer, XI
+    # inner, the weight product rounded once in the kernel's type, as v1 forms it
+    pts = autodiff_gq.point_constants(K, dtype)
+    x, w = np.split(node_rule(K, dtype), 2)
+    assert pts.shape == (K * K, 3) and pts.dtype == dtype
+    for p in range(K * K):
+        j, i = divmod(p, K)
+        assert pts[p, 0] == x[i] and pts[p, 1] == x[j] and pts[p, 2] == dtype(w[i] * w[j])
 
 
 @pytest.mark.parametrize("probe", PROBES + ("nan", "floor"))
@@ -662,9 +951,9 @@ def _jax_path(name):
     return pc, pp, js, (j1, jaux), seg
 
 
-def _transcribed_routes(monkeypatch):
-    monkeypatch.setitem(pg._NODE_ADJOINT, "auto", k13_transcribed)
-    monkeypatch.setitem(pg._EDGE_ROUTES["K14"], "auto", k14_transcribed)
+def _transcribed_routes(monkeypatch, version="transcribed"):
+    monkeypatch.setitem(pg._NODE_ADJOINT, "auto", K13[version])
+    monkeypatch.setitem(pg._EDGE_ROUTES["K14"], "auto", K14[version])
     monkeypatch.setitem(pg._EDGE_ROUTES["K15"], "auto", k15_transcribed)
 
 
@@ -672,8 +961,8 @@ def _transcribed_routes(monkeypatch):
 @pytest.mark.parametrize("path", list(PATHS))
 def test_one_autodiff_sweep_matches_jax(monkeypatch, path, version):
     pc, pp, js, (j1, jaux), _ = _jax_path(path)
-    if version == "transcribed":
-        _transcribed_routes(monkeypatch)
+    if version != "plain":
+        _transcribed_routes(monkeypatch, version)
     n = [f.launches for f in COUNTED]
     p1, paux = pg.make_sweep(pc, SWEEP_SHAPE)(pp, port_state(js))
     assert [f.launches for f in COUNTED] == n  # the CPU launches nothing

@@ -1997,9 +1997,17 @@ def _autodiff_frames(M, N):
     return I1, pad_cubic(torch.roll(I1, 1, 1) + torch.as_tensor(r.normal(0, 5, (M, N))))
 
 
+# K13 and K14 in each variant (None: K15, which has one)
+AUTODIFF_CASES = [("K13", "v1"), ("K13", "v2"), ("K14", "v1"), ("K14", "v2"), ("K15", None)]
+
+
+def _variant(variant):
+    return {} if variant is None else dict(variant=variant)
+
+
 @pytest.mark.parametrize("probe", ["sigma 0.05", "init", "bounds", "clamp"])
-@pytest.mark.parametrize("name", ["K13", "K14", "K15"])
-def test_autodiff_kernels_match_plain(dev, name, probe):
+@pytest.mark.parametrize("name, variant", AUTODIFF_CASES)
+def test_autodiff_kernels_match_plain(dev, name, variant, probe):
     # float64 within 1e-10 of each output's largest magnitude; float32 against
     # the f64 golden: the kernel's error at most twice the plain version's
     g = torch.Generator().manual_seed(len(probe))
@@ -2010,7 +2018,7 @@ def test_autodiff_kernels_match_plain(dev, name, probe):
     for dtype in (torch.float64, torch.float32):
         kern, plain, args = _autodiff_calls(name, st, frames, dtype, dev)
         n = kern.launches
-        got, want = kern(*args), plain(*args)
+        got, want = kern(*args, **_variant(variant)), plain(*args)
         assert kern.launches == n + 1
         if dtype == torch.float64:
             gold = want
@@ -2022,8 +2030,8 @@ def test_autodiff_kernels_match_plain(dev, name, probe):
                 assert ek <= 2.0 * ep + 1e-6 * float(w.abs().max()), (name, k, ek, ep)
 
 
-@pytest.mark.parametrize("name", ["K13", "K14", "K15"])
-def test_autodiff_kernels_nan_and_shard_block(dev, name):
+@pytest.mark.parametrize("name, variant", AUTODIFF_CASES)
+def test_autodiff_kernels_nan_and_shard_block(dev, name, variant):
     # NaN inputs: NaN exactly where the plain version's is, every other element
     # the NaN-free call's bit for bit; a shard's block (K13 at its pixel origin,
     # K15 with its halo) gives the whole lattice's sums there bit for bit
@@ -2031,13 +2039,14 @@ def test_autodiff_kernels_nan_and_shard_block(dev, name):
     L, M, N = 2, 40, 52
     st = list(_autodiff_state(g, L, M, N, "sigma 0.05"))
     frames = _autodiff_frames(M, N)
+    vkw = _variant(variant)
     for dtype in (torch.float64, torch.float32):
         kern, plain, args = _autodiff_calls(name, st, frames, dtype, dev)
-        clean = kern(*args)
+        clean = kern(*args, **vkw)
         bad = [x.clone() for x in st]
         bad[0][1, 7, 9], bad[4][0, M - 1, N - 1], bad[5][1, 0, 1, 5, 5] = (float("nan"),) * 3
         kern, plain, bargs = _autodiff_calls(name, bad, frames, dtype, dev)
-        got, want = kern(*bargs), plain(*bargs)
+        got, want = kern(*bargs, **vkw), plain(*bargs)
         for a, w, c in zip(got, want, clean):
             nan = torch.isnan(w)
             assert bool(nan.any()) and torch.equal(torch.isnan(a), nan)
@@ -2046,10 +2055,10 @@ def test_autodiff_kernels_nan_and_shard_block(dev, name):
         if name == "K13":
             blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
             part = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:],
-                        origin=(r0, c0), local_image_shape=(m, n))
+                        origin=(r0, c0), local_image_shape=(m, n), **vkw)
         elif name == "K14":
             blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
-            part = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:])
+            part = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:], **vkw)
         else:
             blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
             ms = torch.stack(args[:2])
@@ -2059,16 +2068,72 @@ def test_autodiff_kernels_nan_and_shard_block(dev, name):
         assert all(torch.equal(a, c[blk]) for a, c in zip(part, clean))
 
 
+def _same_bits(got, want):
+    """Bit for bit, NaN where NaN."""
+    for a, b in zip(got, want):
+        nan = torch.isnan(b)
+        if not (torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("probe", ["sigma 0.05", "init", "bounds", "clamp", "nan", "inf",
+                                   "tiny"])
+@pytest.mark.parametrize("name", ["K13", "K14"])
+def test_autodiff_v2_is_v1_bit_for_bit(dev, name, probe):
+    # v2 keeps v1's arithmetic, lanes and summation order: the same sums, bit
+    # for bit, in each instance (K = 9 compiled and generic, K = 5), in both
+    # types; K13 v2's L1 route (window_bytes = 0) gives its shared route's sums
+    # and counts every CTA and site; an infinite input (root() gives NaN at
+    # +inf) and quotients below the fast division's range ("tiny": K14's
+    # neighbours 1e-25 apart at sigma 1e-27, K13 at eps = 0) take v1's sums
+    g = torch.Generator().manual_seed(len(probe) + 3)
+    L, M, N = 3, 47, 57
+    st = list(_autodiff_state(g, L, M, N, probe if probe not in ("nan", "inf", "tiny")
+                              else "sigma 0.05"))
+    I1, VV = _autodiff_frames(M, N)
+    if probe == "nan":
+        st[0][1, 7, 9], st[4][0, M - 1, N - 1], st[5][1, 0, 1, 5, 5] = (float("nan"),) * 3
+    if probe == "inf":
+        I1 = I1.clone()
+        I1[5, 6], st[0][1, 7, 9], st[3][0, 3, 3] = (float("inf"),) * 3
+    if probe == "tiny" and name == "K14":
+        for k in (0, 1):
+            st[k] = torch.round(st[k] * 4) / 4 + 1e-25 * torch.randint(-1, 2, st[k].shape,
+                                                                       generator=g)
+        st[2], st[3] = (torch.full_like(st[2], 1e-27),) * 2
+    at = 7 if name == "K13" else 5  # the rule's K among the arguments
+    for dtype in (torch.float64, torch.float32):
+        kern, _, args = _autodiff_calls(name, st, (I1, VV), dtype, dev)
+        if probe == "tiny" and name == "K13":
+            args = (*args[:9], 0.0)
+        for K in (9, 5):
+            a = (*args[:at], K, *args[at + 1:])
+            v1 = kern(*a, variant="v1")
+            for generic in (False, True):
+                assert _same_bits(kern(*a, variant="v2", generic=generic), v1), (dtype, K, generic)
+            if name == "K13":
+                cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+                every = torch.zeros(2, dtype=torch.int64, device=dev)
+                shared = kern(*a, l1_counts=cnt)
+                assert _same_bits(kern(*a, window_bytes=0, l1_counts=every), shared)
+                assert every.tolist() == [node_gq.v2_ctas((L, M, N), 1), L * M * N]
+                assert 0 <= int(cnt[1]) <= L * M * N
+
+
+@pytest.mark.parametrize("variant", autodiff_gq.VARIANTS)
 @pytest.mark.parametrize("preset, want", [
     ("tpu_fast", dict(K1=1, K15=1)),
     ("full_mixture", dict(K13=1, K14=1)),
     ("legacy_v2", dict(K6=1, K14=1)),
 ])
-def test_autodiff_graph_segment_launches_its_kernels(dev, preset, want):
+def test_autodiff_graph_segment_launches_its_kernels(dev, preset, want, variant, monkeypatch):
     # the three autodiff paths' graph segments: each sweep's kernels once a
     # replay, its backward captured with it; node_kernel = edge_kernel =
     # "torch" (torch.autograd of the plain expectation) launches none, and a
-    # sweep through the kernels is as close to the f64 golden as through it
+    # sweep through the kernels is as close to the f64 golden as through it;
+    # K13 and K14 in each variant
+    monkeypatch.setattr(autodiff_gq, "_DEFAULT_VARIANT", variant)
     names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11", "K12",
              "K13", "K14", "K15")
     kw = dict(gradient_estimator="autodiff", corr_tor=0.99)
