@@ -287,9 +287,10 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    K1 = 21) against their plain versions on the init, sigma = 0.05, the
    means on the flow range's integer bounds (queries on the frame's clamp)
    and the |rho| clamp, float64 within 1e-10 of each sum's largest magnitude
-   (plus 1e-12), float32 by the ratio rule against the float64 golden, K13
-   and K14 in both variants, v2's sums v1's bit for bit on every probe (NaN
-   and infinite inputs too), K13 v2's L1 route its shared route's bit for
+   (plus 1e-12), float32 by the ratio rule against the float64 golden, each
+   in both variants, v2's sums v1's bit for bit on every probe (NaN and
+   infinite inputs too; K15 also at K1 = 25 and 13 and through its generic
+   instance), K13 v2's L1 route its shared route's bit for
    bit, with its L1-route shares; a shard's block bit for bit the whole
    lattice's (K13 at its pixel origin, K15 with its halo); NaN probes; each
    one's time (both variants in turns) beside its plain version's, its
@@ -299,10 +300,19 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    through K13 and K14, ``legacy_v2`` through K6 and K14): one sweep from the
    init and from sigma = 0.05 through the kernels no further from the
    float64 golden than twice the plain route (``node_kernel = edge_kernel =
-   "torch"``); 30-sweep graph segments in turns, K13 and K14 in v2, v1, v2
-   again, then the plain route: ms a sweep, the capturing call's peak
-   memory, the kernels a replay launches (each path's once a sweep in
+   "torch"``); 30-sweep graph segments in turns, K13, K14 and K15 in v2,
+   v1, v2 again, then the plain route: ms a sweep, the capturing call's
+   peak memory, the kernels a replay launches (each path's once a sweep in
    either variant, none on the plain route);
+18d. the configurations past a kernel's shape limit (``d7_phase``):
+   ``tpu_fast(L=5)`` and ``tpu_fast_super(L=5)``, under the Stein and the
+   autodiff estimators, one 376x452 sweep from the init and from sigma =
+   0.05 through K1 in groups of components (3 + 2) three ways (kernels f32,
+   plain f32, plain f64: the ratio rule), with K1's launches the groups'
+   count a sweep; K1's time at L = 5 against L = 3; and
+   ``full_mixture(K=65)`` on a crop, past K4's and K3's limits: one sweep
+   on ``"auto"`` that launches neither and does not raise, and
+   ``check_supported`` refusing ``"cuda"`` with the limit named;
 19. the command line (``gqmap_tpu_torch.cli.main.main``, in this process,
    every launch counter set to 0 before each call) on a synthetic dataset
    written under ``GQMAP_DATA``: two 376x452 sequences (smoothed noise,
@@ -466,8 +476,8 @@ v1's launches, is 0), ``full_mixture`` for
 K3 and K4, the Chebyshev ``full_mixture`` solve for K5, the ``legacy_v2``
 solve for K6, the ``legacy_v3`` solve for K7, the ``legacy_v1`` run for
 K10 and K11, the ``full_mixture(window_rg=2)`` solve for K12, and phase
-18c's 30-sweep segments of ``full_mixture`` (K13, K14: each variant's
-first turn) and ``tpu_fast`` (K15) under autodiff; ``launches_by_path``
+18c's 30-sweep segments of ``full_mixture`` (K13, K14) and ``tpu_fast``
+(K15) under autodiff, each variant's first turn; ``launches_by_path``
 every path's, the drivers', ``ctf``'s and the
 sharded paths' (each rank's), the Chebyshev paths' and the roofline
 phase's and the graph phase's included;
@@ -732,10 +742,11 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
     # slow paths, K13 v2's fallback, are calls). K13 v1: its point loop (the
     # loop with a point's 16 table loads, LDG, and its root); v2: the float
     # K = 9 instance's point loop of the shared-memory route (the loop with
-    # the most LDS: the 16 taps and the point's constants). K14 v1 and K15:
-    # the pair loop (the smallest loop with MUFU.RSQ, one a point) per point;
-    # K14 v2: the K = 9 instance's hot path through the whole function (its
-    # pairs unrolled; set-up and epilogue included) per point.
+    # the most LDS: the 16 taps and the point's constants). K14 v1 and K15
+    # v1: the pair loop (the smallest loop with MUFU.RSQ, one a point) per
+    # point; K14 v2 and K15 v2: the K = 9 (K1 = k1, 32-bit offsets) instance's
+    # hot path through the whole function (its pairs unrolled, K15's two
+    # edges interleaved; set-up and epilogue included) per point.
     def mufu(ins):
         return sum("MUFU" in i for i in ins)
 
@@ -756,12 +767,14 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
             sum("MUFU.RSQ" in i for i in path) if path else None)
         per[f"{kern} point"] = len(path) / points if path else None
         per[f"{kern} mufu"] = mufu(path) / points if path else None
-    instrs, labels = find(f"edge_chain_v2_kernelIfLi{K}EE")
-    exits = [a for a, i in instrs if "EXIT" in i]
-    path = shared_form_path(instrs, labels, dict(start=instrs[0][0], end=max(exits)), [],
-                            calls=False) if exits else None
-    per["K14 v2 point"] = len(path) / (K * K) if path else None
-    per["K14 v2 mufu"] = mufu(path) / (K * K) if path else None
+    for kern, key, points in (("K14 v2", f"edge_chain_v2_kernelIfLi{K}EE", K * K),
+                              ("K15 v2", f"edge_diff_v2_kernelIfLi{k1}EjE", 2 * k1)):
+        instrs, labels = find(key)
+        exits = [a for a, i in instrs if "EXIT" in i]
+        path = shared_form_path(instrs, labels, dict(start=instrs[0][0], end=max(exits)), [],
+                                calls=False) if exits else None
+        per[f"{kern} point"] = len(path) / points if path else None
+        per[f"{kern} mufu"] = mufu(path) / points if path else None
     # K5: the u-degree loop of the instances for Q = 16 and 32 (the
     # innermost loop holding an a-step: the fewest instructions among those
     # with at least R (QB + 2) FFMA and FMUL, a row's QB - 1 products for each
@@ -2340,7 +2353,7 @@ def autodiff_probes(cfg, dev):
     return probes
 
 
-AUTODIFF_VARIANTS = {"K13": ("v2", "v1"), "K14": ("v2", "v1"), "K15": (None,)}  # default first
+AUTODIFF_VARIANTS = {"K13": ("v2", "v1"), "K14": ("v2", "v1"), "K15": ("v2", "v1")}  # default first
 AUTODIFF_SIGMAS = (0.05, 0.5, 2.0, 3.0, 4.5)  # K13's budget table: converged .. the init's
 
 
@@ -2348,9 +2361,10 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
     """Phase 18b: K13, K14 and K15 at 376x452 against their plain versions
     (float64 within 1e-10 of each sum's largest magnitude, float32 by the
     ratio rule against the float64 golden; :func:`compare_quad`'s floor) on
-    :func:`autodiff_probes`' states, K13 and K14 in both variants
+    :func:`autodiff_probes`' states, each in both variants
     (:data:`AUTODIFF_VARIANTS`): v2's sums v1's bit for bit on every probe
-    (and in K13 v2's runtime-K and K14 v2's generic instance at K = 9), K13
+    (and in K13 v2's runtime-K and K14 v2's and K15 v2's generic instance at
+    the main rule; K15 also at K1 = 25 and 13), K13
     v2's L1 route (``window_bytes=0``) its shared route's bit for bit, its
     L1-route shares; a shard's block bit for bit the whole lattice's; NaN
     and infinite probes; each variant's time beside its plain version's, its
@@ -2392,9 +2406,6 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
         return (ag.edge_diff_adjoint_cuda, ag.edge_diff_adjoint_torch,
                 (mu, sg, rou, k1, fast.lambdas, fast.epsn), {})
 
-    def vkw(variant):
-        return {} if variant is None else dict(variant=variant)
-
     def worst_rel(xs, gold):
         return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
 
@@ -2413,7 +2424,7 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
                    "K15": math.prod(shapes["K15"]) * k1}
     sass_units = {("K13", "v1"): "K13 v1 point", ("K13", "v2"): "K13 v2 point",
                   ("K14", "v1"): "K14 v1 point", ("K14", "v2"): "K14 v2 point",
-                  ("K15", None): "K15 point"}
+                  ("K15", "v1"): "K15 point", ("K15", "v2"): "K15 v2 point"}
     checks = 0
     for name in ("K13", "K14", "K15"):
         variants = AUTODIFF_VARIANTS[name]
@@ -2433,7 +2444,7 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
                     gold = plain(*operands(name, st, torch.float64)[2], **pkw)
                 outs = {}
                 for variant in variants:
-                    got = outs[variant] = kern(*args, **vkw(variant))
+                    got = outs[variant] = kern(*args, variant=variant)
                     a, r, ok = compare_quad(got, want, dtype)
                     what = f"{name} {variant or ''} {shapes[name]} {str(dtype)[6:]} {sname}"
                     checks += 1
@@ -2448,12 +2459,23 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
                         if sname == "converged":
                             recs[variant]["max_abs_err"] = a
                 if len(variants) > 1:
-                    # v2 is v1 bit for bit, in the other instance at K = 9 too
+                    # v2 is v1 bit for bit, in the other instance at the main rule too
                     other = kern(*args, variant="v2", generic=True)
                     rec["v2_equals_v1_checks"] += 1
                     require(same(outs["v2"], outs["v1"]) and same(other, outs["v1"]),
                             f"{name} {str(dtype)[6:]} {sname}: v2's sums v1's bit for bit (the "
-                            "K = 9 instance and the generic one)")
+                            "main rule's instance and the generic one)")
+                if name == "K15":
+                    # K15 v2 at the super presets' K1 = 25 (its instance and the
+                    # generic one) and at K1 = 13 (generic): v1's outputs bit for bit
+                    for rule in (25, 13):
+                        a = (*args[:3], rule, *args[4:])
+                        v1 = kern(*a, variant="v1")
+                        rec["v2_equals_v1_checks"] += 1
+                        require(same(kern(*a, variant="v2"), v1)
+                                and same(kern(*a, variant="v2", generic=True), v1),
+                                f"K15 {str(dtype)[6:]} {sname} K1 = {rule}: v2's outputs v1's "
+                                "bit for bit (its instance and the generic one)")
                 if name == "K13":
                     # the L1 route (a budget of 0): every CTA and site, the same bits
                     cnt = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -2478,22 +2500,22 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
         for variant in variants:
             for dtype in (torch.float64, torch.float32):
                 kern, plain, args, pkw = operands(name, st, dtype)
-                whole = kern(*args, **vkw(variant))
+                whole = kern(*args, variant=variant)
                 r0, c0, m, n = H // 10, W // 9, H // 4 + 7, W // 2 - 23  # odd offsets
                 blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
                 if name == "K13":
                     got = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:],
-                               origin=(r0, c0), local_image_shape=(m, n), **vkw(variant))
+                               origin=(r0, c0), local_image_shape=(m, n), variant=variant)
                 elif name == "K14":
                     got = kern(*[x[blk].contiguous() for x in args[:5]], *args[5:],
-                               **vkw(variant))
+                               variant=variant)
                 else:
                     mu, sg, rou = args[:3]
                     ms = torch.stack([mu, sg])
                     halo = (ms[..., r0 + m:r0 + m + 1, c0:c0 + n].contiguous(),
                             ms[..., r0:r0 + m, c0 + n:c0 + n + 1].contiguous())
                     got = kern(*[x[blk].contiguous() for x in (mu, sg, rou)], *args[3:],
-                               halo=halo)
+                               halo=halo, variant=variant)
                 require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
                         f"{name} {variant or ''} {str(dtype)[6:]} block of ({m}, {n}) sites at "
                         f"({r0}, {c0}): the whole lattice's sums there, bit for bit")
@@ -2510,8 +2532,8 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
             want = plain(*args, **pkw)
             clean_args = operands(name, st, dtype)[2]
             for variant in variants:
-                got = kern(*args, **vkw(variant))
-                clean = kern(*clean_args, **vkw(variant))
+                got = kern(*args, variant=variant)
+                clean = kern(*clean_args, variant=variant)
                 ok = all(bool(torch.isnan(w).any())
                          and torch.equal(torch.isnan(g), torch.isnan(w))
                          and torch.equal(g[~torch.isnan(w)], c[~torch.isnan(w)])
@@ -2531,15 +2553,17 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
                 require(not all(bool(torch.isfinite(x).all()) for x in v1)
                         and same(kern(*args, variant="v2"), v1),
                         f"{name} {str(dtype)[6:]} infinite inputs: v2's sums v1's bit for bit")
-                # quotients below div_fast's range: K14 on neighbours 1e-25 apart with
-                # sigma 1e-27, K13 at eps = 0 (v2 takes v1's division throughout)
+                # quotients below div_fast's range: K14 and K15 on neighbours 1e-25
+                # apart with sigma 1e-27, K13 at eps = 0 (v2 takes v1's division
+                # throughout)
                 kern, _, args, _ = operands(name, st, dtype)
-                if name == "K14":
+                if name in ("K14", "K15"):
                     g = torch.Generator().manual_seed(5)
                     mu = torch.round(args[0] * 4) / 4 + 1e-25 * torch.randint(
                         -1, 2, args[0].shape, generator=g).to(dev, dtype)
                     sg = torch.full_like(args[1], 1e-27)
-                    args = (mu, sg, *neighbour_stacks(mu, sg), *args[4:])
+                    args = ((mu, sg, *neighbour_stacks(mu, sg), *args[4:]) if name == "K14"
+                            else (mu, sg, *args[2:]))
                 else:
                     args = (*args[:9], 0.0)
                 v1 = kern(*args, variant="v1")
@@ -2555,9 +2579,9 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
         iargs = operands(name, probes["init"], torch.float32)[2]
         for variant in variants:
             r = recs[variant]
-            r["ms"], r["ms_min"] = kernel_ms(lambda: kern(*args, **vkw(variant)))
+            r["ms"], r["ms_min"] = kernel_ms(lambda: kern(*args, variant=variant))
             if name == "K13":
-                r["init_ms"], _ = kernel_ms(lambda: kern(*iargs, **vkw(variant)))
+                r["init_ms"], _ = kernel_ms(lambda: kern(*iargs, variant=variant))
             if (name, variant) == ("K13", "v2"):  # its L1 route (a budget of 0)
                 r["l1_route_ms"], _ = kernel_ms(lambda: kern(*args, window_bytes=0))
                 r["init_l1_route_ms"], _ = kernel_ms(lambda: kern(*iargs, window_bytes=0))
@@ -2568,7 +2592,7 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
             r["sass_issue_ms"] = issue_ms(sass_units[name, variant], issue_units[name])
         for variant in variants[::-1]:  # and again, in the other order
             r = recs[variant]
-            r["ms_again"], _ = kernel_ms(lambda: kern(*args, **vkw(variant)))
+            r["ms_again"], _ = kernel_ms(lambda: kern(*args, variant=variant))
         if name == "K13":
             # K13 v2's window budget (the default, K4 v2's; 12 KB, which sends the
             # tiles of wide sites through L1; 0: every site through L1) against v1,
@@ -2604,14 +2628,14 @@ def kernels_autodiff(dev, record, I1, I2, issue_ms):
                 f"{r['share']['sheet']:.1%}, measured {r['share']['measured']:.1%}; SASS issue "
                 f"bound {issue if issue is None else f'{issue:.4f}'} ms"
                 + ("" if issue is None else f" ({issue / r['ms']:.1%})"))
-        rec.update(recs[None] if variants == (None,) else recs)
+        rec.update(recs)
         del args, iargs
         torch.cuda.empty_cache()
     del probes
     record["K13"]["phase_s"] = time.time() - t_phase
-    log(f"  phase kernels K13-K15: {checks} checks against the plain versions, "
-        f"{record['K13']['v2_equals_v1_checks'] + record['K14']['v2_equals_v1_checks']} of v2 "
-        f"against v1, {time.time() - t_phase:.1f} s")
+    v2_checks = sum(record[k]["v2_equals_v1_checks"] for k in ("K13", "K14", "K15"))
+    log(f"  phase kernels K13-K15: {checks} checks against the plain versions, {v2_checks} of "
+        f"v2 against v1, {time.time() - t_phase:.1f} s")
 
 
 def autodiff_segments(dev, record, by_path, kfns):
@@ -2623,8 +2647,8 @@ def autodiff_segments(dev, record, by_path, kfns):
     of the plain expectation) against the float64 golden (the plain route in
     float64; the kernels' error at most twice the plain route's); then
     :data:`AUTODIFF_SWEEPS`-sweep graph segments from sigma = 0.05 in turns
-    (the kernels with K13 and K14 in v2, v1 (on the paths that launch them)
-    and v2 again, then the plain route): ms a sweep by CUDA events, the
+    (the kernels with K13, K14 and K15 in v2, v1 and v2 again, then the
+    plain route): ms a sweep by CUDA events, the
     capturing call's peak memory, and the kernels a replay launches
     (counters 0 just before each timed segment, read after): the path's
     kernels once a sweep through the kernels in either variant, none through
@@ -2665,11 +2689,9 @@ def autodiff_segments(dev, record, by_path, kfns):
         del probs[torch.float64]
         problem = probs[torch.float32]
         start = cast(conv64, torch.float32)
-        # K13 and K14 through v2 (the default), v1 and v2 again, then the plain route
+        # K13, K14 and K15 through v2 (the default), v1 and v2 again, then the plain route
         turns = [("v2", {}, "v2"), ("v1", {}, "v1"), ("v2 again", {}, "v2"),
                  ("plain", plain_routes, "v2")]
-        if "K13" not in want and "K14" not in want:
-            turns = [x for x in turns if x[0] != "v1"]
         for turn, routes, variant in turns:
             ag._DEFAULT_VARIANT = variant
             tcfg = dataclasses.replace(cfg, **routes)
@@ -2708,6 +2730,124 @@ def autodiff_segments(dev, record, by_path, kfns):
         torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
     log(f"  phase autodiff segments {out['phase_s']:.1f} s")
+
+
+D7_PRESETS = ("tpu_fast", "tpu_fast_super")  # at L = 5: K1 in two groups of components
+D7_CROP = (64, 80)  # full_mixture(K=65)'s frame: its plain sums take 4,225 points a site
+
+
+def d7_phase(dev, record, by_path, kfns):
+    """Phase 18d: configurations the JAX package runs past a kernel's shape
+    limit run on the card. ``tpu_fast(L=5)`` and ``tpu_fast_super(L=5)``
+    under the Stein and the autodiff estimators: one 376x452 sweep from the
+    init and from sigma = 0.05 three ways (:func:`three_way_sweep`: kernels
+    f32 on ``"auto"``, plain f32, plain f64), then one counted sweep that
+    launches K1 once a group of components (``cosine_gq.component_groups``:
+    3 + 2) and K2 (Stein) or K15 (autodiff) once; K1 at L = 5 held to the
+    plain full sums (float64 within 1e-10, float32 within phase 3's
+    tolerance) and timed against L = 3 on the same field. ``full_mixture(K=65)``
+    on a crop, past K4's and K3's limits: one sweep on ``"auto"`` that is
+    finite and launches no kernel, and ``check_supported`` refusing
+    ``"cuda"`` for each term with the limit named."""
+    from gqmap_tpu_torch import FlowRange, GQMAPConfig
+    from gqmap_tpu_torch.kernels import cosine_gq
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    log("phase D7")
+    t_phase = time.time()
+    I1, I2, _ = synthetic_pair()
+    fr = FlowRange(*FR)
+    out = record["D7"] = {"card": smi("name,power.limit")}
+    plain = dict(node_kernel="torch", edge_kernel="torch")
+    groups = len(cosine_gq.component_groups(5))
+
+    def cast(st, dtype):
+        return pg.GQState(*(x.to(dtype) if x.is_floating_point() else x for x in st))
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in kfns.values():
+            f.launches = 0
+
+    for preset in D7_PRESETS:
+        base = getattr(GQMAPConfig, preset)(L=5, its=300, eval_every=300)
+        c64 = dataclasses.replace(base, dtype="float64")
+        probs = {torch.float32: pg.make_problem(base, I1, I2, fr, dev),
+                 torch.float64: pg.make_problem(c64, I1, I2, fr, dev)}
+        st64 = pg.init_state(c64, fr, (H, W), seed=0, device=dev)
+        conv64 = st64._replace(sigmau=torch.full_like(st64.sigmau, 0.05),
+                               sigmav=torch.full_like(st64.sigmav, 0.05))
+        rec = out[preset] = {}
+        for est in ("stein", "autodiff"):
+            cfg = dataclasses.replace(base, gradient_estimator=est)
+            cfg64 = dataclasses.replace(cfg, dtype="float64")
+            three_way_sweep(f"{preset}(L=5) {est} ",
+                            pg.make_sweep(dataclasses.replace(cfg64, **plain), (H, W)),
+                            pg.make_sweep(dataclasses.replace(cfg, **plain), (H, W)),
+                            pg.make_sweep(cfg, (H, W)), probs,
+                            (("init", st64), ("converged", conv64)), cast)
+            sweep = pg.make_sweep(cfg, (H, W))
+            zero()
+            st, aux = sweep(probs[torch.float32], cast(conv64, torch.float32))
+            torch.cuda.synchronize()
+            counts = {k: f.launches for k, f in kfns.items()}
+            by_path[f"{preset}(L=5) {est} (one sweep)"] = counts
+            want = launch_counts(K1=groups, **{"K15" if est == "autodiff" else "K2": 1})
+            finite = all(bool(torch.isfinite(x).all()) for x in st if x.is_floating_point())
+            require(finite and bool(torch.isfinite(aux.energy)) and counts == want,
+                    f"{preset}(L=5) {est}: one sweep on 'auto', finite state, launches {counts} "
+                    f"(want {want}: K1 once a group of {cosine_gq.component_groups(5)})")
+        # K1 in groups against the plain full sums, and its time at L = 5 and L = 3
+        for dtype in (torch.float64, torch.float32):
+            s = cast(conv64, dtype)
+            p = probs[dtype]
+            sites = (s.muu, s.muv, s.sigmau, s.sigmav, s.pn)
+            a, r, ok = compare(cosine_gq.cos_mode_sums_cuda(p.cheb, *sites),
+                               cosine_gq.cos_mode_sums_torch(p.cheb, *sites), dtype)
+            require(ok, f"K1 {preset}(L=5) in groups {str(dtype)[6:]} converged: max abs err "
+                        f"{a:.3e}, rel {r:.3e}")
+            if dtype == torch.float32:
+                three = tuple(x[:3].contiguous() for x in sites)
+                rec["K1_ms"] = {
+                    "L=5": kernel_ms(lambda: cosine_gq.cos_mode_sums_cuda(p.cheb, *sites))[0],
+                    "L=3": kernel_ms(lambda: cosine_gq.cos_mode_sums_cuda(p.cheb, *three))[0]}
+                rec["K1_max_abs_err"] = a
+        log(f"  {preset}(L=5) on {out['card']}: K1 converged f32 (median ms) {rec['K1_ms']}, "
+            f"{groups} launches a call at L = 5")
+        del probs
+        torch.cuda.empty_cache()
+
+    cfg = GQMAPConfig.full_mixture(K=65, quad_chunk=700, its=300)
+    Mc, Nc = D7_CROP
+    problem = pg.make_problem(cfg, I1[:Mc, :Nc], I2[:Mc, :Nc], fr, dev)
+    st0 = pg.init_state(cfg, fr, D7_CROP, device=dev)
+    zero()
+    t = time.time()
+    st, aux = pg.make_sweep(cfg, D7_CROP)(problem, st0)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = {k: f.launches for k, f in kfns.items()}
+    by_path["full_mixture(K=65) crop (one sweep)"] = counts
+    finite = all(bool(torch.isfinite(x).all()) for x in st if x.is_floating_point())
+    require(finite and bool(torch.isfinite(aux.energy)) and counts == launch_counts(),
+            f"full_mixture(K=65) {D7_CROP}: one sweep on 'auto' through the plain sums, finite, "
+            f"no kernel launched ({counts})")
+    refusals = {}
+    for field in ("node_kernel", "edge_kernel"):
+        try:
+            pg.check_supported(dataclasses.replace(cfg, **{field: "cuda"}))
+            refusals[field] = None
+        except ValueError as e:
+            refusals[field] = str(e)
+        require(refusals[field] is not None
+                and "does not take this configuration's shape" in refusals[field],
+                f"full_mixture(K=65) {field}='cuda' refused with the limit named: "
+                f"{refusals[field]}")
+    out["full_mixture(K=65)"] = dict(crop=list(D7_CROP), sweep_s=wall, refusals=refusals)
+    out["phase_s"] = time.time() - t_phase
+    log(f"  full_mixture(K=65) {D7_CROP} on 'auto': one sweep {wall:.3f} s through the plain "
+        f"sums; 'cuda' refused: {refusals}")
+    log(f"  phase D7 {out['phase_s']:.1f} s")
 
 
 def flow_sequence(seed, dev, H=H, W=W):
@@ -4600,8 +4740,8 @@ def main():
         "per-lane form's basic block, the cooperative form's pass loop); K12: the K = 9, "
         "rg = 2 instance's shared-memory point loop per point (v2: its 16-byte route's "
         "shared-form path); K13-K15 per point and their MUFU a point (K13 v1 its point loop, "
-        "v2 the K = 9 shared-memory loop's shared-form path; K14 v1 and K15 the pair loop; "
-        "K14 v2 the K = 9 instance's whole function)")
+        "v2 the K = 9 shared-memory loop's shared-form path; K14 v1 and K15 v1 the pair loop; "
+        "K14 v2 the K = 9 and K15 v2 the K1 = 21 instance's whole function)")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
@@ -4609,7 +4749,7 @@ def main():
                  "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
                  "K11 point", "K10 v2 site", "K11 v2 lane point", "K11 v2 coop point",
                  "K12 point", "K12 v2 point", "K13 v1 point", "K13 v2 point", "K14 v1 point",
-                 "K14 v2 point", "K15 point"):
+                 "K14 v2 point", "K15 point", "K15 v2 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -5639,6 +5779,9 @@ def main():
     kernels_autodiff(dev, record, I1, I2, issue_ms)
     autodiff_segments(dev, record, by_path, kfns)
 
+    # ---- 18d. shapes past a kernel's limit: K1 in groups, the plain sums on "auto"
+    d7_phase(dev, record, by_path, kfns)
+
     # ---- 19-23. the drivers, the command line and K3 on the pyramid's lattice
     drivers(dev, record, by_path, kfns, segment_ms)
 
@@ -5743,16 +5886,15 @@ def main():
              "under jax.grad (XLA scan, no Pallas)")):
         rk = record[kern]
         for variant in AUTODIFF_VARIANTS[kern]:
-            turn = variant or "v2"
             source = ("gqmap_tpu_torch/csrc/node_gq.cu" if (kern, variant) == ("K13", "v2")
                       else "gqmap_tpu_torch/csrc/autodiff_gq.cu")
-            fields = rk if variant is None else {**rk[variant], **{
-                k: v for k, v in rk.items() if k in ("shape", "K", "l1_route_share")}}
+            fields = {**rk[variant], **{k: v for k, v in rk.items()
+                                        if k in ("shape", "K", "l1_route_share")}}
             kernels.append(dict(
-                name=f"{fname} ({kern}{'' if variant is None else ', ' + variant})",
+                name=f"{fname} ({kern}, {variant})",
                 route="cuda", source=source, replaces=replaces,
-                launches=ad[path][turn]["launches"][kern],
-                launches_run=f"{path} {turn} ({AUTODIFF_SWEEPS} sweeps)",
+                launches=ad[path][variant]["launches"][kern],
+                launches_run=f"{path} {variant} ({AUTODIFF_SWEEPS} sweeps)",
                 **{k: v for k, v in fields.items()
                    if k not in ("phase_s", "v1", "v2", "variant", "v2_equals_v1_checks")}))
     if FAILURES:

@@ -33,8 +33,12 @@
 //
 // Layout. A block is one warp and serves a tile of 32 consecutive flat
 // sites, one a lane, over all A u-degrees, with every component of its site
-// in registers (L a template parameter). The cutoff statistics (s1_min,
-// s1_max, s2_max over every component of the tile's valid lanes;
+// in registers (L a template parameter, 1 to 4). More components run as
+// groups of at most 4 consecutive ones, a launch a group, each reading and
+// writing its slice of the whole stacks in place (kernels/cosine_gq.py
+// component_groups); the coefficient field then streams once a group. The
+// cutoff statistics (s1_min, s1_max, s2_max over every component of the
+// group at the tile's valid lanes;
 // out-of-range lanes count as +inf for the min, 0 for the max) come from warp
 // shuffles, so trip count and body are uniform across the warp. Out-of-range
 // lanes read a real site and store nothing; every other lane writes its six
@@ -305,21 +309,25 @@ __device__ __forceinline__ void recur_body(SiteState<T, L>& st, const T* crow,
   }
 }
 
-// sp:       (5, L, S)  ph1, ph2, s1, s2, p per component and site
-// coeffs:   (A, B, S)  cosine coefficients
-// out:      (6, L, S)  E0, A1, A2, Aa, Ab, Ax
+// sp:       (5, Lt, S)  ph1, ph2, s1, s2, p per component and site, from the
+//           group's first component (Lt: the components of the whole stack)
+// coeffs:   (A, B, S)   cosine coefficients
+// out:      (6, Lt, S)  E0, A1, A2, Aa, Ab, Ax, from the group's first component
 // counters: null, or 3 int64: warps (32-site tiles) on the recur body, warps
 //           on the exp body, modes evaluated (valid sites only)
+// A launch computes the L consecutive components of one group: a row of sp
+// and out is Lt S values apart, so a group reads and writes its slice of the
+// whole stack in place.
 template <typename T, int L, int BS>
 __global__ void __launch_bounds__(kTile)
 cos_mode_sums_kernel(const T* __restrict__ sp, const T* __restrict__ coeffs,
                      T* __restrict__ out, unsigned long long* __restrict__ counters,
-                     int S, int A, int B, int variant) {
+                     int Lt, int S, int A, int B, int variant) {
   const int lane = threadIdx.x;
   const int tile = blockIdx.x * kTile;
   const bool valid = tile + lane < S;
   const int site = valid ? tile + lane : S - 1;
-  const size_t LS = static_cast<size_t>(L) * S;
+  const size_t LS = static_cast<size_t>(Lt) * S;  // a row of the stacks
 
   SiteState<T, L> st;
 #pragma unroll
@@ -380,22 +388,23 @@ cos_mode_sums_kernel(const T* __restrict__ sp, const T* __restrict__ coeffs,
 }
 
 template <typename T, int L>
-void launch_l(const T* sp, const T* coeffs, T* out, unsigned long long* counters, int S,
-              int A, int B, int variant, cudaStream_t st) {
+void launch_l(const T* sp, const T* coeffs, T* out, unsigned long long* counters, int Lt,
+              int S, int A, int B, int variant, cudaStream_t st) {
   const dim3 grid((S + kTile - 1) / kTile);
   if (B == 16) {
-    cos_mode_sums_kernel<T, L, 16><<<grid, kTile, 0, st>>>(sp, coeffs, out, counters, S, A,
-                                                           B, variant);
+    cos_mode_sums_kernel<T, L, 16><<<grid, kTile, 0, st>>>(sp, coeffs, out, counters, Lt, S,
+                                                           A, B, variant);
   } else {
-    cos_mode_sums_kernel<T, L, 0><<<grid, kTile, 0, st>>>(sp, coeffs, out, counters, S, A, B,
-                                                          variant);
+    cos_mode_sums_kernel<T, L, 0><<<grid, kTile, 0, st>>>(sp, coeffs, out, counters, Lt, S, A,
+                                                          B, variant);
   }
 }
 
 template <typename T>
 int launch_cos_mode_sums(const void* sp, const void* coeffs, void* out, void* counters,
-                         int L, int S, int A, int B, int variant, int device, void* stream) {
-  if (variant < kV1 || variant > kRecur || A < 1 || B < 1) {
+                         int L, int Lt, int S, int A, int B, int variant, int device,
+                         void* stream) {
+  if (variant < kV1 || variant > kRecur || A < 1 || B < 1 || Lt < L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -407,10 +416,10 @@ int launch_cos_mode_sums(const void* sp, const void* coeffs, void* out, void* co
   T* ot = static_cast<T*>(out);
   auto* cnt = static_cast<unsigned long long*>(counters);
   switch (L) {
-    case 1: launch_l<T, 1>(spt, ct, ot, cnt, S, A, B, variant, st); break;
-    case 2: launch_l<T, 2>(spt, ct, ot, cnt, S, A, B, variant, st); break;
-    case 3: launch_l<T, 3>(spt, ct, ot, cnt, S, A, B, variant, st); break;
-    case 4: launch_l<T, 4>(spt, ct, ot, cnt, S, A, B, variant, st); break;
+    case 1: launch_l<T, 1>(spt, ct, ot, cnt, Lt, S, A, B, variant, st); break;
+    case 2: launch_l<T, 2>(spt, ct, ot, cnt, Lt, S, A, B, variant, st); break;
+    case 3: launch_l<T, 3>(spt, ct, ot, cnt, Lt, S, A, B, variant, st); break;
+    case 4: launch_l<T, 4>(spt, ct, ot, cnt, Lt, S, A, B, variant, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -419,20 +428,22 @@ int launch_cos_mode_sums(const void* sp, const void* coeffs, void* out, void* co
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns cudaGetLastError()
-// after the launch; the Python wrapper raises on a non-zero code. variant:
-// 0 "v1", 1 "adaptive", 2 "recur"; counters: null or 3 int64 on the device.
+// after the launch; the Python wrapper raises on a non-zero code. A launch
+// runs one group of L (1 to 4) components of an Lt-component stack: sp and
+// out point at the group's first component. variant: 0 "v1", 1 "adaptive",
+// 2 "recur"; counters: null or 3 int64 on the device.
 extern "C" int gqmap_cos_mode_sums_f32(const void* sp, const void* coeffs, void* out,
-                                       void* counters, int L, int S, int A, int B,
+                                       void* counters, int L, int Lt, int S, int A, int B,
                                        int variant, int device, void* stream) {
-  return launch_cos_mode_sums<float>(sp, coeffs, out, counters, L, S, A, B, variant, device,
-                                     stream);
+  return launch_cos_mode_sums<float>(sp, coeffs, out, counters, L, Lt, S, A, B, variant,
+                                     device, stream);
 }
 
 extern "C" int gqmap_cos_mode_sums_f64(const void* sp, const void* coeffs, void* out,
-                                       void* counters, int L, int S, int A, int B,
+                                       void* counters, int L, int Lt, int S, int A, int B,
                                        int variant, int device, void* stream) {
-  return launch_cos_mode_sums<double>(sp, coeffs, out, counters, L, S, A, B, variant, device,
-                                      stream);
+  return launch_cos_mode_sums<double>(sp, coeffs, out, counters, L, Lt, S, A, B, variant,
+                                      device, stream);
 }
 
 extern "C" const char* gqmap_error_string(int code) {

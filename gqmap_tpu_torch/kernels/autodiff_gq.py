@@ -23,15 +23,17 @@ stays ``torch.autograd`` of plain torch. The CUDA kernels are
   the kernel as K2 reads it; plain version :func:`edge_diff_adjoint_torch`
   (``gq_ei_diff_adjoint`` and ``diff_partials``).
 
-K13 and K14 have two variants each (:data:`VARIANTS`, the same sums bit for
-bit): ``"v1"``, the first versions (every tap through L1, the rules staged
-into shared memory), and ``"v2"`` (the default where it is compiled,
+Each has two variants (:data:`VARIANTS`, the same sums bit for bit):
+``"v1"``, the first versions (every tap through L1, the rules staged into
+shared memory), and ``"v2"`` (the default where it is compiled,
 :func:`resolve_variant`): K13 on K4 v2's machinery in
 ``csrc/node_gq.cu`` (a per-point constant table, a CTA's window of frame 2
 in shared memory, the shared form of a query strictly inside the frame),
-K14 with K3's rule by value; both with ``sqrtf``'s and the division's own
-fast paths (``csrc/fast_div.cuh``), falling back to v1's arithmetic where
-those could differ (the sources' notes say how).
+K14 with K3's rule by value, K15 with K2's (its two edges' pairs
+interleaved); each with ``sqrtf``'s and the division's own fast paths
+(``csrc/fast_div.cuh``), falling back to v1's arithmetic where those could
+differ (the sources' notes say how). :func:`takes` says which rules a
+kernel takes at all (v1's limits).
 
 Each ``*_cuda`` wrapper counts its launches (``.launches``, of either
 variant) and raises for tensors that are not on a CUDA device; the dispatchers (:func:`node_chain_gq`,
@@ -54,34 +56,49 @@ from . import build
 from .edge_reduced_gq import neighbour_stacks, pad_halo, paired_rule_1d
 from .node_gq import _MAX_SMEM_BYTES, V2_MAX_K, _rule_host, node_rule, window_budget
 
-__all__ = ["EDGE_V2_K", "MAX_K", "Partials", "VARIANTS", "chain_ei", "chain_rule_struct",
-           "diff_ei", "edge_chain_gq", "edge_chain_gq_cuda", "edge_chain_gq_torch",
-           "edge_diff_adjoint", "edge_diff_adjoint_cuda", "edge_diff_adjoint_torch",
-           "node_chain_gq", "node_chain_gq_cuda", "node_chain_gq_torch", "paired_chain_rule",
-           "point_constants", "resolve_variant"]
+__all__ = ["EDGE_DIFF_V2_K", "EDGE_V2_K", "MAX_K", "Partials", "VARIANTS", "chain_ei",
+           "chain_rule_struct", "diff_ei", "edge_chain_gq", "edge_chain_gq_cuda",
+           "edge_chain_gq_torch", "edge_diff_adjoint", "edge_diff_adjoint_cuda",
+           "edge_diff_adjoint_torch", "node_chain_gq", "node_chain_gq_cuda", "node_chain_gq_torch",
+           "paired_chain_rule", "point_constants", "resolve_variant", "takes"]
 
 MAX_K = 64  # K13's largest rule (csrc/autodiff_gq.cu, kMaxK)
 VARIANTS = ("v1", "v2")
-_DEFAULT_VARIANT = "v2"  # K13 and K14 (patch it to capture a graph through v1)
+_DEFAULT_VARIANT = "v2"  # K13, K14 and K15 (patch it to capture a graph through v1)
 EDGE_V2_K = (9,)  # K14 v2's rules by value (csrc/autodiff_gq.cu ChainRule); others generic
-_SHARED_RULE_BYTES = 48 * 1024  # K14's generic instances: the rule in shared memory
+# K15 v2's rules by value (K2's EdgeRule1D, csrc/edge_rule_1d.cuh): tpu_fast's K1 = 21 and
+# the super presets' 25; others generic
+EDGE_DIFF_V2_K = (21, 25)
+
+
+def takes(kernel: str, K: int, dtype=torch.float32) -> bool:
+    """Whether ``kernel`` ("K13", "K14" or "K15"; K15's K is its K1)
+    computes its term for that rule (v1's limits; v2 takes a subset):
+    K13 1 to :data:`MAX_K` points an axis; K14 and K15 any rule whose paired
+    values (``5 P + 1`` of :func:`paired_chain_rule`, ``4 P + 1`` of
+    ``paired_rule_1d``) fit v1's shared memory (``build.rule_fits``)."""
+    K = int(K)
+    if kernel == "K13":
+        return 1 <= K <= MAX_K
+    if kernel == "K14":
+        return K >= 1 and build.rule_fits(5 * (K * K // 2) + 1, dtype)
+    if kernel == "K15":
+        return K >= 1 and build.rule_fits(4 * (K // 2) + 1, dtype)
+    raise ValueError(f"unknown autodiff kernel {kernel!r}: K13, K14 or K15")
 
 
 def resolve_variant(kernel: str, variant: str | None, K: int, dtype=torch.float32) -> str:
-    """The variant of ``kernel`` ("K13" or "K14") a launch runs: ``variant``,
-    or with None ``"v2"`` where it is compiled and ``"v1"`` elsewhere; an
-    explicit ``"v2"`` outside that raises. K13 v2 takes rules up to
-    :data:`~.node_gq.V2_MAX_K` points an axis (its per-point table), K14 v2
-    at least 2 (``rule_instance.cuh``), each within v1's limits."""
-    if kernel not in ("K13", "K14"):
-        raise ValueError(f"no variants of {kernel!r}: K13 and K14 have them")
+    """The variant of ``kernel`` ("K13", "K14" or "K15"; K15's K is its K1)
+    a launch runs: ``variant``, or with None ``"v2"`` where it is compiled
+    and ``"v1"`` elsewhere; an explicit ``"v2"`` outside that raises. K13
+    v2 takes rules up to :data:`~.node_gq.V2_MAX_K` points an axis (its
+    per-point table), K14 v2 and K15 v2 at least 2 (``rule_instance.cuh``),
+    each within v1's limits (:func:`takes`)."""
+    if kernel not in ("K13", "K14", "K15"):
+        raise ValueError(f"no variants of {kernel!r}: K13, K14 and K15 have them")
     K = int(K)
-    itemsize = 4 if dtype == torch.float32 else 8
-    if kernel == "K13":
-        v1, v2 = 1 <= K <= MAX_K, 1 <= K <= V2_MAX_K
-    else:
-        v1 = K >= 1 and (5 * (K * K // 2) + 1) * itemsize <= _SHARED_RULE_BYTES
-        v2 = v1 and K >= 2
+    v1 = takes(kernel, K, dtype)
+    v2 = v1 and (K <= V2_MAX_K if kernel == "K13" else K >= 2)
     if variant is None:
         return _DEFAULT_VARIANT if v2 else "v1"
     if variant not in VARIANTS:
@@ -299,14 +316,19 @@ def edge_diff_adjoint_torch(mu, sg, rou, k1: int, lambdas: float, epsn: float,
 
 
 def edge_diff_adjoint_cuda(mu, sg, rou, k1: int, lambdas: float, epsn: float,
-                           halo=None) -> tuple:
+                           halo=None, variant: str | None = None,
+                           generic: bool = False) -> tuple:
     """Kernel K15, on K2's operands (``mu``/``sg`` ``(C, L, M, N)``, ``rou``
     ``(2, C, L, M, N)``, the neighbours read in the kernel with wrap); with
-    a ``halo``, one launch on the padded block, cropped."""
+    a ``halo``, one launch on the padded block, cropped. ``variant``: one of
+    :data:`VARIANTS` (None: :func:`resolve_variant`); ``"v2"`` takes the
+    rule by value for K1 in :data:`EDGE_DIFF_V2_K` unless ``generic``, else
+    from shared memory. Both variants and instances give the same outputs,
+    bit for bit."""
     if halo is not None:
         M, N = mu.shape[-2:]
-        return _crop(edge_diff_adjoint_cuda(*pad_halo(mu, sg, rou, halo), k1, lambdas, epsn),
-                     M, N)
+        return _crop(edge_diff_adjoint_cuda(*pad_halo(mu, sg, rou, halo), k1, lambdas, epsn,
+                                            variant=variant, generic=generic), M, N)
     if mu.ndim != 4:
         raise ValueError(f"mu must be (C, L, M, N), got {tuple(mu.shape)}")
     C, L, M, N = mu.shape
@@ -314,14 +336,24 @@ def edge_diff_adjoint_cuda(mu, sg, rou, k1: int, lambdas: float, epsn: float,
     build.check_operands("edge_diff_adjoint_cuda", mu, (
         ("mu", mu, mu.shape), ("sg", sg, mu.shape), ("rou", rou, edge)))
     k1 = int(k1)
-    rule, _, rule_dev = build.rule_args(paired_rule_1d, k1, (), True, mu)
+    variant = resolve_variant("K15", variant, k1, mu.dtype)
     out = torch.empty((5,) + edge, dtype=mu.dtype, device=mu.device)
     lib = build.library_for(mu.device)
-    fn = lib.gqmap_edge_diff_f32 if mu.dtype == torch.float32 else lib.gqmap_edge_diff_f64
+    f32 = mu.dtype == torch.float32
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    build.check(fn(mu.data_ptr(), sg.data_ptr(), rou.data_ptr(), rule_dev, out.data_ptr(), C, L,
-                   M, N, k1, float(lambdas), float(epsn), mu.device.index, stream),
-                "edge_diff_adjoint_cuda")
+    ptrs = (mu.data_ptr(), sg.data_ptr(), rou.data_ptr())
+    tail = (out.data_ptr(), C, L, M, N, k1, float(lambdas), float(epsn), mu.device.index, stream)
+    # `rule` holds what rule_host or rule_dev points at through the launch
+    if variant == "v1":
+        rule, _, rule_dev = build.rule_args(paired_rule_1d, k1, (), True, mu)
+        fn = lib.gqmap_edge_diff_f32 if f32 else lib.gqmap_edge_diff_f64
+        code = fn(*ptrs, rule_dev, *tail)
+    else:
+        rule, rule_host, rule_dev = build.rule_args(paired_rule_1d, k1, EDGE_DIFF_V2_K, generic,
+                                                    mu)
+        fn = lib.gqmap_edge_diff_v2_f32 if f32 else lib.gqmap_edge_diff_v2_f64
+        code = fn(*ptrs, rule_host, rule_dev, *tail)
+    build.check(code, "edge_diff_adjoint_cuda")
     edge_diff_adjoint_cuda.launches += 1
     return tuple(out.unbind(0))
 

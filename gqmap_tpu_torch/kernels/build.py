@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 __all__ = ["build_library", "library_path", "load_library", "library_for",
-           "require_capability", "check", "check_operands", "rule_args", "NVCC_FLAGS",
-           "CAPABILITY"]
+           "require_capability", "check", "check_operands", "rule_args", "rule_fits",
+           "NVCC_FLAGS", "CAPABILITY", "RULE_SHARED_BYTES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -53,9 +53,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    # sp, coeffs, out, counters, L, S, A, B, variant, device, stream
-    "gqmap_cos_mode_sums_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "gqmap_cos_mode_sums_f64": [_P] * 4 + [_I] * 6 + [_P],
+    # sp, coeffs, out, counters, L, Lt, S, A, B, variant, device, stream
+    "gqmap_cos_mode_sums_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "gqmap_cos_mode_sums_f64": [_P] * 4 + [_I] * 7 + [_P],
     # mu, sg, rou, alpha, T, rule_host, rule_dev, out, C, L, M, N, K1, lam, eps, es,
     # device, stream
     "gqmap_edge_reduced_f32": [_P] * 8 + [_I] * 5 + [_D] * 3 + [_I, _P],
@@ -131,6 +131,9 @@ _SIGNATURES = {
     # (kernels/autodiff_gq.edge_diff_adjoint_cuda, K15)
     "gqmap_edge_diff_f32": [_P] * 5 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "gqmap_edge_diff_f64": [_P] * 5 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    # mu, sg, rou, rule_host, rule_dev, out, C, L, M, N, K1, lam, eps, device, stream (K15 v2)
+    "gqmap_edge_diff_v2_f32": [_P] * 6 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    "gqmap_edge_diff_v2_f64": [_P] * 6 + [_I] * 5 + [_D] * 2 + [_I, _P],
     # ptrs (27 device pointers), consts (19 doubles), node_form, edge_form, L, M, N, colour,
     # device, stream (kernels/sweep_update.site_update_cuda, K8)
     "gqmap_site_update_f32": [_P] * 2 + [_I] * 7 + [_P],
@@ -299,6 +302,17 @@ def _rule_host(values, K: int, dtype: torch.dtype) -> np.ndarray:
 def _rule_dev(values, K: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``values(K, dtype)`` on the device, kept alive by the cache."""
     return torch.as_tensor(values(K, _NP_DTYPES[dtype]), device=device)
+
+
+# the most shared memory a generic rule instance stages its rule into
+# (csrc/rule_instance.cuh kRuleSharedBytes: the static launch limit)
+RULE_SHARED_BYTES = 48 * 1024
+
+
+def rule_fits(n: int, dtype: torch.dtype) -> bool:
+    """Whether a generic instance's rule of ``n`` values of ``dtype`` fits
+    its shared memory (:data:`RULE_SHARED_BYTES`)."""
+    return n * (4 if dtype == torch.float32 else 8) <= RULE_SHARED_BYTES
 
 
 def rule_args(values, K: int, specialised, generic: bool, like: torch.Tensor):

@@ -44,7 +44,7 @@ from .node_gq import node_rule
 
 __all__ = ["MAX_K", "MAX_Q", "V2_MAX_K", "V2_MAX_L", "V2_MAX_Q", "VARIANTS", "cheb_gq",
            "cheb_gq_cuda", "cheb_gq_torch", "lanes", "q_width", "resolve_variant", "site_blocks",
-           "v2_layout"]
+           "takes", "v1_smem", "v2_layout"]
 
 MAX_K = 64  # the largest rule the kernel takes (csrc/cheb_gq.cu, kMaxK)
 MAX_Q = 64  # the largest v-degree count: a sample's basis stays in registers (kMaxQ)
@@ -63,6 +63,22 @@ def q_width(Q: int) -> int:
     if not 1 <= Q <= MAX_Q:
         raise ValueError(f"cheb_gq takes 1 to {MAX_Q} v-degrees, not {Q}")
     return next(w for w in (8, 16, 32, 64) if Q <= w)
+
+
+def v1_smem(L: int, K: int, Q: int, dtype: torch.dtype) -> int:
+    """The shared memory one site a CTA needs: its ``L K^2`` sample values,
+    one row of the field and the rule (at most ``_MAX_SMEM_BYTES``)."""
+    itemsize = 4 if dtype == torch.float32 else 8
+    return (L * K * K + q_width(Q)) * itemsize + 2 * K * 8
+
+
+def takes(K: int, Q: int, L: int, dtype: torch.dtype) -> bool:
+    """Whether K5 computes the term for a K-point rule, ``Q`` v-degrees and
+    ``L`` components: at most :data:`MAX_K` points an axis and :data:`MAX_Q`
+    v-degrees, one site's :func:`v1_smem` within a CTA's shared memory."""
+    K, Q, L = int(K), int(Q), int(L)
+    return (1 <= K <= MAX_K and 1 <= Q <= MAX_Q and L >= 1
+            and v1_smem(L, K, Q, dtype) <= _MAX_SMEM_BYTES)
 
 
 def lanes(L: int, K: int, Q: int, dtype: torch.dtype) -> tuple[int, int, int]:
@@ -193,8 +209,7 @@ def cheb_gq_cuda(cheb: ChebData, muu, muv, su, sv, pn, K: int,
     K = int(K)
     if not 1 <= K <= MAX_K:
         raise ValueError(f"cheb_gq_cuda takes rules of 1 to {MAX_K} points an axis, not {K}")
-    # one site a CTA needs its L K^2 sample values, one row and the rule
-    need = (L * K * K + q_width(Q)) * muu.element_size() + 2 * K * 8
+    need = v1_smem(L, K, Q, muu.dtype)
     if need > _MAX_SMEM_BYTES:
         raise ValueError(f"cheb_gq_cuda: L = {L} components of a K = {K} rule need {need} bytes "
                          f"of shared memory a site, over {_MAX_SMEM_BYTES}")

@@ -11,7 +11,9 @@ variants differ from it only at rounding level.
 
 * :func:`cos_mode_sums_cuda` launches the kernel (and raises for tensors that
   are not on a CUDA device); ``cos_mode_sums_cuda.launches`` counts its
-  launches.
+  launches. The kernel is compiled for 1 to :data:`MAX_L` components; more
+  run as :func:`component_groups`, a launch a group (:func:`by_groups`), so
+  K1 takes any L, as the JAX kernel does.
 * :func:`cos_mode_sums` launches the kernel for CUDA tensors and runs the
   plain version for CPU tensors, whatever the variant.
 
@@ -34,10 +36,10 @@ from ..ops.gq import NODE
 from . import build
 from .autodiff_gq import Partials
 
-__all__ = ["cos_ei_adjoint", "cos_mode_sums", "cos_mode_sums_cuda", "cos_mode_sums_torch",
-           "phase_stack", "MAX_L", "VARIANTS"]
+__all__ = ["by_groups", "component_groups", "cos_ei_adjoint", "cos_mode_sums",
+           "cos_mode_sums_cuda", "cos_mode_sums_torch", "phase_stack", "MAX_L", "VARIANTS"]
 
-MAX_L = 4  # mixture components the kernel is instantiated for (csrc/cosine_gq.cu)
+MAX_L = 4  # mixture components a launch takes (the instances of csrc/cosine_gq.cu)
 VARIANTS = ("v1", "adaptive", "recur")  # kernel codes 0, 1, 2
 _DEFAULT_VARIANT = "recur"
 
@@ -47,6 +49,32 @@ def _variant_code(variant: str | None) -> int:
     if variant not in VARIANTS:
         raise ValueError(f"unknown cosine kernel variant {variant!r}")
     return VARIANTS.index(variant)
+
+
+def component_groups(L: int, most: int = MAX_L) -> list[tuple[int, int]]:
+    """``(l0, n)`` of the fewest groups of at most ``most`` consecutive
+    components that cover ``L``, sized as evenly as possible, the larger
+    first (L = 5: 3 + 2; L = 9: 3 + 3 + 3)."""
+    if L < 1:
+        raise ValueError(f"K1 takes L >= 1 components, got L={L}")
+    count = -(-L // most)
+    size, extra = divmod(L, count)
+    groups, l0 = [], 0
+    for k in range(count):
+        n = size + (k < extra)
+        groups.append((l0, n))
+        l0 += n
+    return groups
+
+
+def by_groups(sums, out: torch.Tensor) -> tuple:
+    """The six ``(L, M, N)`` sums of ``out`` (``(6, L, M, N)``), filled by
+    ``sums(l0, n, part)`` once a :func:`component_groups` group, ``part``
+    being ``out[:, l0:l0 + n]``: each group's sums depend on its own
+    components alone (its cutoff statistics too)."""
+    for l0, n in component_groups(out.shape[1]):
+        sums(l0, n, out[:, l0:l0 + n])
+    return tuple(out.unbind(0))
 
 
 def phase_stack(cos: CosData, u1, u2, o1, o2, p) -> torch.Tensor:
@@ -71,7 +99,11 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = No
     :data:`VARIANTS` (None: ``"recur"``). ``counters``, if given, is an int64
     tensor of 3 on the same device that the kernel adds to: warps (32-site
     tiles) that ran the recur body, warps that ran the exp body, modes
-    evaluated.
+    evaluated. Above :data:`MAX_L` components, one launch a
+    :func:`component_groups` group, each reading its slice of the stack and
+    writing its slice of the sums in place, its cutoff statistics over its
+    own components (the warps of every group counted): the result differs
+    from one launch's only below the e^-50 tail.
     """
     code = _variant_code(variant)
     coeffs = cos.coeffs
@@ -91,8 +123,7 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = No
     if len(site) != 3 or tuple(site[1:]) != (M, N):
         raise ValueError(f"site shape {tuple(site)} is not (L, {M}, {N})")
     L = site[0]
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"cos_mode_sums_cuda supports 1 <= L <= {MAX_L}, got L={L}")
+    component_groups(L)  # raises for L < 1
     if counters is not None and (counters.device != coeffs.device
                                  or counters.dtype != torch.int64
                                  or counters.shape != (3,) or not counters.is_contiguous()):
@@ -112,11 +143,14 @@ def cos_mode_sums_cuda(cos: CosData, u1, u2, o1, o2, p, variant: str | None = No
     fn = (lib.gqmap_cos_mode_sums_f32 if coeffs.dtype == torch.float32
           else lib.gqmap_cos_mode_sums_f64)
     stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-    build.check(fn(sp.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-                   None if counters is None else counters.data_ptr(), L, M * N, A, B, code,
-                   coeffs.device.index, stream), "cos_mode_sums_cuda")
-    cos_mode_sums_cuda.launches += 1
-    return tuple(out.unbind(0))
+
+    def launch(l0, n, part):
+        build.check(fn(sp[:, l0].data_ptr(), coeffs.data_ptr(), part.data_ptr(),
+                       None if counters is None else counters.data_ptr(), n, L, M * N, A, B,
+                       code, coeffs.device.index, stream), "cos_mode_sums_cuda")
+        cos_mode_sums_cuda.launches += 1
+
+    return by_groups(launch, out)
 
 
 cos_mode_sums_cuda.launches = 0

@@ -34,9 +34,18 @@ from ..ops.quadrature import gauss_hermite, table_on
 from . import build
 
 __all__ = ["SPECIALISED", "edge_gq", "edge_gq_cuda", "edge_gq_torch", "pair_order",
-           "paired_rule"]
+           "paired_rule", "takes"]
 
 SPECIALISED = (9, 11)  # rules compiled into their own instance (csrc/edge_gq.cu)
+
+
+def takes(K: int, dtype: torch.dtype) -> bool:
+    """Whether K3 computes the edges for a K-point rule: at least 2 points
+    an axis (``rule_instance.cuh``), and :func:`paired_rule`'s ``8 P + 1``
+    values in the generic instance's shared memory (``build.rule_fits``:
+    K <= 55 in float32, K <= 39 in float64)."""
+    K = int(K)
+    return K >= 2 and build.rule_fits(8 * (K * K // 2) + 1, dtype)
 
 
 def pair_order(K: int) -> np.ndarray:

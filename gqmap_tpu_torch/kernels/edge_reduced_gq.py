@@ -50,9 +50,18 @@ from ..ops.quadrature import gauss_hermite, table_on
 from . import build
 
 __all__ = ["SPECIALISED", "edge_reduced_grads", "edge_reduced_grads_cuda",
-           "edge_reduced_grads_torch", "neighbour_stacks", "pad_halo", "paired_rule_1d"]
+           "edge_reduced_grads_torch", "neighbour_stacks", "pad_halo", "paired_rule_1d", "takes"]
 
 SPECIALISED = (21, 25)  # rules compiled into their own instance (csrc/edge_reduced_gq.cu)
+
+
+def takes(k1: int, dtype: torch.dtype) -> bool:
+    """Whether K2 (and K15 v2, on the same rule) computes the edges for a
+    K1-point rule: at least 2 points, and :func:`paired_rule_1d`'s ``4 P +
+    1`` values in the generic instance's shared memory
+    (``build.rule_fits``)."""
+    k1 = int(k1)
+    return k1 >= 2 and build.rule_fits(4 * (k1 // 2) + 1, dtype)
 
 
 def neighbour_stacks(mu, sg, roll=torch.roll):

@@ -62,13 +62,21 @@ from .roofline import SECTOR_BYTES
 
 __all__ = ["MAX_K", "V2_MAX_K", "V2_MAX_RFC", "VARIANTS", "lookup_sectors", "nearest_chain_gq",
            "nearest_chain_gq_cuda", "nearest_chain_gq_torch", "nearest_gq", "nearest_gq_cuda",
-           "nearest_gq_torch", "resolve_variant"]
+           "nearest_gq_torch", "resolve_variant", "takes"]
 
 MAX_K = 64  # the largest rule the kernels take (csrc/nearest_gq.cu, kMaxK)
 MAX_RFC = 20  # the largest upsampling exponent they take
 V2_MAX_K, V2_MAX_RFC = 24, 8  # "v2"'s (kV2MaxK, kV2MaxRfc: its tables in 48 KB)
 VARIANTS = ("v1", "v2")
 _DEFAULT_VARIANT = "v2"
+
+
+def takes(K: int, rfc: int) -> bool:
+    """Whether K6 and K7 compute the term for a K-point rule on the
+    ``2^rfc``-times upsampled table: at most :data:`MAX_K` points an axis
+    and ``rfc`` at most :data:`MAX_RFC` (``"v1"``; ``"v2"`` where
+    :func:`resolve_variant` picks it)."""
+    return 1 <= int(K) <= MAX_K and 0 <= int(rfc) <= MAX_RFC
 
 
 def resolve_variant(variant: str | None, K: int, rfc: int) -> str:
@@ -180,10 +188,9 @@ def _check(what, I1, tabs, state, K, rfc, rg, origin, local_image_shape):
     if (Ml, Nl) != (M, N) or r0 < 0 or c0 < 0 or r0 + Ml > Mo or c0 + Nl > No:
         raise ValueError(f"the ({M}, {N}) lattice of pixels at ({r0}, {c0}) does not cover a "
                          f"{Ml} x {Nl} block of the {Mo} x {No} frame")
-    if not 1 <= int(K) <= MAX_K:
-        raise ValueError(f"{what} takes rules of 1 to {MAX_K} points an axis, not {K}")
-    if not 0 <= int(rfc) <= MAX_RFC or int(rg) < 0:
-        raise ValueError(f"{what} takes rfc in [0, {MAX_RFC}] and rg >= 0, not {rfc}, {rg}")
+    if not takes(K, rfc) or int(rg) < 0:
+        raise ValueError(f"{what} takes rules of 1 to {MAX_K} points an axis, rfc in "
+                         f"[0, {MAX_RFC}] and rg >= 0, not K = {K}, rfc = {rfc}, rg = {rg}")
     return r0, c0
 
 

@@ -43,7 +43,7 @@ from . import build
 
 __all__ = ["MAX_K", "V2_MAX_K", "V2_PATCHES", "VARIANTS", "node_gq",
            "node_gq_cuda", "node_gq_torch", "group_lanes", "node_rule", "resolve_variant",
-           "v2_tile", "v2_ctas", "window_budget"]
+           "takes", "v2_tile", "v2_ctas", "window_budget"]
 
 MAX_K = 64  # the largest rule the kernel takes (csrc/node_gq.cu, kMaxK)
 V2_MAX_K = 16  # the largest rule of "v2" (its K^2-point table in shared memory)
@@ -54,6 +54,12 @@ _DEFAULT_VARIANT = "v2"
 # by default and at most (csrc/node_gq.cu kMaxDynSmem)
 _SMEM_BYTES = 44 * 1024
 _MAX_SMEM_BYTES = 47 * 1024
+
+
+def takes(K: int) -> bool:
+    """Whether K4 computes the term for a K-point rule (``"v1"`` at any
+    patch; ``"v2"`` where :func:`resolve_variant` picks it)."""
+    return 1 <= int(K) <= MAX_K
 
 
 def node_rule(K: int, dtype=np.float64) -> np.ndarray:
@@ -172,7 +178,7 @@ def node_gq_cuda(I1, VV, muu, muv, su, sv, pn, K: int, lambdad: float, epsn: flo
                          f"({r0}, {c0}) does not cover a {Ml} x {Nl} block of the {Mo} x {No} "
                          "frame")
     K = int(K)
-    if not 1 <= K <= MAX_K:
+    if not takes(K):
         raise ValueError(f"node_gq_cuda takes rules of 1 to {MAX_K} points an axis, not {K}")
     code = VARIANTS.index(resolve_variant(variant, K, patch))
     table = K * K * 8 * muu.element_size()

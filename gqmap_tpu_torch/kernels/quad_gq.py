@@ -51,7 +51,7 @@ from . import build
 
 __all__ = ["CLASS_COUNTS", "COOP_LANES", "SPECIALISED", "V2_MAX_K", "VARIANTS",
            "closed_form_table", "node_values", "quad_node_gq", "quad_node_gq_cuda",
-           "quad_node_gq_torch", "resolve_variant", "rule_values", "table_of",
+           "quad_node_gq_torch", "resolve_variant", "rule_values", "table_of", "takes",
            "truncquad_edge_gq", "truncquad_edge_gq_cuda", "truncquad_edge_gq_torch",
            "unit_rule"]
 
@@ -67,6 +67,18 @@ COOP_LANES = 8
 # mixed elements
 CLASS_COUNTS = ("inside", "outside", "mixed", "mixed warps", "cooperative warps",
                 "cooperative elements")
+
+
+def takes(kernel: str, K: int, dtype: torch.dtype) -> bool:
+    """Whether ``kernel`` ("K10" or "K11") computes its term for a K-point
+    rule: K10 v2 any K (its closed forms); K11 from 2 points an axis (its
+    instances), in v2 up to :data:`V2_MAX_K`, beyond it in v1, whose
+    generic instance stages ``K + 4 K^2`` values into shared memory
+    (``build.rule_fits``: K <= 55 in float32, K <= 39 in float64)."""
+    K = int(K)
+    if kernel == "K10":
+        return K >= 1
+    return K >= 2 and (K <= V2_MAX_K or build.rule_fits(K + 4 * K * K, dtype))
 
 
 def resolve_variant(variant: str | None, K: int, kernel: str = "K10") -> str:

@@ -75,7 +75,15 @@ import torch
 import torch.distributed
 
 from ..config import FlowRange, GQMAPConfig
-from ..kernels import COUNTED
+from ..kernels import COUNTED, build
+# the modules of the kernels with a shape limit (_shape_limit)
+from ..kernels import autodiff_gq as _k13_k15
+from ..kernels import cheb_gq as _k5
+from ..kernels import edge_gq as _k3
+from ..kernels import edge_reduced_gq as _k2
+from ..kernels import nearest_gq as _k6_k7
+from ..kernels import node_gq as _k4
+from ..kernels import quad_gq as _k10_k11
 from ..kernels.autodiff_gq import (chain_ei, diff_ei, edge_chain_gq, edge_chain_gq_cuda,
                                    edge_chain_gq_torch, edge_diff_adjoint, edge_diff_adjoint_cuda,
                                    edge_diff_adjoint_torch, node_chain_gq, node_chain_gq_cuda,
@@ -235,7 +243,12 @@ def check_supported(cfg: GQMAPConfig) -> None:
     rule; under the autodiff estimator K1 the cosine term's, K13 the bicubic
     term's without a window at one pixel a site, K6 the nearest lookup's
     value (its index carries no gradient), K14 and K15 Charbonnier edges,
-    and every other term is differentiated plain torch.
+    and every other term is differentiated plain torch. ``"cuda"`` also
+    raises, naming the limit, where the term's kernel does not take the
+    configuration's shape (:func:`_shape_limit`: its rule, v-degrees,
+    components or upsampling past what the kernel is built for); ``"auto"``
+    runs the plain sums there, as the JAX package runs its scans. K1 takes
+    any number of components (in groups of ``cosine_gq.MAX_L``).
     """
     supported = {"data_term": ("cosine", "bicubic", "nearest", "quadratic", "chebyshev"),
                  "edge_quad": ("reduced", "tensor"), "edge_kind": ("charbonnier", "truncquad"),
@@ -247,7 +260,14 @@ def check_supported(cfg: GQMAPConfig) -> None:
         value = getattr(cfg, field)
         if value not in ok:
             raise ValueError(f"unknown {field} {value!r} (expected one of {ok})")
-    if cfg.node_kernel == "cuda" and _node_kernel(cfg) is None:
+    _dt(cfg)
+    for field, term in (("node_kernel", _node_term(cfg)), ("edge_kernel", _edge_term(cfg))):
+        limit = None if term is None else _shape_limit(term, cfg)
+        if getattr(cfg, field) == "cuda" and limit is not None:
+            raise ValueError(f"{field}='cuda' asks for kernel {term}, which does not take this "
+                             f"configuration's shape: {limit} (use 'auto', which runs the plain "
+                             "sums there, or 'torch')")
+    if cfg.node_kernel == "cuda" and _node_term(cfg) is None:
         raise ValueError(
             f"node_kernel='cuda' asks for kernel K1, which computes the cosine data term's "
             f"sums, kernel K4, which computes the bicubic term's without a window, "
@@ -261,7 +281,7 @@ def check_supported(cfg: GQMAPConfig) -> None:
             f"window_rg={cfg.window_rg}, patch={cfg.patch}, K={cfg.K}, cheb_q={cfg.cheb_q} and "
             f"gradient_estimator={cfg.gradient_estimator!r} the node term is plain torch "
             "(use 'auto' or 'torch')")
-    if cfg.edge_kernel == "cuda" and _edge_kernel(cfg) is None:
+    if cfg.edge_kernel == "cuda" and _edge_term(cfg) is None:
         raise ValueError(
             f"edge_kernel='cuda' asks for kernel K2 or K3, which compute Charbonnier edges, "
             f"or kernel K11, which computes truncated-quadratic edges under the tensor rule, "
@@ -269,22 +289,71 @@ def check_supported(cfg: GQMAPConfig) -> None:
             f"Charbonnier edges under the autodiff estimator; with edge_kind="
             f"{cfg.edge_kind!r}, edge_quad={cfg.edge_quad!r} and gradient_estimator="
             f"{cfg.gradient_estimator!r} the edge sums are plain torch (use 'auto' or 'torch')")
-    _dt(cfg)
 
 
-def _node_kernel(cfg: GQMAPConfig) -> str | None:
-    """The kernel that computes ``cfg``'s node term under the Stein and
-    Prewitt estimators: ``"K1"`` (the cosine term), ``"K4"`` (the bicubic
-    term without a window), ``"K12"`` (the bicubic term with a window that
-    ``window_gq.takes``), ``"K5"`` (the Chebyshev term, whose window is in
-    its coefficients, with at most ``MAX_Q`` v-degrees), ``"K6"`` (the
-    nearest lookup, with or without a window), ``"K7"`` (the Prewitt
-    estimator's chain on the nearest lookup), ``"K10"`` (the quadratic prior
-    toward ``Problem.init_flow``), or None where the sums are plain torch.
-    Under the autodiff estimator: ``"K1"`` (the cosine term, whose mode sums
-    are its exact gradient), ``"K13"`` (the bicubic term without a window,
-    one pixel a site), ``"K6"`` (the nearest lookup's value: its index is a
-    floor, so its gradient is zero), else None."""
+def _edge_k1(cfg: GQMAPConfig) -> int:
+    """The reduced edges' 1-D rule: ``edge_quad_k`` points, or 2 K + 3."""
+    return cfg.edge_quad_k if cfg.edge_quad_k > 0 else 2 * cfg.K + 3
+
+
+def _shape_limit(kernel: str, cfg: GQMAPConfig) -> str | None:
+    """None where ``kernel`` takes ``cfg``'s shape, else the kernel's limit
+    and the shape, in words. Each kernel module's ``takes`` is the rule: the
+    largest rule a kernel holds (K4, K5, K6, K7, K12, K13: ``MAX_K`` points
+    an axis), K5's v-degrees and its shared memory a site (L K^2 samples),
+    K6's and K7's upsampling, K12's window radius, and the generic rule
+    instances of K2, K3, K11 (v1), K14 and K15, whose rule must fit a CTA's
+    static shared memory. K1 takes every shape (more than
+    ``cosine_gq.MAX_L`` components run in groups), K10 every rule."""
+    dt = _DTYPES[cfg.dtype]
+    K, k1 = cfg.K, _edge_k1(cfg)
+    shared = (f"whose paired values fit the generic instance's {build.RULE_SHARED_BYTES} bytes "
+              "of shared memory")
+    in_dt = f"in {cfg.dtype}"
+    limits = {
+        "K2": (_k2.takes(k1, dt), f"reduced rules of at least 2 points {shared}",
+               f"K1 = {k1} {in_dt}"),
+        "K3": (_k3.takes(K, dt), f"rules of at least 2 points an axis {shared}",
+               f"K = {K} {in_dt}"),
+        "K4": (_k4.takes(K), f"rules of 1 to {_k4.MAX_K} points an axis", f"K = {K}"),
+        "K5": (_k5.takes(K, cfg.cheb_q, cfg.L, dt),
+               f"rules of 1 to {_k5.MAX_K} points an axis, 1 to {_k5.MAX_Q} v-degrees and a "
+               f"site's L K^2 samples within {_k5._MAX_SMEM_BYTES} bytes of shared memory",
+               f"K = {K}, cheb_q = {cfg.cheb_q}, L = {cfg.L} {in_dt}"),
+        "K6": (_k6_k7.takes(K, cfg.rfc), f"rules of 1 to {_k6_k7.MAX_K} points an axis and rfc "
+               f"of at most {_k6_k7.MAX_RFC}", f"K = {K}, rfc = {cfg.rfc}"),
+        "K10": (_k10_k11.takes("K10", K, dt), "rules of at least 1 point", f"K = {K}"),
+        "K11": (_k10_k11.takes("K11", K, dt), f"rules of 2 to {_k10_k11.V2_MAX_K} points an "
+                f"axis, or more whose v1 rule (K + 4 K^2 values) fits {build.RULE_SHARED_BYTES} "
+                "bytes of shared memory", f"K = {K} {in_dt}"),
+        "K12": (window_gq.takes(K, cfg.window_rg), f"rules of 1 to {window_gq.MAX_K} points an "
+                f"axis and window radii 1 to {window_gq.MAX_RG}",
+                f"K = {K}, window_rg = {cfg.window_rg}"),
+        "K13": (_k13_k15.takes("K13", K, dt), f"rules of 1 to {_k13_k15.MAX_K} points an axis",
+                f"K = {K}"),
+        "K14": (_k13_k15.takes("K14", K, dt), f"rules {shared}", f"K = {K} {in_dt}"),
+        "K15": (_k13_k15.takes("K15", k1, dt), f"reduced rules {shared}", f"K1 = {k1} {in_dt}"),
+    }
+    limits["K7"] = limits["K6"]
+    if kernel not in limits or limits[kernel][0]:
+        return None
+    _, limit, shape = limits[kernel]
+    return f"{kernel} takes {limit}, not {shape}"
+
+
+def _node_term(cfg: GQMAPConfig) -> str | None:
+    """The kernel that computes ``cfg``'s node term, whatever its shape,
+    under the Stein and Prewitt estimators: ``"K1"`` (the cosine term),
+    ``"K4"`` (the bicubic term without a window), ``"K12"`` (the bicubic
+    term with a window), ``"K5"`` (the Chebyshev term, whose window is in
+    its coefficients), ``"K6"`` (the nearest lookup, with or without a
+    window), ``"K7"`` (the Prewitt estimator's chain on the nearest lookup),
+    ``"K10"`` (the quadratic prior toward ``Problem.init_flow``), or None
+    where the sums are plain torch. Under the autodiff estimator: ``"K1"``
+    (the cosine term, whose mode sums are its exact gradient), ``"K13"``
+    (the bicubic term without a window, one pixel a site), ``"K6"`` (the
+    nearest lookup's value: its index is a floor, so its gradient is zero),
+    else None."""
     if cfg.gradient_estimator == "autodiff":
         if cfg.data_term in ("cosine", "nearest"):
             return {"cosine": "K1", "nearest": "K6"}[cfg.data_term]
@@ -293,29 +362,27 @@ def _node_kernel(cfg: GQMAPConfig) -> str | None:
         return None
     if cfg.gradient_estimator == "prewitt":
         return "K7" if cfg.data_term == "nearest" else None
-    if cfg.data_term == "nearest":
-        return "K6"
-    if cfg.data_term == "cosine":
-        return "K1"
-    if cfg.data_term == "bicubic" and cfg.window_rg == 0:
-        return "K4"
-    if cfg.data_term == "bicubic" and window_gq.takes(cfg.K, cfg.window_rg):
-        return "K12"
-    if cfg.data_term == "chebyshev" and cfg.cheb_q <= MAX_Q:
-        return "K5"
-    if cfg.data_term == "quadratic":
-        return "K10"
-    return None
+    if cfg.data_term == "bicubic":
+        return "K4" if cfg.window_rg == 0 else "K12"
+    return {"nearest": "K6", "cosine": "K1", "chebyshev": "K5",
+            "quadratic": "K10"}.get(cfg.data_term)
 
 
-def _edge_kernel(cfg: GQMAPConfig) -> str | None:
-    """The kernel that computes ``cfg``'s edge term under the Stein and
-    Prewitt estimators: ``"K2"`` (reduced Charbonnier edges), ``"K3"``
-    (tensor-rule Charbonnier edges), ``"K11"`` (tensor-rule truncated-
-    quadratic edges), or None where the sums are plain torch (the reduced
-    truncated-quadratic edges). Under the autodiff estimator: ``"K15"``
-    (reduced Charbonnier edges), ``"K14"`` (tensor-rule Charbonnier edges),
-    else None."""
+def _node_kernel(cfg: GQMAPConfig) -> str | None:
+    """:func:`_node_term`'s kernel where it takes ``cfg``'s shape
+    (:func:`_shape_limit`), else None: the node sums are then plain torch."""
+    kernel = _node_term(cfg)
+    return None if kernel is None or _shape_limit(kernel, cfg) else kernel
+
+
+def _edge_term(cfg: GQMAPConfig) -> str | None:
+    """The kernel that computes ``cfg``'s edge term, whatever its shape,
+    under the Stein and Prewitt estimators: ``"K2"`` (reduced Charbonnier
+    edges), ``"K3"`` (tensor-rule Charbonnier edges), ``"K11"`` (tensor-rule
+    truncated-quadratic edges), or None where the sums are plain torch (the
+    reduced truncated-quadratic edges). Under the autodiff estimator:
+    ``"K15"`` (reduced Charbonnier edges), ``"K14"`` (tensor-rule Charbonnier
+    edges), else None."""
     if cfg.gradient_estimator == "autodiff":
         if cfg.edge_kind != "charbonnier":
             return None
@@ -323,6 +390,13 @@ def _edge_kernel(cfg: GQMAPConfig) -> str | None:
     if cfg.edge_kind == "charbonnier":
         return "K2" if cfg.edge_quad == "reduced" else "K3"
     return "K11" if cfg.edge_quad == "tensor" else None
+
+
+def _edge_kernel(cfg: GQMAPConfig) -> str | None:
+    """:func:`_edge_term`'s kernel where it takes ``cfg``'s shape
+    (:func:`_shape_limit`), else None: the edge sums are then plain torch."""
+    kernel = _edge_term(cfg)
+    return None if kernel is None or _shape_limit(kernel, cfg) else kernel
 
 
 def flow_lattice_shape(cfg: GQMAPConfig, image_shape) -> tuple[int, int]:
@@ -506,10 +580,12 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     without a window) and K10 for the quadratic prior under the Stein
     estimator, K7 for the Prewitt estimator's chain sums and K11 for
     truncated-quadratic edges under the tensor rule (each of which the JAX
-    package runs as one XLA scan); the other node terms (``cheb_q >
-    MAX_Q``, a window or a rule K12 does not take) and the reduced
-    truncated-quadratic edges run plain sums (:func:`check_supported`
-    refuses ``"cuda"`` there). Under the autodiff estimator K1, K13, K6, K14
+    package runs as one XLA scan); a shape its kernel does not take
+    (:func:`_shape_limit`: ``cheb_q > MAX_Q``, a rule past a kernel's
+    largest, a window radius K12 does not take, ...) runs that kernel's
+    plain version, and the reduced truncated-quadratic edges run plain sums
+    (:func:`check_supported` refuses ``"cuda"`` there). Under the autodiff
+    estimator K1, K13, K6, K14
     and K15 compute the terms :func:`_node_kernel` and :func:`_edge_kernel`
     name, inside ``torch.autograd.Function``s (``node_kernel`` or
     ``edge_kernel`` ``"torch"``: ``torch.autograd`` of the plain expectation),
@@ -551,7 +627,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     M, N = flow_lattice_shape(cfg, image_shape)
     L = cfg.L
     b = cfg.border
-    k1 = cfg.edge_quad_k if cfg.edge_quad_k > 0 else 2 * cfg.K + 3
+    k1 = _edge_k1(cfg)
     n_interior = (M - 2 * b) * (N - 2 * b) * L
     softmax_mode = cfg.alpha_update == "softmax_natural"
     node_sums_fn = _NODE_SUMS[cfg.node_kernel]
@@ -561,13 +637,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     # chain, the quadratic prior or the windowed bicubic term
     # (and under the autodiff estimator K13, or K6 for the nearest lookup's value;
     # node_kernel="torch" there is torch.autograd of the plain expectation)
+    # (a shape the kernel does not take runs its plain version, the "torch" route)
     routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN,
               "K10": _NODE_QUAD, "K12": _NODE_WINDOW, "K13": _NODE_ADJOINT}
-    kernel = _node_kernel(cfg)
-    if autodiff and cfg.node_kernel == "torch":
+    kernel = _node_term(cfg)
+    node_via = cfg.node_kernel if _node_kernel(cfg) is not None else "torch"
+    if autodiff and node_via == "torch":
         kernel = None
-    node_route = routes[kernel][cfg.node_kernel] if kernel in routes else None
-    if node_route is not None and cfg.node_kernel != "cuda":
+    node_route = routes[kernel][node_via] if kernel in routes else None
+    if node_route is not None and node_via != "cuda":
         # the plain versions step quad_chunk points at a time; the kernels take all
         node_route = functools.partial(node_route, quad_chunk=cfg.quad_chunk)
     reduced = cfg.edge_quad == "reduced"
@@ -583,11 +661,13 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     # scans truncated-quadratic tensor-rule edges, else the plain sums; under
     # the autodiff estimator K14 or K15 (edge_kernel="torch": torch.autograd of
     # the plain expectation)
-    edge_kernel = _edge_kernel(cfg)
-    if autodiff and cfg.edge_kernel == "torch":
+    # (a shape the kernel does not take runs its plain version, the "torch" route)
+    edge_kernel = _edge_term(cfg)
+    edge_via = cfg.edge_kernel if _edge_kernel(cfg) is not None else "torch"
+    if autodiff and edge_via == "torch":
         edge_kernel = None
-    edge_route = None if edge_kernel is None else _EDGE_ROUTES[edge_kernel][cfg.edge_kernel]
-    if edge_kernel in ("K11", "K14") and cfg.edge_kernel != "cuda":
+    edge_route = None if edge_kernel is None else _EDGE_ROUTES[edge_kernel][edge_via]
+    if edge_kernel in ("K11", "K14") and edge_via != "cuda":
         # K11's and K14's plain versions step quad_chunk points at a time
         edge_route = functools.partial(edge_route, quad_chunk=cfg.quad_chunk)
     roll = torch.roll if dist is None else dist.roll

@@ -27,11 +27,12 @@ process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
   (a checkout without ``variant`` runs only v1) at K = 9, both instances,
   on those states with the state's means as the quadratic prior;
   ``k12_sums_sha256`` of kernel K12's, both variants, at rg = 2 on the
-  one-pixel lattices' states (``full_mixture``, ``ctf_level``), and
+  one-pixel lattices' states (``full_mixture``, ``ctf_level``),
   ``k13_k14_sums_sha256`` of kernels K13's (those lattices) and K14's (every
-  state) under each checkout's default variant: equal digests of a parent
-  whose default is v1 and a tree whose default is v2 mean v2's sums are
-  v1's bit for bit;
+  state) and ``k15_sums_sha256`` of kernel K15's five outputs (every state,
+  K1 = 21, 25 and 13) under each checkout's default variant: equal digests
+  of a parent whose default is v1 and a tree whose default is v2 mean v2's
+  sums are v1's bit for bit;
 * the torch operators one ``tpu_fast``, one red-black and one
   ``full_mixture`` sweep dispatch (the kernels themselves, launched through
   ``ctypes``, are not among them): equal counts mean the same glue work on
@@ -149,7 +150,7 @@ def one(root: str) -> dict:
     v1 = ({"variant": "v1"} if "variant" in inspect.signature(
         quad_gq.quad_node_gq_cuda).parameters else {})
     digest, d3, d10 = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
-    d12, d13 = hashlib.sha256(), hashlib.sha256()
+    d12, d13, d15 = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
     for name, c in (("full_mixture", fm), ("super_entropy", GQMAPConfig.super_entropy()),
                     ("ctf_level", GQMAPConfig.ctf_level())):
         c = dataclasses.replace(c, tor=0.0)
@@ -181,6 +182,10 @@ def one(root: str) -> dict:
                         s.rou.to(dtype).contiguous())
                 got = autodiff_gq.edge_chain_gq_cuda(*edge, c.K, c.lambdas, c.epsn)
                 d13.update(torch.stack(got).cpu().numpy().tobytes())
+                for k1 in (21, 25, 13):
+                    got = autodiff_gq.edge_diff_adjoint_cuda(mu, sg, edge[4], k1, c.lambdas,
+                                                             c.epsn)
+                    d15.update(torch.stack(got).cpu().numpy().tobytes())
                 prior = torch.stack(fields[:2], -1)[0]
                 for generic in (False, True):
                     got = edge_gq.edge_gq_cuda(*edge, c.K, c.lambdas, c.epsn, generic=generic)
@@ -196,6 +201,7 @@ def one(root: str) -> dict:
     out["k10_k11_v1_sums_sha256"] = d10.hexdigest()
     out["k12_sums_sha256"] = d12.hexdigest()
     out["k13_k14_sums_sha256"] = d13.hexdigest()
+    out["k15_sums_sha256"] = d15.hexdigest()
     for name, sw, prob in (
             ("tpu_fast", pg.make_sweep(cfg, (H, W)), problem),
             ("redblack", pg.make_sweep(dataclasses.replace(cfg, sweep_order="redblack"), (H, W)),

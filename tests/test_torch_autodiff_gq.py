@@ -449,14 +449,10 @@ def k14_transcribed(mu, sg, u2e, o2e, rou, K, lam, eps, quad_chunk=0):
                          lam * cj)
 
 
-def k15_transcribed(mu, sg, rou, k1, lam, eps, halo=None):
-    """``edge_diff_kernel``: endpoint 2 read one row down and one column right
-    with wrap, c floored at tiny with NaN kept and its slope by the tie rule,
-    the +-x pairs' F and h, the centre, then the value and the four
-    derivatives."""
-    assert halo is None
-    rule = paired_rule_1d(k1)
-    P = k1 // 2
+def _k15_edges(mu, sg, rou):
+    """``diff_edge`` of every edge: endpoint 2 read one row down and one
+    column right with wrap, ``(o1e, o2e, delta, rc, slope)``, c floored at
+    tiny with NaN kept and its slope by the tie rule."""
     u2 = torch.stack([torch.roll(mu, -1, -2), torch.roll(mu, -1, -1)])
     o2 = torch.stack([torch.roll(sg, -1, -2), torch.roll(sg, -1, -1)])
     o1e, o2e = sg[None] * SQRT2, o2 * SQRT2
@@ -465,21 +461,73 @@ def k15_transcribed(mu, sg, rou, k1, lam, eps, halo=None):
     tiny = torch.finfo(c_raw.dtype).tiny
     slope = torch.where(c_raw > tiny, 1.0, torch.where(c_raw == tiny, 0.5, 0.0)).to(mu.dtype)
     rc = torch.sqrt(torch.where(c_raw < tiny, tiny, c_raw))
-    h0 = g0 = g1 = torch.zeros_like(rou)
-    for k in range(P):
-        sx = rc * rule[k]
-        dp, dm = delta + sx, delta - sx
-        fp, fm = torch.sqrt(eps + dp * dp), torch.sqrt(eps + dm * dm)
-        hp, hm = dp / fp, dm / fm
-        h0 = h0 + rule[P + k] * (fp + fm)
-        g0 = g0 + rule[P + k] * (hp + hm)
-        g1 = g1 + rule[2 * P + k] * (hp - hm)
-    f0 = torch.sqrt(eps + delta * delta)
-    h0, g0 = h0 + rule[4 * P] * f0, g0 + rule[4 * P] * (delta / f0)
+    return o1e, o2e, delta, rc, slope
+
+
+def _k15_write(edges, rou, sums, lam):
+    """``write_diff``: the value and the four derivatives from the sums."""
+    o1e, o2e, _, rc, slope = edges
+    h0, g0, g1 = sums
     nl = -lam * math.sqrt(math.pi)
     dc = nl * g1 * 0.5 / rc * slope
     return (nl * h0, nl * g0, dc * (2 * SQRT2) * (o1e - rou * o2e),
             dc * (2 * SQRT2) * (o2e - rou * o1e), dc * -2.0 * o1e * o2e)
+
+
+def _k15_sums(edges, rule, P, eps, root=torch.sqrt):
+    """An edge's H0, G0, G1 over the flat rule's P pairs in order, then the
+    centre; F by ``root``."""
+    _, _, delta, rc, _ = edges
+    h0 = g0 = g1 = torch.zeros_like(delta)
+    for k in range(P):
+        sx = rc * rule[k]
+        dp, dm = delta + sx, delta - sx
+        fp, fm = root(eps + dp * dp), root(eps + dm * dm)
+        hp, hm = dp / fp, dm / fm
+        h0 = h0 + rule[P + k] * (fp + fm)
+        g0 = g0 + rule[P + k] * (hp + hm)
+        g1 = g1 + rule[2 * P + k] * (hp - hm)
+    f0 = root(eps + delta * delta)
+    return h0 + rule[4 * P] * f0, g0 + rule[4 * P] * (delta / f0), g1
+
+
+def k15_transcribed(mu, sg, rou, k1, lam, eps, halo=None):
+    """``edge_diff_kernel``: endpoint 2 read one row down and one column right
+    with wrap, c floored at tiny with NaN kept and its slope by the tie rule,
+    the +-x pairs' F and h, the centre, then the value and the four
+    derivatives."""
+    assert halo is None
+    edges = _k15_edges(mu, sg, rou)
+    return _k15_write(edges, rou, _k15_sums(edges, paired_rule_1d(k1), k1 // 2, eps), lam)
+
+
+def _k15_in_range(delta, sx_min, eps):
+    """``diff_in_range``: float32 numerators delta +- sx_k with delta and
+    every sx_k (>= sx_min) 0 or at least 2^-36 are 0 or at least 2^-59, in
+    the fast division's range, as F is at eps >= 2^-120; float64 divides as
+    IEEE does."""
+    if delta.dtype == torch.float64:
+        return torch.ones_like(delta, dtype=torch.bool)
+    lo = 2.0 ** -36
+    return ((delta == 0) | (delta.abs() >= lo)) & (sx_min >= lo) & (eps >= 2.0 ** -120)
+
+
+def k15_v2_transcribed(mu, sg, rou, k1, lam, eps, halo=None):
+    """``edge_diff_v2_kernel``: v1's edges and sums, the pairs in the by-value
+    rule's order (``EdgeRule1D``: ``x[k]``, ``w[k]``, ``wx[k]``, then
+    ``wc``, :func:`paired_rule_1d`'s flat order), F by root() and h by the
+    fast division. An edge whose three sums are not all finite, or whose
+    numerators ``diff_in_range`` does not bound (by the least node, the
+    last pair's), takes v1's sums (sqrt and the division)."""
+    assert halo is None
+    edges = _k15_edges(mu, sg, rou)
+    rule, P = paired_rule_1d(k1), k1 // 2
+    fast = _k15_sums(edges, rule, P, eps, _root)
+    exact = _k15_sums(edges, rule, P, eps)
+    _, _, delta, rc, _ = edges
+    ok = (torch.isfinite(fast[0]) & torch.isfinite(fast[1]) & torch.isfinite(fast[2])
+          & _k15_in_range(delta, rc * rule[P - 1], eps))
+    return _k15_write(edges, rou, [torch.where(ok, a, b) for a, b in zip(fast, exact)], lam)
 
 
 def _root(r):
@@ -637,7 +685,8 @@ K13 = {"plain": autodiff_gq.node_chain_gq_torch, "transcribed": k13_transcribed,
        "v2 transcribed": k13_v2_transcribed}
 K14 = {"plain": autodiff_gq.edge_chain_gq_torch, "transcribed": k14_transcribed,
        "v2 transcribed": k14_v2_transcribed}
-K15 = {"plain": autodiff_gq.edge_diff_adjoint_torch, "transcribed": k15_transcribed}
+K15 = {"plain": autodiff_gq.edge_diff_adjoint_torch, "transcribed": k15_transcribed,
+       "v2 transcribed": k15_v2_transcribed}
 
 
 def _k13_probe(probe, seed=1):
@@ -779,16 +828,19 @@ def test_k14_v2_transcription_is_v1s_bit_for_bit(K, probe, dtype):
 
 def test_variants_resolve():
     # "v2" by default where it is compiled: K13 up to node_gq.V2_MAX_K points an
-    # axis (its point table), K14 from K = 2 (rule_instance.cuh); "v1" elsewhere
+    # axis (its point table), K14 from K = 2 and K15 from K1 = 2
+    # (rule_instance.cuh); "v1" elsewhere
     assert autodiff_gq.VARIANTS == ("v1", "v2")
     rv = autodiff_gq.resolve_variant
     assert rv("K13", None, 9) == rv("K13", None, 16) == rv("K13", "v2", 3) == "v2"
     assert rv("K13", None, 17) == rv("K13", "v1", 64) == "v1"
     assert rv("K14", None, 9) == rv("K14", None, 2) == rv("K14", None, 64) == "v2"
     assert rv("K14", None, 1) == "v1"
+    assert rv("K15", None, 21) == rv("K15", None, 25) == rv("K15", None, 13) == "v2"
+    assert rv("K15", None, 2) == "v2" and rv("K15", None, 1) == rv("K15", "v1", 21) == "v1"
     for call in (lambda: rv("K13", "v2", 17), lambda: rv("K13", "v1", 65),
                  lambda: rv("K14", "v2", 1), lambda: rv("K13", "v3", 9),
-                 lambda: rv("K15", None, 9)):
+                 lambda: rv("K15", "v2", 1), lambda: rv("K16", None, 9)):
         with pytest.raises(ValueError):
             call()
 
@@ -825,30 +877,114 @@ def test_point_constants_are_node_rules(K, dtype):
         assert pts[p, 0] == x[i] and pts[p, 1] == x[j] and pts[p, 2] == dtype(w[i] * w[j])
 
 
-@pytest.mark.parametrize("probe", PROBES + ("nan", "floor"))
-def test_k15_transcription_matches_jax_grad(probe):
-    st = list(_probe("sigma 0.05" if probe in ("nan", "floor") else probe, seed=3))
-    k1 = 13
+def _k15_probe(probe, seed=3):
+    """The K15 transcription tests' state: NaN at a few sites and edges,
+    +inf in a mean and a sigma, edges with c on and below float64's smallest
+    normal ("floor"), or neighbours 1e-25 apart (or equal) at sigma 1e-27
+    ("tiny": numerators below the fast division's range)."""
+    st = list(_probe("sigma 0.05" if probe in ("nan", "inf", "floor", "tiny") else probe,
+                     seed=seed))
     if probe == "nan":
         st[1][1, 5, 0] = np.nan
         st[5][0, 1, 0, 2, 2] = np.nan
+    if probe == "inf":
+        st[0][0, 2, 3] = np.inf
+        st[3][1, 6, 7] = np.inf
     if probe == "floor":  # edges with c on and below float64's smallest normal
         o = _tiny_sigma()
         st[2][0, 3, 3], st[2][0, 4, 3], st[5][0, 0, 0, 3, 3] = o, 0.0, 0.0
         st[0][0, 4, 3] = st[0][0, 3, 3]
         st[2][1, 6, 6], st[2][1, 6, 7], st[5][1, 0, 1, 6, 6] = o / 2, 0.0, 0.0
+    if probe == "tiny":
+        r = np.random.default_rng(seed)
+        for k in (0, 1):
+            st[k] = np.round(st[k] * 4) / 4 + 1e-25 * r.integers(-1, 2, st[k].shape)
+        st[2], st[3] = np.full_like(st[2], 1e-27), np.full_like(st[3], 1e-27)
+    return st
+
+
+def _k15_transcription_matches_jax(fn, probe):
+    st = _k15_probe(probe)
+    k1 = 13
     ed = _edge_inputs(st)
     gdj = jpot.make_edge_pot_diff(LAMS, EPS)
     value, want = _jax_grads(
         lambda *x: jgq.gq_ei_diff(gdj, *x, jax_build_table_1d(k1, dtype=np.float64)), *ed)
     mu, sg = t(np.stack(st[:2])), t(np.stack(st[2:4]))
-    ei, du1, do1, do2, dp = k15_transcribed(mu, sg, t(st[5]), k1, LAMS, EPS)
+    ei, du1, do1, do2, dp = fn(mu, sg, t(st[5]), k1, LAMS, EPS)
     _close(ei, value, "Ei")
     for k, (p, w) in enumerate(zip((du1, -du1, do1, do2, dp), want)):
         _close(p, w, f"d/d(arg {k})")
     plain = autodiff_gq.edge_diff_adjoint_torch(mu, sg, t(st[5]), k1, LAMS, EPS)
     for k, (a, b) in enumerate(zip((ei, du1, do1, do2, dp), plain)):
         _close(a, b.numpy(), f"plain output {k}")
+
+
+@pytest.mark.parametrize("probe", PROBES + ("nan", "floor"))
+def test_k15_transcription_matches_jax_grad(probe):
+    _k15_transcription_matches_jax(k15_transcribed, probe)
+
+
+@pytest.mark.parametrize("probe", PROBES + ("nan", "floor"))
+def test_k15_v2_transcription_matches_jax_grad(probe):
+    _k15_transcription_matches_jax(k15_v2_transcribed, probe)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("probe", PROBES + ("nan", "inf", "tiny", "floor"))
+@pytest.mark.parametrize("k1", [13, 21, 25])
+def test_k15_v2_transcription_is_v1s_bit_for_bit(k1, probe, dtype):
+    # the by-value rule's order is v1's flat order and root() is sqrt's value,
+    # so the five outputs are v1's exactly; an edge with an infinite input
+    # (root() gives NaN at +inf) or a site with a numerator below the fast
+    # division's range ("tiny") takes v1's sums
+    st = _k15_probe(probe, seed=5)
+    mu, sg = t(np.stack(st[:2])).to(dtype), t(np.stack(st[2:4])).to(dtype)
+    args = (mu, sg, t(st[5]).to(dtype), k1, LAMS, EPS)
+    v1 = k15_transcribed(*args)
+    v2 = k15_v2_transcribed(*args)
+    for k, (a, b) in enumerate(zip(v2, v1)):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan]), (probe, k)
+    if probe in ("nan", "inf"):
+        assert not bool(torch.isfinite(v2[0]).all())
+    if probe == "tiny" and dtype == torch.float32:  # the range test sends edges to v1's sums
+        edges = _k15_edges(*args[:3])
+        sx_min = edges[3] * paired_rule_1d(k1)[k1 // 2 - 1]
+        assert not bool(_k15_in_range(edges[2], sx_min, EPS).all())
+
+
+@pytest.mark.parametrize("k1", [2, 3, 5, 13, 20, 21, 25, 41, 64])
+def test_paired_rule_1d_nodes_descend(k1):
+    # K15 v2 bounds an edge's numerators by the last pair's node: the least
+    for dtype in (np.float64, np.float32):
+        x = paired_rule_1d(k1, dtype)[:k1 // 2]
+        assert bool((x > 0).all()) and bool((np.diff(x) < 0).all())
+
+
+def test_k15_v2_range_test_bounds_every_numerator():
+    # diff_in_range's premise, in float32: delta and s each 0 or at least 2^-36
+    # in magnitude, so delta +- s is 0 or at least 2^-59 (fast_div.cuh's range
+    # is 2^-60 and up), on random values and on nearly cancelling ones (s a
+    # few ulps from delta, delta +- s of every sign)
+    r = np.random.default_rng(0)
+    n = 200_000
+    mant = r.uniform(1, 2, n)
+    delta = (mant * 2.0 ** r.integers(-36, 12, n)).astype(np.float32)
+    delta = np.where(r.uniform(size=n) < 0.5, -delta, delta)
+    delta[:1000] = 0.0
+    s = (r.uniform(1, 2, n) * 2.0 ** r.integers(-36, 12, n)).astype(np.float32)
+    near = np.abs(delta[1000:]).astype(np.float32)
+    steps = r.integers(-4, 5, near.shape).astype(np.int32)
+    near = (near.view(np.int32) + steps).view(np.float32)
+    s[1000:n // 2] = np.where(np.abs(near[:n // 2 - 1000]) >= 2.0 ** -36,
+                              np.abs(near[:n // 2 - 1000]), s[1000:n // 2])
+    lo = np.float32(2.0 ** -36)
+    assert bool(((delta == 0) | (np.abs(delta) >= lo)).all()) and bool((s >= lo).all())
+    for x in (delta + s, delta - s):
+        assert x.dtype == np.float32
+        assert bool(((x == 0) | (np.abs(x) >= np.float32(2.0 ** -59))).all())
+    assert int(((delta + s == 0) | (delta - s == 0)).sum()) > 0  # cancellation was probed
 
 
 def test_k15_halo_gives_the_whole_lattices_block():
@@ -954,7 +1090,7 @@ def _jax_path(name):
 def _transcribed_routes(monkeypatch, version="transcribed"):
     monkeypatch.setitem(pg._NODE_ADJOINT, "auto", K13[version])
     monkeypatch.setitem(pg._EDGE_ROUTES["K14"], "auto", K14[version])
-    monkeypatch.setitem(pg._EDGE_ROUTES["K15"], "auto", k15_transcribed)
+    monkeypatch.setitem(pg._EDGE_ROUTES["K15"], "auto", K15[version])
 
 
 @pytest.mark.parametrize("version", VERSIONS)

@@ -195,3 +195,107 @@ def test_kernels_refuse_a_device_that_is_not_hopper(capability, ok):
         with pytest.raises(RuntimeError, match=rf"card has compute capability "
                                                rf"{capability[0]}\.{capability[1]}"):
             build.require_capability(capability, "card")
+
+
+# ---- D7: each kernel routed by the shape it takes ---------------------------------------
+
+C = gqmap_tpu_torch.GQMAPConfig
+AD = dict(gradient_estimator="autodiff")
+# (configuration, "node" or "edge", the term's kernel, the kernel that runs it:
+# None where the shape is past the kernel's limit and the sums are plain torch)
+SHAPE_CASES = {
+    "cosine L=5": (C.tpu_fast(L=5), "node", "K1", "K1"),
+    "cosine L=9 super": (C.tpu_fast_super(L=9), "node", "K1", "K1"),
+    "cosine L=5 autodiff": (C.tpu_fast(L=5, **AD), "node", "K1", "K1"),
+    "K4 K=64": (C.full_mixture(K=64), "node", "K4", "K4"),
+    "K4 K=65": (C.full_mixture(K=65), "node", "K4", None),
+    "K5 K=65": (C.full_mixture(data_term="chebyshev", K=65), "node", "K5", None),
+    "K5 cheb_q=65": (C.full_mixture(data_term="chebyshev", cheb_q=65), "node", "K5", None),
+    "K5 L K^2 past shared memory": (C.full_mixture(data_term="chebyshev", K=40, L=8), "node",
+                                    "K5", None),
+    "K6 K=65": (C.legacy_v2(K=65), "node", "K6", None),
+    "K6 rfc=21": (C.legacy_v2(rfc=21), "node", "K6", None),
+    "K6 K=65 autodiff": (C.legacy_v2(K=65, **AD), "node", "K6", None),
+    "K7 K=65": (C.legacy_v3(K=65), "node", "K7", None),
+    "K10 K=65": (C.legacy_v1(K=65), "node", "K10", "K10"),
+    "K12 window_rg=5": (C.full_mixture(window_rg=5), "node", "K12", None),
+    "K13 K=64": (C.full_mixture(K=64, **AD), "node", "K13", "K13"),
+    "K13 K=65": (C.full_mixture(K=65, **AD), "node", "K13", None),
+    "K2 K1=6200": (C.tpu_fast(edge_quad_k=6200), "edge", "K2", None),
+    "K3 K=55": (C.full_mixture(K=55), "edge", "K3", "K3"),
+    "K3 K=56": (C.full_mixture(K=56), "edge", "K3", None),
+    "K3 K=40 float64": (C.full_mixture(K=40, dtype="float64"), "edge", "K3", None),
+    "K3 K=1": (C.full_mixture(K=1), "edge", "K3", None),
+    "K11 K=56": (C.legacy_v1(K=56), "edge", "K11", None),
+    "K11 K=40 float64": (C.legacy_v1(K=40, dtype="float64"), "edge", "K11", None),
+    "K14 K=70": (C.full_mixture(K=70, **AD), "edge", "K14", "K14"),
+    "K14 K=71": (C.full_mixture(K=71, **AD), "edge", "K14", None),
+    "K14 K=50 float64": (C.full_mixture(K=50, dtype="float64", **AD), "edge", "K14", None),
+    "K15 K1=6200": (C.tpu_fast(edge_quad_k=6200, **AD), "edge", "K15", None),
+}
+
+
+@pytest.mark.parametrize("case", list(SHAPE_CASES))
+def test_kernels_are_routed_by_the_shape_they_take(case):
+    # _node_kernel / _edge_kernel name the term's kernel where it takes the
+    # configuration's shape and None past its limit, where "auto" runs the
+    # plain sums; check_supported refuses "cuda" there, naming the kernel and
+    # its limit, and takes "auto" and "torch" (no card needed)
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    cfg, side, term, kernel = SHAPE_CASES[case]
+    field = f"{side}_kernel"
+    assert getattr(pg, f"_{side}_term")(cfg) == term
+    assert getattr(pg, f"_{side}_kernel")(cfg) == kernel
+    assert (pg._shape_limit(term, cfg) is None) == (kernel is not None)
+    for route in ("auto", "torch"):
+        check_supported(dataclasses.replace(cfg, **{field: route}))
+    cuda = dataclasses.replace(cfg, **{field: "cuda"})
+    if kernel is not None:
+        check_supported(cuda)
+        return
+    with pytest.raises(ValueError, match=rf"{field}='cuda' asks for kernel {term}, which does "
+                                         rf"not take this configuration's shape: {term} takes"):
+        check_supported(cuda)
+
+
+@pytest.mark.parametrize("preset, kw", [
+    ("full_mixture", dict(K=65, L=2)),
+    ("full_mixture", dict(K=65, L=2, gradient_estimator="autodiff")),
+    ("legacy_v2", dict(K=65)),
+    ("legacy_v3", dict(K=65)),
+])
+def test_a_shape_past_its_kernels_limit_sweeps_through_the_plain_version(monkeypatch, preset,
+                                                                         kw):
+    # "auto" past a kernel's limit never calls the kernel's route: the sweep is
+    # the "torch" routes' sweep, bit for bit
+    import numpy as np
+    import torch
+
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    cfg = getattr(C, preset)(dtype="float64", quad_chunk=700, **kw)
+    node, edge = pg._node_term(cfg), pg._edge_term(cfg)
+    for side, term in (("node", node), ("edge", edge)):
+        if getattr(pg, f"_{side}_kernel")(cfg) is not None:
+            continue
+
+        def refuse(*a, term=term, **k):
+            raise AssertionError(f"the sweep called {term}'s kernel route past its limit")
+
+        table = {"K4": pg._NODE_GQ, "K6": pg._NODE_NEAREST, "K7": pg._NODE_CHAIN,
+                 "K13": pg._NODE_ADJOINT}.get(term) or pg._EDGE_ROUTES[term]
+        monkeypatch.setitem(table, "auto", refuse)
+    shape = (8, 10)
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, shape)
+    fr = gqmap_tpu_torch.FlowRange(-2.0, 2.0, -2.0, 2.0)
+    problem = pg.make_problem(cfg, I1, np.roll(I1, 1, 1), fr, device="cpu")
+    state = pg.init_state(cfg, fr, shape, device="cpu")
+    state = state._replace(sigmau=state.sigmau * 0 + 0.3, sigmav=state.sigmav * 0 + 0.4)
+    got, _ = pg.make_sweep(cfg, shape)(problem, state)
+    plain = dataclasses.replace(cfg, node_kernel="torch", edge_kernel="torch")
+    want, _ = pg.make_sweep(plain, shape)(problem, state)
+    for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"):
+        assert bool(torch.isfinite(getattr(got, f)).all()), f
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

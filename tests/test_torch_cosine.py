@@ -183,3 +183,63 @@ def test_make_problem_keeps_callers_tf32_flags(flags):
         assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("L", range(1, 13))
+def test_component_groups_cover_the_components_evenly(L):
+    # K1 runs more than MAX_L components as the fewest groups of at most MAX_L
+    # consecutive ones, sized as evenly as possible, the larger first
+    groups = cosine_gq.component_groups(L)
+    assert len(groups) == -(-L // cosine_gq.MAX_L)
+    assert [l0 for l0, _ in groups] == [sum(n for _, n in groups[:k]) for k in range(len(groups))]
+    sizes = [n for _, n in groups]
+    assert sum(sizes) == L and max(sizes) <= cosine_gq.MAX_L
+    assert sizes == sorted(sizes, reverse=True) and max(sizes) - min(sizes) <= 1
+    if L == 5:
+        assert groups == [(0, 3), (3, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [5, 7, 9])
+def test_grouped_plain_sums_are_one_calls_bit_for_bit(L, dtype):
+    # by_groups, the grouping K1's launches take, with the plain sums as each
+    # group's sums: every component's six sums are the one call's, bit for
+    # bit. (A lattice of 16 x 12 sites: where M N leaves a ragged vector tail,
+    # torch's CPU sum over the plain version's leading v-degree axis orders an
+    # element's terms by its place in the whole tensor, so a slice's plain
+    # sums may round apart from the whole's; that is the plain version's
+    # rounding, not the grouping's.)
+    M, N = 12, 16
+    _, pc = _cos_pair(13, 5, M, N, seed=20 + L)
+    pc = pc._replace(coeffs=pc.coeffs.to(dtype))
+    s = [t(x).to(dtype) for x in _sites(M, N, L, seed=30 + L)]
+    want = cosine_gq.cos_mode_sums_torch(pc, *s)
+    calls = []
+
+    def sums(l0, n, part):
+        calls.append((l0, n))
+        part.copy_(torch.stack(cosine_gq.cos_mode_sums_torch(pc, *(x[l0:l0 + n] for x in s))))
+
+    got = cosine_gq.by_groups(sums, torch.empty((6, L, M, N), dtype=dtype))
+    assert calls == cosine_gq.component_groups(L)
+    for g, w, name in zip(got, want, SUMS):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("variant", ["v1", "recur"])
+def test_grouped_plain_sums_match_pallas_interpret_at_L5(variant):
+    # tpu_fast(L=5)'s node term: the JAX kernel takes the five components in
+    # one call; the port's K1 takes them as groups of 3 and 2 (here each
+    # group's plain sums), within 1e-10 of each sum's scale
+    A, B, M, N, L = 20, 6, 16, 24, 5
+    jc, pc = _cos_pair(A, B, M, N, seed=21)
+    s = _sites(M, N, L, seed=22, sig_hi=1.5)
+    want = cos_mode_sums_pallas(jc, *map(jnp.asarray, s), a_block=8, rows=8, interpret=True,
+                                variant=variant)
+    st = [t(x) for x in s]
+    got = cosine_gq.by_groups(
+        lambda l0, n, part: part.copy_(torch.stack(
+            cosine_gq.cos_mode_sums_torch(pc, *(x[l0:l0 + n] for x in st)))),
+        torch.empty((6, L, M, N), dtype=torch.float64))
+    for g, w, name in zip(got, want, SUMS):
+        _scaled_close(g, w, 1e-10, name)

@@ -1997,8 +1997,9 @@ def _autodiff_frames(M, N):
     return I1, pad_cubic(torch.roll(I1, 1, 1) + torch.as_tensor(r.normal(0, 5, (M, N))))
 
 
-# K13 and K14 in each variant (None: K15, which has one)
-AUTODIFF_CASES = [("K13", "v1"), ("K13", "v2"), ("K14", "v1"), ("K14", "v2"), ("K15", None)]
+# K13, K14 and K15 in each variant
+AUTODIFF_CASES = [("K13", "v1"), ("K13", "v2"), ("K14", "v1"), ("K14", "v2"), ("K15", "v1"),
+                  ("K15", "v2")]
 
 
 def _variant(variant):
@@ -2079,14 +2080,16 @@ def _same_bits(got, want):
 
 @pytest.mark.parametrize("probe", ["sigma 0.05", "init", "bounds", "clamp", "nan", "inf",
                                    "tiny"])
-@pytest.mark.parametrize("name", ["K13", "K14"])
+@pytest.mark.parametrize("name", ["K13", "K14", "K15"])
 def test_autodiff_v2_is_v1_bit_for_bit(dev, name, probe):
     # v2 keeps v1's arithmetic, lanes and summation order: the same sums, bit
-    # for bit, in each instance (K = 9 compiled and generic, K = 5), in both
-    # types; K13 v2's L1 route (window_bytes = 0) gives its shared route's sums
-    # and counts every CTA and site; an infinite input (root() gives NaN at
-    # +inf) and quotients below the fast division's range ("tiny": K14's
-    # neighbours 1e-25 apart at sigma 1e-27, K13 at eps = 0) take v1's sums
+    # for bit, in each instance (K13 and K14: K = 9 compiled and generic, K =
+    # 5; K15: K1 = 21 and 25 compiled and generic, K1 = 13, and with a halo),
+    # in both types; K13 v2's L1 route (window_bytes = 0) gives its shared
+    # route's sums and counts every CTA and site; an infinite input (root()
+    # gives NaN at +inf) and quotients below the fast division's range
+    # ("tiny": K14's and K15's neighbours 1e-25 apart at sigma 1e-27, K13 at
+    # eps = 0) take v1's sums
     g = torch.Generator().manual_seed(len(probe) + 3)
     L, M, N = 3, 47, 57
     st = list(_autodiff_state(g, L, M, N, probe if probe not in ("nan", "inf", "tiny")
@@ -2097,21 +2100,31 @@ def test_autodiff_v2_is_v1_bit_for_bit(dev, name, probe):
     if probe == "inf":
         I1 = I1.clone()
         I1[5, 6], st[0][1, 7, 9], st[3][0, 3, 3] = (float("inf"),) * 3
-    if probe == "tiny" and name == "K14":
+    if probe == "tiny" and name in ("K14", "K15"):
         for k in (0, 1):
             st[k] = torch.round(st[k] * 4) / 4 + 1e-25 * torch.randint(-1, 2, st[k].shape,
                                                                        generator=g)
         st[2], st[3] = (torch.full_like(st[2], 1e-27),) * 2
-    at = 7 if name == "K13" else 5  # the rule's K among the arguments
+    at = {"K13": 7, "K14": 5, "K15": 3}[name]  # the rule's K among the arguments
+    rules = (21, 25, 13) if name == "K15" else (9, 5)
     for dtype in (torch.float64, torch.float32):
         kern, _, args = _autodiff_calls(name, st, (I1, VV), dtype, dev)
         if probe == "tiny" and name == "K13":
             args = (*args[:9], 0.0)
-        for K in (9, 5):
+        for K in rules:
             a = (*args[:at], K, *args[at + 1:])
             v1 = kern(*a, variant="v1")
             for generic in (False, True):
                 assert _same_bits(kern(*a, variant="v2", generic=generic), v1), (dtype, K, generic)
+            if name == "K15":  # a shard's block with its halo, both variants
+                r0, c0, m, n = 9, 13, 17, 29
+                blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
+                ms = torch.stack(a[:2])
+                halo = (ms[..., r0 + m:r0 + m + 1, c0:c0 + n].contiguous(),
+                        ms[..., r0:r0 + m, c0 + n:c0 + n + 1].contiguous())
+                part = [x[blk].contiguous() for x in a[:3]]
+                h1 = kern(*part, *a[3:], halo=halo, variant="v1")
+                assert _same_bits(kern(*part, *a[3:], halo=halo, variant="v2"), h1), (dtype, K)
             if name == "K13":
                 cnt = torch.zeros(2, dtype=torch.int64, device=dev)
                 every = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -2119,6 +2132,21 @@ def test_autodiff_v2_is_v1_bit_for_bit(dev, name, probe):
                 assert _same_bits(kern(*a, window_bytes=0, l1_counts=every), shared)
                 assert every.tolist() == [node_gq.v2_ctas((L, M, N), 1), L * M * N]
                 assert 0 <= int(cnt[1]) <= L * M * N
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k15_v2_past_its_32_bit_instance_is_v1_bit_for_bit(dev, dtype):
+    # 4100 x 4100 sites a plane (2^24 and more): K15 v2 runs its instance
+    # with 64-bit offsets and the row by an integer division, v1's outputs
+    # bit for bit
+    g = torch.Generator().manual_seed(21)
+    shape = (2, 1, 4100, 4100)
+    mu = (torch.rand(shape, generator=g) * 4 - 2).to(dev, dtype)
+    sg = (0.05 + torch.rand(shape, generator=g)).to(dev, dtype)
+    rou = (torch.rand((2,) + shape, generator=g) * 1.8 - 0.9).to(dev, dtype)
+    args = (mu, sg, rou, 21, 5.0, 1e-6)
+    v1 = autodiff_gq.edge_diff_adjoint_cuda(*args, variant="v1")
+    assert _same_bits(autodiff_gq.edge_diff_adjoint_cuda(*args, variant="v2"), v1)
 
 
 @pytest.mark.parametrize("variant", autodiff_gq.VARIANTS)
@@ -2155,3 +2183,67 @@ def test_autodiff_graph_segment_launches_its_kernels(dev, preset, want, variant,
         ek = float((getattr(one, f).double() - getattr(gold, f)).abs().max())
         ep = float((getattr(ref, f).double() - getattr(gold, f)).abs().max())
         assert ek <= 2.0 * ep + 1e-6, (f, ek, ep)
+
+
+# ---- D7: every configuration the JAX package runs runs on the card -------------------
+
+@pytest.mark.parametrize("preset", ["tpu_fast", "tpu_fast_super"])
+@pytest.mark.parametrize("estimator", ["stein", "autodiff"])
+def test_five_components_sweep_through_k1_in_groups(dev, preset, estimator):
+    # L = 5 runs K1 as two groups (3 + 2 components), two launches a sweep,
+    # each group reading its slice of the phase stack in place: one sweep
+    # from the init on "auto" and on "cuda", as close to the f64 golden (the
+    # plain route in float64) as the plain route in float32 is, by the ratio
+    # rule of tests/test_f32_conditioning.py; the groups' sums are the plain
+    # full sums' within the float32 tolerance
+    kw = dict(L=5, gradient_estimator=estimator, corr_tor=0.99)
+    shape = (32, 40) if preset == "tpu_fast_super" else (24, 40)
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, shape)
+    fr = FlowRange(-2, 2, -2, 2)
+    plain = dict(node_kernel="torch", edge_kernel="torch")
+
+    def sweep(dtype="float32", **routes):
+        cfg = getattr(GQMAPConfig, preset)(cheb_p=16, cheb_q=8, dtype=dtype, **kw, **routes)
+        problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)
+        state = pg.init_state(cfg, fr, shape, device=dev)
+        return pg.make_sweep(cfg, shape)(problem, state)[0], problem, state
+
+    k1 = cosine_gq.cos_mode_sums_cuda
+    gold = sweep("float64", **plain)[0]
+    ref = sweep(**plain)[0]
+    for route in ("auto", "cuda"):
+        n = k1.launches
+        got, problem, state = sweep(node_kernel=route, edge_kernel=route)
+        torch.cuda.synchronize()
+        assert k1.launches - n == len(cosine_gq.component_groups(5)) == 2
+        for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"):
+            assert bool(torch.isfinite(getattr(got, f)).all()), f
+            ek = float((getattr(got, f).double() - getattr(gold, f)).abs().max())
+            ep = float((getattr(ref, f).double() - getattr(gold, f)).abs().max())
+            assert ek <= 2.0 * ep + 1e-6, (route, f, ek, ep)
+    sites = (state.muu, state.muv, state.sigmau, state.sigmav, state.pn)
+    for g, w in zip(cosine_gq.cos_mode_sums_cuda(problem.cheb, *sites),
+                    cosine_gq.cos_mode_sums_torch(problem.cheb, *sites)):
+        _close(g, w, torch.float32, "K1 in groups")
+
+
+def test_a_rule_past_every_kernels_limit_sweeps_on_auto(dev):
+    # full_mixture at K = 65: past K4's 64 points an axis and K3's shared
+    # memory, so "auto" runs both plain versions (no launch of either) and
+    # does not raise; "cuda" is refused, naming the limit
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (12, 16))
+    fr = FlowRange(-2, 2, -2, 2)
+    cfg = GQMAPConfig.full_mixture(K=65, L=2, quad_chunk=700)
+    problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)
+    state = pg.init_state(cfg, fr, (12, 16), device=dev)
+    n = (node_gq.node_gq_cuda.launches, edge_gq.edge_gq_cuda.launches)
+    st, aux = pg.make_sweep(cfg, (12, 16))(problem, state)
+    torch.cuda.synchronize()
+    assert (node_gq.node_gq_cuda.launches, edge_gq.edge_gq_cuda.launches) == n
+    assert all(bool(torch.isfinite(x).all()) for x in st if x.is_floating_point())
+    assert bool(torch.isfinite(aux.energy))
+    for field in ("node_kernel", "edge_kernel"):
+        with pytest.raises(ValueError, match="does not take this configuration's shape"):
+            pg.make_sweep(dataclasses.replace(cfg, **{field: "cuda"}), (12, 16))
