@@ -313,6 +313,26 @@ capability 9.0 (Hopper) and ``nvcc``. It imports nothing of JAX. Phases:
    ``full_mixture(K=65)`` on a crop, past K4's and K3's limits: one sweep
    on ``"auto"`` that launches neither and does not raise, and
    ``check_supported`` refusing ``"cuda"`` with the limit named;
+18e. the autodiff estimator's windowed and super-lattice bicubic node terms'
+   kernels (``kernels_chain_block``): K16 on ``full_mixture(window_rg=2)``'s
+   (3, 376, 452) and ``legacy_v2(data_term="bicubic")``'s (1, 376, 452) sites
+   (K = 9, rg = 2) and K13 at patch 4 on ``super_entropy``'s (3, 94, 113)
+   (K = 11) against their plain versions on the init, sigma = 0.05, the
+   |rho| clamp and the means on the flow range's integer bounds, float64
+   within 1e-10, float32 by the ratio rule against the float64 golden; VV
+   through L1 (its counts), the window as one copy and the runtime-K
+   instance bit for bit the default route; a shard's block bit for bit; NaN
+   probes; every instance free of local memory; each case's time beside its
+   plain version's, its bound (``roofline.k16_work``, ``k13_work(patch=4)``)
+   and its SASS issue bound;
+18f. those three paths through ``make_segment_runner``
+   (``chain_block_segments``): one sweep from the init and from sigma = 0.05
+   three ways (kernels f32, plain route f32, plain f64) on the largest frame
+   where the f64 golden fits; graph segments in turns: the kernels at
+   376x452, the plain route (``node_kernel = edge_kernel = "torch"``) on the
+   largest frame where it fits (printed, with the frames that ran out of
+   memory), the kernels again; ms a sweep, capture peaks, K16 or K13 and K14
+   once a replayed sweep, none on the plain route;
 19. the command line (``gqmap_tpu_torch.cli.main.main``, in this process,
    every launch counter set to 0 before each call) on a synthetic dataset
    written under ``GQMAP_DATA``: two 376x452 sequences (smoothed noise,
@@ -515,7 +535,8 @@ LANES_PER_CLOCK = 128  # H100 SXM: thread-instructions an SM issues a clock
 # clock) and "measured" (roofline.measure_ceilings), set in main()
 RATES = {}
 FAILURES = []
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11", "K12", "K13", "K14", "K15")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K10", "K11", "K12", "K13", "K14", "K15",
+           "K16")
 
 
 def launch_counts(**launches):
@@ -767,6 +788,19 @@ def sass_per_unit(cuobjdump, path, L=3, B=16, k1=21, K=9):
             sum("MUFU.RSQ" in i for i in path) if path else None)
         per[f"{kern} point"] = len(path) / points if path else None
         per[f"{kern} mufu"] = mufu(path) / points if path else None
+    # K16 (the float K = 9, rg = 2 instance) and K13 at patch 4 (K = 11):
+    # chain_block_kernel's point loop on its 16-byte route (the loop with the
+    # most LDS.128: the tap rows, frame 1's rows, the point's constants), per
+    # point, on the shared form's path (no call: the per-tap fallback and the
+    # lane's exact sums are calls), with its MUFU
+    for kern, key in (("K16", f"chain_block_kernelIfLi{K}ENS_10ChainBlockILi5ELb1E"),
+                      ("K13 p4", "chain_block_kernelIfLi11ENS_10ChainBlockILi4ELb0E")):
+        fn = find(key)
+        lps = sass_loops(*fn)
+        lp = max(lps, key=lambda x: x["lds128"]) if lps else None
+        path = shared_form_path(*fn, lp, lps, calls=False) if lp else None
+        per[f"{kern} point"] = len(path) if path else None
+        per[f"{kern} mufu"] = mufu(path) if path else None
     for kern, key, points in (("K14 v2", f"edge_chain_v2_kernelIfLi{K}EE", K * K),
                               ("K15 v2", f"edge_diff_v2_kernelIfLi{k1}EjE", 2 * k1)):
         instrs, labels = find(key)
@@ -2732,6 +2766,344 @@ def autodiff_segments(dev, record, by_path, kfns):
     log(f"  phase autodiff segments {out['phase_s']:.1f} s")
 
 
+# the autodiff estimator's windowed and super-lattice bicubic node terms:
+# their configuration and the kernels a sweep launches (K16 the windowed
+# term, K13 at patch 4 the super lattice's; K14 the Charbonnier edges)
+CHAIN_PATHS = {
+    "full_mixture window_rg=2 autodiff": (
+        GQMAPConfig.full_mixture(window_rg=2, gradient_estimator="autodiff"), dict(K14=1, K16=1)),
+    "legacy_v2 bicubic autodiff": (
+        GQMAPConfig.legacy_v2(data_term="bicubic", gradient_estimator="autodiff"),
+        dict(K14=1, K16=1)),
+    "super_entropy autodiff": (GQMAPConfig.super_entropy(gradient_estimator="autodiff"),
+                               dict(K13=1, K14=1)),
+}
+# the frames the plain route is tried on, largest first (each divisible by
+# the super lattice's patch): under autograd it keeps every window tap's
+# intermediates, which need more than the card's memory at full width
+CHAIN_FRAMES = ((H, W), (188, 224), (128, 160), (96, 112))
+CHAIN_PLAIN_SWEEPS = 5  # the plain route's turn: hundreds of ms a sweep
+CHAIN_SMALL_WINDOW = 2048  # a window budget the shifted copies do not fit, one copy does
+
+
+def chain_case(path):
+    """K16's or K13's (at patch 4) kernel, plain version, extra arguments and
+    keywords on ``path``'s configuration (K16: the radius; K13: the patch)."""
+    from gqmap_tpu_torch.kernels import autodiff_gq as ag
+
+    cfg = CHAIN_PATHS[path][0]
+    if cfg.window_rg:
+        return (ag.node_window_chain_gq_cuda, ag.node_window_chain_gq_torch, (cfg.window_rg,),
+                {})
+    return ag.node_chain_gq_cuda, ag.node_chain_gq_torch, (), dict(patch=cfg.patch)
+
+
+def fitting_frame(fn, label):
+    """The largest frame of :data:`CHAIN_FRAMES` where ``fn(frame)`` runs
+    within the card's memory, and what it returned there; each frame that
+    ran out is printed."""
+    for frame in CHAIN_FRAMES:
+        try:
+            return frame, fn(frame)
+        except torch.cuda.OutOfMemoryError as err:
+            log(f"  {label} at {frame}: out of the card's memory ({str(err).splitlines()[0]})")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    raise RuntimeError(f"{label}: runs out of memory on every frame of {CHAIN_FRAMES}")
+
+
+def kernels_chain_block(dev, record, I1, I2, issue_ms):
+    """Phase 18e: K16 (``full_mixture(window_rg=2)``'s (3, 376, 452) sites and
+    ``legacy_v2(data_term="bicubic")``'s (1, 376, 452), K = 9, rg = 2) and
+    K13 at patch 4 (``super_entropy``'s (3, 94, 113), K = 11) against their
+    plain versions on :func:`autodiff_probes`' states (float64 within 1e-10
+    of each sum's largest magnitude, float32 by the ratio rule against the
+    float64 golden); every route bit for bit the default one (the window as
+    one copy, VV through L1 with its counts, the runtime-K instance); a
+    shard's block bit for bit the whole lattice's; NaN probes; the instances'
+    registers, local memory and CTAs an SM; each case's time (sigma = 0.05
+    and from the init) beside its plain version's, its bound
+    (``roofline.k16_work``, ``k13_work(patch=4)``) and its SASS issue bound.
+    Fills ``record["K16"]`` (the main path's case at its top, the other
+    under its path) and ``record["K13"]["patch 4"]``."""
+    from gqmap_tpu_torch.kernels import autodiff_gq as ag
+    from gqmap_tpu_torch.ops.interp import pad_cubic
+
+    log("phase kernels K16, K13 at patch 4")
+    t_phase = time.time()
+
+    def frames(dtype):
+        return (torch.as_tensor(I1, dtype=dtype, device=dev),
+                pad_cubic(torch.as_tensor(I2, dtype=dtype, device=dev)))
+
+    def worst_rel(xs, gold):
+        return max(float((x.double() - y).abs().max() / y.abs().max()) for x, y in zip(xs, gold))
+
+    def same(xs, ys):
+        return all(same_bits(x, y) for x, y in zip(xs, ys))
+
+    rec16 = record["K16"] = dict(variant="v1", library_ms=None, library_reason=(
+        "no PyTorch call computes these sums: grid_sample's bicubic uses a = -0.75, not "
+        "MATLAB's -0.5, and gives no derivative sums; torch.autograd of the plain version is "
+        "the plain version"))
+    checks = 0
+    for path in CHAIN_PATHS:
+        cfg = CHAIN_PATHS[path][0]
+        kern, plain, extra, kw = chain_case(path)
+        name = "K16" if cfg.window_rg else "K13 patch 4"
+        probes = autodiff_probes(cfg, dev)
+        shape = tuple(probes["init"].muu.shape)
+        n_sites = math.prod(shape)
+        rg = cfg.window_rg
+        G = ag.chain_tile(rg)[0]
+        ctas = ag.chain_ctas(shape, rg)
+
+        def operands(st, dtype, I1d=None):
+            site = [x.to(dtype).contiguous() for x in (st.muu, st.muv, st.sigmau, st.sigmav,
+                                                        st.pn)]
+            I1t, VV = frames(dtype)
+            return (I1t if I1d is None else I1d, VV, *site, cfg.K, cfg.lambdad, cfg.epsn, *extra)
+
+        rec = dict(shape=list(shape), K=cfg.K, rg=rg, patch=cfg.patch, l1_route_share={})
+        gold = {}
+        for dtype in (torch.float64, torch.float32):
+            for sname, st in probes.items():
+                args = operands(st, dtype)
+                want = plain(*args, **kw, quad_chunk=AUTODIFF_PLAIN_CHUNK)
+                got = kern(*args, **kw)
+                a, r, ok = compare_quad(got, want, dtype)
+                what = f"{name} {path} {shape} {str(dtype)[6:]} {sname}"
+                checks += 1
+                if dtype == torch.float64:
+                    gold[sname] = want
+                    require(ok, f"{what}: max abs err {a:.3e}, rel {r:.3e}")
+                else:
+                    ek, ep = worst_rel(got, gold[sname]), worst_rel(want, gold[sname])
+                    require(ek <= 2.0 * ep + 1e-6,
+                            f"{what}: error vs f64 golden kernel {ek:.3e} <= 2 x plain {ep:.3e} "
+                            f"+ 1e-6 (kernel vs plain max abs {a:.3e}, rel {r:.3e})")
+                    if sname == "converged":
+                        rec["max_abs_err"] = a
+                # every route the default one's bits: VV through L1 (every CTA and
+                # site counted), the window as one copy, the runtime-K instance
+                cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+                every = torch.zeros(2, dtype=torch.int64, device=dev)
+                base = kern(*args, **kw, l1_counts=cnt)
+                l1 = kern(*args, **kw, window_bytes=0, l1_counts=every)
+                one = kern(*args, **kw, window_bytes=CHAIN_SMALL_WINDOW)
+                generic = kern(*args, **kw, generic=True)
+                require(same(base, got) and same(l1, got) and same(one, got)
+                        and same(generic, got) and every.tolist() == [ctas, n_sites],
+                        f"{what}: the L1 route, one copy and the runtime-K instance give the "
+                        f"default route's sums bit for bit, L1 counts {every.tolist()} (want "
+                        f"{[ctas, n_sites]})")
+                rec["l1_route_share"][f"{str(dtype)[6:]} {sname}"] = dict(
+                    ctas=int(cnt[0]) / ctas, sites=int(cnt[1]) / n_sites)
+                del want, got, base, l1, one, generic
+            torch.cuda.empty_cache()
+        del gold
+
+        # a shard's block (frame 1 at its pixel origin) and NaN inputs
+        st = probes["converged"]
+        P = cfg.patch
+        for dtype in (torch.float64, torch.float32):
+            args = operands(st, dtype)
+            whole = kern(*args, **kw)
+            r0, c0 = shape[1] // 10, shape[2] // 9  # odd offsets and extents
+            m = min(shape[1] // 4 + 7, shape[1] - r0 - 1)
+            n = max(shape[2] // 2 - 23, shape[2] // 3)
+            blk = (Ellipsis, slice(r0, r0 + m), slice(c0, c0 + n))
+            got = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:], **kw,
+                       origin=(r0 * P, c0 * P), local_image_shape=(m * P, n * P))
+            require(all(torch.equal(g, w[blk]) for g, w in zip(got, whole)),
+                    f"{name} {str(dtype)[6:]} block of ({m}, {n}) sites at ({r0}, {c0}): the "
+                    "whole lattice's sums there, bit for bit")
+            bad = st._replace(muu=st.muu.clone(), pn=st.pn.clone())
+            bad.muu[0, shape[1] // 4, shape[2] // 5] = float("nan")
+            bad.pn[-1, shape[1] - 1, shape[2] - 1] = float("nan")
+            bargs = operands(bad, dtype)
+            got = kern(*bargs, **kw)
+            want = plain(*bargs, **kw, quad_chunk=AUTODIFF_PLAIN_CHUNK)
+            ok = all(bool(torch.isnan(w).any()) and torch.equal(torch.isnan(g), torch.isnan(w))
+                     and torch.equal(g[~torch.isnan(w)], c[~torch.isnan(w)])
+                     for g, w, c in zip(got, want, whole))
+            require(ok, f"{name} {str(dtype)[6:]} NaN probes: NaN exactly where the plain "
+                        "version's is, every other site bit for bit the NaN-free call's")
+            del whole, got, want
+
+        # times (float32) from sigma = 0.05 and from the init, beside the plain
+        # version's, the bound and the SASS issue bound
+        args = operands(st, torch.float32)
+        iargs = operands(probes["init"], torch.float32)
+        rec["ms"], rec["ms_min"] = kernel_ms(lambda: kern(*args, **kw))
+        rec["init_ms"], _ = kernel_ms(lambda: kern(*iargs, **kw))
+        rec["l1_route_ms"], _ = kernel_ms(lambda: kern(*args, **kw, window_bytes=0))
+        rec["plain_ms"] = time_ms(lambda: plain(*args, **kw, quad_chunk=AUTODIFF_PLAIN_CHUNK), 1)
+        rec["ms_again"], _ = kernel_ms(lambda: kern(*args, **kw))
+        work = (roofline.k16_work(shape, cfg.K, rg) if rg
+                else roofline.k13_work(shape, cfg.K, patch=P))
+        rec.update(bound(work))
+        rec["share"] = dict(sheet=rec["bound_ms"] / rec["ms"],
+                            measured=rec["bound_ms_measured"] / rec["ms"])
+        unit = "K16 point" if rg else "K13 p4 point"
+        rec["sass_issue_ms"] = issue_ms(unit, n_sites * G * -(-cfg.K ** 2 // G))
+        issue = rec["sass_issue_ms"]
+        log(f"  {name} {path} {shape} f32 on {smi('name,power.limit,clocks.sm')} (median, min) "
+            f"of {TIMING[0]} windows of {TIMING[1]} calls: ({rec['ms']:.4f}, "
+            f"{rec['ms_min']:.4f}) ms, again {rec['ms_again']:.4f}, from init "
+            f"{rec['init_ms']:.4f}, L1 route alone {rec['l1_route_ms']:.4f}; plain "
+            f"{rec['plain_ms']:.4f} ms ({rec['plain_ms'] / rec['ms']:.0f}x); {fmt_bound(rec)} "
+            f"({rec['bound_terms_ms']}); share of the bound: data sheet "
+            f"{rec['share']['sheet']:.1%}, measured {rec['share']['measured']:.1%}; SASS issue "
+            f"bound {issue if issue is None else f'{issue:.4f}'} ms"
+            + ("" if issue is None else f" ({issue / rec['ms']:.1%})")
+            + f"; L1-route shares {rec['l1_route_share']}")
+        if not rg:
+            record["K13"]["patch 4"] = rec
+        elif path.startswith("full_mixture"):
+            rec16.update(rec)
+        else:
+            rec16[path] = rec
+        del probes, args, iargs
+        torch.cuda.empty_cache()
+
+    # the instances: registers, local memory (none) and CTAs an SM at the
+    # default window budget, K16 at every radius (K = 9's and the runtime-K
+    # one) and K13 at patch 4 (K = 11's and the runtime-K one)
+    inst = rec16["instances"] = {}
+    for dtype in (torch.float32, torch.float64):
+        for rg in (0, 1, 2, 3, 4):
+            K = 11 if rg == 0 else 9
+            for generic in (False, True):
+                occ = ag.occupancy(K, rg, dtype, generic=generic, device=dev)
+                label = (f"{'K13 patch 4' if rg == 0 else f'K16 rg={rg}'} K={K}"
+                         f"{' generic' if generic else ''} {str(dtype)[6:]}")
+                inst[label] = occ
+                require(occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1,
+                        f"{label}: no local memory, at least one CTA an SM ({occ})")
+    log(f"  K16 and K13 at patch 4 instances: {inst}")
+    rec16["checks"] = checks
+    rec16["phase_s"] = time.time() - t_phase
+    log(f"  phase kernels K16, K13 at patch 4: {checks} checks against the plain versions, "
+        f"{rec16['phase_s']:.1f} s")
+
+
+def chain_block_segments(dev, record, by_path, kfns):
+    """Phase 18f: the three paths of :data:`CHAIN_PATHS` through the user's
+    entry point (``make_segment_runner``, the graph route). One sweep from
+    the init and from sigma = 0.05 three ways (kernels f32, plain route f32,
+    plain route f64 = the golden; the kernels' error at most twice the plain
+    route's) on the largest frame of :data:`CHAIN_FRAMES` where the golden
+    fits; then graph segments in turns from sigma = 0.05: the kernels at
+    376x452 (:data:`AUTODIFF_SWEEPS` sweeps), the plain route
+    (``node_kernel = edge_kernel = "torch"``, :data:`CHAIN_PLAIN_SWEEPS`
+    sweeps) on the largest frame where it fits, printed, and the kernels
+    again: ms a sweep by CUDA events, the capturing call's peak memory above
+    what was held, and the kernels a replay launches (counters 0 just before
+    each timed segment, read after: the path's kernels once a sweep, none on
+    the plain route)."""
+    from gqmap_tpu_torch import FlowRange
+    from gqmap_tpu_torch.models import gqmap as pg
+
+    log("phase autodiff window and super segments")
+    t_phase = time.time()
+    I1, I2, _ = synthetic_pair()
+    fr = FlowRange(*FR)
+    plain_routes = dict(node_kernel="torch", edge_kernel="torch")
+    out = record["autodiff_window"] = {"card": smi("name,power.limit")}
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in kfns.values():
+            f.launches = 0
+
+    def cast(st, dtype):
+        return pg.GQState(*(x.to(dtype) if x.is_floating_point() else x for x in st))
+
+    def converged(cfg, frame):
+        st = pg.init_state(cfg, fr, frame, seed=0, device=dev)
+        return st._replace(sigmau=torch.full_like(st.sigmau, 0.05),
+                           sigmav=torch.full_like(st.sigmav, 0.05))
+
+    def segment(cfg, frame, sweeps):
+        """A graph segment of ``sweeps`` sweeps from sigma = 0.05 on ``frame``:
+        ms a sweep, capture peak (GiB above what was held), launches."""
+        problem = pg.make_problem(cfg, I1[:frame[0], :frame[1]], I2[:frame[0], :frame[1]], fr,
+                                  dev)
+        start = converged(cfg, frame)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        seg = pg.make_segment_runner(cfg, frame)
+        try:
+            seg(problem, start, 1)  # the capture
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            zero()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            res = seg(problem, start, sweeps)
+            t1.record()
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(x).all()) for x in res[0])
+            return dict(ms_a_sweep=t0.elapsed_time(t1) / sweeps, capture_peak_GiB=peak,
+                        capture_s=seg.capture_s, route=seg.route, sweeps=res[1], finite=finite,
+                        launches={k: f.launches for k, f in kfns.items()}, frame=list(frame))
+        finally:
+            del seg, problem, start
+            torch.cuda.empty_cache()
+
+    for path, (base, want) in CHAIN_PATHS.items():
+        rec = out[path] = {}
+        cfg = dataclasses.replace(base, its=100000, eval_every=AUTODIFF_SWEEPS, tor=0.0)
+        c64 = dataclasses.replace(cfg, dtype="float64", **plain_routes)
+
+        # one sweep three ways where the golden fits
+        def golden(frame):
+            prob = pg.make_problem(c64, I1[:frame[0], :frame[1]], I2[:frame[0], :frame[1]], fr,
+                                   dev)
+            sweep = pg.make_sweep(c64, frame)
+            init = pg.init_state(c64, fr, frame, seed=0, device=dev)
+            states = (("init", init), ("converged", converged(c64, frame)))
+            for _, st in states:  # the golden fits where both its sweeps run
+                sweep(prob, st)
+            return prob, sweep, states
+
+        frame, (p64, gold, states) = fitting_frame(golden, f"{path} f64 plain sweep")
+        rec["three_way_frame"] = list(frame)
+        probs = {torch.float64: p64, torch.float32: pg.make_problem(
+            cfg, I1[:frame[0], :frame[1]], I2[:frame[0], :frame[1]], fr, dev)}
+        three_way_sweep(f"{path} {frame} ", gold,
+                        pg.make_sweep(dataclasses.replace(cfg, **plain_routes), frame),
+                        pg.make_sweep(cfg, frame), probs, states, cast)
+        del probs, p64, gold, states
+        torch.cuda.empty_cache()
+
+        # graph segments in turns: kernels, plain route (largest frame it fits), kernels
+        for turn in ("kernels", "plain", "kernels again"):
+            if turn == "plain":
+                frame, r = fitting_frame(
+                    lambda f: segment(dataclasses.replace(cfg, **plain_routes), f,
+                                      CHAIN_PLAIN_SWEEPS), f"{path} plain route segment")
+                expect = launch_counts()
+                sweeps = CHAIN_PLAIN_SWEEPS
+            else:
+                frame, r = (H, W), segment(cfg, (H, W), AUTODIFF_SWEEPS)
+                expect = launch_counts(**{k: v * AUTODIFF_SWEEPS for k, v in want.items()})
+                sweeps = AUTODIFF_SWEEPS
+            rec[turn] = r
+            by_path[f"{path} {turn} ({sweeps} sweeps)"] = r["launches"]
+            require(r["route"] == "graph" and r["sweeps"] == sweeps and r["finite"]
+                    and r["launches"] == expect,
+                    f"{path} {turn} at {frame}: route {r['route']!r}, {r['sweeps']} sweeps, "
+                    f"finite state, launches {r['launches']} (want {expect})")
+            log(f"  {path} {turn} on {out['card']} at {frame}: {r['ms_a_sweep']:.4f} ms a sweep "
+                f"({sweeps}-sweep graph segment from sigma 0.05), capture {r['capture_s']:.3f} s "
+                f"at a peak of {r['capture_peak_GiB']:.3f} GiB above what was held")
+    out["phase_s"] = time.time() - t_phase
+    log(f"  phase autodiff window and super segments {out['phase_s']:.1f} s")
+
+
 D7_PRESETS = ("tpu_fast", "tpu_fast_super")  # at L = 5: K1 in two groups of components
 D7_CROP = (64, 80)  # full_mixture(K=65)'s frame: its plain sums take 4,225 points a site
 
@@ -3206,7 +3578,8 @@ def rank_main(rank, world, port, out_dir):
             "K7": nearest_gq.nearest_chain_gq_cuda, "K10": quad_gq.quad_node_gq_cuda,
             "K11": quad_gq.truncquad_edge_gq_cuda, "K12": window_gq.node_window_gq_cuda,
             "K13": autodiff_gq.node_chain_gq_cuda, "K14": autodiff_gq.edge_chain_gq_cuda,
-            "K15": autodiff_gq.edge_diff_adjoint_cuda}
+            "K15": autodiff_gq.edge_diff_adjoint_cuda,
+            "K16": autodiff_gq.node_window_chain_gq_cuda}
     rec = dict(rank=rank, world=n, backend=tdist.get_backend(), checks=[], launches={})
 
     def check(ok, what):
@@ -4702,10 +5075,11 @@ def main():
     ufns = {"K8": sweep_update.site_update_cuda, "K9": sweep_update.sweep_tail_v2,
             "K9 v1": sweep_update.sweep_tail_cuda}
     # kernels counted on every counted run: K10, K11, K12 and the autodiff
-    # estimator's K13, K14 and K15
+    # estimator's K13, K14, K15 and K16
     qfns = {"K10": quad_gq.quad_node_gq_cuda, "K11": quad_gq.truncquad_edge_gq_cuda,
             "K12": window_gq.node_window_gq_cuda, "K13": autodiff_gq.node_chain_gq_cuda,
-            "K14": autodiff_gq.edge_chain_gq_cuda, "K15": autodiff_gq.edge_diff_adjoint_cuda}
+            "K14": autodiff_gq.edge_chain_gq_cuda, "K15": autodiff_gq.edge_diff_adjoint_cuda,
+            "K16": autodiff_gq.node_window_chain_gq_cuda}
 
     # ---- 1. the card
     card = smi("name,power.limit")
@@ -4741,7 +5115,8 @@ def main():
         "rg = 2 instance's shared-memory point loop per point (v2: its 16-byte route's "
         "shared-form path); K13-K15 per point and their MUFU a point (K13 v1 its point loop, "
         "v2 the K = 9 shared-memory loop's shared-form path; K14 v1 and K15 v1 the pair loop; "
-        "K14 v2 the K = 9 and K15 v2 the K1 = 21 instance's whole function)")
+        "K14 v2 the K = 9 and K15 v2 the K1 = 21 instance's whole function; K16 (K = 9, "
+        "rg = 2) and K13 at patch 4 (K = 11) the 16-byte route's point loop on its shared form)")
     for unit in ("K1 recur mode", "K1 exp mode", "K2 point", "K3 point", "K2 rsq", "K3 rsq",
                  "K4 v1 sample", "K4 v2 point P=1", "K4 v2 point P=4", "K5 a-step Q=16",
                  "K5 a-step Q=32", "K5 v2 chunk Q=16 N=96", "K5 v2 chunk Q=16 N=64",
@@ -4749,7 +5124,7 @@ def main():
                  "K6 v2 round rg=2", "K6 v2 round rg=0", "K7 v2 round", "K10 point",
                  "K11 point", "K10 v2 site", "K11 v2 lane point", "K11 v2 coop point",
                  "K12 point", "K12 v2 point", "K13 v1 point", "K13 v2 point", "K14 v1 point",
-                 "K14 v2 point", "K15 point", "K15 v2 point"):
+                 "K14 v2 point", "K15 point", "K15 v2 point", "K16 point", "K13 p4 point"):
         require(sass[unit] is not None, f"SASS count found: {unit} {sass[unit]}")
 
     # ---- 2b. the card's ceilings: the measured rates of bound()
@@ -4978,9 +5353,10 @@ def main():
     require(bool(a900 <= 0.5 * a1), f"AEPE {a1:.4f} at it=1 -> {a900:.4f} at it=900 "
                                     "(at most half)")
     require(launches == {"K1": res.iters, "K2": res.iters, "K8": res.iters, "K9": res.iters,
-                         "K9 v1": 0, "K10": 0, "K11": 0, "K12": 0, "K13": 0, "K14": 0, "K15": 0},
+                         "K9 v1": 0, "K10": 0, "K11": 0, "K12": 0, "K13": 0, "K14": 0, "K15": 0,
+                         "K16": 0},
             f"launch counters {launches} equal the sweep count {res.iters} (K9 v2's tails run "
-            f"in K8 v2's launches; no K9 v1 or K10-K15 launch)")
+            f"in K8 v2's launches; no K9 v1 or K10-K16 launch)")
     log(f"  solve wall {wall:.3f} s incl. build_cos_data and 4 readouts; "
         f"peak device memory {peak / 2**30:.3f} GiB; AEPE trace "
         f"{[round(float(x), 4) for x in res.AEPE[[0, 299, 599, 899]]]}")
@@ -5779,6 +6155,10 @@ def main():
     kernels_autodiff(dev, record, I1, I2, issue_ms)
     autodiff_segments(dev, record, by_path, kfns)
 
+    # ---- 18e-f. K16 and K13 at patch 4, and their three paths' graph segments
+    kernels_chain_block(dev, record, I1, I2, issue_ms)
+    chain_block_segments(dev, record, by_path, kfns)
+
     # ---- 18d. shapes past a kernel's limit: K1 in groups, the plain sums on "auto"
     d7_phase(dev, record, by_path, kfns)
 
@@ -5897,6 +6277,25 @@ def main():
                 launches_run=f"{path} {variant} ({AUTODIFF_SWEEPS} sweeps)",
                 **{k: v for k, v in fields.items()
                    if k not in ("phase_s", "v1", "v2", "variant", "v2_equals_v1_checks")}))
+    # K16 and K13 at patch 4: launches from their paths' first kernels turn
+    # (phase 18f)
+    aw = record["autodiff_window"]
+    k16 = record["K16"]
+    kernels.append(dict(
+        name="node_window_chain_gq (K16)", route="cuda", source="gqmap_tpu_torch/csrc/node_gq.cu",
+        replaces="gqmap_tpu/ops/gq.py:299 gq_ei on gqmap_tpu/ops/potentials.py:142 "
+                 "(make_node_pot_windowed, base bicubic), under jax.grad (XLA scan, no Pallas)",
+        launches=aw["full_mixture window_rg=2 autodiff"]["kernels"]["launches"]["K16"],
+        launches_run=f"full_mixture window_rg=2 autodiff kernels ({AUTODIFF_SWEEPS} sweeps)",
+        **{k: v for k, v in k16.items() if k not in ("phase_s", "checks")}))
+    kernels.append(dict(
+        name="node_chain_gq (K13, v2, patch 4)", route="cuda",
+        source="gqmap_tpu_torch/csrc/node_gq.cu",
+        replaces="gqmap_tpu/ops/gq.py:299 gq_ei on gqmap_tpu/ops/potentials.py:44 "
+                 "(make_node_pot_bicubic, patch 4), under jax.grad (XLA scan, no Pallas)",
+        launches=aw["super_entropy autodiff"]["kernels"]["launches"]["K13"],
+        launches_run=f"super_entropy autodiff kernels ({AUTODIFF_SWEEPS} sweeps)",
+        library_ms=None, library_reason=k16["library_reason"], **record["K13"]["patch 4"]))
     if FAILURES:
         log(f"chip_smoke FAILED: {FAILURES}")
         raise SystemExit(1)

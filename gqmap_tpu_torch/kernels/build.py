@@ -120,9 +120,16 @@ _SIGNATURES = {
     "gqmap_edge_chain_f32": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
     "gqmap_edge_chain_f64": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I, _P],
     # I1, VV, muu, muv, su, sv, pn, rule_host, out, l1_counts, Mo, No, L, M, N, r0, c0, K,
-    # window_bytes, generic, lam, eps, device, stream (node_chain_gq_cuda, K13 v2)
-    "gqmap_node_chain_v2_f32": [_P] * 10 + [_I] * 10 + [_D] * 2 + [_I, _P],
-    "gqmap_node_chain_v2_f64": [_P] * 10 + [_I] * 10 + [_D] * 2 + [_I, _P],
+    # patch, window_bytes, generic, lam, eps, device, stream (node_chain_gq_cuda, K13 v2)
+    "gqmap_node_chain_v2_f32": [_P] * 10 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    "gqmap_node_chain_v2_f64": [_P] * 10 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    # I1, VV, muu, muv, su, sv, pn, rule_host, out, l1_counts, Mo, No, L, M, N, r0, c0, K,
+    # rg, window_bytes, generic, lam, eps, device, stream (node_window_chain_gq_cuda, K16)
+    "gqmap_window_chain_f32": [_P] * 10 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    "gqmap_window_chain_f64": [_P] * 10 + [_I] * 11 + [_D] * 2 + [_I, _P],
+    # double_, K, rg, generic, window_bytes, device, regs, local_bytes, ctas
+    # (autodiff_gq.occupancy: K16, and K13 v2 at patch 4 as rg 0)
+    "gqmap_chain_occupancy": [_I] * 6 + [_P] * 3,
     # mu, sg, u2e, o2e, rou, rule_host, rule_dev, out, DC, C, L, S, K, lam, eps, device,
     # stream (edge_chain_gq_cuda, K14 v2)
     "gqmap_edge_chain_v2_f32": [_P] * 8 + [_I] * 5 + [_D] * 2 + [_I, _P],

@@ -131,7 +131,8 @@ FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
          "K8 raw edge": 50, "K8 site": 65, "K10 site": 113, "K11 point": 14, "K11 row": 9,
          "K11 node": 2, "K11 site": 20, "K11 closed form": 106, "K13 point": 183,
          "K13 site": 35, "K14 pair": 22, "K14 centre": 7, "K14 element": 20, "K15 pair": 18,
-         "K15 centre": 7, "K15 element": 27}
+         "K15 centre": 7, "K15 element": 27, "K16 point": 91, "K16 tap row": 14,
+         "K16 cell": 30}
 # K13 per point (an FMA two operations): z_i, z_j 6; x1, x2 and the queries 6;
 # the clamps' slopes 2; the fractions 2; each axis's four cubic weights 17 and
 # their four slopes 14, 62; a tap row's three dots (value, d/dx: 7 each) and
@@ -146,7 +147,15 @@ FLOPS = {"K1 recur mode": 28, "K2 pair": 17, "K2 centre": 7, "K2 element": 40,
 # +-x: sqrt(c) x 1, d+- 2, eps + d^2 4, h+- 2, their combinations 3, three
 # sums 6 ("K15 pair", 18; two roots); the centre 7 and a root; per element
 # o1e, o2e 2, delta 1, c 6, dEi/dc 4 and the five outputs 14 ("K15
-# element", 27; the root of c).
+# element", 27; the root of c). A block of P x P queries sharing a
+# displacement (K16's window, K13's super site) per point: z_i, z_j 6; x1, x2
+# and the block's first query 6; the fractions 2; the weights and slopes of
+# both axes 62; the point's weight on its three totals 3 and the seven sums
+# 12 ("K16 point", 91); per table row and block column the value and
+# x-slope dots of 4 taps ("K16 tap row", 14; P + 3 rows of P columns); per
+# block cell its three column dots 21, the difference 1, eps + d^2 2, the
+# quotient 1 and the totals F, Q dV/dXq, Q dV/dYq 5 ("K16 cell", 30; and one
+# root); per site "K13 site".
 SECTOR_BYTES = 32  # the unit a gather reads from device memory
 TIMING = (5, 50)  # a kernel's time: windows of calls, calls a window; median and minimum
 
@@ -419,18 +428,52 @@ def k12_work(site_shape, K: int, rg: int, itemsize: int = 4) -> dict:
                 l1_bytes=points * (P + 3) ** 2 * itemsize)
 
 
-def k13_work(site_shape, K: int, itemsize: int = 4) -> dict:
-    """K13's function on ``(L, M, N)`` sites of one pixel each with the
-    K^2-point rule: the 5 state fields, frame 1 and frame 2's padded table
-    read once, 7 chain-rule sums written; per site and point one set of cubic
-    weights and their slopes, the three separable dots of the 4 x 4 taps
-    (``l1_bytes``: the taps from L1 and L2), one root."""
+def _chain_block_flops(sites: int, K: int, P: int) -> int:
+    """The operations of the chain-rule sums of a ``P x P`` block of queries
+    sharing each point's displacement, summed separably over the block's
+    ``(P + 3)^2`` table window (the FLOPS table's "K16" counts)."""
+    return (sites * K * K * (FLOPS["K16 point"] + FLOPS["K16 tap row"] * (P + 3) * P
+                             + FLOPS["K16 cell"] * P * P) + sites * FLOPS["K13 site"])
+
+
+def k13_work(site_shape, K: int, itemsize: int = 4, patch: int = 1) -> dict:
+    """K13's function on ``(L, M, N)`` sites of ``patch x patch`` pixel
+    blocks with the K^2-point rule: the 5 state fields, frame 1's pixels and
+    frame 2's padded table read once, 7 chain-rule sums written. At patch 1
+    per site and point one set of cubic weights and their slopes, the three
+    separable dots of the 4 x 4 taps (``l1_bytes``: the taps from L1 and L2),
+    one root. Above, a block's pixels share the displacement's weights and
+    slopes and a ``(P + 3)^2`` table window (``l1_bytes``), summed separably
+    (:func:`k16_work`'s count for a ``P x P`` block), one root a pixel."""
     L, M, N = site_shape
+    P = patch
+    sites = L * M * N
+    points = sites * K * K
+    fixed = (5 * sites + M * N * P * P + (M * P + 2) * (N * P + 2) + 7 * sites) * itemsize
+    if P == 1:
+        return dict(bytes=fixed, flops=points * FLOPS["K13 point"] + sites * FLOPS["K13 site"],
+                    roots=points + 2 * sites, l1_bytes=points * 16 * itemsize)
+    return dict(bytes=fixed, flops=_chain_block_flops(sites, K, P),
+                roots=points * P * P + 2 * sites, l1_bytes=points * (P + 3) ** 2 * itemsize)
+
+
+def k16_work(site_shape, K: int, rg: int, itemsize: int = 4) -> dict:
+    """K16's function on ``(L, M, N)`` sites of one pixel each with the
+    K^2-point rule and the ``(2 rg + 1)^2`` window: the 5 state fields,
+    frame 1 and frame 2's padded table read once, 7 chain-rule sums written;
+    per site and point one set of cubic weights and their slopes for the
+    window's ``P x P`` taps, ``P = 2 rg + 1``, summed separably (``(P + 3) P``
+    row passes of two dots, ``P^2`` cells of three column dots, a difference,
+    a quotient and the three totals), the ``(P + 3)^2`` table reads
+    (``l1_bytes``), one root a tap; the scale ``lam / W`` in the epilogue.
+    Frame 1's window is read from the frame, not counted again."""
+    L, M, N = site_shape
+    P = 2 * rg + 1
     sites = L * M * N
     points = sites * K * K
     return dict(bytes=(5 * sites + M * N + (M + 2) * (N + 2) + 7 * sites) * itemsize,
-                flops=points * FLOPS["K13 point"] + sites * FLOPS["K13 site"],
-                roots=points + 2 * sites, l1_bytes=points * 16 * itemsize)
+                flops=_chain_block_flops(sites, K, P), roots=points * P * P + 2 * sites,
+                l1_bytes=points * (P + 3) ** 2 * itemsize)
 
 
 def k14_work(edge_shape, K: int, itemsize: int = 4) -> dict:

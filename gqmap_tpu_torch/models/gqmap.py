@@ -25,9 +25,10 @@ the reduced truncated-quadratic edges are the plain ones, as they are the
 JAX package's XLA ones. Under the autodiff estimator, where the JAX package
 differentiates its XLA scans, one launch gives a term's value and the sums
 of its exact derivatives, which a ``torch.autograd.Function`` scales: K1 for
-the cosine term, K13 for the bicubic term without a window, K14 and K15 for
-the tensor-rule and reduced Charbonnier edges, and K6 for the nearest
-lookup's value, whose gradient is zero; the other terms stay
+the cosine term, K13 for the bicubic term without a window (one pixel a
+site or the super lattice's 4 x 4 blocks), K16 for it with a window, K14
+and K15 for the tensor-rule and reduced Charbonnier edges, and K6 for the
+nearest lookup's value, whose gradient is zero; the other terms stay
 ``torch.autograd`` of plain torch.
 
 The Chebyshev data term (``data_term="chebyshev"``,
@@ -77,7 +78,7 @@ import torch.distributed
 from ..config import FlowRange, GQMAPConfig
 from ..kernels import COUNTED, build
 # the modules of the kernels with a shape limit (_shape_limit)
-from ..kernels import autodiff_gq as _k13_k15
+from ..kernels import autodiff_gq as _k13_k16
 from ..kernels import cheb_gq as _k5
 from ..kernels import edge_gq as _k3
 from ..kernels import edge_reduced_gq as _k2
@@ -87,7 +88,8 @@ from ..kernels import quad_gq as _k10_k11
 from ..kernels.autodiff_gq import (chain_ei, diff_ei, edge_chain_gq, edge_chain_gq_cuda,
                                    edge_chain_gq_torch, edge_diff_adjoint, edge_diff_adjoint_cuda,
                                    edge_diff_adjoint_torch, node_chain_gq, node_chain_gq_cuda,
-                                   node_chain_gq_torch)
+                                   node_chain_gq_torch, node_window_chain_gq,
+                                   node_window_chain_gq_cuda, node_window_chain_gq_torch)
 from ..kernels.cheb_gq import MAX_Q, cheb_gq, cheb_gq_cuda, cheb_gq_torch
 from ..kernels.cosine_gq import (cos_ei_adjoint, cos_mode_sums, cos_mode_sums_cuda,
                                  cos_mode_sums_torch, phase_stack)
@@ -150,9 +152,12 @@ _NODE_QUAD = {"auto": quad_node_gq, "cuda": quad_node_gq_cuda, "torch": quad_nod
 # the windowed bicubic term's K12 route (raw sums)
 _NODE_WINDOW = {"auto": node_window_gq, "cuda": node_window_gq_cuda,
                 "torch": node_window_gq_torch}
-# the autodiff estimator's bicubic node term, K13 (chain-rule sums of its exact
-# derivatives, differentiated by autodiff_gq.chain_ei)
+# the autodiff estimator's bicubic node term, K13 without a window and K16
+# with one (chain-rule sums of its exact derivatives, differentiated by
+# autodiff_gq.chain_ei)
 _NODE_ADJOINT = {"auto": node_chain_gq, "cuda": node_chain_gq_cuda, "torch": node_chain_gq_torch}
+_NODE_WINDOW_ADJOINT = {"auto": node_window_chain_gq, "cuda": node_window_chain_gq_cuda,
+                        "torch": node_window_chain_gq_torch}
 # the edge term's kernel (_edge_kernel) -> edge_kernel -> its route: K2
 # (finalized gradients) or K3 (raw sums, finalized here) of Charbonnier
 # edges, K11 (raw sums) of truncated-quadratic tensor-rule edges
@@ -241,9 +246,10 @@ def check_supported(cfg: GQMAPConfig) -> None:
     only the Prewitt chain's, K10 only the quadratic prior's, K2 and K3 only
     Charbonnier edges, K11 only truncated-quadratic edges under the tensor
     rule; under the autodiff estimator K1 the cosine term's, K13 the bicubic
-    term's without a window at one pixel a site, K6 the nearest lookup's
-    value (its index carries no gradient), K14 and K15 Charbonnier edges,
-    and every other term is differentiated plain torch. ``"cuda"`` also
+    term's without a window (at patch 1 and 4), K16 the bicubic term's with
+    a window, K6 the nearest lookup's value (its index carries no gradient),
+    K14 and K15 Charbonnier edges, and every other term is differentiated
+    plain torch. ``"cuda"`` also
     raises, naming the limit, where the term's kernel does not take the
     configuration's shape (:func:`_shape_limit`: its rule, v-degrees,
     components or upsampling past what the kernel is built for); ``"auto"``
@@ -277,7 +283,8 @@ def check_supported(cfg: GQMAPConfig) -> None:
             f"kernel K6, which computes the nearest lookup's, kernel K7, which computes the "
             f"Prewitt chain's, or kernel K10, which computes the quadratic prior's; under the "
             f"autodiff estimator kernel K1, kernel K13, which computes the bicubic term's "
-            f"without a window at patch 1, or kernel K6; with data_term={cfg.data_term!r}, "
+            f"without a window at patch 1 or 4, kernel K16, which computes it with a window "
+            f"of radius 1 to {_k13_k16.MAX_RG}, or kernel K6; with data_term={cfg.data_term!r}, "
             f"window_rg={cfg.window_rg}, patch={cfg.patch}, K={cfg.K}, cheb_q={cfg.cheb_q} and "
             f"gradient_estimator={cfg.gradient_estimator!r} the node term is plain torch "
             "(use 'auto' or 'torch')")
@@ -299,9 +306,10 @@ def _edge_k1(cfg: GQMAPConfig) -> int:
 def _shape_limit(kernel: str, cfg: GQMAPConfig) -> str | None:
     """None where ``kernel`` takes ``cfg``'s shape, else the kernel's limit
     and the shape, in words. Each kernel module's ``takes`` is the rule: the
-    largest rule a kernel holds (K4, K5, K6, K7, K12, K13: ``MAX_K`` points
-    an axis), K5's v-degrees and its shared memory a site (L K^2 samples),
-    K6's and K7's upsampling, K12's window radius, and the generic rule
+    largest rule a kernel holds (K4, K5, K6, K7, K12, K13, K16: ``MAX_K``
+    points an axis), K5's v-degrees and its shared memory a site (L K^2
+    samples), K6's and K7's upsampling, K12's and K16's window radius,
+    K13's patches, and the generic rule
     instances of K2, K3, K11 (v1), K14 and K15, whose rule must fit a CTA's
     static shared memory. K1 takes every shape (more than
     ``cosine_gq.MAX_L`` components run in groups), K10 every rule."""
@@ -329,10 +337,15 @@ def _shape_limit(kernel: str, cfg: GQMAPConfig) -> str | None:
         "K12": (window_gq.takes(K, cfg.window_rg), f"rules of 1 to {window_gq.MAX_K} points an "
                 f"axis and window radii 1 to {window_gq.MAX_RG}",
                 f"K = {K}, window_rg = {cfg.window_rg}"),
-        "K13": (_k13_k15.takes("K13", K, dt), f"rules of 1 to {_k13_k15.MAX_K} points an axis",
-                f"K = {K}"),
-        "K14": (_k13_k15.takes("K14", K, dt), f"rules {shared}", f"K = {K} {in_dt}"),
-        "K15": (_k13_k15.takes("K15", k1, dt), f"reduced rules {shared}", f"K1 = {k1} {in_dt}"),
+        "K13": (_k13_k16.takes("K13", K, dt, patch=cfg.patch),
+                f"patch in {_k13_k16.CHAIN_PATCHES} and rules of 1 to {_k13_k16.MAX_K} points an "
+                f"axis at patch 1, 1 to {_k4.V2_MAX_K} at patch 4",
+                f"patch = {cfg.patch}, K = {K}"),
+        "K16": (_k13_k16.takes("K16", K, dt, rg=cfg.window_rg),
+                f"rules of 1 to {_k4.V2_MAX_K} points an axis and window radii 1 to "
+                f"{_k13_k16.MAX_RG}", f"K = {K}, window_rg = {cfg.window_rg}"),
+        "K14": (_k13_k16.takes("K14", K, dt), f"rules {shared}", f"K = {K} {in_dt}"),
+        "K15": (_k13_k16.takes("K15", k1, dt), f"reduced rules {shared}", f"K1 = {k1} {in_dt}"),
     }
     limits["K7"] = limits["K6"]
     if kernel not in limits or limits[kernel][0]:
@@ -351,14 +364,14 @@ def _node_term(cfg: GQMAPConfig) -> str | None:
     ``"K10"`` (the quadratic prior toward ``Problem.init_flow``), or None
     where the sums are plain torch. Under the autodiff estimator: ``"K1"``
     (the cosine term, whose mode sums are its exact gradient), ``"K13"``
-    (the bicubic term without a window, one pixel a site), ``"K6"`` (the
-    nearest lookup's value: its index is a floor, so its gradient is zero),
-    else None."""
+    (the bicubic term without a window), ``"K16"`` (the bicubic term with a
+    window), ``"K6"`` (the nearest lookup's value: its index is a floor, so
+    its gradient is zero), else None."""
     if cfg.gradient_estimator == "autodiff":
         if cfg.data_term in ("cosine", "nearest"):
             return {"cosine": "K1", "nearest": "K6"}[cfg.data_term]
-        if cfg.data_term == "bicubic" and cfg.window_rg == 0 and cfg.patch == 1:
-            return "K13"
+        if cfg.data_term == "bicubic":
+            return "K13" if cfg.window_rg == 0 else "K16"
         return None
     if cfg.gradient_estimator == "prewitt":
         return "K7" if cfg.data_term == "nearest" else None
@@ -585,7 +598,7 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     largest, a window radius K12 does not take, ...) runs that kernel's
     plain version, and the reduced truncated-quadratic edges run plain sums
     (:func:`check_supported` refuses ``"cuda"`` there). Under the autodiff
-    estimator K1, K13, K6, K14
+    estimator K1, K13, K16, K6, K14
     and K15 compute the terms :func:`_node_kernel` and :func:`_edge_kernel`
     name, inside ``torch.autograd.Function``s (``node_kernel`` or
     ``edge_kernel`` ``"torch"``: ``torch.autograd`` of the plain expectation),
@@ -635,11 +648,12 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
     # K4, K5, K6, K7, K10 or K12 (or its plain version) where the JAX package scans
     # the bicubic term, the Chebyshev series, the nearest lookup, the Prewitt
     # chain, the quadratic prior or the windowed bicubic term
-    # (and under the autodiff estimator K13, or K6 for the nearest lookup's value;
-    # node_kernel="torch" there is torch.autograd of the plain expectation)
+    # (and under the autodiff estimator K13, K16, or K6 for the nearest lookup's
+    # value; node_kernel="torch" there is torch.autograd of the plain expectation)
     # (a shape the kernel does not take runs its plain version, the "torch" route)
     routes = {"K4": _NODE_GQ, "K5": _NODE_CHEB, "K6": _NODE_NEAREST, "K7": _NODE_CHAIN,
-              "K10": _NODE_QUAD, "K12": _NODE_WINDOW, "K13": _NODE_ADJOINT}
+              "K10": _NODE_QUAD, "K12": _NODE_WINDOW, "K13": _NODE_ADJOINT,
+              "K16": _NODE_WINDOW_ADJOINT}
     kernel = _node_term(cfg)
     node_via = cfg.node_kernel if _node_kernel(cfg) is not None else "torch"
     if autodiff and node_via == "torch":
@@ -742,8 +756,8 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
             the full lattice (border-owned and wrap-around edges too: what the
             reference's assembled gradients differentiate); the energy and
             dalpha it reports are the interior's (``gqmap_gpu_mixture.m:36,48``).
-            Where a kernel computes a term (K1, K13, K14, K15, or its plain
-            version), one launch gives its value and the sums of its exact
+            Where a kernel computes a term (K1, K13, K14, K15, K16, or its
+            plain version), one launch gives its value and the sums of its exact
             derivatives, a ``torch.autograd.Function``; the nearest lookup's
             value comes from K6, with no gradient, as under ``jax.grad``."""
             zero = torch.zeros((), dtype=dt, device=interior.device)
@@ -759,10 +773,15 @@ def make_sweep(cfg: GQMAPConfig, image_shape, dist: DistHooks | None = None):
                 elif kernel == "K6":  # the lookup's index is a floor: no gradient
                     with torch.no_grad():
                         en = node_sums(st).fields[0] * _INV_PI
-                elif kernel == "K13":
+                elif kernel == "K13":  # frame 1 and VV whole, addressed at the block's origin
+                    at = node_at if cfg.patch == 1 else {**node_at, "patch": cfg.patch}
                     en = chain_ei(lambda *x: node_route(problem.I1, problem.I2_tab, *x, cfg.K,
-                                                        cfg.lambdad, cfg.epsn, **node_at),
+                                                        cfg.lambdad, cfg.epsn, **at),
                                   *site) * _INV_PI
+                elif kernel == "K16":
+                    en = chain_ei(lambda *x: node_route(problem.I1, problem.I2_tab, *x, cfg.K,
+                                                        cfg.lambdad, cfg.epsn, cfg.window_rg,
+                                                        **node_at), *site) * _INV_PI
                 else:
                     en = gq_ei(node_f, *site, node_tab) * _INV_PI
                 da_n = en - 3.0 * T * (_E_CONST1 + torch.log(torch.sqrt(1.0 - pn * pn) * su * sv))

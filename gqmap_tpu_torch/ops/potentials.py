@@ -12,7 +12,8 @@ The legacy families:
   frame (``legacy/gqmap_gpuV2.m:10,107``), and its chain-rule form for the
   Prewitt estimator (``legacy/gqmap_gpuV3.m:91-125``);
 * ``make_node_pot_windowed`` -- the mean cost over a (2rg+1)^2 window
-  (``legacy/gqmap_cpuV2.m:29-33``);
+  (``legacy/gqmap_cpuV2.m:29-33``), and with its exact derivatives for the
+  autodiff estimator's kernel K16 (``make_node_pot_windowed_chain``);
 * a quadratic node prior toward an init flow and truncated-quadratic edges
   (``legacy/gqmap_cpu.m:22-23,43``).
 
@@ -31,6 +32,7 @@ from .interp import _index, sample_bicubic, sample_bicubic_grad
 
 __all__ = ["make_node_pot_bicubic", "make_node_pot_nearest", "make_node_pot_quadratic",
            "make_node_pot_windowed", "make_node_pot_nearest_chain", "make_node_pot_bicubic_chain",
+           "make_node_pot_windowed_chain",
            "make_edge_pot", "make_edge_pot_chain", "make_edge_pot_diff", "make_edge_pot_diff_grad",
            "make_edge_pot_truncquad", "make_edge_pot_truncquad_diff"]
 
@@ -189,9 +191,10 @@ def make_node_pot_nearest_chain(I1: torch.Tensor, I2_cont: torch.Tensor,
 
 
 def make_node_pot_bicubic_chain(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
-                                epsn: float, origin=None, local_image_shape=None) -> Callable:
-    """:func:`make_node_pot_bicubic` (one pixel a site) with its exact
-    derivatives, ``fg(x1, x2) -> (f, df/dx1, df/dx2)`` in the form
+                                epsn: float, patch: int = 1, origin=None,
+                                local_image_shape=None) -> Callable:
+    """:func:`make_node_pot_bicubic` with its exact derivatives, ``fg(x1, x2)
+    -> (f, df/dx1, df/dx2)`` in the form
     :func:`gqmap_tpu_torch.ops.gq.gq_accumulate_chain` takes:
 
         f = -lambda_d sqrt(eps + diff^2),   diff = I1 - V(c + 1 + x1, r + 1 + x2),
@@ -199,15 +202,66 @@ def make_node_pot_bicubic_chain(I1: torch.Tensor, VV: torch.Tensor, lambdad: flo
 
     ``V`` and its derivatives by :func:`.interp.sample_bicubic_grad`: what
     ``jax.grad`` takes of the JAX potential, with 1/2 for a query on the
-    frame's clamp. ``f`` is :func:`make_node_pot_bicubic`'s bit for bit."""
+    frame's clamp. For ``patch > 1`` a flow node's ``patch x patch`` pixels
+    share its displacement, and their ``f`` and derivatives are summed over
+    the block as :func:`make_node_pot_bicubic` sums its values. ``f`` is
+    :func:`make_node_pot_bicubic`'s bit for bit."""
     jj, ii, I1 = _grid(I1, origin, local_image_shape)
+    Mo, No = I1.shape
 
     def fg(x1: torch.Tensor, x2: torch.Tensor):
+        if patch > 1:
+            x1 = x1.repeat_interleave(patch, -2).repeat_interleave(patch, -1)
+            x2 = x2.repeat_interleave(patch, -2).repeat_interleave(patch, -1)
         Vq, Vx, Vy = sample_bicubic_grad(VV, jj + x1, ii + x2)
         diff = I1 - Vq
         deno = torch.sqrt(epsn + diff ** 2)
         s = lambdad * diff / deno
-        return -lambdad * deno, s * Vx, s * Vy
+        out = (-lambdad * deno, s * Vx, s * Vy)
+        if patch > 1:
+            lead = out[0].shape[:-2]
+            out = tuple(x.reshape(lead + (Mo // patch, patch, No // patch, patch)).sum((-3, -1))
+                        for x in out)
+        return out
+
+    return fg
+
+
+def make_node_pot_windowed_chain(I1: torch.Tensor, VV: torch.Tensor, lambdad: float,
+                                 epsn: float, rg: int, origin=None,
+                                 local_image_shape=None) -> Callable:
+    """:func:`make_node_pot_windowed` (``base="bicubic"``, ``VV =
+    pad_cubic(I2)``) with its exact derivatives, ``fg(x1, x2) -> (f, df/dx1,
+    df/dx2)``: over the window's ``W = (2 rg + 1)^2`` taps (di, dj), frame 1
+    edge-padded,
+
+        f = -lambda_d / W sum sqrt(eps + diff^2),   diff = I1(r + di, c + dj) - V,
+        df/dx1 = lambda_d / W sum diff / sqrt(eps + diff^2) dV/dXq,
+
+    ``V`` at ``(c + 1 + dj + x1, r + 1 + di + x2)`` with its derivatives by
+    :func:`.interp.sample_bicubic_grad` (1/2 for a query on the frame's
+    clamp, as ``jax.grad`` takes it). ``origin`` and ``local_image_shape`` as
+    in :func:`make_node_pot_bicubic`. ``f`` is
+    :func:`make_node_pot_windowed`'s bit for bit."""
+    W = (2 * rg + 1) ** 2
+    jj, ii, _ = _grid(I1, origin, local_image_shape)
+    Mo, No = ii.shape[0], jj.shape[1]
+    r0, c0 = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
+    I1p = torch.nn.functional.pad(I1[None], (rg, rg, rg, rg), mode="replicate")[0]
+
+    def fg(x1: torch.Tensor, x2: torch.Tensor):
+        acc = gx = gy = None
+        for di in range(-rg, rg + 1):
+            for dj in range(-rg, rg + 1):
+                I1s = I1p[r0 + rg + di:r0 + rg + di + Mo, c0 + rg + dj:c0 + rg + dj + No]
+                Vq, Vx, Vy = sample_bicubic_grad(VV, jj + dj + x1, ii + di + x2)
+                term = torch.sqrt(epsn + (I1s - Vq) ** 2)
+                q = (I1s - Vq) / term
+                if acc is None:
+                    acc, gx, gy = term, q * Vx, q * Vy
+                else:
+                    acc, gx, gy = acc + term, gx + q * Vx, gy + q * Vy
+        return -lambdad * acc / W, lambdad * gx / W, lambdad * gy / W
 
     return fg
 

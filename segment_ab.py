@@ -32,7 +32,14 @@ process times, on the synthetic 376x452 pair of ``chip_smoke.py`` in float32:
   state) and ``k15_sums_sha256`` of kernel K15's five outputs (every state,
   K1 = 21, 25 and 13) under each checkout's default variant: equal digests
   of a parent whose default is v1 and a tree whose default is v2 mean v2's
-  sums are v1's bit for bit;
+  sums are v1's bit for bit; ``k16_sums_sha256`` of kernel K16's (rg = 2,
+  the one-pixel lattices' states) and ``k13_patch4_sums_sha256`` of K13's
+  at patch 4 (``super_entropy``'s), None in a checkout without them;
+* the autodiff paths through K16 (``full_mixture(window_rg=2)``,
+  ``legacy_v2(data_term="bicubic")``) and K13 at patch 4
+  (``super_entropy``): a 30-sweep graph segment from a converged state and
+  a digest of the state 10 sweeps on (None in a checkout without those
+  kernels);
 * the torch operators one ``tpu_fast``, one red-black and one
   ``full_mixture`` sweep dispatch (the kernels themselves, launched through
   ``ctypes``, are not among them): equal counts mean the same glue work on
@@ -151,6 +158,10 @@ def one(root: str) -> dict:
         quad_gq.quad_node_gq_cuda).parameters else {})
     digest, d3, d10 = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
     d12, d13, d15 = hashlib.sha256(), hashlib.sha256(), hashlib.sha256()
+    d16, d13p = hashlib.sha256(), hashlib.sha256()
+    # K16 and K13 at patch 4, where the checkout has them
+    has16 = hasattr(autodiff_gq, "node_window_chain_gq_cuda")
+    has13p = "patch" in inspect.signature(autodiff_gq.node_chain_gq_cuda).parameters
     for name, c in (("full_mixture", fm), ("super_entropy", GQMAPConfig.super_entropy()),
                     ("ctf_level", GQMAPConfig.ctf_level())):
         c = dataclasses.replace(c, tor=0.0)
@@ -177,6 +188,14 @@ def one(root: str) -> dict:
                     got = autodiff_gq.node_chain_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad,
                                                          c.epsn)
                     d13.update(torch.stack(got).cpu().numpy().tobytes())
+                    if has16:
+                        got = autodiff_gq.node_window_chain_gq_cuda(I1d, VVd, *fields, c.K,
+                                                                    c.lambdad, c.epsn, 2)
+                        d16.update(torch.stack(got).cpu().numpy().tobytes())
+                elif has13p:
+                    got = autodiff_gq.node_chain_gq_cuda(I1d, VVd, *fields, c.K, c.lambdad,
+                                                         c.epsn, patch=c.patch)
+                    d13p.update(torch.stack(got).cpu().numpy().tobytes())
                 mu, sg = torch.stack(fields[:2]), torch.stack(fields[2:4])
                 edge = (mu, sg, *edge_reduced_gq.neighbour_stacks(mu, sg),
                         s.rou.to(dtype).contiguous())
@@ -202,6 +221,29 @@ def one(root: str) -> dict:
     out["k12_sums_sha256"] = d12.hexdigest()
     out["k13_k14_sums_sha256"] = d13.hexdigest()
     out["k15_sums_sha256"] = d15.hexdigest()
+    out["k16_sums_sha256"] = d16.hexdigest() if has16 else None
+    out["k13_patch4_sums_sha256"] = d13p.hexdigest() if has13p else None
+    # the autodiff paths through K16 and K13 at patch 4: a 30-sweep graph
+    # segment from sigma = 0.05, and a digest of the state 10 sweeps on
+    for name, c, has in (
+            ("full_mixture_window_autodiff", GQMAPConfig.full_mixture(
+                window_rg=2, gradient_estimator="autodiff", tor=0.0), has16),
+            ("legacy_v2_bicubic_autodiff", GQMAPConfig.legacy_v2(
+                data_term="bicubic", gradient_estimator="autodiff", tor=0.0), has16),
+            ("super_entropy_autodiff", GQMAPConfig.super_entropy(
+                gradient_estimator="autodiff", tor=0.0), has13p)):
+        if not has:  # their plain route runs out of memory or takes seconds a segment
+            out[f"{name}_graph_converged_ms"] = out[f"{name}_state_sha256"] = None
+            continue
+        c = dataclasses.replace(c, its=100000)
+        prob = pg.make_problem(c, I1, I2, fr, dev)
+        s0 = pg.init_state(c, fr, (H, W), seed=0, device=dev)
+        sc = s0._replace(sigmau=torch.full_like(s0.sigmau, 0.05),
+                         sigmav=torch.full_like(s0.sigmav, 0.05))
+        out[f"{name}_graph_converged_ms"] = segment_ms(c, sc, 30, prob)
+        end = pg.make_segment_runner(c, (H, W))(prob, sc, 10)[0]
+        out[f"{name}_state_sha256"] = hashlib.sha256(b"".join(
+            x.cpu().numpy().tobytes() for x in end)).hexdigest()
     for name, sw, prob in (
             ("tpu_fast", pg.make_sweep(cfg, (H, W)), problem),
             ("redblack", pg.make_sweep(dataclasses.replace(cfg, sweep_order="redblack"), (H, W)),

@@ -840,7 +840,7 @@ def test_variants_resolve():
     assert rv("K15", None, 2) == "v2" and rv("K15", None, 1) == rv("K15", "v1", 21) == "v1"
     for call in (lambda: rv("K13", "v2", 17), lambda: rv("K13", "v1", 65),
                  lambda: rv("K14", "v2", 1), lambda: rv("K13", "v3", 9),
-                 lambda: rv("K15", "v2", 1), lambda: rv("K16", None, 9)):
+                 lambda: rv("K15", "v2", 1), lambda: rv("K17", None, 9)):
         with pytest.raises(ValueError):
             call()
 
@@ -1147,8 +1147,8 @@ AD = dict(gradient_estimator="autodiff")
     (C.legacy_v2(edge_quad="reduced", **AD), "K6", "K15"),
     (C.blockmatch_v2(**AD), "K6", "K14"),
     (C.tpu_fast_super(**AD), "K1", "K15"),
-    (C.super_entropy(**AD), None, "K14"),
-    (C.full_mixture(window_rg=2, **AD), None, "K14"),
+    (C.super_entropy(**AD), "K13", "K14"),
+    (C.full_mixture(window_rg=2, **AD), "K16", "K14"),
     (C.full_mixture(data_term="chebyshev", **AD), None, "K14"),
     (C.legacy_v1(**AD), None, None),
     (C.legacy_v1(edge_quad="reduced", **AD), None, None),

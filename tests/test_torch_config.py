@@ -116,9 +116,9 @@ def test_legacy_settings_are_supported(override):
     dict(edge_kernel="cuda", edge_kind="truncquad", edge_quad="tensor",
          gradient_estimator="autodiff"),
     dict(edge_kernel="cuda", gradient_estimator="autodiff", edge_kind="truncquad"),
-    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="bicubic", window_rg=2),
+    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="bicubic", window_rg=5),
     dict(node_kernel="cuda", data_term="bicubic", window_rg=5),
-    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="bicubic", patch=4),
+    dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="bicubic", patch=2),
     dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="chebyshev"),
     dict(node_kernel="cuda", gradient_estimator="autodiff", data_term="quadratic"),
 ])
@@ -127,8 +127,9 @@ def test_cuda_route_on_a_path_no_kernel_computes_raises(override):
     # Charbonnier edges, K11 truncated-quadratic edges under the tensor rule
     # only (tpu_fast's edges are reduced), K12 the windowed bicubic term up
     # to a radius of 4 only, and under autodiff K1, K13 (the bicubic term
-    # without a window, one pixel a site), K6, K14 and K15 (Charbonnier edges)
-    # only: "cuda" there raises instead of running the plain path
+    # without a window, at patch 1 and 4), K16 (with a window of radius 1 to
+    # 4), K6, K14 and K15 (Charbonnier edges) only: "cuda" there raises
+    # instead of running the plain path
     with pytest.raises(ValueError, match="kernel K"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.tpu_fast(**override))
     # "auto" and "torch" run the plain sums there
@@ -221,6 +222,12 @@ SHAPE_CASES = {
     "K12 window_rg=5": (C.full_mixture(window_rg=5), "node", "K12", None),
     "K13 K=64": (C.full_mixture(K=64, **AD), "node", "K13", "K13"),
     "K13 K=65": (C.full_mixture(K=65, **AD), "node", "K13", None),
+    "K13 patch 4 K=16": (C.super_entropy(K=16, **AD), "node", "K13", "K13"),
+    "K13 patch 4 K=17": (C.super_entropy(K=17, **AD), "node", "K13", None),
+    "K13 patch 2": (C.full_mixture(patch=2, **AD), "node", "K13", None),
+    "K16 window_rg=4": (C.full_mixture(window_rg=4, **AD), "node", "K16", "K16"),
+    "K16 window_rg=5": (C.full_mixture(window_rg=5, **AD), "node", "K16", None),
+    "K16 K=17": (C.legacy_v2(data_term="bicubic", K=17, **AD), "node", "K16", None),
     "K2 K1=6200": (C.tpu_fast(edge_quad_k=6200), "edge", "K2", None),
     "K3 K=55": (C.full_mixture(K=55), "edge", "K3", "K3"),
     "K3 K=56": (C.full_mixture(K=56), "edge", "K3", None),

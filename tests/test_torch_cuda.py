@@ -286,7 +286,7 @@ def test_full_mixture_sweep_launches_edge_gq(dev, K):
     # K4 computes the bicubic node term once a sweep; K8 v2 the update, K9 v2's
     # tail in its last CTA (no K9 v1 launch)
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0])
+            == [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0])
 
 
 @pytest.mark.parametrize("preset", ["tpu_fast", "full_mixture"])
@@ -301,8 +301,8 @@ def test_redblack_sweep_launches_each_kernel_twice(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     # K8 once a half-step, K9 v2's tail once a sweep (in the second's K8)
-    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0] if preset == "tpu_fast"
-            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0])
+    want = ([6, 6, 0, 0, 0, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0, 0] if preset == "tpu_fast"
+            else [0, 0, 6, 6, 0, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -318,8 +318,8 @@ def test_super_preset_sweep_launches_its_kernels(dev, preset):
     res = pg.solve(cfg, I1, I2, flow_range=FlowRange(-2, 2, -2, 2), device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all() and res.map.shape == (8, 12, 2)
     # super_entropy's patch-summed bicubic node term through K4
-    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0] if preset == "tpu_fast_super"
-            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0])
+    want = ([3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0] if preset == "tpu_fast_super"
+            else [0, 0, 3, 3, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0])
     assert [k.launches - m for k, m in zip(COUNTED, n)] == want
 
 
@@ -364,10 +364,10 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
     with pytest.raises(ValueError, match="kernel K2 or K3, .* or kernel K11"):
         pg.make_sweep(cfg, (24, 40))
     # under autodiff K1 computes the cosine term, K13 the bicubic term without
-    # a window: the windowed bicubic term stays plain there
-    with pytest.raises(ValueError, match="kernel K1"):
+    # a window and K16 with one of radius 1 to 4: a wider window stays plain
+    with pytest.raises(ValueError, match="kernel K16, which does not take"):
         pg.make_sweep(GQMAPConfig.full_mixture(node_kernel="cuda", gradient_estimator="autodiff",
-                                               window_rg=2), (24, 40))
+                                               window_rg=5), (24, 40))
     # the windowed bicubic term is K12's: "cuda" builds a sweep that launches it
     cfg, problem, state = _graph_toy(dev, "full_mixture", node_kernel="cuda", window_rg=2,
                                      quad_chunk=7)
@@ -378,17 +378,17 @@ def test_cuda_edge_route_without_a_kernel_raises(dev, override):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
-    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
-    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0)),
+    ("legacy_v3", {}, (0, 0, 3, 0, 0, 0, 3, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0)),
+    ("blockmatch_v2", {}, (0, 0, 3, 0, 0, 3, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0)),
     ("tpu_fast", dict(window_rg=2, cheb_p=16, cheb_q=8),
-     (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0)),
+     (3, 3, 0, 0, 0, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0)),
     ("legacy_v2", dict(gradient_estimator="autodiff"),
-     (0, 0, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0)),
+     (0, 0, 0, 0, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0, 0)),
     ("tpu_fast", dict(gradient_estimator="autodiff", cheb_p=16, cheb_q=8),
-     (3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3)),
+     (3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0)),
     ("full_mixture", dict(gradient_estimator="autodiff", quad_chunk=7),
-     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 3, 0)),
+     (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 3, 0, 0)),
 ])
 def test_legacy_preset_solve_launches_its_kernels(dev, preset, kw, want):
     # K3 once a sweep on the legacy presets' Charbonnier tensor edges (L = 1;
@@ -425,7 +425,7 @@ def test_legacy_v1_segment_launches_no_kernel(dev):
         problem, pg.init_state(cfg, fr, (24, 40), device=dev), 3)
     assert done == 3 and bool(torch.isfinite(eb[:3]).all())
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3, 0, 0, 0, 0])
+            == [0, 0, 0, 0, 0, 0, 0, 3, 0, 3, 3, 3, 0, 0, 0, 0, 0])
 
 
 @pytest.mark.parametrize("probe", ["init", "warm", "clamp"])
@@ -476,7 +476,7 @@ def test_ctf_pyramid_launches_k3_once_a_sweep(dev):
     # K4 (the bicubic node term) and K3 once a sweep of every level, K8 v2 and
     # its tail too
     assert ([k.launches - m for k, m in zip(COUNTED, n)]
-            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0, 0, 0, 0, 0])
+            == [0, 0, sweeps, sweeps, 0, 0, 0, sweeps, 0, sweeps, 0, 0, 0, 0, 0, 0, 0])
 
 
 def test_structure_texture_on_card_matches_cpu(dev):
@@ -623,7 +623,7 @@ def test_graph_segment_stops_where_the_host_loop_does(dev):
     assert seg.polls == -(-(k + 1) // pg.POLL)
     # every replay of the window launched the sweep's kernels (K9 v2's tail in K8 v2)
     replays = min(pg.POLL * seg.polls, 30)
-    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0, 0, 0, 0, 0]
+    assert gn == [replays, replays, 0, 0, 0, 0, 0, replays, 0, replays, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_graph_segment_keeps_its_copy_of_a_host_init_flow(dev):
@@ -790,7 +790,8 @@ def test_full_mixture_graph_segment_launches_k4(dev):
     cfg, problem, state = _graph_toy(dev, "full_mixture", quad_chunk=7)
     seg = pg.make_segment_runner(cfg, (24, 40))
     _, counts = _counted(seg, problem, state, 20)
-    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0]
+    assert seg.route == "graph" and counts == [0, 0, 20, 20, 0, 0, 0, 20, 0, 20, 0, 0, 0, 0, 0,
+                                               0, 0]
 
 
 # K12 (the windowed bicubic node term) at the main paths' shapes on 376x452:
@@ -980,7 +981,7 @@ def test_windowed_bicubic_solve_launches_k12(dev, preset, kw):
                    device=dev)
     assert res.iters == 3 and np.isfinite(res.Energy).all()
     assert [k.launches - m for k, m in zip(COUNTED, n)] == [0, 0, 3, 0, 0, 0, 0, 3, 0, 3, 0, 0,
-                                                            3, 0, 0, 0]
+                                                            3, 0, 0, 0, 0]
 
 
 def test_windowed_bicubic_graph_segment_launches_k12(dev):
@@ -991,7 +992,7 @@ def test_windowed_bicubic_graph_segment_launches_k12(dev):
     seg = pg.make_segment_runner(cfg, (24, 40))
     g, counts = _counted(seg, problem, state, 20)
     assert seg.route == "graph" and _identical(g, h)
-    assert counts == [0, 0, 20, 0, 0, 0, 0, 20, 0, 20, 0, 0, 20, 0, 0, 0]
+    assert counts == [0, 0, 20, 0, 0, 0, 0, 20, 0, 20, 0, 0, 20, 0, 0, 0, 0]
 
 
 # K5 (the Chebyshev series' node quadrature): the coefficient field of a
@@ -1202,16 +1203,16 @@ def test_cheb_gq_resolve_variant_on_the_card(dev):
 
 
 @pytest.mark.parametrize("preset, kw, want", [
-    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
-    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
-    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
-    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0]),
+    ("full_mixture", dict(quad_chunk=7), [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0]),
+    ("tpu_fast", {}, [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0]),
+    ("super_entropy", {}, [0, 0, 3, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0]),
+    ("tpu_fast", dict(window_rg=2), [0, 3, 0, 0, 3, 0, 0, 3, 0, 3, 0, 0, 0, 0, 0, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, sweep_order="redblack"),
-     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0]),
+     [0, 0, 6, 0, 6, 0, 0, 6, 0, 3, 0, 0, 0, 0, 0, 0, 0]),
     ("full_mixture", dict(quad_chunk=7, gradient_estimator="autodiff"),
-     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0]),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0, 0]),
     ("tpu_fast", dict(gradient_estimator="autodiff"),
-     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3]),
+     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 0]),
 ])
 def test_chebyshev_solve_launches_k5(dev, preset, kw, want):
     # every Stein path of the Chebyshev term: K5 once a node-term evaluation
@@ -1420,9 +1421,9 @@ def test_nearest_variant_rule_and_refusals(dev):
 
 
 @pytest.mark.parametrize("preset, counts", [
-    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0]),
-    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0]),
-    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0, 0, 0, 0, 0])])
+    ("legacy_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0, 0]),
+    ("blockmatch_v2", [0, 0, 20, 0, 0, 20, 0, 20, 0, 20, 0, 0, 0, 0, 0, 0, 0]),
+    ("legacy_v3", [0, 0, 20, 0, 0, 0, 20, 20, 0, 20, 0, 0, 0, 0, 0, 0, 0])])
 def test_legacy_graph_segment_launches_k6_or_k7(dev, preset, counts):
     # the nearest-lookup presets' segments on the graph route: K3 and K6 (or
     # K7) once a replayed sweep
@@ -1943,7 +1944,7 @@ def test_legacy_v1_graph_segment_launches_k10_and_k11(dev, kw):
     seg = pg.make_segment_runner(cfg, (24, 40))
     g, got = _counted(seg, problem, state, 20)
     assert seg.route == "graph" and _identical(g, h)
-    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20, 0, 0, 0, 0]
+    assert got == [0, 0, 0, 0, 0, 0, 0, 20, 0, 20, 20, 20, 0, 0, 0, 0, 0]
 
 
 
@@ -2163,7 +2164,7 @@ def test_autodiff_graph_segment_launches_its_kernels(dev, preset, want, variant,
     # K13 and K14 in each variant
     monkeypatch.setattr(autodiff_gq, "_DEFAULT_VARIANT", variant)
     names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11", "K12",
-             "K13", "K14", "K15")
+             "K13", "K14", "K15", "K16")
     kw = dict(gradient_estimator="autodiff", corr_tor=0.99)
     cfg, problem, state = _graph_toy(dev, preset, **kw)
     seg = pg.make_segment_runner(cfg, (24, 40))
@@ -2183,6 +2184,176 @@ def test_autodiff_graph_segment_launches_its_kernels(dev, preset, want, variant,
         ek = float((getattr(one, f).double() - getattr(gold, f)).abs().max())
         ep = float((getattr(ref, f).double() - getattr(gold, f)).abs().max())
         assert ek <= 2.0 * ep + 1e-6, (f, ek, ep)
+
+
+
+# ---- K16 and K13 at patch 4: the autodiff estimator's windowed and super-lattice
+# bicubic node terms (chain_block_kernel in csrc/node_gq.cu) -----------------------
+
+# name: (window radius rg, 0 for K13 at patch 4; K; lattice (L, M, N))
+CHAIN_BLOCK_CASES = {"K16 rg=1": (1, 9, (3, 47, 57)), "K16 rg=2": (2, 9, (3, 47, 57)),
+                     "K16 rg=3": (3, 5, (2, 33, 41)), "K16 rg=4": (4, 9, (1, 33, 41)),
+                     "K13 patch 4": (0, 11, (3, 12, 14))}
+
+
+def _chain_block_calls(case, st, frames, dtype, dev):
+    """(kernel, plain version, arguments, keywords) of K16 or K13 at patch 4."""
+    rg, K, _ = CHAIN_BLOCK_CASES[case]
+    site = [x.to(dev, dtype).contiguous() for x in st[:5]]
+    I1, VV = (x.to(dev, dtype) for x in frames)
+    if rg:
+        return (autodiff_gq.node_window_chain_gq_cuda, autodiff_gq.node_window_chain_gq_torch,
+                (I1, VV, *site, K, 1.0, 1e-6, rg), {})
+    return (autodiff_gq.node_chain_gq_cuda, autodiff_gq.node_chain_gq_torch,
+            (I1, VV, *site, K, 1.0, 1e-6), dict(patch=4))
+
+
+def _chain_block_inputs(case, probe, seed=0):
+    rg, _, (L, M, N) = CHAIN_BLOCK_CASES[case]
+    g = torch.Generator().manual_seed(len(probe) + 7 * rg + seed)
+    P = 1 if rg else 4
+    return list(_autodiff_state(g, L, M, N, probe)), _autodiff_frames(M * P, N * P)
+
+
+@pytest.mark.parametrize("probe", ["sigma 0.05", "init", "bounds", "clamp"])
+@pytest.mark.parametrize("case", list(CHAIN_BLOCK_CASES))
+def test_chain_block_kernels_match_plain(dev, case, probe):
+    # float64 within 1e-10 of each output's largest magnitude; float32 against
+    # the f64 golden: the kernel's error at most twice the plain version's
+    # ("bounds": queries on the frame's clamp, JAX's half slope there)
+    st, frames = _chain_block_inputs(case, probe)
+    gold = None
+    for dtype in (torch.float64, torch.float32):
+        kern, plain, args, kw = _chain_block_calls(case, st, frames, dtype, dev)
+        n = kern.launches
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == n + 1
+        if dtype == torch.float64:
+            gold = want
+            for k, (a, b) in enumerate(zip(got, want)):
+                _close(a, b, dtype, f"{case} output {k}")
+        else:
+            for k, (a, p, w) in enumerate(zip(got, want, gold)):
+                ek, ep = float((a.double() - w).abs().max()), float((p.double() - w).abs().max())
+                assert ek <= 2.0 * ep + 1e-6 * float(w.abs().max()), (case, k, ek, ep)
+
+
+@pytest.mark.parametrize("case", list(CHAIN_BLOCK_CASES))
+def test_chain_block_kernels_routes_nan_inf_and_shard_block(dev, case):
+    # every route gives the same bits: the window as shifted copies (the
+    # default), as one copy (a budget the copies do not fit), through L1 (a
+    # budget of 0: every CTA and site counted) and the runtime-K instance;
+    # NaN inputs: NaN exactly where the plain version's is, every other site
+    # the NaN-free call's bit for bit; infinite inputs: non-finite where the
+    # plain version's are; a shard's block (at its pixel origin) the whole
+    # lattice's sums there, bit for bit
+    rg, K, (L, M, N) = CHAIN_BLOCK_CASES[case]
+    P = 1 if rg else 4
+    st, frames = _chain_block_inputs(case, "sigma 0.05", seed=1)
+    for dtype in (torch.float64, torch.float32):
+        kern, plain, args, kw = _chain_block_calls(case, st, frames, dtype, dev)
+        clean = kern(*args, **kw)
+        cnt = torch.zeros(2, dtype=torch.int64, device=dev)
+        every = torch.zeros(2, dtype=torch.int64, device=dev)
+        one_copy = torch.zeros(2, dtype=torch.int64, device=dev)
+        assert _same_bits(kern(*args, **kw, l1_counts=cnt), clean)
+        assert _same_bits(kern(*args, **kw, window_bytes=0, l1_counts=every), clean)
+        assert every.tolist() == [autodiff_gq.chain_ctas((L, M, N), rg), L * M * N]
+        assert _same_bits(kern(*args, **kw, window_bytes=6 * 1024, l1_counts=one_copy), clean)
+        assert _same_bits(kern(*args, **kw, generic=True), clean)
+        bad = [x.clone() for x in st]
+        bad[0][0, 7, 9], bad[4][L - 1, M - 1, N - 1], bad[2][0, 3, 3] = (float("nan"),) * 3
+        _, _, bargs, _ = _chain_block_calls(case, bad, frames, dtype, dev)
+        got, want = kern(*bargs, **kw), plain(*bargs, **kw)
+        for a, w, c in zip(got, want, clean):
+            nan = torch.isnan(w)
+            assert bool(nan.any()) and torch.equal(torch.isnan(a), nan)
+            assert torch.equal(a[~nan], c[~nan])
+        inf = [x.clone() for x in st]
+        inf[1][0, 5, 6], inf[3][L - 1, 2, 3] = float("inf"), float("inf")
+        I1 = frames[0].clone()
+        I1[9, 11] = float("inf")
+        _, _, iargs, _ = _chain_block_calls(case, inf, (I1, frames[1]), dtype, dev)
+        got, want = kern(*iargs, **kw), plain(*iargs, **kw)
+        for a, w in zip(got, want):
+            assert torch.equal(torch.isfinite(a), torch.isfinite(w))
+        r0, c0, m, n = (5, 7, 17, 23) if rg else (3, 4, 6, 7)
+        blk = (slice(None), slice(r0, r0 + m), slice(c0, c0 + n))
+        part = kern(*args[:2], *[x[blk].contiguous() for x in args[2:7]], *args[7:], **kw,
+                    origin=(r0 * P, c0 * P), local_image_shape=(m * P, n * P))
+        assert all(torch.equal(a, c[blk]) for a, c in zip(part, clean))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chain_block_instances_keep_nothing_in_local_memory(dev, dtype):
+    # K16 at every radius (K = 9's instance and the runtime-K one) and K13 at
+    # patch 4 (K = 11's and the runtime-K one): no spill to local memory
+    for rg in (0, 1, 2, 3, 4):
+        K = 11 if rg == 0 else 9
+        for generic in (False, True):
+            occ = autodiff_gq.occupancy(K, rg, dtype, generic=generic)
+            assert occ["local_bytes"] == 0 and occ["ctas_per_sm"] >= 1, (rg, generic, occ)
+
+
+@pytest.mark.parametrize("preset, override, want", [
+    ("full_mixture", dict(window_rg=2), dict(K14=1, K16=1)),
+    ("legacy_v2", dict(data_term="bicubic"), dict(K14=1, K16=1)),
+    ("super_entropy", {}, dict(K13=1, K14=1)),
+])
+def test_autodiff_window_and_super_segments_launch_their_kernels(dev, preset, override, want):
+    # the windowed and the super lattice's bicubic term under autodiff: K16 or
+    # K13 at patch 4 and K14 once a replayed sweep; a sweep through them as
+    # close to the f64 golden (the plain route in float64) as the plain route
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9 v1", "K9", "K10", "K11", "K12",
+             "K13", "K14", "K15", "K16")
+    kw = dict(gradient_estimator="autodiff", corr_tor=0.99, **override)
+    shape = (32, 40) if preset == "super_entropy" else (24, 40)
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, shape)
+    fr = FlowRange(-2, 2, -2, 2)
+
+    def made(**more):
+        cfg = getattr(GQMAPConfig, preset)(its=60, eval_every=30, **kw, **more)
+        problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)
+        return cfg, problem, pg.init_state(cfg, fr, shape, device=dev)
+
+    cfg, problem, state = made()
+    state = state._replace(sigmau=torch.full_like(state.sigmau, 0.3),
+                           sigmav=torch.full_like(state.sigmav, 0.4))
+    seg = pg.make_segment_runner(cfg, shape)
+    res, counts = _counted(seg, problem, state, 20)
+    assert seg.route == "graph" and res[1] == 20 and bool(torch.isfinite(res[2][:20]).all())
+    assert counts == [20 * want.get(k, 0) for k in names]
+    plain = dict(node_kernel="torch", edge_kernel="torch")
+    c64, p64, _ = made(dtype="float64", **plain)
+    s64 = pg.GQState(*(x.double() if x.is_floating_point() else x for x in state))
+    gold = pg.make_sweep(c64, shape)(p64, s64)[0]
+    one = pg.make_sweep(cfg, shape)(problem, state)[0]
+    ref = pg.make_sweep(dataclasses.replace(cfg, **plain), shape)(problem, state)[0]
+    for f in ("muu", "muv", "sigmau", "sigmav", "pn", "rou"):
+        ek = float((getattr(one, f).double() - getattr(gold, f)).abs().max())
+        ep = float((getattr(ref, f).double() - getattr(gold, f)).abs().max())
+        assert ek <= 2.0 * ep + 1e-6, (f, ek, ep)
+
+
+def test_chain_block_kernels_past_their_limits(dev):
+    # K16 past radius 4 and K13 at patch 2: "auto" sweeps on the plain
+    # version with neither kernel launched, "cuda" is refused naming the limit
+    fr = FlowRange(-2, 2, -2, 2)
+    r = np.random.default_rng(0)
+    I1 = r.uniform(0, 255, (16, 24))
+    k13, k16 = autodiff_gq.node_chain_gq_cuda, autodiff_gq.node_window_chain_gq_cuda
+    for override in (dict(window_rg=5), dict(patch=2)):
+        cfg = GQMAPConfig.full_mixture(gradient_estimator="autodiff", L=2, **override)
+        problem = pg.make_problem(cfg, I1, np.roll(I1, 1, axis=1), fr, dev)
+        state = pg.init_state(cfg, fr, (16, 24), device=dev)
+        n = (k13.launches, k16.launches)
+        st, aux = pg.make_sweep(cfg, (16, 24))(problem, state)
+        torch.cuda.synchronize()
+        assert (k13.launches, k16.launches) == n and bool(torch.isfinite(aux.energy))
+        with pytest.raises(ValueError, match="does not take this configuration's shape"):
+            pg.make_sweep(dataclasses.replace(cfg, node_kernel="cuda"), (16, 24))
 
 
 # ---- D7: every configuration the JAX package runs runs on the card -------------------

@@ -723,14 +723,15 @@ def test_node_kernel_names_k6_and_k7(preset, kw, want):
 @pytest.mark.parametrize("preset", ["legacy_v2", "blockmatch_v2", "legacy_v3"])
 def test_cuda_route_under_autodiff_raises(preset):
     # under autodiff K6 computes the nearest lookup's value (its gradient is
-    # zero: the index is a floor), so "cuda" runs there; the windowed bicubic
-    # term of the same presets no kernel computes under autodiff: "cuda" raises
+    # zero: the index is a floor), so "cuda" runs there; the windowed
+    # Chebyshev term of the same presets no kernel computes under autodiff
+    # (the windowed bicubic term runs K16 since it was ported): "cuda" raises
     cfg = getattr(gqmap_tpu_torch.GQMAPConfig, preset)
     assert pg._node_kernel(cfg(gradient_estimator="autodiff")) == "K6"
     pg.check_supported(cfg(node_kernel="cuda", gradient_estimator="autodiff"))
     with pytest.raises(ValueError, match="kernel K6.*kernel K7"):
         pg.check_supported(cfg(node_kernel="cuda", gradient_estimator="autodiff",
-                               data_term="bicubic", window_rg=2))
+                               data_term="chebyshev", window_rg=2))
     pg.check_supported(cfg(node_kernel="auto", gradient_estimator="autodiff"))
 
 

@@ -435,14 +435,14 @@ def test_full_mixture_accepts_every_node_route(route):
 
 
 @pytest.mark.parametrize("override", [dict(window_rg=5, data_term="bicubic"),
-                                      dict(gradient_estimator="autodiff", window_rg=2),
+                                      dict(gradient_estimator="autodiff", window_rg=5),
                                       dict(data_term="chebyshev", cheb_q=96),
-                                      dict(gradient_estimator="autodiff", patch=4)])
+                                      dict(gradient_estimator="autodiff", patch=2)])
 def test_cuda_node_route_without_a_kernel_raises(override):
-    # the windowed bicubic term beyond K12's largest radius (4), the windowed
-    # and the super lattice's bicubic term under autodiff (K13 takes one pixel
-    # a site without a window) and a Chebyshev series of more v-degrees than
-    # kernel K5 keeps in registers stay plain: "cuda" there raises
+    # the windowed bicubic term beyond K12's largest radius (4), under
+    # autodiff beyond K16's (4) and on a lattice of 2 x 2 blocks (K13 takes
+    # patch 1 and 4) and a Chebyshev series of more v-degrees than kernel K5
+    # keeps in registers stay plain: "cuda" there raises
     with pytest.raises(ValueError, match="kernel K"):
         check_supported(gqmap_tpu_torch.GQMAPConfig.full_mixture(node_kernel="cuda", **override))
     check_supported(gqmap_tpu_torch.GQMAPConfig.full_mixture(node_kernel="auto", **override))
